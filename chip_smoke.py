@@ -1,27 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one line (any failure exits non-zero, and the last
-line is printed only when every phase passed):
+Phases, each printing one line or more (any failure exits non-zero, and the
+last line is printed only when every phase passed):
 
 1. environment: torch version, the card's name and power limit
    (``nvidia-smi``); TF32 off, so the plain versions run in full FP32;
-2. build: kernels A-D from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
+2. build: kernels A-E from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
    ``nvcc`` (seconds printed);
 3. per kernel, at the headline shapes (77 halo'd 660,000-sample chunk views
    of 48 kHz audio): the kernel against its plain version on the same
-   inputs, max |dev| against the bound below, and both times;
+   inputs, max |dev| against the bound below, the kernel's, the plain
+   version's and one library call's time, and the bound the card's memory
+   rate and FP32 rate set; also kernel A on a 10 s noise row (the
+   threshold spectra) and kernel B with one unit tap (the staged mask);
 4. golden: ``reduce_noise(..., device="cuda")`` in float32 on
-   ``tests/golden/golden_v1.npz`` (44.1 kHz), unchunked and chunk 8000 /
-   padding 1500, against the reference outputs;
+   ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary and
+   the four stationary configurations against the reference outputs;
 5. headline: 960 s of 48 kHz mono (tones plus non-stationary noise, from a
    seed) through ``reduce_noise`` with its defaults, against the port's
-   staged plain path on the card; every kernel must have launched on that
-   run; wall time as the minimum of 3 runs after a warm-up (CUDA events);
-6. one JSON line of per-kernel results, then the last line
-   ``{"ok": true, "device": {...}}``.
+   staged plain path on the card; every kernel of the path must have
+   launched; wall time as the minimum of 3 runs after a warm-up (CUDA
+   events);
+6. stationary headline: the same signal with a separate 10 s noise clip,
+   ``stationary=True``, the same way;
+7. batch: ``reduce_noise_batch`` on 32 clips of 10 s, stationary with
+   self-noise, against the per-signal calls;
+8. staged geometry: hop 300 with a 1024 window, which kernels A-D do not
+   serve, through the staged path with kernel B's mask;
+9. split geometry: a frequency smoothing wide enough that the JAX package
+   takes its split path, on both engines;
+10. one JSON line of per-kernel results, then the last line
+    ``{"ok": true, "device": {...}}``.
+
+Each path's launches are counted from 0 just before it runs and read just
+after. Stationary outputs are binary-threshold gates: a cell whose dB value
+lies within float32 resolution of the threshold may decide either way in
+two float32 implementations, and one such cell moves the output by ~1e-3 of
+its peak. So a stationary path is held to the plain path twice: as it is,
+and with the plain path taking the kernels' decision at the cells within
+``BORDER_DB`` of the threshold; every decision that differs must lie there,
+and the second comparison must hold the end-to-end bound.
 
 Imports nothing of JAX or of the JAX package ``noisereduce_tpu``.
 """
@@ -35,25 +56,46 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 SR = 48000
 HEADLINE_SECONDS = 960
+NOISE_SECONDS = 10
 CHUNK, PADDING = 600000, 30000
+BATCH_CLIPS, BATCH_SECONDS = 32, 10
+STAGED_SR, STAGED_SECONDS, STAGED_KW = 16000, 30, dict(n_fft=1024, hop_length=300)
+# n_grad_freq 64: the merged TPU kernel's frequency halo (66 bins) leaves
+# under 16 owned bins per 128-lane tile, so the JAX package splits the gate
+SPLIT_SR, SPLIT_SECONDS, SPLIT_KW = 16000, 30, dict(freq_mask_smooth_hz=2000)
+# the card's published peaks (H100 SXM data sheet, at a 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 # float32 agreement bounds, each with its reason
 BOUNDS = {
     # 1024-term FP32 sums in another order than cuFFT: x max|ref|
     "spectra": 2e-5,
-    # mask units (the mask is in [0, 1]); FMA vs separate rounding in the
-    # IIR, amplified by the sigmoid slope of 10: absolute
+    # mask units (the mask is in [0, 1]); float64 IIR carry in both, float
+    # vs double rounding of the stored floor, amplified by the sigmoid
+    # slope of 10: absolute
     "nonstationary_mask": 1e-4,
     # 2n+1 = 11 FMAs of values <= 1: absolute
     "freq_smooth_blend": 1e-6,
     # 4 * 2 * 513-term FP32 sums vs cuFFT's irfft + fold: x max|ref|
     "istft_ola": 2e-5,
+    # mask units, over the cells whose binary decision agrees: a few FMAs of
+    # the time taps in another order: absolute
+    "stationary_mask": 1e-5,
 }
 RELATIVE = {"spectra", "istft_ola"}
+# kernel E: the share of cells that may differ by more than its bound (a
+# dB value within float32 resolution of the threshold decides either way;
+# NOTES.md:638-639)
+FLIP_SHARE = 1e-5
+# a decision may differ only where |dB - threshold| is below the float32
+# resolution of the threshold statistics (tests/test_fused_pipeline.py:265)
+BORDER_DB = 2e-3
 # end to end, as tests/test_fused_pipeline.py:55 holds the TPU kernel: x max|ref|
 E2E_BOUND = 5e-5
 SOURCES = {
@@ -61,12 +103,18 @@ SOURCES = {
     "nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/nonstationary_mask.cu",
     "freq_smooth_blend": "noisereduce_tpu_torch/ops/cuda/csrc/freq_smooth_blend.cu",
     "istft_ola": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
+    "stationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/stationary_mask.cu",
 }
+# the TPU kernel each replaces (file:line), and the rows of PERF.md's
+# kernel table it serves
 REPLACES = {
-    "spectra": "noisereduce_tpu/ops/pallas/kernels.py:152",
-    "nonstationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:422",
-    "freq_smooth_blend": "noisereduce_tpu/ops/pallas/kernels.py:906",
-    "istft_ola": "noisereduce_tpu/ops/pallas/kernels.py:736",
+    "spectra": "noisereduce_tpu/ops/pallas/kernels.py:152 (rows 1, 1s, 2); "
+               "noisereduce_tpu/ops/pallas/dispatch.py:556 (row 3)",
+    "nonstationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:422 (rows 1, 2); "
+                          "noisereduce_tpu/ops/pallas_mask.py:364 (row 7)",
+    "freq_smooth_blend": "noisereduce_tpu/ops/pallas/kernels.py:906 (rows 1, 1s, 2)",
+    "istft_ola": "noisereduce_tpu/ops/pallas/kernels.py:736 (rows 1, 1s, 2)",
+    "stationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:533 (rows 1s, 2)",
 }
 
 
@@ -113,86 +161,338 @@ def headline_signal(seconds: int, sr: int = SR, seed: int = SEED) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def noise_clip(seconds: int, sr: int = SR, seed: int = SEED + 1) -> np.ndarray:
+    """A separate noise recording for the stationary statistics: white noise
+    at the headline's mean noise level. float32."""
+    rng = np.random.default_rng(seed)
+    return (0.05 * rng.standard_normal(seconds * sr)).astype(np.float32)
+
+
 def max_dev(got: torch.Tensor, ref: torch.Tensor):
     got, ref = got.double(), ref.double()
     return float((got - ref).abs().max()), float(ref.abs().max())
 
 
-def kernel_phase(x_cuda: torch.Tensor, cfg):
-    """Each kernel against its plain version at the main path's shapes."""
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved: int, ops: float):
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the FP32 rate, ms."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fft_ops(n_fft: int) -> float:
+    """Operations of one real FFT of length n_fft (2.5 N log2 N)."""
+    return 2.5 * n_fft * np.log2(n_fft)
+
+
+def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
+    """Each kernel against its plain version at the main path's shapes.
+    ``cfg`` is the non-stationary configuration, ``scfg`` the stationary
+    one (the same STFT geometry and smoothing)."""
+    from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
     from noisereduce_tpu_torch.ops.dsp import tri_norm
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
     geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
     ngf, ngt = cfg.smoothing
     tt, tf = tri_norm(ngt), tri_norm(ngf)
+    window = torch.hann_window(geo.win, periodic=True, device=x_cuda.device)
     results = {}
 
-    def record(name, fn, ref_fn, got, ref):
+    def record(name, fn, ref_fn, got, ref, moved, ops, library_fn=None, label=None):
         dev, scale = max_dev(got, ref)
-        bound = BOUNDS[name] * (scale if name in RELATIVE else 1.0)
+        lim = BOUNDS[name] * (scale if name in RELATIVE else 1.0)
         finite = bool(torch.isfinite(got).all())
         ms = time_ms(fn)
         plain_ms = time_ms(ref_fn)
+        library_ms = time_ms(library_fn) if library_fn is not None else None
+        bound_ms, bound_by = bound(moved, ops)
+        lib = f"{library_ms:.3f} ms" if library_ms is not None else "none"
         print(
-            f"kernel {name}: max|dev| {dev:.3e} bound {bound:.3e} "
-            f"(max|ref| {scale:.4g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms",
+            f"kernel {label or name}: max|dev| {dev:.3e} bound {lim:.3e} "
+            f"(max|ref| {scale:.4g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"library {lib} card bound {bound_ms:.3f} ms ({bound_by}, "
+            f"{moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)",
             flush=True,
         )
-        if not finite or not dev <= bound:
-            fail(f"kernel {name} disagrees with its plain version")
-        results[name] = dict(max_abs_err=dev, ms=ms, plain_ms=plain_ms)
+        if not finite or not dev <= lim:
+            fail(f"kernel {label or name} disagrees with its plain version")
+        if label is None:
+            results[name] = dict(
+                max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+            )
 
+    # A: spectra of the 77 halo'd views, read straight from the signal
     a = (x_cuda[None], geo, CHUNK, PADDING)
     re, im = K.spectra(*a)
     rre, rim = K.spectra_ref(*a)
     torch.cuda.synchronize()
+    views = extract_chunks(x_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len)
+    views = views.contiguous()
+    tab = K._device_f32("analysis", geo.scfg, x_cuda.device)
     record(
         "spectra", lambda: K.spectra(*a), lambda: K.spectra_ref(*a),
         torch.stack([re, im]), torch.stack([rre, rim]),
+        nbytes(x_cuda, tab, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        library_fn=lambda: torch.stft(
+            views, geo.n_fft, geo.hop, geo.win, window, center=True,
+            pad_mode="constant", return_complex=True,
+        ),
     )
-    del rre, rim
+    del rre, rim, views
 
+    # A on the noise clip (TPU kernel row 3: the threshold's spectra)
+    ngeo = gate_geometry(cfg.stft, noise_cuda.shape[-1])
+    an = (noise_cuda[None], ngeo)
+    nre, nim = K.spectra(*an)
+    nrre, nrim = K.spectra_ref(*an)
+    record(
+        "spectra", lambda: K.spectra(*an), lambda: K.spectra_ref(*an),
+        torch.stack([nre, nim]), torch.stack([nrre, nrim]),
+        nbytes(noise_cuda, tab, nre, nim), nre.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        library_fn=lambda: torch.stft(
+            noise_cuda, geo.n_fft, geo.hop, geo.win, window, center=True,
+            pad_mode="constant", return_complex=True,
+        ),
+        label="spectra (10 s noise row)",
+    )
+    del nre, nim, nrre, nrim
+
+    cells = re.numel()
     b = (re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
          cfg.sigmoid_slope_nonstationary, tt)
     m = K.nonstationary_mask(*b)
     rm = K.nonstationary_mask_ref(*b)
     record("nonstationary_mask", lambda: K.nonstationary_mask(*b),
-           lambda: K.nonstationary_mask_ref(*b), m, rm)
+           lambda: K.nonstationary_mask_ref(*b), m, rm,
+           nbytes(re, im, m), cells * (30.0 + 2 * len(tt)))
     del rm
+
+    # B with one unit tap (TPU kernel row 7: the staged path's mask)
+    b1 = b[:-1] + ((1.0,),)
+    m1 = K.nonstationary_mask(*b1)
+    rm1 = K.nonstationary_mask_ref(*b1)
+    record("nonstationary_mask", lambda: K.nonstationary_mask(*b1),
+           lambda: K.nonstationary_mask_ref(*b1), m1, rm1,
+           nbytes(re, im, m1), cells * 32.0, label="nonstationary_mask (unit tap)")
+    del m1, rm1
 
     c = (m, tf, cfg.prop_decrease)
     mb = K.freq_smooth_blend(*c)
     rmb = K.freq_smooth_blend_ref(*c)
+    taps_f = torch.as_tensor(tf, dtype=torch.float32, device=re.device).view(1, 1, -1)
+    m_rows = m.reshape(-1, 1, geo.n_bins)
     record("freq_smooth_blend", lambda: K.freq_smooth_blend(*c),
-           lambda: K.freq_smooth_blend_ref(*c), mb, rmb)
+           lambda: K.freq_smooth_blend_ref(*c), mb, rmb,
+           nbytes(m, mb), cells * (2.0 * len(tf) + 2),
+           # prop_decrease 1: the blend is the identity, so one convolution
+           # computes the same function
+           library_fn=lambda: F.conv1d(m_rows, taps_f, padding=ngf))
     del rmb
 
     d = (re, im, mb, geo, PADDING, CHUNK)
     y = K.istft_ola(*d)
     ry = K.istft_ola_ref(*d)
+    zm = torch.complex(re * mb, im * mb).transpose(1, 2).contiguous()
     record("istft_ola", lambda: K.istft_ola(*d), lambda: K.istft_ola_ref(*d),
-           y, ry)
+           y, ry, nbytes(re, im, mb, y),
+           re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
+           library_fn=lambda: torch.istft(
+               zm, geo.n_fft, geo.hop, geo.win, window, center=True,
+               length=geo.view_len))
+    del zm, y, ry, m, mb
+
+    # E against its plain version, the threshold from a 10 s noise clip
+    thr = stationary_noise_threshold(noise_cuda, scfg)
+    e = (re, im, thr, 1, scfg.prop_decrease, tt)
+    got = K.stationary_mask(*e)
+    ref = K.stationary_mask_ref(*e)
+    diff = (got - ref).abs()
+    off = diff > BOUNDS["stationary_mask"]
+    n_off = int(off.sum())
+    rest = float(diff[~off].max())
+    dev = float(diff.max())
+    ms, plain_ms = time_ms(lambda: K.stationary_mask(*e)), time_ms(lambda: K.stationary_mask_ref(*e))
+    bound_ms, bound_by = bound(nbytes(re, im, thr, got), cells * (12.0 + 2 * len(tt)))
+    print(
+        f"kernel stationary_mask: {n_off} of {cells} cells off by more than "
+        f"{BOUNDS['stationary_mask']:.0e} (bound {FLIP_SHARE * cells:.0f}, a "
+        f"share of {FLIP_SHARE:.0e}); max|dev| over the rest {rest:.3e} bound "
+        f"{BOUNDS['stationary_mask']:.0e}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        f"library none card bound {bound_ms:.3f} ms ({bound_by})",
+        flush=True,
+    )
+    if n_off > FLIP_SHARE * cells or not rest <= BOUNDS["stationary_mask"]:
+        fail("kernel stationary_mask disagrees with its plain version")
+    results["stationary_mask"] = dict(
+        max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, cells_flipped=n_off,
+        max_abs_err_unflipped=rest,
+    )
     return results
+
+
+def gate_views(y2d: torch.Tensor, chunk_size: int, padding: int):
+    """The views the gate sees (``parallel.chunking.process_chunked``):
+    (rows * n_chunks, view) and n_chunks."""
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
+
+    if y2d.shape[-1] <= chunk_size:
+        return F.pad(y2d, (padding, padding)), 1
+    v = extract_chunks(y2d, chunk_size, padding)
+    return v.reshape(-1, v.shape[-1]).contiguous(), v.shape[1]
+
+
+def kernel_decisions(views, k, yn, cfg):
+    """The kernels' binary decisions on (rows * k, view) views: kernel A's
+    spectra, the kernel-route threshold of the noise rows ``yn``, E with
+    prop 1 and one unit tap."""
+    from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+
+    re, im = K.spectra(views, gate_geometry(cfg.stft, views.shape[-1]))
+    return K.stationary_mask(re, im, stationary_noise_threshold(yn, cfg), k, 1.0, (1.0,))
+
+
+def staged_margin(views, k, yn, cfg):
+    """The staged path's spectra of the views and their dB - threshold."""
+    from noisereduce_tpu_torch.ops.dsp import amp_to_db, noise_db_threshold
+    from noisereduce_tpu_torch.ops.stft import stft
+
+    re, im = stft(views, cfg.stft)
+    thr = noise_db_threshold(*stft(yn, cfg.stft), cfg.n_std_thresh_stationary)
+    if thr.ndim == 2:
+        thr = thr.repeat_interleave(k, 0)[:, None, :]
+    return re, im, amp_to_db(torch.sqrt(re * re + im * im), top_db=80.0, axis=-2) - thr
+
+
+def stationary_vs_plain(label, out, y2d, yn, cfg, chunk_size, padding):
+    """Hold a stationary gate's output from the card against the staged
+    plain path on the card, as it is and with the plain path taking the
+    kernels' decisions within ``BORDER_DB`` of the threshold (see the
+    module note). y2d: (rows, n) and yn: noise rows, on the card."""
+    from noisereduce_tpu_torch.models.spectral_gate import (
+        _apply_mask_and_invert, _gate_stationary_staged,
+    )
+    from noisereduce_tpu_torch.ops.dsp import noise_db_threshold, smooth_mask
+    from noisereduce_tpu_torch.ops.stft import stft
+    from noisereduce_tpu_torch.parallel.chunking import assemble_chunks, process_chunked
+
+    rows, n = y2d.shape
+    with torch.no_grad():
+        thr_s = noise_db_threshold(*stft(yn, cfg.stft), cfg.n_std_thresh_stationary)
+        plain = process_chunked(
+            lambda c: _gate_stationary_staged(c, thr_s, cfg), y2d, chunk_size, padding
+        )
+        views, k = gate_views(y2d, chunk_size, padding)
+        dec_k = kernel_decisions(views, k, yn, cfg)
+        re, im, margin = staged_margin(views, k, yn, cfg)
+        dec_s = (margin > 0).to(re.dtype)
+        flips = dec_s != dec_k
+        n_flips = int(flips.sum())
+        worst = float(margin.abs()[flips].max()) if n_flips else 0.0
+        mask = torch.where(margin.abs() <= BORDER_DB, dec_k, dec_s)
+        del margin, dec_k, dec_s, flips
+        mask = mask * cfg.prop_decrease + (1.0 - cfg.prop_decrease)
+        if cfg.smoothing is not None:
+            mask = smooth_mask(mask, *cfg.smoothing, time_major=True)
+        y = _apply_mask_and_invert((re, im), mask, cfg, views.shape[-1])
+        if k > 1:
+            aligned = assemble_chunks(y.reshape(rows, k, -1), chunk_size, padding, n)
+        else:
+            aligned = y[:, padding : padding + n]
+    out_t = torch.as_tensor(np.asarray(out, np.float64)).reshape(rows, n)
+    dev, _ = max_dev(out_t, plain.cpu())
+    dev_al, scale_al = max_dev(out_t, aligned.cpu())
+    lim = E2E_BOUND * scale_al
+    print(
+        f"{label} vs staged plain path: max|dev| {dev:.3e}; decisions that "
+        f"differ {n_flips} of {re.numel()} cells, largest |dB - thr| among them "
+        f"{worst:.3e} dB (bound {BORDER_DB:.0e}); with the plain path taking "
+        f"the kernels' decisions there: max|dev| {dev_al:.3e} bound {lim:.3e} "
+        f"(max|ref| {scale_al:.4g})",
+        flush=True,
+    )
+    if worst > BORDER_DB or not dev_al <= lim:
+        fail(f"{label} disagrees with the staged plain path")
+
+
+def run_path(K, label, fn, expected):
+    """Run one path with the launch counts set to 0 just before it and read
+    just after; every kernel in ``expected`` must have launched exactly
+    that often (the others not at all)."""
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    print(f"{label} launches: {counts}", flush=True)
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    return out, counts
+
+
+def check_output(label, out, like) -> None:
+    if out.shape != like.shape or out.dtype != like.dtype:
+        fail(f"{label} output shape/dtype")
+    if not np.isfinite(out).all():
+        fail(f"{label} output not finite")
 
 
 def golden_phase(nr) -> None:
     data = np.load(os.path.join(HERE, "tests", "golden", "golden_v1.npz"))
     with open(os.path.join(HERE, "tests", "golden", "golden_v1.json")) as f:
-        sr = json.load(f)["sr"]
-    y = data["y_mono"]
-    for name, kw in (
-        ("nonstationary", {}),
-        ("nonstationary_chunked", dict(chunk_size=8000, padding=1500)),
-    ):
+        meta = json.load(f)
+    sr = meta["sr"]
+    for name in ("nonstationary", "nonstationary_chunked", "stationary_self",
+                 "stationary_noise_clip", "stationary_multichannel",
+                 "stationary_recorded_noise_nfft2048"):
+        cfg = meta["configs"][name]
+        kw = dict(cfg["kwargs"])
+        if cfg["use_noise"]:
+            kw["y_noise"] = data["noise"][: sr // 4]
+        if cfg.get("use_recorded_noise"):
+            kw["y_noise"] = data["cafe_clip"]
+        y = data[cfg["input"]]
         out = nr.reduce_noise(y, sr, device="cuda", **kw)
         ref = data[f"out_{name}"]
         dev = float(np.abs(out.astype(np.float64) - ref).max())
-        bound = E2E_BOUND * float(np.abs(ref).max())
-        print(f"golden {name}: max|dev| {dev:.3e} bound {bound:.3e}", flush=True)
-        if out.shape != ref.shape or out.dtype != ref.dtype or not dev <= bound:
+        scale = float(np.abs(ref).max())
+        bound_ = E2E_BOUND * scale
+        print(f"golden {name}: max|dev| {dev:.3e} bound {bound_:.3e} "
+              f"({dev / scale:.2e} x max|ref|)", flush=True)
+        if out.shape != ref.shape or out.dtype != ref.dtype or not dev <= bound_:
+            if kw.get("stationary"):
+                golden_flip_report(nr, y, sr, kw)
             fail(f"golden {name}")
+
+
+def golden_flip_report(nr, y, sr, kw) -> None:
+    """Print the cells where the card's stationary decisions differ from a
+    float64 staged run on the CPU, with their dB margins."""
+    cfg = nr.GateConfig(sr=sr, stationary=True, **{
+        k: v for k, v in kw.items() if k not in ("stationary", "y_noise")})
+    y2d = np.atleast_2d(y)
+    yn = np.atleast_2d(kw.get("y_noise", y)).mean(axis=0)[:CHUNK]
+
+    def on(dev, dt):
+        views, k = gate_views(torch.as_tensor(y2d, dtype=dt, device=dev), CHUNK, PADDING)
+        return views, k, torch.as_tensor(yn, dtype=dt, device=dev)
+
+    dec = kernel_decisions(*on("cuda", torch.float32), cfg).cpu() > 0
+    margin = staged_margin(*on("cpu", torch.float64), cfg)[2]
+    flips = dec != (margin > 0)
+    print(f"  {int(flips.sum())} cells decide otherwise than float64; their "
+          f"|dB - thr|: {margin.abs()[flips][:10].tolist()}", flush=True)
 
 
 def main() -> None:
@@ -211,50 +511,49 @@ def main() -> None:
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     build.load()
     print(
         f"build: {build.library_path().relative_to(HERE)} in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds})",
+        f"{time.perf_counter() - t_start:.1f} s (nvcc {build.build_seconds})",
         flush=True,
     )
 
     x = headline_signal(HEADLINE_SECONDS)
+    noise = noise_clip(NOISE_SECONDS)
     cfg = nr.GateConfig(sr=SR)
+    scfg = nr.GateConfig(sr=SR, stationary=True)
     x_cuda = torch.as_tensor(x).cuda()
-    results = kernel_phase(x_cuda, cfg)
+    noise_cuda = torch.as_tensor(noise).cuda()
+    results = kernel_phase(x_cuda, noise_cuda, cfg, scfg)
+    del x_cuda
+    torch.cuda.empty_cache()
 
     golden_phase(nr)
 
-    # headline: the main path as a user calls it, numpy in and out
-    K.reset_launch_counts()
-    out = nr.reduce_noise(x, SR)
-    launches = K.launch_counts()
-    print(f"headline launches: {launches}", flush=True)
-    if out.shape != x.shape or out.dtype != x.dtype:
-        fail("headline output shape/dtype")
-    if not np.isfinite(out).all():
-        fail("headline output not finite")
-    if min(launches.values()) < 1:
-        fail("a kernel of the main path did not launch")
-
-    def plain_path():
-        y2d = torch.as_tensor(_as_2d(x)[0]).cuda()
+    def nonstationary_plain(y2d_np, c, cs=CHUNK, pad=PADDING):
+        y2d = torch.as_tensor(y2d_np).cuda()
         with torch.no_grad():
             return process_chunked(
-                lambda c: _gate_nonstationary_staged(c, cfg), y2d, CHUNK, PADDING
-            )
+                lambda v: _gate_nonstationary_staged(v, c), y2d, cs, pad)
 
-    ref = plain_path()[0].cpu().numpy()
+    launches = {}
+    ck = dict(chunk_size=CHUNK, padding=PADDING)  # the API's defaults
+
+    # headline: the main path as a user calls it, numpy in and out
+    out, launches["headline"] = run_path(
+        K, "headline", lambda: nr.reduce_noise(x, SR, **ck),
+        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    check_output("headline", out, x)
+    ref = nonstationary_plain(_as_2d(x)[0], cfg)[0].cpu().numpy()
     dev = float(np.abs(out.astype(np.float64) - ref).max())
-    bound = E2E_BOUND * float(np.abs(ref).max())
-    print(f"headline vs staged plain path: max|dev| {dev:.3e} bound {bound:.3e}",
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    print(f"headline vs staged plain path: max|dev| {dev:.3e} bound {lim:.3e}",
           flush=True)
-    if not dev <= bound:
+    if not dev <= lim:
         fail("headline disagrees with the staged plain path")
-
-    ms = time_ms(lambda: nr.reduce_noise(x, SR))
-    plain_ms = time_ms(lambda: plain_path().cpu())
+    ms = time_ms(lambda: nr.reduce_noise(x, SR, **ck))
+    plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(x)[0], cfg).cpu())
     print(
         f"headline {HEADLINE_SECONDS} s @ {SR} Hz: reduce_noise {ms:.1f} ms "
         f"({HEADLINE_SECONDS / (ms / 1e3):.0f} audio s per wall s), staged "
@@ -262,13 +561,100 @@ def main() -> None:
         flush=True,
     )
 
+    # stationary headline: a separate noise clip
+    out, launches["stationary headline"] = run_path(
+        K, "stationary headline",
+        lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **ck),
+        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    check_output("stationary headline", out, x)
+    y2d = torch.as_tensor(x[None]).cuda()
+    yn = torch.as_tensor(noise).cuda()
+    stationary_vs_plain("stationary headline", out, y2d, yn, scfg, CHUNK, PADDING)
+    ms = time_ms(lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **ck))
+    print(
+        f"stationary headline {HEADLINE_SECONDS} s @ {SR} Hz with a "
+        f"{NOISE_SECONDS} s noise clip: reduce_noise {ms:.1f} ms "
+        f"({HEADLINE_SECONDS / (ms / 1e3):.0f} audio s per wall s), on {card}",
+        flush=True,
+    )
+    del y2d, out
+    torch.cuda.empty_cache()
+
+    # batch: 32 clips of 10 s, stationary, each its own noise
+    clips = [x[i * BATCH_SECONDS * SR : (i + 1) * BATCH_SECONDS * SR]
+             for i in range(BATCH_CLIPS)]
+    outs, launches["batch"] = run_path(
+        K, "batch", lambda: nr.reduce_noise_batch(clips, SR, stationary=True, **ck),
+        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    n_bitwise, dev, scale = 0, 0.0, 0.0
+    for clip, o in zip(clips, outs):
+        check_output("batch", o, clip)
+        want = nr.reduce_noise(clip, SR, stationary=True, **ck)
+        n_bitwise += int(np.array_equal(o, want))
+        dev = max(dev, float(np.abs(o.astype(np.float64) - want).max()))
+        scale = max(scale, float(np.abs(want).max()))
+    ms = time_ms(lambda: nr.reduce_noise_batch(clips, SR, stationary=True, **ck))
+    print(
+        f"batch {BATCH_CLIPS} x {BATCH_SECONDS} s @ {SR} Hz stationary, "
+        f"self-noise: {n_bitwise} of {BATCH_CLIPS} outputs bitwise the "
+        f"per-signal calls', max|dev| {dev:.3e} bound {E2E_BOUND * scale:.3e}; "
+        f"reduce_noise_batch {ms:.1f} ms on {card}",
+        flush=True,
+    )
+    if not dev <= E2E_BOUND * scale:
+        fail("batch disagrees with the per-signal calls")
+
+    # staged geometry: a hop that does not divide the window (row 7)
+    xs = headline_signal(STAGED_SECONDS, STAGED_SR, SEED + 2)
+    out, launches["staged geometry"] = run_path(
+        K, "staged geometry", lambda: nr.reduce_noise(xs, STAGED_SR, **STAGED_KW, **ck),
+        dict(nonstationary_mask=1))
+    check_output("staged geometry", out, xs)
+    c = nr.GateConfig(sr=STAGED_SR, **STAGED_KW)
+    ref = nonstationary_plain(_as_2d(xs)[0], c)[0].cpu().numpy()
+    dev = float(np.abs(out.astype(np.float64) - ref).max())
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    print(f"staged geometry (n_fft 1024, hop 300) vs staged plain path: max|dev| "
+          f"{dev:.3e} bound {lim:.3e}", flush=True)
+    if not dev <= lim:
+        fail("staged geometry disagrees with the staged plain path")
+
+    # split geometry (row 2), both engines
+    xp = headline_signal(SPLIT_SECONDS, SPLIT_SR, SEED + 3)
+    out, launches["split geometry"] = run_path(
+        K, "split geometry", lambda: nr.reduce_noise(xp, SPLIT_SR, **SPLIT_KW, **ck),
+        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    check_output("split geometry", out, xp)
+    c = nr.GateConfig(sr=SPLIT_SR, **SPLIT_KW)
+    ref = nonstationary_plain(_as_2d(xp)[0], c)[0].cpu().numpy()
+    dev = float(np.abs(out.astype(np.float64) - ref).max())
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    print(f"split geometry (freq_mask_smooth_hz 2000 @ 16 kHz) vs staged plain "
+          f"path: max|dev| {dev:.3e} bound {lim:.3e}", flush=True)
+    if not dev <= lim:
+        fail("split geometry disagrees with the staged plain path")
+    out, launches["split geometry, stationary"] = run_path(
+        K, "split geometry, stationary",
+        lambda: nr.reduce_noise(xp, SPLIT_SR, stationary=True, **SPLIT_KW, **ck),
+        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    check_output("split geometry, stationary", out, xp)
+    yp = torch.as_tensor(xp[None]).cuda()
+    stationary_vs_plain("split geometry, stationary", out, yp, yp[0],
+                        nr.GateConfig(sr=SPLIT_SR, stationary=True, **SPLIT_KW),
+                        CHUNK, PADDING)
+
+    main_path = {name: ("stationary headline" if name == "stationary_mask" else "headline")
+                 for name in SOURCES}
     kernels = [
         dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name], **results[name],
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=launches[main_path[name]][name],
+            launches_by_path={p: n[name] for p, n in launches.items()},
+            **results[name],
         )
         for name in SOURCES
     ]
+    print(f"all phases in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -1,6 +1,7 @@
 """Public API: ``reduce_noise``, signature-compatible with the reference
-(noisereduce/noisereduce.py:13-185), non-stationary engine only
-(counterpart of ``noisereduce_tpu/api.py``).
+(noisereduce/noisereduce.py:13-185), with the scipy-convention engines,
+stationary and non-stationary, and ``reduce_noise_batch`` (counterpart of
+``noisereduce_tpu/api.py``).
 
 - ``device`` defaults to ``"cuda"``, as the reference's torch path does.
   Where CUDA is absent, ``device="cuda"`` raises; it does not fall back to
@@ -8,25 +9,31 @@
   mode).
 - ``compute_dtype`` defaults to ``torch.float32``, the only type the
   kernels take; ``torch.float64`` runs on the CPU only.
-- ``stationary=True``, ``use_torch=True`` and ``use_tqdm=True`` raise
-  ``NotImplementedError``: they are later slices of the port (ROADMAP.md,
-  Queue 1). ``tmp_folder`` and ``n_jobs`` are accepted for compatibility;
-  chunk fan-out is the kernels' batch axis, not a process pool.
+- ``use_torch=True`` and ``use_tqdm=True`` raise ``NotImplementedError``:
+  they are later slices of the port (ROADMAP.md, Queue 1). ``tmp_folder``
+  and ``n_jobs`` are accepted for compatibility; chunk fan-out is the
+  kernels' batch axis, not a process pool.
 """
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
 
 from noisereduce_tpu_torch.config import Convention, GateConfig, smoothing_kernel_sizes
-from noisereduce_tpu_torch.models.spectral_gate import gate_nonstationary
+from noisereduce_tpu_torch.models.spectral_gate import (
+    gate_nonstationary,
+    gate_stationary,
+    stationary_noise_threshold,
+)
 from noisereduce_tpu_torch.ops.cuda.dispatch import (
     fused_gate_chunked,
     fused_gate_supported,
 )
 from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
-__all__ = ["reduce_noise"]
+__all__ = ["reduce_noise", "reduce_noise_batch"]
 
 _LATER = "is a later slice of the PyTorch port (ROADMAP.md, Queue 1)"
 
@@ -36,6 +43,16 @@ def _fused_chunked_ok(cfg: GateConfig, y2d: torch.Tensor, chunk_size: int) -> bo
     for signals longer than one chunk; shorter ones keep their exact
     unchunked view geometry (``api.py:50``)."""
     return y2d.shape[-1] > chunk_size and fused_gate_supported(cfg)
+
+
+def _run_stationary(y2d, y_noise_mono, cfg, chunk_size, padding):
+    """Threshold from the noise rows, then the gate (``api.py:100``)."""
+    thresh = stationary_noise_threshold(y_noise_mono, cfg)
+    if _fused_chunked_ok(cfg, y2d, chunk_size):
+        return fused_gate_chunked(y2d, cfg, chunk_size, padding, noise_thresh=thresh)
+    return process_chunked(
+        lambda c: gate_stationary(c, thresh, cfg), y2d, chunk_size, padding
+    )
 
 
 def _run_nonstationary(y2d, cfg, chunk_size, padding):
@@ -71,7 +88,7 @@ def _finalize_reduce_output(out: torch.Tensor, out_dtype, flat: bool) -> np.ndar
 
     A card's output lands in pinned host memory, which the returned array
     keeps: a pageable D2H, or a second host copy, each cost more than the
-    four kernels together at the headline size (PERF.md, section 5)."""
+    kernels together at the headline size (PERF.md, section 6)."""
     if out.device.type != "cpu":
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out)
@@ -105,36 +122,66 @@ def reduce_noise(
     device="cuda",
     compute_dtype=None,
 ):
-    """Reduce noise by non-stationary spectral gating
-    (reference noisereduce.py:13-185).
+    """Reduce noise by spectral gating (reference noisereduce.py:13-185).
 
     Parameters
     ----------
     y : np.ndarray [(frames,) or (channels, frames)], real-valued
     sr : int, sample rate
+    stationary : stationary (a fixed per-bin threshold from noise
+        statistics) or non-stationary (a time-varying threshold from an
+        IIR-smoothed floor) gating; default False
+    y_noise : noise clip for the stationary statistics, (frames,) or
+        (channels, frames), collapsed to mono; defaults to the signal itself
     prop_decrease : proportion to reduce the noise by (1.0 = 100%)
     time_constant_s : time constant of the noise-floor IIR, seconds
     freq_mask_smooth_hz, time_mask_smooth_ms : triangular mask-smoothing
         widths (None disables that axis)
     thresh_n_mult_nonstationary, sigmoid_slope_nonstationary : threshold
-        multiple and sigmoid slope of the mask
+        multiple and sigmoid slope of the non-stationary mask
+    n_std_thresh_stationary : stationary threshold = mean + this many std
+        of the noise dB spectrogram
     chunk_size, padding : long recordings are gated as halo'd chunks
     n_fft, win_length, hop_length : STFT geometry (win defaults to n_fft,
         hop to win // 4)
+    clip_noise_stationary : clip the noise clip to chunk_size samples
     device : torch device to run on (default "cuda"; raises if absent)
     compute_dtype : torch.float32 (default) or torch.float64 (CPU only)
-    y_noise, n_std_thresh_stationary, clip_noise_stationary : used by the
-        stationary engine only
     tmp_folder, n_jobs : accepted for reference compatibility
 
     Returns a NumPy array with the input's shape and dtype.
     """
-    del tmp_folder, n_jobs, y_noise, n_std_thresh_stationary
-    del clip_noise_stationary
+    del tmp_folder, n_jobs
+    out, meta = _reduce_noise_deferred(
+        y, sr, stationary, y_noise, prop_decrease, time_constant_s,
+        freq_mask_smooth_hz, time_mask_smooth_ms, thresh_n_mult_nonstationary,
+        sigmoid_slope_nonstationary, n_std_thresh_stationary, chunk_size,
+        padding, n_fft, win_length, hop_length, clip_noise_stationary,
+        use_tqdm, use_torch, device, compute_dtype,
+    )
+    return _finalize_reduce_output(out, *meta)
+
+
+def _reduce_noise_deferred(
+    y, sr, stationary, y_noise, prop_decrease, time_constant_s,
+    freq_mask_smooth_hz, time_mask_smooth_ms, thresh_n_mult_nonstationary,
+    sigmoid_slope_nonstationary, n_std_thresh_stationary, chunk_size, padding,
+    n_fft, win_length, hop_length, clip_noise_stationary, use_tqdm, use_torch,
+    device, compute_dtype, _noise_rows=None,
+):
+    """``reduce_noise``'s body, returning the output tensor (its kernels
+    queued on the card, not waited for) and what ``_finalize_reduce_output``
+    needs, so that ``reduce_noise_batch`` can queue every group before the
+    first D2H.
+
+    ``y`` may be a list of B equal-length 1-D rows (a batch group).
+    ``_noise_rows``: B noise rows (a list of equal-length 1-D arrays) of a
+    stationary batch of B mono signals riding the channel axis, or
+    ``"self"`` for the signal rows themselves; each row's threshold comes from its own noise row (no mono
+    collapse), and the gate reads them as one (B, bins) threshold
+    (``api.py:438-442``)."""
     if use_torch:
         raise NotImplementedError(f"use_torch=True (the torch-convention gate) {_LATER}")
-    if stationary:
-        raise NotImplementedError(f"stationary=True {_LATER}")
     if use_tqdm:
         raise NotImplementedError(f"use_tqdm=True (the host-driven chunk loop) {_LATER}")
     # validate the smoothing geometry eagerly, like the reference
@@ -151,25 +198,147 @@ def reduce_noise(
         )
     dev = _resolve_device(device)
 
-    y = np.asarray(y)
-    out_dtype = y.dtype
-    y2d, flat = _as_2d(y)
-    y2d = torch.as_tensor(np.ascontiguousarray(y2d)).to(device=dev, dtype=cdtype)
+    if isinstance(y, list):  # reduce_noise_batch's rows of one group
+        out_dtype, flat = y[0].dtype, False
+    else:
+        y = np.asarray(y)
+        out_dtype = y.dtype
+        y, flat = _as_2d(y)
+    y2d = _to_tensor(y, dev, cdtype)
 
     cfg = GateConfig(
         sr=sr,
-        stationary=False,
+        stationary=bool(stationary),
         prop_decrease=prop_decrease,
         time_constant_s=time_constant_s,
         freq_mask_smooth_hz=freq_mask_smooth_hz,
         time_mask_smooth_ms=time_mask_smooth_ms,
         thresh_n_mult_nonstationary=thresh_n_mult_nonstationary,
         sigmoid_slope_nonstationary=sigmoid_slope_nonstationary,
+        n_std_thresh_stationary=n_std_thresh_stationary,
         n_fft=n_fft,
         win_length=win_length,
         hop_length=hop_length,
         convention=Convention.SCIPY,
     )
     with torch.no_grad():
-        out = _run_nonstationary(y2d, cfg, chunk_size, padding)
-    return _finalize_reduce_output(out, out_dtype, flat)
+        if not stationary:
+            out = _run_nonstationary(y2d, cfg, chunk_size, padding)
+        else:
+            # noise clip handling (stationary.py:47-64; api.py:560-578):
+            # default to y, mono collapse, clip to chunk_size samples
+            if isinstance(_noise_rows, str):  # "self": no second transfer
+                yn_mono = y2d
+            elif _noise_rows is not None:
+                yn_mono = _to_tensor(_noise_rows, dev, cdtype)
+            else:
+                yn2d = y2d if y_noise is None else _to_tensor(
+                    _as_2d(np.asarray(y_noise))[0], dev, cdtype
+                )
+                yn_mono = yn2d.mean(dim=0)
+            if clip_noise_stationary:
+                yn_mono = yn_mono[..., :chunk_size]
+            out = _run_stationary(y2d, yn_mono, cfg, chunk_size, padding)
+    return out, (out_dtype, flat)
+
+
+def _to_tensor(a, dev: torch.device, dtype) -> torch.Tensor:
+    """An array, or a list of equal-length 1-D rows, on ``dev`` in ``dtype``.
+    Rows go to the device one by one into one (rows, n) tensor: stacking
+    them on the host first would cost a host copy of the whole block."""
+    if not isinstance(a, list):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+    rows = [torch.from_numpy(np.ascontiguousarray(r)) for r in a]
+    out = torch.empty((len(rows), rows[0].shape[-1]), dtype=rows[0].dtype, device=dev)
+    for i, r in enumerate(rows):
+        out[i].copy_(r)
+    return out.to(dtype)
+
+
+def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
+    """Denoise many mono recordings in as few launches as possible
+    (``api.py:704``).
+
+    Signals are grouped by (length, dtype) and each group runs as one
+    batched call: the gate's math is row-independent, so each output is
+    what the per-signal ``reduce_noise`` call gives. Every group's kernels
+    are queued on the card before the first result is copied back.
+
+    Parameters
+    ----------
+    ys : sequence of 1-D np.ndarray, mono recordings (lengths and dtypes
+        may differ)
+    sr : int, shared sample rate
+    y_noise : one shared noise clip (one threshold), one clip per signal,
+        or None
+    **kwargs : forwarded to ``reduce_noise``. ``stationary=True`` with
+        ``y_noise=None`` takes each signal's threshold from itself, and
+        per-signal 1-D clips give per-signal thresholds: both batch as one
+        threshold call and one gate call per group through a (B, bins)
+        threshold. Per-signal multichannel clips run per signal.
+
+    Returns a list of np.ndarray in input order, each with its input's
+    shape and dtype.
+    """
+    if kwargs.get("use_torch", False):
+        raise NotImplementedError(f"use_torch=True (the torch-convention gate) {_LATER}")
+    ys = [np.asarray(y) for y in ys]
+    for i, y in enumerate(ys):
+        if y.ndim != 1:
+            raise ValueError(
+                f"ys[{i}] has ndim {y.ndim}; reduce_noise_batch takes mono "
+                "1-D signals (call reduce_noise directly for multichannel)"
+            )
+    per_signal_noise = isinstance(y_noise, (list, tuple))
+    if per_signal_noise and len(y_noise) != len(ys):
+        raise ValueError(f"got {len(y_noise)} noise clips for {len(ys)} signals")
+    call = dict(_REDUCE_DEFAULTS, **kwargs)
+    for key in ("tmp_folder", "n_jobs"):
+        call.pop(key, None)
+    stationary = bool(call["stationary"])
+    # per-row noise statistics: self-noise or per-signal clips, both batched
+    # through a (B, bins) threshold
+    per_row = stationary and (per_signal_noise or y_noise is None)
+
+    if stationary and per_signal_noise and any(np.ndim(c) != 1 for c in y_noise):
+        # per-signal multichannel clips need each signal's own mono
+        # collapse: per-signal calls, all queued before the first D2H
+        pending = [
+            _reduce_noise_deferred(**dict(call, y=y, sr=sr, y_noise=y_noise[i]))
+            for i, y in enumerate(ys)
+        ]
+        return [_finalize_reduce_output(o, *meta) for o, meta in pending]
+
+    groups: dict = {}
+    for i, y in enumerate(ys):
+        key = (y.shape[0], y.dtype)
+        if per_signal_noise and stationary:
+            c = np.asarray(y_noise[i])
+            key += (c.shape[-1], c.dtype)
+        groups.setdefault(key, []).append(i)
+    pending = []
+    for idx in groups.values():
+        block = [ys[i] for i in idx]  # B rows of n samples
+        if not per_row:
+            # a shared clip, or the non-stationary gate (which reads no
+            # noise): one call
+            noise = y_noise if stationary else None
+            pending.append((idx, _reduce_noise_deferred(
+                **dict(call, y=block, sr=sr, y_noise=noise))))
+        else:
+            rows = [np.asarray(y_noise[i]) for i in idx] if per_signal_noise else "self"
+            pending.append((idx, _reduce_noise_deferred(
+                **dict(call, y=block, sr=sr, y_noise=None, _noise_rows=rows))))
+    out: list = [None] * len(ys)
+    for idx, (o, meta) in pending:
+        res = _finalize_reduce_output(o, *meta)
+        for row, i in enumerate(idx):
+            out[i] = res[row]
+    return out
+
+
+_REDUCE_DEFAULTS = {
+    name: p.default
+    for name, p in inspect.signature(reduce_noise).parameters.items()
+    if p.default is not inspect.Parameter.empty
+}

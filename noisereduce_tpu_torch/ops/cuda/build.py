@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-under ``noisereduce_tpu_torch/_build/<hash>/``, keyed by a hash of the
-sources and flags. Nothing is compiled at import: the CPU tests import every
-module on a machine without ``nvcc``.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links them into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), under
+``noisereduce_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
+and flags. Nothing is compiled at import: the CPU tests import every module
+on a machine without ``nvcc``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception.
@@ -25,9 +26,8 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + [
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -44,6 +44,10 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _vp,
     ],
     "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _ll, _i, _f, _vp],
+    "nr_stationary_mask": [
+        _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f,
+        _f, _vp,
+    ],
     "nr_istft_ola": [
         _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
         _ll, _ll, _vp, _vp,
@@ -75,7 +79,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -86,20 +90,34 @@ def library_path() -> pathlib.Path:
     return BUILD_ROOT / _digest() / "libnrtorch.so"
 
 
+def _run(cmds: list) -> None:
+    """Run the commands side by side; wait for all, then raise on the
+    first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{so}\n{se}"
+            )
+
+
 def _compile(out: pathlib.Path) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [pathlib.Path(tmp) / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
+        _run([
+            [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(CSRC / f"{o.stem}.cu")]
+            for o in objs
+        ])
         tmp_so = pathlib.Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_so), *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        _run([[nvcc, *LINK_FLAGS, "-o", str(tmp_so), *map(str, objs)]])
         os.replace(tmp_so, out)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
 

@@ -1,19 +1,24 @@
-"""Fused non-stationary gate: the composition of kernels A-D (counterpart
-of ``noisereduce_tpu/ops/pallas/dispatch.py``).
+"""Fused gates: the compositions of kernels A-E (counterpart of
+``noisereduce_tpu/ops/pallas/dispatch.py``).
 
 ``_gate_from_signal`` is the port of ``_merged_gate_from_blocks``
-(``dispatch.py:55``): spectra -> mask + time smoothing -> frequency
-smoothing + blend -> masked iSTFT + OLA, where the last kernel also does the
+(``dispatch.py:55``) and of its split twin ``_fused_gate_from_blocks``
+(``:626``), which compute the same function: spectra (A) -> mask + time
+smoothing (B non-stationary, E stationary) -> frequency smoothing + blend
+(C; prop 1, no blend, for the stationary path, which blends before
+smoothing) -> masked iSTFT + OLA (D), where the last kernel also does the
 envelope division and the output window of ``_scipy_istft_tail``
-(``:331``). ``_fused_gate_impl`` (``:590``) gates whole signals and
-``fused_gate_chunked`` / ``_fused_chunked_impl`` (``:817``, ``:920``) gate a
-long signal as halo'd chunk views read straight from it. There is no mesh
-and no ``max_parallel_chunks``: every chunk is one row of one launch.
+(``:331``). ``fused_gate_nonstationary`` / ``fused_gate_stationary``
+(``_fused_gate_impl``, ``:590``) gate whole signals and
+``fused_gate_chunked`` (``:817``, ``:920``) gates a long signal as halo'd
+chunk views read straight from it. ``fused_stationary_threshold``
+(``:493``) takes the noise-clip spectra from A. There is no mesh and no
+``max_parallel_chunks``: every chunk is one row of one launch.
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode, float32 or float64).
 No gradient yet: the fused-forward / staged-backward contract of
-``dispatch.py:429-452`` comes with the gradient slice.
+``dispatch.py:429-490`` comes with the gradient slice.
 """
 from __future__ import annotations
 
@@ -26,13 +31,16 @@ from noisereduce_tpu_torch.ops.cuda.kernels import (
     istft_ola,
     nonstationary_mask,
     spectra,
+    stationary_mask,
 )
-from noisereduce_tpu_torch.ops.dsp import tri_norm
+from noisereduce_tpu_torch.ops.dsp import noise_db_threshold, tri_norm
 
 __all__ = [
     "fused_gate_supported",
     "fused_gate_nonstationary",
+    "fused_gate_stationary",
     "fused_gate_chunked",
+    "fused_stationary_threshold",
 ]
 
 
@@ -43,11 +51,12 @@ def fused_gate_supported(cfg: GateConfig) -> bool:
     return kernels_supported(cfg.stft)
 
 
-def _gate_from_signal(x, cfg, chunk_size=0, padding=0):
+def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None):
     """(rows, n) -> gated views: each whole row (``chunk_size`` 0;
     (rows, n) out) or the core [padding, padding + chunk_size) of each
     halo'd chunk view ((rows*n_chunks, chunk_size) out), zero filled past
-    the istft's end."""
+    the istft's end. ``noise_thresh`` (a (bins,) or per-row (rows, bins)
+    dB threshold) selects the stationary gate."""
     n = x.shape[-1]
     if chunk_size:
         view_len, out_off, out_len = chunk_size + 2 * padding, padding, chunk_size
@@ -56,11 +65,19 @@ def _gate_from_signal(x, cfg, chunk_size=0, padding=0):
     geo = gate_geometry(cfg.stft, view_len)
     n_grad_freq, n_grad_time = cfg.smoothing or (0, 0)
     re, im = spectra(x, geo, chunk_size, padding)
-    mask = nonstationary_mask(
-        re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
-        cfg.sigmoid_slope_nonstationary, tri_norm(n_grad_time),
-    )
-    mask = freq_smooth_blend(mask, tri_norm(n_grad_freq), cfg.prop_decrease)
+    if noise_thresh is None:
+        mask = nonstationary_mask(
+            re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
+            cfg.sigmoid_slope_nonstationary, tri_norm(n_grad_time),
+        )
+        prop = cfg.prop_decrease
+    else:
+        mask = stationary_mask(
+            re, im, noise_thresh.to(re.dtype).contiguous(),
+            re.shape[0] // x.shape[0], cfg.prop_decrease, tri_norm(n_grad_time),
+        )
+        prop = 1.0  # the stationary blend came before the smoothing
+    mask = freq_smooth_blend(mask, tri_norm(n_grad_freq), prop)
     return istft_ola(re, im, mask, geo, out_off, out_len)
 
 
@@ -75,14 +92,54 @@ def fused_gate_nonstationary(chunk: torch.Tensor, cfg: GateConfig) -> torch.Tens
     return y.reshape(chunk.shape)
 
 
+def fused_gate_stationary(
+    chunk: torch.Tensor, noise_thresh: torch.Tensor, cfg: GateConfig
+) -> torch.Tensor:
+    """Stationary gate of (..., n) signals through kernels A, E, C and D
+    (``fused_gate_stationary``, ``dispatch.py:455``): binary dB-threshold
+    mask, blend BEFORE smoothing. ``noise_thresh`` is (bins,) or per-row,
+    its leading axes left-aligned with the chunk's batch axes (a (B, bins)
+    threshold for (B, n_chunks, n) chunks: every chunk of row b reads row
+    b), as ``_fused_gate_impl`` (``:597-606``) broadcasts it. Caller
+    guarantees ``fused_gate_supported``."""
+    n = chunk.shape[-1]
+    batch = chunk.shape[:-1]
+    x = chunk.reshape(-1, n).contiguous()
+    thr = noise_thresh
+    if thr.ndim > 1:
+        nb = thr.shape[-1]
+        thr = thr.reshape(thr.shape[:-1] + (1,) * (len(batch) + 1 - thr.ndim) + (nb,))
+        thr = thr.expand(batch + (nb,)).reshape(-1, nb)
+    y = _gate_from_signal(x, cfg, noise_thresh=thr)
+    return y.reshape(chunk.shape)
+
+
 def fused_gate_chunked(
-    y2d: torch.Tensor, cfg: GateConfig, chunk_size: int, padding: int
+    y2d: torch.Tensor, cfg: GateConfig, chunk_size: int, padding: int,
+    noise_thresh=None,
 ) -> torch.Tensor:
     """The whole chunked body (reference base.py:144-226): chunk i of each
     row is the view of source samples [i*cs - padding, (i+1)*cs + padding),
     zero outside the signal, gated, and its core [padding, padding + cs)
     assembled. Kernel A reads the views straight from ``y2d`` and kernel D
-    writes only the cores, so no view is materialized. (ch, n) -> (ch, n)."""
+    writes only the cores, so no view is materialized. (ch, n) -> (ch, n).
+    ``noise_thresh``, (bins,) or per-row (ch, bins), selects the stationary
+    gate; every chunk of row c reads row c."""
     ch, n = y2d.shape
-    core = _gate_from_signal(y2d.contiguous(), cfg, chunk_size, padding)
+    core = _gate_from_signal(
+        y2d.contiguous(), cfg, chunk_size, padding, noise_thresh
+    )
     return core.reshape(ch, -1)[:, :n]
+
+
+def fused_stationary_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.Tensor:
+    """Per-bin stationary dB threshold of (..., n_clip) noise rows, the
+    spectra from kernel A (``fused_stationary_threshold``,
+    ``dispatch.py:493``): mean + n_std * std over frames of the dB
+    spectrogram, ddof 0, as plain reductions (XLA reductions in JAX).
+    Returns (..., bins). Caller guarantees ``fused_gate_supported``."""
+    n = y_noise.shape[-1]
+    x = y_noise.reshape(-1, n).contiguous()
+    re, im = spectra(x, gate_geometry(cfg.stft, n))
+    thr = noise_db_threshold(re, im, cfg.n_std_thresh_stationary)
+    return thr.reshape(y_noise.shape[:-1] + thr.shape[-1:])

@@ -1,9 +1,12 @@
-"""The four CUDA kernels of the non-stationary gate, their wrappers and
+"""The five CUDA kernels of the scipy-convention gates, their wrappers and
 their plain PyTorch versions.
 
 Together they replace the merged TPU kernel
 ``noisereduce_tpu/ops/pallas/dispatch.py::_merged_gate_from_blocks``
-(``pallas_call`` at ``:287``):
+(``pallas_call`` at ``:287``) in both its variants and its split twin
+(``:723``, ``:758``, ``:804``); A alone replaces the noise-clip spectra of
+``_fused_stft_planes`` (``:556``) and B with one unit tap the time-major
+mask of ``ops/pallas_mask.py::_fused_mask_tm_cvjp`` (``:364``):
 
 =====  ======================  =============================================
 A      ``spectra``             ``kernels.py::_spectra_phases`` (:152)
@@ -12,6 +15,8 @@ B      ``nonstationary_mask``  ``kernels.py::_am_kernel`` phase 3 (:443) and
 C      ``freq_smooth_blend``   ``kernels.py::_freq_smooth_blend_phase`` (:906)
 D      ``istft_ola``           ``kernels.py::_apply_istft_kernel`` (:736) and
                                ``dispatch.py::_scipy_istft_tail`` (:331)
+E      ``stationary_mask``     ``kernels.py::_as_kernel`` passes A, B (:565)
+                               and ``_time_smooth_phase`` (:630)
 =====  ======================  =============================================
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU
@@ -44,6 +49,7 @@ __all__ = [
     "nonstationary_mask", "nonstationary_mask_ref",
     "freq_smooth_blend", "freq_smooth_blend_ref",
     "istft_ola", "istft_ola_ref",
+    "stationary_mask", "stationary_mask_ref",
     "reset_launch_counts", "launch_counts",
 ]
 
@@ -204,7 +210,7 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0):
 def nonstationary_mask_ref(re, im, b, thresh, slope, taps):
     """Plain version of ``nonstationary_mask``."""
     mag = torch.sqrt(re * re + im * im)
-    floor = dsp.ewma_filtfilt(mag, b, axis=-2)
+    floor = dsp.ewma_filtfilt(mag, b, axis=-2)  # float64 state, as the kernel's
     ratio = (mag - floor) / torch.where(floor == 0, 1.0, floor)
     raw = dsp.sigmoid(ratio, -thresh, slope)
     return dsp.conv_same(raw, taps, -2)
@@ -215,7 +221,8 @@ def nonstationary_mask(re, im, b, thresh, slope, taps):
 
     re/im: (rows, n_frames, n_bins). Per bin: y = forward EWMA of |Z| with
     y[0] = |Z|[0]; w = the same recurrence backwards over y with
-    w[T-1] = y[T-1]; mask = sigmoid(((|Z| - w)/w' - thresh) * slope) with
+    w[T-1] = y[T-1], both carried in float64;
+    mask = sigmoid(((|Z| - w)/w' - thresh) * slope) with
     w' = 1 where w == 0; then a 'same' correlation along frames with the odd
     ``taps`` (numpy), zero outside the frames.
     """
@@ -295,9 +302,72 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
 
 
 # ---------------------------------------------------------------------------
+# E: stationary_mask
+# ---------------------------------------------------------------------------
+# 20 / ln 10: dB as a natural log times a constant, the TPU kernel's formula
+# (kernels.py:573), in the kernel and in its plain version alike
+_DB_PER_NEPER = 20.0 / float(np.log(10.0))
+_TOP_DB = 80.0
+
+
+def _check_thr(thr, views, views_per_row, n_bins) -> None:
+    """A (n_bins,) threshold is shared by every view; row r of a
+    (rows, n_bins) one serves views [r * views_per_row, (r + 1) *
+    views_per_row)."""
+    if thr.shape[-1] != n_bins or thr.ndim not in (1, 2) or (
+        thr.ndim == 2 and thr.shape[0] * views_per_row != views
+    ):
+        raise ValueError(
+            f"stationary_mask: threshold of shape {tuple(thr.shape)} for "
+            f"{views} views of {n_bins} bins, {views_per_row} views per row"
+        )
+
+
+def stationary_mask_ref(re, im, thr, views_per_row, prop, taps):
+    """Plain version of ``stationary_mask``, with the kernel's dB formula."""
+    views, _, nb = re.shape
+    _check_thr(thr, views, views_per_row, nb)
+    thr = thr.to(re.dtype)
+    thr = thr.repeat_interleave(views_per_row, dim=0) if thr.ndim == 2 else thr[None]
+    db = torch.log(torch.sqrt(re * re + im * im) + dsp.EPS_F64) * _DB_PER_NEPER
+    db = torch.maximum(db, db.amax(dim=-2, keepdim=True) - _TOP_DB)
+    m = (db > thr[:, None, :]).to(re.dtype)
+    return dsp.conv_same(m * prop + (1.0 - prop), taps, -2)
+
+
+def stationary_mask(re, im, thr, views_per_row, prop, taps):
+    """Stationary mask: dB spectrogram floored at its per-bin max - 80 dB,
+    1[dB > thr] blended as m*prop + (1 - prop) BEFORE a 'same' correlation
+    along frames with the odd ``taps`` (numpy), zero outside the frames.
+
+    re/im: (views, n_frames, n_bins). thr: (n_bins,), shared, or
+    (rows, n_bins) with view v reading row v // ``views_per_row`` (the
+    chunk views of one signal row share its threshold).
+    """
+    if _on_cpu(re, im, thr):
+        return stationary_mask_ref(re, im, thr, views_per_row, prop, taps)
+    _check_cuda("stationary_mask", re, im, thr)
+    views, T, nb = re.shape
+    _check_thr(thr, views, views_per_row, nb)
+    _check_size("stationary_mask", views * nb)
+    tap_t = _device_f32("taps", tuple(float(v) for v in taps), re.device)
+    scratch = torch.empty_like(re) if len(taps) > 1 else re
+    out = torch.empty_like(re)
+    _launch(
+        "stationary_mask", re.device, _ptr(re), _ptr(im), _ptr(thr),
+        nb if thr.ndim == 2 else 0, views_per_row, _ptr(scratch), _ptr(out),
+        _ptr(tap_t), len(taps), views, T, nb, prop, 1.0 - prop, dsp.EPS_F64,
+        _DB_PER_NEPER, _TOP_DB,
+    )
+    stationary_mask.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
-KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola)
+KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
+           stationary_mask)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,5 @@
 """Elementwise and small-filter DSP ops in plain torch (counterpart of
-``noisereduce_tpu/ops/dsp.py``, the subset the non-stationary gate uses).
+``noisereduce_tpu/ops/dsp.py``, the subset the scipy-convention gates use).
 
 The 'same' convolutions are written as sums of shifted slices rather than
 ``conv1d``: on a CUDA card a float32 ``conv1d`` goes through cuDNN in TF32
@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "amp_to_db",
+    "noise_db_threshold",
     "sigmoid",
     "triangular_vector",
     "tri_norm",
@@ -22,6 +24,32 @@ __all__ = [
     "smooth_mask",
     "ewma_filtfilt",
 ]
+
+
+# float64 machine epsilon: the reference adds it in every compute dtype
+# (spectralgate/utils.py:11)
+EPS_F64 = float(np.finfo(np.float64).eps)
+
+
+def amp_to_db(
+    x: torch.Tensor, top_db: float = 80.0, eps: float = EPS_F64, axis: int = -1
+) -> torch.Tensor:
+    """Amplitude -> dB, ``20*log10(|x| + eps)`` floored at (max over
+    ``axis``) - top_db (spectralgate/utils.py:11-16; time-major callers
+    pass axis=-2)."""
+    x_db = 20.0 * torch.log10(x.abs() + eps)
+    floor = x_db.amax(dim=axis, keepdim=True) - top_db
+    return torch.maximum(x_db, floor)
+
+
+def noise_db_threshold(re: torch.Tensor, im: torch.Tensor, n_std: float) -> torch.Tensor:
+    """Stationary per-bin threshold from noise spectra (..., frames, bins):
+    mean + n_std * std over frames of the dB spectrogram, ddof 0
+    (stationary.py:67-81). Returns (..., bins)."""
+    db = amp_to_db(torch.sqrt(re * re + im * im), top_db=80.0, axis=-2)
+    mean = db.mean(dim=-2)
+    std = db.std(dim=-2, correction=0)
+    return mean + std * n_std
 
 
 def sigmoid(x: torch.Tensor, shift: float, mult: float) -> torch.Tensor:
@@ -95,8 +123,14 @@ def ewma_filtfilt(x: torch.Tensor, b: float, axis: int = -1) -> torch.Tensor:
     """Zero-phase forward-backward first-order low-pass along ``axis``:
     ``scipy.signal.filtfilt([b], [1, b-1], x, padtype=None)`` with the
     lfilter_zi initial conditions, so y starts at the first sample in each
-    direction (nonstationary.py:115; ``noisereduce_tpu/ops/dsp.py:491``)."""
+    direction (nonstationary.py:115; ``noisereduce_tpu/ops/dsp.py:491``).
+
+    A float32 input is filtered in float64 and the result rounded once: a
+    float32 state takes about 1/b roundings into each value (b ~ 0.003 at
+    48 kHz), where the JAX package's blockwise scan takes a few."""
     xm = x.movedim(axis, -1)
+    if xm.dtype == torch.float32:
+        xm = xm.to(torch.float64)
     fwd = _ewma_forward(xm, b)
     bwd = _ewma_forward(fwd.flip(-1), b).flip(-1)
-    return bwd.movedim(-1, axis)
+    return bwd.movedim(-1, axis).to(x.dtype)

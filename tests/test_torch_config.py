@@ -124,7 +124,7 @@ def test_cuda_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(stationary=True), NotImplementedError),
+    (dict(stationary=True, compute_dtype=torch.bfloat16), NotImplementedError),
     (dict(use_torch=True), NotImplementedError),
     (dict(use_tqdm=True), NotImplementedError),
     (dict(compute_dtype=torch.bfloat16), NotImplementedError),
@@ -145,9 +145,10 @@ def test_launch_counters_stay_zero_on_cpu():
     y = np.random.default_rng(0).standard_normal(20000)
     nrt.reduce_noise(y, 16000, device="cpu", chunk_size=8000, padding=1500)
     nrt.reduce_noise(y, 16000, device="cpu")
+    nrt.reduce_noise(y, 16000, device="cpu", stationary=True)
     assert K.launch_counts() == {
         "spectra": 0, "nonstationary_mask": 0, "freq_smooth_blend": 0,
-        "istft_ola": 0,
+        "istft_ola": 0, "stationary_mask": 0,
     }
 
 
@@ -156,7 +157,7 @@ def test_build_lists_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
 
     names = {p.name for p in build.sources()}
     assert {"spectra.cu", "nonstationary_mask.cu", "freq_smooth_blend.cu",
-            "istft_ola.cu", "gemm_tile.cuh"} <= names
+            "istft_ola.cu", "stationary_mask.cu", "gemm_tile.cuh"} <= names
     assert build.library_path().parent.parent == build.BUILD_ROOT
     if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed")
@@ -164,3 +165,35 @@ def test_build_lists_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["builds", "reports-failure"])
+def test_build_compiles_each_source_side_by_side_then_links(monkeypatch, tmp_path, fails):
+    """One nvcc process per .cu source, then one link; a failing compile
+    raises with nvcc's output (a stand-in nvcc records its arguments)."""
+    from noisereduce_tpu_torch.ops.cuda import build
+
+    log = tmp_path / "calls.txt"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        + ('case "$*" in *stationary_mask.cu*) echo broken >&2; exit 3;; esac\n'
+           if fails else "")
+        + 'while [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    out = tmp_path / "build" / "libnrtorch.so"
+    if fails:
+        with pytest.raises(RuntimeError, match="(?s)nvcc failed \\(3\\).*broken"):
+            build._compile(out)
+        assert not out.exists()
+        return
+    build._compile(out)
+    calls = log.read_text().splitlines()
+    compiled = sorted(c.split()[-1].rsplit("/", 1)[-1] for c in calls if " -c " in c)
+    assert compiled == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    assert "-shared" in calls[-1] and len(calls) == len(compiled) + 1
+    assert out.exists()

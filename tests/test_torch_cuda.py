@@ -1,5 +1,6 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, and
-``reduce_noise`` on the card against the CPU parity mode.
+``reduce_noise`` / ``reduce_noise_batch`` on the card against the CPU parity
+mode and the per-signal calls.
 
 Every test here is marked ``gpu`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it runs on a machine without
@@ -10,7 +11,9 @@ them; there, skip the repository's conftest (it configures JAX):
 Float32 bounds, as chip_smoke.py states them: spectra and istft_ola 2e-5 x
 max|ref| (long FP32 sums in another order than cuFFT), the mask 1e-4
 absolute (sigmoid slope 10 over an IIR floor), the frequency smoothing
-1e-6 absolute, end to end 5e-5 x max|ref|.
+1e-6 absolute, end to end 5e-5 x max|ref|; the stationary mask 1e-5
+absolute, with at most 1e-5 of its cells deciding the binary threshold the
+other way (a dB value within float32 resolution of the threshold).
 """
 import numpy as np
 import pytest
@@ -18,6 +21,11 @@ import torch
 
 import noisereduce_tpu_torch as nrt
 from noisereduce_tpu_torch.config import GateConfig, StftConfig
+from noisereduce_tpu_torch.models.spectral_gate import (
+    _gate_nonstationary_staged,
+    gate_nonstationary,
+    stationary_noise_threshold,
+)
 from noisereduce_tpu_torch.ops.cuda import kernels as K
 from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
 from noisereduce_tpu_torch.ops.dsp import tri_norm
@@ -27,6 +35,8 @@ torch.set_num_threads(2)
 GEOMS = [dict(n_fft=1024, hop_length=256), dict(n_fft=512, hop_length=128),
          dict(n_fft=2048, win_length=1024, hop_length=256)]
 GEOM_IDS = ["nfft1024", "nfft512", "nfft2048-win1024"]
+# the kernels of the non-stationary gate
+NONSTATIONARY = ("spectra", "nonstationary_mask", "freq_smooth_blend", "istft_ola")
 
 
 @pytest.fixture
@@ -69,7 +79,8 @@ def test_kernels_match_plain_versions(cuda, kw):
     y = K.istft_ola(re, im, mb, geo, pad, cs)
     ry = K.istft_ola_ref(re, im, mb, geo, pad, cs)
     assert _max(y - ry) <= 2e-5 * _max(ry)
-    assert set(K.launch_counts().values()) == {1}
+    assert {k: v for k, v in K.launch_counts().items() if k in NONSTATIONARY} == dict.fromkeys(
+        NONSTATIONARY, 1)
 
 
 @pytest.mark.gpu
@@ -79,7 +90,7 @@ def test_reduce_noise_on_card_matches_cpu_parity_mode(cuda, kw):
     y = np.random.default_rng(7).standard_normal((2, 30000))
     K.reset_launch_counts()
     got = nrt.reduce_noise(y, 16000, **kw)
-    assert min(K.launch_counts().values()) >= 1
+    assert min(K.launch_counts()[k] for k in NONSTATIONARY) >= 1
     ref = nrt.reduce_noise(y, 16000, device="cpu", compute_dtype=torch.float64, **kw)
     assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
 
@@ -97,3 +108,118 @@ def test_kernels_reject_float64(cuda):
 def test_silence_gives_zeros(cuda):
     out = nrt.reduce_noise(np.zeros(30000, np.float32), 16000)
     assert np.all(out == 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("views_per_row", [1, 2])
+def test_stationary_mask_matches_plain_version(cuda, views_per_row):
+    cfg = GateConfig(sr=16000, stationary=True, prop_decrease=0.8)
+    ngt = cfg.smoothing[1]
+    geo = gate_geometry(cfg.stft, 11000)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((4, 11000)),
+                        dtype=torch.float32, device=cuda)
+    re, im = K.spectra(x, geo)
+    rows = 4 // views_per_row
+    thr = stationary_noise_threshold(0.5 * x[:rows, :6000], cfg)
+    if views_per_row == 1:
+        thr = thr[0]  # one shared threshold
+    K.reset_launch_counts()
+    args = (re, im, thr.contiguous(), views_per_row, cfg.prop_decrease, tri_norm(ngt))
+    diff = (K.stationary_mask(*args) - K.stationary_mask_ref(*args)).abs()
+    assert K.launch_counts()["stationary_mask"] == 1
+    off = diff > 1e-5
+    assert int(off.sum()) <= 1e-5 * diff.numel()
+    assert _max(diff[~off]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_spectra_of_a_short_noise_row(cuda):
+    """A noise clip shorter than one window (kernel A, TPU row 3)."""
+    geo = gate_geometry(StftConfig(), 100)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal((1, 100)),
+                        dtype=torch.float32, device=cuda)
+    re, im = K.spectra(x, geo)
+    rre, rim = K.spectra_ref(x, geo)
+    assert re.shape == (1, 1, 513)
+    assert _max(re - rre) <= 2e-5 * _max(rre)
+    assert _max(im - rim) <= 2e-5 * _max(rre)
+
+
+@pytest.mark.gpu
+def test_unit_tap_mask_and_staged_geometry(cuda):
+    """Kernel B with one unit tap (TPU row 7), alone and on the staged path
+    of a hop that does not divide the window."""
+    cfg = GateConfig(sr=16000, n_fft=1024, hop_length=300)
+    x = torch.as_tensor(np.random.default_rng(10).standard_normal((2, 30000)),
+                        dtype=torch.float32, device=cuda)
+    re, im = (t.contiguous() for t in K.spectra_ref(x, gate_geometry(StftConfig(), 30000)))
+    args = (re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
+            cfg.sigmoid_slope_nonstationary, (1.0,))
+    assert _max(K.nonstationary_mask(*args) - K.nonstationary_mask_ref(*args)) <= 1e-4
+    K.reset_launch_counts()
+    got = gate_nonstationary(x, cfg)
+    assert K.launch_counts()["nonstationary_mask"] == 1
+    ref = _gate_nonstationary_staged(x, cfg)
+    assert _max(got - ref) <= 5e-5 * _max(ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(chunk_size=8000, padding=1500)],
+                         ids=["unchunked", "chunked"])
+def test_stationary_reduce_noise_on_card(cuda, kw):
+    rng = np.random.default_rng(11)
+    y = rng.standard_normal((2, 30000))
+    noise = 0.5 * rng.standard_normal(9000)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 16000, stationary=True, y_noise=noise, **kw)
+    counts = K.launch_counts()
+    assert counts["spectra"] == 2 and counts["nonstationary_mask"] == 0
+    assert min(counts[k] for k in ("stationary_mask", "freq_smooth_blend", "istft_ola")) == 1
+    ref = nrt.reduce_noise(y, 16000, stationary=True, y_noise=noise, device="cpu",
+                           compute_dtype=torch.float64, **kw)
+    n_flips, worst = _decision_flips(y, noise, GateConfig(sr=16000, stationary=True), kw)
+    # a cell whose dB value lies within float32 resolution of the threshold
+    # may decide the other way, and moves the output by ~1e-3 of its peak
+    assert worst <= 2e-3
+    if n_flips == 0:
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+def _decision_flips(y, noise, cfg, kw):
+    """Cells whose binary decision on the card (kernels A and E) differs
+    from a float64 staged run on the CPU, and the largest |dB - thr| among
+    them."""
+    from noisereduce_tpu_torch.ops.dsp import amp_to_db, noise_db_threshold
+    from noisereduce_tpu_torch.ops.stft import stft
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
+
+    cs, pad = kw.get("chunk_size", 600000), kw.get("padding", 30000)
+
+    def views(dt, dev):
+        t = torch.as_tensor(y, dtype=dt, device=dev)
+        if t.shape[-1] <= cs:
+            return torch.nn.functional.pad(t, (pad, pad))
+        v = extract_chunks(t, cs, pad)
+        return v.reshape(-1, v.shape[-1]).contiguous()
+
+    v = views(torch.float32, "cuda")
+    re, im = K.spectra(v, gate_geometry(cfg.stft, v.shape[-1]))
+    thr = stationary_noise_threshold(torch.as_tensor(noise, dtype=torch.float32, device="cuda"),
+                                     cfg)
+    dec = K.stationary_mask(re, im, thr, 1, 1.0, (1.0,)).cpu() > 0
+    re, im = stft(views(torch.float64, "cpu"), cfg.stft)
+    n = torch.as_tensor(noise, dtype=torch.float64)
+    margin = amp_to_db(torch.sqrt(re * re + im * im), 80.0, axis=-2) - noise_db_threshold(
+        *stft(n, cfg.stft), cfg.n_std_thresh_stationary)
+    flips = dec != (margin > 0)
+    return int(flips.sum()), float(margin.abs()[flips].max()) if flips.any() else 0.0
+
+
+@pytest.mark.gpu
+def test_reduce_noise_batch_on_card_is_the_per_signal_calls(cuda):
+    rng = np.random.default_rng(12)
+    ys = [rng.standard_normal(20000).astype(np.float32) for _ in range(3)]
+    ys.append(rng.standard_normal(12000).astype(np.float32))
+    got = nrt.reduce_noise_batch(ys, 16000, stationary=True)
+    for y, g in zip(ys, got):
+        np.testing.assert_array_equal(g, nrt.reduce_noise(y, 16000, stationary=True))
