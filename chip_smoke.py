@@ -8,7 +8,7 @@ last line is printed only when every phase passed):
 
 1. environment: torch version, the card's name and power limit
    (``nvidia-smi``); TF32 off, so the plain versions run in full FP32;
-2. build: kernels A-E from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
+2. build: kernels A-F from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
    ``nvcc`` (seconds printed);
 3. per kernel, at the headline shapes (77 halo'd 660,000-sample chunk views
    of 48 kHz audio): the kernel against its plain version on the same
@@ -16,9 +16,13 @@ last line is printed only when every phase passed):
    version's and one library call's time, and the bound the card's memory
    rate and FP32 rate set; also kernel A on a 10 s noise row (the
    threshold spectra) and kernel B with one unit tap (the staged mask);
+   then, under torch conventions (the gate ``reduce_noise(use_torch=True)``
+   runs), A with the torch table, F, E with each view's own statistics and
+   D with the torch tail;
 4. golden: ``reduce_noise(..., device="cuda")`` in float32 on
-   ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary and
-   the four stationary configurations against the reference outputs;
+   ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary, the
+   four stationary and the two torch-convention configurations against the
+   reference outputs;
 5. headline: 960 s of 48 kHz mono (tones plus non-stationary noise, from a
    seed) through ``reduce_noise`` with its defaults, against the port's
    staged plain path on the card; every kernel of the path must have
@@ -32,7 +36,17 @@ last line is printed only when every phase passed):
    serve, through the staged path with kernel B's mask;
 9. split geometry: a frequency smoothing wide enough that the JAX package
    takes its split path, on both engines;
-10. one JSON line of per-kernel results, then the last line
+10. torch headline: the headline signal through
+    ``reduce_noise(use_torch=True)`` (kernels A, F, C, D) against the
+    staged plain path of the torch convention on the card, timed;
+11. torch stationary headline with the 10 s noise clip (A twice, E, C, D),
+    timed, held to the plain path as the stationary headline is;
+12. torch batch: ``reduce_noise_batch(..., use_torch=True,
+    stationary=True)`` on the 32 clips, each its own statistics, against
+    the per-signal calls, timed;
+13. torch staged geometry: hop 300, which A and D do not serve, through
+    the plain STFT and iSTFT around F and C, against the staged plain path;
+14. one JSON line of per-kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -87,7 +101,13 @@ BOUNDS = {
     # mask units, over the cells whose binary decision agrees: a few FMAs of
     # the time taps in another order: absolute
     "stationary_mask": 1e-5,
+    # mask units; float64 window sums in both, rounded once, through a
+    # sigmoid of slope 1/temp = 10: absolute
+    "torch_nonstationary_mask": 1e-5,
 }
+# kernels A and D under torch conventions: the same FP32 sums as above,
+# held tighter: x max|ref|
+TORCH_TABLE_BOUND = 1e-5
 RELATIVE = {"spectra", "istft_ola"}
 # kernel E: the share of cells that may differ by more than its bound (a
 # dB value within float32 resolution of the threshold decides either way;
@@ -104,17 +124,25 @@ SOURCES = {
     "freq_smooth_blend": "noisereduce_tpu_torch/ops/cuda/csrc/freq_smooth_blend.cu",
     "istft_ola": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
     "stationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/stationary_mask.cu",
+    "torch_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/torch_nonstationary_mask.cu",
 }
 # the TPU kernel each replaces (file:line), and the rows of PERF.md's
 # kernel table it serves
 REPLACES = {
-    "spectra": "noisereduce_tpu/ops/pallas/kernels.py:152 (rows 1, 1s, 2); "
-               "noisereduce_tpu/ops/pallas/dispatch.py:556 (row 3)",
+    "spectra": "noisereduce_tpu/ops/pallas/kernels.py:152 (rows 1, 1s, 2, 4, 5); "
+               "noisereduce_tpu/ops/pallas/dispatch.py:556 (row 3, both callers)",
     "nonstationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:422 (rows 1, 2); "
                           "noisereduce_tpu/ops/pallas_mask.py:364 (row 7)",
-    "freq_smooth_blend": "noisereduce_tpu/ops/pallas/kernels.py:906 (rows 1, 1s, 2)",
-    "istft_ola": "noisereduce_tpu/ops/pallas/kernels.py:736 (rows 1, 1s, 2)",
-    "stationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:533 (rows 1s, 2)",
+    "freq_smooth_blend": "noisereduce_tpu/ops/pallas/kernels.py:906 (rows 1, 1s, 2, 4); "
+                         "noisereduce_tpu/ops/pallas/torch_dispatch.py:537 (row 5)",
+    "istft_ola": "noisereduce_tpu/ops/pallas/kernels.py:736 (rows 1, 1s, 2, 4); "
+                 "noisereduce_tpu/ops/pallas/torch_dispatch.py:561 (row 5)",
+    "stationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:533 (rows 1s, 2, 4; "
+                       "self statistics :583); "
+                       "noisereduce_tpu/ops/pallas/torch_dispatch.py:526 (row 5)",
+    "torch_nonstationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:635 (row 4, "
+                                "torch_dispatch.py:382); "
+                                "noisereduce_tpu/ops/pallas/torch_dispatch.py:485 (row 5)",
 }
 
 
@@ -190,6 +218,32 @@ def fft_ops(n_fft: int) -> float:
     return 2.5 * n_fft * np.log2(n_fft)
 
 
+def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale_bound=False):
+    """One kernel against its plain version: max |dev| within ``lim``
+    (times max|ref| with ``scale_bound``), the kernel's, the plain
+    version's and the library call's times, and the card's bound. Fails on
+    a disagreement; returns the numbers of the kernels JSON line."""
+    dev, scale = max_dev(got, ref)
+    lim = lim * (scale if scale_bound else 1.0)
+    finite = bool(torch.isfinite(got).all())
+    ms = time_ms(fn)
+    plain_ms = time_ms(ref_fn)
+    library_ms = time_ms(library_fn) if library_fn is not None else None
+    bound_ms, bound_by = bound(moved, ops)
+    lib = f"{library_ms:.3f} ms" if library_ms is not None else "none"
+    print(
+        f"kernel {label}: max|dev| {dev:.3e} bound {lim:.3e} "
+        f"(max|ref| {scale:.4g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        f"library {lib} card bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)",
+        flush=True,
+    )
+    if not finite or not dev <= lim:
+        fail(f"kernel {label} disagrees with its plain version")
+    return dict(max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     """Each kernel against its plain version at the main path's shapes.
     ``cfg`` is the non-stationary configuration, ``scfg`` the stationary
@@ -207,28 +261,10 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     results = {}
 
     def record(name, fn, ref_fn, got, ref, moved, ops, library_fn=None, label=None):
-        dev, scale = max_dev(got, ref)
-        lim = BOUNDS[name] * (scale if name in RELATIVE else 1.0)
-        finite = bool(torch.isfinite(got).all())
-        ms = time_ms(fn)
-        plain_ms = time_ms(ref_fn)
-        library_ms = time_ms(library_fn) if library_fn is not None else None
-        bound_ms, bound_by = bound(moved, ops)
-        lib = f"{library_ms:.3f} ms" if library_ms is not None else "none"
-        print(
-            f"kernel {label or name}: max|dev| {dev:.3e} bound {lim:.3e} "
-            f"(max|ref| {scale:.4g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"library {lib} card bound {bound_ms:.3f} ms ({bound_by}, "
-            f"{moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)",
-            flush=True,
-        )
-        if not finite or not dev <= lim:
-            fail(f"kernel {label or name} disagrees with its plain version")
+        r = measure(label or name, BOUNDS[name], fn, ref_fn, got, ref, moved, ops,
+                    library_fn, scale_bound=name in RELATIVE)
         if label is None:
-            results[name] = dict(
-                max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms,
-            )
+            results[name] = r
 
     # A: spectra of the 77 halo'd views, read straight from the signal
     a = (x_cuda[None], geo, CHUNK, PADDING)
@@ -338,6 +374,213 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
         max_abs_err_unflipped=rest,
     )
     return results
+
+
+def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, results) -> None:
+    """Kernels A (torch table; on the views and on the 10 s noise row, TPU
+    row 3's torch caller), F, E (each view's own statistics) and D (torch
+    tail) against their plain versions at the shapes the torch headline
+    gives them; ``gate`` is the one ``reduce_noise(use_torch=True)`` builds.
+    Adds F's entry to ``results`` and the others' torch numbers to
+    theirs."""
+    from noisereduce_tpu_torch.ops import dsp
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _rank1_taps
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
+
+    geo = gate_geometry(gate.stft_config, CHUNK + 2 * PADDING)
+    ft, tt = _rank1_taps(gate.smoothing)
+    window = torch.hann_window(gate.win_length, dtype=torch.float32, device=x_cuda.device)
+
+    a = (x_cuda[None], geo, CHUNK, PADDING)
+    re, im = K.spectra(*a)
+    rre, rim = K.spectra_ref(*a)
+    views = extract_chunks(x_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len)
+    views = views.contiguous()
+    tab = K._device_f32("analysis", geo.scfg, x_cuda.device)
+    results["spectra"]["torch_table"] = measure(
+        "spectra (torch table)", TORCH_TABLE_BOUND, lambda: K.spectra(*a),
+        lambda: K.spectra_ref(*a), torch.stack([re, im]), torch.stack([rre, rim]),
+        nbytes(x_cuda, tab, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        library_fn=lambda: torch.stft(
+            views, geo.n_fft, geo.hop, gate.win_length, window, center=True,
+            pad_mode="constant", return_complex=True,
+        ),
+        scale_bound=True,
+    )
+    del rre, rim, views
+
+    ngeo = gate_geometry(gate.stft_config, noise_cuda.shape[-1])
+    an = (noise_cuda[None], ngeo)
+    nre, nim = K.spectra(*an)
+    nrre, nrim = K.spectra_ref(*an)
+    results["spectra"]["torch_table_noise_row"] = measure(
+        "spectra (torch table, 10 s noise row)", TORCH_TABLE_BOUND,
+        lambda: K.spectra(*an), lambda: K.spectra_ref(*an),
+        torch.stack([nre, nim]), torch.stack([nrre, nrim]),
+        nbytes(noise_cuda, tab, nre, nim), nre.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        library_fn=lambda: torch.stft(
+            noise_cuda, geo.n_fft, geo.hop, gate.win_length, window, center=True,
+            pad_mode="constant", return_complex=True,
+        ),
+        scale_bound=True,
+    )
+    del nre, nim, nrre, nrim
+
+    cells = re.numel()
+    f = (re, im, gate.n_movemean_nonstationary, gate.n_thresh_nonstationary,
+         gate.temp_coeff_nonstationary, gate.prop_decrease, tt)
+    m = K.torch_nonstationary_mask(*f)
+    rm = K.torch_nonstationary_mask_ref(*f)
+    results["torch_nonstationary_mask"] = measure(
+        "torch_nonstationary_mask", BOUNDS["torch_nonstationary_mask"],
+        lambda: K.torch_nonstationary_mask(*f), lambda: K.torch_nonstationary_mask_ref(*f),
+        m, rm, nbytes(re, im, m), cells * (40.0 + 2 * len(tt)))
+    del rm
+
+    mb = K.freq_smooth_blend(m, ft, 1.0)
+    d = (re, im, mb, geo, PADDING, CHUNK)
+    y = K.istft_ola(*d)
+    ry = K.istft_ola_ref(*d)
+    zm = torch.complex(re * mb, im * mb).transpose(1, 2).contiguous()
+    results["istft_ola"]["torch_tail"] = measure(
+        "istft_ola (torch tail)", TORCH_TABLE_BOUND, lambda: K.istft_ola(*d),
+        lambda: K.istft_ola_ref(*d), y, ry, nbytes(re, im, mb, y),
+        re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
+        library_fn=lambda: torch.istft(
+            zm, geo.n_fft, geo.hop, gate.win_length, window, center=True,
+            length=geo.view_len),
+        scale_bound=True,
+    )
+    del zm, y, ry, m, mb
+
+    # E with each view's own statistics: the decisions against the plain
+    # version's float64 margins, then the output with the plain version
+    # taking E's decisions within BORDER_DB of the threshold
+    e = (re, im, None, 1, gate.prop_decrease, tt)
+    ekw = dict(top_db=40.0, n_std=gate.n_std_thresh_stationary)
+    got = K.stationary_mask(*e, **ekw)
+    dec_k = K.stationary_mask(re, im, None, 1, 1.0, (1.0,), **ekw)
+    db = torch.log(torch.sqrt(re * re + im * im) + dsp.EPS_F64) * K._DB_PER_NEPER
+    mx = db.amax(dim=-2, keepdim=True)
+    db = torch.maximum(db, mx - 40.0)
+    margin = db.double() - K._self_threshold(db, mx, gate.n_std_thresh_stationary)[:, None, :]
+    del db, mx
+    dec_p = (margin > 0).to(re.dtype)
+    flips = dec_k != dec_p
+    n_flips = int(flips.sum())
+    worst = float(margin.abs()[flips].max()) if n_flips else 0.0
+    dec = torch.where(margin.abs() <= BORDER_DB, dec_k, dec_p)
+    del margin, dec_k, dec_p, flips
+    ref = dsp.conv_same(dec * gate.prop_decrease + (1.0 - gate.prop_decrease), tt, -2)
+    del dec
+    diff = (got - ref).abs()
+    n_off = int((diff > BOUNDS["stationary_mask"]).sum())
+    dev = float(diff.max())
+    del diff, ref
+    ms = time_ms(lambda: K.stationary_mask(*e, **ekw))
+    plain_ms = time_ms(lambda: K.stationary_mask_ref(*e, **ekw))
+    bound_ms, bound_by = bound(nbytes(re, im, got), cells * (20.0 + 2 * len(tt)))
+    print(
+        f"kernel stationary_mask (self statistics, top_db 40): decisions that "
+        f"differ from the plain version's {n_flips} of {cells} cells, largest "
+        f"|dB - thr| among them {worst:.3e} dB (bound {BORDER_DB:.0e}); with the "
+        f"plain version taking E's decisions there: {n_off} cells off by more "
+        f"than {BOUNDS['stationary_mask']:.0e}, max|dev| {dev:.3e}; kernel "
+        f"{ms:.3f} ms plain {plain_ms:.3f} ms library none card bound "
+        f"{bound_ms:.3f} ms ({bound_by})",
+        flush=True,
+    )
+    if worst > BORDER_DB or n_off:
+        fail("kernel stationary_mask (self statistics) disagrees with its plain version")
+    results["stationary_mask"]["self_statistics"] = dict(
+        max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, decisions_differing=n_flips,
+        largest_margin_db=worst,
+    )
+
+
+def torch_staged(y2d, gate, chunk_size, padding, xn=None):
+    """The torch convention's staged plain path over (rows, n), chunked as
+    ``reduce_noise(use_torch=True)`` chunks: each view through
+    ``TPUGate._call_staged``, its natural-length deficit zero filled, the
+    cores assembled."""
+    from noisereduce_tpu_torch.parallel.chunking import process_chunked
+
+    def call(c):
+        v = c.reshape(-1, c.shape[-1])
+        out = gate._call_staged(v, xn)
+        return F.pad(out, (0, v.shape[-1] - out.shape[-1])).reshape(c.shape)
+
+    with torch.no_grad():
+        return process_chunked(call, y2d, chunk_size, padding)
+
+
+def torch_stationary_vs_plain(label, out, y2d, yn, gate, chunk_size, padding):
+    """``stationary_vs_plain`` for the torch convention: a stationary
+    TorchGate output from the card against the staged plain path on the
+    card, as it is and with the plain path taking the kernels' decisions
+    within ``BORDER_DB`` of the threshold. ``yn``: (1, n_clip) noise rows,
+    or None for each view's own statistics."""
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _torch_threshold_stats
+    from noisereduce_tpu_torch.ops.dsp import amp_to_db, smooth_mask_2d_torchgate
+    from noisereduce_tpu_torch.ops.stft import istft, stft
+    from noisereduce_tpu_torch.parallel.chunking import assemble_chunks
+
+    rows, n = y2d.shape
+    scfg = gate.stft_config
+    n_std = gate.n_std_thresh_stationary
+    with torch.no_grad():
+        plain = torch_staged(y2d, gate, chunk_size, padding, yn)
+        views, k = gate_views(y2d, chunk_size, padding)
+        re, im = K.spectra(views, gate_geometry(scfg, views.shape[-1]))
+        if yn is None:
+            dec_k = K.stationary_mask(re, im, None, 1, 1.0, (1.0,), top_db=40.0, n_std=n_std)
+        else:
+            thr = _torch_threshold_stats(yn, gate).contiguous()
+            dec_k = K.stationary_mask(re, im, thr, re.shape[0], 1.0, (1.0,), top_db=40.0)
+        del re, im
+        re, im = stft(views, scfg)
+        db = amp_to_db(torch.sqrt(re * re + im * im), top_db=40.0, axis=-2)
+        if yn is None:
+            ref_db = db
+        else:
+            rn, imn = stft(yn, scfg)
+            ref_db = amp_to_db(torch.sqrt(rn * rn + imn * imn), top_db=40.0, axis=-2)
+        thr_s = ref_db.mean(dim=-2) + ref_db.std(dim=-2, correction=1) * n_std
+        margin = db - thr_s[:, None, :]
+        del db, ref_db
+        dec_s = (margin > 0).to(re.dtype)
+        flips = dec_s != dec_k
+        n_flips = int(flips.sum())
+        worst = float(margin.abs()[flips].max()) if n_flips else 0.0
+        mask = torch.where(margin.abs() <= BORDER_DB, dec_k, dec_s)
+        del margin, dec_k, dec_s, flips
+        mask = gate.prop_decrease * (mask - 1.0) + 1.0
+        mask = smooth_mask_2d_torchgate(mask, *gate.smoothing, time_major=True)
+        y = istft((re * mask, im * mask), scfg)
+        y = F.pad(y, (0, views.shape[-1] - y.shape[-1]))
+        if k > 1:
+            aligned = assemble_chunks(y.reshape(rows, k, -1), chunk_size, padding, n)
+        else:
+            aligned = y[:, padding : padding + n]
+    out_t = torch.as_tensor(np.asarray(out, np.float64)).reshape(rows, n)
+    dev, _ = max_dev(out_t, plain.cpu())
+    dev_al, scale_al = max_dev(out_t, aligned.cpu())
+    lim = E2E_BOUND * scale_al
+    print(
+        f"{label} vs staged plain path: max|dev| {dev:.3e}; decisions that "
+        f"differ {n_flips} of {views.shape[0] * scfg.n_frames(views.shape[-1]) * scfg.n_bins} "
+        f"cells, largest |dB - thr| among them {worst:.3e} dB (bound "
+        f"{BORDER_DB:.0e}); with the plain path taking the kernels' decisions "
+        f"there: max|dev| {dev_al:.3e} bound {lim:.3e} (max|ref| {scale_al:.4g})",
+        flush=True,
+    )
+    if worst > BORDER_DB or not dev_al <= lim:
+        fail(f"{label} disagrees with the staged plain path")
 
 
 def gate_views(y2d: torch.Tensor, chunk_size: int, padding: int):
@@ -453,17 +696,20 @@ def golden_phase(nr) -> None:
     with open(os.path.join(HERE, "tests", "golden", "golden_v1.json")) as f:
         meta = json.load(f)
     sr = meta["sr"]
+    # the torch configurations name device="cpu" (the reference's CPU run):
+    # here they run on the card, in float32 like the others
     for name in ("nonstationary", "nonstationary_chunked", "stationary_self",
                  "stationary_noise_clip", "stationary_multichannel",
-                 "stationary_recorded_noise_nfft2048"):
+                 "stationary_recorded_noise_nfft2048", "torch_nonstationary_chunked",
+                 "torch_stationary_chunked"):
         cfg = meta["configs"][name]
-        kw = dict(cfg["kwargs"])
+        kw = dict(cfg["kwargs"], device="cuda")
         if cfg["use_noise"]:
             kw["y_noise"] = data["noise"][: sr // 4]
         if cfg.get("use_recorded_noise"):
             kw["y_noise"] = data["cafe_clip"]
         y = data[cfg["input"]]
-        out = nr.reduce_noise(y, sr, device="cuda", **kw)
+        out = nr.reduce_noise(y, sr, **kw)
         ref = data[f"out_{name}"]
         dev = float(np.abs(out.astype(np.float64) - ref).max())
         scale = float(np.abs(ref).max())
@@ -471,7 +717,7 @@ def golden_phase(nr) -> None:
         print(f"golden {name}: max|dev| {dev:.3e} bound {bound_:.3e} "
               f"({dev / scale:.2e} x max|ref|)", flush=True)
         if out.shape != ref.shape or out.dtype != ref.dtype or not dev <= bound_:
-            if kw.get("stationary"):
+            if kw.get("stationary") and not kw.get("use_torch"):
                 golden_flip_report(nr, y, sr, kw)
             fail(f"golden {name}")
 
@@ -480,7 +726,7 @@ def golden_flip_report(nr, y, sr, kw) -> None:
     """Print the cells where the card's stationary decisions differ from a
     float64 staged run on the CPU, with their dB margins."""
     cfg = nr.GateConfig(sr=sr, stationary=True, **{
-        k: v for k, v in kw.items() if k not in ("stationary", "y_noise")})
+        k: v for k, v in kw.items() if k not in ("stationary", "y_noise", "device")})
     y2d = np.atleast_2d(y)
     yn = np.atleast_2d(kw.get("y_noise", y)).mean(axis=0)[:CHUNK]
 
@@ -526,6 +772,9 @@ def main() -> None:
     x_cuda = torch.as_tensor(x).cuda()
     noise_cuda = torch.as_tensor(noise).cuda()
     results = kernel_phase(x_cuda, noise_cuda, cfg, scfg)
+    tgate = nr.api.torch_gate_for(SR)  # the gate of reduce_noise(x, SR, use_torch=True)
+    tsgate = nr.api.torch_gate_for(SR, stationary=True)
+    torch_kernel_phase(x_cuda, noise_cuda, tgate, results)
     del x_cuda
     torch.cuda.empty_cache()
 
@@ -643,8 +892,90 @@ def main() -> None:
                         nr.GateConfig(sr=SPLIT_SR, stationary=True, **SPLIT_KW),
                         CHUNK, PADDING)
 
-    main_path = {name: ("stationary headline" if name == "stationary_mask" else "headline")
-                 for name in SOURCES}
+    # torch headline: reduce_noise(use_torch=True), kernels A, F, C, D
+    xt = torch.as_tensor(x[None]).cuda()
+    out, launches["torch headline"] = run_path(
+        K, "torch headline", lambda: nr.reduce_noise(x, SR, use_torch=True, **ck),
+        dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    check_output("torch headline", out, x)
+    ref = torch_staged(xt, tgate, CHUNK, PADDING)[0].cpu().numpy()
+    dev = float(np.abs(out.astype(np.float64) - ref).max())
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    print(f"torch headline vs staged plain path: max|dev| {dev:.3e} bound {lim:.3e}",
+          flush=True)
+    if not dev <= lim:
+        fail("torch headline disagrees with the staged plain path")
+    ms = time_ms(lambda: nr.reduce_noise(x, SR, use_torch=True, **ck))
+    plain_ms = time_ms(lambda: torch_staged(torch.as_tensor(x[None]).cuda(), tgate, CHUNK,
+                                            PADDING).cpu())
+    print(
+        f"torch headline {HEADLINE_SECONDS} s @ {SR} Hz: reduce_noise(use_torch=True) "
+        f"{ms:.1f} ms ({HEADLINE_SECONDS / (ms / 1e3):.0f} audio s per wall s), staged "
+        f"plain path {plain_ms:.1f} ms, on {card}",
+        flush=True,
+    )
+    del out, ref
+    torch.cuda.empty_cache()
+
+    # torch stationary headline: the 10 s noise clip
+    out, launches["torch stationary headline"] = run_path(
+        K, "torch stationary headline",
+        lambda: nr.reduce_noise(x, SR, stationary=True, use_torch=True, y_noise=noise, **ck),
+        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    check_output("torch stationary headline", out, x)
+    torch_stationary_vs_plain("torch stationary headline", out, xt,
+                              torch.as_tensor(noise[None]).cuda(), tsgate, CHUNK, PADDING)
+    ms = time_ms(lambda: nr.reduce_noise(x, SR, stationary=True, use_torch=True,
+                                         y_noise=noise, **ck))
+    print(
+        f"torch stationary headline {HEADLINE_SECONDS} s @ {SR} Hz with a "
+        f"{NOISE_SECONDS} s noise clip: reduce_noise(use_torch=True) {ms:.1f} ms "
+        f"({HEADLINE_SECONDS / (ms / 1e3):.0f} audio s per wall s), on {card}",
+        flush=True,
+    )
+    del xt, out
+    torch.cuda.empty_cache()
+
+    # torch batch: 32 clips of 10 s, stationary, each view its own statistics
+    tk = dict(stationary=True, use_torch=True, **ck)
+    outs, launches["torch batch"] = run_path(
+        K, "torch batch", lambda: nr.reduce_noise_batch(clips, SR, **tk),
+        dict(spectra=1, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+    n_bitwise = 0
+    for clip, o in zip(clips, outs):
+        check_output("torch batch", o, clip)
+        n_bitwise += int(np.array_equal(o, nr.reduce_noise(clip, SR, **tk)))
+    torch_stationary_vs_plain("torch batch", np.stack(outs), torch.as_tensor(np.stack(clips)).cuda(),
+                              None, tsgate, CHUNK, PADDING)
+    ms = time_ms(lambda: nr.reduce_noise_batch(clips, SR, **tk))
+    print(
+        f"torch batch {BATCH_CLIPS} x {BATCH_SECONDS} s @ {SR} Hz stationary, "
+        f"self statistics: {n_bitwise} of {BATCH_CLIPS} outputs bitwise the "
+        f"per-signal calls'; reduce_noise_batch(use_torch=True) {ms:.1f} ms on {card}",
+        flush=True,
+    )
+    if n_bitwise != BATCH_CLIPS:
+        fail("torch batch differs from the per-signal calls")
+
+    # torch staged geometry: the plain STFT and iSTFT around F and C
+    out, launches["torch staged geometry"] = run_path(
+        K, "torch staged geometry",
+        lambda: nr.reduce_noise(xs, STAGED_SR, use_torch=True, **STAGED_KW, **ck),
+        dict(torch_nonstationary_mask=1, freq_smooth_blend=1))
+    check_output("torch staged geometry", out, xs)
+    ref = torch_staged(torch.as_tensor(xs[None]).cuda(),
+                       nr.api.torch_gate_for(STAGED_SR, **STAGED_KW), CHUNK,
+                       PADDING)[0].cpu().numpy()
+    dev = float(np.abs(out.astype(np.float64) - ref).max())
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    print(f"torch staged geometry (n_fft 1024, hop 300) vs staged plain path: "
+          f"max|dev| {dev:.3e} bound {lim:.3e}", flush=True)
+    if not dev <= lim:
+        fail("torch staged geometry disagrees with the staged plain path")
+
+    main_path = {name: "headline" for name in SOURCES}
+    main_path.update(stationary_mask="stationary headline",
+                     torch_nonstationary_mask="torch headline")
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

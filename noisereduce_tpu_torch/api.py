@@ -1,7 +1,8 @@
 """Public API: ``reduce_noise``, signature-compatible with the reference
-(noisereduce/noisereduce.py:13-185), with the scipy-convention engines,
-stationary and non-stationary, and ``reduce_noise_batch`` (counterpart of
-``noisereduce_tpu/api.py``).
+(noisereduce/noisereduce.py:13-185), with all three engines (the
+scipy-convention ones, stationary and non-stationary, and the
+torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
+(counterpart of ``noisereduce_tpu/api.py``).
 
 - ``device`` defaults to ``"cuda"``, as the reference's torch path does.
   Where CUDA is absent, ``device="cuda"`` raises; it does not fall back to
@@ -9,10 +10,12 @@ stationary and non-stationary, and ``reduce_noise_batch`` (counterpart of
   mode).
 - ``compute_dtype`` defaults to ``torch.float32``, the only type the
   kernels take; ``torch.float64`` runs on the CPU only.
-- ``use_torch=True`` and ``use_tqdm=True`` raise ``NotImplementedError``:
-  they are later slices of the port (ROADMAP.md, Queue 1). ``tmp_folder``
-  and ``n_jobs`` are accepted for compatibility; chunk fan-out is the
-  kernels' batch axis, not a process pool.
+- ``use_tqdm=True`` and a bf16 ``compute_dtype`` raise
+  ``NotImplementedError``: they are later slices of the port (ROADMAP.md,
+  Queue 1). ``tmp_folder`` and ``n_jobs`` are accepted for compatibility
+  (chunk fan-out is the kernels' batch axis, not a process pool), except
+  that ``use_torch=True`` with ``n_jobs != 1`` raises the reference's
+  ``ValueError``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from noisereduce_tpu_torch.config import Convention, GateConfig, smoothing_kernel_sizes
+from noisereduce_tpu_torch.models.tpu_gate import TPUGate
 from noisereduce_tpu_torch.models.spectral_gate import (
     gate_nonstationary,
     gate_stationary,
@@ -61,6 +65,65 @@ def _run_nonstationary(y2d, cfg, chunk_size, padding):
     return process_chunked(
         lambda c: gate_nonstationary(c, cfg), y2d, chunk_size, padding
     )
+
+
+def _hop(n_fft, win_length, hop_length) -> int:
+    """The STFT's hop, by its defaults: win = n_fft, hop = win // 4."""
+    win = n_fft if win_length is None else win_length
+    return win // 4 if hop_length is None else hop_length
+
+
+def torch_gate_for(
+    sr,
+    stationary=False,
+    prop_decrease=1.0,
+    time_constant_s=2.0,
+    freq_mask_smooth_hz=500,
+    time_mask_smooth_ms=50,
+    thresh_n_mult_nonstationary=2,
+    sigmoid_slope_nonstationary=10,
+    n_std_thresh_stationary=1.5,
+    n_fft=1024,
+    win_length=None,
+    hop_length=None,
+) -> TPUGate:
+    """The TorchGate that ``reduce_noise(y, sr, use_torch=True, ...)`` runs
+    with these arguments (the same names and defaults), as the
+    StreamedTorchGate builds it (streamed_torch_gate.py:12-87;
+    ``api.py::_reduce_noise_torch_path``, ``:634``): temp_coeff = 1/slope,
+    n_movemean = time_constant * sr / hop."""
+    hop = _hop(n_fft, win_length, hop_length)
+    return TPUGate(
+        sr=sr,
+        nonstationary=not stationary,
+        n_std_thresh_stationary=n_std_thresh_stationary,
+        n_thresh_nonstationary=thresh_n_mult_nonstationary,
+        temp_coeff_nonstationary=1 / sigmoid_slope_nonstationary,
+        n_movemean_nonstationary=int(time_constant_s / hop * sr),
+        prop_decrease=prop_decrease,
+        n_fft=n_fft,
+        win_length=win_length,
+        hop_length=hop_length,
+        freq_mask_smooth_hz=freq_mask_smooth_hz,
+        time_mask_smooth_ms=time_mask_smooth_ms,
+    )
+
+
+def _reduce_noise_torch_path(y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary):
+    """The StreamedTorchGate engine: ``gate`` over halo'd chunks. The noise
+    clip stays multichannel and, longer than the signal, is cut along its
+    FIRST axis (the reference's quirk, streamed_torch_gate.py:57-58:
+    samples for a 1-D clip, channels for a 2-D one). ``y_noise`` may also be
+    a list of equal-length 1-D rows (``reduce_noise_batch``'s per-signal
+    clips)."""
+    yn = None
+    if y_noise is not None:
+        yn = y_noise if isinstance(y_noise, list) else np.asarray(y_noise)
+        n_clip = yn[0].shape[-1] if isinstance(yn, list) else yn.shape[-1]
+        if n_clip > y2d.shape[-1] and clip_noise_stationary:
+            yn = yn[: y2d.shape[-1]]
+        yn = _to_tensor(yn, y2d.device, y2d.dtype)
+    return gate.chunked(y2d, chunk_size, padding, yn)
 
 
 def _as_2d(y: np.ndarray):
@@ -147,17 +210,21 @@ def reduce_noise(
     clip_noise_stationary : clip the noise clip to chunk_size samples
     device : torch device to run on (default "cuda"; raises if absent)
     compute_dtype : torch.float32 (default) or torch.float64 (CPU only)
+    use_torch : the TorchGate engine (torch STFT conventions, a
+        moving-average floor and temperature sigmoid, or noise statistics
+        with top_db 40 and ddof 1; chunked, the noise clip cut to the
+        signal's length); needs ``n_jobs=1``
     tmp_folder, n_jobs : accepted for reference compatibility
 
     Returns a NumPy array with the input's shape and dtype.
     """
-    del tmp_folder, n_jobs
+    del tmp_folder
     out, meta = _reduce_noise_deferred(
         y, sr, stationary, y_noise, prop_decrease, time_constant_s,
         freq_mask_smooth_hz, time_mask_smooth_ms, thresh_n_mult_nonstationary,
         sigmoid_slope_nonstationary, n_std_thresh_stationary, chunk_size,
         padding, n_fft, win_length, hop_length, clip_noise_stationary,
-        use_tqdm, use_torch, device, compute_dtype,
+        use_tqdm, n_jobs, use_torch, device, compute_dtype,
     )
     return _finalize_reduce_output(out, *meta)
 
@@ -166,8 +233,8 @@ def _reduce_noise_deferred(
     y, sr, stationary, y_noise, prop_decrease, time_constant_s,
     freq_mask_smooth_hz, time_mask_smooth_ms, thresh_n_mult_nonstationary,
     sigmoid_slope_nonstationary, n_std_thresh_stationary, chunk_size, padding,
-    n_fft, win_length, hop_length, clip_noise_stationary, use_tqdm, use_torch,
-    device, compute_dtype, _noise_rows=None,
+    n_fft, win_length, hop_length, clip_noise_stationary, use_tqdm, n_jobs,
+    use_torch, device, compute_dtype, _noise_rows=None,
 ):
     """``reduce_noise``'s body, returning the output tensor (its kernels
     queued on the card, not waited for) and what ``_finalize_reduce_output``
@@ -179,15 +246,15 @@ def _reduce_noise_deferred(
     stationary batch of B mono signals riding the channel axis, or
     ``"self"`` for the signal rows themselves; each row's threshold comes from its own noise row (no mono
     collapse), and the gate reads them as one (B, bins) threshold
-    (``api.py:438-442``)."""
-    if use_torch:
-        raise NotImplementedError(f"use_torch=True (the torch-convention gate) {_LATER}")
+    (``api.py:438-442``). With ``use_torch``, ``y_noise`` may be a list of
+    B equal-length 1-D noise rows, one per signal row."""
+    if use_torch and n_jobs != 1:
+        raise ValueError("n_jobs must be 1 when using torch version of spectral gating.")
     if use_tqdm:
         raise NotImplementedError(f"use_tqdm=True (the host-driven chunk loop) {_LATER}")
     # validate the smoothing geometry eagerly, like the reference
     # constructors (spectralgate/base.py:99-128): same ValueErrors
-    win = n_fft if win_length is None else win_length
-    hop = win // 4 if hop_length is None else hop_length
+    hop = _hop(n_fft, win_length, hop_length)
     smoothing_kernel_sizes(sr, n_fft, hop, freq_mask_smooth_hz, time_mask_smooth_ms)
 
     cdtype = torch.float32 if compute_dtype is None else compute_dtype
@@ -205,6 +272,23 @@ def _reduce_noise_deferred(
         out_dtype = y.dtype
         y, flat = _as_2d(y)
     y2d = _to_tensor(y, dev, cdtype)
+
+    if use_torch:
+        gate = torch_gate_for(
+            sr, stationary=stationary, prop_decrease=prop_decrease,
+            time_constant_s=time_constant_s,
+            freq_mask_smooth_hz=freq_mask_smooth_hz,
+            time_mask_smooth_ms=time_mask_smooth_ms,
+            thresh_n_mult_nonstationary=thresh_n_mult_nonstationary,
+            sigmoid_slope_nonstationary=sigmoid_slope_nonstationary,
+            n_std_thresh_stationary=n_std_thresh_stationary, n_fft=n_fft,
+            win_length=win_length, hop_length=hop_length,
+        )
+        with torch.no_grad():
+            out = _reduce_noise_torch_path(
+                y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary
+            )
+        return out, (out_dtype, flat)
 
     cfg = GateConfig(
         sr=sr,
@@ -275,13 +359,14 @@ def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
         ``y_noise=None`` takes each signal's threshold from itself, and
         per-signal 1-D clips give per-signal thresholds: both batch as one
         threshold call and one gate call per group through a (B, bins)
-        threshold. Per-signal multichannel clips run per signal.
+        threshold (with ``use_torch``, the TorchGate engine's statistics,
+        which are per row already: self-noise as no clip, and the clips,
+        each cut to its signal's length, as B noise rows). Per-signal
+        multichannel clips run per signal.
 
     Returns a list of np.ndarray in input order, each with its input's
     shape and dtype.
     """
-    if kwargs.get("use_torch", False):
-        raise NotImplementedError(f"use_torch=True (the torch-convention gate) {_LATER}")
     ys = [np.asarray(y) for y in ys]
     for i, y in enumerate(ys):
         if y.ndim != 1:
@@ -293,8 +378,7 @@ def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
     if per_signal_noise and len(y_noise) != len(ys):
         raise ValueError(f"got {len(y_noise)} noise clips for {len(ys)} signals")
     call = dict(_REDUCE_DEFAULTS, **kwargs)
-    for key in ("tmp_folder", "n_jobs"):
-        call.pop(key, None)
+    call.pop("tmp_folder", None)
     stationary = bool(call["stationary"])
     # per-row noise statistics: self-noise or per-signal clips, both batched
     # through a (B, bins) threshold
@@ -325,6 +409,18 @@ def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
             noise = y_noise if stationary else None
             pending.append((idx, _reduce_noise_deferred(
                 **dict(call, y=block, sr=sr, y_noise=noise))))
+        elif call["use_torch"]:
+            # TorchGate's statistics are per row already (torchgate.py:126-
+            # 165): self-noise as no clip, per-signal clips as noise rows,
+            # each cut to its signal's length (streamed_torch_gate.py:57-58)
+            clips = None
+            if per_signal_noise:
+                n = block[0].shape[0]
+                clips = [np.asarray(y_noise[i]) for i in idx]
+                if call["clip_noise_stationary"]:
+                    clips = [c[:n] for c in clips]
+            pending.append((idx, _reduce_noise_deferred(
+                **dict(call, y=block, sr=sr, y_noise=clips))))
         else:
             rows = [np.asarray(y_noise[i]) for i in idx] if per_signal_noise else "self"
             pending.append((idx, _reduce_noise_deferred(

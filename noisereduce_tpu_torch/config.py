@@ -36,7 +36,8 @@ class StftConfig:
     ``win_length // 2`` zeros on each side; frames are scaled by
     ``1 / window.sum()``. ``torch``: frames are ``n_fft`` samples long with
     the window zero-padded centered to ``n_fft``; ``n_fft // 2`` zeros each
-    side; no scaling. The port's STFT implements the scipy convention only.
+    side; no scaling. ``quantize_window_f32`` takes torch.hann_window's
+    float32 values (the TorchGate engine's window for any audio dtype).
     """
 
     n_fft: int = 1024

@@ -33,6 +33,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
+_d = ctypes.c_double
 
 # C signatures of the entries (csrc/*.cu); pointers and the stream as void*
 _SIGNATURES = {
@@ -46,11 +47,14 @@ _SIGNATURES = {
     "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _ll, _i, _f, _vp],
     "nr_stationary_mask": [
         _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f,
-        _f, _vp,
+        _f, _d, _vp,
     ],
     "nr_istft_ola": [
         _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
-        _ll, _ll, _vp, _vp,
+        _ll, _ll, _f, _vp, _vp,
+    ],
+    "nr_torch_nonstationary_mask": [
+        _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp,
     ],
 }
 

@@ -9,9 +9,12 @@
 //   x[p] = sum_{i < r, 0 <= j-i < T} w[u] (sum w) irfft_N(Y_{j-i})[u],  u = i*hop + q
 // (irfft with Hermitian weights 2, except 1 at DC and Nyquist, and 1/N),
 // divided by the window-square envelope env[p] = sum w[u]^2 over the same
-// frames (entries <= 1e-10 count as 1). The kernel writes only trimmed
-// samples s = p - win/2 in [out_off, out_off + out_len), as
-// out[b, s - out_off], and zero where s is past the scipy istft length.
+// frames (entries <= env_floor count as 1: scipy 1e-10, torch 1e-11). The
+// kernel writes only trimmed samples s = p - bpad in
+// [out_off, out_off + out_len), as out[b, s - out_off], and zero where s is
+// past the istft length (scipy's, or torch's natural (T-1)*hop). The scipy
+// and torch conventions differ only in the table (scipy folds sum w into
+// it, torch does not), bpad, the length and the floor.
 //
 // Bound on this card: FP32 FMAs, r * 2 * n_bins * hop per output hop block
 // (0.38 TFLOP at the 960 s headline shape, about kernel A's 0.42). Design: the
@@ -78,6 +81,7 @@ struct IstftEpilogue {
   long long out_off;
   long long out_len;
   long long istft_len;
+  float env_floor;
   int M;
 
   __device__ void operator()(int m, int q, float v) const {
@@ -97,7 +101,7 @@ struct IstftEpilogue {
           env = fmaf(wu, wu, env);
         }
       }
-      y = v / (env > 1e-10f ? env : 1.f);
+      y = v / (env > env_floor ? env : 1.f);
     }
     out[(long long)b * out_len + o] = y;
   }
@@ -122,12 +126,13 @@ extern "C" int nr_istft_ola(const float* re, const float* im,
                             const float* tab, int ldb, int f2, int rows,
                             int n_frames, int n_bins, int hop, int r, int bpad,
                             int j0, int n_out, long long out_off,
-                            long long out_len, long long istft_len, float* out,
-                            void* stream) {
+                            long long out_len, long long istft_len,
+                            float env_floor, float* out, void* stream) {
   const int M = rows * n_out;
   IstftLoader ld{re, im, mask, n_frames, n_bins, f2, n_out, j0, M};
-  IstftEpilogue epi{out,   win, n_frames, hop,     r,         bpad,
-                    n_out, j0,  out_off,  out_len, istft_len, M};
+  IstftEpilogue epi{out,     win,       n_frames,  hop, r,
+                    bpad,    n_out,     j0,        out_off, out_len,
+                    istft_len, env_floor, M};
   const int n_tiles_n = ldb / nrt::BN;
   const int n_tiles_m = (M + nrt::BM - 1) / nrt::BM;
   const long long blocks = (long long)n_tiles_m * n_tiles_n;

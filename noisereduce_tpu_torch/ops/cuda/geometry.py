@@ -1,5 +1,5 @@
-"""Hopper geometry of the fused non-stationary gate (counterpart of
-``noisereduce_tpu/ops/pallas/geometry.py::_geometry``, ``:372``).
+"""Hopper geometry of the fused gates, both STFT conventions (counterpart
+of ``noisereduce_tpu/ops/pallas/geometry.py::_geometry``, ``:372``).
 
 The TPU kernel keeps a chunk's whole time axis resident in VMEM per
 128-lane frequency tile, and its geometry is shaped by that: lane tiles with
@@ -11,12 +11,18 @@ launch shapes below:
 - A ``spectra`` and D ``istft_ola`` are implicit matrix products tiled
   128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT columns x window samples
   for A; output hop blocks x hop x shifted bins for D).
-- B ``nonstationary_mask`` runs one thread per (row, bin) down the time
-  axis, so the IIR carry never crosses a block.
+- B ``nonstationary_mask``, E ``stationary_mask`` and F
+  ``torch_nonstationary_mask`` run one thread per (row, bin) down the time
+  axis, so the IIR carry or the moving-average window never crosses a
+  block.
 - C ``freq_smooth_blend`` runs one block per (row, frame).
 
-The only structural requirement is that the hop divides the window, so an
-output hop block is the sum of exactly r = win/hop frame segments.
+The only structural requirement is that the hop divides the analysis frame
+(the window for scipy, n_fft for torch), so an output hop block is the sum
+of exactly r = frame_length/hop frame segments. The TPU predicate of the
+torch convention (``torch_dispatch.py::fused_tpugate_supported``, ``:55``:
+win == n_fft, a 128-aligned hop, r in {2, 4}, n_movemean <= 512, VMEM) has
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -35,14 +41,10 @@ def _round_up(a: int, m: int) -> int:
 
 
 def kernels_supported(scfg: StftConfig) -> bool:
-    """Whether kernels A-D serve this STFT geometry: scipy convention and a
-    hop that divides the window. There is no size limit; n_grad_time and
-    n_grad_freq are unbounded."""
-    return (
-        scfg.convention == Convention.SCIPY
-        and not scfg.quantize_window_f32
-        and scfg.frame_length % scfg.hop_length == 0
-    )
+    """Whether the kernels serve this STFT geometry, in either convention:
+    a hop that divides the analysis frame. There is no size limit;
+    n_grad_time, n_grad_freq and n_movemean are unbounded."""
+    return scfg.frame_length % scfg.hop_length == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +54,8 @@ class GateGeometry:
 
     View c of row h holds source samples
     [c*chunk_stride + view_start, ... + view_len), zero outside [0, n_src);
-    scipy's win//2 boundary zeros extend each view on both sides.
+    the convention's boundary zeros (scipy win//2, torch n_fft//2) extend
+    each view on both sides.
     """
 
     scfg: StftConfig
@@ -60,6 +63,7 @@ class GateGeometry:
 
     @property
     def win(self) -> int:
+        """Samples per analysis frame (scipy: win_length; torch: n_fft)."""
         return self.scfg.frame_length
 
     @property
@@ -93,8 +97,15 @@ class GateGeometry:
 
     @property
     def istft_len(self) -> int:
-        """scipy istft output length: full OLA minus win//2 each side."""
-        return self.win + (self.n_frames - 1) * self.hop - 2 * self.bpad
+        """istft output length: scipy, the full OLA minus win//2 each side;
+        torch, the natural (n_frames - 1) * hop."""
+        return self.scfg.istft_length(self.n_frames)
+
+    @property
+    def env_floor(self) -> float:
+        """Envelope entries at or below this count as 1 (scipy 1e-10,
+        torch 1e-11)."""
+        return 1e-10 if self.scfg.convention == Convention.SCIPY else 1e-11
 
     # ---- kernel A: analysis table (k_a x cols_a), row n = window sample
     @property
@@ -133,8 +144,8 @@ class GateGeometry:
 def gate_geometry(scfg: StftConfig, view_len: int) -> GateGeometry:
     if not kernels_supported(scfg):
         raise NotImplementedError(
-            "kernels A-D need the scipy convention and a hop that divides "
-            f"the window (got win={scfg.frame_length}, hop={scfg.hop_length}, "
+            "the kernels need a hop that divides the analysis frame (got "
+            f"frame_length={scfg.frame_length}, hop={scfg.hop_length}, "
             f"convention={scfg.convention!r}); see ROADMAP.md, Queue 2"
         )
     return GateGeometry(scfg=scfg, view_len=view_len)

@@ -1,12 +1,15 @@
-"""The five CUDA kernels of the scipy-convention gates, their wrappers and
-their plain PyTorch versions.
+"""The six CUDA kernels of the gates, their wrappers and their plain
+PyTorch versions.
 
 Together they replace the merged TPU kernel
 ``noisereduce_tpu/ops/pallas/dispatch.py::_merged_gate_from_blocks``
 (``pallas_call`` at ``:287``) in both its variants and its split twin
-(``:723``, ``:758``, ``:804``); A alone replaces the noise-clip spectra of
-``_fused_stft_planes`` (``:556``) and B with one unit tap the time-major
-mask of ``ops/pallas_mask.py::_fused_mask_tm_cvjp`` (``:364``):
+(``:723``, ``:758``, ``:804``), and the torch-convention gate
+``ops/pallas/torch_dispatch.py::_merged_torch_impl`` (``:382``) and its
+split twin ``_fused_torch_impl`` (``:485``, ``:526``, ``:561``); A alone
+replaces the noise-clip spectra of ``_fused_stft_planes`` (``:556``) for
+both conventions' thresholds and B with one unit tap the time-major mask of
+``ops/pallas_mask.py::_fused_mask_tm_cvjp`` (``:364``):
 
 =====  ======================  =============================================
 A      ``spectra``             ``kernels.py::_spectra_phases`` (:152)
@@ -15,9 +18,15 @@ B      ``nonstationary_mask``  ``kernels.py::_am_kernel`` phase 3 (:443) and
 C      ``freq_smooth_blend``   ``kernels.py::_freq_smooth_blend_phase`` (:906)
 D      ``istft_ola``           ``kernels.py::_apply_istft_kernel`` (:736) and
                                ``dispatch.py::_scipy_istft_tail`` (:331)
-E      ``stationary_mask``     ``kernels.py::_as_kernel`` passes A, B (:565)
-                               and ``_time_smooth_phase`` (:630)
+E      ``stationary_mask``     ``kernels.py::_as_kernel`` passes A, B and
+                               the self-statistics pass (:565-628) and
+                               ``_time_smooth_phase`` (:630)
+F      ``torch_nonstationary_  ``kernels.py::_mt_kernel`` passes 1-3
+       mask``                  (:663-714)
 =====  ======================  =============================================
+
+A and D take either STFT convention: their constant tables and D's
+envelope floor and output length come from the geometry's ``StftConfig``.
 
 Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU
 and only then. For a CUDA tensor it launches its kernel (sources in
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry
@@ -50,6 +60,7 @@ __all__ = [
     "freq_smooth_blend", "freq_smooth_blend_ref",
     "istft_ola", "istft_ola_ref",
     "stationary_mask", "stationary_mask_ref",
+    "torch_nonstationary_mask", "torch_nonstationary_mask_ref",
     "reset_launch_counts", "launch_counts",
 ]
 
@@ -100,17 +111,18 @@ def _check_size(name: str, *sizes: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _analysis_table_np(scfg) -> np.ndarray:
-    """(k_a, cols_a) float64: row n = window sample, columns
-    [0, n_bins) = w[n] cos(2 pi k n / N) / sum w, [n_bins, 2 n_bins) =
-    -w[n] sin(...) / sum w; zero padded. The tables depend on the STFT
-    geometry only, hence a view length of 0."""
+    """(k_a, cols_a) float64: row n = frame sample, columns
+    [0, n_bins) = w[n] cos(2 pi k n / N) s, [n_bins, 2 n_bins) =
+    -w[n] sin(...) s, with s = 1 / sum w for scipy and 1 for torch; zero
+    padded. The tables depend on the STFT geometry only, hence a view
+    length of 0."""
     geo = GateGeometry(scfg, 0)
     w = _analysis_window_np(scfg)
     F_ = geo.n_bins
     n = np.arange(geo.win, dtype=np.float64)[:, None]
     k = np.arange(F_, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * k / geo.n_fft
-    ws = (w / w.sum())[:, None]
+    ws = (w / (w.sum() if scfg.convention == Convention.SCIPY else 1.0))[:, None]
     tab = np.zeros((geo.k_a, geo.cols_a), np.float64)
     tab[: geo.win, :F_] = ws * np.cos(ang)
     tab[: geo.win, F_ : 2 * F_] = -ws * np.sin(ang)
@@ -120,12 +132,15 @@ def _analysis_table_np(scfg) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _synthesis_table_np(scfg) -> np.ndarray:
     """(r * f2, cols_d) float64: row i*f2 + c, column q, with u = i*hop + q:
-    c < n_bins: c_k cos(2 pi k u / N) / N * w[u] * sum w (k = c);
-    n_bins <= c < 2 n_bins: -c_k sin(...) / N * w[u] * sum w (k = c - n_bins);
-    c_k = 1 at DC and Nyquist, else 2 (irfft's Hermitian weights)."""
+    c < n_bins: c_k cos(2 pi k u / N) / N * post[u] (k = c);
+    n_bins <= c < 2 n_bins: -c_k sin(...) / N * post[u] (k = c - n_bins);
+    c_k = 1 at DC and Nyquist, else 2 (irfft's Hermitian weights);
+    post = w * sum w for scipy (its istft rescales by sum w) and w for
+    torch."""
     geo = GateGeometry(scfg, 0)
     w = _analysis_window_np(scfg)
     N, F_, hop, r, f2 = geo.n_fft, geo.n_bins, geo.hop, geo.r, geo.f2
+    wsum = w.sum() if scfg.convention == Convention.SCIPY else 1.0
     k = np.arange(F_, dtype=np.float64)[:, None]
     ck = np.full((F_, 1), 2.0)
     ck[0] = 1.0
@@ -135,7 +150,7 @@ def _synthesis_table_np(scfg) -> np.ndarray:
     for i in range(r):
         u = np.arange(i * hop, (i + 1) * hop, dtype=np.float64)[None, :]
         ang = 2.0 * np.pi * k * u / N
-        post = (w[i * hop : (i + 1) * hop] * w.sum())[None, :] / N
+        post = (w[i * hop : (i + 1) * hop] * wsum)[None, :] / N
         cos_rows = ck * np.cos(ang) * post
         sin_rows = -ck * np.sin(ang) * post
         sin_rows[0] = 0.0  # irfft ignores the imaginary DC part
@@ -165,14 +180,14 @@ def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def spectra_ref(x, geo: GateGeometry, chunk_size=0, padding=0):
     """Plain version of ``spectra``: extract the views, then the staged
-    scipy STFT."""
+    STFT."""
     views = extract_chunks(x, chunk_size, padding) if chunk_size else x[:, None]
     return stft(views.reshape(-1, geo.view_len), geo.scfg)
 
 
 def spectra(x, geo: GateGeometry, chunk_size=0, padding=0):
-    """Windowed frame spectra (scipy ``stft``) of every view of every
-    signal row.
+    """Windowed frame spectra (``stft`` of the geometry's convention) of
+    every view of every signal row.
 
     x: (rows, n_src). With ``chunk_size`` 0 each row is one view
     (``geo.view_len == n_src``); otherwise the views are the halo'd chunks
@@ -271,16 +286,17 @@ def freq_smooth_blend(mask, taps, prop):
 # D: istft_ola
 # ---------------------------------------------------------------------------
 def istft_ola_ref(re, im, mask, geo: GateGeometry, out_off, out_len):
-    """Plain version of ``istft_ola``: the staged scipy iSTFT of the masked
+    """Plain version of ``istft_ola``: the staged iSTFT of the masked
     spectra, windowed and zero filled."""
     y = istft((re * mask, im * mask), geo.scfg)[..., out_off : out_off + out_len]
     return F.pad(y, (0, out_len - y.shape[-1]))
 
 
 def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
-    """Masked inverse STFT (scipy convention) of each row, returning only
-    trimmed samples [out_off, out_off + out_len) as (rows, out_len); samples
-    past the istft length are zero."""
+    """Masked inverse STFT of each row in the geometry's convention,
+    returning only trimmed samples [out_off, out_off + out_len) as
+    (rows, out_len); samples past the istft length (scipy's, or torch's
+    natural (T-1)*hop) are zero."""
     if _on_cpu(re, im, mask):
         return istft_ola_ref(re, im, mask, geo, out_off, out_len)
     _check_cuda("istft_ola", re, im, mask)
@@ -295,7 +311,7 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
     _launch(
         "istft_ola", re.device, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
         _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
-        j0, n_out, out_off, out_len, geo.istft_len, _ptr(out),
+        j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
     )
     istft_ola.launches += 1
     return out
@@ -307,13 +323,14 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
 # 20 / ln 10: dB as a natural log times a constant, the TPU kernel's formula
 # (kernels.py:573), in the kernel and in its plain version alike
 _DB_PER_NEPER = 20.0 / float(np.log(10.0))
-_TOP_DB = 80.0
 
 
 def _check_thr(thr, views, views_per_row, n_bins) -> None:
     """A (n_bins,) threshold is shared by every view; row r of a
     (rows, n_bins) one serves views [r * views_per_row, (r + 1) *
-    views_per_row)."""
+    views_per_row); None asks for each view's own statistics."""
+    if thr is None:
+        return
     if thr.shape[-1] != n_bins or thr.ndim not in (1, 2) or (
         thr.ndim == 2 and thr.shape[0] * views_per_row != views
     ):
@@ -323,30 +340,57 @@ def _check_thr(thr, views, views_per_row, n_bins) -> None:
         )
 
 
-def stationary_mask_ref(re, im, thr, views_per_row, prop, taps):
+def _self_threshold(db, mx, n_std):
+    """Each view's own threshold, (views, n_bins) float64: mean + n_std *
+    std (ddof 1) over frames of the clamped dB ``db``, from float64 sums of
+    dB - ``mx`` (the column max) and its square, as kernel E forms it; the
+    shift keeps the one-pass variance from cancelling."""
+    n = db.shape[-2]
+    mx = mx.to(torch.float64)
+    d = db.to(torch.float64) - mx
+    s1, s2 = d.sum(dim=-2), (d * d).sum(dim=-2)
+    var = torch.clamp(s2 - s1 * s1 / n, min=0.0) / max(n - 1, 1)
+    return mx[..., 0, :] + s1 / n + torch.sqrt(var) * n_std
+
+
+def stationary_mask_ref(re, im, thr, views_per_row, prop, taps, top_db=80.0,
+                        n_std=None):
     """Plain version of ``stationary_mask``, with the kernel's dB formula."""
     views, _, nb = re.shape
     _check_thr(thr, views, views_per_row, nb)
-    thr = thr.to(re.dtype)
-    thr = thr.repeat_interleave(views_per_row, dim=0) if thr.ndim == 2 else thr[None]
     db = torch.log(torch.sqrt(re * re + im * im) + dsp.EPS_F64) * _DB_PER_NEPER
-    db = torch.maximum(db, db.amax(dim=-2, keepdim=True) - _TOP_DB)
-    m = (db > thr[:, None, :]).to(re.dtype)
+    mx = db.amax(dim=-2, keepdim=True)
+    db = torch.maximum(db, mx - top_db)
+    if thr is None:
+        m = db.to(torch.float64) > _self_threshold(db, mx, n_std)[:, None, :]
+    else:
+        thr = thr.to(re.dtype)
+        thr = thr.repeat_interleave(views_per_row, dim=0) if thr.ndim == 2 else thr[None]
+        m = db > thr[:, None, :]
+    m = m.to(re.dtype)
     return dsp.conv_same(m * prop + (1.0 - prop), taps, -2)
 
 
-def stationary_mask(re, im, thr, views_per_row, prop, taps):
-    """Stationary mask: dB spectrogram floored at its per-bin max - 80 dB,
-    1[dB > thr] blended as m*prop + (1 - prop) BEFORE a 'same' correlation
-    along frames with the odd ``taps`` (numpy), zero outside the frames.
+def stationary_mask(re, im, thr, views_per_row, prop, taps, top_db=80.0,
+                    n_std=None):
+    """Stationary mask: dB spectrogram floored at its per-bin max -
+    ``top_db`` (80 for the scipy engine, 40 for TorchGate), 1[dB > thr]
+    blended as m*prop + (1 - prop) BEFORE a 'same' correlation along frames
+    with the odd ``taps`` (numpy), zero outside the frames.
 
     re/im: (views, n_frames, n_bins). thr: (n_bins,), shared, or
     (rows, n_bins) with view v reading row v // ``views_per_row`` (the
-    chunk views of one signal row share its threshold).
+    chunk views of one signal row share its threshold); or None, and then
+    each view takes its own: mean + ``n_std`` * std (ddof 1) over frames of
+    its clamped dB (TorchGate with no noise clip, torchgate.py:126-165),
+    accumulated in float64 and compared in float64.
     """
-    if _on_cpu(re, im, thr):
-        return stationary_mask_ref(re, im, thr, views_per_row, prop, taps)
-    _check_cuda("stationary_mask", re, im, thr)
+    if thr is None and n_std is None:
+        raise ValueError("stationary_mask: self statistics need n_std")
+    ts = (re, im) if thr is None else (re, im, thr)
+    if _on_cpu(*ts):
+        return stationary_mask_ref(re, im, thr, views_per_row, prop, taps, top_db, n_std)
+    _check_cuda("stationary_mask", *ts)
     views, T, nb = re.shape
     _check_thr(thr, views, views_per_row, nb)
     _check_size("stationary_mask", views * nb)
@@ -354,12 +398,53 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps):
     scratch = torch.empty_like(re) if len(taps) > 1 else re
     out = torch.empty_like(re)
     _launch(
-        "stationary_mask", re.device, _ptr(re), _ptr(im), _ptr(thr),
-        nb if thr.ndim == 2 else 0, views_per_row, _ptr(scratch), _ptr(out),
-        _ptr(tap_t), len(taps), views, T, nb, prop, 1.0 - prop, dsp.EPS_F64,
-        _DB_PER_NEPER, _TOP_DB,
+        "stationary_mask", re.device, _ptr(re), _ptr(im),
+        ctypes.c_void_p(None) if thr is None else _ptr(thr),
+        nb if thr is not None and thr.ndim == 2 else 0, views_per_row,
+        _ptr(scratch), _ptr(out), _ptr(tap_t), len(taps), views, T, nb, prop,
+        1.0 - prop, dsp.EPS_F64, _DB_PER_NEPER, top_db,
+        0.0 if n_std is None else n_std,
     )
     stationary_mask.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# F: torch_nonstationary_mask
+# ---------------------------------------------------------------------------
+def torch_nonstationary_mask_ref(re, im, n_movemean, n_thresh, temp, prop, taps):
+    """Plain version of ``torch_nonstationary_mask``."""
+    mag = torch.sqrt(re * re + im * im)
+    ma = dsp.moving_average_same(mag, n_movemean, axis=-2)  # float64 sums
+    ratio = (mag - ma) / torch.where(ma == 0, 1.0, ma)
+    m = dsp.temperature_sigmoid(ratio, n_thresh, temp)
+    return dsp.conv_same(m * prop + (1.0 - prop), taps, -2)
+
+
+def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
+    """TorchGate's non-stationary mask (torchgate.py:167-198, 241-249).
+
+    re/im: (views, n_frames, n_bins). Per bin: ma = the 'same' moving
+    average of |Z| over ``n_movemean`` frames (zero outside the frames;
+    (n-1)//2 before, the rest after), its window sum carried in float64;
+    m = sigmoid(((|Z| - ma) / ma' - n_thresh) / temp) with ma' = 1 where
+    ma == 0 (silence gives finite zeros); the blend m*prop + (1 - prop)
+    BEFORE a 'same' correlation along frames with the odd ``taps``.
+    """
+    if _on_cpu(re, im):
+        return torch_nonstationary_mask_ref(re, im, n_movemean, n_thresh, temp, prop, taps)
+    _check_cuda("torch_nonstationary_mask", re, im)
+    views, T, nb = re.shape
+    _check_size("torch_nonstationary_mask", views * nb)
+    tap_t = _device_f32("taps", tuple(float(v) for v in taps), re.device)
+    scratch = torch.empty_like(re) if len(taps) > 1 else re
+    out = torch.empty_like(re)
+    _launch(
+        "torch_nonstationary_mask", re.device, _ptr(re), _ptr(im),
+        _ptr(scratch), _ptr(out), _ptr(tap_t), len(taps), views, T, nb,
+        int(n_movemean), n_thresh, temp, prop, 1.0 - prop,
+    )
+    torch_nonstationary_mask.launches += 1
     return out
 
 
@@ -367,7 +452,7 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps):
 # launch counters
 # ---------------------------------------------------------------------------
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
-           stationary_mask)
+           stationary_mask, torch_nonstationary_mask)
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,167 @@
+"""The torch-convention gate (TorchGate) through the kernels (counterpart of
+``noisereduce_tpu/ops/pallas/torch_dispatch.py``).
+
+``_tpugate_from_signal`` is the port of ``_merged_torch_impl`` (``:194``)
+and of its split twin ``_fused_torch_impl`` (``:405``), which compute the
+same function: spectra under torch conventions (A with the float32 Hann
+centered in an n_fft frame, no 1/sum w) -> mask with the blend BEFORE
+smoothing and the time factor v0 of the smoothing kernel's SVD (F
+non-stationary; E stationary with top_db 40, from a noise clip's threshold
+or from each view's own statistics) -> frequency smoothing with sigma0 u0
+(C, prop 1) -> masked iSTFT, torch's natural length (T-1)*hop, divided by
+the float32 envelope where it exceeds 1e-11 (D). ``_torch_threshold_stats``
+(``:169``) takes the noise-clip spectra from A.
+
+On a CUDA tensor every step launches its kernel; on a CPU tensor the
+wrappers run their plain versions (the parity mode). The TPU eligibility of
+``fused_tpugate_supported`` (``:55``: win == n_fft, a 128-aligned hop,
+r in {2, 4}, n_movemean <= 512, VMEM) does not apply: A and D need a hop
+that divides n_fft and nothing else. For any other hop ``staged_tpugate``
+puts the plain STFT and iSTFT around the mask kernels F or E and C, which
+serve every geometry, as the scipy engine's staged path takes kernel B's
+mask. No gradient yet: the fused-forward / staged-backward contract of
+``:128-166`` comes with the gradient slice.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry, kernels_supported
+from noisereduce_tpu_torch.ops.cuda.kernels import (
+    freq_smooth_blend,
+    istft_ola,
+    spectra,
+    stationary_mask,
+    torch_nonstationary_mask,
+)
+from noisereduce_tpu_torch.ops.dsp import _torchgate_kernel_svd_np, torch_noise_db_threshold
+from noisereduce_tpu_torch.ops.stft import istft, stft
+
+__all__ = [
+    "fused_tpugate_supported",
+    "fused_tpugate",
+    "fused_tpugate_chunked",
+    "staged_tpugate",
+]
+
+
+def fused_tpugate_supported(gate) -> bool:
+    """Whether the kernels serve this gate's STFT geometry."""
+    return kernels_supported(gate.stft_config)
+
+
+@functools.lru_cache(maxsize=None)
+def _rank1_taps(smoothing) -> tuple:
+    """(frequency taps sigma0 u0, time taps v0) of the SVD of TorchGate's
+    float32-rounded smoothing kernel, as ``_fused_torch_impl`` takes them
+    (``:421-427``; the trailing ranks are ~1e-8 of sigma0), both negated
+    when v0 sums below zero (the product is the same) so that F's output is
+    a mask; one unit tap each without smoothing."""
+    if smoothing is None:
+        return (1.0,), (1.0,)
+    rows, cols = _torchgate_kernel_svd_np(*smoothing)
+    sign = -1.0 if cols[0].sum() < 0 else 1.0
+    return tuple((sign * rows[0]).tolist()), tuple((sign * cols[0]).tolist())
+
+
+def _torch_threshold_stats(xn2: torch.Tensor, gate) -> torch.Tensor:
+    """(bn, n_bins) stationary threshold of (bn, n_clip) noise rows, the
+    spectra from kernel A under torch conventions: dB floored at max - 40,
+    then mean + n_std * std over frames, ddof 1 (``:169-188``)."""
+    re, im = spectra(xn2, gate_geometry(gate.stft_config, xn2.shape[-1]))
+    return torch_noise_db_threshold(re, im, gate.n_std_thresh_stationary)
+
+
+def _tpugate_from_signal(x, gate, xn=None, chunk_size=0, padding=0, out_len=None):
+    """(rows, n) -> gated views: each whole row (``chunk_size`` 0;
+    (rows, out_len) out, ``out_len`` defaulting to n) or the core
+    [padding, padding + chunk_size) of each halo'd chunk view
+    ((rows*n_chunks, chunk_size) out), zero past each view's natural
+    length. ``xn``: a stationary gate's (n_clip,) clip or (bn, n_clip)
+    noise rows, with bn 1 or a divisor of the views that maps row-major
+    onto them (view v reads row v // (views / bn)); None gives each view
+    its own statistics."""
+    n = x.shape[-1]
+    if chunk_size:
+        view_len, out_off, out_len = chunk_size + 2 * padding, padding, chunk_size
+    else:
+        view_len, out_off = n, 0
+        out_len = n if out_len is None else out_len
+    geo = gate_geometry(gate.stft_config, view_len)
+    re, im = spectra(x, geo, chunk_size, padding)
+    thr = None
+    if not gate.nonstationary and xn is not None:
+        thr = _torch_threshold_stats((xn if xn.ndim == 2 else xn[None]).contiguous(), gate)
+    return istft_ola(re, im, _mask(re, im, gate, thr), geo, out_off, out_len)
+
+
+def _mask(re, im, gate, thr=None):
+    """The gate's smoothed mask of (views, frames, bins) spectra: F, or E
+    from the (bn, bins) threshold ``thr`` (view v reads row
+    v // (views / bn)) or, for None, from each view's own statistics; then
+    the frequency taps through C. The blend comes before the smoothing
+    (torchgate.py:241-249), so C blends with prop 1."""
+    freq_taps, time_taps = _rank1_taps(gate.smoothing)
+    if gate.nonstationary:
+        mask = torch_nonstationary_mask(
+            re, im, gate.n_movemean_nonstationary, gate.n_thresh_nonstationary,
+            gate.temp_coeff_nonstationary, gate.prop_decrease, time_taps,
+        )
+    elif thr is None:
+        mask = stationary_mask(
+            re, im, None, 1, gate.prop_decrease, time_taps, top_db=40.0,
+            n_std=gate.n_std_thresh_stationary,
+        )
+    else:
+        mask = stationary_mask(
+            re, im, thr.to(re.dtype).contiguous(), re.shape[0] // thr.shape[0],
+            gate.prop_decrease, time_taps, top_db=40.0,
+        )
+    return freq_smooth_blend(mask, np.asarray(freq_taps), 1.0)
+
+
+def fused_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
+    """TorchGate of (B, n) signals through the kernels, torch.istft's
+    natural (T-1)*hop samples out (``fused_tpugate``, ``:115``). ``xn``:
+    None, (n_clip,) or (bn, n_clip) with bn 1 or B. Caller guarantees
+    ``fused_tpugate_supported``."""
+    geo = gate_geometry(gate.stft_config, x.shape[-1])
+    return _tpugate_from_signal(x.contiguous(), gate, xn, out_len=geo.istft_len)
+
+
+def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int,
+                          xn=None) -> torch.Tensor:
+    """The whole chunked body of the torch-convention engine (reference
+    base.py:144-226 with streamed_torch_gate.py): chunk i of each row is
+    the view of source samples [i*cs - padding, (i+1)*cs + padding), zero
+    outside the signal, gated, its natural-length deficit zero filled, and
+    its core [padding, padding + cs) assembled (``api.py:163-175``). Kernel
+    A reads the views straight from ``y2d`` and kernel D writes only the
+    cores. A signal of at most ``chunk_size`` samples is one view of
+    n + 2 * padding samples. ``xn``: a (n_clip,) clip or (bn, n_clip) noise
+    rows with bn 1 or ch, row c serving every chunk of channel c; None gives
+    each chunk view its own statistics. (ch, n) -> (ch, n)."""
+    ch, n = y2d.shape
+    cs = min(chunk_size, n)
+    core = _tpugate_from_signal(y2d.contiguous(), gate, xn, cs, padding)
+    return core.reshape(ch, -1)[:, :n]
+
+
+def staged_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
+    """TorchGate of (rows, n) signals for a geometry that kernels A and D do
+    not serve (a hop that does not divide n_fft): the plain STFT and iSTFT
+    around the mask of F or E and C. Like the fused path, and unlike the
+    staged twin ``TPUGate._call_staged``, it smooths with the rank-1 taps
+    and gives finite zeros on silence. ``xn``: as ``fused_tpugate``'s, for
+    the rows in place of the views. (rows, (T-1)*hop) out."""
+    scfg = gate.stft_config
+    re, im = (t.contiguous() for t in stft(x, scfg))
+    thr = None
+    if not gate.nonstationary and xn is not None:
+        rn, in_ = stft(xn if xn.ndim == 2 else xn[None], scfg)
+        thr = torch_noise_db_threshold(rn, in_, gate.n_std_thresh_stationary)
+    mask = _mask(re, im, gate, thr)
+    return istft((re * mask, im * mask), scfg)

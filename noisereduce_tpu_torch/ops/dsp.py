@@ -1,10 +1,14 @@
 """Elementwise and small-filter DSP ops in plain torch (counterpart of
-``noisereduce_tpu/ops/dsp.py``, the subset the scipy-convention gates use).
+``noisereduce_tpu/ops/dsp.py``): those of the scipy-convention gates and of
+the torch-convention gate (TorchGate: ``temperature_sigmoid``,
+``moving_average_same``, ``smooth_mask_2d_torchgate`` and the top_db 40,
+ddof 1 noise threshold).
 
-The 'same' convolutions are written as sums of shifted slices rather than
-``conv1d``: on a CUDA card a float32 ``conv1d`` goes through cuDNN in TF32
-by default (about three decimal digits), and these are the plain versions
-the kernels are held against.
+The 'same' convolutions are written as sums of shifted slices (the moving
+average as a float64 prefix sum) rather than ``conv1d``: on a CUDA card a
+float32 ``conv1d`` goes through cuDNN in TF32 by default (about three
+decimal digits), and these are the plain versions the kernels are held
+against.
 """
 from __future__ import annotations
 
@@ -17,12 +21,16 @@ import torch.nn.functional as F
 __all__ = [
     "amp_to_db",
     "noise_db_threshold",
+    "torch_noise_db_threshold",
     "sigmoid",
+    "temperature_sigmoid",
     "triangular_vector",
     "tri_norm",
     "conv_same",
     "smooth_mask",
+    "smooth_mask_2d_torchgate",
     "ewma_filtfilt",
+    "moving_average_same",
 ]
 
 
@@ -52,9 +60,24 @@ def noise_db_threshold(re: torch.Tensor, im: torch.Tensor, n_std: float) -> torc
     return mean + std * n_std
 
 
+def torch_noise_db_threshold(re: torch.Tensor, im: torch.Tensor, n_std: float) -> torch.Tensor:
+    """TorchGate's stationary per-bin threshold from noise spectra
+    (..., frames, bins): the dB spectrogram floored at max - 40 dB, then
+    mean + n_std * std over frames, ddof 1 (torchgate.py:126-165;
+    ``torch_dispatch.py::_torch_threshold_stats``, ``:169``). Returns
+    (..., bins)."""
+    db = amp_to_db(torch.sqrt(re * re + im * im), top_db=40.0, axis=-2)
+    return db.mean(dim=-2) + db.std(dim=-2, correction=1) * n_std
+
+
 def sigmoid(x: torch.Tensor, shift: float, mult: float) -> torch.Tensor:
     """``1 / (1 + exp(-(x + shift) * mult))`` (spectralgate/utils.py:4-8)."""
     return torch.sigmoid((x + shift) * mult)
+
+
+def temperature_sigmoid(x: torch.Tensor, x0: float, temp_coeff: float) -> torch.Tensor:
+    """``sigmoid((x - x0) / temp)`` (torchgate/utils.py:27-39)."""
+    return torch.sigmoid((x - x0) / temp_coeff)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,6 +129,65 @@ def smooth_mask(
     fdim, tdim = (-1, -2) if time_major else (-2, -1)
     out = conv_same(mask, tri_norm(n_grad_freq), fdim)
     return conv_same(out, tri_norm(n_grad_time), tdim)
+
+
+@functools.lru_cache(maxsize=None)
+def _torchgate_smoothing_kernel_np(n_grad_freq: int, n_grad_time: int) -> np.ndarray:
+    """TorchGate's 2-D smoothing kernel (freq x time) with its float32
+    rounding: the reference builds it from ``torch.linspace`` /
+    ``torch.outer`` in float32 (torchgate.py:113-124), which makes it no
+    longer exactly rank-1. float64 values of the float32 kernel."""
+    def tri(n):
+        return torch.cat(
+            [torch.linspace(0, 1, n + 2)[:-1], torch.linspace(1, 0, n + 2)]
+        )[1:-1]
+
+    k = torch.outer(tri(n_grad_freq), tri(n_grad_time))
+    return (k / k.sum()).to(torch.float64).numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _torchgate_kernel_svd_np(n_grad_freq: int, n_grad_time: int):
+    """SVD of the TorchGate smoothing kernel, keeping every term with
+    sigma_i > 1e-10 sigma_0 (rank 3-4; the trailing terms are ~1e-8 of
+    sigma_0, float32 rounding). Returns (rows, cols): rows (r, kf) =
+    sigma_i u_i (frequency taps), cols (r, kt) = v_i (time taps)."""
+    k = _torchgate_smoothing_kernel_np(n_grad_freq, n_grad_time)
+    u, s, vt = np.linalg.svd(k)
+    r = max(1, int(np.sum(s > 1e-10 * s[0])))
+    return (u[:, :r] * s[:r]).T.copy(), vt[:r].copy()
+
+
+def smooth_mask_2d_torchgate(
+    mask: torch.Tensor, n_grad_freq: int, n_grad_time: int,
+    time_major: bool = False,
+) -> torch.Tensor:
+    """TorchGate's 'same' smoothing with its float32-rounded 2-D kernel
+    (torchgate.py:241-249) over a (..., freq, time) mask, or (..., time,
+    freq) with ``time_major``: the sum over the SVD ranks of a frequency
+    pass with sigma_i u_i and a time pass with v_i, zero outside the axes."""
+    rows, cols = _torchgate_kernel_svd_np(n_grad_freq, n_grad_time)
+    fdim, tdim = (-1, -2) if time_major else (-2, -1)
+    out = None
+    for fr, tc in zip(rows, cols):
+        term = conv_same(conv_same(mask, fr, fdim), tc, tdim)
+        out = term if out is None else out + term
+    return out
+
+
+def moving_average_same(x: torch.Tensor, n: int, axis: int = -1) -> torch.Tensor:
+    """TorchGate's 'same' moving average over ``n`` samples along ``axis``
+    (``conv1d(x, ones(n)/n, padding='same')``, torchgate.py:179-190): zero
+    padding left = (n-1)//2, right = n-1-left (more on the right for an
+    even n). Computed as a difference of prefix sums in float64 and rounded
+    once to the input's dtype, as kernel F carries its window sum."""
+    left = (n - 1) // 2
+    right = n - 1 - left
+    xm = x.movedim(axis, -1).to(torch.float64)
+    length = xm.shape[-1]
+    csum = F.pad(torch.cumsum(F.pad(xm, (left, right)), dim=-1), (1, 0))
+    out = (csum[..., n : n + length] - csum[..., :length]) / n
+    return out.to(x.dtype).movedim(-1, axis)
 
 
 def _ewma_forward(x: torch.Tensor, b: float) -> torch.Tensor:

@@ -87,6 +87,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, noisereduce_tpu_torch\n"
         "import noisereduce_tpu_torch.ops.cuda.dispatch\n"
+        "import noisereduce_tpu_torch.ops.cuda.torch_dispatch\n"
+        "import noisereduce_tpu_torch.models.tpu_gate\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'noisereduce_tpu' or m.startswith('noisereduce_tpu.')]\n"
         "assert not bad, bad\n"
@@ -99,7 +101,10 @@ def test_kernel_geometry_predicate():
     assert kernels_supported(StftConfig(n_fft=1024))
     assert kernels_supported(StftConfig(n_fft=2048, win_length=1024, hop_length=256))
     assert not kernels_supported(StftConfig(n_fft=1024, hop_length=300))
-    assert not kernels_supported(StftConfig(convention="torch"))
+    # the torch convention: the hop must divide n_fft, the analysis frame
+    assert kernels_supported(StftConfig(convention="torch", quantize_window_f32=True))
+    assert kernels_supported(StftConfig(n_fft=2048, win_length=1024, convention="torch"))
+    assert not kernels_supported(StftConfig(n_fft=1024, hop_length=300, convention="torch"))
     with pytest.raises(NotImplementedError, match="hop that divides"):
         gate_geometry(StftConfig(n_fft=1024, hop_length=300), 8000)
 
@@ -125,7 +130,7 @@ def test_cuda_device_raises_without_cuda():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(stationary=True, compute_dtype=torch.bfloat16), NotImplementedError),
-    (dict(use_torch=True), NotImplementedError),
+    (dict(use_torch=True, compute_dtype=torch.bfloat16), NotImplementedError),
     (dict(use_tqdm=True), NotImplementedError),
     (dict(compute_dtype=torch.bfloat16), NotImplementedError),
     (dict(freq_mask_smooth_hz=5), ValueError),
@@ -146,9 +151,11 @@ def test_launch_counters_stay_zero_on_cpu():
     nrt.reduce_noise(y, 16000, device="cpu", chunk_size=8000, padding=1500)
     nrt.reduce_noise(y, 16000, device="cpu")
     nrt.reduce_noise(y, 16000, device="cpu", stationary=True)
+    nrt.reduce_noise(y, 16000, device="cpu", use_torch=True)
+    nrt.reduce_noise(y, 16000, device="cpu", use_torch=True, stationary=True)
     assert K.launch_counts() == {
         "spectra": 0, "nonstationary_mask": 0, "freq_smooth_blend": 0,
-        "istft_ola": 0, "stationary_mask": 0,
+        "istft_ola": 0, "stationary_mask": 0, "torch_nonstationary_mask": 0,
     }
 
 
@@ -157,7 +164,8 @@ def test_build_lists_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
 
     names = {p.name for p in build.sources()}
     assert {"spectra.cu", "nonstationary_mask.cu", "freq_smooth_blend.cu",
-            "istft_ola.cu", "stationary_mask.cu", "gemm_tile.cuh"} <= names
+            "istft_ola.cu", "stationary_mask.cu", "torch_nonstationary_mask.cu",
+            "gemm_tile.cuh"} <= names
     assert build.library_path().parent.parent == build.BUILD_ROOT
     if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed")

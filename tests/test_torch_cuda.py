@@ -13,7 +13,9 @@ max|ref| (long FP32 sums in another order than cuFFT), the mask 1e-4
 absolute (sigmoid slope 10 over an IIR floor), the frequency smoothing
 1e-6 absolute, end to end 5e-5 x max|ref|; the stationary mask 1e-5
 absolute, with at most 1e-5 of its cells deciding the binary threshold the
-other way (a dB value within float32 resolution of the threshold).
+other way (a dB value within float32 resolution of the threshold). The
+torch-convention kernels (A's torch table, F, E's self statistics, D's
+torch tail) are held to the same bounds, F like B at 1e-5 absolute.
 """
 import numpy as np
 import pytest
@@ -223,3 +225,138 @@ def test_reduce_noise_batch_on_card_is_the_per_signal_calls(cuda):
     got = nrt.reduce_noise_batch(ys, 16000, stationary=True)
     for y, g in zip(ys, got):
         np.testing.assert_array_equal(g, nrt.reduce_noise(y, 16000, stationary=True))
+
+
+# ---------------------------------------------------------------------------
+# the torch convention (TPUGate / reduce_noise(use_torch=True))
+# ---------------------------------------------------------------------------
+TORCH_NONSTATIONARY = ("spectra", "torch_nonstationary_mask", "freq_smooth_blend", "istft_ola")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,n_movemean", [
+    (dict(n_fft=1024, hop_length=256), 20), (dict(n_fft=512, hop_length=128), 125),
+    (dict(n_fft=1024, win_length=512, hop_length=256), 344),
+], ids=["nfft1024-move20", "nfft512-move125", "win512-move344"])
+def test_torch_kernels_match_plain_versions(cuda, kw, n_movemean):
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _rank1_taps
+
+    gate = nrt.TPUGate(sr=16000, nonstationary=True, n_movemean_nonstationary=n_movemean,
+                       prop_decrease=0.8, **kw)
+    ft, tt = _rank1_taps(gate.smoothing)
+    cs, pad, n = 8000, 1500, 30000
+    geo = gate_geometry(gate.stft_config, cs + 2 * pad)
+    x = torch.as_tensor(np.random.default_rng(16).standard_normal((2, n)),
+                        dtype=torch.float32, device=cuda)
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, cs, pad)
+    rre, rim = K.spectra_ref(x, geo, cs, pad)
+    assert _max(re - rre) <= 2e-5 * _max(rre)
+    assert _max(im - rim) <= 2e-5 * _max(rre)
+
+    args = (re, im, n_movemean, gate.n_thresh_nonstationary,
+            gate.temp_coeff_nonstationary, gate.prop_decrease, tt)
+    m = K.torch_nonstationary_mask(*args)
+    assert _max(m - K.torch_nonstationary_mask_ref(*args)) <= 1e-5
+
+    mb = K.freq_smooth_blend(m, ft, 1.0)
+    assert _max(mb - K.freq_smooth_blend_ref(m, ft, 1.0)) <= 1e-6
+    y = K.istft_ola(re, im, mb, geo, pad, cs)
+    ry = K.istft_ola_ref(re, im, mb, geo, pad, cs)
+    assert _max(y - ry) <= 2e-5 * _max(ry)
+    assert {k: v for k, v in K.launch_counts().items() if k in TORCH_NONSTATIONARY} == dict.fromkeys(
+        TORCH_NONSTATIONARY, 1)
+
+    # E with each view's own statistics (TorchGate with no noise clip)
+    e = (re, im, None, 1, 0.8, tt)
+    diff = (K.stationary_mask(*e, top_db=40.0, n_std=1.5)
+            - K.stationary_mask_ref(*e, top_db=40.0, n_std=1.5)).abs()
+    off = diff > 1e-5
+    assert int(off.sum()) <= 1e-5 * diff.numel()
+    assert _max(diff[~off]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_torch_wrappers_raise_instead_of_falling_back(cuda):
+    re = torch.zeros((1, 40, 513), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        K.torch_nonstationary_mask(re.double(), re.double(), 20, 1.3, 0.1, 1.0, (1.0,))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        K.torch_nonstationary_mask(re, re.cpu(), 20, 1.3, 0.1, 1.0, (1.0,))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        K.stationary_mask(re, re, torch.zeros(513), 1, 1.0, (1.0,), top_db=40.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(chunk_size=8000, padding=1500)],
+                         ids=["unchunked", "chunked"])
+def test_torch_reduce_noise_on_card_matches_cpu_parity_mode(cuda, kw):
+    y = np.random.default_rng(17).standard_normal((2, 30000))
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 16000, use_torch=True, **kw)
+    counts = K.launch_counts()
+    assert {k: counts[k] for k in TORCH_NONSTATIONARY} == dict.fromkeys(TORCH_NONSTATIONARY, 1)
+    assert counts["nonstationary_mask"] == counts["stationary_mask"] == 0
+    ref = nrt.reduce_noise(y, 16000, use_torch=True, device="cpu",
+                           compute_dtype=torch.float64, **kw)
+    assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+def test_torch_stationary_launches_on_card(cuda):
+    rng = np.random.default_rng(18)
+    y = rng.standard_normal((2, 30000))
+    noise = 0.5 * rng.standard_normal(9000)
+    for y_noise, want in ((noise, dict(spectra=2, stationary_mask=1)),
+                          (None, dict(spectra=1, stationary_mask=1))):
+        K.reset_launch_counts()
+        out = nrt.reduce_noise(y, 16000, stationary=True, use_torch=True, y_noise=y_noise,
+                               chunk_size=8000, padding=1500)
+        want.update(freq_smooth_blend=1, istft_ola=1)
+        assert K.launch_counts() == {k: want.get(k, 0) for k in K.launch_counts()}
+        assert out.shape == y.shape and np.isfinite(out).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,want", [
+    ({}, dict(torch_nonstationary_mask=1)),
+    (dict(stationary=True, y_noise="clip"), dict(stationary_mask=1)),
+], ids=["nonstationary", "stationary-clip"])
+def test_torch_staged_geometry_on_card_runs_the_mask_kernels(cuda, kw, want):
+    """hop 300 with n_fft 1024: A and D do not serve it; the plain STFT runs
+    around F or E and C, which match the CPU parity mode."""
+    rng = np.random.default_rng(20)
+    y = rng.standard_normal((2, 30000))
+    if "y_noise" in kw:
+        kw = dict(kw, y_noise=0.5 * rng.standard_normal(9000))
+    kw.update(use_torch=True, hop_length=300, chunk_size=8000, padding=1500)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 16000, **kw)
+    want = dict(want, freq_smooth_blend=1)
+    assert K.launch_counts() == {k: want.get(k, 0) for k in K.launch_counts()}
+    ref = nrt.reduce_noise(y, 16000, device="cpu", compute_dtype=torch.float64, **kw)
+    assert got.shape == y.shape and np.isfinite(got).all()
+    if not kw.get("stationary"):  # a stationary decision at the border may flip
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+def test_torch_reduce_noise_batch_on_card_is_the_per_signal_calls(cuda):
+    rng = np.random.default_rng(19)
+    ys = [rng.standard_normal(20000).astype(np.float32) for _ in range(3)]
+    clips = [0.5 * rng.standard_normal(9000).astype(np.float32) for _ in range(3)]
+    for kw in (dict(stationary=True), dict(stationary=True, y_noise=clips), {}):
+        got = nrt.reduce_noise_batch(ys, 16000, use_torch=True, **kw)
+        for i, (y, g) in enumerate(zip(ys, got)):
+            one = dict(kw, y_noise=clips[i]) if "y_noise" in kw else kw
+            np.testing.assert_array_equal(g, nrt.reduce_noise(y, 16000, use_torch=True, **one))
+
+
+@pytest.mark.gpu
+def test_tpugate_on_card_refuses_gradients(cuda):
+    x = torch.zeros((1, 8000), device=cuda, requires_grad=True)
+    gate = nrt.TPUGate(sr=16000, nonstationary=True)
+    with pytest.raises(NotImplementedError, match="gradient"):
+        gate(x)
+    with torch.no_grad():
+        assert torch.all(gate(x) == 0)

@@ -361,8 +361,10 @@ def test_reduce_noise_batch_matches_jax_and_per_signal_calls(
 
 
 def test_reduce_noise_batch_use_torch_raises():
+    # the torch engine is ported; its host-driven tqdm loop is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nrt.reduce_noise_batch([np.zeros(4000)], 16000, use_torch=True, device="cpu")
+        nrt.reduce_noise_batch([np.zeros(4000)], 16000, use_torch=True, use_tqdm=True,
+                               device="cpu")
 
 
 def test_reduce_noise_batch_validation():

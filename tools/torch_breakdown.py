@@ -4,7 +4,8 @@
     python3 tools/torch_breakdown.py [--reps 3]
 
 For each path (the 960 s / 48 kHz headline, non-stationary and stationary
-with a 10 s noise clip, and a batch of 32 stationary 10 s clips), prints the
+with a 10 s noise clip, and a batch of 32 stationary 10 s clips, each under
+the scipy-convention engines and under ``use_torch=True``), prints the
 host wall time of ``reduce_noise`` / ``reduce_noise_batch`` (numpy in and
 out; minimum of ``--reps`` after a warm-up), then one call under
 ``torch.profiler``: the device's busy share of the profiled wall (the union
@@ -85,6 +86,13 @@ def main() -> None:
               lambda: nr.reduce_noise(x, cs.SR, stationary=True, y_noise=noise), args.reps)
     breakdown(f"batch {cs.BATCH_CLIPS} x {cs.BATCH_SECONDS} s stationary",
               lambda: nr.reduce_noise_batch(clips, cs.SR, stationary=True), args.reps)
+    breakdown("torch headline", lambda: nr.reduce_noise(x, cs.SR, use_torch=True), args.reps)
+    breakdown("torch stationary headline",
+              lambda: nr.reduce_noise(x, cs.SR, stationary=True, use_torch=True, y_noise=noise),
+              args.reps)
+    breakdown(f"torch batch {cs.BATCH_CLIPS} x {cs.BATCH_SECONDS} s stationary",
+              lambda: nr.reduce_noise_batch(clips, cs.SR, stationary=True, use_torch=True),
+              args.reps)
 
 
 if __name__ == "__main__":
