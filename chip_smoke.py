@@ -8,7 +8,7 @@ last line is printed only when every phase passed):
 
 1. environment: torch version, the card's name and power limit
    (``nvidia-smi``); TF32 off, so the plain versions run in full FP32;
-2. build: kernels A-F from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
+2. build: kernels A-G from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
    ``nvcc`` (seconds printed);
 3. per kernel, at the headline shapes (77 halo'd 660,000-sample chunk views
    of 48 kHz audio): the kernel against its plain version on the same
@@ -18,7 +18,8 @@ last line is printed only when every phase passed):
    threshold spectra) and kernel B with one unit tap (the staged mask);
    then, under torch conventions (the gate ``reduce_noise(use_torch=True)``
    runs), A with the torch table, F, E with each view's own statistics and
-   D with the torch tail;
+   D with the torch tail; and kernel G on the same spectra laid out
+   frequency-major, (77, 513, 2579) complex64;
 4. golden: ``reduce_noise(..., device="cuda")`` in float32 on
    ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary, the
    four stationary and the two torch-convention configurations against the
@@ -46,7 +47,17 @@ last line is printed only when every phase passed):
     the per-signal calls, timed;
 13. torch staged geometry: hop 300, which A and D do not serve, through
     the plain STFT and iSTFT around F and C, against the staged plain path;
-14. one JSON line of per-kernel results, then the last line
+14. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
+    and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
+    training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
+    mean(gate(x)**2), at batch 16 and 256 of 4 s; ``gate_nonstationary``
+    and ``gate_stationary`` the same way; each time the value under grad
+    against the ``torch.no_grad()`` value (bitwise), the launches of the
+    forward pass (the backward pass launches none), the gradient against
+    the float64 staged twin on the card, and forward + backward timed;
+    then the notebook-3.0 loop, a 31-tap FIR in front of the gate trained
+    for 5 Adam steps at batch 256;
+15. one JSON line of per-kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -104,6 +115,9 @@ BOUNDS = {
     # mask units; float64 window sums in both, rounded once, through a
     # sigmoid of slope 1/temp = 10: absolute
     "torch_nonstationary_mask": 1e-5,
+    # mask units, as kernel B for the same reason (the same recurrence and
+    # sigmoid; no time smoothing): absolute
+    "fm_nonstationary_mask": 1e-4,
 }
 # kernels A and D under torch conventions: the same FP32 sums as above,
 # held tighter: x max|ref|
@@ -125,6 +139,7 @@ SOURCES = {
     "istft_ola": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
     "stationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/stationary_mask.cu",
     "torch_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/torch_nonstationary_mask.cu",
+    "fm_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/fm_nonstationary_mask.cu",
 }
 # the TPU kernel each replaces (file:line), and the rows of PERF.md's
 # kernel table it serves
@@ -143,7 +158,17 @@ REPLACES = {
     "torch_nonstationary_mask": "noisereduce_tpu/ops/pallas/kernels.py:635 (row 4, "
                                 "torch_dispatch.py:382); "
                                 "noisereduce_tpu/ops/pallas/torch_dispatch.py:485 (row 5)",
+    "fm_nonstationary_mask": "noisereduce_tpu/ops/pallas_mask.py:229 (row 6)",
 }
+# the gradient phase: the training workload of benchmarks/bench_all.py:316-331
+GRAD_SR, GRAD_SECONDS, GRAD_BATCHES = 16000, 4, (16, 256)
+# the masks' backward on 8 views of the headline plane (rows 6 and 7)
+GRAD_VIEWS = 8
+# a float32 gradient against the float64 staged twin's, both on the card
+# with TF32 off: float32 rounding of the spectra and of the floor, through
+# a sigmoid of slope 10, as the forward is held end to end: x max|ref|
+GRAD_BOUND = 5e-5
+FIR_TAPS, FIR_STEPS, FIR_LR = 31, 5, 3e-3
 
 
 def fail(msg: str) -> None:
@@ -320,6 +345,15 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
            lambda: K.nonstationary_mask_ref(*b1), m1, rm1,
            nbytes(re, im, m1), cells * 32.0, label="nonstationary_mask (unit tap)")
     del m1, rm1
+
+    # G on the same spectra laid out frequency-major (TPU row 6)
+    zf = torch.complex(re, im).transpose(1, 2).contiguous()
+    g = (zf, cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
+    mg = K.fm_nonstationary_mask(*g)
+    rmg = K.fm_nonstationary_mask_ref(*g)
+    record("fm_nonstationary_mask", lambda: K.fm_nonstationary_mask(*g),
+           lambda: K.fm_nonstationary_mask_ref(*g), mg, rmg, nbytes(zf, mg), cells * 30.0)
+    del zf, mg, rmg
 
     c = (m, tf, cfg.prop_decrease)
     mb = K.freq_smooth_blend(*c)
@@ -669,6 +703,44 @@ def stationary_vs_plain(label, out, y2d, yn, cfg, chunk_size, padding):
         fail(f"{label} disagrees with the staged plain path")
 
 
+def grad_check(label, g, ref, lim):
+    """A gradient from the card against its float64 reference: finite and
+    within ``lim`` x max|ref| (a complex one as its real pairs)."""
+    if g.is_complex():
+        g, ref = torch.view_as_real(g), torch.view_as_real(ref)
+    dev, scale = max_dev(g, ref)
+    finite = bool(torch.isfinite(g).all())
+    print(f"{label}: gradient vs float64 twin max|dev| {dev:.3e} bound {lim * scale:.3e} "
+          f"(max|ref| {scale:.4g}, {lim:.0e} x), finite {finite}", flush=True)
+    if not finite or not dev <= lim * scale:
+        fail(f"{label}: the gradient disagrees with the float64 twin")
+
+
+def under_grad(K, label, fn, args, cot, expected, launches):
+    """``fn(*args)`` under grad with its value against the ``torch.no_grad()``
+    value (bitwise) and the serving launches, then the backward pass of the
+    cotangent ``cot``, which must launch nothing. Returns the gradients.
+    The path is counted from the forward pass to the end of the backward."""
+    with torch.no_grad():
+        serving = fn(*args)
+    args = [a.detach().requires_grad_() for a in args]
+    holder = {}
+
+    def path():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        holder["forward"] = K.launch_counts()
+        holder["bitwise"] = out.grad_fn is not None and torch.equal(out, serving)
+        return torch.autograd.grad(out, args, cot)
+
+    grads, launches[label] = run_path(K, label, path, expected)
+    print(f"{label}: value under grad bitwise the no-grad value: {holder['bitwise']}; "
+          f"forward launches {holder['forward']}", flush=True)
+    if not holder["bitwise"] or holder["forward"] != launches[label]:
+        fail(f"{label}: the value under grad or the backward's launches")
+    return grads
+
+
 def run_path(K, label, fn, expected):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel in ``expected`` must have launched exactly
@@ -739,6 +811,161 @@ def golden_flip_report(nr, y, sr, kw) -> None:
     flips = dec != (margin > 0)
     print(f"  {int(flips.sum())} cells decide otherwise than float64; their "
           f"|dB - thr|: {margin.abs()[flips][:10].tolist()}", flush=True)
+
+
+def stationary_reference(x, thr, cfg):
+    """The float64 reference of the stationary gate's gradient: the staged
+    twin in float64 taking the float32 twin's decisions (the ones the
+    backward pass differentiates) at the cells within ``BORDER_DB`` of the
+    threshold; every decision that differs must lie there. Returns the
+    float64 function of x64, the number of such cells and the largest
+    |dB - thr| among them."""
+    from noisereduce_tpu_torch.models.spectral_gate import _apply_mask_and_invert
+    from noisereduce_tpu_torch.ops.dsp import amp_to_db, smooth_mask
+    from noisereduce_tpu_torch.ops.stft import stft
+
+    def margin(a, t):
+        re, im = stft(a, cfg.stft)
+        return amp_to_db(torch.sqrt(re * re + im * im), top_db=80.0, axis=-2) - t
+
+    with torch.no_grad():
+        dec32 = margin(x, thr.float()) > 0
+        m64 = margin(x.double(), thr.double())
+        dec64 = m64 > 0
+        flips = dec32 != dec64
+        n_flips = int(flips.sum())
+        worst = float(m64.abs()[flips].max()) if n_flips else 0.0
+        mask = torch.where(m64.abs() <= BORDER_DB, dec32, dec64).double()
+        mask = mask * cfg.prop_decrease + (1.0 - cfg.prop_decrease)
+        mask = smooth_mask(mask, *cfg.smoothing, time_major=True)
+
+    def twin(x64):  # _gate_stationary_staged after the compare
+        return _apply_mask_and_invert(stft(x64, cfg.stft), mask, cfg, x64.shape[-1])
+
+    return twin, n_flips, worst
+
+
+def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
+    """Phase 14: rows 6 and 7 under grad, the training step of the three
+    gate families at batch 16 and 256, and the notebook-3.0 loop."""
+    from noisereduce_tpu_torch.models.spectral_gate import (
+        _gate_nonstationary_staged, gate_nonstationary, gate_stationary,
+        stationary_noise_threshold,
+    )
+    from noisereduce_tpu_torch.ops.cuda_mask import (
+        _mask_impl, _mask_impl_tm, fused_nonstationary_mask, fused_nonstationary_mask_tm,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    # rows 6 and 7: the masks of 8 views of the headline's frame count
+    cfg = nr.GateConfig(sr=SR)
+    mk = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
+    n_frames = cfg.stft.n_frames(CHUNK + 2 * PADDING)
+    z = randn(GRAD_VIEWS, cfg.stft.n_bins, n_frames, dtype=torch.complex64)
+    cot = randn(*z.shape)
+    (gz,) = under_grad(K, "row 6 mask under grad", lambda a: fused_nonstationary_mask(a, *mk),
+                       [z], cot, dict(fm_nonstationary_mask=1), launches)
+    z64 = z.to(torch.complex128).requires_grad_()
+    (rz,) = torch.autograd.grad(_mask_impl(z64, *mk), z64, cot.double())
+    grad_check(f"row 6 mask ({tuple(z.shape)} complex64)", gz, rz, GRAD_BOUND)
+    del z, z64, gz, rz
+    re, im = randn(GRAD_VIEWS, n_frames, cfg.stft.n_bins), randn(GRAD_VIEWS, n_frames, cfg.stft.n_bins)
+    grads = under_grad(K, "row 7 mask under grad",
+                       lambda r, i: fused_nonstationary_mask_tm(r, i, *mk), [re, im], cot.transpose(1, 2),
+                       dict(nonstationary_mask=1), launches)
+    r64, i64 = (t.double().requires_grad_() for t in (re, im))
+    refs = torch.autograd.grad(_mask_impl_tm(r64, i64, *mk), (r64, i64), cot.transpose(1, 2).double())
+    for name, g, r in zip(("re", "im"), grads, refs):
+        grad_check(f"row 7 mask ({tuple(re.shape)}, d/d{name})", g, r, GRAD_BOUND)
+    del re, im, r64, i64, grads, refs, cot
+    torch.cuda.empty_cache()
+
+    # the training step of the three gate families
+    n = GRAD_SR * GRAD_SECONDS
+    gate = nr.TPUGate(sr=GRAD_SR, nonstationary=True)
+    ncfg = nr.GateConfig(sr=GRAD_SR)
+    scfg = nr.GateConfig(sr=GRAD_SR, stationary=True)
+    thr = stationary_noise_threshold(0.8 * randn(NOISE_SECONDS * GRAD_SR), scfg)
+    families = (
+        ("TPUGate", gate, gate._call_staged,
+         dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1)),
+        ("gate_nonstationary", lambda a: gate_nonstationary(a, ncfg),
+         lambda a: _gate_nonstationary_staged(a, ncfg),
+         dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1)),
+        ("gate_stationary", lambda a: gate_stationary(a, thr, scfg), None,
+         dict(spectra=1, stationary_mask=1, freq_smooth_blend=1, istft_ola=1)),
+    )
+    for batch in GRAD_BATCHES:
+        x = randn(batch, n)
+        for name, fn, twin, expected in families:
+            label = f"training step {name} (batch {batch} x {GRAD_SECONDS} s)"
+            with torch.no_grad():
+                cot = randn(*fn(x).shape)
+            (g,) = under_grad(K, label, fn, [x], cot, expected, launches)
+            flips = ""
+            if twin is None:
+                twin, n_flips, worst = stationary_reference(x, thr, scfg)
+                flips = (f"; {n_flips} decisions differ between the float32 and float64 "
+                         f"twins, largest |dB - thr| among them {worst:.3e} dB (bound "
+                         f"{BORDER_DB:.0e})")
+                if worst > BORDER_DB:
+                    fail(f"{label}: a decision differs away from the threshold")
+            x64 = x.double().requires_grad_()
+            (r,) = torch.autograd.grad(twin(x64), x64, cot.double())
+            grad_check(label + flips, g, r, GRAD_BOUND)
+            del x64, r, g, cot
+
+            xg = x.clone().requires_grad_()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+            def step():
+                xg.grad = None
+                (fn(xg) ** 2).mean().backward()
+
+            fwd_ms = time_ms(lambda: fn(xg))
+            step_ms = time_ms(step)
+            print(
+                f"{label}: forward + backward {step_ms:.2f} ms ({batch * GRAD_SECONDS / (step_ms / 1e3):.0f} "
+                f"audio s per wall s), forward under grad {fwd_ms:.2f} ms, backward "
+                f"share {1 - fwd_ms / step_ms:.1%}, peak memory of the timed steps "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, on {card}",
+                flush=True,
+            )
+            del xg
+
+    # the notebook-3.0 loop: a learnable FIR in front of the gate
+    batch = GRAD_BATCHES[-1]
+    t = torch.arange(n, device=dev, dtype=torch.float32) / GRAD_SR
+    clean = torch.sin(2 * np.pi * 440 * t) + 0.5 * torch.sin(2 * np.pi * 220 * t)
+    noisy = clean + 0.4 * randn(batch, n)
+    fir = torch.zeros(FIR_TAPS, device=dev)
+    fir[FIR_TAPS // 2] = 1.0
+    fir.requires_grad_()
+    adam = torch.optim.Adam([fir], lr=FIR_LR)
+    losses = []
+
+    def loop():
+        for _ in range(FIR_STEPS):
+            adam.zero_grad()
+            pre = F.conv1d(noisy[:, None], fir.view(1, 1, -1), padding=FIR_TAPS // 2)[:, 0]
+            est = gate(pre)
+            loss = ((est - clean[: est.shape[-1]]) ** 2).mean()
+            loss.backward()
+            adam.step()
+            losses.append(loss.item())
+
+    expected = dict(spectra=FIR_STEPS, torch_nonstationary_mask=FIR_STEPS,
+                    freq_smooth_blend=FIR_STEPS, istft_ola=FIR_STEPS)
+    _, launches["notebook loop"] = run_path(K, "notebook loop", loop, expected)
+    print(f"notebook loop ({FIR_TAPS}-tap FIR + TPUGate, Adam lr {FIR_LR}, batch {batch} x "
+          f"{GRAD_SECONDS} s): losses {[f'{v:.6f}' for v in losses]}", flush=True)
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("notebook loop: the loss did not fall")
 
 
 def main() -> None:
@@ -973,9 +1200,12 @@ def main() -> None:
     if not dev <= lim:
         fail("torch staged geometry disagrees with the staged plain path")
 
+    gradient_phase(nr, K, card, launches)
+
     main_path = {name: "headline" for name in SOURCES}
     main_path.update(stationary_mask="stationary headline",
-                     torch_nonstationary_mask="torch headline")
+                     torch_nonstationary_mask="torch headline",
+                     fm_nonstationary_mask="row 6 mask under grad")
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

@@ -4,7 +4,7 @@ Spectral-gating noise reduction with hand-written Hopper kernels
 (``ops/cuda``): ``reduce_noise`` with the scipy-convention engines
 (non-stationary and stationary) and the torch-convention gate
 (``use_torch=True``), ``reduce_noise_batch``, and ``TPUGate``, the
-TorchGate module (forward only). The JAX package
+TorchGate module, differentiable. The JAX package
 ``noisereduce_tpu`` is its reference. Importing this
 package needs torch only: no JAX, no CUDA toolkit (kernels build at first
 use on a card).

@@ -4,14 +4,20 @@
 ``gate_nonstationary`` and ``gate_stationary`` run the fused kernels
 (A-D, or A, E, C, D) whenever they serve the geometry (on the CPU their
 plain versions). Otherwise they take the staged pipelines, which are also
-the numerical oracles of the fused paths and, with the gradient slice, their
-backward passes: ``_gate_nonstationary_staged`` (the twin of
-``_gate_nonstationary_jnp``, ``spectral_gate.py:286``), which for such
-geometries takes its mask from kernel B with one unit tap, as the JAX
-staged path takes it from a TPU kernel (``:297-307``); and
-``_gate_stationary_staged`` (``_gate_stationary_jnp``, ``:224``). Like the
-reference, the staged non-stationary mask gives NaN on silence (a 0/0
-noise-floor ratio), where the kernels give finite zeros.
+the numerical oracles of the fused paths and their backward passes:
+``_gate_nonstationary_staged`` (the twin of ``_gate_nonstationary_jnp``,
+``spectral_gate.py:286``), which for such geometries takes its mask from
+kernel B with one unit tap, as the JAX staged path takes it from a TPU
+kernel (``:297-307``); and ``_gate_stationary_staged``
+(``_gate_stationary_jnp``, ``:224``). Like the reference, the staged
+non-stationary mask gives NaN on silence (a 0/0 noise-floor ratio), where
+the kernels give finite zeros.
+
+Every path is differentiable, on the card and on the CPU: the fused gates
+and kernel B's staged mask take their value from the kernels and their
+cotangent from the plain twin (``ops/cuda/dispatch.py``,
+``ops/cuda_mask.py``); the stationary threshold's gradient is zero, as
+the threshold compare has none.
 
 Per-path quirk parity (SURVEY.md §5 quirk 3): the stationary path applies
 prop_decrease BEFORE smoothing (stationary.py:108-114), the non-stationary
@@ -29,7 +35,7 @@ from noisereduce_tpu_torch.ops.cuda.dispatch import (
     fused_gate_supported,
     fused_stationary_threshold,
 )
-from noisereduce_tpu_torch.ops.cuda.kernels import nonstationary_mask
+from noisereduce_tpu_torch.ops.cuda_mask import fused_nonstationary_mask_tm
 from noisereduce_tpu_torch.ops.dsp import (
     amp_to_db,
     ewma_filtfilt,
@@ -126,17 +132,16 @@ def _gate_nonstationary_staged(
     """Staged pipeline in plain torch, time-major (..., frames, bins).
 
     ``mask_kernel``: the |Z| -> filtfilt floor -> sigmoid stage runs as
-    kernel B with one unit tap (no time smoothing; on the CPU its plain
-    version, which differs only on silence: finite zeros, not NaN)."""
+    kernel B with one unit tap (``fused_nonstationary_mask_tm``; no time
+    smoothing; on the CPU its plain version, which differs only on silence:
+    finite zeros, not NaN), its cotangent from the plain stage below."""
     n_samples = chunk.shape[-1]
     re, im = stft(chunk, cfg.stft)
     if mask_kernel:
-        T, nb = re.shape[-2:]
-        mask = nonstationary_mask(
-            re.reshape(-1, T, nb), im.reshape(-1, T, nb), cfg.iir_b,
-            cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary,
-            (1.0,),
-        ).reshape(re.shape)
+        mask = fused_nonstationary_mask_tm(
+            re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
+            cfg.sigmoid_slope_nonstationary,
+        )
     else:
         mag = torch.sqrt(re * re + im * im)
         # time-smoothed noise floor: zero-phase first-order IIR per frequency

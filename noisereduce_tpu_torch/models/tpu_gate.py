@@ -17,8 +17,12 @@ ddof 1, the moving-average floor, ``temperature_sigmoid``, the prop_decrease
 blend BEFORE the smoothing (torchgate.py:241-249), and torch.istft's natural
 output length (T-1)*hop.
 
-No gradient on the card yet: a CUDA input that requires grad while grad
-mode is on raises ``NotImplementedError``.
+The module is differentiable with respect to ``x`` and ``xn``, on the card
+and on the CPU, in ``forward``, ``batched_chunks`` and ``chunked``: the
+value under grad is the kernels' output, bitwise the serving value, and the
+cotangent comes from ``_call_staged`` (the contract of the JAX package's
+``_fused_tpugate_cvjp1/2``; ``ops/cuda/torch_dispatch.py``). The backward
+pass launches no kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +33,6 @@ import torch.nn.functional as F
 
 from noisereduce_tpu_torch.config import Convention, StftConfig, smoothing_kernel_sizes
 from noisereduce_tpu_torch.ops.cuda.torch_dispatch import (
-    _tpugate_from_signal,
     fused_tpugate,
     fused_tpugate_chunked,
     fused_tpugate_supported,
@@ -165,13 +168,6 @@ class TPUGate(torch.nn.Module):
                 raise ValueError(
                     f"the noise clip's batch {bn} must be 1 or the signal's {batch}"
                 )
-        needs_grad = x.requires_grad or (xn is not None and xn.requires_grad)
-        if x.device.type == "cuda" and needs_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "TPUGate has no gradient on the card yet: it is the next slice "
-                "of the PyTorch port (ROADMAP.md, Queue 1); call it under "
-                "torch.no_grad()"
-            )
 
     def forward(self, x: torch.Tensor, xn: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Denoise (batch, signal_length) -> (batch, (T-1)*hop), torch.istft's
@@ -193,7 +189,7 @@ class TPUGate(torch.nn.Module):
         self._check(chunks, xn, ch)
         flat = chunks.reshape(ch * k, view).contiguous()
         if fused_tpugate_supported(self):
-            return _tpugate_from_signal(flat, self, xn).reshape(ch, k, view)
+            return fused_tpugate(flat, xn, self, out_len=view).reshape(ch, k, view)
         out = staged_tpugate(flat, xn, self)
         return F.pad(out, (0, view - out.shape[-1])).reshape(ch, k, view)
 
@@ -220,7 +216,8 @@ class TPUGate(torch.nn.Module):
 
     def _call_staged(self, x: torch.Tensor, xn: Optional[torch.Tensor] = None):
         """Staged pipeline in plain torch (``_call_jnp``, ``tpu_gate.py:243``),
-        time-major (batch, frames, bins)."""
+        time-major (batch, frames, bins): the oracle of the kernels and the
+        twin whose cotangent the gate's backward pass takes."""
         scfg = self.stft_config
         re, im = stft(x, scfg)
         mag = torch.sqrt(re * re + im * im)

@@ -17,8 +17,16 @@ chunk views read straight from it. ``fused_stationary_threshold``
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode, float32 or float64).
-No gradient yet: the fused-forward / staged-backward contract of
-``dispatch.py:429-490`` comes with the gradient slice.
+
+The three gates are differentiable as ``_fused_gate_cvjp``,
+``_fused_stat_cvjp`` and ``_fused_chunked_cvjp`` (``:429-490``,
+``:857-917``) are: when autograd records the call, the value is still the
+kernels' output, bitwise the serving value, and the cotangent comes from
+the staged twin (``_gate_nonstationary_staged``, ``_gate_stationary_staged``,
+or ``process_chunked`` of either), recomputed in the backward pass, which
+launches no kernel (``ops/precision.py``). The stationary threshold gets a
+zero gradient: the threshold compare has none. Otherwise they run exactly
+as a serving call does.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from noisereduce_tpu_torch.ops.cuda.kernels import (
     stationary_mask,
 )
 from noisereduce_tpu_torch.ops.dsp import noise_db_threshold, tri_norm
+from noisereduce_tpu_torch.ops.precision import fused_with_twin
 
 __all__ = [
     "fused_gate_supported",
@@ -86,10 +95,13 @@ def fused_gate_nonstationary(chunk: torch.Tensor, cfg: GateConfig) -> torch.Tens
     (``_fused_gate_impl``, ``dispatch.py:590``): same math as
     ``models.spectral_gate._gate_nonstationary_staged`` except that silence
     gives finite zeros. Caller guarantees ``fused_gate_supported``."""
-    n = chunk.shape[-1]
-    x = chunk.reshape(-1, n).contiguous()
-    y = _gate_from_signal(x, cfg)
-    return y.reshape(chunk.shape)
+    from noisereduce_tpu_torch.models.spectral_gate import _gate_nonstationary_staged
+
+    def forward(c):
+        n = c.shape[-1]
+        return _gate_from_signal(c.reshape(-1, n).contiguous(), cfg).reshape(c.shape)
+
+    return fused_with_twin(forward, lambda c: _gate_nonstationary_staged(c, cfg), chunk)
 
 
 def fused_gate_stationary(
@@ -102,16 +114,21 @@ def fused_gate_stationary(
     threshold for (B, n_chunks, n) chunks: every chunk of row b reads row
     b), as ``_fused_gate_impl`` (``:597-606``) broadcasts it. Caller
     guarantees ``fused_gate_supported``."""
-    n = chunk.shape[-1]
-    batch = chunk.shape[:-1]
-    x = chunk.reshape(-1, n).contiguous()
-    thr = noise_thresh
-    if thr.ndim > 1:
-        nb = thr.shape[-1]
-        thr = thr.reshape(thr.shape[:-1] + (1,) * (len(batch) + 1 - thr.ndim) + (nb,))
-        thr = thr.expand(batch + (nb,)).reshape(-1, nb)
-    y = _gate_from_signal(x, cfg, noise_thresh=thr)
-    return y.reshape(chunk.shape)
+    from noisereduce_tpu_torch.models.spectral_gate import _gate_stationary_staged
+
+    def forward(c, thr):
+        n = c.shape[-1]
+        batch = c.shape[:-1]
+        if thr.ndim > 1:
+            nb = thr.shape[-1]
+            thr = thr.reshape(thr.shape[:-1] + (1,) * (len(batch) + 1 - thr.ndim) + (nb,))
+            thr = thr.expand(batch + (nb,)).reshape(-1, nb)
+        y = _gate_from_signal(c.reshape(-1, n).contiguous(), cfg, noise_thresh=thr)
+        return y.reshape(c.shape)
+
+    return fused_with_twin(
+        forward, lambda c, t: _gate_stationary_staged(c, t, cfg), chunk, noise_thresh
+    )
 
 
 def fused_gate_chunked(
@@ -125,11 +142,23 @@ def fused_gate_chunked(
     writes only the cores, so no view is materialized. (ch, n) -> (ch, n).
     ``noise_thresh``, (bins,) or per-row (ch, bins), selects the stationary
     gate; every chunk of row c reads row c."""
-    ch, n = y2d.shape
-    core = _gate_from_signal(
-        y2d.contiguous(), cfg, chunk_size, padding, noise_thresh
+    from noisereduce_tpu_torch.models.spectral_gate import (
+        _gate_nonstationary_staged, _gate_stationary_staged,
     )
-    return core.reshape(ch, -1)[:, :n]
+    from noisereduce_tpu_torch.parallel.chunking import process_chunked
+
+    def forward(y, thr):
+        core = _gate_from_signal(y.contiguous(), cfg, chunk_size, padding, thr)
+        return core.reshape(y.shape[0], -1)[:, : y.shape[-1]]
+
+    def twin(y, thr):
+        if thr is None:
+            return process_chunked(
+                lambda c: _gate_nonstationary_staged(c, cfg), y, chunk_size, padding)
+        return process_chunked(
+            lambda c: _gate_stationary_staged(c, thr, cfg), y, chunk_size, padding)
+
+    return fused_with_twin(forward, twin, y2d, noise_thresh)
 
 
 def fused_stationary_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.Tensor:
@@ -137,9 +166,19 @@ def fused_stationary_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.
     spectra from kernel A (``fused_stationary_threshold``,
     ``dispatch.py:493``): mean + n_std * std over frames of the dB
     spectrogram, ddof 0, as plain reductions (XLA reductions in JAX).
-    Returns (..., bins). Caller guarantees ``fused_gate_supported``."""
-    n = y_noise.shape[-1]
-    x = y_noise.reshape(-1, n).contiguous()
-    re, im = spectra(x, gate_geometry(cfg.stft, n))
-    thr = noise_db_threshold(re, im, cfg.n_std_thresh_stationary)
-    return thr.reshape(y_noise.shape[:-1] + thr.shape[-1:])
+    Returns (..., bins). Caller guarantees ``fused_gate_supported``.
+    Differentiable: the cotangent comes from the same statistics of the
+    staged STFT."""
+    from noisereduce_tpu_torch.ops.stft import stft
+
+    def forward(y):
+        n = y.shape[-1]
+        re, im = spectra(y.reshape(-1, n).contiguous(), gate_geometry(cfg.stft, n))
+        thr = noise_db_threshold(re, im, cfg.n_std_thresh_stationary)
+        return thr.reshape(y.shape[:-1] + thr.shape[-1:])
+
+    return fused_with_twin(
+        forward,
+        lambda y: noise_db_threshold(*stft(y, cfg.stft), cfg.n_std_thresh_stationary),
+        y_noise,
+    )

@@ -1,5 +1,5 @@
-"""The six CUDA kernels of the gates, their wrappers and their plain
-PyTorch versions.
+"""The seven CUDA kernels of the gates and masks, their wrappers and their
+plain PyTorch versions.
 
 Together they replace the merged TPU kernel
 ``noisereduce_tpu/ops/pallas/dispatch.py::_merged_gate_from_blocks``
@@ -8,8 +8,9 @@ Together they replace the merged TPU kernel
 ``ops/pallas/torch_dispatch.py::_merged_torch_impl`` (``:382``) and its
 split twin ``_fused_torch_impl`` (``:485``, ``:526``, ``:561``); A alone
 replaces the noise-clip spectra of ``_fused_stft_planes`` (``:556``) for
-both conventions' thresholds and B with one unit tap the time-major mask of
-``ops/pallas_mask.py::_fused_mask_tm_cvjp`` (``:364``):
+both conventions' thresholds, B with one unit tap the time-major mask of
+``ops/pallas_mask.py::_fused_mask_tm_cvjp`` (``:364``) and G the
+frequency-major mask of ``_fused_mask_cvjp`` (``:229``):
 
 =====  ======================  =============================================
 A      ``spectra``             ``kernels.py::_spectra_phases`` (:152)
@@ -23,6 +24,8 @@ E      ``stationary_mask``     ``kernels.py::_as_kernel`` passes A, B and
                                ``_time_smooth_phase`` (:630)
 F      ``torch_nonstationary_  ``kernels.py::_mt_kernel`` passes 1-3
        mask``                  (:663-714)
+G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
+       mask``
 =====  ======================  =============================================
 
 A and D take either STFT convention: their constant tables and D's
@@ -36,7 +39,13 @@ wrapper counts its launches in an integer attribute ``launches``
 kernels' semantics, including finite zeros on silence (a zero noise floor
 takes divisor 1).
 
-Planes are time-major ``(rows, n_frames, n_bins)``, float32 on the card.
+Planes are time-major ``(rows, n_frames, n_bins)``, float32 on the card;
+G's are frequency-major ``(..., n_bins, n_frames)``.
+
+The wrappers are not differentiable (the kernels write into fresh tensors).
+The gradient of every entry point that runs them comes from its staged
+twin (``ops/precision.py::fused_with_twin``; the masks in
+``ops/cuda_mask.py``).
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ __all__ = [
     "istft_ola", "istft_ola_ref",
     "stationary_mask", "stationary_mask_ref",
     "torch_nonstationary_mask", "torch_nonstationary_mask_ref",
+    "fm_nonstationary_mask", "fm_nonstationary_mask_ref",
     "reset_launch_counts", "launch_counts",
 ]
 
@@ -449,10 +459,52 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
 
 
 # ---------------------------------------------------------------------------
+# G: fm_nonstationary_mask
+# ---------------------------------------------------------------------------
+def fm_nonstationary_mask_ref(z, b, thresh, slope):
+    """Plain version of ``fm_nonstationary_mask``; |Z| as the kernel forms
+    it, sqrt(re^2 + im^2)."""
+    mag = torch.sqrt(z.real * z.real + z.imag * z.imag) if z.is_complex() else z
+    floor = dsp.ewma_filtfilt(mag, b, axis=-1)  # float64 state, as the kernel's
+    ratio = (mag - floor) / torch.where(floor == 0, 1.0, floor)
+    return dsp.sigmoid(ratio, -thresh, slope)
+
+
+def fm_nonstationary_mask(z, b, thresh, slope):
+    """Filtfilt IIR noise floor and sigmoid mask of a frequency-major plane,
+    no time smoothing.
+
+    z: (..., n_bins, n_frames), complex64 or a float32 magnitude plane.
+    Per (row, bin) column: y = forward EWMA of |Z| along frames with
+    y[0] = |Z|[0]; w = the same recurrence backwards over y with
+    w[T-1] = y[T-1], both carried in float64;
+    mask = sigmoid(((|Z| - w)/w' - thresh) * slope) with w' = 1 where
+    w == 0. Returns the float32 mask, z's shape.
+    """
+    if _on_cpu(z):
+        return fm_nonstationary_mask_ref(z, b, thresh, slope)
+    is_complex = z.is_complex()
+    if is_complex and z.dtype != torch.complex64:
+        raise TypeError(f"fm_nonstationary_mask: the kernel takes complex64, got {z.dtype}")
+    zr = torch.view_as_real(z) if is_complex else z
+    _check_cuda("fm_nonstationary_mask", zr)
+    T = z.shape[-1]
+    n_cols = z.numel() // T if T else 0
+    out = torch.empty(z.shape, dtype=torch.float32, device=z.device)
+    scratch = torch.empty_like(out)
+    _launch(
+        "fm_nonstationary_mask", z.device, _ptr(zr), int(is_complex),
+        _ptr(scratch), _ptr(out), n_cols, T, float(b), thresh, slope,
+    )
+    fm_nonstationary_mask.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
-           stationary_mask, torch_nonstationary_mask)
+           stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
 
 
 def reset_launch_counts() -> None:

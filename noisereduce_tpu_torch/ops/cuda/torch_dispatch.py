@@ -19,8 +19,17 @@ r in {2, 4}, n_movemean <= 512, VMEM) does not apply: A and D need a hop
 that divides n_fft and nothing else. For any other hop ``staged_tpugate``
 puts the plain STFT and iSTFT around the mask kernels F or E and C, which
 serve every geometry, as the scipy engine's staged path takes kernel B's
-mask. No gradient yet: the fused-forward / staged-backward contract of
-``:128-166`` comes with the gradient slice.
+mask.
+
+``fused_tpugate``, ``fused_tpugate_chunked`` and ``staged_tpugate`` are
+differentiable as ``_fused_tpugate_cvjp1/2`` (``:128-166``) are: when
+autograd records the call, the value is still the kernels' output, bitwise
+the serving value, and the cotangent of ``x`` and of ``xn`` comes from the
+staged twin ``TPUGate._call_staged`` (every SVD rank), recomputed in the
+backward pass, which launches no kernel (``ops/precision.py``). The twin
+sees the noise rows mapped onto the signal rows as the kernels read them.
+For the hop that does not divide n_fft the JAX package differentiates
+``_call_jnp`` itself: the same cotangent.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry, kernels_supported
 from noisereduce_tpu_torch.ops.cuda.kernels import (
@@ -38,7 +48,9 @@ from noisereduce_tpu_torch.ops.cuda.kernels import (
     torch_nonstationary_mask,
 )
 from noisereduce_tpu_torch.ops.dsp import _torchgate_kernel_svd_np, torch_noise_db_threshold
+from noisereduce_tpu_torch.ops.precision import fused_with_twin
 from noisereduce_tpu_torch.ops.stft import istft, stft
+from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
 __all__ = [
     "fused_tpugate_supported",
@@ -123,13 +135,31 @@ def _mask(re, im, gate, thr=None):
     return freq_smooth_blend(mask, np.asarray(freq_taps), 1.0)
 
 
-def fused_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
+def _staged_twin(gate, x, xn, out_len=None):
+    """The cotangent twin: ``gate._call_staged`` of (rows, n) signals, the
+    (bn, n_clip) noise rows mapped row-major onto them (row v reads
+    v // (rows / bn)), zero filled to ``out_len`` (default: the natural
+    length)."""
+    if xn is not None and xn.ndim == 2 and xn.shape[0] not in (1, x.shape[0]):
+        xn = xn.repeat_interleave(x.shape[0] // xn.shape[0], dim=0)
+    y = gate._call_staged(x, xn)
+    return y if out_len is None else F.pad(y, (0, out_len - y.shape[-1]))
+
+
+def fused_tpugate(x: torch.Tensor, xn, gate, out_len=None) -> torch.Tensor:
     """TorchGate of (B, n) signals through the kernels, torch.istft's
-    natural (T-1)*hop samples out (``fused_tpugate``, ``:115``). ``xn``:
-    None, (n_clip,) or (bn, n_clip) with bn 1 or B. Caller guarantees
+    natural (T-1)*hop samples out (``fused_tpugate``, ``:115``), or
+    ``out_len`` samples, zero filled past the natural length. ``xn``: None,
+    (n_clip,) or (bn, n_clip) with bn a divisor of B, row v of the signal
+    reading noise row v // (B / bn). Caller guarantees
     ``fused_tpugate_supported``."""
-    geo = gate_geometry(gate.stft_config, x.shape[-1])
-    return _tpugate_from_signal(x.contiguous(), gate, xn, out_len=geo.istft_len)
+    if out_len is None:
+        out_len = gate_geometry(gate.stft_config, x.shape[-1]).istft_len
+    return fused_with_twin(
+        lambda a, b: _tpugate_from_signal(a.contiguous(), gate, b, out_len=out_len),
+        lambda a, b: _staged_twin(gate, a, b, out_len),
+        x, xn,
+    )
 
 
 def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int,
@@ -144,10 +174,19 @@ def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int
     n + 2 * padding samples. ``xn``: a (n_clip,) clip or (bn, n_clip) noise
     rows with bn 1 or ch, row c serving every chunk of channel c; None gives
     each chunk view its own statistics. (ch, n) -> (ch, n)."""
-    ch, n = y2d.shape
-    cs = min(chunk_size, n)
-    core = _tpugate_from_signal(y2d.contiguous(), gate, xn, cs, padding)
-    return core.reshape(ch, -1)[:, :n]
+    def forward(y, b):
+        ch, n = y.shape
+        core = _tpugate_from_signal(y.contiguous(), gate, b, min(chunk_size, n), padding)
+        return core.reshape(ch, -1)[:, :n]
+
+    def twin(y, b):
+        def call(c):
+            v = c.reshape(-1, c.shape[-1])
+            return _staged_twin(gate, v, b, v.shape[-1]).reshape(c.shape)
+
+        return process_chunked(call, y, chunk_size, padding)
+
+    return fused_with_twin(forward, twin, y2d, xn)
 
 
 def staged_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
@@ -158,10 +197,14 @@ def staged_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
     and gives finite zeros on silence. ``xn``: as ``fused_tpugate``'s, for
     the rows in place of the views. (rows, (T-1)*hop) out."""
     scfg = gate.stft_config
-    re, im = (t.contiguous() for t in stft(x, scfg))
-    thr = None
-    if not gate.nonstationary and xn is not None:
-        rn, in_ = stft(xn if xn.ndim == 2 else xn[None], scfg)
-        thr = torch_noise_db_threshold(rn, in_, gate.n_std_thresh_stationary)
-    mask = _mask(re, im, gate, thr)
-    return istft((re * mask, im * mask), scfg)
+
+    def forward(a, b):
+        re, im = (t.contiguous() for t in stft(a, scfg))
+        thr = None
+        if not gate.nonstationary and b is not None:
+            rn, in_ = stft(b if b.ndim == 2 else b[None], scfg)
+            thr = torch_noise_db_threshold(rn, in_, gate.n_std_thresh_stationary)
+        mask = _mask(re, im, gate, thr)
+        return istft((re * mask, im * mask), scfg)
+
+    return fused_with_twin(forward, lambda a, b: _staged_twin(gate, a, b), x, xn)

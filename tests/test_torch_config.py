@@ -156,6 +156,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert K.launch_counts() == {
         "spectra": 0, "nonstationary_mask": 0, "freq_smooth_blend": 0,
         "istft_ola": 0, "stationary_mask": 0, "torch_nonstationary_mask": 0,
+        "fm_nonstationary_mask": 0,
     }
 
 
@@ -165,7 +166,7 @@ def test_build_lists_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     names = {p.name for p in build.sources()}
     assert {"spectra.cu", "nonstationary_mask.cu", "freq_smooth_blend.cu",
             "istft_ola.cu", "stationary_mask.cu", "torch_nonstationary_mask.cu",
-            "gemm_tile.cuh"} <= names
+            "fm_nonstationary_mask.cu", "gemm_tile.cuh"} <= names
     assert build.library_path().parent.parent == build.BUILD_ROOT
     if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed")

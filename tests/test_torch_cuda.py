@@ -15,7 +15,10 @@ absolute (sigmoid slope 10 over an IIR floor), the frequency smoothing
 absolute, with at most 1e-5 of its cells deciding the binary threshold the
 other way (a dB value within float32 resolution of the threshold). The
 torch-convention kernels (A's torch table, F, E's self statistics, D's
-torch tail) are held to the same bounds, F like B at 1e-5 absolute.
+torch tail) are held to the same bounds, F like B at 1e-5 absolute; G
+(frequency-major, TPU row 6) like B at 1e-4. Gradients on the card (the
+kernels' value, the staged twin's cotangent) are held to the float64
+twin's at 5e-5 x scale.
 """
 import numpy as np
 import pytest
@@ -352,11 +355,112 @@ def test_torch_reduce_noise_batch_on_card_is_the_per_signal_calls(cuda):
             np.testing.assert_array_equal(g, nrt.reduce_noise(y, 16000, use_torch=True, **one))
 
 
+# ---------------------------------------------------------------------------
+# kernel G and the gradient (the fused forward, the staged twin backward)
+# ---------------------------------------------------------------------------
 @pytest.mark.gpu
-def test_tpugate_on_card_refuses_gradients(cuda):
-    x = torch.zeros((1, 8000), device=cuda, requires_grad=True)
-    gate = nrt.TPUGate(sr=16000, nonstationary=True)
-    with pytest.raises(NotImplementedError, match="gradient"):
-        gate(x)
+@pytest.mark.parametrize("magnitude", [False, True], ids=["complex64", "magnitude"])
+def test_fm_mask_matches_plain_version(cuda, magnitude):
+    """Kernel G (TPU row 6) on a frequency-major plane, against its plain
+    version at kernel B's bound."""
+    cfg = GateConfig(sr=16000)
+    rng = np.random.default_rng(21)
+    z = torch.as_tensor(rng.standard_normal((2, 513, 700)) + 1j * rng.standard_normal((2, 513, 700)),
+                        dtype=torch.complex64, device=cuda)
+    if magnitude:
+        z = z.abs()
+    args = (z, cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
+    K.reset_launch_counts()
+    got = K.fm_nonstationary_mask(*args)
+    assert K.launch_counts()["fm_nonstationary_mask"] == 1
+    assert got.dtype == torch.float32 and got.shape == z.shape
+    assert _max(got - K.fm_nonstationary_mask_ref(*args)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["tpugate", "nonstationary", "stationary"])
+def test_gradient_on_card_is_the_float64_twins(cuda, family):
+    """Under grad the value is the serving value bitwise, with the serving
+    launches; the backward pass launches nothing; the gradient matches the
+    float64 staged twin's on the card (5e-5 x scale). A stationary gate is
+    compared where no binary decision differs between float32 and float64."""
+    from noisereduce_tpu_torch.models.spectral_gate import (
+        _gate_stationary_staged,
+        gate_stationary,
+    )
+    from noisereduce_tpu_torch.ops.dsp import amp_to_db
+    from noisereduce_tpu_torch.ops.stft import stft
+
+    rng = np.random.default_rng(22)
+    x = torch.as_tensor(rng.standard_normal((2, 32000)), dtype=torch.float32, device=cuda)
+    if family == "tpugate":
+        fn = nrt.TPUGate(sr=16000, nonstationary=True)
+        twin, mask = fn._call_staged, "torch_nonstationary_mask"
+    elif family == "nonstationary":
+        cfg = GateConfig(sr=16000)
+        fn = lambda a: gate_nonstationary(a, cfg)  # noqa: E731
+        twin = lambda a: _gate_nonstationary_staged(a, cfg)  # noqa: E731
+        mask = "nonstationary_mask"
+    else:
+        cfg = GateConfig(sr=16000, stationary=True)
+        thr = stationary_noise_threshold(torch.as_tensor(0.8 * rng.standard_normal(16000),
+                                                         dtype=torch.float32, device=cuda), cfg)
+        fn = lambda a: gate_stationary(a, thr, cfg)  # noqa: E731
+        twin = lambda a: _gate_stationary_staged(a, thr.double(), cfg)  # noqa: E731
+        mask = "stationary_mask"
     with torch.no_grad():
-        assert torch.all(gate(x) == 0)
+        serving = fn(x)
+    want = dict.fromkeys(("spectra", mask, "freq_smooth_blend", "istft_ola"), 1)
+    K.reset_launch_counts()
+    xg = x.clone().requires_grad_()
+    out = fn(xg)
+    counts = K.launch_counts()
+    assert counts == {k: want.get(k, 0) for k in counts}
+    assert torch.equal(out, serving)
+    cot = torch.as_tensor(rng.standard_normal(out.shape), dtype=torch.float32, device=cuda)
+    (g,) = torch.autograd.grad(out, xg, cot)
+    assert K.launch_counts() == counts
+    assert bool(torch.isfinite(g).all())
+    x64 = x.double().requires_grad_()
+    (ref,) = torch.autograd.grad(twin(x64), x64, cot.double())
+    if family == "stationary":
+        def decisions(a, t):
+            re, im = stft(a, cfg.stft)
+            return amp_to_db(torch.sqrt(re * re + im * im), 80.0, axis=-2) > t
+
+        if not torch.equal(decisions(x, thr), decisions(x.double(), thr.double())):
+            pytest.skip("a binary decision differs between float32 and float64")
+    assert _max(g.double() - ref) <= 5e-5 * _max(ref)
+
+
+@pytest.mark.gpu
+def test_masks_under_grad_on_card(cuda):
+    """Rows 6 and 7 under grad: the kernels' value, bitwise, and the twin's
+    gradient."""
+    from noisereduce_tpu_torch.ops.cuda_mask import (
+        _mask_impl,
+        fused_nonstationary_mask,
+        fused_nonstationary_mask_tm,
+    )
+
+    cfg = GateConfig(sr=16000)
+    mk = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
+    rng = np.random.default_rng(23)
+    z = torch.as_tensor(rng.standard_normal((2, 65, 300)) + 1j * rng.standard_normal((2, 65, 300)),
+                        dtype=torch.complex64, device=cuda)
+    zg = z.clone().requires_grad_()
+    K.reset_launch_counts()
+    out = fused_nonstationary_mask(zg, *mk)
+    assert torch.equal(out, K.fm_nonstationary_mask(z, *mk))
+    (g,) = torch.autograd.grad(out.sum(), zg)
+    z64 = z.to(torch.complex128).requires_grad_()
+    (ref,) = torch.autograd.grad(_mask_impl(z64, *mk).sum(), z64)
+    assert _max(torch.view_as_real(g).double() - torch.view_as_real(ref)) <= 5e-5 * _max(
+        torch.view_as_real(ref))
+    re = z.real.contiguous().transpose(1, 2).contiguous().requires_grad_()
+    im = z.imag.contiguous().transpose(1, 2).contiguous()
+    out = fused_nonstationary_mask_tm(re, im, *mk)
+    (g,) = torch.autograd.grad(out.sum(), re)
+    assert bool(torch.isfinite(g).all())
+    assert K.launch_counts()["fm_nonstationary_mask"] == 2
+    assert K.launch_counts()["nonstationary_mask"] == 1

@@ -5,13 +5,17 @@
 
 For each path (the 960 s / 48 kHz headline, non-stationary and stationary
 with a 10 s noise clip, and a batch of 32 stationary 10 s clips, each under
-the scipy-convention engines and under ``use_torch=True``), prints the
-host wall time of ``reduce_noise`` / ``reduce_noise_batch`` (numpy in and
-out; minimum of ``--reps`` after a warm-up), then one call under
+the scipy-convention engines and under ``use_torch=True``; then one
+training step, forward and backward of mean(gate(x)**2), of ``TPUGate``,
+``gate_nonstationary`` and ``gate_stationary`` at batch 16 and 256 of 4 s
+at 16 kHz), prints the host wall time of the call (numpy in and out for
+``reduce_noise`` / ``reduce_noise_batch``; a training step ends in a
+synchronize; minimum of ``--reps`` after a warm-up), then one call under
 ``torch.profiler``: the device's busy share of the profiled wall (the union
-of its kernel and copy intervals) and the device time of each kernel and
-copy by name. The inputs are ``chip_smoke.py``'s, made from its seed.
-Needs one card; imports nothing of JAX.
+of its kernel and copy intervals), the number of device operations, and
+the device time of each kernel and copy by name. The inputs are
+``chip_smoke.py``'s, made from its seed. Needs one card; imports nothing
+of JAX.
 """
 from __future__ import annotations
 
@@ -65,7 +69,7 @@ def breakdown(label: str, fn, reps: int) -> None:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
     print(f"{label}: host wall min {min(walls):.1f} ms (runs {', '.join(f'{w:.1f}' for w in walls)}); "
           f"profiled call {traced:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / traced:.0f}%)", flush=True)
+          f"({100 * busy / traced:.0f}%), {len(events)} device operations", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {ms:8.3f} ms  {name[:90]}", flush=True)
 
@@ -93,6 +97,34 @@ def main() -> None:
     breakdown(f"torch batch {cs.BATCH_CLIPS} x {cs.BATCH_SECONDS} s stationary",
               lambda: nr.reduce_noise_batch(clips, cs.SR, stationary=True, use_torch=True),
               args.reps)
+    training(args.reps)
+
+
+def training(reps: int) -> None:
+    """One training step of each gate family, as ``chip_smoke.py``'s
+    gradient phase runs it."""
+    from noisereduce_tpu_torch.models.spectral_gate import (
+        gate_nonstationary, gate_stationary, stationary_noise_threshold,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    n = cs.GRAD_SR * cs.GRAD_SECONDS
+    gate = nr.TPUGate(sr=cs.GRAD_SR, nonstationary=True)
+    ncfg = nr.GateConfig(sr=cs.GRAD_SR)
+    scfg = nr.GateConfig(sr=cs.GRAD_SR, stationary=True)
+    noise = 0.8 * torch.randn(cs.NOISE_SECONDS * cs.GRAD_SR, generator=gen, device="cuda")
+    thr = stationary_noise_threshold(noise, scfg)
+    families = (("TPUGate", gate), ("gate_nonstationary", lambda a: gate_nonstationary(a, ncfg)),
+                ("gate_stationary", lambda a: gate_stationary(a, thr, scfg)))
+    for batch in cs.GRAD_BATCHES:
+        x = torch.randn((batch, n), generator=gen, device="cuda").requires_grad_()
+        for name, fn in families:
+            def step():
+                x.grad = None
+                (fn(x) ** 2).mean().backward()
+                torch.cuda.synchronize()
+
+            breakdown(f"training step {name} (batch {batch} x {cs.GRAD_SECONDS} s)", step, reps)
 
 
 if __name__ == "__main__":
