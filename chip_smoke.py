@@ -9,12 +9,15 @@ last line is printed only when every phase passed):
 1. environment: torch version, the card's name and power limit
    (``nvidia-smi``); TF32 off, so the plain versions run in full FP32;
 2. build: kernels A-G from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
-   ``nvcc`` (seconds printed);
+   ``nvcc`` (seconds printed), A and D on both routes;
 3. per kernel, at the headline shapes (77 halo'd 660,000-sample chunk views
    of 48 kHz audio): the kernel against its plain version on the same
    inputs, max |dev| against the bound below, the kernel's, the plain
    version's and one library call's time, and the bound the card's memory
-   rate and FP32 rate set; also kernel A on a 10 s noise row (the
+   rate and FP32 rate set (for A and D from the function's own bytes, no
+   table); A and D run their FFT route (n_fft 1024), and their product
+   route is held and timed at the same shapes beside it; also kernel A on a
+   10 s noise row (the
    threshold spectra) and kernel B with one unit tap (the staged mask);
    then, under torch conventions (the gate ``reduce_noise(use_torch=True)``
    runs), A with the torch table, F, E with each view's own statistics and
@@ -47,6 +50,11 @@ last line is printed only when every phase passed):
     the per-signal calls, timed;
 13. torch staged geometry: hop 300, which A and D do not serve, through
     the plain STFT and iSTFT around F and C, against the staged plain path;
+    then the product route geometry: n_fft 1536 (not a power of two) with
+    hop 384 on the first 60 s of the headline signal through
+    ``reduce_noise``, where A and D take their DFT-product route, against
+    the staged plain path, and those two kernels against their plain
+    versions at its shapes;
 14. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
@@ -61,7 +69,9 @@ last line is printed only when every phase passed):
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
-after. Stationary outputs are binary-threshold gates: a cell whose dB value
+after, A's and D's also by route: every path with a power-of-two n_fft
+must launch them on the FFT route only, the n_fft-1536 path on the product
+route only. Stationary outputs are binary-threshold gates: a cell whose dB value
 lies within float32 resolution of the threshold may decide either way in
 two float32 implementations, and one such cell moves the output by ~1e-3 of
 its peak. So a stationary path is held to the plain path twice: as it is,
@@ -94,12 +104,15 @@ STAGED_SR, STAGED_SECONDS, STAGED_KW = 16000, 30, dict(n_fft=1024, hop_length=30
 # n_grad_freq 64: the merged TPU kernel's frequency halo (66 bins) leaves
 # under 16 owned bins per 128-lane tile, so the JAX package splits the gate
 SPLIT_SR, SPLIT_SECONDS, SPLIT_KW = 16000, 30, dict(freq_mask_smooth_hz=2000)
+# an n_fft that is not a power of two: A and D take their product route
+PRODUCT_SECONDS, PRODUCT_KW = 60, dict(n_fft=1536, hop_length=384)
 # the card's published peaks (H100 SXM data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float32 agreement bounds, each with its reason
 BOUNDS = {
-    # 1024-term FP32 sums in another order than cuFFT: x max|ref|
+    # an FP32 FFT (the product route: 1024-term FP32 sums) in another order
+    # than cuFFT's: x max|ref|
     "spectra": 2e-5,
     # mask units (the mask is in [0, 1]); float64 IIR carry in both, float
     # vs double rounding of the stored floor, amplified by the sigmoid
@@ -107,7 +120,8 @@ BOUNDS = {
     "nonstationary_mask": 1e-4,
     # 2n+1 = 11 FMAs of values <= 1: absolute
     "freq_smooth_blend": 1e-6,
-    # 4 * 2 * 513-term FP32 sums vs cuFFT's irfft + fold: x max|ref|
+    # an FP32 inverse FFT and 4-term overlap-add (the product route: 4 * 2 *
+    # 513-term FP32 sums) vs cuFFT's irfft + fold: x max|ref|
     "istft_ola": 2e-5,
     # mask units, over the cells whose binary decision agrees: a few FMAs of
     # the time taps in another order: absolute
@@ -132,15 +146,23 @@ FLIP_SHARE = 1e-5
 BORDER_DB = 2e-3
 # end to end, as tests/test_fused_pipeline.py:55 holds the TPU kernel: x max|ref|
 E2E_BOUND = 5e-5
+# the FFT route of A and D, the route of every power-of-two n_fft
 SOURCES = {
-    "spectra": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
+    "spectra": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
     "nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/nonstationary_mask.cu",
     "freq_smooth_blend": "noisereduce_tpu_torch/ops/cuda/csrc/freq_smooth_blend.cu",
-    "istft_ola": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
+    "istft_ola": "noisereduce_tpu_torch/ops/cuda/csrc/istft_fft.cu",
     "stationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/stationary_mask.cu",
     "torch_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/torch_nonstationary_mask.cu",
     "fm_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/fm_nonstationary_mask.cu",
+    # the product route of A and D, for an n_fft that is not a power of two
+    "spectra_product": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
+    "istft_ola_product": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
 }
+# JSON entries of A and D: (the wrapper that launches them, the route)
+ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
+          "spectra_product": ("spectra", "product"),
+          "istft_ola_product": ("istft_ola", "product")}
 # the TPU kernel each replaces (file:line), and the rows of PERF.md's
 # kernel table it serves
 REPLACES = {
@@ -160,6 +182,8 @@ REPLACES = {
                                 "noisereduce_tpu/ops/pallas/torch_dispatch.py:485 (row 5)",
     "fm_nonstationary_mask": "noisereduce_tpu/ops/pallas_mask.py:229 (row 6)",
 }
+REPLACES["spectra_product"] = REPLACES["spectra"]
+REPLACES["istft_ola_product"] = REPLACES["istft_ola"]
 # the gradient phase: the training workload of benchmarks/bench_all.py:316-331
 GRAD_SR, GRAD_SECONDS, GRAD_BATCHES = 16000, 4, (16, 256)
 # the masks' backward on 8 views of the headline plane (rows 6 and 7)
@@ -269,6 +293,19 @@ def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def product_route(label, fn, ref, lim):
+    """The product route of kernel A or D (the earlier kernel, which now
+    serves only an n_fft that is not a power of two) at the same shapes:
+    within ``lim`` x max|ref| of the plain version, and its time."""
+    dev, scale = max_dev(fn(), ref)
+    ms = time_ms(fn)
+    print(f"kernel {label}, product route at the same shapes: max|dev| {dev:.3e} "
+          f"bound {lim * scale:.3e}, {ms:.3f} ms", flush=True)
+    if not dev <= lim * scale:
+        fail(f"kernel {label}: the product route disagrees with its plain version")
+    return dict(max_abs_err=dev, ms=ms)
+
+
 def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     """Each kernel against its plain version at the main path's shapes.
     ``cfg`` is the non-stationary configuration, ``scfg`` the stationary
@@ -298,16 +335,18 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     torch.cuda.synchronize()
     views = extract_chunks(x_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len)
     views = views.contiguous()
-    tab = K._device_f32("analysis", geo.scfg, x_cuda.device)
     record(
         "spectra", lambda: K.spectra(*a), lambda: K.spectra_ref(*a),
         torch.stack([re, im]), torch.stack([rre, rim]),
-        nbytes(x_cuda, tab, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        nbytes(x_cuda, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
         library_fn=lambda: torch.stft(
             views, geo.n_fft, geo.hop, geo.win, window, center=True,
             pad_mode="constant", return_complex=True,
         ),
     )
+    results["spectra"]["product_route"] = product_route(
+        "spectra", lambda: torch.stack(K._spectra_on("product", *a)),
+        torch.stack([rre, rim]), BOUNDS["spectra"])
     del rre, rim, views
 
     # A on the noise clip (TPU kernel row 3: the threshold's spectra)
@@ -318,7 +357,7 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     record(
         "spectra", lambda: K.spectra(*an), lambda: K.spectra_ref(*an),
         torch.stack([nre, nim]), torch.stack([nrre, nrim]),
-        nbytes(noise_cuda, tab, nre, nim), nre.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        nbytes(noise_cuda, nre, nim), nre.shape[1] * (fft_ops(geo.n_fft) + geo.win),
         library_fn=lambda: torch.stft(
             noise_cuda, geo.n_fft, geo.hop, geo.win, window, center=True,
             pad_mode="constant", return_complex=True,
@@ -378,6 +417,8 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
            library_fn=lambda: torch.istft(
                zm, geo.n_fft, geo.hop, geo.win, window, center=True,
                length=geo.view_len))
+    results["istft_ola"]["product_route"] = product_route(
+        "istft_ola", lambda: K._istft_ola_on("product", *d), ry, BOUNDS["istft_ola"])
     del zm, y, ry, m, mb
 
     # E against its plain version, the threshold from a 10 s noise clip
@@ -432,17 +473,19 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
     rre, rim = K.spectra_ref(*a)
     views = extract_chunks(x_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len)
     views = views.contiguous()
-    tab = K._device_f32("analysis", geo.scfg, x_cuda.device)
     results["spectra"]["torch_table"] = measure(
         "spectra (torch table)", TORCH_TABLE_BOUND, lambda: K.spectra(*a),
         lambda: K.spectra_ref(*a), torch.stack([re, im]), torch.stack([rre, rim]),
-        nbytes(x_cuda, tab, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        nbytes(x_cuda, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
         library_fn=lambda: torch.stft(
             views, geo.n_fft, geo.hop, gate.win_length, window, center=True,
             pad_mode="constant", return_complex=True,
         ),
         scale_bound=True,
     )
+    results["spectra"]["torch_table"]["product_route"] = product_route(
+        "spectra (torch table)", lambda: torch.stack(K._spectra_on("product", *a)),
+        torch.stack([rre, rim]), TORCH_TABLE_BOUND)
     del rre, rim, views
 
     ngeo = gate_geometry(gate.stft_config, noise_cuda.shape[-1])
@@ -453,7 +496,7 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
         "spectra (torch table, 10 s noise row)", TORCH_TABLE_BOUND,
         lambda: K.spectra(*an), lambda: K.spectra_ref(*an),
         torch.stack([nre, nim]), torch.stack([nrre, nrim]),
-        nbytes(noise_cuda, tab, nre, nim), nre.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        nbytes(noise_cuda, nre, nim), nre.shape[1] * (fft_ops(geo.n_fft) + geo.win),
         library_fn=lambda: torch.stft(
             noise_cuda, geo.n_fft, geo.hop, gate.win_length, window, center=True,
             pad_mode="constant", return_complex=True,
@@ -487,6 +530,9 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
             length=geo.view_len),
         scale_bound=True,
     )
+    results["istft_ola"]["torch_tail"]["product_route"] = product_route(
+        "istft_ola (torch tail)", lambda: K._istft_ola_on("product", *d), ry,
+        TORCH_TABLE_BOUND)
     del zm, y, ry, m, mb
 
     # E with each view's own statistics: the decisions against the plain
@@ -532,6 +578,51 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
         max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, decisions_differing=n_flips,
         largest_margin_db=worst,
+    )
+
+
+def product_kernel_phase(xq_cuda: torch.Tensor, cfg, results) -> None:
+    """Kernels A and D on their product route (n_fft 1536, not a power of
+    two) against their plain versions at the shapes the product route
+    geometry's path gives them; adds the entries ``spectra_product`` and
+    ``istft_ola_product`` to ``results``."""
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.dsp import tri_norm
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
+
+    geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
+    ngf, ngt = cfg.smoothing
+    window = torch.hann_window(geo.win, periodic=True, device=xq_cuda.device)
+    a = (xq_cuda[None], geo, CHUNK, PADDING)
+    re, im = K.spectra(*a)
+    rre, rim = K.spectra_ref(*a)
+    views = extract_chunks(xq_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len).contiguous()
+    results["spectra_product"] = measure(
+        "spectra (product route, n_fft 1536)", BOUNDS["spectra"], lambda: K.spectra(*a),
+        lambda: K.spectra_ref(*a), torch.stack([re, im]), torch.stack([rre, rim]),
+        nbytes(xq_cuda, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
+        library_fn=lambda: torch.stft(
+            views, geo.n_fft, geo.hop, geo.win, window, center=True,
+            pad_mode="constant", return_complex=True,
+        ),
+        scale_bound=True,
+    )
+    del rre, rim
+    m = K.freq_smooth_blend(
+        K.nonstationary_mask(re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
+                             cfg.sigmoid_slope_nonstationary, tri_norm(ngt)),
+        tri_norm(ngf), cfg.prop_decrease)
+    d = (re, im, m, geo, PADDING, CHUNK)
+    zm = torch.complex(re * m, im * m).transpose(1, 2).contiguous()
+    results["istft_ola_product"] = measure(
+        "istft_ola (product route, n_fft 1536)", BOUNDS["istft_ola"], lambda: K.istft_ola(*d),
+        lambda: K.istft_ola_ref(*d), K.istft_ola(*d), K.istft_ola_ref(*d),
+        nbytes(re, im, m) + 4 * d[0].shape[0] * CHUNK,
+        re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
+        library_fn=lambda: torch.istft(
+            zm, geo.n_fft, geo.hop, geo.win, window, center=True, length=geo.view_len),
+        scale_bound=True,
     )
 
 
@@ -741,18 +832,24 @@ def under_grad(K, label, fn, args, cot, expected, launches):
     return grads
 
 
-def run_path(K, label, fn, expected):
+ROUTES = {}  # path label -> kernels A and D's launches by route
+
+
+def run_path(K, label, fn, expected, route="fft"):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel in ``expected`` must have launched exactly
-    that often (the others not at all)."""
+    that often (the others not at all), A and D all on ``route``."""
     K.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    print(f"{label} launches: {counts}", flush=True)
+    ROUTES[label] = routes = K.route_counts()
+    print(f"{label} launches: {counts}; A and D by route: {routes}", flush=True)
     want = {name: expected.get(name, 0) for name in counts}
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
+    if any(r[route] != counts[name] for name, r in routes.items()):
+        fail(f"{label}: A or D launched off the {route} route: {routes}")
     return out, counts
 
 
@@ -1200,17 +1297,43 @@ def main() -> None:
     if not dev <= lim:
         fail("torch staged geometry disagrees with the staged plain path")
 
+    # product route: n_fft 1536 on the first 60 s of the headline signal
+    xq = x[: PRODUCT_SECONDS * SR]
+    out, launches["product route geometry"] = run_path(
+        K, "product route geometry", lambda: nr.reduce_noise(xq, SR, **PRODUCT_KW, **ck),
+        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+        route="product")
+    check_output("product route geometry", out, xq)
+    c = nr.GateConfig(sr=SR, **PRODUCT_KW)
+    ref = nonstationary_plain(_as_2d(xq)[0], c)[0].cpu().numpy()
+    dev = float(np.abs(out.astype(np.float64) - ref).max())
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    print(f"product route geometry (n_fft 1536, hop 384, {PRODUCT_SECONDS} s) vs staged "
+          f"plain path: max|dev| {dev:.3e} bound {lim:.3e}", flush=True)
+    if not dev <= lim:
+        fail("product route geometry disagrees with the staged plain path")
+    product_kernel_phase(torch.as_tensor(xq).cuda(), c, results)
+
     gradient_phase(nr, K, card, launches)
 
     main_path = {name: "headline" for name in SOURCES}
     main_path.update(stationary_mask="stationary headline",
                      torch_nonstationary_mask="torch headline",
-                     fm_nonstationary_mask="row 6 mask under grad")
+                     fm_nonstationary_mask="row 6 mask under grad",
+                     spectra_product="product route geometry",
+                     istft_ola_product="product route geometry")
+
+    def count(name, path):
+        if name in ROUTED:
+            kernel, route = ROUTED[name]
+            return ROUTES[path][kernel][route]
+        return launches[path][name]
+
     kernels = [
         dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=launches[main_path[name]][name],
-            launches_by_path={p: n[name] for p, n in launches.items()},
+            launches=count(name, main_path[name]),
+            launches_by_path={p: count(name, p) for p in launches},
             **results[name],
         )
         for name in SOURCES

@@ -57,6 +57,14 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp,
     ],
     "nr_fm_nonstationary_mask": [_vp, _i, _vp, _vp, _ll, _i, _d, _f, _f, _vp],
+    "nr_spectra_fft": [
+        _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp,
+        _vp, _vp, _vp,
+    ],
+    "nr_istft_fft": [
+        _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll,
+        _f, _vp, _vp, _vp, _vp, _vp, _vp,
+    ],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,7 @@
 // Tiled FP32 matrix product core shared by kernels A (spectra) and
-// D (istft_ola).
+// D (istft_ola) on their product route, which now serves only an n_fft that
+// is not a power of two (or lies outside 64-8192): a power-of-two n_fft
+// takes the FFT route, spectra_fft.cu and istft_fft.cu over fft_smem.cuh.
 //
 // Both kernels are implicit products C = A @ B: A is never materialized
 // (kernel A reads frames straight from the signal, kernel D reads masked

@@ -1,5 +1,6 @@
 // Kernel D: istft_ola — mask apply, inverse DFT, overlap-add, envelope
-// division and the output window.
+// division and the output window; the product route, for an n_fft that is
+// not a power of two (istft_fft.cu serves the others).
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_apply_istft_kernel
 // (:736) and the envelope and trim of

@@ -1,4 +1,6 @@
-// Kernel A: spectra — windowed frame spectra of every chunk view.
+// Kernel A: spectra — windowed frame spectra of every chunk view; the
+// product route, for an n_fft that is not a power of two (spectra_fft.cu
+// serves the others).
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // the analysis phase of the merged TPU gate kernel

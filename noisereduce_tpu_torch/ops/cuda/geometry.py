@@ -8,9 +8,15 @@ None of that exists here. The kernels work on exact (rows, n_frames,
 n_bins) planes in device memory, and both time and bins are tiled by the
 launch shapes below:
 
-- A ``spectra`` and D ``istft_ola`` are implicit matrix products tiled
-  128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT columns x window samples
-  for A; output hop blocks x hop x shifted bins for D).
+- A ``spectra`` and D ``istft_ola`` take one of two routes, chosen by the
+  geometry alone (``fft_route``). For a power-of-two n_fft from
+  ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``, shared-memory FFTs
+  (``csrc/spectra_fft.cu``, ``csrc/istft_fft.cu`` over
+  ``csrc/fft_smem.cuh``): A in tiles of ``fft_tile_frames`` frames, D in
+  runs of ``fft_run`` output hop blocks. For any other n_fft, implicit
+  matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT
+  columns x window samples for A; output hop blocks x hop x shifted bins
+  for D).
 - B ``nonstationary_mask``, E ``stationary_mask`` and F
   ``torch_nonstationary_mask`` run one thread per (row, bin) down the time
   axis, so the IIR carry or the moving-average window never crosses a
@@ -34,6 +40,12 @@ from noisereduce_tpu_torch.config import Convention, StftConfig
 # tables are zero padded to it
 GEMM_BN = 128
 GEMM_BK = 8
+# the FFT route (csrc/fft_smem.cuh, must match its constants): complex
+# values a block holds, and the output samples one run of kernel D sums
+FFT_ELEMS = 4096
+FFT_ACC = 8192
+FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
+FFT_MIN_NFFT, FFT_MAX_NFFT = 64, 2 * FFT_ELEMS
 
 
 def _round_up(a: int, m: int) -> int:
@@ -45,6 +57,14 @@ def kernels_supported(scfg: StftConfig) -> bool:
     a hop that divides the analysis frame. There is no size limit;
     n_grad_time, n_grad_freq and n_movemean are unbounded."""
     return scfg.frame_length % scfg.hop_length == 0
+
+
+def fft_route(scfg: StftConfig) -> bool:
+    """Whether kernels A and D take the FFT route for this geometry: a
+    power-of-two n_fft from FFT_MIN_NFFT to FFT_MAX_NFFT. Any other n_fft
+    takes the DFT-product route."""
+    n = scfg.n_fft
+    return FFT_MIN_NFFT <= n <= FFT_MAX_NFFT and n & (n - 1) == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +127,19 @@ class GateGeometry:
         torch 1e-11)."""
         return 1e-10 if self.scfg.convention == Convention.SCIPY else 1e-11
 
-    # ---- kernel A: analysis table (k_a x cols_a), row n = window sample
+    # ---- the FFT route of kernels A and D
+    @property
+    def fft_tile_frames(self) -> int:
+        """Frames of one view a block of kernel A transforms together."""
+        return FFT_ELEMS // (self.n_fft // 2)
+
+    @property
+    def fft_run(self) -> int:
+        """Output hop blocks of one row a block of kernel D writes."""
+        return max(1, min(FFT_RUN, FFT_ACC // self.hop))
+
+    # ---- kernel A, product route: analysis table (k_a x cols_a), row n =
+    # window sample
     @property
     def k_a(self) -> int:
         return _round_up(self.win, GEMM_BK)
@@ -117,7 +149,8 @@ class GateGeometry:
         """re columns [0, n_bins), im columns [n_bins, 2*n_bins), padded."""
         return _round_up(2 * self.n_bins, GEMM_BN)
 
-    # ---- kernel D: synthesis table (r * f2 x cols_d), row i*f2 + col
+    # ---- kernel D, product route: synthesis table (r * f2 x cols_d), row
+    # i*f2 + col
     @property
     def f2(self) -> int:
         """Per-shift contraction width: re and im bins, padded to GEMM_BK so

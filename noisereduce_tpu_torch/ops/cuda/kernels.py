@@ -30,12 +30,19 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
+Each has two routes, picked by the geometry alone
+(``geometry.fft_route``): for a power-of-two n_fft (64 to 8192)
+shared-memory FFTs, ``csrc/spectra_fft.cu`` and ``csrc/istft_fft.cu``; for
+any other n_fft the DFT products ``csrc/spectra.cu`` and
+``csrc/istft_ola.cu``. No route is tried after another fails.
 
-Each wrapper takes its plain version (``*_ref``) for a tensor on the CPU
-and only then. For a CUDA tensor it launches its kernel (sources in
-``csrc/``, built by ``build.py``) or raises; it never falls back. Each
-wrapper counts its launches in an integer attribute ``launches``
-(``reset_launch_counts`` sets them to 0). The plain versions follow the
+Each wrapper takes its plain version (``*_ref``, the plain version of
+both routes) for a tensor on the CPU and only then. For a CUDA tensor it
+launches its kernel (sources in ``csrc/``, built by ``build.py``) or
+raises; it never falls back. Each wrapper counts its launches in an
+integer attribute ``launches``, and A and D also by route in
+``fft_launches`` and ``product_launches`` (``route_counts``;
+``reset_launch_counts`` sets them all to 0). The plain versions follow the
 kernels' semantics, including finite zeros on silence (a zero noise floor
 takes divisor 1).
 
@@ -59,7 +66,7 @@ import torch.nn.functional as F
 from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
-from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry
+from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry, fft_route
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
 
@@ -71,7 +78,7 @@ __all__ = [
     "stationary_mask", "stationary_mask_ref",
     "torch_nonstationary_mask", "torch_nonstationary_mask_ref",
     "fm_nonstationary_mask", "fm_nonstationary_mask_ref",
-    "reset_launch_counts", "launch_counts",
+    "reset_launch_counts", "launch_counts", "route_counts",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -119,6 +126,13 @@ def _check_size(name: str, *sizes: int) -> None:
             raise ValueError(f"{name}: {s} rows exceed one launch's int32 index")
 
 
+def _wsum(scfg) -> float:
+    """sum w for scipy (its spectra divide by it, its istft multiplies), 1
+    for torch."""
+    w = _analysis_window_np(scfg)
+    return float(w.sum()) if scfg.convention == Convention.SCIPY else 1.0
+
+
 @functools.lru_cache(maxsize=None)
 def _analysis_table_np(scfg) -> np.ndarray:
     """(k_a, cols_a) float64: row n = frame sample, columns
@@ -132,7 +146,7 @@ def _analysis_table_np(scfg) -> np.ndarray:
     n = np.arange(geo.win, dtype=np.float64)[:, None]
     k = np.arange(F_, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * k / geo.n_fft
-    ws = (w / (w.sum() if scfg.convention == Convention.SCIPY else 1.0))[:, None]
+    ws = (w / _wsum(scfg))[:, None]
     tab = np.zeros((geo.k_a, geo.cols_a), np.float64)
     tab[: geo.win, :F_] = ws * np.cos(ang)
     tab[: geo.win, F_ : 2 * F_] = -ws * np.sin(ang)
@@ -150,7 +164,7 @@ def _synthesis_table_np(scfg) -> np.ndarray:
     geo = GateGeometry(scfg, 0)
     w = _analysis_window_np(scfg)
     N, F_, hop, r, f2 = geo.n_fft, geo.n_bins, geo.hop, geo.r, geo.f2
-    wsum = w.sum() if scfg.convention == Convention.SCIPY else 1.0
+    wsum = _wsum(scfg)
     k = np.arange(F_, dtype=np.float64)[:, None]
     ck = np.full((F_, 1), 2.0)
     ck[0] = 1.0
@@ -172,16 +186,68 @@ def _synthesis_table_np(scfg) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _twiddle_np(n_fft: int) -> np.ndarray:
+    """(n_fft, 2) float64: tw[k] = e^{-2 pi i k / n_fft} as (re, im), with
+    exact zeros at the quarter turns (the FFT route's twiddles)."""
+    t = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
+    tab = np.stack([t.real, t.imag], axis=-1)
+    tab[np.abs(tab) < 1e-12] = 0.0
+    return tab
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_window_np(scfg) -> np.ndarray:
+    """(frame_length,) float64: the FFT route's analysis window w * s, s =
+    1 / sum w for scipy and 1 for torch."""
+    return _analysis_window_np(scfg) / _wsum(scfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _post_window_np(scfg) -> np.ndarray:
+    """(frame_length,) float64: the FFT route's synthesis window w * sum w
+    / (n_fft/2) for scipy, w / (n_fft/2) for torch; 1/(n_fft/2) undoes the
+    unscaled half-length inverse FFT."""
+    return _analysis_window_np(scfg) * _wsum(scfg) / (scfg.n_fft // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_squares_np(scfg) -> np.ndarray:
+    """(frame_length,) w^2, rounded to float32 for a float32 window, as
+    ``ops/stft.py::_ola_norm_np`` takes them."""
+    w = _analysis_window_np(scfg)
+    return (w * w).astype(np.float32 if scfg.quantize_window_f32 else np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def _interior_envelope_np(scfg) -> np.ndarray:
+    """(hop,): the window-square envelope of an output hop block that all r
+    frames cover, w^2[i*hop + q] summed over the frames in ascending order
+    (i descending), in float32 for a float32 window: the plain version's
+    envelope (``ops/stft.py::_ola_norm_np``) to the bit."""
+    wsq = _window_squares_np(scfg).reshape(-1, scfg.hop_length)
+    env = np.zeros(scfg.hop_length, wsq.dtype)
+    for row in wsq[::-1]:
+        env += row
+    return env.astype(np.float64)
+
+
+_TABLES = {
+    "analysis": _analysis_table_np,
+    "synthesis": _synthesis_table_np,
+    "window": _analysis_window_np,
+    "twiddle": _twiddle_np,  # key: n_fft
+    "scaled_window": _scaled_window_np,
+    "post_window": _post_window_np,
+    "window_squares": _window_squares_np,
+    "envelope": _interior_envelope_np,
+    "taps": lambda key: np.asarray(key, np.float64),  # key: the tap values
+}
+
+
+@functools.lru_cache(maxsize=None)
 def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
     """A constant table as a float32 tensor on ``device``, built once."""
-    if kind == "analysis":
-        a = _analysis_table_np(key)
-    elif kind == "synthesis":
-        a = _synthesis_table_np(key)
-    elif kind == "window":
-        a = _analysis_window_np(key)
-    else:  # "taps": key is the tuple of tap values
-        a = np.asarray(key, np.float64)
+    a = _TABLES[kind](key)
     return torch.as_tensor(a, dtype=torch.float32).to(device).contiguous()
 
 
@@ -212,19 +278,41 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0):
         )
     if _on_cpu(x):
         return spectra_ref(x, geo, chunk_size, padding)
+    return _spectra_on(_route(geo), x, geo, chunk_size, padding)
+
+
+def _route(geo: GateGeometry) -> str:
+    """Kernels A and D's route for the geometry: "fft" or "product"."""
+    return "fft" if fft_route(geo.scfg) else "product"
+
+
+def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0):
+    """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
     _check_cuda("spectra", x)
     rows, n_src = x.shape
     n_chunks = n_chunks_for(n_src, chunk_size) if chunk_size else 1
     B, T, nb = rows * n_chunks, geo.n_frames, geo.n_bins
-    _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
-    tab = _device_f32("analysis", geo.scfg, x.device)
     re = torch.empty((B, T, nb), dtype=torch.float32, device=x.device)
     im = torch.empty_like(re)
-    _launch(
-        "spectra", x.device, _ptr(x), n_src, rows, n_chunks, chunk_size,
-        -padding, geo.view_len, T, geo.hop, geo.bpad, geo.win, nb,
-        _ptr(tab), geo.cols_a, geo.k_a, _ptr(re), _ptr(im),
-    )
+    views = (n_src, rows, n_chunks, chunk_size, -padding, geo.view_len, T,
+             geo.hop, geo.bpad, geo.win)
+    if route == "fft":
+        _check_size("spectra", B * T, B * -(-T // geo.fft_tile_frames))
+        _launch(
+            "spectra_fft", x.device, _ptr(x), *views, geo.n_fft, nb,
+            geo.fft_tile_frames,
+            _ptr(_device_f32("scaled_window", geo.scfg, x.device)),
+            _ptr(_device_f32("twiddle", geo.n_fft, x.device)), _ptr(re), _ptr(im),
+        )
+        spectra.fft_launches += 1
+    else:
+        _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
+        tab = _device_f32("analysis", geo.scfg, x.device)
+        _launch(
+            "spectra", x.device, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
+            geo.k_a, _ptr(re), _ptr(im),
+        )
+        spectra.product_launches += 1
     spectra.launches += 1
     return re, im
 
@@ -309,20 +397,39 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
     natural (T-1)*hop) are zero."""
     if _on_cpu(re, im, mask):
         return istft_ola_ref(re, im, mask, geo, out_off, out_len)
+    return _istft_ola_on(_route(geo), re, im, mask, geo, out_off, out_len)
+
+
+def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
+    """Launch kernel D's ``route`` on CUDA tensors, and count it."""
     _check_cuda("istft_ola", re, im, mask)
     rows, T, nb = re.shape
     j0, n_out = geo.out_blocks(out_off, out_len)
-    _check_size(
-        "istft_ola", rows * n_out, -(-rows * n_out // 128) * (geo.cols_d // 128)
-    )
-    tab = _device_f32("synthesis", geo.scfg, re.device)
-    win = _device_f32("window", geo.scfg, re.device)
     out = torch.empty((rows, out_len), dtype=torch.float32, device=re.device)
-    _launch(
-        "istft_ola", re.device, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
-        _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
-        j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
-    )
+    if route == "fft":
+        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
+        _launch(
+            "istft_fft", re.device, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+            geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, geo.fft_run,
+            out_off, out_len, geo.istft_len, geo.env_floor,
+            _ptr(_device_f32("post_window", geo.scfg, re.device)),
+            _ptr(_device_f32("window_squares", geo.scfg, re.device)),
+            _ptr(_device_f32("envelope", geo.scfg, re.device)),
+            _ptr(_device_f32("twiddle", geo.n_fft, re.device)), _ptr(out),
+        )
+        istft_ola.fft_launches += 1
+    else:
+        _check_size(
+            "istft_ola", rows * n_out, -(-rows * n_out // 128) * (geo.cols_d // 128)
+        )
+        tab = _device_f32("synthesis", geo.scfg, re.device)
+        win = _device_f32("window", geo.scfg, re.device)
+        _launch(
+            "istft_ola", re.device, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
+            _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
+            j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
+        )
+        istft_ola.product_launches += 1
     istft_ola.launches += 1
     return out
 
@@ -505,15 +612,25 @@ def fm_nonstationary_mask(z, b, thresh, slope):
 # ---------------------------------------------------------------------------
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
+ROUTED = (spectra, istft_ola)  # the kernels with an FFT and a product route
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in ROUTED:
+        fn.fft_launches = fn.product_launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def route_counts() -> dict:
+    """Launches of kernels A and D by route, e.g.
+    {"spectra": {"fft": 1, "product": 0}, "istft_ola": {...}}."""
+    return {fn.__name__: {"fft": fn.fft_launches, "product": fn.product_launches}
+            for fn in ROUTED}
 
 
 reset_launch_counts()

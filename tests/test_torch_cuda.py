@@ -18,7 +18,9 @@ torch-convention kernels (A's torch table, F, E's self statistics, D's
 torch tail) are held to the same bounds, F like B at 1e-5 absolute; G
 (frequency-major, TPU row 6) like B at 1e-4. Gradients on the card (the
 kernels' value, the staged twin's cotangent) are held to the float64
-twin's at 5e-5 x scale.
+twin's at 5e-5 x scale. Kernels A and D are held on both their routes
+(the FFT route of a power-of-two n_fft, the product route of n_fft 1536),
+and every path is checked to launch them on its geometry's route only.
 """
 import numpy as np
 import pytest
@@ -464,3 +466,69 @@ def test_masks_under_grad_on_card(cuda):
     assert bool(torch.isfinite(g).all())
     assert K.launch_counts()["fm_nonstationary_mask"] == 2
     assert K.launch_counts()["nonstationary_mask"] == 1
+
+
+# ---------------------------------------------------------------------------
+# kernels A and D: the FFT route (power-of-two n_fft) and the product route
+# ---------------------------------------------------------------------------
+ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256),
+               dict(n_fft=2048, win_length=1024, hop_length=256),
+               dict(n_fft=1536, hop_length=384)]
+ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536"]
+
+
+def _routes(route, n=1):
+    other = "product" if route == "fft" else "fft"
+    return {"spectra": {route: n, other: 0}, "istft_ola": {route: n, other: 0}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("convention", ["scipy", "torch"])
+@pytest.mark.parametrize("kw", ROUTE_GEOMS, ids=ROUTE_IDS)
+def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
+    """The geometry picks the route (a power-of-two n_fft the FFT, 1536 the
+    product); each launch is counted on its route; both routes hold their
+    plain versions at 2e-5 x max|ref| (1e-5 under torch conventions)."""
+    extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
+    geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
+    route = "fft" if kw["n_fft"] != 1536 else "product"
+    tol = 2e-5 if convention == "scipy" else 1e-5
+    rng = np.random.default_rng(24)
+    x = torch.as_tensor(rng.standard_normal((2, 30000)), dtype=torch.float32, device=cuda)
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, 8000, 1500)
+    rre, rim = K.spectra_ref(x, geo, 8000, 1500)
+    assert _max(re - rre) <= tol * _max(rre) and _max(im - rim) <= tol * _max(rre)
+    mask = torch.as_tensor(rng.random(re.shape), dtype=torch.float32, device=cuda)
+    for out_off, out_len in ((1500, 8000), (0, 11000), (9000, 3000)):
+        y = K.istft_ola(re, im, mask, geo, out_off, out_len)
+        ry = K.istft_ola_ref(re, im, mask, geo, out_off, out_len)
+        assert _max(y - ry) <= tol * _max(ry)
+    assert K.route_counts() == {"spectra": _routes(route)["spectra"],
+                                "istft_ola": _routes(route, 3)["istft_ola"]}
+    if route == "fft":  # the product route serves every geometry the kernels take
+        y = K._istft_ola_on("product", re, im, mask, geo, 1500, 8000)
+        assert _max(y - K.istft_ola_ref(re, im, mask, geo, 1500, 8000)) <= tol * _max(y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,route", [
+    ({}, "fft"), (dict(stationary=True), "fft"), (dict(use_torch=True), "fft"),
+    (dict(n_fft=1536, hop_length=384), "product"),
+    (dict(n_fft=1536, hop_length=384, use_torch=True), "product"),
+], ids=["nonstationary", "stationary", "use_torch", "nfft1536", "nfft1536-use_torch"])
+def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
+    """A path with a power-of-two n_fft launches no product-route A or D,
+    and n_fft 1536 no FFT-route one; the output matches the CPU parity
+    mode."""
+    y = np.random.default_rng(25).standard_normal((2, 30000))
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 16000, chunk_size=8000, padding=1500, **kw)
+    counts = K.launch_counts()
+    assert counts["spectra"] >= 1 and counts["istft_ola"] == 1
+    assert K.route_counts() == {k: _routes(route, counts[k])[k] for k in ("spectra", "istft_ola")}
+    ref = nrt.reduce_noise(y, 16000, chunk_size=8000, padding=1500, device="cpu",
+                           compute_dtype=torch.float64, **kw)
+    assert got.shape == y.shape and np.isfinite(got).all()
+    if not kw.get("stationary"):  # a stationary decision at the border may flip
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()

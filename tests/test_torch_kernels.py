@@ -132,8 +132,10 @@ def test_istft_ola_ref_matches_jax_istft(kw, window):
 
 
 # ---------------------------------------------------------------------------
-# kernels A and D as the CUDA sources compute them (constant tables, loader
-# index math, epilogue), emulated in numpy float64 against the plain versions
+# kernels A and D on their product route as the CUDA sources compute them
+# (constant tables, loader index math, epilogue), emulated in numpy float64
+# against the plain versions; tests/test_torch_fft.py does the same for
+# their FFT route
 # ---------------------------------------------------------------------------
 def _emulate_spectra(x, geo, cs, pad):
     """csrc/spectra.cu: A[m, k] = x[h, c*cs - pad + t*hop - bpad + k] (zero
