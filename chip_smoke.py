@@ -15,8 +15,9 @@ last line is printed only when every phase passed):
    inputs, max |dev| against the bound below, the kernel's, the plain
    version's and one library call's time, and the bound the card's memory
    rate and FP32 rate set (for A and D from the function's own bytes, no
-   table); A and D run their FFT route (n_fft 1024), and their product
-   route is held and timed at the same shapes beside it; also kernel A on a
+   table); A and D run their FFT route (n_fft 1024, radix 8, 8, 8), and
+   their product route is held and timed at the same shapes beside it;
+   also kernel A on a
    10 s noise row (the
    threshold spectra) and kernel B with one unit tap (the staged mask);
    then, under torch conventions (the gate ``reduce_noise(use_torch=True)``
@@ -50,11 +51,17 @@ last line is printed only when every phase passed):
     the per-signal calls, timed;
 13. torch staged geometry: hop 300, which A and D do not serve, through
     the plain STFT and iSTFT around F and C, against the staged plain path;
-    then the product route geometry: n_fft 1536 (not a power of two) with
-    hop 384 on the first 60 s of the headline signal through
-    ``reduce_noise``, where A and D take their DFT-product route, against
-    the staged plain path, and those two kernels against their plain
-    versions at its shapes;
+    then the mixed-radix geometry: n_fft 1536 (M = 768 = 2^8 x 3) with hop
+    384 on the first 60 s of the headline signal through ``reduce_noise``,
+    where A and D take their FFT route (radix 8, 8, 4, 3), against the
+    staged plain path, and those two kernels against their plain versions
+    at its shapes, beside ``torch.stft`` / ``torch.istft`` and their
+    product route at the same shapes, in both conventions; the same on the
+    960 s headline signal (the mixed-radix headline, timed end to end);
+    then the product route geometry: n_fft 1100 (1100 / 2 = 2 x 5^2 x 11,
+    which the FFT route does not serve) with hop 275 on the first 60 s,
+    where A and D take their DFT-product route, against the staged plain
+    path, and those two kernels against their plain versions;
 14. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
@@ -69,9 +76,10 @@ last line is printed only when every phase passed):
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
-after, A's and D's also by route: every path with a power-of-two n_fft
-must launch them on the FFT route only, the n_fft-1536 path on the product
-route only. Stationary outputs are binary-threshold gates: a cell whose dB value
+after, A's and D's also by route: every path whose n_fft the FFT route
+serves (1024, 2048 in the golden set, 1536) must launch them on the FFT
+route only, the n_fft-1100 path on the product route only. Stationary
+outputs are binary-threshold gates: a cell whose dB value
 lies within float32 resolution of the threshold may decide either way in
 two float32 implementations, and one such cell moves the output by ~1e-3 of
 its peak. So a stationary path is held to the plain path twice: as it is,
@@ -104,14 +112,16 @@ STAGED_SR, STAGED_SECONDS, STAGED_KW = 16000, 30, dict(n_fft=1024, hop_length=30
 # n_grad_freq 64: the merged TPU kernel's frequency halo (66 bins) leaves
 # under 16 owned bins per 128-lane tile, so the JAX package splits the gate
 SPLIT_SR, SPLIT_SECONDS, SPLIT_KW = 16000, 30, dict(freq_mask_smooth_hz=2000)
-# an n_fft that is not a power of two: A and D take their product route
-PRODUCT_SECONDS, PRODUCT_KW = 60, dict(n_fft=1536, hop_length=384)
+# a mixed-radix n_fft (1536 / 2 = 2^8 x 3): A and D take their FFT route
+MIXED_SECONDS, MIXED_KW = 60, dict(n_fft=1536, hop_length=384)
+# an n_fft whose half has a prime factor 11: A and D take their product route
+PRODUCT_SECONDS, PRODUCT_KW = 60, dict(n_fft=1100, hop_length=275)
 # the card's published peaks (H100 SXM data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float32 agreement bounds, each with its reason
 BOUNDS = {
-    # an FP32 FFT (the product route: 1024-term FP32 sums) in another order
+    # an FP32 FFT (the product route: n_fft-term FP32 sums) in another order
     # than cuFFT's: x max|ref|
     "spectra": 2e-5,
     # mask units (the mask is in [0, 1]); float64 IIR carry in both, float
@@ -146,7 +156,8 @@ FLIP_SHARE = 1e-5
 BORDER_DB = 2e-3
 # end to end, as tests/test_fused_pipeline.py:55 holds the TPU kernel: x max|ref|
 E2E_BOUND = 5e-5
-# the FFT route of A and D, the route of every power-of-two n_fft
+# the FFT route of A and D, the route of every n_fft whose half is
+# 2^k 3^a 5^b 7^c
 SOURCES = {
     "spectra": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
     "nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/nonstationary_mask.cu",
@@ -155,12 +166,17 @@ SOURCES = {
     "stationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/stationary_mask.cu",
     "torch_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/torch_nonstationary_mask.cu",
     "fm_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/fm_nonstationary_mask.cu",
-    # the product route of A and D, for an n_fft that is not a power of two
+    # the FFT route at a mixed-radix n_fft (1536, the radix-3 stage)
+    "spectra_mixed_radix": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
+    "istft_ola_mixed_radix": "noisereduce_tpu_torch/ops/cuda/csrc/istft_fft.cu",
+    # the product route of A and D, for an n_fft the FFT route does not serve
     "spectra_product": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
     "istft_ola_product": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
 }
 # JSON entries of A and D: (the wrapper that launches them, the route)
 ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
+          "spectra_mixed_radix": ("spectra", "fft"),
+          "istft_ola_mixed_radix": ("istft_ola", "fft"),
           "spectra_product": ("spectra", "product"),
           "istft_ola_product": ("istft_ola", "product")}
 # the TPU kernel each replaces (file:line), and the rows of PERF.md's
@@ -182,8 +198,8 @@ REPLACES = {
                                 "noisereduce_tpu/ops/pallas/torch_dispatch.py:485 (row 5)",
     "fm_nonstationary_mask": "noisereduce_tpu/ops/pallas_mask.py:229 (row 6)",
 }
-REPLACES["spectra_product"] = REPLACES["spectra"]
-REPLACES["istft_ola_product"] = REPLACES["istft_ola"]
+for _name in ("spectra", "istft_ola"):
+    REPLACES[f"{_name}_mixed_radix"] = REPLACES[f"{_name}_product"] = REPLACES[_name]
 # the gradient phase: the training workload of benchmarks/bench_all.py:316-331
 GRAD_SR, GRAD_SECONDS, GRAD_BATCHES = 16000, 4, (16, 256)
 # the masks' backward on 8 views of the headline plane (rows 6 and 7)
@@ -295,7 +311,7 @@ def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale
 
 def product_route(label, fn, ref, lim):
     """The product route of kernel A or D (the earlier kernel, which now
-    serves only an n_fft that is not a power of two) at the same shapes:
+    serves only an n_fft the FFT route does not) at the same shapes:
     within ``lim`` x max|ref| of the plain version, and its time."""
     dev, scale = max_dev(fn(), ref)
     ms = time_ms(fn)
@@ -582,10 +598,10 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
 
 
 def product_kernel_phase(xq_cuda: torch.Tensor, cfg, results) -> None:
-    """Kernels A and D on their product route (n_fft 1536, not a power of
-    two) against their plain versions at the shapes the product route
-    geometry's path gives them; adds the entries ``spectra_product`` and
-    ``istft_ola_product`` to ``results``."""
+    """Kernels A and D on their product route (n_fft 1100, which the FFT
+    route does not serve) against their plain versions at the shapes the
+    product route geometry's path gives them; adds the entries
+    ``spectra_product`` and ``istft_ola_product`` to ``results``."""
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
     from noisereduce_tpu_torch.ops.dsp import tri_norm
@@ -599,7 +615,7 @@ def product_kernel_phase(xq_cuda: torch.Tensor, cfg, results) -> None:
     rre, rim = K.spectra_ref(*a)
     views = extract_chunks(xq_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len).contiguous()
     results["spectra_product"] = measure(
-        "spectra (product route, n_fft 1536)", BOUNDS["spectra"], lambda: K.spectra(*a),
+        f"spectra (product route, n_fft {geo.n_fft})", BOUNDS["spectra"], lambda: K.spectra(*a),
         lambda: K.spectra_ref(*a), torch.stack([re, im]), torch.stack([rre, rim]),
         nbytes(xq_cuda, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
         library_fn=lambda: torch.stft(
@@ -616,7 +632,8 @@ def product_kernel_phase(xq_cuda: torch.Tensor, cfg, results) -> None:
     d = (re, im, m, geo, PADDING, CHUNK)
     zm = torch.complex(re * m, im * m).transpose(1, 2).contiguous()
     results["istft_ola_product"] = measure(
-        "istft_ola (product route, n_fft 1536)", BOUNDS["istft_ola"], lambda: K.istft_ola(*d),
+        f"istft_ola (product route, n_fft {geo.n_fft})", BOUNDS["istft_ola"],
+        lambda: K.istft_ola(*d),
         lambda: K.istft_ola_ref(*d), K.istft_ola(*d), K.istft_ola_ref(*d),
         nbytes(re, im, m) + 4 * d[0].shape[0] * CHUNK,
         re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
@@ -624,6 +641,72 @@ def product_kernel_phase(xq_cuda: torch.Tensor, cfg, results) -> None:
             zm, geo.n_fft, geo.hop, geo.win, window, center=True, length=geo.view_len),
         scale_bound=True,
     )
+
+
+def mixed_radix_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
+    """Kernels A and D on their FFT route at a mixed-radix n_fft against
+    their plain versions at the shapes ``reduce_noise`` gives them on the
+    signal ``xc`` (chunked as the API chunks), each beside ``torch.stft`` /
+    ``torch.istft`` and its product route at the same shapes; then the same
+    under torch conventions (``gate``: the TorchGate of
+    ``reduce_noise(use_torch=True)`` at this n_fft), held at 1e-5 x.
+    Returns {"spectra": ..., "istft_ola": ...} of the kernels JSON line."""
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _mask
+    from noisereduce_tpu_torch.ops.dsp import tri_norm
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
+
+    out = {}
+    cs = CHUNK  # the signals here are longer than one chunk
+    views = extract_chunks(xc[None], cs, PADDING).reshape(-1, cs + 2 * PADDING).contiguous()
+    for conv, scfg, lim in (("scipy", cfg.stft, BOUNDS["spectra"]),
+                            ("torch", gate.stft_config, TORCH_TABLE_BOUND)):
+        geo = gate_geometry(scfg, cs + 2 * PADDING)
+        window = torch.hann_window(geo.win, periodic=True, device=xc.device)
+        tag = f"{label}, {conv} convention" if conv == "torch" else label
+        a = (xc[None], geo, cs, PADDING)
+        re, im = K.spectra(*a)
+        rre, rim = K.spectra_ref(*a)
+        ops_a = re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win)
+        ra = measure(
+            f"spectra ({tag})", lim, lambda: K.spectra(*a), lambda: K.spectra_ref(*a),
+            torch.stack([re, im]), torch.stack([rre, rim]), nbytes(xc, re, im), ops_a,
+            library_fn=lambda: torch.stft(views, geo.n_fft, geo.hop, geo.win, window,
+                                          center=True, pad_mode="constant",
+                                          return_complex=True),
+            scale_bound=True)
+        ra["product_route"] = product_route(
+            f"spectra ({tag})", lambda: torch.stack(K._spectra_on("product", *a)),
+            torch.stack([rre, rim]), lim)
+        del rre, rim
+        if conv == "scipy":
+            ngf, ngt = cfg.smoothing
+            m = K.freq_smooth_blend(
+                K.nonstationary_mask(re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
+                                     cfg.sigmoid_slope_nonstationary, tri_norm(ngt)),
+                tri_norm(ngf), cfg.prop_decrease)
+        else:
+            m = _mask(re, im, gate)
+        d = (re, im, m, geo, PADDING, cs)
+        y, ry = K.istft_ola(*d), K.istft_ola_ref(*d)
+        zm = torch.complex(re * m, im * m).transpose(1, 2).contiguous()
+        rd = measure(
+            f"istft_ola ({tag})", lim, lambda: K.istft_ola(*d), lambda: K.istft_ola_ref(*d),
+            y, ry, nbytes(re, im, m, y),
+            re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
+            library_fn=lambda: torch.istft(zm, geo.n_fft, geo.hop, geo.win, window,
+                                           center=True, length=geo.view_len),
+            scale_bound=True)
+        rd["product_route"] = product_route(
+            f"istft_ola ({tag})", lambda: K._istft_ola_on("product", *d), ry, lim)
+        del re, im, m, y, ry, zm
+        torch.cuda.empty_cache()
+        if conv == "scipy":
+            out = {"spectra": ra, "istft_ola": rd}
+        else:
+            out["spectra"]["torch_table"], out["istft_ola"]["torch_tail"] = ra, rd
+    return out
 
 
 def torch_staged(y2d, gate, chunk_size, padding, xn=None):
@@ -1297,7 +1380,39 @@ def main() -> None:
     if not dev <= lim:
         fail("torch staged geometry disagrees with the staged plain path")
 
-    # product route: n_fft 1536 on the first 60 s of the headline signal
+    # mixed radix: n_fft 1536 on the first 60 s, then on the 960 s signal
+    for label, secs in (("mixed radix geometry", MIXED_SECONDS),
+                        ("mixed radix headline", HEADLINE_SECONDS)):
+        xq = x[: secs * SR]
+        out, launches[label] = run_path(
+            K, label, lambda: nr.reduce_noise(xq, SR, **MIXED_KW, **ck),
+            dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+        check_output(label, out, xq)
+        c = nr.GateConfig(sr=SR, **MIXED_KW)
+        ref = nonstationary_plain(_as_2d(xq)[0], c)[0].cpu().numpy()
+        dev = float(np.abs(out.astype(np.float64) - ref).max())
+        lim = E2E_BOUND * float(np.abs(ref).max())
+        print(f"{label} (n_fft 1536, hop 384, {secs} s) vs staged plain path: max|dev| "
+              f"{dev:.3e} bound {lim:.3e}", flush=True)
+        if not dev <= lim:
+            fail(f"{label} disagrees with the staged plain path")
+        del out, ref
+        got = mixed_radix_kernel_phase(
+            torch.as_tensor(xq).cuda(), c, nr.api.torch_gate_for(SR, **MIXED_KW),
+            f"mixed radix, n_fft 1536, {secs} s")
+        if secs == HEADLINE_SECONDS:
+            ms = time_ms(lambda: nr.reduce_noise(xq, SR, **MIXED_KW, **ck))
+            plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(xq)[0], c).cpu())
+            print(f"{label} {secs} s @ {SR} Hz: reduce_noise(n_fft=1536, hop_length=384) "
+                  f"{ms:.1f} ms ({secs / (ms / 1e3):.0f} audio s per wall s), staged plain "
+                  f"path {plain_ms:.1f} ms, on {card}", flush=True)
+            for name in ("spectra", "istft_ola"):
+                results[f"{name}_mixed_radix"] = dict(got[name], cell_60s=cell_60s[name])
+        else:
+            cell_60s = got
+        torch.cuda.empty_cache()
+
+    # product route: n_fft 1100 on the first 60 s of the headline signal
     xq = x[: PRODUCT_SECONDS * SR]
     out, launches["product route geometry"] = run_path(
         K, "product route geometry", lambda: nr.reduce_noise(xq, SR, **PRODUCT_KW, **ck),
@@ -1308,7 +1423,7 @@ def main() -> None:
     ref = nonstationary_plain(_as_2d(xq)[0], c)[0].cpu().numpy()
     dev = float(np.abs(out.astype(np.float64) - ref).max())
     lim = E2E_BOUND * float(np.abs(ref).max())
-    print(f"product route geometry (n_fft 1536, hop 384, {PRODUCT_SECONDS} s) vs staged "
+    print(f"product route geometry (n_fft 1100, hop 275, {PRODUCT_SECONDS} s) vs staged "
           f"plain path: max|dev| {dev:.3e} bound {lim:.3e}", flush=True)
     if not dev <= lim:
         fail("product route geometry disagrees with the staged plain path")
@@ -1320,6 +1435,8 @@ def main() -> None:
     main_path.update(stationary_mask="stationary headline",
                      torch_nonstationary_mask="torch headline",
                      fm_nonstationary_mask="row 6 mask under grad",
+                     spectra_mixed_radix="mixed radix headline",
+                     istft_ola_mixed_radix="mixed radix headline",
                      spectra_product="product route geometry",
                      istft_ola_product="product route geometry")
 

@@ -9,7 +9,8 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
   the CPU. ``device="cpu"`` runs the kernels' plain versions (the parity
   mode).
 - ``compute_dtype`` defaults to ``torch.float32``, the only type the
-  kernels take; ``torch.float64`` runs on the CPU only.
+  kernels take; ``torch.float64`` runs the kernels' plain versions on the
+  CPU and the staged twins on the card (no kernel launches).
 - ``use_tqdm=True`` and a bf16 ``compute_dtype`` raise
   ``NotImplementedError``: they are later slices of the port (ROADMAP.md,
   Queue 1). ``tmp_folder`` and ``n_jobs`` are accepted for compatibility
@@ -46,7 +47,7 @@ def _fused_chunked_ok(cfg: GateConfig, y2d: torch.Tensor, chunk_size: int) -> bo
     """Whole-body fused chunked path (views read straight from the signal)
     for signals longer than one chunk; shorter ones keep their exact
     unchunked view geometry (``api.py:50``)."""
-    return y2d.shape[-1] > chunk_size and fused_gate_supported(cfg)
+    return y2d.shape[-1] > chunk_size and fused_gate_supported(cfg, y2d)
 
 
 def _run_stationary(y2d, y_noise_mono, cfg, chunk_size, padding):
@@ -209,7 +210,8 @@ def reduce_noise(
         hop to win // 4)
     clip_noise_stationary : clip the noise clip to chunk_size samples
     device : torch device to run on (default "cuda"; raises if absent)
-    compute_dtype : torch.float32 (default) or torch.float64 (CPU only)
+    compute_dtype : torch.float32 (default) or torch.float64 (on the card
+        through the staged twins, launching no kernel)
     use_torch : the TorchGate engine (torch STFT conventions, a
         moving-average floor and temperature sigmoid, or noise statistics
         with top_db 40 and ddof 1; chunked, the noise clip cut to the

@@ -2,9 +2,10 @@
 ``noisereduce_tpu/models/spectral_gate.py``).
 
 ``gate_nonstationary`` and ``gate_stationary`` run the fused kernels
-(A-D, or A, E, C, D) whenever they serve the geometry (on the CPU their
-plain versions). Otherwise they take the staged pipelines, which are also
-the numerical oracles of the fused paths and their backward passes:
+(A-D, or A, E, C, D) whenever they serve the geometry and the dtype (on
+the CPU their plain versions; on the card float32 only,
+``dispatch.kernels_take``). Otherwise they take the staged pipelines, which
+are also the numerical oracles of the fused paths and their backward passes:
 ``_gate_nonstationary_staged`` (the twin of ``_gate_nonstationary_jnp``,
 ``spectral_gate.py:286``), which for such geometries takes its mask from
 kernel B with one unit tap, as the JAX staged path takes it from a TPU
@@ -34,6 +35,7 @@ from noisereduce_tpu_torch.ops.cuda.dispatch import (
     fused_gate_stationary,
     fused_gate_supported,
     fused_stationary_threshold,
+    kernels_take,
 )
 from noisereduce_tpu_torch.ops.cuda_mask import fused_nonstationary_mask_tm
 from noisereduce_tpu_torch.ops.dsp import (
@@ -67,10 +69,10 @@ def _apply_mask_and_invert(Z, mask, cfg: GateConfig, n_samples: int):
 def stationary_noise_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.Tensor:
     """Per-bin dB threshold from (..., n_clip) noise rows: mean + n_std *
     std over frames of the noise dB spectrogram (stationary.py:67-81; ddof
-    0). The spectra come from kernel A where it serves the geometry
-    (``fused_stationary_threshold``), else from the staged STFT. Returns
+    0). The spectra come from kernel A where it serves the geometry and the
+    dtype (``fused_stationary_threshold``), else from the staged STFT. Returns
     (..., bins)."""
-    if fused_gate_supported(cfg):
+    if fused_gate_supported(cfg, y_noise):
         return fused_stationary_threshold(y_noise, cfg)
     re, im = stft(y_noise, cfg.stft)
     return noise_db_threshold(re, im, cfg.n_std_thresh_stationary)
@@ -96,7 +98,7 @@ def gate_stationary(
 
     ``noise_thresh``: (bins,), shared (the reference semantics), or per-row
     (B, bins) with B the leading axis of ``chunk`` (batched serving)."""
-    if fused_gate_supported(cfg):
+    if fused_gate_supported(cfg, chunk):
         return fused_gate_stationary(chunk, noise_thresh, cfg)
     return _gate_stationary_staged(chunk, noise_thresh, cfg)
 
@@ -119,11 +121,12 @@ def _gate_stationary_staged(
 
 def gate_nonstationary(chunk: torch.Tensor, cfg: GateConfig) -> torch.Tensor:
     """Non-stationary spectral gate over (..., samples)
-    (nonstationary.py:47-95): kernels A-D where they serve the geometry,
-    else the staged pipeline with kernel B's mask."""
-    if fused_gate_supported(cfg):
+    (nonstationary.py:47-95): kernels A-D where they serve the geometry
+    and the dtype, else the staged pipeline, with kernel B's mask where it
+    takes the dtype."""
+    if fused_gate_supported(cfg, chunk):
         return fused_gate_nonstationary(chunk, cfg)
-    return _gate_nonstationary_staged(chunk, cfg, mask_kernel=True)
+    return _gate_nonstationary_staged(chunk, cfg, mask_kernel=kernels_take(chunk))
 
 
 def _gate_nonstationary_staged(

@@ -5,9 +5,10 @@
 ``forward`` runs the kernels A, F or E, C and D
 (``ops.cuda.torch_dispatch``; on the CPU their plain versions) wherever
 they serve the STFT geometry; for a hop that does not divide n_fft, the
-plain STFT and iSTFT around F or E and C (``staged_tpugate``). The staged
-twin ``_call_staged``, the counterpart of ``TPUGate._call_jnp`` (``:243``),
-is the numerical oracle of both: it smooths with every SVD rank of the
+plain STFT and iSTFT around F or E and C (``staged_tpugate``); for a card
+tensor of a dtype the kernels do not take (float64), the staged twin
+``_call_staged``, the counterpart of ``TPUGate._call_jnp`` (``:243``) and
+the numerical oracle of both: it smooths with every SVD rank of the
 float32-rounded smoothing kernel, where the kernels take rank 1 (the rest is
 ~1e-8 of it), and like the reference it gives NaN on silence (a 0/0
 moving-average ratio) where the kernels give finite zeros.
@@ -175,7 +176,7 @@ class TPUGate(torch.nn.Module):
         if x.ndim != 2:
             raise ValueError("x must have shape (batch, signal_length)")
         self._check(x, xn, x.shape[0])
-        if fused_tpugate_supported(self):
+        if fused_tpugate_supported(self, x):
             return fused_tpugate(x, xn, self)
         return staged_tpugate(x, xn, self)
 
@@ -188,7 +189,7 @@ class TPUGate(torch.nn.Module):
         ch, k, view = chunks.shape
         self._check(chunks, xn, ch)
         flat = chunks.reshape(ch * k, view).contiguous()
-        if fused_tpugate_supported(self):
+        if fused_tpugate_supported(self, flat):
             return fused_tpugate(flat, xn, self, out_len=view).reshape(ch, k, view)
         out = staged_tpugate(flat, xn, self)
         return F.pad(out, (0, view - out.shape[-1])).reshape(ch, k, view)
@@ -202,7 +203,7 @@ class TPUGate(torch.nn.Module):
         kernels the views are read straight from the signal and only the
         cores written. (ch, n) -> (ch, n)."""
         ch, n = y2d.shape
-        if fused_tpugate_supported(self):
+        if fused_tpugate_supported(self, y2d):
             self._check(y2d, xn, ch, min(chunk_size, n) + 2 * padding)
             return fused_tpugate_chunked(y2d, self, chunk_size, padding, xn)
 

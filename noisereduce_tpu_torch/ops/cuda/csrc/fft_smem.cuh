@@ -1,38 +1,81 @@
 // Shared-memory complex FFT core of the FFT route of kernels A (spectra_fft.cu)
-// and D (istft_fft.cu), for a power-of-two real length N = 2M, 64 <= N <= 8192.
+// and D (istft_fft.cu), for a real length N = 2M, 64 <= N <= 8192, whose
+// half M = 2^k 3^a 5^b 7^c (k >= 0: an odd M such as 441 too).
 //
-// A block holds up to ELEMS complex values in shared memory: n frames of M
+// A block holds up to ELEMS complex values in shared memory: frames of M
 // points each, frame f at logical index f*M, as float2 padded by one slot
 // every 16 (pad()) against bank conflicts. Each segment of the block's
-// threads (a warp, or the warps one frame needs) transforms its own frames.
-// Each stage is a radix-R Stockham step
-// (R = 8 while at least 8 points remain, then 4 or 2): a thread loads R
-// points of one butterfly into registers, twiddles them, takes the R-point
-// DFT in registers, and after a barrier stores them at the autosorted
-// positions, so the output comes in natural order with no bit reversal.
-// For sub-transform size ns and butterfly j < M/R:
+// threads (a warp, or a few warps together) transforms its own frames.
+// Each stage is a radix-R Stockham step, in a fixed order: the power-of-two
+// part first (R = 8 while at least 8 of it remain, then 4 or 2), then the
+// 3s, the 5s and the 7s. A thread loads the R points of a butterfly into
+// registers, twiddles them, takes the R-point DFT in registers, and after a
+// barrier stores them at the autosorted positions, so the output comes in
+// natural order with no digit reversal. For sub-transform size ns (the
+// product of the radices before this stage) and butterfly j < M/R:
 //   load   v[r] = z[j + r*M/R]
 //   twiddle v[r] *= e^{-+2 pi i (j mod ns) r / (ns R)}
-//   store  z'[(j / ns) ns R + (j mod ns) + r ns] = DFT_R(v)[r]
+//   store  z'[(j - j mod ns) R + (j mod ns) + r ns] = DFT_R(v)[r]
 // The twiddles come from a float32 table tw[k] = e^{-2 pi i k / N}, k < N,
 // built in float64 on the host (no fast sincos intrinsics): a stage reads
-// tw[2 q] with q = (j mod ns) r M / (ns R) < M; the inverse conjugates.
+// tw[2 q] with q = (j mod ns) r M / (ns R) < M (ns R divides M); the inverse
+// conjugates. The R-point DFTs use float32 constants rounded from float64.
 // FP32 throughout, no tensor cores: the FFT errs by about eps log2 N.
+//
+// No index assumes a power of two: the frame, butterfly and slot indices
+// divide by M, M/R, ns and (M+1)/2 through Div, a shift for a power of two
+// M and a multiply-high otherwise, whose constants the host computes once
+// per launch (Plan, a kernel parameter). The kernels are built once for
+// each set of odd primes M can take (odd_primes): a build holds the stages
+// of its own radices only, so no kernel carries the registers of an odd
+// radix it never runs (the radix-7 butterflies hold 14 complex values a
+// thread) under its 40-register budget.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace nrf {
 
 // must match noisereduce_tpu_torch/ops/cuda/geometry.py
 constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
 // blocks an SM holds (at most 40 registers a thread; a few spill): more
 // blocks in flight hide the global loads between a block's barriers
 constexpr int MIN_BLOCKS = 3;
 constexpr int ELEMS = 4096;  // complex values a block holds
 constexpr int PADDED = ELEMS + ELEMS / 16;  // float2 slots after pad()
+constexpr int PP = ELEMS / THREADS;  // points per thread
+static_assert(PP * THREADS == ELEMS && THREADS % 32 == 0, "whole warps, whole points");
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+// x / d for 0 <= x, d >= 1 and x * d < 2^32. MIXED: the high half of
+// x * ceil(2^32 / d), which is floor(x / d) under that bound (the error
+// x * (ceil - 2^32/d) / 2^32 < x / 2^32 < 1/d cannot cross an integer);
+// every use here has x < 2^14 and d <= 2^13. Otherwise d is a power of two
+// and the quotient a shift. Made on the host (Plan), so a thread divides by
+// a runtime divisor with one multiply-high or shift and never computes the
+// constant.
+template <bool MIXED>
+struct Div {
+  int d;
+  unsigned m;  // MIXED: ceil(2^32 / d), 0 for d == 1; else log2 d
+  Div() = default;
+  explicit Div(int d_) : d(d_), m(0) {
+    if (MIXED)
+      m = d_ == 1 ? 0u : 0xFFFFFFFFu / (unsigned)d_ + 1u;
+    else
+      while ((1 << m) < d_) ++m;
+  }
+  __device__ __forceinline__ int div(int x) const {
+    if constexpr (MIXED)
+      return d == 1 ? x : (int)__umulhi((unsigned)x, m);
+    else
+      return x >> m;
+  }
+};
 
 __device__ __forceinline__ float2 add(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -46,6 +89,10 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 __device__ __forceinline__ float2 conj(float2 a) { return make_float2(a.x, -a.y); }
 __device__ __forceinline__ float2 scale(float2 a, float s) {
   return make_float2(a.x * s, a.y * s);
+}
+// a + s b
+__device__ __forceinline__ float2 axpy(float2 a, float s, float2 b) {
+  return make_float2(fmaf(s, b.x, a.x), fmaf(s, b.y, a.y));
 }
 // a * (-i) for the forward transform, a * (+i) for the inverse
 template <bool INV>
@@ -63,16 +110,79 @@ __device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2, float2&
   a3 = sub(t1, t3);
 }
 
+// The odd radices: with t+_k = v[k] + v[R-k], t-_k = v[k] - v[R-k] and
+// c_k, s_k = cos, sin(2 pi k / R), output m and R - m are
+//   a_m -+ i b_m,  a_m = v[0] + sum_k c_{km} t+_k,  b_m = sum_k s_{km} t-_k
+// (-+ for the forward transform; the inverse swaps the signs; c and s
+// indices mod R, s_{R-j} = -s_j).
+template <bool INV>
+__device__ __forceinline__ void dft3(float2 (&v)[3]) {
+  constexpr float s1 = 0.86602540378443864676f;
+  const float2 tp = add(v[1], v[2]);
+  const float2 b = scale(rot<INV>(sub(v[1], v[2])), s1);
+  const float2 a = axpy(v[0], -0.5f, tp);
+  v[0] = add(v[0], tp);
+  v[1] = add(a, b);
+  v[2] = sub(a, b);
+}
+
+template <bool INV>
+__device__ __forceinline__ void dft5(float2 (&v)[5]) {
+  constexpr float c1 = 0.30901699437494742410f, c2 = -0.80901699437494742410f;
+  constexpr float s1 = 0.95105651629515357212f, s2 = 0.58778525229247312917f;
+  const float2 p1 = add(v[1], v[4]), p2 = add(v[2], v[3]);
+  const float2 m1 = rot<INV>(sub(v[1], v[4])), m2 = rot<INV>(sub(v[2], v[3]));
+  const float2 a1 = axpy(axpy(v[0], c1, p1), c2, p2);
+  const float2 a2 = axpy(axpy(v[0], c2, p1), c1, p2);
+  const float2 b1 = axpy(scale(m1, s1), s2, m2);
+  const float2 b2 = axpy(scale(m1, s2), -s1, m2);
+  v[0] = add(v[0], add(p1, p2));
+  v[1] = add(a1, b1);
+  v[4] = sub(a1, b1);
+  v[2] = add(a2, b2);
+  v[3] = sub(a2, b2);
+}
+
+template <bool INV>
+__device__ __forceinline__ void dft7(float2 (&v)[7]) {
+  constexpr float c1 = 0.62348980185873353053f, c2 = -0.22252093395631440429f,
+                  c3 = -0.90096886790241912624f;
+  constexpr float s1 = 0.78183148246802980871f, s2 = 0.97492791218182360702f,
+                  s3 = 0.43388373911755812048f;
+  const float2 p1 = add(v[1], v[6]), p2 = add(v[2], v[5]), p3 = add(v[3], v[4]);
+  const float2 m1 = rot<INV>(sub(v[1], v[6])), m2 = rot<INV>(sub(v[2], v[5])),
+               m3 = rot<INV>(sub(v[3], v[4]));
+  const float2 a1 = axpy(axpy(axpy(v[0], c1, p1), c2, p2), c3, p3);
+  const float2 a2 = axpy(axpy(axpy(v[0], c2, p1), c3, p2), c1, p3);
+  const float2 a3 = axpy(axpy(axpy(v[0], c3, p1), c1, p2), c2, p3);
+  const float2 b1 = axpy(axpy(scale(m1, s1), s2, m2), s3, m3);
+  const float2 b2 = axpy(axpy(scale(m1, s2), -s3, m2), -s1, m3);
+  const float2 b3 = axpy(axpy(scale(m1, s3), -s1, m2), s2, m3);
+  v[0] = add(v[0], add(p1, add(p2, p3)));
+  v[1] = add(a1, b1);
+  v[6] = sub(a1, b1);
+  v[2] = add(a2, b2);
+  v[5] = sub(a2, b2);
+  v[3] = add(a3, b3);
+  v[4] = sub(a3, b3);
+}
+
 template <int R, bool INV>
 __device__ __forceinline__ void dft(float2 (&v)[R]) {
   if constexpr (R == 2) {
     const float2 t = v[0];
     v[0] = add(t, v[1]);
     v[1] = sub(t, v[1]);
+  } else if constexpr (R == 3) {
+    dft3<INV>(v);
   } else if constexpr (R == 4) {
     dft4<INV>(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 5) {
+    dft5<INV>(v);
+  } else if constexpr (R == 7) {
+    dft7<INV>(v);
   } else {
-    static_assert(R == 8, "radix 2, 4 or 8");
+    static_assert(R == 8, "radix 2, 3, 4, 5, 7 or 8");
     constexpr float c = 0.70710678118654752440f;
     float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
     float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
@@ -95,64 +205,116 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
   }
 }
 
-// The threads of a block split into segments, each of which owns whole
-// frames and runs their FFT alone: a segment of T threads owns T * PP
-// consecutive points (PP = ELEMS / THREADS), T = one warp, or as many warps
-// as one frame needs. A segment synchronises with __syncwarp or a named
-// barrier of its own, so the FFT stages never wait for the whole block.
-struct Seg {
-  int log2t;  // log2 of the segment's threads
-  int lane;   // thread index in the segment
-  int id;     // segment index in the block
-  int first;  // first point the segment owns
+// The stages of M's FFT and the constants of its index math, made once per
+// launch on the host (make_plan) and passed by value: a kernel parameter,
+// read from the constant bank. Stage s has radix radix[s] and sub-transform
+// size ns[s], in fft_frames' order: the power-of-two part of M first (8
+// while at least 8 of it remain, then 4 or 2), then the 3s, the 5s, the 7s.
+constexpr int MAX_STAGES = 12;  // M <= 4096 takes at most 7 (M = 3^7)
+template <bool MIXED>
+struct Plan {
+  int n_stages;
+  int radix[MAX_STAGES];
+  int ns[MAX_STAGES];
+  int tstep[MAX_STAGES];      // tw index step per (j mod ns) * r: 2 M / (ns R)
+  Div<MIXED> mr[MAX_STAGES];  // M / R
+  Div<MIXED> nsd[MAX_STAGES]; // ns
+  Div<MIXED> m, half, warps;  // M, (M + 1) / 2, a segment's warps
+  int threads;                // threads of a segment
+  int fps;                    // frame slots a segment owns
+  int segs;                   // whole segments of a block
 };
 
-constexpr int PP = ELEMS / THREADS;  // points per thread
-constexpr int LOG2PP = PP == 16 ? 4 : PP == 8 ? 3 : PP == 4 ? 2 : -1;
-static_assert(LOG2PP > 0 && THREADS % 32 == 0, "4, 8 or 16 points a thread");
+template <bool MIXED>
+inline Plan<MIXED> make_plan(int m, int warps) {
+  Plan<MIXED> p{};
+  int ns = 1;
+  const auto add = [&](int r) {
+    p.radix[p.n_stages] = r;
+    p.ns[p.n_stages] = ns;
+    p.tstep[p.n_stages] = 2 * (m / (ns * r));
+    p.mr[p.n_stages] = Div<MIXED>(m / r);
+    p.nsd[p.n_stages] = Div<MIXED>(ns);
+    ++p.n_stages;
+    ns *= r;
+  };
+  for (int left = m & -m; left > 1; left = (m & -m) / ns) add(left >= 8 ? 8 : left);
+  for (int r : {3, 5, 7})
+    while ((m / ns) % r == 0) add(r);
+  p.m = Div<MIXED>(m);
+  p.half = Div<MIXED>((m + 1) / 2);
+  p.warps = Div<MIXED>(warps);
+  p.threads = warps * 32;
+  p.fps = warps * 32 * PP / m;
+  p.segs = WARPS / warps;
+  return p;
+}
 
-__device__ __forceinline__ Seg segment(int log2m) {
+// The threads of a block split into segments of `warps` consecutive warps
+// (geometry.py's fft_seg_warps: the count that fits the most frames in a
+// block, the fewest warps on a tie). A segment owns fps = warps * 32 * PP / M
+// whole frame slots, frames [id * fps, (id + 1) * fps), and runs their FFT
+// alone, synchronising with __syncwarp (one warp) or a named barrier of its
+// own. The warps past the last whole segment (WARPS mod warps of them) own
+// no frame and take no segment barrier. A thread keeps three indices in
+// registers; the segment's shape stays in the plan (the constant bank), so
+// it costs no register under the 40-register budget.
+struct Seg {
+  int lane;  // thread index in the segment
+  int id;    // segment index in the block
+  int f0;    // the segment's first frame slot
+};
+
+template <bool MIXED>
+__device__ __forceinline__ Seg segment(const Plan<MIXED>& p) {
   Seg s;
-  s.log2t = max(5, log2m - LOG2PP);
-  s.lane = threadIdx.x & ((1 << s.log2t) - 1);
-  s.id = threadIdx.x >> s.log2t;
-  s.first = s.id << (s.log2t + LOG2PP);
+  s.id = p.warps.div(threadIdx.x >> 5);
+  s.lane = threadIdx.x - s.id * p.threads;
+  s.f0 = s.id * p.fps;
   return s;
 }
 
-__device__ __forceinline__ void seg_sync(const Seg& s) {
-  if (s.log2t == 5) {
+// frames of the segment among the first n_frames of the block (none for
+// the idle warps past the last whole segment)
+template <bool MIXED>
+__device__ __forceinline__ int seg_frames(const Seg& s, const Plan<MIXED>& p, int n_frames) {
+  return s.id < p.segs ? min(max(n_frames - s.f0, 0), p.fps) : 0;
+}
+
+template <bool MIXED>
+__device__ __forceinline__ void seg_sync(const Seg& s, const Plan<MIXED>& p) {
+  if (p.threads == 32) {
     __syncwarp();
-  } else {  // named barrier 1 + id (0 is __syncthreads'), 2^log2t threads
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + s.id), "r"(1 << s.log2t) : "memory");
+  } else if (s.id < p.segs) {  // named barrier 1 + id (0 is __syncthreads')
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + s.id), "r"(p.threads) : "memory");
   }
 }
 
-// One radix-R Stockham stage over the segment's frames among the first
-// n_frames, in place: every thread loads its butterflies, then (after the
-// segment's barrier) stores them. Called by every thread of the segment.
-template <int R, bool INV>
-__device__ __forceinline__ void stage(float2* z, int log2m, int ns, int n_frames,
-                                      const float2* __restrict__ tw, const Seg& sg) {
-  constexpr int P = PP / R;  // butterflies per thread
-  constexpr int LOG2R = R == 8 ? 3 : R == 4 ? 2 : 1;
-  const int M = 1 << log2m;
-  const int log2mr = log2m - LOG2R;
-  const int mr = 1 << log2mr;
-  const int n_bfly = n_frames << log2mr;
-  const int bfly0 = sg.first >> LOG2R;  // the segment's first butterfly
-  const int tstep = 2 * (M / (ns * R));  // tw index step per (j mod ns) * r
+// One radix-R Stockham stage over the segment's nf frames, in place: every
+// thread loads its butterflies (at most P: nf * M/R <= threads * PP / R),
+// then (after the segment's barrier) stores them. Called by every thread of
+// the segment.
+template <int R, bool INV, bool MIXED>
+__device__ __forceinline__ void stage(float2* z, int m, int s, int nf,
+                                      const float2* __restrict__ tw, const Seg& sg,
+                                      const Plan<MIXED>& pl) {
+  constexpr int P = (PP + R - 1) / R;  // butterflies a thread holds at most
+  const int ns = pl.ns[s], tstep = pl.tstep[s];
+  const Div<MIXED> dmr = pl.mr[s], dns = pl.nsd[s];
+  const int mr = dmr.d;
+  const int n_bfly = nf * mr;
+  const int base0 = sg.f0 * m;
   float2 v[P][R];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int idx = bfly0 + sg.lane + (p << sg.log2t);
+    const int idx = sg.lane + p * pl.threads;
     if (idx < n_bfly) {
-      const int f = idx >> log2mr;
-      const int j = idx & (mr - 1);
-      const int base = f * M + j;
+      const int f = dmr.div(idx);
+      const int j = idx - f * mr;
+      const int base = base0 + f * m + j;
 #pragma unroll
       for (int r = 0; r < R; ++r) v[p][r] = z[pad(base + r * mr)];
-      const int jm = j & (ns - 1);
+      const int jm = j - dns.div(j) * ns;
       if (jm) {
 #pragma unroll
         for (int r = 1; r < R; ++r) {
@@ -164,44 +326,87 @@ __device__ __forceinline__ void stage(float2* z, int log2m, int ns, int n_frames
       dft<R, INV>(v[p]);
     }
   }
-  seg_sync(sg);
+  seg_sync(sg, pl);
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int idx = bfly0 + sg.lane + (p << sg.log2t);
+    const int idx = sg.lane + p * pl.threads;
     if (idx < n_bfly) {
-      const int f = idx >> log2mr;
-      const int j = idx & (mr - 1);
-      const int jm = j & (ns - 1);
-      const int d = f * M + (j - jm) * R + jm;
+      const int f = dmr.div(idx);
+      const int j = idx - f * mr;
+      const int jm = j - dns.div(j) * ns;
+      const int d = base0 + f * m + (j - jm) * R + jm;
 #pragma unroll
       for (int r = 0; r < R; ++r) z[pad(d + r * ns)] = v[p][r];
     }
   }
-  seg_sync(sg);
+  seg_sync(sg, pl);
 }
 
 // The M-point complex DFT (INV: the unscaled inverse) of the segment's
-// frames among the first n_frames, in place, natural order in and out. The
-// caller has synchronised the segment after filling its frames; they are
-// synchronised on return.
-template <bool INV>
-__device__ __forceinline__ void fft_frames(float2* z, int log2m, int n_frames,
+// frames among the first n_frames of the block, in place, natural order in
+// and out. The caller has synchronised the segment after filling its
+// frames; they are synchronised on return.
+template <bool INV, int ODD>
+__device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
                                            const float2* __restrict__ tw,
-                                           const Seg& sg) {
-  const int M = 1 << log2m;
-  for (int ns = 1; ns < M;) {
-    const int left = M / ns;
-    if (left >= 8) {
-      stage<8, INV>(z, log2m, ns, n_frames, tw, sg);
-      ns *= 8;
-    } else if (left == 4) {
-      stage<4, INV>(z, log2m, ns, n_frames, tw, sg);
-      ns *= 4;
-    } else {
-      stage<2, INV>(z, log2m, ns, n_frames, tw, sg);
-      ns *= 2;
+                                           const Seg& sg, const Plan<ODD != 1>& pl) {
+  constexpr bool MIXED = ODD != 1;
+  const int nf = seg_frames(sg, pl, n_frames);
+  for (int s = 0; s < pl.n_stages; ++s) {
+    switch (pl.radix[s]) {
+      case 8: stage<8, INV, MIXED>(z, m, s, nf, tw, sg, pl); break;
+      case 4: stage<4, INV, MIXED>(z, m, s, nf, tw, sg, pl); break;
+      case 2: stage<2, INV, MIXED>(z, m, s, nf, tw, sg, pl); break;
+      case 3: if constexpr (ODD % 3 == 0) stage<3, INV, true>(z, m, s, nf, tw, sg, pl); break;
+      case 5: if constexpr (ODD % 5 == 0) stage<5, INV, true>(z, m, s, nf, tw, sg, pl); break;
+      case 7: if constexpr (ODD % 7 == 0) stage<7, INV, true>(z, m, s, nf, tw, sg, pl); break;
     }
   }
+}
+
+// The product of the distinct odd primes of M, 1 for a power of two. The
+// kernels are built once for each of the 8 values (1, 3, 5, 7, 15, 21, 35,
+// 105), so a build holds the registers of no radix its M does not take.
+inline int odd_primes(int m) {
+  int odd = 1;
+  for (int p : {3, 5, 7})
+    if (m % p == 0) odd *= p;
+  return odd;
+}
+
+// f(std::integral_constant<int, odd_primes(m)>()): the launcher's pick of
+// the kernel built for M
+template <class F>
+auto with_odd_primes(int m, F f) {
+  switch (odd_primes(m)) {
+    case 3: return f(std::integral_constant<int, 3>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 7: return f(std::integral_constant<int, 7>());
+    case 15: return f(std::integral_constant<int, 15>());
+    case 21: return f(std::integral_constant<int, 21>());
+    case 35: return f(std::integral_constant<int, 35>());
+    case 105: return f(std::integral_constant<int, 105>());
+    default: return f(std::integral_constant<int, 1>());
+  }
+}
+
+// Whether the route serves a real length n_fft: even, 64 to 2 * ELEMS, its
+// half 2^k 3^a 5^b 7^c (geometry.py::fft_route).
+inline bool fft_size_ok(int n_fft) {
+  if (n_fft % 2 || n_fft < 64 || n_fft > 2 * ELEMS) return false;
+  const int primes[] = {2, 3, 5, 7};
+  int r = n_fft / 2;
+  for (int p : primes)
+    while (r % p == 0) r /= p;
+  return r == 1;
+}
+
+// frame slots a block holds with segments of `warps` warps, or 0 if a
+// segment cannot hold one frame of M points or, for a power of two M (whose
+// Divs shift), `warps` is not a power of two
+inline int fft_block_frames(int warps, int m) {
+  if (warps < 1 || warps > WARPS || (!(m & (m - 1)) && (warps & (warps - 1)))) return 0;
+  return (WARPS / warps) * (warps * 32 * PP / m);
 }
 
 }  // namespace nrf

@@ -1,6 +1,7 @@
 // Kernel D, FFT route: mask apply, inverse real FFT, overlap-add, envelope
-// division and the output window, for a power-of-two n_fft (64 to 8192).
-// istft_ola.cu (the DFT product) serves the other n_fft.
+// division and the output window, for an n_fft the route serves
+// (fft_smem.cuh: 64 to 8192, its half 2^k 3^a 5^b 7^c). istft_ola.cu (the DFT
+// product) serves the other n_fft.
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_apply_istft_kernel
 // (:736) and the envelope and trim of
@@ -21,13 +22,16 @@
 // Design: one block per run of `run` consecutive output hop blocks of one
 // row (run * hop <= 8192 floats; 32 at hop 256). The block inverts the
 // frames that cover its run, the run plus r - 1 halo frames (9% recomputed
-// at run 32, r 4), in groups of ELEMS / (N/2) frames (8 at n_fft 1024):
+// at run 32, r 4), in groups of the frame slots of the block's thread
+// segments (fft_smem.cuh; 8 at n_fft 1024, 5 at 1536):
 //   load   Y = Z * mask, each of re, im, mask read once, coalesced along the
 //          group's contiguous rows;
 //   pre    Z'[k] = (Y[k] + conj Y[M-k]) / 2 + i e^{2 pi i k/N} (Y[k] - conj Y[M-k]) / 2,
 //          in place, one thread per pair (k, M-k), which also gives
-//          Z'[M-k] = conj of the same with the second term negated;
-//   FFT    the unscaled N/2-point inverse of fft_smem.cuh, whose output holds
+//          Z'[M-k] = conj of the same with the second term negated ((M + 1)
+//          / 2 slots a frame; slot 0 pairs 0 with Y[M], and for an even M
+//          also turns M/2);
+//   FFT    the unscaled M-point inverse of fft_smem.cuh (M = N/2), whose output holds
 //          M * (y[2m] + i y[2m+1]); post carries the 1/M;
 //   add    each output sample of the run, owned by one thread, sums its
 //          frames' post[u] y_t[u] in ascending t into a shared-memory
@@ -54,19 +58,23 @@ __device__ __forceinline__ void unsplit(float2 yk, float2 ym, float2 w, float2& 
   hi = nrf::scale(nrf::conj(nrf::sub(s, t)), 0.5f);
 }
 
+template <int ODD>  // fft_smem.cuh::odd_primes of M
 __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
     istft_fft_kernel(const float* __restrict__ re, const float* __restrict__ im,
                      const float* __restrict__ mask, int n_frames, int n_bins,
-                     int log2m, int hop, int r, int bpad, int j0, int n_out,
-                     int run, int n_runs, long long out_off, long long out_len,
-                     long long istft_len, float env_floor,
+                     int hop, int r, int bpad, int j0,
+                     int n_out, int run, int n_runs, long long out_off,
+                     long long out_len, long long istft_len, float env_floor,
                      const float* __restrict__ post,
                      const float* __restrict__ wsq,
                      const float* __restrict__ env_int,
-                     const float2* __restrict__ tw, float* __restrict__ out) {
+                     const float2* __restrict__ tw, float* __restrict__ out,
+                     const nrf::Plan<ODD != 1> plan) {
   extern __shared__ __align__(16) float2 smem2[];
-  const int M = 1 << log2m;
-  const int G = nrf::ELEMS >> log2m;  // frames a group holds
+  const int m = plan.m.d;
+  // each segment of threads loads, transforms and inverts its own frames
+  const nrf::Seg sg = nrf::segment(plan);
+  const int G = plan.segs * plan.fps;  // frames a group holds
   float2* z = smem2;
   float2* nyq = z + nrf::PADDED;  // Y[M] of each frame
   float* acc = reinterpret_cast<float*>(nyq + G);
@@ -81,50 +89,48 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
   const int t_lo = max(0, ja - r + 1);
   const int t_hi = min(n_frames - 1, ja + je - 1);
   const long long row = (long long)b * n_frames * n_bins;
-  // each segment of threads loads, transforms and inverts its own frames
-  const nrf::Seg sg = nrf::segment(log2m);
-  const int step = 1 << sg.log2t;
-  const int f0 = sg.first >> log2m;  // the segment's first frame slot
-  const int f_seg = max(1, (step << nrf::LOG2PP) >> log2m);
+  const int half = (m + 1) >> 1;  // pre-step slots a frame
   for (int tg = t_lo; tg <= t_hi; tg += G) {
     const int ge = min(G, t_hi - tg + 1);
-    const int f1 = min(ge, f0 + f_seg);
+    const int nf = nrf::seg_frames(sg, plan, ge);
     // Y = Z * mask of the segment's frames, along their contiguous rows
-    const long long o0 = row + (long long)tg * n_bins;
-    for (int e = f0 * n_bins + sg.lane; e < f1 * n_bins; e += step) {
-      const int f = e / n_bins;
-      const int k = e - f * n_bins;
-      const float m = __ldg(mask + o0 + e);
-      const float2 y = make_float2(__ldg(re + o0 + e) * m,
-                                   (k == 0 || k == M) ? 0.f : __ldg(im + o0 + e) * m);
-      if (k < M)
-        z[nrf::pad((f << log2m) + k)] = y;
+    const long long o0 = row + (long long)(tg + sg.f0) * n_bins;
+    for (int e = sg.lane; e < nf * n_bins; e += plan.threads) {
+      const int fl = e / n_bins;
+      const int k = e - fl * n_bins;
+      const int f = sg.f0 + fl;
+      const float mk = __ldg(mask + o0 + e);
+      const float2 y = make_float2(__ldg(re + o0 + e) * mk,
+                                   (k == 0 || k == m) ? 0.f : __ldg(im + o0 + e) * mk);
+      if (k < m)
+        z[nrf::pad(f * m + k)] = y;
       else
         nyq[f] = y;
     }
-    nrf::seg_sync(sg);
-    // pre-step, in place: slot k < M/2 of frame f turns the pair (k, M - k)
-    // (slot 0: 0 with Y[M], and M/2)
-    for (int e = (f0 << (log2m - 1)) + sg.lane; e < f1 << (log2m - 1); e += step) {
-      const int f = e >> (log2m - 1);
-      const int k = e & (M / 2 - 1);
-      const int base = f << log2m;
+    nrf::seg_sync(sg, plan);
+    // pre-step, in place: slot k of frame f turns the pair (k, M - k)
+    // (slot 0: 0 with Y[M], and M/2 for an even M)
+    for (int e = sg.lane; e < nf * half; e += plan.threads) {
+      const int fl = plan.half.div(e);
+      const int k = e - fl * half;
+      const int f = sg.f0 + fl;
+      const int base = f * m;
       const int lk = nrf::pad(base + k);
-      const int lm = nrf::pad(base + M - k);
+      const int lm = nrf::pad(base + m - k);
       float2 lo, hi;
       unsplit(z[lk], k == 0 ? nyq[f] : z[lm], __ldg(tw + k), lo, hi);
       z[lk] = lo;
       if (k != 0) {
         z[lm] = hi;
-      } else {
-        const int lh = nrf::pad(base + M / 2);
-        unsplit(z[lh], z[lh], __ldg(tw + M / 2), lo, hi);
+      } else if (!(m & 1)) {
+        const int lh = nrf::pad(base + m / 2);
+        unsplit(z[lh], z[lh], __ldg(tw + m / 2), lo, hi);
         z[lh] = lo;
       }
     }
-    nrf::seg_sync(sg);
+    nrf::seg_sync(sg, plan);
 
-    nrf::fft_frames<true>(z, log2m, ge, tw, sg);
+    nrf::fft_frames<true, ODD>(z, m, ge, tw, sg, plan);
     __syncthreads();  // the overlap-add reads every frame of the group
 
     // overlap-add: sample l (hop block ja + l/hop) takes frames
@@ -143,7 +149,7 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
       float a = acc[l];
       for (int t = ta; t <= tb; ++t) {
         const int u = (jj - t) * hop + q;
-        const int L = nrf::pad(((t - tg) << log2m) + (u >> 1));
+        const int L = nrf::pad((t - tg) * m + (u >> 1));
         a = fmaf(__ldg(post + u), zf[2 * L + (u & 1)], a);
       }
       acc[l] = a;
@@ -181,33 +187,36 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
 
 // re/im/mask: (rows, n_frames, n_bins) f32; post, wsq: (r * hop,) f32;
 // env_int: (hop,) f32; tw: (n_fft,) complex f32; out: (rows, out_len) f32.
-// run * hop must not exceed 8192. Returns cudaGetLastError() after the
-// launch.
+// n_fft must be one fft_smem.cuh serves, seg_warps a segment of warps that
+// holds a frame, and run * hop at most 8192. Returns cudaGetLastError()
+// after the launch.
 extern "C" int nr_istft_fft(const float* re, const float* im, const float* mask,
                             int rows, int n_frames, int n_bins, int n_fft,
-                            int hop, int r, int bpad, int j0, int n_out,
-                            int run, long long out_off, long long out_len,
+                            int seg_warps, int hop, int r, int bpad, int j0,
+                            int n_out, int run, long long out_off, long long out_len,
                             long long istft_len, float env_floor,
                             const float* post, const float* wsq,
                             const float* env_int, const float* tw, float* out,
                             void* stream) {
-  int log2m = 0;
-  while ((2 << log2m) < n_fft) ++log2m;
-  if ((2 << log2m) != n_fft || n_fft < 64 || n_fft > 2 * nrf::ELEMS || run < 1 ||
-      (long long)run * hop > 8192)
+  const int m = n_fft / 2;
+  const int G = nrf::fft_block_frames(seg_warps, m);
+  if (!nrf::fft_size_ok(n_fft) || G < 1 || run < 1 || (long long)run * hop > 8192)
     return (int)cudaErrorInvalidValue;
   if (rows <= 0 || n_out <= 0) return (int)cudaGetLastError();
   const int n_runs = (n_out + run - 1) / run;
-  const int G = nrf::ELEMS >> log2m;
   const size_t smem =
       sizeof(float2) * (nrf::PADDED + G) + sizeof(float) * (size_t)run * hop;
-  cudaError_t err = cudaFuncSetAttribute(
-      istft_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  istft_fft_kernel<<<(unsigned)((long long)rows * n_runs), nrf::THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      re, im, mask, n_frames, n_bins, log2m, hop, r, bpad, j0, n_out, run,
-      n_runs, out_off, out_len, istft_len, env_floor, post, wsq, env_int,
-      reinterpret_cast<const float2*>(tw), out);
-  return (int)cudaGetLastError();
+  return nrf::with_odd_primes(m, [&](auto odd) {
+    constexpr int ODD = decltype(odd)::value;
+    const auto kernel = istft_fft_kernel<ODD>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)((long long)rows * n_runs), nrf::THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        re, im, mask, n_frames, n_bins, hop, r, bpad, j0, n_out, run, n_runs,
+        out_off, out_len, istft_len, env_floor, post, wsq, env_int,
+        reinterpret_cast<const float2*>(tw), out, nrf::make_plan<ODD != 1>(m, seg_warps));
+    return (int)cudaGetLastError();
+  });
 }

@@ -17,6 +17,10 @@ chunk views read straight from it. ``fused_stationary_threshold``
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode, float32 or float64).
+The kernels take float32 only: ``kernels_take`` sends a card tensor of any
+other dtype to the staged twins, as the JAX package sends a dtype its
+kernels do not take to its staged path on any device
+(``noisereduce_tpu/models/spectral_gate.py:115-119``).
 
 The three gates are differentiable as ``_fused_gate_cvjp``,
 ``_fused_stat_cvjp`` and ``_fused_chunked_cvjp`` (``:429-490``,
@@ -45,6 +49,7 @@ from noisereduce_tpu_torch.ops.dsp import noise_db_threshold, tri_norm
 from noisereduce_tpu_torch.ops.precision import fused_with_twin
 
 __all__ = [
+    "kernels_take",
     "fused_gate_supported",
     "fused_gate_nonstationary",
     "fused_gate_stationary",
@@ -53,11 +58,20 @@ __all__ = [
 ]
 
 
-def fused_gate_supported(cfg: GateConfig) -> bool:
-    """Whether kernels A-D serve this configuration. Unlike the TPU
-    predicate (``dispatch.py:379``) there is no VMEM budget, no lane
-    alignment and no cap on n_grad_time: only the STFT geometry matters."""
-    return kernels_supported(cfg.stft)
+def kernels_take(x: torch.Tensor) -> bool:
+    """Whether the kernels serve a tensor of this dtype and device: any on
+    the CPU (their plain versions, the parity mode), float32 on the card.
+    A card tensor of another dtype (float64) goes to the staged twins, which
+    run it in its own precision; the kernel wrappers raise on it."""
+    return x.device.type == "cpu" or x.dtype == torch.float32
+
+
+def fused_gate_supported(cfg: GateConfig, x: torch.Tensor) -> bool:
+    """Whether kernels A-D serve this configuration and the signal ``x``
+    (``kernels_take``). Unlike the TPU predicate (``dispatch.py:379``)
+    there is no VMEM budget, no lane alignment and no cap on n_grad_time:
+    only the STFT geometry and the dtype matter."""
+    return kernels_supported(cfg.stft) and kernels_take(x)
 
 
 def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None):

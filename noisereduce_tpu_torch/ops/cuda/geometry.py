@@ -9,11 +9,12 @@ n_bins) planes in device memory, and both time and bins are tiled by the
 launch shapes below:
 
 - A ``spectra`` and D ``istft_ola`` take one of two routes, chosen by the
-  geometry alone (``fft_route``). For a power-of-two n_fft from
-  ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``, shared-memory FFTs
-  (``csrc/spectra_fft.cu``, ``csrc/istft_fft.cu`` over
+  geometry alone (``fft_route``). For an even n_fft from ``FFT_MIN_NFFT``
+  to ``FFT_MAX_NFFT`` whose half is 2^k 3^a 5^b 7^c, shared-memory
+  mixed-radix FFTs (``csrc/spectra_fft.cu``, ``csrc/istft_fft.cu`` over
   ``csrc/fft_smem.cuh``): A in tiles of ``fft_tile_frames`` frames, D in
-  runs of ``fft_run`` output hop blocks. For any other n_fft, implicit
+  runs of ``fft_run`` output hop blocks, each block's threads in segments
+  of ``fft_seg_warps`` warps. For any other n_fft, implicit
   matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT
   columns x window samples for A; output hop blocks x hop x shifted bins
   for D).
@@ -33,6 +34,7 @@ no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from noisereduce_tpu_torch.config import Convention, StftConfig
 
@@ -41,11 +43,16 @@ from noisereduce_tpu_torch.config import Convention, StftConfig
 GEMM_BN = 128
 GEMM_BK = 8
 # the FFT route (csrc/fft_smem.cuh, must match its constants): complex
-# values a block holds, and the output samples one run of kernel D sums
+# values a block holds, its threads, and the output samples one run of
+# kernel D sums
 FFT_ELEMS = 4096
+FFT_THREADS = 512
+FFT_WARPS = FFT_THREADS // 32
+FFT_WARP_POINTS = FFT_ELEMS // FFT_WARPS  # points a warp's threads hold
 FFT_ACC = 8192
 FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
 FFT_MIN_NFFT, FFT_MAX_NFFT = 64, 2 * FFT_ELEMS
+FFT_RADICES = (2, 3, 5, 7)  # the prime radices of fft_smem.cuh's stages
 
 
 def _round_up(a: int, m: int) -> int:
@@ -60,11 +67,34 @@ def kernels_supported(scfg: StftConfig) -> bool:
 
 
 def fft_route(scfg: StftConfig) -> bool:
-    """Whether kernels A and D take the FFT route for this geometry: a
-    power-of-two n_fft from FFT_MIN_NFFT to FFT_MAX_NFFT. Any other n_fft
-    takes the DFT-product route."""
+    """Whether kernels A and D take the FFT route for this geometry: an even
+    n_fft from FFT_MIN_NFFT to FFT_MAX_NFFT whose half M = n_fft/2 has no
+    prime factor but 2, 3, 5 and 7 (1536, 1000, 400, 882, every power of
+    two). Any other n_fft takes the DFT-product route."""
     n = scfg.n_fft
-    return FFT_MIN_NFFT <= n <= FFT_MAX_NFFT and n & (n - 1) == 0
+    if not (FFT_MIN_NFFT <= n <= FFT_MAX_NFFT and n % 2 == 0):
+        return False
+    m = n // 2
+    for p in FFT_RADICES:
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
+def _block_frames(warps: int, m: int) -> int:
+    """Frame slots of M points a block holds with segments of ``warps``
+    warps, each segment owning whole frames (fft_smem.cuh::fft_block_frames)."""
+    return (FFT_WARPS // warps) * (warps * FFT_WARP_POINTS // m)
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_layout(m: int) -> tuple:
+    """(warps of a thread segment, frame slots of a block) for M-point
+    frames: the segment width that fits the most frames, the fewest warps on
+    a tie. Cached: a launch reads it, and the search costs ~10 us of host
+    time that a short launch would wait for."""
+    warps = max(range(1, FFT_WARPS + 1), key=lambda w: (_block_frames(w, m), -w))
+    return warps, _block_frames(warps, m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,9 +159,21 @@ class GateGeometry:
 
     # ---- the FFT route of kernels A and D
     @property
+    def fft_seg_warps(self) -> int:
+        """Warps of one thread segment of A's and D's blocks. A segment owns
+        whole frames and syncs alone, so the layout that fits the most
+        frames keeps the most lanes busy; on a tie the fewest warps, whose
+        barrier is cheapest (one warp: ``__syncwarp``). A power of two M
+        gets max(1, M/256), one frame or 256/M frames a warp; M = 768 three
+        warps a frame, 5 frames a block; M = 200 four warps for 5 frames,
+        20 a block (one frame a warp would leave 7 lanes of 32 idle)."""
+        return _fft_layout(self.n_fft // 2)[0]
+
+    @property
     def fft_tile_frames(self) -> int:
-        """Frames of one view a block of kernel A transforms together."""
-        return FFT_ELEMS // (self.n_fft // 2)
+        """Frames of one view a block of kernel A transforms together, and
+        of one group of kernel D: the frame slots of the block's segments."""
+        return _fft_layout(self.n_fft // 2)[1]
 
     @property
     def fft_run(self) -> int:

@@ -31,10 +31,11 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
 Each has two routes, picked by the geometry alone
-(``geometry.fft_route``): for a power-of-two n_fft (64 to 8192)
-shared-memory FFTs, ``csrc/spectra_fft.cu`` and ``csrc/istft_fft.cu``; for
-any other n_fft the DFT products ``csrc/spectra.cu`` and
-``csrc/istft_ola.cu``. No route is tried after another fails.
+(``geometry.fft_route``): for an even n_fft from 64 to 8192 whose half is
+2^k 3^a 5^b 7^c, shared-memory mixed-radix FFTs, ``csrc/spectra_fft.cu``
+and ``csrc/istft_fft.cu``; for any other n_fft the DFT products
+``csrc/spectra.cu`` and ``csrc/istft_ola.cu``. No route is tried after
+another fails.
 
 Each wrapper takes its plain version (``*_ref``, the plain version of
 both routes) for a tensor on the CPU and only then. For a CUDA tensor it
@@ -300,7 +301,7 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0):
         _check_size("spectra", B * T, B * -(-T // geo.fft_tile_frames))
         _launch(
             "spectra_fft", x.device, _ptr(x), *views, geo.n_fft, nb,
-            geo.fft_tile_frames,
+            geo.fft_seg_warps, geo.fft_tile_frames,
             _ptr(_device_f32("scaled_window", geo.scfg, x.device)),
             _ptr(_device_f32("twiddle", geo.n_fft, x.device)), _ptr(re), _ptr(im),
         )
@@ -410,8 +411,8 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
         _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
         _launch(
             "istft_fft", re.device, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
-            geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, geo.fft_run,
-            out_off, out_len, geo.istft_len, geo.env_floor,
+            geo.n_fft, geo.fft_seg_warps, geo.hop, geo.r, geo.bpad, j0, n_out,
+            geo.fft_run, out_off, out_len, geo.istft_len, geo.env_floor,
             _ptr(_device_f32("post_window", geo.scfg, re.device)),
             _ptr(_device_f32("window_squares", geo.scfg, re.device)),
             _ptr(_device_f32("envelope", geo.scfg, re.device)),

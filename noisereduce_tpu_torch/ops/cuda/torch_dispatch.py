@@ -13,10 +13,11 @@ the float32 envelope where it exceeds 1e-11 (D). ``_torch_threshold_stats``
 (``:169``) takes the noise-clip spectra from A.
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
-wrappers run their plain versions (the parity mode). The TPU eligibility of
-``fused_tpugate_supported`` (``:55``: win == n_fft, a 128-aligned hop,
-r in {2, 4}, n_movemean <= 512, VMEM) does not apply: A and D need a hop
-that divides n_fft and nothing else. For any other hop ``staged_tpugate``
+wrappers run their plain versions (the parity mode); a card tensor the
+kernels do not take goes to the staged twin (``dispatch.kernels_take``).
+The TPU eligibility of ``fused_tpugate_supported`` (``:55``: win == n_fft,
+a 128-aligned hop, r in {2, 4}, n_movemean <= 512, VMEM) does not apply:
+A and D need a hop that divides n_fft and nothing else. For any other hop ``staged_tpugate``
 puts the plain STFT and iSTFT around the mask kernels F or E and C, which
 serve every geometry, as the scipy engine's staged path takes kernel B's
 mask.
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from noisereduce_tpu_torch.ops.cuda.dispatch import kernels_take
 from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry, kernels_supported
 from noisereduce_tpu_torch.ops.cuda.kernels import (
     freq_smooth_blend,
@@ -60,9 +62,10 @@ __all__ = [
 ]
 
 
-def fused_tpugate_supported(gate) -> bool:
-    """Whether the kernels serve this gate's STFT geometry."""
-    return kernels_supported(gate.stft_config)
+def fused_tpugate_supported(gate, x: torch.Tensor) -> bool:
+    """Whether the kernels serve this gate's STFT geometry and the signal
+    ``x`` (``dispatch.kernels_take``)."""
+    return kernels_supported(gate.stft_config) and kernels_take(x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,7 +198,10 @@ def staged_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
     around the mask of F or E and C. Like the fused path, and unlike the
     staged twin ``TPUGate._call_staged``, it smooths with the rank-1 taps
     and gives finite zeros on silence. ``xn``: as ``fused_tpugate``'s, for
-    the rows in place of the views. (rows, (T-1)*hop) out."""
+    the rows in place of the views. (rows, (T-1)*hop) out. A card tensor
+    the kernels do not take (``kernels_take``) runs the staged twin."""
+    if not kernels_take(x):
+        return _staged_twin(gate, x, xn)
     scfg = gate.stft_config
 
     def forward(a, b):

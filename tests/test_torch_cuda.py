@@ -19,8 +19,10 @@ torch tail) are held to the same bounds, F like B at 1e-5 absolute; G
 (frequency-major, TPU row 6) like B at 1e-4. Gradients on the card (the
 kernels' value, the staged twin's cotangent) are held to the float64
 twin's at 5e-5 x scale. Kernels A and D are held on both their routes
-(the FFT route of a power-of-two n_fft, the product route of n_fft 1536),
-and every path is checked to launch them on its geometry's route only.
+(the FFT route of n_fft 512, 1024, 2048, 1536, 400 and 882; the product
+route of n_fft 1100), and every path is checked to launch them on its
+geometry's route only. A float64 card tensor runs the staged twins, within
+1e-9 x max|ref| of the same call on the CPU, and launches no kernel.
 """
 import numpy as np
 import pytest
@@ -104,11 +106,40 @@ def test_reduce_noise_on_card_matches_cpu_parity_mode(cuda, kw):
 
 @pytest.mark.gpu
 def test_kernels_reject_float64(cuda):
+    """The kernel wrappers raise on float64; every entry point sends a
+    float64 card tensor to its staged twin instead, which launches no
+    kernel and matches the same call on the CPU (the kernels' plain
+    versions in float64) at 1e-9 x max|ref|."""
+    from noisereduce_tpu_torch.models.spectral_gate import gate_stationary
+
     x = torch.zeros((1, 8000), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         K.spectra(x, gate_geometry(StftConfig(), 8000))
-    with pytest.raises(TypeError, match="float32"):
-        nrt.reduce_noise(np.zeros(8000), 16000, compute_dtype=torch.float64)
+    rng = np.random.default_rng(13)
+    y = rng.standard_normal((2, 30000))
+    cfg, scfg = GateConfig(sr=16000), GateConfig(sr=16000, stationary=True)
+    gate = nrt.TPUGate(sr=16000, nonstationary=True)
+
+    def calls(dev):
+        t = torch.as_tensor(y, dtype=torch.float64, device=dev)
+        thr = stationary_noise_threshold(0.5 * t[0, :9000], scfg)
+        return [
+            nrt.reduce_noise(y, 16000, device=dev, compute_dtype=torch.float64),
+            nrt.reduce_noise(y, 16000, stationary=True, device=dev,
+                             compute_dtype=torch.float64, chunk_size=8000, padding=1500),
+            nrt.reduce_noise(y, 16000, use_torch=True, device=dev,
+                             compute_dtype=torch.float64, chunk_size=8000, padding=1500),
+            gate_nonstationary(t, cfg), gate_stationary(t, thr, scfg), gate(t),
+        ]
+
+    K.reset_launch_counts()
+    got = calls(cuda)
+    assert sum(K.launch_counts().values()) == 0
+    for g, r in zip(got, calls("cpu")):
+        g = g.cpu().numpy() if torch.is_tensor(g) else g
+        r = r.numpy() if torch.is_tensor(r) else r
+        assert g.dtype == np.float64 and g.shape == r.shape
+        assert np.abs(g - r).max() <= 1e-9 * np.abs(r).max()
 
 
 @pytest.mark.gpu
@@ -473,8 +504,10 @@ def test_masks_under_grad_on_card(cuda):
 # ---------------------------------------------------------------------------
 ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256),
                dict(n_fft=2048, win_length=1024, hop_length=256),
-               dict(n_fft=1536, hop_length=384)]
-ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536"]
+               dict(n_fft=1536, hop_length=384), dict(n_fft=400, hop_length=100),
+               dict(n_fft=882, hop_length=441), dict(n_fft=1100, hop_length=275)]
+ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536", "nfft400", "nfft882",
+             "nfft1100"]
 
 
 def _routes(route, n=1):
@@ -486,12 +519,13 @@ def _routes(route, n=1):
 @pytest.mark.parametrize("convention", ["scipy", "torch"])
 @pytest.mark.parametrize("kw", ROUTE_GEOMS, ids=ROUTE_IDS)
 def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
-    """The geometry picks the route (a power-of-two n_fft the FFT, 1536 the
-    product); each launch is counted on its route; both routes hold their
-    plain versions at 2e-5 x max|ref| (1e-5 under torch conventions)."""
+    """The geometry picks the route (an n_fft whose half is 2^k 3^a 5^b 7^c
+    the FFT, 1100 = 2 x 2 x 5 x 5 x 11 the product); each launch is counted
+    on its route; both routes hold their plain versions at 2e-5 x max|ref|
+    (1e-5 under torch conventions)."""
     extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
     geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
-    route = "fft" if kw["n_fft"] != 1536 else "product"
+    route = "fft" if kw["n_fft"] != 1100 else "product"
     tol = 2e-5 if convention == "scipy" else 1e-5
     rng = np.random.default_rng(24)
     x = torch.as_tensor(rng.standard_normal((2, 30000)), dtype=torch.float32, device=cuda)
@@ -514,13 +548,17 @@ def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kw,route", [
     ({}, "fft"), (dict(stationary=True), "fft"), (dict(use_torch=True), "fft"),
-    (dict(n_fft=1536, hop_length=384), "product"),
-    (dict(n_fft=1536, hop_length=384, use_torch=True), "product"),
-], ids=["nonstationary", "stationary", "use_torch", "nfft1536", "nfft1536-use_torch"])
+    (dict(n_fft=1536, hop_length=384), "fft"),
+    (dict(n_fft=1536, hop_length=384, use_torch=True), "fft"),
+    (dict(n_fft=400, hop_length=100), "fft"),
+    (dict(n_fft=1100, hop_length=275), "product"),
+    (dict(n_fft=1100, hop_length=275, use_torch=True), "product"),
+], ids=["nonstationary", "stationary", "use_torch", "nfft1536", "nfft1536-use_torch",
+        "nfft400", "nfft1100", "nfft1100-use_torch"])
 def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
-    """A path with a power-of-two n_fft launches no product-route A or D,
-    and n_fft 1536 no FFT-route one; the output matches the CPU parity
-    mode."""
+    """A path whose n_fft the FFT route serves (1024, 1536, 400) launches no
+    product-route A or D, and n_fft 1100 no FFT-route one; the output
+    matches the CPU parity mode."""
     y = np.random.default_rng(25).standard_normal((2, 30000))
     K.reset_launch_counts()
     got = nrt.reduce_noise(y, 16000, chunk_size=8000, padding=1500, **kw)

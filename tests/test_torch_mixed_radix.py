@@ -1,0 +1,51 @@
+"""PyTorch port: ``reduce_noise`` at n_fft values the FFT route of kernels A
+and D serves beyond the powers of two (1536 = 2 x 768, 768 = 2^8 x 3;
+400 = 2 x 200, 200 = 2^3 x 5^2), against the JAX package's
+``reduce_noise`` (CPU, float64): the scipy-convention non-stationary and
+stationary engines and the TorchGate engine (``use_torch=True``), on a
+2 s signal, whole and chunked.
+
+On the CPU the port runs the kernels' plain versions; the route's own
+arithmetic is emulated by tests/test_torch_fft.py and held on a card by
+tests/test_torch_cuda.py. Bound: 1e-9 x max|ref| (float64), and 1e-8 x for
+``use_torch=True``, whose kernels smooth with the rank-1 SVD factors of
+TorchGate's float32-rounded kernel where the JAX staged path takes every
+rank (tests/test_torch_torchgate_api.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+import noisereduce_tpu as jnr
+
+import noisereduce_tpu_torch as nrt
+from noisereduce_tpu_torch.config import StftConfig
+from noisereduce_tpu_torch.ops.cuda.geometry import fft_route
+
+torch.set_num_threads(2)
+
+F64_TOL, RANK1_TOL = 1e-9, 1e-8
+GEOMS = {"nfft1536-48k": (48000, dict(n_fft=1536, hop_length=384)),
+         "nfft400-16k": (16000, dict(n_fft=400, hop_length=100))}
+ENGINES = {"nonstationary": {}, "stationary": dict(stationary=True),
+           "use_torch": dict(use_torch=True)}
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+@pytest.mark.parametrize("engine", ENGINES, ids=ENGINES.keys())
+@pytest.mark.parametrize("geom", GEOMS, ids=GEOMS.keys())
+def test_reduce_noise_matches_jax(geom, engine, chunked):
+    sr, kw = GEOMS[geom]
+    assert fft_route(StftConfig(**kw))
+    rng = np.random.default_rng(60)
+    t = np.arange(2 * sr) / sr
+    y = np.sin(2 * np.pi * 440 * t) * (t % 1 < 0.5) + 0.3 * rng.standard_normal(t.size)
+    kw = dict(kw, **ENGINES[engine])
+    if chunked:
+        kw.update(chunk_size=sr // 2, padding=sr // 8)
+    got = nrt.reduce_noise(y, sr, device="cpu", compute_dtype=torch.float64, **kw)
+    ref = np.asarray(jnr.reduce_noise(y, sr, **kw))
+    assert got.shape == ref.shape == y.shape and got.dtype == ref.dtype
+    tol = RANK1_TOL if engine == "use_torch" else F64_TOL
+    dev, scale = np.abs(got - ref).max(), np.abs(ref).max()
+    assert dev <= tol * scale, f"rel dev {dev / scale:.3e}"

@@ -5,9 +5,10 @@ the split geometry (row 2), against the JAX package (CPU).
 Inputs come from ``np.random.default_rng(seed)`` and go to both packages as
 numpy arrays. Bounds:
 
-- dB values (``amp_to_db``, thresholds): float64 1e-12 / 1e-9 dB; the port's
-  float32 kernel-A route against the JAX fused threshold 2e-3 dB, the bound
-  tests/test_fused_pipeline.py:265 gives float32 statistics;
+- dB values (``amp_to_db``, thresholds): float64 1e-13 x max|dB| / 1e-9
+  dB; the port's float32 kernel-A route against the JAX fused threshold
+  2e-3 dB, the bound tests/test_fused_pipeline.py:265 gives float32
+  statistics;
 - masks: float64 1e-12, float32 1e-5 (mask units);
 - gated signals: float32 5e-5 x scale against the JAX kernels in Pallas
   interpret mode (tests/test_fused_pipeline.py:205), float64 1e-9 x scale
@@ -89,8 +90,12 @@ def test_amp_to_db_matches_jax(axis):
     x = np.random.default_rng(0).standard_normal((3, 40, 33)) * 1e-3
     x[0, :5] = 0.0  # exact zeros: the eps term
     got = dsp.amp_to_db(_t(x), top_db=80.0, axis=axis)
-    ref = jdsp.amp_to_db(jnp.asarray(x), top_db=80.0, axis=axis)
-    assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-12
+    ref = np.asarray(jdsp.amp_to_db(jnp.asarray(x), top_db=80.0, axis=axis))
+    # relative to the dB scale (|ref| reaches ~313 dB at the eps floor):
+    # XLA:CPU's log10 differs from torch's by a few hundred ulps there,
+    # depending on how XLA threads the call, so an absolute 1e-12 dB is
+    # not steady; 1e-13 x max|ref| is ~3e-11 dB
+    assert np.abs(got.numpy() - ref).max() <= 1e-13 * np.abs(ref).max()
 
 
 # ---------------------------------------------------------------------------
