@@ -19,7 +19,11 @@ last line is printed only when every phase passed):
    their product route is held and timed at the same shapes beside it;
    also kernel A on a
    10 s noise row (the
-   threshold spectra) and kernel B with one unit tap (the staged mask);
+   threshold spectra), kernel B with one unit tap (the staged mask), and
+   B and E with a halo past their shared-memory tiles (801 and 1601 time
+   taps, on 8 of the views: the separate smoothing launch); B's and E's
+   lines also give the kernel's time over its bound and the CUDA launches
+   one wrapper call makes (segment partials, column combine, final pass);
    then, under torch conventions (the gate ``reduce_noise(use_torch=True)``
    runs), A with the torch table, F, E with each view's own statistics and
    D with the torch tail; and kernel G on the same spectra laid out
@@ -283,11 +287,13 @@ def fft_ops(n_fft: int) -> float:
     return 2.5 * n_fft * np.log2(n_fft)
 
 
-def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale_bound=False):
+def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale_bound=False,
+            wrapper=None):
     """One kernel against its plain version: max |dev| within ``lim``
     (times max|ref| with ``scale_bound``), the kernel's, the plain
-    version's and the library call's times, and the card's bound. Fails on
-    a disagreement; returns the numbers of the kernels JSON line."""
+    version's and the library call's times, and the card's bound; with
+    ``wrapper`` (B, E), also the CUDA launches one call of it makes. Fails
+    on a disagreement; returns the numbers of the kernels JSON line."""
     dev, scale = max_dev(got, ref)
     lim = lim * (scale if scale_bound else 1.0)
     finite = bool(torch.isfinite(got).all())
@@ -296,17 +302,22 @@ def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale
     library_ms = time_ms(library_fn) if library_fn is not None else None
     bound_ms, bound_by = bound(moved, ops)
     lib = f"{library_ms:.3f} ms" if library_ms is not None else "none"
+    grid = f", {wrapper.cuda_launches} CUDA launches a call" if wrapper else ""
     print(
         f"kernel {label}: max|dev| {dev:.3e} bound {lim:.3e} "
         f"(max|ref| {scale:.4g}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
         f"library {lib} card bound {bound_ms:.3f} ms ({bound_by}, "
-        f"{moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)",
+        f"{moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP; kernel {ms / bound_ms:.2f}x "
+        f"the bound{grid})",
         flush=True,
     )
     if not finite or not dev <= lim:
         fail(f"kernel {label} disagrees with its plain version")
-    return dict(max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    out = dict(max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    if wrapper:
+        out["cuda_launches"] = wrapper.cuda_launches
+    return out
 
 
 def product_route(label, fn, ref, lim):
@@ -338,11 +349,13 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     window = torch.hann_window(geo.win, periodic=True, device=x_cuda.device)
     results = {}
 
-    def record(name, fn, ref_fn, got, ref, moved, ops, library_fn=None, label=None):
+    def record(name, fn, ref_fn, got, ref, moved, ops, library_fn=None, label=None,
+               wrapper=None):
         r = measure(label or name, BOUNDS[name], fn, ref_fn, got, ref, moved, ops,
-                    library_fn, scale_bound=name in RELATIVE)
+                    library_fn, scale_bound=name in RELATIVE, wrapper=wrapper)
         if label is None:
             results[name] = r
+        return r
 
     # A: spectra of the 77 halo'd views, read straight from the signal
     a = (x_cuda[None], geo, CHUNK, PADDING)
@@ -389,17 +402,32 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     rm = K.nonstationary_mask_ref(*b)
     record("nonstationary_mask", lambda: K.nonstationary_mask(*b),
            lambda: K.nonstationary_mask_ref(*b), m, rm,
-           nbytes(re, im, m), cells * (30.0 + 2 * len(tt)))
+           nbytes(re, im, m), cells * (30.0 + 2 * len(tt)), wrapper=K.nonstationary_mask)
     del rm
 
     # B with one unit tap (TPU kernel row 7: the staged path's mask)
     b1 = b[:-1] + ((1.0,),)
     m1 = K.nonstationary_mask(*b1)
     rm1 = K.nonstationary_mask_ref(*b1)
-    record("nonstationary_mask", lambda: K.nonstationary_mask(*b1),
-           lambda: K.nonstationary_mask_ref(*b1), m1, rm1,
-           nbytes(re, im, m1), cells * 32.0, label="nonstationary_mask (unit tap)")
+    results["nonstationary_mask"]["unit_tap"] = record(
+        "nonstationary_mask", lambda: K.nonstationary_mask(*b1),
+        lambda: K.nonstationary_mask_ref(*b1), m1, rm1,
+        nbytes(re, im, m1), cells * 32.0, label="nonstationary_mask (unit tap)",
+        wrapper=K.nonstationary_mask)
     del m1, rm1
+
+    # B with a halo past its shared-memory tile (time taps of 2 x 400 + 1,
+    # e.g. time_mask_smooth_ms=3200 at 16 kHz / hop 128): the raw mask to a
+    # plane and the separate smoothing launch; on 8 of the views
+    bw = (re[:8], im[:8]) + b[2:-1] + (tri_norm(400),)
+    results["nonstationary_mask"]["smoothing_launch"] = record(
+        "nonstationary_mask", lambda: K.nonstationary_mask(*bw),
+        lambda: K.nonstationary_mask_ref(*bw), K.nonstationary_mask(*bw),
+        K.nonstationary_mask_ref(*bw), nbytes(bw[0], bw[1], bw[0]),
+        bw[0].numel() * (30.0 + 2 * 801), label="nonstationary_mask (801 taps)",
+        wrapper=K.nonstationary_mask)
+    if results["nonstationary_mask"]["smoothing_launch"]["cuda_launches"] != 4:
+        fail("kernel nonstationary_mask: 801 taps did not take the smoothing launch")
 
     # G on the same spectra laid out frequency-major (TPU row 6)
     zf = torch.complex(re, im).transpose(1, 2).contiguous()
@@ -454,7 +482,9 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
         f"{BOUNDS['stationary_mask']:.0e} (bound {FLIP_SHARE * cells:.0f}, a "
         f"share of {FLIP_SHARE:.0e}); max|dev| over the rest {rest:.3e} bound "
         f"{BOUNDS['stationary_mask']:.0e}; kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"library none card bound {bound_ms:.3f} ms ({bound_by})",
+        f"library none card bound {bound_ms:.3f} ms ({bound_by}; kernel "
+        f"{ms / bound_ms:.2f}x the bound, {K.stationary_mask.cuda_launches} CUDA "
+        f"launches a call)",
         flush=True,
     )
     if n_off > FLIP_SHARE * cells or not rest <= BOUNDS["stationary_mask"]:
@@ -462,8 +492,25 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     results["stationary_mask"] = dict(
         max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, cells_flipped=n_off,
-        max_abs_err_unflipped=rest,
+        max_abs_err_unflipped=rest, cuda_launches=K.stationary_mask.cuda_launches,
     )
+    del got, ref, diff, off
+
+    # E with a halo past its shared-memory tile (2 x 800 + 1 time taps): the
+    # blend to a plane and the separate smoothing launch; on 8 of the views
+    ew = (re[:8], im[:8]) + e[2:-1] + (tri_norm(800),)
+    diff = (K.stationary_mask(*ew) - K.stationary_mask_ref(*ew)).abs()
+    off = diff > BOUNDS["stationary_mask"]
+    n_off, rest = int(off.sum()), float(diff[~off].max())
+    print(f"kernel stationary_mask (1601 taps): {n_off} of {diff.numel()} cells off by "
+          f"more than {BOUNDS['stationary_mask']:.0e}, max|dev| over the rest {rest:.3e}, "
+          f"{K.stationary_mask.cuda_launches} CUDA launches a call", flush=True)
+    if (n_off > FLIP_SHARE * diff.numel() or not rest <= BOUNDS["stationary_mask"]
+            or K.stationary_mask.cuda_launches != 4):
+        fail("kernel stationary_mask (1601 taps) disagrees with its plain version")
+    results["stationary_mask"]["smoothing_launch"] = dict(
+        max_abs_err_unflipped=rest, cells_flipped=n_off,
+        cuda_launches=K.stationary_mask.cuda_launches)
     return results
 
 
@@ -585,7 +632,8 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
         f"plain version taking E's decisions there: {n_off} cells off by more "
         f"than {BOUNDS['stationary_mask']:.0e}, max|dev| {dev:.3e}; kernel "
         f"{ms:.3f} ms plain {plain_ms:.3f} ms library none card bound "
-        f"{bound_ms:.3f} ms ({bound_by})",
+        f"{bound_ms:.3f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x the bound, "
+        f"{K.stationary_mask.cuda_launches} CUDA launches a call)",
         flush=True,
     )
     if worst > BORDER_DB or n_off:
@@ -593,7 +641,7 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
     results["stationary_mask"]["self_statistics"] = dict(
         max_abs_err=dev, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, decisions_differing=n_flips,
-        largest_margin_db=worst,
+        largest_margin_db=worst, cuda_launches=K.stationary_mask.cuda_launches,
     )
 
 

@@ -34,6 +34,7 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
 _d = ctypes.c_double
+_dp = ctypes.POINTER(ctypes.c_double)
 
 # C signatures of the entries (csrc/*.cu); pointers and the stream as void*
 _SIGNATURES = {
@@ -42,12 +43,13 @@ _SIGNATURES = {
         _vp, _vp,
     ],
     "nr_nonstationary_mask": [
-        _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _dp, _f, _f,
+        _i, _vp,
     ],
     "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _ll, _i, _f, _vp],
     "nr_stationary_mask": [
-        _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f,
-        _f, _d, _vp,
+        _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+        _i, _i, _f, _f, _f, _f, _f, _d, _i, _vp,
     ],
     "nr_istft_ola": [
         _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,

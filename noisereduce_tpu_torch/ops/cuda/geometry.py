@@ -18,10 +18,19 @@ launch shapes below:
   matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT
   columns x window samples for A; output hop blocks x hop x shifted bins
   for D).
-- B ``nonstationary_mask``, E ``stationary_mask`` and F
-  ``torch_nonstationary_mask`` run one thread per (row, bin) down the time
-  axis, so the IIR carry or the moving-average window never crosses a
-  block.
+- B ``nonstationary_mask`` and E ``stationary_mask`` cut each (row, bin)
+  column's time axis into segments of ``SEG_B`` / ``SEG_E`` frames
+  (``TimeTilePlan``, ``csrc/time_tiles.cuh``): one thread per (row,
+  segment, bin), neighbouring threads on neighbouring bins, so every warp
+  load is one coalesced row segment and the whole plane is in flight at
+  once. Per-segment partials (B: the IIR's segment ends, E: the dB maxima
+  and the statistics' sums) go to a small (rows, segments, bins) buffer,
+  a column kernel combines them in order, and a final pass re-reads
+  ``TILE_SEGS`` segments with a halo of n_taps // 2 frames on each side of
+  the run, stages them in one shared-memory tile and smooths them there. A halo whose tile does not fit in shared memory
+  takes a raw-mask plane and a separate smoothing launch.
+- F ``torch_nonstationary_mask`` runs one thread per (row, bin) down the
+  time axis, so its moving-average window never crosses a block.
 - C ``freq_smooth_blend`` runs one block per (row, frame).
 
 The only structural requirement is that the hop divides the analysis frame
@@ -53,6 +62,16 @@ FFT_ACC = 8192
 FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
 FFT_MIN_NFFT, FFT_MAX_NFFT = 64, 2 * FFT_ELEMS
 FFT_RADICES = (2, 3, 5, 7)  # the prime radices of fft_smem.cuh's stages
+# the time tiles of kernels B and E (csrc/time_tiles.cuh and the kernels'
+# sources, must match their constants): frames of a segment of B and of E,
+# columns (bins) and segments of a final-pass block, columns of a partials
+# / column-kernel block, and the shared memory a block may use
+SEG_B = 40
+SEG_E = 64
+TILE_COLS = 32
+TILE_SEGS = 4
+PART_COLS = 128
+SMEM_MAX = 232448
 
 
 def _round_up(a: int, m: int) -> int:
@@ -95,6 +114,63 @@ def _fft_layout(m: int) -> tuple:
     time that a short launch would wait for."""
     warps = max(range(1, FFT_WARPS + 1), key=lambda w: (_block_frames(w, m), -w))
     return warps, _block_frames(warps, m)
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeTilePlan:
+    """Launch shapes of kernel B or E over a (rows, n_frames, n_bins) plane
+    with ``n_taps`` time taps; ``words`` is the 4-byte values a final-pass
+    thread stages per frame: B 2 (re and im, then the floor and |Z|), E 1
+    (the blended mask), or 0 for E with one tap, which writes straight to
+    ``out``.
+
+    A final-pass block holds ``TILE_SEGS`` consecutive segments of
+    ``TILE_COLS`` columns and their frames with a halo on each side in one
+    shared-memory tile. ``fused``: the final pass smooths from that tile
+    with a halo of ``halo`` frames. Otherwise it writes the raw mask to a
+    plane and a separate launch smooths it (``halo`` 0 for the final
+    pass)."""
+
+    rows: int
+    n_frames: int
+    n_bins: int
+    n_taps: int
+    words: int
+    seg_len: int
+
+    @property
+    def n_segs(self) -> int:
+        return max(1, -(-self.n_frames // self.seg_len))
+
+    @property
+    def columns(self) -> int:
+        return self.rows * self.n_bins
+
+    @property
+    def fused(self) -> bool:
+        return self._smem(self.n_taps // 2) <= SMEM_MAX
+
+    @property
+    def halo(self) -> int:
+        """Frames each side of a segment that the final pass reads."""
+        return self.n_taps // 2 if self.fused else 0
+
+    def _smem(self, halo: int) -> int:
+        return self.words * 4 * TILE_COLS * (TILE_SEGS * self.seg_len + 2 * halo)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a final-pass block (0: one tap of E,
+        which writes straight to ``out``)."""
+        return self._smem(self.halo)
+
+    @property
+    def final_blocks(self) -> int:
+        return -(-self.n_segs // TILE_SEGS) * -(-self.columns // TILE_COLS)
+
+    @property
+    def part_blocks(self) -> int:
+        return self.n_segs * -(-self.columns // PART_COLS)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,7 +43,11 @@ launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches`` and ``product_launches`` (``route_counts``;
-``reset_launch_counts`` sets them all to 0). The plain versions follow the
+``reset_launch_counts`` sets them all to 0). B and E run as a few CUDA
+launches over time tiles (``geometry.TimeTilePlan``: segment partials,
+a per-column combine, a final pass that smooths from shared memory) and
+still count 1 a call; ``cuda_launches`` holds how many CUDA launches their
+last call made. The plain versions follow the
 kernels' semantics, including finite zeros on silence (a zero noise floor
 takes divisor 1).
 
@@ -59,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -67,7 +72,9 @@ import torch.nn.functional as F
 from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
-from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry, fft_route
+from noisereduce_tpu_torch.ops.cuda.geometry import (
+    SEG_B, SEG_E, GateGeometry, fft_route, TimeTilePlan,
+)
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
 
@@ -109,6 +116,10 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _ptr_or_null(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -344,15 +355,47 @@ def nonstationary_mask(re, im, b, thresh, slope, taps):
         return nonstationary_mask_ref(re, im, b, thresh, slope, taps)
     _check_cuda("nonstationary_mask", re, im)
     rows, T, nb = re.shape
+    plan = TimeTilePlan(rows, T, nb, len(taps), words=2, seg_len=SEG_B)
+    _check_size("nonstationary_mask", rows * nb, plan.final_blocks, rows * T * nb // 256)
+    p_f, p_b, k = _ewma_constants(float(b), plan.seg_len, T, plan.halo)
     tap_t = _device_f32("taps", tuple(float(v) for v in taps), re.device)
-    scratch = torch.empty_like(re)
+    parts = torch.empty((4, rows, plan.n_segs, nb), dtype=torch.float64, device=re.device)
+    raw = None if plan.fused else torch.empty_like(re)
     out = torch.empty_like(re)
     _launch(
-        "nonstationary_mask", re.device, _ptr(re), _ptr(im), _ptr(scratch),
-        _ptr(out), _ptr(tap_t), len(taps), rows, T, nb, b, thresh, slope,
+        "nonstationary_mask", re.device, _ptr(re), _ptr(im), _ptr(parts),
+        _ptr_or_null(raw), _ptr(out), _ptr(tap_t), len(taps), rows, T, nb,
+        plan.halo, p_f, p_b, (ctypes.c_double * len(k))(*k), thresh, slope,
+        plan.smem_bytes,
     )
     nonstationary_mask.launches += 1
+    nonstationary_mask.cuda_launches = 3 if plan.fused else 4
     return out
+
+
+def _ewma_constants(b: float, seg_len: int, n_frames: int, halo: int) -> tuple:
+    """Kernel B's host constants for segments of ``seg_len`` frames and a
+    final-pass halo of ``halo`` frames: (p_f, p_b, k). p_f = (-halo-1) mod
+    L is the offset in its segment of the frame before a halo's start, p_b
+    = halo mod L that of the frame after a halo's end; k holds, in float64,
+    a = 1 - b, b, a^(p_f+1), then for a full segment (n = L) and for the
+    last one (n = n_frames - (S-1) L): a^n, R(0, n), R(p_b, n),
+    a^(n - p_b), with R(p, n) = b a^(p+1) sum_{j < n-p} a^(2j), the w at
+    offset p of a segment per unit of the y carried into it
+    (csrc/nonstationary_mask.cu). Entries for an offset past the last
+    segment's end are 0 (never read)."""
+    a = 1.0 - b
+    p_f, p_b = (-halo - 1) % seg_len, halo % seg_len
+    n_segs = max(1, -(-n_frames // seg_len))
+    n_last = max(1, n_frames - (n_segs - 1) * seg_len)
+
+    def r(p, n):
+        return b * a ** (p + 1) * math.fsum(a ** (2 * j) for j in range(n - p)) if p < n else 0.0
+
+    def per(n):
+        return (a**n, r(0, n), r(p_b, n), a ** (n - p_b) if p_b < n else 0.0)
+
+    return p_f, p_b, (a, b, a ** (p_f + 1), *per(seg_len), *per(n_last))
 
 
 # ---------------------------------------------------------------------------
@@ -511,19 +554,30 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps, top_db=80.0,
     _check_cuda("stationary_mask", *ts)
     views, T, nb = re.shape
     _check_thr(thr, views, views_per_row, nb)
-    _check_size("stationary_mask", views * nb)
+    plan = TimeTilePlan(views, T, nb, len(taps), words=1 if len(taps) > 1 else 0,
+                          seg_len=SEG_E)
+    _check_size("stationary_mask", views * nb, plan.final_blocks, views * T * nb // 256)
     tap_t = _device_f32("taps", tuple(float(v) for v in taps), re.device)
-    scratch = torch.empty_like(re) if len(taps) > 1 else re
+
+    def work(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=re.device)
+
+    maxima, mx = work(views, plan.n_segs, nb), work(views, nb)
+    own = thr is None
+    sums = work(2, views, plan.n_segs, nb, dtype=torch.float64) if own else None
+    th = work(views, nb, dtype=torch.float64) if own else None
+    raw = None if plan.fused else torch.empty_like(re)
     out = torch.empty_like(re)
     _launch(
-        "stationary_mask", re.device, _ptr(re), _ptr(im),
-        ctypes.c_void_p(None) if thr is None else _ptr(thr),
+        "stationary_mask", re.device, _ptr(re), _ptr(im), _ptr_or_null(thr),
         nb if thr is not None and thr.ndim == 2 else 0, views_per_row,
-        _ptr(scratch), _ptr(out), _ptr(tap_t), len(taps), views, T, nb, prop,
-        1.0 - prop, dsp.EPS_F64, _DB_PER_NEPER, top_db,
-        0.0 if n_std is None else n_std,
+        _ptr(maxima), _ptr(mx), _ptr_or_null(sums), _ptr_or_null(th),
+        _ptr_or_null(raw), _ptr(out), _ptr(tap_t), len(taps), plan.halo, views,
+        T, nb, prop, 1.0 - prop, dsp.EPS_F64, _DB_PER_NEPER, top_db,
+        0.0 if n_std is None else n_std, plan.smem_bytes,
     )
     stationary_mask.launches += 1
+    stationary_mask.cuda_launches = 3 + 2 * own + (not plan.fused)
     return out
 
 
@@ -635,3 +689,4 @@ def route_counts() -> dict:
 
 
 reset_launch_counts()
+nonstationary_mask.cuda_launches = stationary_mask.cuda_launches = 0

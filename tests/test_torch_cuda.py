@@ -570,3 +570,104 @@ def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
     assert got.shape == y.shape and np.isfinite(got).all()
     if not kw.get("stationary"):  # a stationary decision at the border may flip
         assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# kernels B and E: time tiles (segments, carries, halo, smoothing launch)
+# ---------------------------------------------------------------------------
+# (views, frames, bins): one frame, fewer frames than a segment, one and two
+# segments, a ragged last segment, several hundred
+TILE_SHAPES = [(3, 1, 33), (2, 5, 65), (2, 64, 40), (2, 65, 40), (3, 150, 513),
+               (2, 1000, 129)]
+TILE_IDS = ["T1", "T5", "T64", "T65", "T150", "T1000"]
+# n_grad_time: none, the headline's, wider than a segment, and halos past
+# the shared-memory tile (B past 374 frames, E past 780: the smoothing launch)
+TILE_HALVES = (0, 9, 70, 400, 800)
+
+
+def _tile_planes(shape, seed, cuda):
+    rng = np.random.default_rng(seed)
+    views, T, nb = shape
+    level = np.exp(np.linspace(-2, 2, T))[None, :, None]
+    re = rng.standard_normal(shape) * level
+    im = rng.standard_normal(shape) * level
+    re[:, :, 1] = im[:, :, 1] = 0.0  # a silent bin: finite zeros
+    re[0, T // 3 : T // 2] = im[0, T // 3 : T // 2] = 0.0
+    return (torch.as_tensor(v, dtype=torch.float32, device=cuda) for v in (re, im))
+
+
+def _e_within_rule(got, ref):
+    diff = (got - ref).abs()
+    off = diff > 1e-5
+    assert int(off.sum()) <= max(1, 1e-5 * diff.numel())
+    assert not (~off).any() or _max(diff[~off]) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", TILE_HALVES, ids=[f"h{h}" for h in TILE_HALVES])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=TILE_IDS)
+def test_nonstationary_mask_tiles_match_plain_version(cuda, shape, half):
+    re, im = _tile_planes(shape, 40 + half, cuda)
+    for b in (GateConfig(sr=48000).iir_b, GateConfig(sr=16000, hop_length=128).iir_b):
+        args = (re, im, b, 2.0, 10.0, tri_norm(half))
+        K.reset_launch_counts()
+        got = K.nonstationary_mask(*args)
+        assert K.launch_counts()["nonstationary_mask"] == 1
+        assert K.nonstationary_mask.cuda_launches == (4 if half > 374 else 3)
+        assert torch.isfinite(got).all()
+        assert _max(got - K.nonstationary_mask_ref(*args)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", TILE_HALVES, ids=[f"h{h}" for h in TILE_HALVES])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=TILE_IDS)
+def test_stationary_mask_tiles_match_plain_version(cuda, shape, half):
+    re, im = _tile_planes(shape, 50 + half, cuda)
+    db = torch.log(torch.sqrt(re * re + im * im) + 1e-16) * K._DB_PER_NEPER
+    thr = (db.mean(dim=1) + 1.0).contiguous()
+    taps = tri_norm(half)
+    wide = half > 780
+    for t, vpr, kw, n in ((thr, 1, {}, 3), (None, 1, dict(top_db=40.0, n_std=1.5), 5)):
+        args = (re, im, t, vpr, 0.8, taps)
+        K.reset_launch_counts()
+        got = K.stationary_mask(*args, **kw)
+        assert K.launch_counts()["stationary_mask"] == 1
+        assert K.stationary_mask.cuda_launches == n + wide
+        _e_within_rule(got, K.stationary_mask_ref(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [0, 9, 800], ids=["h0", "h9", "h800"])
+def test_mask_tiles_are_deterministic(cuda, half):
+    """No float atomics: two calls on the same inputs give the same bits."""
+    re, im = _tile_planes((4, 700, 257), 60, cuda)
+    taps = tri_norm(half)
+    b = (re, im, GateConfig(sr=48000).iir_b, 2.0, 10.0, taps)
+    assert torch.equal(K.nonstationary_mask(*b), K.nonstationary_mask(*b))
+    thr = torch.full((257,), -20.0, device=cuda)
+    for e, kw in (((re, im, thr, 1, 0.8, taps), {}),
+                  ((re, im, None, 1, 0.8, taps), dict(top_db=40.0, n_std=1.5))):
+        assert torch.equal(K.stationary_mask(*e, **kw), K.stationary_mask(*e, **kw))
+
+
+@pytest.mark.gpu
+def test_mask_tiles_allocate_no_scratch_plane(cuda):
+    """Beyond ``out``, the wrappers' peak allocation stays below one plane:
+    only the (rows, segments, bins) partials."""
+    re, im = _tile_planes((8, 2579, 513), 61, cuda)
+    plane = re.numel() * re.element_size()
+    taps = tri_norm(9)
+    thr = torch.full((513,), -20.0, device=cuda)
+    calls = (lambda: K.nonstationary_mask(re, im, GateConfig(sr=48000).iir_b, 2.0, 10.0, taps),
+             lambda: K.nonstationary_mask(re, im, GateConfig(sr=48000).iir_b, 2.0, 10.0, (1.0,)),
+             lambda: K.stationary_mask(re, im, thr, 1, 0.8, taps),
+             lambda: K.stationary_mask(re, im, None, 1, 0.8, taps, top_db=40.0, n_std=1.5))
+    for call in calls:
+        call()  # the tap tables' first upload
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base - plane < plane
+        del out

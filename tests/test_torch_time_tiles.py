@@ -1,0 +1,425 @@
+"""PyTorch port: the time tiles of kernels B ``nonstationary_mask`` and E
+``stationary_mask`` (``csrc/nonstationary_mask.cu``,
+``csrc/stationary_mask.cu`` over ``csrc/time_tiles.cuh``), emulated in
+numpy as the sources compute them: float32 where the kernels round to
+float, float64 for the carries and the statistics. B: the per-segment
+partials (yl at the segment's end and at offset p_f, wl at its start and at
+offset p_b, summed forward), the column walk of the carries with the host
+constants of ``kernels._ewma_constants``, the final pass over blocks of
+``TILE_SEGS`` segments with one halo on each side of a block, from the
+exact carries, with y rounded to float32 before the backward walk, the
+tap chain; or, for a halo whose tile does not fit, the raw mask with no
+halo and a separate smoothing pass. E: the segment maxima
+and their column max, the per-segment float64 sums of the own statistics
+added in segment order, the final pass's floor, compare and blend, and
+the tap chain. Segments of 1, 7 and 64 frames, T = 1, T below a segment
+and T no multiple of it, 1, 19 and more taps than a segment holds, b at
+48 kHz / hop 256 and 16 kHz / hop 128, silent columns and frames, top_db
+80 and 40. The plain versions are held against the JAX package by
+tests/test_torch_kernels.py and tests/test_torch_stationary.py.
+
+Bounds: B's emulation within 1e-5 absolute of the plain mask (values in
+[0, 1]; ten times tighter than the card's 1e-4): the carries see y before
+its rounding to float32, about one float32 rounding of the floor. E with a
+given threshold decides every cell as the plain version does, and its mask
+is within 1e-6 (the tap chain's fmaf against the plain version's separate
+products and sums); with its own statistics every decision that differs
+lies within 2e-3 dB of the plain version's threshold.
+"""
+import pathlib
+import re as regex
+
+import numpy as np
+import pytest
+import torch
+
+from noisereduce_tpu_torch.config import iir_b_coefficient
+from noisereduce_tpu_torch.ops import dsp
+from noisereduce_tpu_torch.ops.cuda import kernels as K
+from noisereduce_tpu_torch.ops.cuda.geometry import (
+    PART_COLS,
+    SEG_B,
+    SEG_E,
+    SMEM_MAX,
+    TILE_COLS,
+    TILE_SEGS,
+    TimeTilePlan,
+)
+
+torch.set_num_threads(2)
+
+F32 = np.float32
+B_48K = iir_b_coefficient(2.0, 48000, 256)  # ~0.0027
+B_16K = iir_b_coefficient(2.0, 16000, 128)  # ~0.0040
+SEGS = (1, 7, 40, 64)
+FRAMES = (1, 5, 150)
+TAPS = {"1": dsp.tri_norm(0), "19": dsp.tri_norm(9), "141": dsp.tri_norm(70)}
+CSRC = pathlib.Path(K.__file__).parent / "csrc"
+
+
+def _planes(rows, n_frames, n_bins, seed):
+    """Spectra with level drifts, a silent bin, and a silent run of frames
+    (finite zeros in the floor)."""
+    rng = np.random.default_rng(seed)
+    level = np.exp(rng.standard_normal((rows, n_frames, 1)) * 0.5 + np.linspace(
+        -1, 1, n_frames)[None, :, None])
+    re = (rng.standard_normal((rows, n_frames, n_bins)) * level).astype(F32)
+    im = (rng.standard_normal((rows, n_frames, n_bins)) * level).astype(F32)
+    re[:, :, 1] = im[:, :, 1] = 0.0
+    re[0, n_frames // 3 : n_frames // 2] = im[0, n_frames // 3 : n_frames // 2] = 0.0
+    return re, im
+
+
+def _mag(re, im):
+    """time_tiles.cuh::mag_of: products and sum rounded to float32."""
+    return np.sqrt(re * re + im * im)
+
+
+def _fmaf(a, b, c):
+    return F32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _smooth(raw, fs, t0, t1, n_frames, taps):
+    """time_tiles.cuh::zero_frames and smooth_from_tile on (..., frames)
+    raw values staged from frame fs: a tile of frames [t0 - n, t1 + n), n =
+    len(taps) // 2, zero outside [0, T), then the fmaf chain over every
+    tap, ascending, GROUP outputs at a time."""
+    half = len(taps) // 2
+    tile = np.zeros(raw.shape[:-1] + (t1 - t0 + 2 * half,), F32)
+    lo, hi = max(0, t0 - half), min(n_frames, t1 + half)
+    tile[..., lo - t0 + half : hi - t0 + half] = raw[..., lo - fs : hi - fs]
+    out = np.empty(raw.shape[:-1] + (t1 - t0,), F32)
+    for t in range(t0, t1):
+        acc = np.zeros(raw.shape[:-1], F32)
+        for d in range(len(taps)):
+            acc = _fmaf(F32(taps[d]), tile[..., t - t0 + d], acc)
+        out[..., t - t0] = acc
+    return out
+
+
+def test_zero_padded_chain_is_the_skipping_chain():
+    """fmaf(tap, 0, acc) == acc: the tile's zeros outside the plane give
+    the bits of the chain that skips those frames (the column walk's)."""
+    rng = np.random.default_rng(5)
+    raw = rng.random((3, 40)).astype(F32)
+    taps = dsp.tri_norm(9)
+    want = np.empty_like(raw)
+    for t in range(40):
+        acc = np.zeros(3, F32)
+        for d in range(max(0, 9 - t), min(19, 40 + 9 - t)):
+            acc = _fmaf(F32(taps[d]), raw[:, t + d - 9], acc)
+        want[:, t] = acc
+    np.testing.assert_array_equal(_smooth(raw, 0, 0, 40, 40, taps), want)
+
+
+# ---------------------------------------------------------------------------
+# B
+# ---------------------------------------------------------------------------
+def _b_partials(mag, b, L, p_f, p_b):
+    """ewma_partials_kernel: per segment, from zero carries, yl at the end
+    (0) and at offset p_f (1), wl at the start (2) and at offset p_b (3),
+    wl summed forward as sum_u b a^(u - start) yl[u]."""
+    a = 1.0 - b
+    rows, n_frames, nb = mag.shape
+    n_segs = -(-n_frames // L)
+    parts = np.zeros((4, rows, n_segs, nb))
+    for q in range(n_segs):
+        yl, fh, bk, bh = (np.zeros((rows, nb)) for _ in range(4))
+        pw = pw2 = b
+        for t in range(q * L, min(n_frames, q * L + L)):
+            u = t - q * L
+            yl = a * yl + b * mag[:, t].astype(np.float64)
+            bk, pw = bk + pw * yl, pw * a
+            if u >= p_b:
+                bh, pw2 = bh + pw2 * yl, pw2 * a
+            if u == p_f:
+                fh = yl
+        parts[:, :, q] = yl, fh, bk, bh
+    return parts
+
+
+def _b_carries(mag, parts, L, p_f, p_b, k):
+    """ewma_carries_kernel: y forward from y[-1] = |Z|[0], w backward from
+    w[T] = y[T-1]; leaves y[t0 - 1] in slot 0, y at offset p_f in slot 1,
+    w[t0] in slot 2 and w at offset p_b in slot 3."""
+    a, _, apf1, *ks = k
+    full, last = ks[:4], ks[4:]
+    n_frames = mag.shape[1]
+    n_segs = parts.shape[2]
+    n_last = n_frames - (n_segs - 1) * L
+    y = mag[:, 0].astype(np.float64)
+    for q in range(n_segs):
+        n, (an, _, _, _) = (n_last, last) if q == n_segs - 1 else (L, full)
+        yl_end = parts[0, :, q].copy()
+        if p_f < n:
+            parts[1, :, q] = apf1 * y + parts[1, :, q]
+        parts[0, :, q] = y
+        y = an * y + yl_end
+    w = y
+    for q in range(n_segs - 1, -1, -1):
+        n, (an, r0, rp, ap) = (n_last, last) if q == n_segs - 1 else (L, full)
+        yq = parts[0, :, q]
+        if p_b < n:
+            parts[3, :, q] = ap * w + (rp * yq + parts[3, :, q])
+        w = an * w + (r0 * yq + parts[2, :, q])
+        parts[2, :, q] = w  # w[t0]
+    return parts
+
+
+def _b_final(mag, parts, b, thresh, slope, L, halo, taps, K=TILE_SEGS):
+    """nonstationary_final_kernel over blocks of K segments: each segment's
+    y forward from y[t0 - 1] (the block's first from the carry before its
+    halo), rounded to float32 in the tile; w backward from w[t1] (the
+    block's last from the carry after its halo); the raw mask in float32;
+    then each segment's tap chain over the block's tile."""
+    a = 1.0 - b
+    rows, n_frames, nb = mag.shape
+    n_segs = parts.shape[2]
+    out = np.empty_like(mag)
+    for q0 in range(0, n_segs, K):
+        qs = range(q0, min(n_segs, q0 + K))
+        T0, T1 = q0 * L, min(n_frames, (qs[-1] + 1) * L)
+        tile = np.zeros((rows, nb, T1 - T0 + 2 * halo), F32)  # frames T0 - halo ...
+        for q in qs:
+            t0, t1 = q * L, min(n_frames, q * L + L)
+            fs = max(0, t0 - halo) if q == q0 else t0
+            fe = min(n_frames, t1 + halo) if q == qs[-1] else t1
+            y = (np.zeros((rows, nb)) if fs == 0 else
+                 parts[1, :, (fs - 1) // L] if fs < t0 else parts[0, :, q])
+            ys = np.empty((rows, nb, fe - fs), F32)
+            for t in range(fs, fe):
+                m = mag[:, t].astype(np.float64)
+                y = m if t == 0 else a * y + b * m
+                ys[..., t - fs] = y
+            w = (np.zeros((rows, nb)) if fe == n_frames else
+                 parts[3, :, fe // L] if fe > t1 else parts[2, :, q + 1])
+            for t in range(fe - 1, fs - 1, -1):
+                yt = ys[..., t - fs].astype(np.float64)
+                w = yt if t == n_frames - 1 else a * w + b * yt
+                wf = w.astype(F32)
+                ratio = (mag[:, t] - wf) / np.where(wf == 0, F32(1), wf)
+                z = (ratio - F32(thresh)) * F32(slope)
+                with np.errstate(over="ignore"):
+                    tile[..., t - T0 + halo] = F32(1) / (F32(1) + np.exp(-z))
+        for q in qs:
+            t0, t1 = q * L, min(n_frames, q * L + L)
+            out[:, t0:t1] = np.moveaxis(
+                _smooth(tile[..., t0 - T0:], t0 - halo, t0, t1, n_frames, taps), -1, 1)
+    return out
+
+
+def emulate_b(re, im, b, thresh, slope, taps, L, fused=True):
+    """Kernel B as the sources compute it, with segments of L frames; not
+    ``fused``: the raw mask with no halo, then the smoothing pass."""
+    mag = _mag(re, im)
+    halo = len(taps) // 2 if fused else 0
+    p_f, p_b, k = K._ewma_constants(b, L, mag.shape[1], halo)
+    parts = _b_carries(mag, _b_partials(mag, b, L, p_f, p_b), L, p_f, p_b, k)
+    if fused:
+        return _b_final(mag, parts, b, thresh, slope, L, halo, taps)
+    raw = _b_final(mag, parts, b, thresh, slope, L, 0, np.ones(1))
+    n_frames = mag.shape[1]
+    return np.moveaxis(_smooth(np.moveaxis(raw, 1, -1), 0, 0, n_frames, n_frames, taps), -1, 1)
+
+
+def _b_ref(re, im, b, taps):
+    return K.nonstationary_mask_ref(torch.from_numpy(re), torch.from_numpy(im), b, 2.0,
+                                    10.0, taps).numpy()
+
+
+@pytest.mark.parametrize("b", [B_48K, B_16K], ids=["48k-hop256", "16k-hop128"])
+@pytest.mark.parametrize("taps", list(TAPS), ids=[f"taps{k}" for k in TAPS])
+@pytest.mark.parametrize("n_frames", FRAMES, ids=[f"T{t}" for t in FRAMES])
+@pytest.mark.parametrize("L", SEGS, ids=[f"L{s}" for s in SEGS])
+def test_nonstationary_segments_match_plain_mask(L, n_frames, taps, b):
+    re, im = _planes(2, n_frames, 5, seed=L * 1000 + n_frames)
+    got = emulate_b(re, im, b, 2.0, 10.0, TAPS[taps], L)
+    ref = _b_ref(re, im, b, TAPS[taps])
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got.astype(np.float64) - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("L", SEGS, ids=[f"L{s}" for s in SEGS])
+@pytest.mark.parametrize("taps", ["19", "141"])
+def test_nonstationary_smoothing_launch_matches_plain_mask(L, taps):
+    """The path of a halo too wide for the tile: raw mask, then a
+    separate smoothing pass over the plane."""
+    re, im = _planes(2, 150, 5, seed=L + 7)
+    got = emulate_b(re, im, B_16K, 2.0, 10.0, TAPS[taps], L, fused=False)
+    assert np.abs(got.astype(np.float64) - _b_ref(re, im, B_16K, TAPS[taps])).max() <= 1e-5
+
+
+def test_nonstationary_carries_are_the_serial_recurrence():
+    """In float64 the combined carries give the serial y and w at the
+    offsets they stand for, to 1e-12 x scale."""
+    re, im = _planes(1, 150, 3, seed=3)
+    mag = _mag(re, im).astype(np.float64)
+    a, b = 1.0 - B_48K, B_48K
+    y = np.empty_like(mag)
+    y[:, 0] = mag[:, 0]
+    for t in range(1, 150):
+        y[:, t] = a * y[:, t - 1] + b * mag[:, t]
+    w = np.empty_like(y)
+    w[:, -1] = y[:, -1]
+    for t in range(148, -1, -1):
+        w[:, t] = a * w[:, t + 1] + b * y[:, t]
+    for L, halo in ((7, 9), (64, 9), (64, 70), (1, 0)):
+        p_f, p_b, k = K._ewma_constants(b, L, 150, halo)
+        parts = _b_carries(mag.astype(F32), _b_partials(mag.astype(F32), b, L, p_f, p_b),
+                           L, p_f, p_b, k)
+        for q in range(parts.shape[2]):
+            n = min(L, 150 - q * L)
+            if p_f < n:
+                np.testing.assert_allclose(parts[1, :, q], y[:, q * L + p_f], rtol=1e-12)
+            if p_b < n:
+                np.testing.assert_allclose(parts[3, :, q], w[:, q * L + p_b], rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# E
+# ---------------------------------------------------------------------------
+def _db(re, im):
+    """stationary_mask.cu::db_of, float32 throughout."""
+    return np.log(_mag(re, im) + F32(dsp.EPS_F64)) * F32(K._DB_PER_NEPER)
+
+
+def emulate_e(re, im, thr, prop, taps, L, top_db, n_std=None, fused=True):
+    """Kernel E as the sources compute it, with segments of L frames; thr
+    (views, bins) or None for the own statistics. Returns (mask,
+    decisions)."""
+    db = _db(re, im)
+    views, n_frames, nb = db.shape
+    n_segs = -(-n_frames // L)
+    seg = [slice(q * L, min(n_frames, q * L + L)) for q in range(n_segs)]
+    mx = np.max([db[:, s].max(axis=1) for s in seg], axis=0)  # maxima, combine
+    c = np.maximum(db, (mx - F32(top_db))[:, None])
+    if thr is None:
+        s1, s2 = np.zeros((views, nb)), np.zeros((views, nb))
+        for s in seg:  # db_stats_kernel, then the column sums in order
+            d = c[:, s].astype(np.float64) - mx[:, None].astype(np.float64)
+            s1, s2 = s1 + d.sum(axis=1), s2 + (d * d).sum(axis=1)
+        n = float(n_frames)
+        var = np.maximum(s2 - s1 * s1 / n, 0.0) / max(n - 1.0, 1.0)
+        th = mx + s1 / n + np.sqrt(var) * n_std
+    else:
+        th = thr.astype(np.float64)
+    dec = c.astype(np.float64) > th[:, None]
+    m = np.where(dec, F32(prop), F32(0)) + F32(1 - prop)
+    if len(taps) == 1:
+        return m * F32(taps[0]), dec
+    mt = np.moveaxis(m, 1, -1)
+    if not fused:  # the blend to a plane, then the smoothing pass
+        return np.moveaxis(_smooth(mt, 0, 0, n_frames, n_frames, taps), -1, 1), dec
+    halo = len(taps) // 2
+    out = np.empty_like(m)
+    for s in seg:
+        fs = max(0, s.start - halo)
+        tile = mt[..., fs : min(n_frames, s.stop + halo)]
+        out[:, s] = np.moveaxis(_smooth(tile, fs, s.start, s.stop, n_frames, taps), -1, 1)
+    return out, dec
+
+
+@pytest.mark.parametrize("top_db", [80.0, 40.0])
+@pytest.mark.parametrize("taps", list(TAPS), ids=[f"taps{k}" for k in TAPS])
+@pytest.mark.parametrize("n_frames", FRAMES, ids=[f"T{t}" for t in FRAMES])
+@pytest.mark.parametrize("L", SEGS, ids=[f"L{s}" for s in SEGS])
+def test_stationary_segments_with_a_threshold_decide_as_plain(L, n_frames, taps, top_db):
+    re, im = _planes(4, n_frames, 6, seed=L * 100 + n_frames + int(top_db))
+    rng = np.random.default_rng(n_frames)
+    thr = (_db(re, im).mean(axis=1)[::2] + rng.standard_normal((2, 6))).astype(F32)
+    args = (torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(thr), 2)
+    got, dec = emulate_e(re, im, np.repeat(thr, 2, axis=0), 0.8, TAPS[taps], L, top_db)
+    ref_dec = K.stationary_mask_ref(*args, 1.0, (1.0,), top_db=top_db).numpy() > 0.5
+    np.testing.assert_array_equal(dec, ref_dec)
+    ref = K.stationary_mask_ref(*args, 0.8, TAPS[taps], top_db=top_db).numpy()
+    assert np.abs(got.astype(np.float64) - ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("top_db", [80.0, 40.0])
+@pytest.mark.parametrize("n_frames", FRAMES, ids=[f"T{t}" for t in FRAMES])
+@pytest.mark.parametrize("L", SEGS, ids=[f"L{s}" for s in SEGS])
+def test_stationary_segments_own_statistics_decide_within_the_rule(L, n_frames, top_db):
+    re, im = _planes(3, n_frames, 6, seed=L * 10 + n_frames)
+    _, dec = emulate_e(re, im, None, 1.0, np.ones(1), L, top_db, n_std=1.5)
+    db = torch.from_numpy(_db(re, im))
+    mx = db.amax(dim=-2, keepdim=True)
+    db = torch.maximum(db, mx - top_db)
+    margin = (db.double() - K._self_threshold(db, mx, 1.5)[:, None, :]).numpy()
+    flips = dec != (margin > 0)
+    assert not flips.any() or np.abs(margin[flips]).max() <= 2e-3
+    ref = K.stationary_mask_ref(torch.from_numpy(re), torch.from_numpy(im), None, 1, 1.0,
+                                (1.0,), top_db=top_db, n_std=1.5).numpy()
+    assert ((ref > 0.5) != dec).sum() == flips.sum()
+
+
+def test_double_compare_is_the_float_compare_with_thr_rounded_down():
+    """stationary_final_kernel compares a float dB with a double threshold
+    as db > __double2float_rd(th): no float lies in (rd(th), th]."""
+    rng = np.random.default_rng(21)
+    th = rng.uniform(-120, 20, 20000)
+    f = th.astype(F32)
+    rd = np.where(f.astype(np.float64) > th, np.nextafter(f, F32(-np.inf)), f)
+    db = np.concatenate([rd, np.nextafter(rd, F32(np.inf)), np.nextafter(rd, F32(-np.inf)),
+                         rng.uniform(-120, 20, 20000).astype(F32)])
+    th4 = np.tile(th, 4)
+    np.testing.assert_array_equal(db.astype(np.float64) > th4, db > np.tile(rd, 4))
+
+
+@pytest.mark.parametrize("taps", ["19", "141"])
+def test_stationary_smoothing_launch_matches_plain_mask(taps):
+    re, im = _planes(2, 150, 6, seed=11)
+    thr = _db(re, im).mean(axis=1).astype(F32)
+    got, _ = emulate_e(re, im, thr, 0.8, TAPS[taps], 7, 80.0, fused=False)
+    ref = K.stationary_mask_ref(torch.from_numpy(re), torch.from_numpy(im),
+                                torch.from_numpy(thr), 1, 0.8, TAPS[taps]).numpy()
+    assert np.abs(got.astype(np.float64) - ref).max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the tile plan
+# ---------------------------------------------------------------------------
+def test_tile_constants_match_the_sources():
+    def const(name, file):
+        src = (CSRC / file).read_text()
+        return int(regex.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("TILE_COLS", "time_tiles.cuh") == TILE_COLS
+    assert const("TILE_SEGS", "time_tiles.cuh") == TILE_SEGS
+    assert const("PART_COLS", "time_tiles.cuh") == PART_COLS
+    assert const("SEG", "nonstationary_mask.cu") == SEG_B
+    assert const("SEG", "stationary_mask.cu") == SEG_E
+    assert SEG_B % const("GROUP", "time_tiles.cuh") == SEG_E % 8 == 0
+
+
+@pytest.mark.parametrize("words,n_taps,seg", [(2, 19, SEG_B), (2, 1, SEG_B), (1, 19, SEG_E),
+                                            (0, 1, SEG_E)],
+                         ids=["B", "B-unit-tap", "E", "E-one-tap"])
+def test_tile_plan_fills_the_card_at_the_headline(words, n_taps, seg):
+    """77 views x 2,579 frames x 513 bins (960 s at 48 kHz, hop 256, 19
+    time taps): the final pass's tile fits a block's 227 KB of shared
+    memory with its halo, and each segment pass has at least 10,000
+    blocks (the column walk had 309)."""
+    plan = TimeTilePlan(77, 2579, 513, n_taps, words, seg)
+    assert plan.fused and plan.halo == n_taps // 2
+    assert plan.smem_bytes <= SMEM_MAX == 232448
+    assert plan.n_segs == -(-2579 // seg)
+    assert min(plan.final_blocks, plan.part_blocks) >= 10000
+
+
+@pytest.mark.parametrize("words,seg,h_fused", [(2, SEG_B, 374), (1, SEG_E, 780)], ids=["B", "E"])
+@pytest.mark.parametrize("over", [0, 1], ids=["fits", "past"])
+def test_tile_plan_takes_the_smoothing_launch_past_the_tile(words, seg, h_fused, over):
+    """There is no cap on the taps: a halo whose tile exceeds shared memory
+    (B stages two words a frame, E one) takes the raw plane and the
+    smoothing launch (halo 0); E with one tap stages nothing."""
+    plan = TimeTilePlan(2, 5000, 513, 2 * (h_fused + over) + 1, words, seg)
+    assert plan.fused == (not over)
+    assert plan.halo == (0 if over else h_fused)
+    assert plan.smem_bytes <= SMEM_MAX
+    assert TimeTilePlan(2, 5000, 513, 1, 0, seg).smem_bytes == 0
+
+
+def test_short_planes_have_one_segment():
+    for n_frames in (1, 5, SEG_B):
+        assert TimeTilePlan(1, n_frames, 513, 19, 2, SEG_B).n_segs == 1
+    assert TimeTilePlan(1, SEG_B + 1, 513, 19, 2, SEG_B).n_segs == 2

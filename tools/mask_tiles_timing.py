@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time the mask kernels B ``nonstationary_mask`` and E ``stationary_mask``
+on one CUDA card at the headline shapes (960 s of 48 kHz audio, n_fft 1024
+/ hop 256, chunked as ``reduce_noise`` chunks: 77 views x 2,579 frames x
+513 bins), in four cases: B with the headline's 19 time taps, B with one
+unit tap (the staged geometry's mask), E with a 10 s noise clip's
+threshold, and E with each view's own statistics (top_db 40, TorchGate's
+n_std). The spectra are kernel A's of ``chip_smoke.py``'s headline signal
+(the scipy table; E's own statistics on the torch table's, as the torch
+batch gives them). Per case: CUDA events around one call, the minimum of
+``--reps`` after a warm-up (the host's launch work included); the device
+time of the call's kernels, the mean over ``--reps`` calls in a
+``torch.profiler`` trace, by kernel name; the CUDA launches of one call
+(``cuda_launches``, where the package records it); the bytes bound (re, im
+read once, the mask written once, over 3.35 TB/s). Prints the card's name
+and power limit first and one JSON line last.
+
+    python3 tools/mask_tiles_timing.py [--reps 10] [--save PATH]
+    python3 tools/mask_tiles_timing.py --compare OLD.pt NEW.pt
+
+``--save`` writes the four masks to PATH (torch.save); ``--compare``
+prints, per case, whether two saved runs are bitwise equal and their
+largest |difference|. The ``noisereduce_tpu_torch`` timed is the one
+Python imports first: to time a parent checkout (``git archive`` into an
+ignored directory), put it first on ``PYTHONPATH``, and run the two in
+turns (parent, change, change, parent) in one call. Imports nothing of
+JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import re as regex
+import sys
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.append(str(ROOT))  # chip_smoke's helpers, after PYTHONPATH's package
+
+CASES = ("nonstationary_mask", "nonstationary_mask (unit tap)", "stationary_mask",
+         "stationary_mask (self statistics)")
+
+
+def device_ms(fn, reps: int) -> dict:
+    """Mean device time per call of ``fn``, ms, by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = regex.search(r"([\w:]+)(?:<[^>]*>)?\(", e.name)
+            by_name[m.group(1).lstrip(":") if m else e.name] += e.time_range.elapsed_us() / reps / 1e3
+    return dict(by_name)
+
+
+def compare(old_path: str, new_path: str) -> None:
+    old, new = torch.load(old_path), torch.load(new_path)
+    out = {}
+    for case in CASES:
+        a, b = old[case].double(), new[case].double()
+        out[case] = dict(bitwise=bool(torch.equal(old[case], new[case])),
+                         max_abs_diff=float((a - b).abs().max()),
+                         cells_differing=int((a != b).sum()))
+        print(f"{case}: {out[case]}", flush=True)
+    print(json.dumps(out), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--compare", nargs=2, default=None)
+    args = ap.parse_args()
+    if args.compare:
+        compare(*args.compare)
+        return
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    import noisereduce_tpu_torch as nr
+    from chip_smoke import (CHUNK, HBM_BYTES_PER_S, NOISE_SECONDS, PADDING, SR, card_line,
+                            headline_signal, noise_clip, time_ms)
+    from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.dsp import tri_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line(), flush=True)
+    x = torch.as_tensor(headline_signal(960)).cuda()[None]
+    noise = torch.as_tensor(noise_clip(NOISE_SECONDS)).cuda()
+    cfg, scfg = nr.GateConfig(sr=SR), nr.GateConfig(sr=SR, stationary=True)
+    tgate = nr.api.torch_gate_for(SR, stationary=True)
+    re, im = K.spectra(x, gate_geometry(cfg.stft, CHUNK + 2 * PADDING), CHUNK, PADDING)
+    tre, tim = K.spectra(x, gate_geometry(tgate.stft_config, CHUNK + 2 * PADDING), CHUNK,
+                         PADDING)
+    tt = tri_norm(cfg.smoothing[1])
+    nb = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
+    thr = stationary_noise_threshold(noise, scfg)
+    calls = {
+        CASES[0]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, tt)),
+        CASES[1]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, (1.0,))),
+        CASES[2]: (K.stationary_mask,
+                   lambda: K.stationary_mask(re, im, thr, 1, scfg.prop_decrease, tt)),
+        CASES[3]: (K.stationary_mask,
+                   lambda: K.stationary_mask(tre, tim, None, 1, tgate.prop_decrease, tt,
+                                             top_db=40.0, n_std=tgate.n_std_thresh_stationary)),
+    }
+    moved = 3 * re.numel() * re.element_size()
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    out, saved = {}, {}
+    for case, (wrapper, fn) in calls.items():
+        saved[case] = fn()
+        ms = time_ms(fn, args.reps)
+        dev = device_ms(fn, args.reps)
+        out[case] = dict(ms=ms, device_ms=sum(dev.values()), device_by_kernel=dev,
+                         cuda_launches=getattr(wrapper, "cuda_launches", 1),
+                         bound_ms=bound_ms, bound_by="bytes")
+        print(f"{case}: {ms:.3f} ms (device {sum(dev.values()):.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in dev.items())
+              + f"), {out[case]['cuda_launches']} CUDA launches, bound {bound_ms:.3f} ms "
+              f"({ms / bound_ms:.2f}x)", flush=True)
+    if args.save:
+        torch.save({k: v.cpu() for k, v in saved.items()}, args.save)
+    print(json.dumps({"package": str(pathlib.Path(nr.__file__).parent),
+                      "shape": list(re.shape), "cases": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
