@@ -26,7 +26,10 @@ last line is printed only when every phase passed):
    one wrapper call makes (segment partials, column combine, final pass);
    then, under torch conventions (the gate ``reduce_noise(use_torch=True)``
    runs), A with the torch table, F, E with each view's own statistics and
-   D with the torch tail; and kernel G on the same spectra laid out
+   D with the torch tail (F's line gives the CUDA launches of one call and
+   a line after it their device ms from a ``torch.profiler`` trace; F is
+   also held at n_movemean 1,875, time_constant_s 10, and at an even
+   window, 374); and kernel G on the same spectra laid out
    frequency-major, (77, 513, 2579) complex64;
 4. golden: ``reduce_noise(..., device="cuda")`` in float32 on
    ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary, the
@@ -95,8 +98,10 @@ Imports nothing of JAX or of the JAX package ``noisereduce_tpu``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re as regex
 import subprocess
 import sys
 import time
@@ -204,6 +209,10 @@ REPLACES = {
 }
 for _name in ("spectra", "istft_ola"):
     REPLACES[f"{_name}_mixed_radix"] = REPLACES[f"{_name}_product"] = REPLACES[_name]
+# kernel F beside the torch headline's window (375 frames, time_constant_s
+# 2): time_constant_s 10 (1,875 frames) and an even window (one more frame
+# on the right)
+F_WINDOWS = (1875, 374)
 # the gradient phase: the training workload of benchmarks/bench_all.py:316-331
 GRAD_SR, GRAD_SECONDS, GRAD_BATCHES = 16000, 4, (16, 256)
 # the masks' backward on 8 views of the headline plane (rows 6 and 7)
@@ -241,6 +250,25 @@ def time_ms(fn, reps: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def device_ms(fn, reps: int = 3) -> dict:
+    """Mean device time per call of ``fn``, ms, by kernel name: a
+    ``torch.profiler`` trace of ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = regex.search(r"([\w:]+)(?:<[^>]*>)?\(", e.name)
+            by_name[m.group(1).lstrip(":") if m else e.name] += e.time_range.elapsed_us() / reps / 1e3
+    return dict(by_name)
 
 
 def headline_signal(seconds: int, sr: int = SR, seed: int = SEED) -> np.ndarray:
@@ -576,8 +604,25 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
     results["torch_nonstationary_mask"] = measure(
         "torch_nonstationary_mask", BOUNDS["torch_nonstationary_mask"],
         lambda: K.torch_nonstationary_mask(*f), lambda: K.torch_nonstationary_mask_ref(*f),
-        m, rm, nbytes(re, im, m), cells * (40.0 + 2 * len(tt)))
+        m, rm, nbytes(re, im, m), cells * (40.0 + 2 * len(tt)),
+        wrapper=K.torch_nonstationary_mask)
     del rm
+    by_launch = device_ms(lambda: K.torch_nonstationary_mask(*f))
+    print("kernel torch_nonstationary_mask: device ms by launch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in by_launch.items())
+          + f" (sum {sum(by_launch.values()):.3f})", flush=True)
+    results["torch_nonstationary_mask"]["device_ms_by_launch"] = by_launch
+    for n in F_WINDOWS:  # other windows on the same spectra
+        fw = (re, im, n) + f[3:]
+        results["torch_nonstationary_mask"][f"n_movemean_{n}"] = r = measure(
+            f"torch_nonstationary_mask (n_movemean {n})", BOUNDS["torch_nonstationary_mask"],
+            lambda: K.torch_nonstationary_mask(*fw),
+            lambda: K.torch_nonstationary_mask_ref(*fw), K.torch_nonstationary_mask(*fw),
+            K.torch_nonstationary_mask_ref(*fw), nbytes(re, im, m),
+            cells * (40.0 + 2 * len(tt)), wrapper=K.torch_nonstationary_mask)
+        if r["cuda_launches"] != 3:
+            fail(f"kernel torch_nonstationary_mask (n_movemean {n}) made "
+                 f"{r['cuda_launches']} CUDA launches, not 3")
 
     mb = K.freq_smooth_blend(m, ft, 1.0)
     d = (re, im, mb, geo, PADDING, CHUNK)

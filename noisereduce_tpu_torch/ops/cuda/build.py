@@ -56,7 +56,8 @@ _SIGNATURES = {
         _ll, _ll, _f, _vp, _vp,
     ],
     "nr_torch_nonstationary_mask": [
-        _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _f, _f, _f, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
+        _i, _i, _f, _f, _f, _f, _i, _vp,
     ],
     "nr_fm_nonstationary_mask": [_vp, _i, _vp, _vp, _ll, _i, _d, _f, _f, _vp],
     "nr_spectra_fft": [

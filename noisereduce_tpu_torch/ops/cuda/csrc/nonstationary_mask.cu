@@ -100,10 +100,6 @@ __global__ void __launch_bounds__(PART_COLS)
   parts[part_at(3, c.col, c.q, rows, n_segs, n_bins)] = bh;
 }
 
-// Segments whose partials a carry walk loads before it uses any: the
-// loads do not depend on the carry.
-constexpr int CARRY_BATCH = 8;
-
 __global__ void __launch_bounds__(PART_COLS)
     ewma_carries_kernel(const float* __restrict__ re,
                         const float* __restrict__ im,

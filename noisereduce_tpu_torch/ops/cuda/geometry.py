@@ -18,19 +18,21 @@ launch shapes below:
   matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT
   columns x window samples for A; output hop blocks x hop x shifted bins
   for D).
-- B ``nonstationary_mask`` and E ``stationary_mask`` cut each (row, bin)
-  column's time axis into segments of ``SEG_B`` / ``SEG_E`` frames
-  (``TimeTilePlan``, ``csrc/time_tiles.cuh``): one thread per (row,
-  segment, bin), neighbouring threads on neighbouring bins, so every warp
-  load is one coalesced row segment and the whole plane is in flight at
-  once. Per-segment partials (B: the IIR's segment ends, E: the dB maxima
-  and the statistics' sums) go to a small (rows, segments, bins) buffer,
-  a column kernel combines them in order, and a final pass re-reads
+- B ``nonstationary_mask``, E ``stationary_mask`` and F
+  ``torch_nonstationary_mask`` cut each (row, bin) column's time axis into
+  segments of ``SEG_B`` / ``SEG_E`` / ``SEG_F`` frames (``TimeTilePlan``,
+  ``csrc/time_tiles.cuh``): one thread per (row, segment, bin),
+  neighbouring threads on neighbouring bins, so every warp load is one
+  coalesced row segment and the whole plane is in flight at once.
+  Per-segment partials (B: the IIR's segment ends, E: the dB maxima and
+  the statistics' sums, F: the float64 sums of |Z| and their values at the
+  window starts' offsets) go to a small (rows, segments, bins) buffer, a
+  column kernel combines them in order, and a final pass re-reads
   ``TILE_SEGS`` segments with a halo of n_taps // 2 frames on each side of
-  the run, stages them in one shared-memory tile and smooths them there. A halo whose tile does not fit in shared memory
-  takes a raw-mask plane and a separate smoothing launch.
-- F ``torch_nonstationary_mask`` runs one thread per (row, bin) down the
-  time axis, so its moving-average window never crosses a block.
+  the run, stages them in one shared-memory tile and smooths them there.
+  A halo whose tile does not fit in shared memory takes a raw-mask plane
+  and a separate smoothing launch. F's moving-average window has no cap:
+  it runs on float64 prefix sums, its far ends read from a |Z| plane.
 - C ``freq_smooth_blend`` runs one block per (row, frame).
 
 The only structural requirement is that the hop divides the analysis frame
@@ -62,12 +64,13 @@ FFT_ACC = 8192
 FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
 FFT_MIN_NFFT, FFT_MAX_NFFT = 64, 2 * FFT_ELEMS
 FFT_RADICES = (2, 3, 5, 7)  # the prime radices of fft_smem.cuh's stages
-# the time tiles of kernels B and E (csrc/time_tiles.cuh and the kernels'
-# sources, must match their constants): frames of a segment of B and of E,
-# columns (bins) and segments of a final-pass block, columns of a partials
-# / column-kernel block, and the shared memory a block may use
+# the time tiles of kernels B, E and F (csrc/time_tiles.cuh and the
+# kernels' sources, must match their constants): frames of a segment of B,
+# of E and of F, columns (bins) and segments of a final-pass block, columns
+# of a partials / column-kernel block, and the shared memory a block may use
 SEG_B = 40
 SEG_E = 64
+SEG_F = 64
 TILE_COLS = 32
 TILE_SEGS = 4
 PART_COLS = 128
@@ -118,11 +121,12 @@ def _fft_layout(m: int) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class TimeTilePlan:
-    """Launch shapes of kernel B or E over a (rows, n_frames, n_bins) plane
-    with ``n_taps`` time taps; ``words`` is the 4-byte values a final-pass
-    thread stages per frame: B 2 (re and im, then the floor and |Z|), E 1
-    (the blended mask), or 0 for E with one tap, which writes straight to
-    ``out``.
+    """Launch shapes of kernel B, E or F over a (rows, n_frames, n_bins)
+    plane with ``n_taps`` time taps; ``words`` is the 4-byte values a
+    final-pass thread stages per frame: B 2 (re and im, then the floor and
+    |Z|), E and F 1 (the blended mask), or 0 for E or F with one tap, which
+    write straight to ``out``. F's window does not enter the plan: its far
+    ends are read from device memory, whatever n_movemean.
 
     A final-pass block holds ``TILE_SEGS`` consecutive segments of
     ``TILE_COLS`` columns and their frames with a halo on each side in one

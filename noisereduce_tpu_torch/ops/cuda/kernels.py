@@ -43,7 +43,7 @@ launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches`` and ``product_launches`` (``route_counts``;
-``reset_launch_counts`` sets them all to 0). B and E run as a few CUDA
+``reset_launch_counts`` sets them all to 0). B, E and F run as a few CUDA
 launches over time tiles (``geometry.TimeTilePlan``: segment partials,
 a per-column combine, a final pass that smooths from shared memory) and
 still count 1 a call; ``cuda_launches`` holds how many CUDA launches their
@@ -73,7 +73,7 @@ from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
-    SEG_B, SEG_E, GateGeometry, fft_route, TimeTilePlan,
+    SEG_B, SEG_E, SEG_F, GateGeometry, fft_route, TimeTilePlan,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
@@ -602,22 +602,61 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
     m = sigmoid(((|Z| - ma) / ma' - n_thresh) / temp) with ma' = 1 where
     ma == 0 (silence gives finite zeros); the blend m*prop + (1 - prop)
     BEFORE a 'same' correlation along frames with the odd ``taps``.
+
+    On the card: partials of |Z| per segment of ``SEG_F`` frames (a |Z|
+    plane, float64 sums), a column scan into float64 prefixes, and a final
+    pass over time tiles that slides each window on those prefixes (no cap
+    on ``n_movemean``) and smooths from shared memory; 3 CUDA launches, 4
+    for taps whose halo does not fit the tile.
     """
+    if int(n_movemean) < 1:
+        raise ValueError(f"torch_nonstationary_mask: n_movemean must be at least 1, "
+                         f"got {n_movemean}")
+    if not (math.isfinite(temp) and abs(temp) >= np.finfo(np.float32).tiny):
+        raise ValueError(f"torch_nonstationary_mask: temp must be a normal float32, "
+                         f"got {temp}")
     if _on_cpu(re, im):
         return torch_nonstationary_mask_ref(re, im, n_movemean, n_thresh, temp, prop, taps)
     _check_cuda("torch_nonstationary_mask", re, im)
     views, T, nb = re.shape
-    _check_size("torch_nonstationary_mask", views * nb)
+    plan = TimeTilePlan(views, T, nb, len(taps), words=1 if len(taps) > 1 else 0,
+                        seg_len=SEG_F)
+    _check_size("torch_nonstationary_mask", views * nb, plan.final_blocks,
+                views * T * nb // 256)
     tap_t = _device_f32("taps", tuple(float(v) for v in taps), re.device)
-    scratch = torch.empty_like(re) if len(taps) > 1 else re
+
+    def work(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=re.device)
+
+    mag = torch.empty_like(re)
+    pre = work(views, plan.n_segs + 1, nb, dtype=torch.float64)
+    offs = work(4, views, plan.n_segs, nb, dtype=torch.float64)
+    raw = None if plan.fused else torch.empty_like(re)
     out = torch.empty_like(re)
     _launch(
-        "torch_nonstationary_mask", re.device, _ptr(re), _ptr(im),
-        _ptr(scratch), _ptr(out), _ptr(tap_t), len(taps), views, T, nb,
-        int(n_movemean), n_thresh, temp, prop, 1.0 - prop,
+        "torch_nonstationary_mask", re.device, _ptr(re), _ptr(im), _ptr(mag),
+        _ptr(pre), _ptr(offs), _ptr_or_null(raw), _ptr(out), _ptr(tap_t),
+        len(taps), plan.halo, views, T, nb, int(n_movemean),
+        *_movemean_offsets(int(n_movemean), plan.seg_len, plan.halo),
+        n_thresh, temp, prop, 1.0 - prop, plan.smem_bytes,
     )
     torch_nonstationary_mask.launches += 1
+    torch_nonstationary_mask.cuda_launches = 3 if plan.fused else 4
     return out
+
+
+def _movemean_offsets(n_movemean: int, seg_len: int, halo: int) -> tuple:
+    """Kernel F's window-start offsets in a segment of ``seg_len`` frames,
+    for a final-pass halo of ``halo`` frames: where the prefixes P[t +
+    right + 1] and P[t - left] of a window at frame t land, (right + 1)
+    mod L and (-left) mod L for a thread that starts at its segment, the
+    same less ``halo`` for the first warp of a block, which starts ``halo``
+    frames earlier (csrc/torch_nonstationary_mask.cu). left = (n - 1) // 2,
+    right = n - 1 - left."""
+    left = (n_movemean - 1) // 2
+    right = n_movemean - 1 - left
+    return ((right + 1) % seg_len, -left % seg_len, (right + 1 - halo) % seg_len,
+            (-left - halo) % seg_len)
 
 
 # ---------------------------------------------------------------------------
@@ -690,3 +729,4 @@ def route_counts() -> dict:
 
 reset_launch_counts()
 nonstationary_mask.cuda_launches = stationary_mask.cuda_launches = 0
+torch_nonstationary_mask.cuda_launches = 0

@@ -671,3 +671,86 @@ def test_mask_tiles_allocate_no_scratch_plane(cuda):
         torch.cuda.synchronize()
         assert torch.cuda.max_memory_allocated() - base - plane < plane
         del out
+
+
+# ---------------------------------------------------------------------------
+# kernel F: time tiles, windows on float64 prefixes
+# ---------------------------------------------------------------------------
+def _torch_headline_time_taps():
+    """The 19 SVD time taps of the torch headline's gate (48 kHz, hop 256)."""
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _rank1_taps
+
+    return _rank1_taps(nrt.api.torch_gate_for(48000).smoothing)[1]
+
+
+# (views, frames, bins), n_movemean, time taps (None: the torch headline's
+# 19), the CUDA launches of one call: the torch headline's window (375 at
+# 48 kHz / hop 256) on 4 of its views, an even window, time_constant_s 10
+# (1,875), a window past T, halos past the tile (1601 taps: the blend to a
+# plane and the smoothing launch), one tap (straight to out, scaled), T 1
+# and 5, and a window of one frame
+F_CASES = {
+    "headline-n375": ((4, 2579, 513), 375, None, 3),
+    "even-n374": ((4, 2579, 513), 374, None, 3),
+    "n1875": ((4, 2579, 513), 1875, None, 3),
+    "n375-past-T300": ((3, 300, 257), 375, None, 3),
+    "taps1601": ((3, 1000, 129), 375, tri_norm(800), 4),
+    "one-tap": ((4, 2579, 513), 375, (0.75,), 3),
+    "T1": ((3, 1, 33), 375, None, 3),
+    "T5-n2": ((2, 5, 65), 2, None, 3),
+    "T65-n1": ((2, 65, 40), 1, None, 3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(F_CASES))
+def test_torch_nonstationary_mask_tiles_match_plain_version(cuda, case):
+    """F within 1e-5 of its plain version, with TorchGate's threshold and
+    temperature (2, 0.1), on planes with a silent bin and a silent run of
+    frames; one wrapper launch, its CUDA launches by route, and the same
+    bits on a second call (no atomics)."""
+    shape, n, taps, launches = F_CASES[case]
+    re, im = _tile_planes(shape, 80 + n, cuda)
+    args = (re, im, n, 2.0, 0.1, 1.0 if case == "headline-n375" else 0.8,
+            _torch_headline_time_taps() if taps is None else taps)
+    K.reset_launch_counts()
+    got = K.torch_nonstationary_mask(*args)
+    assert K.launch_counts()["torch_nonstationary_mask"] == 1
+    assert K.torch_nonstationary_mask.cuda_launches == launches
+    assert torch.isfinite(got).all()
+    assert _max(got - K.torch_nonstationary_mask_ref(*args)) <= 1e-5
+    assert torch.equal(got, K.torch_nonstationary_mask(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [20, 375, 374])
+def test_torch_nonstationary_mask_silent_windows_on_card(cuda, n):
+    """Where a window holds only silent frames the plain floor is exactly 0
+    (ratio 0) and so is F's: levels spanning 10^-6 to 10^3 make the float64
+    sums round, and a soft sigmoid (threshold -0.5, temperature 1) would
+    show a residue's ratio of -1 as a mask 0.24 lower."""
+    rng = np.random.default_rng(90 + n)
+    shape = (3, 2579, 129)
+    level = 10.0 ** rng.uniform(-6, 3, shape)
+    re = rng.standard_normal(shape) * level
+    im = rng.standard_normal(shape) * level
+    re[:, :, 5] = im[:, :, 5] = 0.0  # a silent column in a loud view
+    re[0, 800:1300] = im[0, 800:1300] = 0.0
+    re, im = (torch.as_tensor(v, dtype=torch.float32, device=cuda) for v in (re, im))
+    args = (re, im, n, -0.5, 1.0, 1.0, _torch_headline_time_taps())
+    got = K.torch_nonstationary_mask(*args)
+    assert _max(got - K.torch_nonstationary_mask_ref(*args)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp", [1.2e-38, 1e-30, -0.1, 40.0])
+def test_torch_nonstationary_mask_any_normal_temp_on_card(cuda, temp):
+    """F's divisions hold for every normal temp: a tiny one overflows the
+    sigmoid's argument (infinite in the plain version, the saturated mask
+    in F), a negative one flips the gate, and prop 1 lets the sigmoid's
+    smallest values reach the mask."""
+    re, im = _tile_planes((2, 700, 129), 7, cuda)
+    args = (re, im, 375, 2.0, temp, 1.0, _torch_headline_time_taps())
+    got = K.torch_nonstationary_mask(*args)
+    assert torch.isfinite(got).all()
+    assert _max(got - K.torch_nonstationary_mask_ref(*args)) <= 1e-5

@@ -1,8 +1,10 @@
-"""PyTorch port: the time tiles of kernels B ``nonstationary_mask`` and E
-``stationary_mask`` (``csrc/nonstationary_mask.cu``,
-``csrc/stationary_mask.cu`` over ``csrc/time_tiles.cuh``), emulated in
-numpy as the sources compute them: float32 where the kernels round to
-float, float64 for the carries and the statistics. B: the per-segment
+"""PyTorch port: the time tiles of kernels B ``nonstationary_mask``, E
+``stationary_mask`` and F ``torch_nonstationary_mask``
+(``csrc/nonstationary_mask.cu``, ``csrc/stationary_mask.cu``,
+``csrc/torch_nonstationary_mask.cu`` over ``csrc/time_tiles.cuh``),
+emulated in numpy as the sources compute them: float32 where the kernels
+round to float, float64 for the carries, the statistics and the
+prefixes. B: the per-segment
 partials (yl at the segment's end and at offset p_f, wl at its start and at
 offset p_b, summed forward), the column walk of the carries with the host
 constants of ``kernels._ewma_constants``, the final pass over blocks of
@@ -12,11 +14,18 @@ tap chain; or, for a halo whose tile does not fit, the raw mask with no
 halo and a separate smoothing pass. E: the segment maxima
 and their column max, the per-segment float64 sums of the own statistics
 added in segment order, the final pass's floor, compare and blend, and
-the tap chain. Segments of 1, 7 and 64 frames, T = 1, T below a segment
+the tap chain. F: the per-segment float64 sums of |Z| and their values at
+the four window-start offsets (``kernels._movemean_offsets``), the
+column's exclusive scan, the final pass's two prefixes started from those
+and slid a frame at a time, the floor rounded to float32 once, ratio,
+sigmoid and blend into the block's tile, the tap chain; or, past the
+tile, the blend to a plane and the smoothing pass; n_movemean 1, 2, 20,
+375 and past T. Segments of 1, 7 and 64 frames, T = 1, T below a segment
 and T no multiple of it, 1, 19 and more taps than a segment holds, b at
 48 kHz / hop 256 and 16 kHz / hop 128, silent columns and frames, top_db
 80 and 40. The plain versions are held against the JAX package by
-tests/test_torch_kernels.py and tests/test_torch_stationary.py.
+tests/test_torch_kernels.py, tests/test_torch_stationary.py and
+tests/test_torch_tpugate.py.
 
 Bounds: B's emulation within 1e-5 absolute of the plain mask (values in
 [0, 1]; ten times tighter than the card's 1e-4): the carries see y before
@@ -24,7 +33,9 @@ its rounding to float32, about one float32 rounding of the floor. E with a
 given threshold decides every cell as the plain version does, and its mask
 is within 1e-6 (the tap chain's fmaf against the plain version's separate
 products and sums); with its own statistics every decision that differs
-lies within 2e-3 dB of the plain version's threshold.
+lies within 2e-3 dB of the plain version's threshold. F's emulation
+within 1e-6 of the plain mask, and within 1e-7 of it where a window holds
+only silent frames (a floor of exactly 0 in both).
 """
 import pathlib
 import re as regex
@@ -40,6 +51,7 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     PART_COLS,
     SEG_B,
     SEG_E,
+    SEG_F,
     SMEM_MAX,
     TILE_COLS,
     TILE_SEGS,
@@ -88,13 +100,10 @@ def _smooth(raw, fs, t0, t1, n_frames, taps):
     tile = np.zeros(raw.shape[:-1] + (t1 - t0 + 2 * half,), F32)
     lo, hi = max(0, t0 - half), min(n_frames, t1 + half)
     tile[..., lo - t0 + half : hi - t0 + half] = raw[..., lo - fs : hi - fs]
-    out = np.empty(raw.shape[:-1] + (t1 - t0,), F32)
-    for t in range(t0, t1):
-        acc = np.zeros(raw.shape[:-1], F32)
-        for d in range(len(taps)):
-            acc = _fmaf(F32(taps[d]), tile[..., t - t0 + d], acc)
-        out[..., t - t0] = acc
-    return out
+    acc = np.zeros(raw.shape[:-1] + (t1 - t0,), F32)  # each frame's chain, side by side
+    for d in range(len(taps)):
+        acc = _fmaf(F32(taps[d]), tile[..., d : d + t1 - t0], acc)
+    return acc
 
 
 def test_zero_padded_chain_is_the_skipping_chain():
@@ -376,6 +385,193 @@ def test_stationary_smoothing_launch_matches_plain_mask(taps):
 
 
 # ---------------------------------------------------------------------------
+# F
+# ---------------------------------------------------------------------------
+def _f_partials(mag, L, offsets):
+    """movemean_partials_kernel and movemean_prefix_kernel: per segment the
+    float64 sum of |Z| in frame order from 0, and that sum at each offset
+    (the sum of the segment's frames before it); then the column's
+    exclusive scan of the segment sums, P_q, with P[T] after them."""
+    rows, n_frames, nb = mag.shape
+    n_segs = -(-n_frames // L)
+    pre = np.zeros((rows, n_segs + 1, nb))
+    offs = np.zeros((4, rows, n_segs, nb))
+    for q in range(n_segs):
+        s = np.zeros((rows, nb))
+        for t in range(q * L, min(n_frames, q * L + L)):
+            for k, o in enumerate(offsets):
+                if t - q * L == o:
+                    offs[k, :, q] = s
+            s = s + mag[:, t].astype(np.float64)
+        pre[:, q] = s
+    total = np.zeros((rows, nb))
+    for q in range(n_segs):
+        total, pre[:, q] = total + pre[:, q], total
+    pre[:, n_segs] = total
+    return pre, offs
+
+
+class _Prefix:
+    """torch_nonstationary_mask.cu::Prefix: P[k] = P_q + s, q = k // L, s
+    the segment's sum of its first k mod L frames; started from the
+    partials at the offset that k mod L must equal, slid one frame at a
+    time, restarted from P_q at a segment boundary."""
+
+    def __init__(self, pre, offs, slot, offsets, pos, n_frames, L):
+        self.pre, self.L = pre, L
+        self.k = min(max(pos, 0), n_frames)
+        q = self.k // L
+        if self.k == n_frames:
+            self.P, self.s = pre[:, -1], np.zeros(pre.shape[::2])
+        else:
+            self.P = pre[:, q]
+            if self.k:
+                assert self.k % L == offsets[slot], "a window starts off its offset"
+            self.s = offs[slot, :, q] if self.k else np.zeros(pre.shape[::2])
+
+    def value(self):
+        return self.P + self.s
+
+    def add(self, z):
+        self.s = self.s + z.astype(np.float64)
+        self.k += 1
+        if self.k % self.L == 0:
+            self.P, self.s = self.pre[:, self.k // self.L], np.zeros_like(self.s)
+
+
+def _f_final(mag, pre, offs, offsets, n, thresh, temp, prop, taps, L, halo, K=TILE_SEGS):
+    """movemean_final_kernel over blocks of K segments: each segment's
+    frames (the block's first also the halo before it, its last the halo
+    after it) from both prefixes, the floor rounded to float32 once, ratio,
+    sigmoid and blend in float32 into the block's tile (one tap: straight
+    to out, scaled); then each segment's tap chain over the tile."""
+    rows, n_frames, nb = mag.shape
+    left = (n - 1) // 2
+    right = n - 1 - left
+    n_segs = pre.shape[1] - 1
+    to_out = len(taps) == 1
+    scale = F32(taps[0]) if to_out else F32(1)
+    out = np.empty_like(mag)
+    for q0 in range(0, n_segs, K):
+        qs = range(q0, min(n_segs, q0 + K))
+        T0, T1 = q0 * L, min(n_frames, (qs[-1] + 1) * L)
+        tile = np.zeros((rows, nb, T1 - T0 + 2 * halo), F32)  # frames T0 - halo ...
+        for q in qs:
+            t0, t1 = q * L, min(n_frames, q * L + L)
+            fs = max(0, t0 - halo) if q == q0 else t0
+            fe = min(n_frames, t1 + halo) if q == qs[-1] else t1
+            early = fs % L != 0
+            a = _Prefix(pre, offs, 2 if early else 0, offsets, fs + right + 1, n_frames, L)
+            b = _Prefix(pre, offs, 3 if early else 1, offsets, fs - left, n_frames, L)
+            for t in range(fs, fe):
+                ma = ((a.value() - b.value()) * (1.0 / n)).astype(F32)
+                ratio = (mag[:, t] - ma) / np.where(ma == 0, F32(1), ma)
+                z = (ratio - F32(thresh)) / F32(temp)
+                with np.errstate(over="ignore"):
+                    sg = F32(1) / (F32(1) + np.exp(-z))
+                m = (sg * F32(prop) + F32(1.0 - prop)) * scale
+                if to_out:
+                    out[:, t] = m
+                else:
+                    tile[..., t - T0 + halo] = m
+                if t + 1 < fe:
+                    if t + right + 1 < n_frames:
+                        a.add(mag[:, t + right + 1])
+                    if t - left >= 0:
+                        b.add(mag[:, t - left])
+        if not to_out:
+            for q in qs:
+                t0, t1 = q * L, min(n_frames, q * L + L)
+                out[:, t0:t1] = np.moveaxis(
+                    _smooth(tile[..., t0 - T0:], t0 - halo, t0, t1, n_frames, taps), -1, 1)
+    return out
+
+
+def emulate_f(re, im, n, thresh, temp, prop, taps, L, fused=True):
+    """Kernel F as the sources compute it, with segments of L frames; not
+    ``fused``: the blend with no halo to a plane, then the smoothing
+    pass."""
+    mag = _mag(re, im)
+    halo = len(taps) // 2 if fused else 0
+    offsets = K._movemean_offsets(n, L, halo)
+    pre, offs = _f_partials(mag, L, offsets)
+    if fused or len(taps) == 1:
+        return _f_final(mag, pre, offs, offsets, n, thresh, temp, prop, taps, L, halo)
+    raw = _f_final(mag, pre, offs, offsets, n, thresh, temp, prop, np.ones(1), L, 0)
+    n_frames = mag.shape[1]
+    return np.moveaxis(_smooth(np.moveaxis(raw, 1, -1), 0, 0, n_frames, n_frames, taps), -1, 1)
+
+
+def _f_ref(re, im, n, thresh, temp, prop, taps):
+    return K.torch_nonstationary_mask_ref(torch.from_numpy(re), torch.from_numpy(im), n,
+                                          thresh, temp, prop, taps).numpy()
+
+
+F_WINDOWS = {"n1": 1, "n2": 2, "n20": 20, "n375": 375, "n-past-T": None}  # None: T + 7
+F_TAPS = {"1": (0.75,), "19": dsp.tri_norm(9), "141": dsp.tri_norm(70),
+          "141-launch": dsp.tri_norm(70)}
+
+
+@pytest.mark.parametrize("taps", list(F_TAPS), ids=[f"taps{k}" for k in F_TAPS])
+@pytest.mark.parametrize("n_frames", FRAMES, ids=[f"T{t}" for t in FRAMES])
+@pytest.mark.parametrize("L", (1, 7, 64), ids=["L1", "L7", "L64"])
+@pytest.mark.parametrize("window", list(F_WINDOWS))
+def test_movemean_segments_match_plain_mask(window, L, n_frames, taps):
+    """Kernel F's partials, prefix scan and final pass (and, for
+    "141-launch", the blend to a plane and the smoothing launch) within
+    1e-6 of the plain mask, at TorchGate's threshold and temperature and
+    prop 0.8. The planes hold a silent bin and a silent run of frames."""
+    n = F_WINDOWS[window] or n_frames + 7
+    re, im = _planes(2, n_frames, 5, seed=L * 100 + n_frames + n)
+    args = (n, 2.0, 0.1, 0.8, F_TAPS[taps])
+    got = emulate_f(re, im, *args, L, fused=taps != "141-launch")
+    ref = _f_ref(re, im, *args)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    assert np.abs(got.astype(np.float64) - ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("L", (1, 7, 64), ids=["L1", "L7", "L64"])
+@pytest.mark.parametrize("n", (2, 9, 20, 21))
+def test_movemean_silent_windows_give_a_zero_floor(L, n):
+    """Where a window holds only silent frames the plain version's floor is
+    exactly 0 (divisor 1, ratio 0); both prefixes of F's window are then
+    the same bits, so F's is exactly 0 too. Any residue would give ratio
+    -1, which a soft sigmoid (threshold -0.5, temperature 1) turns into a
+    mask 0.24 lower. Levels span 10^-6 to 10^3, so the float64 sums of
+    |Z| round (a narrow range adds exactly, residue or not)."""
+    re, im = _planes(2, 150, 5, seed=n + L)
+    level = 10.0 ** np.random.default_rng(n * L).uniform(-6, 3, re.shape)
+    re, im = (re * level).astype(F32), (im * level).astype(F32)
+    re[1, 20:31] = im[1, 20:31] = 0.0  # a second silent run, 11 frames
+    mag = torch.from_numpy(_mag(re, im))
+    silent = (dsp.moving_average_same(mag, n, axis=-2) == 0).numpy()
+    assert silent.any()
+    args = (n, -0.5, 1.0, 1.0, (1.0,))
+    got = emulate_f(re, im, *args, L)
+    ref = _f_ref(re, im, *args)
+    np.testing.assert_allclose(got[silent], ref[silent], rtol=0, atol=1e-7)
+    assert np.abs(got.astype(np.float64) - ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("n", (1, 2, 20, 375, 1875))
+@pytest.mark.parametrize("halo", (0, 9, 70, 780))
+def test_movemean_offsets_are_where_windows_start(n, halo):
+    """Every final-pass thread's window starts at a frame whose offset in
+    its segment is the partial it reads: t0 + right + 1 and t0 - left for a
+    segment's own start, the same less the halo for a block's first warp
+    (unless clipped at frame 0, where the segment-start offsets serve)."""
+    L, n_frames = SEG_F, 2579
+    left, right = (n - 1) // 2, n - 1 - (n - 1) // 2
+    ox, oy, oz, ow = K._movemean_offsets(n, L, halo)
+    for q in range(-(-n_frames // L)):
+        t0 = q * L
+        for fs in {t0, max(0, t0 - halo)}:
+            for pos, (plain, early) in ((fs + right + 1, (ox, oz)), (fs - left, (oy, ow))):
+                if 0 < pos < n_frames:
+                    assert pos % L == (early if fs % L else plain)
+
+
+# ---------------------------------------------------------------------------
 # the tile plan
 # ---------------------------------------------------------------------------
 def test_tile_constants_match_the_sources():
@@ -388,7 +584,8 @@ def test_tile_constants_match_the_sources():
     assert const("PART_COLS", "time_tiles.cuh") == PART_COLS
     assert const("SEG", "nonstationary_mask.cu") == SEG_B
     assert const("SEG", "stationary_mask.cu") == SEG_E
-    assert SEG_B % const("GROUP", "time_tiles.cuh") == SEG_E % 8 == 0
+    assert const("SEG", "torch_nonstationary_mask.cu") == SEG_F
+    assert SEG_B % const("GROUP", "time_tiles.cuh") == SEG_E % 8 == SEG_F % 8 == 0
 
 
 @pytest.mark.parametrize("words,n_taps,seg", [(2, 19, SEG_B), (2, 1, SEG_B), (1, 19, SEG_E),
@@ -423,3 +620,56 @@ def test_short_planes_have_one_segment():
     for n_frames in (1, 5, SEG_B):
         assert TimeTilePlan(1, n_frames, 513, 19, 2, SEG_B).n_segs == 1
     assert TimeTilePlan(1, SEG_B + 1, 513, 19, 2, SEG_B).n_segs == 2
+
+
+@pytest.mark.parametrize("half", [0, 9, 70, 780, 781, 2000])
+def test_movemean_plan_route_follows_the_shared_memory(half):
+    """F's route is the tile plan's: a blend tile of one word a frame, 32
+    columns x (4 x 64 + 2h) frames, smooths in the final pass while it fits
+    a block's 232,448 bytes (h <= 780); past that the blend goes to a plane
+    and the smoothing launch takes it (halo 0); one tap stages nothing.
+    The window's far ends are read from device memory on every route, so
+    n_movemean never enters the plan."""
+    n_taps = 2 * half + 1
+    plan = TimeTilePlan(77, 2579, 513, n_taps, 1 if n_taps > 1 else 0, SEG_F)
+    tile = 4 * TILE_COLS * (TILE_SEGS * SEG_F + 2 * half)
+    if n_taps == 1:
+        assert plan.fused and plan.halo == 0 and plan.smem_bytes == 0
+    else:
+        assert plan.fused == (tile <= SMEM_MAX) == (half <= 780)
+        assert plan.halo == (half if plan.fused else 0)
+        assert plan.smem_bytes == (tile if plan.fused else 4 * TILE_COLS * TILE_SEGS * SEG_F)
+    assert plan.smem_bytes <= SMEM_MAX
+
+
+def test_movemean_plan_fills_the_card_at_the_torch_headline():
+    """77 views x 2,579 frames x 513 bins, 19 time taps: the tile fits with
+    its halo (34 KB, six blocks an SM) and each segment pass has at least
+    10,000 blocks (the column walk had 309)."""
+    plan = TimeTilePlan(77, 2579, 513, 19, 1, SEG_F)
+    assert plan.fused and plan.halo == 9 and plan.n_segs == 41
+    assert plan.smem_bytes == 4 * 32 * (256 + 18) and 6 * plan.smem_bytes <= 233472
+    assert min(plan.final_blocks, plan.part_blocks) >= 10000
+
+
+@pytest.mark.parametrize("n_movemean,temp", [(0, 0.02), (-3, 0.02), (20, 0.0), (20, float("inf")),
+                                             (20, float("nan")), (20, 1e-40)])
+def test_movemean_refuses_what_the_kernel_cannot_divide_by(n_movemean, temp):
+    """F's wrapper refuses a window under one frame and a temp that is not a
+    normal float32 (the kernel's division is exact only for a normal
+    divisor), on the CPU as on the card."""
+    z = torch.ones(1, 4, 3)
+    with pytest.raises(ValueError, match="n_movemean|temp"):
+        K.torch_nonstationary_mask(z, z, n_movemean, 0.5, temp, 1.0, (1.0,))
+
+
+@pytest.mark.parametrize("temp", [-0.02, 1.2e-38, 5.0])
+def test_movemean_takes_any_normal_temp(temp):
+    """A negative or tiny normal temp is taken; the plain version's mask is
+    finite (a tiny temp saturates the sigmoid, which the kernel's overflow
+    guard keeps)."""
+    rng = np.random.default_rng(3)
+    re, im = (torch.as_tensor(rng.standard_normal((2, 9, 5)).astype(np.float32))
+              for _ in range(2))
+    out = K.torch_nonstationary_mask(re, im, 4, 0.5, temp, 0.9, (0.25, 0.5, 0.25))
+    assert out.shape == re.shape and bool(torch.isfinite(out).all())

@@ -3,7 +3,9 @@
 headline shapes (960 s of 48 kHz audio, n_fft 1024 / hop 256), at
 n_fft 1536 / hop 384 (the first 60 s, and all 960 s), n_fft 400 / hop 100
 (960 s) and n_fft 1100 / hop 275 (60 s, the product route), chunked as
-``reduce_noise`` chunks (600000 / 30000). Two times per kernel: CUDA
+``reduce_noise`` chunks (600000 / 30000); and A alone on the 10 s noise
+row of ``chip_smoke.py`` (n_fft 1024, unchunked: the stationary paths'
+threshold spectra, TPU row 3). Two times per kernel: CUDA
 events around one call, the minimum of ``--reps`` runs after a warm-up (the
 host's launch work included, as ``chip_smoke.py`` times), and the device
 time of the kernel alone, the mean over ``--reps`` calls in a
@@ -21,15 +23,15 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
 import sys
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-sys.path.append(str(ROOT))  # chip_smoke's helpers, after PYTHONPATH's package
+sys.path.append(str(ROOT))  # this tree's package, after PYTHONPATH's
 
 CELLS = (  # name, n_fft, hop, seconds
     ("headline n_fft 1024, 960 s", 1024, 256, 960),
@@ -40,18 +42,6 @@ CELLS = (  # name, n_fft, hop, seconds
 )
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of the kernels one call of ``fn`` launches, ms."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in on_card) / reps / 1e3
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
@@ -59,7 +49,18 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import noisereduce_tpu_torch
-    from chip_smoke import CHUNK, PADDING, SR, card_line, headline_signal, time_ms
+    # this tree's chip_smoke.py for the helpers and inputs, whichever
+    # package PYTHONPATH puts first
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    CHUNK, NOISE_SECONDS, PADDING, SR = cs.CHUNK, cs.NOISE_SECONDS, cs.PADDING, cs.SR
+    card_line, headline_signal, noise_clip, time_ms = (
+        cs.card_line, cs.headline_signal, cs.noise_clip, cs.time_ms)
+
+    def device_ms(fn, reps):  # the device time of one call's kernels, ms
+        return sum(cs.device_ms(fn, reps).values())
+
     from noisereduce_tpu_torch.config import StftConfig
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
@@ -88,6 +89,10 @@ def main() -> None:
         )
         del re, im, mask
         torch.cuda.empty_cache()
+    noise = torch.as_tensor(noise_clip(NOISE_SECONDS)).cuda()[None]
+    an = (noise, gate_geometry(StftConfig(n_fft=1024, hop_length=256), noise.shape[-1]))
+    out["noise_row"] = dict(spectra_ms=time_ms(lambda: K.spectra(*an), args.reps),
+                            spectra_device_ms=device_ms(lambda: K.spectra(*an), args.reps))
     print(json.dumps(out), flush=True)
 
 

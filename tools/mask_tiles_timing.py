@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the mask kernels B ``nonstationary_mask`` and E ``stationary_mask``
-on one CUDA card at the headline shapes (960 s of 48 kHz audio, n_fft 1024
-/ hop 256, chunked as ``reduce_noise`` chunks: 77 views x 2,579 frames x
-513 bins), in four cases: B with the headline's 19 time taps, B with one
-unit tap (the staged geometry's mask), E with a 10 s noise clip's
-threshold, and E with each view's own statistics (top_db 40, TorchGate's
-n_std). The spectra are kernel A's of ``chip_smoke.py``'s headline signal
-(the scipy table; E's own statistics on the torch table's, as the torch
-batch gives them). Per case: CUDA events around one call, the minimum of
-``--reps`` after a warm-up (the host's launch work included); the device
+"""Time the mask kernels B ``nonstationary_mask``, E ``stationary_mask`` and
+F ``torch_nonstationary_mask`` on one CUDA card at the headline shapes (960
+s of 48 kHz audio, n_fft 1024 / hop 256, chunked as ``reduce_noise``
+chunks: 77 views x 2,579 frames x 513 bins), in five cases: B with the
+headline's 19 time taps, B with one unit tap (the staged geometry's mask),
+E with a 10 s noise clip's threshold, E with each view's own statistics
+(top_db 40, TorchGate's n_std), and F with the torch headline's gate
+(n_movemean 375, its 19 SVD time taps). The spectra are kernel A's of
+``chip_smoke.py``'s headline signal (the scipy table; E's own statistics
+and F on the torch table's, as the torch paths give them). Per case: CUDA
+events around one call, the minimum of ``--reps`` after a warm-up (the
+host's launch work included); the device
 time of the call's kernels, the mean over ``--reps`` calls in a
 ``torch.profiler`` trace, by kernel name; the CUDA launches of one call
 (``cuda_launches``, where the package records it); the bytes bound (re, im
@@ -18,7 +20,7 @@ and power limit first and one JSON line last.
     python3 tools/mask_tiles_timing.py [--reps 10] [--save PATH]
     python3 tools/mask_tiles_timing.py --compare OLD.pt NEW.pt
 
-``--save`` writes the four masks to PATH (torch.save); ``--compare``
+``--save`` writes the five masks to PATH (torch.save); ``--compare``
 prints, per case, whether two saved runs are bitwise equal and their
 largest |difference|. The ``noisereduce_tpu_torch`` timed is the one
 Python imports first: to time a parent checkout (``git archive`` into an
@@ -29,36 +31,18 @@ JAX.
 from __future__ import annotations
 
 import argparse
-import collections
+import importlib.util
 import json
 import pathlib
-import re as regex
 import sys
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-sys.path.append(str(ROOT))  # chip_smoke's helpers, after PYTHONPATH's package
+sys.path.append(str(ROOT))  # this tree's package, after PYTHONPATH's
 
 CASES = ("nonstationary_mask", "nonstationary_mask (unit tap)", "stationary_mask",
-         "stationary_mask (self statistics)")
-
-
-def device_ms(fn, reps: int) -> dict:
-    """Mean device time per call of ``fn``, ms, by kernel name."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = regex.search(r"([\w:]+)(?:<[^>]*>)?\(", e.name)
-            by_name[m.group(1).lstrip(":") if m else e.name] += e.time_range.elapsed_us() / reps / 1e3
-    return dict(by_name)
+         "stationary_mask (self statistics)", "torch_nonstationary_mask")
 
 
 def compare(old_path: str, new_path: str) -> None:
@@ -85,11 +69,19 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import noisereduce_tpu_torch as nr
-    from chip_smoke import (CHUNK, HBM_BYTES_PER_S, NOISE_SECONDS, PADDING, SR, card_line,
-                            headline_signal, noise_clip, time_ms)
+    # this tree's chip_smoke.py for the helpers and inputs, whichever
+    # package PYTHONPATH puts first
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    CHUNK, HBM_BYTES_PER_S, NOISE_SECONDS, PADDING, SR = (
+        cs.CHUNK, cs.HBM_BYTES_PER_S, cs.NOISE_SECONDS, cs.PADDING, cs.SR)
+    card_line, device_ms, headline_signal, noise_clip, time_ms = (
+        cs.card_line, cs.device_ms, cs.headline_signal, cs.noise_clip, cs.time_ms)
     from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _rank1_taps
     from noisereduce_tpu_torch.ops.dsp import tri_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -99,12 +91,15 @@ def main() -> None:
     noise = torch.as_tensor(noise_clip(NOISE_SECONDS)).cuda()
     cfg, scfg = nr.GateConfig(sr=SR), nr.GateConfig(sr=SR, stationary=True)
     tgate = nr.api.torch_gate_for(SR, stationary=True)
+    fgate = nr.api.torch_gate_for(SR)  # the gate of the torch headline
     re, im = K.spectra(x, gate_geometry(cfg.stft, CHUNK + 2 * PADDING), CHUNK, PADDING)
     tre, tim = K.spectra(x, gate_geometry(tgate.stft_config, CHUNK + 2 * PADDING), CHUNK,
                          PADDING)
     tt = tri_norm(cfg.smoothing[1])
     nb = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
     thr = stationary_noise_threshold(noise, scfg)
+    f = (fgate.n_movemean_nonstationary, fgate.n_thresh_nonstationary,
+         fgate.temp_coeff_nonstationary, fgate.prop_decrease, _rank1_taps(fgate.smoothing)[1])
     calls = {
         CASES[0]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, tt)),
         CASES[1]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, (1.0,))),
@@ -113,10 +108,13 @@ def main() -> None:
         CASES[3]: (K.stationary_mask,
                    lambda: K.stationary_mask(tre, tim, None, 1, tgate.prop_decrease, tt,
                                              top_db=40.0, n_std=tgate.n_std_thresh_stationary)),
+        CASES[4]: (K.torch_nonstationary_mask,
+                   lambda: K.torch_nonstationary_mask(tre, tim, *f)),
     }
     moved = 3 * re.numel() * re.element_size()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     out, saved = {}, {}
+    print(f"F: n_movemean {f[0]}, {len(f[-1])} time taps", flush=True)
     for case, (wrapper, fn) in calls.items():
         saved[case] = fn()
         ms = time_ms(fn, args.reps)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels B and E (``tools/mask_tiles_timing.py``) in copies of
+"""Time kernels B, E and F (``tools/mask_tiles_timing.py``) in copies of
 ``noisereduce_tpu_torch`` with other time tiles, or with one piece of the
 final passes' work taken out, to see where their time goes. The copies go
 under ``$TMPDIR``; the repository's sources are not touched. The copies
@@ -16,8 +16,29 @@ anything.
   of (|Z| - w) / w' (no division, exp or reciprocal);
 - ``float_carries``: B's final pass runs its y and w recurrences in
   float32 (no float64 arithmetic, no float <-> double conversions);
-- ``no_smoothing``: the final passes of B and E take one tap of the
-  time taps (the correlation's chain of n_taps fmafs per output gone).
+- ``no_smoothing``: the final passes of B, E and F take one tap of the
+  time taps (the correlation's chain of n_taps fmafs per output gone);
+- ``f_ieee``: F's three divisions as IEEE divisions, each with its range
+  check and branch to the slow path;
+- ``f_batch8``, ``f_batch2``: F's final pass in batches of 8 or 2
+  frames, not 4;
+- ``f_seg48``, ``f_seg56``: F with segments of 48 or 56 frames, not 64
+  (a tile of 27 or 31 KB: 8 or 7 blocks an SM, not 6);
+- ``ring_chain``: the tap chain of B, E and F with its window of GROUP
+  raw values as a ring (taps in runs of GROUP, constant slots, no
+  register moves);
+- ``f_partials_no_captures``, ``f_partials_float_sum``,
+  ``f_partials_no_store``: F's partials without the four offset
+  captures, with a float sum, or without the |Z| store;
+- ``f_skeleton``: F's final pass with only its loads, stores and tile
+  (no floor, sigmoid or tap chain); ``f_skeleton_no_far_reads``: that
+  without the reads n frames away;
+- ``f_no_far_reads``: F's final pass takes its own frame's |Z| as the
+  entering and the leaving frame (no reads n frames away);
+- ``f_no_sigmoid``: F's final pass stores |Z| - ma in place of the
+  sigmoid of the ratio (the compiler drops the divisions and the exp);
+- ``f_no_prefix``: F's floor from the three frames' |Z| in float32 (no
+  float64 arithmetic or conversions in the final pass).
 
 Needs one CUDA card; imports nothing of JAX.
 """
@@ -52,7 +73,75 @@ VARIANTS = {
     ],
     "no_smoothing": [("time_tiles.cuh", "for (int d = 0;; ++d) {",
                       "for (int d = n_taps - 1;; ++d) {")],
+    "f_ieee": [
+        ("torch_nonstationary_mask.cu",
+         "const float ratio = ratio_of(own[u], ma[u]);",
+         "const float ratio = (own[u] - ma[u]) / (ma[u] == 0.f ? 1.f : ma[u]);"),
+        ("torch_nonstationary_mask.cu",
+         "const float y = 1.f + expf(-div_sat(ratio - n_thresh, temp, r_temp));",
+         "const float y = 1.f + expf(-((ratio - n_thresh) / temp));"),
+        ("torch_nonstationary_mask.cu",
+         "const float sg = isinf(y) ? 0.f : div_by(1.f, y, rcp_refined(y));", "const float sg = 1.f / y;"),
+    ],
+    "f_batch8": [("torch_nonstationary_mask.cu", "constexpr int BATCH = 4;",
+                  "constexpr int BATCH = 8;")],
+    "f_batch2": [("torch_nonstationary_mask.cu", "constexpr int BATCH = 4;",
+                  "constexpr int BATCH = 2;")],
+    "f_seg48": [("../geometry.py", "SEG_F = 64", "SEG_F = 48"),
+                ("torch_nonstationary_mask.cu", "constexpr int SEG = 64;",
+                 "constexpr int SEG = 48;")],
+    "f_seg56": [("../geometry.py", "SEG_F = 64", "SEG_F = 56"),
+                ("torch_nonstationary_mask.cu", "constexpr int SEG = 64;",
+                 "constexpr int SEG = 56;")],
+    "ring_chain": [("time_tiles.cuh", """    for (int d = 0;; ++d) {
+      const float tap = taps ? __ldg(taps + d) : 1.f;
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) acc[g] = fmaf(tap, win[g], acc[g]);
+      if (d + 1 == n_taps) break;
+#pragma unroll
+      for (int g = 0; g + 1 < GROUP; ++g) win[g] = win[g + 1];
+      win[GROUP - 1] = *p;  // frame t - n_taps/2 + GROUP + d
+      p += stride;
+    }""", """    for (int d0 = 0; d0 < n_taps; d0 += GROUP) {
+#pragma unroll
+      for (int j = 0; j < GROUP; ++j) {
+        if (d0 + j == n_taps) break;
+        const float tap = taps ? __ldg(taps + d0 + j) : 1.f;
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) acc[g] = fmaf(tap, win[(g + j) % GROUP], acc[g]);
+        if (d0 + j + 1 < n_taps) win[j] = p[(d0 + j) * stride];
+      }
+    }""")],
+    "f_partials_no_captures": [("torch_nonstationary_mask.cu", """         if (u == o.x) sx = s;
+         if (u == o.y) sy = s;
+         if (u == o.z) sz = s;
+         if (u == o.w) sw = s;""", "")],
+    "f_partials_float_sum": [
+        ("torch_nonstationary_mask.cu", "double s = 0.0, sx = 0.0, sy = 0.0, sz = 0.0, sw = 0.0;",
+         "float s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f, sw = 0.f;"),
+        ("torch_nonstationary_mask.cu", "s += (double)m;", "s += m;")],
+    "f_partials_no_store": [("torch_nonstationary_mask.cu",
+                             "mag[c.base + (long long)t * n_bins] = m;", "(void)mag;")],
+    "f_no_far_reads": [
+        ("torch_nonstationary_mask.cu",
+         "e[u] = __ldg(z + (at + enter_off));", "e[u] = o[u];"),
+        ("torch_nonstationary_mask.cu",
+         "l[u] = __ldg(z + (at - leave_off));", "l[u] = o[u];"),
+    ],
+    "f_no_sigmoid": [(
+        "torch_nonstationary_mask.cu",
+        "const float sg = isinf(y) ? 0.f : div_by(1.f, y, rcp_refined(y));",
+        "const float sg = own[u] - ma[u];",
+    )],
+    "f_no_prefix": [("torch_nonstationary_mask.cu",
+                     "ma[u] = (float)((a.value() - b.value()) * inv_n);",
+                     "ma[u] = (own[u] + enter[u] + leave[u]) * 0.25f;")],
 }
+
+
+# F's final pass reduced to its loads and stores (floor, sigmoid and taps out)
+VARIANTS["f_skeleton"] = VARIANTS["no_smoothing"] + VARIANTS["f_no_sigmoid"] + VARIANTS["f_no_prefix"]
+VARIANTS["f_skeleton_no_far_reads"] = VARIANTS["f_skeleton"] + VARIANTS["f_no_far_reads"]
 
 
 def tile_edits(seg_b: str, seg_e: str, cols: str, segs: str) -> list:
