@@ -15,8 +15,9 @@ last line is printed only when every phase passed):
    inputs, max |dev| against the bound below, the kernel's, the plain
    version's and one library call's time, and the bound the card's memory
    rate and FP32 rate set (for A and D from the function's own bytes, no
-   table); A and D run their FFT route (n_fft 1024, radix 8, 8, 8), and
-   their product route is held and timed at the same shapes beside it;
+   table); A and D run their FFT route (n_fft 1024, radix 8, 8, 8; the
+   real-FFT kernels), and their product route is held and timed at the
+   same shapes beside it;
    also kernel A on a
    10 s noise row (the
    threshold spectra), kernel B with one unit tap (the staged mask), and
@@ -58,17 +59,18 @@ last line is printed only when every phase passed):
     the per-signal calls, timed;
 13. torch staged geometry: hop 300, which A and D do not serve, through
     the plain STFT and iSTFT around F and C, against the staged plain path;
-    then the mixed-radix geometry: n_fft 1536 (M = 768 = 2^8 x 3) with hop
-    384 on the first 60 s of the headline signal through ``reduce_noise``,
-    where A and D take their FFT route (radix 8, 8, 4, 3), against the
-    staged plain path, and those two kernels against their plain versions
-    at its shapes, beside ``torch.stft`` / ``torch.istft`` and their
-    product route at the same shapes, in both conventions; the same on the
-    960 s headline signal (the mixed-radix headline, timed end to end);
-    then the product route geometry: n_fft 1100 (1100 / 2 = 2 x 5^2 x 11,
-    which the FFT route does not serve) with hop 275 on the first 60 s,
-    where A and D take their DFT-product route, against the staged plain
-    path, and those two kernels against their plain versions;
+    then the cells of A's and D's other routes (``FFT_CELLS``), each
+    through ``reduce_noise`` against the staged plain path, its launches
+    counted by route, then A and D against their plain versions at its
+    shapes beside ``torch.stft`` / ``torch.istft`` and their product route
+    at the same shapes, in both conventions: n_fft 1536 / hop 384 (M = 768
+    = 2^8 x 3, the real-FFT kernels' radix 8, 8, 4, 3) on the first 60 s
+    of the headline signal and on all 960 s (timed end to end); n_fft
+    1100 / hop 275 (M = 550 = 2 x 5^2 x 11, the complex-frame kernels with
+    a radix-11 stage) the same way; n_fft 1323 / hop 441 at 44.1 kHz (odd,
+    3^3 x 7^2: two frames a complex transform), 60 s; n_fft 1102 / hop 551
+    at 44.1 kHz (M = 551 = 19 x 29: the chirp-z route), 60 s; and n_fft 40
+    / hop 10 at 8 kHz (below 64: the DFT-product route), 60 s;
 14. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
@@ -83,9 +85,10 @@ last line is printed only when every phase passed):
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
-after, A's and D's also by route: every path whose n_fft the FFT route
-serves (1024, 2048 in the golden set, 1536) must launch them on the FFT
-route only, the n_fft-1100 path on the product route only. Stationary
+after, A's and D's also by route: every path must launch them on its
+geometry's route only (the FFT route at 1024, 2048 in the golden set,
+1536, 1100 and 1323; the chirp-z route at 1102; the product route at 40).
+The kernels JSON line lists A and D by route (``fft_route``). Stationary
 outputs are binary-threshold gates: a cell whose dB value
 lies within float32 resolution of the threshold may decide either way in
 two float32 implementations, and one such cell moves the output by ~1e-3 of
@@ -121,10 +124,27 @@ STAGED_SR, STAGED_SECONDS, STAGED_KW = 16000, 30, dict(n_fft=1024, hop_length=30
 # n_grad_freq 64: the merged TPU kernel's frequency halo (66 bins) leaves
 # under 16 owned bins per 128-lane tile, so the JAX package splits the gate
 SPLIT_SR, SPLIT_SECONDS, SPLIT_KW = 16000, 30, dict(freq_mask_smooth_hz=2000)
-# a mixed-radix n_fft (1536 / 2 = 2^8 x 3): A and D take their FFT route
-MIXED_SECONDS, MIXED_KW = 60, dict(n_fft=1536, hop_length=384)
-# an n_fft whose half has a prime factor 11: A and D take their product route
-PRODUCT_SECONDS, PRODUCT_KW = 60, dict(n_fft=1100, hop_length=275)
+# The cells of A's and D's other routes, each a path through reduce_noise
+# (non-stationary) on the first `seconds` of the headline signal at `sr`
+# (48 kHz: the headline's own samples), then A and D against their plain
+# versions at its shapes beside torch.stft / torch.istft and their product
+# route, in both conventions: (label, sr, seconds, STFT arguments, route,
+# the JSON entry of A and D it times, or None). A 960 s cell's entry also
+# carries the 60 s cell of the same geometry before it.
+FFT_CELLS = (
+    # 1536 / 2 = 2^8 x 3: the real-FFT kernels with a radix-3 stage
+    ("mixed radix geometry", SR, 60, dict(n_fft=1536, hop_length=384), "fft", None),
+    ("mixed radix headline", SR, 960, dict(n_fft=1536, hop_length=384), "fft", "mixed_radix"),
+    # 1100 / 2 = 2 x 5^2 x 11: the complex-frame kernels with a radix-11 stage
+    ("radix-11 geometry", SR, 60, dict(n_fft=1100, hop_length=275), "fft", None),
+    ("radix-11 headline", SR, 960, dict(n_fft=1100, hop_length=275), "fft", "radix11"),
+    # 30 ms at 44.1 kHz, 1323 = 3^3 x 7^2: odd, two frames a transform
+    ("odd geometry", 44100, 60, dict(n_fft=1323, hop_length=441), "fft", "odd"),
+    # 25 ms at 44.1 kHz, 1102 / 2 = 551 = 19 x 29: the chirp-z route
+    ("chirp geometry", 44100, 60, dict(n_fft=1102, hop_length=551), "chirp", "chirp"),
+)
+# an n_fft below 64 (5 ms frames at 8 kHz): A and D take their product route
+PRODUCT_SR, PRODUCT_SECONDS, PRODUCT_KW = 8000, 60, dict(n_fft=40, hop_length=10)
 # the card's published peaks (H100 SXM data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -165,8 +185,8 @@ FLIP_SHARE = 1e-5
 BORDER_DB = 2e-3
 # end to end, as tests/test_fused_pipeline.py:55 holds the TPU kernel: x max|ref|
 E2E_BOUND = 5e-5
-# the FFT route of A and D, the route of every n_fft whose half is
-# 2^k 3^a 5^b 7^c
+# A and D at the headline: the FFT route's real-FFT kernels (an even n_fft
+# whose half is 2^k 3^a 5^b 7^c)
 SOURCES = {
     "spectra": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
     "nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/nonstationary_mask.cu",
@@ -178,16 +198,26 @@ SOURCES = {
     # the FFT route at a mixed-radix n_fft (1536, the radix-3 stage)
     "spectra_mixed_radix": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
     "istft_ola_mixed_radix": "noisereduce_tpu_torch/ops/cuda/csrc/istft_fft.cu",
-    # the product route of A and D, for an n_fft the FFT route does not serve
+    # the FFT route's complex-frame kernels: radix 11 (1100), odd (1323)
+    "spectra_radix11": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
+    "istft_ola_radix11": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
+    "spectra_odd": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
+    "istft_ola_odd": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
+    # the chirp-z route (1102), in the complex-frame kernels
+    "spectra_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
+    "istft_ola_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
+    # the product route of A and D, for an n_fft neither other route serves
     "spectra_product": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
     "istft_ola_product": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
 }
 # JSON entries of A and D: (the wrapper that launches them, the route)
 ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
-          "spectra_mixed_radix": ("spectra", "fft"),
-          "istft_ola_mixed_radix": ("istft_ola", "fft"),
           "spectra_product": ("spectra", "product"),
           "istft_ola_product": ("istft_ola", "product")}
+for _label, _sr, _secs, _kw, _route, _entry in FFT_CELLS:
+    if _entry:
+        ROUTED[f"spectra_{_entry}"] = ("spectra", _route)
+        ROUTED[f"istft_ola_{_entry}"] = ("istft_ola", _route)
 # the TPU kernel each replaces (file:line), and the rows of PERF.md's
 # kernel table it serves
 REPLACES = {
@@ -207,8 +237,8 @@ REPLACES = {
                                 "noisereduce_tpu/ops/pallas/torch_dispatch.py:485 (row 5)",
     "fm_nonstationary_mask": "noisereduce_tpu/ops/pallas_mask.py:229 (row 6)",
 }
-for _name in ("spectra", "istft_ola"):
-    REPLACES[f"{_name}_mixed_radix"] = REPLACES[f"{_name}_product"] = REPLACES[_name]
+for _name in ROUTED:
+    REPLACES[_name] = REPLACES[ROUTED[_name][0]]
 # kernel F beside the torch headline's window (375 frames, time_constant_s
 # 2): time_constant_s 10 (1,875 frames) and an even window (one more frame
 # on the right)
@@ -252,23 +282,84 @@ def time_ms(fn, reps: int = 3) -> float:
     return best
 
 
-def device_ms(fn, reps: int = 3) -> dict:
+def device_ms(fn, reps: int = 3, tries: int = 3) -> dict:
     """Mean device time per call of ``fn``, ms, by kernel name: a
-    ``torch.profiler`` trace of ``reps`` calls after a warm-up."""
+    ``torch.profiler`` trace of ``reps`` calls after a warm-up. A trace
+    that lost kernels (none at all, or a kernel seen a number of times
+    that is not a multiple of ``reps``; one run on the card lost one call
+    of three in most of its traces) is taken again, up to ``tries``
+    times; then {} (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = collections.defaultdict(float)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = regex.search(r"([\w:]+)(?:<[^>]*>)?\(", e.name)
-            by_name[m.group(1).lstrip(":") if m else e.name] += e.time_range.elapsed_us() / reps / 1e3
-    return dict(by_name)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(float)
+        seen = collections.Counter()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen[e.name] += 1
+                m = regex.search(r"([\w:]+)(?:<[^>]*>)?\(", e.name)
+                by_name[m.group(1).lstrip(":") if m else e.name] += e.time_range.elapsed_us() / reps / 1e3
+        if seen and all(n % reps == 0 for n in seen.values()):
+            return dict(by_name)
+    return {}
+
+
+# a spinning kernel of ~5 ms on an H100's ~2 GHz clock, longer than a
+# call's host issue time (0.03-0.4 ms)
+SPIN_CYCLES = 10_000_000
+
+
+def queued_ms(fn, reps: int = 5):
+    """The card's time for one call of ``fn``, ms, with the host's launch
+    work hidden: a spinning kernel holds the stream while the host issues
+    the call, so the start event fires just before the call's first
+    kernel (CUDA events, min of ``reps`` after a warm-up). None when the
+    host took longer to issue a call than the card to spin, as a call that
+    waits for the card does (``torch.istft`` reads its window envelope
+    back). Late in this script's run the profiler (``device_ms``) lost
+    kernels of most traces on the card, so the route cells time their
+    device work this way first."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    spin_ms = start.elapsed_time(end)
+    best = None
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms < spin_ms / 2:
+            ms = start.elapsed_time(end)
+            best = ms if best is None else min(best, ms)
+    return best
+
+
+def device_times(label, **fns) -> dict:
+    """Each of ``fns``' device time of one call, ms, as
+    ``<name>_device_ms``: ``queued_ms``, else the profiler's
+    (``device_ms``), else None. A 0.1 ms call's events also hold the
+    host's launch work, whose spread between runs may exceed the gap
+    between a kernel and its library call."""
+    out = {f"{k}_device_ms": queued_ms(fn) or sum(device_ms(fn).values()) or None
+           for k, fn in fns.items()}
+    print(f"kernel {label} device time: "
+          + ", ".join(f"{k} {v:.4f} ms" if v else f"{k} not measured" for k, v in out.items()),
+          flush=True)
+    return out
 
 
 def headline_signal(seconds: int, sr: int = SR, seed: int = SEED) -> np.ndarray:
@@ -350,8 +441,8 @@ def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale
 
 def product_route(label, fn, ref, lim):
     """The product route of kernel A or D (the earlier kernel, which now
-    serves only an n_fft the FFT route does not) at the same shapes:
-    within ``lim`` x max|ref| of the plain version, and its time."""
+    serves only an n_fft that neither other route takes) at the same
+    shapes: within ``lim`` x max|ref| of the plain version, and its time."""
     dev, scale = max_dev(fn(), ref)
     ms = time_ms(fn)
     print(f"kernel {label}, product route at the same shapes: max|dev| {dev:.3e} "
@@ -690,59 +781,14 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
     )
 
 
-def product_kernel_phase(xq_cuda: torch.Tensor, cfg, results) -> None:
-    """Kernels A and D on their product route (n_fft 1100, which the FFT
-    route does not serve) against their plain versions at the shapes the
-    product route geometry's path gives them; adds the entries
-    ``spectra_product`` and ``istft_ola_product`` to ``results``."""
-    from noisereduce_tpu_torch.ops.cuda import kernels as K
-    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
-    from noisereduce_tpu_torch.ops.dsp import tri_norm
-    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
-
-    geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
-    ngf, ngt = cfg.smoothing
-    window = torch.hann_window(geo.win, periodic=True, device=xq_cuda.device)
-    a = (xq_cuda[None], geo, CHUNK, PADDING)
-    re, im = K.spectra(*a)
-    rre, rim = K.spectra_ref(*a)
-    views = extract_chunks(xq_cuda[None], CHUNK, PADDING).reshape(-1, geo.view_len).contiguous()
-    results["spectra_product"] = measure(
-        f"spectra (product route, n_fft {geo.n_fft})", BOUNDS["spectra"], lambda: K.spectra(*a),
-        lambda: K.spectra_ref(*a), torch.stack([re, im]), torch.stack([rre, rim]),
-        nbytes(xq_cuda, re, im), re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win),
-        library_fn=lambda: torch.stft(
-            views, geo.n_fft, geo.hop, geo.win, window, center=True,
-            pad_mode="constant", return_complex=True,
-        ),
-        scale_bound=True,
-    )
-    del rre, rim
-    m = K.freq_smooth_blend(
-        K.nonstationary_mask(re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
-                             cfg.sigmoid_slope_nonstationary, tri_norm(ngt)),
-        tri_norm(ngf), cfg.prop_decrease)
-    d = (re, im, m, geo, PADDING, CHUNK)
-    zm = torch.complex(re * m, im * m).transpose(1, 2).contiguous()
-    results["istft_ola_product"] = measure(
-        f"istft_ola (product route, n_fft {geo.n_fft})", BOUNDS["istft_ola"],
-        lambda: K.istft_ola(*d),
-        lambda: K.istft_ola_ref(*d), K.istft_ola(*d), K.istft_ola_ref(*d),
-        nbytes(re, im, m) + 4 * d[0].shape[0] * CHUNK,
-        re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
-        library_fn=lambda: torch.istft(
-            zm, geo.n_fft, geo.hop, geo.win, window, center=True, length=geo.view_len),
-        scale_bound=True,
-    )
-
-
-def mixed_radix_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
-    """Kernels A and D on their FFT route at a mixed-radix n_fft against
-    their plain versions at the shapes ``reduce_noise`` gives them on the
-    signal ``xc`` (chunked as the API chunks), each beside ``torch.stft`` /
-    ``torch.istft`` and its product route at the same shapes; then the same
-    under torch conventions (``gate``: the TorchGate of
-    ``reduce_noise(use_torch=True)`` at this n_fft), held at 1e-5 x.
+def route_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
+    """Kernels A and D on the route of ``cfg``'s geometry against their
+    plain versions at the shapes ``reduce_noise`` gives them on the signal
+    ``xc`` (chunked as the API chunks it, or one padded view), each beside
+    ``torch.stft`` / ``torch.istft`` and, off the product route, their
+    product route at the same shapes, each timed also in device time; then,
+    with ``gate`` (the TorchGate of ``reduce_noise(use_torch=True)`` at
+    this geometry), the same under torch conventions, held at 1e-5 x.
     Returns {"spectra": ..., "istft_ola": ...} of the kernels JSON line."""
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
@@ -751,27 +797,44 @@ def mixed_radix_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
     from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
     out = {}
-    cs = CHUNK  # the signals here are longer than one chunk
-    views = extract_chunks(xc[None], cs, PADDING).reshape(-1, cs + 2 * PADDING).contiguous()
-    for conv, scfg, lim in (("scipy", cfg.stft, BOUNDS["spectra"]),
-                            ("torch", gate.stft_config, TORCH_TABLE_BOUND)):
-        geo = gate_geometry(scfg, cs + 2 * PADDING)
+    n = xc.numel()
+    if n > CHUNK:  # the views reduce_noise cuts, read straight from the signal
+        cs, core, view_len = CHUNK, CHUNK, CHUNK + 2 * PADDING
+        views = extract_chunks(xc[None], cs, PADDING).reshape(-1, view_len).contiguous()
+        src = (xc[None], cs, PADDING)
+    else:  # one view, the signal padded on both sides
+        core, view_len = n, n + 2 * PADDING
+        views = F.pad(xc[None], (PADDING, PADDING)).contiguous()
+        src = (views, 0, 0)
+    convs = [("scipy", cfg.stft, BOUNDS["spectra"])]
+    if gate is not None:
+        convs.append(("torch", gate.stft_config, TORCH_TABLE_BOUND))
+    for conv, scfg, lim in convs:
+        geo = gate_geometry(scfg, view_len)
         window = torch.hann_window(geo.win, periodic=True, device=xc.device)
         tag = f"{label}, {conv} convention" if conv == "torch" else label
-        a = (xc[None], geo, cs, PADDING)
+        tag = f"{tag}, {geo.route} route"
+        a = (src[0], geo, *src[1:])
         re, im = K.spectra(*a)
         rre, rim = K.spectra_ref(*a)
         ops_a = re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win)
+
+        def lib_a():
+            return torch.stft(views, geo.n_fft, geo.hop, geo.win, window, center=True,
+                              pad_mode="constant", return_complex=True)
+
         ra = measure(
             f"spectra ({tag})", lim, lambda: K.spectra(*a), lambda: K.spectra_ref(*a),
-            torch.stack([re, im]), torch.stack([rre, rim]), nbytes(xc, re, im), ops_a,
-            library_fn=lambda: torch.stft(views, geo.n_fft, geo.hop, geo.win, window,
-                                          center=True, pad_mode="constant",
-                                          return_complex=True),
-            scale_bound=True)
-        ra["product_route"] = product_route(
-            f"spectra ({tag})", lambda: torch.stack(K._spectra_on("product", *a)),
-            torch.stack([rre, rim]), lim)
+            torch.stack([re, im]), torch.stack([rre, rim]), nbytes(src[0], re, im), ops_a,
+            library_fn=lib_a, scale_bound=True)
+        prod_a = {}
+        if geo.route != "product":
+            ra["product_route"] = product_route(
+                f"spectra ({tag})", lambda: torch.stack(K._spectra_on("product", *a)),
+                torch.stack([rre, rim]), lim)
+            prod_a = dict(product=lambda: K._spectra_on("product", *a))
+        ra.update(device_times(f"spectra ({tag})", kernel=lambda: K.spectra(*a),
+                               library=lib_a, **prod_a))
         del rre, rim
         if conv == "scipy":
             ngf, ngt = cfg.smoothing
@@ -781,18 +844,26 @@ def mixed_radix_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
                 tri_norm(ngf), cfg.prop_decrease)
         else:
             m = _mask(re, im, gate)
-        d = (re, im, m, geo, PADDING, cs)
+        d = (re, im, m, geo, PADDING, core)
         y, ry = K.istft_ola(*d), K.istft_ola_ref(*d)
         zm = torch.complex(re * m, im * m).transpose(1, 2).contiguous()
+
+        def lib_d():
+            return torch.istft(zm, geo.n_fft, geo.hop, geo.win, window, center=True,
+                               length=geo.view_len)
+
         rd = measure(
             f"istft_ola ({tag})", lim, lambda: K.istft_ola(*d), lambda: K.istft_ola_ref(*d),
             y, ry, nbytes(re, im, m, y),
             re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
-            library_fn=lambda: torch.istft(zm, geo.n_fft, geo.hop, geo.win, window,
-                                           center=True, length=geo.view_len),
-            scale_bound=True)
-        rd["product_route"] = product_route(
-            f"istft_ola ({tag})", lambda: K._istft_ola_on("product", *d), ry, lim)
+            library_fn=lib_d, scale_bound=True)
+        prod_d = {}
+        if geo.route != "product":
+            rd["product_route"] = product_route(
+                f"istft_ola ({tag})", lambda: K._istft_ola_on("product", *d), ry, lim)
+            prod_d = dict(product=lambda: K._istft_ola_on("product", *d))
+        rd.update(device_times(f"istft_ola ({tag})", kernel=lambda: K.istft_ola(*d),
+                               library=lib_d, **prod_d))
         del re, im, m, y, ry, zm
         torch.cuda.empty_cache()
         if conv == "scipy":
@@ -1255,6 +1326,7 @@ def main() -> None:
     from noisereduce_tpu_torch.models.spectral_gate import _gate_nonstationary_staged
     from noisereduce_tpu_torch.ops.cuda import build
     from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import real_kernel
     from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
     t_start = time.perf_counter()
@@ -1473,54 +1545,61 @@ def main() -> None:
     if not dev <= lim:
         fail("torch staged geometry disagrees with the staged plain path")
 
-    # mixed radix: n_fft 1536 on the first 60 s, then on the 960 s signal
-    for label, secs in (("mixed radix geometry", MIXED_SECONDS),
-                        ("mixed radix headline", HEADLINE_SECONDS)):
-        xq = x[: secs * SR]
+    # A's and D's other routes: each cell's path as a user calls it, against
+    # the staged plain path, then A and D at its shapes
+    def route_cell(label, xq, sr, kw, route, conv_gate=True):
+        c = nr.GateConfig(sr=sr, **kw)
         out, launches[label] = run_path(
-            K, label, lambda: nr.reduce_noise(xq, SR, **MIXED_KW, **ck),
-            dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+            K, label, lambda: nr.reduce_noise(xq, sr, **kw, **ck),
+            dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+            route=route)
         check_output(label, out, xq)
-        c = nr.GateConfig(sr=SR, **MIXED_KW)
         ref = nonstationary_plain(_as_2d(xq)[0], c)[0].cpu().numpy()
         dev = float(np.abs(out.astype(np.float64) - ref).max())
         lim = E2E_BOUND * float(np.abs(ref).max())
-        print(f"{label} (n_fft 1536, hop 384, {secs} s) vs staged plain path: max|dev| "
-              f"{dev:.3e} bound {lim:.3e}", flush=True)
+        secs = len(xq) / sr
+        print(f"{label} ({kw}, {secs:g} s at {sr} Hz, {route} route) vs staged plain path: "
+              f"max|dev| {dev:.3e} bound {lim:.3e}", flush=True)
         if not dev <= lim:
             fail(f"{label} disagrees with the staged plain path")
         del out, ref
-        got = mixed_radix_kernel_phase(
-            torch.as_tensor(xq).cuda(), c, nr.api.torch_gate_for(SR, **MIXED_KW),
-            f"mixed radix, n_fft 1536, {secs} s")
+        gate = nr.api.torch_gate_for(sr, **kw) if conv_gate else None
+        got = route_kernel_phase(torch.as_tensor(xq).cuda(), c, gate,
+                                 f"{label}, n_fft {kw['n_fft']}, {secs:g} s")
         if secs == HEADLINE_SECONDS:
-            ms = time_ms(lambda: nr.reduce_noise(xq, SR, **MIXED_KW, **ck))
+            ms = time_ms(lambda: nr.reduce_noise(xq, sr, **kw, **ck))
             plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(xq)[0], c).cpu())
-            print(f"{label} {secs} s @ {SR} Hz: reduce_noise(n_fft=1536, hop_length=384) "
-                  f"{ms:.1f} ms ({secs / (ms / 1e3):.0f} audio s per wall s), staged plain "
-                  f"path {plain_ms:.1f} ms, on {card}", flush=True)
-            for name in ("spectra", "istft_ola"):
-                results[f"{name}_mixed_radix"] = dict(got[name], cell_60s=cell_60s[name])
-        else:
-            cell_60s = got
+            print(f"{label} {secs:g} s @ {sr} Hz: reduce_noise({kw}) {ms:.1f} ms "
+                  f"({secs / (ms / 1e3):.0f} audio s per wall s), staged plain path "
+                  f"{plain_ms:.1f} ms, on {card}", flush=True)
         torch.cuda.empty_cache()
+        return got
 
-    # product route: n_fft 1100 on the first 60 s of the headline signal
-    xq = x[: PRODUCT_SECONDS * SR]
-    out, launches["product route geometry"] = run_path(
-        K, "product route geometry", lambda: nr.reduce_noise(xq, SR, **PRODUCT_KW, **ck),
-        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
-        route="product")
-    check_output("product route geometry", out, xq)
-    c = nr.GateConfig(sr=SR, **PRODUCT_KW)
-    ref = nonstationary_plain(_as_2d(xq)[0], c)[0].cpu().numpy()
-    dev = float(np.abs(out.astype(np.float64) - ref).max())
-    lim = E2E_BOUND * float(np.abs(ref).max())
-    print(f"product route geometry (n_fft 1100, hop 275, {PRODUCT_SECONDS} s) vs staged "
-          f"plain path: max|dev| {dev:.3e} bound {lim:.3e}", flush=True)
-    if not dev <= lim:
-        fail("product route geometry disagrees with the staged plain path")
-    product_kernel_phase(torch.as_tensor(xq).cuda(), c, results)
+    before = None
+    for label, sr, secs, kw, route, entry in FFT_CELLS:
+        xq = x[: secs * SR] if sr == SR else headline_signal(secs, sr)
+        got = route_cell(label, xq, sr, kw, route)
+        if entry:
+            # the route counts name the route, not the source: the real-FFT
+            # kernels take exactly the n_fft of real_kernel, the
+            # complex-frame kernels the rest of the FFT and chirp routes
+            cplx = not real_kernel(kw["n_fft"])
+            for name in ("spectra", "istft_ola"):
+                if SOURCES[f"{name}_{entry}"].endswith("_cplx.cu") != cplx:
+                    fail(f"{name}_{entry}: n_fft {kw['n_fft']} does not launch "
+                         f"{SOURCES[f'{name}_{entry}']}")
+                results[f"{name}_{entry}"] = dict(
+                    got[name], fft_route=route,
+                    **({"cell_60s": before[name]} if secs == HEADLINE_SECONDS else {}))
+        before = got
+
+    # the product route: an n_fft below 64
+    xp = headline_signal(PRODUCT_SECONDS, PRODUCT_SR)
+    got = route_cell("product route geometry", xp, PRODUCT_SR, PRODUCT_KW, "product",
+                     conv_gate=False)
+    for name in ("spectra", "istft_ola"):
+        results[f"{name}_product"] = dict(got[name], fft_route="product")
+    del xp
 
     gradient_phase(nr, K, card, launches)
 
@@ -1528,10 +1607,13 @@ def main() -> None:
     main_path.update(stationary_mask="stationary headline",
                      torch_nonstationary_mask="torch headline",
                      fm_nonstationary_mask="row 6 mask under grad",
-                     spectra_mixed_radix="mixed radix headline",
-                     istft_ola_mixed_radix="mixed radix headline",
                      spectra_product="product route geometry",
                      istft_ola_product="product route geometry")
+    for label, _, secs, _, _, entry in FFT_CELLS:
+        if entry:
+            main_path[f"spectra_{entry}"] = main_path[f"istft_ola_{entry}"] = label
+    for name in ("spectra", "istft_ola"):
+        results[name]["fft_route"] = "fft"
 
     def count(name, path):
         if name in ROUTED:

@@ -5,7 +5,9 @@ source, all started together, and links them into one shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), under
 ``noisereduce_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
 and flags. Nothing is compiled at import: the CPU tests import every module
-on a machine without ``nvcc``.
+on a machine without ``nvcc``. ``ptxas -v``'s report of each source (every
+kernel's registers, spills and shared memory) stays beside the library as
+``<source stem>.ptxas.txt``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception.
@@ -26,7 +28,8 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+                              "-Xptxas", "-v"]
 LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _vp = ctypes.c_void_p
@@ -68,6 +71,14 @@ _SIGNATURES = {
         _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll,
         _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp,
     ],
+    "nr_spectra_cplx": [
+        _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+    ],
+    "nr_istft_cplx": [
+        _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
+        _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+    ],
 }
 
 _lock = threading.Lock()
@@ -106,9 +117,9 @@ def library_path() -> pathlib.Path:
     return BUILD_ROOT / _digest() / "libnrtorch.so"
 
 
-def _run(cmds: list) -> None:
+def _run(cmds: list) -> list:
     """Run the commands side by side; wait for all, then raise on the
-    first that failed."""
+    first that failed. Returns each command's standard error."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for c in cmds
@@ -119,6 +130,7 @@ def _run(cmds: list) -> None:
             raise RuntimeError(
                 f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{so}\n{se}"
             )
+    return [se for _, se in outs]
 
 
 def _compile(out: pathlib.Path) -> None:
@@ -128,10 +140,12 @@ def _compile(out: pathlib.Path) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [pathlib.Path(tmp) / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
-        _run([
+        reports = _run([
             [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(CSRC / f"{o.stem}.cu")]
             for o in objs
         ])
+        for o, report in zip(objs, reports):
+            (out.parent / f"{o.stem}.ptxas.txt").write_text(report)
         tmp_so = pathlib.Path(tmp) / out.name
         _run([[nvcc, *LINK_FLAGS, "-o", str(tmp_so), *map(str, objs)]])
         os.replace(tmp_so, out)  # atomic: a concurrent loader sees all or nothing

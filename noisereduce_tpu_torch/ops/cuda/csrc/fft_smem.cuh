@@ -1,40 +1,48 @@
-// Shared-memory complex FFT core of the FFT route of kernels A (spectra_fft.cu)
-// and D (istft_fft.cu), for a real length N = 2M, 64 <= N <= 8192, whose
-// half M = 2^k 3^a 5^b 7^c (k >= 0: an odd M such as 441 too).
+// Shared-memory complex FFT core of kernels A and D: the real-FFT kernels
+// (spectra_fft.cu, istft_fft.cu: an even N = 2M, M = 2^k 3^a 5^b 7^c) and
+// the complex-frame kernels (spectra_cplx.cu, istft_cplx.cu: the rest of
+// the FFT route, M or an odd N with radices 11 and 13 too, and the chirp-z
+// route). fft_route.cuh says which n_fft takes which.
 //
-// A block holds up to ELEMS complex values in shared memory: frames of M
-// points each, frame f at logical index f*M, as float2 padded by one slot
-// every 16 (pad()) against bank conflicts. Each segment of the block's
-// threads (a warp, or a few warps together) transforms its own frames.
-// Each stage is a radix-R Stockham step, in a fixed order: the power-of-two
-// part first (R = 8 while at least 8 of it remain, then 4 or 2), then the
-// 3s, the 5s and the 7s. A thread loads the R points of a butterfly into
-// registers, twiddles them, takes the R-point DFT in registers, and after a
-// barrier stores them at the autosorted positions, so the output comes in
-// natural order with no digit reversal. For sub-transform size ns (the
-// product of the radices before this stage) and butterfly j < M/R:
-//   load   v[r] = z[j + r*M/R]
+// A block holds up to ELEMS complex values in shared memory (a big block,
+// Blk<true>, BIG_SLOTS): frame slots of m points each, slot f at logical
+// index f*m, as float2 padded by one slot every 16 (pad()) against bank
+// conflicts. Each segment of the block's threads (a warp, or a few warps
+// together) transforms its own slots. Each stage is a radix-R Stockham
+// step, in a fixed order: the power-of-two part first (R = 8 while at least
+// 8 of it remain, then 4 or 2), then the 3s, 5s, 7s, 11s and 13s. A thread
+// loads the R points of a butterfly into registers, twiddles them, takes
+// the R-point DFT in registers, and after a barrier stores them at the
+// autosorted positions, so the output comes in natural order with no digit
+// reversal. For sub-transform size ns (the product of the radices before
+// this stage) and butterfly j < m/R:
+//   load   v[r] = z[j + r*m/R]
 //   twiddle v[r] *= e^{-+2 pi i (j mod ns) r / (ns R)}
 //   store  z'[(j - j mod ns) R + (j mod ns) + r ns] = DFT_R(v)[r]
-// The twiddles come from a float32 table tw[k] = e^{-2 pi i k / N}, k < N,
-// built in float64 on the host (no fast sincos intrinsics): a stage reads
-// tw[2 q] with q = (j mod ns) r M / (ns R) < M (ns R divides M); the inverse
-// conjugates. The R-point DFTs use float32 constants rounded from float64.
-// FP32 throughout, no tensor cores: the FFT errs by about eps log2 N.
+// The twiddles come from a float32 table tw[k] = e^{-2 pi i k / (2m)}, k <
+// 2m, built in float64 on the host (no fast sincos intrinsics): a stage
+// reads tw[2 q] with q = (j mod ns) r m / (ns R) < m (ns R divides m); the
+// inverse conjugates. The R-point DFTs use float32 constants rounded from
+// float64. FP32 throughout, no tensor cores: the FFT errs by about eps
+// log2 m.
 //
-// No index assumes a power of two: the frame, butterfly and slot indices
-// divide by M, M/R, ns and (M+1)/2 through Div, a shift for a power of two
-// M and a multiply-high otherwise, whose constants the host computes once
-// per launch (Plan, a kernel parameter). The kernels are built once for
-// each set of odd primes M can take (odd_primes): a build holds the stages
-// of its own radices only, so no kernel carries the registers of an odd
-// radix it never runs (the radix-7 butterflies hold 14 complex values a
-// thread) under its 40-register budget.
+// No index assumes a power of two: the slot, butterfly and point indices
+// divide by m, m/R, ns and a frame's bin pairs through Div, a shift for a
+// power of two m and a multiply-high otherwise, whose constants the host
+// computes once per launch (Plan, a kernel parameter). The kernels are
+// built once for each set of odd primes m can take (odd_primes; the
+// complex-frame kernels group the sets with 11 or 13, build_primes): a
+// build holds the stages of its own radices only, so no kernel carries the
+// registers of an odd radix it never runs (the radix-7 butterflies hold 14
+// complex values a thread) under its 40-register budget; a build with
+// radix 11 or 13 (22 or 26 values) takes a budget of 64 (min_blocks).
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "fft_route.cuh"
 
 namespace nrf {
 
@@ -48,6 +56,29 @@ constexpr int ELEMS = 4096;  // complex values a block holds
 constexpr int PADDED = ELEMS + ELEMS / 16;  // float2 slots after pad()
 constexpr int PP = ELEMS / THREADS;  // points per thread
 static_assert(PP * THREADS == ELEMS && THREADS % 32 == 0, "whole warps, whole points");
+static_assert(ELEMS == BLOCK_SLOTS, "fft_route.cuh's block");
+
+// The block of a complex-frame kernel: the block above, or a big block of
+// BIG_THREADS threads and BIG_SLOTS points (PP points a thread in both, so
+// the stages hold the same registers) for a slot of more than ELEMS points.
+constexpr int BIG_THREADS = 1024;
+template <bool BIG>
+struct Blk {
+  static constexpr int THREADS = BIG ? BIG_THREADS : nrf::THREADS;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int ELEMS = THREADS * PP;
+  static constexpr int PADDED = ELEMS + ELEMS / 16;
+};
+static_assert(Blk<true>::ELEMS == BIG_SLOTS, "fft_route.cuh's big block");
+
+// blocks an SM holds for a complex-frame build of kernel D: MIN_BLOCKS (40
+// registers a thread) as the real-FFT kernels, 2 (64) for a build with
+// radix 11 or 13, 1 (64 at 1024 threads) for a big block. Kernel A's take 2
+// for every block of 512 threads (PERF.md: at 64 registers A's chirp build
+// ran 11% faster than at 40, D's 12% slower).
+constexpr int min_blocks(int odd, bool big) {
+  return big ? 1 : (odd % 11 && odd % 13) ? MIN_BLOCKS : 2;
+}
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
@@ -167,6 +198,71 @@ __device__ __forceinline__ void dft7(float2 (&v)[7]) {
   v[4] = sub(a3, b3);
 }
 
+// cos and sin(2 pi j / R) for R = 11, 13 and j < R: float32 constants
+// rounded from float64 (folded into the instructions: every j is a
+// constant of the unrolled loops)
+template <int R>
+__device__ __forceinline__ float2 root(int j) {
+  if constexpr (R == 11) {
+    constexpr float c[11] = {
+        1.0f, 0.841253532831181168862f, 0.415415013001886425529f,
+        -0.142314838273285140444f, -0.654860733945285064057f, -0.95949297361449738989f,
+        -0.95949297361449738989f, -0.654860733945285064057f, -0.142314838273285140444f,
+        0.415415013001886425529f, 0.841253532831181168862f};
+    constexpr float s[11] = {
+        0.0f, 0.540640817455597582108f, 0.909631995354518371412f,
+        0.989821441880932732376f, 0.755749574354258283774f, 0.281732556841429697711f,
+        -0.281732556841429697711f, -0.755749574354258283774f, -0.989821441880932732376f,
+        -0.909631995354518371412f, -0.540640817455597582108f};
+    return make_float2(c[j], s[j]);
+  } else {
+    static_assert(R == 13, "radix 11 or 13");
+    constexpr float c[13] = {
+        1.0f, 0.8854560256532098959f, 0.568064746731155802512f,
+        0.120536680255323053349f, -0.35460488704253562597f, -0.748510748171101098635f,
+        -0.970941817426052027157f, -0.970941817426052027157f, -0.748510748171101098635f,
+        -0.35460488704253562597f, 0.120536680255323053349f, 0.568064746731155802512f,
+        0.8854560256532098959f};
+    constexpr float s[13] = {
+        0.0f, 0.464723172043768545656f, 0.82298386589365639458f,
+        0.992708874098053992801f, 0.93501624268541482344f, 0.663122658240795202377f,
+        0.239315664287557767149f, -0.239315664287557767149f, -0.663122658240795202377f,
+        -0.93501624268541482344f, -0.992708874098053992801f, -0.82298386589365639458f,
+        -0.464723172043768545656f};
+    return make_float2(c[j], s[j]);
+  }
+}
+
+// radix 11 and 13 by the odd radices' formula above, m and k in unrolled
+// loops: H = R/2 pairs t+_k, t-_k, then each output pair (m, R - m)
+template <int R, bool INV>
+__device__ __forceinline__ void dft_odd(float2 (&v)[R]) {
+  constexpr int H = R / 2;
+  float2 tp[H], tm[H];
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    tp[k - 1] = add(v[k], v[R - k]);
+    tm[k - 1] = rot<INV>(sub(v[k], v[R - k]));
+  }
+  const float2 v0 = v[0];
+  float2 sum = v0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) sum = add(sum, tp[k]);
+  v[0] = sum;
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    float2 a = v0, b = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      const float2 w = root<R>((k * m) % R);
+      a = axpy(a, w.x, tp[k - 1]);
+      b = axpy(b, w.y, tm[k - 1]);
+    }
+    v[m] = add(a, b);
+    v[R - m] = sub(a, b);
+  }
+}
+
 template <int R, bool INV>
 __device__ __forceinline__ void dft(float2 (&v)[R]) {
   if constexpr (R == 2) {
@@ -181,8 +277,10 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
     dft5<INV>(v);
   } else if constexpr (R == 7) {
     dft7<INV>(v);
+  } else if constexpr (R == 11 || R == 13) {
+    dft_odd<R, INV>(v);
   } else {
-    static_assert(R == 8, "radix 2, 3, 4, 5, 7 or 8");
+    static_assert(R == 8, "radix 2, 3, 4, 5, 7, 8, 11 or 13");
     constexpr float c = 0.70710678118654752440f;
     float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
     float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
@@ -205,12 +303,13 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
   }
 }
 
-// The stages of M's FFT and the constants of its index math, made once per
-// launch on the host (make_plan) and passed by value: a kernel parameter,
-// read from the constant bank. Stage s has radix radix[s] and sub-transform
-// size ns[s], in fft_frames' order: the power-of-two part of M first (8
-// while at least 8 of it remain, then 4 or 2), then the 3s, the 5s, the 7s.
-constexpr int MAX_STAGES = 12;  // M <= 4096 takes at most 7 (M = 3^7)
+// The stages of an m-point FFT and the constants of its index math, made
+// once per launch on the host (make_plan) and passed by value: a kernel
+// parameter, read from the constant bank. Stage s has radix radix[s] and
+// sub-transform size ns[s], in fft_frames' order: the power-of-two part of
+// m first (8 while at least 8 of it remain, then 4 or 2), then the 3s,
+// 5s, 7s, 11s and 13s.
+constexpr int MAX_STAGES = 12;  // m <= 8192 takes at most 9 (m = 2 x 3^8)
 template <bool MIXED>
 struct Plan {
   int n_stages;
@@ -225,8 +324,9 @@ struct Plan {
   int segs;                   // whole segments of a block
 };
 
+// block_warps: the block's warps (WARPS, or a big block's)
 template <bool MIXED>
-inline Plan<MIXED> make_plan(int m, int warps) {
+inline Plan<MIXED> make_plan(int m, int warps, int block_warps = WARPS) {
   Plan<MIXED> p{};
   int ns = 1;
   const auto add = [&](int r) {
@@ -239,14 +339,14 @@ inline Plan<MIXED> make_plan(int m, int warps) {
     ns *= r;
   };
   for (int left = m & -m; left > 1; left = (m & -m) / ns) add(left >= 8 ? 8 : left);
-  for (int r : {3, 5, 7})
+  for (int r : {3, 5, 7, 11, 13})
     while ((m / ns) % r == 0) add(r);
   p.m = Div<MIXED>(m);
   p.half = Div<MIXED>((m + 1) / 2);
   p.warps = Div<MIXED>(warps);
   p.threads = warps * 32;
   p.fps = warps * 32 * PP / m;
-  p.segs = WARPS / warps;
+  p.segs = block_warps / warps;
   return p;
 }
 
@@ -360,22 +460,23 @@ __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
       case 3: if constexpr (ODD % 3 == 0) stage<3, INV, true>(z, m, s, nf, tw, sg, pl); break;
       case 5: if constexpr (ODD % 5 == 0) stage<5, INV, true>(z, m, s, nf, tw, sg, pl); break;
       case 7: if constexpr (ODD % 7 == 0) stage<7, INV, true>(z, m, s, nf, tw, sg, pl); break;
+      case 11: if constexpr (ODD % 11 == 0) stage<11, INV, true>(z, m, s, nf, tw, sg, pl); break;
+      case 13: if constexpr (ODD % 13 == 0) stage<13, INV, true>(z, m, s, nf, tw, sg, pl); break;
     }
   }
 }
 
-// The product of the distinct odd primes of M, 1 for a power of two. The
-// kernels are built once for each of the 8 values (1, 3, 5, 7, 15, 21, 35,
-// 105), so a build holds the registers of no radix its M does not take.
+// The product of the distinct odd primes of m, 1 for a power of two.
 inline int odd_primes(int m) {
   int odd = 1;
-  for (int p : {3, 5, 7})
+  for (int p : {3, 5, 7, 11, 13})
     if (m % p == 0) odd *= p;
   return odd;
 }
 
-// f(std::integral_constant<int, odd_primes(m)>()): the launcher's pick of
-// the kernel built for M
+// f(std::integral_constant<int, odd_primes(m)>()): the real-FFT kernels'
+// pick of the build for M, one for each of the 8 sets of 3, 5 and 7
+// (real_kernel: no M with 11 or 13 reaches them)
 template <class F>
 auto with_odd_primes(int m, F f) {
   switch (odd_primes(m)) {
@@ -390,23 +491,92 @@ auto with_odd_primes(int m, F f) {
   }
 }
 
-// Whether the route serves a real length n_fft: even, 64 to 2 * ELEMS, its
-// half 2^k 3^a 5^b 7^c (geometry.py::fft_route).
-inline bool fft_size_ok(int n_fft) {
-  if (n_fft % 2 || n_fft < 64 || n_fft > 2 * ELEMS) return false;
-  const int primes[] = {2, 3, 5, 7};
-  int r = n_fft / 2;
-  for (int p : primes)
-    while (r % p == 0) r /= p;
-  return r == 1;
+// The complex-frame kernels' build of a set of odd primes: the set itself
+// within 3, 5 and 7; a set with 11 or 13 takes 3 x 5 x 7 x 11 (1155), x 13
+// (1365) or both (15015), three builds in place of 24: the radix-11 or -13
+// butterfly sets their registers, and the smaller radices add none.
+inline int build_primes(int odd) {
+  if (odd % 11 && odd % 13) return odd;
+  return 105 * (odd % 11 ? 1 : 11) * (odd % 13 ? 1 : 13);
 }
 
-// frame slots a block holds with segments of `warps` warps, or 0 if a
-// segment cannot hold one frame of M points or, for a power of two M (whose
-// Divs shift), `warps` is not a power of two
-inline int fft_block_frames(int warps, int m) {
-  if (warps < 1 || warps > WARPS || (!(m & (m - 1)) && (warps & (warps - 1)))) return 0;
-  return (WARPS / warps) * (warps * 32 * PP / m);
+// g(std::integral_constant<int, odd>()) for odd among SETS, else an
+// invalid-value error
+template <int... SETS, class G>
+int with_set(int odd, G g) {
+  int out = (int)cudaErrorInvalidValue;
+  (void)((odd == SETS && ((out = g(std::integral_constant<int, SETS>())), true)) || ...);
+  return out;
+}
+
+// f(ODD, PAIRED, CHIRP, BIG) as integral constants: the complex-frame
+// kernels' build for n_fft with frame slots of `slot` points (fft_n(n_fft)
+// on the FFT route, the chirp length on the chirp route; the caller has
+// checked the pair). PAIRED: an odd n_fft, two frames a slot; BIG: a slot
+// past ELEMS. The builds: one for each set of build_primes a slot takes
+// (a chirp length 2^a or 2^a 3^b, an odd n_fft one with an odd prime, an
+// even n_fft one with 11 or 13), and in a big block a chirp length of
+// 8192 or an odd n_fft with all five odd radices.
+template <class F>
+int with_cplx_build(int n_fft, int slot, F f) {
+  using Y = std::true_type;
+  using N = std::false_type;
+  using std::integral_constant;
+  const bool paired = n_fft % 2, chirp = slot != fft_n(n_fft), big = slot > ELEMS;
+  const int odd = build_primes(odd_primes(slot));
+  if (big) {
+    if (!chirp) return f(integral_constant<int, 15015>(), Y(), N(), Y());
+    return paired ? f(integral_constant<int, 1>(), Y(), Y(), Y())
+                  : f(integral_constant<int, 1>(), N(), Y(), Y());
+  }
+  const auto build = [&](auto pr, auto ch) {
+    return [&f, pr, ch](auto o) { return f(o, pr, ch, N()); };
+  };
+  if (chirp) return paired ? with_set<1, 3>(odd, build(Y(), Y())) : with_set<1, 3>(odd, build(N(), Y()));
+  if (paired) return with_set<3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>(odd, build(Y(), N()));
+  return with_set<1155, 1365, 15015>(odd, build(N(), N()));
+}
+
+// Whether the complex-frame kernels take n_fft with slots of `slot`
+// points: on the FFT route a slot of fft_n(n_fft) points (not the real
+// kernels' n_fft), on the chirp route a valid chirp length.
+inline bool cplx_slot_ok(int n_fft, int slot) {
+  const Route r = route_of(n_fft);
+  const int n = fft_n(n_fft);
+  if (r == ROUTE_FFT) return slot == n && !real_kernel(n_fft);
+  return r == ROUTE_CHIRP && chirp_length_ok(n, slot);
+}
+
+// frame slots of m points a block of block_warps warps holds with segments
+// of `warps` warps, or 0 if a segment cannot hold one slot or, for a power
+// of two m (whose Divs shift), `warps` is not a power of two
+inline int fft_block_frames(int warps, int m, int block_warps = WARPS) {
+  if (warps < 1 || warps > block_warps || (!(m & (m - 1)) && (warps & (warps - 1)))) return 0;
+  return (block_warps / warps) * (warps * 32 * PP / m);
+}
+
+// Kernel A's real-FFT unpack. With E = (Z[k] + conj Z[M-k]) / 2 and O = -i
+// (Z[k] - conj Z[M-k]) / 2 (the spectra of the even and odd samples) and w
+// = e^{-2 pi i k/N}: X[k] = E + w O and X[M-k] = conj(E - w O).
+__device__ __forceinline__ void split(float2 zk, float2 zm, float2 w, float2& lo,
+                                      float2& hi) {
+  const float2 ev = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  const float2 od = make_float2(0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x));
+  const float2 wo = cmul(w, od);
+  lo = add(ev, wo);
+  hi = conj(sub(ev, wo));
+}
+
+// Kernel D's real-FFT pre-step. With S = Y[k] + conj Y[M-k], D = Y[k] -
+// conj Y[M-k], v = conj w = e^{2 pi i k/N} and t = i v D: Z'[k] = (S + t) /
+// 2, Z'[M-k] = conj(S - t) / 2.
+__device__ __forceinline__ void unsplit(float2 yk, float2 ym, float2 w, float2& lo,
+                                        float2& hi) {
+  const float2 s = make_float2(yk.x + ym.x, yk.y - ym.y);
+  const float2 vd = cmul(conj(w), make_float2(yk.x - ym.x, yk.y + ym.y));
+  const float2 t = make_float2(-vd.y, vd.x);
+  lo = scale(add(s, t), 0.5f);
+  hi = scale(conj(sub(s, t)), 0.5f);
 }
 
 }  // namespace nrf

@@ -1,7 +1,8 @@
-// Kernel D, FFT route: mask apply, inverse real FFT, overlap-add, envelope
-// division and the output window, for an n_fft the route serves
-// (fft_smem.cuh: 64 to 8192, its half 2^k 3^a 5^b 7^c). istft_ola.cu (the DFT
-// product) serves the other n_fft.
+// Kernel D, FFT route, real-FFT kernels: mask apply, inverse real FFT,
+// overlap-add, envelope division and the output window, for an even n_fft
+// from 64 to 8192 whose half is 2^k 3^a 5^b 7^c
+// (fft_route.cuh::real_kernel). istft_cplx.cu serves the rest of the FFT
+// route and the chirp-z route; istft_ola.cu (the DFT product) the other n_fft.
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_apply_istft_kernel
 // (:736) and the envelope and trim of
@@ -46,17 +47,6 @@
 #include "fft_smem.cuh"
 
 namespace {
-
-// With S = Y[k] + conj Y[M-k], D = Y[k] - conj Y[M-k], v = conj w =
-// e^{2 pi i k/N} and t = i v D: Z'[k] = (S + t) / 2, Z'[M-k] = conj(S - t) / 2.
-__device__ __forceinline__ void unsplit(float2 yk, float2 ym, float2 w, float2& lo,
-                                        float2& hi) {
-  const float2 s = make_float2(yk.x + ym.x, yk.y - ym.y);
-  const float2 vd = nrf::cmul(nrf::conj(w), make_float2(yk.x - ym.x, yk.y + ym.y));
-  const float2 t = make_float2(-vd.y, vd.x);
-  lo = nrf::scale(nrf::add(s, t), 0.5f);
-  hi = nrf::scale(nrf::conj(nrf::sub(s, t)), 0.5f);
-}
 
 template <int ODD>  // fft_smem.cuh::odd_primes of M
 __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
@@ -118,13 +108,13 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
       const int lk = nrf::pad(base + k);
       const int lm = nrf::pad(base + m - k);
       float2 lo, hi;
-      unsplit(z[lk], k == 0 ? nyq[f] : z[lm], __ldg(tw + k), lo, hi);
+      nrf::unsplit(z[lk], k == 0 ? nyq[f] : z[lm], __ldg(tw + k), lo, hi);
       z[lk] = lo;
       if (k != 0) {
         z[lm] = hi;
       } else if (!(m & 1)) {
         const int lh = nrf::pad(base + m / 2);
-        unsplit(z[lh], z[lh], __ldg(tw + m / 2), lo, hi);
+        nrf::unsplit(z[lh], z[lh], __ldg(tw + m / 2), lo, hi);
         z[lh] = lo;
       }
     }
@@ -200,7 +190,7 @@ extern "C" int nr_istft_fft(const float* re, const float* im, const float* mask,
                             void* stream) {
   const int m = n_fft / 2;
   const int G = nrf::fft_block_frames(seg_warps, m);
-  if (!nrf::fft_size_ok(n_fft) || G < 1 || run < 1 || (long long)run * hop > 8192)
+  if (!nrf::real_kernel(n_fft) || G < 1 || run < 1 || (long long)run * hop > 8192)
     return (int)cudaErrorInvalidValue;
   if (rows <= 0 || n_out <= 0) return (int)cudaGetLastError();
   const int n_runs = (n_out + run - 1) / run;

@@ -1,6 +1,6 @@
 // Kernel A: spectra — windowed frame spectra of every chunk view; the
-// product route, for an n_fft that is not a power of two (spectra_fft.cu
-// serves the others).
+// product route, for an n_fft that neither the FFT nor the chirp-z route
+// takes (fft_route.cuh; spectra_fft.cu and spectra_cplx.cu serve those).
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // the analysis phase of the merged TPU gate kernel

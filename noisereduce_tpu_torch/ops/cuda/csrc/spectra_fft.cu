@@ -1,6 +1,7 @@
-// Kernel A, FFT route: spectra of every chunk view for an n_fft the route
-// serves (fft_smem.cuh: 64 to 8192, its half 2^k 3^a 5^b 7^c). spectra.cu
-// (the DFT product) serves the other n_fft.
+// Kernel A, FFT route, real-FFT kernels: spectra of every chunk view for an
+// even n_fft from 64 to 8192 whose half is 2^k 3^a 5^b 7^c
+// (fft_route.cuh::real_kernel). spectra_cplx.cu serves the rest of the FFT
+// route and the chirp-z route; spectra.cu (the DFT product) the other n_fft.
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // the analysis phase of the merged TPU gate kernel
@@ -27,9 +28,10 @@
 // complex points (even samples real, odd imaginary; zero past
 // frame_length); runs the M-point FFT of fft_smem.cuh; and unpacks
 //   X[k] = (Z[k] + conj Z[M-k]) / 2 - i e^{-2 pi i k/N} (Z[k] - conj Z[M-k]) / 2
-// (indices mod M) straight into the planes, one thread for the pair
-// k, M - k: (M + 1) / 2 slots a frame, slot 0 giving bins 0 and M and, for
-// an even M, M/2 as well (an odd M has no middle bin). The tile's rows are
+// (indices mod M; fft_smem.cuh::split) straight into the planes, one
+// thread for the pair k, M - k: (M + 1) / 2 slots a frame, slot 0 giving
+// bins 0 and M and, for an even M, M/2 as well (an odd M has no middle
+// bin). The tile's rows are
 // contiguous in the planes, so neighbouring threads store neighbouring bins
 // (scalar stores: rows are not 16-byte aligned).
 //
@@ -157,18 +159,6 @@ __device__ __forceinline__ void fft_frames(float2* z, int log2m, int n_frames,
 
 namespace {
 
-// With E = (Z[k] + conj Z[M-k]) / 2 and O = -i (Z[k] - conj Z[M-k]) / 2 (the
-// spectra of the even and odd samples) and w = e^{-2 pi i k/N}:
-// X[k] = E + w O and X[M-k] = conj(E - w O).
-__device__ __forceinline__ void split(float2 zk, float2 zm, float2 w, float2& lo,
-                                      float2& hi) {
-  const float2 ev = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-  const float2 od = make_float2(0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x));
-  const float2 wo = nrf::cmul(w, od);
-  lo = nrf::add(ev, wo);
-  hi = nrf::conj(nrf::sub(ev, wo));
-}
-
 template <int ODD>  // fft_smem.cuh::odd_primes of M
 __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
     spectra_fft_kernel(const float* __restrict__ x, long long n_src,
@@ -233,14 +223,14 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
     const float2 zk = z[nrf::pad(base + k)];
     const float2 zm = z[nrf::pad(base + (k ? m - k : 0))];
     float2 lo, hi;
-    split(zk, zm, __ldg(tw + k), lo, hi);
+    nrf::split(zk, zm, __ldg(tw + k), lo, hi);
     re[row + k] = lo.x;
     im[row + k] = lo.y;
     re[row + m - k] = hi.x;
     im[row + m - k] = hi.y;
     if (k == 0 && !(m & 1)) {
       const float2 zh = z[nrf::pad(base + m / 2)];
-      split(zh, zh, __ldg(tw + m / 2), lo, hi);
+      nrf::split(zh, zh, __ldg(tw + m / 2), lo, hi);
       re[row + m / 2] = lo.x;
       im[row + m / 2] = lo.y;
     }
@@ -312,14 +302,14 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
     const float2 zk = z[nrf::pad(base + k)];
     const float2 zm = z[nrf::pad(base + ((M - k) & (M - 1)))];
     float2 lo, hi;
-    split(zk, zm, __ldg(tw + k), lo, hi);
+    nrf::split(zk, zm, __ldg(tw + k), lo, hi);
     re[row + k] = lo.x;
     im[row + k] = lo.y;
     re[row + M - k] = hi.x;
     im[row + M - k] = hi.y;
     if (k == 0) {
       const float2 zh = z[nrf::pad(base + M / 2)];
-      split(zh, zh, __ldg(tw + M / 2), lo, hi);
+      nrf::split(zh, zh, __ldg(tw + M / 2), lo, hi);
       re[row + M / 2] = lo.x;
       im[row + M / 2] = lo.y;
     }
@@ -341,7 +331,7 @@ extern "C" int nr_spectra_fft(const float* x, long long n_src, int rows,
                               const float* ws, const float* tw, float* re,
                               float* im, void* stream) {
   const int m = n_fft / 2;
-  if (!nrf::fft_size_ok(n_fft) || tile_frames < 1 ||
+  if (!nrf::real_kernel(n_fft) || tile_frames < 1 ||
       tile_frames > nrf::fft_block_frames(seg_warps, m))
     return (int)cudaErrorInvalidValue;
   const int B = rows * n_chunks;

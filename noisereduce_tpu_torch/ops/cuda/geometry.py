@@ -8,16 +8,26 @@ None of that exists here. The kernels work on exact (rows, n_frames,
 n_bins) planes in device memory, and both time and bins are tiled by the
 launch shapes below:
 
-- A ``spectra`` and D ``istft_ola`` take one of two routes, chosen by the
-  geometry alone (``fft_route``). For an even n_fft from ``FFT_MIN_NFFT``
-  to ``FFT_MAX_NFFT`` whose half is 2^k 3^a 5^b 7^c, shared-memory
-  mixed-radix FFTs (``csrc/spectra_fft.cu``, ``csrc/istft_fft.cu`` over
-  ``csrc/fft_smem.cuh``): A in tiles of ``fft_tile_frames`` frames, D in
-  runs of ``fft_run`` output hop blocks, each block's threads in segments
-  of ``fft_seg_warps`` warps. For any other n_fft, implicit
-  matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames x DFT
-  columns x window samples for A; output hop blocks x hop x shifted bins
-  for D).
+- A ``spectra`` and D ``istft_ola`` take one of three routes, chosen by
+  the geometry alone (``fft_route``, the same rules as
+  ``csrc/fft_route.cuh``). A frame's transform has n complex points,
+  n_fft/2 for an even n_fft (even samples real, odd imaginary) and n_fft
+  for an odd one (two frames a transform). For an n_fft from
+  ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``: the FFT route when n has no prime
+  factor above 13, shared-memory mixed-radix FFTs (``csrc/fft_smem.cuh``;
+  an even n_fft whose half is 2^k 3^a 5^b 7^c in the real-FFT kernels
+  ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu``, the rest in the
+  complex-frame kernels ``csrc/spectra_cplx.cu`` / ``csrc/istft_cplx.cu``);
+  the chirp-z route for any other n whose chirp length ``chirp_length``
+  (the smallest 2^a 3^b >= 2n - 1, or 8192) fits a big block, in the
+  complex-frame kernels. Each kernel takes frame slots of n points (the
+  chirp's L), A in tiles of ``fft_tile_frames`` frames, D in runs of
+  ``fft_run`` output hop blocks, each block's threads in segments of
+  ``fft_seg_warps`` warps. Any other
+  n_fft (below 64, above 8192, an odd one above 4096 with a prime factor
+  above 13) takes implicit matrix products tiled 128 x ``GEMM_BN`` x
+  ``GEMM_BK`` (frames x DFT columns x window samples for A; output hop
+  blocks x hop x shifted bins for D).
 - B ``nonstationary_mask``, E ``stationary_mask`` and F
   ``torch_nonstationary_mask`` cut each (row, bin) column's time axis into
   segments of ``SEG_B`` / ``SEG_E`` / ``SEG_F`` frames (``TimeTilePlan``,
@@ -62,8 +72,14 @@ FFT_WARPS = FFT_THREADS // 32
 FFT_WARP_POINTS = FFT_ELEMS // FFT_WARPS  # points a warp's threads hold
 FFT_ACC = 8192
 FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
-FFT_MIN_NFFT, FFT_MAX_NFFT = 64, 2 * FFT_ELEMS
-FFT_RADICES = (2, 3, 5, 7)  # the prime radices of fft_smem.cuh's stages
+# a big block of the complex-frame kernels (fft_smem.cuh::Blk<true>): one
+# slot of 4097 to 8192 points, 1024 threads
+FFT_BIG_ELEMS = 8192
+FFT_BIG_WARPS = FFT_BIG_ELEMS // FFT_WARP_POINTS
+FFT_MIN_NFFT, FFT_MAX_NFFT = 64, FFT_BIG_ELEMS
+FFT_RADICES = (2, 3, 5, 7, 11, 13)  # the prime radices of fft_smem.cuh's stages
+REAL_RADICES = (2, 3, 5, 7)  # those of the real-FFT kernels' builds
+CHIRP_RADICES = (2, 3)  # those of a chirp length within a block
 # the time tiles of kernels B, E and F (csrc/time_tiles.cuh and the
 # kernels' sources, must match their constants): frames of a segment of B,
 # of E and of F, columns (bins) and segments of a final-pass block, columns
@@ -88,35 +104,91 @@ def kernels_supported(scfg: StftConfig) -> bool:
     return scfg.frame_length % scfg.hop_length == 0
 
 
-def fft_route(scfg: StftConfig) -> bool:
-    """Whether kernels A and D take the FFT route for this geometry: an even
-    n_fft from FFT_MIN_NFFT to FFT_MAX_NFFT whose half M = n_fft/2 has no
-    prime factor but 2, 3, 5 and 7 (1536, 1000, 400, 882, every power of
-    two). Any other n_fft takes the DFT-product route."""
-    n = scfg.n_fft
-    if not (FFT_MIN_NFFT <= n <= FFT_MAX_NFFT and n % 2 == 0):
-        return False
-    m = n // 2
-    for p in FFT_RADICES:
-        while m % p == 0:
-            m //= p
-    return m == 1
+def _strip(n: int, primes: tuple) -> int:
+    for p in primes:
+        while n % p == 0:
+            n //= p
+    return n
 
 
-def _block_frames(warps: int, m: int) -> int:
-    """Frame slots of M points a block holds with segments of ``warps``
-    warps, each segment owning whole frames (fft_smem.cuh::fft_block_frames)."""
-    return (FFT_WARPS // warps) * (warps * FFT_WARP_POINTS // m)
+def fft_n(n_fft: int) -> int:
+    """Complex points of one frame's transform on the FFT and chirp routes:
+    n_fft/2 for an even n_fft, n_fft for an odd one (two frames a
+    transform)."""
+    return n_fft if n_fft % 2 else n_fft // 2
+
+
+def fft_route(scfg: StftConfig) -> str:
+    """Kernels A and D's route for this geometry (``csrc/fft_route.cuh``):
+    "fft" for an n_fft from FFT_MIN_NFFT to FFT_MAX_NFFT whose
+    ``fft_n`` has no prime factor above 13 (1024, 1536, 400, 1100, 441,
+    1323, ...); "chirp" for any other such n_fft whose chirp length fits a
+    big block (1102, 1101, every even n_fft up to 8192); "product" for the
+    rest: n_fft below 64 or above 8192, and an odd n_fft above 4096 with a
+    prime factor above 13."""
+    return _route_of(scfg.n_fft)
+
+
+# Cached, as _fft_layout: every launch of A and D reads them, and a short
+# launch waits for the host.
+@functools.lru_cache(maxsize=None)
+def _route_of(n_fft: int) -> str:
+    if not FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT:
+        return "product"
+    n = fft_n(n_fft)
+    if _strip(n, FFT_RADICES) == 1:
+        return "fft"
+    return "chirp" if 2 * n - 1 <= FFT_BIG_ELEMS else "product"
 
 
 @functools.lru_cache(maxsize=None)
-def _fft_layout(m: int) -> tuple:
-    """(warps of a thread segment, frame slots of a block) for M-point
-    frames: the segment width that fits the most frames, the fewest warps on
-    a tie. Cached: a launch reads it, and the search costs ~10 us of host
-    time that a short launch would wait for."""
-    warps = max(range(1, FFT_WARPS + 1), key=lambda w: (_block_frames(w, m), -w))
-    return warps, _block_frames(warps, m)
+def real_kernel(n_fft: int) -> bool:
+    """Whether the real-FFT kernels serve n_fft on the FFT route: even, its
+    half 2^k 3^a 5^b 7^c."""
+    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT
+            and _strip(n_fft // 2, REAL_RADICES) == 1)
+
+
+@functools.lru_cache(maxsize=None)
+def chirp_length(n: int) -> int:
+    """The chirp-z route's circular convolution length for n points: the
+    smallest 2^a 3^b >= 2n - 1 while that fits a block of FFT_ELEMS
+    points, else FFT_BIG_ELEMS (``csrc/fft_route.cuh::chirp_length_ok``;
+    2^a 3^b against a power of two or the smallest length with factors up
+    to 13, PERF.md)."""
+    need = 2 * n - 1
+    if need > FFT_ELEMS:
+        return FFT_BIG_ELEMS
+    return next(L for L in range(need, FFT_ELEMS + 1) if _strip(L, CHIRP_RADICES) == 1)
+
+
+def _block_frames(warps: int, m: int, block_warps: int = FFT_WARPS) -> int:
+    """Frame slots of m points a block of ``block_warps`` warps holds with
+    segments of ``warps`` warps, each segment owning whole slots
+    (fft_smem.cuh::fft_block_frames)."""
+    return (block_warps // warps) * (warps * FFT_WARP_POINTS // m)
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_layout(m: int, block_warps: int = FFT_WARPS) -> tuple:
+    """(warps of a thread segment, frame slots of a block) for m-point
+    slots: the segment width that fits the most slots, the fewest warps on
+    a tie; a power of two for a power of two m, whose indices shift.
+    Cached: a launch reads it, and the search costs ~10 us of host time that
+    a short launch would wait for."""
+    pow2 = m & (m - 1) == 0
+    cands = [w for w in range(1, block_warps + 1) if not pow2 or w & (w - 1) == 0]
+    warps = max(cands, key=lambda w: (_block_frames(w, m, block_warps), -w))
+    return warps, _block_frames(warps, m, block_warps)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(n_fft: int, route: str) -> tuple:
+    """GateGeometry.fft_layout of n_fft on ``route``."""
+    n = fft_n(n_fft)
+    slot = chirp_length(n) if route == "chirp" else n
+    warps, slots = _fft_layout(slot, FFT_BIG_WARPS if slot > FFT_ELEMS else FFT_WARPS)
+    return slot, warps, slots * (2 if n_fft % 2 else 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,23 +309,50 @@ class GateGeometry:
         torch 1e-11)."""
         return 1e-10 if self.scfg.convention == Convention.SCIPY else 1e-11
 
-    # ---- the FFT route of kernels A and D
+    # ---- the FFT and chirp routes of kernels A and D
+    @property
+    def route(self) -> str:
+        return fft_route(self.scfg)
+
+    @property
+    def fft_n(self) -> int:
+        return fft_n(self.n_fft)
+
+    @property
+    def fft_paired(self) -> bool:
+        """Two frames a transform, one real, one imaginary: an odd n_fft."""
+        return self.n_fft % 2 == 1
+
+    @property
+    def fft_real(self) -> bool:
+        """The real-FFT kernels serve the FFT route (else the complex-frame
+        kernels)."""
+        return real_kernel(self.n_fft)
+
+    def fft_layout(self, route: str | None = None) -> tuple:
+        """(points of a frame slot, warps of a thread segment, frames of a
+        tile of kernel A and of a group of kernel D) on ``route`` (the
+        geometry's own by default). A slot holds one transform: fft_n
+        points, or the chirp length on the chirp route; a slot past
+        FFT_ELEMS points takes a big block. A segment owns whole slots and
+        syncs alone, so the layout that fits the most slots keeps the most
+        lanes busy; on a tie the fewest warps, whose barrier is cheapest
+        (one warp: ``__syncwarp``). A power of two M gets max(1, M/256),
+        one frame or 256/M frames a warp; M = 768 three warps a frame, 5
+        frames a block; M = 200 four warps for 5 frames, 20 a block (one
+        frame a warp would leave 7 lanes of 32 idle)."""
+        return _layout(self.n_fft, route or self.route)
+
     @property
     def fft_seg_warps(self) -> int:
-        """Warps of one thread segment of A's and D's blocks. A segment owns
-        whole frames and syncs alone, so the layout that fits the most
-        frames keeps the most lanes busy; on a tie the fewest warps, whose
-        barrier is cheapest (one warp: ``__syncwarp``). A power of two M
-        gets max(1, M/256), one frame or 256/M frames a warp; M = 768 three
-        warps a frame, 5 frames a block; M = 200 four warps for 5 frames,
-        20 a block (one frame a warp would leave 7 lanes of 32 idle)."""
-        return _fft_layout(self.n_fft // 2)[0]
+        """Warps of one thread segment of A's and D's blocks (fft_layout)."""
+        return self.fft_layout()[1]
 
     @property
     def fft_tile_frames(self) -> int:
         """Frames of one view a block of kernel A transforms together, and
-        of one group of kernel D: the frame slots of the block's segments."""
-        return _fft_layout(self.n_fft // 2)[1]
+        of one group of kernel D: the frames of the block's slots."""
+        return self.fft_layout()[2]
 
     @property
     def fft_run(self) -> int:

@@ -30,19 +30,33 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
-Each has two routes, picked by the geometry alone
-(``geometry.fft_route``): for an even n_fft from 64 to 8192 whose half is
-2^k 3^a 5^b 7^c, shared-memory mixed-radix FFTs, ``csrc/spectra_fft.cu``
-and ``csrc/istft_fft.cu``; for any other n_fft the DFT products
-``csrc/spectra.cu`` and ``csrc/istft_ola.cu``. No route is tried after
-another fails.
+Each has three routes, picked by the geometry alone
+(``geometry.fft_route``, the rules of ``csrc/fft_route.cuh``; a frame's
+transform has n = n_fft/2 complex points, or n_fft for an odd n_fft, two
+frames a transform):
+
+- "fft": an n_fft from 64 to 8192 whose n has no prime factor above 13,
+  shared-memory mixed-radix FFTs: ``csrc/spectra_fft.cu`` and
+  ``csrc/istft_fft.cu`` for an even n_fft whose half is 2^k 3^a 5^b 7^c,
+  ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu`` (the complex-frame
+  kernels) for the rest (1100, 441, 1323, ...);
+- "chirp": any other n_fft in 64-8192 whose chirp length fits a big block
+  (every even one; an odd one to 4096), a chirp-z transform in the
+  complex-frame kernels, its chirp and filter spectrum host tables built
+  in float64 (``_chirp_np``, ``_chirp_filter_np``);
+- "product": the rest (n_fft below 64 or above 8192, an odd n_fft above
+  4096 with a prime factor above 13), the DFT products
+  ``csrc/spectra.cu`` and ``csrc/istft_ola.cu``.
+
+No route is tried after another fails.
 
 Each wrapper takes its plain version (``*_ref``, the plain version of
 both routes) for a tensor on the CPU and only then. For a CUDA tensor it
 launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
-``fft_launches`` and ``product_launches`` (``route_counts``;
+``fft_launches``, ``chirp_launches`` and ``product_launches``
+(``route_counts``;
 ``reset_launch_counts`` sets them all to 0). B, E and F run as a few CUDA
 launches over time tiles (``geometry.TimeTilePlan``: segment partials,
 a per-column combine, a final pass that smooths from shared memory) and
@@ -73,7 +87,7 @@ from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
-    SEG_B, SEG_E, SEG_F, GateGeometry, fft_route, TimeTilePlan,
+    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
@@ -208,6 +222,34 @@ def _twiddle_np(n_fft: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _chirp_np(n: int) -> np.ndarray:
+    """(n, 2) float64: the chirp-z route's cbar_j = e^{-i pi (j^2 mod 2n) /
+    n}, j < n, as (re, im): the index exact in integer arithmetic (j^2 <
+    2^26; a float phase of j^2 would lose its low bits), the phase in
+    float64, rounded once to float32 on the device."""
+    j = np.arange(n, dtype=np.int64)
+    t = np.exp(-1j * np.pi * ((j * j) % (2 * n)) / n)
+    return np.stack([t.real, t.imag], axis=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _chirp_filter_np(key: tuple) -> np.ndarray:
+    """(L, 2) float64 for key (n, L): the chirp-z route's filter spectrum
+    FFT_L(h) / L, h_j = h_{L-j} = c_j = e^{i pi (j^2 mod 2n) / n} for j < n
+    (zero between), taken in float64 once per (n, L). Kernel A multiplies
+    by it, kernel D by its conjugate (h is symmetric, so FFT_L(conj h) is
+    the conjugate of FFT_L(h))."""
+    n, length = key
+    j = np.arange(n, dtype=np.int64)
+    c = np.exp(1j * np.pi * ((j * j) % (2 * n)) / n)
+    h = np.zeros(length, np.complex128)
+    h[:n] = c
+    h[length - n + 1 :] = c[1:][::-1]
+    f = np.fft.fft(h) / length
+    return np.stack([f.real, f.imag], axis=-1)
+
+
+@functools.lru_cache(maxsize=None)
 def _scaled_window_np(scfg) -> np.ndarray:
     """(frame_length,) float64: the FFT route's analysis window w * s, s =
     1 / sum w for scipy and 1 for torch."""
@@ -216,10 +258,11 @@ def _scaled_window_np(scfg) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _post_window_np(scfg) -> np.ndarray:
-    """(frame_length,) float64: the FFT route's synthesis window w * sum w
-    / (n_fft/2) for scipy, w / (n_fft/2) for torch; 1/(n_fft/2) undoes the
-    unscaled half-length inverse FFT."""
-    return _analysis_window_np(scfg) * _wsum(scfg) / (scfg.n_fft // 2)
+    """(frame_length,) float64: the FFT and chirp routes' synthesis window
+    w * sum w / n for scipy, w / n for torch, n = ``geometry.fft_n``
+    (n_fft/2, or n_fft for an odd n_fft); 1/n undoes the unscaled n-point
+    inverse FFT."""
+    return _analysis_window_np(scfg) * _wsum(scfg) / fft_n(scfg.n_fft)
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,7 +290,9 @@ _TABLES = {
     "analysis": _analysis_table_np,
     "synthesis": _synthesis_table_np,
     "window": _analysis_window_np,
-    "twiddle": _twiddle_np,  # key: n_fft
+    "twiddle": _twiddle_np,  # key: the table's length
+    "chirp": _chirp_np,  # key: n
+    "chirp_filter": _chirp_filter_np,  # key: (n, L)
     "scaled_window": _scaled_window_np,
     "post_window": _post_window_np,
     "window_squares": _window_squares_np,
@@ -290,12 +335,16 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0):
         )
     if _on_cpu(x):
         return spectra_ref(x, geo, chunk_size, padding)
-    return _spectra_on(_route(geo), x, geo, chunk_size, padding)
+    return _spectra_on(geo.route, x, geo, chunk_size, padding)
 
 
-def _route(geo: GateGeometry) -> str:
-    """Kernels A and D's route for the geometry: "fft" or "product"."""
-    return "fft" if fft_route(geo.scfg) else "product"
+def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
+    """The chirp-z route's chirp and filter spectrum on ``device``, or two
+    Nones on another route."""
+    if route != "chirp":
+        return None, None
+    n = geo.fft_n
+    return _device_f32("chirp", n, device), _device_f32("chirp_filter", (n, slot), device)
 
 
 def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0):
@@ -308,24 +357,34 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0):
     im = torch.empty_like(re)
     views = (n_src, rows, n_chunks, chunk_size, -padding, geo.view_len, T,
              geo.hop, geo.bpad, geo.win)
-    if route == "fft":
-        _check_size("spectra", B * T, B * -(-T // geo.fft_tile_frames))
-        _launch(
-            "spectra_fft", x.device, _ptr(x), *views, geo.n_fft, nb,
-            geo.fft_seg_warps, geo.fft_tile_frames,
-            _ptr(_device_f32("scaled_window", geo.scfg, x.device)),
-            _ptr(_device_f32("twiddle", geo.n_fft, x.device)), _ptr(re), _ptr(im),
-        )
-        spectra.fft_launches += 1
-    else:
+    dev = x.device
+    if route == "product":
         _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
-        tab = _device_f32("analysis", geo.scfg, x.device)
+        tab = _device_f32("analysis", geo.scfg, dev)
         _launch(
-            "spectra", x.device, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
+            "spectra", dev, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
             geo.k_a, _ptr(re), _ptr(im),
         )
-        spectra.product_launches += 1
-    spectra.launches += 1
+    elif route == "fft" and geo.fft_real:
+        _, warps, tile = geo.fft_layout(route)
+        _check_size("spectra", B * T, B * -(-T // tile))
+        _launch(
+            "spectra_fft", dev, _ptr(x), *views, geo.n_fft, nb, warps, tile,
+            _ptr(_device_f32("scaled_window", geo.scfg, dev)),
+            _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr(re), _ptr(im),
+        )
+    else:
+        slot, warps, tile = geo.fft_layout(route)
+        _check_size("spectra", B * T, B * -(-T // tile))
+        chirp, filt = _chirp_tables(geo, route, slot, dev)
+        _launch(
+            "spectra_cplx", dev, _ptr(x), *views, geo.n_fft, nb, slot, warps, tile,
+            _ptr(_device_f32("scaled_window", geo.scfg, dev)),
+            _ptr(_device_f32("twiddle", 2 * slot, dev)),
+            _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
+            _ptr_or_null(filt), _ptr(re), _ptr(im),
+        )
+    _count_route(spectra, route)
     return re, im
 
 
@@ -441,7 +500,7 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
     natural (T-1)*hop) are zero."""
     if _on_cpu(re, im, mask):
         return istft_ola_ref(re, im, mask, geo, out_off, out_len)
-    return _istft_ola_on(_route(geo), re, im, mask, geo, out_off, out_len)
+    return _istft_ola_on(geo.route, re, im, mask, geo, out_off, out_len)
 
 
 def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
@@ -450,31 +509,42 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
     rows, T, nb = re.shape
     j0, n_out = geo.out_blocks(out_off, out_len)
     out = torch.empty((rows, out_len), dtype=torch.float32, device=re.device)
-    if route == "fft":
-        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
-        _launch(
-            "istft_fft", re.device, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
-            geo.n_fft, geo.fft_seg_warps, geo.hop, geo.r, geo.bpad, j0, n_out,
-            geo.fft_run, out_off, out_len, geo.istft_len, geo.env_floor,
-            _ptr(_device_f32("post_window", geo.scfg, re.device)),
-            _ptr(_device_f32("window_squares", geo.scfg, re.device)),
-            _ptr(_device_f32("envelope", geo.scfg, re.device)),
-            _ptr(_device_f32("twiddle", geo.n_fft, re.device)), _ptr(out),
-        )
-        istft_ola.fft_launches += 1
-    else:
+    dev = re.device
+    if route == "product":
         _check_size(
             "istft_ola", rows * n_out, -(-rows * n_out // 128) * (geo.cols_d // 128)
         )
-        tab = _device_f32("synthesis", geo.scfg, re.device)
-        win = _device_f32("window", geo.scfg, re.device)
+        tab = _device_f32("synthesis", geo.scfg, dev)
+        win = _device_f32("window", geo.scfg, dev)
         _launch(
-            "istft_ola", re.device, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
+            "istft_ola", dev, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
             _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
             j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
         )
-        istft_ola.product_launches += 1
-    istft_ola.launches += 1
+    else:
+        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
+        slot, warps, _ = geo.fft_layout(route)
+        tail = (geo.hop, geo.r, geo.bpad, j0, n_out, geo.fft_run, out_off, out_len,
+                geo.istft_len, geo.env_floor,
+                _ptr(_device_f32("post_window", geo.scfg, dev)),
+                _ptr(_device_f32("window_squares", geo.scfg, dev)),
+                _ptr(_device_f32("envelope", geo.scfg, dev)))
+        if route == "fft" and geo.fft_real:
+            _launch(
+                "istft_fft", dev, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+                geo.n_fft, warps, *tail, _ptr(_device_f32("twiddle", geo.n_fft, dev)),
+                _ptr(out),
+            )
+        else:
+            chirp, filt = _chirp_tables(geo, route, slot, dev)
+            _launch(
+                "istft_cplx", dev, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+                geo.n_fft, slot, warps, *tail,
+                _ptr(_device_f32("twiddle", 2 * slot, dev)),
+                _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
+                _ptr_or_null(filt), _ptr(out),
+            )
+    _count_route(istft_ola, route)
     return out
 
 
@@ -706,14 +776,21 @@ def fm_nonstationary_mask(z, b, thresh, slope):
 # ---------------------------------------------------------------------------
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
-ROUTED = (spectra, istft_ola)  # the kernels with an FFT and a product route
+ROUTED = (spectra, istft_ola)  # the kernels with an FFT, a chirp and a product route
+ROUTES = ("fft", "chirp", "product")
+
+
+def _count_route(fn, route: str) -> None:
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
+    fn.launches += 1
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     for fn in ROUTED:
-        fn.fft_launches = fn.product_launches = 0
+        for route in ROUTES:
+            setattr(fn, f"{route}_launches", 0)
 
 
 def launch_counts() -> dict:
@@ -722,8 +799,8 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches of kernels A and D by route, e.g.
-    {"spectra": {"fft": 1, "product": 0}, "istft_ola": {...}}."""
-    return {fn.__name__: {"fft": fn.fft_launches, "product": fn.product_launches}
+    {"spectra": {"fft": 1, "chirp": 0, "product": 0}, "istft_ola": {...}}."""
+    return {fn.__name__: {route: getattr(fn, f"{route}_launches") for route in ROUTES}
             for fn in ROUTED}
 
 

@@ -18,12 +18,15 @@ torch-convention kernels (A's torch table, F, E's self statistics, D's
 torch tail) are held to the same bounds, F like B at 1e-5 absolute; G
 (frequency-major, TPU row 6) like B at 1e-4. Gradients on the card (the
 kernels' value, the staged twin's cotangent) are held to the float64
-twin's at 5e-5 x scale. Kernels A and D are held on both their routes
-(the FFT route of n_fft 512, 1024, 2048, 1536, 400 and 882; the product
-route of n_fft 1100), and every path is checked to launch them on its
+twin's at 5e-5 x scale. Kernels A and D are held on each of their routes
+(the FFT route of n_fft 512, 1024, 2048, 1536, 400 and 882 in the
+real-FFT kernels and of 1100, 1040, 441, 1323 and 4851 in the
+complex-frame kernels; the chirp-z route of 1102, 1101 and 4106; the
+product route of 40), and every path is checked to launch them on its
 geometry's route only. A float64 card tensor runs the staged twins, within
 1e-9 x max|ref| of the same call on the CPU, and launches no kernel.
 """
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +39,7 @@ from noisereduce_tpu_torch.models.spectral_gate import (
     stationary_noise_threshold,
 )
 from noisereduce_tpu_torch.ops.cuda import kernels as K
-from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+from noisereduce_tpu_torch.ops.cuda.geometry import fft_route, gate_geometry
 from noisereduce_tpu_torch.ops.dsp import tri_norm
 
 torch.set_num_threads(2)
@@ -500,32 +503,41 @@ def test_masks_under_grad_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# kernels A and D: the FFT route (power-of-two n_fft) and the product route
+# kernels A and D: the FFT, chirp-z and product routes
 # ---------------------------------------------------------------------------
 ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256),
                dict(n_fft=2048, win_length=1024, hop_length=256),
                dict(n_fft=1536, hop_length=384), dict(n_fft=400, hop_length=100),
-               dict(n_fft=882, hop_length=441), dict(n_fft=1100, hop_length=275)]
+               dict(n_fft=882, hop_length=441), dict(n_fft=1100, hop_length=275),
+               dict(n_fft=1040, hop_length=260), dict(n_fft=441, hop_length=147),
+               dict(n_fft=1323, hop_length=441), dict(n_fft=4851, hop_length=1617),
+               dict(n_fft=1102, hop_length=551), dict(n_fft=1101, hop_length=367),
+               dict(n_fft=2040, hop_length=510), dict(n_fft=2035, hop_length=407),
+               dict(n_fft=4106, hop_length=2053), dict(n_fft=40, hop_length=10)]
 ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536", "nfft400", "nfft882",
-             "nfft1100"]
+             "nfft1100", "nfft1040", "nfft441", "nfft1323", "nfft4851", "nfft1102",
+             "nfft1101", "nfft2040", "nfft2035", "nfft4106", "nfft40"]
 
 
 def _routes(route, n=1):
-    other = "product" if route == "fft" else "fft"
-    return {"spectra": {route: n, other: 0}, "istft_ola": {route: n, other: 0}}
+    counts = {r: (n if r == route else 0) for r in ("fft", "chirp", "product")}
+    return {"spectra": counts, "istft_ola": dict(counts)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("convention", ["scipy", "torch"])
 @pytest.mark.parametrize("kw", ROUTE_GEOMS, ids=ROUTE_IDS)
 def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
-    """The geometry picks the route (an n_fft whose half is 2^k 3^a 5^b 7^c
-    the FFT, 1100 = 2 x 2 x 5 x 5 x 11 the product); each launch is counted
-    on its route; both routes hold their plain versions at 2e-5 x max|ref|
-    (1e-5 under torch conventions)."""
+    """The geometry picks the route (an n_fft whose transform of n_fft/2 or,
+    odd, n_fft points has no prime factor above 13 the FFT, 1102 = 2 x 19 x
+    29, 1101 = 3 x 367, 2040 = 2^3 3 5 17, 2035 = 5 11 37 and 4106 = 2 x
+    2053 the chirp-z, 40 the product); each launch is counted on its route;
+    every route holds its plain versions at 2e-5 x max|ref| (1e-5 under
+    torch conventions). The chirp lengths: 1152 and 2304 (2^a 3^b), 2048
+    and 4096 (powers of two within a block), 8192 (a big block)."""
     extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
     geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
-    route = "fft" if kw["n_fft"] != 1100 else "product"
+    route = fft_route(geo.scfg)
     tol = 2e-5 if convention == "scipy" else 1e-5
     rng = np.random.default_rng(24)
     x = torch.as_tensor(rng.standard_normal((2, 30000)), dtype=torch.float32, device=cuda)
@@ -540,9 +552,27 @@ def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
         assert _max(y - ry) <= tol * _max(ry)
     assert K.route_counts() == {"spectra": _routes(route)["spectra"],
                                 "istft_ola": _routes(route, 3)["istft_ola"]}
-    if route == "fft":  # the product route serves every geometry the kernels take
+    if route != "product":  # the product route serves every geometry the kernels take
         y = K._istft_ola_on("product", re, im, mask, geo, 1500, 8000)
         assert _max(y - K.istft_ola_ref(re, im, mask, geo, 1500, 8000)) <= tol * _max(y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(n_fft=441, hop_length=147), dict(n_fft=1101, hop_length=367)],
+                         ids=["nfft441", "nfft1101"])
+def test_odd_istft_output_does_not_depend_on_the_run(cuda, kw):
+    """An odd n_fft pairs frames 2s and 2s + 1 whatever the run: D's
+    output over the whole signal is bitwise that of one call per window
+    of a few hop blocks."""
+    geo = gate_geometry(StftConfig(**kw), 11000)
+    rng = np.random.default_rng(26)
+    re, im = (torch.as_tensor(rng.standard_normal((1, geo.n_frames, geo.n_bins)),
+                              dtype=torch.float32, device=cuda) for _ in range(2))
+    mask = torch.ones_like(re)
+    whole = K.istft_ola(re, im, mask, geo, 0, 11000)
+    step = 5 * geo.hop
+    parts = [K.istft_ola(re, im, mask, geo, o, min(step, 11000 - o)) for o in range(0, 11000, step)]
+    assert torch.equal(whole, torch.cat(parts, dim=1))
 
 
 @pytest.mark.gpu
@@ -551,14 +581,21 @@ def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
     (dict(n_fft=1536, hop_length=384), "fft"),
     (dict(n_fft=1536, hop_length=384, use_torch=True), "fft"),
     (dict(n_fft=400, hop_length=100), "fft"),
-    (dict(n_fft=1100, hop_length=275), "product"),
-    (dict(n_fft=1100, hop_length=275, use_torch=True), "product"),
+    (dict(n_fft=1100, hop_length=275), "fft"),
+    (dict(n_fft=1100, hop_length=275, use_torch=True), "fft"),
+    (dict(n_fft=441, hop_length=147), "fft"),
+    (dict(n_fft=441, hop_length=147, stationary=True), "fft"),
+    (dict(n_fft=1102, hop_length=551), "chirp"),
+    (dict(n_fft=1102, hop_length=551, use_torch=True), "chirp"),
+    # n_fft 40 at 16 kHz: bins 400 Hz apart, so a wider frequency smoothing
+    (dict(n_fft=40, hop_length=10, freq_mask_smooth_hz=1000), "product"),
 ], ids=["nonstationary", "stationary", "use_torch", "nfft1536", "nfft1536-use_torch",
-        "nfft400", "nfft1100", "nfft1100-use_torch"])
+        "nfft400", "nfft1100", "nfft1100-use_torch", "nfft441", "nfft441-stationary",
+        "nfft1102", "nfft1102-use_torch", "nfft40"])
 def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
-    """A path whose n_fft the FFT route serves (1024, 1536, 400) launches no
-    product-route A or D, and n_fft 1100 no FFT-route one; the output
-    matches the CPU parity mode."""
+    """A path launches A and D on its geometry's route only (1024, 1536,
+    400, 1100 and 441 the FFT route, 1102 the chirp-z route, 40 the
+    product route); the output matches the CPU parity mode."""
     y = np.random.default_rng(25).standard_normal((2, 30000))
     K.reset_launch_counts()
     got = nrt.reduce_noise(y, 16000, chunk_size=8000, padding=1500, **kw)

@@ -1,28 +1,42 @@
-"""PyTorch port: the FFT route of kernels A and D (``csrc/spectra_fft.cu``,
-``csrc/istft_fft.cu`` over ``csrc/fft_smem.cuh``), emulated in float64
-numpy as the sources compute them: the frame-tile loader with its view and
-signal bounds, the host tables, the Stockham stage order, the real-FFT
-split and unsplit, and D's overlap-add of runs with halo frames, the
-envelope table and the trim. Held against the plain versions, which
-tests/test_torch_kernels.py holds against the JAX package's STFT.
+"""PyTorch port: the FFT and chirp-z routes of kernels A and D (the
+real-FFT kernels ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu`` and the
+complex-frame kernels ``csrc/spectra_cplx.cu`` / ``csrc/istft_cplx.cu``,
+over ``csrc/fft_smem.cuh``), emulated in float64 numpy as the sources
+compute them: the frame-tile loader with its view and signal bounds, the
+host tables, the Stockham stage order with radices up to 13, the real-FFT
+split and unsplit, odd n_fft as two frames a complex transform, the
+chirp-z convolution with its exact chirp index and host filter spectrum,
+and D's overlap-add of runs with halo frames, the envelope table and the
+trim. Held against the plain versions, which tests/test_torch_kernels.py
+holds against the JAX package's STFT. The route predicate is held to
+``csrc/fft_route.cuh``, compiled with the host compiler.
 
 Float64 bound: 1e-9 x the plain version's max |value|.
 """
+import pathlib
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from noisereduce_tpu_torch.config import StftConfig
 from noisereduce_tpu_torch.ops.cuda import kernels as K
+from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_ACC,
+    FFT_BIG_ELEMS,
+    FFT_BIG_WARPS,
     FFT_ELEMS,
     FFT_MAX_NFFT,
     FFT_MIN_NFFT,
     FFT_WARP_POINTS,
     FFT_WARPS,
+    chirp_length,
     fft_route,
     gate_geometry,
+    real_kernel,
 )
 from noisereduce_tpu_torch.parallel.chunking import n_chunks_for
 
@@ -48,6 +62,25 @@ GEOMS = {
     "torch-nfft1536-r4": dict(n_fft=1536, hop_length=384, **TORCH),
     "torch-nfft882-r2": dict(n_fft=882, hop_length=441, **TORCH),
 }
+# the complex-frame kernels: radix 11 (M = 550 = 2 5^2 11) and 13 (M = 520
+# = 2^3 5 13); odd n_fft, two frames a transform (441 = 3^2 7^2, 1323 =
+# 3^3 7^2; 4851 = 3^2 7^2 11 in a big block); the chirp-z route (M = 551
+# = 19 x 29, L = 1152; odd 1101 = 3 x 367, L = 2304; M = 2053, L = 8192 in
+# a big block)
+CPLX_GEOMS = {
+    "nfft1100-r4": dict(n_fft=1100, hop_length=275),
+    "nfft1040-r4": dict(n_fft=1040, hop_length=260),
+    "nfft441-r3": dict(n_fft=441, hop_length=147),
+    "nfft1323-r3": dict(n_fft=1323, hop_length=441),
+    "nfft4851-r3": dict(n_fft=4851, hop_length=1617),
+    "nfft1102-r2": dict(n_fft=1102, hop_length=551),
+    "nfft1101-r3": dict(n_fft=1101, hop_length=367),
+    "nfft4106-r2": dict(n_fft=4106, hop_length=2053),
+    "torch-nfft1100-r4": dict(n_fft=1100, hop_length=275, **TORCH),
+    "torch-nfft441-r3": dict(n_fft=441, hop_length=147, **TORCH),
+    "torch-nfft1102-r2": dict(n_fft=1102, hop_length=551, **TORCH),
+    "torch-nfft1101-r3": dict(n_fft=1101, hop_length=367, **TORCH),
+}
 CS, PAD, N_SRC = 4000, 700, 9500
 
 
@@ -64,6 +97,10 @@ def _twiddles(n_fft):
     return t[:, 0] + 1j * t[:, 1]
 
 
+def _complex(tab):
+    return tab[:, 0] + 1j * tab[:, 1]
+
+
 def _div(x, d):
     """fft_smem.cuh::Div: x / d as the high half of x * ceil(2^32 / d)."""
     x = np.asarray(x, np.uint64)
@@ -74,13 +111,14 @@ def _div(x, d):
 
 
 def _radices(m):
-    """The radices of fft_frames' stages: the power-of-two part of M first
-    (8 while 8 of it remain, then 4 or 2), then the 3s, the 5s, the 7s."""
+    """The radices of fft_frames' stages: the power-of-two part of m first
+    (8 while 8 of it remain, then 4 or 2), then the 3s, 5s, 7s, 11s and
+    13s."""
     out, ns, p2 = [], 1, m & -m
     while ns < p2:
         out.append(min(8, p2 // ns))
         ns *= out[-1]
-    for r in (3, 5, 7):
+    for r in (3, 5, 7, 11, 13):
         while (m // ns) % r == 0:
             out.append(r)
             ns *= r
@@ -89,8 +127,10 @@ def _radices(m):
 
 def _dft_r(v, inverse):
     """fft_smem.cuh::dft<R> on (..., R) complex, the sources' formulas with
-    their constants in float64: radix 2, 4 and 8 as butterflies, 3, 5 and 7
-    as a_m -+ i b_m over t+_k = v[k] + v[R-k], t-_k = v[k] - v[R-k]."""
+    their constants in float64: radix 2, 4 and 8 as butterflies, 3, 5, 7,
+    11 and 13 as a_m -+ i b_m over t+_k = v[k] + v[R-k], t-_k = v[k] -
+    v[R-k] (dft3, dft5, dft7 and dft_odd's loops: the constant of pair k
+    in output m at index k m mod R)."""
     R = v.shape[-1]
     rot = 1j if inverse else -1j  # rot<INV>
     if R in (2, 4, 8):
@@ -105,17 +145,19 @@ def _dft_r(v, inverse):
     out = np.empty_like(v)
     out[..., 0] = v[..., 0] + sum(tp)
     for mm in range(1, h + 1):
-        a = v[..., 0] + sum(np.cos(2 * np.pi * k * mm / R) * tp[k - 1] for k in range(1, h + 1))
-        b = sum(np.sin(2 * np.pi * k * mm / R) * tm[k - 1] for k in range(1, h + 1))
+        a = v[..., 0] + sum(np.cos(2 * np.pi * (k * mm % R) / R) * tp[k - 1]
+                            for k in range(1, h + 1))
+        b = sum(np.sin(2 * np.pi * (k * mm % R) / R) * tm[k - 1] for k in range(1, h + 1))
         out[..., mm], out[..., R - mm] = a + b, a - b
     return out
 
 
 def _stockham(z, tw, inverse):
-    """fft_smem.cuh::fft_frames on (frames, M) complex: per stage, butterfly
-    j loads z[j + r M/R], twiddles by tw[2 (j mod ns) r M/(ns R)]
-    (conjugated for the inverse), takes the R-point DFT and stores at
-    (j - j mod ns) R + j mod ns + r ns; j mod ns through Div."""
+    """fft_smem.cuh::fft_frames on (slots, m) complex with the table tw of
+    2m points: per stage, butterfly j loads z[j + r m/R], twiddles by
+    tw[2 (j mod ns) r m/(ns R)] (conjugated for the inverse), takes the
+    R-point DFT and stores at (j - j mod ns) R + j mod ns + r ns; j mod ns
+    through Div."""
     m = z.shape[-1]
     ns = 1
     for R in _radices(m):
@@ -134,17 +176,19 @@ def _stockham(z, tw, inverse):
     return z
 
 
-def _segments(geo, n_frames):
-    """fft_smem.cuh::segment and seg_frames: (first frame slot, frames) of
-    each thread segment of a block among its first n_frames, the idle warps
-    past the last whole segment included (they own none)."""
-    warps, m = geo.fft_seg_warps, geo.n_fft // 2
-    fps = warps * FFT_WARP_POINTS // m
+def _segments(geo, n_slots, route=None):
+    """fft_smem.cuh::segment and seg_frames: (first slot, slots) of each
+    thread segment of a block among its first n_slots, the idle warps past
+    the last whole segment included (they own none); a slot past FFT_ELEMS
+    points takes a big block."""
+    slot, warps, _ = geo.fft_layout(route)
+    block_warps = FFT_BIG_WARPS if slot > FFT_ELEMS else FFT_WARPS
+    fps = warps * FFT_WARP_POINTS // slot
     out = []
-    for sid in range(-(-FFT_WARPS // warps)):
-        whole = sid < FFT_WARPS // warps
+    for sid in range(-(-block_warps // warps)):
+        whole = sid < block_warps // warps
         f0 = sid * fps
-        out.append((f0, min(max(n_frames - f0, 0), fps) if whole else 0))
+        out.append((f0, min(max(n_slots - f0, 0), fps) if whole else 0))
     return out
 
 
@@ -162,93 +206,183 @@ def _unsplit(yk, ym, w):
     return 0.5 * (s + t), np.conj(0.5 * (s - t))
 
 
+def _tiles(x, geo, cs, pad):
+    """The frame-tile loader of kernel A (both kernels): per view b and
+    tile of fft_tile_frames frames from t0, the tile's windowed frames
+    (fe, n_fft), zero past the window, from the zero-filled signal span."""
+    rows, n = x.shape
+    k_chunks = n_chunks_for(n, cs) if cs else 1
+    stride, start = (cs, -pad) if cs else (0, 0)
+    T, hop, win, tile = geo.n_frames, geo.hop, geo.win, geo.fft_tile_frames
+    ws = K._scaled_window_np(geo.scfg)
+    for b in range(rows * k_chunks):
+        h, c = divmod(b, k_chunks)
+        for t0 in range(0, T, tile):
+            fe = min(tile, T - t0)
+            p = t0 * hop - geo.bpad + np.arange((fe - 1) * hop + win)
+            s = c * stride + start + p
+            ok = (p >= 0) & (p < geo.view_len) & (s >= 0) & (s < n)
+            span = np.where(ok, x[h, np.clip(s, 0, n - 1)], 0.0)
+            u = np.zeros((fe, geo.n_fft))  # the tile's windowed frames, zero past win
+            u[:, :win] = ws * span[np.arange(fe)[:, None] * hop + np.arange(win)]
+            yield b, t0, u
+
+
 def _emulate_spectra_fft(x, geo, cs=0, pad=0):
     """csrc/spectra_fft.cu: per tile of fft_tile_frames frames of one view,
     the zero-filled signal span; per thread segment, its windowed frames
     packed as M = N/2 complex points, the FFT, and the split into the real
     spectrum, (M + 1) / 2 slots a frame."""
-    rows, n = x.shape
-    k_chunks = n_chunks_for(n, cs) if cs else 1
-    stride, start = (cs, -pad) if cs else (0, 0)
-    N, M, T, nb, hop, win = geo.n_fft, geo.n_fft // 2, geo.n_frames, geo.n_bins, geo.hop, geo.win
-    ws, tw = K._scaled_window_np(geo.scfg), _twiddles(N)
+    N, M, nb = geo.n_fft, geo.n_fft // 2, geo.n_bins
+    tw = _twiddles(N)
     half = (M + 1) // 2
-    re = np.zeros((rows * k_chunks, T, nb))
+    B = x.shape[0] * (n_chunks_for(x.shape[1], cs) if cs else 1)
+    re = np.zeros((B, geo.n_frames, nb))
     im = np.zeros_like(re)
-    for b in range(rows * k_chunks):
-        h, c = divmod(b, k_chunks)
-        for t0 in range(0, T, geo.fft_tile_frames):
-            fe = min(geo.fft_tile_frames, T - t0)
-            p = t0 * hop - geo.bpad + np.arange((fe - 1) * hop + win)
-            s = c * stride + start + p
-            ok = (p >= 0) & (p < geo.view_len) & (s >= 0) & (s < n)
-            span = np.where(ok, x[h, np.clip(s, 0, n - 1)], 0.0)
-            u = np.zeros((fe, N))  # the tile's windowed frames, zero past win
-            u[:, :win] = ws * span[np.arange(fe)[:, None] * hop + np.arange(win)]
-            for f0, nf in _segments(geo, fe):
-                e = np.arange(nf * M)  # the segment's points, packed
-                fl = _div(e, M)
-                f, q = f0 + fl, 2 * (e - fl * M)
-                Z = _stockham((u[f, q] + 1j * u[f, q + 1]).reshape(nf, M), tw, False).reshape(-1)
-                e = np.arange(nf * half)
-                fl = _div(e, half)
-                k = e - fl * half
-                base = fl * M
-                lo, hi = _split(Z[base + k], Z[base + np.where(k > 0, M - k, 0)], tw[k])
-                X = np.zeros((nf, nb), complex)
-                X[fl, k], X[fl, M - k] = lo, hi
-                if M % 2 == 0:  # slot 0 also gives the middle bin
-                    mid = base[k == 0] + M // 2
-                    X[fl[k == 0], M // 2] = _split(Z[mid], Z[mid], tw[M // 2])[0]
-                re[b, t0 + f0 : t0 + f0 + nf], im[b, t0 + f0 : t0 + f0 + nf] = X.real, X.imag
+    for b, t0, u in _tiles(x, geo, cs, pad):
+        for f0, nf in _segments(geo, len(u)):
+            e = np.arange(nf * M)  # the segment's points, packed
+            fl = _div(e, M)
+            f, q = f0 + fl, 2 * (e - fl * M)
+            Z = _stockham((u[f, q] + 1j * u[f, q + 1]).reshape(nf, M), tw, False).reshape(-1)
+            e = np.arange(nf * half)
+            fl = _div(e, half)
+            k = e - fl * half
+            base = fl * M
+            lo, hi = _split(Z[base + k], Z[base + np.where(k > 0, M - k, 0)], tw[k])
+            X = np.zeros((nf, nb), complex)
+            X[fl, k], X[fl, M - k] = lo, hi
+            if M % 2 == 0:  # slot 0 also gives the middle bin
+                mid = base[k == 0] + M // 2
+                X[fl[k == 0], M // 2] = _split(Z[mid], Z[mid], tw[M // 2])[0]
+            re[b, t0 + f0 : t0 + f0 + nf], im[b, t0 + f0 : t0 + f0 + nf] = X.real, X.imag
     return re, im
 
 
-def _emulate_istft_fft(re, im, mask, geo, out_off, out_len, run=None):
-    """csrc/istft_fft.cu: per run of output hop blocks, the covering frames
-    (the run plus r - 1 halo frames) in groups of fft_tile_frames; per
-    thread segment, Y = Z * mask without the imaginary DC and Nyquist
-    parts, the unsplit ((M + 1) / 2 slots a frame), the unscaled inverse
-    FFT; each sample summing its frames in ascending t; then the envelope
-    (the host table where all r frames exist, else summed) and the trim."""
+def _chirp(geo, slot):
+    """The chirp route's host tables as complex: cbar_j (n,) and the filter
+    spectrum (slot,)."""
+    n = geo.fft_n
+    return _complex(K._chirp_np(n)), _complex(K._chirp_filter_np((n, slot)))
+
+
+def _emulate_spectra_cplx(x, geo, cs=0, pad=0):
+    """csrc/spectra_cplx.cu: the tiles of kernel A; per thread segment, its
+    slots of T points: an even n_fft's frame packed as z[q] = u[2q] + i
+    u[2q+1] (n = M), an odd one's frame pair as z[j] = u_a[j] + i u_b[j]
+    (n = N, a zero frame b past the tile's last); on the chirp route times
+    cbar_j and zero past n; the T-point FFT; on the chirp route times the
+    filter spectrum and the unscaled inverse; then per point pair (k, n -
+    k) (Div by (n + 1) / 2), times cbar on the chirp route, the pair's two
+    frames (X_a = (Z[k] + conj Z[n-k]) / 2, X_b = -i (Z[k] - conj Z[n-k]) /
+    2) or the split."""
+    slot, _, _ = geo.fft_layout()
+    chirp = geo.route == "chirp"
+    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    fps = 2 if paired else 1
+    tw, tws = _twiddles(2 * slot), _twiddles(N)
+    cb, filt = _chirp(geo, slot) if chirp else (None, None)
+    half = (n + 1) // 2
+    B = x.shape[0] * (n_chunks_for(x.shape[1], cs) if cs else 1)
+    re = np.zeros((B, geo.n_frames, nb))
+    im = np.zeros_like(re)
+    for b, t0, u in _tiles(x, geo, cs, pad):
+        fe = len(u)
+        for f0, nf in _segments(geo, -(-fe // fps)):
+            if not nf:
+                continue
+            z = np.zeros((nf, slot), complex)
+            for sl in range(nf):
+                f = fps * (f0 + sl)
+                if paired:
+                    z[sl, :n] = u[f] + 1j * (u[f + 1] if f + 1 < fe else 0.0)
+                else:
+                    z[sl, :n] = u[f, 0::2] + 1j * u[f, 1::2]
+            if chirp:
+                z[:, :n] *= cb
+            Z = _stockham(z, tw, False)
+            if chirp:
+                Z = _stockham(Z * filt, tw, True)
+            e = np.arange(nf * half)
+            sl = _div(e, half)
+            k = e - sl * half
+            km = np.where(k > 0, n - k, 0)
+            zk, zm = Z[sl, k], Z[sl, km]
+            if chirp:
+                zk, zm = zk * cb[k], zm * cb[km]
+            t = t0 + fps * (f0 + sl)
+            if paired:
+                re[b, t, k], im[b, t, k] = (0.5 * (zk + np.conj(zm))).real, (0.5 * (zk + np.conj(zm))).imag
+                xb = -0.5j * (zk - np.conj(zm))
+                ok = fps * (f0 + sl) + 1 < fe
+                re[b, t[ok] + 1, k[ok]], im[b, t[ok] + 1, k[ok]] = xb.real[ok], xb.imag[ok]
+            else:
+                lo, hi = _split(zk, zm, tws[k])
+                re[b, t, k], im[b, t, k] = lo.real, lo.imag
+                re[b, t, n - k], im[b, t, n - k] = hi.real, hi.imag
+                if n % 2 == 0:  # k = 0 also gives the middle bin
+                    zh = Z[sl[k == 0], n // 2] * (cb[n // 2] if chirp else 1.0)
+                    mid = _split(zh, zh, tws[n // 2])[0]
+                    re[b, t[k == 0], n // 2], im[b, t[k == 0], n // 2] = mid.real, mid.imag
+    return re, im
+
+
+def _emulate_spectra(x, geo, cs=0, pad=0):
+    """Kernel A on the geometry's route: the real-FFT or the complex-frame
+    kernel."""
+    assert geo.route in ("fft", "chirp")
+    emulate = _emulate_spectra_fft if geo.fft_real else _emulate_spectra_cplx
+    return emulate(x, geo, cs, pad)
+
+
+def _invert_group_real(Y, nyq, geo):
+    """csrc/istft_fft.cu's pre-step and inverse on one segment's frames:
+    Y (nf, M) = Z * mask below M, nyq (nf,) = Y[M]; the unsplit ((M + 1) /
+    2 slots a frame), the unscaled M-point inverse; (nf, N) frames."""
+    nf, M = Y.shape
+    tw = _twiddles(geo.n_fft)
+    half = (M + 1) // 2
+    z = Y.reshape(-1).copy()
+    e = np.arange(nf * half)
+    fl = _div(e, half)
+    k = e - fl * half
+    lk, lm = fl * M + k, fl * M + M - k
+    ym = np.where(k == 0, nyq[fl], z[np.where(k > 0, lm, lk)])
+    lo, hi = _unsplit(z[lk], ym, tw[k])
+    z[lk], z[lm[k > 0]] = lo, hi[k > 0]
+    if M % 2 == 0:  # slot 0 also turns the middle point
+        mid = lk[k == 0] + M // 2
+        z[mid] = _unsplit(z[mid], z[mid], tw[M // 2])[0]
+    zz = _stockham(z.reshape(nf, M), tw, True)
+    y = np.zeros((nf, geo.n_fft))
+    y[:, 0::2], y[:, 1::2] = zz.real, zz.imag
+    return y
+
+
+def _ola(re, im, mask, geo, out_off, out_len, run, invert):
+    """Kernel D's runs (both kernels): per run of output hop blocks, the
+    covering frames (the run plus r - 1 halo frames; from an even frame
+    for an odd n_fft, two frames a slot) in groups of fft_tile_frames;
+    ``invert(b, tg, ge)`` gives the group's time frames (ge, N), unscaled;
+    each sample sums its frames' post[u] y_t[u] in ascending t; then the
+    envelope (the host table where all r frames exist, else summed) and
+    the trim."""
     B, T, nb = re.shape
-    N, M, hop, r, win = geo.n_fft, geo.n_fft // 2, geo.hop, geo.r, geo.win
+    hop, r, win = geo.hop, geo.r, geo.win
     G, run = geo.fft_tile_frames, run or geo.fft_run
-    tw, post = _twiddles(N), K._post_window_np(geo.scfg)
+    post = K._post_window_np(geo.scfg)
     wsq, env_int = K._window_squares_np(geo.scfg), K._interior_envelope_np(geo.scfg)
     j0, n_out = geo.out_blocks(out_off, out_len)
-    half = (M + 1) // 2
     out = np.zeros((B, out_len))
     for b in range(B):
         for ja in range(j0, j0 + n_out, run):
             je = min(run, j0 + n_out - ja)
             acc = np.zeros(je * hop)
             t_lo, t_hi = max(0, ja - r + 1), min(T - 1, ja + je - 1)
+            t_lo -= t_lo % (2 if geo.fft_paired else 1)
             for tg in range(t_lo, t_hi + 1, G):
                 ge = min(G, t_hi - tg + 1)
-                y = np.zeros((ge, N))
-                for f0, nf in _segments(geo, ge):
-                    if not nf:
-                        continue
-                    e = np.arange(nf * nb)
-                    fl, k = e // nb, e % nb
-                    t = tg + f0 + fl
-                    # no imaginary DC or Nyquist part
-                    Y = (re[b, t, k] + 1j * im[b, t, k] * ((k > 0) & (k < M))) * mask[b, t, k]
-                    z, nyq = np.zeros(nf * M, complex), np.zeros(nf, complex)
-                    z[(fl * M + k)[k < M]], nyq[fl[k == M]] = Y[k < M], Y[k == M]
-                    e = np.arange(nf * half)
-                    fl = _div(e, half)
-                    k = e - fl * half
-                    lk, lm = fl * M + k, fl * M + M - k
-                    ym = np.where(k == 0, nyq[fl], z[np.where(k > 0, lm, lk)])
-                    lo, hi = _unsplit(z[lk], ym, tw[k])
-                    z[lk], z[lm[k > 0]] = lo, hi[k > 0]
-                    if M % 2 == 0:  # slot 0 also turns the middle point
-                        mid = lk[k == 0] + M // 2
-                        z[mid] = _unsplit(z[mid], z[mid], tw[M // 2])[0]
-                    zz = _stockham(z.reshape(nf, M), tw, True)
-                    y[f0 : f0 + nf, 0::2], y[f0 : f0 + nf, 1::2] = zz.real, zz.imag
+                y = invert(b, tg, ge)
                 for i in range(ge):
                     l = (tg + i - ja) * hop + np.arange(win)
                     keep = (l >= 0) & (l < je * hop)
@@ -267,18 +401,118 @@ def _emulate_istft_fft(re, im, mask, geo, out_off, out_len, run=None):
     return out
 
 
+def _emulate_istft_fft(re, im, mask, geo, out_off, out_len, run=None):
+    """csrc/istft_fft.cu: per group and thread segment, Y = Z * mask
+    without the imaginary DC and Nyquist parts, the unsplit and the
+    unscaled inverse FFT (_invert_group_real); the runs of _ola."""
+    nb, M = geo.n_bins, geo.n_fft // 2
+
+    def invert(b, tg, ge):
+        y = np.zeros((ge, geo.n_fft))
+        for f0, nf in _segments(geo, ge):
+            if not nf:
+                continue
+            e = np.arange(nf * nb)
+            fl, k = e // nb, e % nb
+            t = tg + f0 + fl
+            # no imaginary DC or Nyquist part
+            Y = (re[b, t, k] + 1j * im[b, t, k] * ((k > 0) & (k < M))) * mask[b, t, k]
+            Y = Y.reshape(nf, nb)
+            y[f0 : f0 + nf] = _invert_group_real(Y[:, :M], Y[:, M], geo)
+        return y
+
+    return _ola(re, im, mask, geo, out_off, out_len, run, invert)
+
+
+def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None):
+    """csrc/istft_cplx.cu: per group and thread segment, its slots of T
+    points: an even n_fft's frame as istft_fft.cu loads and unsplits it (n
+    = M), an odd one's frame pair as W[k] = Y_a[k] + i Y_b[k], W[n-k] =
+    conj Y_a[k] + i conj Y_b[k] (no imaginary DC parts; frames 2s and 2s +
+    1, a zero frame b past the last); on the chirp route times c_k (conj cbar) and zero
+    past n, the T-point FFT, times the conjugate filter spectrum, the
+    unscaled inverse and c_j on the first n points; else the unscaled
+    n-point inverse; the runs of _ola."""
+    slot, _, _ = geo.fft_layout()
+    chirp = geo.route == "chirp"
+    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    fps = 2 if paired else 1
+    tw, tws = _twiddles(2 * slot), _twiddles(N)
+    cb, filt = _chirp(geo, slot) if chirp else (None, None)
+    k = np.arange(nb)
+
+    def spectrum(b, t):  # Y = Z * mask, no imaginary DC or Nyquist part
+        return (re[b, t] + 1j * im[b, t] * ((k > 0) & (k < N / 2))) * mask[b, t]
+
+    def invert(b, tg, ge):
+        y = np.zeros((ge, N))
+        for f0, nf in _segments(geo, -(-ge // fps)):
+            if not nf:
+                continue
+            z = np.zeros((nf, slot), complex)
+            for sl in range(nf):
+                f = fps * (f0 + sl)
+                if paired:
+                    ya = spectrum(b, tg + f)
+                    yb = spectrum(b, tg + f + 1) if tg + f + 1 < re.shape[1] else 0 * ya
+                    z[sl, :nb] = ya + 1j * yb
+                    z[sl, n - k[1:]] = np.conj(ya[1:]) + 1j * np.conj(yb[1:])
+                else:
+                    ya = spectrum(b, tg + f)
+                    z[sl, :n] = _pre_step(ya[:n], ya[n], tws)
+            if chirp:
+                z[:, :n] *= np.conj(cb)
+                Z = _stockham(_stockham(z, tw, False) * np.conj(filt), tw, True)
+                Z[:, :n] *= np.conj(cb)
+            else:
+                Z = _stockham(z, tw, True)
+            for sl in range(nf):
+                f = fps * (f0 + sl)
+                if paired:
+                    y[f] = Z[sl, :n].real
+                    if f + 1 < ge:
+                        y[f + 1] = Z[sl, :n].imag
+                else:
+                    y[f, 0::2], y[f, 1::2] = Z[sl, :n].real, Z[sl, :n].imag
+        return y
+
+    return _ola(re, im, mask, geo, out_off, out_len, run, invert)
+
+
+def _pre_step(Y, nyq, tws):
+    """The unsplit of one frame, Y (M,) and Y[M]: Z' (M,)."""
+    M = len(Y)
+    z = Y.copy()
+    k = np.arange((M + 1) // 2)
+    ym = np.where(k == 0, nyq, z[np.where(k > 0, M - k, 0)])
+    lo, hi = _unsplit(z[k], ym, tws[k])
+    z[k], z[M - k[1:]] = lo, hi[1:]
+    if M % 2 == 0:
+        z[M // 2] = _unsplit(z[M // 2], z[M // 2], tws[M // 2])[0]
+    return z
+
+
+def _emulate_istft(re, im, mask, geo, out_off, out_len, run=None):
+    """Kernel D on the geometry's route: the real-FFT or the complex-frame
+    kernel."""
+    assert geo.route in ("fft", "chirp")
+    emulate = _emulate_istft_fft if geo.fft_real else _emulate_istft_cplx
+    return emulate(re, im, mask, geo, out_off, out_len, run)
+
+
 def _route_sizes():
-    """Every n_fft the FFT route serves."""
-    sizes = range(FFT_MIN_NFFT, FFT_MAX_NFFT + 1, 2)
-    return [n for n in sizes if fft_route(StftConfig(n_fft=n))]
+    """Every n_fft the FFT and chirp routes serve."""
+    sizes = range(FFT_MIN_NFFT, FFT_MAX_NFFT + 1)
+    return [n for n in sizes if fft_route(StftConfig(n_fft=n)) != "product"]
 
 
 @pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096, 8192,
-                                   96, 400, 480, 882, 1200, 1536])
+                                   96, 400, 480, 882, 1200, 1536, 1100, 1040, 286])
 def test_stockham_stages_are_the_dft(n_fft):
     """The stage order, the sources' R-point formulas, the autosort indices
     and the host twiddle table give the FFT and its unscaled inverse, for
-    power-of-two and mixed-radix halves M (48, 200, 240, 441, 600, 768)."""
+    power-of-two and mixed-radix halves M (48, 200, 240, 441, 600, 768; 550
+    with radix 11, 520 with 13, 143 with both)."""
     m = n_fft // 2
     rng = np.random.default_rng(n_fft)
     z = rng.standard_normal((3, m)) + 1j * rng.standard_normal((3, m))
@@ -288,7 +522,22 @@ def test_stockham_stages_are_the_dft(n_fft):
     assert np.prod(_radices(m)) == m
 
 
-@pytest.mark.parametrize("radix", [2, 3, 4, 5, 7, 8])
+@pytest.mark.parametrize("m", [441, 1323, 4851, 1001, 2197, 1120, 2205, 1152, 2304, 8192,
+                               6561])
+def test_stockham_stages_of_any_slot_are_the_dft(m):
+    """The same for the complex-frame kernels' slots: an odd n_fft's N
+    points (441, 1323, 4851 = 3^2 7^2 11 in a big block, 1001 = 7 11 13,
+    2197 = 13^3) and chirp lengths (1120 = 2^5 5 7, 2205 = 3^2 5 7^2, 1152
+    = 2^7 3^2, 2304, 8192; 6561 = 3^8), each with the table of 2m points."""
+    rng = np.random.default_rng(m)
+    z = rng.standard_normal((2, m)) + 1j * rng.standard_normal((2, m))
+    tw = _twiddles(2 * m)
+    _close(_stockham(z, tw, False), np.fft.fft(z, axis=-1))
+    _close(_stockham(z, tw, True), m * np.fft.ifft(z, axis=-1))
+    assert np.prod(_radices(m)) == m and len(_radices(m)) <= 12
+
+
+@pytest.mark.parametrize("radix", [2, 3, 4, 5, 7, 8, 11, 13])
 def test_radix_formulas_are_the_dft(radix):
     """fft_smem.cuh's R-point DFTs, forward and inverse."""
     v = np.random.default_rng(radix).standard_normal((4, radix, 2)) @ [1, 1j]
@@ -298,17 +547,32 @@ def test_radix_formulas_are_the_dft(radix):
         _close(_dft_r(v, inverse), want, 1e-14)
 
 
+def test_radix_11_and_13_constants_are_the_sources():
+    """dft_odd's float32 tables in fft_smem.cuh are cos and sin(2 pi j / R)
+    rounded from float64."""
+    src = (build.CSRC / "fft_smem.cuh").read_text()
+    for R in (11, 13):
+        body = src[src.index(f"if constexpr (R == {R})" if R == 11 else "static_assert(R == 13"):]
+        for name, fn in (("c", np.cos), ("s", np.sin)):
+            decl = body.index(f"constexpr float {name}[{R}] = {{")
+            text = body[decl : body.index("};", decl)].split("{", 1)[1]
+            vals = np.array([float(v.strip().rstrip("f")) for v in text.split(",")])
+            want = fn(2 * np.pi * np.arange(R) / R).astype(np.float32)
+            assert np.array_equal(vals.astype(np.float32), want), (R, name)
+
+
 def test_multiply_high_division_is_exact():
-    """Div's x / d is exact for every divisor the kernels use (M, (M + 1) / 2,
-    M / R and ns of each stage, for every n_fft the route serves, and a
-    segment's warps) and every
-    x below 2^14, past every index they divide; every M's plan fits
-    fft_smem.cuh's MAX_STAGES (12)."""
-    ds = set(range(1, FFT_WARPS + 1))
-    for n in _route_sizes():
-        m = n // 2
+    """Div's x / d is exact for every divisor the kernels use (the slot m,
+    (m + 1) / 2, m / R and ns of each stage, for every n_fft the FFT and
+    chirp routes serve; a frame's pairs (n + 1) / 2 and bins; a segment's
+    warps) and every x below 2^14, past every index they divide; every
+    plan fits fft_smem.cuh's MAX_STAGES (12)."""
+    ds = set(range(1, FFT_BIG_WARPS + 1))
+    for n_fft in _route_sizes():
+        geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=n_fft), 4 * n_fft)
+        m = geo.fft_layout()[0]
         assert len(_radices(m)) <= 12
-        ds.update((m, (m + 1) // 2))
+        ds.update((m, (m + 1) // 2, (geo.fft_n + 1) // 2, geo.n_bins))
         ns = 1
         for r in _radices(m):
             ds.update((m // r, ns))
@@ -325,17 +589,69 @@ def test_twiddle_table_is_exact_at_quarter_turns():
     _close(tw[:, 0] + 1j * tw[:, 1], np.exp(-2j * np.pi * np.arange(1024) / 1024))
 
 
-@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
-@pytest.mark.parametrize("kw", GEOMS.values(), ids=GEOMS.keys())
-def test_spectra_fft_emulation_matches_plain_version(kw, chunked):
+@pytest.mark.parametrize("n", [17, 551, 1101, 2053, 4093])
+def test_chirp_z_is_the_dft(n):
+    """The chirp route's arithmetic: cbar_j times the points, the L-point
+    FFT, times the host filter spectrum, the unscaled inverse, cbar_k:
+    the n-point DFT (L = 2^a 3^b, or 8192 past a block; 4093 at j^2 up to
+    2^24). The chirp table's index is exact: cbar_j for j near n (j^2
+    near 2^24) agrees with e^{-i pi j^2 / n} taken in exact integers."""
+    L = chirp_length(n)
+    assert L >= 2 * n - 1 and (L == FFT_BIG_ELEMS or L <= FFT_ELEMS)
+    cb, filt = _complex(K._chirp_np(n)), _complex(K._chirp_filter_np((n, L)))
+    rng = np.random.default_rng(n)
+    z = np.zeros((2, L), complex)
+    z[:, :n] = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))) * cb
+    tw = _twiddles(2 * L)
+    got = _stockham(_stockham(z, tw, False) * filt, tw, True)[:, :n] * cb
+    _close(got, np.fft.fft(z[:, :n] / cb, axis=-1), 1e-12)
+    j = np.arange(n - 3, n)
+    q = [(int(v) * int(v)) % (2 * n) for v in j]  # Python integers
+    _close(cb[j], np.exp(-1j * np.pi * np.array(q) / n), 1e-15)
+
+
+def _check_spectra(kw, chunked, emulate):
     x = np.random.default_rng(31).standard_normal((2, N_SRC))
     cs, pad = (CS, PAD) if chunked else (0, 0)
     geo = gate_geometry(StftConfig(**kw), CS + 2 * PAD if chunked else N_SRC)
-    assert fft_route(geo.scfg)
     re, im = K.spectra_ref(torch.as_tensor(x), geo, cs, pad)
-    ere, eim = _emulate_spectra_fft(x, geo, cs, pad)
+    ere, eim = emulate(x, geo, cs, pad)
     _close(ere, re.numpy())
     _close(eim, im.numpy())
+    return geo
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+@pytest.mark.parametrize("kw", GEOMS.values(), ids=GEOMS.keys())
+def test_spectra_fft_emulation_matches_plain_version(kw, chunked):
+    geo = _check_spectra(kw, chunked, _emulate_spectra_fft)
+    assert geo.route == "fft" and geo.fft_real
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+@pytest.mark.parametrize("kw", CPLX_GEOMS.values(), ids=CPLX_GEOMS.keys())
+def test_spectra_cplx_emulation_matches_plain_version(kw, chunked):
+    geo = _check_spectra(kw, chunked, _emulate_spectra_cplx)
+    assert geo.route in ("fft", "chirp") and not geo.fft_real
+
+
+@pytest.mark.parametrize("kw,length", [(dict(n_fft=2040, hop_length=510), 2048),
+                                       (dict(n_fft=2035, hop_length=407), 4096)],
+                         ids=["nfft2040-r4", "nfft2035-r5"])
+def test_chirp_emulation_with_a_power_of_two_length(kw, length):
+    """The chirp route where the smallest 2^a 3^b >= 2n - 1 is a power of
+    two (n = 1020 = 2^2 3 5 17 and, odd, 2035 = 5 11 37), as the kernels'
+    power-of-two builds within a block take it: kernels A and D alike."""
+    geo = gate_geometry(StftConfig(**kw), N_SRC)
+    assert geo.route == "chirp" and geo.fft_layout()[0] == length
+    x = np.random.default_rng(36).standard_normal((1, N_SRC))
+    re, im = K.spectra_ref(torch.as_tensor(x), geo)
+    ere, eim = _emulate_spectra_cplx(x, geo)
+    _close(ere, re.numpy())
+    _close(eim, im.numpy())
+    mask = np.random.default_rng(37).random(re.shape)
+    ref = K.istft_ola_ref(re, im, torch.as_tensor(mask), geo, 0, N_SRC)
+    _close(_emulate_istft_cplx(re.numpy(), im.numpy(), mask, geo, 0, N_SRC), ref.numpy())
 
 
 def test_spectra_fft_emulation_of_a_short_noise_row():
@@ -349,90 +665,208 @@ def test_spectra_fft_emulation_of_a_short_noise_row():
     _close(eim, im.numpy())
 
 
-@pytest.mark.parametrize("window", ["core", "whole", "middle", "past-end"])
-@pytest.mark.parametrize("kw", GEOMS.values(), ids=GEOMS.keys())
-def test_istft_fft_emulation_matches_plain_version(kw, window):
+@pytest.mark.parametrize("name", ["nfft1100-r4", "nfft441-r3", "nfft1102-r2", "nfft1101-r3"])
+def test_spectra_cplx_emulation_of_a_short_noise_row(name):
+    """The same on the complex-frame kernels: a row of 100 samples, one
+    frame (an odd n_fft: a zero second frame in the slot) or two."""
+    x = np.random.default_rng(32).standard_normal((1, 100))
+    geo = gate_geometry(StftConfig(**CPLX_GEOMS[name]), 100)
+    re, im = K.spectra_ref(torch.as_tensor(x), geo)
+    ere, eim = _emulate_spectra_cplx(x, geo)
+    assert ere.shape == (1, geo.n_frames, geo.n_bins) and geo.n_frames <= 2
+    _close(ere, re.numpy())
+    _close(eim, im.numpy())
+
+
+@pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "nfft1100-r4", "nfft441-r3",
+                                  "nfft4851-r3", "nfft1102-r2", "nfft1101-r3",
+                                  "nfft4106-r2"])
+def test_silent_row_gives_exact_zeros(name):
+    """A silent row gives exact zeros on every route: its spectra, and the
+    inverse of zero spectra under any mask."""
+    geo = gate_geometry(StftConfig(**{**GEOMS, **CPLX_GEOMS}[name]), N_SRC)
+    x = np.zeros((1, N_SRC))
+    re, im = _emulate_spectra(x, geo)
+    assert not re.any() and not im.any()
+    mask = np.random.default_rng(38).random(re.shape)
+    assert not _emulate_istft(re, im, mask, geo, 0, N_SRC).any()
+
+
+def _istft_window(window):
+    return {"core": (PAD, CS), "whole": (0, CS + 2 * PAD), "middle": (3000, 1500),
+            "past-end": (4500, 2000)}[window]
+
+
+def _check_istft(kw, window, emulate):
     view = CS + 2 * PAD
     geo = gate_geometry(StftConfig(**kw), view)
     rng = np.random.default_rng(33)
     re, im = rng.standard_normal((2, 3, geo.n_frames, geo.n_bins))
     mask = rng.random(re.shape)
-    out_off, out_len = {"core": (PAD, CS), "whole": (0, view), "middle": (3000, 1500),
-                        "past-end": (4500, 2000)}[window]
+    out_off, out_len = _istft_window(window)
     ref = K.istft_ola_ref(*(torch.as_tensor(a) for a in (re, im, mask)), geo, out_off, out_len)
-    _close(_emulate_istft_fft(re, im, mask, geo, out_off, out_len), ref.numpy())
+    _close(emulate(re, im, mask, geo, out_off, out_len), ref.numpy())
 
 
-@pytest.mark.parametrize("name", ["nfft1024-r4", "torch-nfft512-r2", "nfft1536-r4"])
+@pytest.mark.parametrize("window", ["core", "whole", "middle", "past-end"])
+@pytest.mark.parametrize("kw", GEOMS.values(), ids=GEOMS.keys())
+def test_istft_fft_emulation_matches_plain_version(kw, window):
+    _check_istft(kw, window, _emulate_istft_fft)
+
+
+@pytest.mark.parametrize("window", ["core", "whole", "middle", "past-end"])
+@pytest.mark.parametrize("kw", CPLX_GEOMS.values(), ids=CPLX_GEOMS.keys())
+def test_istft_cplx_emulation_matches_plain_version(kw, window):
+    _check_istft(kw, window, _emulate_istft_cplx)
+
+
+@pytest.mark.parametrize("name", ["nfft1024-r4", "torch-nfft512-r2", "nfft1536-r4",
+                                  "nfft441-r3", "nfft1323-r3", "nfft1102-r2",
+                                  "nfft1101-r3"])
 def test_istft_fft_output_does_not_depend_on_the_run(name):
     """Each sample sums the same products in ascending frame order whatever
     run or group its frames land in: runs of 1, 3 and fft_run give the
-    same bits."""
-    geo = gate_geometry(StftConfig(**GEOMS[name]), CS + 2 * PAD)
+    same bits; an odd n_fft's groups of an odd frame count pad their last
+    slot with a zero frame."""
+    geo = gate_geometry(StftConfig(**{**GEOMS, **CPLX_GEOMS}[name]), CS + 2 * PAD)
     rng = np.random.default_rng(34)
     re, im = rng.standard_normal((2, 1, geo.n_frames, geo.n_bins))
     mask = rng.random(re.shape)
-    outs = [_emulate_istft_fft(re, im, mask, geo, PAD, CS, run) for run in (1, 3, None)]
+    outs = [_emulate_istft(re, im, mask, geo, PAD, CS, run) for run in (1, 3, None)]
     assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0], outs[2])
 
 
-def test_route_predicate():
-    """An even n_fft from 64 to 8192 whose half has no prime factor but 2,
-    3, 5 and 7 takes the FFT route; any other n_fft the product route; the
-    geometry alone decides."""
-    for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882):
-        assert fft_route(StftConfig(n_fft=n)) and fft_route(StftConfig(n_fft=n, **TORCH))
-    for n in (1100, 1023, 32, 16384, 8200, 2 * 11 * 32):
-        assert not fft_route(StftConfig(n_fft=n))
+_ROUTE_MAIN = r"""
+#include <cstdio>
+#include "fft_route.cuh"
+// per n_fft from 1 to 16384: its route and real_kernel; then, for each
+// line "n L" on the standard input, whether chirp_length_ok(n, L), and the
+// smallest L' >= 2n - 1 it takes
+int main() {
+  for (int n_fft = 1; n_fft <= 16384; ++n_fft)
+    std::printf("%d %d\n", nrf::route_of(n_fft), nrf::real_kernel(n_fft));
+  int n, L;
+  while (std::scanf("%d %d", &n, &L) == 2) {
+    int least = 2 * n - 1;
+    while (!nrf::chirp_length_ok(n, least)) ++least;
+    std::printf("%d %d\n", nrf::chirp_length_ok(n, L), least);
+  }
+}
+"""
+
+
+def test_route_predicate(tmp_path):
+    """Every n_fft from 64 to 8192 takes the FFT route when its transform's
+    n (n_fft/2, or n_fft when odd) has no prime factor above 13, else the
+    chirp route when 2n - 1 fits a big block; the product route takes the
+    rest: n_fft below 64 or above 8192 and the odd n_fft above 4096 with a
+    prime factor above 13 (2005 of them), none from 64 to 4096: 1100 (M =
+    2 5^2 11) takes the FFT route, 1102 (M = 19 x 29) the chirp route.
+    geometry.fft_route and real_kernel agree with csrc/fft_route.cuh
+    (compiled with the host compiler) on every n_fft from 1 to 16384; the
+    kernels take every chirp length the geometry picks (2^a 3^b and power
+    of two), and the default is the smallest they take; the geometry alone
+    decides."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "a host C++ compiler compiles csrc/fft_route.cuh"
+    (tmp_path / "route.cpp").write_text(_ROUTE_MAIN)
+    subprocess.run([cxx, "-std=c++17", "-I", str(build.CSRC), "-o", str(tmp_path / "route"),
+                    str(tmp_path / "route.cpp")], check=True)
+    chirps = [(n_fft, n_fft if n_fft % 2 else n_fft // 2) for n_fft in range(1, 16385)
+              if fft_route(StftConfig(n_fft=n_fft)) == "chirp"]
+    # the geometry's length, and the power of two that tools/fft_route_timing.py
+    # times in its place
+    asked = [(n, L) for _, n in chirps for L in (chirp_length(n), _pow2_length(n))]
+    lines = subprocess.run([str(tmp_path / "route")], check=True, capture_output=True,
+                           text=True, input="".join(f"{n} {L}\n" for n, L in asked)
+                           ).stdout.splitlines()
+    names = {0: "product", 1: "fft", 2: "chirp"}
+    product = []
+    for n_fft, line in zip(range(1, 16385), lines):
+        route, real = map(int, line.split())
+        assert fft_route(StftConfig(n_fft=n_fft)) == names[route], n_fft
+        assert real_kernel(n_fft) == bool(real), n_fft
+        if FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT and route == 0:
+            product.append(n_fft)
+    for (n, L), line in zip(asked, lines[16384:]):
+        ok, least = map(int, line.split())
+        assert ok and L >= 2 * n - 1, (n, L)
+        assert chirp_length(n) == least, n
+    assert len(lines) == 16384 + len(asked)
+    assert all(n > 4096 and n % 2 for n in product) and len(product) == 2005
+    assert all(fft_route(StftConfig(n_fft=n)) == "product" for n in (32, 63, 8194, 16384))
+    for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 4851):
+        assert fft_route(StftConfig(n_fft=n)) == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
+    for n in (1102, 1101, 4106, 2 * 17 * 32, 8182):
+        assert fft_route(StftConfig(n_fft=n)) == "chirp"
+    assert chirp_length(551) == 1152 and _pow2_length(551) == 2048
     geo = gate_geometry(StftConfig(n_fft=1100, hop_length=275), 8000)
-    assert not fft_route(geo.scfg) and geo.r == 4
-    assert K._route(geo) == "product"
-    assert K._route(gate_geometry(StftConfig(n_fft=1536, hop_length=384), 8000)) == "fft"
-    assert K._route(gate_geometry(StftConfig(n_fft=512), 8000)) == "fft"
+    assert geo.r == 4 and geo.route == "fft" and not geo.fft_real
+    assert gate_geometry(StftConfig(n_fft=1102, hop_length=551), 8000).route == "chirp"
+    assert gate_geometry(StftConfig(n_fft=4099, hop_length=4099), 8000).route == "product"
+    assert gate_geometry(StftConfig(n_fft=1536, hop_length=384), 8000).route == "fft"
+    assert gate_geometry(StftConfig(n_fft=512), 8000).route == "fft"
+
+
+def _pow2_length(n):
+    """The least power of two >= 2n - 1, or 8192 past a block."""
+    return 8192 if 2 * n - 1 > 4096 else 1 << (2 * n - 2).bit_length()
 
 
 @pytest.mark.parametrize("n_fft,hop", [(64, 16), (512, 128), (1024, 256), (2048, 2048),
                                        (8192, 2048), (8192, 8192), (1536, 384),
-                                       (400, 100), (882, 441)])
+                                       (400, 100), (882, 441), (1100, 275), (441, 147),
+                                       (1323, 441), (4851, 1617), (1102, 551),
+                                       (4106, 2053)])
 def test_fft_tiles_fit_a_block(n_fft, hop):
-    """A's tile and D's group hold at most ELEMS complex values, D's run at
-    most FFT_ACC samples, and every tile and run holds at least one. The
-    thread segments hold whole frames within their threads' points, and
-    together every frame of a tile exactly once; a power of two M keeps
-    the layout of one frame or 256/M frames a warp."""
+    """A's tile and D's group hold at most a block's points (a big block's
+    for a slot past FFT_ELEMS), D's run at most FFT_ACC samples, and every
+    tile and run holds at least one frame. The thread segments hold whole
+    slots within their threads' points, and together every slot of a tile
+    exactly once; a power of two M keeps the layout of one frame or 256/M
+    frames a warp."""
     geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 20000)
-    m = n_fft // 2
-    assert geo.fft_tile_frames >= 1 and geo.fft_tile_frames * m <= FFT_ELEMS
+    slot, warps, tile = geo.fft_layout()
+    elems, block_warps = ((FFT_BIG_ELEMS, FFT_BIG_WARPS) if slot > FFT_ELEMS
+                          else (FFT_ELEMS, FFT_WARPS))
+    fps = 2 if n_fft % 2 else 1
+    assert tile >= 1 and tile % fps == 0 and tile // fps * slot <= elems
     assert geo.fft_run >= 1 and geo.fft_run * hop <= FFT_ACC
-    warps = geo.fft_seg_warps
-    assert 1 <= warps <= FFT_WARPS and warps * FFT_WARP_POINTS >= m
-    for fe in (1, geo.fft_tile_frames - 1, geo.fft_tile_frames):
+    assert 1 <= warps <= block_warps and warps * FFT_WARP_POINTS >= slot
+    slots = tile // fps
+    for fe in (1, slots - 1, slots):
         owned = [f for f0, nf in _segments(geo, fe) for f in range(f0, f0 + nf)]
         assert owned == list(range(fe))
-    if m & (m - 1) == 0:
+    m = n_fft // 2
+    if n_fft % 2 == 0 and m & (m - 1) == 0:
         assert warps == max(1, m // FFT_WARP_POINTS) and geo.fft_tile_frames * m == FFT_ELEMS
 
 
 def test_segment_layout_keeps_most_lanes_busy():
-    """Over every n_fft the route serves, no other segment width fits more
-    frames in a block, and a tile fills at least half of the block's points
-    (the least: one frame of M just above 2048, 2058 at n_fft 4116)."""
+    """Over every n_fft the FFT and chirp routes serve, no other segment
+    width fits more slots in a block, and a tile fills at least half of
+    its block's points (the least: one slot just above 2048 points, 2049
+    at n_fft 4098 or 2049; a big block's one slot of at least 4097)."""
     fills = []
     for n in _route_sizes():
-        geo = gate_geometry(StftConfig(n_fft=n, hop_length=n // 2), 4 * n)
-        m = n // 2
-        best = max((FFT_WARPS // w) * (w * FFT_WARP_POINTS // m) for w in range(1, FFT_WARPS + 1))
-        assert geo.fft_tile_frames == best
-        fills.append(geo.fft_tile_frames * m / FFT_ELEMS)
+        geo = gate_geometry(StftConfig(n_fft=n, hop_length=n // 2 if n % 2 == 0 else n), 4 * n)
+        slot, warps, tile = geo.fft_layout()
+        elems, block_warps = ((FFT_BIG_ELEMS, FFT_BIG_WARPS) if slot > FFT_ELEMS
+                              else (FFT_ELEMS, FFT_WARPS))
+        ws = [w for w in range(1, block_warps + 1) if slot & (slot - 1) or w & (w - 1) == 0]
+        best = max((block_warps // w) * (w * FFT_WARP_POINTS // slot) for w in ws)
+        slots = tile // (2 if n % 2 else 1)
+        assert slots == best
+        fills.append(slots * slot / elems)
     assert min(fills) >= 0.5
 
 
 def test_route_counts_stay_zero_on_cpu():
     K.reset_launch_counts()
     x = torch.as_tensor(np.random.default_rng(35).standard_normal((1, 8000)))
-    for n_fft, hop in ((1024, 256), (1536, 384)):
+    for n_fft, hop in ((1024, 256), (1536, 384), (1100, 275), (441, 147), (1102, 551)):
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 8000)
         re, im = K.spectra(x, geo)
         K.istft_ola(re, im, torch.ones_like(re), geo, 0, 8000)
-    assert K.route_counts() == {"spectra": {"fft": 0, "product": 0},
-                                "istft_ola": {"fft": 0, "product": 0}}
+    assert K.route_counts() == {"spectra": {"fft": 0, "chirp": 0, "product": 0},
+                                "istft_ola": {"fft": 0, "chirp": 0, "product": 0}}

@@ -2,17 +2,27 @@
 """Time kernels A ``spectra`` and D ``istft_ola`` on one CUDA card at the
 headline shapes (960 s of 48 kHz audio, n_fft 1024 / hop 256), at
 n_fft 1536 / hop 384 (the first 60 s, and all 960 s), n_fft 400 / hop 100
-(960 s) and n_fft 1100 / hop 275 (60 s, the product route), chunked as
+(960 s), n_fft 1100 / hop 275 (60 s and 960 s: radix 11), and at 44.1 kHz
+n_fft 1323 / hop 441 and 441 / hop 147 (60 s: odd, two frames a
+transform) and n_fft 1102 / hop 551 (60 s: the chirp-z route), chunked as
 ``reduce_noise`` chunks (600000 / 30000); and A alone on the 10 s noise
 row of ``chip_smoke.py`` (n_fft 1024, unchunked: the stationary paths'
 threshold spectra, TPU row 3). Two times per kernel: CUDA
 events around one call, the minimum of ``--reps`` runs after a warm-up (the
 host's launch work included, as ``chip_smoke.py`` times), and the device
 time of the kernel alone, the mean over ``--reps`` calls in a
-``torch.profiler`` trace. Prints the card's name and power limit, then one
-JSON line: per cell, A's and D's times and the route each launch took.
+``torch.profiler`` trace; and the host's time to issue one call (the
+mean over ``--reps`` calls issued back to back without a synchronise),
+which the events time includes where it exceeds the card's. A chirp-route
+cell is timed twice, with the chirp length 2^a 3^b (the route's own) and a
+power of two (``geometry.chirp_length`` replaced for the run). With ``--library``, ``torch.stft`` /
+``torch.istft`` at the same shapes are timed the same three ways, and with
+``--product`` A's and D's product route (``_spectra_on`` /
+``_istft_ola_on`` by name). Prints the card's name and power limit, then
+one JSON line: per cell, A's and D's times and the route each launch
+took.
 
-    python3 tools/fft_route_timing.py [--reps 10]
+    python3 tools/fft_route_timing.py [--reps 10] [--cells 1024,1536] [--library] [--product]
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -23,29 +33,63 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import pathlib
 import sys
+import time
 
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.append(str(ROOT))  # this tree's package, after PYTHONPATH's
 
-CELLS = (  # name, n_fft, hop, seconds
-    ("headline n_fft 1024, 960 s", 1024, 256, 960),
-    ("n_fft 1536, 60 s", 1536, 384, 60),
-    ("n_fft 1536, 960 s", 1536, 384, 960),
-    ("n_fft 400, 960 s", 400, 100, 960),
-    ("n_fft 1100, 60 s", 1100, 275, 60),  # the product route
+CELLS = (  # name, n_fft, hop, seconds, sample rate
+    ("headline n_fft 1024, 960 s", 1024, 256, 960, 48000),
+    ("n_fft 1536, 60 s", 1536, 384, 60, 48000),
+    ("n_fft 1536, 960 s", 1536, 384, 960, 48000),
+    ("n_fft 400, 960 s", 400, 100, 960, 48000),
+    ("n_fft 1100, 60 s", 1100, 275, 60, 48000),
+    ("n_fft 1100, 960 s", 1100, 275, 960, 48000),
+    ("n_fft 1323, 44.1 kHz, 60 s", 1323, 441, 60, 44100),
+    ("n_fft 441, 44.1 kHz, 60 s", 441, 147, 60, 44100),
+    ("n_fft 1102, 44.1 kHz, 60 s", 1102, 551, 60, 44100),
 )
+
+
+def pow2_length(n: int) -> int:
+    """The least power of two >= 2n - 1, or 8192 past a block of 4096
+    points: a chirp length the kernels take beside the route's own."""
+    return 8192 if 2 * n - 1 > 4096 else 1 << (2 * n - 2).bit_length()
+
+
+@contextlib.contextmanager
+def chirp_lengths(length):
+    """``geometry.chirp_length`` replaced by ``length`` inside the block,
+    the layout cache cleared on the way in and out."""
+    from noisereduce_tpu_torch.ops.cuda import geometry as G
+    own = G.chirp_length
+    G.chirp_length = length
+    G._layout.cache_clear()
+    try:
+        yield
+    finally:
+        G.chirp_length = own
+        G._layout.cache_clear()
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--cells", default="",
+                    help="comma-separated n_fft values to time (default: every cell)")
+    ap.add_argument("--library", action="store_true",
+                    help="also time torch.stft / torch.istft at each cell's shapes")
+    ap.add_argument("--product", action="store_true",
+                    help="also time A's and D's product route at each cell's shapes")
     args = ap.parse_args()
+    wanted = {int(v) for v in args.cells.split(",") if v}
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import noisereduce_tpu_torch
@@ -58,41 +102,82 @@ def main() -> None:
     card_line, headline_signal, noise_clip, time_ms = (
         cs.card_line, cs.headline_signal, cs.noise_clip, cs.time_ms)
 
-    def device_ms(fn, reps):  # the device time of one call's kernels, ms
-        return sum(cs.device_ms(fn, reps).values())
+    def device_ms(fn, reps):  # the device time of one call's kernels, ms, or None
+        return sum(cs.device_ms(fn, reps).values()) or None
+
+    def host_ms(fn, reps):  # the host's time to issue one call, ms
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / reps * 1e3
+
+    def times(prefix, fn):
+        return {f"{prefix}_ms": time_ms(fn, args.reps),
+                f"{prefix}_device_ms": device_ms(fn, args.reps),
+                f"{prefix}_host_ms": host_ms(fn, args.reps)}
 
     from noisereduce_tpu_torch.config import StftConfig
     from noisereduce_tpu_torch.ops.cuda import kernels as K
     from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
     print(card_line(), flush=True)
-    x = torch.as_tensor(headline_signal(960)).cuda()
+    signals = {SR: torch.as_tensor(headline_signal(960)).cuda()}
     out = {"package": str(pathlib.Path(noisereduce_tpu_torch.__file__).parent), "cells": {}}
-    for name, n_fft, hop, secs in CELLS:
-        xs = x[None, : secs * SR].contiguous()
-        geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), CHUNK + 2 * PADDING)
-        a = (xs, geo, CHUNK, PADDING)
-        K.reset_launch_counts()
-        re, im = K.spectra(*a)
-        mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
-                          device=re.device)
-        d = (re, im, mask, geo, PADDING, CHUNK)
-        K.istft_ola(*d)
-        routes = K.route_counts()
-        out["cells"][name] = dict(
-            frames=re.shape[0] * re.shape[1],
-            spectra_ms=time_ms(lambda: K.spectra(*a), args.reps),
-            istft_ola_ms=time_ms(lambda: K.istft_ola(*d), args.reps),
-            spectra_device_ms=device_ms(lambda: K.spectra(*a), args.reps),
-            istft_ola_device_ms=device_ms(lambda: K.istft_ola(*d), args.reps),
-            routes={k: max(v, key=v.get) for k, v in routes.items()},
-        )
-        del re, im, mask
-        torch.cuda.empty_cache()
+    for name, n_fft, hop, secs, sr in CELLS:
+        if wanted and n_fft not in wanted:
+            continue
+        if sr not in signals:
+            signals[sr] = torch.as_tensor(headline_signal(secs, sr)).cuda()
+        xs = signals[sr][None, : secs * sr].contiguous()
+        g = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), CHUNK + 2 * PADDING)
+        # a chirp-route cell also with a power-of-two chirp length (a tree
+        # that has the route)
+        variants = {"": contextlib.nullcontext}
+        if getattr(g, "route", None) == "chirp":
+            variants[" (chirp length a power of two)"] = lambda: chirp_lengths(pow2_length)
+        for tag, lengths in variants.items():
+            with lengths():
+                a = (xs, g, CHUNK, PADDING)
+                K.reset_launch_counts()
+                re, im = K.spectra(*a)
+                mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
+                                  device=re.device)
+                d = (re, im, mask, g, PADDING, CHUNK)
+                K.istft_ola(*d)
+                routes = K.route_counts()
+                cell = out["cells"][name + tag] = dict(
+                    frames=re.shape[0] * re.shape[1],
+                    slot=g.fft_layout()[0] if hasattr(g, "fft_layout") else None,
+                    **times("spectra", lambda: K.spectra(*a)),
+                    **times("istft_ola", lambda: K.istft_ola(*d)),
+                    routes={k: max(v, key=v.get) for k, v in routes.items()},
+                )
+                if args.library and not tag:
+                    views = extract_chunks(xs, CHUNK, PADDING).reshape(-1, g.view_len).contiguous()
+                    window = torch.hann_window(g.win, periodic=True, device=xs.device)
+                    zm = torch.complex(re * mask, im * mask).transpose(1, 2).contiguous()
+                    cell.update(times("torch_stft", lambda: torch.stft(
+                        views, g.n_fft, g.hop, g.win, window, center=True, pad_mode="constant",
+                        return_complex=True)))
+                    cell.update(times("torch_istft", lambda: torch.istft(
+                        zm, g.n_fft, g.hop, g.win, window, center=True, length=g.view_len)))
+                    del views, zm
+                if args.product and not tag and routes["spectra"]["product"] == 0:
+                    cell.update(times("spectra_product", lambda: K._spectra_on("product", *a)))
+                    cell.update(times("istft_ola_product", lambda: K._istft_ola_on("product", *d)))
+                del re, im, mask
+                torch.cuda.empty_cache()
+    if wanted and 1024 not in wanted:
+        print(json.dumps(out), flush=True)
+        return
     noise = torch.as_tensor(noise_clip(NOISE_SECONDS)).cuda()[None]
     an = (noise, gate_geometry(StftConfig(n_fft=1024, hop_length=256), noise.shape[-1]))
-    out["noise_row"] = dict(spectra_ms=time_ms(lambda: K.spectra(*an), args.reps),
-                            spectra_device_ms=device_ms(lambda: K.spectra(*an), args.reps))
+    out["noise_row"] = times("spectra", lambda: K.spectra(*an))
     print(json.dumps(out), flush=True)
 
 

@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Time kernels A and D (``tools/fft_route_timing.py``) in copies of
+``noisereduce_tpu_torch`` that route the FFT route's n_fft to other
+kernels, first holding each copy's A and D to their plain versions with
+the card tests of ``tests/test_torch_cuda.py``. The copies go under
+``$TMPDIR``; the repository's sources are not touched. A copy is built
+once a run, so ``base cplx_all cplx_all base`` times each tree twice, in
+turns.
+
+    python3 tools/fft_route_variants.py base cplx_all cplx_all base --cells 1024,1536
+
+- ``base``: the sources as they are;
+- ``cplx_all``: the complex-frame kernels (``spectra_cplx.cu``,
+  ``istft_cplx.cu``) serve every n_fft of the FFT route, the even
+  2^k 3^a 5^b 7^c ones too, in place of the real-FFT kernels
+  (``spectra_fft.cu``, ``istft_fft.cu``).
+
+Arguments after the variants go to ``tools/fft_route_timing.py``. Needs
+one CUDA card; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = "noisereduce_tpu_torch/ops/cuda"
+VARIANTS = {  # name: [(file under PKG, code, its replacement)]
+    "base": [],
+    "cplx_all": [
+        ("csrc/fft_smem.cuh",
+         "if (r == ROUTE_FFT) return slot == n && !real_kernel(n_fft);",
+         "if (r == ROUTE_FFT) return slot == n;"),
+        ("csrc/fft_smem.cuh",
+         "return with_set<1155, 1365, 15015>(odd, build(N(), N()));",
+         "return with_set<1, 3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>("
+         "odd, build(N(), N()));"),
+        ("geometry.py",
+         "    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT\n"
+         "            and _strip(n_fft // 2, REAL_RADICES) == 1)",
+         "    return False"),
+    ],
+}
+# the card tests that hold a copy's A and D to their plain versions
+CHECK = "routes_match_plain_versions and (nfft512 or nfft1024 or nfft1536 or nfft400 or nfft882)"
+
+
+def build_copy(name: str) -> pathlib.Path:
+    """A copy of the package with variant ``name``'s edits applied."""
+    d = pathlib.Path(os.environ.get("TMPDIR", "/tmp")) / f"fft_route_variant_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(ROOT / "noisereduce_tpu_torch", d / "noisereduce_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for file, old, new in VARIANTS[name]:
+        p = d / PKG / file
+        src = p.read_text()
+        if src.count(old) != 1:
+            sys.exit(f"variant {name}: {file} no longer holds the code it edits")
+        p.write_text(src.replace(old, new))
+    return d
+
+
+def main() -> None:
+    names = [a for a in sys.argv[1:] if not a.startswith("-") and a in VARIANTS]
+    rest = sys.argv[1 + len(names):]
+    if not names or any(a in VARIANTS for a in rest):
+        sys.exit(f"usage: fft_route_variants.py VARIANT... [timing arguments]; "
+                 f"variants {', '.join(VARIANTS)}")
+    copies = {}
+    for name in names:
+        if name not in copies:
+            d = copies[name] = build_copy(name)
+            # from the copy's directory, so that pytest imports the copy
+            check = subprocess.run(
+                [sys.executable, "-m", "pytest", str(ROOT / "tests/test_torch_cuda.py"),
+                 "--noconftest", "-q", "-p", "no:cacheprovider", "-k", CHECK],
+                cwd=d, env=dict(os.environ, PYTHONPATH=str(d)), capture_output=True, text=True)
+            print(f"== variant {name}: card tests of A and D: "
+                  f"{check.stdout.strip().splitlines()[-1:]}", flush=True)
+            if check.returncode:
+                sys.exit(check.stdout[-3000:] + check.stderr[-3000:])
+        print(f"== variant {name}", flush=True)
+        run = subprocess.run(
+            [sys.executable, str(ROOT / "tools/fft_route_timing.py"), *rest],
+            env=dict(os.environ, PYTHONPATH=str(copies[name])), capture_output=True, text=True)
+        print(run.stdout, end="", flush=True)
+        if run.returncode:
+            sys.exit(run.stderr[-3000:])
+
+
+if __name__ == "__main__":
+    main()

@@ -119,7 +119,7 @@ def main() -> None:
         saved[case] = fn()
         ms = time_ms(fn, args.reps)
         dev = device_ms(fn, args.reps)
-        out[case] = dict(ms=ms, device_ms=sum(dev.values()), device_by_kernel=dev,
+        out[case] = dict(ms=ms, device_ms=sum(dev.values()) or None, device_by_kernel=dev,
                          cuda_launches=getattr(wrapper, "cuda_launches", 1),
                          bound_ms=bound_ms, bound_by="bytes")
         print(f"{case}: {ms:.3f} ms (device {sum(dev.values()):.3f} ms: "
