@@ -31,7 +31,13 @@ last line is printed only when every phase passed):
    a line after it their device ms from a ``torch.profiler`` trace; F is
    also held at n_movemean 1,875, time_constant_s 10, and at an even
    window, 374); and kernel G on the same spectra laid out
-   frequency-major, (77, 513, 2579) complex64;
+   frequency-major, (77, 513, 2579) complex64, on its resident route and
+   on its tiled route forced, then on the tiled route that a longer column
+   takes (the first 160 s unchunked, 30,001 frames), and on short columns
+   that a block holds several of: the training batch of 256 clips of 4 s,
+   here at 16 kHz with n_fft 512 / hop 128 (256 x 257 x 501, 4 columns a
+   block), each line with the route, the CUDA launches, the device ms by
+   kernel and the bandwidth reached;
 4. golden: ``reduce_noise(..., device="cuda")`` in float32 on
    ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary, the
    four stationary and the two torch-convention configurations against the
@@ -243,6 +249,12 @@ for _name in ROUTED:
 # 2): time_constant_s 10 (1,875 frames) and an even window (one more frame
 # on the right)
 F_WINDOWS = (1875, 374)
+# kernel G's long column: this many seconds of the headline signal, one
+# unchunked view (30,001 frames; the resident route holds 29,020)
+FM_LONG_SECONDS = 160
+# kernel G's short columns: the gradient phase's batch of 4 s clips at
+# GRAD_SR, taken with n_fft 512 / hop 128 (501 frames, several columns a block)
+FM_SHORT_N_FFT = 512
 # the gradient phase: the training workload of benchmarks/bench_all.py:316-331
 GRAD_SR, GRAD_SECONDS, GRAD_BATCHES = 16000, 4, (16, 256)
 # the masks' backward on 8 views of the headline plane (rows 6 and 7)
@@ -439,6 +451,38 @@ def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale
     return out
 
 
+def fm_route(K, record, label, route, fn, z, ref, mk):
+    """Kernel G on one route: against its plain version (``record``, which
+    prints its events and the bound), the route that one call took and its
+    CUDA launches, its device time by kernel (``torch.profiler``; where the
+    trace lost kernels, ``queued_ms``; where that gave nothing too, CUDA
+    events around one call, the host's launch work included) and the
+    bandwidth that reaches for the function's bytes (Z read once, the mask
+    written once). Returns the numbers of the kernels JSON line."""
+    K.reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    took = {r: getattr(K.fm_nonstationary_mask, f"{r}_launches") for r in K.FM_ROUTES}
+    if took != {r: int(r == route) for r in K.FM_ROUTES}:
+        fail(f"kernel {label}: routes {took}, expected {route}")
+    moved = nbytes(z, got)
+    out = record("fm_nonstationary_mask", fn, lambda: K.fm_nonstationary_mask_ref(z, *mk), got,
+                 ref, moved, z.numel() * 30.0, label=label, wrapper=K.fm_nonstationary_mask)
+    dev = device_ms(fn)
+    dms, src = sum(dev.values()), "profiler"
+    how = ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+    if not dms:
+        dms, src, how = queued_ms(fn), "queued_ms", "queued_ms: the trace lost kernels"
+    if not dms:
+        dms, src, how = time_ms(fn, 10), "events", "CUDA events, the host's launch work included"
+    out.update(fm_route=route, device_ms=dms, device_ms_from=src, device_by_kernel=dev,
+               achieved_gb_per_s=moved / dms / 1e6)
+    print(f"kernel {label}: route {route}, {out['cuda_launches']} CUDA launches, device "
+          f"{dms:.4f} ms ({how}), {moved / dms / 1e6:.0f} GB/s of the function's "
+          f"{moved / 1e9:.3f} GB", flush=True)
+    return out
+
+
 def product_route(label, fn, ref, lim):
     """The product route of kernel A or D (the earlier kernel, which now
     serves only an n_fft that neither other route takes) at the same
@@ -457,8 +501,9 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     ``cfg`` is the non-stationary configuration, ``scfg`` the stationary
     one (the same STFT geometry and smoothing)."""
     from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+    from noisereduce_tpu_torch.config import GateConfig
     from noisereduce_tpu_torch.ops.cuda import kernels as K
-    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.geometry import fm_mask_plan, gate_geometry
     from noisereduce_tpu_torch.ops.dsp import tri_norm
     from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
@@ -548,14 +593,42 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     if results["nonstationary_mask"]["smoothing_launch"]["cuda_launches"] != 4:
         fail("kernel nonstationary_mask: 801 taps did not take the smoothing launch")
 
-    # G on the same spectra laid out frequency-major (TPU row 6)
+    # G on the same spectra laid out frequency-major (TPU row 6): the plan's
+    # route (resident), the tiled route forced at the same shapes, and the
+    # tiled route reached by a column too long to hold: the first
+    # FM_LONG_SECONDS of the signal unchunked
+    mk = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
     zf = torch.complex(re, im).transpose(1, 2).contiguous()
-    g = (zf, cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
-    mg = K.fm_nonstationary_mask(*g)
-    rmg = K.fm_nonstationary_mask_ref(*g)
-    record("fm_nonstationary_mask", lambda: K.fm_nonstationary_mask(*g),
-           lambda: K.fm_nonstationary_mask_ref(*g), mg, rmg, nbytes(zf, mg), cells * 30.0)
-    del zf, mg, rmg
+    rmg = K.fm_nonstationary_mask_ref(zf, *mk)
+    results["fm_nonstationary_mask"] = fm_route(
+        K, record, "fm_nonstationary_mask", "resident",
+        lambda: K.fm_nonstationary_mask(zf, *mk), zf, rmg, mk)
+    results["fm_nonstationary_mask"]["tiled_route"] = fm_route(
+        K, record, "fm_nonstationary_mask (tiled route forced)", "tiled",
+        lambda: K._fm_mask_on("tiled", zf, *mk), zf, rmg, mk)
+    del zf, rmg
+    n_long = FM_LONG_SECONDS * SR
+    zl = torch.complex(*K.spectra(x_cuda[None, :n_long], gate_geometry(cfg.stft, n_long)))
+    zl = zl.transpose(1, 2).contiguous()
+    results["fm_nonstationary_mask"]["tiled_long"] = fm_route(
+        K, record, f"fm_nonstationary_mask ({tuple(zl.shape)}: tiled)", "tiled",
+        lambda: K.fm_nonstationary_mask(zl, *mk), zl, K.fm_nonstationary_mask_ref(zl, *mk), mk)
+    del zl
+    # short columns: the headline signal's first samples read as
+    # GRAD_BATCHES[-1] clips of GRAD_SECONDS at GRAD_SR
+    n16 = GRAD_SECONDS * GRAD_SR
+    c16 = GateConfig(sr=GRAD_SR, n_fft=FM_SHORT_N_FFT)
+    x16 = x_cuda[: GRAD_BATCHES[-1] * n16].reshape(GRAD_BATCHES[-1], n16)
+    zs = torch.complex(*K.spectra(x16, gate_geometry(c16.stft, n16))).transpose(1, 2).contiguous()
+    ms16 = (c16.iir_b, c16.thresh_n_mult_nonstationary, c16.sigmoid_slope_nonstationary)
+    cols = fm_mask_plan(zs.numel() // zs.shape[-1], zs.shape[-1]).cols
+    if cols < 2:
+        fail(f"kernel G: {tuple(zs.shape)} takes {cols} column a block, not several")
+    results["fm_nonstationary_mask"]["short_columns"] = fm_route(
+        K, record, f"fm_nonstationary_mask ({tuple(zs.shape)}: {cols} columns a block)",
+        "resident", lambda: K.fm_nonstationary_mask(zs, *ms16), zs,
+        K.fm_nonstationary_mask_ref(zs, *ms16), ms16)
+    del zs, x16
 
     c = (m, tf, cfg.prop_decrease)
     mb = K.freq_smooth_blend(*c)
@@ -1216,6 +1289,8 @@ def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
     z64 = z.to(torch.complex128).requires_grad_()
     (rz,) = torch.autograd.grad(_mask_impl(z64, *mk), z64, cot.double())
     grad_check(f"row 6 mask ({tuple(z.shape)} complex64)", gz, rz, GRAD_BOUND)
+    if K.fm_nonstationary_mask.resident_launches != 1:
+        fail("row 6 mask under grad: kernel G did not take its resident route")
     del z, z64, gz, rz
     re, im = randn(GRAD_VIEWS, n_frames, cfg.stft.n_bins), randn(GRAD_VIEWS, n_frames, cfg.stft.n_bins)
     grads = under_grad(K, "row 7 mask under grad",

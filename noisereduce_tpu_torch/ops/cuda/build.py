@@ -62,7 +62,9 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
         _i, _i, _f, _f, _f, _f, _i, _vp,
     ],
-    "nr_fm_nonstationary_mask": [_vp, _i, _vp, _vp, _ll, _i, _d, _f, _f, _vp],
+    "nr_fm_nonstationary_mask": [
+        _vp, _i, _vp, _vp, _ll, _i, _i, _i, _i, _i, _dp, _f, _f, _i, _vp,
+    ],
     "nr_spectra_fft": [
         _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
         _vp, _vp, _vp, _vp,

@@ -44,6 +44,13 @@ launch shapes below:
   and a separate smoothing launch. F's moving-average window has no cap:
   it runs on float64 prefix sums, its far ends read from a |Z| plane.
 - C ``freq_smooth_blend`` runs one block per (row, frame).
+- G ``fm_nonstationary_mask`` works on frequency-major planes, each
+  column contiguous in time (``fm_mask_plan``): a block stages whole
+  columns of |Z| in shared memory (8, 4, 2 or 1 a block) and each thread
+  walks an odd region of one column, the regions' float64 carries
+  combined by warp-shuffle scans; a column past 29,020 frames takes tiles
+  of ``FM_THREADS`` x ``FM_TILE_LANE`` frames, their carries combined by a
+  column pass in between.
 
 The only structural requirement is that the hop divides the analysis frame
 (the window for scipy, n_fft for torch), so an output hop block is the sum
@@ -91,6 +98,14 @@ TILE_COLS = 32
 TILE_SEGS = 4
 PART_COLS = 128
 SMEM_MAX = 232448
+# kernel G (csrc/fm_nonstationary_mask.cu, must match its THREADS): threads
+# of a block; the longest region a thread of a block of several columns
+# walks; the frames of a thread's region on the tiled route (odd, as every
+# region: the 32 lanes of a warp then read 32 banks)
+FM_THREADS = 256
+FM_WARPS = FM_THREADS // 32
+FM_LANE = 16
+FM_TILE_LANE = 15
 
 
 def _round_up(a: int, m: int) -> int:
@@ -247,6 +262,77 @@ class TimeTilePlan:
     @property
     def part_blocks(self) -> int:
         return self.n_segs * -(-self.columns // PART_COLS)
+
+
+@dataclasses.dataclass(frozen=True)
+class FmMaskPlan:
+    """Launch shapes of kernel G over ``n_cols`` columns of ``n_frames``
+    frames (``csrc/fm_nonstationary_mask.cu``). A block of FM_THREADS
+    threads holds ``cols`` columns of a stretch of ``tile_len`` frames in
+    shared memory, FM_WARPS / ``cols`` warps a column, and each thread walks
+    a region of ``lane_len`` frames (odd) of one column.
+
+    "resident" (one CUDA launch): whole columns, ``tile_len`` = n_frames.
+    "tiled" (three): one column and a tile of FM_THREADS * ``lane_len``
+    frames a block, ``n_tiles`` tiles a column."""
+
+    route: str
+    cols: int
+    lane_len: int
+    tile_len: int
+    n_tiles: int
+    smem_bytes: int
+    n_cols: int
+    n_frames: int
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * -(-self.n_cols // self.cols)
+
+    @property
+    def last_tile(self) -> int:
+        """Frames of a column's last tile (resident: the column)."""
+        return self.n_frames - (self.n_tiles - 1) * self.tile_len
+
+    @property
+    def short_lane(self) -> int:
+        """Frames of the region that holds the last tile's last frame."""
+        return self.last_tile - (self.last_tile - 1) // self.lane_len * self.lane_len
+
+
+def fm_smem(cols: int, tile_len: int) -> int:
+    """Kernel G's dynamic shared memory: the warps' two scan aggregates
+    (four doubles a warp), then two planes (|Z|, and y then w) of ``cols``
+    columns of ``tile_len`` frames, the second one 16-byte aligned after the
+    first, both shifted by up to 3 words to the output's 16-byte
+    alignment."""
+    return 8 * 4 * FM_WARPS + 4 * (3 + 2 * (-(-cols * tile_len // 4) * 4))
+
+
+@functools.lru_cache(maxsize=256)
+def fm_mask_plan(n_cols: int, n_frames: int, route: str | None = None) -> FmMaskPlan:
+    """Kernel G's plan. The resident route takes the most columns a block
+    (8, 4, 2, 1) whose regions stay within FM_LANE frames (short serial
+    walks), one column a block with longer regions past 4,096 frames, while
+    the column's two planes fit ``SMEM_MAX`` (to 29,020 frames); the tiled
+    route takes longer columns, in regions of FM_TILE_LANE frames.
+    ``route`` forces one (the resident route only where it fits)."""
+    for cols in (8, 4, 2, 1):
+        lane = -(-n_frames // (32 * (FM_WARPS // cols))) | 1  # odd
+        if lane <= FM_LANE:
+            break
+    smem = fm_smem(cols, n_frames)
+    fits = smem <= SMEM_MAX
+    route = route or ("resident" if fits else "tiled")
+    if route == "resident":
+        if not fits:
+            raise ValueError(f"fm_mask_plan: {n_frames} frames do not fit a block")
+        return FmMaskPlan("resident", cols, lane, n_frames, 1, smem, n_cols, n_frames)
+    if route != "tiled":
+        raise ValueError(f"fm_mask_plan: no route {route!r}")
+    tile = FM_THREADS * FM_TILE_LANE
+    return FmMaskPlan("tiled", 1, FM_TILE_LANE, tile, -(-n_frames // tile),
+                      fm_smem(1, tile), n_cols, n_frames)
 
 
 @dataclasses.dataclass(frozen=True)

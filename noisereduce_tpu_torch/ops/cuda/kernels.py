@@ -56,12 +56,14 @@ launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches``, ``chirp_launches`` and ``product_launches``
-(``route_counts``;
-``reset_launch_counts`` sets them all to 0). B, E and F run as a few CUDA
+(``route_counts``), and G in ``resident_launches`` and ``tiled_launches``;
+``reset_launch_counts`` sets them all to 0. B, E and F run as a few CUDA
 launches over time tiles (``geometry.TimeTilePlan``: segment partials,
 a per-column combine, a final pass that smooths from shared memory) and
-still count 1 a call; ``cuda_launches`` holds how many CUDA launches their
-last call made. The plain versions follow the
+still count 1 a call; G as one (its resident route: whole columns in shared
+memory) or three (its tiled route, for longer columns;
+``geometry.fm_mask_plan``); ``cuda_launches`` holds how many CUDA launches
+their last call made. The plain versions follow the
 kernels' semantics, including finite zeros on silence (a zero noise floor
 takes divisor 1).
 
@@ -87,7 +89,7 @@ from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
-    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n,
+    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n, fm_mask_plan,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
@@ -448,13 +450,19 @@ def _ewma_constants(b: float, seg_len: int, n_frames: int, halo: int) -> tuple:
     n_segs = max(1, -(-n_frames // seg_len))
     n_last = max(1, n_frames - (n_segs - 1) * seg_len)
 
-    def r(p, n):
-        return b * a ** (p + 1) * math.fsum(a ** (2 * j) for j in range(n - p)) if p < n else 0.0
-
     def per(n):
-        return (a**n, r(0, n), r(p_b, n), a ** (n - p_b) if p_b < n else 0.0)
+        return (a**n, _ewma_r(b, 0, n), _ewma_r(b, p_b, n), a ** (n - p_b) if p_b < n else 0.0)
 
     return p_f, p_b, (a, b, a ** (p_f + 1), *per(seg_len), *per(n_last))
+
+
+@functools.lru_cache(maxsize=4096)
+def _ewma_r(b: float, p: int, n: int) -> float:
+    """R(p, n) = b a^(p+1) sum_{j < n-p} a^(2j), a = 1 - b, in float64: the
+    w at offset p of a stretch of n frames per unit of the y carried into it
+    (0 for an offset past its end)."""
+    a = 1.0 - b
+    return b * a ** (p + 1) * math.fsum(a ** (2 * j) for j in range(n - p)) if p < n else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -751,9 +759,21 @@ def fm_nonstationary_mask(z, b, thresh, slope):
     w[T-1] = y[T-1], both carried in float64;
     mask = sigmoid(((|Z| - w)/w' - thresh) * slope) with w' = 1 where
     w == 0. Returns the float32 mask, z's shape.
+
+    On the card (``geometry.fm_mask_plan``): the resident route, one CUDA
+    launch, while a column's two planes fit a block's shared memory (29,020
+    frames); the tiled route, three, past that. ``cuda_launches`` holds the
+    last call's CUDA launches, ``resident_launches`` / ``tiled_launches``
+    count the calls by route.
     """
     if _on_cpu(z):
         return fm_nonstationary_mask_ref(z, b, thresh, slope)
+    return _fm_mask_on(None, z, b, thresh, slope)
+
+
+def _fm_mask_on(route, z, b, thresh, slope):
+    """Launch kernel G on a CUDA tensor on ``route`` (None: the plan's)
+    and count it."""
     is_complex = z.is_complex()
     if is_complex and z.dtype != torch.complex64:
         raise TypeError(f"fm_nonstationary_mask: the kernel takes complex64, got {z.dtype}")
@@ -762,13 +782,34 @@ def fm_nonstationary_mask(z, b, thresh, slope):
     T = z.shape[-1]
     n_cols = z.numel() // T if T else 0
     out = torch.empty(z.shape, dtype=torch.float32, device=z.device)
-    scratch = torch.empty_like(out)
+    if not n_cols:
+        return out
+    plan = fm_mask_plan(n_cols, T, route)
+    _check_size("fm_nonstationary_mask", plan.blocks, T)
+    tiled = plan.route == "tiled"
+    parts = (torch.empty((2, plan.n_tiles, n_cols), dtype=torch.float64, device=z.device)
+             if tiled else None)
+    k = _fm_constants(float(b), plan.lane_len, plan.short_lane, plan.tile_len, plan.last_tile)
     _launch(
-        "fm_nonstationary_mask", z.device, _ptr(zr), int(is_complex),
-        _ptr(scratch), _ptr(out), n_cols, T, float(b), thresh, slope,
+        "fm_nonstationary_mask", z.device, _ptr(zr), int(is_complex), _ptr_or_null(parts),
+        _ptr(out), n_cols, T, plan.cols, plan.lane_len, plan.tile_len, plan.n_tiles,
+        (ctypes.c_double * len(k))(*k), thresh, slope, plan.smem_bytes,
     )
-    fm_nonstationary_mask.launches += 1
+    _count_route(fm_nonstationary_mask, plan.route)
+    fm_nonstationary_mask.cuda_launches = 3 if tiled else 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _fm_constants(b: float, lane_len: int, short: int, tile_len: int, last_tile: int) -> tuple:
+    """Kernel G's host constants (csrc/fm_nonstationary_mask.cu, struct
+    Consts), float64: a = 1 - b, b; a^n and R(0, n) of a full region
+    (``lane_len`` frames) and of the ``short`` one that ends the column or
+    its last tile; a^n and R(0, n) of a full tile and of the last tile (the
+    tiled route's; the resident route reads none)."""
+    a = 1.0 - b
+    return (a, b, a**lane_len, _ewma_r(b, 0, lane_len), a**short, _ewma_r(b, 0, short),
+            a**tile_len, _ewma_r(b, 0, tile_len), a**last_tile, _ewma_r(b, 0, last_tile))
 
 
 # ---------------------------------------------------------------------------
@@ -778,6 +819,7 @@ KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
 ROUTED = (spectra, istft_ola)  # the kernels with an FFT, a chirp and a product route
 ROUTES = ("fft", "chirp", "product")
+FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 
 
 def _count_route(fn, route: str) -> None:
@@ -791,6 +833,8 @@ def reset_launch_counts() -> None:
     for fn in ROUTED:
         for route in ROUTES:
             setattr(fn, f"{route}_launches", 0)
+    for route in FM_ROUTES:
+        setattr(fm_nonstationary_mask, f"{route}_launches", 0)
 
 
 def launch_counts() -> dict:
@@ -806,4 +850,4 @@ def route_counts() -> dict:
 
 reset_launch_counts()
 nonstationary_mask.cuda_launches = stationary_mask.cuda_launches = 0
-torch_nonstationary_mask.cuda_launches = 0
+torch_nonstationary_mask.cuda_launches = fm_nonstationary_mask.cuda_launches = 0

@@ -413,6 +413,101 @@ def test_fm_mask_matches_plain_version(cuda, magnitude):
     assert _max(got - K.fm_nonstationary_mask_ref(*args)) <= 1e-4
 
 
+# (rows, bins, frames), the route forced (None: the plan's), the route
+# taken: the row-6 cell's 2,579 frames (one column a block), the tiled
+# route forced at that T (one tile) and at 9,000 frames (three tiles of
+# 3,840), column counts no multiple of a block's columns (22 at 8 a block,
+# 21 at 4, 9 at 2), regions of 29 and 79 frames (7,000 and 20,000 frames),
+# T 1, and the tiled route reached at 40,000 frames
+FM_CASES = {
+    "resident-T2579": ((3, 7, 2579), None, "resident"),
+    "tiled-forced-T2579": ((2, 129, 2579), "tiled", "tiled"),
+    "tiled-forced-T9000": ((1, 7, 9000), "tiled", "tiled"),
+    "resident-T33-22-columns": ((2, 11, 33), None, "resident"),
+    "resident-T700-21-columns": ((3, 7, 700), None, "resident"),
+    "resident-T1500-9-columns": ((1, 9, 1500), None, "resident"),
+    "resident-T7000": ((1, 9, 7000), None, "resident"),
+    "resident-T20000": ((1, 5, 20000), None, "resident"),
+    "resident-T1": ((2, 5, 1), None, "resident"),
+    "tiled-T40000": ((1, 5, 40000), None, "tiled"),
+}
+
+
+def _fm_plane(shape, seed, cuda, magnitude):
+    """A frequency-major complex64 plane with a level drift along time, a
+    silent bin (an all-zero column) and a silent run of frames; or its
+    magnitudes."""
+    rng = np.random.default_rng(seed)
+    level = np.exp(np.linspace(-2, 2, shape[-1]))
+    z = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) * level
+    z[:, 1] = 0.0
+    z[0, :, shape[-1] // 3 : shape[-1] // 2] = 0.0
+    z = torch.as_tensor(z, dtype=torch.complex64, device=cuda)
+    return z.abs() if magnitude else z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("magnitude", [False, True], ids=["complex64", "magnitude"])
+@pytest.mark.parametrize("case", list(FM_CASES))
+def test_fm_mask_routes_match_plain_version(cuda, case, magnitude):
+    """Kernel G on each route within 1e-4 of its plain version (b at 48 kHz
+    / hop 256 and 16 kHz / hop 128), finite on the silent column; one
+    wrapper launch, counted by route, 1 or 3 CUDA launches; the same bits
+    on a second call (no atomics)."""
+    shape, route, took = FM_CASES[case]
+    z = _fm_plane(shape, sum(shape), cuda, magnitude)
+    for b in (GateConfig(sr=48000).iir_b, GateConfig(sr=16000, hop_length=128).iir_b):
+        args = (z, b, 2.0, 10.0)
+
+        def call():
+            return K._fm_mask_on(route, *args)
+
+        K.reset_launch_counts()
+        got = call()
+        assert K.launch_counts()["fm_nonstationary_mask"] == 1
+        assert getattr(K.fm_nonstationary_mask, f"{took}_launches") == 1
+        assert K.fm_nonstationary_mask.cuda_launches == (3 if took == "tiled" else 1)
+        assert got.dtype == torch.float32 and got.shape == z.shape
+        assert torch.isfinite(got).all()
+        assert _max(got - K.fm_nonstationary_mask_ref(*args)) <= 1e-4
+        assert torch.equal(got, call())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("magnitude", [False, True], ids=["complex64", "magnitude"])
+@pytest.mark.parametrize("route", ["resident", "tiled"])
+def test_fm_mask_takes_a_plane_off_16_byte_alignment(cuda, route, magnitude):
+    """A contiguous view one frame into its storage (8 or 4 bytes off a
+    16-byte boundary): G's 16-byte loads start from the view's own address,
+    and its mask is the plain version's."""
+    z = _fm_plane((2, 9, 1001), 63, cuda, magnitude)
+    zo = torch.cat([z.reshape(-1)[:1], z.reshape(-1)]).reshape(-1)[1:].view(z.shape)
+    assert zo.is_contiguous() and zo.data_ptr() % 16 and torch.equal(zo, z)
+    mk = (GateConfig(sr=48000).iir_b, 2.0, 10.0)
+    got = K._fm_mask_on(route, zo, *mk)
+    assert _max(got - K.fm_nonstationary_mask_ref(z, *mk)) <= 1e-4
+    assert torch.equal(got, K._fm_mask_on(route, z, *mk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["resident", "tiled"])
+def test_fm_mask_allocates_no_scratch_plane(cuda, route):
+    """Beyond ``out``, kernel G's peak allocation stays below one plane:
+    nothing on the resident route, the (2, tiles, columns) float64
+    carries on the tiled one."""
+    z = _fm_plane((8, 513, 2579), 62, cuda, False)
+    plane = z.numel() * 4
+    mk = (GateConfig(sr=48000).iir_b, 2.0, 10.0)
+    K._fm_mask_on(route, z, *mk)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = K._fm_mask_on(route, z, *mk)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base - plane < plane
+    del out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("family", ["tpugate", "nonstationary", "stationary"])
 def test_gradient_on_card_is_the_float64_twins(cuda, family):

@@ -37,6 +37,7 @@ lies within 2e-3 dB of the plain version's threshold. F's emulation
 within 1e-6 of the plain mask, and within 1e-7 of it where a window holds
 only silent frames (a floor of exactly 0 in both).
 """
+import dataclasses
 import pathlib
 import re as regex
 
@@ -48,6 +49,10 @@ from noisereduce_tpu_torch.config import iir_b_coefficient
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import kernels as K
 from noisereduce_tpu_torch.ops.cuda.geometry import (
+    FM_LANE,
+    FM_THREADS,
+    FM_TILE_LANE,
+    FM_WARPS,
     PART_COLS,
     SEG_B,
     SEG_E,
@@ -56,6 +61,8 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     TILE_COLS,
     TILE_SEGS,
     TimeTilePlan,
+    fm_mask_plan,
+    fm_smem,
 )
 
 torch.set_num_threads(2)
@@ -572,6 +579,241 @@ def test_movemean_offsets_are_where_windows_start(n, halo):
 
 
 # ---------------------------------------------------------------------------
+# G
+# ---------------------------------------------------------------------------
+def _g_scan(A, B, up):
+    """A warp's shuffle scan (Kogge-Stone) of the maps x -> A x + B over its
+    32 lanes (the last axis), inclusive: lane l composes lanes 0..l (``up``)
+    or l..31, each step B = A B' + B, A = A A' with the other lane's (A',
+    B') composed first."""
+    lane = np.arange(32)
+    d = 1
+    while d < 32:
+        pa, pb = np.roll(A, d if up else -d, -1), np.roll(B, d if up else -d, -1)
+        take = lane >= d if up else lane + d < 32
+        A, B = np.where(take, A * pa, A), np.where(take, A * pb + B, B)
+        d *= 2
+    return A, B
+
+
+def _g_stretch(m, t0, n_frames, lane_len, warps, k, seeds, thresh, slope, partials=False):
+    """fm_mask_kernel on a stretch m (cols, tl) of |Z| at frames [t0, t0 +
+    tl): the regions of lane_len frames walked from zero carries, the scans
+    of 32 x ``warps`` lanes a column with the warps' aggregates composed in
+    order, then each region again, y forward from the exact y before it and
+    rounded to float32, w backward from the exact w after it over that y,
+    rounded to float32, and the masks. ``seeds``: the y carried in and the w
+    after the stretch, (cols,) each, or None for the resident route's
+    (|Z|[0] and y at the end). ``partials``: return the stretch's y at its
+    end and w at its start instead of the mask."""
+    a, b, aL, rL, aN, rN = k[:6]
+    cols, tl = m.shape
+    P = 32 * warps
+    r0 = np.arange(P) * lane_len
+    n = np.clip(tl - r0, 0, lane_len)
+    yl, wl, pw = np.zeros((cols, P)), np.zeros((cols, P)), np.full(P, b)
+    for u in range(lane_len):
+        live = u < n
+        x = m[:, np.minimum(r0 + u, tl - 1)].astype(np.float64)
+        yl = np.where(live, a * yl + b * x, yl)
+        wl = np.where(live, pw * yl + wl, wl)
+        pw = np.where(live, pw * a, pw)
+    an = np.broadcast_to(np.where(n == lane_len, aL, np.where(n == 0, 1.0, aN)), (cols, P))
+    rn = np.where(n == lane_len, rL, np.where(n == 0, 0.0, rN))
+    shape = (cols, warps, 32)
+    first, last = np.arange(32) == 0, np.arange(32) == 31
+
+    A, B = _g_scan(an.reshape(shape), yl.reshape(shape), up=True)
+    y = m[:, 0].astype(np.float64) if seeds is None else seeds[0]
+    y_w = np.empty((cols, warps, 1))
+    for q in range(warps):
+        y_w[:, q, 0] = y
+        y = A[:, q, 31] * y + B[:, q, 31]
+    y_in = np.where(first, y_w, np.roll(A, 1, -1) * y_w + np.roll(B, 1, -1)).reshape(cols, P)
+
+    A, C = _g_scan(an.reshape(shape), (rn * y_in + wl).reshape(shape), up=False)
+    w = y if seeds is None else seeds[1]
+    w_w = np.empty((cols, warps, 1))
+    for q in range(warps - 1, -1, -1):
+        w_w[:, q, 0] = w
+        w = A[:, q, 0] * w + C[:, q, 0]
+    if partials:
+        return y, w
+    wd = np.where(last, w_w, np.roll(A, -1, -1) * w_w + np.roll(C, -1, -1)).reshape(cols, P)
+
+    ys = np.full((cols, tl), np.nan, F32)  # y, then w, in the second plane
+    yd = y_in
+    for u in range(lane_len):
+        idx = np.minimum(r0 + u, tl - 1)
+        x = m[:, idx].astype(np.float64)
+        yd = np.where(u < n, np.where(t0 + idx == 0, x, a * yd + b * x), yd)
+        ys[:, idx[u < n]] = yd.astype(F32)[:, u < n]
+    for u in range(lane_len - 1, -1, -1):
+        live = u < n
+        idx = np.minimum(r0 + u, tl - 1)
+        yt = ys[:, idx].astype(np.float64)
+        wd = np.where(live, np.where(t0 + idx == n_frames - 1, yt, a * wd + b * yt), wd)
+        ys[:, idx[live]] = wd.astype(F32)[:, live]
+    ratio = (m - ys) / np.where(ys == 0, F32(1), ys)
+    z = (ratio - F32(thresh)) * F32(slope)
+    with np.errstate(over="ignore"):
+        return F32(1) / (F32(1) + np.exp(-z))
+
+
+def emulate_g(mag, b, thresh, slope, route=None, lane_len=FM_TILE_LANE):
+    """Kernel G as the source computes it on a (columns, frames) |Z|, on
+    ``fm_mask_plan``'s route (or ``route``): resident, each column one
+    stretch; tiled, the tiles' partials from zero carries, the column pass
+    over them with the tile constants, and each tile again from its exact
+    carries. The tiled route's regions here are ``lane_len`` frames (the
+    source's FM_TILE_LANE by default), so that a short column takes
+    several tiles."""
+    n_cols, T = mag.shape
+    plan = fm_mask_plan(n_cols, T, route)
+    if plan.route == "tiled" and lane_len != plan.lane_len:
+        tile = FM_THREADS * lane_len
+        plan = dataclasses.replace(plan, lane_len=lane_len, tile_len=tile, n_tiles=-(-T // tile))
+    k = K._fm_constants(b, plan.lane_len, plan.short_lane, plan.tile_len, plan.last_tile)
+    run = (T, plan.lane_len, FM_WARPS // plan.cols, k)
+    if plan.route == "resident":
+        return _g_stretch(mag, 0, *run, None, thresh, slope)
+    L, nt = plan.tile_len, plan.n_tiles
+    zero = np.zeros(n_cols)
+    parts = [_g_stretch(mag[:, q * L : (q + 1) * L], q * L, *run, (zero, zero), thresh, slope,
+                        partials=True) for q in range(nt)]
+    aT, rT, aU, rU = k[6:]
+    y, y_in, w_out = mag[:, 0].astype(np.float64), [], [None] * nt
+    for q in range(nt):
+        y_in.append(y)
+        y = (aU if q == nt - 1 else aT) * y + parts[q][0]
+    w = y
+    for q in range(nt - 1, -1, -1):
+        w_out[q] = w
+        an, rn = (aU, rU) if q == nt - 1 else (aT, rT)
+        w = an * w + (rn * y_in[q] + parts[q][1])
+    return np.concatenate([
+        _g_stretch(mag[:, q * L : (q + 1) * L], q * L, *run, (y_in[q], w_out[q]), thresh, slope)
+        for q in range(nt)], axis=1)
+
+
+def _fm_planes(rows, n_bins, n_frames, seed):
+    """A frequency-major complex64 spectrogram with level drifts, a silent
+    bin (an all-zero column) and a silent run of frames."""
+    re, im = (np.moveaxis(v, 1, 2) for v in _planes(rows, n_frames, n_bins, seed))
+    return (re + 1j * im).astype(np.complex64)
+
+
+def _fm_mag(z):
+    return _mag(z.real, z.imag).reshape(-1, z.shape[-1])
+
+
+# (frames, route, tiled lane_len): the resident route with one warp a
+# column (T 1, 15, 16, 17), two (700), four (1,500) and eight (2,579; 7,000
+# and 20,000 with regions of 29 and 79 frames); the tiled route forced with
+# regions of 1, 3 and 17 frames, and reached by a T past the resident
+# route's limit (40,000)
+FM_CASES = {f"T{t}-{r}{'' if r == 'resident' else n}": (t, r, n)
+            for t in (1, FM_LANE - 1, FM_LANE, FM_LANE + 1, 700, 2579)
+            for r, n in (("resident", 0), ("tiled", 1), ("tiled", 3), ("tiled", 17))}
+FM_CASES.update({"T1500-resident": (1500, "resident", 0),
+                 "T7000-resident": (7000, "resident", 0),
+                 "T20000-resident": (20000, "resident", 0),
+                 "T40000-tiled": (40000, None, FM_TILE_LANE)})
+
+
+@pytest.mark.parametrize("b", [B_48K, B_16K], ids=["48k-hop256", "16k-hop128"])
+@pytest.mark.parametrize("case", list(FM_CASES))
+def test_fm_routes_match_plain_mask(case, b):
+    """Kernel G's routes within 1e-5 of the plain mask (B's bound), finite,
+    every frame written; the planes hold an all-zero column."""
+    n_frames, route, lane_len = FM_CASES[case]
+    z = _fm_planes(2, 3, n_frames, seed=n_frames + lane_len)
+    got = emulate_g(_fm_mag(z), b, 2.0, 10.0, route, lane_len or FM_TILE_LANE)
+    ref = K.fm_nonstationary_mask_ref(torch.from_numpy(z), b, 2.0, 10.0).numpy()
+    plan = fm_mask_plan(6, n_frames, route)
+    assert plan.route == (route or "tiled")
+    assert np.isfinite(got).all()
+    assert np.abs(got.reshape(ref.shape).astype(np.float64) - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("route,lane_len", [("resident", 0), ("tiled", 3), ("tiled", 17)])
+@pytest.mark.parametrize("n_frames", [33, 700, 2579])
+def test_fm_routes_match_jax_row6(n_frames, route, lane_len):
+    """Kernel G's routes against TPU row 6 as the JAX package's tests run
+    it on the CPU (the Pallas kernel in interpret mode), at
+    tests/test_torch_mask.py's bound, 2e-5; the silent column included."""
+    import jax.numpy as jnp
+
+    from noisereduce_tpu.ops.pallas_mask import fused_nonstationary_mask as j_mask
+
+    z = _fm_planes(2, 5, n_frames, seed=7 * n_frames)
+    got = emulate_g(_fm_mag(z), B_48K, 2.0, 10.0, route, lane_len or FM_TILE_LANE)
+    want = np.asarray(j_mask(jnp.asarray(z), B_48K, 2.0, 10.0, interpret=True))
+    np.testing.assert_allclose(got.reshape(want.shape), want, atol=2e-5)
+
+
+def test_fm_carries_are_the_serial_recurrence():
+    """In float64 the scans give the serial y before every region and w
+    after it, to 1e-12 x scale, with one, two, four and eight warps a
+    column."""
+    z = _fm_planes(1, 2, 3000, seed=4)
+    mag = _fm_mag(z).astype(np.float64)
+    a, b = 1.0 - B_48K, B_48K
+    y = np.empty_like(mag)
+    y[:, 0] = mag[:, 0]
+    for t in range(1, mag.shape[1]):
+        y[:, t] = a * y[:, t - 1] + b * mag[:, t]
+    w = np.empty_like(y)
+    w[:, -1] = y[:, -1]
+    for t in range(mag.shape[1] - 2, -1, -1):
+        w[:, t] = a * w[:, t + 1] + b * y[:, t]
+    for warps, lane_len in ((1, 95), (2, 47), (4, 25), (8, 13)):
+        k = K._fm_constants(b, lane_len, 3000 - 2999 // lane_len * lane_len, 3000, 3000)
+        seeds = (mag[:, 0], y[:, -1])
+        y_end, w_start = _g_stretch(mag, 0, 3000, lane_len, warps, k, seeds, 2.0, 10.0,
+                                    partials=True)
+        np.testing.assert_allclose(y_end, y[:, -1], rtol=1e-12)
+        np.testing.assert_allclose(w_start, w[:, 0], rtol=1e-12)
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 15, 16, 17, 81, 700, 1500, 2579, 7000, 20000, 29020,
+                                      29021, 60000])
+def test_fm_plan_covers_every_frame_with_odd_regions(n_frames):
+    """Every frame lies in one region of one thread; regions are odd (the
+    32 lanes of a warp read 32 banks); a block's shared memory fits; the
+    resident route takes more than one column a block only while regions
+    stay within FM_LANE frames."""
+    plan = fm_mask_plan(39501, n_frames)
+    assert plan.lane_len % 2 == 1 and plan.smem_bytes <= SMEM_MAX
+    assert plan.smem_bytes == fm_smem(plan.cols, plan.tile_len)
+    lanes = 32 * (FM_WARPS // plan.cols)
+    assert plan.tile_len <= lanes * plan.lane_len
+    assert (plan.n_tiles - 1) * plan.tile_len < n_frames <= plan.n_tiles * plan.tile_len
+    assert 1 <= plan.short_lane <= plan.lane_len
+    if plan.cols > 1:
+        assert plan.lane_len <= FM_LANE
+
+
+def test_fm_route_follows_the_shared_memory():
+    """The resident route holds a column while its two planes (|Z|, and y
+    then w) fit a block's 232,448 bytes (to 29,020 frames, one column a
+    block); one frame more takes the tiled route, tiles of 256 x 15
+    frames. At the row-6 cell (2,579 frames) a block holds one column,
+    eight warps, regions of 11 frames, in 20,908 bytes."""
+    last = max(t for t in range(20000, 40000) if fm_smem(1, t) <= SMEM_MAX)
+    assert last == 29020
+    assert fm_mask_plan(10, last).route == "resident"
+    assert fm_mask_plan(10, last + 1).route == "tiled"
+    assert fm_mask_plan(10, last + 1).tile_len == 256 * FM_TILE_LANE
+    cell = fm_mask_plan(77 * 513, 2579)
+    assert (cell.route, cell.cols, cell.lane_len) == ("resident", 1, 11)
+    assert cell.smem_bytes == 8 * 32 + 4 * (3 + 2 * 2580) == 20908
+    assert cell.blocks == 77 * 513
+    with pytest.raises(ValueError):
+        fm_mask_plan(10, last + 1, "resident")
+
+
+# ---------------------------------------------------------------------------
 # the tile plan
 # ---------------------------------------------------------------------------
 def test_tile_constants_match_the_sources():
@@ -586,6 +828,7 @@ def test_tile_constants_match_the_sources():
     assert const("SEG", "stationary_mask.cu") == SEG_E
     assert const("SEG", "torch_nonstationary_mask.cu") == SEG_F
     assert SEG_B % const("GROUP", "time_tiles.cuh") == SEG_E % 8 == SEG_F % 8 == 0
+    assert const("THREADS", "fm_nonstationary_mask.cu") == FM_THREADS == 32 * FM_WARPS
 
 
 @pytest.mark.parametrize("words,n_taps,seg", [(2, 19, SEG_B), (2, 1, SEG_B), (1, 19, SEG_E),

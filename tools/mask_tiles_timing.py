@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
-"""Time the mask kernels B ``nonstationary_mask``, E ``stationary_mask`` and
-F ``torch_nonstationary_mask`` on one CUDA card at the headline shapes (960
+"""Time the mask kernels B ``nonstationary_mask``, E ``stationary_mask``, F
+``torch_nonstationary_mask`` and G ``fm_nonstationary_mask``, and kernel C
+``freq_smooth_blend``, on one CUDA card at the headline shapes (960
 s of 48 kHz audio, n_fft 1024 / hop 256, chunked as ``reduce_noise``
-chunks: 77 views x 2,579 frames x 513 bins), in five cases: B with the
+chunks: 77 views x 2,579 frames x 513 bins), in eight cases: B with the
 headline's 19 time taps, B with one unit tap (the staged geometry's mask),
 E with a 10 s noise clip's threshold, E with each view's own statistics
 (top_db 40, TorchGate's n_std), and F with the torch headline's gate
-(n_movemean 375, its 19 SVD time taps). The spectra are kernel A's of
+(n_movemean 375, its 19 SVD time taps), G on the same spectra laid out
+frequency-major (77 x 513 x 2,579 complex64, TPU row 6) on its plan's
+route and on its tiled route forced (a package without ``_fm_mask_on``
+skips that one), C on B's mask with the headline's frequency taps, and G
+on short columns: the training batch of 256 clips of 4 s, here taken at
+16 kHz (n_fft 512 / hop 128: 256 x 257 x 501 complex64). The spectra are
+kernel A's of
 ``chip_smoke.py``'s headline signal (the scipy table; E's own statistics
 and F on the torch table's, as the torch paths give them). Per case: CUDA
 events around one call, the minimum of ``--reps`` after a warm-up (the
@@ -14,13 +21,15 @@ host's launch work included); the device
 time of the call's kernels, the mean over ``--reps`` calls in a
 ``torch.profiler`` trace, by kernel name; the CUDA launches of one call
 (``cuda_launches``, where the package records it); the bytes bound (re, im
-read once, the mask written once, over 3.35 TB/s). Prints the card's name
+or Z read once, the mask written once, over 3.35 TB/s; C: the mask read
+once and one written). Prints the card's name
 and power limit first and one JSON line last.
 
-    python3 tools/mask_tiles_timing.py [--reps 10] [--save PATH]
+    python3 tools/mask_tiles_timing.py [--reps 10] [--save PATH] [--cases 5,6,7,8]
     python3 tools/mask_tiles_timing.py --compare OLD.pt NEW.pt
 
-``--save`` writes the five masks to PATH (torch.save); ``--compare``
+``--cases`` picks cases by their number in that order, from 0;
+``--save`` writes the masks to PATH (torch.save); ``--compare``
 prints, per case, whether two saved runs are bitwise equal and their
 largest |difference|. The ``noisereduce_tpu_torch`` timed is the one
 Python imports first: to time a parent checkout (``git archive`` into an
@@ -42,13 +51,17 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.append(str(ROOT))  # this tree's package, after PYTHONPATH's
 
 CASES = ("nonstationary_mask", "nonstationary_mask (unit tap)", "stationary_mask",
-         "stationary_mask (self statistics)", "torch_nonstationary_mask")
+         "stationary_mask (self statistics)", "torch_nonstationary_mask",
+         "fm_nonstationary_mask", "fm_nonstationary_mask (tiled route)", "freq_smooth_blend",
+         "fm_nonstationary_mask (short columns)")
+# case 8: a training batch of 256 clips of 4 s at 16 kHz, n_fft 512 / hop 128
+SHORT_SR, SHORT_CLIPS, SHORT_SECONDS, SHORT_N_FFT = 16000, 256, 4, 512
 
 
 def compare(old_path: str, new_path: str) -> None:
     old, new = torch.load(old_path), torch.load(new_path)
     out = {}
-    for case in CASES:
+    for case in (c for c in CASES if c in old and c in new):
         a, b = old[case].double(), new[case].double()
         out[case] = dict(bitwise=bool(torch.equal(old[case], new[case])),
                          max_abs_diff=float((a - b).abs().max()),
@@ -62,6 +75,7 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", nargs=2, default=None)
+    ap.add_argument("--cases", default=None)
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -100,6 +114,15 @@ def main() -> None:
     thr = stationary_noise_threshold(noise, scfg)
     f = (fgate.n_movemean_nonstationary, fgate.n_thresh_nonstationary,
          fgate.temp_coeff_nonstationary, fgate.prop_decrease, _rank1_taps(fgate.smoothing)[1])
+    zf = torch.complex(re, im).transpose(1, 2).contiguous()  # TPU row 6's layout
+    m = K.nonstationary_mask(re, im, *nb, tt)
+    # the headline signal's first samples read as SHORT_CLIPS clips at SHORT_SR
+    n16 = SHORT_SECONDS * SHORT_SR
+    c16 = nr.GateConfig(sr=SHORT_SR, n_fft=SHORT_N_FFT)
+    zs = torch.complex(*K.spectra(x[0, : SHORT_CLIPS * n16].reshape(SHORT_CLIPS, n16),
+                                  gate_geometry(c16.stft, n16))).transpose(1, 2).contiguous()
+    ns = (c16.iir_b, c16.thresh_n_mult_nonstationary, c16.sigmoid_slope_nonstationary)
+    tf = tri_norm(cfg.smoothing[0])
     calls = {
         CASES[0]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, tt)),
         CASES[1]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, (1.0,))),
@@ -110,22 +133,35 @@ def main() -> None:
                                              top_db=40.0, n_std=tgate.n_std_thresh_stationary)),
         CASES[4]: (K.torch_nonstationary_mask,
                    lambda: K.torch_nonstationary_mask(tre, tim, *f)),
+        CASES[5]: (K.fm_nonstationary_mask, lambda: K.fm_nonstationary_mask(zf, *nb)),
+        CASES[6]: (K.fm_nonstationary_mask, lambda: K._fm_mask_on("tiled", zf, *nb)),
+        CASES[7]: (K.freq_smooth_blend, lambda: K.freq_smooth_blend(m, tf, cfg.prop_decrease)),
+        CASES[8]: (K.fm_nonstationary_mask, lambda: K.fm_nonstationary_mask(zs, *ns)),
     }
-    moved = 3 * re.numel() * re.element_size()
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    picked = [CASES[int(i)] for i in args.cases.split(",")] if args.cases else CASES
+    plane = re.numel() * re.element_size()
     out, saved = {}, {}
     print(f"F: n_movemean {f[0]}, {len(f[-1])} time taps", flush=True)
-    for case, (wrapper, fn) in calls.items():
+    for case in picked:
+        wrapper, fn = calls[case]
+        if case == CASES[6] and not hasattr(K, "_fm_mask_on"):
+            print(f"{case}: not in this package", flush=True)
+            continue
+        moved = (2 if case == CASES[7] else 3) * plane  # C: one plane in, one out
+        if case == CASES[8]:
+            moved = zs.numel() * 12  # complex64 in, the float32 mask out
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
         saved[case] = fn()
         ms = time_ms(fn, args.reps)
         dev = device_ms(fn, args.reps)
         out[case] = dict(ms=ms, device_ms=sum(dev.values()) or None, device_by_kernel=dev,
                          cuda_launches=getattr(wrapper, "cuda_launches", 1),
-                         bound_ms=bound_ms, bound_by="bytes")
+                         bound_ms=bound_ms, bound_by="bytes",
+                         shape=list((zs if case == CASES[8] else zf if case in CASES[5:7] else re).shape))
         print(f"{case}: {ms:.3f} ms (device {sum(dev.values()):.3f} ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in dev.items())
               + f"), {out[case]['cuda_launches']} CUDA launches, bound {bound_ms:.3f} ms "
-              f"({ms / bound_ms:.2f}x)", flush=True)
+              f"({ms / bound_ms:.2f}x), input {out[case]['shape']}", flush=True)
     if args.save:
         torch.save({k: v.cpu() for k, v in saved.items()}, args.save)
     print(json.dumps({"package": str(pathlib.Path(nr.__file__).parent),

@@ -38,7 +38,18 @@ anything.
 - ``f_no_sigmoid``: F's final pass stores |Z| - ma in place of the
   sigmoid of the ratio (the compiler drops the divisions and the exp);
 - ``f_no_prefix``: F's floor from the three frames' |Z| in float32 (no
-  float64 arithmetic or conversions in the final pass).
+  float64 arithmetic or conversions in the final pass);
+- ``g_skeleton``: kernel G without its walks (every region empty): its
+  loads, scans, the mask pass over floors left unset, and its stores;
+- ``g_no_sigmoid``: G's mask pass stores w + |Z| in place of the sigmoid
+  of the ratio (no division, exp or reciprocal);
+- ``g_blocks4``, ``g_blocks6``: G built for at least 4 or 6 blocks an SM
+  (at most 64 or 40 registers), not 8;
+- ``g_one_column``: G's resident route with one column a block at every
+  T (geometry.py), not several a block for short columns.
+
+``--cases`` goes to ``tools/mask_tiles_timing.py`` (G and C alone:
+``--cases 5,6,7``).
 
 Needs one CUDA card; imports nothing of JAX.
 """
@@ -55,6 +66,18 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = "noisereduce_tpu_torch/ops/cuda/csrc"
 VARIANTS = {
     "base": [],
+    "g_skeleton": [("fm_nonstationary_mask.cu",
+                    "const int n = live ? max(0, min(lane_len, tl - r0)) : 0;",
+                    "const int n = 0;")],
+    "g_no_sigmoid": [("fm_nonstationary_mask.cu",
+                      "const float y = 1.f + expf(-((ratio_of(mag, w) - thresh) * slope));\n"
+                      "return isinf(y) ? 0.f : div_by(1.f, y, rcp_refined(y));",
+                      "return w + mag;")],
+    "g_blocks4": [("fm_nonstationary_mask.cu", "constexpr int MIN_BLOCKS = 8;",
+                   "constexpr int MIN_BLOCKS = 4;")],
+    "g_blocks6": [("fm_nonstationary_mask.cu", "constexpr int MIN_BLOCKS = 8;",
+                   "constexpr int MIN_BLOCKS = 6;")],
+    "g_one_column": [("../geometry.py", "for cols in (8, 4, 2, 1):", "for cols in (1,):")],
     "no_sigmoid": [(
         "nonstationary_mask.cu",
         "    const float ratio = (cy[TILE_COLS] - w) / (w == 0.f ? 1.f : w);\n"
@@ -181,7 +204,12 @@ def build_copy(name: str) -> pathlib.Path:
 
 
 def main() -> None:
-    names = sys.argv[1:] or list(VARIANTS)
+    args = sys.argv[1:]
+    cases = []
+    if "--cases" in args:
+        i = args.index("--cases")
+        cases, args = ["--cases", args[i + 1]], args[:i] + args[i + 2:]
+    names = args or list(VARIANTS)
     for name in names:
         if name not in VARIANTS and not (name.startswith("tiles:") and name.count(":") == 4):
             sys.exit(f"unknown variant {name}")
@@ -189,7 +217,7 @@ def main() -> None:
         d = build_copy(name)
         print(f"== variant {name}", flush=True)
         run = subprocess.run(
-            [sys.executable, str(ROOT / "tools/mask_tiles_timing.py"), "--reps", "5"],
+            [sys.executable, str(ROOT / "tools/mask_tiles_timing.py"), "--reps", "5", *cases],
             env=dict(os.environ, PYTHONPATH=str(d)), capture_output=True, text=True)
         print("\n".join(line for line in run.stdout.splitlines() if not line.startswith("{")),
               flush=True)
