@@ -18,6 +18,9 @@ last line is printed only when every phase passed):
    table); A and D run their FFT route (n_fft 1024, radix 8, 8, 8; the
    real-FFT kernels), and their product route is held and timed at the
    same shapes beside it;
+   kernel C also at the 32 x 10 s batch's plane, the split geometry's 129
+   taps and 641 taps on 257 bins (wider than the line), each with its
+   device time (``queued_ms``) and held bitwise from call to call;
    also kernel A on a
    10 s noise row (the
    threshold spectra), kernel B with one unit tap (the staged mask), and
@@ -46,7 +49,10 @@ last line is printed only when every phase passed):
    seed) through ``reduce_noise`` with its defaults, against the port's
    staged plain path on the card; every kernel of the path must have
    launched; wall time as the minimum of 3 runs after a warm-up (CUDA
-   events);
+   events); then the same call with ``max_parallel_chunks=8`` (10
+   host-driven groups of chunks, each kernel launched once a group),
+   bitwise the one-launch output, with the peak device memory each call
+   adds (``torch.cuda.max_memory_allocated``) and its time;
 6. stationary headline: the same signal with a separate 10 s noise clip,
    ``stationary=True``, the same way;
 7. batch: ``reduce_noise_batch`` on 32 clips of 10 s, stationary with
@@ -125,6 +131,8 @@ SR = 48000
 HEADLINE_SECONDS = 960
 NOISE_SECONDS = 10
 CHUNK, PADDING = 600000, 30000
+# the grouping phase: the headline's 77 chunks in groups of this many
+GROUP_CHUNKS = 8
 BATCH_CLIPS, BATCH_SECONDS = 32, 10
 STAGED_SR, STAGED_SECONDS, STAGED_KW = 16000, 30, dict(n_fft=1024, hop_length=300)
 # n_grad_freq 64: the merged TPU kernel's frequency halo (66 bins) leaves
@@ -264,6 +272,20 @@ GRAD_VIEWS = 8
 # a sigmoid of slope 10, as the forward is held end to end: x max|ref|
 GRAD_BOUND = 5e-5
 FIR_TAPS, FIR_STEPS, FIR_LR = 31, 5, 3e-3
+# kernel C beyond the headline, each on kernel B's mask of the headline
+# signal's first samples read as `rows` rows of `n` samples at the
+# configuration's rate, padded by `pad` zeros each side (reduce_noise pads a
+# signal no longer than a chunk so): (label, GateConfig keywords, rows, n,
+# pad). The batch path's plane; the split geometry's 129 taps; and 641 taps
+# on 257 bins (20 kHz of smoothing at 16 kHz, n_fft 512), wider than a line,
+# on the training batch's plane of kernel G's short columns.
+C_SHAPES = (
+    ("batch 32 x 10 s", dict(sr=SR), BATCH_CLIPS, BATCH_SECONDS * SR, PADDING),
+    ("129 taps, split geometry", dict(sr=SPLIT_SR, **SPLIT_KW), 1, SPLIT_SECONDS * SPLIT_SR,
+     PADDING),
+    ("641 taps on 257 bins", dict(sr=GRAD_SR, n_fft=FM_SHORT_N_FFT, freq_mask_smooth_hz=20000),
+     GRAD_BATCHES[-1], GRAD_SECONDS * GRAD_SR, 0),
+)
 
 
 def fail(msg: str) -> None:
@@ -451,6 +473,34 @@ def measure(label, lim, fn, ref_fn, got, ref, moved, ops, library_fn=None, scale
     return out
 
 
+def c_ops(n_rows: int, n_bins: int, n_taps: int) -> float:
+    """Kernel C's operations: an FMA for each product of a tap with a bin
+    of the output's line (those past the line's ends meet zeros) and two
+    for the blend, per output."""
+    k = np.arange(n_bins)
+    lo = np.maximum(0, k - n_taps // 2)
+    hi = np.minimum(n_bins, k + n_taps // 2 + 1)
+    return float(n_rows * (2.0 * (hi - lo).sum() + 2 * n_bins))
+
+
+def c_planes(K, x_cuda: torch.Tensor) -> list:
+    """Kernel C's inputs at ``C_SHAPES``: (label, mask, taps, prop) each."""
+    from noisereduce_tpu_torch.config import GateConfig
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.dsp import tri_norm
+
+    out = []
+    for label, kw, rows, n, pad in C_SHAPES:
+        c = GateConfig(**kw)
+        y = F.pad(x_cuda[: rows * n].reshape(rows, n), (pad, pad))
+        re, im = K.spectra(y, gate_geometry(c.stft, n + 2 * pad))
+        ngf, ngt = c.smoothing
+        m = K.nonstationary_mask(re, im, c.iir_b, c.thresh_n_mult_nonstationary,
+                                 c.sigmoid_slope_nonstationary, tri_norm(ngt))
+        out.append((label, m, tri_norm(ngf), c.prop_decrease))
+    return out
+
+
 def fm_route(K, record, label, route, fn, z, ref, mk):
     """Kernel G on one route: against its plain version (``record``, which
     prints its events and the bound), the route that one call took and its
@@ -630,18 +680,29 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
         K.fm_nonstationary_mask_ref(zs, *ms16), ms16)
     del zs, x16
 
-    c = (m, tf, cfg.prop_decrease)
-    mb = K.freq_smooth_blend(*c)
-    rmb = K.freq_smooth_blend_ref(*c)
-    taps_f = torch.as_tensor(tf, dtype=torch.float32, device=re.device).view(1, 1, -1)
-    m_rows = m.reshape(-1, 1, geo.n_bins)
-    record("freq_smooth_blend", lambda: K.freq_smooth_blend(*c),
-           lambda: K.freq_smooth_blend_ref(*c), mb, rmb,
-           nbytes(m, mb), cells * (2.0 * len(tf) + 2),
-           # prop_decrease 1: the blend is the identity, so one convolution
-           # computes the same function
-           library_fn=lambda: F.conv1d(m_rows, taps_f, padding=ngf))
-    del rmb
+    # C at the headline, then at C_SHAPES (the batch path's plane, 129 taps,
+    # 641 taps on 257 bins); every one with prop_decrease 1, where the blend
+    # is the identity, so one convolution computes the same function
+    def c_record(mc, taps, prop, label=None):
+        fn = lambda: K.freq_smooth_blend(mc, taps, prop)
+        ref_fn = lambda: K.freq_smooth_blend_ref(mc, taps, prop)
+        got = fn()
+        taps_t = torch.as_tensor(taps, dtype=torch.float32, device=mc.device).view(1, 1, -1)
+        rows = mc.reshape(-1, 1, mc.shape[-1])
+        r = record("freq_smooth_blend", fn, ref_fn, got, ref_fn(), nbytes(mc, got),
+                   c_ops(mc.numel() // mc.shape[-1], mc.shape[-1], len(taps)),
+                   library_fn=lambda: F.conv1d(rows, taps_t, padding=len(taps) // 2),
+                   label=label)
+        r.update(device_times(label or "freq_smooth_blend", kernel=fn))
+        if not torch.equal(got, fn()):
+            fail(f"kernel {label or 'freq_smooth_blend'}: two calls differ")
+        return got, r
+
+    mb, _ = c_record(m, tf, cfg.prop_decrease)
+    results["freq_smooth_blend"]["shapes"] = {
+        label: c_record(mc, taps, prop, f"freq_smooth_blend ({label}: {tuple(mc.shape)}, "
+                                        f"{len(taps)} taps)")[1]
+        for label, mc, taps, prop in c_planes(K, x_cuda)}
 
     d = (re, im, mb, geo, PADDING, CHUNK)
     y = K.istft_ola(*d)
@@ -1456,6 +1517,37 @@ def main() -> None:
         f"plain path {plain_ms:.1f} ms, on {card}",
         flush=True,
     )
+
+    # grouping: the headline in host-driven groups of GROUP_CHUNKS chunks
+    # (max_parallel_chunks), bitwise the one-launch output, and the peak
+    # device memory that each call adds to what was allocated before it
+    def peak_mib(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    n_groups = -(-((len(x) - 1) // CHUNK + 1) // GROUP_CHUNKS)
+    grouped, launches["headline, grouped"] = run_path(
+        K, "headline, grouped",
+        lambda: nr.reduce_noise(x, SR, max_parallel_chunks=GROUP_CHUNKS, **ck),
+        dict(spectra=n_groups, nonstationary_mask=n_groups, freq_smooth_blend=n_groups,
+             istft_ola=n_groups))
+    one_mib = peak_mib(lambda: nr.reduce_noise(x, SR, **ck))
+    grouped_mib = peak_mib(lambda: nr.reduce_noise(x, SR, max_parallel_chunks=GROUP_CHUNKS, **ck))
+    ms_grouped = time_ms(lambda: nr.reduce_noise(x, SR, max_parallel_chunks=GROUP_CHUNKS, **ck))
+    bitwise = np.array_equal(grouped, out)
+    print(f"headline grouped, max_parallel_chunks {GROUP_CHUNKS} ({n_groups} groups): "
+          f"bitwise the one-launch output: {bitwise}; peak device memory {grouped_mib:.1f} "
+          f"MiB against {one_mib:.1f} MiB in one launch; reduce_noise {ms_grouped:.1f} ms "
+          f"against {ms:.1f} ms, on {card}", flush=True)
+    if not bitwise:
+        fail("headline grouped differs from the one-launch output")
+    if not grouped_mib < one_mib:
+        fail("headline grouped does not hold less device memory than one launch")
+    del grouped
 
     # stationary headline: a separate noise clip
     out, launches["stationary headline"] = run_path(

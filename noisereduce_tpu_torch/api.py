@@ -11,12 +11,21 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
 - ``compute_dtype`` defaults to ``torch.float32``, the only type the
   kernels take; ``torch.float64`` runs the kernels' plain versions on the
   CPU and the staged twins on the card (no kernel launches).
-- ``use_tqdm=True`` and a bf16 ``compute_dtype`` raise
-  ``NotImplementedError``: they are later slices of the port (ROADMAP.md,
-  Queue 1). ``tmp_folder`` and ``n_jobs`` are accepted for compatibility
-  (chunk fan-out is the kernels' batch axis, not a process pool), except
-  that ``use_torch=True`` with ``n_jobs != 1`` raises the reference's
-  ``ValueError``.
+- The JAX signature's tail is taken: ``method`` (accepted and unused: the
+  kernels' route comes from the STFT geometry, ``geometry.fft_route``),
+  ``mesh`` (anything but None raises ``NotImplementedError``: a later
+  slice, ROADMAP.md Queue 1 item 7) and ``max_parallel_chunks`` (0: every
+  chunk in one launch of each kernel; g > 0: host-driven groups of g
+  chunks, so only one group's planes are on the card at a time).
+  ``use_tqdm=True`` shows a ``tqdm`` bar over those groups (g = 1 when
+  ``max_parallel_chunks`` is 0) for a signal longer than ``chunk_size``,
+  as the JAX package's ``_run_chunked_with_progress`` does; it needs
+  ``tqdm`` installed. Grouping does not change the output.
+- A bf16 ``compute_dtype`` raises ``NotImplementedError``: a later slice
+  of the port (ROADMAP.md, Queue 1). ``tmp_folder`` and ``n_jobs`` are
+  accepted for compatibility (chunk fan-out is the kernels' batch axis,
+  not a process pool), except that ``use_torch=True`` with ``n_jobs != 1``
+  raises the reference's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -50,21 +59,22 @@ def _fused_chunked_ok(cfg: GateConfig, y2d: torch.Tensor, chunk_size: int) -> bo
     return y2d.shape[-1] > chunk_size and fused_gate_supported(cfg, y2d)
 
 
-def _run_stationary(y2d, y_noise_mono, cfg, chunk_size, padding):
-    """Threshold from the noise rows, then the gate (``api.py:100``)."""
+def _run_stationary(y2d, y_noise_mono, cfg, chunk_size, padding, group=0, progress=False):
+    """Threshold from the noise rows, once, then the gate (``api.py:100``),
+    over groups of ``group`` chunks (``process_chunked``)."""
     thresh = stationary_noise_threshold(y_noise_mono, cfg)
     if _fused_chunked_ok(cfg, y2d, chunk_size):
-        return fused_gate_chunked(y2d, cfg, chunk_size, padding, noise_thresh=thresh)
+        return fused_gate_chunked(y2d, cfg, chunk_size, padding, thresh, group, progress)
     return process_chunked(
-        lambda c: gate_stationary(c, thresh, cfg), y2d, chunk_size, padding
+        lambda c: gate_stationary(c, thresh, cfg), y2d, chunk_size, padding, group, progress
     )
 
 
-def _run_nonstationary(y2d, cfg, chunk_size, padding):
+def _run_nonstationary(y2d, cfg, chunk_size, padding, group=0, progress=False):
     if _fused_chunked_ok(cfg, y2d, chunk_size):
-        return fused_gate_chunked(y2d, cfg, chunk_size, padding)
+        return fused_gate_chunked(y2d, cfg, chunk_size, padding, None, group, progress)
     return process_chunked(
-        lambda c: gate_nonstationary(c, cfg), y2d, chunk_size, padding
+        lambda c: gate_nonstationary(c, cfg), y2d, chunk_size, padding, group, progress
     )
 
 
@@ -110,7 +120,8 @@ def torch_gate_for(
     )
 
 
-def _reduce_noise_torch_path(y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary):
+def _reduce_noise_torch_path(y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary,
+                             group=0, progress=False):
     """The StreamedTorchGate engine: ``gate`` over halo'd chunks. The noise
     clip stays multichannel and, longer than the signal, is cut along its
     FIRST axis (the reference's quirk, streamed_torch_gate.py:57-58:
@@ -124,7 +135,7 @@ def _reduce_noise_torch_path(y2d, gate, y_noise, chunk_size, padding, clip_noise
         if n_clip > y2d.shape[-1] and clip_noise_stationary:
             yn = yn[: y2d.shape[-1]]
         yn = _to_tensor(yn, y2d.device, y2d.dtype)
-    return gate.chunked(y2d, chunk_size, padding, yn)
+    return gate.chunked(y2d, chunk_size, padding, yn, group, progress)
 
 
 def _as_2d(y: np.ndarray):
@@ -185,6 +196,9 @@ def reduce_noise(
     use_torch=False,
     device="cuda",
     compute_dtype=None,
+    method="auto",
+    mesh=None,
+    max_parallel_chunks=0,
 ):
     """Reduce noise by spectral gating (reference noisereduce.py:13-185).
 
@@ -217,6 +231,17 @@ def reduce_noise(
         with top_db 40 and ddof 1; chunked, the noise clip cut to the
         signal's length); needs ``n_jobs=1``
     tmp_folder, n_jobs : accepted for reference compatibility
+    method : accepted for the JAX signature ("auto", "fft", "matmul", ...);
+        the kernels' route comes from the STFT geometry alone
+    mesh : None only; any other value raises ``NotImplementedError`` (the
+        sharded path is a later slice of the port, ROADMAP.md Queue 1 item 7)
+    max_parallel_chunks : 0 gates every chunk in one launch of each kernel;
+        g > 0 gates a signal of more than g chunks in host-driven groups of
+        g chunks, one group's planes on the card at a time (bounded device
+        memory), the cores assembled on the card; the output is the same
+    use_tqdm : a ``tqdm`` progress bar over the chunk groups (g = 1 when
+        ``max_parallel_chunks`` is 0), for a signal longer than
+        ``chunk_size``; needs ``tqdm`` installed
 
     Returns a NumPy array with the input's shape and dtype.
     """
@@ -226,7 +251,8 @@ def reduce_noise(
         freq_mask_smooth_hz, time_mask_smooth_ms, thresh_n_mult_nonstationary,
         sigmoid_slope_nonstationary, n_std_thresh_stationary, chunk_size,
         padding, n_fft, win_length, hop_length, clip_noise_stationary,
-        use_tqdm, n_jobs, use_torch, device, compute_dtype,
+        use_tqdm, n_jobs, use_torch, device, compute_dtype, method, mesh,
+        max_parallel_chunks,
     )
     return _finalize_reduce_output(out, *meta)
 
@@ -236,7 +262,8 @@ def _reduce_noise_deferred(
     freq_mask_smooth_hz, time_mask_smooth_ms, thresh_n_mult_nonstationary,
     sigmoid_slope_nonstationary, n_std_thresh_stationary, chunk_size, padding,
     n_fft, win_length, hop_length, clip_noise_stationary, use_tqdm, n_jobs,
-    use_torch, device, compute_dtype, _noise_rows=None,
+    use_torch, device, compute_dtype, method="auto", mesh=None, max_parallel_chunks=0,
+    _noise_rows=None,
 ):
     """``reduce_noise``'s body, returning the output tensor (its kernels
     queued on the card, not waited for) and what ``_finalize_reduce_output``
@@ -250,10 +277,14 @@ def _reduce_noise_deferred(
     collapse), and the gate reads them as one (B, bins) threshold
     (``api.py:438-442``). With ``use_torch``, ``y_noise`` may be a list of
     B equal-length 1-D noise rows, one per signal row."""
+    del method  # the route comes from the STFT geometry (geometry.fft_route)
     if use_torch and n_jobs != 1:
         raise ValueError("n_jobs must be 1 when using torch version of spectral gating.")
-    if use_tqdm:
-        raise NotImplementedError(f"use_tqdm=True (the host-driven chunk loop) {_LATER}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the sharded path is a later slice of the PyTorch port "
+            "(ROADMAP.md, Queue 1 item 7); pass mesh=None"
+        )
     # validate the smoothing geometry eagerly, like the reference
     # constructors (spectralgate/base.py:99-128): same ValueErrors
     hop = _hop(n_fft, win_length, hop_length)
@@ -274,6 +305,10 @@ def _reduce_noise_deferred(
         out_dtype = y.dtype
         y, flat = _as_2d(y)
     y2d = _to_tensor(y, dev, cdtype)
+    # the host-driven group loop under a bar, for a signal longer than a
+    # chunk (api.py:517), one chunk a group unless max_parallel_chunks says
+    progress = bool(use_tqdm) and y2d.shape[-1] > chunk_size
+    group = max_parallel_chunks or (1 if progress else 0)
 
     if use_torch:
         gate = torch_gate_for(
@@ -288,7 +323,8 @@ def _reduce_noise_deferred(
         )
         with torch.no_grad():
             out = _reduce_noise_torch_path(
-                y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary
+                y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary, group,
+                progress,
             )
         return out, (out_dtype, flat)
 
@@ -309,7 +345,7 @@ def _reduce_noise_deferred(
     )
     with torch.no_grad():
         if not stationary:
-            out = _run_nonstationary(y2d, cfg, chunk_size, padding)
+            out = _run_nonstationary(y2d, cfg, chunk_size, padding, group, progress)
         else:
             # noise clip handling (stationary.py:47-64; api.py:560-578):
             # default to y, mono collapse, clip to chunk_size samples
@@ -324,7 +360,7 @@ def _reduce_noise_deferred(
                 yn_mono = yn2d.mean(dim=0)
             if clip_noise_stationary:
                 yn_mono = yn_mono[..., :chunk_size]
-            out = _run_stationary(y2d, yn_mono, cfg, chunk_size, padding)
+            out = _run_stationary(y2d, yn_mono, cfg, chunk_size, padding, group, progress)
     return out, (out_dtype, flat)
 
 
@@ -357,7 +393,8 @@ def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
     sr : int, shared sample rate
     y_noise : one shared noise clip (one threshold), one clip per signal,
         or None
-    **kwargs : forwarded to ``reduce_noise``. ``stationary=True`` with
+    **kwargs : forwarded to ``reduce_noise`` (``method``, ``mesh``,
+        ``max_parallel_chunks`` and ``use_tqdm`` too). ``stationary=True`` with
         ``y_noise=None`` takes each signal's threshold from itself, and
         per-signal 1-D clips give per-signal thresholds: both batch as one
         threshold call and one gate call per group through a (B, bins)

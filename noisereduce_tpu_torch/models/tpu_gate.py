@@ -195,17 +195,22 @@ class TPUGate(torch.nn.Module):
         return F.pad(out, (0, view - out.shape[-1])).reshape(ch, k, view)
 
     def chunked(self, y2d: torch.Tensor, chunk_size: int, padding: int,
-                xn: Optional[torch.Tensor] = None) -> torch.Tensor:
+                xn: Optional[torch.Tensor] = None, max_parallel_chunks: int = 0,
+                progress: bool = False) -> torch.Tensor:
         """The reference's chunked body over (channels, n) (base.py:144-226):
         halo'd chunk views gated and their cores assembled, a signal of at
         most ``chunk_size`` samples padded by ``padding`` zeros each side
         and gated whole (``api.py::_run_torch_gate``, ``:163``). Through the
         kernels the views are read straight from the signal and only the
-        cores written. (ch, n) -> (ch, n)."""
+        cores written. ``max_parallel_chunks`` > 0 or ``progress``: the
+        chunks in groups of that many (1 for 0), one call of the gate a
+        group, under a ``tqdm`` bar with ``progress``
+        (``parallel.chunking.chunk_groups``). (ch, n) -> (ch, n)."""
         ch, n = y2d.shape
         if fused_tpugate_supported(self, y2d):
             self._check(y2d, xn, ch, min(chunk_size, n) + 2 * padding)
-            return fused_tpugate_chunked(y2d, self, chunk_size, padding, xn)
+            return fused_tpugate_chunked(y2d, self, chunk_size, padding, xn,
+                                         max_parallel_chunks, progress)
 
         def call(c):
             if c.ndim == 3:  # (channels, n_chunks, view)
@@ -213,7 +218,7 @@ class TPUGate(torch.nn.Module):
             out = staged_tpugate(c, xn, self)
             return F.pad(out, (0, c.shape[-1] - out.shape[-1]))
 
-        return process_chunked(call, y2d, chunk_size, padding)
+        return process_chunked(call, y2d, chunk_size, padding, max_parallel_chunks, progress)
 
     def _call_staged(self, x: torch.Tensor, xn: Optional[torch.Tensor] = None):
         """Staged pipeline in plain torch (``_call_jnp``, ``tpu_gate.py:243``),

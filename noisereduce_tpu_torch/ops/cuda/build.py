@@ -49,7 +49,7 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _dp, _f, _f,
         _i, _vp,
     ],
-    "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _ll, _i, _f, _vp],
+    "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _i, _ll, _i, _i, _f, _vp],
     "nr_stationary_mask": [
         _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
         _i, _i, _f, _f, _f, _f, _f, _d, _i, _vp,

@@ -11,9 +11,14 @@ envelope division and the output window of ``_scipy_istft_tail``
 (``:331``). ``fused_gate_nonstationary`` / ``fused_gate_stationary``
 (``_fused_gate_impl``, ``:590``) gate whole signals and
 ``fused_gate_chunked`` (``:817``, ``:920``) gates a long signal as halo'd
-chunk views read straight from it. ``fused_stationary_threshold``
-(``:493``) takes the noise-clip spectra from A. There is no mesh and no
-``max_parallel_chunks``: every chunk is one row of one launch.
+chunk views read straight from it: every chunk one row of one launch of
+each kernel, or, with ``max_parallel_chunks`` (``group``), the chunks in
+host-driven groups, one launch of each kernel a group, the cores written
+into one output (the bound on live device memory that the JAX package's
+``max_parallel_chunks`` gives). A view, a frame and a line are the same
+bits in either, so a grouped call is bitwise the ungrouped one on the
+card. ``fused_stationary_threshold`` (``:493``) takes the noise-clip
+spectra from A. There is no mesh.
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode, float32 or float64).
@@ -74,12 +79,13 @@ def fused_gate_supported(cfg: GateConfig, x: torch.Tensor) -> bool:
     return kernels_supported(cfg.stft) and kernels_take(x)
 
 
-def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None):
+def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None, chunks=None):
     """(rows, n) -> gated views: each whole row (``chunk_size`` 0;
     (rows, n) out) or the core [padding, padding + chunk_size) of each
-    halo'd chunk view ((rows*n_chunks, chunk_size) out), zero filled past
-    the istft's end. ``noise_thresh`` (a (bins,) or per-row (rows, bins)
-    dB threshold) selects the stationary gate."""
+    halo'd chunk view ((rows*n_chunks, chunk_size) out; with ``chunks`` =
+    (first, count), of those chunks only), zero filled past the istft's
+    end. ``noise_thresh`` (a (bins,) or per-row (rows, bins) dB threshold)
+    selects the stationary gate."""
     n = x.shape[-1]
     if chunk_size:
         view_len, out_off, out_len = chunk_size + 2 * padding, padding, chunk_size
@@ -87,7 +93,7 @@ def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None):
         view_len, out_off, out_len = n, 0, n
     geo = gate_geometry(cfg.stft, view_len)
     n_grad_freq, n_grad_time = cfg.smoothing or (0, 0)
-    re, im = spectra(x, geo, chunk_size, padding)
+    re, im = spectra(x, geo, chunk_size, padding, chunks)
     if noise_thresh is None:
         mask = nonstationary_mask(
             re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
@@ -147,7 +153,7 @@ def fused_gate_stationary(
 
 def fused_gate_chunked(
     y2d: torch.Tensor, cfg: GateConfig, chunk_size: int, padding: int,
-    noise_thresh=None,
+    noise_thresh=None, group: int = 0, progress: bool = False,
 ) -> torch.Tensor:
     """The whole chunked body (reference base.py:144-226): chunk i of each
     row is the view of source samples [i*cs - padding, (i+1)*cs + padding),
@@ -155,15 +161,19 @@ def fused_gate_chunked(
     assembled. Kernel A reads the views straight from ``y2d`` and kernel D
     writes only the cores, so no view is materialized. (ch, n) -> (ch, n).
     ``noise_thresh``, (bins,) or per-row (ch, bins), selects the stationary
-    gate; every chunk of row c reads row c."""
+    gate; every chunk of row c reads row c. ``group`` > 0 or ``progress``:
+    the chunks in groups of ``group`` (1 for 0; ``parallel.chunking.
+    grouped_cores``)."""
     from noisereduce_tpu_torch.models.spectral_gate import (
         _gate_nonstationary_staged, _gate_stationary_staged,
     )
-    from noisereduce_tpu_torch.parallel.chunking import process_chunked
+    from noisereduce_tpu_torch.parallel.chunking import grouped_cores, process_chunked
 
     def forward(y, thr):
-        core = _gate_from_signal(y.contiguous(), cfg, chunk_size, padding, thr)
-        return core.reshape(y.shape[0], -1)[:, : y.shape[-1]]
+        y = y.contiguous()
+        return grouped_cores(
+            lambda chunks: _gate_from_signal(y, cfg, chunk_size, padding, thr, chunks),
+            y, chunk_size, group, progress)
 
     def twin(y, thr):
         if thr is None:

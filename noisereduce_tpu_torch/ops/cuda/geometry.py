@@ -43,7 +43,12 @@ launch shapes below:
   A halo whose tile does not fit in shared memory takes a raw-mask plane
   and a separate smoothing launch. F's moving-average window has no cap:
   it runs on float64 prefix sums, its far ends read from a |Z| plane.
-- C ``freq_smooth_blend`` runs one block per (row, frame).
+- C ``freq_smooth_blend`` cuts the plane into spans of whole (row,
+  frame) lines, about 16 KB each (``freq_smooth_plan``), which persistent
+  blocks walk, each loading its next span with 16-byte ``cp.async``
+  copies (from the tensor's own alignment) while it smooths this one;
+  each thread smooths runs of ``FS_RUN`` outputs of one line from a
+  register window, the taps in groups of ``FS_GROUP``.
 - G ``fm_nonstationary_mask`` works on frequency-major planes, each
   column contiguous in time (``fm_mask_plan``): a block stages whole
   columns of |Z| in shared memory (8, 4, 2 or 1 a block) and each thread
@@ -106,6 +111,12 @@ FM_THREADS = 256
 FM_WARPS = FM_THREADS // 32
 FM_LANE = 16
 FM_TILE_LANE = 15
+# kernel C (csrc/freq_smooth_blend.cu, must match its constants): threads of
+# a block, outputs a run, taps a group; and the most floats a span holds
+FS_THREADS = 256
+FS_RUN = 9
+FS_GROUP = 12
+FS_SPAN = 6144
 
 
 def _round_up(a: int, m: int) -> int:
@@ -333,6 +344,92 @@ def fm_mask_plan(n_cols: int, n_frames: int, route: str | None = None) -> FmMask
     tile = FM_THREADS * FM_TILE_LANE
     return FmMaskPlan("tiled", 1, FM_TILE_LANE, tile, -(-n_frames // tile),
                       fm_smem(1, tile), n_cols, n_frames)
+
+
+@dataclasses.dataclass(frozen=True)
+class FreqSmoothPlan:
+    """Launch shapes of kernel C over ``n_rows`` lines of ``n_bins`` bins
+    with ``n_live`` odd taps (``csrc/freq_smooth_blend.cu``). Block s takes
+    the span of lines [s * ``lines``, (s + 1) * ``lines``), the last one
+    short; a line is cut into runs of FS_RUN outputs, the last one short.
+    The kernel reads the taps [``first``, ``first`` + 2 ``half`` + 1) of
+    the live ones, zero padded to ``n_taps``, a multiple of FS_GROUP: a
+    tap more than n_bins - 1 bins off centre only ever meets the zero fill,
+    so it is dropped."""
+
+    n_rows: int
+    n_bins: int
+    n_live: int
+    lines: int
+
+    @property
+    def half(self) -> int:
+        return min(self.n_live // 2, self.n_bins - 1)
+
+    @property
+    def first(self) -> int:
+        return self.n_live // 2 - self.half
+
+    @property
+    def n_taps(self) -> int:
+        return _round_up(2 * self.half + 1, FS_GROUP)
+
+    @property
+    def spans(self) -> int:
+        return -(-self.n_rows // self.lines)
+
+    @property
+    def runs_per_line(self) -> int:
+        return -(-self.n_bins // FS_RUN)
+
+    @property
+    def smem_bytes(self) -> int:
+        """The taps, then two input planes and an output plane of a span
+        each, with 3 words of slack for their 16-byte phase."""
+        cap = _round_up(self.lines * self.n_bins, 4) + 4
+        return 4 * (self.n_taps + 3 * cap)
+
+    def span(self, s: int) -> tuple:
+        """(first line, lines) of span s."""
+        r0 = s * self.lines
+        return r0, min(self.lines, self.n_rows - r0)
+
+    def staging(self, s: int, word: int) -> tuple:
+        """(head, pieces, tail) of span s of a plane whose element 0 lies
+        ``word`` 4-byte words past a 16-byte boundary: the floats before the
+        span's first 16-byte boundary, its 16-byte pieces, and the floats
+        after the last one."""
+        r0, nl = self.span(s)
+        n = nl * self.n_bins
+        head = min(n, -(word + r0 * self.n_bins) % 4)
+        pieces = (n - head) // 4
+        return head, pieces, n - head - 4 * pieces
+
+    def device_taps(self, taps) -> tuple:
+        """The taps as the kernel reads them: the kept ones, zero padded."""
+        kept = tuple(float(v) for v in taps)[self.first : self.first + 2 * self.half + 1]
+        return kept + (0.0,) * (self.n_taps - len(kept))
+
+
+@functools.lru_cache(maxsize=256)
+def freq_smooth_plan(n_rows: int, n_bins: int, n_live: int) -> FreqSmoothPlan:
+    """Kernel C's plan: the lines a span (at most FS_SPAN floats, at least
+    one line) that leave the fewest of a block's threads idle on the last
+    pass over the span's runs, the larger span on a tie. A span's three
+    planes and the taps must fit ``SMEM_MAX`` (a line of up to about
+    19,000 bins)."""
+    per_line = -(-n_bins // FS_RUN)
+    best, best_share = 1, 0.0
+    for lines in range(1, max(1, FS_SPAN // n_bins) + 1):
+        runs = lines * per_line
+        share = runs / (-(-runs // FS_THREADS) * FS_THREADS)
+        if share >= best_share:
+            best, best_share = lines, share
+    plan = FreqSmoothPlan(n_rows, n_bins, n_live, best)
+    if plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"freq_smooth_plan: a line of {n_bins} bins with {n_live} taps "
+                         "does not fit a block")
+    return plan
 
 
 @dataclasses.dataclass(frozen=True)

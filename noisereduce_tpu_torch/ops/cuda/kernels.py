@@ -89,7 +89,7 @@ from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
-    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n, fm_mask_plan,
+    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n, fm_mask_plan, freq_smooth_plan,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
@@ -313,14 +313,16 @@ def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # A: spectra
 # ---------------------------------------------------------------------------
-def spectra_ref(x, geo: GateGeometry, chunk_size=0, padding=0):
+def spectra_ref(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     """Plain version of ``spectra``: extract the views, then the staged
     STFT."""
     views = extract_chunks(x, chunk_size, padding) if chunk_size else x[:, None]
+    if chunks is not None:
+        views = views[:, chunks[0] : chunks[0] + chunks[1]]
     return stft(views.reshape(-1, geo.view_len), geo.scfg)
 
 
-def spectra(x, geo: GateGeometry, chunk_size=0, padding=0):
+def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     """Windowed frame spectra (``stft`` of the geometry's convention) of
     every view of every signal row.
 
@@ -328,16 +330,18 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0):
     (``geo.view_len == n_src``); otherwise the views are the halo'd chunks
     of ``parallel.chunking.extract_chunks`` (chunk i: source samples
     [i*chunk_size - padding, (i+1)*chunk_size + padding), zero outside the
-    signal), which the kernel reads straight from ``x``. Returns (re, im),
-    each (rows*n_views, n_frames, n_bins), row h*n_views + i.
+    signal), which the kernel reads straight from ``x``: all of them, or
+    the ``count`` chunks from ``first`` of ``chunks`` = (first, count) (a
+    group of chunks: the same views, from the same samples). Returns
+    (re, im), each (rows*n_views, n_frames, n_bins), row h*n_views + i.
     """
     if not chunk_size and geo.view_len != x.shape[-1]:
         raise ValueError(
             f"spectra: view_len {geo.view_len} != signal length {x.shape[-1]}"
         )
     if _on_cpu(x):
-        return spectra_ref(x, geo, chunk_size, padding)
-    return _spectra_on(geo.route, x, geo, chunk_size, padding)
+        return spectra_ref(x, geo, chunk_size, padding, chunks)
+    return _spectra_on(geo.route, x, geo, chunk_size, padding, chunks)
 
 
 def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
@@ -349,16 +353,16 @@ def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
     return _device_f32("chirp", n, device), _device_f32("chirp_filter", (n, slot), device)
 
 
-def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0):
+def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
     _check_cuda("spectra", x)
     rows, n_src = x.shape
-    n_chunks = n_chunks_for(n_src, chunk_size) if chunk_size else 1
+    first, n_chunks = chunks or (0, n_chunks_for(n_src, chunk_size) if chunk_size else 1)
     B, T, nb = rows * n_chunks, geo.n_frames, geo.n_bins
     re = torch.empty((B, T, nb), dtype=torch.float32, device=x.device)
     im = torch.empty_like(re)
-    views = (n_src, rows, n_chunks, chunk_size, -padding, geo.view_len, T,
-             geo.hop, geo.bpad, geo.win)
+    views = (n_src, rows, n_chunks, chunk_size, first * chunk_size - padding, geo.view_len,
+             T, geo.hop, geo.bpad, geo.win)
     dev = x.device
     if route == "product":
         _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
@@ -475,17 +479,24 @@ def freq_smooth_blend_ref(mask, taps, prop):
 
 def freq_smooth_blend(mask, taps, prop):
     """'same' correlation along bins with the odd ``taps`` (zero outside
-    the bins), then the non-stationary blend m*prop + (1 - prop)."""
+    the bins), then the non-stationary blend m*prop + (1 - prop).
+
+    On the card: one CUDA launch of spans of whole lines
+    (``geometry.freq_smooth_plan``); every output sums its products in tap
+    order, so the output does not depend on the span it lands in."""
     if _on_cpu(mask):
         return freq_smooth_blend_ref(mask, taps, prop)
     _check_cuda("freq_smooth_blend", mask)
     nb = mask.shape[-1]
     n_rows = mask.numel() // nb
-    tap_t = _device_f32("taps", tuple(float(v) for v in taps), mask.device)
     out = torch.empty_like(mask)
+    if not n_rows:
+        return out
+    plan = freq_smooth_plan(n_rows, nb, len(taps))
+    tap_t = _device_f32("taps", plan.device_taps(taps), mask.device)
     _launch(
         "freq_smooth_blend", mask.device, _ptr(mask), _ptr(out), _ptr(tap_t),
-        len(taps), n_rows, nb, prop,
+        plan.n_taps, plan.half, n_rows, nb, plan.lines, prop,
     )
     freq_smooth_blend.launches += 1
     return out

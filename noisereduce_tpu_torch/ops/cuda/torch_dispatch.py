@@ -52,7 +52,7 @@ from noisereduce_tpu_torch.ops.cuda.kernels import (
 from noisereduce_tpu_torch.ops.dsp import _torchgate_kernel_svd_np, torch_noise_db_threshold
 from noisereduce_tpu_torch.ops.precision import fused_with_twin
 from noisereduce_tpu_torch.ops.stft import istft, stft
-from noisereduce_tpu_torch.parallel.chunking import process_chunked
+from noisereduce_tpu_torch.parallel.chunking import grouped_cores, process_chunked
 
 __all__ = [
     "fused_tpugate_supported",
@@ -90,15 +90,25 @@ def _torch_threshold_stats(xn2: torch.Tensor, gate) -> torch.Tensor:
     return torch_noise_db_threshold(re, im, gate.n_std_thresh_stationary)
 
 
-def _tpugate_from_signal(x, gate, xn=None, chunk_size=0, padding=0, out_len=None):
+def _threshold_of(gate, xn):
+    """The (bn, bins) threshold of a stationary gate's noise clip or rows
+    (kernel A's spectra), or None: a non-stationary gate, or no clip (each
+    view its own statistics)."""
+    if gate.nonstationary or xn is None:
+        return None
+    return _torch_threshold_stats((xn if xn.ndim == 2 else xn[None]).contiguous(), gate)
+
+
+def _tpugate_from_signal(x, gate, thr=None, chunk_size=0, padding=0, out_len=None,
+                         chunks=None):
     """(rows, n) -> gated views: each whole row (``chunk_size`` 0;
     (rows, out_len) out, ``out_len`` defaulting to n) or the core
     [padding, padding + chunk_size) of each halo'd chunk view
-    ((rows*n_chunks, chunk_size) out), zero past each view's natural
-    length. ``xn``: a stationary gate's (n_clip,) clip or (bn, n_clip)
-    noise rows, with bn 1 or a divisor of the views that maps row-major
-    onto them (view v reads row v // (views / bn)); None gives each view
-    its own statistics."""
+    ((rows*n_chunks, chunk_size) out; with ``chunks`` = (first, count), of
+    those chunks only), zero past each view's natural length. ``thr``: a
+    stationary gate's (bn, bins) threshold (``_threshold_of``), bn 1 or a
+    divisor of the views that maps row-major onto them (view v reads row
+    v // (views / bn)); None gives each view its own statistics."""
     n = x.shape[-1]
     if chunk_size:
         view_len, out_off, out_len = chunk_size + 2 * padding, padding, chunk_size
@@ -106,10 +116,7 @@ def _tpugate_from_signal(x, gate, xn=None, chunk_size=0, padding=0, out_len=None
         view_len, out_off = n, 0
         out_len = n if out_len is None else out_len
     geo = gate_geometry(gate.stft_config, view_len)
-    re, im = spectra(x, geo, chunk_size, padding)
-    thr = None
-    if not gate.nonstationary and xn is not None:
-        thr = _torch_threshold_stats((xn if xn.ndim == 2 else xn[None]).contiguous(), gate)
+    re, im = spectra(x, geo, chunk_size, padding, chunks)
     return istft_ola(re, im, _mask(re, im, gate, thr), geo, out_off, out_len)
 
 
@@ -159,14 +166,15 @@ def fused_tpugate(x: torch.Tensor, xn, gate, out_len=None) -> torch.Tensor:
     if out_len is None:
         out_len = gate_geometry(gate.stft_config, x.shape[-1]).istft_len
     return fused_with_twin(
-        lambda a, b: _tpugate_from_signal(a.contiguous(), gate, b, out_len=out_len),
+        lambda a, b: _tpugate_from_signal(a.contiguous(), gate, _threshold_of(gate, b),
+                                          out_len=out_len),
         lambda a, b: _staged_twin(gate, a, b, out_len),
         x, xn,
     )
 
 
 def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int,
-                          xn=None) -> torch.Tensor:
+                          xn=None, group: int = 0, progress: bool = False) -> torch.Tensor:
     """The whole chunked body of the torch-convention engine (reference
     base.py:144-226 with streamed_torch_gate.py): chunk i of each row is
     the view of source samples [i*cs - padding, (i+1)*cs + padding), zero
@@ -176,11 +184,16 @@ def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int
     cores. A signal of at most ``chunk_size`` samples is one view of
     n + 2 * padding samples. ``xn``: a (n_clip,) clip or (bn, n_clip) noise
     rows with bn 1 or ch, row c serving every chunk of channel c; None gives
-    each chunk view its own statistics. (ch, n) -> (ch, n)."""
+    each chunk view its own statistics. (ch, n) -> (ch, n). ``group`` > 0
+    or ``progress``: the chunks in groups of ``group`` (1 for 0;
+    ``parallel.chunking.grouped_cores``), the threshold taken once before
+    them."""
     def forward(y, b):
-        ch, n = y.shape
-        core = _tpugate_from_signal(y.contiguous(), gate, b, min(chunk_size, n), padding)
-        return core.reshape(ch, -1)[:, :n]
+        y = y.contiguous()
+        cs, thr = min(chunk_size, y.shape[-1]), _threshold_of(gate, b)
+        return grouped_cores(
+            lambda chunks: _tpugate_from_signal(y, gate, thr, cs, padding, chunks=chunks),
+            y, cs, group, progress)
 
     def twin(y, b):
         def call(c):

@@ -131,7 +131,7 @@ def test_cuda_device_raises_without_cuda():
 @pytest.mark.parametrize("kw,err", [
     (dict(stationary=True, compute_dtype=torch.bfloat16), NotImplementedError),
     (dict(use_torch=True, compute_dtype=torch.bfloat16), NotImplementedError),
-    (dict(use_tqdm=True), NotImplementedError),
+    (dict(mesh=object()), NotImplementedError),  # use_tqdm=True is ported
     (dict(compute_dtype=torch.bfloat16), NotImplementedError),
     (dict(freq_mask_smooth_hz=5), ValueError),
 ])

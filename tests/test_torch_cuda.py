@@ -886,3 +886,111 @@ def test_torch_nonstationary_mask_any_normal_temp_on_card(cuda, temp):
     got = K.torch_nonstationary_mask(*args)
     assert torch.isfinite(got).all()
     assert _max(got - K.torch_nonstationary_mask_ref(*args)) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# kernel C: spans of whole lines, register windows
+# ---------------------------------------------------------------------------
+def _fs_taps(name):
+    """Kernel C's taps: the scipy headline's (48 kHz, n_fft 1024: 11), the
+    torch headline's sigma0 u0, the split geometry's 129 (2000 Hz at 16
+    kHz), and 641 (20000 Hz at 16 kHz, n_fft 512: wider than its 257 bins)."""
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _rank1_taps
+
+    if name == "torch":
+        return np.asarray(_rank1_taps(nrt.api.torch_gate_for(48000).smoothing)[0])
+    return tri_norm({"scipy": GateConfig(sr=48000).smoothing[0], "129": 64, "641": 320}[name])
+
+
+# (taps, prop, rows, n_bins): rows that are not a multiple of the plan's
+# lines a span (8 at 513 bins, 17 at 257, 256 at 21)
+FS_CASES = {
+    "scipy-prop0.8": ("scipy", 0.8, 3 * 331, 513),
+    "scipy-prop1": ("scipy", 1.0, 3 * 331, 513),
+    "torch-sigma0u0": ("torch", 1.0, 3 * 331, 513),
+    "taps129": ("129", 0.8, 2 * 211, 513),
+    "taps641-bins257": ("641", 0.8, 4 * 125, 257),
+    "bins21-nfft40": ("scipy", 0.8, 2 * 1003, 21),
+    "rows-not-a-multiple": ("scipy", 0.8, 8 * 37 + 5, 513),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FS_CASES))
+def test_freq_smooth_blend_matches_plain_version(cuda, case):
+    """C within 1e-6 of its plain version, bitwise from run to run and on
+    any split of its rows (a grouped call's rows land in other spans)."""
+    from noisereduce_tpu_torch.ops.cuda.geometry import freq_smooth_plan
+
+    name, prop, rows, nb = FS_CASES[case]
+    taps = _fs_taps(name)
+    m = torch.as_tensor(np.random.default_rng(120).uniform(0, 1, (rows, nb)),
+                        dtype=torch.float32, device=cuda)
+    if case == "rows-not-a-multiple":
+        assert rows % freq_smooth_plan(rows, nb, len(taps)).lines
+    K.reset_launch_counts()
+    got = K.freq_smooth_blend(m, taps, prop)
+    assert K.launch_counts()["freq_smooth_blend"] == 1
+    assert got.shape == m.shape and torch.isfinite(got).all()
+    assert _max(got - K.freq_smooth_blend_ref(m, taps, prop)) <= 1e-6
+    assert torch.equal(got, K.freq_smooth_blend(m, taps, prop))
+    k = rows // 3 + 1
+    split = torch.cat([K.freq_smooth_blend(m[:k], taps, prop),
+                       K.freq_smooth_blend(m[k:], taps, prop)])
+    assert torch.equal(split, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_freq_smooth_blend_takes_a_plane_off_16_byte_alignment(cuda, offset):
+    """Planes 4, 8 or 12 bytes off a 16-byte boundary: C's 16-byte loads and
+    stores start from each tensor's own address, and its output is the
+    aligned call's to the bit."""
+    taps = _fs_taps("scipy")
+    m = torch.as_tensor(np.random.default_rng(121).uniform(0, 1, (77, 513)),
+                        dtype=torch.float32, device=cuda)
+    mo = torch.cat([m.reshape(-1)[:offset], m.reshape(-1)])[offset:].view(m.shape)
+    assert mo.is_contiguous() and mo.data_ptr() % 16 and torch.equal(mo, m)
+    got = K.freq_smooth_blend(mo, taps, 0.8)
+    assert _max(got - K.freq_smooth_blend_ref(m, taps, 0.8)) <= 1e-6
+    assert torch.equal(got, K.freq_smooth_blend(m, taps, 0.8))
+
+
+# ---------------------------------------------------------------------------
+# max_parallel_chunks: host-driven chunk groups on the card
+# ---------------------------------------------------------------------------
+# the kernels one group launches, by engine (a stationary clip's threshold
+# adds one launch of A before the groups)
+GROUP_ENGINES = {
+    "nonstationary": (dict(), NONSTATIONARY),
+    "stationary": (dict(stationary=True), ("spectra", "stationary_mask", "freq_smooth_blend",
+                                           "istft_ola")),
+    "torch": (dict(use_torch=True), TORCH_NONSTATIONARY),
+    "torch-stationary-clip": (dict(use_torch=True, stationary=True),
+                              ("spectra", "stationary_mask", "freq_smooth_blend", "istft_ola")),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", list(GROUP_ENGINES))
+def test_grouped_reduce_noise_is_bitwise_the_ungrouped_call(cuda, engine):
+    """``max_parallel_chunks`` 1 and 2 against 0 on 5.3 chunks of a stereo
+    signal: the same bits, and each kernel launched once a group (A once
+    more for a stationary clip's threshold, taken before the groups)."""
+    kw, kernels = GROUP_ENGINES[engine]
+    y = np.random.default_rng(130).standard_normal((2, 21200)).astype(np.float32)
+    kw = dict(kw, chunk_size=4000, padding=1000)
+    if engine == "stationary":
+        kw["y_noise"] = np.random.default_rng(131).standard_normal(6000)
+    if engine == "torch-stationary-clip":
+        kw["y_noise"] = np.random.default_rng(132).standard_normal(6000).astype(np.float32)
+    clip = 1 if "y_noise" in kw else 0
+    outs = {}
+    for g, groups in ((0, 1), (1, 6), (2, 3)):
+        K.reset_launch_counts()
+        outs[g] = nrt.reduce_noise(y, 16000, max_parallel_chunks=g, **kw)
+        counts = {k: v for k, v in K.launch_counts().items() if v}
+        want = dict.fromkeys(kernels, groups)
+        want["spectra"] += clip
+        assert counts == want, (g, counts)
+    assert np.array_equal(outs[1], outs[0]) and np.array_equal(outs[2], outs[0])

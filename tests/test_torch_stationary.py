@@ -366,10 +366,10 @@ def test_reduce_noise_batch_matches_jax_and_per_signal_calls(
 
 
 def test_reduce_noise_batch_use_torch_raises():
-    # the torch engine is ported; its host-driven tqdm loop is not
+    # the torch engine and its host-driven tqdm loop are ported; the mesh is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nrt.reduce_noise_batch([np.zeros(4000)], 16000, use_torch=True, use_tqdm=True,
-                               device="cpu")
+                               mesh=object(), device="cpu")
 
 
 def test_reduce_noise_batch_validation():

@@ -159,7 +159,8 @@ def test_n_jobs_must_be_one_with_use_torch():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(use_tqdm=True), NotImplementedError),
+    # use_tqdm=True is ported; with a mesh, which is not, it raises
+    (dict(use_tqdm=True, mesh=object()), NotImplementedError),
     (dict(compute_dtype=torch.bfloat16), NotImplementedError),
     (dict(prop_decrease=1.5), ValueError),
     (dict(freq_mask_smooth_hz=5), ValueError),

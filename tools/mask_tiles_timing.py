@@ -3,7 +3,7 @@
 ``torch_nonstationary_mask`` and G ``fm_nonstationary_mask``, and kernel C
 ``freq_smooth_blend``, on one CUDA card at the headline shapes (960
 s of 48 kHz audio, n_fft 1024 / hop 256, chunked as ``reduce_noise``
-chunks: 77 views x 2,579 frames x 513 bins), in eight cases: B with the
+chunks: 77 views x 2,579 frames x 513 bins), in twelve cases: B with the
 headline's 19 time taps, B with one unit tap (the staged geometry's mask),
 E with a 10 s noise clip's threshold, E with each view's own statistics
 (top_db 40, TorchGate's n_std), and F with the torch headline's gate
@@ -12,7 +12,9 @@ frequency-major (77 x 513 x 2,579 complex64, TPU row 6) on its plan's
 route and on its tiled route forced (a package without ``_fm_mask_on``
 skips that one), C on B's mask with the headline's frequency taps, and G
 on short columns: the training batch of 256 clips of 4 s, here taken at
-16 kHz (n_fft 512 / hop 128: 256 x 257 x 501 complex64). The spectra are
+16 kHz (n_fft 512 / hop 128: 256 x 257 x 501 complex64); and C at
+``chip_smoke.py``'s ``C_SHAPES`` (cases 9-11: the 32 x 10 s batch's
+plane, the split geometry's 129 taps, 641 taps on 257 bins). The spectra are
 kernel A's of
 ``chip_smoke.py``'s headline signal (the scipy table; E's own statistics
 and F on the torch table's, as the torch paths give them). Per case: CUDA
@@ -53,7 +55,8 @@ sys.path.append(str(ROOT))  # this tree's package, after PYTHONPATH's
 CASES = ("nonstationary_mask", "nonstationary_mask (unit tap)", "stationary_mask",
          "stationary_mask (self statistics)", "torch_nonstationary_mask",
          "fm_nonstationary_mask", "fm_nonstationary_mask (tiled route)", "freq_smooth_blend",
-         "fm_nonstationary_mask (short columns)")
+         "fm_nonstationary_mask (short columns)", "freq_smooth_blend (batch 32 x 10 s)",
+         "freq_smooth_blend (129 taps, split geometry)", "freq_smooth_blend (641 taps on 257 bins)")
 # case 8: a training batch of 256 clips of 4 s at 16 kHz, n_fft 512 / hop 128
 SHORT_SR, SHORT_CLIPS, SHORT_SECONDS, SHORT_N_FFT = 16000, 256, 4, 512
 
@@ -138,6 +141,13 @@ def main() -> None:
         CASES[7]: (K.freq_smooth_blend, lambda: K.freq_smooth_blend(m, tf, cfg.prop_decrease)),
         CASES[8]: (K.fm_nonstationary_mask, lambda: K.fm_nonstationary_mask(zs, *ns)),
     }
+    # C's other shapes (chip_smoke.py's C_SHAPES), on B's mask
+    planes = {}
+    for case, (label, mc, taps, prop) in zip(CASES[9:], cs.c_planes(K, x[0])):
+        assert case.endswith(f"({label})")
+        planes[case] = mc
+        calls[case] = (K.freq_smooth_blend,
+                       lambda mc=mc, taps=taps, prop=prop: K.freq_smooth_blend(mc, taps, prop))
     picked = [CASES[int(i)] for i in args.cases.split(",")] if args.cases else CASES
     plane = re.numel() * re.element_size()
     out, saved = {}, {}
@@ -150,6 +160,8 @@ def main() -> None:
         moved = (2 if case == CASES[7] else 3) * plane  # C: one plane in, one out
         if case == CASES[8]:
             moved = zs.numel() * 12  # complex64 in, the float32 mask out
+        if case in planes:
+            moved = 2 * planes[case].numel() * 4
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
         saved[case] = fn()
         ms = time_ms(fn, args.reps)
@@ -157,7 +169,8 @@ def main() -> None:
         out[case] = dict(ms=ms, device_ms=sum(dev.values()) or None, device_by_kernel=dev,
                          cuda_launches=getattr(wrapper, "cuda_launches", 1),
                          bound_ms=bound_ms, bound_by="bytes",
-                         shape=list((zs if case == CASES[8] else zf if case in CASES[5:7] else re).shape))
+                         shape=list((planes[case] if case in planes else zs if case == CASES[8]
+                                     else zf if case in CASES[5:7] else re).shape))
         print(f"{case}: {ms:.3f} ms (device {sum(dev.values()):.3f} ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in dev.items())
               + f"), {out[case]['cuda_launches']} CUDA launches, bound {bound_ms:.3f} ms "

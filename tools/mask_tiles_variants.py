@@ -46,10 +46,15 @@ anything.
 - ``g_blocks4``, ``g_blocks6``: G built for at least 4 or 6 blocks an SM
   (at most 64 or 40 registers), not 8;
 - ``g_one_column``: G's resident route with one column a block at every
-  T (geometry.py), not several a block for short columns.
+  T (geometry.py), not several a block for short columns;
+- ``c_span_blocks``: kernel C's design (a), ``tools/variants/
+  freq_smooth_blend_spans.cu`` in place of ``csrc/freq_smooth_blend.cu``:
+  one block a span, no asynchronous copies (the package's design (b):
+  persistent blocks, each loading its next span with ``cp.async`` while
+  it smooths this one).
 
-``--cases`` goes to ``tools/mask_tiles_timing.py`` (G and C alone:
-``--cases 5,6,7``).
+``--cases`` goes to ``tools/mask_tiles_timing.py`` (G alone: ``--cases
+5,6,8``; C at its four shapes: ``--cases 7,9,10,11``).
 
 Needs one CUDA card; imports nothing of JAX.
 """
@@ -78,6 +83,8 @@ VARIANTS = {
     "g_blocks6": [("fm_nonstationary_mask.cu", "constexpr int MIN_BLOCKS = 8;",
                    "constexpr int MIN_BLOCKS = 6;")],
     "g_one_column": [("../geometry.py", "for cols in (8, 4, 2, 1):", "for cols in (1,):")],
+    # a whole source in place of the package's (no pattern)
+    "c_span_blocks": [("freq_smooth_blend.cu", None, "tools/variants/freq_smooth_blend_spans.cu")],
     "no_sigmoid": [(
         "nonstationary_mask.cu",
         "    const float ratio = (cy[TILE_COLS] - w) / (w == 0.f ? 1.f : w);\n"
@@ -191,9 +198,12 @@ def build_copy(name: str) -> pathlib.Path:
     if name.startswith("tiles:"):
         edits = tile_edits(*name.split(":")[1:])
     else:
+        for f, old, new in VARIANTS[name]:
+            if old is None:
+                shutil.copyfile(ROOT / new, d / CSRC / f)
         # the code to edit, whatever its indentation
         edits = [(f, r"\s+".join(map(re.escape, old.split())), new.replace("\\", "\\\\"))
-                 for f, old, new in VARIANTS[name]]
+                 for f, old, new in VARIANTS[name] if old is not None]
     for file, pattern, repl in edits:
         p = d / CSRC / file
         src, n = re.subn(pattern, repl, p.read_text(), count=1)
