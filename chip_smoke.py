@@ -83,7 +83,24 @@ last line is printed only when every phase passed):
     3^3 x 7^2: two frames a complex transform), 60 s; n_fft 1102 / hop 551
     at 44.1 kHz (M = 551 = 19 x 29: the chirp-z route), 60 s; and n_fft 40
     / hop 10 at 8 kHz (below 64: the DFT-product route), 60 s;
-14. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
+14. streaming (``streaming_phase``): the headline signal written as a
+    PCM16 WAV (92 MB) through ``reduce_noise_file`` (77 chunks, one launch
+    of A, B, C and D each a chunk, the native IO runtime required), held to
+    ``reduce_noise`` on the samples the file holds within the end-to-end
+    bound (bitwise printed), its PCM16 output equal to the host quantize of
+    its float output, its wall time (min of 3) and the wall split by stage
+    (reads, H2D, device, D2H, writes, each alone over all chunks); then on
+    the first 60 s: the stationary engine with the first chunk's threshold
+    and with the whole file's (two streamed passes; that threshold held to
+    the in-memory one at atol 1e-4, rtol 1e-5 and the output to the
+    in-memory gate given it), and ``use_torch=True``, each held to its
+    in-memory call and timed; ``StreamingGate`` (blocks of 4,800, 1,024
+    samples of lookahead, irregular feeds, flush) held to
+    ``reduce_noise(chunk_size=4800, padding=1024)``, with ms per block
+    (events and host wall) against the 100 ms block period; and
+    ``python -m noisereduce_tpu_torch`` in a subprocess, its output equal
+    to ``reduce_noise_file``'s;
+15. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
     mean(gate(x)**2), at batch 16 and 256 of 4 s; ``gate_nonstationary``
@@ -93,7 +110,7 @@ last line is printed only when every phase passed):
     the float64 staged twin on the card, and forward + backward timed;
     then the notebook-3.0 loop, a 31-tap FIR in front of the gate trained
     for 5 Adam steps at batch 256;
-15. one JSON line of per-kernel results, then the last line
+16. one JSON line of per-kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -133,6 +150,12 @@ NOISE_SECONDS = 10
 CHUNK, PADDING = 600000, 30000
 # the grouping phase: the headline's 77 chunks in groups of this many
 GROUP_CHUNKS = 8
+# streaming: the other file engines and StreamingGate on the first 60 s;
+# the gate in blocks of 100 ms with 1,024 samples of lookahead, fed in
+# pieces of these lengths in turn
+STREAM_SECONDS = 60
+BLOCK, BLOCK_PAD = 4800, 1024
+FEEDS = (1000, 7919, 4800, 333, 12000)
 BATCH_CLIPS, BATCH_SECONDS = 32, 10
 STAGED_SR, STAGED_SECONDS, STAGED_KW = 16000, 30, dict(n_fft=1024, hop_length=300)
 # n_grad_freq 64: the merged TPU kernel's frequency halo (66 bins) leaves
@@ -1448,6 +1471,278 @@ def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
         fail("notebook loop: the loss did not fall")
 
 
+def hold(label, got, ref, what="its in-memory call") -> bool:
+    """Hold a streamed float output to ``what`` (by default its in-memory
+    call): finite, the same shape, within ``E2E_BOUND`` x max|ref|; print
+    whether it is bitwise."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        fail(f"{label}: shape {got.shape} against {ref.shape}, or not finite")
+    dev = float(np.abs(got.astype(np.float64) - ref).max())
+    lim = E2E_BOUND * float(np.abs(ref).max())
+    bitwise = np.array_equal(got, ref)
+    print(f"{label} vs {what}: max|dev| {dev:.3e} bound {lim:.3e}; "
+          f"bitwise: {bitwise}", flush=True)
+    if not dev <= lim:
+        fail(f"{label} disagrees with {what}")
+    return bitwise
+
+
+def wall_s(fn, reps: int = 3) -> float:
+    """Minimum host wall seconds over ``reps`` runs after one warm-up, each
+    ending in a synchronize."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def file_split(in_path: str, out_path: str, cfg) -> dict:
+    """The file headline's work stage by stage, each alone over all chunks
+    (no overlap): the native reads of the int16 chunks (host wall, each
+    chunk dropped as the pipeline drops it), their H2D from pinned buffers,
+    the gate with the core slice and the PCM16 quantize (``_chunk_core``;
+    CUDA events around the loop, the host's launch work included, and
+    ``device_only``: one chunk's device time with the host's work hidden,
+    ``queued_ms``, times the chunks), the D2H of the cores into pinned
+    buffers (events), and the WAV writes (host wall). Seconds."""
+    from noisereduce_tpu_torch import streaming as st
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    def events(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
+    t0 = time.perf_counter()
+    for _ in nrio.stream_chunks(in_path, CHUNK, PADDING, dtype="int16"):
+        pass
+    read = time.perf_counter() - t0
+    pinned = [torch.from_numpy(c).pin_memory()
+              for _, c in nrio.stream_chunks(in_path, CHUNK, PADDING, dtype="int16")]
+    run = st._view_gate(cfg)
+    on_card, h2d = events(lambda: [p.to("cuda", non_blocking=True) for p in pinned])
+    cores, device = events(lambda: [st._chunk_core(x, run, PADDING, CHUNK, True)
+                                    for x in on_card])
+    one = queued_ms(lambda: st._chunk_core(on_card[1], run, PADDING, CHUNK, True))
+    device_only = None if one is None else one * len(on_card) / 1e3
+    host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=True) for c in cores]
+    _, d2h = events(lambda: [h.copy_(c, non_blocking=True) for h, c in zip(host, cores)])
+    _, channels, n = nrio.wav_info(in_path)
+    t0 = time.perf_counter()
+    with nrio.WavWriter(out_path, SR, channels, n) as w:
+        for h in host:
+            w.write(h.numpy().T)
+    write = time.perf_counter() - t0
+    return dict(read=read, h2d=h2d, device=device, device_only=device_only, d2h=d2h,
+                write=write)
+
+
+def streaming_phase(nr, K, card, launches, x) -> None:
+    """reduce_noise_file on the 960 s headline as a PCM16 WAV, the other file
+    engines, StreamingGate and the CLI, each held to its in-memory call, and
+    the file engines and StreamingGate also to the staged plain path at
+    their own geometry (the in-memory call runs the same kernels)."""
+    import tempfile
+
+    from noisereduce_tpu_torch import streaming as st
+    from noisereduce_tpu_torch.models.spectral_gate import (
+        _gate_nonstationary_staged, stationary_noise_threshold,
+    )
+    from noisereduce_tpu_torch.parallel.chunking import process_chunked
+    from noisereduce_tpu_torch.ops.cuda.dispatch import fused_gate_chunked
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    if not nrio.native_available():
+        fail("the native IO runtime (libnrio.so) is not available")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "headline.wav"), os.path.join(tmp, "out.wav")
+        nrio.write_wav(src, x, SR)  # PCM16, as recordings are
+        _, xf = nrio.read_wav(src, dtype="float32")
+        n_chunks = (len(xf) - 1) // CHUNK + 1
+        per_chunk = dict(spectra=n_chunks, nonstationary_mask=n_chunks,
+                         freq_smooth_blend=n_chunks, istft_ola=n_chunks)
+        _, launches["file headline"] = run_path(
+            K, "file headline", lambda: nr.reduce_noise_file(src, out, as_float=True),
+            per_chunk)
+        got = nrio.read_wav(out, dtype="float32")[1]
+        hold("file headline", got, nr.reduce_noise(xf, SR))
+        nr.reduce_noise_file(src, out)
+        q = nrio.read_wav(out, dtype="int16")[1]
+        if not np.array_equal(q, np.clip(got * 32767.0, -32768, 32767).astype(np.int16)):
+            fail("file headline: the PCM16 output is not the host quantize of the float output")
+        print("file headline: PCM16 output equals the host quantize of the float output",
+              flush=True)
+        del got, q
+        secs = wall_s(lambda: nr.reduce_noise_file(src, out))
+        print(f"file headline {HEADLINE_SECONDS} s @ {SR} Hz, PCM16 in and out "
+              f"({os.path.getsize(src) / 1e6:.1f} MB, {n_chunks} chunks): reduce_noise_file "
+              f"{secs:.4f} s wall ({HEADLINE_SECONDS / secs:.0f} audio s per wall s), "
+              f"native runtime: {nrio.native_available()}, on {card}", flush=True)
+        split = file_split(src, out, nr.GateConfig(sr=SR))
+        only = split.pop("device_only")
+        print("file headline split, each stage alone over all chunks (s): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; sum {sum(split.values()):.4f} against the pipelined wall {secs:.4f}; "
+              + ("device work with the host's launch work hidden: not measured" if only is None
+                 else f"device work, estimated as one chunk's device time with the host's "
+                      f"launch work hidden ({only / n_chunks * 1e3:.3f} ms) x {n_chunks} "
+                      f"chunks, {only:.4f} (the pipelined run itself is not traced): idle "
+                      f"share of the pipelined wall estimated at {1 - only / secs:.3f}"),
+              flush=True)
+        os.remove(src)
+
+        # the other engines on the first STREAM_SECONDS
+        src = os.path.join(tmp, "short.wav")
+        nrio.write_wav(src, x[: STREAM_SECONDS * SR], SR)
+        _, xs = nrio.read_wav(src, dtype="float32")
+        ys = torch.as_tensor(xs[None]).cuda()
+        k = (len(xs) - 1) // CHUNK + 1
+        stat = dict(stationary_mask=k, freq_smooth_blend=k, istft_ola=k)
+        engines = (
+            ("file stationary, first chunk", dict(stationary=True), dict(stat, spectra=k + 1)),
+            ("file stationary, whole file", dict(stationary=True, clip_noise_stationary=False),
+             dict(stat, spectra=k)),
+            ("file use_torch", dict(use_torch=True),
+             dict(spectra=k, torch_nonstationary_mask=k, freq_smooth_blend=k, istft_ola=k)),
+        )
+        for label, kw, want in engines:
+            _, launches[label] = run_path(
+                K, label, lambda: nr.reduce_noise_file(src, out, as_float=True, **kw), want)
+            got = nrio.read_wav(out, dtype="float32")[1]
+            if kw.get("clip_noise_stationary") is False:
+                # the threshold comes from two streamed passes (torch.fft
+                # slabs, float64 sums): held to the in-memory threshold at the
+                # JAX package's tolerance, the gate to the in-memory gate
+                # given that threshold
+                cfg = nr.GateConfig(sr=SR, stationary=True)
+                thr = st._streaming_noise_threshold(src, cfg, torch.device("cuda"))
+                mem = stationary_noise_threshold(ys[0], cfg)
+                tdev = float((thr - mem).abs().max())
+                print(f"{label}: streamed threshold vs in-memory max|dev| {tdev:.3e} dB "
+                      f"(atol 1e-4, rtol 1e-5)", flush=True)
+                if not torch.allclose(thr, mem, atol=1e-4, rtol=1e-5):
+                    fail(f"{label}: streamed threshold")
+                with torch.no_grad():
+                    ref = fused_gate_chunked(ys, cfg, CHUNK, PADDING, thr)[0].cpu().numpy()
+                direct = nr.reduce_noise(xs, SR, **kw)
+                print(f"{label}: vs reduce_noise(clip_noise_stationary=False) max|dev| "
+                      f"{float(np.abs(got - direct).max()):.3e}, bitwise "
+                      f"{np.array_equal(got, direct)}", flush=True)
+            else:
+                ref = nr.reduce_noise(xs, SR, **kw)
+                if kw.get("use_torch"):
+                    ref_p = torch_staged(ys, nr.api.torch_gate_for(SR), CHUNK, PADDING)
+                    hold(label, got, ref_p[0].cpu().numpy(), "the staged plain path")
+                else:
+                    stationary_vs_plain(label, got, ys, ys[0, :CHUNK],
+                                        nr.GateConfig(sr=SR, stationary=True), CHUNK, PADDING)
+            hold(label, got, ref)
+            secs = wall_s(lambda: nr.reduce_noise_file(src, out, **kw))
+            print(f"{label} {STREAM_SECONDS} s @ {SR} Hz: reduce_noise_file {secs:.4f} s wall "
+                  f"({STREAM_SECONDS / secs:.0f} audio s per wall s), on {card}", flush=True)
+
+        # StreamingGate: blocks of BLOCK with BLOCK_PAD of lookahead, fed in
+        # irregular pieces, each emitted block timed by events and wall
+        gate = nr.StreamingGate(SR, BLOCK, BLOCK_PAD).warmup()
+        emit, ev_ms, wall_ms = gate._emit, [], []
+
+        def timed_emit(i):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            core = emit(i)  # returns host samples: the device work is done
+            end.record()
+            end.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+            return core
+
+        gate._emit = timed_emit
+
+        def stream(g):
+            parts, s, j = [], 0, 0
+            while s < len(xs):
+                step = FEEDS[j % len(FEEDS)]
+                parts.append(g.process(xs[s : s + step]))
+                s, j = s + step, j + 1
+            parts.append(g.flush())
+            return np.concatenate(parts)
+
+        blocks = (len(xs) - 1) // BLOCK + 1
+        got, launches["StreamingGate"] = run_path(
+            K, "StreamingGate", lambda: stream(gate),
+            dict(spectra=blocks, nonstationary_mask=blocks, freq_smooth_blend=blocks,
+                 istft_ola=blocks))
+        hold("StreamingGate", got,
+             nr.reduce_noise(xs, SR, chunk_size=BLOCK, padding=BLOCK_PAD))
+        # the gate's own views (BLOCK + 2 BLOCK_PAD samples, a few dozen
+        # frames) against the staged plain path, which shares no kernel
+        with torch.no_grad():
+            plain = process_chunked(
+                lambda v: _gate_nonstationary_staged(v, nr.GateConfig(sr=SR)), ys, BLOCK,
+                BLOCK_PAD)
+        hold("StreamingGate", got, plain[0].cpu().numpy(), "the staged plain path")
+        del plain
+        period = BLOCK / SR * 1e3
+
+        def stats(v):
+            v = np.sort(np.asarray(v))
+            return (f"min {v[0]:.3f} median {np.median(v):.3f} "
+                    f"p99 {v[int(0.99 * (len(v) - 1))]:.3f}")
+
+        print(f"StreamingGate {STREAM_SECONDS} s @ {SR} Hz, blocks of {BLOCK} + {BLOCK_PAD} "
+              f"lookahead ({len(ev_ms)} blocks, latency {gate.latency_s * 1e3:.1f} ms): ms per "
+              f"block, events {stats(ev_ms)}; host wall {stats(wall_ms)}; block period "
+              f"{period:.0f} ms; launches per block "
+              f"{ {n: c / blocks for n, c in launches['StreamingGate'].items() if c} }, "
+              f"on {card}", flush=True)
+        if len(ev_ms) != blocks:
+            fail("StreamingGate: blocks emitted")
+
+        # stationary StreamingGate: the threshold of the first block, then the
+        # stationary kernels on the same views
+        sgate = nr.StreamingGate(SR, BLOCK, BLOCK_PAD, stationary=True).warmup()
+        got, launches["StreamingGate stationary"] = run_path(
+            K, "StreamingGate stationary", lambda: stream(sgate),
+            dict(spectra=blocks + 1, stationary_mask=blocks, freq_smooth_blend=blocks,
+                 istft_ola=blocks))
+        hold("StreamingGate stationary", got,
+             nr.reduce_noise(xs, SR, stationary=True, chunk_size=BLOCK, padding=BLOCK_PAD))
+        stationary_vs_plain("StreamingGate stationary", got, ys, ys[0, :BLOCK],
+                            nr.GateConfig(sr=SR, stationary=True), BLOCK, BLOCK_PAD)
+        del got, ys
+
+        # the CLI, as a user runs it, on the same file
+        cli_out = os.path.join(tmp, "cli.wav")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "noisereduce_tpu_torch", src, cli_out],
+            capture_output=True, text=True, timeout=600, cwd=HERE,
+            env={**os.environ, "PYTHONPATH": HERE},
+        )
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+        nr.reduce_noise_file(src, out)
+        same = np.array_equal(nrio.read_wav(cli_out, dtype="int16")[1],
+                              nrio.read_wav(out, dtype="int16")[1])
+        print(f"CLI: python -m noisereduce_tpu_torch exit 0 in {secs:.1f} s (process start "
+              f"included); output equals reduce_noise_file's: {same}; its summary: "
+              f"{proc.stderr.strip().splitlines()[-1]}", flush=True)
+        if not same:
+            fail("CLI output differs from reduce_noise_file's")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one CUDA card")
@@ -1465,6 +1760,8 @@ def main() -> None:
     from noisereduce_tpu_torch.ops.cuda.geometry import real_kernel
     from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
+    from noisereduce_tpu_torch.utils import io as nrio
+
     t_start = time.perf_counter()
     build.load()
     print(
@@ -1472,6 +1769,9 @@ def main() -> None:
         f"{time.perf_counter() - t_start:.1f} s (nvcc {build.build_seconds})",
         flush=True,
     )
+    t0 = time.perf_counter()
+    print(f"build: {nrio.build_library().relative_to(HERE)} (g++) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     x = headline_signal(HEADLINE_SECONDS)
     noise = noise_clip(NOISE_SECONDS)
@@ -1768,6 +2068,7 @@ def main() -> None:
         results[f"{name}_product"] = dict(got[name], fft_route="product")
     del xp
 
+    streaming_phase(nr, K, card, launches, x)
     gradient_phase(nr, K, card, launches)
 
     main_path = {name: "headline" for name in SOURCES}

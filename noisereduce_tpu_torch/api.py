@@ -50,6 +50,8 @@ from noisereduce_tpu_torch.parallel.chunking import process_chunked
 __all__ = ["reduce_noise", "reduce_noise_batch"]
 
 _LATER = "is a later slice of the PyTorch port (ROADMAP.md, Queue 1)"
+MESH_LATER = ("mesh: the sharded path is a later slice of the PyTorch port "
+              "(ROADMAP.md, Queue 1 item 7); pass mesh=None")
 
 
 def _fused_chunked_ok(cfg: GateConfig, y2d: torch.Tensor, chunk_size: int) -> bool:
@@ -281,10 +283,7 @@ def _reduce_noise_deferred(
     if use_torch and n_jobs != 1:
         raise ValueError("n_jobs must be 1 when using torch version of spectral gating.")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded path is a later slice of the PyTorch port "
-            "(ROADMAP.md, Queue 1 item 7); pass mesh=None"
-        )
+        raise NotImplementedError(MESH_LATER)
     # validate the smoothing geometry eagerly, like the reference
     # constructors (spectralgate/base.py:99-128): same ValueErrors
     hop = _hop(n_fft, win_length, hop_length)

@@ -2,7 +2,9 @@
 ``reduce_noise`` / ``reduce_noise_batch`` on the card against the CPU parity
 mode and the per-signal calls.
 
-Every test here is marked ``gpu`` and skips without a card. This file
+Every test here but the last is marked ``gpu`` and skips without a card
+(the last hides the card to check that the streaming entry points refuse
+to run without one). This file
 imports neither JAX nor the JAX package, so it runs on a machine without
 them; there, skip the repository's conftest (it configures JAX):
 
@@ -25,6 +27,8 @@ complex-frame kernels; the chirp-z route of 1102, 1101 and 4106; the
 product route of 40), and every path is checked to launch them on its
 geometry's route only. A float64 card tensor runs the staged twins, within
 1e-9 x max|ref| of the same call on the CPU, and launches no kernel.
+``reduce_noise_file`` (its pinned two-deep pipeline too) and
+``StreamingGate`` are held to ``reduce_noise`` on the card end to end.
 """
 
 import numpy as np
@@ -994,3 +998,153 @@ def test_grouped_reduce_noise_is_bitwise_the_ungrouped_call(cuda, engine):
         want["spectra"] += clip
         assert counts == want, (g, counts)
     assert np.array_equal(outs[1], outs[0]) and np.array_equal(outs[2], outs[0])
+
+
+# ---------------------------------------------------------------------------
+# streaming: reduce_noise_file and StreamingGate on the card
+# ---------------------------------------------------------------------------
+STREAM_SR, STREAM_N, STREAM_CK = 16000, 21200, dict(chunk_size=4000, padding=1000)  # 6 chunks
+STATIONARY = ("spectra", "stationary_mask", "freq_smooth_blend", "istft_ola")
+# engine -> (keywords, the kernels each chunk launches, launches of A before the chunks)
+STREAM_ENGINES = {
+    "nonstationary": (dict(), NONSTATIONARY, 0),
+    "stationary-first-chunk": (dict(stationary=True), STATIONARY, 1),
+    "stationary-clip": (dict(stationary=True, y_noise="clip"), STATIONARY, 1),
+    "stationary-whole-file": (dict(stationary=True, clip_noise_stationary=False), STATIONARY, 0),
+    "torch": (dict(use_torch=True), TORCH_NONSTATIONARY, 0),
+    "torch-stationary": (dict(use_torch=True, stationary=True), STATIONARY, 0),
+}
+
+
+def _stream_wav(tmp_path, channels=2):
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    y = (0.3 * np.random.default_rng(140).standard_normal((STREAM_N, channels))).astype(
+        np.float32).clip(-1, 1)
+    path = str(tmp_path / "in.wav")
+    nrio.write_wav(path, y, STREAM_SR)  # PCM16: the int16 feed
+    return path, nrio.read_wav(path, dtype="float32")[1].T.copy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", list(STREAM_ENGINES))
+def test_file_matches_the_in_memory_call_on_card(cuda, tmp_path, engine):
+    """``reduce_noise_file`` on the card against ``reduce_noise`` on the card
+    on the samples the file holds, within 5e-5 x max|ref|, each kernel
+    launched once a chunk; the whole-file statistics against the in-memory
+    gate with the streamed threshold (and that threshold against the
+    in-memory one at atol 1e-4, rtol 1e-5)."""
+    from noisereduce_tpu_torch import streaming as st
+    from noisereduce_tpu_torch.ops.cuda.dispatch import fused_gate_chunked
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    kw, kernels, before = STREAM_ENGINES[engine]
+    kw = dict(kw, **STREAM_CK)
+    if kw.get("y_noise") == "clip":
+        kw["y_noise"] = (0.1 * np.random.default_rng(141).standard_normal(6000)).astype(np.float32)
+    path, y = _stream_wav(tmp_path)
+    out = str(tmp_path / "out.wav")
+    K.reset_launch_counts()
+    assert nrt.reduce_noise_file(path, out, as_float=True, **kw) == STREAM_N
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    want = dict.fromkeys(kernels, 6)
+    want["spectra"] += before
+    assert counts == want
+    got = nrio.read_wav(out, dtype="float32")[1].T
+    if engine == "stationary-whole-file":
+        cfg = GateConfig(sr=STREAM_SR, stationary=True)
+        thr = st._streaming_noise_threshold(path, cfg, cuda)
+        yt = torch.as_tensor(y, device=cuda)
+        mem_thr = stationary_noise_threshold(yt.mean(dim=0), cfg)
+        assert torch.allclose(thr, mem_thr, atol=1e-4, rtol=1e-5)
+        with torch.no_grad():
+            ref = fused_gate_chunked(yt, cfg, 4000, 1000, thr).cpu().numpy()
+    else:
+        ref = nrt.reduce_noise(y, STREAM_SR, **kw)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pinned_pipeline_matches_a_synchronous_loop_on_card(cuda, tmp_path, depth,
+                                                           monkeypatch):
+    """More chunks (6) than pinned slots (depth + 1): the pipeline's PCM16
+    file is the bytes of a loop that waits for every chunk."""
+    from noisereduce_tpu_torch import streaming as st
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    monkeypatch.setattr(st, "_DEPTH", depth)
+
+    path, _ = _stream_wav(tmp_path)
+    cfg = GateConfig(sr=STREAM_SR)
+    run = st._view_gate(cfg)
+
+    def core(x):
+        return st._chunk_core(x, run, 1000, 4000, True)
+
+    piped, sync = tmp_path / "piped.wav", tmp_path / "sync.wav"
+    chunks = list(nrio.stream_chunks(path, 4000, 1000, dtype="int16"))
+    assert len(chunks) == 6 and chunks[0][1].dtype == np.int16
+    with nrio.WavWriter(str(piped), STREAM_SR, 2, STREAM_N) as w:
+        st._pipeline(iter(chunks), core, (2, 4000), torch.int16, lambda a: w.write(a.T),
+                     cuda)
+    with nrio.WavWriter(str(sync), STREAM_SR, 2, STREAM_N) as w:
+        for _, c in chunks:
+            w.write(core(torch.from_numpy(c).to(cuda)).cpu().numpy().T)
+    assert piped.read_bytes() == sync.read_bytes()
+    nrt.reduce_noise_file(path, str(tmp_path / "api.wav"), **STREAM_CK)
+    assert (tmp_path / "api.wav").read_bytes() == sync.read_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stationary", [False, True])
+def test_streaming_gate_matches_the_in_memory_call_on_card(cuda, stationary):
+    """Blocks of 4000 with padding 1000, fed in pieces of 1719, against
+    ``reduce_noise(chunk_size=4000, padding=1000)`` on the card within 5e-5
+    x max|ref|; each block one launch of each kernel (A once more for the
+    first block's threshold). That call runs the same kernels, so the
+    output is also held to the float64 staged path on the CPU at the
+    gate's own short views (about 24 frames), within the same bound (the
+    stationary gate where no cell decides its threshold the other way, as
+    ``test_stationary_reduce_noise_on_card``)."""
+    y = (0.3 * np.random.default_rng(142).standard_normal((2, 5 * 4000 + 321))).astype(np.float32)
+    gate = nrt.StreamingGate(STREAM_SR, 4000, 1000, stationary=stationary, channels=2)
+    K.reset_launch_counts()
+    parts = [gate.process(y[:, s : s + 1719]) for s in range(0, y.shape[-1], 1719)]
+    parts.append(gate.flush())
+    got = np.concatenate(parts, axis=-1)
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    want = dict.fromkeys(STATIONARY if stationary else NONSTATIONARY, 6)
+    want["spectra"] += int(stationary)
+    assert counts == want
+    ref = nrt.reduce_noise(y, STREAM_SR, stationary=stationary, chunk_size=4000, padding=1000)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+    plain = nrt.reduce_noise(y, STREAM_SR, stationary=stationary, chunk_size=4000,
+                             padding=1000, device="cpu", compute_dtype=torch.float64)
+    n_flips = 0
+    if stationary:
+        n_flips, worst = _decision_flips(y, y.mean(axis=0)[:4000],
+                                         GateConfig(sr=STREAM_SR, stationary=True),
+                                         STREAM_CK)
+        assert worst <= 2e-3
+    if n_flips == 0:
+        assert np.abs(got - plain).max() <= 5e-5 * np.abs(plain).max()
+
+
+def test_streaming_entry_points_refuse_a_missing_card(tmp_path, monkeypatch):
+    """``device="cuda"`` (the default) raises where CUDA is absent, as
+    ``reduce_noise`` does, instead of running on the CPU. Needs no card: it
+    hides the card if there is one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "in.wav")
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    nrio.write_wav(path, np.zeros(9000, np.float32), STREAM_SR)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nrt.reduce_noise_file(path, str(tmp_path / "o.wav"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nrt.StreamingGate(STREAM_SR)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nrt.reduce_noise(np.zeros(9000), STREAM_SR)
