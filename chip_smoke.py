@@ -40,7 +40,13 @@ last line is printed only when every phase passed):
    that a block holds several of: the training batch of 256 clips of 4 s,
    here at 16 kHz with n_fft 512 / hop 128 (256 x 257 x 501, 4 columns a
    block), each line with the route, the CUDA launches, the device ms by
-   kernel and the bandwidth reached;
+   kernel and the bandwidth reached; then the bf16 mode's builds of A, B,
+   E, D and (torch convention) A, F, D on the headline signal cast to
+   bf16, each against its plain version on the same bf16 inputs (A's
+   planes and D's output: each element equal, or one bf16 ulp apart, plus
+   the float32 bound; the masks at the float32 bounds, the threshold
+   float32), timed beside its float32 twin, with the bound of the bf16
+   bytes it moves;
 4. golden: ``reduce_noise(..., device="cuda")`` in float32 on
    ``tests/golden/golden_v1.npz`` (44.1 kHz): the two non-stationary, the
    four stationary and the two torch-convention configurations against the
@@ -83,7 +89,20 @@ last line is printed only when every phase passed):
     3^3 x 7^2: two frames a complex transform), 60 s; n_fft 1102 / hop 551
     at 44.1 kHz (M = 551 = 19 x 29: the chirp-z route), 60 s; and n_fft 40
     / hop 10 at 8 kHz (below 64: the DFT-product route), 60 s;
-14. streaming (``streaming_phase``): the headline signal written as a
+14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
+    every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102 and the
+    product route's n_fft 40), held and timed as above; the H2D of the bf16
+    signal cast on the host against cast on the card; the headline, the
+    stationary headline and the torch headline with
+    ``compute_dtype=torch.bfloat16``, each launching the bf16 builds of A,
+    B or E or F and D only (C float32), within the envelope of the float32
+    output (tests/test_bfloat16_mode.py's), wall (min of 3, CUDA events)
+    and device time (the path's kernels on a card-resident signal, the
+    host's launch work hidden) beside the float32 call's; the
+    grouped bf16 headline, bitwise the one-launch one; ``TPUGate`` at
+    batch 256 of 4 s, bf16 in and out; the kernels JSON line lists the bf16
+    builds as ``<kernel>_bf16``;
+15. streaming (``streaming_phase``): the headline signal written as a
     PCM16 WAV (92 MB) through ``reduce_noise_file`` (77 chunks, one launch
     of A, B, C and D each a chunk, the native IO runtime required), held to
     ``reduce_noise`` on the samples the file holds within the end-to-end
@@ -100,7 +119,7 @@ last line is printed only when every phase passed):
     (events and host wall) against the 100 ms block period; and
     ``python -m noisereduce_tpu_torch`` in a subprocess, its output equal
     to ``reduce_noise_file``'s;
-15. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
+16. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
     mean(gate(x)**2), at batch 16 and 256 of 4 s; ``gate_nonstationary``
@@ -110,7 +129,7 @@ last line is printed only when every phase passed):
     the float64 staged twin on the card, and forward + backward timed;
     then the notebook-3.0 loop, a 31-tap FIR in front of the gate trained
     for 5 Adam steps at batch 256;
-16. one JSON line of per-kernel results, then the last line
+17. one JSON line of per-kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -1237,23 +1256,31 @@ def under_grad(K, label, fn, args, cot, expected, launches):
 
 
 ROUTES = {}  # path label -> kernels A and D's launches by route
+DTYPES = {}  # path label -> every kernel's launches by the dtype of its planes
 
 
-def run_path(K, label, fn, expected, route="fft"):
+def run_path(K, label, fn, expected, route="fft", dtype="float32"):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel in ``expected`` must have launched exactly
-    that often (the others not at all), A and D all on ``route``."""
+    that often (the others not at all), A and D all on ``route``, and A, B,
+    D, E and F all in their ``dtype`` build (C and G in float32)."""
     K.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = K.launch_counts()
     ROUTES[label] = routes = K.route_counts()
-    print(f"{label} launches: {counts}; A and D by route: {routes}", flush=True)
+    DTYPES[label] = dtypes = K.dtype_counts()
+    by_dtype = {k: {d: n for d, n in v.items() if n} for k, v in dtypes.items() if counts[k]}
+    print(f"{label} launches: {counts}; A and D by route: {routes}; by dtype: {by_dtype}",
+          flush=True)
     want = {name: expected.get(name, 0) for name in counts}
     if counts != want:
         fail(f"{label}: launches {counts}, expected {want}")
     if any(r[route] != counts[name] for name, r in routes.items()):
         fail(f"{label}: A or D launched off the {route} route: {routes}")
+    if any(dtypes[k][dtype if k in PLANE_KERNELS else "float32"] != n
+           for k, n in counts.items()):
+        fail(f"{label}: a kernel launched off its {dtype} build: {by_dtype}")
     return out, counts
 
 
@@ -1347,7 +1374,7 @@ def stationary_reference(x, thr, cfg):
 
 
 def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
-    """Phase 14: rows 6 and 7 under grad, the training step of the three
+    """Phase 16: rows 6 and 7 under grad, the training step of the three
     gate families at batch 16 and 256, and the notebook-3.0 loop."""
     from noisereduce_tpu_torch.models.spectral_gate import (
         _gate_nonstationary_staged, gate_nonstationary, gate_stationary,
@@ -1743,6 +1770,426 @@ def streaming_phase(nr, K, card, launches, x) -> None:
             fail("CLI output differs from reduce_noise_file's")
 
 
+# ---------------------------------------------------------------------------
+# the bf16 mode (compute_dtype=torch.bfloat16)
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+# the kernels with a bfloat16 build (their re/im planes, A's signal, D's
+# output); C and G take float32 only
+PLANE_KERNELS = ("spectra", "nonstationary_mask", "istft_ola", "stationary_mask",
+                 "torch_nonstationary_mask")
+# the bf16 output against float32: rel max, rel rms (None: not pinned), the
+# envelopes of tests/test_bfloat16_mode.py
+BF16_ENVELOPES = {"non-stationary": (2.5e-2, 1.2e-2), "stationary": (1.5e-1, 1.0e-1),
+                  "use_torch": (5e-2, None)}
+# the bf16 paths' kernels JSON entries: entry -> (kernel, the path it runs on)
+BF16_ENTRIES = {
+    "spectra_bf16": ("spectra", "bf16 headline"),
+    "nonstationary_mask_bf16": ("nonstationary_mask", "bf16 headline"),
+    "istft_ola_bf16": ("istft_ola", "bf16 headline"),
+    "stationary_mask_bf16": ("stationary_mask", "bf16 stationary headline"),
+    "torch_nonstationary_mask_bf16": ("torch_nonstationary_mask", "bf16 torch headline"),
+}
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |t|: 2^(e - 8) for |t| in [2^(e-1), 2^e); 0 at 0."""
+    a = t.float().abs()
+    _, e = torch.frexp(a)
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8), torch.zeros_like(a))
+
+
+def bf16_hold(label, got, ref, f32_lim):
+    """A bf16 kernel's planes or output against its plain version's on the
+    same bf16 inputs: each element equal, or one bf16 ulp (of the larger of
+    the two) apart, plus ``f32_lim`` (the float32 bound, absolute): the two
+    compute float32 values within that bound and each rounds once. Prints
+    the shares equal and within one ulp. Returns (max |dev|, share equal,
+    share within one ulp)."""
+    if got.dtype != BF16 or ref.dtype != BF16 or got.shape != ref.shape:
+        fail(f"kernel {label}: {got.dtype} {tuple(got.shape)} against {ref.dtype} "
+             f"{tuple(ref.shape)}, not two bf16 tensors of one shape")
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    ulp = bf16_ulp(torch.maximum(g.abs(), r.abs()))
+    n = d.numel()
+    equal, within = int((d == 0).sum()) / n, int((d <= ulp).sum()) / n
+    beyond = float((d - ulp).clamp(min=0).max())
+    ok = bool(torch.isfinite(g).all()) and beyond <= f32_lim
+    print(f"kernel {label}: bf16 {equal:.6f} of the elements equal, {within:.6f} within one "
+          f"bf16 ulp; largest |dev| past one ulp {beyond:.3e} (float32 bound {f32_lim:.3e})",
+          flush=True)
+    if not ok:
+        fail(f"kernel {label} disagrees with its plain version")
+    return float(d.max()), equal, within
+
+
+def bf16_measure(label, fn, ref_fn, twin_fn, moved, ops, check):
+    """One bf16 kernel: ``check()`` holds it to its plain version and
+    returns its max |dev|; then its time, its float32 twin's (``twin_fn``,
+    the float32 build on the float32 inputs), its plain version's, and the
+    bound of the bytes it moves (bf16 planes). No PyTorch call takes bf16
+    spectra (``torch.stft`` / ``torch.istft`` run float32 and float64):
+    library_ms is null. Returns the numbers of the kernels JSON line."""
+    extra = check()
+    ms, f32_ms, plain_ms = time_ms(fn), time_ms(twin_fn), time_ms(ref_fn)
+    bound_ms, bound_by = bound(moved, ops)
+    print(f"kernel {label}: bf16 {ms:.3f} ms, its float32 twin {f32_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library none, card bound {bound_ms:.3f} ms ({bound_by}, "
+          f"{moved / 1e9:.3f} GB; kernel {ms / bound_ms:.2f}x the bound)", flush=True)
+    return dict(extra, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def e_rule(label, got, ref):
+    """Kernel E's rule: at most FLIP_SHARE of the cells off by more than its
+    bound (a decision at the threshold), the rest within it."""
+    diff = (got - ref).abs()
+    off = diff > BOUNDS["stationary_mask"]
+    n_off, rest = int(off.sum()), float(diff[~off].max())
+    print(f"kernel {label}: {n_off} of {diff.numel()} cells off by more than "
+          f"{BOUNDS['stationary_mask']:.0e}; max|dev| over the rest {rest:.3e}", flush=True)
+    if n_off > FLIP_SHARE * diff.numel() or not rest <= BOUNDS["stationary_mask"]:
+        fail(f"kernel {label} disagrees with its plain version")
+    return dict(max_abs_err=float(diff.max()), cells_flipped=n_off, max_abs_err_unflipped=rest)
+
+
+def mask_abs(label, lim, got, ref):
+    dev = float((got - ref).abs().max())
+    print(f"kernel {label}: max|dev| {dev:.3e} bound {lim:.0e} (the float32 bound, on the "
+          f"same bf16 planes)", flush=True)
+    if not (bool(torch.isfinite(got).all()) and dev <= lim):
+        fail(f"kernel {label} disagrees with its plain version")
+    return dict(max_abs_err=dev)
+
+
+def bf16_kernel_phase(x_cuda, noise_cuda, cfg, scfg, tgate) -> dict:
+    """The bfloat16 builds of A, B, E, D (scipy convention) and A, F, D
+    (torch convention) against their plain versions on the same bf16
+    inputs at the headline shapes, each timed beside its float32 twin."""
+    from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _rank1_taps
+    from noisereduce_tpu_torch.ops.dsp import tri_norm
+
+    out = {}
+    geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
+    ngf, ngt = cfg.smoothing
+    tt, tf = tri_norm(ngt), tri_norm(ngf)
+    xb = x_cuda.to(BF16)
+    a, a32 = (xb[None], geo, CHUNK, PADDING), (x_cuda[None], geo, CHUNK, PADDING)
+    re, im = K.spectra(*a)
+    re32, im32 = K.spectra(*a32)
+    ops_a = re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win)
+
+    def check_a(a=a, re=re, im=im, label="spectra (bf16)"):
+        rre, rim = K.spectra_ref(*a)
+        scale = max(float(rre.float().abs().max()), float(rim.float().abs().max()))
+        dev, eq, within = bf16_hold(label, torch.stack([re, im]), torch.stack([rre, rim]),
+                                    BOUNDS["spectra"] * scale)
+        return dict(max_abs_err=dev, share_equal=eq, share_within_one_ulp=within)
+
+    out["spectra_bf16"] = bf16_measure(
+        "spectra (bf16)", lambda: K.spectra(*a), lambda: K.spectra_ref(*a),
+        lambda: K.spectra(*a32), nbytes(xb, re, im), ops_a, check_a)
+
+    cells = re.numel()
+    bk = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary, tt)
+    m = K.nonstationary_mask(re, im, *bk)
+    out["nonstationary_mask_bf16"] = bf16_measure(
+        "nonstationary_mask (bf16)", lambda: K.nonstationary_mask(re, im, *bk),
+        lambda: K.nonstationary_mask_ref(re, im, *bk),
+        lambda: K.nonstationary_mask(re32, im32, *bk), nbytes(re, im, m),
+        cells * (30.0 + 2 * len(tt)),
+        lambda: mask_abs("nonstationary_mask (bf16)", BOUNDS["nonstationary_mask"], m,
+                         K.nonstationary_mask_ref(re, im, *bk)))
+    mb = K.freq_smooth_blend(m, tf, cfg.prop_decrease)
+    mb32 = K.freq_smooth_blend(K.nonstationary_mask(re32, im32, *bk), tf, cfg.prop_decrease)
+    del m
+
+    d, d32 = (re, im, mb, geo, PADDING, CHUNK), (re32, im32, mb32, geo, PADDING, CHUNK)
+    y = K.istft_ola(*d)
+    ops_d = re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win)
+
+    def check_d(d=d, y=y, label="istft_ola (bf16)"):
+        ry = K.istft_ola_ref(*d)
+        dev, eq, within = bf16_hold(label, y, ry,
+                                    BOUNDS["istft_ola"] * float(ry.float().abs().max()))
+        return dict(max_abs_err=dev, share_equal=eq, share_within_one_ulp=within)
+
+    out["istft_ola_bf16"] = bf16_measure(
+        "istft_ola (bf16)", lambda: K.istft_ola(*d), lambda: K.istft_ola_ref(*d),
+        lambda: K.istft_ola(*d32), nbytes(re, im, mb, y), ops_d, check_d)
+    del y, mb, mb32
+
+    thr = stationary_noise_threshold(noise_cuda.to(BF16), scfg)
+    if thr.dtype != torch.float32:
+        fail(f"the bf16 noise clip's threshold is {thr.dtype}, not float32")
+    e = (re, im, thr, 1, scfg.prop_decrease, tt)
+    got = K.stationary_mask(*e)
+    out["stationary_mask_bf16"] = bf16_measure(
+        "stationary_mask (bf16)", lambda: K.stationary_mask(*e),
+        lambda: K.stationary_mask_ref(*e),
+        lambda: K.stationary_mask(re32, im32, *e[2:]), nbytes(re, im, thr, got),
+        cells * (12.0 + 2 * len(tt)),
+        lambda: e_rule("stationary_mask (bf16)", got, K.stationary_mask_ref(*e)))
+    del got, re, im, re32, im32
+
+    # the torch convention: A's torch table, F, D's torch tail
+    tgeo = gate_geometry(tgate.stft_config, CHUNK + 2 * PADDING)
+    ta, ta32 = (xb[None], tgeo, CHUNK, PADDING), (x_cuda[None], tgeo, CHUNK, PADDING)
+    tre, tim = K.spectra(*ta)
+    tre32, tim32 = K.spectra(*ta32)
+    out["spectra_bf16"]["torch_table"] = bf16_measure(
+        "spectra (bf16, torch table)", lambda: K.spectra(*ta), lambda: K.spectra_ref(*ta),
+        lambda: K.spectra(*ta32), nbytes(xb, tre, tim), ops_a,
+        lambda: check_a(ta, tre, tim, "spectra (bf16, torch table)"))
+    ft, ftt = _rank1_taps(tgate.smoothing)
+    fk = (tgate.n_movemean_nonstationary, tgate.n_thresh_nonstationary,
+          tgate.temp_coeff_nonstationary, tgate.prop_decrease, ftt)
+    fm = K.torch_nonstationary_mask(tre, tim, *fk)
+    out["torch_nonstationary_mask_bf16"] = bf16_measure(
+        "torch_nonstationary_mask (bf16)", lambda: K.torch_nonstationary_mask(tre, tim, *fk),
+        lambda: K.torch_nonstationary_mask_ref(tre, tim, *fk),
+        lambda: K.torch_nonstationary_mask(tre32, tim32, *fk), nbytes(tre, tim, fm),
+        cells * (40.0 + 2 * len(ftt)),
+        lambda: mask_abs("torch_nonstationary_mask (bf16)", BOUNDS["torch_nonstationary_mask"],
+                         fm, K.torch_nonstationary_mask_ref(tre, tim, *fk)))
+    fb = K.freq_smooth_blend(fm, np.asarray(ft), 1.0)
+    fb32 = K.freq_smooth_blend(K.torch_nonstationary_mask(tre32, tim32, *fk), np.asarray(ft), 1.0)
+    td, td32 = (tre, tim, fb, tgeo, PADDING, CHUNK), (tre32, tim32, fb32, tgeo, PADDING, CHUNK)
+    ty = K.istft_ola(*td)
+    out["istft_ola_bf16"]["torch_tail"] = bf16_measure(
+        "istft_ola (bf16, torch tail)", lambda: K.istft_ola(*td), lambda: K.istft_ola_ref(*td),
+        lambda: K.istft_ola(*td32), nbytes(tre, tim, fb, ty), ops_d,
+        lambda: check_d(td, ty, "istft_ola (bf16, torch tail)"))
+    del tre, tim, tre32, tim32, fm, fb, fb32, ty, xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_route_phase(x, cfg_for, out) -> None:
+    """A and D's bfloat16 builds on every route, at the FFT_CELLS geometries
+    (60 s each: n_fft 1536 and 1100 at 48 kHz, 1323 and 1102 at 44.1 kHz)
+    and the product route's (n_fft 40 at 8 kHz): one padded view, as
+    ``reduce_noise`` takes a signal no longer than a chunk; against their
+    plain versions on the same bf16 inputs and beside their float32
+    twins. Adds ``routes`` to A's and D's bf16 entries."""
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry
+
+    cells = [(label, sr, kw, route) for label, sr, secs, kw, route, _ in FFT_CELLS
+             if secs == STREAM_SECONDS]
+    cells.append(("product route geometry", PRODUCT_SR, PRODUCT_KW, "product"))
+    out["spectra_bf16"]["routes"], out["istft_ola_bf16"]["routes"] = {}, {}
+    for label, sr, kw, route in cells:
+        xq = x[: STREAM_SECONDS * SR] if sr == SR else headline_signal(STREAM_SECONDS, sr)
+        c = cfg_for(sr, kw)
+        v32 = F.pad(torch.as_tensor(xq).cuda()[None], (PADDING, PADDING)).contiguous()
+        v = v32.to(BF16)
+        geo = gate_geometry(c.stft, v.shape[-1])
+        mask = torch.rand((v.shape[0], geo.n_frames, geo.n_bins), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(SEED))
+        K.reset_launch_counts()
+        re, im = K.spectra(v, geo)
+        y = K.istft_ola(re, im, mask, geo, PADDING, len(xq))
+        routes, dt = K.route_counts(), K.dtype_counts()
+        if any(r[route] != 1 for r in routes.values()) or any(
+                dt[k] != {"float32": 0, "bfloat16": 1} for k in ("spectra", "istft_ola")):
+            fail(f"bf16 {label}: A and D took {routes}, {dt}, not one bf16 launch each on "
+                 f"the {route} route")
+        re32, im32 = K.spectra(v32, geo)
+        tag = f"bf16, {label}, n_fft {kw['n_fft']}, {route} route"
+        ops_a = re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + geo.win)
+
+        def check_a():
+            rre, rim = K.spectra_ref(v, geo)
+            scale = max(float(rre.float().abs().max()), float(rim.float().abs().max()))
+            dev, eq, within = bf16_hold(f"spectra ({tag})", torch.stack([re, im]),
+                                        torch.stack([rre, rim]), BOUNDS["spectra"] * scale)
+            return dict(max_abs_err=dev, share_equal=eq, share_within_one_ulp=within)
+
+        def check_d():
+            ry = K.istft_ola_ref(re, im, mask, geo, PADDING, len(xq))
+            dev, eq, within = bf16_hold(f"istft_ola ({tag})", y, ry,
+                                        BOUNDS["istft_ola"] * float(ry.float().abs().max()))
+            return dict(max_abs_err=dev, share_equal=eq, share_within_one_ulp=within)
+
+        out["spectra_bf16"]["routes"][label] = dict(bf16_measure(
+            f"spectra ({tag})", lambda: K.spectra(v, geo), lambda: K.spectra_ref(v, geo),
+            lambda: K.spectra(v32, geo), nbytes(v, re, im), ops_a, check_a),
+            n_fft=kw["n_fft"], fft_route=route)
+        dd = (re, im, mask, geo, PADDING, len(xq))
+        out["istft_ola_bf16"]["routes"][label] = dict(bf16_measure(
+            f"istft_ola ({tag})", lambda: K.istft_ola(*dd), lambda: K.istft_ola_ref(*dd),
+            lambda: K.istft_ola(re32, im32, mask, geo, PADDING, len(xq)),
+            nbytes(re, im, mask, y),
+            re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
+            check_d), n_fft=kw["n_fft"], fft_route=route)
+        del re, im, re32, im32, mask, y, v, v32
+        torch.cuda.empty_cache()
+
+
+def rel_devs(ref: np.ndarray, got: np.ndarray):
+    """rel max and rel rms of ``got`` against ``ref`` (tests/test_bfloat16_mode.py)."""
+    r, d = ref.astype(np.float64), got.astype(np.float64) - ref
+    return float(np.abs(d).max() / np.abs(r).max()), float(np.sqrt((d**2).mean() / (r**2).mean()))
+
+
+def bf16_path(K, card, launches, label, fn32, fn16, expected, envelope, like, dev32, dev16):
+    """A path in the bf16 mode as a user calls it: launches counted from 0
+    (the bfloat16 builds only, ``run_path``), the output (the input's
+    dtype) within ``envelope`` of the float32 call's, and both timed: wall
+    (numpy in and out, min of 3, CUDA events) and device time, the path's
+    kernels on a signal already on the card (``dev32`` / ``dev16``) with
+    the host's launch work hidden (``queued_ms``)."""
+    out32 = fn32()
+    warned = []
+
+    def quiet16():
+        import warnings
+
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            res = fn16()
+        warned[:] = [str(x.message) for x in w]
+        return res
+
+    out16, launches[label] = run_path(K, label, quiet16, expected, dtype="bfloat16")
+    check_output(label, out16, like)
+    rmax, rrms = rel_devs(out32, out16)
+    lim_max, lim_rms = BF16_ENVELOPES[envelope]
+    ms32, ms16 = time_ms(fn32), time_ms(quiet16)
+    with torch.no_grad():
+        d32, d16 = queued_ms(dev32), queued_ms(dev16)
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    print(f"{label}: against the float32 call rel max {rmax:.3e} (envelope {lim_max:.1e}), "
+          f"rel rms {rrms:.3e} (envelope {lim_rms}); warned: {bool(warned)}; wall bf16 "
+          f"{ms16:.1f} ms, float32 {ms32:.1f} ms; device (the kernels on a card-resident "
+          f"signal) bf16 {fmt(d16)}, float32 {fmt(d32)}; on {card}", flush=True)
+    if rmax > lim_max or (lim_rms is not None and rrms > lim_rms):
+        fail(f"{label}: outside the bf16 envelope of the float32 output")
+    return out16, dict(rel_max=rmax, rel_rms=rrms, wall_ms=ms16, f32_wall_ms=ms32,
+                       device_ms=d16, f32_device_ms=d32)
+
+
+def bf16_h2d_ms(x: np.ndarray, rounds: int = 7) -> dict:
+    """Host wall ms to bring the float32 array ``x`` to the card as bf16,
+    cast on the host before the copy or on the card after it, and of the
+    host cast alone, in interleaved rounds after a warm-up (the pageable
+    H2D's time spreads between runs): (min, median) of each."""
+    ways = {
+        "host_cast": lambda: torch.as_tensor(x).to(BF16).to("cuda"),
+        "card_cast": lambda: torch.as_tensor(x).to("cuda").to(BF16),
+        "cast_alone": lambda: torch.as_tensor(x).to(BF16),
+    }
+    times = {k: [] for k in ways}
+    for r in range(rounds + 1):
+        for k, fn in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if r:  # the first round warms up
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (min(v), float(np.median(v))) for k, v in times.items()}
+
+
+def bf16_phase(nr, K, card, launches, x, noise, results) -> None:
+    """The bf16 mode end to end: the H2D of a bf16 signal cast on the host
+    and on the card, the headline, the stationary headline and the torch
+    headline with ``compute_dtype=torch.bfloat16`` (only bfloat16 builds
+    of A, B or E or F and D launched, C float32; within the envelopes of
+    the float32 output; timed beside it), the grouped headline bitwise the
+    ungrouped one, and ``TPUGate`` at batch 256 of 4 s in bf16."""
+    from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+    from noisereduce_tpu_torch.ops.cuda.dispatch import fused_gate_chunked
+
+    ck = dict(chunk_size=CHUNK, padding=PADDING)
+    b16 = dict(ck, compute_dtype=BF16)
+    h2d = bf16_h2d_ms(x)
+    print(f"bf16 H2D of the {HEADLINE_SECONDS} s signal ({x.nbytes / 1e6:.1f} MB float32), "
+          f"host wall ms, min / median of 7 interleaved rounds: cast on the host then copied "
+          f"{h2d['host_cast'][0]:.2f} / {h2d['host_cast'][1]:.2f}, copied then cast on the "
+          f"card {h2d['card_cast'][0]:.2f} / {h2d['card_cast'][1]:.2f}, the host cast alone "
+          f"{h2d['cast_alone'][0]:.2f} / {h2d['cast_alone'][1]:.2f}; reduce_noise casts on "
+          f"the card; on {card}", flush=True)
+    cfg, scfg = nr.GateConfig(sr=SR), nr.GateConfig(sr=SR, stationary=True)
+    tgate = nr.api.torch_gate_for(SR)
+    y32, n32 = torch.as_tensor(x[None]).cuda(), torch.as_tensor(noise).cuda()
+    y16, n16 = y32.to(BF16), n32.to(BF16)
+
+    def stationary_on_card(y, n):
+        return fused_gate_chunked(y, scfg, CHUNK, PADDING, stationary_noise_threshold(n, scfg))
+
+    paths = {}
+    head16, paths["bf16 headline"] = bf16_path(
+        K, card, launches, "bf16 headline", lambda: nr.reduce_noise(x, SR, **ck),
+        lambda: nr.reduce_noise(x, SR, **b16),
+        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+        "non-stationary", x, lambda: fused_gate_chunked(y32, cfg, CHUNK, PADDING),
+        lambda: fused_gate_chunked(y16, cfg, CHUNK, PADDING))
+    paths["bf16 headline"]["h2d_ms"] = h2d
+    _, paths["bf16 stationary headline"] = bf16_path(
+        K, card, launches, "bf16 stationary headline",
+        lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **ck),
+        lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **b16),
+        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1), "stationary", x,
+        lambda: stationary_on_card(y32, n32), lambda: stationary_on_card(y16, n16))
+    _, paths["bf16 torch headline"] = bf16_path(
+        K, card, launches, "bf16 torch headline",
+        lambda: nr.reduce_noise(x, SR, use_torch=True, **ck),
+        lambda: nr.reduce_noise(x, SR, use_torch=True, **b16),
+        dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+        "use_torch", x, lambda: tgate.chunked(y32, CHUNK, PADDING),
+        lambda: tgate.chunked(y16, CHUNK, PADDING))
+    del y32, n32, y16, n16
+    torch.cuda.empty_cache()
+
+    n_groups = -(-((len(x) - 1) // CHUNK + 1) // GROUP_CHUNKS)
+    grouped, launches["bf16 headline, grouped"] = run_path(
+        K, "bf16 headline, grouped",
+        lambda: nr.reduce_noise(x, SR, max_parallel_chunks=GROUP_CHUNKS, **b16),
+        dict(spectra=n_groups, nonstationary_mask=n_groups, freq_smooth_blend=n_groups,
+             istft_ola=n_groups), dtype="bfloat16")
+    bitwise = np.array_equal(grouped, head16)
+    print(f"bf16 headline grouped, max_parallel_chunks {GROUP_CHUNKS} ({n_groups} groups): "
+          f"bitwise the one-launch bf16 output: {bitwise}", flush=True)
+    if not bitwise:
+        fail("bf16 headline grouped differs from the one-launch output")
+    del grouped, head16
+
+    # TPUGate at batch 256 of 4 s (the training batch), bf16 in and out
+    gate = nr.TPUGate(sr=GRAD_SR, nonstationary=True)
+    n = GRAD_SR * GRAD_SECONDS
+    xg = torch.as_tensor(x[: GRAD_BATCHES[-1] * n].reshape(GRAD_BATCHES[-1], n)).cuda()
+    xg16 = xg.to(BF16)
+    label = f"bf16 TPUGate (batch {GRAD_BATCHES[-1]} x {GRAD_SECONDS} s)"
+    with torch.no_grad():
+        out, launches[label] = run_path(
+            K, label, lambda: gate(xg16),
+            dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+            dtype="bfloat16")
+        ref = gate(xg)
+        if out.dtype != BF16 or not bool(torch.isfinite(out.float()).all()):
+            fail(f"{label}: output {out.dtype}, or not finite")
+        rmax, rrms = rel_devs(ref.cpu().numpy(), out.float().cpu().numpy())
+        ms16, ms32 = time_ms(lambda: gate(xg16)), time_ms(lambda: gate(xg))
+    print(f"{label}: bf16 out, against the float32 call rel max {rmax:.3e} (envelope "
+          f"{BF16_ENVELOPES['use_torch'][0]:.0e}); bf16 {ms16:.3f} ms, float32 {ms32:.3f} ms, "
+          f"on {card}", flush=True)
+    if rmax > BF16_ENVELOPES["use_torch"][0]:
+        fail(f"{label}: outside the use_torch envelope of the float32 output")
+    paths[label] = dict(rel_max=rmax, rel_rms=rrms, ms=ms16, f32_ms=ms32)
+    del xg, xg16, out, ref
+    torch.cuda.empty_cache()
+    results["bf16_paths"] = paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one CUDA card")
@@ -1783,6 +2230,7 @@ def main() -> None:
     tgate = nr.api.torch_gate_for(SR)  # the gate of reduce_noise(x, SR, use_torch=True)
     tsgate = nr.api.torch_gate_for(SR, stationary=True)
     torch_kernel_phase(x_cuda, noise_cuda, tgate, results)
+    results.update(bf16_kernel_phase(x_cuda, noise_cuda, cfg, scfg, tgate))
     del x_cuda
     torch.cuda.empty_cache()
 
@@ -2068,6 +2516,9 @@ def main() -> None:
         results[f"{name}_product"] = dict(got[name], fft_route="product")
     del xp
 
+    bf16_route_phase(x, lambda sr, kw: nr.GateConfig(sr=sr, **kw), results)
+    bf16_phase(nr, K, card, launches, x, noise, results)
+
     streaming_phase(nr, K, card, launches, x)
     gradient_phase(nr, K, card, launches)
 
@@ -2082,22 +2533,30 @@ def main() -> None:
             main_path[f"spectra_{entry}"] = main_path[f"istft_ola_{entry}"] = label
     for name in ("spectra", "istft_ola"):
         results[name]["fft_route"] = "fft"
+    for name, (kernel, path) in BF16_ENTRIES.items():
+        main_path[name] = path
+    bf16_paths = results.pop("bf16_paths")
 
     def count(name, path):
+        if name in BF16_ENTRIES:  # the bfloat16 build's launches
+            return DTYPES[path][BF16_ENTRIES[name][0]]["bfloat16"]
         if name in ROUTED:
             kernel, route = ROUTED[name]
             return ROUTES[path][kernel][route]
-        return launches[path][name]
+        return DTYPES[path][name]["float32"]
 
-    kernels = [
-        dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+    def entry(name):
+        base = BF16_ENTRIES[name][0] if name in BF16_ENTRIES else name
+        extra = dict(plane_dtype="bfloat16", path=bf16_paths[main_path[name]]) if (
+            name in BF16_ENTRIES) else {}
+        return dict(
+            name=name, route="cuda", source=SOURCES[base], replaces=REPLACES[base],
             launches=count(name, main_path[name]),
             launches_by_path={p: count(name, p) for p in launches},
-            **results[name],
+            **results[name], **extra,
         )
-        for name in SOURCES
-    ]
+
+    kernels = [entry(name) for name in (*SOURCES, *BF16_ENTRIES)]
     print(f"all phases in {time.perf_counter() - t_start:.0f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -8,9 +8,16 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
   Where CUDA is absent, ``device="cuda"`` raises; it does not fall back to
   the CPU. ``device="cpu"`` runs the kernels' plain versions (the parity
   mode).
-- ``compute_dtype`` defaults to ``torch.float32``, the only type the
-  kernels take; ``torch.float64`` runs the kernels' plain versions on the
-  CPU and the staged twins on the card (no kernel launches).
+- ``compute_dtype`` defaults to ``torch.float32``. ``torch.bfloat16`` is
+  the opt-in fast mode of the JAX package: the signal, the spectrogram
+  planes and the output are bfloat16, the mask decisions and the
+  stationary threshold float32, on the card through the kernels' bfloat16
+  builds (A reads the bf16 signal and stores bf16 planes, B, E or F read
+  them, D stores a bf16 output); the result has the input's dtype, within
+  ~1.2e-2 rms of the float32 result non-stationary and ~1e-1 stationary,
+  where a ``UserWarning`` says so (``tests/test_torch_bf16.py``).
+  ``torch.float64`` runs the kernels' plain versions on the CPU and the
+  staged twins on the card (no kernel launches).
 - The JAX signature's tail is taken: ``method`` (accepted and unused: the
   kernels' route comes from the STFT geometry, ``geometry.fft_route``),
   ``mesh`` (anything but None raises ``NotImplementedError``: a later
@@ -21,15 +28,16 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
   ``max_parallel_chunks`` is 0) for a signal longer than ``chunk_size``,
   as the JAX package's ``_run_chunked_with_progress`` does; it needs
   ``tqdm`` installed. Grouping does not change the output.
-- A bf16 ``compute_dtype`` raises ``NotImplementedError``: a later slice
-  of the port (ROADMAP.md, Queue 1). ``tmp_folder`` and ``n_jobs`` are
-  accepted for compatibility (chunk fan-out is the kernels' batch axis,
-  not a process pool), except that ``use_torch=True`` with ``n_jobs != 1``
-  raises the reference's ``ValueError``.
+- Another ``compute_dtype`` (float16) raises ``NotImplementedError``.
+  ``tmp_folder`` and ``n_jobs`` are accepted for compatibility (chunk
+  fan-out is the kernels' batch axis, not a process pool), except that
+  ``use_torch=True`` with ``n_jobs != 1`` raises the reference's
+  ``ValueError``.
 """
 from __future__ import annotations
 
 import inspect
+import warnings
 
 import numpy as np
 import torch
@@ -49,7 +57,7 @@ from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
 __all__ = ["reduce_noise", "reduce_noise_batch"]
 
-_LATER = "is a later slice of the PyTorch port (ROADMAP.md, Queue 1)"
+COMPUTE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 MESH_LATER = ("mesh: the sharded path is a later slice of the PyTorch port "
               "(ROADMAP.md, Queue 1 item 7); pass mesh=None")
 
@@ -165,7 +173,11 @@ def _finalize_reduce_output(out: torch.Tensor, out_dtype, flat: bool) -> np.ndar
 
     A card's output lands in pinned host memory, which the returned array
     keeps: a pageable D2H, or a second host copy, each cost more than the
-    kernels together at the headline size (PERF.md, section 6)."""
+    kernels together at the headline size (PERF.md, section 6). A bfloat16
+    output (numpy has no such type) is widened to float32 first, where it
+    is."""
+    if out.dtype == torch.bfloat16:
+        out = out.float()
     if out.device.type != "cpu":
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out)
@@ -226,8 +238,11 @@ def reduce_noise(
         hop to win // 4)
     clip_noise_stationary : clip the noise clip to chunk_size samples
     device : torch device to run on (default "cuda"; raises if absent)
-    compute_dtype : torch.float32 (default) or torch.float64 (on the card
-        through the staged twins, launching no kernel)
+    compute_dtype : torch.float32 (default), torch.bfloat16 (the fast mode:
+        bf16 signal, planes and output, the mask decisions in float32;
+        stationary=True warns, its binary mask flips near-threshold bins)
+        or torch.float64 (on the card through the staged twins, launching
+        no kernel)
     use_torch : the TorchGate engine (torch STFT conventions, a
         moving-average floor and temperature sigmoid, or noise statistics
         with top_db 40 and ddof 1; chunked, the noise clip cut to the
@@ -290,10 +305,17 @@ def _reduce_noise_deferred(
     smoothing_kernel_sizes(sr, n_fft, hop, freq_mask_smooth_hz, time_mask_smooth_ms)
 
     cdtype = torch.float32 if compute_dtype is None else compute_dtype
-    if cdtype not in (torch.float32, torch.float64):
+    if cdtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"compute_dtype={cdtype}: float32 and float64 only; the bf16 "
-            f"mode {_LATER}"
+            f"compute_dtype={cdtype}: float32, float64 and bfloat16 only")
+    if stationary and cdtype == torch.bfloat16:
+        # bf16 spectra flip the binary mask's threshold-adjacent bins
+        # (tests/test_torch_bf16.py); the JAX package's words, api.py:472-484
+        warnings.warn(
+            "compute_dtype=bfloat16 with stationary=True: the binary threshold mask "
+            "amplifies bf16 rounding (pinned envelope ~1.5e-1 of peak vs f32). Use "
+            "float32, or stationary=False for bf16 fast mode.",
+            stacklevel=3,
         )
     dev = _resolve_device(device)
 
@@ -366,9 +388,16 @@ def _reduce_noise_deferred(
 def _to_tensor(a, dev: torch.device, dtype) -> torch.Tensor:
     """An array, or a list of equal-length 1-D rows, on ``dev`` in ``dtype``.
     Rows go to the device one by one into one (rows, n) tensor: stacking
-    them on the host first would cost a host copy of the whole block."""
+    them on the host first would cost a host copy of the whole block. A
+    bfloat16 array crosses in its own dtype and is cast on the device, as
+    the rows are: the host's cast of a long signal costs about what the
+    halved copy saves (``chip_smoke.py`` times both; PERF.md, section
+    6)."""
     if not isinstance(a, list):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if dtype == torch.bfloat16:
+            return t.to(dev).to(dtype)
+        return t.to(device=dev, dtype=dtype)
     rows = [torch.from_numpy(np.ascontiguousarray(r)) for r in a]
     out = torch.empty((len(rows), rows[0].shape[-1]), dtype=rows[0].dtype, device=dev)
     for i, r in enumerate(rows):

@@ -3,7 +3,7 @@
 
 ``gate_nonstationary`` and ``gate_stationary`` run the fused kernels
 (A-D, or A, E, C, D) whenever they serve the geometry and the dtype (on
-the CPU their plain versions; on the card float32 only,
+the CPU their plain versions; on the card float32 or bfloat16,
 ``dispatch.kernels_take``). Otherwise they take the staged pipelines, which
 are also the numerical oracles of the fused paths and their backward passes:
 ``_gate_nonstationary_staged`` (the twin of ``_gate_nonstationary_jnp``,
@@ -23,6 +23,12 @@ the threshold compare has none.
 Per-path quirk parity (SURVEY.md §5 quirk 3): the stationary path applies
 prop_decrease BEFORE smoothing (stationary.py:108-114), the non-stationary
 path AFTER it (nonstationary.py:78-84).
+
+bfloat16 (the bf16 mode) runs on every path: the kernels take bf16
+signals and planes (on the card too, ``kernels_take``); the staged paths
+keep the spectrogram and the output in bfloat16 and make the mask
+decisions in float32 (``dsp.mask_dtype``, the JAX package's
+``_mask_dtype``, ``spectral_gate.py:73``), the threshold float32 too.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from noisereduce_tpu_torch.ops.dsp import (
     noise_db_threshold,
     sigmoid,
     smooth_mask,
+    to_mask_dtype,
 )
 from noisereduce_tpu_torch.ops.stft import istft, stft
 
@@ -57,8 +64,10 @@ __all__ = [
 def _apply_mask_and_invert(Z, mask, cfg: GateConfig, n_samples: int):
     """mask * STFT -> iSTFT, zero filled (or cut) to the input length; the
     reference writes the shorter istft into a zeros buffer of the chunk's
-    shape (nonstationary.py:49,95)."""
+    shape (nonstationary.py:49,95). The mask is cast to the spectra's dtype
+    first (``spectral_gate.py:133``)."""
     re, im = Z
+    mask = mask.to(re.dtype)
     y = istft((re * mask, im * mask), cfg.stft)
     out_len = y.shape[-1]
     if out_len < n_samples:
@@ -71,7 +80,7 @@ def stationary_noise_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.
     std over frames of the noise dB spectrogram (stationary.py:67-81; ddof
     0). The spectra come from kernel A where it serves the geometry and the
     dtype (``fused_stationary_threshold``), else from the staged STFT. Returns
-    (..., bins)."""
+    (..., bins), float32 for a bfloat16 clip."""
     if fused_gate_supported(cfg, y_noise):
         return fused_stationary_threshold(y_noise, cfg)
     re, im = stft(y_noise, cfg.stft)
@@ -109,7 +118,8 @@ def _gate_stationary_staged(
     """Staged pipeline in plain torch, time-major (..., frames, bins)."""
     n_samples = chunk.shape[-1]
     re, im = stft(chunk, cfg.stft)
-    z_db = amp_to_db(torch.sqrt(re * re + im * im), top_db=80.0, axis=-2)
+    r, i = to_mask_dtype(re, im)
+    z_db = amp_to_db(torch.sqrt(r * r + i * i), top_db=80.0, axis=-2)
     thresh = _align_thresh(noise_thresh.to(z_db.dtype), z_db.ndim)
     mask = (z_db > thresh).to(z_db.dtype)
     # prop_decrease blend FIRST (stationary-path order)
@@ -146,7 +156,8 @@ def _gate_nonstationary_staged(
             cfg.sigmoid_slope_nonstationary,
         )
     else:
-        mag = torch.sqrt(re * re + im * im)
+        r, i = to_mask_dtype(re, im)
+        mag = torch.sqrt(r * r + i * i)
         # time-smoothed noise floor: zero-phase first-order IIR per frequency
         floor = ewma_filtfilt(mag, cfg.iir_b, axis=-2)
         ratio = (mag - floor) / floor

@@ -18,6 +18,10 @@ ddof 1, the moving-average floor, ``temperature_sigmoid``, the prop_decrease
 blend BEFORE the smoothing (torchgate.py:241-249), and torch.istft's natural
 output length (T-1)*hop.
 
+A bfloat16 input (the bf16 mode) returns bfloat16: the kernels read and
+write bf16 planes; ``_call_staged`` keeps the spectrogram in bfloat16 and
+makes the mask decisions in float32 (``tpu_gate.py:263-265``).
+
 The module is differentiable with respect to ``x`` and ``xn``, on the card
 and on the CPU, in ``forward``, ``batched_chunks`` and ``chunked``: the
 value under grad is the kernels' output, bitwise the serving value, and the
@@ -44,6 +48,7 @@ from noisereduce_tpu_torch.ops.dsp import (
     moving_average_same,
     smooth_mask_2d_torchgate,
     temperature_sigmoid,
+    to_mask_dtype,
 )
 from noisereduce_tpu_torch.ops.stft import istft, stft
 from noisereduce_tpu_torch.parallel.chunking import process_chunked
@@ -226,7 +231,9 @@ class TPUGate(torch.nn.Module):
         twin whose cotangent the gate's backward pass takes."""
         scfg = self.stft_config
         re, im = stft(x, scfg)
-        mag = torch.sqrt(re * re + im * im)
+        # bf16: the spectrogram stays bf16, the decisions run in float32
+        r, i = to_mask_dtype(re, im)
+        mag = torch.sqrt(r * r + i * i)
         if self.nonstationary:
             mask = nonstationary_mask_torch(
                 mag, self.n_movemean_nonstationary, self.n_thresh_nonstationary,
@@ -235,7 +242,7 @@ class TPUGate(torch.nn.Module):
         else:
             XN_db = None
             if xn is not None:
-                rn, in_ = stft(xn if xn.ndim == 2 else xn[None], scfg)
+                rn, in_ = to_mask_dtype(*stft(xn if xn.ndim == 2 else xn[None], scfg))
                 XN_db = amp_to_db(torch.sqrt(rn * rn + in_ * in_), top_db=40.0, axis=-2)
             mask = stationary_mask_torch(
                 amp_to_db(mag, top_db=40.0, axis=-2), XN_db,
@@ -245,5 +252,6 @@ class TPUGate(torch.nn.Module):
         mask = self.prop_decrease * (mask - 1.0) + 1.0
         if self.smoothing is not None:
             mask = smooth_mask_2d_torchgate(mask, *self.smoothing, time_major=True)
+        mask = mask.to(re.dtype)
         return istft((re * mask, im * mask), scfg)
 

@@ -39,46 +39,47 @@ _f = ctypes.c_float
 _d = ctypes.c_double
 _dp = ctypes.POINTER(ctypes.c_double)
 
-# C signatures of the entries (csrc/*.cu); pointers and the stream as void*
+# C signatures of the entries (csrc/*.cu); pointers and the stream as void*;
+# the entries of A, B, D, E and F take the planes' type first (csrc/planes.cuh)
 _SIGNATURES = {
     "nr_spectra": [
-        _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _vp, _i, _i, _vp,
+        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _vp, _i, _i, _vp,
         _vp, _vp,
     ],
     "nr_nonstationary_mask": [
-        _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _dp, _f, _f,
+        _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _dp, _f, _f,
         _i, _vp,
     ],
     "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _i, _ll, _i, _i, _f, _vp],
     "nr_stationary_mask": [
-        _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+        _i, _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
         _i, _i, _f, _f, _f, _f, _f, _d, _i, _vp,
     ],
     "nr_istft_ola": [
-        _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
+        _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
         _ll, _ll, _f, _vp, _vp,
     ],
     "nr_torch_nonstationary_mask": [
-        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
+        _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
         _i, _i, _f, _f, _f, _f, _i, _vp,
     ],
     "nr_fm_nonstationary_mask": [
         _vp, _i, _vp, _vp, _ll, _i, _i, _i, _i, _i, _dp, _f, _f, _i, _vp,
     ],
     "nr_spectra_fft": [
-        _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
+        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp,
         _vp, _vp, _vp, _vp,
     ],
     "nr_istft_fft": [
-        _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll,
+        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll,
         _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp,
     ],
     "nr_spectra_cplx": [
-        _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
         _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
     ],
     "nr_istft_cplx": [
-        _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
+        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
         _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
     ],
 }

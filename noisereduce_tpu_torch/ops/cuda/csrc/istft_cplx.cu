@@ -32,16 +32,18 @@
 // the first n points times c_j, from the same host tables as kernel A
 // (conjugated here). post carries 1/n either way.
 //
-// Bound on this card: bytes, as istft_fft.cu. Design: as istft_fft.cu; a
+// Bound on this card: bytes, as istft_fft.cu, and its bf16 build as
+// istft_fft.cu's. Design: as istft_fft.cu; a
 // slot past 4096 points takes a big block of 1024 threads and 8192 points
 // (fft_smem.cuh::Blk), one slot a group.
 #include "fft_smem.cuh"
+#include "planes.cuh"
 
 namespace {
 
-template <int ODD, bool PAIRED, bool CHIRP, bool BIG>
+template <int ODD, bool PAIRED, bool CHIRP, bool BIG, class P>  // P: the plane type
 __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, BIG))
-    istft_cplx_kernel(const float* __restrict__ re, const float* __restrict__ im,
+    istft_cplx_kernel(const P* __restrict__ re, const P* __restrict__ im,
                       const float* __restrict__ mask, int n_frames, int n_bins, int n,
                       int hop, int r, int bpad, int j0, int n_out, int run, int n_runs,
                       long long out_off, long long out_len, long long istft_len,
@@ -49,7 +51,7 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
                       const float* __restrict__ wsq, const float* __restrict__ env_int,
                       const float2* __restrict__ tw, const float2* __restrict__ tws,
                       const float2* __restrict__ chirp, const float2* __restrict__ filt,
-                      float* __restrict__ out, const nrf::Plan<ODD != 1> plan,
+                      P* __restrict__ out, const nrf::Plan<ODD != 1> plan,
                       const nrf::Div<true> dh, const nrf::Div<true> dnb) {
   using B = nrf::Blk<BIG>;
   constexpr int FPS = PAIRED ? 2 : 1;  // frames a slot holds
@@ -87,11 +89,13 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
         const int k = e - sl * n_bins;
         const long long oa = o0 + (long long)(FPS - 1) * sl * n_bins + e;
         const float ma = __ldg(mask + oa);
-        const float2 ya = make_float2(__ldg(re + oa) * ma, k ? __ldg(im + oa) * ma : 0.f);
+        const float2 ya =
+            make_float2(planes::ld(re + oa) * ma, k ? planes::ld(im + oa) * ma : 0.f);
         float2 yb = make_float2(0.f, 0.f);
         if (tg + FPS * (sg.f0 + sl) + 1 < n_frames) {
           const float mb = __ldg(mask + oa + n_bins);
-          yb = make_float2(__ldg(re + oa + n_bins) * mb, k ? __ldg(im + oa + n_bins) * mb : 0.f);
+          yb = make_float2(planes::ld(re + oa + n_bins) * mb,
+                           k ? planes::ld(im + oa + n_bins) * mb : 0.f);
         }
         const int base = first + sl * T;
         float2 w = make_float2(ya.x - yb.y, ya.y + yb.x);
@@ -109,8 +113,8 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
         const int sl = dnb.div(e);
         const int k = e - sl * n_bins;
         const float mk = __ldg(mask + o0 + e);
-        const float2 y = make_float2(__ldg(re + o0 + e) * mk,
-                                     (k == 0 || k == n) ? 0.f : __ldg(im + o0 + e) * mk);
+        const float2 y = make_float2(planes::ld(re + o0 + e) * mk,
+                                     (k == 0 || k == n) ? 0.f : planes::ld(im + o0 + e) * mk);
         if (k < n)
           z[nrf::pad(first + sl * T + k)] = y;
         else
@@ -216,27 +220,28 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
       }
       y = acc[l] / (env > env_floor ? env : 1.f);
     }
-    out[(long long)b * out_len + o] = y;
+    planes::st(out + (long long)b * out_len + o, y);
   }
 }
 
 }  // namespace
 
-// re/im/mask: (rows, n_frames, n_bins) f32; post, wsq: (r * hop,) f32;
-// env_int: (hop,) f32; tw: (2 slot,) complex f32, the core's table; tws:
-// (n_fft,) complex f32, the unsplit's (even n_fft); chirp: (n,) complex f32
-// and filt: (slot,) complex f32 on the chirp route, else null; out: (rows,
-// out_len) f32. slot as nr_spectra_cplx takes it, seg_warps a segment of
-// warps that holds a slot, and run * hop at most 8192. Returns
+// plane: the type of re, im and out (planes.cuh: 0 float32, 1 bfloat16);
+// re/im: (rows, n_frames, n_bins); mask: the same, f32; post, wsq: (r *
+// hop,) f32; env_int: (hop,) f32; tw: (2 slot,) complex f32, the core's
+// table; tws: (n_fft,) complex f32, the unsplit's (even n_fft); chirp: (n,)
+// complex f32 and filt: (slot,) complex f32 on the chirp route, else null;
+// out: (rows, out_len). slot as nr_spectra_cplx takes it, seg_warps a
+// segment of warps that holds a slot, and run * hop at most 8192. Returns
 // cudaGetLastError() after the launch.
-extern "C" int nr_istft_cplx(const float* re, const float* im, const float* mask,
+extern "C" int nr_istft_cplx(int plane, const void* re, const void* im, const float* mask,
                              int rows, int n_frames, int n_bins, int n_fft, int slot,
                              int seg_warps, int hop, int r, int bpad, int j0,
                              int n_out, int run, long long out_off, long long out_len,
                              long long istft_len, float env_floor,
                              const float* post, const float* wsq,
                              const float* env_int, const float* tw, const float* tws,
-                             const float* chirp, const float* filt, float* out,
+                             const float* chirp, const float* filt, void* out,
                              void* stream) {
   const int n = nrf::fft_n(n_fft);
   const bool paired = n_fft % 2, big = slot > nrf::ELEMS;
@@ -247,24 +252,29 @@ extern "C" int nr_istft_cplx(const float* re, const float* im, const float* mask
     return (int)cudaErrorInvalidValue;
   if (rows <= 0 || n_out <= 0) return (int)cudaGetLastError();
   const int n_runs = (n_out + run - 1) / run;
-  return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg) {
-    constexpr int ODD = decltype(odd)::value;
-    constexpr bool BIG = decltype(bg)::value;
-    using Bk = nrf::Blk<BIG>;
-    const size_t smem =
-        sizeof(float2) * (Bk::PADDED + S) + sizeof(float) * (size_t)run * hop;
-    const auto kernel = istft_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)((long long)rows * n_runs), Bk::THREADS, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        re, im, mask, n_frames, n_bins, n, hop, r, bpad, j0, n_out, run, n_runs, out_off,
-        out_len, istft_len, env_floor, post, wsq, env_int,
-        reinterpret_cast<const float2*>(tw), reinterpret_cast<const float2*>(tws),
-        reinterpret_cast<const float2*>(chirp), reinterpret_cast<const float2*>(filt), out,
-        nrf::make_plan<ODD != 1>(slot, seg_warps, Bk::WARPS),
-        nrf::Div<true>(paired ? n_bins : (n + 1) / 2), nrf::Div<true>(n_bins));
-    return (int)cudaGetLastError();
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg) {
+      constexpr int ODD = decltype(odd)::value;
+      constexpr bool BIG = decltype(bg)::value;
+      using Bk = nrf::Blk<BIG>;
+      const size_t smem =
+          sizeof(float2) * (Bk::PADDED + S) + sizeof(float) * (size_t)run * hop;
+      const auto kernel =
+          istft_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG, T>;
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(unsigned)((long long)rows * n_runs), Bk::THREADS, smem,
+               static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(re), static_cast<const T*>(im), mask, n_frames, n_bins, n,
+          hop, r, bpad, j0, n_out, run, n_runs, out_off, out_len, istft_len, env_floor,
+          post, wsq, env_int, reinterpret_cast<const float2*>(tw),
+          reinterpret_cast<const float2*>(tws), reinterpret_cast<const float2*>(chirp),
+          reinterpret_cast<const float2*>(filt), static_cast<T*>(out),
+          nrf::make_plan<ODD != 1>(slot, seg_warps, Bk::WARPS),
+          nrf::Div<true>(paired ? n_bins : (n + 1) / 2), nrf::Div<true>(n_bins));
+      return (int)cudaGetLastError();
+    });
   });
 }

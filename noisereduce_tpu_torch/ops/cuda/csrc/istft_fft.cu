@@ -19,7 +19,9 @@
 // istft length.
 //
 // Bound on this card: bytes. re, im and the mask read once and the output
-// written once (1.22 + 0.185 GB at the 960 s headline: 0.42 ms at 3.35 TB/s).
+// written once (1.22 + 0.185 GB at the 960 s headline: 0.42 ms at 3.35 TB/s;
+// the bf16 build, planes.cuh, reads bf16 re/im and the float32 mask and
+// stores a bf16 output, the arithmetic in float32: 0.81 + 0.09 GB, 0.27 ms).
 // Design: one block per run of `run` consecutive output hop blocks of one
 // row (run * hop <= 8192 floats; 32 at hop 256). The block inverts the
 // frames that cover its run, the run plus r - 1 halo frames (9% recomputed
@@ -45,12 +47,13 @@
 // summed in the table's order: float32 for torch, as torch.istft sums it)
 // and writes the run's samples once, coalesced.
 #include "fft_smem.cuh"
+#include "planes.cuh"
 
 namespace {
 
-template <int ODD>  // fft_smem.cuh::odd_primes of M
+template <int ODD, class T>  // fft_smem.cuh::odd_primes of M; the plane type
 __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
-    istft_fft_kernel(const float* __restrict__ re, const float* __restrict__ im,
+    istft_fft_kernel(const T* __restrict__ re, const T* __restrict__ im,
                      const float* __restrict__ mask, int n_frames, int n_bins,
                      int hop, int r, int bpad, int j0,
                      int n_out, int run, int n_runs, long long out_off,
@@ -58,7 +61,7 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
                      const float* __restrict__ post,
                      const float* __restrict__ wsq,
                      const float* __restrict__ env_int,
-                     const float2* __restrict__ tw, float* __restrict__ out,
+                     const float2* __restrict__ tw, T* __restrict__ out,
                      const nrf::Plan<ODD != 1> plan) {
   extern __shared__ __align__(16) float2 smem2[];
   const int m = plan.m.d;
@@ -90,8 +93,8 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
       const int k = e - fl * n_bins;
       const int f = sg.f0 + fl;
       const float mk = __ldg(mask + o0 + e);
-      const float2 y = make_float2(__ldg(re + o0 + e) * mk,
-                                   (k == 0 || k == m) ? 0.f : __ldg(im + o0 + e) * mk);
+      const float2 y = make_float2(planes::ld(re + o0 + e) * mk,
+                                   (k == 0 || k == m) ? 0.f : planes::ld(im + o0 + e) * mk);
       if (k < m)
         z[nrf::pad(f * m + k)] = y;
       else
@@ -169,24 +172,25 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
       }
       y = acc[l] / (env > env_floor ? env : 1.f);
     }
-    out[(long long)b * out_len + o] = y;
+    planes::st(out + (long long)b * out_len + o, y);
   }
 }
 
 }  // namespace
 
-// re/im/mask: (rows, n_frames, n_bins) f32; post, wsq: (r * hop,) f32;
-// env_int: (hop,) f32; tw: (n_fft,) complex f32; out: (rows, out_len) f32.
-// n_fft must be one fft_smem.cuh serves, seg_warps a segment of warps that
-// holds a frame, and run * hop at most 8192. Returns cudaGetLastError()
-// after the launch.
-extern "C" int nr_istft_fft(const float* re, const float* im, const float* mask,
+// plane: the type of re, im and out (planes.cuh: 0 float32, 1 bfloat16);
+// re/im: (rows, n_frames, n_bins); mask: the same, f32; post, wsq: (r *
+// hop,) f32; env_int: (hop,) f32; tw: (n_fft,) complex f32; out: (rows,
+// out_len). n_fft must be one fft_smem.cuh serves, seg_warps a segment of
+// warps that holds a frame, and run * hop at most 8192. Returns
+// cudaGetLastError() after the launch.
+extern "C" int nr_istft_fft(int plane, const void* re, const void* im, const float* mask,
                             int rows, int n_frames, int n_bins, int n_fft,
                             int seg_warps, int hop, int r, int bpad, int j0,
                             int n_out, int run, long long out_off, long long out_len,
                             long long istft_len, float env_floor,
                             const float* post, const float* wsq,
-                            const float* env_int, const float* tw, float* out,
+                            const float* env_int, const float* tw, void* out,
                             void* stream) {
   const int m = n_fft / 2;
   const int G = nrf::fft_block_frames(seg_warps, m);
@@ -196,17 +200,21 @@ extern "C" int nr_istft_fft(const float* re, const float* im, const float* mask,
   const int n_runs = (n_out + run - 1) / run;
   const size_t smem =
       sizeof(float2) * (nrf::PADDED + G) + sizeof(float) * (size_t)run * hop;
-  return nrf::with_odd_primes(m, [&](auto odd) {
-    constexpr int ODD = decltype(odd)::value;
-    const auto kernel = istft_fft_kernel<ODD>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)((long long)rows * n_runs), nrf::THREADS, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        re, im, mask, n_frames, n_bins, hop, r, bpad, j0, n_out, run, n_runs,
-        out_off, out_len, istft_len, env_floor, post, wsq, env_int,
-        reinterpret_cast<const float2*>(tw), out, nrf::make_plan<ODD != 1>(m, seg_warps));
-    return (int)cudaGetLastError();
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return nrf::with_odd_primes(m, [&](auto odd) {
+      constexpr int ODD = decltype(odd)::value;
+      const auto kernel = istft_fft_kernel<ODD, T>;
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<(unsigned)((long long)rows * n_runs), nrf::THREADS, smem,
+               static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(re), static_cast<const T*>(im), mask, n_frames, n_bins, hop,
+          r, bpad, j0, n_out, run, n_runs, out_off, out_len, istft_len, env_floor, post,
+          wsq, env_int, reinterpret_cast<const float2*>(tw), static_cast<T*>(out),
+          nrf::make_plan<ODD != 1>(m, seg_warps));
+      return (int)cudaGetLastError();
+    });
   });
 }

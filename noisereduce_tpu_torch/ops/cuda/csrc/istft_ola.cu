@@ -19,7 +19,9 @@
 // it, torch does not), bpad, the length and the floor.
 //
 // Bound on this card: FP32 FMAs, r * 2 * n_bins * hop per output hop block
-// (0.38 TFLOP at the 960 s headline shape, about kernel A's 0.42). Design: the
+// (0.38 TFLOP at the 960 s headline shape, about kernel A's 0.42; its bf16
+// build widens re/im as they land in shared memory and rounds the output
+// as it stores it, planes.cuh). Design: the
 // gather form of the OLA as one implicit product per output hop block,
 // out_block[j] (hop) = [Y_j, Y_{j-1}, ..., Y_{j-r+1}] (r * 2 n_bins)
 //                      @ table (r * 2 n_bins x hop),
@@ -28,12 +30,14 @@
 // into the table. Every output sample is owned by exactly one thread: no
 // atomics, so the output is the same from run to run.
 #include "gemm_tile.cuh"
+#include "planes.cuh"
 
 namespace {
 
+template <class T>  // the planes' type (planes.cuh), widened as they land in shared memory
 struct IstftLoader {
-  const float* re;
-  const float* im;
+  const T* re;
+  const T* im;
   const float* mask;
   int n_frames;
   int n_bins;
@@ -67,12 +71,13 @@ struct IstftLoader {
     if (!r.valid || t < 0 || t >= n_frames || kf >= 2 * n_bins) return 0.f;
     const bool imag = kf >= n_bins;
     const long long o = r.base + (long long)t * n_bins + (imag ? kf - n_bins : kf);
-    return __ldg((imag ? im : re) + o) * __ldg(mask + o);
+    return planes::ld((imag ? im : re) + o) * __ldg(mask + o);
   }
 };
 
+template <class T>  // the output's type (planes.cuh), rounded to on store
 struct IstftEpilogue {
-  float* out;
+  T* out;
   const float* win;
   int n_frames;
   int hop;
@@ -105,12 +110,13 @@ struct IstftEpilogue {
       }
       y = v / (env > env_floor ? env : 1.f);
     }
-    out[(long long)b * out_len + o] = y;
+    planes::st(out + (long long)b * out_len + o, y);
   }
 };
 
+template <class T>
 __global__ void __launch_bounds__(nrt::THREADS)
-    istft_ola_kernel(IstftLoader ld, IstftEpilogue epi,
+    istft_ola_kernel(IstftLoader<T> ld, IstftEpilogue<T> epi,
                      const float* __restrict__ tab, int ldb, int k_d,
                      int n_tiles_n) {
   const int nt = blockIdx.x % n_tiles_n;
@@ -120,27 +126,32 @@ __global__ void __launch_bounds__(nrt::THREADS)
 
 }  // namespace
 
-// re/im/mask: (rows, n_frames, n_bins) f32; win: (r * hop,) f32;
-// tab: (r * f2, ldb) f32; out: (rows, out_len) f32.
-// Returns cudaGetLastError() after the launch.
-extern "C" int nr_istft_ola(const float* re, const float* im,
+// plane: the type of re, im and out (planes.cuh: 0 float32, 1 bfloat16);
+// re/im: (rows, n_frames, n_bins); mask: the same, f32; win: (r * hop,)
+// f32; tab: (r * f2, ldb) f32; out: (rows, out_len). Returns
+// cudaGetLastError() after the launch.
+extern "C" int nr_istft_ola(int plane, const void* re, const void* im,
                             const float* mask, const float* win,
                             const float* tab, int ldb, int f2, int rows,
                             int n_frames, int n_bins, int hop, int r, int bpad,
                             int j0, int n_out, long long out_off,
                             long long out_len, long long istft_len,
-                            float env_floor, float* out, void* stream) {
+                            float env_floor, void* out, void* stream) {
   const int M = rows * n_out;
-  IstftLoader ld{re, im, mask, n_frames, n_bins, f2, n_out, j0, M};
-  IstftEpilogue epi{out,     win,       n_frames,  hop, r,
-                    bpad,    n_out,     j0,        out_off, out_len,
-                    istft_len, env_floor, M};
   const int n_tiles_n = ldb / nrt::BN;
   const int n_tiles_m = (M + nrt::BM - 1) / nrt::BM;
   const long long blocks = (long long)n_tiles_m * n_tiles_n;
   if (M <= 0) return (int)cudaGetLastError();
-  istft_ola_kernel<<<(unsigned)blocks, nrt::THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(ld, epi, tab, ldb,
-                                                          r * f2, n_tiles_n);
-  return (int)cudaGetLastError();
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    IstftLoader<T> ld{static_cast<const T*>(re), static_cast<const T*>(im), mask, n_frames,
+                      n_bins, f2, n_out, j0, M};
+    IstftEpilogue<T> epi{static_cast<T*>(out), win,     n_frames,  hop,       r,
+                         bpad,                 n_out,   j0,        out_off,   out_len,
+                         istft_len,            env_floor, M};
+    istft_ola_kernel<T><<<(unsigned)blocks, nrt::THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(ld, epi, tab, ldb, r * f2,
+                                                               n_tiles_n);
+    return (int)cudaGetLastError();
+  });
 }

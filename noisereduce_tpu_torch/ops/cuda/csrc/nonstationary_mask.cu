@@ -20,7 +20,9 @@
 //
 // Bound on this card: bytes. A handful of FLOPs per element; the function
 // reads re and im once and writes the mask once (12 B a cell, 1.22 GB at the
-// 960 s headline shape). Design (time_tiles.cuh): the time axis of each
+// 960 s headline shape; 8 B a cell, 0.81 GB, from bf16 re/im in the bf16
+// build, whose loads widen them, planes.cuh). Design (time_tiles.cuh): the
+// time axis of each
 // column is cut into segments of a thread each, so the whole plane's loads
 // are in flight at once, not one frame of 40,000 columns. The recurrences
 // are linear, so segments combine as in the TPU kernel's blockwise carry
@@ -72,9 +74,10 @@ struct Ewma {
   double a, b, apf1, aL, r0L, rpL, apL, aN, r0N, rpN, apN;
 };
 
+template <class T>  // the planes' type (planes.cuh)
 __global__ void __launch_bounds__(PART_COLS)
-    ewma_partials_kernel(const float* __restrict__ re,
-                         const float* __restrict__ im,
+    ewma_partials_kernel(const T* __restrict__ re,
+                         const T* __restrict__ im,
                          double* __restrict__ parts, int rows, int n_frames,
                          int n_bins, int n_segs, int p_f, int p_b, Ewma k) {
   const Cell c = cell_of(PART_COLS, rows, n_frames, n_bins);
@@ -100,9 +103,10 @@ __global__ void __launch_bounds__(PART_COLS)
   parts[part_at(3, c.col, c.q, rows, n_segs, n_bins)] = bh;
 }
 
+template <class T>
 __global__ void __launch_bounds__(PART_COLS)
-    ewma_carries_kernel(const float* __restrict__ re,
-                        const float* __restrict__ im,
+    ewma_carries_kernel(const T* __restrict__ re,
+                        const T* __restrict__ im,
                         double* __restrict__ parts, int rows, int n_frames,
                         int n_bins, int n_segs, int p_f, int p_b, Ewma k) {
   const long long col = (long long)blockIdx.x * PART_COLS + threadIdx.x;
@@ -115,7 +119,7 @@ __global__ void __launch_bounds__(PART_COLS)
   const long long slot = (long long)rows * n_segs * n_bins;
   const int n_last = n_frames - (n_segs - 1) * SEG;
   // forward: Y_q = y[t0 - 1], with y[-1] = |Z|[0] (so y[0] = |Z|[0])
-  double y = mag_of(__ldg(re + base), __ldg(im + base));
+  double y = mag_of(planes::ld(re + base), planes::ld(im + base));
   for (int q0 = 0; q0 < n_segs; q0 += CARRY_BATCH) {
     double yl_end[CARRY_BATCH], fh[CARRY_BATCH];
 #pragma unroll
@@ -162,9 +166,10 @@ __global__ void __launch_bounds__(PART_COLS)
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(TILE_COLS * TILE_SEGS)
-    nonstationary_final_kernel(const float* __restrict__ re,
-                               const float* __restrict__ im,
+    nonstationary_final_kernel(const T* __restrict__ re,
+                               const T* __restrict__ im,
                                const double* __restrict__ parts,
                                float* __restrict__ out,
                                const float* __restrict__ taps, int n_taps,
@@ -225,14 +230,16 @@ __global__ void __launch_bounds__(TILE_COLS * TILE_SEGS)
 
 }  // namespace
 
-// re/im/out: (rows, n_frames, n_bins) f32; parts: (4, rows, n_segs, n_bins)
-// f64 with n_segs = ceil(n_frames / SEG); taps: (n_taps,) f32, n_taps odd;
-// k: 11 host doubles (struct Ewma); p_f = (-h-1) mod SEG, p_b = h mod SEG for
-// the final pass's halo h. raw: null when the final pass smooths from its
-// tile (h = n_taps / 2, smem bytes of tile); else a (rows, n_frames,
-// n_bins) plane for the raw mask (h = 0), smoothed into out by one more
-// launch. Returns the first launch's cudaGetLastError() that is not 0.
-extern "C" int nr_nonstationary_mask(const float* re, const float* im,
+// plane: the type of re and im (planes.cuh: 0 float32, 1 bfloat16); re/im:
+// (rows, n_frames, n_bins); out: the same, f32; parts: (4, rows, n_segs,
+// n_bins) f64 with n_segs = ceil(n_frames / SEG); taps: (n_taps,) f32,
+// n_taps odd; k: 11 host doubles (struct Ewma); p_f = (-h-1) mod SEG, p_b =
+// h mod SEG for the final pass's halo h. raw: null when the final pass
+// smooths from its tile (h = n_taps / 2, smem bytes of tile); else a (rows,
+// n_frames, n_bins) f32 plane for the raw mask (h = 0), smoothed into out
+// by one more launch. Returns the first launch's cudaGetLastError() that is
+// not 0.
+extern "C" int nr_nonstationary_mask(int plane, const void* re_p, const void* im_p,
                                      double* parts, float* raw, float* out,
                                      const float* taps, int n_taps, int rows,
                                      int n_frames, int n_bins, int halo,
@@ -244,24 +251,29 @@ extern "C" int nr_nonstationary_mask(const float* re, const float* im,
   if (columns <= 0 || n_frames <= 0) return (int)cudaGetLastError();
   const int n_segs = (n_frames + SEG - 1) / SEG;
   const Ewma e{k[0], k[1], k[2], k[3], k[4], k[5], k[6], k[7], k[8], k[9], k[10]};
-  int err;
-  ewma_partials_kernel<<<(unsigned)blocks_of(columns, PART_COLS, n_segs),
-                         PART_COLS, 0, st>>>(re, im, parts, rows, n_frames,
-                                             n_bins, n_segs, p_f, p_b, e);
-  if ((err = (int)cudaGetLastError())) return err;
-  ewma_carries_kernel<<<(unsigned)blocks_of(columns, PART_COLS, 1), PART_COLS,
-                        0, st>>>(re, im, parts, rows, n_frames, n_bins, n_segs,
-                                 p_f, p_b, e);
-  if ((err = (int)cudaGetLastError())) return err;
-  if ((err = (int)cudaFuncSetAttribute(
-           nonstationary_final_kernel,
-           cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
-    return err;
-  nonstationary_final_kernel<<<(unsigned)blocks_of(columns, TILE_COLS,
-                                                    (n_segs + TILE_SEGS - 1) / TILE_SEGS),
-                               TILE_COLS * TILE_SEGS, smem, st>>>(
-      re, im, parts, raw ? raw : out, raw ? nullptr : taps, raw ? 1 : n_taps,
-      halo, rows, n_frames, n_bins, n_segs, e.a, e.b, thresh, slope);
-  if ((err = (int)cudaGetLastError()) || !raw) return err;
-  return smooth_plane(raw, out, taps, n_taps, rows, n_frames, n_bins, st);
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    const T* re = static_cast<const T*>(re_p);
+    const T* im = static_cast<const T*>(im_p);
+    int err;
+    ewma_partials_kernel<T><<<(unsigned)blocks_of(columns, PART_COLS, n_segs),
+                              PART_COLS, 0, st>>>(re, im, parts, rows, n_frames,
+                                                  n_bins, n_segs, p_f, p_b, e);
+    if ((err = (int)cudaGetLastError())) return err;
+    ewma_carries_kernel<T><<<(unsigned)blocks_of(columns, PART_COLS, 1), PART_COLS,
+                             0, st>>>(re, im, parts, rows, n_frames, n_bins, n_segs,
+                                      p_f, p_b, e);
+    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = (int)cudaFuncSetAttribute(
+             nonstationary_final_kernel<T>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+      return err;
+    nonstationary_final_kernel<T><<<(unsigned)blocks_of(columns, TILE_COLS,
+                                                         (n_segs + TILE_SEGS - 1) / TILE_SEGS),
+                                    TILE_COLS * TILE_SEGS, smem, st>>>(
+        re, im, parts, raw ? raw : out, raw ? nullptr : taps, raw ? 1 : n_taps,
+        halo, rows, n_frames, n_bins, n_segs, e.a, e.b, thresh, slope);
+    if ((err = (int)cudaGetLastError()) || !raw) return err;
+    return smooth_plane(raw, out, taps, n_taps, rows, n_frames, n_bins, st);
+  });
 }

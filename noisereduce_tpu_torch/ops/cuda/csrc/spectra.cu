@@ -16,17 +16,21 @@
 //
 // Bound on this card: FP32 FMAs, win * 2 * n_bins per frame (about 1.05 M at
 // n_fft 1024: 0.42 TFLOP for 960 s of 48 kHz audio), against 67 TFLOP/s of
-// non-tensor FP32. Design: one implicit product frames (M x win) @ table
+// non-tensor FP32 (its bf16 build widens the signal as it lands in shared
+// memory and rounds the planes as it stores them, planes.cuh). Design: one
+// implicit product frames (M x win) @ table
 // (win x 2 n_bins) through the shared-memory tiling of gemm_tile.cuh; the
 // window and 1/sum w are folded into the table, so the TPU kernel's
 // hop-block twiddles, Hermitian fix and Hann stencil (artifacts of its
 // 128-lane layout) have no counterpart here.
 #include "gemm_tile.cuh"
+#include "planes.cuh"
 
 namespace {
 
+template <class T>  // the signal's type (planes.cuh), widened as it lands in shared memory
 struct SpectraLoader {
-  const float* x;
+  const T* x;
   long long n_src;
   int n_chunks;
   long long chunk_stride;
@@ -39,7 +43,7 @@ struct SpectraLoader {
   int M;
 
   struct Row {
-    const float* base;
+    const T* base;
     long long pos0;  // view position of frame sample 0
     long long src0;  // source index of frame sample 0
     bool valid;
@@ -67,27 +71,29 @@ struct SpectraLoader {
     const long long s = r.src0 + k;
     const bool ok = r.valid && k < win && p >= 0 && p < view_len && s >= 0 &&
                     s < n_src;
-    return ok ? __ldg(r.base + s) : 0.f;
+    return ok ? planes::ld(r.base + s) : 0.f;
   }
 };
 
+template <class T>  // the planes' type (planes.cuh), rounded to on store
 struct SpectraEpilogue {
-  float* re;
-  float* im;
+  T* re;
+  T* im;
   int M;
   int n_bins;
 
   __device__ void operator()(int m, int n, float v) const {
     if (m >= M) return;
     if (n < n_bins)
-      re[(long long)m * n_bins + n] = v;
+      planes::st(re + (long long)m * n_bins + n, v);
     else if (n < 2 * n_bins)
-      im[(long long)m * n_bins + (n - n_bins)] = v;
+      planes::st(im + (long long)m * n_bins + (n - n_bins), v);
   }
 };
 
+template <class T>
 __global__ void __launch_bounds__(nrt::THREADS)
-    spectra_kernel(SpectraLoader ld, SpectraEpilogue epi,
+    spectra_kernel(SpectraLoader<T> ld, SpectraEpilogue<T> epi,
                    const float* __restrict__ tab, int ldb, int k_a,
                    int n_tiles_n) {
   const int nt = blockIdx.x % n_tiles_n;
@@ -97,25 +103,28 @@ __global__ void __launch_bounds__(nrt::THREADS)
 
 }  // namespace
 
-// x: (rows, n_src) f32; tab: (k_a, ldb) f32; re/im: (rows*n_chunks,
-// n_frames, n_bins) f32. Returns cudaGetLastError() after the launch.
-extern "C" int nr_spectra(const float* x, long long n_src, int rows,
+// plane: the type of x, re and im (planes.cuh: 0 float32, 1 bfloat16); x:
+// (rows, n_src); tab: (k_a, ldb) f32; re/im: (rows*n_chunks, n_frames,
+// n_bins). Returns cudaGetLastError() after the launch.
+extern "C" int nr_spectra(int plane, const void* x, long long n_src, int rows,
                           int n_chunks, long long chunk_stride,
                           long long view_start, int view_len, int n_frames,
                           int hop, int bpad, int win, int n_bins,
-                          const float* tab, int ldb, int k_a, float* re,
-                          float* im, void* stream) {
+                          const float* tab, int ldb, int k_a, void* re,
+                          void* im, void* stream) {
   const int M = rows * n_chunks * n_frames;
-  SpectraLoader ld{x,        n_src, n_chunks, chunk_stride, view_start,
-                   view_len, n_frames, hop,   bpad,         win,
-                   M};
-  SpectraEpilogue epi{re, im, M, n_bins};
   const int n_tiles_n = ldb / nrt::BN;
   const int n_tiles_m = (M + nrt::BM - 1) / nrt::BM;
   const long long blocks = (long long)n_tiles_m * n_tiles_n;
   if (M <= 0) return (int)cudaGetLastError();
-  spectra_kernel<<<(unsigned)blocks, nrt::THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(ld, epi, tab, ldb, k_a,
-                                                        n_tiles_n);
-  return (int)cudaGetLastError();
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    SpectraLoader<T> ld{static_cast<const T*>(x), n_src, n_chunks, chunk_stride, view_start,
+                        view_len, n_frames, hop, bpad, win, M};
+    SpectraEpilogue<T> epi{static_cast<T*>(re), static_cast<T*>(im), M, n_bins};
+    spectra_kernel<T><<<(unsigned)blocks, nrt::THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(ld, epi, tab, ldb, k_a,
+                                                             n_tiles_n);
+    return (int)cudaGetLastError();
+  });
 }

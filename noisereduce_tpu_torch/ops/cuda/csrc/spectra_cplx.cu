@@ -31,24 +31,26 @@
 //
 // Bound on this card: bytes, as spectra_fft.cu (the function's FFT of
 // length N; the chirp's three passes over L points are extra operations of
-// this algorithm, not of the function). Design: as spectra_fft.cu, one
+// this algorithm, not of the function); its bf16 build as spectra_fft.cu's.
+// Design: as spectra_fft.cu, one
 // block per tile of frames of one view, its threads in segments that each
 // own whole slots; a slot past 4096 points takes a big block of 1024
 // threads and 8192 points (fft_smem.cuh::Blk), one slot a block. Every
 // build of 512 threads takes 64 registers (2 blocks an SM; PERF.md).
 #include "fft_smem.cuh"
+#include "planes.cuh"
 
 namespace {
 
-template <int ODD, bool PAIRED, bool CHIRP, bool BIG>
+template <int ODD, bool PAIRED, bool CHIRP, bool BIG, class P>  // P: the plane type
 __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
-    spectra_cplx_kernel(const float* __restrict__ x, long long n_src, int n_chunks,
+    spectra_cplx_kernel(const P* __restrict__ x, long long n_src, int n_chunks,
                         long long chunk_stride, long long view_start, int view_len,
                         int n_frames, int hop, int bpad, int win, int n, int n_bins,
                         int tile_frames, int n_tiles, const float* __restrict__ ws,
                         const float2* __restrict__ tw, const float2* __restrict__ tws,
                         const float2* __restrict__ chirp, const float2* __restrict__ filt,
-                        float* __restrict__ re, float* __restrict__ im,
+                        P* __restrict__ re, P* __restrict__ im,
                         const nrf::Plan<ODD != 1> plan, const nrf::Div<true> dh) {
   using B = nrf::Blk<BIG>;
   constexpr int FPS = PAIRED ? 2 : 1;  // frames a slot holds
@@ -68,12 +70,12 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
   const int span_len = (fe - 1) * hop + win;
   const long long p0 = (long long)t0 * hop - bpad;  // view position of span[0]
   const long long s0 = c * chunk_stride + view_start + p0;
-  const float* xr = x + (long long)h * n_src;
+  const P* xr = x + (long long)h * n_src;
   for (int i = tid; i < win; i += B::THREADS) wsm[i] = __ldg(ws + i);
   for (int i = tid; i < span_len; i += B::THREADS) {
     const long long p = p0 + i;
     const long long s = s0 + i;
-    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? __ldg(xr + s) : 0.f;
+    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? planes::ld(xr + s) : 0.f;
   }
   __syncthreads();
 
@@ -136,25 +138,25 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
       zm = nrf::cmul(zm, __ldg(chirp + km));
     }
     if constexpr (PAIRED) {
-      re[row + k] = 0.5f * (zk.x + zm.x);
-      im[row + k] = 0.5f * (zk.y - zm.y);
+      planes::st(re + row + k, 0.5f * (zk.x + zm.x));
+      planes::st(im + row + k, 0.5f * (zk.y - zm.y));
       if (FPS * (sg.f0 + sl) + 1 < fe) {
-        re[row + n_bins + k] = 0.5f * (zk.y + zm.y);
-        im[row + n_bins + k] = 0.5f * (zm.x - zk.x);
+        planes::st(re + row + n_bins + k, 0.5f * (zk.y + zm.y));
+        planes::st(im + row + n_bins + k, 0.5f * (zm.x - zk.x));
       }
     } else {
       float2 lo, hi;
       nrf::split(zk, zm, __ldg(tws + k), lo, hi);
-      re[row + k] = lo.x;
-      im[row + k] = lo.y;
-      re[row + n - k] = hi.x;
-      im[row + n - k] = hi.y;
+      planes::st(re + row + k, lo.x);
+      planes::st(im + row + k, lo.y);
+      planes::st(re + row + n - k, hi.x);
+      planes::st(im + row + n - k, hi.y);
       if (k == 0 && !(n & 1)) {
         float2 zh = z[nrf::pad(base + n / 2)];
         if constexpr (CHIRP) zh = nrf::cmul(zh, __ldg(chirp + n / 2));
         nrf::split(zh, zh, __ldg(tws + n / 2), lo, hi);
-        re[row + n / 2] = lo.x;
-        im[row + n / 2] = lo.y;
+        planes::st(re + row + n / 2, lo.x);
+        planes::st(im + row + n / 2, lo.y);
       }
     }
   }
@@ -162,22 +164,23 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
 
 }  // namespace
 
-// x: (rows, n_src) f32; ws: (win,) f32; tw: (2 slot,) complex f32, the
-// core's table for slot points; tws: (n_fft,) complex f32, the split's
-// (even n_fft); chirp: (n,) complex f32 and filt: (slot,) complex f32 on
-// the chirp route, else null; re/im: (rows*n_chunks, n_frames, n_bins)
-// f32. slot: fft_n(n_fft) on the FFT route, the chirp length on the chirp
-// route (fft_smem.cuh::cplx_slot_ok); seg_warps a segment of warps that
-// holds a slot, tile_frames at most the frames of the block's slots.
-// Returns cudaGetLastError() after the launch.
-extern "C" int nr_spectra_cplx(const float* x, long long n_src, int rows,
+// plane: the type of x, re and im (planes.cuh: 0 float32, 1 bfloat16); x:
+// (rows, n_src); ws: (win,) f32; tw: (2 slot,) complex f32, the core's
+// table for slot points; tws: (n_fft,) complex f32, the split's (even
+// n_fft); chirp: (n,) complex f32 and filt: (slot,) complex f32 on the
+// chirp route, else null; re/im: (rows*n_chunks, n_frames, n_bins). slot:
+// fft_n(n_fft) on the FFT route, the chirp length on the chirp route
+// (fft_smem.cuh::cplx_slot_ok); seg_warps a segment of warps that holds a
+// slot, tile_frames at most the frames of the block's slots. Returns
+// cudaGetLastError() after the launch.
+extern "C" int nr_spectra_cplx(int plane, const void* x, long long n_src, int rows,
                                int n_chunks, long long chunk_stride,
                                long long view_start, int view_len,
                                int n_frames, int hop, int bpad, int win,
                                int n_fft, int n_bins, int slot, int seg_warps,
                                int tile_frames, const float* ws, const float* tw,
                                const float* tws, const float* chirp, const float* filt,
-                               float* re, float* im, void* stream) {
+                               void* re, void* im, void* stream) {
   const int n = nrf::fft_n(n_fft);
   const bool paired = n_fft % 2, big = slot > nrf::ELEMS;
   const int block_warps = big ? nrf::Blk<true>::WARPS : nrf::WARPS;
@@ -190,23 +193,28 @@ extern "C" int nr_spectra_cplx(const float* x, long long n_src, int rows,
   const int n_tiles = (n_frames + tile_frames - 1) / tile_frames;
   const unsigned grid = (unsigned)((long long)B * n_tiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg) {
-    constexpr int ODD = decltype(odd)::value;
-    constexpr bool BIG = decltype(bg)::value;
-    using Bk = nrf::Blk<BIG>;
-    const size_t smem = sizeof(float2) * Bk::PADDED +
-                        sizeof(float) * ((size_t)(tile_frames - 1) * hop + 2 * win);
-    const auto kernel = spectra_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, Bk::THREADS, smem, st>>>(
-        x, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad, win, n,
-        n_bins, tile_frames, n_tiles, ws, reinterpret_cast<const float2*>(tw),
-        reinterpret_cast<const float2*>(tws), reinterpret_cast<const float2*>(chirp),
-        reinterpret_cast<const float2*>(filt), re, im,
-        nrf::make_plan<ODD != 1>(slot, seg_warps, Bk::WARPS),
-        nrf::Div<true>(paired ? n_bins : (n + 1) / 2));
-    return (int)cudaGetLastError();
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg) {
+      constexpr int ODD = decltype(odd)::value;
+      constexpr bool BIG = decltype(bg)::value;
+      using Bk = nrf::Blk<BIG>;
+      const size_t smem = sizeof(float2) * Bk::PADDED +
+                          sizeof(float) * ((size_t)(tile_frames - 1) * hop + 2 * win);
+      const auto kernel =
+          spectra_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG, T>;
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<grid, Bk::THREADS, smem, st>>>(
+          static_cast<const T*>(x), n_src, n_chunks, chunk_stride, view_start, view_len,
+          n_frames, hop, bpad, win, n, n_bins, tile_frames, n_tiles, ws,
+          reinterpret_cast<const float2*>(tw), reinterpret_cast<const float2*>(tws),
+          reinterpret_cast<const float2*>(chirp), reinterpret_cast<const float2*>(filt),
+          static_cast<T*>(re), static_cast<T*>(im),
+          nrf::make_plan<ODD != 1>(slot, seg_warps, Bk::WARPS),
+          nrf::Div<true>(paired ? n_bins : (n + 1) / 2));
+      return (int)cudaGetLastError();
+    });
   });
 }

@@ -18,7 +18,9 @@
 // Bound on this card: bytes. The signal read once and the two planes written
 // once (0.2 + 0.815 GB for 960 s of 48 kHz audio at n_fft 1024: 0.30 ms at
 // 3.35 TB/s); the real FFT's ~2.5 N log2 N operations a frame are ~1% of the
-// DFT product's. Design: one block per tile of tile_frames consecutive frames
+// DFT product's. The bf16 build (planes.cuh) reads a bf16 signal and stores
+// bf16 planes, the FFT in float32: 0.1 + 0.41 GB, 0.15 ms. Design: one
+// block per tile of tile_frames consecutive frames
 // of one view (geometry.py's fft_tile_frames: the frame slots of the block's
 // thread segments, 8 at n_fft 1024, 5 at 1536, 20 at 400).
 // The block loads the window and the tile's signal span, (tile_frames - 1)
@@ -42,6 +44,7 @@
 // registers under the 40-register budget of 3 blocks an SM; at n_fft 1024
 // they cost it ~4% (PERF.md), which the power-of-two kernel does not pay.
 #include "fft_smem.cuh"
+#include "planes.cuh"
 
 // the power-of-two kernel's segments and FFT stages
 namespace nrf {
@@ -159,16 +162,16 @@ __device__ __forceinline__ void fft_frames(float2* z, int log2m, int n_frames,
 
 namespace {
 
-template <int ODD>  // fft_smem.cuh::odd_primes of M
+template <int ODD, class T>  // fft_smem.cuh::odd_primes of M; the plane type
 __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
-    spectra_fft_kernel(const float* __restrict__ x, long long n_src,
+    spectra_fft_kernel(const T* __restrict__ x, long long n_src,
                        int n_chunks, long long chunk_stride,
                        long long view_start, int view_len, int n_frames,
                        int hop, int bpad, int win, int n_bins,
                        int tile_frames, int n_tiles,
                        const float* __restrict__ ws,
-                       const float2* __restrict__ tw, float* __restrict__ re,
-                       float* __restrict__ im, const nrf::Plan<ODD != 1> plan) {
+                       const float2* __restrict__ tw, T* __restrict__ re,
+                       T* __restrict__ im, const nrf::Plan<ODD != 1> plan) {
   extern __shared__ __align__(16) float2 smem2[];
   const int m = plan.m.d;
   float2* z = smem2;
@@ -185,12 +188,12 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
   const int span_len = (fe - 1) * hop + win;
   const long long p0 = (long long)t0 * hop - bpad;  // view position of span[0]
   const long long s0 = c * chunk_stride + view_start + p0;
-  const float* xr = x + (long long)h * n_src;
+  const T* xr = x + (long long)h * n_src;
   for (int i = tid; i < win; i += nrf::THREADS) wsm[i] = __ldg(ws + i);
   for (int i = tid; i < span_len; i += nrf::THREADS) {
     const long long p = p0 + i;
     const long long s = s0 + i;
-    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? __ldg(xr + s) : 0.f;
+    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? planes::ld(xr + s) : 0.f;
   }
   __syncthreads();
 
@@ -224,30 +227,31 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
     const float2 zm = z[nrf::pad(base + (k ? m - k : 0))];
     float2 lo, hi;
     nrf::split(zk, zm, __ldg(tw + k), lo, hi);
-    re[row + k] = lo.x;
-    im[row + k] = lo.y;
-    re[row + m - k] = hi.x;
-    im[row + m - k] = hi.y;
+    planes::st(re + row + k, lo.x);
+    planes::st(im + row + k, lo.y);
+    planes::st(re + row + m - k, hi.x);
+    planes::st(im + row + m - k, hi.y);
     if (k == 0 && !(m & 1)) {
       const float2 zh = z[nrf::pad(base + m / 2)];
       nrf::split(zh, zh, __ldg(tw + m / 2), lo, hi);
-      re[row + m / 2] = lo.x;
-      im[row + m / 2] = lo.y;
+      planes::st(re + row + m / 2, lo.x);
+      planes::st(im + row + m / 2, lo.y);
     }
   }
 }
 
 // The same computation for a power of two M, indexed by shifts of log2 M
 // (nrf::p2's segments and stages).
+template <class T>
 __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
-    spectra_pow2_kernel(const float* __restrict__ x, long long n_src,
+    spectra_pow2_kernel(const T* __restrict__ x, long long n_src,
                         int n_chunks, long long chunk_stride,
                         long long view_start, int view_len, int n_frames,
                         int hop, int bpad, int win, int log2m, int n_bins,
                         int tile_frames, int n_tiles,
                         const float* __restrict__ ws,
-                        const float2* __restrict__ tw, float* __restrict__ re,
-                        float* __restrict__ im) {
+                        const float2* __restrict__ tw, T* __restrict__ re,
+                        T* __restrict__ im) {
   extern __shared__ __align__(16) float2 smem2[];
   float2* z = smem2;
   float* wsm = reinterpret_cast<float*>(smem2 + nrf::PADDED);  // ws, win values
@@ -264,12 +268,12 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
   const int span_len = (fe - 1) * hop + win;
   const long long p0 = (long long)t0 * hop - bpad;  // view position of span[0]
   const long long s0 = c * chunk_stride + view_start + p0;
-  const float* xr = x + (long long)h * n_src;
+  const T* xr = x + (long long)h * n_src;
   for (int i = tid; i < win; i += nrf::THREADS) wsm[i] = __ldg(ws + i);
   for (int i = tid; i < span_len; i += nrf::THREADS) {
     const long long p = p0 + i;
     const long long s = s0 + i;
-    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? __ldg(xr + s) : 0.f;
+    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? planes::ld(xr + s) : 0.f;
   }
   __syncthreads();
 
@@ -303,33 +307,34 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
     const float2 zm = z[nrf::pad(base + ((M - k) & (M - 1)))];
     float2 lo, hi;
     nrf::split(zk, zm, __ldg(tw + k), lo, hi);
-    re[row + k] = lo.x;
-    im[row + k] = lo.y;
-    re[row + M - k] = hi.x;
-    im[row + M - k] = hi.y;
+    planes::st(re + row + k, lo.x);
+    planes::st(im + row + k, lo.y);
+    planes::st(re + row + M - k, hi.x);
+    planes::st(im + row + M - k, hi.y);
     if (k == 0) {
       const float2 zh = z[nrf::pad(base + M / 2)];
       nrf::split(zh, zh, __ldg(tw + M / 2), lo, hi);
-      re[row + M / 2] = lo.x;
-      im[row + M / 2] = lo.y;
+      planes::st(re + row + M / 2, lo.x);
+      planes::st(im + row + M / 2, lo.y);
     }
   }
 }
 
 }  // namespace
 
-// x: (rows, n_src) f32; ws: (win,) f32; tw: (n_fft,) complex f32;
-// re/im: (rows*n_chunks, n_frames, n_bins) f32. n_fft must be one
-// fft_smem.cuh serves, seg_warps a segment of warps that holds a frame, and
-// tile_frames at most the frame slots of the block's segments. Returns
+// plane: the type of x, re and im (planes.cuh: 0 float32, 1 bfloat16); x:
+// (rows, n_src); ws: (win,) f32; tw: (n_fft,) complex f32; re/im:
+// (rows*n_chunks, n_frames, n_bins). n_fft must be one fft_smem.cuh
+// serves, seg_warps a segment of warps that holds a frame, and tile_frames
+// at most the frame slots of the block's segments. Returns
 // cudaGetLastError() after the launch.
-extern "C" int nr_spectra_fft(const float* x, long long n_src, int rows,
+extern "C" int nr_spectra_fft(int plane, const void* x, long long n_src, int rows,
                               int n_chunks, long long chunk_stride,
                               long long view_start, int view_len,
                               int n_frames, int hop, int bpad, int win,
                               int n_fft, int n_bins, int seg_warps, int tile_frames,
-                              const float* ws, const float* tw, float* re,
-                              float* im, void* stream) {
+                              const float* ws, const float* tw, void* re,
+                              void* im, void* stream) {
   const int m = n_fft / 2;
   if (!nrf::real_kernel(n_fft) || tile_frames < 1 ||
       tile_frames > nrf::fft_block_frames(seg_warps, m))
@@ -342,25 +347,33 @@ extern "C" int nr_spectra_fft(const float* x, long long n_src, int rows,
   const unsigned grid = (unsigned)((long long)B * n_tiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
-  return nrf::with_odd_primes(m, [&](auto odd) {
-    constexpr int ODD = decltype(odd)::value;
-    if constexpr (ODD == 1) {
-      int log2m = 0;
-      while ((1 << log2m) < m) ++log2m;
-      const cudaError_t err = cudaFuncSetAttribute(
-          spectra_pow2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      spectra_pow2_kernel<<<grid, nrf::THREADS, smem, st>>>(
-          x, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad,
-          win, log2m, n_bins, tile_frames, n_tiles, ws, tw2, re, im);
-    } else {
-      const cudaError_t err = cudaFuncSetAttribute(
-          spectra_fft_kernel<ODD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      spectra_fft_kernel<ODD><<<grid, nrf::THREADS, smem, st>>>(
-          x, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad,
-          win, n_bins, tile_frames, n_tiles, ws, tw2, re, im, nrf::make_plan<true>(m, seg_warps));
-    }
-    return (int)cudaGetLastError();
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    const T* xt = static_cast<const T*>(x);
+    T* ret = static_cast<T*>(re);
+    T* imt = static_cast<T*>(im);
+    return nrf::with_odd_primes(m, [&](auto odd) {
+      constexpr int ODD = decltype(odd)::value;
+      if constexpr (ODD == 1) {
+        int log2m = 0;
+        while ((1 << log2m) < m) ++log2m;
+        const cudaError_t err = cudaFuncSetAttribute(
+            spectra_pow2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        spectra_pow2_kernel<T><<<grid, nrf::THREADS, smem, st>>>(
+            xt, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad,
+            win, log2m, n_bins, tile_frames, n_tiles, ws, tw2, ret, imt);
+      } else {
+        const cudaError_t err = cudaFuncSetAttribute(
+            spectra_fft_kernel<ODD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        spectra_fft_kernel<ODD, T><<<grid, nrf::THREADS, smem, st>>>(
+            xt, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad,
+            win, n_bins, tile_frames, n_tiles, ws, tw2, ret, imt,
+            nrf::make_plan<true>(m, seg_warps));
+      }
+      return (int)cudaGetLastError();
+    });
   });
 }

@@ -24,7 +24,8 @@
 //
 // Bound on this card: bytes. It must read re and im once and write the mask
 // once: 1.22 GB for 960 s of 48 kHz audio (77 views x 2,579 frames x 513
-// bins), 0.36 ms at 3.35 TB/s; a few FLOPs per element. Design
+// bins), 0.36 ms at 3.35 TB/s (0.81 GB, 0.24 ms from the bf16 build's bf16
+// re/im, widened as they load, planes.cuh); a few FLOPs per element. Design
 // (time_tiles.cuh): each column's time axis is cut into segments of a thread
 // each, so the whole plane's loads are in flight at once.
 //   1. maxima: per (view, segment, bin) the max of dB, to a small buffer;
@@ -66,8 +67,9 @@ __device__ __forceinline__ float db_of(float zr, float zi, float eps,
   return __fmul_rn(logf(__fadd_rn(sqrtf(p), eps)), k20);
 }
 
+template <class T>  // the planes' type (planes.cuh)
 __global__ void __launch_bounds__(PART_COLS)
-    db_max_kernel(const float* __restrict__ re, const float* __restrict__ im,
+    db_max_kernel(const T* __restrict__ re, const T* __restrict__ im,
                   float* __restrict__ maxima, int views, int n_frames,
                   int n_bins, int n_segs, float eps, float k20) {
   const Cell c = cell_of(PART_COLS, views, n_frames, n_bins);
@@ -91,8 +93,9 @@ __global__ void __launch_bounds__(PART_COLS)
   mx[col] = m;
 }
 
+template <class T>
 __global__ void __launch_bounds__(PART_COLS)
-    db_stats_kernel(const float* __restrict__ re, const float* __restrict__ im,
+    db_stats_kernel(const T* __restrict__ re, const T* __restrict__ im,
                     const float* __restrict__ mx, double* __restrict__ sums,
                     int views, int n_frames, int n_bins, int n_segs, float eps,
                     float k20, float top_db) {
@@ -130,9 +133,10 @@ __global__ void __launch_bounds__(PART_COLS)
   th[col] = (double)mx[col] + s1 / n + sqrt(var) * n_std;
 }
 
+template <class T>
 __global__ void __launch_bounds__(TILE_COLS * TILE_SEGS)
-    stationary_final_kernel(const float* __restrict__ re,
-                            const float* __restrict__ im,
+    stationary_final_kernel(const T* __restrict__ re,
+                            const T* __restrict__ im,
                             const float* __restrict__ mx,
                             const float* __restrict__ thr,
                             long long thr_stride, int views_per_row,
@@ -188,17 +192,17 @@ __global__ void __launch_bounds__(TILE_COLS * TILE_SEGS)
 
 }  // namespace
 
-// re/im/out: (views, n_frames, n_bins) f32; thr: f32, row r at
-// thr + r * thr_stride (thr_stride 0: one shared row), or null for each
-// column's own statistics with n_std; taps: (n_taps,) f32, n_taps odd.
-// Work buffers, n_segs = ceil(n_frames / SEG): maxima (views, n_segs,
-// n_bins) f32, mx (views, n_bins) f32; with thr null also sums (2, views,
-// n_segs, n_bins) f64 and th (views, n_bins) f64. raw: null when the final
-// pass smooths from its tile (halo n_taps / 2, smem bytes); else a
-// (views, n_frames, n_bins) plane for the blended mask (halo 0), smoothed
-// into out by one more launch. Returns the first launch's
-// cudaGetLastError() that is not 0.
-extern "C" int nr_stationary_mask(const float* re, const float* im,
+// plane: the type of re and im (planes.cuh: 0 float32, 1 bfloat16); re/im:
+// (views, n_frames, n_bins); out: the same, f32; thr: f32, row r at thr + r
+// * thr_stride (thr_stride 0: one shared row), or null for each column's
+// own statistics with n_std; taps: (n_taps,) f32, n_taps odd. Work buffers,
+// n_segs = ceil(n_frames / SEG): maxima (views, n_segs, n_bins) f32, mx
+// (views, n_bins) f32; with thr null also sums (2, views, n_segs, n_bins)
+// f64 and th (views, n_bins) f64. raw: null when the final pass smooths
+// from its tile (halo n_taps / 2, smem bytes); else a (views, n_frames,
+// n_bins) f32 plane for the blended mask (halo 0), smoothed into out by one
+// more launch. Returns the first launch's cudaGetLastError() that is not 0.
+extern "C" int nr_stationary_mask(int plane, const void* re_p, const void* im_p,
                                   const float* thr, long long thr_stride,
                                   int views_per_row, float* maxima, float* mx,
                                   double* sums, double* th, float* raw,
@@ -213,33 +217,38 @@ extern "C" int nr_stationary_mask(const float* re, const float* im,
   const int n_segs = (n_frames + SEG - 1) / SEG;
   const unsigned part_blocks = (unsigned)blocks_of(columns, PART_COLS, n_segs);
   const unsigned col_blocks = (unsigned)blocks_of(columns, PART_COLS, 1);
-  int err;
-  db_max_kernel<<<part_blocks, PART_COLS, 0, st>>>(re, im, maxima, views,
-                                                   n_frames, n_bins, n_segs,
-                                                   eps, k20);
-  if ((err = (int)cudaGetLastError())) return err;
-  db_max_combine_kernel<<<col_blocks, PART_COLS, 0, st>>>(maxima, mx, views,
-                                                          n_bins, n_segs);
-  if ((err = (int)cudaGetLastError())) return err;
-  if (thr == nullptr) {
-    db_stats_kernel<<<part_blocks, PART_COLS, 0, st>>>(
-        re, im, mx, sums, views, n_frames, n_bins, n_segs, eps, k20, top_db);
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    const T* re = static_cast<const T*>(re_p);
+    const T* im = static_cast<const T*>(im_p);
+    int err;
+    db_max_kernel<T><<<part_blocks, PART_COLS, 0, st>>>(re, im, maxima, views,
+                                                        n_frames, n_bins, n_segs,
+                                                        eps, k20);
     if ((err = (int)cudaGetLastError())) return err;
-    db_stats_combine_kernel<<<col_blocks, PART_COLS, 0, st>>>(
-        sums, mx, th, views, n_frames, n_bins, n_segs, n_std);
+    db_max_combine_kernel<<<col_blocks, PART_COLS, 0, st>>>(maxima, mx, views,
+                                                            n_bins, n_segs);
     if ((err = (int)cudaGetLastError())) return err;
-  }
-  if ((err = (int)cudaFuncSetAttribute(
-           stationary_final_kernel,
-           cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
-    return err;
-  stationary_final_kernel<<<(unsigned)blocks_of(columns, TILE_COLS,
-                                                 (n_segs + TILE_SEGS - 1) / TILE_SEGS),
-                            TILE_COLS * TILE_SEGS, smem, st>>>(
-      re, im, mx, thr, thr_stride, views_per_row, th, raw ? raw : out,
-      raw ? nullptr : taps, raw ? 1 : n_taps, halo, views, n_frames, n_bins,
-      n_segs, prop, one_minus_prop, eps, k20, top_db);
-  if ((err = (int)cudaGetLastError()) || !raw) return err;
-  return smooth_plane(raw, out, taps, n_taps, views,
-                      n_frames, n_bins, st);
+    if (thr == nullptr) {
+      db_stats_kernel<T><<<part_blocks, PART_COLS, 0, st>>>(
+          re, im, mx, sums, views, n_frames, n_bins, n_segs, eps, k20, top_db);
+      if ((err = (int)cudaGetLastError())) return err;
+      db_stats_combine_kernel<<<col_blocks, PART_COLS, 0, st>>>(
+          sums, mx, th, views, n_frames, n_bins, n_segs, n_std);
+      if ((err = (int)cudaGetLastError())) return err;
+    }
+    if ((err = (int)cudaFuncSetAttribute(
+             stationary_final_kernel<T>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+      return err;
+    stationary_final_kernel<T><<<(unsigned)blocks_of(columns, TILE_COLS,
+                                                      (n_segs + TILE_SEGS - 1) / TILE_SEGS),
+                                 TILE_COLS * TILE_SEGS, smem, st>>>(
+        re, im, mx, thr, thr_stride, views_per_row, th, raw ? raw : out,
+        raw ? nullptr : taps, raw ? 1 : n_taps, halo, views, n_frames, n_bins,
+        n_segs, prop, one_minus_prop, eps, k20, top_db);
+    if ((err = (int)cudaGetLastError()) || !raw) return err;
+    return smooth_plane(raw, out, taps, n_taps, views,
+                        n_frames, n_bins, st);
+  });
 }

@@ -22,10 +22,14 @@ spectra from A. There is no mesh.
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode, float32 or float64).
-The kernels take float32 only: ``kernels_take`` sends a card tensor of any
-other dtype to the staged twins, as the JAX package sends a dtype its
-kernels do not take to its staged path on any device
-(``noisereduce_tpu/models/spectral_gate.py:115-119``).
+The kernels take float32 and bfloat16 (the bf16 mode: A reads the bf16
+signal and stores bf16 planes, B or E read them, C's mask is float32, D
+stores a bf16 output; the stationary threshold stays float32):
+``kernels_take`` sends a card tensor of any other dtype (float64) to the
+staged twins, as the JAX package sends a dtype its kernels do not take to
+its staged path on any device
+(``noisereduce_tpu/models/spectral_gate.py:115-119``). A bf16 card tensor
+is never widened to run the float32 kernels.
 
 The three gates are differentiable as ``_fused_gate_cvjp``,
 ``_fused_stat_cvjp`` and ``_fused_chunked_cvjp`` (``:429-490``,
@@ -50,7 +54,7 @@ from noisereduce_tpu_torch.ops.cuda.kernels import (
     spectra,
     stationary_mask,
 )
-from noisereduce_tpu_torch.ops.dsp import noise_db_threshold, tri_norm
+from noisereduce_tpu_torch.ops.dsp import mask_dtype, noise_db_threshold, tri_norm
 from noisereduce_tpu_torch.ops.precision import fused_with_twin
 
 __all__ = [
@@ -65,10 +69,11 @@ __all__ = [
 
 def kernels_take(x: torch.Tensor) -> bool:
     """Whether the kernels serve a tensor of this dtype and device: any on
-    the CPU (their plain versions, the parity mode), float32 on the card.
-    A card tensor of another dtype (float64) goes to the staged twins, which
-    run it in its own precision; the kernel wrappers raise on it."""
-    return x.device.type == "cpu" or x.dtype == torch.float32
+    the CPU (their plain versions, the parity mode), float32 or bfloat16
+    on the card. A card tensor of another dtype (float64) goes to the
+    staged twins, which run it in its own precision; the kernel wrappers
+    raise on it."""
+    return x.device.type == "cpu" or x.dtype in (torch.float32, torch.bfloat16)
 
 
 def fused_gate_supported(cfg: GateConfig, x: torch.Tensor) -> bool:
@@ -102,7 +107,7 @@ def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None, chunks
         prop = cfg.prop_decrease
     else:
         mask = stationary_mask(
-            re, im, noise_thresh.to(re.dtype).contiguous(),
+            re, im, noise_thresh.to(mask_dtype(re.dtype)).contiguous(),
             re.shape[0] // x.shape[0], cfg.prop_decrease, tri_norm(n_grad_time),
         )
         prop = 1.0  # the stationary blend came before the smoothing
@@ -190,7 +195,8 @@ def fused_stationary_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.
     spectra from kernel A (``fused_stationary_threshold``,
     ``dispatch.py:493``): mean + n_std * std over frames of the dB
     spectrogram, ddof 0, as plain reductions (XLA reductions in JAX).
-    Returns (..., bins). Caller guarantees ``fused_gate_supported``.
+    Returns (..., bins), float32 for a bfloat16 clip (``dispatch.py:493-518``).
+    Caller guarantees ``fused_gate_supported``.
     Differentiable: the cotangent comes from the same statistics of the
     staged STFT."""
     from noisereduce_tpu_torch.ops.stft import stft

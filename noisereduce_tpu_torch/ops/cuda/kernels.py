@@ -56,9 +56,10 @@ launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches``, ``chirp_launches`` and ``product_launches``
-(``route_counts``), and G in ``resident_launches`` and ``tiled_launches``;
-``reset_launch_counts`` sets them all to 0. B, E and F run as a few CUDA
-launches over time tiles (``geometry.TimeTilePlan``: segment partials,
+(``route_counts``), and G in ``resident_launches`` and ``tiled_launches``,
+and every kernel by its planes' dtype in ``dtype_launches``
+(``dtype_counts``); ``reset_launch_counts`` sets them all to 0. B, E and F
+run as a few CUDA launches over time tiles (``geometry.TimeTilePlan``: segment partials,
 a per-column combine, a final pass that smooths from shared memory) and
 still count 1 a call; G as one (its resident route: whole columns in shared
 memory) or three (its tiled route, for longer columns;
@@ -68,7 +69,14 @@ kernels' semantics, including finite zeros on silence (a zero noise floor
 takes divisor 1).
 
 Planes are time-major ``(rows, n_frames, n_bins)``, float32 on the card;
-G's are frequency-major ``(..., n_bins, n_frames)``.
+G's are frequency-major ``(..., n_bins, n_frames)``. In the bf16 mode
+(``compute_dtype=torch.bfloat16``) A reads a bfloat16 signal and stores
+bfloat16 re/im planes, B, E and F read them, and D reads them and stores a
+bfloat16 output: each has a bfloat16 build beside its float32 one
+(``csrc/planes.cuh``), whose arithmetic is the float32 build's on the
+widened values, rounded where it stores. The masks, C and G stay float32.
+A plain version takes bfloat16 the same way: in float32, rounded where
+its kernel stores.
 
 The wrappers are not differentiable (the kernels write into fresh tensors).
 The gradient of every entry point that runs them comes from its staged
@@ -102,7 +110,7 @@ __all__ = [
     "stationary_mask", "stationary_mask_ref",
     "torch_nonstationary_mask", "torch_nonstationary_mask_ref",
     "fm_nonstationary_mask", "fm_nonstationary_mask_ref",
-    "reset_launch_counts", "launch_counts", "route_counts",
+    "reset_launch_counts", "launch_counts", "route_counts", "dtype_counts",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -115,19 +123,37 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(name: str, *ts: torch.Tensor) -> None:
-    """The kernels take contiguous float32 CUDA tensors on one device."""
+# the plane types of kernels A, B, D, E and F (csrc/planes.cuh's codes): A's
+# signal and planes, the re/im planes of B, E and F, D's planes and output;
+# masks, thresholds and tables stay float32
+_PLANE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_cuda(name: str, *ts: torch.Tensor, planes: int = 0) -> int:
+    """The kernels take contiguous CUDA tensors on one device, float32; the
+    first ``planes`` of ``ts`` float32 or bfloat16, of one dtype. Returns
+    the planes' code (``_PLANE_CODE``; 0 without planes)."""
     dev = ts[0].device
-    for t in ts:
+    pdt = ts[0].dtype if planes else torch.float32
+    for i, t in enumerate(ts):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(
                 f"{name}: expected tensors on one CUDA device, got "
                 f"{[str(u.device) for u in ts]}"
             )
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        want = pdt if i < planes else torch.float32
+        if t.dtype != want or want not in _PLANE_CODE:
+            kinds = "float32 or bfloat16 planes" if i < planes else "float32"
+            raise TypeError(f"{name}: the kernel takes {kinds}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+    return _PLANE_CODE[pdt]
+
+
+def _mask_like(planes: torch.Tensor) -> torch.Tensor:
+    """A float32 plane of ``planes``' shape and device: the masks, in any
+    plane type."""
+    return torch.empty(planes.shape, dtype=torch.float32, device=planes.device)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -315,11 +341,14 @@ def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def spectra_ref(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     """Plain version of ``spectra``: extract the views, then the staged
-    STFT."""
-    views = extract_chunks(x, chunk_size, padding) if chunk_size else x[:, None]
+    STFT; a bfloat16 signal in float32, the planes rounded once to
+    bfloat16, as the kernel stores them."""
+    (x32,) = dsp.to_mask_dtype(x)
+    views = extract_chunks(x32, chunk_size, padding) if chunk_size else x32[:, None]
     if chunks is not None:
         views = views[:, chunks[0] : chunks[0] + chunks[1]]
-    return stft(views.reshape(-1, geo.view_len), geo.scfg)
+    re, im = stft(views.reshape(-1, geo.view_len), geo.scfg)
+    return re.to(x.dtype), im.to(x.dtype)
 
 
 def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
@@ -333,7 +362,9 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     signal), which the kernel reads straight from ``x``: all of them, or
     the ``count`` chunks from ``first`` of ``chunks`` = (first, count) (a
     group of chunks: the same views, from the same samples). Returns
-    (re, im), each (rows*n_views, n_frames, n_bins), row h*n_views + i.
+    (re, im), each (rows*n_views, n_frames, n_bins), row h*n_views + i, in
+    x's dtype: a bfloat16 signal is read as it is (the bf16 mode) and its
+    planes rounded to bfloat16 on store, the FFT in float32.
     """
     if not chunk_size and geo.view_len != x.shape[-1]:
         raise ValueError(
@@ -355,11 +386,11 @@ def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
 
 def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
-    _check_cuda("spectra", x)
+    plane = _check_cuda("spectra", x, planes=1)
     rows, n_src = x.shape
     first, n_chunks = chunks or (0, n_chunks_for(n_src, chunk_size) if chunk_size else 1)
     B, T, nb = rows * n_chunks, geo.n_frames, geo.n_bins
-    re = torch.empty((B, T, nb), dtype=torch.float32, device=x.device)
+    re = torch.empty((B, T, nb), dtype=x.dtype, device=x.device)
     im = torch.empty_like(re)
     views = (n_src, rows, n_chunks, chunk_size, first * chunk_size - padding, geo.view_len,
              T, geo.hop, geo.bpad, geo.win)
@@ -368,14 +399,14 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
         _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
         tab = _device_f32("analysis", geo.scfg, dev)
         _launch(
-            "spectra", dev, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
+            "spectra", dev, plane, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
             geo.k_a, _ptr(re), _ptr(im),
         )
     elif route == "fft" and geo.fft_real:
         _, warps, tile = geo.fft_layout(route)
         _check_size("spectra", B * T, B * -(-T // tile))
         _launch(
-            "spectra_fft", dev, _ptr(x), *views, geo.n_fft, nb, warps, tile,
+            "spectra_fft", dev, plane, _ptr(x), *views, geo.n_fft, nb, warps, tile,
             _ptr(_device_f32("scaled_window", geo.scfg, dev)),
             _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr(re), _ptr(im),
         )
@@ -384,13 +415,13 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
         _check_size("spectra", B * T, B * -(-T // tile))
         chirp, filt = _chirp_tables(geo, route, slot, dev)
         _launch(
-            "spectra_cplx", dev, _ptr(x), *views, geo.n_fft, nb, slot, warps, tile,
+            "spectra_cplx", dev, plane, _ptr(x), *views, geo.n_fft, nb, slot, warps, tile,
             _ptr(_device_f32("scaled_window", geo.scfg, dev)),
             _ptr(_device_f32("twiddle", 2 * slot, dev)),
             _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
             _ptr_or_null(filt), _ptr(re), _ptr(im),
         )
-    _count_route(spectra, route)
+    _count(spectra, x.dtype, route)
     return re, im
 
 
@@ -399,6 +430,7 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
 # ---------------------------------------------------------------------------
 def nonstationary_mask_ref(re, im, b, thresh, slope, taps):
     """Plain version of ``nonstationary_mask``."""
+    re, im = dsp.to_mask_dtype(re, im)
     mag = torch.sqrt(re * re + im * im)
     floor = dsp.ewma_filtfilt(mag, b, axis=-2)  # float64 state, as the kernel's
     ratio = (mag - floor) / torch.where(floor == 0, 1.0, floor)
@@ -414,26 +446,28 @@ def nonstationary_mask(re, im, b, thresh, slope, taps):
     w[T-1] = y[T-1], both carried in float64;
     mask = sigmoid(((|Z| - w)/w' - thresh) * slope) with
     w' = 1 where w == 0; then a 'same' correlation along frames with the odd
-    ``taps`` (numpy), zero outside the frames.
+    ``taps`` (numpy), zero outside the frames. re/im float32 or bfloat16
+    (the bf16 mode: read as they are, the math in float32 and float64); the
+    mask float32.
     """
     if _on_cpu(re, im):
         return nonstationary_mask_ref(re, im, b, thresh, slope, taps)
-    _check_cuda("nonstationary_mask", re, im)
+    plane = _check_cuda("nonstationary_mask", re, im, planes=2)
     rows, T, nb = re.shape
     plan = TimeTilePlan(rows, T, nb, len(taps), words=2, seg_len=SEG_B)
     _check_size("nonstationary_mask", rows * nb, plan.final_blocks, rows * T * nb // 256)
     p_f, p_b, k = _ewma_constants(float(b), plan.seg_len, T, plan.halo)
     tap_t = _device_f32("taps", tuple(float(v) for v in taps), re.device)
     parts = torch.empty((4, rows, plan.n_segs, nb), dtype=torch.float64, device=re.device)
-    raw = None if plan.fused else torch.empty_like(re)
-    out = torch.empty_like(re)
+    raw = None if plan.fused else _mask_like(re)
+    out = _mask_like(re)
     _launch(
-        "nonstationary_mask", re.device, _ptr(re), _ptr(im), _ptr(parts),
+        "nonstationary_mask", re.device, plane, _ptr(re), _ptr(im), _ptr(parts),
         _ptr_or_null(raw), _ptr(out), _ptr(tap_t), len(taps), rows, T, nb,
         plan.halo, p_f, p_b, (ctypes.c_double * len(k))(*k), thresh, slope,
         plan.smem_bytes,
     )
-    nonstationary_mask.launches += 1
+    _count(nonstationary_mask, re.dtype)
     nonstationary_mask.cuda_launches = 3 if plan.fused else 4
     return out
 
@@ -498,7 +532,7 @@ def freq_smooth_blend(mask, taps, prop):
         "freq_smooth_blend", mask.device, _ptr(mask), _ptr(out), _ptr(tap_t),
         plan.n_taps, plan.half, n_rows, nb, plan.lines, prop,
     )
-    freq_smooth_blend.launches += 1
+    _count(freq_smooth_blend, torch.float32)
     return out
 
 
@@ -507,16 +541,21 @@ def freq_smooth_blend(mask, taps, prop):
 # ---------------------------------------------------------------------------
 def istft_ola_ref(re, im, mask, geo: GateGeometry, out_off, out_len):
     """Plain version of ``istft_ola``: the staged iSTFT of the masked
-    spectra, windowed and zero filled."""
-    y = istft((re * mask, im * mask), geo.scfg)[..., out_off : out_off + out_len]
-    return F.pad(y, (0, out_len - y.shape[-1]))
+    spectra, windowed and zero filled; bfloat16 planes in float32, the
+    output rounded once to bfloat16, as the kernel stores it."""
+    re32, im32 = dsp.to_mask_dtype(re, im)
+    y = istft((re32 * mask, im32 * mask), geo.scfg)[..., out_off : out_off + out_len]
+    return F.pad(y, (0, out_len - y.shape[-1])).to(re.dtype)
 
 
 def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
     """Masked inverse STFT of each row in the geometry's convention,
     returning only trimmed samples [out_off, out_off + out_len) as
     (rows, out_len); samples past the istft length (scipy's, or torch's
-    natural (T-1)*hop) are zero."""
+    natural (T-1)*hop) are zero. re/im float32 or bfloat16 (the bf16 mode:
+    the product, the inverse FFT, the overlap-add and the envelope in
+    float32, the output rounded to bfloat16 on store), the mask float32;
+    the output in the planes' dtype."""
     if _on_cpu(re, im, mask):
         return istft_ola_ref(re, im, mask, geo, out_off, out_len)
     return _istft_ola_on(geo.route, re, im, mask, geo, out_off, out_len)
@@ -524,10 +563,10 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
 
 def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
     """Launch kernel D's ``route`` on CUDA tensors, and count it."""
-    _check_cuda("istft_ola", re, im, mask)
+    plane = _check_cuda("istft_ola", re, im, mask, planes=2)
     rows, T, nb = re.shape
     j0, n_out = geo.out_blocks(out_off, out_len)
-    out = torch.empty((rows, out_len), dtype=torch.float32, device=re.device)
+    out = torch.empty((rows, out_len), dtype=re.dtype, device=re.device)
     dev = re.device
     if route == "product":
         _check_size(
@@ -536,7 +575,7 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
         tab = _device_f32("synthesis", geo.scfg, dev)
         win = _device_f32("window", geo.scfg, dev)
         _launch(
-            "istft_ola", dev, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
+            "istft_ola", dev, plane, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
             _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
             j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
         )
@@ -550,20 +589,20 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
                 _ptr(_device_f32("envelope", geo.scfg, dev)))
         if route == "fft" and geo.fft_real:
             _launch(
-                "istft_fft", dev, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+                "istft_fft", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
                 geo.n_fft, warps, *tail, _ptr(_device_f32("twiddle", geo.n_fft, dev)),
                 _ptr(out),
             )
         else:
             chirp, filt = _chirp_tables(geo, route, slot, dev)
             _launch(
-                "istft_cplx", dev, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+                "istft_cplx", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
                 geo.n_fft, slot, warps, *tail,
                 _ptr(_device_f32("twiddle", 2 * slot, dev)),
                 _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
                 _ptr_or_null(filt), _ptr(out),
             )
-    _count_route(istft_ola, route)
+    _count(istft_ola, re.dtype, route)
     return out
 
 
@@ -606,6 +645,7 @@ def _self_threshold(db, mx, n_std):
 def stationary_mask_ref(re, im, thr, views_per_row, prop, taps, top_db=80.0,
                         n_std=None):
     """Plain version of ``stationary_mask``, with the kernel's dB formula."""
+    re, im = dsp.to_mask_dtype(re, im)
     views, _, nb = re.shape
     _check_thr(thr, views, views_per_row, nb)
     db = torch.log(torch.sqrt(re * re + im * im) + dsp.EPS_F64) * _DB_PER_NEPER
@@ -633,14 +673,16 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps, top_db=80.0,
     chunk views of one signal row share its threshold); or None, and then
     each view takes its own: mean + ``n_std`` * std (ddof 1) over frames of
     its clamped dB (TorchGate with no noise clip, torchgate.py:126-165),
-    accumulated in float64 and compared in float64.
+    accumulated in float64 and compared in float64. re/im float32 or
+    bfloat16 (the bf16 mode: read as they are, the math as for float32);
+    thr and the mask float32.
     """
     if thr is None and n_std is None:
         raise ValueError("stationary_mask: self statistics need n_std")
     ts = (re, im) if thr is None else (re, im, thr)
     if _on_cpu(*ts):
         return stationary_mask_ref(re, im, thr, views_per_row, prop, taps, top_db, n_std)
-    _check_cuda("stationary_mask", *ts)
+    plane = _check_cuda("stationary_mask", *ts, planes=2)
     views, T, nb = re.shape
     _check_thr(thr, views, views_per_row, nb)
     plan = TimeTilePlan(views, T, nb, len(taps), words=1 if len(taps) > 1 else 0,
@@ -655,17 +697,17 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps, top_db=80.0,
     own = thr is None
     sums = work(2, views, plan.n_segs, nb, dtype=torch.float64) if own else None
     th = work(views, nb, dtype=torch.float64) if own else None
-    raw = None if plan.fused else torch.empty_like(re)
-    out = torch.empty_like(re)
+    raw = None if plan.fused else _mask_like(re)
+    out = _mask_like(re)
     _launch(
-        "stationary_mask", re.device, _ptr(re), _ptr(im), _ptr_or_null(thr),
+        "stationary_mask", re.device, plane, _ptr(re), _ptr(im), _ptr_or_null(thr),
         nb if thr is not None and thr.ndim == 2 else 0, views_per_row,
         _ptr(maxima), _ptr(mx), _ptr_or_null(sums), _ptr_or_null(th),
         _ptr_or_null(raw), _ptr(out), _ptr(tap_t), len(taps), plan.halo, views,
         T, nb, prop, 1.0 - prop, dsp.EPS_F64, _DB_PER_NEPER, top_db,
         0.0 if n_std is None else n_std, plan.smem_bytes,
     )
-    stationary_mask.launches += 1
+    _count(stationary_mask, re.dtype)
     stationary_mask.cuda_launches = 3 + 2 * own + (not plan.fused)
     return out
 
@@ -675,6 +717,7 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps, top_db=80.0,
 # ---------------------------------------------------------------------------
 def torch_nonstationary_mask_ref(re, im, n_movemean, n_thresh, temp, prop, taps):
     """Plain version of ``torch_nonstationary_mask``."""
+    re, im = dsp.to_mask_dtype(re, im)
     mag = torch.sqrt(re * re + im * im)
     ma = dsp.moving_average_same(mag, n_movemean, axis=-2)  # float64 sums
     ratio = (mag - ma) / torch.where(ma == 0, 1.0, ma)
@@ -696,7 +739,9 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
     plane, float64 sums), a column scan into float64 prefixes, and a final
     pass over time tiles that slides each window on those prefixes (no cap
     on ``n_movemean``) and smooths from shared memory; 3 CUDA launches, 4
-    for taps whose halo does not fit the tile.
+    for taps whose halo does not fit the tile. re/im float32 or bfloat16
+    (the bf16 mode: read as they are, the math as for float32); the |Z|
+    plane and the mask float32.
     """
     if int(n_movemean) < 1:
         raise ValueError(f"torch_nonstationary_mask: n_movemean must be at least 1, "
@@ -706,7 +751,7 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
                          f"got {temp}")
     if _on_cpu(re, im):
         return torch_nonstationary_mask_ref(re, im, n_movemean, n_thresh, temp, prop, taps)
-    _check_cuda("torch_nonstationary_mask", re, im)
+    plane = _check_cuda("torch_nonstationary_mask", re, im, planes=2)
     views, T, nb = re.shape
     plan = TimeTilePlan(views, T, nb, len(taps), words=1 if len(taps) > 1 else 0,
                         seg_len=SEG_F)
@@ -717,19 +762,19 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
     def work(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=re.device)
 
-    mag = torch.empty_like(re)
+    mag = _mask_like(re)
     pre = work(views, plan.n_segs + 1, nb, dtype=torch.float64)
     offs = work(4, views, plan.n_segs, nb, dtype=torch.float64)
-    raw = None if plan.fused else torch.empty_like(re)
-    out = torch.empty_like(re)
+    raw = None if plan.fused else _mask_like(re)
+    out = _mask_like(re)
     _launch(
-        "torch_nonstationary_mask", re.device, _ptr(re), _ptr(im), _ptr(mag),
+        "torch_nonstationary_mask", re.device, plane, _ptr(re), _ptr(im), _ptr(mag),
         _ptr(pre), _ptr(offs), _ptr_or_null(raw), _ptr(out), _ptr(tap_t),
         len(taps), plan.halo, views, T, nb, int(n_movemean),
         *_movemean_offsets(int(n_movemean), plan.seg_len, plan.halo),
         n_thresh, temp, prop, 1.0 - prop, plan.smem_bytes,
     )
-    torch_nonstationary_mask.launches += 1
+    _count(torch_nonstationary_mask, re.dtype)
     torch_nonstationary_mask.cuda_launches = 3 if plan.fused else 4
     return out
 
@@ -806,7 +851,7 @@ def _fm_mask_on(route, z, b, thresh, slope):
         _ptr(out), n_cols, T, plan.cols, plan.lane_len, plan.tile_len, plan.n_tiles,
         (ctypes.c_double * len(k))(*k), thresh, slope, plan.smem_bytes,
     )
-    _count_route(fm_nonstationary_mask, plan.route)
+    _count(fm_nonstationary_mask, torch.float32, plan.route)
     fm_nonstationary_mask.cuda_launches = 3 if tiled else 1
     return out
 
@@ -833,14 +878,22 @@ ROUTES = ("fft", "chirp", "product")
 FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 
 
-def _count_route(fn, route: str) -> None:
-    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
+DTYPES = ("float32", "bfloat16")  # the plane types (``_PLANE_CODE``)
+
+
+def _count(fn, dtype: torch.dtype, route: str = None) -> None:
+    """Count one launch of ``fn``'s kernel: in ``launches``, by its planes'
+    dtype in ``dtype_launches`` and, for a kernel with routes, by route."""
     fn.launches += 1
+    fn.dtype_launches[str(dtype).removeprefix("torch.")] += 1
+    if route is not None:
+        setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.dtype_launches = dict.fromkeys(DTYPES, 0)
     for fn in ROUTED:
         for route in ROUTES:
             setattr(fn, f"{route}_launches", 0)
@@ -857,6 +910,13 @@ def route_counts() -> dict:
     {"spectra": {"fft": 1, "chirp": 0, "product": 0}, "istft_ola": {...}}."""
     return {fn.__name__: {route: getattr(fn, f"{route}_launches") for route in ROUTES}
             for fn in ROUTED}
+
+
+def dtype_counts() -> dict:
+    """Launches of every kernel by the dtype of its planes, e.g.
+    {"spectra": {"float32": 0, "bfloat16": 1}, ...}: a bf16 call launches
+    the bfloat16 variants of A, B, D, E and F (C and G take float32 only)."""
+    return {fn.__name__: dict(fn.dtype_launches) for fn in KERNELS}
 
 
 reset_launch_counts()

@@ -14,7 +14,11 @@ the float32 envelope where it exceeds 1e-11 (D). ``_torch_threshold_stats``
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode); a card tensor the
-kernels do not take goes to the staged twin (``dispatch.kernels_take``).
+kernels do not take (float64) goes to the staged twin
+(``dispatch.kernels_take``). A bfloat16 signal (the bf16 mode) runs A, F
+or E and D on bf16 planes and a bf16 output, the masks and the threshold in
+float32 (``_merged_torch_impl``'s fast mode, ``:202-224``, ``:279-283``);
+``staged_tpugate`` keeps the plain STFT's bf16 spectra around them.
 The TPU eligibility of ``fused_tpugate_supported`` (``:55``: win == n_fft,
 a 128-aligned hop, r in {2, 4}, n_movemean <= 512, VMEM) does not apply:
 A and D need a hop that divides n_fft and nothing else. For any other hop ``staged_tpugate``
@@ -49,7 +53,11 @@ from noisereduce_tpu_torch.ops.cuda.kernels import (
     stationary_mask,
     torch_nonstationary_mask,
 )
-from noisereduce_tpu_torch.ops.dsp import _torchgate_kernel_svd_np, torch_noise_db_threshold
+from noisereduce_tpu_torch.ops.dsp import (
+    _torchgate_kernel_svd_np,
+    mask_dtype,
+    torch_noise_db_threshold,
+)
 from noisereduce_tpu_torch.ops.precision import fused_with_twin
 from noisereduce_tpu_torch.ops.stft import istft, stft
 from noisereduce_tpu_torch.parallel.chunking import grouped_cores, process_chunked
@@ -139,7 +147,7 @@ def _mask(re, im, gate, thr=None):
         )
     else:
         mask = stationary_mask(
-            re, im, thr.to(re.dtype).contiguous(), re.shape[0] // thr.shape[0],
+            re, im, thr.to(mask_dtype(re.dtype)).contiguous(), re.shape[0] // thr.shape[0],
             gate.prop_decrease, time_taps, top_db=40.0,
         )
     return freq_smooth_blend(mask, np.asarray(freq_taps), 1.0)
@@ -223,7 +231,7 @@ def staged_tpugate(x: torch.Tensor, xn, gate) -> torch.Tensor:
         if not gate.nonstationary and b is not None:
             rn, in_ = stft(b if b.ndim == 2 else b[None], scfg)
             thr = torch_noise_db_threshold(rn, in_, gate.n_std_thresh_stationary)
-        mask = _mask(re, im, gate, thr)
+        mask = _mask(re, im, gate, thr).to(re.dtype)
         return istft((re * mask, im * mask), scfg)
 
     return fused_with_twin(forward, lambda a, b: _staged_twin(gate, a, b), x, xn)

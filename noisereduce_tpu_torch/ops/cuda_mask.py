@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from noisereduce_tpu_torch.ops.cuda.kernels import fm_nonstationary_mask, nonstationary_mask
-from noisereduce_tpu_torch.ops.dsp import ewma_filtfilt, sigmoid
+from noisereduce_tpu_torch.ops.dsp import ewma_filtfilt, sigmoid, to_mask_dtype
 from noisereduce_tpu_torch.ops.precision import fused_with_twin
 
 __all__ = ["fused_nonstationary_mask", "fused_nonstationary_mask_tm"]
@@ -35,7 +35,9 @@ def _mask_impl(Z, b, thresh_mult, slope):
 
 
 def _mask_impl_tm(re, im, b, thresh_mult, slope):
-    """Differentiable twin of kernel B with one unit tap, time-major."""
+    """Differentiable twin of kernel B with one unit tap, time-major; float32
+    for bfloat16 planes, as the kernel's mask."""
+    re, im = to_mask_dtype(re, im)
     mag = torch.sqrt(re * re + im * im)
     floor = ewma_filtfilt(mag, b, axis=-2)
     return sigmoid((mag - floor) / floor, -thresh_mult, slope)
@@ -57,7 +59,9 @@ def fused_nonstationary_mask(Z: torch.Tensor, b: float, thresh_mult: float,
 def fused_nonstationary_mask_tm(re: torch.Tensor, im: torch.Tensor, b: float,
                                 thresh_mult: float, slope: float) -> torch.Tensor:
     """The same mask of time-major (..., T, F) re/im planes through kernel B
-    with one unit tap. Differentiable: the cotangent comes from
+    with one unit tap: float32 or bfloat16 planes (read as they are; the JAX
+    package upcasts them before its kernel, ``pallas_mask.py:342-343``), a
+    float32 mask. Differentiable: the cotangent comes from
     ``_mask_impl_tm``."""
     def forward(r, i):
         T, nb = r.shape[-2:]

@@ -9,6 +9,15 @@ average as a float64 prefix sum) rather than ``conv1d``: on a CUDA card a
 float32 ``conv1d`` goes through cuDNN in TF32 by default (about three
 decimal digits), and these are the plain versions the kernels are held
 against.
+
+In the bf16 mode (``compute_dtype=torch.bfloat16``) the spectra are
+bfloat16 and the gating decisions float32 (``mask_dtype``, the JAX
+package's ``models/spectral_gate.py::_mask_dtype``, ``:73``): the noise
+thresholds widen bfloat16 spectra to float32, ``ewma_filtfilt`` carries a
+bfloat16 input in float64 as it does a float32 one, and ``conv_same``
+accumulates a bfloat16 input in float32 and rounds once, the float32
+accumulators of ``noisereduce_tpu/ops/dsp.py`` (``:210``, ``:412``,
+``:466``).
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "mask_dtype",
+    "to_mask_dtype",
     "amp_to_db",
     "noise_db_threshold",
     "torch_noise_db_threshold",
@@ -39,6 +50,21 @@ __all__ = [
 EPS_F64 = float(np.finfo(np.float64).eps)
 
 
+def mask_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the mask-decision math for spectra of ``dtype``: dB
+    statistics, threshold compares, the IIR floor and the sigmoid run in
+    float32 for bfloat16 spectra (bf16's ~3 significant digits bias the
+    statistics and flip threshold compares), in the spectra's own dtype
+    otherwise (``_mask_dtype``, ``spectral_gate.py:73``)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def to_mask_dtype(*ts: torch.Tensor) -> tuple:
+    """``ts`` in their ``mask_dtype``: bfloat16 widened to float32 (exact),
+    any other dtype as it is."""
+    return tuple(t.to(mask_dtype(t.dtype)) for t in ts)
+
+
 def amp_to_db(
     x: torch.Tensor, top_db: float = 80.0, eps: float = EPS_F64, axis: int = -1
 ) -> torch.Tensor:
@@ -53,7 +79,9 @@ def amp_to_db(
 def noise_db_threshold(re: torch.Tensor, im: torch.Tensor, n_std: float) -> torch.Tensor:
     """Stationary per-bin threshold from noise spectra (..., frames, bins):
     mean + n_std * std over frames of the dB spectrogram, ddof 0
-    (stationary.py:67-81). Returns (..., bins)."""
+    (stationary.py:67-81). Returns (..., bins), float32 for bfloat16
+    spectra."""
+    re, im = to_mask_dtype(re, im)
     db = amp_to_db(torch.sqrt(re * re + im * im), top_db=80.0, axis=-2)
     mean = db.mean(dim=-2)
     std = db.std(dim=-2, correction=0)
@@ -65,7 +93,8 @@ def torch_noise_db_threshold(re: torch.Tensor, im: torch.Tensor, n_std: float) -
     (..., frames, bins): the dB spectrogram floored at max - 40 dB, then
     mean + n_std * std over frames, ddof 1 (torchgate.py:126-165;
     ``torch_dispatch.py::_torch_threshold_stats``, ``:169``). Returns
-    (..., bins)."""
+    (..., bins), float32 for bfloat16 spectra."""
+    re, im = to_mask_dtype(re, im)
     db = amp_to_db(torch.sqrt(re * re + im * im), top_db=40.0, axis=-2)
     return db.mean(dim=-2) + db.std(dim=-2, correction=1) * n_std
 
@@ -105,10 +134,13 @@ def tri_norm(n_grad: int) -> np.ndarray:
 def conv_same(x: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
     """'same' cross-correlation of ``x`` along ``dim`` with odd-length
     ``taps``, reading zeros outside the axis:
-    out[i] = sum_d taps[d] * x[i + d - n], n = len(taps)//2."""
+    out[i] = sum_d taps[d] * x[i + d - n], n = len(taps)//2; a bfloat16
+    ``x`` is summed in float32 and rounded once."""
     n = len(taps) // 2
     if n == 0:
         return x * float(taps[0])
+    if x.dtype == torch.bfloat16:
+        return conv_same(x.float(), taps, dim).to(x.dtype)
     length = x.shape[dim]
     xm = x.movedim(dim, -1)
     xp = F.pad(xm, (n, n))
@@ -207,11 +239,12 @@ def ewma_filtfilt(x: torch.Tensor, b: float, axis: int = -1) -> torch.Tensor:
     lfilter_zi initial conditions, so y starts at the first sample in each
     direction (nonstationary.py:115; ``noisereduce_tpu/ops/dsp.py:491``).
 
-    A float32 input is filtered in float64 and the result rounded once: a
-    float32 state takes about 1/b roundings into each value (b ~ 0.003 at
-    48 kHz), where the JAX package's blockwise scan takes a few."""
+    A float32 (or bfloat16) input is filtered in float64 and the result
+    rounded once: a float32 state takes about 1/b roundings into each value
+    (b ~ 0.003 at 48 kHz), where the JAX package's blockwise scan takes a
+    few."""
     xm = x.movedim(axis, -1)
-    if xm.dtype == torch.float32:
+    if xm.dtype in (torch.float32, torch.bfloat16):
         xm = xm.to(torch.float64)
     fwd = _ewma_forward(xm, b)
     bwd = _ewma_forward(fwd.flip(-1), b).flip(-1)

@@ -19,6 +19,13 @@ package's internal pipelines use (``time_major=True, split=True``).
 
 Window and envelope tables are built in float64 numpy and cast to the
 compute dtype, like the JAX package's trace-time constants.
+
+bfloat16 (the bf16 mode) keeps the JAX staged path's rounding points
+(``noisereduce_tpu/ops/stft.py:240-290``, ``:330-360``): frames times the
+window in bfloat16, the FFT in float32 (``torch.fft`` takes no bfloat16),
+re/im rounded to bfloat16 and scaled there; the inverse FFT in float32,
+its frames rounded to bfloat16, the window, the overlap-add and the
+envelope division in bfloat16.
 """
 from __future__ import annotations
 
@@ -93,11 +100,17 @@ def stft(x: torch.Tensor, cfg: StftConfig):
     frames = xp[..., :need].unfold(-1, win, hop)  # (..., n_frames, win)
     w = _analysis_window_np(cfg)
     frames = frames * _const(w, x)
-    Z = torch.fft.rfft(frames, n=cfg.n_fft, dim=-1)
+    Z = torch.fft.rfft(_fft_operand(frames), n=cfg.n_fft, dim=-1)
+    re, im = Z.real.to(x.dtype), Z.imag.to(x.dtype)
     if cfg.convention != Convention.SCIPY:
-        return Z.real, Z.imag
-    scale = 1.0 / float(w.sum())
-    return Z.real * scale, Z.imag * scale
+        return re, im
+    scale = _const(np.float64(1.0 / w.sum()), re)
+    return re * scale, im * scale
+
+
+def _fft_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as ``torch.fft`` takes it: bfloat16 widened to float32."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
@@ -119,8 +132,9 @@ def istft(Z, cfg: StftConfig) -> torch.Tensor:
     re, im = Z
     hop, win = cfg.hop_length, cfg.frame_length
     n_frames = re.shape[-2]
-    frames = torch.fft.irfft(torch.complex(re, im), n=cfg.n_fft, dim=-1)
-    frames = frames[..., :win]
+    frames = torch.fft.irfft(
+        torch.complex(_fft_operand(re), _fft_operand(im)), n=cfg.n_fft, dim=-1)
+    frames = frames[..., :win].to(re.dtype)
     w = _analysis_window_np(cfg)
     norm = _ola_norm_np(cfg, n_frames)
     if cfg.convention == Convention.SCIPY:

@@ -129,10 +129,11 @@ def test_cuda_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(stationary=True, compute_dtype=torch.bfloat16), NotImplementedError),
-    (dict(use_torch=True, compute_dtype=torch.bfloat16), NotImplementedError),
+    # bfloat16 is ported (tests/test_torch_bf16.py); float16 is not
+    (dict(stationary=True, compute_dtype=torch.float16), NotImplementedError),
+    (dict(use_torch=True, compute_dtype=torch.float16), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),  # use_tqdm=True is ported
-    (dict(compute_dtype=torch.bfloat16), NotImplementedError),
+    (dict(compute_dtype=torch.float16), NotImplementedError),
     (dict(freq_mask_smooth_hz=5), ValueError),
 ])
 def test_unported_and_invalid_arguments_raise(kw, err):

@@ -29,7 +29,15 @@ geometry's route only. A float64 card tensor runs the staged twins, within
 1e-9 x max|ref| of the same call on the CPU, and launches no kernel.
 ``reduce_noise_file`` (its pinned two-deep pipeline too) and
 ``StreamingGate`` are held to ``reduce_noise`` on the card end to end.
+The bf16 mode's kernels (the bfloat16 builds of A, B, D, E and F) are held
+to their plain versions on the same bf16 inputs (A's planes and D's output
+within one bf16 ulp plus the float32 bound, the masks at the float32
+bounds), on every route of A and D; the entry points
+launch only the bfloat16 builds and stay within the envelopes of
+tests/test_bfloat16_mode.py against the float32 kernels.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -958,6 +966,170 @@ def test_freq_smooth_blend_takes_a_plane_off_16_byte_alignment(cuda, offset):
     got = K.freq_smooth_blend(mo, taps, 0.8)
     assert _max(got - K.freq_smooth_blend_ref(m, taps, 0.8)) <= 1e-6
     assert torch.equal(got, K.freq_smooth_blend(m, taps, 0.8))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 mode: the bfloat16 builds of A, B, D, E and F
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+
+
+def _bf16_ulp(t):
+    """One bfloat16 ulp at |t| (0 at zero): 2^(e - 8) for |t| in [2^(e-1), 2^e)."""
+    a = t.float().abs()
+    _, e = torch.frexp(a)
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8), torch.zeros_like(a))
+
+
+def _hold_bf16(got, ref, f32_tol):
+    """A bf16 kernel's planes or output against its plain version's: the
+    same dtype, and each element within one bf16 ulp of the larger of the
+    two plus the float32 bound. The kernel and the plain version compute
+    float32 values within that bound and each rounds once, so two values on
+    either side of a rounding boundary land one ulp apart: up to 2^-7 of
+    the value, never less than 2^-8."""
+    assert got.dtype == ref.dtype == BF16
+    g, r = got.float(), ref.float()
+    ulp = _bf16_ulp(torch.maximum(g.abs(), r.abs()))
+    assert bool(((g - r).abs() <= ulp + f32_tol * _max(r)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("convention", ["scipy", "torch"])
+@pytest.mark.parametrize("kw", ROUTE_GEOMS, ids=ROUTE_IDS)
+def test_bf16_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
+    """A and D's bfloat16 builds on every route against their plain
+    versions on the same bf16 signal and planes: A's planes and D's output
+    within one bf16 ulp plus the float32 bound; each launch counted as
+    bfloat16 on its route."""
+    extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
+    geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
+    route = fft_route(geo.scfg)
+    tol = 2e-5 if convention == "scipy" else 1e-5
+    rng = np.random.default_rng(27)
+    x = torch.as_tensor(rng.standard_normal((2, 30000)), dtype=BF16, device=cuda)
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, 8000, 1500)
+    rre, rim = K.spectra_ref(x, geo, 8000, 1500)
+    _hold_bf16(re, rre, tol)
+    _hold_bf16(im, rim, tol)
+    mask = torch.as_tensor(rng.random(re.shape), dtype=torch.float32, device=cuda)
+    for out_off, out_len in ((1500, 8000), (0, 11000), (9000, 3000)):
+        _hold_bf16(K.istft_ola(re, im, mask, geo, out_off, out_len),
+                          K.istft_ola_ref(re, im, mask, geo, out_off, out_len), tol)
+    assert K.route_counts() == {"spectra": _routes(route)["spectra"],
+                                "istft_ola": _routes(route, 3)["istft_ola"]}
+    assert K.dtype_counts()["spectra"] == {"float32": 0, "bfloat16": 1}
+    assert K.dtype_counts()["istft_ola"] == {"float32": 0, "bfloat16": 3}
+    if route != "product":  # the product route's bf16 build at the same shapes
+        y = K._istft_ola_on("product", re, im, mask, geo, 1500, 8000)
+        _hold_bf16(y, K.istft_ola_ref(re, im, mask, geo, 1500, 8000), tol)
+        pre, pim = K._spectra_on("product", x, geo, 8000, 1500)
+        _hold_bf16(pre, rre, tol)
+        _hold_bf16(pim, rim, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", (0, 9, 400, 800), ids=["h0", "h9", "h400", "h800"])
+@pytest.mark.parametrize("shape", [(2, 5, 65), (2, 65, 40), (3, 150, 513), (2, 1000, 129)],
+                         ids=["T5", "T65", "T150", "T1000"])
+def test_bf16_mask_kernels_match_plain_versions(cuda, shape, half):
+    """B, E (a clip's threshold and each view's own statistics) and F read
+    bf16 planes: their float32 masks hold the plain versions on the same
+    bf16 planes at the float32 bounds (B 1e-4, F 1e-5, E's rule), through
+    the halo in the tile and past it; each launch counted as bfloat16."""
+    re, im = (t.to(BF16) for t in _tile_planes(shape, 150 + half, cuda))
+    taps = tri_norm(half)
+    cfg = GateConfig(sr=16000)
+    K.reset_launch_counts()
+    b = (re, im, cfg.iir_b, 2.0, 10.0, taps)
+    got = K.nonstationary_mask(*b)
+    assert got.dtype == torch.float32
+    assert _max(got - K.nonstationary_mask_ref(*b)) <= 1e-4
+    thr = torch.as_tensor(np.random.default_rng(151).normal(-20, 10, shape[-1]),
+                          dtype=torch.float32, device=cuda)
+    for e in ((re, im, thr, 1, 0.8, taps), (re, im, None, 1, 0.8, taps)):
+        kw = dict(top_db=40.0, n_std=1.5) if e[2] is None else {}
+        _e_within_rule(K.stationary_mask(*e, **kw), K.stationary_mask_ref(*e, **kw))
+    f = (re, im, 20, 1.3, 0.1, 0.8, taps)
+    assert _max(K.torch_nonstationary_mask(*f) - K.torch_nonstationary_mask_ref(*f)) <= 1e-5
+    counts = K.dtype_counts()
+    assert counts["nonstationary_mask"] == {"float32": 0, "bfloat16": 1}
+    assert counts["stationary_mask"] == {"float32": 0, "bfloat16": 2}
+    assert counts["torch_nonstationary_mask"] == {"float32": 0, "bfloat16": 1}
+
+
+# engine -> (keywords, the kernels it launches in bf16, their f32 twins that must not run)
+BF16_ENGINES = {
+    "nonstationary": (dict(), ("spectra", "nonstationary_mask", "istft_ola")),
+    "stationary": (dict(stationary=True), ("spectra", "stationary_mask", "istft_ola")),
+    "torch": (dict(use_torch=True), ("spectra", "torch_nonstationary_mask", "istft_ola")),
+    "torch-stationary": (dict(use_torch=True, stationary=True),
+                         ("spectra", "stationary_mask", "istft_ola")),
+}
+# rel max, rel rms of the bf16 output against float32 (tests/test_bfloat16_mode.py)
+BF16_ENVELOPES = {"nonstationary": (2.5e-2, 1.2e-2), "stationary": (1.5e-1, 1.0e-1),
+                  "torch": (5e-2, None), "torch-stationary": (1.5e-1, 1.0e-1)}
+
+
+def _rel_devs(a, b):
+    d = a.astype(np.float64) - b.astype(np.float64)
+    a64 = a.astype(np.float64)
+    return np.abs(d).max() / np.abs(a64).max(), np.sqrt((d**2).mean() / (a64**2).mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunked", [False, True], ids=["unchunked", "chunked"])
+@pytest.mark.parametrize("engine", list(BF16_ENGINES))
+def test_bf16_reduce_noise_on_card(cuda, engine, chunked):
+    """``compute_dtype=torch.bfloat16`` on the card: the bf16 builds of A,
+    the mask kernel and D run, no float32 build of them does, C runs in
+    float32, and the output (the input's dtype) is within the pinned
+    envelope of the float32 kernels' output."""
+    kw, kernels = BF16_ENGINES[engine]
+    y = np.random.default_rng(160).standard_normal((2, 48000)).astype(np.float32)
+    if chunked:
+        kw = dict(kw, chunk_size=20000, padding=4000)
+    f32 = nrt.reduce_noise(y, 48000, **kw)
+    K.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the stationary bf16 warning
+        b16 = nrt.reduce_noise(y, 48000, compute_dtype=BF16, **kw)
+    counts = K.dtype_counts()
+    for k in kernels:
+        assert counts[k]["bfloat16"] >= 1 and counts[k]["float32"] == 0, (k, counts)
+    assert counts["freq_smooth_blend"] == {"float32": 1, "bfloat16": 0}
+    assert b16.dtype == np.float32 and b16.shape == y.shape
+    rel_max, rel_rms = _rel_devs(f32, b16)
+    max_env, rms_env = BF16_ENVELOPES[engine]
+    assert rel_max <= max_env and (rms_env is None or rel_rms <= rms_env), (rel_max, rel_rms)
+
+
+@pytest.mark.gpu
+def test_bf16_card_tensor_takes_the_kernels(cuda):
+    """A bf16 card tensor goes to the kernels (``kernels_take``), never to a
+    staged twin or the float32 builds; ``TPUGate`` returns bf16 and a
+    grouped call is bitwise the ungrouped one."""
+    from noisereduce_tpu_torch.ops.cuda.dispatch import kernels_take
+
+    x = torch.as_tensor(np.random.default_rng(161).standard_normal((2, 24000)), dtype=BF16,
+                        device=cuda)
+    assert kernels_take(x) and not kernels_take(x.double())
+    gate = nrt.TPUGate(sr=16000, nonstationary=True)
+    K.reset_launch_counts()
+    out = gate(x)
+    assert out.dtype == BF16 and bool(torch.isfinite(out.float()).all())
+    counts = K.dtype_counts()
+    for k in TORCH_NONSTATIONARY:
+        want = {"float32": 0, "bfloat16": 1} if k != "freq_smooth_blend" else {
+            "float32": 1, "bfloat16": 0}
+        assert counts[k] == want, (k, counts)
+    ref = gate(x.float())
+    assert _max(out.float() - ref) <= 5e-2 * _max(ref)
+    y = np.random.default_rng(162).standard_normal((2, 21200)).astype(np.float32)
+    kw = dict(chunk_size=4000, padding=1000, compute_dtype=BF16)
+    whole = nrt.reduce_noise(y, 16000, **kw)
+    assert np.array_equal(nrt.reduce_noise(y, 16000, max_parallel_chunks=2, **kw), whole)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """PyTorch port: the dtype rule of the dispatch. The kernels take float32
-on the card; a card tensor of another dtype (float64) goes to the staged
+and bfloat16 on the card; a card tensor of another dtype (float64) goes to the staged
 twins, as the JAX package sends a dtype its kernels do not take to its
 staged path on any device (noisereduce_tpu/models/spectral_gate.py:115-119),
 and the kernel wrappers keep raising on it (tests/test_torch_cuda.py holds
@@ -41,11 +41,14 @@ def _on(device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float16, torch.bfloat16])
 def test_card_tensors_of_other_dtypes_never_reach_the_kernels(dtype):
+    """float64 and float16 card tensors never reach the kernels; bfloat16
+    ones do (the bf16 mode runs the kernels' bfloat16 builds)."""
     cfg, gate = GateConfig(sr=16000), nrt.TPUGate(sr=16000, nonstationary=True)
     card, card32 = _on("cuda:0", dtype), _on("cuda", torch.float32)
-    assert not dispatch.kernels_take(card)
-    assert not dispatch.fused_gate_supported(cfg, card)
-    assert not torch_dispatch.fused_tpugate_supported(gate, card)
+    takes = dtype == torch.bfloat16
+    assert dispatch.kernels_take(card) == takes
+    assert dispatch.fused_gate_supported(cfg, card) == takes
+    assert torch_dispatch.fused_tpugate_supported(gate, card) == takes
     assert dispatch.kernels_take(card32) and dispatch.fused_gate_supported(cfg, card32)
     assert torch_dispatch.fused_tpugate_supported(gate, card32)
     # on the CPU every dtype runs the kernels' plain versions (the parity mode)

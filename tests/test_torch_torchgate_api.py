@@ -161,7 +161,8 @@ def test_n_jobs_must_be_one_with_use_torch():
 @pytest.mark.parametrize("kw,err", [
     # use_tqdm=True is ported; with a mesh, which is not, it raises
     (dict(use_tqdm=True, mesh=object()), NotImplementedError),
-    (dict(compute_dtype=torch.bfloat16), NotImplementedError),
+    # bfloat16 is ported (tests/test_torch_bf16.py); with a mesh it still raises
+    (dict(compute_dtype=torch.bfloat16, mesh=object()), NotImplementedError),
     (dict(prop_decrease=1.5), ValueError),
     (dict(freq_mask_smooth_hz=5), ValueError),
 ], ids=["tqdm", "bf16", "prop", "smoothing"])
