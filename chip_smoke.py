@@ -119,17 +119,30 @@ last line is printed only when every phase passed):
     (events and host wall) against the 100 ms block period; and
     ``python -m noisereduce_tpu_torch`` in a subprocess, its output equal
     to ``reduce_noise_file``'s;
-16. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
+16. mesh (``mesh_phase``): the headline, the stationary headline and the
+    torch headline with ``mesh=chunk_mesh()`` and with ``(cuda:0,) * 4``,
+    the headline on the latter also with ``max_parallel_chunks=8``, and
+    the 960 s file through ``reduce_noise_file(mesh=(cuda:0,) * 4)``, each
+    bitwise its ``mesh=None`` call with each kernel launched once a shard
+    (per-device counts), timed and its peak device memory beside the
+    ``mesh=None`` call's;
+17. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
     mean(gate(x)**2), at batch 16 and 256 of 4 s; ``gate_nonstationary``
-    and ``gate_stationary`` the same way; each time the value under grad
-    against the ``torch.no_grad()`` value (bitwise), the launches of the
-    forward pass (the backward pass launches none), the gradient against
-    the float64 staged twin on the card, and forward + backward timed;
-    then the notebook-3.0 loop, a 31-tap FIR in front of the gate trained
-    for 5 Adam steps at batch 256;
-17. one JSON line of per-kernel results, then the last line
+    and ``gate_stationary`` the same way; each time, under
+    ``NRTPU_COTANGENT_PRECISION=highest``, the value under grad against
+    the ``torch.no_grad()`` value (bitwise), the launches of the forward
+    pass (the backward pass launches none), the gradient against the
+    float64 staged twin on the card, and forward + backward timed; then in
+    the default mode (the bf16 cotangent) the value again bitwise, the
+    gradient not equal to ``highest``'s and within 5e-2 of it in
+    ||dev|| / ||ref|| (``TPUGate`` also in max|dev| / max|ref|, as the JAX
+    package's bench asserts), and the ``TPUGate`` step timed in both
+    modes; then the
+    notebook-3.0 loop, a 31-tap FIR in front of the gate trained for 5
+    Adam steps at batch 256 in the default mode;
+18. one JSON line of per-kernel results, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Each path's launches are counted from 0 just before it runs and read just
@@ -313,6 +326,13 @@ GRAD_VIEWS = 8
 # with TF32 off: float32 rounding of the spectra and of the floor, through
 # a sigmoid of slope 10, as the forward is held end to end: x max|ref|
 GRAD_BOUND = 5e-5
+# the default (bf16) cotangent against the uncast one: ||dev|| / ||uncast||
+# for every family, and max|dev| / max|uncast| for TPUGate, the check the
+# JAX package asserts on its device (bench.py:424-462). The max of the
+# scipy gates' is printed, not held: over 256 x 64,000 samples it reaches
+# 6e-2, where the JAX package's own bf16 cotangent of the same twin lands
+# as far (PERF.md section 6, PR 14)
+COTANGENT_BOUND = 5e-2
 FIR_TAPS, FIR_STEPS, FIR_LR = 31, 5, 3e-3
 # kernel C beyond the headline, each on kernel B's mask of the headline
 # signal's first samples read as `rows` rows of `n` samples at the
@@ -1374,8 +1394,10 @@ def stationary_reference(x, thr, cfg):
 
 
 def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
-    """Phase 16: rows 6 and 7 under grad, the training step of the three
-    gate families at batch 16 and 256, and the notebook-3.0 loop."""
+    """Phase 17: rows 6 and 7 under grad, the training step of the three
+    gate families at batch 16 and 256 (float64 checks under
+    ``NRTPU_COTANGENT_PRECISION=highest``, then the default bf16
+    cotangent), and the notebook-3.0 loop."""
     from noisereduce_tpu_torch.models.spectral_gate import (
         _gate_nonstationary_staged, gate_nonstationary, gate_stationary,
         stationary_noise_threshold,
@@ -1385,6 +1407,7 @@ def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    os.environ.pop("NRTPU_COTANGENT_PRECISION", None)  # the default mode: bf16
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
@@ -1435,6 +1458,8 @@ def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
             label = f"training step {name} (batch {batch} x {GRAD_SECONDS} s)"
             with torch.no_grad():
                 cot = randn(*fn(x).shape)
+            # the uncast cotangent, held to the float64 twin
+            os.environ["NRTPU_COTANGENT_PRECISION"] = "highest"
             (g,) = under_grad(K, label, fn, [x], cot, expected, launches)
             flips = ""
             if twin is None:
@@ -1446,26 +1471,46 @@ def gradient_phase(nr, K, card, launches, dev="cuda") -> None:
                     fail(f"{label}: a decision differs away from the threshold")
             x64 = x.double().requires_grad_()
             (r,) = torch.autograd.grad(twin(x64), x64, cot.double())
-            grad_check(label + flips, g, r, GRAD_BOUND)
-            del x64, r, g, cot
+            grad_check(label + ", highest" + flips, g, r, GRAD_BOUND)
+            del x64, r
+
+            # the default mode: float32 primals and the cotangent cast to bf16
+            del os.environ["NRTPU_COTANGENT_PRECISION"]
+            (gb,) = under_grad(K, label + ", default cotangent", fn, [x], cot, expected,
+                               launches)
+            gdev, scale = max_dev(gb, g)
+            rms = float((gb.double() - g.double()).norm() / g.double().norm())
+            same = torch.equal(gb, g)
+            held = rms <= COTANGENT_BOUND and (name != "TPUGate" or gdev <= COTANGENT_BOUND * scale)
+            print(f"{label}, default cotangent (bf16) vs highest: max|dev| {gdev:.3e} "
+                  f"({gdev / scale:.3e} x max|ref| {scale:.4g}), ||dev|| / ||ref|| {rms:.3e}, "
+                  f"bound {COTANGENT_BOUND:.0e} (the max held for TPUGate only), bitwise: {same}",
+                  flush=True)
+            if same or not held or not bool(torch.isfinite(gb).all()):
+                fail(f"{label}: the default cotangent is not the cast one within its bound")
+            del g, gb, cot
 
             xg = x.clone().requires_grad_()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
 
             def step():
                 xg.grad = None
                 (fn(xg) ** 2).mean().backward()
 
-            fwd_ms = time_ms(lambda: fn(xg))
-            step_ms = time_ms(step)
-            print(
-                f"{label}: forward + backward {step_ms:.2f} ms ({batch * GRAD_SECONDS / (step_ms / 1e3):.0f} "
-                f"audio s per wall s), forward under grad {fwd_ms:.2f} ms, backward "
-                f"share {1 - fwd_ms / step_ms:.1%}, peak memory of the timed steps "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, on {card}",
-                flush=True,
-            )
+            for mode in ("highest", "bf16") if name == "TPUGate" else ("highest",):
+                os.environ["NRTPU_COTANGENT_PRECISION"] = mode
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                fwd_ms = time_ms(lambda: fn(xg))
+                step_ms = time_ms(step)
+                print(
+                    f"{label}, cotangent {mode}: forward + backward {step_ms:.3f} ms "
+                    f"({batch * GRAD_SECONDS / (step_ms / 1e3):.0f} audio s per wall s), "
+                    f"forward under grad {fwd_ms:.3f} ms, backward share "
+                    f"{1 - fwd_ms / step_ms:.1%}, peak memory of the timed steps "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, on {card}",
+                    flush=True,
+                )
+            del os.environ["NRTPU_COTANGENT_PRECISION"]
             del xg
 
     # the notebook-3.0 loop: a learnable FIR in front of the gate
@@ -1513,6 +1558,17 @@ def hold(label, got, ref, what="its in-memory call") -> bool:
     if not dev <= lim:
         fail(f"{label} disagrees with {what}")
     return bitwise
+
+
+def peak_mib(fn) -> float:
+    """The peak device memory that ``fn()`` adds to what was allocated
+    before it, MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -1776,6 +1832,104 @@ def streaming_phase(nr, K, card, launches, x) -> None:
 BF16 = torch.bfloat16
 # the kernels with a bfloat16 build (their re/im planes, A's signal, D's
 # output); C and G take float32 only
+MESH_SHARDS = 4  # the repeated-device mesh, (cuda:0,) * MESH_SHARDS
+MESH_PATHS = (  # label, reduce_noise keywords, its kernels, A's launches before the shards
+    ("headline", dict(), ("spectra", "nonstationary_mask", "freq_smooth_blend", "istft_ola"), 0),
+    ("stationary headline", dict(stationary=True),
+     ("spectra", "stationary_mask", "freq_smooth_blend", "istft_ola"), 1),
+    ("torch headline", dict(use_torch=True),
+     ("spectra", "torch_nonstationary_mask", "freq_smooth_blend", "istft_ola"), 0),
+)
+
+
+def mesh_phase(nr, K, card, launches, x, noise) -> None:
+    """Phase 16: chunk sharding over a ``ChunkMesh``. The headline, the
+    stationary headline (its threshold on the first device, copied to each)
+    and the torch headline with ``mesh=chunk_mesh()`` (the machine's cards)
+    and with ``(cuda:0,) * 4`` (four shards one after another on one card:
+    the partition, the broadcast and the assembly, not the scaling); the
+    headline on the second mesh also with ``max_parallel_chunks=8``; the
+    960 s file through ``reduce_noise_file(mesh=(cuda:0,) * 4)``. Each
+    output bitwise its ``mesh=None`` call, each kernel of the path launched
+    once a shard (once a group; per-device counts), and its time (CUDA
+    events, min of 3; the file: host wall, min of 2) and peak device memory
+    beside the ``mesh=None`` call's."""
+    import tempfile
+
+    from noisereduce_tpu_torch.parallel.chunking import mesh_ranges
+    from noisereduce_tpu_torch.parallel.mesh import ChunkMesh, chunk_mesh
+    from noisereduce_tpu_torch.utils import io as nrio
+
+    ck = dict(chunk_size=CHUNK, padding=PADDING)
+    n_chunks = (len(x) - 1) // CHUNK + 1
+    repeated = ChunkMesh((torch.device("cuda", 0),) * MESH_SHARDS)
+    meshes = {"chunk_mesh()": chunk_mesh(), f"(cuda:0,) * {MESH_SHARDS}": repeated}
+
+    def by_device(mesh, kernels, group=0, before=0):
+        """Each kernel of the path once a shard (a group of ``group``
+        chunks), by device; A ``before`` more on the first device."""
+        shard = {}
+        for dev, _, k in mesh_ranges(n_chunks, mesh):
+            shard[str(dev)] = shard.get(str(dev), 0) + (-(-k // group) if group else 1)
+        want = {name: dict(shard) for name in kernels}
+        first = str(mesh.devices[0])
+        want["spectra"][first] = want["spectra"].get(first, 0) + before
+        return want
+
+    def sharded(label, call, base, base_time, want, unit="ms"):
+        out, launches[label] = run_path(K, label, call,
+                                        {k: sum(v.values()) for k, v in want.items()})
+        got = {k: v for k, v in K.device_counts().items() if v}
+        bitwise = np.array_equal(out, base) if unit == "ms" else out == base
+        t = time_ms(call) if unit == "ms" else wall_s(call, reps=2)
+        mib = peak_mib(call)
+        print(f"{label}: bitwise the mesh=None output: {bitwise}; launches by device {got}; "
+              f"{t:.4f} {unit} against {base_time[0]:.4f} {unit} with mesh=None; peak device "
+              f"memory {mib:.1f} MiB against {base_time[1]:.1f} MiB, on {card}", flush=True)
+        if not bitwise:
+            fail(f"{label}: differs from the mesh=None output")
+        if got != want:
+            fail(f"{label}: launches by device {got}, expected {want}")
+
+    t0 = time.perf_counter()
+    for name, kw, kernels, before in MESH_PATHS:
+        kw = dict(kw, **ck, **({"y_noise": noise} if kw.get("stationary") else {}))
+        base = nr.reduce_noise(x, SR, **kw)
+        base_time = (time_ms(lambda kw=kw: nr.reduce_noise(x, SR, **kw)),
+                     peak_mib(lambda kw=kw: nr.reduce_noise(x, SR, **kw)))
+        for mesh_label, mesh in meshes.items():
+            sharded(f"{name}, mesh {mesh_label}",
+                    lambda kw=kw, mesh=mesh: nr.reduce_noise(x, SR, mesh=mesh, **kw),
+                    base, base_time, by_device(mesh, kernels, before=before))
+        if name == "headline":
+            sharded(f"{name}, mesh (cuda:0,) * {MESH_SHARDS}, max_parallel_chunks {GROUP_CHUNKS}",
+                    lambda kw=kw: nr.reduce_noise(x, SR, mesh=repeated,
+                                                  max_parallel_chunks=GROUP_CHUNKS, **kw),
+                    base, base_time, by_device(repeated, kernels, GROUP_CHUNKS))
+        del base
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "headline.wav")
+        nrio.write_wav(src, x, SR)  # PCM16
+        base_path, mesh_path = os.path.join(tmp, "base.wav"), os.path.join(tmp, "mesh.wav")
+        nr.reduce_noise_file(src, base_path)
+
+        def file_call(path, mesh=None):
+            nr.reduce_noise_file(src, path, mesh=mesh)
+            with open(path, "rb") as f:
+                return f.read()
+
+        with open(base_path, "rb") as f:
+            base = f.read()
+        base_time = (wall_s(lambda: file_call(base_path), reps=2),
+                     peak_mib(lambda: file_call(base_path)))
+        sharded(f"file headline, mesh (cuda:0,) * {MESH_SHARDS} (PCM16 bytes)",
+                lambda: file_call(mesh_path, repeated), base, base_time,
+                {k: {"cuda:0": n_chunks} for k in MESH_PATHS[0][2]}, unit="s")
+    print(f"mesh phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 PLANE_KERNELS = ("spectra", "nonstationary_mask", "istft_ola", "stationary_mask",
                  "torch_nonstationary_mask")
 # the bf16 output against float32: rel max, rel rms (None: not pinned), the
@@ -2269,14 +2423,6 @@ def main() -> None:
     # grouping: the headline in host-driven groups of GROUP_CHUNKS chunks
     # (max_parallel_chunks), bitwise the one-launch output, and the peak
     # device memory that each call adds to what was allocated before it
-    def peak_mib(fn):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base) / 2**20
-
     n_groups = -(-((len(x) - 1) // CHUNK + 1) // GROUP_CHUNKS)
     grouped, launches["headline, grouped"] = run_path(
         K, "headline, grouped",
@@ -2520,6 +2666,7 @@ def main() -> None:
     bf16_phase(nr, K, card, launches, x, noise, results)
 
     streaming_phase(nr, K, card, launches, x)
+    mesh_phase(nr, K, card, launches, x, noise)
     gradient_phase(nr, K, card, launches)
 
     main_path = {name: "headline" for name in SOURCES}

@@ -20,14 +20,20 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
   staged twins on the card (no kernel launches).
 - The JAX signature's tail is taken: ``method`` (accepted and unused: the
   kernels' route comes from the STFT geometry, ``geometry.fft_route``),
-  ``mesh`` (anything but None raises ``NotImplementedError``: a later
-  slice, ROADMAP.md Queue 1 item 7) and ``max_parallel_chunks`` (0: every
-  chunk in one launch of each kernel; g > 0: host-driven groups of g
-  chunks, so only one group's planes are on the card at a time).
-  ``use_tqdm=True`` shows a ``tqdm`` bar over those groups (g = 1 when
-  ``max_parallel_chunks`` is 0) for a signal longer than ``chunk_size``,
-  as the JAX package's ``_run_chunked_with_progress`` does; it needs
-  ``tqdm`` installed. Grouping does not change the output.
+  ``mesh`` (a ``parallel.mesh.ChunkMesh``, e.g. ``chunk_mesh()`` over the
+  host's cards: each device gates a contiguous range of the chunks from
+  its own slice of the signal, the stationary threshold computed once on
+  the first device and copied to the others, each device's cores copied
+  into their own columns of the one pinned host output; the mesh's devices
+  take the place of ``device``, and a signal of at most ``chunk_size``
+  samples runs unsharded on the first one) and ``max_parallel_chunks`` (0:
+  every chunk in one launch of each kernel; g > 0: host-driven groups of g
+  chunks, so only one group's planes are on the card at a time, per device
+  under a mesh). ``use_tqdm=True`` shows a ``tqdm`` bar over those groups
+  (g = 1 when ``max_parallel_chunks`` is 0) for a signal longer than
+  ``chunk_size``, as the JAX package's ``_run_chunked_with_progress`` does
+  (no bar with a mesh, as there); it needs ``tqdm`` installed. Neither
+  grouping nor a mesh changes the output.
 - Another ``compute_dtype`` (float16) raises ``NotImplementedError``.
   ``tmp_folder`` and ``n_jobs`` are accepted for compatibility (chunk
   fan-out is the kernels' batch axis, not a process pool), except that
@@ -54,37 +60,48 @@ from noisereduce_tpu_torch.ops.cuda.dispatch import (
     fused_gate_supported,
 )
 from noisereduce_tpu_torch.parallel.chunking import process_chunked
+from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 
 __all__ = ["reduce_noise", "reduce_noise_batch"]
 
 COMPUTE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
-MESH_LATER = ("mesh: the sharded path is a later slice of the PyTorch port "
-              "(ROADMAP.md, Queue 1 item 7); pass mesh=None")
 
 
-def _fused_chunked_ok(cfg: GateConfig, y2d: torch.Tensor, chunk_size: int) -> bool:
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, ChunkMesh):
+        raise TypeError(
+            "mesh must be None or a noisereduce_tpu_torch.parallel.mesh.ChunkMesh "
+            f"(e.g. chunk_mesh()), got {type(mesh).__name__}"
+        )
+
+
+def _fused_chunked_ok(cfg: GateConfig, y2d: torch.Tensor, chunk_size: int, mesh=None) -> bool:
     """Whole-body fused chunked path (views read straight from the signal)
     for signals longer than one chunk; shorter ones keep their exact
     unchunked view geometry (``api.py:50``)."""
-    return y2d.shape[-1] > chunk_size and fused_gate_supported(cfg, y2d)
+    return y2d.shape[-1] > chunk_size and fused_gate_supported(
+        cfg, y2d, None if mesh is None else mesh.devices[0])
 
 
-def _run_stationary(y2d, y_noise_mono, cfg, chunk_size, padding, group=0, progress=False):
+def _run_stationary(y2d, y_noise_mono, cfg, chunk_size, padding, group=0, progress=False,
+                    mesh=None):
     """Threshold from the noise rows, once, then the gate (``api.py:100``),
-    over groups of ``group`` chunks (``process_chunked``)."""
+    over groups of ``group`` chunks or sharded over ``mesh``
+    (``process_chunked``), the threshold copied to each device."""
     thresh = stationary_noise_threshold(y_noise_mono, cfg)
-    if _fused_chunked_ok(cfg, y2d, chunk_size):
-        return fused_gate_chunked(y2d, cfg, chunk_size, padding, thresh, group, progress)
+    if _fused_chunked_ok(cfg, y2d, chunk_size, mesh):
+        return fused_gate_chunked(y2d, cfg, chunk_size, padding, thresh, group, progress, mesh)
     return process_chunked(
-        lambda c: gate_stationary(c, thresh, cfg), y2d, chunk_size, padding, group, progress
+        lambda c, t: gate_stationary(c, t, cfg), y2d, chunk_size, padding, group, progress,
+        mesh, extra=(thresh,),
     )
 
 
-def _run_nonstationary(y2d, cfg, chunk_size, padding, group=0, progress=False):
-    if _fused_chunked_ok(cfg, y2d, chunk_size):
-        return fused_gate_chunked(y2d, cfg, chunk_size, padding, None, group, progress)
+def _run_nonstationary(y2d, cfg, chunk_size, padding, group=0, progress=False, mesh=None):
+    if _fused_chunked_ok(cfg, y2d, chunk_size, mesh):
+        return fused_gate_chunked(y2d, cfg, chunk_size, padding, None, group, progress, mesh)
     return process_chunked(
-        lambda c: gate_nonstationary(c, cfg), y2d, chunk_size, padding, group, progress
+        lambda c: gate_nonstationary(c, cfg), y2d, chunk_size, padding, group, progress, mesh
     )
 
 
@@ -131,21 +148,22 @@ def torch_gate_for(
 
 
 def _reduce_noise_torch_path(y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary,
-                             group=0, progress=False):
+                             group=0, progress=False, mesh=None):
     """The StreamedTorchGate engine: ``gate`` over halo'd chunks. The noise
     clip stays multichannel and, longer than the signal, is cut along its
     FIRST axis (the reference's quirk, streamed_torch_gate.py:57-58:
     samples for a 1-D clip, channels for a 2-D one). ``y_noise`` may also be
     a list of equal-length 1-D rows (``reduce_noise_batch``'s per-signal
-    clips)."""
+    clips). With ``mesh`` the clip goes to its first device, where the
+    statistics run."""
     yn = None
     if y_noise is not None:
         yn = y_noise if isinstance(y_noise, list) else np.asarray(y_noise)
         n_clip = yn[0].shape[-1] if isinstance(yn, list) else yn.shape[-1]
         if n_clip > y2d.shape[-1] and clip_noise_stationary:
             yn = yn[: y2d.shape[-1]]
-        yn = _to_tensor(yn, y2d.device, y2d.dtype)
-    return gate.chunked(y2d, chunk_size, padding, yn, group, progress)
+        yn = _to_tensor(yn, y2d.device if mesh is None else mesh.devices[0], y2d.dtype)
+    return gate.chunked(y2d, chunk_size, padding, yn, group, progress, mesh)
 
 
 def _as_2d(y: np.ndarray):
@@ -250,15 +268,20 @@ def reduce_noise(
     tmp_folder, n_jobs : accepted for reference compatibility
     method : accepted for the JAX signature ("auto", "fft", "matmul", ...);
         the kernels' route comes from the STFT geometry alone
-    mesh : None only; any other value raises ``NotImplementedError`` (the
-        sharded path is a later slice of the port, ROADMAP.md Queue 1 item 7)
+    mesh : None, or a ``parallel.mesh.ChunkMesh`` (``chunk_mesh()``: the
+        host's cards) whose devices take the place of ``device``: the
+        chunks of a signal longer than ``chunk_size`` are sharded over them
+        in contiguous ranges, each device gating its own from its own slice
+        of the signal, bitwise the unsharded output; anything else raises
+        ``TypeError``
     max_parallel_chunks : 0 gates every chunk in one launch of each kernel;
         g > 0 gates a signal of more than g chunks in host-driven groups of
         g chunks, one group's planes on the card at a time (bounded device
-        memory), the cores assembled on the card; the output is the same
+        memory; per device with a mesh), the cores assembled on the card;
+        the output is the same
     use_tqdm : a ``tqdm`` progress bar over the chunk groups (g = 1 when
         ``max_parallel_chunks`` is 0), for a signal longer than
-        ``chunk_size``; needs ``tqdm`` installed
+        ``chunk_size`` and no mesh; needs ``tqdm`` installed
 
     Returns a NumPy array with the input's shape and dtype.
     """
@@ -297,8 +320,7 @@ def _reduce_noise_deferred(
     del method  # the route comes from the STFT geometry (geometry.fft_route)
     if use_torch and n_jobs != 1:
         raise ValueError("n_jobs must be 1 when using torch version of spectral gating.")
-    if mesh is not None:
-        raise NotImplementedError(MESH_LATER)
+    _check_mesh(mesh)
     # validate the smoothing geometry eagerly, like the reference
     # constructors (spectralgate/base.py:99-128): same ValueErrors
     hop = _hop(n_fft, win_length, hop_length)
@@ -317,7 +339,9 @@ def _reduce_noise_deferred(
             "float32, or stationary=False for bf16 fast mode.",
             stacklevel=3,
         )
-    dev = _resolve_device(device)
+    # with a mesh the signal stays on the host, each device receiving its
+    # own slice, and the noise statistics run on the first device
+    dev = _resolve_device(device) if mesh is None else mesh.devices[0]
 
     if isinstance(y, list):  # reduce_noise_batch's rows of one group
         out_dtype, flat = y[0].dtype, False
@@ -325,10 +349,11 @@ def _reduce_noise_deferred(
         y = np.asarray(y)
         out_dtype = y.dtype
         y, flat = _as_2d(y)
-    y2d = _to_tensor(y, dev, cdtype)
+    y2d = _to_tensor(y, dev if mesh is None else torch.device("cpu"), cdtype)
     # the host-driven group loop under a bar, for a signal longer than a
-    # chunk (api.py:517), one chunk a group unless max_parallel_chunks says
-    progress = bool(use_tqdm) and y2d.shape[-1] > chunk_size
+    # chunk (api.py:517), one chunk a group unless max_parallel_chunks says;
+    # a mesh shows none
+    progress = bool(use_tqdm) and y2d.shape[-1] > chunk_size and mesh is None
     group = max_parallel_chunks or (1 if progress else 0)
 
     if use_torch:
@@ -345,7 +370,7 @@ def _reduce_noise_deferred(
         with torch.no_grad():
             out = _reduce_noise_torch_path(
                 y2d, gate, y_noise, chunk_size, padding, clip_noise_stationary, group,
-                progress,
+                progress, mesh,
             )
         return out, (out_dtype, flat)
 
@@ -366,22 +391,28 @@ def _reduce_noise_deferred(
     )
     with torch.no_grad():
         if not stationary:
-            out = _run_nonstationary(y2d, cfg, chunk_size, padding, group, progress)
+            out = _run_nonstationary(y2d, cfg, chunk_size, padding, group, progress, mesh)
         else:
             # noise clip handling (stationary.py:47-64; api.py:560-578):
             # default to y, mono collapse, clip to chunk_size samples
-            if isinstance(_noise_rows, str):  # "self": no second transfer
-                yn_mono = y2d
+            def own_rows():  # the signal's rows where the statistics run
+                if mesh is None:
+                    return y2d  # "self": no second transfer
+                return (y2d[..., :chunk_size] if clip_noise_stationary else y2d).to(dev)
+
+            if isinstance(_noise_rows, str):
+                yn_mono = own_rows()
             elif _noise_rows is not None:
                 yn_mono = _to_tensor(_noise_rows, dev, cdtype)
             else:
-                yn2d = y2d if y_noise is None else _to_tensor(
+                yn2d = own_rows() if y_noise is None else _to_tensor(
                     _as_2d(np.asarray(y_noise))[0], dev, cdtype
                 )
                 yn_mono = yn2d.mean(dim=0)
             if clip_noise_stationary:
                 yn_mono = yn_mono[..., :chunk_size]
-            out = _run_stationary(y2d, yn_mono, cfg, chunk_size, padding, group, progress)
+            out = _run_stationary(y2d, yn_mono, cfg, chunk_size, padding, group, progress,
+                                  mesh)
     return out, (out_dtype, flat)
 
 

@@ -201,7 +201,7 @@ class TPUGate(torch.nn.Module):
 
     def chunked(self, y2d: torch.Tensor, chunk_size: int, padding: int,
                 xn: Optional[torch.Tensor] = None, max_parallel_chunks: int = 0,
-                progress: bool = False) -> torch.Tensor:
+                progress: bool = False, mesh=None, axis_name: str = "chunks") -> torch.Tensor:
         """The reference's chunked body over (channels, n) (base.py:144-226):
         halo'd chunk views gated and their cores assembled, a signal of at
         most ``chunk_size`` samples padded by ``padding`` zeros each side
@@ -210,20 +210,25 @@ class TPUGate(torch.nn.Module):
         cores written. ``max_parallel_chunks`` > 0 or ``progress``: the
         chunks in groups of that many (1 for 0), one call of the gate a
         group, under a ``tqdm`` bar with ``progress``
-        (``parallel.chunking.chunk_groups``). (ch, n) -> (ch, n)."""
+        (``parallel.chunking.chunk_groups``). ``mesh`` (a
+        ``parallel.mesh.ChunkMesh``): the chunks sharded over its devices,
+        the noise clip's statistics copied to each, the output on
+        ``y2d``'s device (``parallel.chunking.shard_cores``). (ch, n) ->
+        (ch, n)."""
         ch, n = y2d.shape
-        if fused_tpugate_supported(self, y2d):
+        if fused_tpugate_supported(self, y2d, None if mesh is None else mesh.devices[0]):
             self._check(y2d, xn, ch, min(chunk_size, n) + 2 * padding)
             return fused_tpugate_chunked(y2d, self, chunk_size, padding, xn,
-                                         max_parallel_chunks, progress)
+                                         max_parallel_chunks, progress, mesh, axis_name)
 
-        def call(c):
+        def call(c, noise):
             if c.ndim == 3:  # (channels, n_chunks, view)
-                return self.batched_chunks(c, xn)
-            out = staged_tpugate(c, xn, self)
+                return self.batched_chunks(c, noise)
+            out = staged_tpugate(c, noise, self)
             return F.pad(out, (0, c.shape[-1] - out.shape[-1]))
 
-        return process_chunked(call, y2d, chunk_size, padding, max_parallel_chunks, progress)
+        return process_chunked(call, y2d, chunk_size, padding, max_parallel_chunks, progress,
+                               mesh, axis_name, (xn,))
 
     def _call_staged(self, x: torch.Tensor, xn: Optional[torch.Tensor] = None):
         """Staged pipeline in plain torch (``_call_jnp``, ``tpu_gate.py:243``),

@@ -17,8 +17,11 @@ host-driven groups, one launch of each kernel a group, the cores written
 into one output (the bound on live device memory that the JAX package's
 ``max_parallel_chunks`` gives). A view, a frame and a line are the same
 bits in either, so a grouped call is bitwise the ungrouped one on the
-card. ``fused_stationary_threshold`` (``:493``) takes the noise-clip
-spectra from A. There is no mesh.
+card. With a mesh (``parallel.mesh.ChunkMesh``) ``fused_gate_chunked``
+gives each device a contiguous range of the chunks, which it gates from
+its own slice of the signal, bitwise what the one device gives.
+``fused_stationary_threshold`` (``:493``) takes the noise-clip spectra
+from A.
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor the
 wrappers run their plain versions (the parity mode, float32 or float64).
@@ -76,21 +79,30 @@ def kernels_take(x: torch.Tensor) -> bool:
     return x.device.type == "cpu" or x.dtype in (torch.float32, torch.bfloat16)
 
 
-def fused_gate_supported(cfg: GateConfig, x: torch.Tensor) -> bool:
+def on_device(x: torch.Tensor, device=None) -> torch.Tensor:
+    """``x``, or an empty tensor of its dtype on ``device`` where the call
+    will run there (a mesh's first device), for ``kernels_take``."""
+    return x if device is None else torch.empty(0, dtype=x.dtype, device=device)
+
+
+def fused_gate_supported(cfg: GateConfig, x: torch.Tensor, device=None) -> bool:
     """Whether kernels A-D serve this configuration and the signal ``x``
-    (``kernels_take``). Unlike the TPU predicate (``dispatch.py:379``)
-    there is no VMEM budget, no lane alignment and no cap on n_grad_time:
-    only the STFT geometry and the dtype matter."""
-    return kernels_supported(cfg.stft) and kernels_take(x)
+    (``kernels_take``), on ``device`` where it will run there. Unlike the
+    TPU predicate (``dispatch.py:379``) there is no VMEM budget, no lane
+    alignment and no cap on n_grad_time: only the STFT geometry and the
+    dtype matter."""
+    return kernels_supported(cfg.stft) and kernels_take(on_device(x, device))
 
 
-def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None, chunks=None):
+def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None, chunks=None,
+                      src_start=0):
     """(rows, n) -> gated views: each whole row (``chunk_size`` 0;
     (rows, n) out) or the core [padding, padding + chunk_size) of each
     halo'd chunk view ((rows*n_chunks, chunk_size) out; with ``chunks`` =
-    (first, count), of those chunks only), zero filled past the istft's
-    end. ``noise_thresh`` (a (bins,) or per-row (rows, bins) dB threshold)
-    selects the stationary gate."""
+    (first, count), of those chunks only, ``x`` holding the signal from
+    sample ``src_start`` on: a device's slice under a mesh), zero filled
+    past the istft's end. ``noise_thresh`` (a (bins,) or per-row (rows,
+    bins) dB threshold) selects the stationary gate."""
     n = x.shape[-1]
     if chunk_size:
         view_len, out_off, out_len = chunk_size + 2 * padding, padding, chunk_size
@@ -98,7 +110,7 @@ def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None, chunks
         view_len, out_off, out_len = n, 0, n
     geo = gate_geometry(cfg.stft, view_len)
     n_grad_freq, n_grad_time = cfg.smoothing or (0, 0)
-    re, im = spectra(x, geo, chunk_size, padding, chunks)
+    re, im = spectra(x, geo, chunk_size, padding, chunks, src_start)
     if noise_thresh is None:
         mask = nonstationary_mask(
             re, im, cfg.iir_b, cfg.thresh_n_mult_nonstationary,
@@ -158,7 +170,8 @@ def fused_gate_stationary(
 
 def fused_gate_chunked(
     y2d: torch.Tensor, cfg: GateConfig, chunk_size: int, padding: int,
-    noise_thresh=None, group: int = 0, progress: bool = False,
+    noise_thresh=None, group: int = 0, progress: bool = False, mesh=None,
+    axis_name: str = "chunks",
 ) -> torch.Tensor:
     """The whole chunked body (reference base.py:144-226): chunk i of each
     row is the view of source samples [i*cs - padding, (i+1)*cs + padding),
@@ -168,24 +181,39 @@ def fused_gate_chunked(
     ``noise_thresh``, (bins,) or per-row (ch, bins), selects the stationary
     gate; every chunk of row c reads row c. ``group`` > 0 or ``progress``:
     the chunks in groups of ``group`` (1 for 0; ``parallel.chunking.
-    grouped_cores``)."""
+    grouped_cores``). ``mesh`` (a ``parallel.mesh.ChunkMesh``): the chunks
+    sharded over its devices (``parallel.chunking.shard_cores``, the mesh
+    branch of ``_fused_chunked_impl``, ``:1071-1094``): each device reads
+    its range's views from its own slice of the signal and runs A, B or E,
+    C and D over them (in groups of ``group`` chunks, no bar), the
+    threshold copied to each; the output lands on ``y2d``'s device."""
     from noisereduce_tpu_torch.models.spectral_gate import (
         _gate_nonstationary_staged, _gate_stationary_staged,
     )
-    from noisereduce_tpu_torch.parallel.chunking import grouped_cores, process_chunked
+    from noisereduce_tpu_torch.parallel.chunking import (
+        grouped_cores, process_chunked, shard_cores,
+    )
 
     def forward(y, thr):
+        if mesh is not None:
+            return shard_cores(
+                lambda yd, start, chunks, t: _gate_from_signal(
+                    yd, cfg, chunk_size, padding, t, chunks, start),
+                y, chunk_size, padding, mesh, axis_name, group, (thr,))
         y = y.contiguous()
         return grouped_cores(
             lambda chunks: _gate_from_signal(y, cfg, chunk_size, padding, thr, chunks),
             y, chunk_size, group, progress)
 
     def twin(y, thr):
+        sharding = dict(mesh=mesh, axis_name=axis_name)
         if thr is None:
             return process_chunked(
-                lambda c: _gate_nonstationary_staged(c, cfg), y, chunk_size, padding)
+                lambda c: _gate_nonstationary_staged(c, cfg), y, chunk_size, padding,
+                **sharding)
         return process_chunked(
-            lambda c: _gate_stationary_staged(c, thr, cfg), y, chunk_size, padding)
+            lambda c, t: _gate_stationary_staged(c, t, cfg), y, chunk_size, padding,
+            extra=(thr,), **sharding)
 
     return fused_with_twin(forward, twin, y2d, noise_thresh)
 
@@ -198,7 +226,8 @@ def fused_stationary_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.
     Returns (..., bins), float32 for a bfloat16 clip (``dispatch.py:493-518``).
     Caller guarantees ``fused_gate_supported``.
     Differentiable: the cotangent comes from the same statistics of the
-    staged STFT."""
+    staged STFT, never cast to bfloat16 (the JAX threshold has no
+    ``cotangent_vjp``; ``ops/precision.py``)."""
     from noisereduce_tpu_torch.ops.stft import stft
 
     def forward(y):
@@ -211,4 +240,5 @@ def fused_stationary_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.
         forward,
         lambda y: noise_db_threshold(*stft(y, cfg.stft), cfg.n_std_thresh_stationary),
         y_noise,
+        cast_cotangent=False,
     )

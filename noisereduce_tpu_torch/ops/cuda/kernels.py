@@ -57,8 +57,9 @@ raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches``, ``chirp_launches`` and ``product_launches``
 (``route_counts``), and G in ``resident_launches`` and ``tiled_launches``,
-and every kernel by its planes' dtype in ``dtype_launches``
-(``dtype_counts``); ``reset_launch_counts`` sets them all to 0. B, E and F
+every kernel by its planes' dtype in ``dtype_launches``
+(``dtype_counts``) and by device in ``device_launches``
+(``device_counts``); ``reset_launch_counts`` sets them all to 0. B, E and F
 run as a few CUDA launches over time tiles (``geometry.TimeTilePlan``: segment partials,
 a per-column combine, a final pass that smooths from shared memory) and
 still count 1 a call; G as one (its resident route: whole columns in shared
@@ -100,7 +101,7 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n, fm_mask_plan, freq_smooth_plan,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
-from noisereduce_tpu_torch.parallel.chunking import extract_chunks, n_chunks_for
+from noisereduce_tpu_torch.parallel.chunking import chunk_views, extract_chunks, n_chunks_for
 
 __all__ = [
     "spectra", "spectra_ref",
@@ -110,7 +111,7 @@ __all__ = [
     "stationary_mask", "stationary_mask_ref",
     "torch_nonstationary_mask", "torch_nonstationary_mask_ref",
     "fm_nonstationary_mask", "fm_nonstationary_mask_ref",
-    "reset_launch_counts", "launch_counts", "route_counts", "dtype_counts",
+    "reset_launch_counts", "launch_counts", "route_counts", "dtype_counts", "device_counts",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -339,19 +340,22 @@ def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # A: spectra
 # ---------------------------------------------------------------------------
-def spectra_ref(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
+def spectra_ref(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None, src_start=0):
     """Plain version of ``spectra``: extract the views, then the staged
     STFT; a bfloat16 signal in float32, the planes rounded once to
     bfloat16, as the kernel stores them."""
     (x32,) = dsp.to_mask_dtype(x)
-    views = extract_chunks(x32, chunk_size, padding) if chunk_size else x32[:, None]
-    if chunks is not None:
-        views = views[:, chunks[0] : chunks[0] + chunks[1]]
+    if src_start:
+        views = chunk_views(x32, chunk_size, padding, *chunks, src_start)
+    else:
+        views = extract_chunks(x32, chunk_size, padding) if chunk_size else x32[:, None]
+        if chunks is not None:
+            views = views[:, chunks[0] : chunks[0] + chunks[1]]
     re, im = stft(views.reshape(-1, geo.view_len), geo.scfg)
     return re.to(x.dtype), im.to(x.dtype)
 
 
-def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
+def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None, src_start=0):
     """Windowed frame spectra (``stft`` of the geometry's convention) of
     every view of every signal row.
 
@@ -361,7 +365,10 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
     [i*chunk_size - padding, (i+1)*chunk_size + padding), zero outside the
     signal), which the kernel reads straight from ``x``: all of them, or
     the ``count`` chunks from ``first`` of ``chunks`` = (first, count) (a
-    group of chunks: the same views, from the same samples). Returns
+    group of chunks: the same views, from the same samples). ``src_start``
+    (with ``chunks``): ``x`` holds the signal's samples from ``src_start``
+    on, a device's slice of it under a mesh that reaches the signal's true
+    ends wherever a view runs past it, so the zero fill is the same. Returns
     (re, im), each (rows*n_views, n_frames, n_bins), row h*n_views + i, in
     x's dtype: a bfloat16 signal is read as it is (the bf16 mode) and its
     planes rounded to bfloat16 on store, the FFT in float32.
@@ -371,8 +378,8 @@ def spectra(x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
             f"spectra: view_len {geo.view_len} != signal length {x.shape[-1]}"
         )
     if _on_cpu(x):
-        return spectra_ref(x, geo, chunk_size, padding, chunks)
-    return _spectra_on(geo.route, x, geo, chunk_size, padding, chunks)
+        return spectra_ref(x, geo, chunk_size, padding, chunks, src_start)
+    return _spectra_on(geo.route, x, geo, chunk_size, padding, chunks, src_start)
 
 
 def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
@@ -384,7 +391,8 @@ def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
     return _device_f32("chirp", n, device), _device_f32("chirp_filter", (n, slot), device)
 
 
-def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None):
+def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None,
+                src_start=0):
     """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
     plane = _check_cuda("spectra", x, planes=1)
     rows, n_src = x.shape
@@ -392,8 +400,8 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
     B, T, nb = rows * n_chunks, geo.n_frames, geo.n_bins
     re = torch.empty((B, T, nb), dtype=x.dtype, device=x.device)
     im = torch.empty_like(re)
-    views = (n_src, rows, n_chunks, chunk_size, first * chunk_size - padding, geo.view_len,
-             T, geo.hop, geo.bpad, geo.win)
+    views = (n_src, rows, n_chunks, chunk_size, first * chunk_size - padding - src_start,
+             geo.view_len, T, geo.hop, geo.bpad, geo.win)
     dev = x.device
     if route == "product":
         _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
@@ -421,7 +429,7 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
             _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
             _ptr_or_null(filt), _ptr(re), _ptr(im),
         )
-    _count(spectra, x.dtype, route)
+    _count(spectra, x.dtype, x.device, route)
     return re, im
 
 
@@ -467,7 +475,7 @@ def nonstationary_mask(re, im, b, thresh, slope, taps):
         plan.halo, p_f, p_b, (ctypes.c_double * len(k))(*k), thresh, slope,
         plan.smem_bytes,
     )
-    _count(nonstationary_mask, re.dtype)
+    _count(nonstationary_mask, re.dtype, re.device)
     nonstationary_mask.cuda_launches = 3 if plan.fused else 4
     return out
 
@@ -532,7 +540,7 @@ def freq_smooth_blend(mask, taps, prop):
         "freq_smooth_blend", mask.device, _ptr(mask), _ptr(out), _ptr(tap_t),
         plan.n_taps, plan.half, n_rows, nb, plan.lines, prop,
     )
-    _count(freq_smooth_blend, torch.float32)
+    _count(freq_smooth_blend, torch.float32, mask.device)
     return out
 
 
@@ -602,7 +610,7 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
                 _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
                 _ptr_or_null(filt), _ptr(out),
             )
-    _count(istft_ola, re.dtype, route)
+    _count(istft_ola, re.dtype, re.device, route)
     return out
 
 
@@ -707,7 +715,7 @@ def stationary_mask(re, im, thr, views_per_row, prop, taps, top_db=80.0,
         T, nb, prop, 1.0 - prop, dsp.EPS_F64, _DB_PER_NEPER, top_db,
         0.0 if n_std is None else n_std, plan.smem_bytes,
     )
-    _count(stationary_mask, re.dtype)
+    _count(stationary_mask, re.dtype, re.device)
     stationary_mask.cuda_launches = 3 + 2 * own + (not plan.fused)
     return out
 
@@ -774,7 +782,7 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
         *_movemean_offsets(int(n_movemean), plan.seg_len, plan.halo),
         n_thresh, temp, prop, 1.0 - prop, plan.smem_bytes,
     )
-    _count(torch_nonstationary_mask, re.dtype)
+    _count(torch_nonstationary_mask, re.dtype, re.device)
     torch_nonstationary_mask.cuda_launches = 3 if plan.fused else 4
     return out
 
@@ -851,7 +859,7 @@ def _fm_mask_on(route, z, b, thresh, slope):
         _ptr(out), n_cols, T, plan.cols, plan.lane_len, plan.tile_len, plan.n_tiles,
         (ctypes.c_double * len(k))(*k), thresh, slope, plan.smem_bytes,
     )
-    _count(fm_nonstationary_mask, torch.float32, plan.route)
+    _count(fm_nonstationary_mask, torch.float32, z.device, plan.route)
     fm_nonstationary_mask.cuda_launches = 3 if tiled else 1
     return out
 
@@ -881,11 +889,13 @@ FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 DTYPES = ("float32", "bfloat16")  # the plane types (``_PLANE_CODE``)
 
 
-def _count(fn, dtype: torch.dtype, route: str = None) -> None:
+def _count(fn, dtype: torch.dtype, device: torch.device, route: str = None) -> None:
     """Count one launch of ``fn``'s kernel: in ``launches``, by its planes'
-    dtype in ``dtype_launches`` and, for a kernel with routes, by route."""
+    dtype in ``dtype_launches``, by device in ``device_launches`` and, for a
+    kernel with routes, by route."""
     fn.launches += 1
     fn.dtype_launches[str(dtype).removeprefix("torch.")] += 1
+    fn.device_launches[str(device)] = fn.device_launches.get(str(device), 0) + 1
     if route is not None:
         setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
 
@@ -894,6 +904,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
         fn.dtype_launches = dict.fromkeys(DTYPES, 0)
+        fn.device_launches = {}
     for fn in ROUTED:
         for route in ROUTES:
             setattr(fn, f"{route}_launches", 0)
@@ -917,6 +928,13 @@ def dtype_counts() -> dict:
     {"spectra": {"float32": 0, "bfloat16": 1}, ...}: a bf16 call launches
     the bfloat16 variants of A, B, D, E and F (C and G take float32 only)."""
     return {fn.__name__: dict(fn.dtype_launches) for fn in KERNELS}
+
+
+def device_counts() -> dict:
+    """Launches of every kernel by device, e.g. {"spectra": {"cuda:0": 4},
+    ...}: a mesh of (cuda:0,) * 4 launches each kernel of its path once a
+    shard on cuda:0."""
+    return {fn.__name__: dict(fn.device_launches) for fn in KERNELS}
 
 
 reset_launch_counts()

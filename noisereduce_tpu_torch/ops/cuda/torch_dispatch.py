@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from noisereduce_tpu_torch.ops.cuda.dispatch import kernels_take
+from noisereduce_tpu_torch.ops.cuda.dispatch import kernels_take, on_device
 from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry, kernels_supported
 from noisereduce_tpu_torch.ops.cuda.kernels import (
     freq_smooth_blend,
@@ -60,7 +60,11 @@ from noisereduce_tpu_torch.ops.dsp import (
 )
 from noisereduce_tpu_torch.ops.precision import fused_with_twin
 from noisereduce_tpu_torch.ops.stft import istft, stft
-from noisereduce_tpu_torch.parallel.chunking import grouped_cores, process_chunked
+from noisereduce_tpu_torch.parallel.chunking import (
+    grouped_cores,
+    process_chunked,
+    shard_cores,
+)
 
 __all__ = [
     "fused_tpugate_supported",
@@ -70,10 +74,11 @@ __all__ = [
 ]
 
 
-def fused_tpugate_supported(gate, x: torch.Tensor) -> bool:
+def fused_tpugate_supported(gate, x: torch.Tensor, device=None) -> bool:
     """Whether the kernels serve this gate's STFT geometry and the signal
-    ``x`` (``dispatch.kernels_take``)."""
-    return kernels_supported(gate.stft_config) and kernels_take(x)
+    ``x`` (``dispatch.kernels_take``), on ``device`` where it will run
+    there."""
+    return kernels_supported(gate.stft_config) and kernels_take(on_device(x, device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,12 +113,13 @@ def _threshold_of(gate, xn):
 
 
 def _tpugate_from_signal(x, gate, thr=None, chunk_size=0, padding=0, out_len=None,
-                         chunks=None):
+                         chunks=None, src_start=0):
     """(rows, n) -> gated views: each whole row (``chunk_size`` 0;
     (rows, out_len) out, ``out_len`` defaulting to n) or the core
     [padding, padding + chunk_size) of each halo'd chunk view
     ((rows*n_chunks, chunk_size) out; with ``chunks`` = (first, count), of
-    those chunks only), zero past each view's natural length. ``thr``: a
+    those chunks only, ``x`` holding the signal from sample ``src_start``
+    on), zero past each view's natural length. ``thr``: a
     stationary gate's (bn, bins) threshold (``_threshold_of``), bn 1 or a
     divisor of the views that maps row-major onto them (view v reads row
     v // (views / bn)); None gives each view its own statistics."""
@@ -124,7 +130,7 @@ def _tpugate_from_signal(x, gate, thr=None, chunk_size=0, padding=0, out_len=Non
         view_len, out_off = n, 0
         out_len = n if out_len is None else out_len
     geo = gate_geometry(gate.stft_config, view_len)
-    re, im = spectra(x, geo, chunk_size, padding, chunks)
+    re, im = spectra(x, geo, chunk_size, padding, chunks, src_start)
     return istft_ola(re, im, _mask(re, im, gate, thr), geo, out_off, out_len)
 
 
@@ -182,7 +188,8 @@ def fused_tpugate(x: torch.Tensor, xn, gate, out_len=None) -> torch.Tensor:
 
 
 def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int,
-                          xn=None, group: int = 0, progress: bool = False) -> torch.Tensor:
+                          xn=None, group: int = 0, progress: bool = False, mesh=None,
+                          axis_name: str = "chunks") -> torch.Tensor:
     """The whole chunked body of the torch-convention engine (reference
     base.py:144-226 with streamed_torch_gate.py): chunk i of each row is
     the view of source samples [i*cs - padding, (i+1)*cs + padding), zero
@@ -195,20 +202,35 @@ def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int
     each chunk view its own statistics. (ch, n) -> (ch, n). ``group`` > 0
     or ``progress``: the chunks in groups of ``group`` (1 for 0;
     ``parallel.chunking.grouped_cores``), the threshold taken once before
-    them."""
+    them. ``mesh``: a signal longer than ``chunk_size`` sharded over its
+    devices (``parallel.chunking.shard_cores``; ``api.py::_run_torch_gate``,
+    ``:163-190``), the threshold taken once, on ``xn``'s device, and copied
+    to each; a shorter one gated on the mesh's first device; the output on
+    ``y2d``'s device."""
     def forward(y, b):
+        thr = _threshold_of(gate, b)
+        if mesh is not None and y.shape[-1] > chunk_size:
+            return shard_cores(
+                lambda yd, start, chunks, t: _tpugate_from_signal(
+                    yd, gate, t, chunk_size, padding, chunks=chunks, src_start=start),
+                y, chunk_size, padding, mesh, axis_name, group, (thr,))
+        home = y.device
+        if mesh is not None:
+            dev = mesh.devices[0]
+            y, thr = y.to(dev), (None if thr is None else thr.to(dev))
         y = y.contiguous()
-        cs, thr = min(chunk_size, y.shape[-1]), _threshold_of(gate, b)
+        cs = min(chunk_size, y.shape[-1])
         return grouped_cores(
             lambda chunks: _tpugate_from_signal(y, gate, thr, cs, padding, chunks=chunks),
-            y, cs, group, progress)
+            y, cs, group, progress).to(home)
 
     def twin(y, b):
-        def call(c):
+        def call(c, bb):
             v = c.reshape(-1, c.shape[-1])
-            return _staged_twin(gate, v, b, v.shape[-1]).reshape(c.shape)
+            return _staged_twin(gate, v, bb, v.shape[-1]).reshape(c.shape)
 
-        return process_chunked(call, y, chunk_size, padding)
+        return process_chunked(call, y, chunk_size, padding, mesh=mesh, axis_name=axis_name,
+                               extra=(b,))
 
     return fused_with_twin(forward, twin, y2d, xn)
 

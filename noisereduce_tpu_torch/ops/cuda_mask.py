@@ -53,6 +53,7 @@ def fused_nonstationary_mask(Z: torch.Tensor, b: float, thresh_mult: float,
         lambda z: fm_nonstationary_mask(z.contiguous(), b, thresh_mult, slope),
         lambda z: _mask_impl(z, b, thresh_mult, slope),
         Z,
+        cast_cotangent=False,
     )
 
 
@@ -72,5 +73,6 @@ def fused_nonstationary_mask_tm(re: torch.Tensor, im: torch.Tensor, b: float,
         return m.reshape(r.shape)
 
     return fused_with_twin(
-        forward, lambda r, i: _mask_impl_tm(r, i, b, thresh_mult, slope), re, im
+        forward, lambda r, i: _mask_impl_tm(r, i, b, thresh_mult, slope), re, im,
+        cast_cotangent=False,
     )

@@ -1,4 +1,4 @@
-"""Chunk + halo combinator without a mesh (counterpart of
+"""Chunk + halo combinator (counterpart of
 ``noisereduce_tpu/parallel/chunking.py``).
 
 The reference splits long recordings into ``chunk_size``-sample chunks,
@@ -7,10 +7,14 @@ each extended by a ``padding``-sample halo read from the source signal
 assembles the cores (base.py:167-226). Here the chunk axis is a batch axis
 of one call, or of one call per group of chunks (``chunk_groups``: the
 JAX package's ``max_parallel_chunks`` and its host-driven group loop under
-a progress bar, ``noisereduce_tpu/api.py::_run_chunked_with_progress``).
-The fused path (``ops.cuda.dispatch.fused_gate_chunked``) reads the views
-straight from the signal instead; this module serves the unchunked path and
-the geometries the kernels do not.
+a progress bar, ``noisereduce_tpu/api.py::_run_chunked_with_progress``),
+or is sharded over the devices of a ``parallel.mesh.ChunkMesh``
+(``shard_cores``: each device a contiguous range of chunks, gated from its
+own slice of the signal with its halos, in groups where asked; the JAX
+package's ``shard_map`` over the chunk axis). The fused path
+(``ops.cuda.dispatch.fused_gate_chunked``) reads the views straight from
+the signal instead; this module serves the unchunked path and the
+geometries the kernels do not.
 """
 from __future__ import annotations
 
@@ -22,11 +26,15 @@ import torch.nn.functional as F
 __all__ = [
     "n_chunks_for",
     "pad_chunk_signal",
+    "chunk_views",
     "extract_chunks",
     "assemble_chunks",
     "process_chunked",
     "chunk_groups",
     "grouped_cores",
+    "mesh_ranges",
+    "shard_cores",
+    "shard_filter",
 ]
 
 
@@ -49,6 +57,21 @@ def extract_chunks(y: torch.Tensor, chunk_size: int, padding: int) -> torch.Tens
     zero outside [0, n) (base.py:144-148 + 130-142)."""
     view = chunk_size + 2 * padding
     return pad_chunk_signal(y, chunk_size, padding).unfold(-1, view, chunk_size)
+
+
+def chunk_views(y: torch.Tensor, chunk_size: int, padding: int, first: int, k: int,
+                src_start: int = 0) -> torch.Tensor:
+    """(..., n_src) -> (..., k, chunk_size + 2*padding): the halo'd views of
+    chunks [first, first + k) when ``y`` holds the source samples from
+    ``src_start`` on (a device's slice of the signal): the samples of
+    ``extract_chunks``' views, zero outside ``y``, which must reach the
+    signal's true ends wherever a view runs past the slice."""
+    view = chunk_size + 2 * padding
+    start = first * chunk_size - padding - src_start
+    end = start + (k - 1) * chunk_size + view
+    ypad = F.pad(y, (max(0, -start), max(0, end - y.shape[-1])))
+    lo = max(0, start)
+    return ypad[..., lo : lo + end - start].unfold(-1, view, chunk_size)
 
 
 def assemble_chunks(
@@ -95,28 +118,125 @@ def grouped_cores(core_fn, y: torch.Tensor, chunk_size: int, group: int = 0,
     return out[..., :n]
 
 
+def mesh_ranges(n_chunks: int, mesh, axis_name: str = "chunks"):
+    """(device, first chunk, chunks) of each device of ``mesh`` that gates
+    any: the JAX package's partition, k_local = ceil(n_chunks / n_dev)
+    chunks a device, device d the chunks [d * k_local, min(n_chunks,
+    (d + 1) * k_local)); the devices past the last chunk get none (the
+    all-zero padding chunks ``shard_map`` gates there change nothing)."""
+    n_dev = mesh.shape[axis_name]
+    k_local = -(-n_chunks // n_dev)
+    for d, dev in enumerate(mesh.devices):
+        first = d * k_local
+        k = min(n_chunks, first + k_local) - first
+        if k > 0:
+            yield dev, first, k
+
+
+def shard_cores(core_fn, y: torch.Tensor, chunk_size: int, padding: int, mesh,
+                axis_name: str = "chunks", group: int = 0, extra: tuple = ()) -> torch.Tensor:
+    """(..., n) -> (..., n) on ``y``'s device, its chunks sharded over
+    ``mesh`` (``mesh_ranges``): device d receives only the samples its
+    views read, [first*cs - padding, (first + k)*cs + padding) cut to the
+    signal, and a copy of each ``extra`` operand (None stays None; the
+    one broadcast), and gates its chunks with ``core_fn(y_local,
+    src_start, (first, count), *extra_local)``, which returns the cores of
+    those chunks of every row ((rows * count, chunk_size) or (...,
+    count, chunk_size)) on the device, in one call, or one call a group of
+    ``group`` chunks (the bound on device memory is per device). Every
+    device's work is issued before any result is waited for; then each
+    device's cores go into their own columns of the one output (one copy a
+    device; pinned host memory where ``y`` is on the host)."""
+    n = y.shape[-1]
+    lead = y.shape[:-1]
+    pieces = []
+    for dev, first, k in mesh_ranges(n_chunks_for(n, chunk_size), mesh, axis_name):
+        lo = max(0, first * chunk_size - padding)
+        y_d = y[..., lo : min(n, (first + k) * chunk_size + padding)].to(dev).contiguous()
+        ex = tuple(None if e is None else e.to(dev) for e in extra)
+        piece = None
+        for s, kk in chunk_groups(k, group):
+            c = core_fn(y_d, lo, (first + s, kk), *ex).reshape(lead + (-1,))
+            if kk == k:
+                piece = c
+                break
+            if piece is None:
+                piece = c.new_empty(lead + (k * chunk_size,))
+            piece[..., s * chunk_size : (s + kk) * chunk_size] = c
+        pieces.append((first * chunk_size, piece))
+    # pinned where the output is on the host and a card gates, so that each
+    # device's D2H lands in place
+    pin = y.device.type == "cpu" and any(d.type == "cuda" for d in mesh.devices)
+    out = torch.empty(lead + (n,), dtype=pieces[0][1].dtype, device=y.device, pin_memory=pin)
+    for a, piece in pieces:
+        b = min(n, a + piece.shape[-1])
+        out[..., a:b].copy_(piece[..., : b - a])
+    return out
+
+
+def shard_filter(filter_fn, chunks, mesh, axis_name: str = "chunks", extra: tuple = (),
+                 max_parallel_chunks: int = 0) -> torch.Tensor:
+    """``filter_fn(views, *extra)`` over pre-extracted halo'd chunks (...,
+    n_chunks, view), sharded over the chunk axis (-2): each device filters
+    its range (``mesh_ranges``) with its own copy of ``extra``, in groups
+    of ``max_parallel_chunks`` chunks where that is smaller (a per-device
+    bound), and the filtered chunks are assembled on ``chunks``' device.
+    ``chunks`` may also be the tuple of per-device blocks that
+    ``mesh.distributed_chunks`` places, assembled on the first one's
+    device."""
+    if isinstance(chunks, tuple):
+        blocks, home = chunks, chunks[0]
+    else:
+        home = chunks
+        blocks = tuple(chunks[..., f : f + k, :].to(dev)
+                       for dev, f, k in mesh_ranges(chunks.shape[-2], mesh, axis_name))
+    outs = []
+    for block in blocks:
+        ex = tuple(None if e is None else e.to(block.device) for e in extra)
+        k = block.shape[-2]
+        outs.extend(filter_fn(block[..., s : s + kk, :], *ex)
+                    for s, kk in chunk_groups(k, max_parallel_chunks))
+    return torch.cat([o.to(home.device) for o in outs], dim=-2)
+
+
 def process_chunked(
-    filter_fn: Callable[[torch.Tensor], torch.Tensor],
+    filter_fn: Callable[..., torch.Tensor],
     y: torch.Tensor,
     chunk_size: int,
     padding: int,
     group: int = 0,
     progress: bool = False,
+    mesh=None,
+    axis_name: str = "chunks",
+    extra: tuple = (),
 ) -> torch.Tensor:
-    """Apply ``filter_fn`` ((..., L) -> (..., L)) chunk-parallel over
-    (..., n). Signals of at most ``chunk_size`` samples are still padded by
-    ±``padding`` zeros and filtered whole (base.py:222 -> 144-150; SURVEY.md
-    §5 quirk 6): the non-stationary IIR is global over frames. ``group`` >
-    0 or ``progress``: ``filter_fn`` takes the chunks in groups of
-    ``group`` (1 for 0; ``grouped_cores``)."""
+    """Apply ``filter_fn`` ((..., L), *extra -> (..., L)) chunk-parallel
+    over (..., n). Signals of at most ``chunk_size`` samples are still
+    padded by ±``padding`` zeros and filtered whole (base.py:222 -> 144-150;
+    SURVEY.md §5 quirk 6), even with a mesh, on its first device: the
+    non-stationary IIR is global over frames. ``group`` > 0 or
+    ``progress``: ``filter_fn`` takes the chunks in groups of ``group`` (1
+    for 0; ``grouped_cores``). ``mesh``: the chunks sharded over its
+    devices (``shard_cores``; no bar), ``extra`` (e.g. a stationary
+    threshold) copied to each; the output on ``y``'s device."""
     n = y.shape[-1]
     if n <= chunk_size:
         ypad = F.pad(y, (padding, padding))
-        return filter_fn(ypad)[..., padding : padding + n]
+        if mesh is not None:
+            dev = mesh.devices[0]
+            ex = tuple(None if e is None else e.to(dev) for e in extra)
+            return filter_fn(ypad.to(dev), *ex)[..., padding : padding + n].to(y.device)
+        return filter_fn(ypad, *extra)[..., padding : padding + n]
+    if mesh is not None:
+        def local_cores(y_d, src_start, c, *ex):
+            views = chunk_views(y_d, chunk_size, padding, c[0], c[1], src_start)
+            return filter_fn(views, *ex)[..., padding : padding + chunk_size]
+
+        return shard_cores(local_cores, y, chunk_size, padding, mesh, axis_name, group, extra)
     chunks = extract_chunks(y, chunk_size, padding)
 
     def cores(c):
         views = chunks if c is None else chunks[..., c[0] : c[0] + c[1], :]
-        return filter_fn(views)[..., padding : padding + chunk_size]
+        return filter_fn(views, *extra)[..., padding : padding + chunk_size]
 
     return grouped_cores(cores, y, chunk_size, group, progress)

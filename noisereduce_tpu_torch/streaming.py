@@ -17,8 +17,10 @@ bitwise equal (``chip_smoke.py`` checks it at the headline size).
 
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent, as
 ``reduce_noise`` does; ``device="cpu"`` runs the kernels' plain versions.
-``method`` is accepted and unused, and ``mesh`` raises
-``NotImplementedError`` (``api.py``).
+``method`` is accepted and unused. ``reduce_noise_file`` takes a ``mesh``
+(``parallel.mesh.ChunkMesh``), whose devices each gate one chunk of every
+round of streamed chunks; ``StreamingGate`` and the CLI take none, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from noisereduce_tpu_torch.api import MESH_LATER, _resolve_device, torch_gate_for
+from noisereduce_tpu_torch.api import _check_mesh, _resolve_device, torch_gate_for
 from noisereduce_tpu_torch.config import GateConfig
 from noisereduce_tpu_torch.models.spectral_gate import (
     gate_nonstationary,
@@ -388,16 +390,22 @@ class StreamingGate:
 
 
 class _Slot:
-    """Host buffers of one chunk in flight (pinned on the card, so both
-    copies are asynchronous) and the event recorded after its D2H: neither
-    buffer is touched again before that event has completed."""
+    """Host buffers of one chunk in flight on ``dev`` (pinned on a card, so
+    both copies are asynchronous) and the event recorded on ``dev``'s
+    stream after its D2H: neither buffer is touched again before that event
+    has completed."""
 
     def __init__(self, chunk: np.ndarray, out_shape, out_dtype, dev: torch.device):
         pin = dev.type == "cuda"
+        self.dev = dev
         self.inp = torch.empty(chunk.shape, dtype=torch.from_numpy(chunk[:, :0]).dtype,
                                pin_memory=pin)
         self.out = torch.empty(out_shape, dtype=out_dtype, pin_memory=pin)
         self.event = torch.cuda.Event() if pin else None
+
+    def record(self) -> None:
+        if self.event is not None:
+            self.event.record(torch.cuda.current_stream(self.dev))
 
     def wait(self) -> np.ndarray:
         if self.event is not None:
@@ -405,30 +413,35 @@ class _Slot:
         return self.out.numpy()
 
 
-# chunks dispatched to the device before the host waits for the oldest
+# rounds of chunks dispatched to the devices before the host waits for the
+# oldest
 _DEPTH = 2
 
 
-def _pipeline(chunks, core, out_shape, out_dtype, write, dev: torch.device):
-    """Gate streamed chunks with ``_DEPTH`` newer chunks in flight on the
-    device: chunk i is copied into its slot's pinned buffer and sent to the
-    device without blocking, gated (``core``), and its result copied back
-    without blocking; the host waits on chunk i's event only when ``_DEPTH``
-    newer chunks have been dispatched, so its disk reads overlap the device.
-    Results reach ``write`` in order. ``_DEPTH + 1`` slots serve in turn: a
-    slot is reused only after its chunk was waited for and written."""
-    slots, in_flight = [], deque()
+def _pipeline(chunks, cores, out_shape, out_dtype, write, devs):
+    """Gate streamed chunks in rounds of one chunk a device (chunk i on
+    ``devs[i % n]``, gated there by ``cores[i % n]``; a short last round
+    gates only the chunks it has) with ``_DEPTH`` newer rounds in flight:
+    chunk i is copied into its slot's pinned buffer and sent to its device
+    without blocking, gated, and its result copied back without blocking;
+    the host waits on chunk i's event only when ``_DEPTH`` newer rounds
+    have been dispatched, so its disk reads overlap the devices, and the
+    devices one another. Results reach ``write`` in order. Each device has
+    ``_DEPTH + 1`` slots that serve in turn: a slot is reused only after
+    its chunk was waited for and written."""
+    n = len(devs)
+    slots, in_flight = {}, deque()
     for i, (_, chunk) in enumerate(chunks):
-        if not slots:
-            slots = [_Slot(chunk, out_shape, out_dtype, dev) for _ in range(_DEPTH + 1)]
-        slot = slots[i % len(slots)]
+        d = i % n
+        if d not in slots:
+            slots[d] = [_Slot(chunk, out_shape, out_dtype, devs[d]) for _ in range(_DEPTH + 1)]
+        slot = slots[d][(i // n) % (_DEPTH + 1)]
         slot.inp.copy_(torch.from_numpy(chunk))
-        out = core(slot.inp.to(dev, non_blocking=True))
+        out = cores[d](slot.inp.to(devs[d], non_blocking=True))
         slot.out.copy_(out, non_blocking=True)
-        if slot.event is not None:
-            slot.event.record()
+        slot.record()
         in_flight.append(slot)
-        if len(in_flight) > _DEPTH:
+        if len(in_flight) > _DEPTH * n:
             write(in_flight.popleft().wait())
     while in_flight:
         write(in_flight.popleft().wait())
@@ -470,18 +483,22 @@ def reduce_noise_file(
     torch-convention gate (``TPUGate``), as ``reduce_noise(use_torch=True)``
     does, its noise clip cut along its first axis when longer than the
     signal (streamed_torch_gate.py:57-58). ``use_tqdm`` shows a ``tqdm`` bar
-    over the chunks. ``method`` is accepted and unused; ``mesh`` other than
-    None raises ``NotImplementedError``. ``device`` as ``reduce_noise``'s:
-    ``"cuda"`` by default, raising where CUDA is absent.
+    over the chunks. ``method`` is accepted and unused. ``device`` as
+    ``reduce_noise``'s: ``"cuda"`` by default, raising where CUDA is absent.
+    ``mesh`` (a ``parallel.mesh.ChunkMesh``, whose devices take the place
+    of ``device``): the chunks stream in rounds of one chunk a device, the
+    threshold or noise clip computed on the first device and copied to
+    each; a file of at most ``chunk_size`` frames runs on the first device.
+    The output is bitwise the one device's.
 
-    Each chunk is one launch of each of the gate's kernels on the card;
-    up to three chunks are in flight (``_pipeline``), so host memory stays
-    at a few chunks whatever the file's length.
+    Each chunk is one launch of each of the gate's kernels on its device;
+    up to three rounds are in flight (``_pipeline``), so host memory stays
+    at a few chunks a device whatever the file's length.
     """
     del method  # the route comes from the STFT geometry
-    if mesh is not None:
-        raise NotImplementedError(MESH_LATER)
-    dev = _resolve_device(device)
+    _check_mesh(mesh)
+    devs = [_resolve_device(device)] if mesh is None else list(mesh.devices)
+    dev = devs[0]
     sr, channels, n_frames_in = nrio.wav_info(in_path)
     gate_kw = dict(
         stationary=stationary, prop_decrease=prop_decrease, time_constant_s=time_constant_s,
@@ -501,7 +518,9 @@ def reduce_noise_file(
             if yn.shape[-1] > n_frames_in and clip_noise_stationary:
                 yn = yn[:n_frames_in]  # the reference's first-axis cut
             xn = torch.as_tensor(yn if yn.ndim == 2 else yn[None]).to(dev)
-        run = _view_gate(cfg, gate=gate, xn=xn)
+
+        def run_on(d):
+            return _view_gate(cfg, gate=gate, xn=None if xn is None else xn.to(d))
     elif stationary:
         if y_noise is not None:
             yn = torch.as_tensor(np.asarray(y_noise, dtype=np.float32)).to(dev)
@@ -515,9 +534,13 @@ def reduce_noise_file(
             # statistics over the ENTIRE signal (stationary.py:47-64 with
             # clip_noise_stationary=False), in two constant-memory passes
             thresh = _streaming_noise_threshold(in_path, cfg, dev)
-        run = _view_gate(cfg, thresh=thresh)
+
+        def run_on(d):
+            return _view_gate(cfg, thresh=thresh.to(d))
     else:
-        run = _view_gate(cfg)
+        def run_on(d):
+            return _view_gate(cfg)
+    runs = [run_on(d) for d in devs]  # the one broadcast: threshold or clip
 
     with nrio.WavWriter(out_path, sr, channels, n_frames_in, as_float=as_float) as writer:
         if n_frames_in <= chunk_size:
@@ -527,7 +550,7 @@ def reduce_noise_file(
             _, data = nrio.read_wav(in_path, dtype="float32")
             y2d = data.T if data.ndim == 2 else data[None]
             x = F.pad(torch.from_numpy(np.ascontiguousarray(y2d)).to(dev), (padding, padding))
-            writer.write(_chunk_core(x, run, padding, n_frames_in, False).cpu().numpy().T)
+            writer.write(_chunk_core(x, runs[0], padding, n_frames_in, False).cpu().numpy().T)
             return n_frames_in
 
         # PCM16 sources stream as raw int16 (half the H2D bytes; converted
@@ -539,8 +562,10 @@ def reduce_noise_file(
             chunks = tqdm(chunks, total=(n_frames_in - 1) // chunk_size + 1)
         pcm_out = not as_float
         _pipeline(
-            chunks, lambda x: _chunk_core(x, run, padding, chunk_size, pcm_out),
+            chunks,
+            [lambda x, run=run: _chunk_core(x, run, padding, chunk_size, pcm_out)
+             for run in runs],
             (channels, chunk_size), torch.int16 if pcm_out else torch.float32,
-            lambda core: writer.write(core.T), dev,
+            lambda core: writer.write(core.T), devs,
         )
     return n_frames_in

@@ -1,4 +1,5 @@
-"""PyTorch port: the JAX signature's ``method``, ``mesh``,
+"""PyTorch port: the JAX signature's ``method``, ``mesh`` (its type; the
+sharded paths in tests/test_torch_mesh.py),
 ``max_parallel_chunks`` and ``use_tqdm`` through ``reduce_noise`` and
 ``reduce_noise_batch``, against the JAX package (CPU); and kernel C's
 launch plan (``geometry.freq_smooth_plan``) against a numpy model of the
@@ -34,6 +35,7 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FS_GROUP, FS_RUN, FS_SPAN, FS_THREADS, freq_smooth_plan,
 )
 from noisereduce_tpu_torch.ops.dsp import tri_norm
+from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 
 torch.set_num_threads(2)
 
@@ -103,11 +105,21 @@ def test_tqdm_shows_one_step_a_group(engine, capsys):
 
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_mesh_raises(engine):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """A mesh that is not a ``ChunkMesh`` raises ``TypeError``; a
+    ``ChunkMesh`` of CPU devices gives the unsharded output bitwise
+    (tests/test_torch_mesh.py holds the rest)."""
+    with pytest.raises(TypeError, match="ChunkMesh"):
         nrt.reduce_noise(_signal(), SR, **CK, **ENGINES[engine], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(TypeError, match="ChunkMesh"):
         nrt.reduce_noise_batch([_signal()], SR, **CK, **ENGINES[engine], mesh=object(),
                                device="cpu")
+    mesh = ChunkMesh((torch.device("cpu"),) * 4)
+    want = nrt.reduce_noise(_signal(), SR, **CK, **ENGINES[engine], device="cpu")
+    assert np.array_equal(
+        nrt.reduce_noise(_signal(), SR, **CK, **ENGINES[engine], mesh=mesh, device="cpu"), want)
+    (got,) = nrt.reduce_noise_batch([_signal()], SR, **CK, **ENGINES[engine], mesh=mesh,
+                                    device="cpu")
+    assert np.array_equal(got, want)
 
 
 def test_reduce_noise_takes_the_jax_signature():

@@ -22,6 +22,7 @@ import noisereduce_tpu_torch as nrt
 from noisereduce_tpu_torch.config import GateConfig, StftConfig, smoothing_kernel_sizes
 from noisereduce_tpu_torch.ops.cuda import kernels as K
 from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry, kernels_supported
+from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 
 torch.set_num_threads(2)
 
@@ -132,13 +133,23 @@ def test_cuda_device_raises_without_cuda():
     # bfloat16 is ported (tests/test_torch_bf16.py); float16 is not
     (dict(stationary=True, compute_dtype=torch.float16), NotImplementedError),
     (dict(use_torch=True, compute_dtype=torch.float16), NotImplementedError),
-    (dict(mesh=object()), NotImplementedError),  # use_tqdm=True is ported
+    (dict(mesh=object()), TypeError),  # a mesh is a ChunkMesh; use_tqdm=True is ported
     (dict(compute_dtype=torch.float16), NotImplementedError),
     (dict(freq_mask_smooth_hz=5), ValueError),
 ])
 def test_unported_and_invalid_arguments_raise(kw, err):
     with pytest.raises(err):
         nrt.reduce_noise(np.zeros(4000), 16000, device="cpu", **kw)
+
+
+def test_mesh_of_cpu_devices_is_the_unsharded_call():
+    """A ``ChunkMesh`` is taken where another object raises: on 3 CPU
+    devices, 5 chunks give the unsharded output bitwise."""
+    y = np.random.default_rng(1).standard_normal(20000)
+    kw = dict(device="cpu", chunk_size=4000, padding=700)
+    mesh = ChunkMesh((torch.device("cpu"),) * 3)
+    assert np.array_equal(nrt.reduce_noise(y, 16000, mesh=mesh, **kw),
+                          nrt.reduce_noise(y, 16000, **kw))
 
 
 def test_three_dim_input_raises():

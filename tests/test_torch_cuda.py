@@ -10,6 +10,13 @@ them; there, skip the repository's conftest (it configures JAX):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
+A ``ChunkMesh`` of ``chunk_mesh()`` and of ``(cuda:0,) * 4`` gives each
+engine's ``mesh=None`` output bitwise, with each kernel of the path
+launched once a shard (per-device counts); the default cotangent mode
+(``bf16``) casts the gate-level cotangents of card tensors, within 5e-2 x
+scale (1.5e-1 for a stationary gate) of the uncast ones, which
+``highest`` restores bitwise.
+
 Float32 bounds, as chip_smoke.py states them: spectra and istft_ola 2e-5 x
 max|ref| (long FP32 sums in another order than cuFFT), the mask 1e-4
 absolute (sigmoid slope 10 over an IIR floor), the frequency smoothing
@@ -522,11 +529,12 @@ def test_fm_mask_allocates_no_scratch_plane(cuda, route):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("family", ["tpugate", "nonstationary", "stationary"])
-def test_gradient_on_card_is_the_float64_twins(cuda, family):
+def test_gradient_on_card_is_the_float64_twins(cuda, family, monkeypatch):
     """Under grad the value is the serving value bitwise, with the serving
-    launches; the backward pass launches nothing; the gradient matches the
-    float64 staged twin's on the card (5e-5 x scale). A stationary gate is
-    compared where no binary decision differs between float32 and float64."""
+    launches; the backward pass launches nothing; the gradient, uncast
+    (``NRTPU_COTANGENT_PRECISION=highest``), matches the float64 staged
+    twin's on the card (5e-5 x scale). A stationary gate is compared where
+    no binary decision differs between float32 and float64."""
     from noisereduce_tpu_torch.models.spectral_gate import (
         _gate_stationary_staged,
         gate_stationary,
@@ -534,6 +542,7 @@ def test_gradient_on_card_is_the_float64_twins(cuda, family):
     from noisereduce_tpu_torch.ops.dsp import amp_to_db
     from noisereduce_tpu_torch.ops.stft import stft
 
+    monkeypatch.setenv("NRTPU_COTANGENT_PRECISION", "highest")
     rng = np.random.default_rng(22)
     x = torch.as_tensor(rng.standard_normal((2, 32000)), dtype=torch.float32, device=cuda)
     if family == "tpugate":
@@ -1259,8 +1268,8 @@ def test_pinned_pipeline_matches_a_synchronous_loop_on_card(cuda, tmp_path, dept
     chunks = list(nrio.stream_chunks(path, 4000, 1000, dtype="int16"))
     assert len(chunks) == 6 and chunks[0][1].dtype == np.int16
     with nrio.WavWriter(str(piped), STREAM_SR, 2, STREAM_N) as w:
-        st._pipeline(iter(chunks), core, (2, 4000), torch.int16, lambda a: w.write(a.T),
-                     cuda)
+        st._pipeline(iter(chunks), [core], (2, 4000), torch.int16, lambda a: w.write(a.T),
+                     [cuda])
     with nrio.WavWriter(str(sync), STREAM_SR, 2, STREAM_N) as w:
         for _, c in chunks:
             w.write(core(torch.from_numpy(c).to(cuda)).cpu().numpy().T)
@@ -1320,3 +1329,129 @@ def test_streaming_entry_points_refuse_a_missing_card(tmp_path, monkeypatch):
         nrt.StreamingGate(STREAM_SR)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         nrt.reduce_noise(np.zeros(9000), STREAM_SR)
+
+
+
+# ---------------------------------------------------------------------------
+# chunk sharding over a ChunkMesh on the card
+# ---------------------------------------------------------------------------
+MESH_KINDS = ["chunk_mesh", "cuda0x4"]
+
+
+def _card_mesh(kind):
+    from noisereduce_tpu_torch.parallel.mesh import ChunkMesh, chunk_mesh
+
+    return chunk_mesh() if kind == "chunk_mesh" else ChunkMesh((torch.device("cuda", 0),) * 4)
+
+
+def _shard_launches(mesh, n_chunks, group):
+    """Launches of each kernel of a path by device: one a shard, or one a
+    group of ``group`` chunks."""
+    from noisereduce_tpu_torch.parallel.chunking import mesh_ranges
+
+    want = {}
+    for dev, _, k in mesh_ranges(n_chunks, mesh):
+        want[str(dev)] = want.get(str(dev), 0) + (-(-k // group) if group else 1)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESH_KINDS)
+@pytest.mark.parametrize("engine", list(GROUP_ENGINES))
+def test_mesh_on_card_is_bitwise_the_unsharded_call(cuda, engine, kind):
+    """6 chunks of a stereo signal sharded over the mesh (with and without
+    groups of one chunk): the ``mesh=None`` output's bits, and each kernel
+    of the path launched once a shard (once a group), counted by device (A
+    once more, on the first device, for a clip's threshold)."""
+    kw, kernels = GROUP_ENGINES[engine]
+    y = np.random.default_rng(150).standard_normal((2, 21200)).astype(np.float32)
+    kw = dict(kw, chunk_size=4000, padding=1000)
+    if engine in ("stationary", "torch-stationary-clip"):
+        kw["y_noise"] = np.random.default_rng(151).standard_normal(6000).astype(np.float32)
+    want = nrt.reduce_noise(y, 16000, **kw)
+    mesh = _card_mesh(kind)
+    for g in (0, 1):
+        K.reset_launch_counts()
+        got = nrt.reduce_noise(y, 16000, mesh=mesh, max_parallel_chunks=g, **kw)
+        torch.cuda.synchronize()
+        assert np.array_equal(got, want), (kind, g)
+        by_device = K.device_counts()
+        for name in by_device:
+            expected = _shard_launches(mesh, 6, g) if name in kernels else {}
+            if name == "spectra" and "y_noise" in kw:
+                first = str(mesh.devices[0])
+                expected[first] = expected.get(first, 0) + 1
+            assert by_device[name] == expected, (name, g, by_device[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", MESH_KINDS)
+@pytest.mark.parametrize("engine", ["nonstationary", "stationary", "torch"])
+def test_bf16_and_file_on_a_card_mesh_are_bitwise(cuda, tmp_path, kind, engine):
+    """The bf16 mode with a mesh is the unsharded bf16 call bitwise, and
+    ``reduce_noise_file`` with a mesh (6 chunks in rounds of the mesh's
+    devices, PCM16 in and out) writes the one device's file bytes."""
+    kw = dict(chunk_size=4000, padding=1000, stationary=engine == "stationary",
+              use_torch=engine == "torch")
+    y = np.random.default_rng(152).standard_normal((2, 21200)).astype(np.float32)
+    mesh = _card_mesh(kind)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
+        want = nrt.reduce_noise(y, 16000, compute_dtype=torch.bfloat16, **kw)
+        got = nrt.reduce_noise(y, 16000, compute_dtype=torch.bfloat16, mesh=mesh, **kw)
+    assert np.array_equal(got, want)
+    path, _ = _stream_wav(tmp_path)
+    base, sharded = tmp_path / "base.wav", tmp_path / "mesh.wav"
+    nrt.reduce_noise_file(path, str(base), **kw)
+    K.reset_launch_counts()
+    nrt.reduce_noise_file(path, str(sharded), mesh=mesh, **kw)
+    assert sharded.read_bytes() == base.read_bytes()
+    assert K.launch_counts()["istft_ola"] == 6
+
+
+# ---------------------------------------------------------------------------
+# the cotangent-precision setting on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["tpugate", "nonstationary", "stationary", "chunked"])
+def test_default_cotangent_mode_casts_on_card(cuda, family, monkeypatch):
+    """The default mode (``bf16``) casts the gate-level cotangent of card
+    tensors: the value is the serving value bitwise, the gradient float32
+    and not the uncast one, within 5e-2 x scale of it (1.5e-1 for the
+    stationary gate's binary decisions); ``highest`` is the uncast
+    gradient (mode ``high``) bitwise."""
+    from noisereduce_tpu_torch.models.spectral_gate import gate_stationary
+    from noisereduce_tpu_torch.ops.cuda.dispatch import fused_gate_chunked
+
+    rng = np.random.default_rng(160)
+    x = torch.as_tensor(rng.standard_normal((2, 32000)), dtype=torch.float32, device=cuda)
+    lim = 5e-2
+    if family == "tpugate":
+        fn = nrt.TPUGate(sr=16000, nonstationary=True)
+    elif family == "nonstationary":
+        cfg = GateConfig(sr=16000)
+        fn = lambda a: gate_nonstationary(a, cfg)  # noqa: E731
+    elif family == "stationary":
+        cfg, lim = GateConfig(sr=16000, stationary=True), 1.5e-1
+        thr = stationary_noise_threshold(torch.as_tensor(0.8 * rng.standard_normal(16000),
+                                                         dtype=torch.float32, device=cuda), cfg)
+        fn = lambda a: gate_stationary(a, thr, cfg)  # noqa: E731
+    else:
+        cfg = GateConfig(sr=16000)
+        fn = lambda a: fused_gate_chunked(a, cfg, 8000, 1500)  # noqa: E731
+    with torch.no_grad():
+        serving = fn(x)
+    cot = torch.as_tensor(rng.standard_normal(serving.shape), dtype=torch.float32, device=cuda)
+
+    def grad(mode):
+        monkeypatch.setenv("NRTPU_COTANGENT_PRECISION", mode)
+        xg = x.clone().requires_grad_()
+        out = fn(xg)
+        assert torch.equal(out, serving)
+        return torch.autograd.grad(out, xg, cot)[0]
+
+    cast, uncast, highest = grad("bf16"), grad("high"), grad("highest")
+    assert cast.dtype == torch.float32 and bool(torch.isfinite(cast).all())
+    assert not torch.equal(cast, uncast)
+    assert _max(cast - uncast) <= lim * _max(uncast)
+    assert torch.equal(highest, uncast)

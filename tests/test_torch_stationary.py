@@ -48,6 +48,7 @@ from noisereduce_tpu_torch.models.spectral_gate import (
 )
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import kernels as K
+from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 from noisereduce_tpu_torch.ops.cuda.dispatch import (
     fused_gate_chunked,
     fused_gate_nonstationary,
@@ -366,10 +367,17 @@ def test_reduce_noise_batch_matches_jax_and_per_signal_calls(
 
 
 def test_reduce_noise_batch_use_torch_raises():
-    # the torch engine and its host-driven tqdm loop are ported; the mesh is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the torch engine, its host-driven tqdm loop and the mesh are ported: a
+    # mesh that is not a ChunkMesh raises, a ChunkMesh is the unsharded call
+    with pytest.raises(TypeError, match="ChunkMesh"):
         nrt.reduce_noise_batch([np.zeros(4000)], 16000, use_torch=True, use_tqdm=True,
                                mesh=object(), device="cpu")
+    ys = [np.random.default_rng(i).standard_normal(13000) for i in range(3)]
+    kw = dict(use_torch=True, stationary=True, chunk_size=3000, padding=600, device="cpu")
+    mesh = ChunkMesh((torch.device("cpu"),) * 2)
+    for got, want in zip(nrt.reduce_noise_batch(ys, 16000, mesh=mesh, use_tqdm=True, **kw),
+                         nrt.reduce_noise_batch(ys, 16000, **kw)):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_reduce_noise_batch_validation():

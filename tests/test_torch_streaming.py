@@ -29,6 +29,7 @@ import noisereduce_tpu_torch as nrt
 import noisereduce_tpu_torch.streaming as st
 from noisereduce_tpu_torch.config import GateConfig
 from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 from noisereduce_tpu_torch.utils import io as nrio
 
 torch.set_num_threads(2)
@@ -182,12 +183,22 @@ def test_progress_and_method_do_not_change_the_output(tmp_path, wavs, extra):
 
 
 def test_mesh_raises_as_reduce_noise_does(tmp_path, wavs):
-    with pytest.raises(NotImplementedError) as file_err:
+    """A mesh that is not a ``ChunkMesh`` raises the in-memory call's
+    ``TypeError``; a ``ChunkMesh`` streams bitwise the one device's file
+    (tests/test_torch_mesh.py holds the engines)."""
+    with pytest.raises(TypeError) as file_err:
         nrt.reduce_noise_file(wavs["mono-float"], str(tmp_path / "o.wav"), mesh=object(),
                               device="cpu")
-    with pytest.raises(NotImplementedError) as mem_err:
+    with pytest.raises(TypeError) as mem_err:
         nrt.reduce_noise(MONO, SR, mesh=object(), device="cpu")
     assert str(file_err.value) == str(mem_err.value)
+    assert "ChunkMesh" in str(file_err.value)
+    base, sharded = str(tmp_path / "base.wav"), str(tmp_path / "mesh.wav")
+    kw = dict(CK, as_float=True, device="cpu")
+    nrt.reduce_noise_file(wavs["mono-pcm16"], base, **kw)
+    nrt.reduce_noise_file(wavs["mono-pcm16"], sharded,
+                          mesh=ChunkMesh((torch.device("cpu"),) * 2), **kw)
+    np.testing.assert_array_equal(_read(sharded), _read(base))
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2, 3, 4, 7])
@@ -201,9 +212,9 @@ def test_pipeline_writes_every_chunk_in_order(n_chunks, depth, monkeypatch):
     chunks = [(i, rng.integers(-2000, 2000, (2, 50)).astype(np.int16))
               for i in range(n_chunks)]
     written = []
-    st._pipeline(iter(chunks), lambda x: x[:, 5:45].to(torch.float32) * 2.0,
+    st._pipeline(iter(chunks), [lambda x: x[:, 5:45].to(torch.float32) * 2.0],
                  (2, 40), torch.float32, lambda a: written.append(a.copy()),
-                 torch.device("cpu"))
+                 [torch.device("cpu")])
     assert len(written) == n_chunks
     for (_, c), w in zip(chunks, written):
         np.testing.assert_array_equal(w, c[:, 5:45].astype(np.float32) * 2.0)

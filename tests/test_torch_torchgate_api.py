@@ -27,6 +27,7 @@ import torch
 import noisereduce_tpu as jnr
 
 import noisereduce_tpu_torch as nrt
+from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 
 torch.set_num_threads(2)
 
@@ -159,16 +160,29 @@ def test_n_jobs_must_be_one_with_use_torch():
 
 
 @pytest.mark.parametrize("kw,err", [
-    # use_tqdm=True is ported; with a mesh, which is not, it raises
-    (dict(use_tqdm=True, mesh=object()), NotImplementedError),
-    # bfloat16 is ported (tests/test_torch_bf16.py); with a mesh it still raises
-    (dict(compute_dtype=torch.bfloat16, mesh=object()), NotImplementedError),
+    # use_tqdm=True and the mesh are ported; a mesh that is not a ChunkMesh
+    # raises (tests/test_torch_mesh.py holds the sharded engine)
+    (dict(use_tqdm=True, mesh=object()), TypeError),
+    # bfloat16 is ported (tests/test_torch_bf16.py); with such a mesh it raises
+    (dict(compute_dtype=torch.bfloat16, mesh=object()), TypeError),
     (dict(prop_decrease=1.5), ValueError),
     (dict(freq_mask_smooth_hz=5), ValueError),
 ], ids=["tqdm", "bf16", "prop", "smoothing"])
 def test_use_torch_arguments_that_raise(kw, err):
     with pytest.raises(err):
         nrt.reduce_noise(np.zeros(8000), 16000, use_torch=True, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(use_tqdm=True), dict(compute_dtype=torch.bfloat16)],
+                         ids=["tqdm", "bf16"])
+def test_use_torch_with_a_mesh_is_the_unsharded_call(kw):
+    """The keywords of the cases above with a ``ChunkMesh`` of 3 CPU
+    devices: the unsharded output, bitwise (no bar with a mesh)."""
+    y = np.random.default_rng(3).standard_normal(20000).astype(np.float32)
+    ck = dict(chunk_size=4000, padding=900, use_torch=True, device="cpu")
+    mesh = ChunkMesh((torch.device("cpu"),) * 3)
+    np.testing.assert_array_equal(nrt.reduce_noise(y, 16000, mesh=mesh, **ck, **kw),
+                                  nrt.reduce_noise(y, 16000, **ck, **kw))
 
 
 def test_use_torch_on_cuda_raises_without_cuda():
