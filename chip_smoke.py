@@ -1978,19 +1978,42 @@ def bf16_hold(label, got, ref, f32_lim):
     return float(d.max()), equal, within
 
 
-def bf16_measure(label, fn, ref_fn, twin_fn, moved, ops, check):
+def ptxas_usage(stem: str, kernel: str) -> str:
+    """Registers and spill bytes of ``kernel``'s bfloat16 and float32 builds,
+    from the ``ptxas -v`` report of ``csrc/<stem>.cu`` that the build keeps
+    beside the kernel library (``build.py``)."""
+    from noisereduce_tpu_torch.ops.cuda import build
+
+    path = build.library_path().parent / f"{stem}.ptxas.txt"
+    if not path.exists():
+        return f"{kernel}: no ptxas report at {path}"
+    entries = path.read_text().split("Compiling entry function")
+    found = []
+    for dtype, tag in (("bf16", "I13__nv_bfloat16E"), ("float32", "IfE")):
+        e = next((e for e in entries if f"{len(kernel)}{kernel}{tag}" in e), "")
+        spill = regex.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+        regs = regex.search(r"Used (\d+) registers", e)
+        found.append(f"{dtype} {regs.group(1)} registers, {spill.group(1)} / {spill.group(2)} "
+                     f"B spill stores / loads" if spill and regs else f"{dtype} not in the report")
+    return f"{kernel} (ptxas -v): " + "; ".join(found)
+
+
+def bf16_measure(label, fn, ref_fn, twin_fn, moved, ops, check, ptxas=None):
     """One bf16 kernel: ``check()`` holds it to its plain version and
     returns its max |dev|; then its time, its float32 twin's (``twin_fn``,
     the float32 build on the float32 inputs), its plain version's, and the
-    bound of the bytes it moves (bf16 planes). No PyTorch call takes bf16
-    spectra (``torch.stft`` / ``torch.istft`` run float32 and float64):
-    library_ms is null. Returns the numbers of the kernels JSON line."""
+    bound of the bytes it moves (bf16 planes); with ``ptxas`` = (source
+    stem, kernel), that kernel's registers and spills in both builds. No
+    PyTorch call takes bf16 spectra (``torch.stft`` / ``torch.istft`` run
+    float32 and float64): library_ms is null. Returns the numbers of the
+    kernels JSON line."""
     extra = check()
     ms, f32_ms, plain_ms = time_ms(fn), time_ms(twin_fn), time_ms(ref_fn)
     bound_ms, bound_by = bound(moved, ops)
     print(f"kernel {label}: bf16 {ms:.3f} ms, its float32 twin {f32_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, library none, card bound {bound_ms:.3f} ms ({bound_by}, "
-          f"{moved / 1e9:.3f} GB; kernel {ms / bound_ms:.2f}x the bound)", flush=True)
+          f"{moved / 1e9:.3f} GB; kernel {ms / bound_ms:.2f}x the bound)"
+          + (f"; final pass {ptxas_usage(*ptxas)}" if ptxas else ""), flush=True)
     return dict(extra, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -2057,7 +2080,8 @@ def bf16_kernel_phase(x_cuda, noise_cuda, cfg, scfg, tgate) -> dict:
         lambda: K.nonstationary_mask(re32, im32, *bk), nbytes(re, im, m),
         cells * (30.0 + 2 * len(tt)),
         lambda: mask_abs("nonstationary_mask (bf16)", BOUNDS["nonstationary_mask"], m,
-                         K.nonstationary_mask_ref(re, im, *bk)))
+                         K.nonstationary_mask_ref(re, im, *bk)),
+        ptxas=("nonstationary_mask", "nonstationary_final_kernel"))
     mb = K.freq_smooth_blend(m, tf, cfg.prop_decrease)
     mb32 = K.freq_smooth_blend(K.nonstationary_mask(re32, im32, *bk), tf, cfg.prop_decrease)
     del m
@@ -2087,7 +2111,8 @@ def bf16_kernel_phase(x_cuda, noise_cuda, cfg, scfg, tgate) -> dict:
         lambda: K.stationary_mask_ref(*e),
         lambda: K.stationary_mask(re32, im32, *e[2:]), nbytes(re, im, thr, got),
         cells * (12.0 + 2 * len(tt)),
-        lambda: e_rule("stationary_mask (bf16)", got, K.stationary_mask_ref(*e)))
+        lambda: e_rule("stationary_mask (bf16)", got, K.stationary_mask_ref(*e)),
+        ptxas=("stationary_mask", "stationary_final_kernel"))
     del got, re, im, re32, im32
 
     # the torch convention: A's torch table, F, D's torch tail

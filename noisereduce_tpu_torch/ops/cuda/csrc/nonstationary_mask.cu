@@ -21,8 +21,8 @@
 // Bound on this card: bytes. A handful of FLOPs per element; the function
 // reads re and im once and writes the mask once (12 B a cell, 1.22 GB at the
 // 960 s headline shape; 8 B a cell, 0.81 GB, from bf16 re/im in the bf16
-// build, whose loads widen them, planes.cuh). Design (time_tiles.cuh): the
-// time axis of each
+// build, widened to float32 where they are used, planes.cuh). Design
+// (time_tiles.cuh): the time axis of each
 // column is cut into segments of a thread each, so the whole plane's loads
 // are in flight at once, not one frame of 40,000 columns. The recurrences
 // are linear, so segments combine as in the TPU kernel's blockwise carry
@@ -39,7 +39,9 @@
 //      offset p_f and w at offset p_b of each segment;
 //   3. final: a block of 4 consecutive segments (a warp each) stages them
 //      and a halo of h = n_taps/2 frames on each side of the run in one
-//      shared-memory tile (cp.async). Each thread runs y forward from the
+//      shared-memory tile (cp.async of 4-byte words: float32 values, or
+//      the words that hold the bf16 elements, whose forward walk takes
+//      each element out of its word). Each thread runs y forward from the
 //      exact y[t0-1] and w backward from w[t1]; the first warp starts at
 //      y[t0-h-1] (offset p_f = (-h-1) mod L of an earlier segment) and the
 //      last ends at w[t1+h] (offset p_b = h mod L of a later one). Each
@@ -189,6 +191,7 @@ __global__ void __launch_bounds__(TILE_COLS * TILE_SEGS)
     const int fs = c.first ? max(0, t0 - halo) : t0;
     const int fe = c.last ? min(n_frames, t1 + halo) : t1;
     stage(re, im, c.base, n_bins, fs, fe, col, off);
+    const Staged<T> sre(re, c.base, n_bins), sim(im, c.base, n_bins);
 
     // forward from y[fs - 1]: at offset p_f of an earlier segment before a
     // halo, else y[t0 - 1]; y over im (word 0), |Z| over re (word 1)
@@ -198,7 +201,7 @@ __global__ void __launch_bounds__(TILE_COLS * TILE_SEGS)
 #pragma unroll 4
     for (int t = fs; t < fe; ++t) {
       float* cy = col + 2 * (t + off) * TILE_COLS;
-      const float mag = mag_of(cy[TILE_COLS], cy[0]);
+      const float mag = mag_of(sre(cy[TILE_COLS], t), sim(cy[0], t));
       y = (t == 0) ? (double)mag : fma(a, y, bd * mag);
       cy[0] = (float)y;
       cy[TILE_COLS] = mag;

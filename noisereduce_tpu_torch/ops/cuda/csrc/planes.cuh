@@ -40,8 +40,33 @@ int with_plane(int code, F f) {
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 
 // bfloat16 is the high half of a float32: widening is a shift, exact
-__device__ __forceinline__ float ld(const bf16* p) {
-  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+__device__ __forceinline__ float widen(unsigned bits) { return __uint_as_float(bits << 16); }
+
+// The bits of a bfloat16 element, not yet widened: a loop that loads a
+// batch of elements before it uses any widens each one where it is used,
+// so no instruction waits on a load before the batch's later loads have
+// gone out (time_tiles.cuh::walk).
+__device__ __forceinline__ unsigned ld_bits(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+__device__ __forceinline__ float ld(const bf16* p) { return widen(ld_bits(p)); }
+
+// The aligned 4-byte word that holds the bfloat16 element at p (cp.async
+// copies 4, 8 or 16 bytes, not 2), and the element taken out of that word,
+// widened: `high` is bit 1 of the element's address, which makes it the
+// word's upper half (little-endian). At a plane's first or last element
+// the word reaches 2 bytes outside the plane, but it lies in the element's
+// own 32-byte sector and page, so the read never touches unmapped memory;
+// element_of drops those bytes.
+__device__ __forceinline__ const unsigned* word_of(const bf16* p) {
+  return reinterpret_cast<const unsigned*>(reinterpret_cast<size_t>(p) & ~(size_t)3);
+}
+
+__device__ __forceinline__ float element_of(unsigned word, unsigned high) {
+  // PRMT: bytes 0, 1 of the result zero (selector 4, the zero operand);
+  // bytes 2, 3 the element's two bytes (0, 1 low half, 2, 3 high half)
+  return __uint_as_float(__byte_perm(word, 0u, high ? 0x3244u : 0x1044u));
 }
 
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }

@@ -25,7 +25,7 @@
 // Bound on this card: bytes. It must read re and im once and write the mask
 // once: 1.22 GB for 960 s of 48 kHz audio (77 views x 2,579 frames x 513
 // bins), 0.36 ms at 3.35 TB/s (0.81 GB, 0.24 ms from the bf16 build's bf16
-// re/im, widened as they load, planes.cuh); a few FLOPs per element. Design
+// re/im, widened where they are used, planes.cuh); a few FLOPs per element. Design
 // (time_tiles.cuh): each column's time axis is cut into segments of a thread
 // each, so the whole plane's loads are in flight at once.
 //   1. maxima: per (view, segment, bin) the max of dB, to a small buffer;

@@ -39,7 +39,9 @@ geometry's route only. A float64 card tensor runs the staged twins, within
 The bf16 mode's kernels (the bfloat16 builds of A, B, D, E and F) are held
 to their plain versions on the same bf16 inputs (A's planes and D's output
 within one bf16 ulp plus the float32 bound, the masks at the float32
-bounds), on every route of A and D; the entry points
+bounds), on every route of A and D, and B, E and F also on planes cut
+at an odd element offset (either half of each element's aligned 4-byte
+word, NaN outside the plane); the entry points
 launch only the bfloat16 builds and stay within the envelopes of
 tests/test_bfloat16_mode.py against the float32 kernels.
 """
@@ -1038,16 +1040,41 @@ def test_bf16_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention
         _hold_bf16(pim, rim, tol)
 
 
+def _cut_at(t, off):
+    """``t``'s values in a contiguous plane that starts ``off`` elements into
+    a storage of exactly off + numel elements, NaN before it: an odd
+    ``off`` puts the plane's first element in the upper half of its aligned
+    4-byte word, whose lower half is outside the plane, and, for an even
+    numel, its last element in the lower half of a word that reaches 2
+    bytes past the storage."""
+    buf = torch.full((off + t.numel(),), float("nan"), dtype=t.dtype, device=t.device)
+    plane = buf[off:].view(t.shape)
+    plane.copy_(t)
+    return plane
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("re_off", (0, 1), ids=["re-even", "re-odd"])
 @pytest.mark.parametrize("half", (0, 9, 400, 800), ids=["h0", "h9", "h400", "h800"])
-@pytest.mark.parametrize("shape", [(2, 5, 65), (2, 65, 40), (3, 150, 513), (2, 1000, 129)],
-                         ids=["T5", "T65", "T150", "T1000"])
-def test_bf16_mask_kernels_match_plain_versions(cuda, shape, half):
+@pytest.mark.parametrize("shape", [(2, 5, 65), (2, 65, 40), (3, 150, 513), (2, 1000, 129),
+                                   (2, 97, 552)],
+                         ids=["T5", "T65", "T150", "T1000", "T97-nb552"])
+def test_bf16_mask_kernels_match_plain_versions(cuda, shape, half, re_off):
     """B, E (a clip's threshold and each view's own statistics) and F read
     bf16 planes: their float32 masks hold the plain versions on the same
     bf16 planes at the float32 bounds (B 1e-4, F 1e-5, E's rule), through
-    the halo in the tile and past it; each launch counted as bfloat16."""
-    re, im = (t.to(BF16) for t in _tile_planes(shape, 150 + half, cuda))
+    the halo in the tile and past it (the separate smoothing launch: B at
+    h400 and h800, E and F at h800); each launch counted as bfloat16. B's
+    final pass takes each element out of its aligned 4-byte word, so the
+    planes sit at either half of theirs: n_bins odd (the half flips every
+    frame) and even, final-pass blocks of 32 columns that straddle a row
+    seam (no n_bins is a multiple of 32), re and im at opposite parities,
+    each cut from a storage at element offset 0 or 1 (first and last
+    elements whose words reach outside the plane, NaN there)."""
+    assert shape[-1] % 32
+    re, im = (_cut_at(t.to(BF16), off) for t, off in
+              zip(_tile_planes(shape, 150 + half, cuda), (re_off, 1 - re_off)))
+    assert (re.data_ptr() % 4, im.data_ptr() % 4) == (2 * re_off, 2 - 2 * re_off)
     taps = tri_norm(half)
     cfg = GateConfig(sr=16000)
     K.reset_launch_counts()
@@ -1055,6 +1082,7 @@ def test_bf16_mask_kernels_match_plain_versions(cuda, shape, half):
     got = K.nonstationary_mask(*b)
     assert got.dtype == torch.float32
     assert _max(got - K.nonstationary_mask_ref(*b)) <= 1e-4
+    assert K.nonstationary_mask.cuda_launches == (4 if half >= 400 else 3)
     thr = torch.as_tensor(np.random.default_rng(151).normal(-20, 10, shape[-1]),
                           dtype=torch.float32, device=cuda)
     for e in ((re, im, thr, 1, 0.8, taps), (re, im, None, 1, 0.8, taps)):

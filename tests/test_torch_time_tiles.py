@@ -859,6 +859,47 @@ def test_tile_plan_takes_the_smoothing_launch_past_the_tile(words, seg, h_fused,
     assert TimeTilePlan(2, 5000, 513, 1, 0, seg).smem_bytes == 0
 
 
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm for selector nibbles 0-7: result byte i is byte
+    (sel >> 4i) & 7 of the 8 bytes of x (0-3) then y (4-7)."""
+    src = [(x >> (8 * k)) & 0xFF for k in range(4)] + [(y >> (8 * k)) & 0xFF for k in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+@pytest.mark.parametrize("off", (0, 1), ids=["even", "odd"])
+@pytest.mark.parametrize("n_bins", (513, 552, 1, 2))
+def test_bf16_words_hold_each_element_in_the_half_staged_picks(n_bins, off):
+    """Kernel B's bf16 staging (time_tiles.cuh::stage, Staged; planes.cuh::
+    word_of, element_of) on a (rows, frames, n_bins) plane that starts
+    ``off`` elements into a 4-byte-aligned storage: the aligned word of
+    each element, with the half that at0 ^ (t & step) picks through the
+    source's PRMT selectors, widens to that element, for n_bins odd (the
+    half flips every frame) and even; the first element's word reaches 2
+    bytes before the plane at an odd offset, the last element's 2 bytes past
+    it where the plane ends at an odd one."""
+    src = (CSRC / "planes.cuh").read_text()
+    hi_sel, lo_sel = (int(v, 16) for v in regex.search(
+        r"high \? (0x[0-9a-f]+)u : (0x[0-9a-f]+)u", src).groups())
+    rows, T = 3, 37
+    n = rows * T * n_bins
+    rng = np.random.default_rng(n_bins + off)
+    store = np.full(off + n + 1, 0x7FC1, np.int64)  # NaN around the plane
+    store[off : off + n] = rng.integers(0, 1 << 16, n)
+    row, t, b = (a.ravel() for a in np.meshgrid(np.arange(rows), np.arange(T), np.arange(n_bins),
+                                                indexing="ij"))
+    base = row * T * n_bins + b  # Cell::base, the column's frame 0
+    e = off + base + t * n_bins  # the element's index in the storage; its byte address 2e
+    w = 2 * (e // 2)  # its aligned word's first element
+    word = store[w] | (store[w + 1] << 16)
+    at0, step = (off + base) & 1, n_bins & 1  # Staged: the plane's address >> 1 is off
+    high = at0 ^ (t & step)
+    assert np.array_equal(high, e & 1)  # bit 1 of the byte address 2e
+    got = np.array([_byte_perm(int(x), 0, hi_sel if h else lo_sel) for x, h in zip(word, high)])
+    assert np.array_equal(got, store[e] << 16)  # planes::widen of the element
+    # words outside the plane: before it at an odd offset, past it where it ends at an odd one
+    assert (w.min() < off) == bool(off % 2) and (w.max() + 1 == off + n) == bool((off + n) % 2)
+
+
 def test_short_planes_have_one_segment():
     for n_frames in (1, 5, SEG_B):
         assert TimeTilePlan(1, n_frames, 513, 19, 2, SEG_B).n_segs == 1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Hold the float32 builds of kernels A-G to another tree's, bit for bit, on
-one CUDA card.
+"""Hold the float32 builds of kernels A-G, and the bfloat16 builds of A, B,
+D, E and F, to another tree's, bit for bit, on one CUDA card.
 
     python3 tools/kernel_bitwise.py --save OUT.pt
     python3 tools/kernel_bitwise.py --compare OLD.pt NEW.pt
@@ -12,13 +12,18 @@ the complex-frame kernels; 1323, odd, two frames a transform; 1102, the
 chirp-z route; 40, the DFT products), in both STFT conventions, over 3
 halo'd chunk views of 2 signal rows; B with the headline's 19 time taps,
 one unit tap and 801 (its separate smoothing launch); E with a clip's
-threshold and with each view's own statistics; F at n_movemean 375 and
-374; C at 11 taps; G on both of its routes. ``--compare`` prints, for
-each output, whether the two runs are bitwise equal, and exits 1 if any
-differs. The ``noisereduce_tpu_torch`` run is the one Python imports first:
-put a parent checkout (``git archive`` into an ignored directory) first on
-``PYTHONPATH`` to save the parent's. Calls only the wrappers' float32
-signatures, which the trees share. Imports nothing of JAX.
+threshold and with each view's own statistics, each with the 19 taps, one
+unit tap and 801; F at n_movemean 375 and 374; C at 11 taps; G on both
+of its routes. The bfloat16 builds ("bf16" in the key) on the same
+inputs cast to bfloat16: A of the signal and D of A's float32 planes on
+every route and convention (the float32 mask), B, E and F on the n_fft
+1024 planes, in the same cases. ``--compare`` prints, for each output,
+whether the two runs are bitwise equal, and exits 1 if any differs. The
+``noisereduce_tpu_torch`` run is the one Python imports first: put a
+parent checkout (``git archive`` into an ignored directory) first on
+``PYTHONPATH`` to save the parent's. Calls only wrapper signatures that
+the trees share (bfloat16 planes since the bf16 mode). Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ def run() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((2, N), generator=gen, device="cuda")
+    bf = torch.bfloat16
     out = {}
     for label, kw, sr in GEOMETRIES:
         for conv, extra in (("scipy", {}), ("torch", dict(convention="torch",
@@ -63,21 +69,27 @@ def run() -> dict:
             mask = torch.rand(re.shape, generator=gen, device="cuda")
             out[f"A {label} {conv}"] = torch.stack([re, im])
             out[f"D {label} {conv}"] = K.istft_ola(re, im, mask, geo, PADDING, CHUNK)
+            out[f"A bf16 {label} {conv}"] = torch.stack(K.spectra(x.to(bf), geo, CHUNK, PADDING))
+            out[f"D bf16 {label} {conv}"] = K.istft_ola(re.to(bf), im.to(bf), mask, geo,
+                                                        PADDING, CHUNK)
 
     cfg = GateConfig(sr=SR)
     geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
     re, im = K.spectra(x, geo, CHUNK, PADDING)
     b = (cfg.iir_b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary)
-    for taps in (9, 0, 400):
-        out[f"B {2 * taps + 1} taps"] = K.nonstationary_mask(re, im, *b, tri_norm(taps))
-    out["C 11 taps"] = K.freq_smooth_blend(out["B 19 taps"], tri_norm(5), 0.8)
     thr = torch.randn(geo.n_bins, generator=gen, device="cuda") * 10 - 40
-    out["E threshold"] = K.stationary_mask(re, im, thr, 1, 0.8, tri_norm(9))
-    out["E own statistics"] = K.stationary_mask(re, im, None, 1, 0.8, tri_norm(9),
-                                                top_db=40.0, n_std=1.5)
-    for n in (375, 374):
-        out[f"F n_movemean {n}"] = K.torch_nonstationary_mask(re, im, n, 1.3, 0.1, 0.8,
-                                                              tri_norm(9))
+    for kind, (zr, zi) in (("", (re, im)), ("bf16 ", (re.to(bf), im.to(bf)))):
+        for taps in (9, 0, 400):
+            tt = tri_norm(taps)
+            n = 2 * taps + 1
+            out[f"B {kind}{n} taps"] = K.nonstationary_mask(zr, zi, *b, tt)
+            out[f"E {kind}threshold, {n} taps"] = K.stationary_mask(zr, zi, thr, 1, 0.8, tt)
+            out[f"E {kind}own statistics, {n} taps"] = K.stationary_mask(
+                zr, zi, None, 1, 0.8, tt, top_db=40.0, n_std=1.5)
+        for n in (375, 374):
+            out[f"F {kind}n_movemean {n}"] = K.torch_nonstationary_mask(zr, zi, n, 1.3, 0.1,
+                                                                        0.8, tri_norm(9))
+    out["C 11 taps"] = K.freq_smooth_blend(out["B 19 taps"], tri_norm(5), 0.8)
     z = torch.complex(re, im).transpose(1, 2).contiguous()
     out["G resident"] = K.fm_nonstationary_mask(z, *b)
     out["G tiled"] = K._fm_mask_on("tiled", z, *b)

@@ -27,7 +27,13 @@ or Z read once, the mask written once, over 3.35 TB/s; C: the mask read
 once and one written). Prints the card's name
 and power limit first and one JSON line last.
 
+``--dtype bfloat16`` times B, E and F (cases 0-4) on the same spectra cast
+to bfloat16: their bf16 builds, the bytes bound from the bf16 planes (re
+and im 2 B a cell, the float32 mask 4 B); C and G take float32 only and
+are skipped.
+
     python3 tools/mask_tiles_timing.py [--reps 10] [--save PATH] [--cases 5,6,7,8]
+    python3 tools/mask_tiles_timing.py --dtype bfloat16 --cases 0,1,2,3,4
     python3 tools/mask_tiles_timing.py --compare OLD.pt NEW.pt
 
 ``--cases`` picks cases by their number in that order, from 0;
@@ -57,6 +63,7 @@ CASES = ("nonstationary_mask", "nonstationary_mask (unit tap)", "stationary_mask
          "fm_nonstationary_mask", "fm_nonstationary_mask (tiled route)", "freq_smooth_blend",
          "fm_nonstationary_mask (short columns)", "freq_smooth_blend (batch 32 x 10 s)",
          "freq_smooth_blend (129 taps, split geometry)", "freq_smooth_blend (641 taps on 257 bins)")
+BF16_CASES = CASES[:5]  # the kernels with a bfloat16 build
 # case 8: a training batch of 256 clips of 4 s at 16 kHz, n_fft 512 / hop 128
 SHORT_SR, SHORT_CLIPS, SHORT_SECONDS, SHORT_N_FFT = 16000, 256, 4, 512
 
@@ -64,7 +71,7 @@ SHORT_SR, SHORT_CLIPS, SHORT_SECONDS, SHORT_N_FFT = 16000, 256, 4, 512
 def compare(old_path: str, new_path: str) -> None:
     old, new = torch.load(old_path), torch.load(new_path)
     out = {}
-    for case in (c for c in CASES if c in old and c in new):
+    for case in (c for c in old if c in new):
         a, b = old[case].double(), new[case].double()
         out[case] = dict(bitwise=bool(torch.equal(old[case], new[case])),
                          max_abs_diff=float((a - b).abs().max()),
@@ -79,6 +86,8 @@ def main() -> None:
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", nargs=2, default=None)
     ap.add_argument("--cases", default=None)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the re/im planes' type of cases 0-4")
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -126,6 +135,9 @@ def main() -> None:
                                   gate_geometry(c16.stft, n16))).transpose(1, 2).contiguous()
     ns = (c16.iir_b, c16.thresh_n_mult_nonstationary, c16.sigmoid_slope_nonstationary)
     tf = tri_norm(cfg.smoothing[0])
+    bf16 = args.dtype == "bfloat16"
+    if bf16:  # B, E and F read the same spectra rounded to bfloat16
+        re, im, tre, tim = (t.to(torch.bfloat16) for t in (re, im, tre, tim))
     calls = {
         CASES[0]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, tt)),
         CASES[1]: (K.nonstationary_mask, lambda: K.nonstationary_mask(re, im, *nb, (1.0,))),
@@ -149,21 +161,26 @@ def main() -> None:
         calls[case] = (K.freq_smooth_blend,
                        lambda mc=mc, taps=taps, prop=prop: K.freq_smooth_blend(mc, taps, prop))
     picked = [CASES[int(i)] for i in args.cases.split(",")] if args.cases else CASES
-    plane = re.numel() * re.element_size()
+    mask_bytes = re.numel() * 4  # a float32 plane of the headline's shape
     out, saved = {}, {}
-    print(f"F: n_movemean {f[0]}, {len(f[-1])} time taps", flush=True)
+    print(f"F: n_movemean {f[0]}, {len(f[-1])} time taps; planes {args.dtype}", flush=True)
     for case in picked:
         wrapper, fn = calls[case]
         if case == CASES[6] and not hasattr(K, "_fm_mask_on"):
             print(f"{case}: not in this package", flush=True)
             continue
-        moved = (2 if case == CASES[7] else 3) * plane  # C: one plane in, one out
+        if bf16 and case not in BF16_CASES:
+            print(f"{case}: float32 only", flush=True)
+            continue
+        # re and im (or Z) read once, the mask written once; C: one plane in, one out
+        moved = 2 * mask_bytes if case == CASES[7] else (
+            2 * re.numel() * re.element_size() + mask_bytes)
         if case == CASES[8]:
             moved = zs.numel() * 12  # complex64 in, the float32 mask out
         if case in planes:
             moved = 2 * planes[case].numel() * 4
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        saved[case] = fn()
+        saved[case + (" (bf16 planes)" if bf16 else "")] = fn()
         ms = time_ms(fn, args.reps)
         dev = device_ms(fn, args.reps)
         out[case] = dict(ms=ms, device_ms=sum(dev.values()) or None, device_by_kernel=dev,
@@ -177,7 +194,7 @@ def main() -> None:
               f"({ms / bound_ms:.2f}x), input {out[case]['shape']}", flush=True)
     if args.save:
         torch.save({k: v.cpu() for k, v in saved.items()}, args.save)
-    print(json.dumps({"package": str(pathlib.Path(nr.__file__).parent),
+    print(json.dumps({"package": str(pathlib.Path(nr.__file__).parent), "dtype": args.dtype,
                       "shape": list(re.shape), "cases": out}), flush=True)
 
 

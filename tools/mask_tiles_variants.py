@@ -47,14 +47,21 @@ anything.
   (at most 64 or 40 registers), not 8;
 - ``g_one_column``: G's resident route with one column a block at every
   T (geometry.py), not several a block for short columns;
+- ``bf16_batch16``: the bfloat16 walk (``time_tiles.cuh::walk``: B's and
+  F's partials, every pass of E) in batches of 16 frames (as many bytes
+  in flight as float32's 8), not 8;
+- ``bf16_stage_walk``: B's final pass stages bfloat16 re/im through the
+  walk (batches of loads into registers, widened, stored), not as 4-byte
+  words copied with ``cp.async``;
 - ``c_span_blocks``: kernel C's design (a), ``tools/variants/
   freq_smooth_blend_spans.cu`` in place of ``csrc/freq_smooth_blend.cu``:
   one block a span, no asynchronous copies (the package's design (b):
   persistent blocks, each loading its next span with ``cp.async`` while
   it smooths this one).
 
-``--cases`` goes to ``tools/mask_tiles_timing.py`` (G alone: ``--cases
-5,6,8``; C at its four shapes: ``--cases 7,9,10,11``).
+``--cases`` and ``--dtype`` go to ``tools/mask_tiles_timing.py`` (G alone:
+``--cases 5,6,8``; C at its four shapes: ``--cases 7,9,10,11``; the
+bfloat16 builds of B, E and F: ``--dtype bfloat16 --cases 0,1,2,3,4``).
 
 Needs one CUDA card; imports nothing of JAX.
 """
@@ -83,6 +90,24 @@ VARIANTS = {
     "g_blocks6": [("fm_nonstationary_mask.cu", "constexpr int MIN_BLOCKS = 8;",
                    "constexpr int MIN_BLOCKS = 6;")],
     "g_one_column": [("../geometry.py", "for cols in (8, 4, 2, 1):", "for cols in (1,):")],
+    "bf16_batch16": [("time_tiles.cuh", "constexpr int BATCH = UNROLL;",
+                      "constexpr int BATCH = 2 * UNROLL;")],
+    "bf16_stage_walk": [
+        ("time_tiles.cuh", "int t_end, float* col, int off) {\n#pragma unroll 4",
+         "int t_end, float* col, int off) {\n"
+         "  if constexpr (!std::is_same<T, float>::value) {\n"
+         "    walk(re, im, base, n_bins, t_begin, t_end, [&](int t, float zr, float zi) {\n"
+         "      float* cy = col + 2 * (t + off) * TILE_COLS;\n"
+         "      cy[0] = zi;\n"
+         "      cy[TILE_COLS] = zr;\n"
+         "    });\n"
+         "    return;\n"
+         "  }\n"
+         "#pragma unroll 4"),
+        ("time_tiles.cuh",
+         "return planes::element_of(__float_as_uint(slot), at0 ^ ((unsigned)t & step));",
+         "return slot;"),
+    ],
     # a whole source in place of the package's (no pattern)
     "c_span_blocks": [("freq_smooth_blend.cu", None, "tools/variants/freq_smooth_blend_spans.cu")],
     "no_sigmoid": [(
@@ -216,9 +241,10 @@ def build_copy(name: str) -> pathlib.Path:
 def main() -> None:
     args = sys.argv[1:]
     cases = []
-    if "--cases" in args:
-        i = args.index("--cases")
-        cases, args = ["--cases", args[i + 1]], args[:i] + args[i + 2:]
+    for flag in ("--cases", "--dtype"):
+        if flag in args:
+            i = args.index(flag)
+            cases, args = cases + [flag, args[i + 1]], args[:i] + args[i + 2:]
     names = args or list(VARIANTS)
     for name in names:
         if name not in VARIANTS and not (name.startswith("tiles:") and name.count(":") == 4):
