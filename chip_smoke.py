@@ -214,6 +214,26 @@ FFT_CELLS = (
 )
 # an n_fft below 64 (5 ms frames at 8 kHz): A and D take their product route
 PRODUCT_SR, PRODUCT_SECONDS, PRODUCT_KW = 8000, 60, dict(n_fft=40, hop_length=10)
+# The long frames, each a path through reduce_noise on the first `samples`
+# of the headline signal, then A and D against their plain versions at its
+# shapes beside torch.stft / torch.istft (no product route at these sizes:
+# its n_fft x n_fft tables take a gigabyte and more): (label, sr, samples,
+# STFT and smoothing arguments, route, JSON entry of A and D). A hop past
+# 50 ms needs a time smoothing of at least one hop: 500 ms.
+LONG_CELLS = (
+    # 16384 / 2 = 8192 = 2^13: the FFT route's big block (complex-frame
+    # kernels, one frame a block of 1024 threads)
+    ("long frames n_fft 16384", SR, 60 * SR,
+     dict(n_fft=16384, hop_length=4096, time_mask_smooth_ms=500), "fft", "big"),
+    # 40000 / 2 = 20000 = 2^5 5^4: the cluster route, 4 blocks, 100 x 200;
+    # kernel C's lines of 20,001 bins in pieces (ROADMAP F8)
+    ("long frames n_fft 40000", SR, 400_000, dict(n_fft=40000, time_mask_smooth_ms=500),
+     "cluster", "cluster"),
+)
+# kernel F at temperatures that are not normal floats (the exact division):
+# 0 (a step) and 1e-40 (subnormal: read as a zero, as the JAX package
+# divides by it)
+F_TEMPS = (0.0, 1e-40)
 # the card's published peaks (H100 SXM data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -278,12 +298,17 @@ SOURCES = {
     # the product route of A and D, for an n_fft neither other route serves
     "spectra_product": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
     "istft_ola_product": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
+    # past n_fft 8192: the FFT route's big block (16384) and the cluster route (40000)
+    "spectra_big": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
+    "istft_ola_big": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
+    "spectra_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cluster.cu",
+    "istft_ola_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cluster.cu",
 }
 # JSON entries of A and D: (the wrapper that launches them, the route)
 ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
           "spectra_product": ("spectra", "product"),
           "istft_ola_product": ("istft_ola", "product")}
-for _label, _sr, _secs, _kw, _route, _entry in FFT_CELLS:
+for _label, _sr, _secs, _kw, _route, _entry in FFT_CELLS + LONG_CELLS:
     if _entry:
         ROUTED[f"spectra_{_entry}"] = ("spectra", _route)
         ROUTED[f"istft_ola_{_entry}"] = ("istft_ola", _route)
@@ -347,6 +372,9 @@ C_SHAPES = (
      PADDING),
     ("641 taps on 257 bins", dict(sr=GRAD_SR, n_fft=FM_SHORT_N_FFT, freq_mask_smooth_hz=20000),
      GRAD_BATCHES[-1], GRAD_SECONDS * GRAD_SR, 0),
+    # lines past one block: n_fft 40000 at 48 kHz, 20,001 bins, 417 taps, in
+    # pieces (A on the cluster route gives the spectra)
+    ("20,001 bins in pieces", dict(sr=SR, **LONG_CELLS[1][3]), 1, LONG_CELLS[1][2], PADDING),
 )
 
 
@@ -615,7 +643,9 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
     from noisereduce_tpu_torch.config import GateConfig
     from noisereduce_tpu_torch.ops.cuda import kernels as K
-    from noisereduce_tpu_torch.ops.cuda.geometry import fm_mask_plan, gate_geometry
+    from noisereduce_tpu_torch.ops.cuda.geometry import (
+        fm_mask_plan, freq_smooth_plan, gate_geometry,
+    )
     from noisereduce_tpu_torch.ops.dsp import tri_norm
     from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
@@ -761,6 +791,16 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
         return got, r
 
     mb, _ = c_record(m, tf, cfg.prop_decrease)
+    # the headline's lines cut into pieces of 45 bins anyway: bitwise the
+    # plan of whole lines (a line that fits takes that plan)
+    pieces = K._freq_smooth_on(
+        freq_smooth_plan(m.numel() // m.shape[-1], m.shape[-1], len(tf), 45), m, tf,
+        cfg.prop_decrease)
+    print(f"kernel freq_smooth_blend: the headline in pieces of 45 bins bitwise its plan "
+          f"of whole lines: {torch.equal(pieces, mb)}", flush=True)
+    if not torch.equal(pieces, mb):
+        fail("kernel freq_smooth_blend: pieces differ from whole lines")
+    del pieces
     results["freq_smooth_blend"]["shapes"] = {
         label: c_record(mc, taps, prop, f"freq_smooth_blend ({label}: {tuple(mc.shape)}, "
                                         f"{len(taps)} taps)")[1]
@@ -827,6 +867,36 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
         max_abs_err_unflipped=rest, cells_flipped=n_off,
         cuda_launches=K.stationary_mask.cuda_launches)
     return results
+
+
+def at_threshold_planes(views: int, frames: int, n_bins: int, device):
+    """Planes whose every cell's ratio is exactly 0: |Z| constant along
+    time in each bin (1 to 4, exact in every prefix sum; bin 0 silent)."""
+    level = (torch.arange(n_bins, device=device) % 4 + 1).float()
+    level[0] = 0.0
+    re = level.expand(views, frames, n_bins).contiguous()
+    return re, torch.zeros_like(re)
+
+
+def f_at_threshold(K, re, im, taps) -> None:
+    """Kernel F with a threshold of 0 on planes where every cell's ratio
+    is exactly that threshold (``at_threshold_planes``): at each temp of
+    F_TEMPS (a step) 0/0 under the sigmoid, NaN in the same cells as the
+    plain version's, the rest within the bound."""
+    for temp in F_TEMPS:
+        args = (re, im, 375, 0.0, temp, 1.0, taps)
+        got, ref = K.torch_nonstationary_mask(*args), K.torch_nonstationary_mask_ref(*args)
+        nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
+        keep = ~nan_ref
+        dev = float((got[keep] - ref[keep]).abs().max()) if keep.any() else 0.0
+        same = torch.equal(nan_got, nan_ref)
+        print(f"kernel torch_nonstationary_mask (temp {temp:g}, every cell at the threshold): "
+              f"NaN in {int(nan_got.sum())} of {got.numel()} cells, the plain version's "
+              f"{int(nan_ref.sum())}, the same cells: {same}; max|dev| over the rest "
+              f"{dev:.3e}", flush=True)
+        if not same or not nan_ref.any() or not dev <= BOUNDS["torch_nonstationary_mask"]:
+            fail(f"kernel torch_nonstationary_mask (temp {temp:g}, at the threshold) "
+                 "disagrees with its plain version")
 
 
 def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, results) -> None:
@@ -910,6 +980,19 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
         if r["cuda_launches"] != 3:
             fail(f"kernel torch_nonstationary_mask (n_movemean {n}) made "
                  f"{r['cuda_launches']} CUDA launches, not 3")
+    for temp in F_TEMPS:  # the exact division's final pass, on the same spectra
+        ft_ = f[:4] + (temp,) + f[5:]
+        got, ref = K.torch_nonstationary_mask(*ft_), K.torch_nonstationary_mask_ref(*ft_)
+        # a cell whose ratio is exactly the threshold is NaN (0/0) in both
+        if not torch.equal(torch.isnan(got), torch.isnan(ref)):
+            fail(f"kernel torch_nonstationary_mask (temp {temp:g}): NaN in other cells")
+        results["torch_nonstationary_mask"][f"temp_{temp:g}"] = measure(
+            f"torch_nonstationary_mask (temp {temp:g}: exact division)",
+            BOUNDS["torch_nonstationary_mask"], lambda: K.torch_nonstationary_mask(*ft_),
+            lambda: K.torch_nonstationary_mask_ref(*ft_), got.nan_to_num(), ref.nan_to_num(),
+            nbytes(re, im, m), cells * (40.0 + 2 * len(tt)), wrapper=K.torch_nonstationary_mask)
+        del got, ref
+    f_at_threshold(K, *at_threshold_planes(2, re.shape[1], re.shape[2], re.device), tt)
 
     mb = K.freq_smooth_blend(m, ft, 1.0)
     d = (re, im, mb, geo, PADDING, CHUNK)
@@ -977,12 +1060,13 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
     )
 
 
-def route_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
+def route_kernel_phase(xc: torch.Tensor, cfg, gate, label, product=True) -> dict:
     """Kernels A and D on the route of ``cfg``'s geometry against their
     plain versions at the shapes ``reduce_noise`` gives them on the signal
     ``xc`` (chunked as the API chunks it, or one padded view), each beside
     ``torch.stft`` / ``torch.istft`` and, off the product route, their
-    product route at the same shapes, each timed also in device time; then,
+    product route at the same shapes (with ``product``), each timed also in
+    device time; then,
     with ``gate`` (the TorchGate of ``reduce_noise(use_torch=True)`` at
     this geometry), the same under torch conventions, held at 1e-5 x.
     Returns {"spectra": ..., "istft_ola": ...} of the kernels JSON line."""
@@ -1024,7 +1108,7 @@ def route_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
             torch.stack([re, im]), torch.stack([rre, rim]), nbytes(src[0], re, im), ops_a,
             library_fn=lib_a, scale_bound=True)
         prod_a = {}
-        if geo.route != "product":
+        if product and geo.route != "product":
             ra["product_route"] = product_route(
                 f"spectra ({tag})", lambda: torch.stack(K._spectra_on("product", *a)),
                 torch.stack([rre, rim]), lim)
@@ -1054,7 +1138,7 @@ def route_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
             re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
             library_fn=lib_d, scale_bound=True)
         prod_d = {}
-        if geo.route != "product":
+        if product and geo.route != "product":
             rd["product_route"] = product_route(
                 f"istft_ola ({tag})", lambda: K._istft_ola_on("product", *d), ry, lim)
             prod_d = dict(product=lambda: K._istft_ola_on("product", *d))
@@ -1067,6 +1151,46 @@ def route_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
         else:
             out["spectra"]["torch_table"], out["istft_ola"]["torch_tail"] = ra, rd
     return out
+
+
+def long_frame_engines(nr, K, launches, xq, cell) -> None:
+    """ROADMAP F8's geometry (``cell``: n_fft 40000, 500 ms of time
+    smoothing at 48 kHz) through ``reduce_noise`` on the stationary and
+    torch engines (the non-stationary one is its route cell), each path's
+    launches counted, A and D on the cluster route only; every engine held
+    to the CPU path (the kernels' plain versions): the non-stationary and
+    torch engines within E2E_BOUND x max|ref|, the stationary one printed
+    and held to the staged plain path on the card under the border rule."""
+    label, sr, samples, kw, route, _ = cell
+    ck = dict(chunk_size=CHUNK, padding=PADDING)
+    paths = {
+        "nonstationary": ({}, None),
+        "stationary": (dict(stationary=True),
+                       dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1)),
+        "use_torch": (dict(use_torch=True),
+                      dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1,
+                           istft_ola=1)),
+    }
+    for engine, (extra, expected) in paths.items():
+        call = dict(kw, **extra, **ck)
+        tag = f"{label}, {engine}"
+        if expected is None:
+            out = nr.reduce_noise(xq, sr, **call)
+        else:
+            out, launches[tag] = run_path(K, tag, lambda: nr.reduce_noise(xq, sr, **call),
+                                          expected, route=route)
+        check_output(tag, out, xq)
+        ref = nr.reduce_noise(xq, sr, device="cpu", **call)
+        dev = float(np.abs(out.astype(np.float64) - ref).max())
+        lim = E2E_BOUND * float(np.abs(ref).max())
+        print(f"{tag} ({call}, {samples} samples at {sr} Hz) vs the CPU path: max|dev| "
+              f"{dev:.3e} bound {lim:.3e}", flush=True)
+        if engine == "stationary":
+            y2d = torch.as_tensor(xq[None]).cuda()
+            stationary_vs_plain(tag, out[None], y2d, y2d[0, :CHUNK],
+                                nr.GateConfig(sr=sr, stationary=True, **kw), CHUNK, PADDING)
+        elif not dev <= lim:
+            fail(f"{tag} disagrees with the CPU path")
 
 
 def torch_staged(y2d, gate, chunk_size, padding, xn=None):
@@ -2633,7 +2757,7 @@ def main() -> None:
 
     # A's and D's other routes: each cell's path as a user calls it, against
     # the staged plain path, then A and D at its shapes
-    def route_cell(label, xq, sr, kw, route, conv_gate=True):
+    def route_cell(label, xq, sr, kw, route, conv_gate=True, product=True):
         c = nr.GateConfig(sr=sr, **kw)
         out, launches[label] = run_path(
             K, label, lambda: nr.reduce_noise(xq, sr, **kw, **ck),
@@ -2651,7 +2775,7 @@ def main() -> None:
         del out, ref
         gate = nr.api.torch_gate_for(sr, **kw) if conv_gate else None
         got = route_kernel_phase(torch.as_tensor(xq).cuda(), c, gate,
-                                 f"{label}, n_fft {kw['n_fft']}, {secs:g} s")
+                                 f"{label}, n_fft {kw['n_fft']}, {secs:g} s", product)
         if secs == HEADLINE_SECONDS:
             ms = time_ms(lambda: nr.reduce_noise(xq, sr, **kw, **ck))
             plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(xq)[0], c).cpu())
@@ -2687,6 +2811,14 @@ def main() -> None:
         results[f"{name}_product"] = dict(got[name], fft_route="product")
     del xp
 
+    # the long frames: the big block and the cluster route; then F8's
+    # geometry on every engine against the CPU path
+    for label, sr, samples, kw, route, entry in LONG_CELLS:
+        got = route_cell(label, x[:samples], sr, kw, route, product=False)
+        for name in ("spectra", "istft_ola"):
+            results[f"{name}_{entry}"] = dict(got[name], fft_route=route)
+    long_frame_engines(nr, K, launches, x[: LONG_CELLS[1][2]], LONG_CELLS[1])
+
     bf16_route_phase(x, lambda sr, kw: nr.GateConfig(sr=sr, **kw), results)
     bf16_phase(nr, K, card, launches, x, noise, results)
 
@@ -2700,7 +2832,7 @@ def main() -> None:
                      fm_nonstationary_mask="row 6 mask under grad",
                      spectra_product="product route geometry",
                      istft_ola_product="product route geometry")
-    for label, _, secs, _, _, entry in FFT_CELLS:
+    for label, _, secs, _, _, entry in FFT_CELLS + LONG_CELLS:
         if entry:
             main_path[f"spectra_{entry}"] = main_path[f"istft_ola_{entry}"] = label
     for name in ("spectra", "istft_ola"):

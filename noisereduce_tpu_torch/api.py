@@ -43,6 +43,7 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
 from __future__ import annotations
 
 import inspect
+import numbers
 import warnings
 
 import numpy as np
@@ -59,12 +60,43 @@ from noisereduce_tpu_torch.ops.cuda.dispatch import (
     fused_gate_chunked,
     fused_gate_supported,
 )
-from noisereduce_tpu_torch.parallel.chunking import process_chunked
+from noisereduce_tpu_torch.parallel.chunking import n_chunks_for, process_chunked
 from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 
 __all__ = ["reduce_noise", "reduce_noise_batch"]
 
 COMPUTE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
+
+class _Rows(list):
+    """``reduce_noise_batch``'s equal-length 1-D rows of one group, or one
+    noise row for each of them: a private type, so that a list a user
+    passes as ``y`` or ``y_noise`` goes through ``np.asarray`` as the JAX
+    package takes it (``api.py:458``)."""
+
+
+def _chunk_group(padding, max_parallel_chunks, n_samples: int, chunk_size: int) -> int:
+    """The chunks a host-driven group takes (0: all of them in one launch),
+    after refusing, before any launch, what the JAX package refuses: a
+    negative ``padding`` (its ``ValueError``, whatever the signal's
+    length), and a ``max_parallel_chunks`` that cannot count groups of
+    chunks where it groups them: a signal longer than a chunk, with more
+    chunks than a positive value (``TypeError``, as JAX raises for -1 and
+    1.5; at -2 and below it raises ``ValueError``). Where the JAX package
+    does not group (one chunk, or no more chunks than the value), neither
+    does the port."""
+    if padding < 0:
+        raise ValueError(f"padding must be >= 0, got {padding}")
+    g = max_parallel_chunks
+    if isinstance(g, numbers.Integral) and g > 0:
+        return int(g)
+    if not g or n_samples <= chunk_size:
+        return 0
+    if isinstance(g, numbers.Real) and g >= n_chunks_for(n_samples, chunk_size):
+        return 0
+    raise TypeError(
+        "max_parallel_chunks must be None or an int >= 0 (0: every chunk in one "
+        f"launch), got {g!r}")
 
 
 def _check_mesh(mesh) -> None:
@@ -153,13 +185,13 @@ def _reduce_noise_torch_path(y2d, gate, y_noise, chunk_size, padding, clip_noise
     clip stays multichannel and, longer than the signal, is cut along its
     FIRST axis (the reference's quirk, streamed_torch_gate.py:57-58:
     samples for a 1-D clip, channels for a 2-D one). ``y_noise`` may also be
-    a list of equal-length 1-D rows (``reduce_noise_batch``'s per-signal
+    ``_Rows`` of equal-length 1-D rows (``reduce_noise_batch``'s per-signal
     clips). With ``mesh`` the clip goes to its first device, where the
     statistics run."""
     yn = None
     if y_noise is not None:
-        yn = y_noise if isinstance(y_noise, list) else np.asarray(y_noise)
-        n_clip = yn[0].shape[-1] if isinstance(yn, list) else yn.shape[-1]
+        yn = y_noise if isinstance(y_noise, _Rows) else np.asarray(y_noise)
+        n_clip = yn[0].shape[-1] if isinstance(yn, _Rows) else yn.shape[-1]
         if n_clip > y2d.shape[-1] and clip_noise_stationary:
             yn = yn[: y2d.shape[-1]]
         yn = _to_tensor(yn, y2d.device if mesh is None else mesh.devices[0], y2d.dtype)
@@ -251,7 +283,8 @@ def reduce_noise(
         multiple and sigmoid slope of the non-stationary mask
     n_std_thresh_stationary : stationary threshold = mean + this many std
         of the noise dB spectrogram
-    chunk_size, padding : long recordings are gated as halo'd chunks
+    chunk_size, padding : long recordings are gated as halo'd chunks; a
+        negative padding raises ``ValueError``
     n_fft, win_length, hop_length : STFT geometry (win defaults to n_fft,
         hop to win // 4)
     clip_noise_stationary : clip the noise clip to chunk_size samples
@@ -278,7 +311,9 @@ def reduce_noise(
         g > 0 gates a signal of more than g chunks in host-driven groups of
         g chunks, one group's planes on the card at a time (bounded device
         memory; per device with a mesh), the cores assembled on the card;
-        the output is the same
+        the output is the same. Another value (negative, fractional) raises
+        ``TypeError`` where the signal has more chunks than it, as the JAX
+        package does
     use_tqdm : a ``tqdm`` progress bar over the chunk groups (g = 1 when
         ``max_parallel_chunks`` is 0), for a signal longer than
         ``chunk_size`` and no mesh; needs ``tqdm`` installed
@@ -310,13 +345,14 @@ def _reduce_noise_deferred(
     needs, so that ``reduce_noise_batch`` can queue every group before the
     first D2H.
 
-    ``y`` may be a list of B equal-length 1-D rows (a batch group).
+    ``y`` may be ``_Rows`` of B equal-length 1-D rows (a batch group); a
+    user's list is an array, as ``np.asarray`` reads it.
     ``_noise_rows``: B noise rows (a list of equal-length 1-D arrays) of a
     stationary batch of B mono signals riding the channel axis, or
     ``"self"`` for the signal rows themselves; each row's threshold comes from its own noise row (no mono
     collapse), and the gate reads them as one (B, bins) threshold
-    (``api.py:438-442``). With ``use_torch``, ``y_noise`` may be a list of
-    B equal-length 1-D noise rows, one per signal row."""
+    (``api.py:438-442``). With ``use_torch``, ``y_noise`` may be ``_Rows``
+    of B equal-length 1-D noise rows, one per signal row."""
     del method  # the route comes from the STFT geometry (geometry.fft_route)
     if use_torch and n_jobs != 1:
         raise ValueError("n_jobs must be 1 when using torch version of spectral gating.")
@@ -343,18 +379,20 @@ def _reduce_noise_deferred(
     # own slice, and the noise statistics run on the first device
     dev = _resolve_device(device) if mesh is None else mesh.devices[0]
 
-    if isinstance(y, list):  # reduce_noise_batch's rows of one group
-        out_dtype, flat = y[0].dtype, False
+    if isinstance(y, _Rows):  # reduce_noise_batch's rows of one group
+        out_dtype, flat, n_samples = y[0].dtype, False, y[0].shape[-1]
     else:
         y = np.asarray(y)
         out_dtype = y.dtype
         y, flat = _as_2d(y)
+        n_samples = y.shape[-1]
+    group = _chunk_group(padding, max_parallel_chunks, n_samples, chunk_size)
     y2d = _to_tensor(y, dev if mesh is None else torch.device("cpu"), cdtype)
     # the host-driven group loop under a bar, for a signal longer than a
     # chunk (api.py:517), one chunk a group unless max_parallel_chunks says;
     # a mesh shows none
     progress = bool(use_tqdm) and y2d.shape[-1] > chunk_size and mesh is None
-    group = max_parallel_chunks or (1 if progress else 0)
+    group = group or (1 if progress else 0)
 
     if use_torch:
         gate = torch_gate_for(
@@ -500,7 +538,7 @@ def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
         groups.setdefault(key, []).append(i)
     pending = []
     for idx in groups.values():
-        block = [ys[i] for i in idx]  # B rows of n samples
+        block = _Rows(ys[i] for i in idx)  # B rows of n samples
         if not per_row:
             # a shared clip, or the non-stationary gate (which reads no
             # noise): one call
@@ -514,9 +552,9 @@ def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):
             clips = None
             if per_signal_noise:
                 n = block[0].shape[0]
-                clips = [np.asarray(y_noise[i]) for i in idx]
+                clips = _Rows(np.asarray(y_noise[i]) for i in idx)
                 if call["clip_noise_stationary"]:
-                    clips = [c[:n] for c in clips]
+                    clips = _Rows(c[:n] for c in clips)
             pending.append((idx, _reduce_noise_deferred(
                 **dict(call, y=block, sr=sr, y_noise=clips))))
         else:

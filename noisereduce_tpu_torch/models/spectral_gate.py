@@ -80,7 +80,11 @@ def stationary_noise_threshold(y_noise: torch.Tensor, cfg: GateConfig) -> torch.
     std over frames of the noise dB spectrogram (stationary.py:67-81; ddof
     0). The spectra come from kernel A where it serves the geometry and the
     dtype (``fused_stationary_threshold``), else from the staged STFT. Returns
-    (..., bins), float32 for a bfloat16 clip."""
+    (..., bins), float32 for a bfloat16 clip. An empty clip frames as one
+    frame of zeros, as the JAX package frames it (and as one zero sample
+    does): the threshold of silence."""
+    if y_noise.shape[-1] == 0:
+        y_noise = F.pad(y_noise, (0, 1))
     if fused_gate_supported(cfg, y_noise):
         return fused_stationary_threshold(y_noise, cfg)
     re, im = stft(y_noise, cfg.stft)

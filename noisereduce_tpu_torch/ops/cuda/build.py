@@ -50,7 +50,7 @@ _SIGNATURES = {
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _dp, _f, _f,
         _i, _vp,
     ],
-    "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _i, _ll, _i, _i, _f, _vp],
+    "nr_freq_smooth_blend": [_vp, _vp, _vp, _i, _i, _ll, _i, _i, _i, _f, _vp],
     "nr_stationary_mask": [
         _i, _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
         _i, _i, _f, _f, _f, _f, _f, _d, _i, _vp,
@@ -61,7 +61,7 @@ _SIGNATURES = {
     ],
     "nr_torch_nonstationary_mask": [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
-        _i, _i, _f, _f, _f, _f, _i, _vp,
+        _i, _i, _f, _f, _i, _f, _f, _i, _vp,
     ],
     "nr_fm_nonstationary_mask": [
         _vp, _i, _vp, _vp, _ll, _i, _i, _i, _i, _i, _dp, _f, _f, _i, _vp,
@@ -77,6 +77,14 @@ _SIGNATURES = {
     "nr_spectra_cplx": [
         _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
         _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+    ],
+    "nr_spectra_cluster": [
+        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp,
+        _vp, _vp, _vp, _vp, _vp,
+    ],
+    "nr_istft_cluster": [
+        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll,
+        _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
     ],
     "nr_istft_cplx": [
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,

@@ -1,28 +1,35 @@
-// The routes of kernels A and D by n_fft, and the chirp-z lengths they
-// take: plain C++ (no CUDA), included by fft_smem.cuh. geometry.py's
-// fft_route and chirp_length state the same rules; tests/test_torch_fft.py
-// compiles this header with the host compiler and holds the two to each
-// other over every n_fft from 1 to 16384.
+// The routes of kernels A and D by n_fft, the chirp-z lengths and the
+// cluster shapes they take: plain C++ (no CUDA), included by fft_smem.cuh.
+// geometry.py's fft_route, chirp_length and cluster_shape state the same
+// rules; tests/test_torch_fft.py compiles this header with the host
+// compiler and holds the two to each other over every n_fft from 1 to
+// 65536.
 //
 // A frame's transform has n complex points: n_fft / 2 for an even n_fft
 // (the even samples real, the odd imaginary), n_fft for an odd one (two
 // frames a transform, one real, one imaginary).
-// - FFT route: n has no prime factor above 13; direct mixed-radix stages.
+// - FFT route: n has no prime factor above 13 and fits a big block of
+//   BIG_SLOTS points; direct mixed-radix stages in one block.
+// - cluster route: n has no prime factor above 13 and is past a big block
+//   but within a cluster of at most MAX_CLUSTER big blocks
+//   (cluster_shape): a four-step FFT, n = n1 n2, across the blocks'
+//   shared memory (fft_cluster.cuh).
 // - chirp route: any other n for which a chirp-z length L >= 2n - 1 fits a
-//   block of BIG_SLOTS points; the transform as a circular convolution of
-//   length L.
-// - product route (the DFT products of spectra.cu / istft_ola.cu): n_fft
-//   below MIN_NFFT or above MAX_NFFT, and an odd n_fft above 4096 with a
-//   prime factor above 13.
+//   big block; the transform as a circular convolution of length L.
+// - product route (the DFT products of spectra.cu / istft_ola.cu): the
+//   rest: n_fft below MIN_NFFT, an n with a prime factor above 13 past
+//   4096 points, and an n past what a cluster shape takes.
 #pragma once
 
 namespace nrf {
 
-enum Route { ROUTE_PRODUCT = 0, ROUTE_FFT = 1, ROUTE_CHIRP = 2 };
+enum Route { ROUTE_PRODUCT = 0, ROUTE_FFT = 1, ROUTE_CHIRP = 2, ROUTE_CLUSTER = 3 };
 
-constexpr int MIN_NFFT = 64, MAX_NFFT = 8192;
+constexpr int MIN_NFFT = 64;
 constexpr int BLOCK_SLOTS = 4096;  // complex points a block holds
 constexpr int BIG_SLOTS = 8192;    // ... a big block (one slot of 4097 to 8192 points)
+constexpr int REAL_MAX_NFFT = 2 * BLOCK_SLOTS;  // the real-FFT kernels' largest n_fft
+constexpr int MAX_CLUSTER = 8;     // blocks of a cluster (the portable most)
 
 // n with every factor in primes[0 .. count) divided out
 inline int strip(int n, const int* primes, int count) {
@@ -44,18 +51,45 @@ inline bool smooth7(int n) {
 // complex points of one frame's transform
 inline int fft_n(int n_fft) { return n_fft % 2 ? n_fft : n_fft / 2; }
 
+// The cluster route's shape for n points: c blocks and n = n1 n2 with c
+// dividing both factors, so that each block holds n1 / c columns of n2
+// points for the first step and n2 / c rows of n1 points for the last,
+// n / c points either way, at most a big block's. The fewest blocks from 2
+// to MAX_CLUSTER that hold n so, then the largest n1 <= n2. False for an
+// n within a big block, or where no c divides n as it must.
+inline bool cluster_shape(int n, int& c, int& n1, int& n2) {
+  if (n <= BIG_SLOTS) return false;
+  for (c = 2; c <= MAX_CLUSTER; ++c) {
+    if (n % (c * c) || n / c > BIG_SLOTS) continue;
+    const int m = n / (c * c);
+    int a = 1;
+    for (int d = 1; d * d <= m; ++d)
+      if (m % d == 0) a = d;
+    n1 = c * a;
+    n2 = c * (m / a);
+    return true;
+  }
+  return false;
+}
+
 inline Route route_of(int n_fft) {
-  if (n_fft < MIN_NFFT || n_fft > MAX_NFFT) return ROUTE_PRODUCT;
+  if (n_fft < MIN_NFFT) return ROUTE_PRODUCT;
   const int n = fft_n(n_fft);
-  if (smooth13(n)) return ROUTE_FFT;
+  if (smooth13(n)) {
+    if (n <= BIG_SLOTS) return ROUTE_FFT;
+    int c, n1, n2;
+    return cluster_shape(n, c, n1, n2) ? ROUTE_CLUSTER : ROUTE_PRODUCT;
+  }
   return 2 * n - 1 <= BIG_SLOTS ? ROUTE_CHIRP : ROUTE_PRODUCT;
 }
 
 // Whether the real-FFT kernels (spectra_fft.cu, istft_fft.cu) serve n_fft:
-// even, its half 2^k 3^a 5^b 7^c. The complex-frame kernels
-// (spectra_cplx.cu, istft_cplx.cu) serve the rest of the FFT and chirp routes.
+// even, at most REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c. The complex-frame
+// kernels (spectra_cplx.cu, istft_cplx.cu) serve the rest of the FFT and
+// chirp routes.
 inline bool real_kernel(int n_fft) {
-  return route_of(n_fft) == ROUTE_FFT && n_fft % 2 == 0 && smooth7(n_fft / 2);
+  return route_of(n_fft) == ROUTE_FFT && n_fft % 2 == 0 && n_fft <= REAL_MAX_NFFT &&
+         smooth7(n_fft / 2);
 }
 
 // Whether a kernel takes L as n's chirp-z length: L >= 2n - 1, 2^a 3^b

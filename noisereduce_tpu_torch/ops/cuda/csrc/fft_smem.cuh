@@ -85,7 +85,8 @@ __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 // x / d for 0 <= x, d >= 1 and x * d < 2^32. MIXED: the high half of
 // x * ceil(2^32 / d), which is floor(x / d) under that bound (the error
 // x * (ceil - 2^32/d) / 2^32 < x / 2^32 < 1/d cannot cross an integer);
-// every use here has x < 2^14 and d <= 2^13. Otherwise d is a power of two
+// every use here has x < 2^14 and d <= 2^14, or (the cluster route,
+// fft_cluster.cuh) x < 2^17 and d <= 2^13. Otherwise d is a power of two
 // and the quotient a shift. Made on the host (Plan), so a thread divides by
 // a runtime divisor with one multiply-high or shift and never computes the
 // constant.
@@ -516,7 +517,10 @@ int with_set(int odd, G g) {
 // past ELEMS. The builds: one for each set of build_primes a slot takes
 // (a chirp length 2^a or 2^a 3^b, an odd n_fft one with an odd prime, an
 // even n_fft one with 11 or 13), and in a big block a chirp length of
-// 8192 or an odd n_fft with all five odd radices.
+// 8192, a power-of-two slot of an even n_fft on the FFT route (8192: the
+// power-of-two stages alone, which do not spill at 1024 threads where the
+// build with every odd radix does; PERF.md), or any other slot on the FFT
+// route, odd or even, with all five odd radices.
 template <class F>
 int with_cplx_build(int n_fft, int slot, F f) {
   using Y = std::true_type;
@@ -525,7 +529,10 @@ int with_cplx_build(int n_fft, int slot, F f) {
   const bool paired = n_fft % 2, chirp = slot != fft_n(n_fft), big = slot > ELEMS;
   const int odd = build_primes(odd_primes(slot));
   if (big) {
-    if (!chirp) return f(integral_constant<int, 15015>(), Y(), N(), Y());
+    if (!chirp)
+      return paired      ? f(integral_constant<int, 15015>(), Y(), N(), Y())
+             : odd == 1 ? f(integral_constant<int, 1>(), N(), N(), Y())
+                        : f(integral_constant<int, 15015>(), N(), N(), Y());
     return paired ? f(integral_constant<int, 1>(), Y(), Y(), Y())
                   : f(integral_constant<int, 1>(), N(), Y(), Y());
   }

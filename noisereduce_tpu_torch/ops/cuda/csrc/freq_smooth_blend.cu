@@ -48,6 +48,14 @@
 // loads, waits, computes and stores in turn, and four blocks an SM (63
 // registers) do not hide that.
 //
+// A line too long for a block's three planes (past about 19,000 bins with
+// its taps; geometry.py::freq_smooth_plan) is cut into pieces of `piece`
+// outputs (a multiple of RUN), each span one piece of one line: its input
+// plane holds the piece's bins with `half` bins before it and the taps'
+// reach after it (n_taps - 1 - half bins, so that the padded taps, too,
+// meet the line's own values), clipped to the line. The runs of a piece
+// compute exactly what they compute on a whole line.
+//
 // Every output sums its products in tap order from a zero accumulator,
 // whatever span or run it lands in (a padded tap adds an exact zero), so
 // the output is the same bits from run to run and under any grouping of
@@ -87,16 +95,17 @@ __device__ __forceinline__ void unstage(const float* s, float* __restrict__ g, i
   }
 }
 
-// Runs [first, runs) by `step` of the span staged at si (lines of n_bins),
-// their blended outputs to so.
+// Runs [first, runs) by `step` of the span staged at si (lines of n_bins,
+// per_line runs a line, from bin k_base; a line's bin p at si[p - lo]),
+// their blended outputs to so (bin k at so[k - k_base]).
 __device__ __forceinline__ void smooth_runs(const float* si, float* so, const float* taps,
-                                            int n_taps, int half, int n_bins, int runs,
-                                            int first, int step, float prop) {
-  const int per_line = (n_bins + RUN - 1) / RUN;
+                                            int n_taps, int half, int n_bins, int per_line,
+                                            int runs, int first, int step, float prop,
+                                            int lo, int k_base) {
   for (int r = first; r < runs; r += step) {
     const int line = r / per_line;
-    const int k0 = (r - line * per_line) * RUN;
-    const float* row = si + line * n_bins;
+    const int k0 = k_base + (r - line * per_line) * RUN;
+    const float* row = si + line * n_bins - lo;
     float acc[RUN];
 #pragma unroll
     for (int v = 0; v < RUN; ++v) acc[v] = 0.f;
@@ -122,7 +131,7 @@ __device__ __forceinline__ void smooth_runs(const float* si, float* so, const fl
         }
       }
     }
-    float* o = so + line * n_bins + k0;
+    float* o = so + line * n_bins + k0 - k_base;
     const float keep = 1.f - prop;
 #pragma unroll
     for (int v = 0; v < RUN; ++v)
@@ -151,24 +160,51 @@ __device__ __forceinline__ void issue(const float* __restrict__ g, float* s, int
   }
 }
 
+// A span: whole lines [r0, r0 + nl), or (piece > 0) bins [k0, k1) of line
+// r0 with its input bins [lo, hi)
+struct Span {
+  long long r0;
+  int nl, k0, k1, lo, hi;
+};
+
+__device__ __forceinline__ Span span_of(long long s, long long n_rows, int n_bins, int lines,
+                                        int piece, int half, int n_taps) {
+  Span sp;
+  if (!piece) {
+    sp.r0 = s * lines;
+    sp.nl = (int)min((long long)lines, n_rows - sp.r0);
+    sp.k0 = sp.lo = 0;
+    sp.k1 = sp.hi = n_bins;
+    return sp;
+  }
+  const int per_line = (n_bins + piece - 1) / piece;
+  sp.r0 = s / per_line;
+  sp.nl = 1;
+  sp.k0 = (int)(s - sp.r0 * per_line) * piece;
+  sp.k1 = min(n_bins, sp.k0 + piece);
+  sp.lo = max(0, sp.k0 - half);
+  sp.hi = min(n_bins, sp.k0 + piece + n_taps - 1 - half);
+  return sp;
+}
+
 // Persistent blocks: block b takes spans b, b + gridDim.x, ... Shared
 // memory: the taps, two input planes and the output plane, `cap` words each.
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     freq_smooth_blend_kernel(const float* __restrict__ in, float* __restrict__ out,
                              const float* __restrict__ taps, int n_taps, int half,
-                             long long n_rows, int n_bins, int lines, int cap,
+                             long long n_rows, int n_bins, int lines, int piece, int cap,
                              long long spans, float prop) {
   extern __shared__ float4 smem4[];
   float* st = reinterpret_cast<float*>(smem4);
   float* const planes[2] = {st + n_taps, st + n_taps + cap};
   float* const sout = st + n_taps + 2 * cap;
   for (int i = threadIdx.x; i < n_taps; i += THREADS) st[i] = taps[i];
-  const int per_line = (n_bins + RUN - 1) / RUN;
+  // the first input float of span sp, and how many it has
+  auto source = [&](const Span& sp) { return in + sp.r0 * n_bins + sp.lo; };
   auto issue_span = [&](long long s, float* plane) {
-    const long long r0 = s * lines;
-    const int n = (int)min((long long)lines, n_rows - r0) * n_bins;
-    const float* g = in + r0 * n_bins;
-    issue(g, plane + phase(g), n);
+    const Span sp = span_of(s, n_rows, n_bins, lines, piece, half, n_taps);
+    const float* g = source(sp);
+    issue(g, plane + phase(g), (sp.nl - 1) * n_bins + sp.hi - sp.lo);
   };
   int b = 0;
   if (blockIdx.x < spans) issue_span(blockIdx.x, planes[0]);
@@ -178,14 +214,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
-    const long long r0 = s * lines;
-    const int nl = (int)min((long long)lines, n_rows - r0);
-    const long long g0 = r0 * n_bins;
+    const Span sp = span_of(s, n_rows, n_bins, lines, piece, half, n_taps);
+    const int per_line = (sp.k1 - sp.k0 + RUN - 1) / RUN;
+    const long long g0 = sp.r0 * n_bins + sp.k0;
     float* so = sout + phase(out + g0);
-    smooth_runs(planes[b] + phase(in + g0), so, st, n_taps, half, n_bins, nl * per_line,
-                threadIdx.x, THREADS, prop);
+    smooth_runs(planes[b] + phase(source(sp)), so, st, n_taps, half, n_bins, per_line,
+                sp.nl * per_line, threadIdx.x, THREADS, prop, sp.lo, sp.k0);
     __syncthreads();
-    unstage(so, out + g0, nl * n_bins);
+    unstage(so, out + g0, (sp.nl - 1) * n_bins + sp.k1 - sp.k0);
   }
 }
 
@@ -193,13 +229,16 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
 // in/out: (n_rows, n_bins) f32 (n_rows = rows * n_frames), any 4-byte
 // alignment; taps: (n_taps,) f32, n_taps a multiple of GROUP, zero padded
-// past the 2 half + 1 live taps; lines: the plan's lines a span. The grid
-// is the blocks every SM holds at once. Returns cudaGetLastError() after
-// the launch.
+// past the 2 half + 1 live taps; lines: the plan's lines a span; piece: 0,
+// or the outputs of a span of one line (a multiple of RUN) for a line cut
+// into pieces. The grid is the blocks every SM holds at once. Returns
+// cudaGetLastError() after the launch.
 extern "C" int nr_freq_smooth_blend(const float* in, float* out, const float* taps, int n_taps,
                                     int half, long long n_rows, int n_bins, int lines,
-                                    float prop, void* stream) {
-  const int cap = (lines * n_bins + 3) / 4 * 4 + 4;
+                                    int piece, float prop, void* stream) {
+  if (piece < 0 || piece % RUN) return (int)cudaErrorInvalidValue;
+  const int floats = piece ? piece + n_taps - 1 : lines * n_bins;  // a plane's most
+  const int cap = (floats + 3) / 4 * 4 + 4;
   const size_t smem = (size_t)(n_taps + 3 * cap) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -207,7 +246,8 @@ extern "C" int nr_freq_smooth_blend(const float* in, float* out, const float* ta
     if (e != cudaSuccess) return (int)e;
   }
   if (n_rows <= 0) return (int)cudaGetLastError();
-  const long long spans = (n_rows + lines - 1) / lines;
+  const long long spans =
+      piece ? n_rows * ((n_bins + piece - 1) / piece) : (n_rows + lines - 1) / lines;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -218,6 +258,6 @@ extern "C" int nr_freq_smooth_blend(const float* in, float* out, const float* ta
   const long long grid = min(spans, (long long)sms * (per_sm > 0 ? per_sm : 1));
   freq_smooth_blend_kernel<<<(unsigned)grid, THREADS, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      in, out, taps, n_taps, half, n_rows, n_bins, lines, cap, spans, prop);
+      in, out, taps, n_taps, half, n_rows, n_bins, lines, piece, cap, spans, prop);
   return (int)cudaGetLastError();
 }

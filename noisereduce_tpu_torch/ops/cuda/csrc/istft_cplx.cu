@@ -232,7 +232,8 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
 // table; tws: (n_fft,) complex f32, the unsplit's (even n_fft); chirp: (n,)
 // complex f32 and filt: (slot,) complex f32 on the chirp route, else null;
 // out: (rows, out_len). slot as nr_spectra_cplx takes it, seg_warps a
-// segment of warps that holds a slot, and run * hop at most 8192. Returns
+// segment of warps that holds a slot, and run * hop at most 8192 (a run of
+// one hop block any hop whose samples fit beside the slots). Returns
 // cudaGetLastError() after the launch.
 extern "C" int nr_istft_cplx(int plane, const void* re, const void* im, const float* mask,
                              int rows, int n_frames, int n_bins, int n_fft, int slot,
@@ -248,7 +249,7 @@ extern "C" int nr_istft_cplx(int plane, const void* re, const void* im, const fl
   const int block_warps = big ? nrf::Blk<true>::WARPS : nrf::WARPS;
   const int S = nrf::fft_block_frames(seg_warps, slot, block_warps);
   if (!nrf::cplx_slot_ok(n_fft, slot) || (slot != n && (!chirp || !filt)) || S < 1 ||
-      run < 1 || (long long)run * hop > 8192)
+      run < 1 || (run > 1 && (long long)run * hop > 8192))
     return (int)cudaErrorInvalidValue;
   if (rows <= 0 || n_out <= 0) return (int)cudaGetLastError();
   const int n_runs = (n_out + run - 1) / run;

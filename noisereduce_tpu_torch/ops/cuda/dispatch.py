@@ -89,9 +89,10 @@ def fused_gate_supported(cfg: GateConfig, x: torch.Tensor, device=None) -> bool:
     """Whether kernels A-D serve this configuration and the signal ``x``
     (``kernels_take``), on ``device`` where it will run there. Unlike the
     TPU predicate (``dispatch.py:379``) there is no VMEM budget, no lane
-    alignment and no cap on n_grad_time: only the STFT geometry and the
-    dtype matter."""
-    return kernels_supported(cfg.stft) and kernels_take(on_device(x, device))
+    alignment and no cap on n_grad_time: only the STFT geometry with its
+    frequency taps (``kernels_supported``) and the dtype matter."""
+    n_freq_taps = 2 * (cfg.smoothing or (0, 0))[0] + 1
+    return kernels_supported(cfg.stft, n_freq_taps) and kernels_take(on_device(x, device))
 
 
 def _gate_from_signal(x, cfg, chunk_size=0, padding=0, noise_thresh=None, chunks=None,

@@ -44,7 +44,8 @@ launch shapes below:
   and a separate smoothing launch. F's moving-average window has no cap:
   it runs on float64 prefix sums, its far ends read from a |Z| plane.
 - C ``freq_smooth_blend`` cuts the plane into spans of whole (row,
-  frame) lines, about 16 KB each (``freq_smooth_plan``), which persistent
+  frame) lines, about 16 KB each (``freq_smooth_plan``; a line too long
+  for a block into pieces with their taps' halo), which persistent
   blocks walk, each loading its next span with 16-byte ``cp.async``
   copies (from the tensor's own alignment) while it smooths this one;
   each thread smooths runs of ``FS_RUN`` outputs of one line from a
@@ -88,7 +89,11 @@ FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
 # slot of 4097 to 8192 points, 1024 threads
 FFT_BIG_ELEMS = 8192
 FFT_BIG_WARPS = FFT_BIG_ELEMS // FFT_WARP_POINTS
-FFT_MIN_NFFT, FFT_MAX_NFFT = 64, FFT_BIG_ELEMS
+FFT_MIN_NFFT = 64
+REAL_MAX_NFFT = 2 * FFT_ELEMS  # the real-FFT kernels' largest n_fft
+# the cluster route (csrc/fft_cluster.cuh): at most this many big blocks a
+# cluster, so n to CLUSTER_MAX * FFT_BIG_ELEMS points (n_fft 131072)
+CLUSTER_MAX = 8
 FFT_RADICES = (2, 3, 5, 7, 11, 13)  # the prime radices of fft_smem.cuh's stages
 REAL_RADICES = (2, 3, 5, 7)  # those of the real-FFT kernels' builds
 CHIRP_RADICES = (2, 3)  # those of a chirp length within a block
@@ -123,11 +128,14 @@ def _round_up(a: int, m: int) -> int:
     return -(-a // m) * m
 
 
-def kernels_supported(scfg: StftConfig) -> bool:
-    """Whether the kernels serve this STFT geometry, in either convention:
-    a hop that divides the analysis frame. There is no size limit;
-    n_grad_time, n_grad_freq and n_movemean are unbounded."""
-    return scfg.frame_length % scfg.hop_length == 0
+def kernels_supported(scfg: StftConfig, n_freq_taps: int = 1) -> bool:
+    """Whether the kernels serve this STFT geometry, in either convention,
+    with ``n_freq_taps`` frequency taps: a hop that divides the analysis
+    frame, and a line of bins that kernel C's plan holds with those taps
+    (``freq_smooth_fits``: every line with up to about 14,000 taps, whole
+    or in pieces). n_grad_time and n_movemean are unbounded."""
+    return (scfg.frame_length % scfg.hop_length == 0
+            and freq_smooth_fits(scfg.n_bins, n_freq_taps))
 
 
 def _strip(n: int, primes: tuple) -> int:
@@ -145,13 +153,15 @@ def fft_n(n_fft: int) -> int:
 
 
 def fft_route(scfg: StftConfig) -> str:
-    """Kernels A and D's route for this geometry (``csrc/fft_route.cuh``):
-    "fft" for an n_fft from FFT_MIN_NFFT to FFT_MAX_NFFT whose
-    ``fft_n`` has no prime factor above 13 (1024, 1536, 400, 1100, 441,
-    1323, ...); "chirp" for any other such n_fft whose chirp length fits a
-    big block (1102, 1101, every even n_fft up to 8192); "product" for the
-    rest: n_fft below 64 or above 8192, and an odd n_fft above 4096 with a
-    prime factor above 13."""
+    """Kernels A and D's route for this geometry (``csrc/fft_route.cuh``),
+    from n = ``fft_n``: "fft" for an n_fft of at least FFT_MIN_NFFT whose n
+    has no prime factor above 13 and fits a big block (1024, 1536, 400,
+    1100, 441, 1323, 12000, 16384, ...); "cluster" for one whose n is past
+    a big block and takes a cluster shape (``cluster_shape``: 40000,
+    32768, ...); "chirp" for an n with a prime factor above 13 whose chirp
+    length fits a big block (1102, 1101, every such even n_fft up to
+    8192); "product" for the rest: n_fft below 64, an n with a prime factor
+    above 13 past 4096 points, an n past every cluster shape."""
     return _route_of(scfg.n_fft)
 
 
@@ -159,19 +169,39 @@ def fft_route(scfg: StftConfig) -> str:
 # launch waits for the host.
 @functools.lru_cache(maxsize=None)
 def _route_of(n_fft: int) -> str:
-    if not FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT:
+    if n_fft < FFT_MIN_NFFT:
         return "product"
     n = fft_n(n_fft)
     if _strip(n, FFT_RADICES) == 1:
-        return "fft"
+        if n <= FFT_BIG_ELEMS:
+            return "fft"
+        return "cluster" if cluster_shape(n) else "product"
     return "chirp" if 2 * n - 1 <= FFT_BIG_ELEMS else "product"
 
 
 @functools.lru_cache(maxsize=None)
+def cluster_shape(n: int):
+    """(c, n1, n2) of the cluster route's four-step FFT of n points
+    (``csrc/fft_route.cuh::cluster_shape``): c blocks dividing n1 and n2,
+    n = n1 n2, each block holding n / c points, at most a big block's; the
+    fewest blocks from 2 to CLUSTER_MAX, then the largest n1 <= n2. None
+    for an n within a big block or with no such shape."""
+    if n <= FFT_BIG_ELEMS:
+        return None
+    for c in range(2, CLUSTER_MAX + 1):
+        if n % (c * c) or n // c > FFT_BIG_ELEMS:
+            continue
+        m = n // (c * c)
+        a = max(d for d in range(1, int(m**0.5) + 1) if m % d == 0)
+        return c, c * a, c * (m // a)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
 def real_kernel(n_fft: int) -> bool:
-    """Whether the real-FFT kernels serve n_fft on the FFT route: even, its
-    half 2^k 3^a 5^b 7^c."""
-    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT
+    """Whether the real-FFT kernels serve n_fft on the FFT route: even,
+    from FFT_MIN_NFFT to REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c."""
+    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= REAL_MAX_NFFT
             and _strip(n_fft // 2, REAL_RADICES) == 1)
 
 
@@ -210,8 +240,12 @@ def _fft_layout(m: int, block_warps: int = FFT_WARPS) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _layout(n_fft: int, route: str) -> tuple:
-    """GateGeometry.fft_layout of n_fft on ``route``."""
+    """GateGeometry.fft_layout of n_fft on ``route``; on the cluster route,
+    a slot of n points across a cluster, each block's warps one segment,
+    and one slot (two frames for an odd n_fft) a group."""
     n = fft_n(n_fft)
+    if route == "cluster":
+        return n, FFT_BIG_WARPS, 2 if n_fft % 2 else 1
     slot = chirp_length(n) if route == "chirp" else n
     warps, slots = _fft_layout(slot, FFT_BIG_WARPS if slot > FFT_ELEMS else FFT_WARPS)
     return slot, warps, slots * (2 if n_fft % 2 else 1)
@@ -351,16 +385,20 @@ class FreqSmoothPlan:
     """Launch shapes of kernel C over ``n_rows`` lines of ``n_bins`` bins
     with ``n_live`` odd taps (``csrc/freq_smooth_blend.cu``). Block s takes
     the span of lines [s * ``lines``, (s + 1) * ``lines``), the last one
-    short; a line is cut into runs of FS_RUN outputs, the last one short.
-    The kernel reads the taps [``first``, ``first`` + 2 ``half`` + 1) of
-    the live ones, zero padded to ``n_taps``, a multiple of FS_GROUP: a
-    tap more than n_bins - 1 bins off centre only ever meets the zero fill,
-    so it is dropped."""
+    short; or, with ``piece`` > 0 (a line too long for a block), the span
+    of bins [k0, k0 + ``piece``) of one line (``piece_span``), which loads
+    ``half`` bins before them and n_taps - 1 - ``half`` after, clipped to
+    the line. A line or piece is cut into runs of FS_RUN outputs, the last
+    one short. The kernel reads the taps [``first``, ``first`` + 2
+    ``half`` + 1) of the live ones, zero padded to ``n_taps``, a multiple
+    of FS_GROUP: a tap more than n_bins - 1 bins off centre only ever meets
+    the zero fill, so it is dropped."""
 
     n_rows: int
     n_bins: int
     n_live: int
     lines: int
+    piece: int = 0
 
     @property
     def half(self) -> int:
@@ -376,7 +414,21 @@ class FreqSmoothPlan:
 
     @property
     def spans(self) -> int:
+        if self.piece:
+            return self.n_rows * self.pieces_per_line
         return -(-self.n_rows // self.lines)
+
+    @property
+    def pieces_per_line(self) -> int:
+        return -(-self.n_bins // self.piece) if self.piece else 1
+
+    def piece_span(self, s: int) -> tuple:
+        """(line, k0, k1, lo, hi) of span s of a plan in pieces: outputs
+        [k0, k1) of the line, from its input bins [lo, hi)."""
+        line, j = divmod(s, self.pieces_per_line)
+        k0 = j * self.piece
+        return (line, k0, min(self.n_bins, k0 + self.piece), max(0, k0 - self.half),
+                min(self.n_bins, k0 + self.piece + self.n_taps - 1 - self.half))
 
     @property
     def runs_per_line(self) -> int:
@@ -386,8 +438,8 @@ class FreqSmoothPlan:
     def smem_bytes(self) -> int:
         """The taps, then two input planes and an output plane of a span
         each, with 3 words of slack for their 16-byte phase."""
-        cap = _round_up(self.lines * self.n_bins, 4) + 4
-        return 4 * (self.n_taps + 3 * cap)
+        floats = self.piece + self.n_taps - 1 if self.piece else self.lines * self.n_bins
+        return 4 * (self.n_taps + 3 * (_round_up(floats, 4) + 4))
 
     def span(self, s: int) -> tuple:
         """(first line, lines) of span s."""
@@ -412,12 +464,20 @@ class FreqSmoothPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def freq_smooth_plan(n_rows: int, n_bins: int, n_live: int) -> FreqSmoothPlan:
+def freq_smooth_plan(n_rows: int, n_bins: int, n_live: int, piece: int = 0) -> FreqSmoothPlan:
     """Kernel C's plan: the lines a span (at most FS_SPAN floats, at least
     one line) that leave the fewest of a block's threads idle on the last
-    pass over the span's runs, the larger span on a tie. A span's three
-    planes and the taps must fit ``SMEM_MAX`` (a line of up to about
-    19,000 bins)."""
+    pass over the span's runs, the larger span on a tie, while a span's
+    three planes and the taps fit ``SMEM_MAX`` (a line of up to about
+    19,000 bins). A longer line is cut into pieces of the most outputs, a
+    multiple of FS_RUN and at most FS_SPAN, that fit with their taps'
+    reach; ``piece`` forces pieces of that many outputs on any line. Raises
+    where not even a piece of FS_RUN outputs fits (``freq_smooth_fits``)."""
+    if piece:
+        plan = FreqSmoothPlan(n_rows, n_bins, n_live, 1, piece)
+        if piece % FS_RUN or plan.smem_bytes > SMEM_MAX:
+            raise ValueError(f"freq_smooth_plan: no pieces of {piece} bins with {n_live} taps")
+        return plan
     per_line = -(-n_bins // FS_RUN)
     best, best_share = 1, 0.0
     for lines in range(1, max(1, FS_SPAN // n_bins) + 1):
@@ -426,10 +486,25 @@ def freq_smooth_plan(n_rows: int, n_bins: int, n_live: int) -> FreqSmoothPlan:
         if share >= best_share:
             best, best_share = lines, share
     plan = FreqSmoothPlan(n_rows, n_bins, n_live, best)
-    if plan.smem_bytes > SMEM_MAX:
-        raise ValueError(f"freq_smooth_plan: a line of {n_bins} bins with {n_live} taps "
-                         "does not fit a block")
-    return plan
+    if plan.smem_bytes <= SMEM_MAX:
+        return plan
+    for piece in range(FS_SPAN // FS_RUN * FS_RUN, 0, -FS_RUN):
+        plan = FreqSmoothPlan(n_rows, n_bins, n_live, 1, piece)
+        if plan.smem_bytes <= SMEM_MAX:
+            return plan
+    raise ValueError(f"freq_smooth_plan: a line of {n_bins} bins with {n_live} taps "
+                     "does not fit a block, even in pieces")
+
+
+@functools.lru_cache(maxsize=256)
+def freq_smooth_fits(n_bins: int, n_live: int) -> bool:
+    """Whether kernel C serves lines of ``n_bins`` bins with ``n_live``
+    taps: a plan of whole lines or of pieces fits a block."""
+    try:
+        freq_smooth_plan(1, n_bins, n_live)
+    except ValueError:
+        return False
+    return True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -539,8 +614,15 @@ class GateGeometry:
 
     @property
     def fft_run(self) -> int:
-        """Output hop blocks of one row a block of kernel D writes."""
-        return max(1, min(FFT_RUN, FFT_ACC // self.hop))
+        """Output hop blocks of one row a block of kernel D writes (a
+        cluster of c blocks on the cluster route, a c-th of them each)."""
+        acc = FFT_ACC * (self.cluster[0] if self.route == "cluster" else 1)
+        return max(1, min(FFT_RUN, acc // self.hop))
+
+    @property
+    def cluster(self) -> tuple:
+        """(c, n1, n2) of the cluster route (``cluster_shape``)."""
+        return cluster_shape(self.fft_n)
 
     # ---- kernel A, product route: analysis table (k_a x cols_a), row n =
     # window sample

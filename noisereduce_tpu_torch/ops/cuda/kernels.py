@@ -30,23 +30,31 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
-Each has three routes, picked by the geometry alone
+Each has four routes, picked by the geometry alone
 (``geometry.fft_route``, the rules of ``csrc/fft_route.cuh``; a frame's
 transform has n = n_fft/2 complex points, or n_fft for an odd n_fft, two
 frames a transform):
 
-- "fft": an n_fft from 64 to 8192 whose n has no prime factor above 13,
-  shared-memory mixed-radix FFTs: ``csrc/spectra_fft.cu`` and
-  ``csrc/istft_fft.cu`` for an even n_fft whose half is 2^k 3^a 5^b 7^c,
+- "fft": an n_fft of at least 64 whose n has no prime factor above 13 and
+  fits a big block (8192 points: n_fft to 16384), shared-memory
+  mixed-radix FFTs: ``csrc/spectra_fft.cu`` and ``csrc/istft_fft.cu`` for
+  an even n_fft to 8192 whose half is 2^k 3^a 5^b 7^c,
   ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu`` (the complex-frame
-  kernels) for the rest (1100, 441, 1323, ...);
-- "chirp": any other n_fft in 64-8192 whose chirp length fits a big block
-  (every even one; an odd one to 4096), a chirp-z transform in the
-  complex-frame kernels, its chirp and filter spectrum host tables built
-  in float64 (``_chirp_np``, ``_chirp_filter_np``);
-- "product": the rest (n_fft below 64 or above 8192, an odd n_fft above
-  4096 with a prime factor above 13), the DFT products
-  ``csrc/spectra.cu`` and ``csrc/istft_ola.cu``.
+  kernels) for the rest (1100, 441, 1323, 12000, 16384, ...);
+- "cluster": such an n past a big block, to 65,536 points (n_fft 131072;
+  ``geometry.cluster_shape``), a four-step FFT across a thread block
+  cluster's shared memory: ``csrc/spectra_cluster.cu`` and
+  ``csrc/istft_cluster.cu`` (40000, 32768, ...);
+- "chirp": an n with a prime factor above 13 whose chirp length fits a
+  big block (every such even n_fft to 8192; an odd one to 4096), a
+  chirp-z transform in the complex-frame kernels, its chirp and filter
+  spectrum host tables built in float64 (``_chirp_np``,
+  ``_chirp_filter_np``);
+- "product": the rest (n_fft below 64, an n with a prime factor above 13
+  past 4096 points, an n past every cluster shape), the DFT products
+  ``csrc/spectra.cu`` and ``csrc/istft_ola.cu``, whose n_fft x n_fft
+  tables are built on the card (``_analysis_table``,
+  ``_synthesis_table``).
 
 No route is tried after another fails.
 
@@ -55,9 +63,10 @@ both routes) for a tensor on the CPU and only then. For a CUDA tensor it
 launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
-``fft_launches``, ``chirp_launches`` and ``product_launches``
-(``route_counts``), and G in ``resident_launches`` and ``tiled_launches``,
-every kernel by its planes' dtype in ``dtype_launches``
+``fft_launches``, ``chirp_launches``, ``cluster_launches`` and
+``product_launches`` (``route_counts``), and G in ``resident_launches``
+and ``tiled_launches``, every kernel by its planes' dtype in
+``dtype_launches``
 (``dtype_counts``) and by device in ``device_launches``
 (``device_counts``); ``reset_launch_counts`` sets them all to 0. B, E and F
 run as a few CUDA launches over time tiles (``geometry.TimeTilePlan``: segment partials,
@@ -86,6 +95,7 @@ twin (``ops/precision.py::fused_with_twin``; the masks in
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -188,55 +198,62 @@ def _wsum(scfg) -> float:
     return float(w.sum()) if scfg.convention == Convention.SCIPY else 1.0
 
 
-@functools.lru_cache(maxsize=None)
-def _analysis_table_np(scfg) -> np.ndarray:
-    """(k_a, cols_a) float64: row n = frame sample, columns
+# rows of an n_fft x n_fft table built at once: bounds the float64 angles
+# on the card to about this many rows times the table's columns
+_TABLE_ROWS = 1024
+
+
+def _angles(a: torch.Tensor, b: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """2 pi (a b mod n_fft) / n_fft in float64 for integer tensors a, b
+    (broadcast): the product reduced exactly in integers, so the angle is
+    that of the table's exact phase, rounded once."""
+    return (a * b % n_fft).to(torch.float64) * (2.0 * math.pi / n_fft)
+
+
+def _analysis_table(scfg, device, dtype=torch.float32) -> torch.Tensor:
+    """(k_a, cols_a) on ``device``: row n = frame sample, columns
     [0, n_bins) = w[n] cos(2 pi k n / N) s, [n_bins, 2 n_bins) =
     -w[n] sin(...) s, with s = 1 / sum w for scipy and 1 for torch; zero
-    padded. The tables depend on the STFT geometry only, hence a view
-    length of 0."""
+    padded. Built on the device in row blocks of float64 angles and
+    values, then rounded to ``dtype``: no host array of the table's size.
+    The tables depend on the STFT geometry only, hence a view length of 0."""
     geo = GateGeometry(scfg, 0)
-    w = _analysis_window_np(scfg)
-    F_ = geo.n_bins
-    n = np.arange(geo.win, dtype=np.float64)[:, None]
-    k = np.arange(F_, dtype=np.float64)[None, :]
-    ang = 2.0 * np.pi * n * k / geo.n_fft
-    ws = (w / _wsum(scfg))[:, None]
-    tab = np.zeros((geo.k_a, geo.cols_a), np.float64)
-    tab[: geo.win, :F_] = ws * np.cos(ang)
-    tab[: geo.win, F_ : 2 * F_] = -ws * np.sin(ang)
+    F_, N = geo.n_bins, geo.n_fft
+    ws = torch.as_tensor(_analysis_window_np(scfg) / _wsum(scfg), device=device)
+    k = torch.arange(F_, device=device)[None, :]
+    tab = torch.zeros((geo.k_a, geo.cols_a), dtype=dtype, device=device)
+    for n0 in range(0, geo.win, _TABLE_ROWS):
+        n = torch.arange(n0, min(geo.win, n0 + _TABLE_ROWS), device=device)
+        ang, w = _angles(n[:, None], k, N), ws[n][:, None]
+        tab[n, :F_] = (w * torch.cos(ang)).to(dtype)
+        tab[n, F_ : 2 * F_] = (-w * torch.sin(ang)).to(dtype)
     return tab
 
 
-@functools.lru_cache(maxsize=None)
-def _synthesis_table_np(scfg) -> np.ndarray:
-    """(r * f2, cols_d) float64: row i*f2 + c, column q, with u = i*hop + q:
-    c < n_bins: c_k cos(2 pi k u / N) / N * post[u] (k = c);
+def _synthesis_table(scfg, device, dtype=torch.float32) -> torch.Tensor:
+    """(r * f2, cols_d) on ``device``: row i*f2 + c, column q, with u =
+    i*hop + q: c < n_bins: c_k cos(2 pi k u / N) / N * post[u] (k = c);
     n_bins <= c < 2 n_bins: -c_k sin(...) / N * post[u] (k = c - n_bins);
     c_k = 1 at DC and Nyquist, else 2 (irfft's Hermitian weights);
     post = w * sum w for scipy (its istft rescales by sum w) and w for
-    torch."""
+    torch. Built on the device, one frame shift i and a block of bins at a
+    time, in float64, then rounded to ``dtype``."""
     geo = GateGeometry(scfg, 0)
-    w = _analysis_window_np(scfg)
-    N, F_, hop, r, f2 = geo.n_fft, geo.n_bins, geo.hop, geo.r, geo.f2
-    wsum = _wsum(scfg)
-    k = np.arange(F_, dtype=np.float64)[:, None]
-    ck = np.full((F_, 1), 2.0)
-    ck[0] = 1.0
-    if N % 2 == 0:
-        ck[-1] = 1.0
-    tab = np.zeros((r * f2, geo.cols_d), np.float64)
-    for i in range(r):
-        u = np.arange(i * hop, (i + 1) * hop, dtype=np.float64)[None, :]
-        ang = 2.0 * np.pi * k * u / N
-        post = (w[i * hop : (i + 1) * hop] * wsum)[None, :] / N
-        cos_rows = ck * np.cos(ang) * post
-        sin_rows = -ck * np.sin(ang) * post
-        sin_rows[0] = 0.0  # irfft ignores the imaginary DC part
-        if N % 2 == 0:
-            sin_rows[-1] = 0.0  # ... and the imaginary Nyquist part
-        tab[i * f2 : i * f2 + F_, :hop] = cos_rows
-        tab[i * f2 + F_ : i * f2 + 2 * F_, :hop] = sin_rows
+    N, F_, hop, f2 = geo.n_fft, geo.n_bins, geo.hop, geo.f2
+    w = torch.as_tensor(_analysis_window_np(scfg) * (_wsum(scfg) / N), device=device)
+    tab = torch.zeros((geo.r * f2, geo.cols_d), dtype=dtype, device=device)
+    for i in range(geo.r):
+        u = torch.arange(i * hop, (i + 1) * hop, device=device)[None, :]
+        post = w[u]
+        for k0 in range(0, F_, _TABLE_ROWS):
+            k = torch.arange(k0, min(F_, k0 + _TABLE_ROWS), device=device)[:, None]
+            ck = torch.where((k == 0) | ((k == F_ - 1) & (N % 2 == 0)), 1.0, 2.0)
+            ang = _angles(k, u, N)
+            rows = i * f2 + k[:, 0]
+            tab[rows, :hop] = (ck * torch.cos(ang) * post).to(dtype)
+            # irfft ignores the imaginary DC part, and the imaginary Nyquist part
+            sin = torch.where(ck == 1.0, 0.0, -ck * torch.sin(ang) * post)
+            tab[rows + F_, :hop] = sin.to(dtype)
     return tab
 
 
@@ -316,8 +333,6 @@ def _interior_envelope_np(scfg) -> np.ndarray:
 
 
 _TABLES = {
-    "analysis": _analysis_table_np,
-    "synthesis": _synthesis_table_np,
     "window": _analysis_window_np,
     "twiddle": _twiddle_np,  # key: the table's length
     "chirp": _chirp_np,  # key: n
@@ -330,11 +345,34 @@ _TABLES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
+# the card's constant tables, built on the card: the product route's
+_CARD_TABLES = {"analysis": _analysis_table, "synthesis": _synthesis_table}
+# the bytes the device-table cache keeps at most: a table past it is built
+# for its call and dropped (the product route's n_fft x n_fft tables past
+# about n_fft 5000), so a long-frame call pins no gigabytes
+_CACHE_BYTES = 1 << 28
+_cache: "collections.OrderedDict" = collections.OrderedDict()
+
+
 def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
-    """A constant table as a float32 tensor on ``device``, built once."""
-    a = _TABLES[kind](key)
-    return torch.as_tensor(a, dtype=torch.float32).to(device).contiguous()
+    """A constant table as a float32 tensor on ``device``: a linear one
+    built from its float64 host values (``_TABLES``), an n_fft x n_fft
+    one on the card (``_CARD_TABLES``). Kept while the cached tables stay
+    within ``_CACHE_BYTES``, the least recently used dropped first."""
+    at = (kind, key, device)
+    if at in _cache:
+        _cache.move_to_end(at)
+        return _cache[at]
+    if kind in _CARD_TABLES:
+        t = _CARD_TABLES[kind](key, device)
+    else:
+        t = torch.as_tensor(_TABLES[kind](key), dtype=torch.float32).to(device).contiguous()
+    size = t.numel() * t.element_size()
+    if size <= _CACHE_BYTES:
+        _cache[at] = t
+        while sum(v.numel() * v.element_size() for v in _cache.values()) > _CACHE_BYTES:
+            _cache.popitem(last=False)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +429,15 @@ def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
     return _device_f32("chirp", n, device), _device_f32("chirp_filter", (n, slot), device)
 
 
+def _cluster_tables(geo: GateGeometry, device) -> tuple:
+    """The cluster route's twiddle tables on ``device``, as pointers: the
+    stages' of the n1- and n2-point FFTs, e^{-2 pi i k / n} for the four
+    steps' twiddle, and the split's of n_fft points."""
+    _, n1, n2 = geo.cluster
+    return tuple(_ptr(_device_f32("twiddle", m, device))
+                 for m in (2 * n1, 2 * n2, geo.fft_n, geo.n_fft))
+
+
 def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None,
                 src_start=0):
     """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
@@ -409,6 +456,14 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
         _launch(
             "spectra", dev, plane, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
             geo.k_a, _ptr(re), _ptr(im),
+        )
+    elif route == "cluster":
+        slots = -(-T // 2) if geo.fft_paired else T
+        _check_size("spectra", B * T, B * slots * geo.cluster[0])
+        _launch(
+            "spectra_cluster", dev, plane, _ptr(x), *views, geo.n_fft, nb,
+            _ptr(_device_f32("scaled_window", geo.scfg, dev)), *_cluster_tables(geo, dev),
+            _ptr(re), _ptr(im),
         )
     elif route == "fft" and geo.fft_real:
         _, warps, tile = geo.fft_layout(route)
@@ -523,22 +578,30 @@ def freq_smooth_blend(mask, taps, prop):
     """'same' correlation along bins with the odd ``taps`` (zero outside
     the bins), then the non-stationary blend m*prop + (1 - prop).
 
-    On the card: one CUDA launch of spans of whole lines
-    (``geometry.freq_smooth_plan``); every output sums its products in tap
-    order, so the output does not depend on the span it lands in."""
+    On the card: one CUDA launch of spans of whole lines, or of pieces of
+    a line too long for a block (``geometry.freq_smooth_plan``); every
+    output sums its products in tap order, so the output does not depend
+    on the span it lands in."""
     if _on_cpu(mask):
         return freq_smooth_blend_ref(mask, taps, prop)
+    nb = mask.shape[-1]
+    return _freq_smooth_on(freq_smooth_plan(max(1, mask.numel() // nb), nb, len(taps)),
+                           mask, taps, prop)
+
+
+def _freq_smooth_on(plan, mask, taps, prop):
+    """Launch kernel C on a CUDA tensor with ``plan`` (a plan in pieces
+    may be forced on a line that fits whole), and count it."""
     _check_cuda("freq_smooth_blend", mask)
     nb = mask.shape[-1]
     n_rows = mask.numel() // nb
     out = torch.empty_like(mask)
     if not n_rows:
         return out
-    plan = freq_smooth_plan(n_rows, nb, len(taps))
     tap_t = _device_f32("taps", plan.device_taps(taps), mask.device)
     _launch(
         "freq_smooth_blend", mask.device, _ptr(mask), _ptr(out), _ptr(tap_t),
-        plan.n_taps, plan.half, n_rows, nb, plan.lines, prop,
+        plan.n_taps, plan.half, n_rows, nb, plan.lines, plan.piece, prop,
     )
     _count(freq_smooth_blend, torch.float32, mask.device)
     return out
@@ -586,6 +649,17 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
             "istft_ola", dev, plane, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
             _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
             j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
+        )
+    elif route == "cluster":
+        run = geo.fft_run
+        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // run) * geo.cluster[0])
+        _launch(
+            "istft_cluster", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+            geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, run, out_off, out_len,
+            geo.istft_len, geo.env_floor, _ptr(_device_f32("post_window", geo.scfg, dev)),
+            _ptr(_device_f32("window_squares", geo.scfg, dev)),
+            _ptr(_device_f32("envelope", geo.scfg, dev)), *_cluster_tables(geo, dev),
+            _ptr(out),
         )
     else:
         _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
@@ -741,7 +815,10 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
     (n-1)//2 before, the rest after), its window sum carried in float64;
     m = sigmoid(((|Z| - ma) / ma' - n_thresh) / temp) with ma' = 1 where
     ma == 0 (silence gives finite zeros); the blend m*prop + (1 - prop)
-    BEFORE a 'same' correlation along frames with the odd ``taps``.
+    BEFORE a 'same' correlation along frames with the odd ``taps``. temp
+    takes any value, read as the JAX package divides by it
+    (``dsp.as_temperature``): 0 gives a step (NaN where the ratio is
+    exactly n_thresh, as 0/0 there), inf gives 0.5.
 
     On the card: partials of |Z| per segment of ``SEG_F`` frames (a |Z|
     plane, float64 sums), a column scan into float64 prefixes, and a final
@@ -749,14 +826,13 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
     on ``n_movemean``) and smooths from shared memory; 3 CUDA launches, 4
     for taps whose halo does not fit the tile. re/im float32 or bfloat16
     (the bf16 mode: read as they are, the math as for float32); the |Z|
-    plane and the mask float32.
+    plane and the mask float32. The sigmoid's argument divides by a normal
+    temp on the IEEE division's fast path, and by any other exactly, in a
+    final pass of its own.
     """
     if int(n_movemean) < 1:
         raise ValueError(f"torch_nonstationary_mask: n_movemean must be at least 1, "
                          f"got {n_movemean}")
-    if not (math.isfinite(temp) and abs(temp) >= np.finfo(np.float32).tiny):
-        raise ValueError(f"torch_nonstationary_mask: temp must be a normal float32, "
-                         f"got {temp}")
     if _on_cpu(re, im):
         return torch_nonstationary_mask_ref(re, im, n_movemean, n_thresh, temp, prop, taps)
     plane = _check_cuda("torch_nonstationary_mask", re, im, planes=2)
@@ -770,6 +846,11 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
     def work(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=re.device)
 
+    # temp as the kernel takes it: rounded to float32, a subnormal one
+    # flushed to a zero of its sign as the JAX package divides by it; one
+    # that is then not a normal float takes the exact division
+    temp = torch.tensor(dsp.as_temperature(temp, torch.float32), dtype=torch.float32).item()
+    exact = not (math.isfinite(temp) and temp != 0.0)
     mag = _mask_like(re)
     pre = work(views, plan.n_segs + 1, nb, dtype=torch.float64)
     offs = work(4, views, plan.n_segs, nb, dtype=torch.float64)
@@ -780,7 +861,7 @@ def torch_nonstationary_mask(re, im, n_movemean, n_thresh, temp, prop, taps):
         _ptr(pre), _ptr(offs), _ptr_or_null(raw), _ptr(out), _ptr(tap_t),
         len(taps), plan.halo, views, T, nb, int(n_movemean),
         *_movemean_offsets(int(n_movemean), plan.seg_len, plan.halo),
-        n_thresh, temp, prop, 1.0 - prop, plan.smem_bytes,
+        n_thresh, temp, int(exact), prop, 1.0 - prop, plan.smem_bytes,
     )
     _count(torch_nonstationary_mask, re.dtype, re.device)
     torch_nonstationary_mask.cuda_launches = 3 if plan.fused else 4
@@ -881,8 +962,8 @@ def _fm_constants(b: float, lane_len: int, short: int, tile_len: int, last_tile:
 # ---------------------------------------------------------------------------
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
-ROUTED = (spectra, istft_ola)  # the kernels with an FFT, a chirp and a product route
-ROUTES = ("fft", "chirp", "product")
+ROUTED = (spectra, istft_ola)  # the kernels with routes
+ROUTES = ("fft", "chirp", "cluster", "product")
 FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 
 
@@ -917,8 +998,8 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """Launches of kernels A and D by route, e.g.
-    {"spectra": {"fft": 1, "chirp": 0, "product": 0}, "istft_ola": {...}}."""
+    """Launches of kernels A and D by route, e.g. {"spectra": {"fft": 1,
+    "chirp": 0, "cluster": 0, "product": 0}, "istft_ola": {...}}."""
     return {fn.__name__: {route: getattr(fn, f"{route}_launches") for route in ROUTES}
             for fn in ROUTED}
 

@@ -75,10 +75,12 @@ __all__ = [
 
 
 def fused_tpugate_supported(gate, x: torch.Tensor, device=None) -> bool:
-    """Whether the kernels serve this gate's STFT geometry and the signal
-    ``x`` (``dispatch.kernels_take``), on ``device`` where it will run
-    there."""
-    return kernels_supported(gate.stft_config) and kernels_take(on_device(x, device))
+    """Whether the kernels serve this gate's STFT geometry with its
+    frequency taps and the signal ``x`` (``dispatch.kernels_take``), on
+    ``device`` where it will run there."""
+    n_freq_taps = len(_rank1_taps(gate.smoothing)[0])
+    return (kernels_supported(gate.stft_config, n_freq_taps)
+            and kernels_take(on_device(x, device)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,7 @@ accumulators of ``noisereduce_tpu/ops/dsp.py`` (``:210``, ``:412``,
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ __all__ = [
     "torch_noise_db_threshold",
     "sigmoid",
     "temperature_sigmoid",
+    "as_temperature",
     "triangular_vector",
     "tri_norm",
     "conv_same",
@@ -104,9 +106,21 @@ def sigmoid(x: torch.Tensor, shift: float, mult: float) -> torch.Tensor:
     return torch.sigmoid((x + shift) * mult)
 
 
+def as_temperature(temp_coeff: float, dtype: torch.dtype) -> float:
+    """The temperature as the JAX package divides by it in ``dtype``: XLA
+    flushes a subnormal divisor to zero, on the CPU as on the TPU, so a
+    value whose magnitude in ``dtype`` is below its smallest normal is a
+    zero of its sign (``x / 1e-40`` is then inf, and NaN where x is 0).
+    Every other value, 0, inf, NaN and a negative one included, stays."""
+    t = float(temp_coeff)
+    rounded = torch.tensor(t, dtype=dtype).item()
+    return math.copysign(0.0, t) if 0.0 < abs(rounded) < torch.finfo(dtype).tiny else t
+
+
 def temperature_sigmoid(x: torch.Tensor, x0: float, temp_coeff: float) -> torch.Tensor:
-    """``sigmoid((x - x0) / temp)`` (torchgate/utils.py:27-39)."""
-    return torch.sigmoid((x - x0) / temp_coeff)
+    """``sigmoid((x - x0) / temp)`` (torchgate/utils.py:27-39), the
+    temperature read as the JAX package reads it (``as_temperature``)."""
+    return torch.sigmoid((x - x0) / as_temperature(temp_coeff, x.dtype))
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,8 +31,11 @@ import noisereduce_tpu as jnr
 
 import noisereduce_tpu_torch as nrt
 from noisereduce_tpu_torch.ops.cuda import kernels as K
+from noisereduce_tpu_torch.config import GateConfig, StftConfig
+from noisereduce_tpu_torch.ops.cuda.dispatch import fused_gate_supported
 from noisereduce_tpu_torch.ops.cuda.geometry import (
-    FS_GROUP, FS_RUN, FS_SPAN, FS_THREADS, freq_smooth_plan,
+    FS_GROUP, FS_RUN, FS_SPAN, FS_THREADS, SMEM_MAX, freq_smooth_fits, freq_smooth_plan,
+    kernels_supported,
 )
 from noisereduce_tpu_torch.ops.dsp import tri_norm
 from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
@@ -230,5 +233,69 @@ def test_freq_smooth_plan_keeps_the_threads_busy(nb):
 
 
 def test_freq_smooth_plan_refuses_a_line_past_shared_memory():
+    """A line too long for a block is cut into pieces; taps that do not
+    fit a block even beside a piece of one run are refused, and the
+    support predicate does not claim them."""
     with pytest.raises(ValueError, match="does not fit a block"):
-        freq_smooth_plan(4, 40_000, 11)
+        freq_smooth_plan(4, 40_000, 30_001)
+    assert not freq_smooth_fits(40_000, 30_001) and freq_smooth_fits(40_000, 11)
+    assert freq_smooth_plan(4, 40_000, 11).piece > 0
+    scfg = StftConfig(n_fft=79_998, hop_length=39_999)  # 40,000 bins
+    assert not kernels_supported(scfg, 30_001) and kernels_supported(scfg, 11)
+    wide = GateConfig(sr=48_000, n_fft=79_998, hop_length=39_999, freq_mask_smooth_hz=20_000,
+                      time_mask_smooth_ms=None)
+    assert not fused_gate_supported(wide, torch.zeros(1, 100))
+
+
+def _model_c_pieces(m, taps, prop, piece):
+    """Kernel C on a plan in pieces (csrc/freq_smooth_blend.cu, span_of):
+    per span, the piece's input bins [lo, hi) staged, each run's window
+    read from them by its index in the line (zero outside the line), the
+    taps in groups of FS_GROUP. Returns the output and how many times each
+    output was written; asserts that no window reads a bin of its line
+    outside [lo, hi)."""
+    n_rows, nb = m.shape
+    plan = freq_smooth_plan(n_rows, nb, len(taps), piece)
+    dt = np.asarray(plan.device_taps(taps))
+    out = np.zeros((n_rows, nb))
+    wrote = np.zeros((n_rows, nb), int)
+    for s in range(plan.spans):
+        line, k0, k1, lo, hi = plan.piece_span(s)
+        staged = m[line, lo:hi]
+        for r in range(-(-(k1 - k0) // FS_RUN)):
+            kr = k0 + r * FS_RUN
+            acc = np.zeros(FS_RUN)
+            for d0 in range(0, plan.n_taps, FS_GROUP):
+                p = kr - plan.half + d0 + np.arange(FS_RUN + FS_GROUP - 1)
+                inside = (p >= 0) & (p < nb)
+                assert ((p[inside] >= lo) & (p[inside] < hi)).all()
+                w = np.where(inside, staged[np.clip(p - lo, 0, hi - lo - 1)], 0.0)
+                for d in range(FS_GROUP):
+                    acc += dt[d0 + d] * w[d : d + FS_RUN]
+            live = kr + np.arange(FS_RUN) < min(nb, k1)
+            out[line, kr + np.arange(FS_RUN)[live]] = acc[live] * prop + (1 - prop)
+            wrote[line, kr + np.arange(FS_RUN)[live]] += 1
+    return out, wrote
+
+
+@pytest.mark.parametrize("nb,taps,piece", [
+    (20001, 208, None), (513, 5, 45), (513, 64, 27), (257, 320, 18), (1000, 11, 999),
+], ids=["20001-417taps", "513-11taps-45", "513-129taps-27", "257-641taps-18",
+        "1000-23taps-999"])
+def test_freq_smooth_pieces_cover_every_output_once(nb, taps, piece):
+    """A line in pieces (20,001 bins: n_fft 40000, its own plan; shorter
+    lines with pieces forced): every output written once, from its piece's
+    staged bins only, to the values of the whole-line model, exactly, and
+    the plain version's correlation; the plan fits a block."""
+    t = tri_norm(taps)
+    rows = 2 if nb > 10_000 else 5
+    m = np.random.default_rng(70 + nb).uniform(0, 1, (rows, nb))
+    plan = freq_smooth_plan(rows, nb, len(t), piece or 0)
+    assert plan.piece and plan.piece % FS_RUN == 0 and plan.smem_bytes <= SMEM_MAX
+    got, wrote = _model_c_pieces(m, t, 0.8, plan.piece)
+    assert (wrote == 1).all()
+    ref = K.freq_smooth_blend_ref(torch.as_tensor(m), t, 0.8).numpy()
+    assert np.abs(got - ref).max() <= 1e-12
+    if freq_smooth_fits(nb, len(t)) and not freq_smooth_plan(rows, nb, len(t)).piece:
+        whole, _, _ = _model_c(m, t, 0.8, 0)
+        assert np.array_equal(got, whole)

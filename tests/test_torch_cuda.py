@@ -638,7 +638,7 @@ ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536", "nfft400", "
 
 
 def _routes(route, n=1):
-    counts = {r: (n if r == route else 0) for r in ("fft", "chirp", "product")}
+    counts = {r: (n if r == route else 0) for r in K.ROUTES}
     return {"spectra": counts, "istft_ola": dict(counts)}
 
 
@@ -1038,6 +1038,172 @@ def test_bf16_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention
         pre, pim = K._spectra_on("product", x, geo, 8000, 1500)
         _hold_bf16(pre, rre, tol)
         _hold_bf16(pim, rim, tol)
+
+
+# ---------------------------------------------------------------------------
+# long frames: A and D past n_fft 8192 (the FFT route's big block, the
+# cluster route), C on lines past one block, F at temperatures that are not
+# normal floats
+# ---------------------------------------------------------------------------
+LONG_GEOMS = {  # n_fft, hop, the route
+    "nfft16384": (dict(n_fft=16384, hop_length=4096), "fft"),
+    "nfft12000": (dict(n_fft=12000, hop_length=3000), "fft"),
+    "nfft40000": (dict(n_fft=40000, hop_length=10000), "cluster"),
+    "nfft32768": (dict(n_fft=32768, hop_length=16384), "cluster"),
+    "nfft19683": (dict(n_fft=19683, hop_length=6561), "cluster"),
+    "nfft62500": (dict(n_fft=62500, hop_length=12500), "cluster"),
+}
+
+
+def _long_case(name, convention, cuda, dtype=torch.float32):
+    """(geometry, signal, chunk, padding) of a long-frame case: 2 rows of 5
+    n_fft samples, chunks of 2 n_fft with n_fft / 4 of padding."""
+    kw, route = LONG_GEOMS[name]
+    extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
+    n = kw["n_fft"]
+    cs, pad = 2 * n, n // 4
+    geo = gate_geometry(StftConfig(**kw, **extra), cs + 2 * pad)
+    assert geo.route == route
+    x = torch.as_tensor(np.random.default_rng(28).standard_normal((2, 5 * n)), dtype=dtype,
+                        device=cuda)
+    return geo, x, cs, pad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("convention", ["scipy", "torch"])
+@pytest.mark.parametrize("name", list(LONG_GEOMS))
+def test_long_frame_routes_match_plain_versions(cuda, name, convention):
+    """Past n_fft 8192: 16384 and 12000 on the FFT route's big block (n =
+    8192 and 6000), 40000, 32768, 19683 (odd, two frames a transform) and
+    62500 on the cluster route (4, 2, 3 and 5 blocks); A and D within the
+    FFT cells' bounds of their plain versions (2e-5 x max|ref|, 1e-5 under
+    torch conventions), every launch on that route (none on the product
+    route), bitwise from call to call."""
+    geo, x, cs, pad = _long_case(name, convention, cuda)
+    tol = 2e-5 if convention == "scipy" else 1e-5
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, cs, pad)
+    rre, rim = K.spectra_ref(x, geo, cs, pad)
+    assert _max(re - rre) <= tol * _max(rre) and _max(im - rim) <= tol * _max(rre)
+    mask = torch.as_tensor(np.random.default_rng(29).random(re.shape), dtype=torch.float32,
+                           device=cuda)
+    windows = ((pad, cs), (0, cs + 2 * pad), (cs // 2, 3 * geo.hop + 7))
+    outs = []
+    for out_off, out_len in windows:
+        outs.append(K.istft_ola(re, im, mask, geo, out_off, out_len))
+        ry = K.istft_ola_ref(re, im, mask, geo, out_off, out_len)
+        assert _max(outs[-1] - ry) <= tol * _max(ry)
+    assert K.route_counts() == {"spectra": _routes(geo.route)["spectra"],
+                                "istft_ola": _routes(geo.route, 3)["istft_ola"]}
+    assert torch.equal(K.spectra(x, geo, cs, pad)[0], re)
+    assert torch.equal(K.istft_ola(re, im, mask, geo, *windows[0]), outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nfft16384", "nfft40000", "nfft19683"])
+def test_bf16_long_frame_routes_match_plain_versions(cuda, name):
+    """The bfloat16 builds of the long-frame routes, held as the other
+    routes' bf16 builds are: within one bf16 ulp plus the float32 bound."""
+    geo, x, cs, pad = _long_case(name, "scipy", cuda, BF16)
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, cs, pad)
+    rre, rim = K.spectra_ref(x, geo, cs, pad)
+    _hold_bf16(re, rre, 2e-5)
+    _hold_bf16(im, rim, 2e-5)
+    mask = torch.as_tensor(np.random.default_rng(30).random(re.shape), dtype=torch.float32,
+                           device=cuda)
+    _hold_bf16(K.istft_ola(re, im, mask, geo, pad, cs),
+               K.istft_ola_ref(re, im, mask, geo, pad, cs), 2e-5)
+    assert K.dtype_counts()["spectra"] == {"float32": 0, "bfloat16": 1}
+    assert K.route_counts() == {"spectra": _routes(geo.route)["spectra"],
+                                "istft_ola": _routes(geo.route)["istft_ola"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(stationary=True), dict(use_torch=True)],
+                         ids=["nonstationary", "stationary", "use_torch"])
+def test_long_frame_reduce_noise_on_card(cuda, kw):
+    """reduce_noise(y, 48000, n_fft=40000, time_mask_smooth_ms=500) on
+    400,000 samples runs on the card on all three engines, A and D on the
+    cluster route and C on lines of 20,001 bins in pieces, within 5e-5 x
+    max|ref| of the CPU path (a stationary decision at the border may flip:
+    held at finite values of the shape)."""
+    y = np.random.default_rng(31).standard_normal(400_000).astype(np.float32)
+    args = dict(n_fft=40000, time_mask_smooth_ms=500, **kw)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 48000, **args)
+    counts = K.launch_counts()
+    assert counts["freq_smooth_blend"] == 1 and counts["istft_ola"] == 1
+    assert K.route_counts() == {k: _routes("cluster", counts[k])[k]
+                                for k in ("spectra", "istft_ola")}
+    ref = nrt.reduce_noise(y, 48000, device="cpu", **args)
+    assert got.shape == y.shape and np.isfinite(got).all()
+    if not kw.get("stationary"):
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,taps,rows", [(20001, 208, 41), (24001, 400, 9)],
+                         ids=["bins20001", "bins24001"])
+def test_freq_smooth_blend_long_lines_match_plain_version(cuda, nb, taps, rows):
+    """C on a line past one block (n_fft 40000: 20,001 bins, 417 taps), in
+    pieces: within 1e-6 of its plain version, bitwise from call to call and
+    on any split of its rows."""
+    from noisereduce_tpu_torch.ops.cuda.geometry import freq_smooth_plan
+
+    t = tri_norm(taps)
+    assert freq_smooth_plan(rows, nb, len(t)).piece
+    m = torch.as_tensor(np.random.default_rng(122).uniform(0, 1, (rows, nb)),
+                        dtype=torch.float32, device=cuda)
+    got = K.freq_smooth_blend(m, t, 0.8)
+    assert _max(got - K.freq_smooth_blend_ref(m, t, 0.8)) <= 1e-6
+    assert torch.equal(got, K.freq_smooth_blend(m, t, 0.8))
+    split = torch.cat([K.freq_smooth_blend(m[:3], t, 0.8), K.freq_smooth_blend(m[3:], t, 0.8)])
+    assert torch.equal(split, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("piece", [9, 45, 513])
+@pytest.mark.parametrize("case", ["scipy-prop0.8", "taps129", "taps641-bins257"])
+def test_freq_smooth_blend_pieces_are_the_whole_line_plan(cuda, case, piece):
+    """A line that fits a block, cut into pieces anyway: the same bits as
+    its plan of whole lines."""
+    from noisereduce_tpu_torch.ops.cuda.geometry import freq_smooth_plan
+
+    name, prop, rows, nb = FS_CASES[case]
+    taps = _fs_taps(name)
+    m = torch.as_tensor(np.random.default_rng(123).uniform(0, 1, (rows, nb)),
+                        dtype=torch.float32, device=cuda)
+    pieces = K._freq_smooth_on(freq_smooth_plan(rows, nb, len(taps), piece), m, taps, prop)
+    assert torch.equal(pieces, K.freq_smooth_blend(m, taps, prop))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells", ["noise", "at threshold"])
+@pytest.mark.parametrize("temp", [0.0, -0.0, 1e-40, float("inf"), float("nan")], ids=str)
+def test_torch_nonstationary_mask_any_temp_on_card(cuda, temp, cells):
+    """F at a temp that is not a normal float (a subnormal one read as a
+    zero, as the JAX package divides by it) takes the exact division: NaN
+    in the same cells as its plain version, the rest within 1e-5; with a
+    threshold of 0 on planes whose |Z| is constant in time, every cell
+    with a whole window (or silent) has a ratio of exactly the threshold,
+    so a step gives 0/0 there."""
+    if cells == "at threshold":  # |Z| constant in time (1 to 4, bin 0 silent): ratio 0
+        level = (torch.arange(129, device=cuda) % 4 + 1).float()
+        level[0] = 0.0
+        re = level.expand(2, 700, 129).contiguous()
+        im, thresh = torch.zeros_like(re), 0.0
+    else:
+        (re, im), thresh = _tile_planes((2, 700, 129), 8, cuda), 2.0
+    args = (re, im, 375, thresh, temp, 1.0, _torch_headline_time_taps())
+    got = K.torch_nonstationary_mask(*args)
+    ref = K.torch_nonstationary_mask_ref(*args)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    if cells == "at threshold" and temp in (0.0, -0.0, 1e-40):
+        assert torch.isnan(ref).any()
+    keep = ~torch.isnan(ref)
+    if keep.any():
+        assert _max(got[keep] - ref[keep]) <= 1e-5
 
 
 def _cut_at(t, off):

@@ -29,11 +29,12 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_BIG_ELEMS,
     FFT_BIG_WARPS,
     FFT_ELEMS,
-    FFT_MAX_NFFT,
     FFT_MIN_NFFT,
     FFT_WARP_POINTS,
     FFT_WARPS,
+    CLUSTER_MAX,
     chirp_length,
+    cluster_shape,
     fft_route,
     gate_geometry,
     real_kernel,
@@ -80,6 +81,21 @@ CPLX_GEOMS = {
     "torch-nfft441-r3": dict(n_fft=441, hop_length=147, **TORCH),
     "torch-nfft1102-r2": dict(n_fft=1102, hop_length=551, **TORCH),
     "torch-nfft1101-r3": dict(n_fft=1101, hop_length=367, **TORCH),
+    # even n_fft past 8192 in a big block: n = 8192 = 2^13, n = 6000 = 2^4 3 5^3
+    "nfft16384-r4": dict(n_fft=16384, hop_length=4096),
+    "nfft12000-r4": dict(n_fft=12000, hop_length=3000),
+    "torch-nfft16384-r4": dict(n_fft=16384, hop_length=4096, **TORCH),
+}
+# the cluster route: n = 20000 = 100 x 200 on 4 blocks (n_fft 40000), 16384
+# = 128 x 128 on 2, odd 19683 = 81 x 243 on 3 (two frames a transform),
+# 31250 = 125 x 250 on 5
+CLUSTER_GEOMS = {
+    "nfft40000-r4": dict(n_fft=40000, hop_length=10000),
+    "torch-nfft40000-r4": dict(n_fft=40000, hop_length=10000, **TORCH),
+    "nfft32768-r2": dict(n_fft=32768, hop_length=16384),
+    "nfft19683-r3": dict(n_fft=19683, hop_length=6561),
+    "torch-nfft19683-r3": dict(n_fft=19683, hop_length=6561, **TORCH),
+    "nfft62500-r5": dict(n_fft=62500, hop_length=12500),
 }
 CS, PAD, N_SRC = 4000, 700, 9500
 
@@ -501,9 +517,10 @@ def _emulate_istft(re, im, mask, geo, out_off, out_len, run=None):
 
 
 def _route_sizes():
-    """Every n_fft the FFT and chirp routes serve."""
-    sizes = range(FFT_MIN_NFFT, FFT_MAX_NFFT + 1)
-    return [n for n in sizes if fft_route(StftConfig(n_fft=n)) != "product"]
+    """Every n_fft the FFT and chirp routes serve (to 16384: n within a big
+    block)."""
+    sizes = range(FFT_MIN_NFFT, 2 * FFT_BIG_ELEMS + 1)
+    return [n for n in sizes if fft_route(StftConfig(n_fft=n)) in ("fft", "chirp")]
 
 
 @pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096, 8192,
@@ -561,24 +578,44 @@ def test_radix_11_and_13_constants_are_the_sources():
             assert np.array_equal(vals.astype(np.float32), want), (R, name)
 
 
+def _stage_divisors(m):
+    """The Divs of an m-point plan's stages: m / R and ns of each."""
+    out, ns = set(), 1
+    for r in _radices(m):
+        out.update((m // r, ns))
+        ns *= r
+    return out
+
+
 def test_multiply_high_division_is_exact():
-    """Div's x / d is exact for every divisor the kernels use (the slot m,
-    (m + 1) / 2, m / R and ns of each stage, for every n_fft the FFT and
-    chirp routes serve; a frame's pairs (n + 1) / 2 and bins; a segment's
-    warps) and every x below 2^14, past every index they divide; every
-    plan fits fft_smem.cuh's MAX_STAGES (12)."""
+    """Div's x / d is exact for every divisor the kernels use and every x
+    past every index they divide: on the FFT and chirp routes (the slot m,
+    (m + 1) / 2, m / R and ns of each stage, for every n_fft they serve; a
+    frame's pairs (n + 1) / 2 and bins, 8193 at n_fft 16384; a segment's
+    warps) every x below 2^14; on the cluster route (n1, n2, a block's
+    columns n1 / c and rows n2 / c, the stages of the n1- and n2-point
+    FFTs, for every n_fft to 131072 it serves) every x below 2^17, past a
+    transform's n <= 2^16 points. Every plan fits fft_smem.cuh's
+    MAX_STAGES (12)."""
     ds = set(range(1, FFT_BIG_WARPS + 1))
     for n_fft in _route_sizes():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=n_fft), 4 * n_fft)
         m = geo.fft_layout()[0]
         assert len(_radices(m)) <= 12
-        ds.update((m, (m + 1) // 2, (geo.fft_n + 1) // 2, geo.n_bins))
-        ns = 1
-        for r in _radices(m):
-            ds.update((m // r, ns))
-            ns *= r
+        ds.update((m, (m + 1) // 2, (geo.fft_n + 1) // 2, geo.n_bins), _stage_divisors(m))
     x = np.arange(2**14)
     for d in sorted(ds):
+        assert d <= 2**14 and np.array_equal(_div(x, d), x // d), d
+    dc = set()
+    for n in range(FFT_BIG_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1):
+        shape = cluster_shape(n)
+        if shape and fft_route(StftConfig(n_fft=2 * n)) == "cluster":
+            c, n1, n2 = shape
+            assert len(_radices(n1)) <= 12 and len(_radices(n2)) <= 12
+            dc.update((n1, n2, n1 // c, n2 // c, (n1 + 1) // 2, (n2 + 1) // 2),
+                      _stage_divisors(n1), _stage_divisors(n2))
+    x = np.arange(2**17)
+    for d in sorted(dc - ds):
         assert d <= 2**13 and np.array_equal(_div(x, d), x // d), d
 
 
@@ -736,15 +773,20 @@ def test_istft_fft_output_does_not_depend_on_the_run(name):
     assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0], outs[2])
 
 
+ROUTE_MAX_NFFT = 65536  # the route predicate's sweep: n_fft 1 to this
+
 _ROUTE_MAIN = r"""
 #include <cstdio>
 #include "fft_route.cuh"
-// per n_fft from 1 to 16384: its route and real_kernel; then, for each
-// line "n L" on the standard input, whether chirp_length_ok(n, L), and the
-// smallest L' >= 2n - 1 it takes
+// per n_fft from 1 to 65536: its route, real_kernel and cluster shape (c
+// n1 n2, or 0 0 0); then, for each line "n L" on the standard input,
+// whether chirp_length_ok(n, L), and the smallest L' >= 2n - 1 it takes
 int main() {
-  for (int n_fft = 1; n_fft <= 16384; ++n_fft)
-    std::printf("%d %d\n", nrf::route_of(n_fft), nrf::real_kernel(n_fft));
+  for (int n_fft = 1; n_fft <= 65536; ++n_fft) {
+    int c = 0, n1 = 0, n2 = 0;
+    if (!nrf::cluster_shape(nrf::fft_n(n_fft), c, n1, n2)) c = n1 = n2 = 0;
+    std::printf("%d %d %d %d %d\n", nrf::route_of(n_fft), nrf::real_kernel(n_fft), c, n1, n2);
+  }
   int n, L;
   while (std::scanf("%d %d", &n, &L) == 2) {
     int least = 2 * n - 1;
@@ -756,23 +798,26 @@ int main() {
 
 
 def test_route_predicate(tmp_path):
-    """Every n_fft from 64 to 8192 takes the FFT route when its transform's
-    n (n_fft/2, or n_fft when odd) has no prime factor above 13, else the
-    chirp route when 2n - 1 fits a big block; the product route takes the
-    rest: n_fft below 64 or above 8192 and the odd n_fft above 4096 with a
-    prime factor above 13 (2005 of them), none from 64 to 4096: 1100 (M =
-    2 5^2 11) takes the FFT route, 1102 (M = 19 x 29) the chirp route.
-    geometry.fft_route and real_kernel agree with csrc/fft_route.cuh
-    (compiled with the host compiler) on every n_fft from 1 to 16384; the
-    kernels take every chirp length the geometry picks (2^a 3^b and power
-    of two), and the default is the smallest they take; the geometry alone
-    decides."""
+    """Every n_fft of at least 64 takes the FFT route when its transform's
+    n (n_fft/2, or n_fft when odd) has no prime factor above 13 and fits a
+    big block (n_fft to 16384), the cluster route when such an n is past
+    it and has a cluster shape, else the chirp route when 2n - 1 fits a
+    big block; the product route takes the rest: n_fft below 64, the odd
+    n_fft from 4097 to 8191 with a prime factor above 13 (2005 of them),
+    none from 64 to 4096, none of 16384 or 40000: 1100 (M = 2 5^2 11)
+    takes the FFT route, 1102 (M = 19 x 29) the chirp route, 40000 (n =
+    20000) the cluster route. geometry.fft_route, real_kernel and
+    cluster_shape agree with csrc/fft_route.cuh (compiled with the host
+    compiler) on every n_fft from 1 to 65536; the kernels take every chirp
+    length the geometry picks (2^a 3^b and power of two), and the default
+    is the smallest they take; the geometry alone decides."""
     cxx = shutil.which("c++") or shutil.which("g++")
     assert cxx, "a host C++ compiler compiles csrc/fft_route.cuh"
     (tmp_path / "route.cpp").write_text(_ROUTE_MAIN)
     subprocess.run([cxx, "-std=c++17", "-I", str(build.CSRC), "-o", str(tmp_path / "route"),
                     str(tmp_path / "route.cpp")], check=True)
-    chirps = [(n_fft, n_fft if n_fft % 2 else n_fft // 2) for n_fft in range(1, 16385)
+    chirps = [(n_fft, n_fft if n_fft % 2 else n_fft // 2)
+              for n_fft in range(1, ROUTE_MAX_NFFT + 1)
               if fft_route(StftConfig(n_fft=n_fft)) == "chirp"]
     # the geometry's length, and the power of two that tools/fft_route_timing.py
     # times in its place
@@ -780,23 +825,28 @@ def test_route_predicate(tmp_path):
     lines = subprocess.run([str(tmp_path / "route")], check=True, capture_output=True,
                            text=True, input="".join(f"{n} {L}\n" for n, L in asked)
                            ).stdout.splitlines()
-    names = {0: "product", 1: "fft", 2: "chirp"}
+    names = {0: "product", 1: "fft", 2: "chirp", 3: "cluster"}
     product = []
-    for n_fft, line in zip(range(1, 16385), lines):
-        route, real = map(int, line.split())
+    for n_fft, line in zip(range(1, ROUTE_MAX_NFFT + 1), lines):
+        route, real, *shape = map(int, line.split())
         assert fft_route(StftConfig(n_fft=n_fft)) == names[route], n_fft
         assert real_kernel(n_fft) == bool(real), n_fft
-        if FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT and route == 0:
+        assert (cluster_shape(n_fft if n_fft % 2 else n_fft // 2) or (0, 0, 0)) == tuple(shape)
+        if FFT_MIN_NFFT <= n_fft <= FFT_BIG_ELEMS and route == 0:
             product.append(n_fft)
-    for (n, L), line in zip(asked, lines[16384:]):
+    for (n, L), line in zip(asked, lines[ROUTE_MAX_NFFT:]):
         ok, least = map(int, line.split())
         assert ok and L >= 2 * n - 1, (n, L)
         assert chirp_length(n) == least, n
-    assert len(lines) == 16384 + len(asked)
+    assert len(lines) == ROUTE_MAX_NFFT + len(asked)
     assert all(n > 4096 and n % 2 for n in product) and len(product) == 2005
-    assert all(fft_route(StftConfig(n_fft=n)) == "product" for n in (32, 63, 8194, 16384))
-    for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 4851):
+    assert all(fft_route(StftConfig(n_fft=n)) == "product" for n in (32, 63, 8194, 16386))
+    for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 4851,
+              12000, 16384):
         assert fft_route(StftConfig(n_fft=n)) == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
+    for n in (40000, 32768, 19683, 62500):
+        assert fft_route(StftConfig(n_fft=n)) == "cluster"
+    assert not real_kernel(16384) and real_kernel(8192)
     for n in (1102, 1101, 4106, 2 * 17 * 32, 8182):
         assert fft_route(StftConfig(n_fft=n)) == "chirp"
     assert chirp_length(551) == 1152 and _pow2_length(551) == 2048
@@ -868,5 +918,204 @@ def test_route_counts_stay_zero_on_cpu():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 8000)
         re, im = K.spectra(x, geo)
         K.istft_ola(re, im, torch.ones_like(re), geo, 0, 8000)
-    assert K.route_counts() == {"spectra": {"fft": 0, "chirp": 0, "product": 0},
-                                "istft_ola": {"fft": 0, "chirp": 0, "product": 0}}
+    zero = {"fft": 0, "chirp": 0, "cluster": 0, "product": 0}
+    assert K.route_counts() == {"spectra": zero, "istft_ola": zero}
+
+
+# ---------------------------------------------------------------------------
+# the cluster route (csrc/fft_cluster.cuh, spectra_cluster.cu,
+# istft_cluster.cu) as its blocks compute it, in float64 numpy
+# ---------------------------------------------------------------------------
+def _cluster_transform(points, geo, inverse):
+    """fft_cluster.cuh::cluster_fft on one slot: ``points`` (n,) complex in
+    natural order. Block q's first buffer holds columns j1 in [q cols, (q +
+    1) cols), column f at f n2 (Div by n2), each the n2-point Stockham FFT
+    of x[j1 + n1 j2]; the exchange gives block q row r = k2 - q rows of
+    every column (Div by rows, then by cols: the column's block), times
+    w_n^{j1 k2} (conjugated for the inverse); the n1-point FFTs of the
+    rows. Returns ``at(k)``: output point k from the block that holds it
+    (cluster_point). Asserts that step 1 gathers every point once and the
+    exchange every (j1, k2) once."""
+    c, n1, n2 = geo.cluster
+    n = geo.fft_n
+    cols, rows = n1 // c, n2 // c
+    tw1, tw2, twn = _twiddles(2 * n1), _twiddles(2 * n2), _twiddles(n)
+    zs, gathered = [], []
+    for q in range(c):
+        e = np.arange(cols * n2)
+        col = _div(e, n2)
+        j = q * cols + col + n1 * (e - col * n2)
+        gathered.append(j)
+        zs.append(_stockham(points[j].reshape(cols, n2), tw2, inverse))
+    assert np.array_equal(np.sort(np.concatenate(gathered)), np.arange(n))
+    Z = np.stack(zs)  # (c, cols, n2)
+    ws, moved = [], []
+    for q in range(c):
+        e = np.arange(rows * n1)
+        j1 = _div(e, rows)
+        r = e - j1 * rows
+        k2 = q * rows + r
+        owner = _div(j1, cols)
+        t = twn[j1 * k2]
+        w = np.zeros((rows, n1), complex)
+        w[r, j1] = Z[owner, j1 - owner * cols, k2] * (np.conj(t) if inverse else t)
+        moved.append(j1 * n2 + k2)
+        ws.append(_stockham(w, tw1, inverse))
+    assert np.array_equal(np.sort(np.concatenate(moved)), np.arange(n))
+    W = np.stack(ws)  # (c, rows, n1)
+
+    def at(k):
+        k1 = _div(k, n2)
+        k2 = k - k1 * n2
+        owner = _div(k2, rows)
+        return W[owner, k2 - owner * rows, k1]
+
+    return at
+
+
+def _cluster_bins(geo):
+    """spectra_cluster.cu's unpack order: per block q, e < rows n1, k1 = e /
+    rows, k = q rows + e mod rows + n2 k1; every point of the slot once."""
+    c, n1, n2 = geo.cluster
+    rows = n2 // c
+    ks = []
+    for q in range(c):
+        e = np.arange(rows * n1)
+        k1 = _div(e, rows)
+        ks.append(q * rows + (e - k1 * rows) + n2 * k1)
+    k = np.concatenate(ks)
+    assert np.array_equal(np.sort(k), np.arange(geo.fft_n))
+    return k
+
+
+def _emulate_spectra_cluster(x, geo, cs=0, pad=0):
+    """csrc/spectra_cluster.cu: per view and slot (a frame; a frame pair
+    2s, 2s + 1 for an odd n_fft, zero past the last), each block's points
+    gathered from the zero-filled signal (z[q] = u[2q] + i u[2q+1], or u_a
+    + i u_b), the cluster's transform, and per bin k its partner n - k
+    from the block that holds it: the split, and the Nyquist bin from k =
+    0 (even n_fft), or the pair's two frames (odd)."""
+    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    tws = _twiddles(N)
+    rows, src = x.shape
+    k_chunks = n_chunks_for(src, cs) if cs else 1
+    stride, start = (cs, -pad) if cs else (0, 0)
+    T, hop, win = geo.n_frames, geo.hop, geo.win
+    ws = K._scaled_window_np(geo.scfg)
+    re = np.zeros((rows * k_chunks, T, nb))
+    im = np.zeros_like(re)
+    k = _cluster_bins(geo)
+    for b in range(rows * k_chunks):
+        h, c = divmod(b, k_chunks)
+        u = np.zeros((T + 1, N))
+        for t in range(T):
+            p = t * hop - geo.bpad + np.arange(win)
+            s_ = c * stride + start + p
+            ok = (p >= 0) & (p < geo.view_len) & (s_ >= 0) & (s_ < src)
+            u[t, :win] = ws * np.where(ok, x[h, np.clip(s_, 0, src - 1)], 0.0)
+        for fa in range(0, T, 2 if paired else 1):
+            pts = u[fa] + 1j * u[fa + 1] if paired else u[fa, 0::2] + 1j * u[fa, 1::2]
+            at = _cluster_transform(pts, geo, False)
+            zk, zm = at(k), at(np.where(k > 0, n - k, 0))
+            if paired:
+                keep = k < nb
+                xa = 0.5 * (zk + np.conj(zm))
+                xb = -0.5j * (zk - np.conj(zm))
+                re[b, fa, k[keep]], im[b, fa, k[keep]] = xa.real[keep], xa.imag[keep]
+                if fa + 1 < T:
+                    re[b, fa + 1, k[keep]], im[b, fa + 1, k[keep]] = xb.real[keep], xb.imag[keep]
+            else:
+                lo, hi = _split(zk, zm, tws[k])
+                re[b, fa, k], im[b, fa, k] = lo.real, lo.imag
+                nyq = hi[k == 0][0]
+                re[b, fa, n], im[b, fa, n] = nyq.real, nyq.imag
+    return re, im
+
+
+def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, run=None):
+    """csrc/istft_cluster.cu: the runs of _ola (one slot a group), each
+    slot's points gathered per point from the masked planes (even n_fft:
+    unsplit(Y[j], Y[n - j], Y[n] for j = 0; odd: W[j] = Y_a[j] + i Y_b[j]
+    below n_bins, conj Y_a[n-j] + i conj Y_b[n-j] above), the cluster's
+    unscaled inverse, and each sample read from the block that holds its
+    point. Asserts that the blocks' shares of a run cover it once."""
+    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    tws = _twiddles(N)
+    c = geo.cluster[0]
+    k = np.arange(nb)
+    j = np.arange(n)
+    run = run or geo.fft_run
+    for n_acc in {run * geo.hop, geo.hop}:
+        share = -(-n_acc // c)
+        got = np.concatenate([np.arange(min(n_acc, q * share), min(n_acc, q * share + share))
+                              for q in range(c)])
+        assert np.array_equal(got, np.arange(n_acc))
+
+    def spectrum(b, t):  # Y = Z * mask, no imaginary DC or Nyquist part
+        if t >= re.shape[1]:
+            return np.zeros(nb, complex)
+        return (re[b, t] + 1j * im[b, t] * ((k > 0) & (k < N / 2))) * mask[b, t]
+
+    def invert(b, tg, ge):
+        y = np.zeros((ge, N))
+        ya = spectrum(b, tg)
+        if paired:
+            yb = spectrum(b, tg + 1)
+            jm = np.where(j < nb, j, n - j)
+            w = np.where(j < nb, ya[jm] + 1j * yb[jm], np.conj(ya[jm]) + 1j * np.conj(yb[jm]))
+        else:
+            w = _unsplit(ya[j], np.where(j == 0, ya[n], ya[(n - j) % n]), tws[j])[0]
+        at = _cluster_transform(w, geo, True)
+        pts = at(j)
+        if paired:
+            y[0, :n] = pts.real
+            if ge > 1:
+                y[1, :n] = pts.imag
+        else:
+            y[0, 0::2], y[0, 1::2] = pts.real, pts.imag
+        return y
+
+    return _ola(re, im, mask, geo, out_off, out_len, run, invert)
+
+
+@pytest.mark.parametrize("kw", CLUSTER_GEOMS.values(), ids=CLUSTER_GEOMS.keys())
+def test_cluster_shapes(kw):
+    """c blocks, n = n1 n2 with c dividing both, n / c points a block at
+    most a big block's, c the fewest that hold n so, n1 the largest factor
+    <= n2; a slot a group."""
+    geo = gate_geometry(StftConfig(**kw), 3 * kw["n_fft"])
+    c, n1, n2 = geo.cluster
+    n = geo.fft_n
+    assert geo.route == "cluster" and n1 * n2 == n and n1 % c == 0 and n2 % c == 0
+    assert n // c <= FFT_BIG_ELEMS and n > FFT_BIG_ELEMS and 2 <= c <= CLUSTER_MAX
+    assert all(n % (d * d) or n // d > FFT_BIG_ELEMS for d in range(2, c))
+    assert n1 <= n2 and geo.fft_layout()[2] == (2 if geo.fft_paired else 1)
+    assert geo.fft_run >= 1 and (geo.fft_run == 1 or geo.fft_run * geo.hop <= c * FFT_ACC)
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+@pytest.mark.parametrize("kw", CLUSTER_GEOMS.values(), ids=CLUSTER_GEOMS.keys())
+def test_spectra_cluster_emulation_matches_plain_version(kw, chunked):
+    n_fft = kw["n_fft"]
+    x = np.random.default_rng(39).standard_normal((1, 3 * n_fft))
+    cs, pad = (2 * n_fft, n_fft // 4) if chunked else (0, 0)
+    geo = gate_geometry(StftConfig(**kw), cs + 2 * pad if chunked else 3 * n_fft)
+    assert geo.route == "cluster"
+    re, im = K.spectra_ref(torch.as_tensor(x), geo, cs, pad)
+    ere, eim = _emulate_spectra_cluster(x, geo, cs, pad)
+    _close(ere, re.numpy())
+    _close(eim, im.numpy())
+
+
+@pytest.mark.parametrize("window", ["whole", "middle", "past-end"])
+@pytest.mark.parametrize("kw", CLUSTER_GEOMS.values(), ids=CLUSTER_GEOMS.keys())
+def test_istft_cluster_emulation_matches_plain_version(kw, window):
+    view = 3 * kw["n_fft"]
+    geo = gate_geometry(StftConfig(**kw), view)
+    rng = np.random.default_rng(40)
+    re, im = rng.standard_normal((2, 1, geo.n_frames, geo.n_bins))
+    mask = rng.random(re.shape)
+    out_off, out_len = {"whole": (0, view), "middle": (view // 3, view // 4),
+                        "past-end": (view - 500, 2000)}[window]
+    ref = K.istft_ola_ref(*(torch.as_tensor(a) for a in (re, im, mask)), geo, out_off, out_len)
+    _close(_emulate_istft_cluster(re, im, mask, geo, out_off, out_len), ref.numpy())

@@ -150,7 +150,7 @@ def _emulate_spectra(x, geo, cs, pad):
     src = (c * cs - pad)[:, None] + pos
     ok = (k < geo.win) & (pos >= 0) & (pos < geo.view_len) & (src >= 0) & (src < n)
     A = np.where(ok, x[h[:, None], np.clip(src, 0, n - 1)], 0.0)
-    C = A @ K._analysis_table_np(geo.scfg)
+    C = A @ K._analysis_table(geo.scfg, torch.device("cpu"), torch.float64).numpy()
     shape = (rows * k_chunks, T, nb)
     return C[:, :nb].reshape(shape), C[:, nb : 2 * nb].reshape(shape)
 
@@ -169,7 +169,8 @@ def _emulate_istft_ola(re, im, mask, geo, out_off, out_len):
         tt = np.clip(t, 0, T - 1)
         ym = np.concatenate([re * mask, im * mask], axis=-1)[:, tt]
         A[:, :, i * geo.f2 : i * geo.f2 + 2 * nb] = ym * ok[None, :, None]
-    blocks = (A @ K._synthesis_table_np(geo.scfg))[..., : geo.hop]
+    blocks = (A @ K._synthesis_table(geo.scfg, torch.device("cpu"), torch.float64).numpy())[
+        ..., : geo.hop]
     w = K._analysis_window_np(geo.scfg)
     q = np.arange(geo.hop)
     env = np.zeros((n_out, geo.hop))
@@ -200,3 +201,34 @@ def test_kernel_tables_and_indexing_match_plain_versions(kw):
         ref = K.istft_ola_ref(re, im, _t(mask), geo, out_off, out_len)
         got = _emulate_istft_ola(re.numpy(), im.numpy(), mask, geo, out_off, out_len)
         _close(got, ref.numpy())
+
+
+@pytest.mark.parametrize("kw", [dict(n_fft=16386, hop_length=8193),
+                                dict(n_fft=40001, hop_length=40001)],
+                         ids=["nfft16386", "nfft40001"])
+def test_product_tables_past_8192_build_no_host_table(kw):
+    """Past n_fft 8192 what is left on the product route (n with a prime
+    factor above 13: 8193 = 3 x 2731, 40001 = 13 x 17 x 181) builds its
+    n_fft x n_fft tables on the device they serve, in row blocks: here the
+    meta device, shapes only, while the host allocates a small part of
+    the float64 table it would take on the host; the device-table
+    cache does not keep a table past its byte bound."""
+    import tracemalloc
+
+    from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry, fft_route
+
+    scfg = StftConfig(**kw)
+    assert fft_route(scfg) == "product"
+    geo, meta = GateGeometry(scfg, 0), torch.device("meta")
+    K._analysis_table(StftConfig(n_fft=40, hop_length=10), meta)  # first-use allocations
+    tracemalloc.start()
+    a, s = K._analysis_table(scfg, meta), K._synthesis_table(scfg, meta)
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    assert a.shape == (geo.k_a, geo.cols_a) and s.shape == (geo.r * geo.f2, geo.cols_d)
+    assert a.dtype == s.dtype == torch.float32 and a.device.type == s.device.type == "meta"
+    assert not hasattr(K, "_analysis_table_np") and not hasattr(K, "_synthesis_table_np")
+    assert peak < 8 * a.numel() // 64  # under 1/64 of the float64 table
+    K._device_f32("analysis", scfg, meta)
+    assert ("analysis", scfg, meta) not in K._cache
+    assert sum(t.numel() * t.element_size() for t in K._cache.values()) <= K._CACHE_BYTES

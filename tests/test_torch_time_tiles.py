@@ -939,12 +939,27 @@ def test_movemean_plan_fills_the_card_at_the_torch_headline():
 @pytest.mark.parametrize("n_movemean,temp", [(0, 0.02), (-3, 0.02), (20, 0.0), (20, float("inf")),
                                              (20, float("nan")), (20, 1e-40)])
 def test_movemean_refuses_what_the_kernel_cannot_divide_by(n_movemean, temp):
-    """F's wrapper refuses a window under one frame and a temp that is not a
-    normal float32 (the kernel's division is exact only for a normal
-    divisor), on the CPU as on the card."""
+    """F's wrapper refuses a window under one frame, on the CPU as on the
+    card. A temp that is not a normal float32 is taken since the kernel
+    divides by it exactly (its fast division serves the normal ones): the
+    plain version's sigmoid((ratio - 0.5) / temp), a subnormal temp read
+    as a zero, as the JAX package's division reads it (0: a step, NaN
+    where the ratio is exactly the threshold; inf: 0.5)."""
     z = torch.ones(1, 4, 3)
-    with pytest.raises(ValueError, match="n_movemean|temp"):
-        K.torch_nonstationary_mask(z, z, n_movemean, 0.5, temp, 1.0, (1.0,))
+    if n_movemean < 1:
+        with pytest.raises(ValueError, match="n_movemean"):
+            K.torch_nonstationary_mask(z, z, n_movemean, 0.5, temp, 1.0, (1.0,))
+        return
+    rng = np.random.default_rng(4)
+    re, im = (torch.as_tensor(rng.standard_normal((1, 30, 3)).astype(np.float32))
+              for _ in range(2))
+    got = K.torch_nonstationary_mask(re, im, n_movemean, 0.5, temp, 1.0, (1.0,))
+    mag = torch.sqrt(re * re + im * im)
+    ma = dsp.moving_average_same(mag, n_movemean, axis=-2)
+    x = (mag - ma) / torch.where(ma == 0, 1.0, ma) - 0.5
+    want = torch.sigmoid(x / (0.0 if temp == 1e-40 else temp))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
 @pytest.mark.parametrize("temp", [-0.02, 1.2e-38, 5.0])

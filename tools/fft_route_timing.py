@@ -5,7 +5,13 @@ n_fft 1536 / hop 384 (the first 60 s, and all 960 s), n_fft 400 / hop 100
 (960 s), n_fft 1100 / hop 275 (60 s and 960 s: radix 11), and at 44.1 kHz
 n_fft 1323 / hop 441 and 441 / hop 147 (60 s: odd, two frames a
 transform) and n_fft 1102 / hop 551 (60 s: the chirp-z route), chunked as
-``reduce_noise`` chunks (600000 / 30000); and A alone on the 10 s noise
+``reduce_noise`` chunks (600000 / 30000); the long frames, only when
+``--cells`` names them, each one unchunked view: n_fft 16384 / hop 4096 on
+60 s (704 frames) and n_fft 40000 / hop 10000 on 400,000 samples, with
+kernel C's plan for the line (and its time where it has one), the device
+time also by ``queued_ms``, and on a product route the first call's host
+table build timed on its own line (at n_fft 40000 the product route is
+not timed: its tables take minutes); and A alone on the 10 s noise
 row of ``chip_smoke.py`` (n_fft 1024, unchunked: the stationary paths'
 threshold spectra, TPU row 3). Two times per kernel: CUDA
 events around one call, the minimum of ``--reps`` runs after a warm-up (the
@@ -23,6 +29,7 @@ one JSON line: per cell, A's and D's times and the route each launch
 took.
 
     python3 tools/fft_route_timing.py [--reps 10] [--cells 1024,1536] [--library] [--product]
+    python3 tools/fft_route_timing.py --cells 16384,40000 --library   # the long frames
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -45,7 +52,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.append(str(ROOT))  # this tree's package, after PYTHONPATH's
 
-CELLS = (  # name, n_fft, hop, seconds, sample rate
+CELLS = (  # name, n_fft, hop, seconds (or samples), sample rate
     ("headline n_fft 1024, 960 s", 1024, 256, 960, 48000),
     ("n_fft 1536, 60 s", 1536, 384, 60, 48000),
     ("n_fft 1536, 960 s", 1536, 384, 960, 48000),
@@ -56,6 +63,15 @@ CELLS = (  # name, n_fft, hop, seconds, sample rate
     ("n_fft 441, 44.1 kHz, 60 s", 441, 147, 60, 44100),
     ("n_fft 1102, 44.1 kHz, 60 s", 1102, 551, 60, 44100),
 )
+# one unchunked view each, timed only when --cells names them: name, n_fft,
+# hop, samples, sample rate
+LONG_CELLS = (
+    ("n_fft 16384, 60 s, one view", 16384, 4096, 60 * 48000, 48000),
+    ("n_fft 40000, 400,000 samples, one view", 40000, 10000, 400000, 48000),
+)
+# n_fft past which the product route's first call waits for tables too long
+# to time here
+UNTIMED_PRODUCT_NFFT = 16384
 
 
 def pow2_length(n: int) -> int:
@@ -77,6 +93,94 @@ def chirp_lengths(length):
     finally:
         G.chirp_length = own
         G._layout.cache_clear()
+
+
+def table_build_s(K, scfg) -> dict:
+    """Seconds of the product route's first-call table build at ``scfg``
+    in a tree that builds its tables on the host in float64 ({} for one
+    that builds them on the card): each table's host build and its copy
+    to the card."""
+    out = {}
+    for kind in ("analysis", "synthesis"):
+        host = getattr(K, f"_{kind}_table_np", None)
+        if host is None:
+            continue
+        host.cache_clear()
+        t0 = time.perf_counter()
+        tab = host(scfg)
+        out[f"{kind}_host_s"] = time.perf_counter() - t0
+        out[f"{kind}_shape"] = list(tab.shape)
+        t0 = time.perf_counter()
+        torch.as_tensor(tab, dtype=torch.float32).cuda()
+        torch.cuda.synchronize()
+        out[f"{kind}_copy_s"] = time.perf_counter() - t0
+        del tab  # the cache keeps it for the route's first call
+    return out
+
+
+def long_cell(cs, K, times, signals, n_fft, hop, n, sr, args) -> dict:
+    """A and D on one unchunked view of ``n`` samples of the headline
+    signal at ``sr`` (its own route, the device time also by
+    ``queued_ms``; ``torch.stft`` / ``torch.istft`` with ``--library``),
+    and kernel C's plan for its line at the default 500 Hz of frequency
+    smoothing (timed where there is one). A product route past
+    ``UNTIMED_PRODUCT_NFFT`` is recorded, not timed."""
+    from noisereduce_tpu_torch.config import GateConfig, StftConfig
+    from noisereduce_tpu_torch.ops.cuda import geometry as G
+    from noisereduce_tpu_torch.ops.dsp import tri_norm
+
+    if sr not in signals:
+        signals[sr] = torch.as_tensor(cs.headline_signal(-(-n // sr), sr)).cuda()
+    xs = signals[sr][None, :n].contiguous()
+    scfg = StftConfig(n_fft=n_fft, hop_length=hop)
+    g = G.gate_geometry(scfg, n)
+    cell = dict(route=g.route, frames=g.n_frames, bins=g.n_bins)
+    taps = tri_norm(GateConfig(sr=sr, n_fft=n_fft, hop_length=hop,
+                               time_mask_smooth_ms=500).smoothing[0])
+    try:
+        plan = G.freq_smooth_plan(g.n_frames, g.n_bins, len(taps))
+        cell["c_plan"] = {k: v for k, v in vars(plan).items()}
+    except ValueError as e:
+        cell["c_plan"] = f"raises ValueError: {e}"
+    print(f"{n_fft}: route {g.route}, {g.n_frames} frames, kernel C plan {cell['c_plan']}",
+          flush=True)
+    if g.route == "product":
+        cell["table_build"] = table_build_s(K, scfg) if n_fft <= UNTIMED_PRODUCT_NFFT else (
+            "not timed")
+        print(f"{n_fft}: product route table build {cell['table_build']}", flush=True)
+        if n_fft > UNTIMED_PRODUCT_NFFT:
+            return cell
+    K.reset_launch_counts()
+    re, im = K.spectra(xs, g)
+    mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
+                      device=re.device)
+    d = (re, im, mask, g, 0, n)
+    K.istft_ola(*d)
+    torch.cuda.synchronize()
+    cell["routes"] = {k: max(v, key=v.get) for k, v in K.route_counts().items()}
+    cell.update(times("spectra", lambda: K.spectra(xs, g)))
+    cell.update(times("istft_ola", lambda: K.istft_ola(*d)))
+    cell["spectra_queued_ms"] = cs.queued_ms(lambda: K.spectra(xs, g))
+    cell["istft_ola_queued_ms"] = cs.queued_ms(lambda: K.istft_ola(*d))
+    if args.library:
+        window = torch.hann_window(g.win, periodic=True, device=xs.device)
+        zm = torch.complex(re * mask, im * mask).transpose(1, 2).contiguous()
+        stft = lambda: torch.stft(xs, g.n_fft, g.hop, g.win, window, center=True,  # noqa: E731
+                                  pad_mode="constant", return_complex=True)
+        istft = lambda: torch.istft(zm, g.n_fft, g.hop, g.win, window,  # noqa: E731
+                                    center=True, length=n)
+        cell.update(times("torch_stft", stft))
+        cell.update(times("torch_istft", istft))
+        cell["torch_stft_queued_ms"] = cs.queued_ms(stft)
+        cell["torch_istft_queued_ms"] = cs.queued_ms(istft)
+        del zm
+    if isinstance(cell["c_plan"], dict):
+        m = mask[0].contiguous()
+        cell.update(times("freq_smooth_blend", lambda: K.freq_smooth_blend(m, taps, 1.0)))
+        cell["freq_smooth_blend_queued_ms"] = cs.queued_ms(
+            lambda: K.freq_smooth_blend(m, taps, 1.0))
+    print(f"{n_fft}: {json.dumps(cell)}", flush=True)
+    return cell
 
 
 def main() -> None:
@@ -172,6 +276,10 @@ def main() -> None:
                     cell.update(times("istft_ola_product", lambda: K._istft_ola_on("product", *d)))
                 del re, im, mask
                 torch.cuda.empty_cache()
+    for name, n_fft, hop, n, sr in LONG_CELLS:
+        if n_fft in wanted:
+            out["cells"][name] = long_cell(cs, K, times, signals, n_fft, hop, n, sr, args)
+            torch.cuda.empty_cache()
     if wanted and 1024 not in wanted:
         print(json.dumps(out), flush=True)
         return

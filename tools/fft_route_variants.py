@@ -8,12 +8,17 @@ once a run, so ``base cplx_all cplx_all base`` times each tree twice, in
 turns.
 
     python3 tools/fft_route_variants.py base cplx_all cplx_all base --cells 1024,1536
+    python3 tools/fft_route_variants.py base big_all_radices big_all_radices base --cells 16384 --library
 
 - ``base``: the sources as they are;
 - ``cplx_all``: the complex-frame kernels (``spectra_cplx.cu``,
   ``istft_cplx.cu``) serve every n_fft of the FFT route, the even
   2^k 3^a 5^b 7^c ones too, in place of the real-FFT kernels
-  (``spectra_fft.cu``, ``istft_fft.cu``).
+  (``spectra_fft.cu``, ``istft_fft.cu``);
+- ``big_all_radices``: a big block's even n_fft whose n is a power of
+  two (16384) takes the complex-frame kernels' build with every odd radix
+  (multiply-high divisions; it spills at 1024 threads) in place of the
+  build with the power-of-two stages alone.
 
 Arguments after the variants go to ``tools/fft_route_timing.py``. Needs
 one CUDA card; imports nothing of JAX.
@@ -39,13 +44,19 @@ VARIANTS = {  # name: [(file under PKG, code, its replacement)]
          "return with_set<1, 3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>("
          "odd, build(N(), N()));"),
         ("geometry.py",
-         "    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= FFT_MAX_NFFT\n"
+         "    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= REAL_MAX_NFFT\n"
          "            and _strip(n_fft // 2, REAL_RADICES) == 1)",
          "    return False"),
     ],
+    "big_all_radices": [
+        ("csrc/fft_smem.cuh",
+         "             : odd == 1 ? f(integral_constant<int, 1>(), N(), N(), Y())\n",
+         ""),
+    ],
 }
 # the card tests that hold a copy's A and D to their plain versions
-CHECK = "routes_match_plain_versions and (nfft512 or nfft1024 or nfft1536 or nfft400 or nfft882)"
+CHECK = ("routes_match_plain_versions and (nfft512 or nfft1024 or nfft1536 or nfft400 or "
+         "nfft882 or nfft16384 or nfft12000)")
 
 
 def build_copy(name: str) -> pathlib.Path:
