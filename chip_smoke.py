@@ -2122,6 +2122,36 @@ def ptxas_usage(stem: str, kernel: str) -> str:
     return f"{kernel} (ptxas -v): " + "; ".join(found)
 
 
+def cluster_ptxas(stem: str) -> dict:
+    """Registers and spill bytes of every build of the cluster route's
+    kernels in ``csrc/<stem>.cu`` (A: ``spectra_cluster_kernel``; D:
+    ``istft_cluster_kernel`` and ``istft_cluster_ola_kernel``), by kernel,
+    frames a slot, odd radices (``fft_cluster.cuh::cluster_build``) and
+    plane type, from the ``ptxas -v`` report the build keeps beside the
+    kernel library."""
+    from noisereduce_tpu_torch.ops.cuda import build
+
+    path = build.library_path().parent / f"{stem}.ptxas.txt"
+    if not path.exists():
+        return {"error": f"no ptxas report at {path}"}
+    out = {}
+    for e in path.read_text().split("Compiling entry function")[1:]:
+        name = regex.search(r"\d+((?:spectra|istft)_cluster(?:_ola)?_kernel)I", e)
+        spill = regex.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+        regs = regex.search(r"Used (\d+) registers", e)
+        if not (name and spill and regs):
+            continue
+        paired = regex.search(r"ILb([01])E", e)
+        odd = regex.search(r"ELi(\d+)E", e)
+        key = " ".join([name.group(1)]
+                       + ([("paired" if paired.group(1) == "1" else "single")] if paired else [])
+                       + ([f"odd {odd.group(1)}"] if odd else [])
+                       + ["bf16" if "bfloat16" in e.split("\n")[0] else "float32"])
+        out[key] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
+                        spill_loads=int(spill.group(2)))
+    return out
+
+
 def bf16_measure(label, fn, ref_fn, twin_fn, moved, ops, check, ptxas=None):
     """One bf16 kernel: ``check()`` holds it to its plain version and
     returns its max |dev|; then its time, its float32 twin's (``twin_fn``,
@@ -2817,6 +2847,17 @@ def main() -> None:
         got = route_cell(label, x[:samples], sr, kw, route, product=False)
         for name in ("spectra", "istft_ola"):
             results[f"{name}_{entry}"] = dict(got[name], fft_route=route)
+    # the cluster route's builds: registers and spills (ptxas -v)
+    for name, stem in (("spectra_cluster", "spectra_cluster"),
+                       ("istft_ola_cluster", "istft_cluster")):
+        usage = cluster_ptxas(stem)
+        worst = max((u["spill_stores"] + u["spill_loads"] for u in usage.values()
+                     if isinstance(u, dict)), default=None)
+        print(f"cluster builds of {stem}.cu (ptxas -v): " + "; ".join(
+            f"{k} {u['registers']} registers, {u['spill_stores']} / {u['spill_loads']} B "
+            f"spill stores / loads" if isinstance(u, dict) else f"{k}: {u}"
+            for k, u in usage.items()) + f"; most spill bytes of a build {worst}", flush=True)
+        results[name]["ptxas"] = usage
     long_frame_engines(nr, K, launches, x[: LONG_CELLS[1][2]], LONG_CELLS[1])
 
     bf16_route_phase(x, lambda sr, kw: nr.GateConfig(sr=sr, **kw), results)

@@ -83,9 +83,11 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp,
     ],
     "nr_istft_cluster": [
-        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll,
-        _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
     ],
+    "nr_spectra_cluster_capacity": [_i, _i],
+    "nr_istft_cluster_capacity": [_i, _i],
     "nr_istft_cplx": [
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
         _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

@@ -6,31 +6,52 @@
 //
 // A four-step FFT, n = n1 n2 (cluster_shape: c divides n1 and n2), input
 // point j = j1 + n1 j2, output point k = k2 + n2 k1:
-//   1. Y[j1, k2] = sum_j2 x[j1 + n1 j2] w_n2^{j2 k2}: block q holds the
-//      columns j1 in [q cols, (q + 1) cols), cols = n1 / c, as `cols` slots
-//      of n2 points of its first buffer z and takes their n2-point FFTs
-//      with fft_smem.cuh's stages (the whole block one segment);
+//   1. Y[j1, k2] = sum_j2 x[j1 + n1 j2] w_n2^{j2 k2}: block q takes the
+//      columns j1 in [q cols, (q + 1) cols), cols = n1 / c, and their
+//      n2-point FFTs;
 //   2. Y[j1, k2] *= w_n^{j1 k2} (conjugated for the inverse), and
-//   3. the exchange: after cluster.sync() block q copies the rows k2 in
-//      [q rows, (q + 1) rows), rows = n2 / c, of every column from the
-//      block that holds it (cluster.map_shared_rank: distributed shared
-//      memory) into its second buffer w, row r = k2 - q rows at r n1,
-//      twiddled on the way;
+//   3. the exchange: block q takes the rows k2 in [q rows, (q + 1) rows),
+//      rows = n2 / c, of every column from the block that holds it
+//      (cluster.map_shared_rank: distributed shared memory): one contiguous
+//      run of another block's buffer each, pulled 16 bytes a thread, then
+//      twiddled in step 4's first stage;
 //   4. X[k2 + n2 k1] = sum_j1 Y'[j1, k2] w_n1^{j1 k1}: the n1-point FFTs of
-//      its rows, in place.
+//      its rows.
 // Output point k then lies in block (k mod n2) / rows, row k mod n2 - q
-// rows, point k / n2 (cluster_point); the unpack of kernel A and the
-// overlap-add of kernel D read it there after another cluster.sync(), and
-// a last cluster.sync() keeps every block's shared memory alive until the
-// cluster's reads of it are done.
+// rows, point k / n2 (cluster_point).
 //
-// Each block holds n / c points in each buffer, at most a big block's
-// 8192 (1024 threads, PP points a thread, as Blk<true>): two buffers of
-// 8192 padded points are 139 KB. The stages are those of the complex-frame
-// kernels' big build with every odd radix (ODD 15015, multiply-high Divs).
+// Layout: a block's batch of FFTs is interleaved, batch index fastest:
+// point j2 of column col at j2 ldc + col (step 1), point j1 (then k1) of
+// row r at j1 ldr + r (step 4), with ldc and ldr the batch counts made
+// odd, so that a warp's consecutive threads take consecutive batches (and
+// consecutive points of the signal or of a bin row: the gathers coalesce),
+// and a column of the layout, read with an odd stride, meets no bank
+// conflict. Each stage is a radix-R Stockham step of fft_smem.cuh (the
+// same radix order, twiddle table and R-point formulas, so the same
+// arithmetic) taken out of place between the block's two buffers, one
+// butterfly a thread at a time: one block barrier a stage and a
+// butterfly's registers only. Step 1's first stage takes its points from
+// the caller's gather: the planes, the signal, or kernel A's samples that
+// cp.async staged in the free buffer.
+//
+// Clusters are persistent: the grid holds the clusters that fit on the card
+// at once (cudaOccupancyMaxActiveClusters), and cluster i takes slots i, i +
+// G, i + 2G, ... (G clusters). A block's buffer that other blocks read must
+// outlive their reads: a split cluster barrier (arrive after the reads,
+// wait before the buffer is next written) ends the pull, and another
+// kernel A's partner reads of step 4's output across slots. Blocks of
+// CLUSTER_THREADS threads, two an SM where shared memory allows (64
+// registers a thread; 1024 threads, one an SM, ran slower at n_fft 40000:
+// PERF.md), and each build compiles only the radices of its set
+// (cluster_build), so no stage carries the registers of a radix it never
+// runs.
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "fft_smem.cuh"
 
@@ -38,100 +59,285 @@ namespace nrf {
 
 namespace cg = cooperative_groups;
 
-using Cluster = Blk<true>;  // a block of the cluster route
+constexpr int CLUSTER_THREADS = 512;  // threads of a cluster block
 
-// float2 values of one of a block's two buffers: n / c points, padded
-inline int cluster_buffer(int points) { return points + points / 16 + 1; }
+// blocks an SM may hold of a build of the odd primes `odd` (cluster_build):
+// 2 (64 registers a thread) for the sets within 3, 5 and 7, 1 (128) for the
+// build with radix 11 and 13
+constexpr int cluster_min_blocks(int odd) { return odd % 11 ? 2 : 1; }
+
+// The build of n's transform: the odd primes of n as they are for a set
+// within {3, 5}, 105 for any other set within 3, 5 and 7, 15015 for a set
+// with 11 or 13 (must match geometry.py::cluster_build)
+inline int cluster_build(int n) {
+  const int odd = odd_primes(n);
+  if (odd % 11 == 0 || odd % 13 == 0) return 15015;
+  return odd % 7 == 0 ? 105 : odd;
+}
+
+// f(std::integral_constant<int, cluster_build(n)>())
+template <class F>
+auto with_cluster_build(int n, F f) {
+  switch (cluster_build(n)) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 15: return f(std::integral_constant<int, 15>());
+    case 105: return f(std::integral_constant<int, 105>());
+    default: return f(std::integral_constant<int, 15015>());
+  }
+}
 
 // The shape of a launch, made on the host (make_four) and passed by value
 struct Four {
   int n, n1, n2, c;
   int cols, rows;          // n1 / c columns of n2 points, n2 / c rows of n1 points a block
-  int buffer;              // float2 values of each buffer (cluster_buffer)
-  Div<true> dn1, dn2, dcols, drows;
-  Plan<true> p2, p1;       // the n2- and n1-point FFTs, the block one segment
+  int ldc, ldr;            // cols, rows made odd: the layouts' leading dimensions
+  int buffer;              // float2 values of each of a block's two buffers (even)
+  int run;                 // rows ldc: a block's rows of one block's step-1 buffer
+  bool wide;               // run even: the pull moves 16-byte values
+  Div<true> dn2, dcols, drows, dpull;  // dpull: run in the pull's values
+  Plan<true> p2, p1;       // the stages of the n2- and n1-point FFTs
 };
 
+// float2 values of a buffer: step 1's n2 x ldc and step 4's n1 x ldr,
+// whichever is larger, made even so that the second buffer starts on 16
+// bytes (must match geometry.py::cluster_layout)
 inline bool make_four(int n, Four& f) {
   f = Four{};
   if (!cluster_shape(n, f.c, f.n1, f.n2)) return false;
   f.n = n;
   f.cols = f.n1 / f.c;
   f.rows = f.n2 / f.c;
-  f.buffer = cluster_buffer(n / f.c);
-  f.dn1 = Div<true>(f.n1);
+  f.ldc = f.cols | 1;
+  f.ldr = f.rows | 1;
+  f.buffer = f.n2 * f.ldc > f.n1 * f.ldr ? f.n2 * f.ldc : f.n1 * f.ldr;
+  f.buffer += f.buffer & 1;
+  f.run = f.rows * f.ldc;
+  f.wide = f.run % 2 == 0;
+  f.dpull = Div<true>(f.wide ? f.run / 2 : f.run);
   f.dn2 = Div<true>(f.n2);
   f.dcols = Div<true>(f.cols);
   f.drows = Div<true>(f.rows);
-  f.p2 = make_plan<true>(f.n2, Cluster::WARPS, Cluster::WARPS);
-  f.p1 = make_plan<true>(f.n1, Cluster::WARPS, Cluster::WARPS);
+  f.p2 = make_plan<true>(f.n2, 1, 1);
+  f.p1 = make_plan<true>(f.n1, 1, 1);
   return true;
 }
 
-// Steps 2 and 3: the block's rows of every column, from the block that
-// holds the column, twiddled by w_n^{j1 k2} (tw: e^{-2 pi i k / n}, k < n),
-// into w. Reads the cluster's first buffers: call it between two
-// cluster.sync()s.
-template <bool INV>
-__device__ __forceinline__ void exchange(float2* w, float2* z, cg::cluster_group& cl,
-                                         const Four& f, int rank,
-                                         const float2* __restrict__ tw) {
-  const int total = f.rows * f.n1;
-  for (int e = threadIdx.x; e < total; e += Cluster::THREADS) {
-    const int j1 = f.drows.div(e);  // consecutive threads: consecutive rows of a column
-    const int r = e - j1 * f.rows;
-    const int k2 = rank * f.rows + r;
-    const int owner = f.dcols.div(j1);
-    const float2* src = cl.map_shared_rank(z, owner);
-    float2 t = __ldg(tw + j1 * k2);  // j1 k2 < n
-    if (INV) t.y = -t.y;
-    w[pad(r * f.n1 + j1)] = cmul(src[pad((j1 - owner * f.cols) * f.n2 + k2)], t);
+// bytes of dynamic shared memory of a cluster block: its two buffers
+inline size_t cluster_smem(const Four& f) { return sizeof(float2) * 2 * (size_t)f.buffer; }
+
+// The split cluster barrier: every thread of the cluster arrives (release:
+// its reads and writes of shared memory are done), then waits (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// One radix-R Stockham stage s of `pl` over nb interleaved batches (batch
+// b, point i at i ld + b of dst), out of place: butterfly (b, j) loads
+// load(b, j + r m/R), twiddles by tw[jm r tstep] (jm = j mod ns; the
+// inverse conjugates), takes the R-point DFT and stores at
+// ((j - jm) R + jm + r ns) ld + b. Consecutive threads take consecutive
+// batches, one butterfly at a time (two at a time spilled and ran slower:
+// PERF.md). Every thread of the block calls it; the caller synchronises.
+template <int R, bool INV, class Load>
+__device__ __forceinline__ void cstage(Load load, float2* __restrict__ dst, const Plan<true>& pl,
+                                       int s, const Div<true>& dnb, int ld,
+                                       const float2* __restrict__ tw) {
+  const int ns = pl.ns[s], tstep = pl.tstep[s];
+  const Div<true> dmr = pl.mr[s], dns = pl.nsd[s];
+  const int mr = dmr.d, nb = dnb.d;
+  const int total = nb * mr;
+  for (int idx = threadIdx.x; idx < total; idx += CLUSTER_THREADS) {
+    const int j = dnb.div(idx);
+    const int b = idx - j * nb;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = load(b, j + r * mr);
+    const int jm = j - dns.div(j) * ns;
+    if (jm) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        float2 w = __ldg(tw + jm * r * tstep);
+        if (INV) w.y = -w.y;
+        v[r] = cmul(v[r], w);
+      }
+    }
+    dft<R, INV>(v);
+    const int d = (j - jm) * R + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[(d + r * ns) * ld + b] = v[r];
   }
 }
 
+constexpr int PULL = 2;  // values a thread of the pull has in flight
+
+// Step 3's pull: this block's rows of every column, from each block o's
+// step-1 buffer `held`: rows k2 in [rank rows, (rank + 1) rows), one
+// contiguous run of `run` values from rank run on, into `into` at o run.
+// V: float2, or float4 (two float2) where run is even. Consecutive threads
+// read consecutive values of another block's shared memory, PULL of them
+// in flight a thread (4 spilled: PERF.md).
+template <class V>
+__device__ __forceinline__ void pull(V* into, const float2* held, cg::cluster_group& cl,
+                                     const Four& f, int rank) {
+  const int run = f.dpull.d;
+  const int total = f.c * run;
+  for (int e0 = threadIdx.x; e0 < total; e0 += PULL * CLUSTER_THREADS) {
+    V v[PULL];
+#pragma unroll
+    for (int u = 0; u < PULL; ++u) {
+      const int e = e0 + u * CLUSTER_THREADS;
+      if (e < total) {
+        const int o = f.dpull.div(e);
+        v[u] = reinterpret_cast<const V*>(cl.map_shared_rank(held, o))[rank * run + e - o * run];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PULL; ++u)
+      if (e0 + u * CLUSTER_THREADS < total) into[e0 + u * CLUSTER_THREADS] = v[u];
+  }
+}
+
+// stage s of `pl` at its radix, among the radices of the build ODD
+template <bool INV, int ODD, class Load>
+__device__ __forceinline__ void cstage_any(Load load, float2* __restrict__ dst,
+                                           const Plan<true>& pl, int s, const Div<true>& dnb,
+                                           int ld, const float2* __restrict__ tw) {
+  switch (pl.radix[s]) {
+    case 8: cstage<8, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 4: cstage<4, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 2: cstage<2, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 3: if constexpr (ODD % 3 == 0) cstage<3, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 5: if constexpr (ODD % 5 == 0) cstage<5, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 7: if constexpr (ODD % 7 == 0) cstage<7, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 11: if constexpr (ODD % 11 == 0) cstage<11, INV>(load, dst, pl, s, dnb, ld, tw); break;
+    case 13: if constexpr (ODD % 13 == 0) cstage<13, INV>(load, dst, pl, s, dnb, ld, tw); break;
+  }
+}
+
+// The slot's transform (INV: the unscaled inverse) across the cluster:
+// step 1's first stage takes point j2 of column col from gather(col, j2)
+// (which may read b) and writes buffer a; the stages then alternate
+// between a and b. Every thread of the block calls it.
+// Returns the buffer that holds the block's rows of the output, point k1
+// of row r at k1 ldr + r, with the block synchronised (not the cluster),
+// no cluster barrier outstanding, and the other buffer free (no block
+// reads it).
+template <bool INV, int ODD, class Gather>
+__device__ __forceinline__ float2* cluster_fft(float2* a, float2* b, cg::cluster_group& cl,
+                                               const Four& f, int rank, Gather gather,
+                                               const float2* __restrict__ tw1,
+                                               const float2* __restrict__ tw2,
+                                               const float2* __restrict__ twn) {
+  cstage_any<INV, ODD>(gather, a, f.p2, 0, f.dcols, f.ldc, tw2);
+  for (int s = 1; s < f.p2.n_stages; ++s) {
+    __syncthreads();
+    const float2* src = a;
+    cstage_any<INV, ODD>([&](int col, int i) { return src[i * f.ldc + col]; }, b, f.p2, s,
+                         f.dcols, f.ldc, tw2);
+    float2* t = a;
+    a = b;
+    b = t;
+  }
+  cl.sync();  // every block's columns are transformed
+  // step 3: this block's rows of every column, pulled into b
+  if (f.wide)
+    pull(reinterpret_cast<float4*>(b), a, cl, f, rank);
+  else
+    pull(b, a, cl, f, rank);
+  cluster_arrive();  // this block's reads of the cluster's step-1 buffers are done
+  cluster_wait();    // ... and every block's: a is free, b complete
+  // step 2 in step 4's first stage: row r = k2 - rank rows of column j1,
+  // from the run of the block that held it, times w_n^{j1 k2}
+  const float2* pulled = b;
+  cstage_any<INV, ODD>(
+      [&](int r, int j1) {
+        const int owner = f.dcols.div(j1);
+        float2 t = __ldg(twn + j1 * (rank * f.rows + r));  // j1 k2 < n
+        if (INV) t.y = -t.y;
+        return cmul(pulled[owner * f.run + r * f.ldc + j1 - owner * f.cols], t);
+      },
+      a, f.p1, 0, f.drows, f.ldr, tw1);
+  for (int s = 1; s < f.p1.n_stages; ++s) {
+    __syncthreads();
+    const float2* src = a;
+    cstage_any<INV, ODD>([&](int r, int i) { return src[i * f.ldr + r]; }, b, f.p1, s,
+                         f.drows, f.ldr, tw1);
+    float2* t = a;
+    a = b;
+    b = t;
+  }
+  __syncthreads();
+  return a;
+}
+
 // Output point k of the slot's transform, from the block of the cluster
-// that holds it (its second buffer w)
-__device__ __forceinline__ float2 cluster_point(float2* w, cg::cluster_group& cl,
+// that holds it (buffer w of the same offset in every block)
+__device__ __forceinline__ float2 cluster_point(const float2* w, cg::cluster_group& cl,
                                                 const Four& f, int k) {
   const int k1 = f.dn2.div(k);
   const int k2 = k - k1 * f.n2;
   const int owner = f.drows.div(k2);
   const float2* src = cl.map_shared_rank(w, owner);
-  return src[pad((k2 - owner * f.rows) * f.n1 + k1)];
+  return src[k1 * f.ldr + k2 - owner * f.rows];
 }
 
-// The slot's transform (INV: the unscaled inverse) once step 1's input
-// sits in z, columns j1 in [rank cols, (rank + 1) cols), column f at f n2:
-// every thread of the block calls it; z is synchronised by the caller.
-// Returns with the block's rows of the output in w and the cluster
-// synchronised, so that any block may read them (cluster_point).
-template <bool INV>
-__device__ __forceinline__ void cluster_fft(float2* z, float2* w, cg::cluster_group& cl,
-                                            const Four& f, int rank,
-                                            const float2* __restrict__ tw1,
-                                            const float2* __restrict__ tw2,
-                                            const float2* __restrict__ twn) {
-  const Seg sg = segment(f.p2);
-  fft_frames<INV, 15015>(z, f.n2, f.cols, tw2, sg, f.p2);
-  cl.sync();
-  exchange<INV>(w, z, cl, f, rank, twn);
-  __syncthreads();
-  fft_frames<INV, 15015>(w, f.n1, f.rows, tw1, segment(f.p1), f.p1);
-  cl.sync();
+// Clusters of c blocks of `kernel` with smem bytes of dynamic shared memory
+// that the current device holds at once, cached by kernel, size and device;
+// a negative CUDA error code if the query fails.
+template <class K>
+int active_clusters(K kernel, size_t smem, int c) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, size_t, int, int>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), smem, c, dev);
+  std::lock_guard<std::mutex> hold(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)c);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  if (n < 1) return -(int)cudaErrorInvalidConfiguration;
+  known[key] = n;
+  return n;
 }
 
-// Launch `kernel` on grid blocks of Cluster::THREADS in clusters of f.c
-// blocks with smem bytes of dynamic shared memory. Returns the launch's
-// error code.
+// Launch `kernel` as persistent clusters of f.c blocks of CLUSTER_THREADS
+// with smem bytes of dynamic shared memory over `slots` slots: the
+// clusters that fit at once, at most one a slot. The shared memory limit
+// is set at every launch: n_fft of one build take different sizes. Returns
+// the launch's error code.
 template <class K, class... A>
-int launch_clusters(K kernel, long long grid, size_t smem, cudaStream_t st, int c,
+int launch_clusters(K kernel, long long slots, size_t smem, cudaStream_t st, int c,
                     A... args) {
+  const int fit = active_clusters(kernel, smem, c);
+  if (fit < 0) return -fit;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const long long clusters = slots < fit ? slots : fit;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3(Cluster::THREADS);
+  cfg.gridDim = dim3((unsigned)(clusters * c));
+  cfg.blockDim = dim3(CLUSTER_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];

@@ -198,6 +198,34 @@ def cluster_shape(n: int):
 
 
 @functools.lru_cache(maxsize=None)
+def cluster_layout(n: int) -> tuple:
+    """(ldc, ldr, buffer) of the cluster route's blocks for n points
+    (``csrc/fft_cluster.cuh::make_four``): step 1's n2 points of each
+    column at stride ldc (the columns, n1 / c, made odd), step 4's n1
+    points of each row at stride ldr (the rows, n2 / c, made odd), and the
+    float2 values of each of a block's two buffers, the larger layout made
+    even (the second buffer starts on 16 bytes)."""
+    c, n1, n2 = cluster_shape(n)
+    ldc, ldr = (n1 // c) | 1, (n2 // c) | 1
+    size = max(n2 * ldc, n1 * ldr)
+    return ldc, ldr, size + size % 2
+
+
+def cluster_build(n: int) -> int:
+    """The odd radices the cluster route's build for n points compiles
+    (``csrc/fft_cluster.cuh::cluster_build``): n's odd primes within {3,
+    5}, 105 for any other set within 3, 5 and 7, 15015 for a set with 11
+    or 13."""
+    odd = 1
+    for p in (3, 5, 7, 11, 13):
+        if n % p == 0:
+            odd *= p
+    if odd % 11 == 0 or odd % 13 == 0:
+        return 15015
+    return 105 if odd % 7 == 0 else odd
+
+
+@functools.lru_cache(maxsize=None)
 def real_kernel(n_fft: int) -> bool:
     """Whether the real-FFT kernels serve n_fft on the FFT route: even,
     from FFT_MIN_NFFT to REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c."""
@@ -614,10 +642,23 @@ class GateGeometry:
 
     @property
     def fft_run(self) -> int:
-        """Output hop blocks of one row a block of kernel D writes (a
-        cluster of c blocks on the cluster route, a c-th of them each)."""
-        acc = FFT_ACC * (self.cluster[0] if self.route == "cluster" else 1)
-        return max(1, min(FFT_RUN, acc // self.hop))
+        """Output hop blocks of one row a block of kernel D writes on the
+        FFT and chirp routes (the cluster route has no runs:
+        ``cluster_frames``)."""
+        return max(1, min(FFT_RUN, FFT_ACC // self.hop))
+
+    def cluster_frames(self, j0: int, n_out: int) -> tuple:
+        """(t_lo, n_fr): the frames t_lo to t_lo + n_fr - 1 of each row
+        that kernel D's cluster route transforms, once each, for output
+        hop blocks [j0, j0 + n_out) (``out_blocks``): every frame that
+        overlaps them, from an even frame for an odd n_fft (two frames a
+        transform), held in a scratch of (rows, n_fr, win) float32 for its
+        overlap-add pass (``csrc/istft_cluster.cu``)."""
+        t_lo = max(0, j0 - self.r + 1)
+        if self.fft_paired:
+            t_lo -= t_lo % 2
+        t_hi = min(self.n_frames - 1, j0 + n_out - 1)
+        return t_lo, max(0, t_hi - t_lo + 1)
 
     @property
     def cluster(self) -> tuple:

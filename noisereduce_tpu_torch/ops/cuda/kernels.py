@@ -438,6 +438,21 @@ def _cluster_tables(geo: GateGeometry, device) -> tuple:
                  for m in (2 * n1, 2 * n2, geo.fft_n, geo.n_fft))
 
 
+def cluster_capacity(geo: GateGeometry, kernel: str = "spectra", dtype=torch.float32,
+                     device=None) -> int:
+    """Clusters of ``kernel``'s cluster-route build ("spectra", or
+    "istft_ola": its transform pass) for the geometry's n_fft and planes of
+    ``dtype`` that the card holds at once: the persistent grid of a launch,
+    whose clusters walk the slots past it (``csrc/fft_cluster.cuh``)."""
+    device = torch.device(device or "cuda")
+    name = {"spectra": "spectra_cluster", "istft_ola": "istft_cluster"}[kernel]
+    with torch.cuda.device(device):
+        n = getattr(build.load(), f"nr_{name}_capacity")(_PLANE_CODE[dtype], geo.n_fft)
+    if n < 1:
+        build.check(f"{name}_capacity", -n)
+    return n
+
+
 def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None,
                 src_start=0):
     """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
@@ -651,15 +666,16 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
             j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
         )
     elif route == "cluster":
-        run = geo.fft_run
-        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // run) * geo.cluster[0])
+        t_lo, n_fr = geo.cluster_frames(j0, n_out)
+        _check_size("istft_ola", rows * T * nb, rows * n_fr, rows * n_out * geo.hop)
+        frames = torch.empty((rows, n_fr, geo.win), dtype=torch.float32, device=dev)
         _launch(
             "istft_cluster", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
-            geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, run, out_off, out_len,
+            geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, out_off, out_len,
             geo.istft_len, geo.env_floor, _ptr(_device_f32("post_window", geo.scfg, dev)),
             _ptr(_device_f32("window_squares", geo.scfg, dev)),
             _ptr(_device_f32("envelope", geo.scfg, dev)), *_cluster_tables(geo, dev),
-            _ptr(out),
+            _ptr(frames), t_lo, n_fr, _ptr(out),
         )
     else:
         _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))

@@ -1120,6 +1120,63 @@ def test_bf16_long_frame_routes_match_plain_versions(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", ["nfft40000", "nfft19683"])
+def test_cluster_walk_wraps_past_the_clusters_that_fit(cuda, name, dtype):
+    """More slots than the cluster route's persistent grid holds (the
+    clusters that fit on the card at once, ``K.cluster_capacity``), so
+    every cluster walks several slots: A's slots and D's frames, 40000 (4
+    blocks) and odd 19683 (3 blocks, two frames a slot), each within its
+    bound of the plain version (bf16: one bf16 ulp more) and bitwise from
+    call to call."""
+    kw, _ = LONG_GEOMS[name]
+    n = kw["n_fft"]
+    view = 5 * n
+    geo = gate_geometry(StftConfig(**kw), view)
+    fps = 2 if geo.fft_paired else 1
+    slots = -(-geo.n_frames // fps)
+    fit = max(K.cluster_capacity(geo, k, dtype) for k in ("spectra", "istft_ola"))
+    rows = 2 * fit // slots + 2
+    assert rows * slots > 2 * fit
+    x = torch.as_tensor(np.random.default_rng(32).standard_normal((rows, view)), dtype=dtype,
+                        device=cuda)
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo)
+    rre, rim = K.spectra_ref(x, geo)
+    mask = torch.as_tensor(np.random.default_rng(33).random(re.shape), dtype=torch.float32,
+                           device=cuda)
+    out = K.istft_ola(re, im, mask, geo, 0, view)
+    ref = K.istft_ola_ref(re, im, mask, geo, 0, view)
+    if dtype == BF16:
+        _hold_bf16(re, rre, 2e-5)
+        _hold_bf16(im, rim, 2e-5)
+        _hold_bf16(out, ref, 2e-5)
+    else:
+        assert _max(re - rre) <= 2e-5 * _max(rre) and _max(im - rim) <= 2e-5 * _max(rre)
+        assert _max(out - ref) <= 2e-5 * _max(ref)
+    assert K.route_counts() == _routes("cluster")
+    assert torch.equal(K.spectra(x, geo)[1], im)
+    assert torch.equal(K.istft_ola(re, im, mask, geo, 0, view), out)
+
+
+@pytest.mark.gpu
+def test_cluster_build_takes_each_n_fft_shared_memory(cuda):
+    """62500 and 40000 share a build of the cluster route (radices 2 and
+    5) with different shared memory a block (6,376 and 5,100 points a
+    buffer): launched in turns, larger, smaller, larger, each launch still
+    runs and holds its plain version."""
+    for name in ("nfft62500", "nfft40000", "nfft62500", "nfft40000"):
+        geo, x, cs, pad = _long_case(name, "scipy", cuda)
+        re, im = K.spectra(x, geo, cs, pad)
+        rre, rim = K.spectra_ref(x, geo, cs, pad)
+        assert _max(re - rre) <= 2e-5 * _max(rre) and _max(im - rim) <= 2e-5 * _max(rre)
+        mask = torch.ones_like(re)
+        out = K.istft_ola(re, im, mask, geo, pad, cs)
+        ref = K.istft_ola_ref(re, im, mask, geo, pad, cs)
+        assert _max(out - ref) <= 2e-5 * _max(ref)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kw", [{}, dict(stationary=True), dict(use_torch=True)],
                          ids=["nonstationary", "stationary", "use_torch"])
 def test_long_frame_reduce_noise_on_card(cuda, kw):

@@ -33,7 +33,10 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_WARP_POINTS,
     FFT_WARPS,
     CLUSTER_MAX,
+    SMEM_MAX,
     chirp_length,
+    cluster_build,
+    cluster_layout,
     cluster_shape,
     fft_route,
     gate_geometry,
@@ -924,165 +927,307 @@ def test_route_counts_stay_zero_on_cpu():
 
 # ---------------------------------------------------------------------------
 # the cluster route (csrc/fft_cluster.cuh, spectra_cluster.cu,
-# istft_cluster.cu) as its blocks compute it, in float64 numpy
+# istft_cluster.cu) as its blocks compute it, in float64 numpy: each index
+# function of the sources has its twin here
 # ---------------------------------------------------------------------------
-def _cluster_transform(points, geo, inverse):
-    """fft_cluster.cuh::cluster_fft on one slot: ``points`` (n,) complex in
-    natural order. Block q's first buffer holds columns j1 in [q cols, (q +
-    1) cols), column f at f n2 (Div by n2), each the n2-point Stockham FFT
-    of x[j1 + n1 j2]; the exchange gives block q row r = k2 - q rows of
-    every column (Div by rows, then by cols: the column's block), times
-    w_n^{j1 k2} (conjugated for the inverse); the n1-point FFTs of the
-    rows. Returns ``at(k)``: output point k from the block that holds it
-    (cluster_point). Asserts that step 1 gathers every point once and the
-    exchange every (j1, k2) once."""
+OLA_THREADS = 256  # istft_cluster.cu: threads of an overlap-add block
+
+
+def _cluster_walk(total, clusters, c):
+    """The persistent grid (``launch_clusters``): clusters x c blocks,
+    block x of cluster x // c and rank x mod c; cluster i walks slots i, i
+    + clusters, ...: per block, (rank, slots)."""
+    out = []
+    for x in range(clusters * c):
+        cid, rank = divmod(x, c)
+        out.append((rank, list(range(cid, total, clusters))))
+    return out
+
+
+def _cstage(load, dst, radices, s, m, nb, ld, tw, inverse):
+    """fft_cluster.cuh::cstage: stage s of an m-point FFT over nb batches
+    interleaved at stride ld, out of place. Butterfly idx = j nb + b (Div
+    by nb) loads load(b, j + r m/R), twiddles by tw[jm r tstep] (jm = j
+    mod ns through Div; conjugated for the inverse), takes the R-point DFT
+    and stores at ((j - jm) R + jm + r ns) ld + b. Asserts that the stage
+    writes each (batch, point) of the layout once."""
+    R = radices[s]
+    ns = int(np.prod(radices[:s], dtype=np.int64))
+    mr, tstep = m // R, 2 * (m // (ns * R))
+    idx = np.arange(nb * mr)
+    j = _div(idx, nb)
+    b = idx - j * nb
+    v = np.stack([load(b, j + r * mr) for r in range(R)], axis=-1)
+    jm = j - _div(j, ns) * ns
+    w = tw[jm[:, None] * np.arange(R)[None, :] * tstep]
+    v = _dft_r(v * (np.conj(w) if inverse else w), inverse)
+    d = (j - jm) * R + jm
+    at = np.concatenate([(d + r * ns) * ld + b for r in range(R)])
+    want = (np.arange(m)[:, None] * ld + np.arange(nb)[None, :]).ravel()
+    assert np.array_equal(np.sort(at), np.sort(want))
+    for r in range(R):
+        dst[(d + r * ns) * ld + b] = v[:, r]
+
+
+def _cluster_transform(gather, geo, inverse):
+    """fft_cluster.cuh::cluster_fft on one slot; ``gather(q, col, j2)``
+    gives block q's step-1 point j2 of column col (arrays). Each block's
+    two buffers start as NaN (a read of a value no stage wrote shows); step
+    1's stages alternate between them, n2 points of each column at stride
+    ldc; the pull copies rows [q rows, (q + 1) rows) of every block's last
+    buffer, one contiguous run of rows ldc values each (float4s where that
+    is even); step 4's first stage reads row r = k2 - q rows of column j1
+    from the run of block j1 / cols, times w_n^{j1 k2}; its stages
+    alternate at stride ldr. Returns (each block's output buffer, ``at(k)``: output
+    point k from the block that holds it, cluster_point)."""
     c, n1, n2 = geo.cluster
     n = geo.fft_n
     cols, rows = n1 // c, n2 // c
+    ldc, ldr, size = cluster_layout(n)
     tw1, tw2, twn = _twiddles(2 * n1), _twiddles(2 * n2), _twiddles(n)
-    zs, gathered = [], []
-    for q in range(c):
-        e = np.arange(cols * n2)
-        col = _div(e, n2)
-        j = q * cols + col + n1 * (e - col * n2)
-        gathered.append(j)
-        zs.append(_stockham(points[j].reshape(cols, n2), tw2, inverse))
-    assert np.array_equal(np.sort(np.concatenate(gathered)), np.arange(n))
-    Z = np.stack(zs)  # (c, cols, n2)
-    ws, moved = [], []
-    for q in range(c):
-        e = np.arange(rows * n1)
-        j1 = _div(e, rows)
-        r = e - j1 * rows
-        k2 = q * rows + r
-        owner = _div(j1, cols)
-        t = twn[j1 * k2]
-        w = np.zeros((rows, n1), complex)
-        w[r, j1] = Z[owner, j1 - owner * cols, k2] * (np.conj(t) if inverse else t)
-        moved.append(j1 * n2 + k2)
-        ws.append(_stockham(w, tw1, inverse))
-    assert np.array_equal(np.sort(np.concatenate(moved)), np.arange(n))
-    W = np.stack(ws)  # (c, rows, n1)
+    rad1, rad2 = _radices(n1), _radices(n2)
 
-    def at(k):
+    def fft(first, radices, m, nb, ld, tw):
+        a, b = np.full(size, np.nan, complex), np.full(size, np.nan, complex)
+        _cstage(first, a, radices, 0, m, nb, ld, tw, inverse)
+        for s in range(1, len(radices)):
+            src = a
+            _cstage(lambda bb, i: src[i * ld + bb], b, radices, s, m, nb, ld, tw, inverse)
+            a, b = b, a
+        return a
+
+    held = np.stack([fft(lambda col, j2, q=q: gather(q, col, j2), rad2, n2, cols, ldc, tw2)
+                     for q in range(c)])
+
+    run = rows * ldc  # a block's rows of one block's step-1 buffer
+    wide = run % 2 == 0
+
+    def exchange(q):
+        # the pull: value e (a float2, or a float4 of two where run is even)
+        # of block o = e / run' from o's buffer at q run' + e - o run'
+        v = run // 2 if wide else run
+        e = np.arange(c * v)
+        o = _div(e, v)
+        width = 2 if wide else 1
+        at = ((q * v + e - o * v)[:, None] * width + np.arange(width)[None, :]).ravel()
+        pulled = held[np.repeat(o, width), at]
+        assert np.array_equal(at.reshape(c, -1),
+                              np.tile(np.arange(q * run, (q + 1) * run), (c, 1)))
+
+        def load(r, j1):
+            owner = _div(j1, cols)
+            t = twn[j1 * (q * rows + r)]
+            return pulled[owner * run + r * ldc + j1 - owner * cols] * (
+                np.conj(t) if inverse else t)
+        return load
+
+    out = np.stack([fft(exchange(q), rad1, n1, rows, ldr, tw1) for q in range(c)])
+
+    def at(k):  # cluster_point
         k1 = _div(k, n2)
         k2 = k - k1 * n2
         owner = _div(k2, rows)
-        return W[owner, k2 - owner * rows, k1]
+        return out[owner, k1 * ldr + k2 - owner * rows]
 
-    return at
+    return out, at
 
 
-def _cluster_bins(geo):
-    """spectra_cluster.cu's unpack order: per block q, e < rows n1, k1 = e /
-    rows, k = q rows + e mod rows + n2 k1; every point of the slot once."""
+def _block_points(geo, q):
+    """(k1, r, k) of block q's output points, e = k1 rows + r (Div by
+    rows): k = q rows + r + n2 k1, consecutive threads on consecutive k2
+    (the unpack of spectra_cluster.cu, the scratch writes of
+    istft_cluster.cu)."""
     c, n1, n2 = geo.cluster
     rows = n2 // c
-    ks = []
-    for q in range(c):
-        e = np.arange(rows * n1)
-        k1 = _div(e, rows)
-        ks.append(q * rows + (e - k1 * rows) + n2 * k1)
-    k = np.concatenate(ks)
-    assert np.array_equal(np.sort(k), np.arange(geo.fft_n))
-    return k
+    e = np.arange(rows * n1)
+    k1 = _div(e, rows)
+    r = e - k1 * rows
+    return k1, r, q * rows + r + n2 * k1
 
 
-def _emulate_spectra_cluster(x, geo, cs=0, pad=0):
-    """csrc/spectra_cluster.cu: per view and slot (a frame; a frame pair
-    2s, 2s + 1 for an odd n_fft, zero past the last), each block's points
-    gathered from the zero-filled signal (z[q] = u[2q] + i u[2q+1], or u_a
-    + i u_b), the cluster's transform, and per bin k its partner n - k
-    from the block that holds it: the split, and the Nyquist bin from k =
-    0 (even n_fft), or the pair's two frames (odd)."""
+def _step1_points(geo, q, col, j2):
+    """Block q's step-1 point (col, j2): j = q cols + col + n1 j2."""
+    c, n1, _ = geo.cluster
+    return q * (n1 // c) + col + n1 * j2
+
+
+def _emulate_spectra_cluster(x, geo, cs=0, pad=0, clusters=3):
+    """csrc/spectra_cluster.cu: ``clusters`` persistent clusters walk the
+    slots (a frame; a frame pair 2s, 2s + 1 for an odd n_fft, zero past
+    the last); each block's first stage gathers its points from the
+    zero-filled signal (z[q] = u[2q] + i u[2q+1], or u_a + i u_b), the
+    cluster's transform, and per bin k of its rows its partner n - k from
+    the block that holds it: the split, and the Nyquist bin from k = 0
+    (even n_fft), or the pair's two frames (odd). Asserts that the walk
+    takes every slot once and the blocks' bins cover the slot once."""
     N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    c = geo.cluster[0]
+    ldr = cluster_layout(n)[1]
     tws = _twiddles(N)
     rows, src = x.shape
     k_chunks = n_chunks_for(src, cs) if cs else 1
     stride, start = (cs, -pad) if cs else (0, 0)
     T, hop, win = geo.n_frames, geo.hop, geo.win
     ws = K._scaled_window_np(geo.scfg)
-    re = np.zeros((rows * k_chunks, T, nb))
-    im = np.zeros_like(re)
-    k = _cluster_bins(geo)
-    for b in range(rows * k_chunks):
-        h, c = divmod(b, k_chunks)
-        u = np.zeros((T + 1, N))
-        for t in range(T):
+    n_slots = -(-T // 2) if paired else T
+    total = rows * k_chunks * n_slots
+    re = np.full((rows * k_chunks, T, nb), np.nan)
+    im = np.full_like(re, np.nan)
+    walk = [w for rank, w in _cluster_walk(total, clusters, c) if rank == 0]
+    assert sorted(sum(walk, [])) == list(range(total))
+    for slot in sum(walk, []):
+        b, s = divmod(slot, n_slots)
+        h, ch = divmod(b, k_chunks)
+        fa = 2 * s if paired else s
+        u = np.zeros((2, N))
+        for i in range(2 if paired else 1):
+            t = fa + i
+            if t >= T:
+                continue
             p = t * hop - geo.bpad + np.arange(win)
-            s_ = c * stride + start + p
+            s_ = ch * stride + start + p
             ok = (p >= 0) & (p < geo.view_len) & (s_ >= 0) & (s_ < src)
-            u[t, :win] = ws * np.where(ok, x[h, np.clip(s_, 0, src - 1)], 0.0)
-        for fa in range(0, T, 2 if paired else 1):
-            pts = u[fa] + 1j * u[fa + 1] if paired else u[fa, 0::2] + 1j * u[fa, 1::2]
-            at = _cluster_transform(pts, geo, False)
-            zk, zm = at(k), at(np.where(k > 0, n - k, 0))
-            if paired:
-                keep = k < nb
-                xa = 0.5 * (zk + np.conj(zm))
-                xb = -0.5j * (zk - np.conj(zm))
-                re[b, fa, k[keep]], im[b, fa, k[keep]] = xa.real[keep], xa.imag[keep]
-                if fa + 1 < T:
-                    re[b, fa + 1, k[keep]], im[b, fa + 1, k[keep]] = xb.real[keep], xb.imag[keep]
-            else:
-                lo, hi = _split(zk, zm, tws[k])
-                re[b, fa, k], im[b, fa, k] = lo.real, lo.imag
-                nyq = hi[k == 0][0]
-                re[b, fa, n], im[b, fa, n] = nyq.real, nyq.imag
+            u[i, :win] = ws * np.where(ok, x[h, np.clip(s_, 0, src - 1)], 0.0)
+        pts = u[0] + 1j * u[1] if paired else u[0, 0::2] + 1j * u[0, 1::2]
+        gathered = []
+
+        def gather(q, col, j2):
+            j = _step1_points(geo, q, col, j2)
+            gathered.append(j)
+            return pts[j]
+
+        out, at = _cluster_transform(gather, geo, False)
+        assert np.array_equal(np.sort(np.concatenate(gathered)), np.arange(n))
+        zk, ks = [], []
+        for q in range(c):  # block q's bins, in its own buffer
+            k1, rr, k = _block_points(geo, q)
+            zk.append(out[q, k1 * ldr + rr])
+            ks.append(k)
+        k, zk = np.concatenate(ks), np.concatenate(zk)
+        assert np.array_equal(np.sort(k), np.arange(n))
+        zm = at(np.where(k > 0, n - k, 0))  # the partner from the block that holds it
+        if paired:
+            keep = k < nb
+            xa = 0.5 * (zk + np.conj(zm))
+            xb = -0.5j * (zk - np.conj(zm))
+            re[b, fa, k[keep]], im[b, fa, k[keep]] = xa.real[keep], xa.imag[keep]
+            if fa + 1 < T:
+                re[b, fa + 1, k[keep]], im[b, fa + 1, k[keep]] = xb.real[keep], xb.imag[keep]
+        else:
+            lo, hi = _split(zk, zm, tws[k])
+            re[b, fa, k], im[b, fa, k] = lo.real, lo.imag
+            nyq = hi[k == 0][0]
+            re[b, fa, n], im[b, fa, n] = nyq.real, nyq.imag
+    assert not np.isnan(re).any() and not np.isnan(im).any()
     return re, im
 
 
-def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, run=None):
-    """csrc/istft_cluster.cu: the runs of _ola (one slot a group), each
-    slot's points gathered per point from the masked planes (even n_fft:
-    unsplit(Y[j], Y[n - j], Y[n] for j = 0; odd: W[j] = Y_a[j] + i Y_b[j]
-    below n_bins, conj Y_a[n-j] + i conj Y_b[n-j] above), the cluster's
-    unscaled inverse, and each sample read from the block that holds its
-    point. Asserts that the blocks' shares of a run cover it once."""
+def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, clusters=3):
+    """csrc/istft_cluster.cu in its two passes. 1: ``clusters`` persistent
+    clusters walk the slots of frames t_lo to t_lo + n_fr - 1 of each row
+    (``cluster_frames``), each block's first stage gathering its points
+    from the masked planes (even n_fft: unsplit(Y[j], Y[n - j], Y[n] for j
+    = 0); odd: W[j] = Y_a[j] + i Y_b[j] below n_bins, conj Y_a[n-j] + i
+    conj Y_b[n-j] above), the cluster's unscaled inverse, and each block's
+    output points written to the (rows, n_fr, win) scratch. 2: a thread a
+    sample l of a row's n_out hop blocks (blocks of OLA_THREADS, per_row a
+    row), its frames' post[u] y_t[u] in ascending t from the scratch, the
+    envelope (the host table where all r frames exist, else summed) and the
+    trim. Asserts that pass 1 writes every scratch value once and pass 2
+    every output sample once."""
     N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
-    tws = _twiddles(N)
     c = geo.cluster[0]
-    k = np.arange(nb)
-    j = np.arange(n)
-    run = run or geo.fft_run
-    for n_acc in {run * geo.hop, geo.hop}:
-        share = -(-n_acc // c)
-        got = np.concatenate([np.arange(min(n_acc, q * share), min(n_acc, q * share + share))
-                              for q in range(c)])
-        assert np.array_equal(got, np.arange(n_acc))
+    tws = _twiddles(N)
+    B, T, _ = re.shape
+    hop, r, win = geo.hop, geo.r, geo.win
+    fps = 2 if paired else 1
+    j0, n_out = geo.out_blocks(out_off, out_len)
+    t_lo, n_fr = geo.cluster_frames(j0, n_out)
+    row_slots = -(-n_fr // fps)
+    total = B * row_slots
+    kk = np.arange(nb)
+    y = np.full((B, n_fr, win), np.nan)
+    written = np.zeros(y.shape, int)
 
     def spectrum(b, t):  # Y = Z * mask, no imaginary DC or Nyquist part
-        if t >= re.shape[1]:
+        if t >= T:
             return np.zeros(nb, complex)
-        return (re[b, t] + 1j * im[b, t] * ((k > 0) & (k < N / 2))) * mask[b, t]
+        return (re[b, t] + 1j * im[b, t] * ((kk > 0) & (kk < N / 2))) * mask[b, t]
 
-    def invert(b, tg, ge):
-        y = np.zeros((ge, N))
-        ya = spectrum(b, tg)
-        if paired:
-            yb = spectrum(b, tg + 1)
-            jm = np.where(j < nb, j, n - j)
-            w = np.where(j < nb, ya[jm] + 1j * yb[jm], np.conj(ya[jm]) + 1j * np.conj(yb[jm]))
-        else:
-            w = _unsplit(ya[j], np.where(j == 0, ya[n], ya[(n - j) % n]), tws[j])[0]
-        at = _cluster_transform(w, geo, True)
-        pts = at(j)
-        if paired:
-            y[0, :n] = pts.real
-            if ge > 1:
-                y[1, :n] = pts.imag
-        else:
-            y[0, 0::2], y[0, 1::2] = pts.real, pts.imag
-        return y
+    walk = [w for rank, w in _cluster_walk(total, clusters, c) if rank == 0]
+    assert sorted(sum(walk, [])) == list(range(total))
+    for slot in sum(walk, []):
+        b, si = divmod(slot, row_slots)
+        ta = t_lo + si * fps
+        ya, yb = spectrum(b, ta), spectrum(b, ta + 1)
 
-    return _ola(re, im, mask, geo, out_off, out_len, run, invert)
+        def gather(q, col, j2):
+            j = _step1_points(geo, q, col, j2)
+            if paired:
+                jm = np.where(j < nb, j, n - j)
+                return np.where(j < nb, ya[jm] + 1j * yb[jm],
+                                np.conj(ya[jm]) + 1j * np.conj(yb[jm]))
+            return _unsplit(ya[j], np.where(j == 0, ya[n], ya[(n - j) % n]), tws[j])[0]
+
+        out, _ = _cluster_transform(gather, geo, True)
+        for q in range(c):
+            k1, rr, k = _block_points(geo, q)
+            pt = out[q, k1 * cluster_layout(n)[1] + rr]
+            i = ta - t_lo
+            if paired:
+                keep = k < win
+                y[b, i, k[keep]] = pt.real[keep]
+                written[b, i, k[keep]] += 1
+                if ta + 1 < T and i + 1 < n_fr:
+                    y[b, i + 1, k[keep]] = pt.imag[keep]
+                    written[b, i + 1, k[keep]] += 1
+            else:
+                for u, v in ((2 * k, pt.real), (2 * k + 1, pt.imag)):
+                    keep = u < win
+                    y[b, i, u[keep]] = v[keep]
+                    written[b, i, u[keep]] += 1
+    assert (written == 1).all()
+
+    post = K._post_window_np(geo.scfg)
+    wsq, env_int = K._window_squares_np(geo.scfg), K._interior_envelope_np(geo.scfg)
+    out = np.full((B, out_len), np.nan)
+    per_row = -(-n_out * hop // OLA_THREADS)
+    for blk in range(B * per_row):
+        b = blk // per_row
+        l = (blk - b * per_row) * OLA_THREADS + np.arange(OLA_THREADS)
+        l = l[l < n_out * hop]
+        jb = l // hop
+        q = l - jb * hop
+        jj = j0 + jb
+        s_ = jj * hop + q - geo.bpad
+        o = s_ - out_off
+        keep = (o >= 0) & (o < out_len)
+        l, q, jj, s_, o = l[keep], q[keep], jj[keep], s_[keep], o[keep]
+        acc = np.zeros(len(l))
+        for i in range(r):  # t = jj - r + 1 + i: ascending
+            t = jj - r + 1 + i
+            ok = (t >= 0) & (t < T)
+            u = (jj - t) * hop + q
+            acc += np.where(ok, post[u] * y[b, np.clip(t - t_lo, 0, max(n_fr - 1, 0)), u]
+                            if n_fr else 0.0, 0.0)
+        env = np.zeros(len(l), wsq.dtype)  # ascending t, in the table's dtype
+        for i in reversed(range(r)):
+            env += ((jj - i >= 0) & (jj - i < T)) * wsq[i * hop + q]
+        env = np.where((jj - r + 1 >= 0) & (jj < T), env_int[q], env)
+        yy = np.where(s_ < geo.istft_len, acc / np.where(env > geo.env_floor, env, 1.0), 0.0)
+        assert np.isnan(out[b, o]).all()
+        out[b, o] = yy
+    assert not np.isnan(out).any()
+    return out
 
 
 @pytest.mark.parametrize("kw", CLUSTER_GEOMS.values(), ids=CLUSTER_GEOMS.keys())
 def test_cluster_shapes(kw):
     """c blocks, n = n1 n2 with c dividing both, n / c points a block at
     most a big block's, c the fewest that hold n so, n1 the largest factor
-    <= n2; a slot a group."""
+    <= n2; a slot a group. Kernel D has no runs on this route: it
+    transforms the frames that overlap the output's hop blocks once each,
+    from an even frame for an odd n_fft (``cluster_frames``)."""
     geo = gate_geometry(StftConfig(**kw), 3 * kw["n_fft"])
     c, n1, n2 = geo.cluster
     n = geo.fft_n
@@ -1090,7 +1235,59 @@ def test_cluster_shapes(kw):
     assert n // c <= FFT_BIG_ELEMS and n > FFT_BIG_ELEMS and 2 <= c <= CLUSTER_MAX
     assert all(n % (d * d) or n // d > FFT_BIG_ELEMS for d in range(2, c))
     assert n1 <= n2 and geo.fft_layout()[2] == (2 if geo.fft_paired else 1)
-    assert geo.fft_run >= 1 and (geo.fft_run == 1 or geo.fft_run * geo.hop <= c * FFT_ACC)
+    T, r = geo.n_frames, geo.r
+    for out_off, out_len in ((0, geo.view_len), (geo.hop * 3 + 5, 2 * geo.hop), (0, 1)):
+        j0, n_out = geo.out_blocks(out_off, out_len)
+        t_lo, n_fr = geo.cluster_frames(j0, n_out)
+        need = {t for jj in range(j0, j0 + n_out) for t in range(jj - r + 1, jj + 1)
+                if 0 <= t < T}
+        assert set(range(t_lo, t_lo + n_fr)) >= need and t_lo + n_fr - 1 == max(need)
+        assert t_lo == (min(need) & ~1 if geo.fft_paired else min(need))
+
+
+def test_cluster_buffers_fit_shared_memory():
+    """Every cluster shape's two buffers, step 1's n2 x ldc and step 4's
+    n1 x ldr with odd leading dimensions, the larger made even, fit a
+    block's shared memory; and the builds: n's odd primes within {3, 5},
+    105 within 3, 5 and 7, 15015 with 11 or 13, each compiling every radix
+    of n1 and n2."""
+    for n in range(FFT_BIG_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1):
+        shape = cluster_shape(n)
+        if not shape or fft_route(StftConfig(n_fft=2 * n)) != "cluster":
+            continue
+        c, n1, n2 = shape
+        ldc, ldr, size = cluster_layout(n)
+        assert ldc % 2 == ldr % 2 == 1 and n1 // c <= ldc <= n1 // c + 1
+        assert 2 * size * 8 <= SMEM_MAX, n
+        odd = cluster_build(n)
+        assert all(odd % R == 0 for R in _radices(n1) + _radices(n2) if R % 2)
+
+    assert [cluster_build(n) for n in (20000, 16384, 19683, 31250, 7 * 4096, 11 * 2048)] == [
+        5, 1, 3, 5, 105, 15015]
+
+
+@pytest.mark.parametrize("c", [2, 3, 4, 5])
+@pytest.mark.parametrize("clusters,total", [(1, 7), (4, 4), (6, 41), (64, 41), (33, 5159)])
+def test_persistent_walk_covers_every_slot_once(c, clusters, total):
+    """The persistent grid: every slot is taken by exactly one cluster, by
+    each of its c blocks once (the grid holds min(slots, clusters that
+    fit) clusters); D's overlap-add pass writes every sample of every
+    output hop block once, whatever the row count."""
+    grid = min(total, clusters)
+    seen = {}
+    for rank, slots in _cluster_walk(total, grid, c):
+        for s in slots:
+            seen.setdefault(s, []).append(rank)
+    assert sorted(seen) == list(range(total))
+    assert all(sorted(v) == list(range(c)) for v in seen.values())
+    hop, n_out, rows = 1000 * c + 7, total % 9 + 1, clusters % 3 + 1
+    per_row = -(-n_out * hop // OLA_THREADS)
+    got = np.zeros((rows, n_out * hop), int)
+    for blk in range(rows * per_row):
+        b = blk // per_row
+        l = (blk - b * per_row) * OLA_THREADS + np.arange(OLA_THREADS)
+        np.add.at(got[b], l[l < n_out * hop], 1)
+    assert (got == 1).all()
 
 
 @pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])

@@ -13,7 +13,14 @@ time also by ``queued_ms``, and on a product route the first call's host
 table build timed on its own line (at n_fft 40000 the product route is
 not timed: its tables take minutes); and A alone on the 10 s noise
 row of ``chip_smoke.py`` (n_fft 1024, unchunked: the stationary paths'
-threshold spectra, TPU row 3). Two times per kernel: CUDA
+threshold spectra, TPU row 3). The cluster route also at n_fft 32768 /
+hop 8192 (two blocks) and 19683 / hop 6561 at 44.1 kHz (odd, three
+blocks), each one view of 400,000 samples, and n_fft 40000 / hop 10000
+over all 960 s chunked as ``reduce_noise`` chunks (77 views; the
+throughput case, named ``40000@960``). Every long cell prints A's and D's
+bytes bound: the signal read once and the planes written once (A), the
+planes and the mask read once and the output written once (D), over the
+card's 3.35 TB/s. Two times per kernel: CUDA
 events around one call, the minimum of ``--reps`` runs after a warm-up (the
 host's launch work included, as ``chip_smoke.py`` times), and the device
 time of the kernel alone, the mean over ``--reps`` calls in a
@@ -30,6 +37,7 @@ took.
 
     python3 tools/fft_route_timing.py [--reps 10] [--cells 1024,1536] [--library] [--product]
     python3 tools/fft_route_timing.py --cells 16384,40000 --library   # the long frames
+    python3 tools/fft_route_timing.py --cells 40000,40000@960,32768,19683 --library  # cluster route
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -63,11 +71,16 @@ CELLS = (  # name, n_fft, hop, seconds (or samples), sample rate
     ("n_fft 441, 44.1 kHz, 60 s", 441, 147, 60, 44100),
     ("n_fft 1102, 44.1 kHz, 60 s", 1102, 551, 60, 44100),
 )
-# one unchunked view each, timed only when --cells names them: name, n_fft,
-# hop, samples, sample rate
+# timed only when --cells names them by key: key, name, n_fft, hop,
+# samples, sample rate, chunked (as reduce_noise chunks: CHUNK / PADDING)
+# or one unchunked view
 LONG_CELLS = (
-    ("n_fft 16384, 60 s, one view", 16384, 4096, 60 * 48000, 48000),
-    ("n_fft 40000, 400,000 samples, one view", 40000, 10000, 400000, 48000),
+    ("16384", "n_fft 16384, 60 s, one view", 16384, 4096, 60 * 48000, 48000, False),
+    ("40000", "n_fft 40000, 400,000 samples, one view", 40000, 10000, 400000, 48000, False),
+    ("40000@960", "n_fft 40000, 960 s, 77 views", 40000, 10000, 960 * 48000, 48000, True),
+    ("32768", "n_fft 32768, 400,000 samples, one view", 32768, 8192, 400000, 48000, False),
+    ("19683", "n_fft 19683, 44.1 kHz, 400,000 samples, one view", 19683, 6561, 400000,
+     44100, False),
 )
 # n_fft past which the product route's first call waits for tables too long
 # to time here
@@ -118,22 +131,26 @@ def table_build_s(K, scfg) -> dict:
     return out
 
 
-def long_cell(cs, K, times, signals, n_fft, hop, n, sr, args) -> dict:
-    """A and D on one unchunked view of ``n`` samples of the headline
-    signal at ``sr`` (its own route, the device time also by
-    ``queued_ms``; ``torch.stft`` / ``torch.istft`` with ``--library``),
-    and kernel C's plan for its line at the default 500 Hz of frequency
-    smoothing (timed where there is one). A product route past
+def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
+    """A and D on ``n`` samples of the headline signal at ``sr``, one
+    unchunked view or (``chunked``) the views of ``reduce_noise``'s chunks
+    (its own route, the device time also by ``queued_ms``; ``torch.stft`` /
+    ``torch.istft`` with ``--library``, on the same views), their bytes
+    bounds, and kernel C's plan for its line at the default 500 Hz of
+    frequency smoothing (timed where there is one). A product route past
     ``UNTIMED_PRODUCT_NFFT`` is recorded, not timed."""
     from noisereduce_tpu_torch.config import GateConfig, StftConfig
     from noisereduce_tpu_torch.ops.cuda import geometry as G
     from noisereduce_tpu_torch.ops.dsp import tri_norm
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
-    if sr not in signals:
+    if sr not in signals or signals[sr].shape[-1] < n:
         signals[sr] = torch.as_tensor(cs.headline_signal(-(-n // sr), sr)).cuda()
     xs = signals[sr][None, :n].contiguous()
     scfg = StftConfig(n_fft=n_fft, hop_length=hop)
-    g = G.gate_geometry(scfg, n)
+    cut = (cs.CHUNK, cs.PADDING) if chunked else (0, 0)
+    g = G.gate_geometry(scfg, cut[0] + 2 * cut[1] if chunked else n)
+    win = (cut[1], cut[0]) if chunked else (0, n)  # D's trimmed output window
     cell = dict(route=g.route, frames=g.n_frames, bins=g.n_bins)
     taps = tri_norm(GateConfig(sr=sr, n_fft=n_fft, hop_length=hop,
                                time_mask_smooth_ms=500).smoothing[0])
@@ -151,35 +168,44 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, args) -> dict:
         if n_fft > UNTIMED_PRODUCT_NFFT:
             return cell
     K.reset_launch_counts()
-    re, im = K.spectra(xs, g)
+    a = (xs, g, *cut)
+    re, im = K.spectra(*a)
     mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
                       device=re.device)
-    d = (re, im, mask, g, 0, n)
+    d = (re, im, mask, g, *win)
     K.istft_ola(*d)
     torch.cuda.synchronize()
+    cell["views"] = re.shape[0]
     cell["routes"] = {k: max(v, key=v.get) for k, v in K.route_counts().items()}
-    cell.update(times("spectra", lambda: K.spectra(xs, g)))
+    planes = re.numel() * re.element_size()
+    cell["spectra_bound_ms"] = (n * xs.element_size() + 2 * planes) / cs.HBM_BYTES_PER_S * 1e3
+    cell["istft_ola_bound_ms"] = (2 * planes + mask.numel() * 4
+                                  + re.shape[0] * win[1] * 4) / cs.HBM_BYTES_PER_S * 1e3
+    cell.update(times("spectra", lambda: K.spectra(*a)))
     cell.update(times("istft_ola", lambda: K.istft_ola(*d)))
-    cell["spectra_queued_ms"] = cs.queued_ms(lambda: K.spectra(xs, g))
+    cell["spectra_queued_ms"] = cs.queued_ms(lambda: K.spectra(*a))
     cell["istft_ola_queued_ms"] = cs.queued_ms(lambda: K.istft_ola(*d))
     if args.library:
+        views = (extract_chunks(xs, *cut).reshape(-1, g.view_len).contiguous() if chunked
+                 else xs)
         window = torch.hann_window(g.win, periodic=True, device=xs.device)
         zm = torch.complex(re * mask, im * mask).transpose(1, 2).contiguous()
-        stft = lambda: torch.stft(xs, g.n_fft, g.hop, g.win, window, center=True,  # noqa: E731
-                                  pad_mode="constant", return_complex=True)
+        stft = lambda: torch.stft(views, g.n_fft, g.hop, g.win, window,  # noqa: E731
+                                  center=True, pad_mode="constant", return_complex=True)
         istft = lambda: torch.istft(zm, g.n_fft, g.hop, g.win, window,  # noqa: E731
-                                    center=True, length=n)
+                                    center=True, length=g.view_len)
         cell.update(times("torch_stft", stft))
         cell.update(times("torch_istft", istft))
         cell["torch_stft_queued_ms"] = cs.queued_ms(stft)
         cell["torch_istft_queued_ms"] = cs.queued_ms(istft)
-        del zm
-    if isinstance(cell["c_plan"], dict):
+        del zm, views
+    if isinstance(cell["c_plan"], dict) and not chunked:
         m = mask[0].contiguous()
         cell.update(times("freq_smooth_blend", lambda: K.freq_smooth_blend(m, taps, 1.0)))
         cell["freq_smooth_blend_queued_ms"] = cs.queued_ms(
             lambda: K.freq_smooth_blend(m, taps, 1.0))
-    print(f"{n_fft}: {json.dumps(cell)}", flush=True)
+    print(f"{n_fft}{' chunked' if chunked else ''}: {json.dumps(cell)}", flush=True)
+    del re, im, mask, d
     return cell
 
 
@@ -193,7 +219,7 @@ def main() -> None:
     ap.add_argument("--product", action="store_true",
                     help="also time A's and D's product route at each cell's shapes")
     args = ap.parse_args()
-    wanted = {int(v) for v in args.cells.split(",") if v}
+    wanted = {v for v in args.cells.split(",") if v}
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import noisereduce_tpu_torch
@@ -233,7 +259,7 @@ def main() -> None:
     signals = {SR: torch.as_tensor(headline_signal(960)).cuda()}
     out = {"package": str(pathlib.Path(noisereduce_tpu_torch.__file__).parent), "cells": {}}
     for name, n_fft, hop, secs, sr in CELLS:
-        if wanted and n_fft not in wanted:
+        if wanted and str(n_fft) not in wanted:
             continue
         if sr not in signals:
             signals[sr] = torch.as_tensor(headline_signal(secs, sr)).cuda()
@@ -276,11 +302,12 @@ def main() -> None:
                     cell.update(times("istft_ola_product", lambda: K._istft_ola_on("product", *d)))
                 del re, im, mask
                 torch.cuda.empty_cache()
-    for name, n_fft, hop, n, sr in LONG_CELLS:
-        if n_fft in wanted:
-            out["cells"][name] = long_cell(cs, K, times, signals, n_fft, hop, n, sr, args)
+    for key, name, n_fft, hop, n, sr, chunked in LONG_CELLS:
+        if key in wanted:
+            out["cells"][name] = long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked,
+                                           args)
             torch.cuda.empty_cache()
-    if wanted and 1024 not in wanted:
+    if wanted and "1024" not in wanted:
         print(json.dumps(out), flush=True)
         return
     noise = torch.as_tensor(noise_clip(NOISE_SECONDS)).cuda()[None]

@@ -9,7 +9,8 @@ D, E and F, to another tree's, bit for bit, on one CUDA card.
 writes every output (torch.save): A and D on each of their routes (n_fft
 1024, the power-of-two real-FFT kernel; 1536, the mixed-radix one; 1100,
 the complex-frame kernels; 1323, odd, two frames a transform; 1102, the
-chirp-z route; 40, the DFT products), in both STFT conventions, over 3
+chirp-z route; 40, the DFT products; 40000, 32768 and 19683, the cluster
+route), in both STFT conventions, over 3
 halo'd chunk views of 2 signal rows; B with the headline's 19 time taps,
 one unit tap and 801 (its separate smoothing launch); E with a clip's
 threshold and with each view's own statistics, each with the 19 taps, one
@@ -18,7 +19,9 @@ of its routes. The bfloat16 builds ("bf16" in the key) on the same
 inputs cast to bfloat16: A of the signal and D of A's float32 planes on
 every route and convention (the float32 mask), B, E and F on the n_fft
 1024 planes, in the same cases. ``--compare`` prints, for each output,
-whether the two runs are bitwise equal, and exits 1 if any differs. The
+whether the two runs are bitwise equal and their largest difference,
+absolute and as a share of the old output's max|value|, and exits 1 if
+any differs. The
 ``noisereduce_tpu_torch`` run is the one Python imports first: put a
 parent checkout (``git archive`` into an ignored directory) first on
 ``PYTHONPATH`` to save the parent's. Calls only wrapper signatures that
@@ -46,6 +49,10 @@ GEOMETRIES = (
     ("n_fft 1323", dict(n_fft=1323, hop_length=441), 44100),
     ("n_fft 1102", dict(n_fft=1102, hop_length=551), 44100),
     ("n_fft 40", dict(n_fft=40, hop_length=10), 8000),
+    # the cluster route: 4, 2 and 3 blocks (19683 odd, two frames a slot)
+    ("n_fft 40000", dict(n_fft=40000, hop_length=10000), SR),
+    ("n_fft 32768", dict(n_fft=32768, hop_length=8192), SR),
+    ("n_fft 19683", dict(n_fft=19683, hop_length=6561), 44100),
 )
 
 
@@ -105,7 +112,8 @@ def compare(old: dict, new: dict) -> bool:
             continue
         same = old[k].dtype == new[k].dtype and torch.equal(old[k], new[k])
         dev = float((old[k].double() - new[k].double()).abs().max())
-        print(f"{k}: bitwise {same}, max|difference| {dev:.3e}")
+        scale = float(old[k].double().abs().max()) or 1.0
+        print(f"{k}: bitwise {same}, max|difference| {dev:.3e} ({dev / scale:.3e} x max|old|)")
         same_all &= same
     print(f"all outputs bitwise equal: {same_all}")
     return same_all
