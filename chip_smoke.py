@@ -88,7 +88,13 @@ last line is printed only when every phase passed):
     a radix-11 stage) the same way; n_fft 1323 / hop 441 at 44.1 kHz (odd,
     3^3 x 7^2: two frames a complex transform), 60 s; n_fft 1102 / hop 551
     at 44.1 kHz (M = 551 = 19 x 29: the chirp-z route), 60 s; and n_fft 40
-    / hop 10 at 8 kHz (below 64: the DFT-product route), 60 s;
+    / hop 10 at 8 kHz (below 64: the DFT-product route), 60 s; then the
+    long frames (``LONG_CELLS``) the same way without the product route:
+    n_fft 16384 / hop 4096 on 60 s (the big block), 40000 / hop 10000 and
+    4803 / hop 1601 (3 x 1601: the cluster chirp route) on 400,000
+    samples, each of the last two also through the stationary and torch
+    engines against the CPU path, with the cluster builds' registers and
+    spills (``ptxas -v``, the chirp builds' sources on lines of their own);
 14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
     every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102 and the
     product route's n_fft 40), held and timed as above; the H2D of the bf16
@@ -229,6 +235,11 @@ LONG_CELLS = (
     # kernel C's lines of 20,001 bins in pieces (ROADMAP F8)
     ("long frames n_fft 40000", SR, 400_000, dict(n_fft=40000, time_mask_smooth_ms=500),
      "cluster", "cluster"),
+    # 4803 = 3 x 1601 (a 100 ms window, odd, a prime factor above 13): the
+    # cluster chirp route, a chirp length of 9720 = 2^3 3^5 5 on 2 blocks,
+    # 90 x 108, two frames a slot
+    ("long frames n_fft 4803", SR, 400_000, dict(n_fft=4803, hop_length=1601),
+     "cluster_chirp", "cluster_chirp"),
 )
 # kernel F at temperatures that are not normal floats (the exact division):
 # 0 (a step) and 1e-40 (subnormal: read as a zero, as the JAX package
@@ -303,6 +314,9 @@ SOURCES = {
     "istft_ola_big": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
     "spectra_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cluster.cu",
     "istft_ola_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cluster.cu",
+    # the cluster chirp route (4803): the chirp builds of the cluster kernels
+    "spectra_cluster_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cluster_chirp.cu",
+    "istft_ola_cluster_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cluster_chirp.cu",
 }
 # JSON entries of A and D: (the wrapper that launches them, the route)
 ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
@@ -1154,10 +1168,11 @@ def route_kernel_phase(xc: torch.Tensor, cfg, gate, label, product=True) -> dict
 
 
 def long_frame_engines(nr, K, launches, xq, cell) -> None:
-    """ROADMAP F8's geometry (``cell``: n_fft 40000, 500 ms of time
-    smoothing at 48 kHz) through ``reduce_noise`` on the stationary and
-    torch engines (the non-stationary one is its route cell), each path's
-    launches counted, A and D on the cluster route only; every engine held
+    """A long-frame geometry (``cell``: ROADMAP F8's n_fft 40000 with 500
+    ms of time smoothing, or n_fft 4803 / hop 1601, at 48 kHz) through
+    ``reduce_noise`` on the stationary and torch engines (the
+    non-stationary one is its route cell), each path's launches counted,
+    A and D on the cell's route only (cluster, cluster chirp); every engine held
     to the CPU path (the kernels' plain versions): the non-stationary and
     torch engines within E2E_BOUND x max|ref|, the stationary one printed
     and held to the staged plain path on the card under the border rule."""
@@ -2123,12 +2138,13 @@ def ptxas_usage(stem: str, kernel: str) -> str:
 
 
 def cluster_ptxas(stem: str) -> dict:
-    """Registers and spill bytes of every build of the cluster route's
+    """Registers and spill bytes of every build of the cluster routes'
     kernels in ``csrc/<stem>.cu`` (A: ``spectra_cluster_kernel``; D:
-    ``istft_cluster_kernel`` and ``istft_cluster_ola_kernel``), by kernel,
-    frames a slot, odd radices (``fft_cluster.cuh::cluster_build``) and
-    plane type, from the ``ptxas -v`` report the build keeps beside the
-    kernel library."""
+    ``istft_cluster_kernel`` and ``istft_cluster_ola_kernel``; the
+    ``_chirp`` stems the cluster chirp route's builds), by kernel, frames
+    a slot, odd radices (``fft_cluster.cuh::cluster_build``) and plane
+    type, from the ``ptxas -v`` report the build keeps beside the kernel
+    library."""
     from noisereduce_tpu_torch.ops.cuda import build
 
     path = build.library_path().parent / f"{stem}.ptxas.txt"
@@ -2304,8 +2320,9 @@ def bf16_kernel_phase(x_cuda, noise_cuda, cfg, scfg, tgate) -> dict:
 
 def bf16_route_phase(x, cfg_for, out) -> None:
     """A and D's bfloat16 builds on every route, at the FFT_CELLS geometries
-    (60 s each: n_fft 1536 and 1100 at 48 kHz, 1323 and 1102 at 44.1 kHz)
-    and the product route's (n_fft 40 at 8 kHz): one padded view, as
+    (60 s each: n_fft 1536 and 1100 at 48 kHz, 1323 and 1102 at 44.1 kHz),
+    the cluster chirp route's (n_fft 4803 / hop 1601, 60 s) and the
+    product route's (n_fft 40 at 8 kHz): one padded view, as
     ``reduce_noise`` takes a signal no longer than a chunk; against their
     plain versions on the same bf16 inputs and beside their float32
     twins. Adds ``routes`` to A's and D's bf16 entries."""
@@ -2314,6 +2331,8 @@ def bf16_route_phase(x, cfg_for, out) -> None:
 
     cells = [(label, sr, kw, route) for label, sr, secs, kw, route, _ in FFT_CELLS
              if secs == STREAM_SECONDS]
+    chirp_cell = next(c for c in LONG_CELLS if c[4] == "cluster_chirp")
+    cells.append((chirp_cell[0], chirp_cell[1], chirp_cell[3], chirp_cell[4]))
     cells.append(("product route geometry", PRODUCT_SR, PRODUCT_KW, "product"))
     out["spectra_bf16"]["routes"], out["istft_ola_bf16"]["routes"] = {}, {}
     for label, sr, kw, route in cells:
@@ -2841,15 +2860,18 @@ def main() -> None:
         results[f"{name}_product"] = dict(got[name], fft_route="product")
     del xp
 
-    # the long frames: the big block and the cluster route; then F8's
-    # geometry on every engine against the CPU path
+    # the long frames: the big block, the cluster route and the cluster
+    # chirp route; then F8's geometry and the chirp's on every engine
+    # against the CPU path
     for label, sr, samples, kw, route, entry in LONG_CELLS:
         got = route_cell(label, x[:samples], sr, kw, route, product=False)
         for name in ("spectra", "istft_ola"):
             results[f"{name}_{entry}"] = dict(got[name], fft_route=route)
-    # the cluster route's builds: registers and spills (ptxas -v)
+    # the cluster routes' builds: registers and spills (ptxas -v)
     for name, stem in (("spectra_cluster", "spectra_cluster"),
-                       ("istft_ola_cluster", "istft_cluster")):
+                       ("istft_ola_cluster", "istft_cluster"),
+                       ("spectra_cluster_chirp", "spectra_cluster_chirp"),
+                       ("istft_ola_cluster_chirp", "istft_cluster_chirp")):
         usage = cluster_ptxas(stem)
         worst = max((u["spill_stores"] + u["spill_loads"] for u in usage.values()
                      if isinstance(u, dict)), default=None)
@@ -2858,7 +2880,8 @@ def main() -> None:
             f"spill stores / loads" if isinstance(u, dict) else f"{k}: {u}"
             for k, u in usage.items()) + f"; most spill bytes of a build {worst}", flush=True)
         results[name]["ptxas"] = usage
-    long_frame_engines(nr, K, launches, x[: LONG_CELLS[1][2]], LONG_CELLS[1])
+    for cell in LONG_CELLS[1:]:
+        long_frame_engines(nr, K, launches, x[: cell[2]], cell)
 
     bf16_route_phase(x, lambda sr, kw: nr.GateConfig(sr=sr, **kw), results)
     bf16_phase(nr, K, card, launches, x, noise, results)

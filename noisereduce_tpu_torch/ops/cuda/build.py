@@ -88,6 +88,18 @@ _SIGNATURES = {
     ],
     "nr_spectra_cluster_capacity": [_i, _i],
     "nr_istft_cluster_capacity": [_i, _i],
+    # the cluster chirp route: the chirp length after n_bins (A) or env_int
+    # (D), the chirp and filter tables after the split's
+    "nr_spectra_cluster_chirp": [
+        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+    ],
+    "nr_istft_cluster_chirp": [
+        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f,
+        _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
+    ],
+    "nr_spectra_cluster_chirp_capacity": [_i, _i, _i],
+    "nr_istft_cluster_chirp_capacity": [_i, _i, _i],
     "nr_istft_cplx": [
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
         _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

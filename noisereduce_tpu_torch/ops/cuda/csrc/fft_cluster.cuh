@@ -20,6 +20,16 @@
 // Output point k then lies in block (k mod n2) / rows, row k mod n2 - q
 // rows, point k / n2 (cluster_point).
 //
+// The chirp route (fft_route.cuh: ROUTE_CLUSTER_CHIRP) takes a circular
+// convolution of length L = n1 n2 in that order (cluster_convolve): the
+// four steps above, the product with the filter spectrum laid out in the
+// order they leave it, then the unscaled inverse back to natural order,
+// the n1-point inverses of the block's rows, the conjugate twiddle, an
+// exchange back to columns and the n2-point inverses of the columns. Two
+// exchanges a slot, one a transform; point j then lies in block (j mod
+// n1) / cols, column j mod n1 - q cols, point j / n1
+// (cluster_column_point).
+//
 // Layout: a block's batch of FFTs is interleaved, batch index fastest:
 // point j2 of column col at j2 ldc + col (step 1), point j1 (then k1) of
 // row r at j1 ldr + r (step 4), with ldc and ldr the batch counts made
@@ -88,15 +98,30 @@ auto with_cluster_build(int n, F f) {
   }
 }
 
+// The same for a cluster chirp length L (2^a 3^b 5^c: the builds 1, 3, 5
+// and 15 only, so no chirp build carries radix 7, 11 or 13)
+template <class F>
+auto with_chirp_build(int L, F f) {
+  switch (cluster_build(L)) {
+    case 3: return f(std::integral_constant<int, 3>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 15: return f(std::integral_constant<int, 15>());
+    default: return f(std::integral_constant<int, 1>());
+  }
+}
+
 // The shape of a launch, made on the host (make_four) and passed by value
 struct Four {
-  int n, n1, n2, c;
+  int n, n1, n2, c;        // n: the FFT's points (the chirp length L on the chirp route)
+  int pts;                 // the transform's points: n, or fewer than L / 2 on the chirp route
   int cols, rows;          // n1 / c columns of n2 points, n2 / c rows of n1 points a block
   int ldc, ldr;            // cols, rows made odd: the layouts' leading dimensions
   int buffer;              // float2 values of each of a block's two buffers (even)
   int run;                 // rows ldc: a block's rows of one block's step-1 buffer
   bool wide;               // run even: the pull moves 16-byte values
+  bool back_wide;          // cols ldr even: the chirp's exchange back moves 16-byte values
   Div<true> dn2, dcols, drows, dpull;  // dpull: run in the pull's values
+  Div<true> dn1, dback;    // dback: cols ldr in the exchange back's values
   Plan<true> p2, p1;       // the stages of the n2- and n1-point FFTs
 };
 
@@ -116,11 +141,29 @@ inline bool make_four(int n, Four& f) {
   f.run = f.rows * f.ldc;
   f.wide = f.run % 2 == 0;
   f.dpull = Div<true>(f.wide ? f.run / 2 : f.run);
+  f.pts = n;
+  const int back = f.cols * f.ldr;
+  f.back_wide = back % 2 == 0;
+  f.dback = Div<true>(f.back_wide ? back / 2 : back);
+  f.dn1 = Div<true>(f.n1);
   f.dn2 = Div<true>(f.n2);
   f.dcols = Div<true>(f.cols);
   f.drows = Div<true>(f.rows);
   f.p2 = make_plan<true>(f.n2, 1, 1);
   f.p1 = make_plan<true>(f.n1, 1, 1);
+  return true;
+}
+
+// The shape of a launch for n_fft and an FFT of slot points: on the
+// cluster route (CHIRP false) n = fft_n(n_fft), on the cluster chirp route
+// a chirp length (chirp_length_ok). False for any other pair.
+template <bool CHIRP>
+inline bool make_four_of(int n_fft, int slot, Four& f) {
+  const int n = fft_n(n_fft);
+  const bool ok = CHIRP ? route_of(n_fft) == ROUTE_CLUSTER_CHIRP && chirp_length_ok(n, slot)
+                        : route_of(n_fft) == ROUTE_CLUSTER && slot == n;
+  if (!ok || !make_four(slot, f)) return false;
+  f.pts = n;
   return true;
 }
 
@@ -177,22 +220,23 @@ constexpr int PULL = 2;  // values a thread of the pull has in flight
 
 // Step 3's pull: this block's rows of every column, from each block o's
 // step-1 buffer `held`: rows k2 in [rank rows, (rank + 1) rows), one
-// contiguous run of `run` values from rank run on, into `into` at o run.
-// V: float2, or float4 (two float2) where run is even. Consecutive threads
-// read consecutive values of another block's shared memory, PULL of them
-// in flight a thread (4 spilled: PERF.md).
+// contiguous run of `run` values from rank run on, into `into` at o run
+// (drun: run in V values; the chirp's exchange back pulls columns the
+// same way). V: float2, or float4 (two float2) where run is even.
+// Consecutive threads read consecutive values of another block's shared
+// memory, PULL of them in flight a thread (4 spilled: PERF.md).
 template <class V>
 __device__ __forceinline__ void pull(V* into, const float2* held, cg::cluster_group& cl,
-                                     const Four& f, int rank) {
-  const int run = f.dpull.d;
-  const int total = f.c * run;
+                                     const Div<true>& drun, int c, int rank) {
+  const int run = drun.d;
+  const int total = c * run;
   for (int e0 = threadIdx.x; e0 < total; e0 += PULL * CLUSTER_THREADS) {
     V v[PULL];
 #pragma unroll
     for (int u = 0; u < PULL; ++u) {
       const int e = e0 + u * CLUSTER_THREADS;
       if (e < total) {
-        const int o = f.dpull.div(e);
+        const int o = drun.div(e);
         v[u] = reinterpret_cast<const V*>(cl.map_shared_rank(held, o))[rank * run + e - o * run];
       }
     }
@@ -246,9 +290,9 @@ __device__ __forceinline__ float2* cluster_fft(float2* a, float2* b, cg::cluster
   cl.sync();  // every block's columns are transformed
   // step 3: this block's rows of every column, pulled into b
   if (f.wide)
-    pull(reinterpret_cast<float4*>(b), a, cl, f, rank);
+    pull(reinterpret_cast<float4*>(b), a, cl, f.dpull, f.c, rank);
   else
-    pull(b, a, cl, f, rank);
+    pull(b, a, cl, f.dpull, f.c, rank);
   cluster_arrive();  // this block's reads of the cluster's step-1 buffers are done
   cluster_wait();    // ... and every block's: a is free, b complete
   // step 2 in step 4's first stage: row r = k2 - rank rows of column j1,
@@ -284,6 +328,91 @@ __device__ __forceinline__ float2 cluster_point(const float2* w, cg::cluster_gro
   const int owner = f.drows.div(k2);
   const float2* src = cl.map_shared_rank(w, owner);
   return src[k1 * f.ldr + k2 - owner * f.rows];
+}
+
+// The chirp route's circular convolution of the slot across the cluster:
+// the forward transform of gather's points (cluster_fft), each point of
+// the block's rows times the filter spectrum in the order the transform
+// leaves it (block q's point k1 of row r at filt[(q n1 + k1) rows + r],
+// holding H[k], k = q rows + r + n2 k1; CONJ: its conjugate), in the first
+// stage of the n1-point inverses of the rows; then the conjugate twiddle
+// w_n^{-j1 k2} and the exchange back (block q takes the columns j1 in
+// [q cols, (q + 1) cols) of every block's rows: one contiguous run of cols
+// ldr values from q cols ldr on, pulled as step 3 pulls), twiddled in the
+// first stage of the n2-point inverses of the columns. Every thread of the
+// block calls it. Returns the buffer that holds the block's columns of
+// the unscaled result in natural order, point j = j1 + n1 j2 at j2 ldc +
+// j1 - q cols, with the block synchronised (not the cluster), no cluster
+// barrier outstanding, and the other buffer free.
+template <bool CONJ, int ODD, class Gather>
+__device__ __forceinline__ float2* cluster_convolve(float2* a, float2* b, cg::cluster_group& cl,
+                                                    const Four& f, int rank, Gather gather,
+                                                    const float2* __restrict__ filt,
+                                                    const float2* __restrict__ tw1,
+                                                    const float2* __restrict__ tw2,
+                                                    const float2* __restrict__ twn) {
+  float2* x = cluster_fft<false, ODD>(a, b, cl, f, rank, gather, tw1, tw2, twn);
+  float2* y = x == a ? b : a;  // free: no block reads it
+  const float2* const h = filt + rank * f.n1 * f.rows;
+  const float2* held = x;
+  cstage_any<true, ODD>(
+      [&](int r, int k1) {
+        float2 w = __ldg(h + k1 * f.rows + r);
+        if (CONJ) w.y = -w.y;
+        return cmul(held[k1 * f.ldr + r], w);
+      },
+      y, f.p1, 0, f.drows, f.ldr, tw1);
+  for (int s = 1; s < f.p1.n_stages; ++s) {
+    __syncthreads();
+    const float2* src = y;
+    cstage_any<true, ODD>([&](int r, int i) { return src[i * f.ldr + r]; }, x, f.p1, s,
+                          f.drows, f.ldr, tw1);
+    float2* t = x;
+    x = y;
+    y = t;
+  }
+  cl.sync();  // every block's rows are inverted, in y
+  // the exchange back: this block's columns of every block's rows, into x
+  if (f.back_wide)
+    pull(reinterpret_cast<float4*>(x), y, cl, f.dback, f.c, rank);
+  else
+    pull(x, y, cl, f.dback, f.c, rank);
+  cluster_arrive();  // this block's reads of the cluster's row buffers are done
+  cluster_wait();    // ... and every block's: y is free, x complete
+  // column col's point k2 (row r = k2 - o rows of block o), times w_n^{-j1 k2}
+  const int back = f.cols * f.ldr;
+  const float2* pulled = x;
+  cstage_any<true, ODD>(
+      [&](int col, int k2) {
+        const int owner = f.drows.div(k2);
+        float2 t = __ldg(twn + (rank * f.cols + col) * k2);  // j1 k2 < n
+        t.y = -t.y;
+        return cmul(pulled[owner * back + col * f.ldr + k2 - owner * f.rows], t);
+      },
+      y, f.p2, 0, f.dcols, f.ldc, tw2);
+  for (int s = 1; s < f.p2.n_stages; ++s) {
+    __syncthreads();
+    const float2* src = y;
+    cstage_any<true, ODD>([&](int col, int i) { return src[i * f.ldc + col]; }, x, f.p2, s,
+                          f.dcols, f.ldc, tw2);
+    float2* t = x;
+    x = y;
+    y = t;
+  }
+  __syncthreads();
+  return y;
+}
+
+// Point j of the chirp route's convolution (cluster_convolve), from the
+// block of the cluster that holds it (buffer w of the same offset in
+// every block)
+__device__ __forceinline__ float2 cluster_column_point(const float2* w, cg::cluster_group& cl,
+                                                       const Four& f, int j) {
+  const int j2 = f.dn1.div(j);
+  const int j1 = j - j2 * f.n1;
+  const int owner = f.dcols.div(j1);
+  const float2* src = cl.map_shared_rank(w, owner);
+  return src[j2 * f.ldc + j1 - owner * f.cols];
 }
 
 // Clusters of c blocks of `kernel` with smem bytes of dynamic shared memory

@@ -16,20 +16,33 @@
 //   shared memory (fft_cluster.cuh).
 // - chirp route: any other n for which a chirp-z length L >= 2n - 1 fits a
 //   big block; the transform as a circular convolution of length L.
+// - cluster chirp route: any other n of at most CHIRP_MAX_N points (an n
+//   with a prime factor above 13 past 4096 points, or a 13-smooth one past
+//   a big block with no cluster shape): the chirp-z convolution over a
+//   cluster chirp length L (cluster_chirp_length_ok), whose four-step FFT
+//   runs across a cluster (fft_cluster.cuh::cluster_convolve).
 // - product route (the DFT products of spectra.cu / istft_ola.cu): the
-//   rest: n_fft below MIN_NFFT, an n with a prime factor above 13 past
-//   4096 points, and an n past what a cluster shape takes.
+//   rest: n_fft below MIN_NFFT, and an n past CHIRP_MAX_N points with no
+//   cluster shape.
 #pragma once
 
 namespace nrf {
 
-enum Route { ROUTE_PRODUCT = 0, ROUTE_FFT = 1, ROUTE_CHIRP = 2, ROUTE_CLUSTER = 3 };
+enum Route {
+  ROUTE_PRODUCT = 0,
+  ROUTE_FFT = 1,
+  ROUTE_CHIRP = 2,
+  ROUTE_CLUSTER = 3,
+  ROUTE_CLUSTER_CHIRP = 4
+};
 
 constexpr int MIN_NFFT = 64;
 constexpr int BLOCK_SLOTS = 4096;  // complex points a block holds
 constexpr int BIG_SLOTS = 8192;    // ... a big block (one slot of 4097 to 8192 points)
 constexpr int REAL_MAX_NFFT = 2 * BLOCK_SLOTS;  // the real-FFT kernels' largest n_fft
 constexpr int MAX_CLUSTER = 8;     // blocks of a cluster (the portable most)
+// the most points a cluster chirp takes: L >= 2n - 1 within MAX_CLUSTER big blocks
+constexpr int CHIRP_MAX_N = MAX_CLUSTER * BIG_SLOTS / 2;
 
 // n with every factor in primes[0 .. count) divided out
 inline int strip(int n, const int* primes, int count) {
@@ -75,12 +88,14 @@ inline bool cluster_shape(int n, int& c, int& n1, int& n2) {
 inline Route route_of(int n_fft) {
   if (n_fft < MIN_NFFT) return ROUTE_PRODUCT;
   const int n = fft_n(n_fft);
+  int c, n1, n2;
   if (smooth13(n)) {
     if (n <= BIG_SLOTS) return ROUTE_FFT;
-    int c, n1, n2;
-    return cluster_shape(n, c, n1, n2) ? ROUTE_CLUSTER : ROUTE_PRODUCT;
+    if (cluster_shape(n, c, n1, n2)) return ROUTE_CLUSTER;
+  } else if (2 * n - 1 <= BIG_SLOTS) {
+    return ROUTE_CHIRP;
   }
-  return 2 * n - 1 <= BIG_SLOTS ? ROUTE_CHIRP : ROUTE_PRODUCT;
+  return n <= CHIRP_MAX_N ? ROUTE_CLUSTER_CHIRP : ROUTE_PRODUCT;
 }
 
 // Whether the real-FFT kernels (spectra_fft.cu, istft_fft.cu) serve n_fft:
@@ -92,12 +107,24 @@ inline bool real_kernel(int n_fft) {
          smooth7(n_fft / 2);
 }
 
-// Whether a kernel takes L as n's chirp-z length: L >= 2n - 1, 2^a 3^b
-// within a block, BIG_SLOTS past it (geometry.py::chirp_length picks the
-// smallest such L).
+// Whether L is a length of the cluster chirp route: 2^a 3^b 5^c (the
+// cluster builds 1, 3, 5 and 15 of fft_cluster.cuh), past a big block,
+// within MAX_CLUSTER big blocks, with a cluster shape.
+inline bool cluster_chirp_length_ok(int L) {
+  const int p[] = {2, 3, 5};
+  int c, n1, n2;
+  return L > BIG_SLOTS && L <= MAX_CLUSTER * BIG_SLOTS && strip(L, p, 3) == 1 &&
+         cluster_shape(L, c, n1, n2);
+}
+
+// Whether a kernel takes L as n's chirp-z length: L >= 2n - 1; for an n
+// whose 2n - 1 fits a big block, 2^a 3^b within a block, BIG_SLOTS past
+// it; for a longer n, a cluster chirp length (geometry.py::chirp_length
+// picks the smallest such L).
 inline bool chirp_length_ok(int n, int L) {
   const int p[] = {2, 3};
   if (L < 2 * n - 1) return false;
+  if (2 * n - 1 > BIG_SLOTS) return cluster_chirp_length_ok(L);
   return L <= BLOCK_SLOTS ? strip(L, p, 2) == 1 : L == BIG_SLOTS;
 }
 

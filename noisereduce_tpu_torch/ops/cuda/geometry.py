@@ -23,11 +23,15 @@ launch shapes below:
   complex-frame kernels. Each kernel takes frame slots of n points (the
   chirp's L), A in tiles of ``fft_tile_frames`` frames, D in runs of
   ``fft_run`` output hop blocks, each block's threads in segments of
-  ``fft_seg_warps`` warps. Any other
-  n_fft (below 64, above 8192, an odd one above 4096 with a prime factor
-  above 13) takes implicit matrix products tiled 128 x ``GEMM_BN`` x
-  ``GEMM_BK`` (frames x DFT columns x window samples for A; output hop
-  blocks x hop x shifted bins for D).
+  ``fft_seg_warps`` warps. Past a big block: the cluster route for a
+  13-smooth n with a cluster shape (``cluster_shape``: a four-step FFT
+  over a thread block cluster, ``csrc/fft_cluster.cuh``), the cluster
+  chirp route for any other n to ``CHIRP_MAX_N`` points (a chirp length
+  from ``cluster_chirp_lengths`` over the same four-step FFT). The rest
+  (n_fft below 64, an n past 32,768 points with no cluster shape) takes
+  implicit matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames
+  x DFT columns x window samples for A; output hop blocks x hop x shifted
+  bins for D).
 - B ``nonstationary_mask``, E ``stationary_mask`` and F
   ``torch_nonstationary_mask`` cut each (row, bin) column's time axis into
   segments of ``SEG_B`` / ``SEG_E`` / ``SEG_F`` frames (``TimeTilePlan``,
@@ -67,6 +71,7 @@ no counterpart here.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
 
@@ -94,9 +99,13 @@ REAL_MAX_NFFT = 2 * FFT_ELEMS  # the real-FFT kernels' largest n_fft
 # the cluster route (csrc/fft_cluster.cuh): at most this many big blocks a
 # cluster, so n to CLUSTER_MAX * FFT_BIG_ELEMS points (n_fft 131072)
 CLUSTER_MAX = 8
+# the most points the cluster chirp route takes: a chirp length L >= 2n - 1
+# within a cluster (csrc/fft_route.cuh::CHIRP_MAX_N)
+CHIRP_MAX_N = CLUSTER_MAX * FFT_BIG_ELEMS // 2
 FFT_RADICES = (2, 3, 5, 7, 11, 13)  # the prime radices of fft_smem.cuh's stages
 REAL_RADICES = (2, 3, 5, 7)  # those of the real-FFT kernels' builds
 CHIRP_RADICES = (2, 3)  # those of a chirp length within a block
+CLUSTER_CHIRP_RADICES = (2, 3, 5)  # ... and of a cluster chirp length
 # the time tiles of kernels B, E and F (csrc/time_tiles.cuh and the
 # kernels' sources, must match their constants): frames of a segment of B,
 # of E and of F, columns (bins) and segments of a final-pass block, columns
@@ -160,8 +169,10 @@ def fft_route(scfg: StftConfig) -> str:
     a big block and takes a cluster shape (``cluster_shape``: 40000,
     32768, ...); "chirp" for an n with a prime factor above 13 whose chirp
     length fits a big block (1102, 1101, every such even n_fft up to
-    8192); "product" for the rest: n_fft below 64, an n with a prime factor
-    above 13 past 4096 points, an n past every cluster shape."""
+    8192); "cluster_chirp" for any other n of at most CHIRP_MAX_N points,
+    a chirp-z transform whose length takes a cluster shape (4803, 16386,
+    16940, 65534, ...); "product" for the rest: n_fft below 64, an n past
+    CHIRP_MAX_N points with no cluster shape."""
     return _route_of(scfg.n_fft)
 
 
@@ -175,8 +186,11 @@ def _route_of(n_fft: int) -> str:
     if _strip(n, FFT_RADICES) == 1:
         if n <= FFT_BIG_ELEMS:
             return "fft"
-        return "cluster" if cluster_shape(n) else "product"
-    return "chirp" if 2 * n - 1 <= FFT_BIG_ELEMS else "product"
+        if cluster_shape(n):
+            return "cluster"
+    elif 2 * n - 1 <= FFT_BIG_ELEMS:
+        return "chirp"
+    return "cluster_chirp" if n <= CHIRP_MAX_N else "product"
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,13 +248,27 @@ def real_kernel(n_fft: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
+def cluster_chirp_lengths() -> tuple:
+    """The cluster chirp route's lengths, ascending: every 2^a 3^b 5^c past
+    a big block, within CLUSTER_MAX big blocks, with a cluster shape
+    (``csrc/fft_route.cuh::cluster_chirp_length_ok``)."""
+    return tuple(L for L in range(FFT_BIG_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1)
+                 if _strip(L, CLUSTER_CHIRP_RADICES) == 1 and cluster_shape(L))
+
+
+@functools.lru_cache(maxsize=None)
 def chirp_length(n: int) -> int:
-    """The chirp-z route's circular convolution length for n points: the
+    """The chirp-z routes' circular convolution length for n points: the
     smallest 2^a 3^b >= 2n - 1 while that fits a block of FFT_ELEMS
-    points, else FFT_BIG_ELEMS (``csrc/fft_route.cuh::chirp_length_ok``;
-    2^a 3^b against a power of two or the smallest length with factors up
-    to 13, PERF.md)."""
+    points, else FFT_BIG_ELEMS while 2n - 1 fits a big block (2^a 3^b
+    against a power of two or the smallest length with factors up to 13,
+    PERF.md), else the smallest cluster chirp length >= 2n - 1
+    (``cluster_chirp_lengths``: 2^a 3^b 5^c against 2^a 3^b, PERF.md)
+    (``csrc/fft_route.cuh::chirp_length_ok``)."""
     need = 2 * n - 1
+    if need > FFT_BIG_ELEMS:
+        lengths = cluster_chirp_lengths()
+        return lengths[bisect.bisect_left(lengths, need)]
     if need > FFT_ELEMS:
         return FFT_BIG_ELEMS
     return next(L for L in range(need, FFT_ELEMS + 1) if _strip(L, CHIRP_RADICES) == 1)
@@ -268,12 +296,14 @@ def _fft_layout(m: int, block_warps: int = FFT_WARPS) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _layout(n_fft: int, route: str) -> tuple:
-    """GateGeometry.fft_layout of n_fft on ``route``; on the cluster route,
-    a slot of n points across a cluster, each block's warps one segment,
-    and one slot (two frames for an odd n_fft) a group."""
+    """GateGeometry.fft_layout of n_fft on ``route``; on the cluster routes,
+    a slot of n points (the chirp length on the cluster chirp route) across
+    a cluster, each block's warps one segment, and one slot (two frames for
+    an odd n_fft) a group."""
     n = fft_n(n_fft)
-    if route == "cluster":
-        return n, FFT_BIG_WARPS, 2 if n_fft % 2 else 1
+    if route in ("cluster", "cluster_chirp"):
+        slot = chirp_length(n) if route == "cluster_chirp" else n
+        return slot, FFT_BIG_WARPS, 2 if n_fft % 2 else 1
     slot = chirp_length(n) if route == "chirp" else n
     warps, slots = _fft_layout(slot, FFT_BIG_WARPS if slot > FFT_ELEMS else FFT_WARPS)
     return slot, warps, slots * (2 if n_fft % 2 else 1)
@@ -662,8 +692,9 @@ class GateGeometry:
 
     @property
     def cluster(self) -> tuple:
-        """(c, n1, n2) of the cluster route (``cluster_shape``)."""
-        return cluster_shape(self.fft_n)
+        """(c, n1, n2) of the cluster routes' FFT (``cluster_shape`` of n,
+        or of the chirp length on the cluster chirp route)."""
+        return cluster_shape(self.fft_layout()[0])
 
     # ---- kernel A, product route: analysis table (k_a x cols_a), row n =
     # window sample

@@ -30,7 +30,7 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
-Each has four routes, picked by the geometry alone
+Each has five routes, picked by the geometry alone
 (``geometry.fft_route``, the rules of ``csrc/fft_route.cuh``; a frame's
 transform has n = n_fft/2 complex points, or n_fft for an odd n_fft, two
 frames a transform):
@@ -50,11 +50,20 @@ frames a transform):
   chirp-z transform in the complex-frame kernels, its chirp and filter
   spectrum host tables built in float64 (``_chirp_np``,
   ``_chirp_filter_np``);
-- "product": the rest (n_fft below 64, an n with a prime factor above 13
-  past 4096 points, an n past every cluster shape), the DFT products
-  ``csrc/spectra.cu`` and ``csrc/istft_ola.cu``, whose n_fft x n_fft
-  tables are built on the card (``_analysis_table``,
-  ``_synthesis_table``).
+- "cluster_chirp": any other n to 32,768 points (an n with a prime factor
+  above 13 past 4096 points, a 13-smooth n past a big block with no
+  cluster shape: 4801, 4803, 16386, 16940, 65534, ...), a chirp-z
+  transform whose length (``geometry.chirp_length``: the smallest 2^a 3^b
+  5^c >= 2n - 1 with a cluster shape) runs the cluster route's four-step
+  FFT, in ``csrc/spectra_cluster_chirp.cu`` and
+  ``csrc/istft_cluster_chirp.cu`` (the ``CHIRP`` builds of
+  ``csrc/spectra_cluster.cuh`` and ``csrc/istft_cluster.cuh``), the
+  filter spectrum laid out in that FFT's order
+  (``_cluster_chirp_filter_np``);
+- "product": the rest (n_fft below 64, an n past 32,768 points with no
+  cluster shape), the DFT products ``csrc/spectra.cu`` and
+  ``csrc/istft_ola.cu``, whose n_fft x n_fft tables are built on the card
+  (``_analysis_table``, ``_synthesis_table``).
 
 No route is tried after another fails.
 
@@ -63,8 +72,9 @@ both routes) for a tensor on the CPU and only then. For a CUDA tensor it
 launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
-``fft_launches``, ``chirp_launches``, ``cluster_launches`` and
-``product_launches`` (``route_counts``), and G in ``resident_launches``
+``fft_launches``, ``chirp_launches``, ``cluster_launches``,
+``cluster_chirp_launches`` and ``product_launches`` (``route_counts``),
+and G in ``resident_launches``
 and ``tiled_launches``, every kernel by its planes' dtype in
 ``dtype_launches``
 (``dtype_counts``) and by device in ``device_launches``
@@ -108,7 +118,8 @@ from noisereduce_tpu_torch.config import Convention
 from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
-    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, fft_n, fm_mask_plan, freq_smooth_plan,
+    SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, cluster_shape, fft_n, fm_mask_plan,
+    freq_smooth_plan,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import chunk_views, extract_chunks, n_chunks_for
@@ -296,6 +307,19 @@ def _chirp_filter_np(key: tuple) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _cluster_chirp_filter_np(key: tuple) -> np.ndarray:
+    """(L, 2) float64 for key (n, L): ``_chirp_filter_np`` in the order the
+    cluster route's forward transform leaves it (``csrc/fft_cluster.cuh::
+    cluster_convolve``): block q's point k1 of row r at (q n1 + k1) rows +
+    r holds H[k], k = q rows + r + n2 k1, for the shape (c, n1, n2) of L
+    (rows = n2 / c)."""
+    c, n1, n2 = cluster_shape(key[1])
+    rows = n2 // c
+    q, k1, r = np.meshgrid(np.arange(c), np.arange(n1), np.arange(rows), indexing="ij")
+    return _chirp_filter_np(key)[(q * rows + r + n2 * k1).ravel()]
+
+
+@functools.lru_cache(maxsize=None)
 def _scaled_window_np(scfg) -> np.ndarray:
     """(frame_length,) float64: the FFT route's analysis window w * s, s =
     1 / sum w for scipy and 1 for torch."""
@@ -337,6 +361,7 @@ _TABLES = {
     "twiddle": _twiddle_np,  # key: the table's length
     "chirp": _chirp_np,  # key: n
     "chirp_filter": _chirp_filter_np,  # key: (n, L)
+    "cluster_chirp_filter": _cluster_chirp_filter_np,  # key: (n, L)
     "scaled_window": _scaled_window_np,
     "post_window": _post_window_np,
     "window_squares": _window_squares_np,
@@ -429,25 +454,44 @@ def _chirp_tables(geo: GateGeometry, route: str, slot: int, device):
     return _device_f32("chirp", n, device), _device_f32("chirp_filter", (n, slot), device)
 
 
-def _cluster_tables(geo: GateGeometry, device) -> tuple:
-    """The cluster route's twiddle tables on ``device``, as pointers: the
-    stages' of the n1- and n2-point FFTs, e^{-2 pi i k / n} for the four
-    steps' twiddle, and the split's of n_fft points."""
-    _, n1, n2 = geo.cluster
-    return tuple(_ptr(_device_f32("twiddle", m, device))
-                 for m in (2 * n1, 2 * n2, geo.fft_n, geo.n_fft))
+def _cluster_tables(geo: GateGeometry, route: str, device) -> tuple:
+    """The cluster routes' tables on ``device``, as pointers: the stages'
+    twiddles of the n1- and n2-point FFTs, e^{-2 pi i k / m} for the four
+    steps' twiddle (m: n, or the chirp length L on the cluster chirp
+    route), the split's of n_fft points, and on the cluster chirp route
+    cbar_j and the filter spectrum in the four-step FFT's order
+    (``_cluster_chirp_filter_np``)."""
+    slot = geo.fft_layout(route)[0]
+    _, n1, n2 = cluster_shape(slot)
+    tabs = tuple(_ptr(_device_f32("twiddle", m, device))
+                 for m in (2 * n1, 2 * n2, slot, geo.n_fft))
+    if route != "cluster_chirp":
+        return tabs
+    return (*tabs, _ptr(_device_f32("chirp", geo.fft_n, device)),
+            _ptr(_device_f32("cluster_chirp_filter", (geo.fft_n, slot), device)))
+
+
+def _cluster_entry(name: str, geo: GateGeometry, route: str) -> tuple:
+    """The C entry of ``name``'s build on a cluster route (the chirp's
+    ``nr_<name>_chirp``, which also takes the chirp length) and the
+    arguments it takes before its tables: () or (L,)."""
+    if route == "cluster_chirp":
+        return f"{name}_chirp", (geo.fft_layout(route)[0],)
+    return name, ()
 
 
 def cluster_capacity(geo: GateGeometry, kernel: str = "spectra", dtype=torch.float32,
                      device=None) -> int:
-    """Clusters of ``kernel``'s cluster-route build ("spectra", or
-    "istft_ola": its transform pass) for the geometry's n_fft and planes of
-    ``dtype`` that the card holds at once: the persistent grid of a launch,
-    whose clusters walk the slots past it (``csrc/fft_cluster.cuh``)."""
+    """Clusters of ``kernel``'s build on the geometry's cluster route
+    ("spectra", or "istft_ola": its transform pass) for its n_fft (and
+    chirp length on the cluster chirp route) and planes of ``dtype`` that
+    the card holds at once: the persistent grid of a launch, whose
+    clusters walk the slots past it (``csrc/fft_cluster.cuh``)."""
     device = torch.device(device or "cuda")
-    name = {"spectra": "spectra_cluster", "istft_ola": "istft_cluster"}[kernel]
+    name, slot = _cluster_entry(
+        {"spectra": "spectra_cluster", "istft_ola": "istft_cluster"}[kernel], geo, geo.route)
     with torch.cuda.device(device):
-        n = getattr(build.load(), f"nr_{name}_capacity")(_PLANE_CODE[dtype], geo.n_fft)
+        n = getattr(build.load(), f"nr_{name}_capacity")(_PLANE_CODE[dtype], geo.n_fft, *slot)
     if n < 1:
         build.check(f"{name}_capacity", -n)
     return n
@@ -472,13 +516,14 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
             "spectra", dev, plane, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
             geo.k_a, _ptr(re), _ptr(im),
         )
-    elif route == "cluster":
+    elif route in ("cluster", "cluster_chirp"):
         slots = -(-T // 2) if geo.fft_paired else T
         _check_size("spectra", B * T, B * slots * geo.cluster[0])
+        name, slot = _cluster_entry("spectra_cluster", geo, route)
         _launch(
-            "spectra_cluster", dev, plane, _ptr(x), *views, geo.n_fft, nb,
-            _ptr(_device_f32("scaled_window", geo.scfg, dev)), *_cluster_tables(geo, dev),
-            _ptr(re), _ptr(im),
+            name, dev, plane, _ptr(x), *views, geo.n_fft, nb, *slot,
+            _ptr(_device_f32("scaled_window", geo.scfg, dev)),
+            *_cluster_tables(geo, route, dev), _ptr(re), _ptr(im),
         )
     elif route == "fft" and geo.fft_real:
         _, warps, tile = geo.fft_layout(route)
@@ -665,17 +710,18 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
             _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
             j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
         )
-    elif route == "cluster":
+    elif route in ("cluster", "cluster_chirp"):
         t_lo, n_fr = geo.cluster_frames(j0, n_out)
         _check_size("istft_ola", rows * T * nb, rows * n_fr, rows * n_out * geo.hop)
         frames = torch.empty((rows, n_fr, geo.win), dtype=torch.float32, device=dev)
+        name, slot = _cluster_entry("istft_cluster", geo, route)
         _launch(
-            "istft_cluster", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+            name, dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
             geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, out_off, out_len,
             geo.istft_len, geo.env_floor, _ptr(_device_f32("post_window", geo.scfg, dev)),
             _ptr(_device_f32("window_squares", geo.scfg, dev)),
-            _ptr(_device_f32("envelope", geo.scfg, dev)), *_cluster_tables(geo, dev),
-            _ptr(frames), t_lo, n_fr, _ptr(out),
+            _ptr(_device_f32("envelope", geo.scfg, dev)), *slot,
+            *_cluster_tables(geo, route, dev), _ptr(frames), t_lo, n_fr, _ptr(out),
         )
     else:
         _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
@@ -979,7 +1025,7 @@ def _fm_constants(b: float, lane_len: int, short: int, tile_len: int, last_tile:
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
 ROUTED = (spectra, istft_ola)  # the kernels with routes
-ROUTES = ("fft", "chirp", "cluster", "product")
+ROUTES = ("fft", "chirp", "cluster", "cluster_chirp", "product")
 FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 
 
@@ -1015,7 +1061,8 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches of kernels A and D by route, e.g. {"spectra": {"fft": 1,
-    "chirp": 0, "cluster": 0, "product": 0}, "istft_ola": {...}}."""
+    "chirp": 0, "cluster": 0, "cluster_chirp": 0, "product": 0},
+    "istft_ola": {...}}."""
     return {fn.__name__: {route: getattr(fn, f"{route}_launches") for route in ROUTES}
             for fn in ROUTED}
 

@@ -631,10 +631,13 @@ ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256)
                dict(n_fft=1323, hop_length=441), dict(n_fft=4851, hop_length=1617),
                dict(n_fft=1102, hop_length=551), dict(n_fft=1101, hop_length=367),
                dict(n_fft=2040, hop_length=510), dict(n_fft=2035, hop_length=407),
-               dict(n_fft=4106, hop_length=2053), dict(n_fft=40, hop_length=10)]
+               dict(n_fft=4106, hop_length=2053), dict(n_fft=40, hop_length=10),
+               dict(n_fft=4801, hop_length=4801), dict(n_fft=4803, hop_length=1601),
+               dict(n_fft=8194, hop_length=4097)]
 ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536", "nfft400", "nfft882",
              "nfft1100", "nfft1040", "nfft441", "nfft1323", "nfft4851", "nfft1102",
-             "nfft1101", "nfft2040", "nfft2035", "nfft4106", "nfft40"]
+             "nfft1101", "nfft2040", "nfft2035", "nfft4106", "nfft40", "nfft4801", "nfft4803",
+             "nfft8194"]
 
 
 def _routes(route, n=1):
@@ -649,10 +652,12 @@ def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
     """The geometry picks the route (an n_fft whose transform of n_fft/2 or,
     odd, n_fft points has no prime factor above 13 the FFT, 1102 = 2 x 19 x
     29, 1101 = 3 x 367, 2040 = 2^3 3 5 17, 2035 = 5 11 37 and 4106 = 2 x
-    2053 the chirp-z, 40 the product); each launch is counted on its route;
-    every route holds its plain versions at 2e-5 x max|ref| (1e-5 under
-    torch conventions). The chirp lengths: 1152 and 2304 (2^a 3^b), 2048
-    and 4096 (powers of two within a block), 8192 (a big block)."""
+    2053 the chirp-z, 4801 (prime), 4803 = 3 x 1601 and 8194 = 2 x 17 x 241
+    the cluster chirp, 40 the product); each launch is counted on its
+    route; every route holds its plain versions at 2e-5 x max|ref| (1e-5
+    under torch conventions). The chirp lengths: 1152 and 2304 (2^a 3^b),
+    2048 and 4096 (powers of two within a block), 8192 (a big block), 9720
+    (2^3 3^5 5 over 2 blocks)."""
     extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
     geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
     route = fft_route(geo.scfg)
@@ -707,13 +712,21 @@ def test_odd_istft_output_does_not_depend_on_the_run(cuda, kw):
     (dict(n_fft=1102, hop_length=551, use_torch=True), "chirp"),
     # n_fft 40 at 16 kHz: bins 400 Hz apart, so a wider frequency smoothing
     (dict(n_fft=40, hop_length=10, freq_mask_smooth_hz=1000), "product"),
+    # n_fft 4803 at 16 kHz: a hop of 100 ms, so a wider time smoothing
+    (dict(n_fft=4803, hop_length=1601, time_mask_smooth_ms=200), "cluster_chirp"),
+    (dict(n_fft=4803, hop_length=1601, time_mask_smooth_ms=200, stationary=True),
+     "cluster_chirp"),
+    (dict(n_fft=4803, hop_length=1601, time_mask_smooth_ms=200, use_torch=True),
+     "cluster_chirp"),
 ], ids=["nonstationary", "stationary", "use_torch", "nfft1536", "nfft1536-use_torch",
         "nfft400", "nfft1100", "nfft1100-use_torch", "nfft441", "nfft441-stationary",
-        "nfft1102", "nfft1102-use_torch", "nfft40"])
+        "nfft1102", "nfft1102-use_torch", "nfft40", "nfft4803", "nfft4803-stationary",
+        "nfft4803-use_torch"])
 def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
     """A path launches A and D on its geometry's route only (1024, 1536,
-    400, 1100 and 441 the FFT route, 1102 the chirp-z route, 40 the
-    product route); the output matches the CPU parity mode."""
+    400, 1100 and 441 the FFT route, 1102 the chirp-z route, 4803 the
+    cluster chirp route, 40 the product route); the output matches the
+    CPU parity mode."""
     y = np.random.default_rng(25).standard_normal((2, 30000))
     K.reset_launch_counts()
     got = nrt.reduce_noise(y, 16000, chunk_size=8000, padding=1500, **kw)
@@ -1052,6 +1065,15 @@ LONG_GEOMS = {  # n_fft, hop, the route
     "nfft32768": (dict(n_fft=32768, hop_length=16384), "cluster"),
     "nfft19683": (dict(n_fft=19683, hop_length=6561), "cluster"),
     "nfft62500": (dict(n_fft=62500, hop_length=12500), "cluster"),
+    # the cluster chirp route: prime 4801 (L = 9720, 2 blocks), odd 4803 =
+    # 3 x 1601, even 16386 (n = 3 x 2731, L = 16875, 3 blocks), 16940 (n =
+    # 2 5 7 11^2: 13-smooth with no cluster shape; L = 17280), 65534 (n = 7
+    # 31 151, L = 65536, 8 blocks)
+    "nfft4801": (dict(n_fft=4801, hop_length=4801), "cluster_chirp"),
+    "nfft4803": (dict(n_fft=4803, hop_length=1601), "cluster_chirp"),
+    "nfft16386": (dict(n_fft=16386, hop_length=2731), "cluster_chirp"),
+    "nfft16940": (dict(n_fft=16940, hop_length=4235), "cluster_chirp"),
+    "nfft65534": (dict(n_fft=65534, hop_length=32767), "cluster_chirp"),
 }
 
 
@@ -1075,10 +1097,11 @@ def _long_case(name, convention, cuda, dtype=torch.float32):
 def test_long_frame_routes_match_plain_versions(cuda, name, convention):
     """Past n_fft 8192: 16384 and 12000 on the FFT route's big block (n =
     8192 and 6000), 40000, 32768, 19683 (odd, two frames a transform) and
-    62500 on the cluster route (4, 2, 3 and 5 blocks); A and D within the
-    FFT cells' bounds of their plain versions (2e-5 x max|ref|, 1e-5 under
-    torch conventions), every launch on that route (none on the product
-    route), bitwise from call to call."""
+    62500 on the cluster route (4, 2, 3 and 5 blocks); 4801, 4803, 16386,
+    16940 and 65534 on the cluster chirp route (2, 2, 3, 3 and 8 blocks);
+    A and D within the FFT cells' bounds of their plain versions (2e-5 x
+    max|ref|, 1e-5 under torch conventions), every launch on that route
+    (none on the product route), bitwise from call to call."""
     geo, x, cs, pad = _long_case(name, convention, cuda)
     tol = 2e-5 if convention == "scipy" else 1e-5
     K.reset_launch_counts()
@@ -1100,7 +1123,8 @@ def test_long_frame_routes_match_plain_versions(cuda, name, convention):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["nfft16384", "nfft40000", "nfft19683"])
+@pytest.mark.parametrize("name", ["nfft16384", "nfft40000", "nfft19683", "nfft4801",
+                                  "nfft16386", "nfft65534"])
 def test_bf16_long_frame_routes_match_plain_versions(cuda, name):
     """The bfloat16 builds of the long-frame routes, held as the other
     routes' bf16 builds are: within one bf16 ulp plus the float32 bound."""
@@ -1121,12 +1145,13 @@ def test_bf16_long_frame_routes_match_plain_versions(cuda, name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
-@pytest.mark.parametrize("name", ["nfft40000", "nfft19683"])
+@pytest.mark.parametrize("name", ["nfft40000", "nfft19683", "nfft4803", "nfft16386"])
 def test_cluster_walk_wraps_past_the_clusters_that_fit(cuda, name, dtype):
-    """More slots than the cluster route's persistent grid holds (the
+    """More slots than the cluster routes' persistent grid holds (the
     clusters that fit on the card at once, ``K.cluster_capacity``), so
     every cluster walks several slots: A's slots and D's frames, 40000 (4
-    blocks) and odd 19683 (3 blocks, two frames a slot), each within its
+    blocks) and odd 19683 (3 blocks, two frames a slot), and on the
+    cluster chirp route odd 4803 (2 blocks) and 16386 (3), each within its
     bound of the plain version (bf16: one bf16 ulp more) and bitwise from
     call to call."""
     kw, _ = LONG_GEOMS[name]
@@ -1154,7 +1179,7 @@ def test_cluster_walk_wraps_past_the_clusters_that_fit(cuda, name, dtype):
     else:
         assert _max(re - rre) <= 2e-5 * _max(rre) and _max(im - rim) <= 2e-5 * _max(rre)
         assert _max(out - ref) <= 2e-5 * _max(ref)
-    assert K.route_counts() == _routes("cluster")
+    assert K.route_counts() == _routes(geo.route)
     assert torch.equal(K.spectra(x, geo)[1], im)
     assert torch.equal(K.istft_ola(re, im, mask, geo, 0, view), out)
 
@@ -1192,6 +1217,29 @@ def test_long_frame_reduce_noise_on_card(cuda, kw):
     counts = K.launch_counts()
     assert counts["freq_smooth_blend"] == 1 and counts["istft_ola"] == 1
     assert K.route_counts() == {k: _routes("cluster", counts[k])[k]
+                                for k in ("spectra", "istft_ola")}
+    ref = nrt.reduce_noise(y, 48000, device="cpu", **args)
+    assert got.shape == y.shape and np.isfinite(got).all()
+    if not kw.get("stationary"):
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(stationary=True), dict(use_torch=True)],
+                         ids=["nonstationary", "stationary", "use_torch"])
+def test_cluster_chirp_reduce_noise_on_card(cuda, kw):
+    """reduce_noise(y, 48000, n_fft=4803, hop_length=1601) (a 100 ms
+    window of 3 x 1601 samples) on 400,000 samples runs on the card on all
+    three engines, A and D on the cluster chirp route, within 5e-5 x
+    max|ref| of the CPU path (stationary: held at finite values of the
+    shape, as above)."""
+    y = np.random.default_rng(34).standard_normal(400_000).astype(np.float32)
+    args = dict(n_fft=4803, hop_length=1601, **kw)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 48000, **args)
+    counts = K.launch_counts()
+    assert counts["istft_ola"] == 1
+    assert K.route_counts() == {k: _routes("cluster_chirp", counts[k])[k]
                                 for k in ("spectra", "istft_ola")}
     ref = nrt.reduce_noise(y, 48000, device="cpu", **args)
     assert got.shape == y.shape and np.isfinite(got).all()

@@ -13,6 +13,8 @@ holds against the JAX package's STFT. The route predicate is held to
 
 Float64 bound: 1e-9 x the plain version's max |value|.
 """
+import bisect
+import functools
 import pathlib
 import shutil
 import subprocess
@@ -32,10 +34,13 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_MIN_NFFT,
     FFT_WARP_POINTS,
     FFT_WARPS,
+    CHIRP_MAX_N,
     CLUSTER_MAX,
     SMEM_MAX,
+    _strip,
     chirp_length,
     cluster_build,
+    cluster_chirp_lengths,
     cluster_layout,
     cluster_shape,
     fft_route,
@@ -99,6 +104,15 @@ CLUSTER_GEOMS = {
     "nfft19683-r3": dict(n_fft=19683, hop_length=6561),
     "torch-nfft19683-r3": dict(n_fft=19683, hop_length=6561, **TORCH),
     "nfft62500-r5": dict(n_fft=62500, hop_length=12500),
+}
+# the cluster chirp route: odd prime 4801 (L = 9720, 2 blocks; r = 1) and
+# odd 4803 = 3 x 1601 (r = 3), even 16386 (n = 3 x 2731, L = 16875 = 3^3
+# 5^4, 3 blocks) and 9218 (n = 11 x 419, L = 9375 = 3 5^5, 5 blocks)
+CLUSTER_CHIRP_GEOMS = {
+    "nfft4801-r1": dict(n_fft=4801, hop_length=4801),
+    "torch-nfft4803-r3": dict(n_fft=4803, hop_length=1601, **TORCH),
+    "nfft16386-r6": dict(n_fft=16386, hop_length=2731),
+    "nfft9218-r2": dict(n_fft=9218, hop_length=4609),
 }
 CS, PAD, N_SRC = 4000, 700, 9500
 
@@ -597,9 +611,11 @@ def test_multiply_high_division_is_exact():
     frame's pairs (n + 1) / 2 and bins, 8193 at n_fft 16384; a segment's
     warps) every x below 2^14; on the cluster route (n1, n2, a block's
     columns n1 / c and rows n2 / c, the stages of the n1- and n2-point
-    FFTs, for every n_fft to 131072 it serves) every x below 2^17, past a
-    transform's n <= 2^16 points. Every plan fits fft_smem.cuh's
-    MAX_STAGES (12)."""
+    FFTs, for every n_fft to 131072 it serves; on the cluster chirp route
+    the same for every chirp length, and the runs of both of its pulls in
+    their values, rows ldc and cols ldr, halved where even) every x below
+    2^17, past a transform's n <= 2^16 points. Every plan fits
+    fft_smem.cuh's MAX_STAGES (12)."""
     ds = set(range(1, FFT_BIG_WARPS + 1))
     for n_fft in _route_sizes():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=n_fft), 4 * n_fft)
@@ -617,6 +633,12 @@ def test_multiply_high_division_is_exact():
             assert len(_radices(n1)) <= 12 and len(_radices(n2)) <= 12
             dc.update((n1, n2, n1 // c, n2 // c, (n1 + 1) // 2, (n2 + 1) // 2),
                       _stage_divisors(n1), _stage_divisors(n2))
+    for L in cluster_chirp_lengths():
+        c, n1, n2 = cluster_shape(L)
+        ldc, ldr, _ = cluster_layout(L)
+        runs = [run // 2 if run % 2 == 0 else run for run in (n2 // c * ldc, n1 // c * ldr)]
+        assert len(_radices(n1)) <= 12 and len(_radices(n2)) <= 12
+        dc.update((n1, n2, n1 // c, n2 // c, *runs), _stage_divisors(n1), _stage_divisors(n2))
     x = np.arange(2**17)
     for d in sorted(dc - ds):
         assert d <= 2**13 and np.array_equal(_div(x, d), x // d), d
@@ -629,15 +651,17 @@ def test_twiddle_table_is_exact_at_quarter_turns():
     _close(tw[:, 0] + 1j * tw[:, 1], np.exp(-2j * np.pi * np.arange(1024) / 1024))
 
 
-@pytest.mark.parametrize("n", [17, 551, 1101, 2053, 4093])
+@pytest.mark.parametrize("n", [17, 551, 1101, 2053, 4093, 4801, 8193, 8470, 32767])
 def test_chirp_z_is_the_dft(n):
-    """The chirp route's arithmetic: cbar_j times the points, the L-point
+    """The chirp routes' arithmetic: cbar_j times the points, the L-point
     FFT, times the host filter spectrum, the unscaled inverse, cbar_k:
-    the n-point DFT (L = 2^a 3^b, or 8192 past a block; 4093 at j^2 up to
-    2^24). The chirp table's index is exact: cbar_j for j near n (j^2
-    near 2^24) agrees with e^{-i pi j^2 / n} taken in exact integers."""
+    the n-point DFT (L = 2^a 3^b, or 8192 past a block; past a big block
+    the cluster chirp lengths 9720, 16875, 17280 and 65536; 4093 at j^2 up
+    to 2^24, 32767 up to 2^30). The chirp table's index is exact: cbar_j
+    for j near n agrees with e^{-i pi j^2 / n} taken in exact integers."""
     L = chirp_length(n)
-    assert L >= 2 * n - 1 and (L == FFT_BIG_ELEMS or L <= FFT_ELEMS)
+    assert L >= 2 * n - 1
+    assert L == FFT_BIG_ELEMS or L <= FFT_ELEMS or L in cluster_chirp_lengths()
     cb, filt = _complex(K._chirp_np(n)), _complex(K._chirp_filter_np((n, L)))
     rng = np.random.default_rng(n)
     z = np.zeros((2, L), complex)
@@ -805,60 +829,88 @@ def test_route_predicate(tmp_path):
     n (n_fft/2, or n_fft when odd) has no prime factor above 13 and fits a
     big block (n_fft to 16384), the cluster route when such an n is past
     it and has a cluster shape, else the chirp route when 2n - 1 fits a
-    big block; the product route takes the rest: n_fft below 64, the odd
-    n_fft from 4097 to 8191 with a prime factor above 13 (2005 of them),
-    none from 64 to 4096, none of 16384 or 40000: 1100 (M = 2 5^2 11)
-    takes the FFT route, 1102 (M = 19 x 29) the chirp route, 40000 (n =
-    20000) the cluster route. geometry.fft_route, real_kernel and
+    big block, else the cluster chirp route when n is at most CHIRP_MAX_N
+    (32,768) points; the product route takes the rest: n_fft below 64 and
+    the 16,357 odd n_fft from 32,769 to 65,535 with no cluster shape, so
+    no n of at most 32,768 points of an n_fft from 64 on: 1100 (M = 2 5^2
+    11) takes the FFT route, 1102 (M = 19 x 29) the chirp route, 40000 (n
+    = 20000) the cluster route, 4801 (prime), 8194 (n = 17 x 241), 16386
+    (n = 3 x 2731), 16940 (n = 2 5 7 11^2, no cluster shape) and 65534 (n
+    = 7 31 151) the cluster chirp route (2,005 odd n_fft from 4097 to 8191,
+    7,967 n_fft from 8193 to 16384 and 32,253 from 16385 to 65536 that took
+    the product route before it). geometry.fft_route, real_kernel and
     cluster_shape agree with csrc/fft_route.cuh (compiled with the host
     compiler) on every n_fft from 1 to 65536; the kernels take every chirp
-    length the geometry picks (2^a 3^b and power of two), and the default
-    is the smallest they take; the geometry alone decides."""
+    length the geometry picks (2^a 3^b and power of two within a big
+    block, 2^a 3^b 5^c and 2^a 3^b past it), and the default is the
+    smallest they take; the geometry alone decides."""
     cxx = shutil.which("c++") or shutil.which("g++")
     assert cxx, "a host C++ compiler compiles csrc/fft_route.cuh"
     (tmp_path / "route.cpp").write_text(_ROUTE_MAIN)
-    subprocess.run([cxx, "-std=c++17", "-I", str(build.CSRC), "-o", str(tmp_path / "route"),
-                    str(tmp_path / "route.cpp")], check=True)
-    chirps = [(n_fft, n_fft if n_fft % 2 else n_fft // 2)
-              for n_fft in range(1, ROUTE_MAX_NFFT + 1)
-              if fft_route(StftConfig(n_fft=n_fft)) == "chirp"]
-    # the geometry's length, and the power of two that tools/fft_route_timing.py
-    # times in its place
-    asked = [(n, L) for _, n in chirps for L in (chirp_length(n), _pow2_length(n))]
+    subprocess.run([cxx, "-std=c++17", "-O2", "-I", str(build.CSRC), "-o",
+                    str(tmp_path / "route"), str(tmp_path / "route.cpp")], check=True)
+    routes = {n_fft: fft_route(StftConfig(n_fft=n_fft)) for n_fft in range(1, ROUTE_MAX_NFFT + 1)}
+    chirps = [n_fft if n_fft % 2 else n_fft // 2 for n_fft, r in routes.items()
+              if r in ("chirp", "cluster_chirp")]
+    # the geometry's length, and the one tools/fft_route_timing.py times in
+    # its place: a power of two within a big block, 2^a 3^b past it
+    asked = [(n, L) for n in chirps for L in (chirp_length(n), _other_length(n))]
     lines = subprocess.run([str(tmp_path / "route")], check=True, capture_output=True,
                            text=True, input="".join(f"{n} {L}\n" for n, L in asked)
                            ).stdout.splitlines()
-    names = {0: "product", 1: "fft", 2: "chirp", 3: "cluster"}
-    product = []
+    names = {0: "product", 1: "fft", 2: "chirp", 3: "cluster", 4: "cluster_chirp"}
+    product, was_product = [], {}
     for n_fft, line in zip(range(1, ROUTE_MAX_NFFT + 1), lines):
         route, real, *shape = map(int, line.split())
-        assert fft_route(StftConfig(n_fft=n_fft)) == names[route], n_fft
+        assert routes[n_fft] == names[route], n_fft
         assert real_kernel(n_fft) == bool(real), n_fft
         assert (cluster_shape(n_fft if n_fft % 2 else n_fft // 2) or (0, 0, 0)) == tuple(shape)
-        if FFT_MIN_NFFT <= n_fft <= FFT_BIG_ELEMS and route == 0:
+        if n_fft >= FFT_MIN_NFFT and route == 0:
             product.append(n_fft)
+        if route == 4:  # the product route's before the cluster chirp route
+            band = next(b for b in ((4097, 8191), (8193, 16384), (16385, 65536))
+                        if b[0] <= n_fft <= b[1])
+            was_product[band] = was_product.get(band, 0) + 1
     for (n, L), line in zip(asked, lines[ROUTE_MAX_NFFT:]):
         ok, least = map(int, line.split())
         assert ok and L >= 2 * n - 1, (n, L)
         assert chirp_length(n) == least, n
     assert len(lines) == ROUTE_MAX_NFFT + len(asked)
-    assert all(n > 4096 and n % 2 for n in product) and len(product) == 2005
-    assert all(fft_route(StftConfig(n_fft=n)) == "product" for n in (32, 63, 8194, 16386))
+    assert all(n % 2 and n > CHIRP_MAX_N for n in product) and len(product) == 16357
+    assert was_product == {(4097, 8191): 2005, (8193, 16384): 7967, (16385, 65536): 32253}
+    assert all(routes[n] == "product" for n in (32, 63, 32769, 65535))
     for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 4851,
               12000, 16384):
-        assert fft_route(StftConfig(n_fft=n)) == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
+        assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
     for n in (40000, 32768, 19683, 62500):
-        assert fft_route(StftConfig(n_fft=n)) == "cluster"
+        assert routes[n] == "cluster"
     assert not real_kernel(16384) and real_kernel(8192)
     for n in (1102, 1101, 4106, 2 * 17 * 32, 8182):
-        assert fft_route(StftConfig(n_fft=n)) == "chirp"
+        assert routes[n] == "chirp"
+    for n in (4801, 4803, 8194, 16386, 16940, 65534, 32767, 9218):
+        assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "cluster_chirp"
     assert chirp_length(551) == 1152 and _pow2_length(551) == 2048
+    assert [chirp_length(n) for n in (4801, 8193, 8470, 32767)] == [9720, 16875, 17280, 65536]
     geo = gate_geometry(StftConfig(n_fft=1100, hop_length=275), 8000)
     assert geo.r == 4 and geo.route == "fft" and not geo.fft_real
     assert gate_geometry(StftConfig(n_fft=1102, hop_length=551), 8000).route == "chirp"
-    assert gate_geometry(StftConfig(n_fft=4099, hop_length=4099), 8000).route == "product"
+    assert gate_geometry(StftConfig(n_fft=4099, hop_length=4099), 8000).route == "cluster_chirp"
     assert gate_geometry(StftConfig(n_fft=1536, hop_length=384), 8000).route == "fft"
     assert gate_geometry(StftConfig(n_fft=512), 8000).route == "fft"
+
+
+def _other_length(n):
+    """The chirp length tools/fft_route_timing.py times beside the
+    route's own: a power of two within a big block (``_pow2_length``), the
+    smallest 2^a 3^b with a cluster shape past it."""
+    if 2 * n - 1 <= FFT_BIG_ELEMS:
+        return _pow2_length(n)
+    return _family_lengths_23()[bisect.bisect_left(_family_lengths_23(), 2 * n - 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _family_lengths_23():
+    return tuple(L for L in cluster_chirp_lengths() if _strip(L, (2, 3)) == 1)
 
 
 def _pow2_length(n):
@@ -921,7 +973,7 @@ def test_route_counts_stay_zero_on_cpu():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 8000)
         re, im = K.spectra(x, geo)
         K.istft_ola(re, im, torch.ones_like(re), geo, 0, 8000)
-    zero = {"fft": 0, "chirp": 0, "cluster": 0, "product": 0}
+    zero = {"fft": 0, "chirp": 0, "cluster": 0, "cluster_chirp": 0, "product": 0}
     assert K.route_counts() == {"spectra": zero, "istft_ola": zero}
 
 
@@ -969,50 +1021,59 @@ def _cstage(load, dst, radices, s, m, nb, ld, tw, inverse):
         dst[(d + r * ns) * ld + b] = v[:, r]
 
 
+def _cluster_stages(first, radices, m, nb, ld, tw, inverse, size):
+    """One block's m-point FFTs of nb batches at stride ld
+    (fft_cluster.cuh::cluster_fft's loops): the first stage loads through
+    ``first(b, i)`` into buffer a, the stages then alternate between the
+    block's two buffers, which start as NaN (a read of a value no stage
+    wrote shows). Returns the last one written."""
+    a, b = np.full(size, np.nan, complex), np.full(size, np.nan, complex)
+    _cstage(first, a, radices, 0, m, nb, ld, tw, inverse)
+    for s in range(1, len(radices)):
+        src = a
+        _cstage(lambda bb, i: src[i * ld + bb], b, radices, s, m, nb, ld, tw, inverse)
+        a, b = b, a
+    return a
+
+
+def _pull(held, q, c, run):
+    """fft_cluster.cuh::pull into block q: value e (a float2, or a float4 of
+    two where run is even) of block o = e / run' from o's buffer ``held[o]``
+    at q run' + e - o run'. Asserts that it copies the run [q run, (q + 1)
+    run) of every block's buffer."""
+    wide = run % 2 == 0
+    v = run // 2 if wide else run
+    e = np.arange(c * v)
+    o = _div(e, v)
+    width = 2 if wide else 1
+    at = ((q * v + e - o * v)[:, None] * width + np.arange(width)[None, :]).ravel()
+    assert np.array_equal(at.reshape(c, -1), np.tile(np.arange(q * run, (q + 1) * run), (c, 1)))
+    return held[np.repeat(o, width), at]
+
+
 def _cluster_transform(gather, geo, inverse):
-    """fft_cluster.cuh::cluster_fft on one slot; ``gather(q, col, j2)``
-    gives block q's step-1 point j2 of column col (arrays). Each block's
-    two buffers start as NaN (a read of a value no stage wrote shows); step
-    1's stages alternate between them, n2 points of each column at stride
-    ldc; the pull copies rows [q rows, (q + 1) rows) of every block's last
+    """fft_cluster.cuh::cluster_fft on one slot of the geometry's FFT (n
+    points, or the chirp length L on the cluster chirp route);
+    ``gather(q, col, j2)`` gives block q's step-1 point j2 of column col
+    (arrays). Step 1's stages take n2 points of each column at stride ldc;
+    the pull copies rows [q rows, (q + 1) rows) of every block's last
     buffer, one contiguous run of rows ldc values each (float4s where that
     is even); step 4's first stage reads row r = k2 - q rows of column j1
     from the run of block j1 / cols, times w_n^{j1 k2}; its stages
     alternate at stride ldr. Returns (each block's output buffer, ``at(k)``: output
     point k from the block that holds it, cluster_point)."""
     c, n1, n2 = geo.cluster
-    n = geo.fft_n
+    n = geo.fft_layout()[0]
     cols, rows = n1 // c, n2 // c
     ldc, ldr, size = cluster_layout(n)
     tw1, tw2, twn = _twiddles(2 * n1), _twiddles(2 * n2), _twiddles(n)
     rad1, rad2 = _radices(n1), _radices(n2)
-
-    def fft(first, radices, m, nb, ld, tw):
-        a, b = np.full(size, np.nan, complex), np.full(size, np.nan, complex)
-        _cstage(first, a, radices, 0, m, nb, ld, tw, inverse)
-        for s in range(1, len(radices)):
-            src = a
-            _cstage(lambda bb, i: src[i * ld + bb], b, radices, s, m, nb, ld, tw, inverse)
-            a, b = b, a
-        return a
-
-    held = np.stack([fft(lambda col, j2, q=q: gather(q, col, j2), rad2, n2, cols, ldc, tw2)
-                     for q in range(c)])
-
+    held = np.stack([_cluster_stages(lambda col, j2, q=q: gather(q, col, j2), rad2, n2, cols,
+                                     ldc, tw2, inverse, size) for q in range(c)])
     run = rows * ldc  # a block's rows of one block's step-1 buffer
-    wide = run % 2 == 0
 
     def exchange(q):
-        # the pull: value e (a float2, or a float4 of two where run is even)
-        # of block o = e / run' from o's buffer at q run' + e - o run'
-        v = run // 2 if wide else run
-        e = np.arange(c * v)
-        o = _div(e, v)
-        width = 2 if wide else 1
-        at = ((q * v + e - o * v)[:, None] * width + np.arange(width)[None, :]).ravel()
-        pulled = held[np.repeat(o, width), at]
-        assert np.array_equal(at.reshape(c, -1),
-                              np.tile(np.arange(q * run, (q + 1) * run), (c, 1)))
+        pulled = _pull(held, q, c, run)
 
         def load(r, j1):
             owner = _div(j1, cols)
@@ -1021,13 +1082,63 @@ def _cluster_transform(gather, geo, inverse):
                 np.conj(t) if inverse else t)
         return load
 
-    out = np.stack([fft(exchange(q), rad1, n1, rows, ldr, tw1) for q in range(c)])
+    out = np.stack([_cluster_stages(exchange(q), rad1, n1, rows, ldr, tw1, inverse, size)
+                    for q in range(c)])
 
     def at(k):  # cluster_point
         k1 = _div(k, n2)
         k2 = k - k1 * n2
         owner = _div(k2, rows)
         return out[owner, k1 * ldr + k2 - owner * rows]
+
+    return out, at
+
+
+def _cluster_convolve(gather, geo, conj):
+    """fft_cluster.cuh::cluster_convolve on one slot of the cluster chirp
+    route (L = n1 n2 points): the forward transform (``_cluster_transform``),
+    the first stage of the n1-point inverses of each block's rows taking
+    point k1 of row r times the host's filter spectrum at (q n1 + k1) rows
+    + r (``K._cluster_chirp_filter_np``; ``conj``: its conjugate), then the
+    pull back of columns [q cols, (q + 1) cols) of every block's rows (one
+    run of cols ldr values each), the first stage of the n2-point inverses
+    of the columns taking column col's point k2 from block k2 / rows times
+    w_L^{-j1 k2}. Asserts that the filter's layout is H[k], k = q rows + r +
+    n2 k1. Returns (each block's columns, ``at(j)``: point j of the result
+    from the block that holds it, cluster_column_point)."""
+    c, n1, n2 = geo.cluster
+    L = geo.fft_layout()[0]
+    cols, rows = n1 // c, n2 // c
+    ldc, ldr, size = cluster_layout(L)
+    tw1, tw2, twn = _twiddles(2 * n1), _twiddles(2 * n2), _twiddles(L)
+    h = _complex(K._cluster_chirp_filter_np((geo.fft_n, L)))
+    full = _complex(K._chirp_filter_np((geo.fft_n, L)))
+    q_, k1_, r_ = np.meshgrid(np.arange(c), np.arange(n1), np.arange(rows), indexing="ij")
+    assert np.array_equal(h, full[(q_ * rows + r_ + n2 * k1_).ravel()])
+    h = (np.conj(h) if conj else h).reshape(c, n1 * rows)
+    fwd, _ = _cluster_transform(gather, geo, False)
+    inv = np.stack([_cluster_stages(lambda r, k1, q=q: fwd[q][k1 * ldr + r] * h[q][k1 * rows + r],
+                                    _radices(n1), n1, rows, ldr, tw1, True, size)
+                    for q in range(c)])
+    back = cols * ldr
+
+    def exchange(q):
+        pulled = _pull(inv, q, c, back)
+
+        def load(col, k2):
+            owner = _div(k2, rows)
+            t = np.conj(twn[(q * cols + col) * k2])
+            return pulled[owner * back + col * ldr + k2 - owner * rows] * t
+        return load
+
+    out = np.stack([_cluster_stages(exchange(q), _radices(n2), n2, cols, ldc, tw2, True, size)
+                    for q in range(c)])
+
+    def at(j):  # cluster_column_point
+        j2 = _div(j, n1)
+        j1 = j - j2 * n1
+        owner = _div(j1, cols)
+        return out[owner, j2 * ldc + j1 - owner * cols]
 
     return out, at
 
@@ -1051,6 +1162,22 @@ def _step1_points(geo, q, col, j2):
     return q * (n1 // c) + col + n1 * j2
 
 
+def _block_columns(geo, q, k_end):
+    """(j2, col, k) of block q's points k < k_end of the chirp's result, e
+    = j2 cols + col (Div by cols) over j2 < ceil(k_end / n1): k = q cols +
+    col + n1 j2, consecutive threads on consecutive j1 (the unpack of
+    spectra_cluster.cu, the scratch writes of istft_cluster.cu on the
+    cluster chirp route)."""
+    c, n1, n2 = geo.cluster
+    cols = n1 // c
+    e = np.arange(cols * min(n2, -(-k_end // n1)))
+    j2 = _div(e, cols)
+    col = e - j2 * cols
+    k = q * cols + col + n1 * j2
+    keep = k < k_end
+    return j2[keep], col[keep], k[keep]
+
+
 def _emulate_spectra_cluster(x, geo, cs=0, pad=0, clusters=3):
     """csrc/spectra_cluster.cu: ``clusters`` persistent clusters walk the
     slots (a frame; a frame pair 2s, 2s + 1 for an odd n_fft, zero past
@@ -1058,11 +1185,18 @@ def _emulate_spectra_cluster(x, geo, cs=0, pad=0, clusters=3):
     zero-filled signal (z[q] = u[2q] + i u[2q+1], or u_a + i u_b), the
     cluster's transform, and per bin k of its rows its partner n - k from
     the block that holds it: the split, and the Nyquist bin from k = 0
-    (even n_fft), or the pair's two frames (odd). Asserts that the walk
-    takes every slot once and the blocks' bins cover the slot once."""
+    (even n_fft), or the pair's two frames (odd). On the cluster chirp
+    route the gather takes z_j cbar_j for j < n and zero up to L, the
+    cluster's convolution, and the unpack the points k < n (bins k <
+    n_bins, odd) of each block's columns times cbar_k, the partner times
+    cbar_{n-k}. Asserts that the walk takes every slot once and the blocks'
+    bins cover the slot once."""
     N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
     c = geo.cluster[0]
-    ldr = cluster_layout(n)[1]
+    L = geo.fft_layout()[0]
+    ldc, ldr, _ = cluster_layout(L)
+    chirp = geo.route == "cluster_chirp"
+    cb = _complex(K._chirp_np(n)) if chirp else None
     tws = _twiddles(N)
     rows, src = x.shape
     k_chunks = n_chunks_for(src, cs) if cs else 1
@@ -1089,6 +1223,8 @@ def _emulate_spectra_cluster(x, geo, cs=0, pad=0, clusters=3):
             ok = (p >= 0) & (p < geo.view_len) & (s_ >= 0) & (s_ < src)
             u[i, :win] = ws * np.where(ok, x[h, np.clip(s_, 0, src - 1)], 0.0)
         pts = u[0] + 1j * u[1] if paired else u[0, 0::2] + 1j * u[0, 1::2]
+        if chirp:  # z_j cbar_j, zero past n
+            pts = np.concatenate([pts * cb, np.zeros(L - n)])
         gathered = []
 
         def gather(q, col, j2):
@@ -1096,16 +1232,26 @@ def _emulate_spectra_cluster(x, geo, cs=0, pad=0, clusters=3):
             gathered.append(j)
             return pts[j]
 
-        out, at = _cluster_transform(gather, geo, False)
-        assert np.array_equal(np.sort(np.concatenate(gathered)), np.arange(n))
+        if chirp:
+            out, at = _cluster_convolve(gather, geo, False)
+        else:
+            out, at = _cluster_transform(gather, geo, False)
+        assert np.array_equal(np.sort(np.concatenate(gathered)), np.arange(L))
         zk, ks = [], []
         for q in range(c):  # block q's bins, in its own buffer
-            k1, rr, k = _block_points(geo, q)
-            zk.append(out[q, k1 * ldr + rr])
+            if chirp:
+                j2, col, k = _block_columns(geo, q, nb if paired else n)
+                zk.append(out[q, j2 * ldc + col] * cb[k])
+            else:
+                k1, rr, k = _block_points(geo, q)
+                zk.append(out[q, k1 * ldr + rr])
             ks.append(k)
         k, zk = np.concatenate(ks), np.concatenate(zk)
-        assert np.array_equal(np.sort(k), np.arange(n))
-        zm = at(np.where(k > 0, n - k, 0))  # the partner from the block that holds it
+        assert np.array_equal(np.sort(k), np.arange(nb if chirp and paired else n))
+        km = np.where(k > 0, n - k, 0)
+        zm = at(km)  # the partner from the block that holds it
+        if chirp:
+            zm = zm * cb[km]
         if paired:
             keep = k < nb
             xa = 0.5 * (zk + np.conj(zm))
@@ -1137,6 +1283,10 @@ def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, clusters=3):
     every output sample once."""
     N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
     c = geo.cluster[0]
+    L = geo.fft_layout()[0]
+    ldc, ldr, _ = cluster_layout(L)
+    chirp = geo.route == "cluster_chirp"
+    cb = _complex(K._chirp_np(n)) if chirp else None
     tws = _twiddles(N)
     B, T, _ = re.shape
     hop, r, win = geo.hop, geo.r, geo.win
@@ -1161,18 +1311,31 @@ def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, clusters=3):
         ta = t_lo + si * fps
         ya, yb = spectrum(b, ta), spectrum(b, ta + 1)
 
-        def gather(q, col, j2):
-            j = _step1_points(geo, q, col, j2)
+        def point(j):
             if paired:
                 jm = np.where(j < nb, j, n - j)
                 return np.where(j < nb, ya[jm] + 1j * yb[jm],
                                 np.conj(ya[jm]) + 1j * np.conj(yb[jm]))
             return _unsplit(ya[j], np.where(j == 0, ya[n], ya[(n - j) % n]), tws[j])[0]
 
-        out, _ = _cluster_transform(gather, geo, True)
+        def gather(q, col, j2):
+            j = _step1_points(geo, q, col, j2)
+            if chirp:  # W_j c_j, zero past n
+                jn = np.minimum(j, n - 1)
+                return np.where(j < n, point(jn) * np.conj(cb[jn]), 0.0)
+            return point(j)
+
+        if chirp:
+            out, _ = _cluster_convolve(gather, geo, True)
+        else:
+            out, _ = _cluster_transform(gather, geo, True)
         for q in range(c):
-            k1, rr, k = _block_points(geo, q)
-            pt = out[q, k1 * cluster_layout(n)[1] + rr]
+            if chirp:  # the points with a sample in the frame, times c_k
+                j2, col, k = _block_columns(geo, q, win if paired else -(-win // 2))
+                pt = out[q, j2 * ldc + col] * np.conj(cb[k])
+            else:
+                k1, rr, k = _block_points(geo, q)
+                pt = out[q, k1 * ldr + rr]
             i = ta - t_lo
             if paired:
                 keep = k < win
@@ -1266,6 +1429,32 @@ def test_cluster_buffers_fit_shared_memory():
         5, 1, 3, 5, 105, 15015]
 
 
+def test_cluster_chirp_lengths():
+    """Every n of the cluster chirp route (an n_fft from 64 whose n takes
+    neither the FFT, the cluster nor the chirp route, to CHIRP_MAX_N
+    points): its chirp length L >= 2n - 1 is the smallest 2^a 3^b 5^c with
+    a cluster shape, whose build is one of the chirp's (1, 3, 5 or 15:
+    fft_cluster.cuh::with_chirp_build) and whose two buffers fit a block's
+    shared memory; every such L is at most CLUSTER_MAX big blocks, so
+    every n to CHIRP_MAX_N has one."""
+    lengths = cluster_chirp_lengths()
+    family = [L for L in range(FFT_BIG_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1)
+              if _strip(L, (2, 3, 5)) == 1]
+    assert lengths == tuple(L for L in family if cluster_shape(L))
+    assert lengths[-1] == CLUSTER_MAX * FFT_BIG_ELEMS and lengths[0] == 8640
+    for L in lengths:
+        assert cluster_build(L) in (1, 3, 5, 15), L
+        assert 2 * cluster_layout(L)[2] * 8 <= SMEM_MAX, L
+    ns = sorted({n_fft if n_fft % 2 else n_fft // 2 for n_fft in range(FFT_MIN_NFFT, 2 * CHIRP_MAX_N + 1)
+                 if fft_route(StftConfig(n_fft=n_fft)) == "cluster_chirp"})
+    assert ns[0] == 4097 and ns[-1] == CHIRP_MAX_N - 1  # 32768 takes the cluster route
+    for n in ns:
+        L = chirp_length(n)
+        assert L >= 2 * n - 1 and cluster_shape(L), n
+        below = bisect.bisect_left(family, 2 * n - 1)
+        assert not any(cluster_shape(M) for M in family[below:family.index(L)]), n
+
+
 @pytest.mark.parametrize("c", [2, 3, 4, 5])
 @pytest.mark.parametrize("clusters,total", [(1, 7), (4, 4), (6, 41), (64, 41), (33, 5159)])
 def test_persistent_walk_covers_every_slot_once(c, clusters, total):
@@ -1302,6 +1491,42 @@ def test_spectra_cluster_emulation_matches_plain_version(kw, chunked):
     ere, eim = _emulate_spectra_cluster(x, geo, cs, pad)
     _close(ere, re.numpy())
     _close(eim, im.numpy())
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+@pytest.mark.parametrize("kw", CLUSTER_CHIRP_GEOMS.values(), ids=CLUSTER_CHIRP_GEOMS.keys())
+def test_spectra_cluster_chirp_emulation_matches_plain_version(kw, chunked):
+    """Kernel A on the cluster chirp route (the chirp-z convolution over the
+    cluster's four-step FFT of the chirp length, the filter spectrum in
+    that FFT's order, the inverse back to natural order, the unpack of the
+    first n points of each block's columns) against its plain version."""
+    n_fft = kw["n_fft"]
+    x = np.random.default_rng(41).standard_normal((1, 3 * n_fft))
+    cs, pad = (2 * n_fft, n_fft // 4) if chunked else (0, 0)
+    geo = gate_geometry(StftConfig(**kw), cs + 2 * pad if chunked else 3 * n_fft)
+    assert geo.route == "cluster_chirp" and geo.fft_layout()[0] == chirp_length(geo.fft_n)
+    re, im = K.spectra_ref(torch.as_tensor(x), geo, cs, pad)
+    ere, eim = _emulate_spectra_cluster(x, geo, cs, pad)
+    _close(ere, re.numpy())
+    _close(eim, im.numpy())
+
+
+@pytest.mark.parametrize("window", ["whole", "middle", "past-end"])
+@pytest.mark.parametrize("kw", CLUSTER_CHIRP_GEOMS.values(), ids=CLUSTER_CHIRP_GEOMS.keys())
+def test_istft_cluster_chirp_emulation_matches_plain_version(kw, window):
+    """Kernel D on the cluster chirp route (W_k c_k, the convolution with
+    the conjugate filter, the frame's samples times c_j into the scratch,
+    the same overlap-add pass) against its plain version."""
+    view = 3 * kw["n_fft"]
+    geo = gate_geometry(StftConfig(**kw), view)
+    assert geo.route == "cluster_chirp"
+    rng = np.random.default_rng(42)
+    re, im = rng.standard_normal((2, 1, geo.n_frames, geo.n_bins))
+    mask = rng.random(re.shape)
+    out_off, out_len = {"whole": (0, view), "middle": (view // 3, view // 4),
+                        "past-end": (view - 500, 2000)}[window]
+    ref = K.istft_ola_ref(*(torch.as_tensor(a) for a in (re, im, mask)), geo, out_off, out_len)
+    _close(_emulate_istft_cluster(re, im, mask, geo, out_off, out_len), ref.numpy())
 
 
 @pytest.mark.parametrize("window", ["whole", "middle", "past-end"])

@@ -203,22 +203,24 @@ def test_kernel_tables_and_indexing_match_plain_versions(kw):
         _close(got, ref.numpy())
 
 
-@pytest.mark.parametrize("kw", [dict(n_fft=16386, hop_length=8193),
-                                dict(n_fft=40001, hop_length=40001)],
+@pytest.mark.parametrize("kw,route", [(dict(n_fft=16386, hop_length=8193), "cluster_chirp"),
+                                      (dict(n_fft=40001, hop_length=40001), "product")],
                          ids=["nfft16386", "nfft40001"])
-def test_product_tables_past_8192_build_no_host_table(kw):
-    """Past n_fft 8192 what is left on the product route (n with a prime
-    factor above 13: 8193 = 3 x 2731, 40001 = 13 x 17 x 181) builds its
-    n_fft x n_fft tables on the device they serve, in row blocks: here the
-    meta device, shapes only, while the host allocates a small part of
-    the float64 table it would take on the host; the device-table
-    cache does not keep a table past its byte bound."""
+def test_product_tables_past_8192_build_no_host_table(kw, route):
+    """Past n_fft 8192 the product route (its own n_fft: 40001 = 13 x 17 x
+    181 is past 32,768 points; or forced, as chip_smoke.py and the card
+    tests force it beside another route: 16386, n = 3 x 2731, takes the
+    cluster chirp route) builds its n_fft x n_fft tables on the device
+    they serve, in row blocks: here the meta device, shapes only, while
+    the host allocates a small part of the float64 table it would take on
+    the host; the device-table cache does not keep a table past its byte
+    bound."""
     import tracemalloc
 
     from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry, fft_route
 
     scfg = StftConfig(**kw)
-    assert fft_route(scfg) == "product"
+    assert fft_route(scfg) == route
     geo, meta = GateGeometry(scfg, 0), torch.device("meta")
     K._analysis_table(StftConfig(n_fft=40, hop_length=10), meta)  # first-use allocations
     tracemalloc.start()

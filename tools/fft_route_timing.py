@@ -17,10 +17,16 @@ threshold spectra, TPU row 3). The cluster route also at n_fft 32768 /
 hop 8192 (two blocks) and 19683 / hop 6561 at 44.1 kHz (odd, three
 blocks), each one view of 400,000 samples, and n_fft 40000 / hop 10000
 over all 960 s chunked as ``reduce_noise`` chunks (77 views; the
-throughput case, named ``40000@960``). Every long cell prints A's and D's
-bytes bound: the signal read once and the planes written once (A), the
-planes and the mask read once and the output written once (D), over the
-card's 3.35 TB/s. Two times per kernel: CUDA
+throughput case, named ``40000@960``). The cluster chirp route (the
+product route before it): n_fft 4803 / hop 1601 (3 x 1601, odd) on 60 s
+and on all 960 s chunked (``4803``, ``4803@960``) and 16386 / hop 2731
+(n = 3 x 2731) on 60 s, each also with the 2^a 3^b family's chirp
+length (``*_23_ms``, ``slot_23``) beside the route's own 2^a 3^b 5^c.
+Every long cell prints A's and D's bytes bound: the signal read once and
+the planes written once (A), the planes and the mask read once and the
+output written once (D), over the card's 3.35 TB/s, the host wall of
+each one's first call (tables included) and the peak device memory over
+both (also over the inputs). Two times per kernel: CUDA
 events around one call, the minimum of ``--reps`` runs after a warm-up (the
 host's launch work included, as ``chip_smoke.py`` times), and the device
 time of the kernel alone, the mean over ``--reps`` calls in a
@@ -38,6 +44,7 @@ took.
     python3 tools/fft_route_timing.py [--reps 10] [--cells 1024,1536] [--library] [--product]
     python3 tools/fft_route_timing.py --cells 16384,40000 --library   # the long frames
     python3 tools/fft_route_timing.py --cells 40000,40000@960,32768,19683 --library  # cluster route
+    python3 tools/fft_route_timing.py --cells 4803,4803@960,16386 --library  # cluster chirp route
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -81,16 +88,40 @@ LONG_CELLS = (
     ("32768", "n_fft 32768, 400,000 samples, one view", 32768, 8192, 400000, 48000, False),
     ("19683", "n_fft 19683, 44.1 kHz, 400,000 samples, one view", 19683, 6561, 400000,
      44100, False),
+    # the chirp on the cluster route: odd 4803 = 3 x 1601 (L = 9720, 2
+    # blocks) and even 16386 = 2 x 3 x 2731 (n = 8193, L = 16875, 3
+    # blocks), each hop one that divides the frame
+    ("4803", "n_fft 4803, 60 s, one view", 4803, 1601, 60 * 48000, 48000, False),
+    ("4803@960", "n_fft 4803, 960 s, 77 views", 4803, 1601, 960 * 48000, 48000, True),
+    ("16386", "n_fft 16386, 60 s, one view", 16386, 2731, 60 * 48000, 48000, False),
 )
 # n_fft past which the product route's first call waits for tables too long
-# to time here
-UNTIMED_PRODUCT_NFFT = 16384
+# to time here (40000: 6.4 GB a table)
+UNTIMED_PRODUCT_NFFT = 20000
+# the chirp length families of the cluster route: the route's own
+# (geometry.chirp_length) and the smallest 2^a 3^b with a cluster shape
+CHIRP_FAMILY_23 = (2, 3)
 
 
 def pow2_length(n: int) -> int:
     """The least power of two >= 2n - 1, or 8192 past a block of 4096
     points: a chirp length the kernels take beside the route's own."""
     return 8192 if 2 * n - 1 > 4096 else 1 << (2 * n - 2).bit_length()
+
+
+def family_length(radices):
+    """The chirp length of ``radices``' family past a big block: the
+    smallest L >= 2n - 1 with no other prime factor and a cluster shape
+    (the route's own length within a block)."""
+    from noisereduce_tpu_torch.ops.cuda import geometry as G
+    own = G.chirp_length
+
+    def length(n: int) -> int:
+        if 2 * n - 1 <= G.FFT_BIG_ELEMS:
+            return own(n)
+        return next(L for L in range(2 * n - 1, G.CLUSTER_MAX * G.FFT_BIG_ELEMS + 1)
+                    if G._strip(L, radices) == 1 and G.cluster_shape(L))
+    return length
 
 
 @contextlib.contextmanager
@@ -169,12 +200,25 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
             return cell
     K.reset_launch_counts()
     a = (xs, g, *cut)
+    # the first call of each (host wall, tables and builds of the call
+    # included) and the peak device memory over both
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     re, im = K.spectra(*a)
+    torch.cuda.synchronize()
+    cell["spectra_first_call_s"] = time.perf_counter() - t0
     mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
                       device=re.device)
     d = (re, im, mask, g, *win)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     K.istft_ola(*d)
     torch.cuda.synchronize()
+    cell["istft_ola_first_call_s"] = time.perf_counter() - t0
+    cell["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    cell["peak_over_inputs_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     cell["views"] = re.shape[0]
     cell["routes"] = {k: max(v, key=v.get) for k, v in K.route_counts().items()}
     planes = re.numel() * re.element_size()
@@ -185,6 +229,13 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     cell.update(times("istft_ola", lambda: K.istft_ola(*d)))
     cell["spectra_queued_ms"] = cs.queued_ms(lambda: K.spectra(*a))
     cell["istft_ola_queued_ms"] = cs.queued_ms(lambda: K.istft_ola(*d))
+    if g.route == "cluster_chirp":  # the 2^a 3^b family's length at the same shapes
+        with chirp_lengths(family_length(CHIRP_FAMILY_23)):
+            cell["slot_23"] = g.fft_layout()[0]
+            for name, fn in (("spectra", lambda: K.spectra(*a)),
+                             ("istft_ola", lambda: K.istft_ola(*d))):
+                cell.update({f"{k[:-3]}_23_ms": v for k, v in times(name, fn).items()})
+        cell["slot"] = g.fft_layout()[0]
     if args.library:
         views = (extract_chunks(xs, *cut).reshape(-1, g.view_len).contiguous() if chunked
                  else xs)
@@ -256,6 +307,10 @@ def main() -> None:
     from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
     print(card_line(), flush=True)
+    from noisereduce_tpu_torch.ops.cuda import build
+    t0 = time.perf_counter()
+    build.load()  # before any cell, so that no first call times the build
+    print(f"kernel library loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     signals = {SR: torch.as_tensor(headline_signal(960)).cuda()}
     out = {"package": str(pathlib.Path(noisereduce_tpu_torch.__file__).parent), "cells": {}}
     for name, n_fft, hop, secs, sr in CELLS:

@@ -10,7 +10,7 @@ writes every output (torch.save): A and D on each of their routes (n_fft
 1024, the power-of-two real-FFT kernel; 1536, the mixed-radix one; 1100,
 the complex-frame kernels; 1323, odd, two frames a transform; 1102, the
 chirp-z route; 40, the DFT products; 40000, 32768 and 19683, the cluster
-route), in both STFT conventions, over 3
+route; 4803, the cluster chirp route), in both STFT conventions, over 3
 halo'd chunk views of 2 signal rows; B with the headline's 19 time taps,
 one unit tap and 801 (its separate smoothing launch); E with a clip's
 threshold and with each view's own statistics, each with the 19 taps, one
@@ -53,6 +53,9 @@ GEOMETRIES = (
     ("n_fft 40000", dict(n_fft=40000, hop_length=10000), SR),
     ("n_fft 32768", dict(n_fft=32768, hop_length=8192), SR),
     ("n_fft 19683", dict(n_fft=19683, hop_length=6561), 44100),
+    # the cluster chirp route: 4803 = 3 x 1601, chirp length 9720 on 2 blocks
+    # (the product route before it, so a parent's outputs differ there)
+    ("n_fft 4803", dict(n_fft=4803, hop_length=1601), SR),
 )
 
 
