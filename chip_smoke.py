@@ -87,17 +87,21 @@ last line is printed only when every phase passed):
     1100 / hop 275 (M = 550 = 2 x 5^2 x 11, the complex-frame kernels with
     a radix-11 stage) the same way; n_fft 1323 / hop 441 at 44.1 kHz (odd,
     3^3 x 7^2: two frames a complex transform), 60 s; n_fft 1102 / hop 551
-    at 44.1 kHz (M = 551 = 19 x 29: the chirp-z route), 60 s; and n_fft 40
-    / hop 10 at 8 kHz (below 64: the DFT-product route), 60 s; then the
-    long frames (``LONG_CELLS``) the same way without the product route:
-    n_fft 16384 / hop 4096 on 60 s (the big block), 40000 / hop 10000 and
-    4803 / hop 1601 (3 x 1601: the cluster chirp route) on 400,000
-    samples, each of the last two also through the stationary and torch
-    engines against the CPU path, with the cluster builds' registers and
-    spills (``ptxas -v``, the chirp builds' sources on lines of their own);
+    at 44.1 kHz (M = 551 = 19 x 29: the FFT route's radix-19 and -29
+    stages, ``stage_large``), 60 s; n_fft 1101 / hop 367 at 44.1 kHz (3 x
+    367: the chirp-z route), 60 s; and n_fft 40 / hop 10 at 8 kHz (below
+    64: the DFT-product route), 60 s, with the complex-frame builds'
+    registers and spills (``ptxas -v``); then the long frames
+    (``LONG_CELLS``) the same way without the product route: n_fft 8580
+    / hop 2145 on 60 s (the big block, its persistent grid printed), 40000
+    / hop 10000 and 4803 / hop 1601 (3 x 1601: the cluster chirp route) on
+    400,000 samples, each of the last two also through the stationary and
+    torch engines against the CPU path, with the cluster builds' registers
+    and spills (``ptxas -v``, the chirp builds' sources on lines of their
+    own);
 14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
-    every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102 and the
-    product route's n_fft 40), held and timed as above; the H2D of the bf16
+    every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102, 1101 and
+    the product route's n_fft 40), held and timed as above; the H2D of the bf16
     signal cast on the host against cast on the card; the headline, the
     stationary headline and the torch headline with
     ``compute_dtype=torch.bfloat16``, each launching the bf16 builds of A,
@@ -154,7 +158,8 @@ last line is printed only when every phase passed):
 Each path's launches are counted from 0 just before it runs and read just
 after, A's and D's also by route: every path must launch them on its
 geometry's route only (the FFT route at 1024, 2048 in the golden set,
-1536, 1100 and 1323; the chirp-z route at 1102; the product route at 40).
+1536, 1100, 1323 and 1102; the chirp-z route at 1101; the product route
+at 40).
 The kernels JSON line lists A and D by route (``fft_route``). Stationary
 outputs are binary-threshold gates: a cell whose dB value
 lies within float32 resolution of the threshold may decide either way in
@@ -215,8 +220,12 @@ FFT_CELLS = (
     ("radix-11 headline", SR, 960, dict(n_fft=1100, hop_length=275), "fft", "radix11"),
     # 30 ms at 44.1 kHz, 1323 = 3^3 x 7^2: odd, two frames a transform
     ("odd geometry", 44100, 60, dict(n_fft=1323, hop_length=441), "fft", "odd"),
-    # 25 ms at 44.1 kHz, 1102 / 2 = 551 = 19 x 29: the chirp-z route
-    ("chirp geometry", 44100, 60, dict(n_fft=1102, hop_length=551), "chirp", "chirp"),
+    # 25 ms at 44.1 kHz, 1102 / 2 = 551 = 19 x 29: the FFT route's large
+    # radices (fft_smem.cuh::stage_large), the chirp-z route before them
+    ("large radix geometry", 44100, 60, dict(n_fft=1102, hop_length=551), "fft",
+     "large_radix"),
+    # 1101 = 3 x 367 (a prime factor above 31): the chirp-z route
+    ("chirp geometry", 44100, 60, dict(n_fft=1101, hop_length=367), "chirp", "chirp"),
 )
 # an n_fft below 64 (5 ms frames at 8 kHz): A and D take their product route
 PRODUCT_SR, PRODUCT_SECONDS, PRODUCT_KW = 8000, 60, dict(n_fft=40, hop_length=10)
@@ -227,10 +236,13 @@ PRODUCT_SR, PRODUCT_SECONDS, PRODUCT_KW = 8000, 60, dict(n_fft=40, hop_length=10
 # STFT and smoothing arguments, route, JSON entry of A and D). A hop past
 # 50 ms needs a time smoothing of at least one hop: 500 ms.
 LONG_CELLS = (
-    # 16384 / 2 = 8192 = 2^13: the FFT route's big block (complex-frame
-    # kernels, one frame a block of 1024 threads)
-    ("long frames n_fft 16384", SR, 60 * SR,
-     dict(n_fft=16384, hop_length=4096, time_mask_smooth_ms=500), "fft", "big"),
+    # 8580 / 2 = 4290 = 2 3 5 11 13 (0.18 s at 48 kHz, no cluster shape):
+    # the FFT route's big block (complex-frame kernels, one frame a block of
+    # 1024 threads, persistent blocks walking the tiles; a 13-smooth n past
+    # a block with a cluster shape, 12000 and 16384, takes the cluster
+    # route, which ran kernels A and D together faster)
+    ("long frames n_fft 8580", SR, 60 * SR,
+     dict(n_fft=8580, hop_length=2145, time_mask_smooth_ms=500), "fft", "big"),
     # 40000 / 2 = 20000 = 2^5 5^4: the cluster route, 4 blocks, 100 x 200;
     # kernel C's lines of 20,001 bins in pieces (ROADMAP F8)
     ("long frames n_fft 40000", SR, 400_000, dict(n_fft=40000, time_mask_smooth_ms=500),
@@ -303,13 +315,16 @@ SOURCES = {
     "istft_ola_radix11": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
     "spectra_odd": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
     "istft_ola_odd": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
-    # the chirp-z route (1102), in the complex-frame kernels
+    # the FFT route's large radices (1102), in the complex-frame kernels
+    "spectra_large_radix": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
+    "istft_ola_large_radix": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
+    # the chirp-z route (1101), in the complex-frame kernels
     "spectra_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
     "istft_ola_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
     # the product route of A and D, for an n_fft neither other route serves
     "spectra_product": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
     "istft_ola_product": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
-    # past n_fft 8192: the FFT route's big block (16384) and the cluster route (40000)
+    # past n_fft 8192: the FFT route's big block (8580) and the cluster route (40000)
     "spectra_big": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
     "istft_ola_big": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
     "spectra_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cluster.cu",
@@ -2168,6 +2183,35 @@ def cluster_ptxas(stem: str) -> dict:
     return out
 
 
+def cplx_ptxas(stem: str) -> dict:
+    """Registers and spill bytes of every build of the complex-frame kernels
+    in ``csrc/<stem>.cu`` (``spectra_cplx_kernel``, ``istft_cplx_kernel``),
+    by odd radices (``fft_smem.cuh::build_primes`` / ``large_build``),
+    frames a slot, chirp, big block, the large radices and plane type, from
+    the ``ptxas -v`` report the build keeps beside the kernel library."""
+    from noisereduce_tpu_torch.ops.cuda import build
+
+    path = build.library_path().parent / f"{stem}.ptxas.txt"
+    if not path.exists():
+        return {"error": f"no ptxas report at {path}"}
+    out = {}
+    for e in path.read_text().split("Compiling entry function")[1:]:
+        m = regex.search(r"\d+((?:spectra|istft)_cplx_kernel)ILi(\d+)E((?:Lb[01]E)+)", e)
+        spill = regex.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+        regs = regex.search(r"Used (\d+) registers", e)
+        if not (m and spill and regs):
+            continue
+        bools = regex.findall(r"Lb([01])E", m.group(3))  # PAIRED, CHIRP, BIG (, LARGE)
+        flags = [w for w, on in zip(("paired", "chirp", "big", "large"), bools) if on == "1"]
+        key = " ".join([m.group(1), f"odd {m.group(2)}", *flags,
+                        "bf16" if "bfloat16" in e.split("\n")[0] else "float32"])
+        stack = regex.search(r"(\d+) bytes stack frame", e)
+        out[key] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
+                        spill_loads=int(spill.group(2)),
+                        stack_frame=int(stack.group(1)) if stack else None)
+    return out
+
+
 def bf16_measure(label, fn, ref_fn, twin_fn, moved, ops, check, ptxas=None):
     """One bf16 kernel: ``check()`` holds it to its plain version and
     returns its max |dev|; then its time, its float32 twin's (``twin_fn``,
@@ -2320,7 +2364,8 @@ def bf16_kernel_phase(x_cuda, noise_cuda, cfg, scfg, tgate) -> dict:
 
 def bf16_route_phase(x, cfg_for, out) -> None:
     """A and D's bfloat16 builds on every route, at the FFT_CELLS geometries
-    (60 s each: n_fft 1536 and 1100 at 48 kHz, 1323 and 1102 at 44.1 kHz),
+    (60 s each: n_fft 1536 and 1100 at 48 kHz, 1323, 1102 and 1101 at 44.1
+    kHz),
     the cluster chirp route's (n_fft 4803 / hop 1601, 60 s) and the
     product route's (n_fft 40 at 8 kHz): one padded view, as
     ``reduce_noise`` takes a signal no longer than a chunk; against their
@@ -2556,7 +2601,7 @@ def main() -> None:
     from noisereduce_tpu_torch.models.spectral_gate import _gate_nonstationary_staged
     from noisereduce_tpu_torch.ops.cuda import build
     from noisereduce_tpu_torch.ops.cuda import kernels as K
-    from noisereduce_tpu_torch.ops.cuda.geometry import real_kernel
+    from noisereduce_tpu_torch.ops.cuda.geometry import gate_geometry, real_kernel
     from noisereduce_tpu_torch.parallel.chunking import process_chunked
 
     from noisereduce_tpu_torch.utils import io as nrio
@@ -2851,6 +2896,24 @@ def main() -> None:
                     got[name], fft_route=route,
                     **({"cell_60s": before[name]} if secs == HEADLINE_SECONDS else {}))
         before = got
+    # the complex-frame builds: registers and spills (ptxas -v): each build
+    # that spills, and the most spill bytes of a block's and a big block's
+    for name, stem in (("spectra_large_radix", "spectra_cplx"),
+                       ("istft_ola_large_radix", "istft_cplx")):
+        usage = cplx_ptxas(stem)
+        builds = {k: u for k, u in usage.items() if isinstance(u, dict)}
+        worst = {k: max((u["spill_stores"] + u["spill_loads"] for key, u in builds.items()
+                         if ("big" in key.split()) == (k == "big")), default=None)
+                 for k in ("block", "big")}
+        print(f"complex-frame builds of {stem}.cu (ptxas -v), {len(builds)} builds; "
+              + "; ".join([f"{k} {u['registers']} registers, {u['spill_stores']} / "
+                           f"{u['spill_loads']} B spill stores / loads, {u['stack_frame']} B "
+                           "stack frame" for k, u in builds.items()
+                           if u["spill_stores"] + u["spill_loads"]]
+                          + [f"{k}: {u}" for k, u in usage.items() if k not in builds])
+              + f"; most spill bytes of a block's build {worst['block']}, of a big block's "
+              f"{worst['big']}", flush=True)
+        results[name]["ptxas"] = usage
 
     # the product route: an n_fft below 64
     xp = headline_signal(PRODUCT_SECONDS, PRODUCT_SR)
@@ -2867,6 +2930,16 @@ def main() -> None:
         got = route_cell(label, x[:samples], sr, kw, route, product=False)
         for name in ("spectra", "istft_ola"):
             results[f"{name}_{entry}"] = dict(got[name], fft_route=route)
+        if entry == "big":  # A's persistent big blocks: the grid that walks the tiles
+            geo = gate_geometry(nr.GateConfig(sr=sr, **kw).stft,
+                                (CHUNK if samples > CHUNK else samples) + 2 * PADDING)
+            grid = K.cplx_capacity(geo)
+            tiles = -(-geo.n_frames // geo.fft_tile_frames) * -(-samples // CHUNK)
+            print(f"{label}: kernel A's persistent big blocks: grid {grid} blocks "
+                  f"(the card holds {grid} at once) over {tiles} tiles of "
+                  f"{geo.fft_tile_frames} frame(s), {tiles / min(grid, tiles):.2f} a block",
+                  flush=True)
+            results["spectra_big"]["persistent_grid"] = dict(blocks=grid, tiles=tiles)
     # the cluster routes' builds: registers and spills (ptxas -v)
     for name, stem in (("spectra_cluster", "spectra_cluster"),
                        ("istft_ola_cluster", "istft_cluster"),

@@ -86,6 +86,8 @@ _SIGNATURES = {
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f,
         _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
     ],
+    # kernel A's complex-frame persistent grid: plane, n_fft, slot, tile_frames, hop, win
+    "nr_spectra_cplx_capacity": [_i, _i, _i, _i, _i, _i],
     "nr_spectra_cluster_capacity": [_i, _i],
     "nr_istft_cluster_capacity": [_i, _i],
     # the cluster chirp route: the chirp length after n_bins (A) or env_int

@@ -8,14 +8,20 @@
 // A frame's transform has n complex points: n_fft / 2 for an even n_fft
 // (the even samples real, the odd imaginary), n_fft for an odd one (two
 // frames a transform, one real, one imaginary).
-// - FFT route: n has no prime factor above 13 and fits a big block of
-//   BIG_SLOTS points; direct mixed-radix stages in one block.
-// - cluster route: n has no prime factor above 13 and is past a big block
-//   but within a cluster of at most MAX_CLUSTER big blocks
-//   (cluster_shape): a four-step FFT, n = n1 n2, across the blocks'
-//   shared memory (fft_cluster.cuh).
+// - FFT route: n has no prime factor above 13 and fits a block of
+//   BLOCK_SLOTS points, or is below BIG_SLOTS points with no cluster shape
+//   (a big block), or n has no prime factor above 31 (LARGE_RADICES) and
+//   fits a block; direct mixed-radix stages in one block.
+// - cluster route: n has no prime factor above 13 and a cluster shape,
+//   past a block's BLOCK_SLOTS points to a cluster of at most MAX_CLUSTER
+//   big blocks (cluster_shape): a four-step FFT, n = n1 n2, across the
+//   blocks' shared memory (fft_cluster.cuh). Below BIG_SLOTS too: kernels
+//   A and D together ran n_fft 12000 and 16380 in 41% and 60% of the big
+//   block's time, and 8192 (n_fft 16384) A in two thirds and D in a third
+//   (PERF.md).
 // - chirp route: any other n for which a chirp-z length L >= 2n - 1 fits a
-//   big block; the transform as a circular convolution of length L.
+//   big block (n to 4096 with a prime factor above 31, 1101, 4106); the
+//   transform as a circular convolution of length L.
 // - cluster chirp route: any other n of at most CHIRP_MAX_N points (an n
 //   with a prime factor above 13 past 4096 points, or a 13-smooth one past
 //   a big block with no cluster shape): the chirp-z convolution over a
@@ -56,6 +62,12 @@ inline bool smooth13(int n) {
   return strip(n, p, 6) == 1;
 }
 
+// no prime factor above 31: the radices 17, 19, 23, 29 and 31 beside 13's
+inline bool smooth31(int n) {
+  const int p[] = {2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31};
+  return strip(n, p, 11) == 1;
+}
+
 inline bool smooth7(int n) {
   const int p[] = {2, 3, 5, 7};
   return strip(n, p, 4) == 1;
@@ -69,9 +81,9 @@ inline int fft_n(int n_fft) { return n_fft % 2 ? n_fft : n_fft / 2; }
 // points for the first step and n2 / c rows of n1 points for the last,
 // n / c points either way, at most a big block's. The fewest blocks from 2
 // to MAX_CLUSTER that hold n so, then the largest n1 <= n2. False for an
-// n within a big block, or where no c divides n as it must.
+// n that fits a block's BLOCK_SLOTS, or where no c divides n as it must.
 inline bool cluster_shape(int n, int& c, int& n1, int& n2) {
-  if (n <= BIG_SLOTS) return false;
+  if (n <= BLOCK_SLOTS) return false;
   for (c = 2; c <= MAX_CLUSTER; ++c) {
     if (n % (c * c) || n / c > BIG_SLOTS) continue;
     const int m = n / (c * c);
@@ -90,8 +102,10 @@ inline Route route_of(int n_fft) {
   const int n = fft_n(n_fft);
   int c, n1, n2;
   if (smooth13(n)) {
-    if (n <= BIG_SLOTS) return ROUTE_FFT;
     if (cluster_shape(n, c, n1, n2)) return ROUTE_CLUSTER;
+    if (n < BIG_SLOTS) return ROUTE_FFT;
+  } else if (n <= BLOCK_SLOTS && smooth31(n)) {
+    return ROUTE_FFT;
   } else if (2 * n - 1 <= BIG_SLOTS) {
     return ROUTE_CHIRP;
   }

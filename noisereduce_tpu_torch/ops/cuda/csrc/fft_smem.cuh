@@ -1,8 +1,9 @@
 // Shared-memory complex FFT core of kernels A and D: the real-FFT kernels
 // (spectra_fft.cu, istft_fft.cu: an even N = 2M, M = 2^k 3^a 5^b 7^c) and
 // the complex-frame kernels (spectra_cplx.cu, istft_cplx.cu: the rest of
-// the FFT route, M or an odd N with radices 11 and 13 too, and the chirp-z
-// route). fft_route.cuh says which n_fft takes which.
+// the FFT route, M or an odd N with radices 11 and 13 too, and within a
+// block 17, 19, 23, 29 and 31, and the chirp-z route). fft_route.cuh says
+// which n_fft takes which.
 //
 // A block holds up to ELEMS complex values in shared memory (a big block,
 // Blk<true>, BIG_SLOTS): frame slots of m points each, slot f at logical
@@ -10,12 +11,21 @@
 // conflicts. Each segment of the block's threads (a warp, or a few warps
 // together) transforms its own slots. Each stage is a radix-R Stockham
 // step, in a fixed order: the power-of-two part first (R = 8 while at least
-// 8 of it remain, then 4 or 2), then the 3s, 5s, 7s, 11s and 13s. A thread
-// loads the R points of a butterfly into registers, twiddles them, takes
-// the R-point DFT in registers, and after a barrier stores them at the
-// autosorted positions, so the output comes in natural order with no digit
-// reversal. For sub-transform size ns (the product of the radices before
-// this stage) and butterfly j < m/R:
+// 8 of it remain, then 4 or 2), then the 3s, 5s, 7s, 11s and 13s, then
+// the large radices 17, 19, 23, 29 and 31. Up to 13 a thread loads the R
+// points of a butterfly into registers, twiddles them, takes the R-point
+// DFT in registers, and after a barrier stores them at the autosorted
+// positions, so the output comes in natural order with no digit reversal.
+// A large radix (stage_large) goes through a second buffer of the block's
+// size instead: one thread a (butterfly, pair k) folds two twiddled points
+// into t+_k and t-_k, and after a barrier one thread a (butterfly, output
+// pair m) sums them into outputs m and R - m. Kernel A's blocks of 512
+// threads and kernel D's builds with the large radices run every stage out
+// of place between the two buffers (fft_frames_large; the small radices by
+// stage_oop, which holds no value across a barrier); the in-place stage
+// serves the real-FFT kernels, D's other builds and the big blocks, whose
+// shared memory holds one buffer. For sub-transform size ns (the product of the
+// radices before this stage) and butterfly j < m/R:
 //   load   v[r] = z[j + r*m/R]
 //   twiddle v[r] *= e^{-+2 pi i (j mod ns) r / (ns R)}
 //   store  z'[(j - j mod ns) R + (j mod ns) + r ns] = DFT_R(v)[r]
@@ -31,11 +41,14 @@
 // power of two m and a multiply-high otherwise, whose constants the host
 // computes once per launch (Plan, a kernel parameter). The kernels are
 // built once for each set of odd primes m can take (odd_primes; the
-// complex-frame kernels group the sets with 11 or 13, build_primes): a
-// build holds the stages of its own radices only, so no kernel carries the
-// registers of an odd radix it never runs (the radix-7 butterflies hold 14
-// complex values a thread) under its 40-register budget; a build with
-// radix 11 or 13 (22 or 26 values) takes a budget of 64 (min_blocks).
+// complex-frame kernels group the sets with 11 or 13, build_primes, and
+// beside a large radix large_build): a build holds the stages of its own
+// radices only, so no kernel carries the registers of an odd radix it
+// never runs (the radix-7 butterflies hold 14 complex values a thread)
+// under its 40-register budget; a build with radix 11 or 13 (22 or 26
+// values), or with the large radices and their second buffer, takes a
+// budget of 64 (min_blocks). The large stages hold a few values a thread
+// whatever R.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,11 +86,12 @@ static_assert(Blk<true>::ELEMS == BIG_SLOTS, "fft_route.cuh's big block");
 
 // blocks an SM holds for a complex-frame build of kernel D: MIN_BLOCKS (40
 // registers a thread) as the real-FFT kernels, 2 (64) for a build with
-// radix 11 or 13, 1 (64 at 1024 threads) for a big block. Kernel A's take 2
-// for every block of 512 threads (PERF.md: at 64 registers A's chirp build
-// ran 11% faster than at 40, D's 12% slower).
-constexpr int min_blocks(int odd, bool big) {
-  return big ? 1 : (odd % 11 && odd % 13) ? MIN_BLOCKS : 2;
+// radix 11 or 13 or the large radices (whose second buffer doubles a
+// block's shared memory), 1 (64 at 1024 threads) for a big block. Kernel
+// A's take 2 for every block of 512 threads (PERF.md: at 64 registers A's
+// chirp build ran 11% faster than at 40, D's 12% slower).
+constexpr int min_blocks(int odd, bool big, bool large = false) {
+  return big ? 1 : (odd % 11 && odd % 13 && !large) ? MIN_BLOCKS : 2;
 }
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
@@ -309,7 +323,7 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
 // parameter, read from the constant bank. Stage s has radix radix[s] and
 // sub-transform size ns[s], in fft_frames' order: the power-of-two part of
 // m first (8 while at least 8 of it remain, then 4 or 2), then the 3s,
-// 5s, 7s, 11s and 13s.
+// 5s, 7s, 11s and 13s, then the 17s, 19s, 23s, 29s and 31s.
 constexpr int MAX_STAGES = 12;  // m <= 8192 takes at most 9 (m = 2 x 3^8)
 template <bool MIXED>
 struct Plan {
@@ -320,6 +334,7 @@ struct Plan {
   Div<MIXED> mr[MAX_STAGES];  // M / R
   Div<MIXED> nsd[MAX_STAGES]; // ns
   Div<MIXED> m, half, warps;  // M, (M + 1) / 2, a segment's warps
+  Div<MIXED> fpsd;            // fps (stage_large's items)
   int threads;                // threads of a segment
   int fps;                    // frame slots a segment owns
   int segs;                   // whole segments of a block
@@ -340,13 +355,14 @@ inline Plan<MIXED> make_plan(int m, int warps, int block_warps = WARPS) {
     ns *= r;
   };
   for (int left = m & -m; left > 1; left = (m & -m) / ns) add(left >= 8 ? 8 : left);
-  for (int r : {3, 5, 7, 11, 13})
+  for (int r : {3, 5, 7, 11, 13, 17, 19, 23, 29, 31})
     while ((m / ns) % r == 0) add(r);
   p.m = Div<MIXED>(m);
   p.half = Div<MIXED>((m + 1) / 2);
   p.warps = Div<MIXED>(warps);
   p.threads = warps * 32;
   p.fps = warps * 32 * PP / m;
+  p.fpsd = Div<MIXED>(p.fps);
   p.segs = block_warps / warps;
   return p;
 }
@@ -443,6 +459,98 @@ __device__ __forceinline__ void stage(float2* z, int m, int s, int nf,
   seg_sync(sg, pl);
 }
 
+// One stage of a large radix R (17 to 31) over the segment's nf frames,
+// in place in z through the other buffer sc (the segment's share: R rows
+// of nb = fps M/R values, one a butterfly). Its items are spread over all
+// the segment's threads, so no lane idles on the few butterflies (M/R a
+// slot) and no thread holds R values:
+//   fold, item (k, b) of butterfly b = f M/R + j: row 0 the point v[0],
+//     and for k = 1 .. H = R/2 rows k and H + k t+_k = v[k] + v[R-k] and
+//     t-_k = v[k] - v[R-k] of the twiddled points (as stage loads them);
+//   sum, item (m, b), after the segment's barrier: output 0 = v[0] + sum
+//     t+_k (m = 0), or outputs m and R - m = a -+ i b, a = v[0] + sum_k
+//     c_{km} t+_k, b = sum_k s_{km} t-_k (rot<INV>; k m mod R stepped by
+//     m), stored at stage's autosorted positions.
+// c_q, s_q = cos, sin(2 pi q / R) are the twiddle table's tw[q 2M/R]
+// (conjugated: tw[k] = e^{-2 pi i k / 2M}), built in float64 on the host
+// and rounded once to float32. An item's m (k) is it / nb, so a warp's
+// lanes share it and read the same root. Called by every thread of the
+// segment.
+template <int R, bool INV, bool MIXED>
+__device__ __forceinline__ void stage_large(float2* z, float2* __restrict__ sc, int m, int s,
+                                            int nf, const float2* __restrict__ tw,
+                                            const Seg& sg, const Plan<MIXED>& pl) {
+  constexpr int H = R / 2;
+  const int ns = pl.ns[s], tstep = pl.tstep[s];
+  const Div<MIXED> dmr = pl.mr[s], dns = pl.nsd[s];
+  const int mr = dmr.d;
+  const int nb = pl.fps * mr;  // butterflies of a full segment: a scratch row
+  const int items = (H + 1) * nb;
+  const int base0 = sg.f0 * m;
+  // R rows of nb: fps M values, contiguous from the segment's first point
+  // of sc: within the span of the segment's own (padded) points, so no
+  // other segment's points, which its stages may be writing to sc
+  // meanwhile, share an address with them
+  float2* S = sc + pad(base0);
+  for (int it = sg.lane; it < items; it += pl.threads) {
+    const int k = pl.fpsd.div(dmr.div(it));  // it / nb
+    const int b = it - k * nb;
+    const int f = dmr.div(b);
+    if (f >= nf) continue;
+    const int j = b - f * mr;
+    const int base = base0 + f * m + j;
+    if (k == 0) {
+      S[b] = z[pad(base)];
+      continue;
+    }
+    float2 lo = z[pad(base + k * mr)], hi = z[pad(base + (R - k) * mr)];
+    const int jm = j - dns.div(j) * ns;
+    if (jm) {
+      float2 wl = __ldg(tw + jm * k * tstep), wh = __ldg(tw + jm * (R - k) * tstep);
+      if (INV) wl.y = -wl.y, wh.y = -wh.y;
+      lo = cmul(lo, wl);
+      hi = cmul(hi, wh);
+    }
+    S[k * nb + b] = add(lo, hi);
+    S[(H + k) * nb + b] = sub(lo, hi);
+  }
+  seg_sync(sg, pl);
+  const int rstep = tstep * ns;  // tw index of e^{-2 pi i / R}: 2M / R
+  for (int it = sg.lane; it < items; it += pl.threads) {
+    const int mm = pl.fpsd.div(dmr.div(it));  // it / nb
+    const int b = it - mm * nb;
+    const int f = dmr.div(b);
+    if (f >= nf) continue;
+    const int j = b - f * mr;
+    const int jm = j - dns.div(j) * ns;
+    const int d = base0 + f * m + (j - jm) * R + jm;
+    const float2 v0 = S[b];
+    if (mm == 0) {
+      float2 sum = v0;
+#pragma unroll 4
+      for (int k = 1; k <= H; ++k) sum = add(sum, S[k * nb + b]);
+      z[pad(d)] = sum;
+      continue;
+    }
+    float2 a = v0, bs = make_float2(0.f, 0.f);
+    int q = 0;  // k mm mod R
+    // 4 pairs a step: their loads in flight together, and no more live
+    // values than the 64-register budget holds (all H at once spill)
+#pragma unroll 4
+    for (int k = 1; k <= H; ++k) {
+      q += mm;
+      if (q >= R) q -= R;
+      const float2 w = __ldg(tw + q * rstep);  // (c_q, -s_q)
+      a = axpy(a, w.x, S[k * nb + b]);
+      bs = axpy(bs, -w.y, S[(H + k) * nb + b]);
+    }
+    bs = rot<INV>(bs);
+    z[pad(d + mm * ns)] = add(a, bs);
+    z[pad(d + (R - mm) * ns)] = sub(a, bs);
+  }
+  seg_sync(sg, pl);
+}
+
 // The M-point complex DFT (INV: the unscaled inverse) of the segment's
 // frames among the first n_frames of the block, in place, natural order in
 // and out. The caller has synchronised the segment after filling its
@@ -465,6 +573,79 @@ __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
       case 13: if constexpr (ODD % 13 == 0) stage<13, INV, true>(z, m, s, nf, tw, sg, pl); break;
     }
   }
+}
+
+// One radix-R Stockham stage as stage computes it, out of place, src to
+// dst: each thread stores a butterfly's outputs as soon as it has them, so
+// no values are held across a barrier (stage's, at 64 registers, spill).
+template <int R, bool INV>
+__device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
+                                          float2* __restrict__ dst, int m, int s, int nf,
+                                          const float2* __restrict__ tw, const Seg& sg,
+                                          const Plan<true>& pl) {
+  const int ns = pl.ns[s], tstep = pl.tstep[s];
+  const Div<true> dmr = pl.mr[s], dns = pl.nsd[s];
+  const int mr = dmr.d;
+  const int n_bfly = nf * mr;
+  const int base0 = sg.f0 * m;
+  for (int idx = sg.lane; idx < n_bfly; idx += pl.threads) {
+    const int f = dmr.div(idx);
+    const int j = idx - f * mr;
+    const int base = base0 + f * m + j;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src[pad(base + r * mr)];
+    const int jm = j - dns.div(j) * ns;
+    if (jm) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        float2 w = __ldg(tw + jm * r * tstep);
+        if (INV) w.y = -w.y;
+        v[r] = cmul(v[r], w);
+      }
+    }
+    dft<R, INV>(v);
+    const int d = base0 + f * m + (j - jm) * R + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[pad(d + r * ns)] = v[r];
+  }
+  seg_sync(sg, pl);
+}
+
+// fft_frames out of place (kernel A's blocks, kernel D's builds with the
+// large radices): the same stages in the same order, the small radices'
+// from one of z and the scratch sc (a block's PADDED values) to the other,
+// a large radix's stage_large folding into the other buffer and summing
+// back. Returns the buffer that holds the result (z or sc).
+template <bool INV, int ODD>
+__device__ __forceinline__ float2* fft_frames_large(float2* z, float2* sc, int m, int n_frames,
+                                                    const float2* __restrict__ tw,
+                                                    const Seg& sg, const Plan<true>& pl) {
+  const int nf = seg_frames(sg, pl, n_frames);
+  float2* cur = z;
+  float2* other = sc;
+  for (int s = 0; s < pl.n_stages; ++s) {
+    const int r = pl.radix[s];
+    switch (r) {
+      case 17: stage_large<17, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 19: stage_large<19, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 23: stage_large<23, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 29: stage_large<29, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 31: stage_large<31, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 8: stage_oop<8, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 4: stage_oop<4, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 2: stage_oop<2, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 3: if constexpr (ODD % 3 == 0) stage_oop<3, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 5: if constexpr (ODD % 5 == 0) stage_oop<5, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 7: if constexpr (ODD % 7 == 0) stage_oop<7, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 11: if constexpr (ODD % 11 == 0) stage_oop<11, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 13: if constexpr (ODD % 13 == 0) stage_oop<13, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+    }
+    float2* t = cur;  // a small radix's stage: the result in the other buffer
+    cur = other;
+    other = t;
+  }
+  return cur;
 }
 
 // The product of the distinct odd primes of m, 1 for a power of two.
@@ -492,6 +673,25 @@ auto with_odd_primes(int m, F f) {
   }
 }
 
+// Whether m has a large prime factor (17, 19, 23, 29 or 31): the
+// complex-frame kernels' LARGE builds, which run stage_large.
+inline bool large_primes(int m) {
+  for (int p : {17, 19, 23, 29, 31})
+    if (m % p == 0) return true;
+  return false;
+}
+
+// The small odd primes' build beside the large radices: 1 (the
+// power-of-two stages alone, m = 551 = 19 x 29 at n_fft 1102), 15 for a
+// set within 3 and 5, 105 for one with 7 and 15015 for one with 11 or 13:
+// the largest small radix sets the registers (radix 8, 3 and 5 hold 8-10
+// values a thread, 7 14, 11 and 13 22-26), and each larger set adds none.
+inline int large_build(int odd) {
+  if (odd % 11 == 0 || odd % 13 == 0) return 15015;
+  if (odd % 7 == 0) return 105;
+  return odd == 1 ? 1 : 15;
+}
+
 // The complex-frame kernels' build of a set of odd primes: the set itself
 // within 3, 5 and 7; a set with 11 or 13 takes 3 x 5 x 7 x 11 (1155), x 13
 // (1365) or both (15015), three builds in place of 24: the radix-11 or -13
@@ -510,17 +710,18 @@ int with_set(int odd, G g) {
   return out;
 }
 
-// f(ODD, PAIRED, CHIRP, BIG) as integral constants: the complex-frame
-// kernels' build for n_fft with frame slots of `slot` points (fft_n(n_fft)
-// on the FFT route, the chirp length on the chirp route; the caller has
-// checked the pair). PAIRED: an odd n_fft, two frames a slot; BIG: a slot
-// past ELEMS. The builds: one for each set of build_primes a slot takes
-// (a chirp length 2^a or 2^a 3^b, an odd n_fft one with an odd prime, an
-// even n_fft one with 11 or 13), and in a big block a chirp length of
-// 8192, a power-of-two slot of an even n_fft on the FFT route (8192: the
-// power-of-two stages alone, which do not spill at 1024 threads where the
-// build with every odd radix does; PERF.md), or any other slot on the FFT
-// route, odd or even, with all five odd radices.
+// f(ODD, PAIRED, CHIRP, BIG, LARGE) as integral constants: the
+// complex-frame kernels' build for n_fft with frame slots of `slot` points
+// (fft_n(n_fft) on the FFT route, the chirp length on the chirp route; the
+// caller has checked the pair). PAIRED: an odd n_fft, two frames a slot;
+// BIG: a slot past ELEMS; LARGE: a slot with a prime factor from 17 to 31
+// (within ELEMS), its small odd primes' build by large_build. The builds:
+// one for each set of build_primes a slot takes (a chirp length 2^a or
+// 2^a 3^b, an odd n_fft one with an odd prime, an even n_fft one with 11
+// or 13), one for each large_build beside the large radices, and in a big
+// block a chirp length of 8192, or a slot on the FFT route (4097 to 8191
+// points with no cluster shape, so none a multiple of 4: the rest take the
+// cluster route), odd or even, with all five odd radices.
 template <class F>
 int with_cplx_build(int n_fft, int slot, F f) {
   using Y = std::true_type;
@@ -530,18 +731,22 @@ int with_cplx_build(int n_fft, int slot, F f) {
   const int odd = build_primes(odd_primes(slot));
   if (big) {
     if (!chirp)
-      return paired      ? f(integral_constant<int, 15015>(), Y(), N(), Y())
-             : odd == 1 ? f(integral_constant<int, 1>(), N(), N(), Y())
-                        : f(integral_constant<int, 15015>(), N(), N(), Y());
-    return paired ? f(integral_constant<int, 1>(), Y(), Y(), Y())
-                  : f(integral_constant<int, 1>(), N(), Y(), Y());
+      return paired ? f(integral_constant<int, 15015>(), Y(), N(), Y(), N())
+                    : f(integral_constant<int, 15015>(), N(), N(), Y(), N());
+    return paired ? f(integral_constant<int, 1>(), Y(), Y(), Y(), N())
+                  : f(integral_constant<int, 1>(), N(), Y(), Y(), N());
   }
-  const auto build = [&](auto pr, auto ch) {
-    return [&f, pr, ch](auto o) { return f(o, pr, ch, N()); };
+  const auto build = [&](auto pr, auto ch, auto lg) {
+    return [&f, pr, ch, lg](auto o) { return f(o, pr, ch, N(), lg); };
   };
-  if (chirp) return paired ? with_set<1, 3>(odd, build(Y(), Y())) : with_set<1, 3>(odd, build(N(), Y()));
-  if (paired) return with_set<3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>(odd, build(Y(), N()));
-  return with_set<1155, 1365, 15015>(odd, build(N(), N()));
+  if (chirp) return paired ? with_set<1, 3>(odd, build(Y(), Y(), N())) : with_set<1, 3>(odd, build(N(), Y(), N()));
+  if (large_primes(slot)) {
+    const int lo = large_build(odd_primes(slot));
+    return paired ? with_set<1, 15, 105, 15015>(lo, build(Y(), N(), Y()))
+                  : with_set<1, 15, 105, 15015>(lo, build(N(), N(), Y()));
+  }
+  if (paired) return with_set<3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>(odd, build(Y(), N(), N()));
+  return with_set<1155, 1365, 15015>(odd, build(N(), N(), N()));
 }
 
 // Whether the complex-frame kernels take n_fft with slots of `slot`

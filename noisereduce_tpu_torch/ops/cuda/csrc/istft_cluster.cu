@@ -1,6 +1,7 @@
 // Kernel D, cluster route (istft_cluster.cuh): the builds and entries of
-// an n_fft whose transform's n has no prime factor above 13 and is past a
-// big block (fft_route.cuh: n_fft 16386 to 131072, e.g. 40000 at 48 kHz).
+// an n_fft whose transform's n has no prime factor above 13 and a cluster
+// shape past a block (fft_route.cuh: n from 4097 to 65,536 points, e.g.
+// n_fft 12000, 16384 and 40000 at 48 kHz, odd 4851).
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_apply_istft_kernel
 // (:736) and the envelope and trim of

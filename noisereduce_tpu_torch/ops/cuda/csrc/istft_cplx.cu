@@ -1,8 +1,8 @@
 // Kernel D, complex-frame kernels: mask apply, inverse FFT, overlap-add,
 // envelope division and the output window, for the n_fft of the FFT route
-// that istft_fft.cu does not serve (M with a factor 11 or 13, and every odd
-// n_fft whose prime factors are at most 13) and for the chirp-z route
-// (fft_route.cuh).
+// that istft_fft.cu does not serve (M with a factor 11 or 13, or within a
+// block from 17 to 31, and every odd n_fft whose prime factors are at most
+// 13, or 31 within a block) and for the chirp-z route (fft_route.cuh).
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_apply_istft_kernel
 // (:736) and the envelope and trim of
@@ -35,14 +35,16 @@
 // Bound on this card: bytes, as istft_fft.cu, and its bf16 build as
 // istft_fft.cu's. Design: as istft_fft.cu; a
 // slot past 4096 points takes a big block of 1024 threads and 8192 points
-// (fft_smem.cuh::Blk), one slot a group.
+// (fft_smem.cuh::Blk), one slot a group. A slot with a prime factor from
+// 17 to 31 (LARGE, as kernel A's) runs fft_smem.cuh::fft_frames_large
+// through a second buffer of the block's points.
 #include "fft_smem.cuh"
 #include "planes.cuh"
 
 namespace {
 
-template <int ODD, bool PAIRED, bool CHIRP, bool BIG, class P>  // P: the plane type
-__global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, BIG))
+template <int ODD, bool PAIRED, bool CHIRP, bool BIG, bool LARGE, class P>  // P: the plane type
+__global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, BIG, LARGE))
     istft_cplx_kernel(const P* __restrict__ re, const P* __restrict__ im,
                       const float* __restrict__ mask, int n_frames, int n_bins, int n,
                       int hop, int r, int bpad, int j0, int n_out, int run, int n_runs,
@@ -51,7 +53,7 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
                       const float* __restrict__ wsq, const float* __restrict__ env_int,
                       const float2* __restrict__ tw, const float2* __restrict__ tws,
                       const float2* __restrict__ chirp, const float2* __restrict__ filt,
-                      P* __restrict__ out, const nrf::Plan<ODD != 1> plan,
+                      P* __restrict__ out, const nrf::Plan<ODD != 1 || LARGE> plan,
                       const nrf::Div<true> dh, const nrf::Div<true> dnb) {
   using B = nrf::Blk<BIG>;
   constexpr int FPS = PAIRED ? 2 : 1;  // frames a slot holds
@@ -62,9 +64,9 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
   const int S = plan.segs * plan.fps;  // slots a group holds
   const int G = FPS * S;               // frames a group holds
   float2* z = smem2;
-  float2* nyq = z + B::PADDED;  // Y[M] of each slot (even N)
+  float2* sc = z + B::PADDED;  // LARGE: the transform's second buffer
+  float2* nyq = sc + (LARGE ? B::PADDED : 0);  // Y[M] of each slot (even N)
   float* acc = reinterpret_cast<float*>(nyq + S);
-  const float* zf = reinterpret_cast<const float*>(z);
   const int tid = threadIdx.x;
   const int b = blockIdx.x / n_runs;
   const int ja = j0 + (blockIdx.x - b * n_runs) * run;
@@ -152,6 +154,7 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
       nrf::seg_sync(sg, plan);
     }
 
+    float2* zo = z;  // the transform's result
     if constexpr (CHIRP) {
       nrf::fft_frames<false, ODD>(z, T, n_slots, tw, sg, plan);
       for (int e = sg.lane; e < nf * T; e += plan.threads) {
@@ -167,10 +170,13 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, nrf::min_blocks(ODD, B
           z[l] = nrf::cmul(z[l], nrf::conj(__ldg(chirp + q)));
         }
       }
+    } else if constexpr (LARGE) {
+      zo = nrf::fft_frames_large<true, ODD>(z, sc, T, n_slots, tw, sg, plan);
     } else {
       nrf::fft_frames<true, ODD>(z, T, n_slots, tw, sg, plan);
     }
     __syncthreads();  // the overlap-add reads every slot of the group
+    const float* zf = reinterpret_cast<const float*>(zo);
 
     // overlap-add: sample l (hop block ja + l/hop) takes frames
     // t in [jj - r + 1, jj] of this group, ascending; y_t[u] is float u of
@@ -255,14 +261,14 @@ extern "C" int nr_istft_cplx(int plane, const void* re, const void* im, const fl
   const int n_runs = (n_out + run - 1) / run;
   return planes::with_plane(plane, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg) {
+    return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg, auto lg) {
       constexpr int ODD = decltype(odd)::value;
-      constexpr bool BIG = decltype(bg)::value;
+      constexpr bool BIG = decltype(bg)::value, LARGE = decltype(lg)::value;
       using Bk = nrf::Blk<BIG>;
-      const size_t smem =
-          sizeof(float2) * (Bk::PADDED + S) + sizeof(float) * (size_t)run * hop;
+      const size_t smem = sizeof(float2) * (Bk::PADDED + (LARGE ? Bk::PADDED : 0) + S) +
+                          sizeof(float) * (size_t)run * hop;
       const auto kernel =
-          istft_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG, T>;
+          istft_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG, LARGE, T>;
       const cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
@@ -273,7 +279,7 @@ extern "C" int nr_istft_cplx(int plane, const void* re, const void* im, const fl
           post, wsq, env_int, reinterpret_cast<const float2*>(tw),
           reinterpret_cast<const float2*>(tws), reinterpret_cast<const float2*>(chirp),
           reinterpret_cast<const float2*>(filt), static_cast<T*>(out),
-          nrf::make_plan<ODD != 1>(slot, seg_warps, Bk::WARPS),
+          nrf::make_plan<ODD != 1 || LARGE>(slot, seg_warps, Bk::WARPS),
           nrf::Div<true>(paired ? n_bins : (n + 1) / 2), nrf::Div<true>(n_bins));
       return (int)cudaGetLastError();
     });

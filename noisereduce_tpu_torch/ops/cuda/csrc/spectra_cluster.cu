@@ -1,6 +1,7 @@
 // Kernel A, cluster route (spectra_cluster.cuh): the builds and entries of
-// an n_fft whose transform's n has no prime factor above 13 and is past a
-// big block (fft_route.cuh: n_fft 16386 to 131072, e.g. 40000 at 48 kHz).
+// an n_fft whose transform's n has no prime factor above 13 and a cluster
+// shape past a block (fft_route.cuh: n from 4097 to 65,536 points, e.g.
+// n_fft 12000, 16384 and 40000 at 48 kHz, odd 4851).
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // as spectra_fft.cu does (spectra_cluster.cuh has the design and the

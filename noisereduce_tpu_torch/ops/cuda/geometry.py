@@ -14,20 +14,24 @@ launch shapes below:
   n_fft/2 for an even n_fft (even samples real, odd imaginary) and n_fft
   for an odd one (two frames a transform). For an n_fft from
   ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``: the FFT route when n has no prime
-  factor above 13, shared-memory mixed-radix FFTs (``csrc/fft_smem.cuh``;
-  an even n_fft whose half is 2^k 3^a 5^b 7^c in the real-FFT kernels
-  ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu``, the rest in the
-  complex-frame kernels ``csrc/spectra_cplx.cu`` / ``csrc/istft_cplx.cu``);
+  factor above 13, or, within a block of ``FFT_ELEMS`` points, none above
+  31 (``LARGE_RADICES``), shared-memory mixed-radix FFTs
+  (``csrc/fft_smem.cuh``; an even n_fft whose half is 2^k 3^a 5^b 7^c in
+  the real-FFT kernels ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu``,
+  the rest in the complex-frame kernels ``csrc/spectra_cplx.cu`` /
+  ``csrc/istft_cplx.cu``);
   the chirp-z route for any other n whose chirp length ``chirp_length``
   (the smallest 2^a 3^b >= 2n - 1, or 8192) fits a big block, in the
   complex-frame kernels. Each kernel takes frame slots of n points (the
   chirp's L), A in tiles of ``fft_tile_frames`` frames, D in runs of
   ``fft_run`` output hop blocks, each block's threads in segments of
-  ``fft_seg_warps`` warps. Past a big block: the cluster route for a
-  13-smooth n with a cluster shape (``cluster_shape``: a four-step FFT
-  over a thread block cluster, ``csrc/fft_cluster.cuh``), the cluster
-  chirp route for any other n to ``CHIRP_MAX_N`` points (a chirp length
-  from ``cluster_chirp_lengths`` over the same four-step FFT). The rest
+  ``fft_seg_warps`` warps. Past a block (4096 points): the cluster route
+  for a 13-smooth n with a cluster shape (``cluster_shape``: a four-step
+  FFT over a thread block cluster, ``csrc/fft_cluster.cuh``; a big block
+  for one below 8192 points without), from 8192 points the cluster chirp
+  route for any other n to ``CHIRP_MAX_N`` points (a
+  chirp length from ``cluster_chirp_lengths`` over the same four-step
+  FFT). The rest
   (n_fft below 64, an n past 32,768 points with no cluster shape) takes
   implicit matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames
   x DFT columns x window samples for A; output hop blocks x hop x shifted
@@ -103,6 +107,8 @@ CLUSTER_MAX = 8
 # within a cluster (csrc/fft_route.cuh::CHIRP_MAX_N)
 CHIRP_MAX_N = CLUSTER_MAX * FFT_BIG_ELEMS // 2
 FFT_RADICES = (2, 3, 5, 7, 11, 13)  # the prime radices of fft_smem.cuh's stages
+# ... and its large radices (stage_large), for an n within a block
+LARGE_RADICES = (17, 19, 23, 29, 31)
 REAL_RADICES = (2, 3, 5, 7)  # those of the real-FFT kernels' builds
 CHIRP_RADICES = (2, 3)  # those of a chirp length within a block
 CLUSTER_CHIRP_RADICES = (2, 3, 5)  # ... and of a cluster chirp length
@@ -164,15 +170,18 @@ def fft_n(n_fft: int) -> int:
 def fft_route(scfg: StftConfig) -> str:
     """Kernels A and D's route for this geometry (``csrc/fft_route.cuh``),
     from n = ``fft_n``: "fft" for an n_fft of at least FFT_MIN_NFFT whose n
-    has no prime factor above 13 and fits a big block (1024, 1536, 400,
-    1100, 441, 1323, 12000, 16384, ...); "cluster" for one whose n is past
-    a big block and takes a cluster shape (``cluster_shape``: 40000,
-    32768, ...); "chirp" for an n with a prime factor above 13 whose chirp
-    length fits a big block (1102, 1101, every such even n_fft up to
-    8192); "cluster_chirp" for any other n of at most CHIRP_MAX_N points,
-    a chirp-z transform whose length takes a cluster shape (4803, 16386,
-    16940, 65534, ...); "product" for the rest: n_fft below 64, an n past
-    CHIRP_MAX_N points with no cluster shape."""
+    has no prime factor above 13 and fits a block of FFT_ELEMS points
+    (1024, 1536, 400, 1100, 441, 1323, ...) or is below a big block's
+    FFT_BIG_ELEMS with no cluster shape (8580, 5005, ...), or none above
+    31 and fits a block (1102: n = 551 = 19 x 29, 493 = 17 x 29, ...);
+    "cluster" for such a 13-smooth n past a block that takes a cluster
+    shape (``cluster_shape``: 12000, 16380, 16384, 40000, 32768, ...); "chirp"
+    for any other n whose chirp length fits a big block (an n to 4096 with
+    a prime factor above 31: 1101, 4106, ...); "cluster_chirp" for any
+    other n of at most CHIRP_MAX_N points, a chirp-z transform whose
+    length takes a cluster shape (4803, 16386, 16940, 65534, ...);
+    "product" for the rest: n_fft below 64, an n past CHIRP_MAX_N points
+    with no cluster shape."""
     return _route_of(scfg.n_fft)
 
 
@@ -184,10 +193,12 @@ def _route_of(n_fft: int) -> str:
         return "product"
     n = fft_n(n_fft)
     if _strip(n, FFT_RADICES) == 1:
-        if n <= FFT_BIG_ELEMS:
-            return "fft"
         if cluster_shape(n):
             return "cluster"
+        if n < FFT_BIG_ELEMS:
+            return "fft"
+    elif n <= FFT_ELEMS and _strip(n, FFT_RADICES + LARGE_RADICES) == 1:
+        return "fft"
     elif 2 * n - 1 <= FFT_BIG_ELEMS:
         return "chirp"
     return "cluster_chirp" if n <= CHIRP_MAX_N else "product"
@@ -199,8 +210,9 @@ def cluster_shape(n: int):
     (``csrc/fft_route.cuh::cluster_shape``): c blocks dividing n1 and n2,
     n = n1 n2, each block holding n / c points, at most a big block's; the
     fewest blocks from 2 to CLUSTER_MAX, then the largest n1 <= n2. None
-    for an n within a big block or with no such shape."""
-    if n <= FFT_BIG_ELEMS:
+    for an n that fits a block's FFT_ELEMS, or with no such shape (6000
+    takes 2 blocks of 60 x 100, 8192 2 of 64 x 128)."""
+    if n <= FFT_ELEMS:
         return None
     for c in range(2, CLUSTER_MAX + 1):
         if n % (c * c) or n // c > FFT_BIG_ELEMS:

@@ -36,18 +36,22 @@ transform has n = n_fft/2 complex points, or n_fft for an odd n_fft, two
 frames a transform):
 
 - "fft": an n_fft of at least 64 whose n has no prime factor above 13 and
-  fits a big block (8192 points: n_fft to 16384), shared-memory
-  mixed-radix FFTs: ``csrc/spectra_fft.cu`` and ``csrc/istft_fft.cu`` for
-  an even n_fft to 8192 whose half is 2^k 3^a 5^b 7^c,
-  ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu`` (the complex-frame
-  kernels) for the rest (1100, 441, 1323, 12000, 16384, ...);
-- "cluster": such an n past a big block, to 65,536 points (n_fft 131072;
-  ``geometry.cluster_shape``), a four-step FFT across a thread block
-  cluster's shared memory: ``csrc/spectra_cluster.cu`` and
-  ``csrc/istft_cluster.cu`` (40000, 32768, ...);
-- "chirp": an n with a prime factor above 13 whose chirp length fits a
-  big block (every such even n_fft to 8192; an odd one to 4096), a
-  chirp-z transform in the complex-frame kernels, its chirp and filter
+  fits a block (4096 points) or is below a big block's 8192 points with
+  no cluster shape (8580, odd 5005), or none above 31 and fits a block,
+  shared-memory mixed-radix FFTs: ``csrc/spectra_fft.cu`` and
+  ``csrc/istft_fft.cu`` for an even n_fft to 8192 whose half is 2^k 3^a
+  5^b 7^c, ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu`` (the
+  complex-frame kernels) for the rest (1100, 441, 1323, 8580; 1102 and
+  493 with radices 17 to 31, ...), A's complex-frame builds as
+  persistent blocks that walk the tiles, as many as ``cplx_capacity``
+  says the card holds;
+- "cluster": such an n past a block with a cluster shape, to 65,536
+  points (``geometry.cluster_shape``), a four-step FFT across a thread
+  block cluster's shared memory: ``csrc/spectra_cluster.cu`` and
+  ``csrc/istft_cluster.cu`` (12000, 16380, 16384, 40000, 32768, ...);
+- "chirp": any other n whose chirp length fits a big block (n to 4096
+  with a prime factor above 31: 1101, 4106, ...), a chirp-z transform in
+  the complex-frame kernels, its chirp and filter
   spectrum host tables built in float64 (``_chirp_np``,
   ``_chirp_filter_np``);
 - "cluster_chirp": any other n to 32,768 points (an n with a prime factor
@@ -494,6 +498,21 @@ def cluster_capacity(geo: GateGeometry, kernel: str = "spectra", dtype=torch.flo
         n = getattr(build.load(), f"nr_{name}_capacity")(_PLANE_CODE[dtype], geo.n_fft, *slot)
     if n < 1:
         build.check(f"{name}_capacity", -n)
+    return n
+
+
+def cplx_capacity(geo: GateGeometry, dtype=torch.float32, device=None) -> int:
+    """Blocks of kernel A's complex-frame build for the geometry (the FFT
+    route's n_fft that the real-FFT kernels do not serve, and the chirp
+    route) that the card holds at once: the persistent grid of a launch,
+    whose blocks walk the tiles past it (``csrc/spectra_cplx.cu``)."""
+    device = torch.device(device or "cuda")
+    slot, _, tile = geo.fft_layout()
+    with torch.cuda.device(device):
+        n = build.load().nr_spectra_cplx_capacity(
+            _PLANE_CODE[dtype], geo.n_fft, slot, tile, geo.hop, geo.win)
+    if n < 1:
+        build.check("spectra_cplx_capacity", -n)
     return n
 
 

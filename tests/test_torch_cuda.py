@@ -29,9 +29,12 @@ torch tail) are held to the same bounds, F like B at 1e-5 absolute; G
 kernels' value, the staged twin's cotangent) are held to the float64
 twin's at 5e-5 x scale. Kernels A and D are held on each of their routes
 (the FFT route of n_fft 512, 1024, 2048, 1536, 400 and 882 in the
-real-FFT kernels and of 1100, 1040, 441, 1323 and 4851 in the
-complex-frame kernels; the chirp-z route of 1102, 1101 and 4106; the
-product route of 40), and every path is checked to launch them on its
+real-FFT kernels and of 1100, 1040, 441, 1323 and 5005 in the
+complex-frame kernels, and of 1102, 493, 1235, 1426, 1218, 1088 and 2040
+with the large radices 17 to 31; the chirp-z route of 1101, 2036, 2035
+and 4106; the product route of 40; the big blocks' persistent walk at
+8580, 10010, 5005 and 4106; 16384, 16380, 12000 and 4851 on the cluster
+route), and every path is checked to launch them on its
 geometry's route only. A float64 card tensor runs the staged twins, within
 1e-9 x max|ref| of the same call on the CPU, and launches no kernel.
 ``reduce_noise_file`` (its pinned two-deep pipeline too) and
@@ -628,16 +631,20 @@ ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256)
                dict(n_fft=1536, hop_length=384), dict(n_fft=400, hop_length=100),
                dict(n_fft=882, hop_length=441), dict(n_fft=1100, hop_length=275),
                dict(n_fft=1040, hop_length=260), dict(n_fft=441, hop_length=147),
-               dict(n_fft=1323, hop_length=441), dict(n_fft=4851, hop_length=1617),
+               dict(n_fft=1323, hop_length=441), dict(n_fft=5005, hop_length=1001),
                dict(n_fft=1102, hop_length=551), dict(n_fft=1101, hop_length=367),
                dict(n_fft=2040, hop_length=510), dict(n_fft=2035, hop_length=407),
                dict(n_fft=4106, hop_length=2053), dict(n_fft=40, hop_length=10),
                dict(n_fft=4801, hop_length=4801), dict(n_fft=4803, hop_length=1601),
-               dict(n_fft=8194, hop_length=4097)]
+               dict(n_fft=8194, hop_length=4097), dict(n_fft=493, hop_length=29),
+               dict(n_fft=1235, hop_length=247), dict(n_fft=1426, hop_length=713),
+               dict(n_fft=1218, hop_length=406), dict(n_fft=1088, hop_length=272),
+               dict(n_fft=2036, hop_length=509)]
 ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536", "nfft400", "nfft882",
-             "nfft1100", "nfft1040", "nfft441", "nfft1323", "nfft4851", "nfft1102",
+             "nfft1100", "nfft1040", "nfft441", "nfft1323", "nfft5005", "nfft1102",
              "nfft1101", "nfft2040", "nfft2035", "nfft4106", "nfft40", "nfft4801", "nfft4803",
-             "nfft8194"]
+             "nfft8194", "nfft493", "nfft1235", "nfft1426", "nfft1218", "nfft1088",
+             "nfft2036"]
 
 
 def _routes(route, n=1):
@@ -650,14 +657,17 @@ def _routes(route, n=1):
 @pytest.mark.parametrize("kw", ROUTE_GEOMS, ids=ROUTE_IDS)
 def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
     """The geometry picks the route (an n_fft whose transform of n_fft/2 or,
-    odd, n_fft points has no prime factor above 13 the FFT, 1102 = 2 x 19 x
-    29, 1101 = 3 x 367, 2040 = 2^3 3 5 17, 2035 = 5 11 37 and 4106 = 2 x
-    2053 the chirp-z, 4801 (prime), 4803 = 3 x 1601 and 8194 = 2 x 17 x 241
-    the cluster chirp, 40 the product); each launch is counted on its
-    route; every route holds its plain versions at 2e-5 x max|ref| (1e-5
-    under torch conventions). The chirp lengths: 1152 and 2304 (2^a 3^b),
-    2048 and 4096 (powers of two within a block), 8192 (a big block), 9720
-    (2^3 3^5 5 over 2 blocks)."""
+    odd, n_fft points has no prime factor above 13 the FFT, and within a
+    block none above 31: the large radices' builds 1 (1102 = 2 x 19 x 29,
+    odd 493 = 17 x 29, 1426 = 2 x 23 x 31, 1088 = 2^6 17), 15 (2040 = 2^3 3 5
+    17), 105 (1218 = 2 3 7 29) and 15015 (odd 1235 = 5 13 19); 1101 = 3 x
+    367, 2036 = 2^2 509, 2035 = 5 11 37 and 4106 = 2 x 2053 the chirp-z,
+    4801 (prime), 4803 = 3 x 1601 and 8194 = 2 x 17 x 241 the cluster
+    chirp, 40 the product); each launch is counted on its route; every
+    route holds its plain versions at 2e-5 x max|ref| (1e-5 under torch
+    conventions). The chirp lengths: 2304 (2^a 3^b), 2048 and 4096 (powers
+    of two within a block), 8192 (a big block), 9720 (2^3 3^5 5 over 2
+    blocks)."""
     extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
     geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
     route = fft_route(geo.scfg)
@@ -708,8 +718,14 @@ def test_odd_istft_output_does_not_depend_on_the_run(cuda, kw):
     (dict(n_fft=1100, hop_length=275, use_torch=True), "fft"),
     (dict(n_fft=441, hop_length=147), "fft"),
     (dict(n_fft=441, hop_length=147, stationary=True), "fft"),
-    (dict(n_fft=1102, hop_length=551), "chirp"),
-    (dict(n_fft=1102, hop_length=551, use_torch=True), "chirp"),
+    (dict(n_fft=1102, hop_length=551), "fft"),
+    (dict(n_fft=1102, hop_length=551, use_torch=True), "fft"),
+    (dict(n_fft=1102, hop_length=551, stationary=True), "fft"),
+    # odd 1235 = 5 x 13 x 19: radix 19 beside 5 and 13 (the 15015 build), paired
+    (dict(n_fft=1235, hop_length=247), "fft"),
+    (dict(n_fft=1235, hop_length=247, stationary=True), "fft"),
+    (dict(n_fft=1235, hop_length=247, use_torch=True), "fft"),
+    (dict(n_fft=1101, hop_length=367), "chirp"),
     # n_fft 40 at 16 kHz: bins 400 Hz apart, so a wider frequency smoothing
     (dict(n_fft=40, hop_length=10, freq_mask_smooth_hz=1000), "product"),
     # n_fft 4803 at 16 kHz: a hop of 100 ms, so a wider time smoothing
@@ -720,13 +736,16 @@ def test_odd_istft_output_does_not_depend_on_the_run(cuda, kw):
      "cluster_chirp"),
 ], ids=["nonstationary", "stationary", "use_torch", "nfft1536", "nfft1536-use_torch",
         "nfft400", "nfft1100", "nfft1100-use_torch", "nfft441", "nfft441-stationary",
-        "nfft1102", "nfft1102-use_torch", "nfft40", "nfft4803", "nfft4803-stationary",
+        "nfft1102", "nfft1102-use_torch", "nfft1102-stationary", "nfft1235",
+        "nfft1235-stationary", "nfft1235-use_torch", "nfft1101", "nfft40", "nfft4803",
+        "nfft4803-stationary",
         "nfft4803-use_torch"])
 def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
     """A path launches A and D on its geometry's route only (1024, 1536,
-    400, 1100 and 441 the FFT route, 1102 the chirp-z route, 4803 the
-    cluster chirp route, 40 the product route); the output matches the
-    CPU parity mode."""
+    400, 1100 and 441 the FFT route, 1102 and 1235 too with the large
+    radices on all three engines, 1101 the chirp-z route, 4803 the cluster
+    chirp route, 40 the product route); the output matches the CPU parity
+    mode within 5e-5 x max|ref| (a stationary one: finite, of its shape)."""
     y = np.random.default_rng(25).standard_normal((2, 30000))
     K.reset_launch_counts()
     got = nrt.reduce_noise(y, 16000, chunk_size=8000, padding=1500, **kw)
@@ -1059,8 +1078,11 @@ def test_bf16_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention
 # normal floats
 # ---------------------------------------------------------------------------
 LONG_GEOMS = {  # n_fft, hop, the route
-    "nfft16384": (dict(n_fft=16384, hop_length=4096), "fft"),
-    "nfft12000": (dict(n_fft=12000, hop_length=3000), "fft"),
+    "nfft16384": (dict(n_fft=16384, hop_length=4096), "cluster"),
+    "nfft16380": (dict(n_fft=16380, hop_length=4095), "cluster"),
+    "nfft12000": (dict(n_fft=12000, hop_length=3000), "cluster"),
+    "nfft8580": (dict(n_fft=8580, hop_length=2145), "fft"),
+    "nfft10010": (dict(n_fft=10010, hop_length=2002), "fft"),
     "nfft40000": (dict(n_fft=40000, hop_length=10000), "cluster"),
     "nfft32768": (dict(n_fft=32768, hop_length=16384), "cluster"),
     "nfft19683": (dict(n_fft=19683, hop_length=6561), "cluster"),
@@ -1095,9 +1117,11 @@ def _long_case(name, convention, cuda, dtype=torch.float32):
 @pytest.mark.parametrize("convention", ["scipy", "torch"])
 @pytest.mark.parametrize("name", list(LONG_GEOMS))
 def test_long_frame_routes_match_plain_versions(cuda, name, convention):
-    """Past n_fft 8192: 16384 and 12000 on the FFT route's big block (n =
-    8192 and 6000), 40000, 32768, 19683 (odd, two frames a transform) and
-    62500 on the cluster route (4, 2, 3 and 5 blocks); 4801, 4803, 16386,
+    """Past n_fft 8192: 8580 and 10010 on the FFT route's big block (n =
+    4290 and 5005, no cluster shape), 16380 and 12000 (n = 8190 and 6000:
+    3 and 2 blocks), 16384 (n = 8192, a big block's size: 2 blocks of 64 x
+    128), 40000, 32768, 19683 (odd, two frames a transform) and 62500 on
+    the cluster route (2, 4, 2, 3 and 5 blocks); 4801, 4803, 16386,
     16940 and 65534 on the cluster chirp route (2, 2, 3, 3 and 8 blocks);
     A and D within the FFT cells' bounds of their plain versions (2e-5 x
     max|ref|, 1e-5 under torch conventions), every launch on that route
@@ -1145,7 +1169,8 @@ def test_bf16_long_frame_routes_match_plain_versions(cuda, name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
-@pytest.mark.parametrize("name", ["nfft40000", "nfft19683", "nfft4803", "nfft16386"])
+@pytest.mark.parametrize("name", ["nfft40000", "nfft19683", "nfft4803", "nfft16386",
+                                  "nfft16384"])
 def test_cluster_walk_wraps_past_the_clusters_that_fit(cuda, name, dtype):
     """More slots than the cluster routes' persistent grid holds (the
     clusters that fit on the card at once, ``K.cluster_capacity``), so
@@ -1182,6 +1207,58 @@ def test_cluster_walk_wraps_past_the_clusters_that_fit(cuda, name, dtype):
     assert K.route_counts() == _routes(geo.route)
     assert torch.equal(K.spectra(x, geo)[1], im)
     assert torch.equal(K.istft_ola(re, im, mask, geo, 0, view), out)
+
+
+WALK_GEOMS = {  # kernel A's complex-frame builds: the big block's (n = 4290
+    # and 5005, every odd radix; odd 5005, paired; the chirp length 8192 of
+    # 4106) and a block's (the large radices, 1102: n = 19 x 29, odd 493 =
+    # 17 x 29; radix 11, 1100; odd 1323; the chirp length 2304 of 1101)
+    "nfft8580": dict(n_fft=8580, hop_length=2145),
+    "nfft10010": dict(n_fft=10010, hop_length=2002),
+    "nfft5005": dict(n_fft=5005, hop_length=1001),
+    "nfft4106": dict(n_fft=4106, hop_length=2053),
+    "nfft1102": dict(n_fft=1102, hop_length=551),
+    "nfft493": dict(n_fft=493, hop_length=29),
+    "nfft1100": dict(n_fft=1100, hop_length=275),
+    "nfft1323": dict(n_fft=1323, hop_length=441),
+    "nfft1101": dict(n_fft=1101, hop_length=367),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", list(WALK_GEOMS))
+def test_cplx_walk_wraps_past_the_blocks_that_fit(cuda, name, dtype):
+    """More tiles than kernel A's persistent blocks (``K.cplx_capacity``:
+    the blocks the card holds at once), so every block walks several tiles, copying each next span by cp.async
+    from rows at every 2-byte offset of 16 bytes: within the bound of the
+    plain version (bf16: one bf16 ulp more), bitwise from call to call,
+    and bitwise the same tiles spectra taken a view at a time (a grid of
+    one wave or less)."""
+    kw = WALK_GEOMS[name]
+    view = 3 * kw["n_fft"] + 5
+    geo = gate_geometry(StftConfig(**kw), view)
+    assert geo.route in ("fft", "chirp") and not geo.fft_real
+    fit = K.cplx_capacity(geo, dtype)
+    tiles = -(-geo.n_frames // geo.fft_tile_frames)
+    rows = 2 * fit // tiles + 2
+    assert rows * tiles > 2 * fit
+    rng = np.random.default_rng(34)
+    for off in (0, 1, 3, 6):  # element offsets: the rows' 16-byte phase
+        flat = torch.as_tensor(rng.standard_normal(rows * view + off), dtype=dtype, device=cuda)
+        x = flat[off:].view(rows, view)
+        K.reset_launch_counts()
+        re, im = K.spectra(x, geo)
+        rre, rim = K.spectra_ref(x, geo)
+        if dtype == BF16:
+            _hold_bf16(re, rre, 2e-5)
+            _hold_bf16(im, rim, 2e-5)
+        else:
+            assert _max(re - rre) <= 2e-5 * _max(rre) and _max(im - rim) <= 2e-5 * _max(rre)
+        assert K.route_counts()["spectra"] == _routes(geo.route)["spectra"]
+        assert torch.equal(K.spectra(x, geo)[1], im)
+        one = K.spectra(x[1:2].contiguous(), geo)
+        assert torch.equal(one[0][0], re[1]) and torch.equal(one[1][0], im[1])
 
 
 @pytest.mark.gpu

@@ -3,12 +3,16 @@ real-FFT kernels ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu`` and the
 complex-frame kernels ``csrc/spectra_cplx.cu`` / ``csrc/istft_cplx.cu``,
 over ``csrc/fft_smem.cuh``), emulated in float64 numpy as the sources
 compute them: the frame-tile loader with its view and signal bounds, the
-host tables, the Stockham stage order with radices up to 13, the real-FFT
+host tables, the Stockham stage order with radices up to 13 and the
+large radices 17 to 31 (``stage_large``: its fold and sums through a
+second buffer, item by item; a build with them runs its small radices
+out of place, ``stage_oop``, with ``stage``'s index math), the real-FFT
 split and unsplit, odd n_fft as two frames a complex transform, the
 chirp-z convolution with its exact chirp index and host filter spectrum,
 and D's overlap-add of runs with halo frames, the envelope table and the
-trim. Held against the plain versions, which tests/test_torch_kernels.py
-holds against the JAX package's STFT. The route predicate is held to
+trim; the big blocks' persistent walk and their cp.async span copy. Held
+against the plain versions, which tests/test_torch_kernels.py holds
+against the JAX package's STFT. The route predicate is held to
 ``csrc/fft_route.cuh``, compiled with the host compiler.
 
 Float64 bound: 1e-9 x the plain version's max |value|.
@@ -35,6 +39,7 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_WARP_POINTS,
     FFT_WARPS,
     CHIRP_MAX_N,
+    LARGE_RADICES,
     CLUSTER_MAX,
     SMEM_MAX,
     _strip,
@@ -73,31 +78,47 @@ GEOMS = {
 }
 # the complex-frame kernels: radix 11 (M = 550 = 2 5^2 11) and 13 (M = 520
 # = 2^3 5 13); odd n_fft, two frames a transform (441 = 3^2 7^2, 1323 =
-# 3^3 7^2; 4851 = 3^2 7^2 11 in a big block); the chirp-z route (M = 551
-# = 19 x 29, L = 1152; odd 1101 = 3 x 367, L = 2304; M = 2053, L = 8192 in
-# a big block)
+# 3^3 7^2; 5005 = 5 7 11 13 in a big block); the large radices (M = 551
+# = 19 x 29; odd 493 = 17 x 29 and 1235 = 5 13 19; M = 713 = 23 x 31, M =
+# 609 = 3 7 29, M = 544 = 2^5 17); the chirp-z route (odd 1101 = 3 x 367,
+# L = 2304; M = 2053, L = 8192 in a big block)
 CPLX_GEOMS = {
     "nfft1100-r4": dict(n_fft=1100, hop_length=275),
     "nfft1040-r4": dict(n_fft=1040, hop_length=260),
     "nfft441-r3": dict(n_fft=441, hop_length=147),
     "nfft1323-r3": dict(n_fft=1323, hop_length=441),
-    "nfft4851-r3": dict(n_fft=4851, hop_length=1617),
+    "nfft5005-r5": dict(n_fft=5005, hop_length=1001),
     "nfft1102-r2": dict(n_fft=1102, hop_length=551),
+    "nfft493-r17": dict(n_fft=493, hop_length=29),
+    "nfft1235-r5": dict(n_fft=1235, hop_length=247),
+    "nfft1426-r2": dict(n_fft=1426, hop_length=713),
+    "nfft1218-r3": dict(n_fft=1218, hop_length=406),
+    "nfft1088-r4": dict(n_fft=1088, hop_length=272),
     "nfft1101-r3": dict(n_fft=1101, hop_length=367),
     "nfft4106-r2": dict(n_fft=4106, hop_length=2053),
     "torch-nfft1100-r4": dict(n_fft=1100, hop_length=275, **TORCH),
     "torch-nfft441-r3": dict(n_fft=441, hop_length=147, **TORCH),
     "torch-nfft1102-r2": dict(n_fft=1102, hop_length=551, **TORCH),
+    "torch-nfft493-r17": dict(n_fft=493, hop_length=29, **TORCH),
     "torch-nfft1101-r3": dict(n_fft=1101, hop_length=367, **TORCH),
-    # even n_fft past 8192 in a big block: n = 8192 = 2^13, n = 6000 = 2^4 3 5^3
-    "nfft16384-r4": dict(n_fft=16384, hop_length=4096),
-    "nfft12000-r4": dict(n_fft=12000, hop_length=3000),
-    "torch-nfft16384-r4": dict(n_fft=16384, hop_length=4096, **TORCH),
+    # even n_fft past 8192 in a big block (no cluster shape): n = 4290 = 2 3
+    # 5 11 13, n = 5005 = 5 7 11 13
+    "nfft8580-r4": dict(n_fft=8580, hop_length=2145),
+    "nfft10010-r5": dict(n_fft=10010, hop_length=2002),
+    "torch-nfft8580-r4": dict(n_fft=8580, hop_length=2145, **TORCH),
 }
 # the cluster route: n = 20000 = 100 x 200 on 4 blocks (n_fft 40000), 16384
 # = 128 x 128 on 2, odd 19683 = 81 x 243 on 3 (two frames a transform),
-# 31250 = 125 x 250 on 5
+# 31250 = 125 x 250 on 5, 8192 = 64 x 128 on 2 (n_fft 16384: a big block's
+# size, two blocks of 4096); below a big block's size 8190 = 78 x 105 on 3
+# (n_fft 16380), 6000 = 60 x 100 on 2 (12000), odd 4851 = 33 x 147 on 3
 CLUSTER_GEOMS = {
+    "nfft16380-r4": dict(n_fft=16380, hop_length=4095),
+    "nfft12000-r4": dict(n_fft=12000, hop_length=3000),
+    "torch-nfft16380-r4": dict(n_fft=16380, hop_length=4095, **TORCH),
+    "nfft4851-r3": dict(n_fft=4851, hop_length=1617),
+    "nfft16384-r4": dict(n_fft=16384, hop_length=4096),
+    "torch-nfft16384-r4": dict(n_fft=16384, hop_length=4096, **TORCH),
     "nfft40000-r4": dict(n_fft=40000, hop_length=10000),
     "torch-nfft40000-r4": dict(n_fft=40000, hop_length=10000, **TORCH),
     "nfft32768-r2": dict(n_fft=32768, hop_length=16384),
@@ -146,12 +167,12 @@ def _div(x, d):
 def _radices(m):
     """The radices of fft_frames' stages: the power-of-two part of m first
     (8 while 8 of it remain, then 4 or 2), then the 3s, 5s, 7s, 11s and
-    13s."""
+    13s, then the large radices 17, 19, 23, 29 and 31."""
     out, ns, p2 = [], 1, m & -m
     while ns < p2:
         out.append(min(8, p2 // ns))
         ns *= out[-1]
-    for r in (3, 5, 7, 11, 13):
+    for r in (3, 5, 7, 11, 13) + LARGE_RADICES:
         while (m // ns) % r == 0:
             out.append(r)
             ns *= r
@@ -163,7 +184,8 @@ def _dft_r(v, inverse):
     their constants in float64: radix 2, 4 and 8 as butterflies, 3, 5, 7,
     11 and 13 as a_m -+ i b_m over t+_k = v[k] + v[R-k], t-_k = v[k] -
     v[R-k] (dft3, dft5, dft7 and dft_odd's loops: the constant of pair k
-    in output m at index k m mod R)."""
+    in output m at index k m mod R); the large radices 17 to 31 by the same
+    formula (stage_large's sums, ``_stage_large``)."""
     R = v.shape[-1]
     rot = 1j if inverse else -1j  # rot<INV>
     if R in (2, 4, 8):
@@ -185,15 +207,78 @@ def _dft_r(v, inverse):
     return out
 
 
-def _stockham(z, tw, inverse):
+def _stage_large(z, tw, R, ns, inverse, fps):
+    """fft_smem.cuh::stage_large on (nf, m) complex, a segment of fps >= nf
+    slots, with the table tw of 2m points, item by item as its threads
+    take them: nb = fps m/R butterflies a scratch row, items it < (H + 1)
+    nb (H = R/2), k = it / nb by the two Divs of the source (m/R, then
+    fps), b = it - k nb, slot f = b / (m/R) (items of slots past nf
+    skipped), j = b - f m/R. Fold: row 0 the point v[0], rows k and H + k
+    t+_k and t-_k of the points v[k], v[R-k] at j + k m/R, j + (R-k) m/R,
+    twiddled by tw[2 (j mod ns) k m/(ns R)] (conjugated for the inverse).
+    Sums: item (mm, b) adds v[0] and the t+ rows (mm = 0), or forms a =
+    v[0] + sum_k c_q t+_k and b = rot(sum_k s_q t-_k), q = k mm mod R
+    stepped by mm, (c_q, -s_q) = tw[q 2m/R], and stores a + b at d + mm ns
+    and a - b at d + (R - mm) ns, d = (j - j mod ns) R + j mod ns."""
+    nf, m = z.shape
+    H, mr = R // 2, m // R
+    nb = fps * mr
+    tstep = 2 * (m // (ns * R))
+    items = np.arange((H + 1) * nb)
+    k = _div(_div(items, mr), fps)
+    assert np.array_equal(k, items // nb)
+    b = items - k * nb
+    f = _div(b, mr)
+    keep = f < nf
+    k, b, f = k[keep], b[keep], f[keep]
+    j = b - f * mr
+    jm = j - _div(j, ns) * ns
+    flat = z.reshape(-1)
+    S = np.full(R * nb, np.nan, complex)  # the segment's scratch, rows of nb
+    base = f * m + j
+    k0 = k == 0
+    S[b[k0]] = flat[base[k0]]
+    kk, bb, bs, jj = k[~k0], b[~k0], base[~k0], jm[~k0]
+    wl, wh = tw[jj * kk * tstep], tw[jj * (R - kk) * tstep]
+    if inverse:
+        wl, wh = np.conj(wl), np.conj(wh)
+    lo, hi = flat[bs + kk * mr] * wl, flat[bs + (R - kk) * mr] * wh
+    S[kk * nb + bb], S[(H + kk) * nb + bb] = lo + hi, lo - hi
+    rot = 1j if inverse else -1j
+    out = np.full(nf * m, np.nan, complex)
+    d = f * m + (j - jm) * R + jm
+    for mm in range(H + 1):
+        sel = k == mm  # the items of output pair mm (k is it / nb)
+        bm, dm = b[sel], d[sel]
+        v0 = S[bm]
+        if mm == 0:
+            out[dm] = v0 + sum(S[q * nb + bm] for q in range(1, H + 1))
+            continue
+        a, bsum, q = v0.copy(), np.zeros_like(v0), 0
+        for kk in range(1, H + 1):
+            q = q + mm - (R if q + mm >= R else 0)
+            w = tw[q * tstep * ns]
+            a = a + w.real * S[kk * nb + bm]
+            bsum = bsum - w.imag * S[(H + kk) * nb + bm]
+        out[dm + mm * ns], out[dm + (R - mm) * ns] = a + rot * bsum, a - rot * bsum
+    assert not np.isnan(out).any()
+    return out.reshape(nf, m)
+
+
+def _stockham(z, tw, inverse, fps=None):
     """fft_smem.cuh::fft_frames on (slots, m) complex with the table tw of
     2m points: per stage, butterfly j loads z[j + r m/R], twiddles by
     tw[2 (j mod ns) r m/(ns R)] (conjugated for the inverse), takes the
     R-point DFT and stores at (j - j mod ns) R + j mod ns + r ns; j mod ns
-    through Div."""
+    through Div. A large radix takes ``_stage_large`` (a segment of fps
+    slots, by default the slots given)."""
     m = z.shape[-1]
     ns = 1
     for R in _radices(m):
+        if R in LARGE_RADICES:
+            z = _stage_large(z, tw, R, ns, inverse, fps or z.shape[0])
+            ns *= R
+            continue
         mr = m // R
         j = np.arange(mr)
         jm = j - _div(j, ns) * ns
@@ -308,8 +393,10 @@ def _emulate_spectra_cplx(x, geo, cs=0, pad=0):
     filter spectrum and the unscaled inverse; then per point pair (k, n -
     k) (Div by (n + 1) / 2), times cbar on the chirp route, the pair's two
     frames (X_a = (Z[k] + conj Z[n-k]) / 2, X_b = -i (Z[k] - conj Z[n-k]) /
-    2) or the split."""
-    slot, _, _ = geo.fft_layout()
+    2) or the split. A segment's large stages take its fps slots' scratch
+    rows (``_stage_large``)."""
+    slot, warps, _ = geo.fft_layout()
+    seg_slots = warps * FFT_WARP_POINTS // slot
     chirp = geo.route == "chirp"
     N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
     fps = 2 if paired else 1
@@ -333,7 +420,7 @@ def _emulate_spectra_cplx(x, geo, cs=0, pad=0):
                     z[sl, :n] = u[f, 0::2] + 1j * u[f, 1::2]
             if chirp:
                 z[:, :n] *= cb
-            Z = _stockham(z, tw, False)
+            Z = _stockham(z, tw, False, seg_slots)
             if chirp:
                 Z = _stockham(Z * filt, tw, True)
             e = np.arange(nf * half)
@@ -466,7 +553,8 @@ def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None):
     past n, the T-point FFT, times the conjugate filter spectrum, the
     unscaled inverse and c_j on the first n points; else the unscaled
     n-point inverse; the runs of _ola."""
-    slot, _, _ = geo.fft_layout()
+    slot, warps, _ = geo.fft_layout()
+    seg_slots = warps * FFT_WARP_POINTS // slot
     chirp = geo.route == "chirp"
     N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
     fps = 2 if paired else 1
@@ -498,7 +586,7 @@ def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None):
                 Z = _stockham(_stockham(z, tw, False) * np.conj(filt), tw, True)
                 Z[:, :n] *= np.conj(cb)
             else:
-                Z = _stockham(z, tw, True)
+                Z = _stockham(z, tw, True, seg_slots)
             for sl in range(nf):
                 f = fps * (f0 + sl)
                 if paired:
@@ -534,7 +622,7 @@ def _emulate_istft(re, im, mask, geo, out_off, out_len, run=None):
 
 
 def _route_sizes():
-    """Every n_fft the FFT and chirp routes serve (to 16384: n within a big
+    """Every n_fft the FFT and chirp routes serve (to 16383: n within a big
     block)."""
     sizes = range(FFT_MIN_NFFT, 2 * FFT_BIG_ELEMS + 1)
     return [n for n in sizes if fft_route(StftConfig(n_fft=n)) in ("fft", "chirp")]
@@ -557,21 +645,29 @@ def test_stockham_stages_are_the_dft(n_fft):
 
 
 @pytest.mark.parametrize("m", [441, 1323, 4851, 1001, 2197, 1120, 2205, 1152, 2304, 8192,
-                               6561])
+                               6561, 551, 493, 544, 713, 609, 1235, 3596, 3844, 3757, 3990,
+                               4096 - 4096 % 31])
 def test_stockham_stages_of_any_slot_are_the_dft(m):
     """The same for the complex-frame kernels' slots: an odd n_fft's N
-    points (441, 1323, 4851 = 3^2 7^2 11 in a big block, 1001 = 7 11 13,
+    points (441, 1323, 4851 = 3^2 7^2 11 past a block, 1001 = 7 11 13,
     2197 = 13^3) and chirp lengths (1120 = 2^5 5 7, 2205 = 3^2 5 7^2, 1152
-    = 2^7 3^2, 2304, 8192; 6561 = 3^8), each with the table of 2m points."""
+    = 2^7 3^2, 2304, 8192; 6561 = 3^8), each with the table of 2m points;
+    and 31-smooth slots within a block, whose large radices take
+    stage_large (551 = 19 29, 493 = 17 29, 544 = 2^5 17, 713 = 23 31, 609
+    = 3 7 29, 1235 = 5 13 19, 3596 = 2^2 29 31, 3844 = 2^2 31^2, 3757 = 13
+    17^2, 3990 = 2 3 5 7 19, 4092 = 2^2 3 11 31), also as a segment of more
+    slots than it holds frames (its scratch rows past them unused)."""
     rng = np.random.default_rng(m)
     z = rng.standard_normal((2, m)) + 1j * rng.standard_normal((2, m))
     tw = _twiddles(2 * m)
     _close(_stockham(z, tw, False), np.fft.fft(z, axis=-1))
     _close(_stockham(z, tw, True), m * np.fft.ifft(z, axis=-1))
     assert np.prod(_radices(m)) == m and len(_radices(m)) <= 12
+    if any(m % r == 0 for r in LARGE_RADICES):
+        _close(_stockham(z, tw, False, fps=3), np.fft.fft(z, axis=-1))
 
 
-@pytest.mark.parametrize("radix", [2, 3, 4, 5, 7, 8, 11, 13])
+@pytest.mark.parametrize("radix", [2, 3, 4, 5, 7, 8, 11, 13, 17, 19, 23, 29, 31])
 def test_radix_formulas_are_the_dft(radix):
     """fft_smem.cuh's R-point DFTs, forward and inverse."""
     v = np.random.default_rng(radix).standard_normal((4, radix, 2)) @ [1, 1j]
@@ -595,6 +691,50 @@ def test_radix_11_and_13_constants_are_the_sources():
             assert np.array_equal(vals.astype(np.float32), want), (R, name)
 
 
+def test_large_radix_scratch_stays_in_its_segment():
+    """A segment's stages run while the block's other segments run theirs,
+    so on every geometry with a large radix each segment's
+    ``stage_large`` scratch rows (its nb = fps m/R butterflies' R rows,
+    contiguous from pad(base0) of the other buffer) lie within the span of
+    that segment's own padded points, where its out-of-place stages
+    (``stage_oop``) store, and so on no other segment's points."""
+    for n_fft in _route_sizes():
+        geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=n_fft), 4 * n_fft)
+        m, warps, _ = geo.fft_layout()
+        if not any(m % r == 0 for r in LARGE_RADICES):
+            continue
+        fps = warps * FFT_WARP_POINTS // m
+        spans = []
+        for f0, _nf in _segments(geo, FFT_ELEMS):
+            if not _nf:
+                continue
+            first, last = f0 * m, (f0 + fps) * m - 1  # the segment's points
+            lo, hi = first + first // 16, last + last // 16  # their padded span
+            for R in set(_radices(m)) & set(LARGE_RADICES):
+                assert lo + R * fps * (m // R) - 1 <= hi, n_fft  # rows from pad(base0)
+            spans.append((lo, hi))
+        spans.sort()
+        assert all(a[1] < b[0] for a, b in zip(spans, spans[1:])), n_fft
+
+
+@pytest.mark.parametrize("radix", LARGE_RADICES)
+def test_large_radix_roots_are_the_twiddle_table(radix):
+    """stage_large's roots (c_q, -s_q) are the twiddle table's tw[q 2m/R]
+    for every slot m it serves: that table is built in float64 on the host
+    and rounded once to float32 on the card, and each such entry, so
+    rounded, is cos and sin(2 pi q / R) rounded from float64, whatever m;
+    so every slot with radix R computes with the same float32 roots, those
+    a constant table would hold."""
+    want = np.exp(-2j * np.pi * np.arange(radix) / radix)
+    want32 = np.stack([want.real, want.imag], -1).astype(np.float32)
+    slots = [m for m in range(radix, FFT_ELEMS + 1, radix)
+             if _strip(m, (2, 3, 5, 7, 11, 13) + LARGE_RADICES) == 1]
+    assert slots
+    for m in slots:
+        tab32 = K._twiddle_np(2 * m).astype(np.float32)
+        assert np.array_equal(tab32[np.arange(radix) * (2 * m // radix)], want32), m
+
+
 def _stage_divisors(m):
     """The Divs of an m-point plan's stages: m / R and ns of each."""
     out, ns = set(), 1
@@ -608,8 +748,9 @@ def test_multiply_high_division_is_exact():
     """Div's x / d is exact for every divisor the kernels use and every x
     past every index they divide: on the FFT and chirp routes (the slot m,
     (m + 1) / 2, m / R and ns of each stage, for every n_fft they serve; a
-    frame's pairs (n + 1) / 2 and bins, 8193 at n_fft 16384; a segment's
-    warps) every x below 2^14; on the cluster route (n1, n2, a block's
+    frame's pairs (n + 1) / 2 and bins, 5006 at n_fft 10010; a segment's
+    warps and slots, the latter stage_large's items' second divisor, whose
+    items stay below 2^14) every x below 2^14; on the cluster route (n1, n2, a block's
     columns n1 / c and rows n2 / c, the stages of the n1- and n2-point
     FFTs, for every n_fft to 131072 it serves; on the cluster chirp route
     the same for every chirp length, and the runs of both of its pulls in
@@ -619,14 +760,17 @@ def test_multiply_high_division_is_exact():
     ds = set(range(1, FFT_BIG_WARPS + 1))
     for n_fft in _route_sizes():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=n_fft), 4 * n_fft)
-        m = geo.fft_layout()[0]
+        m, warps, _ = geo.fft_layout()
         assert len(_radices(m)) <= 12
-        ds.update((m, (m + 1) // 2, (geo.fft_n + 1) // 2, geo.n_bins), _stage_divisors(m))
+        fps = warps * FFT_WARP_POINTS // m  # stage_large's second Div
+        ds.update((m, (m + 1) // 2, (geo.fft_n + 1) // 2, geo.n_bins, fps), _stage_divisors(m))
+        for r in set(_radices(m)) & set(LARGE_RADICES):  # its items it < (R/2 + 1) fps m/R
+            assert (r // 2 + 1) * fps * (m // r) < 2**14
     x = np.arange(2**14)
     for d in sorted(ds):
         assert d <= 2**14 and np.array_equal(_div(x, d), x // d), d
     dc = set()
-    for n in range(FFT_BIG_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1):
+    for n in range(FFT_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1):
         shape = cluster_shape(n)
         if shape and fft_route(StftConfig(n_fft=2 * n)) == "cluster":
             c, n1, n2 = shape
@@ -699,13 +843,15 @@ def test_spectra_cplx_emulation_matches_plain_version(kw, chunked):
     assert geo.route in ("fft", "chirp") and not geo.fft_real
 
 
-@pytest.mark.parametrize("kw,length", [(dict(n_fft=2040, hop_length=510), 2048),
+@pytest.mark.parametrize("kw,length", [(dict(n_fft=2036, hop_length=509), 2048),
                                        (dict(n_fft=2035, hop_length=407), 4096)],
-                         ids=["nfft2040-r4", "nfft2035-r5"])
+                         ids=["nfft2036-r4", "nfft2035-r5"])
 def test_chirp_emulation_with_a_power_of_two_length(kw, length):
     """The chirp route where the smallest 2^a 3^b >= 2n - 1 is a power of
-    two (n = 1020 = 2^2 3 5 17 and, odd, 2035 = 5 11 37), as the kernels'
-    power-of-two builds within a block take it: kernels A and D alike."""
+    two (n = 1018 = 2 x 509 and, odd, 2035 = 5 11 37), as the kernels'
+    power-of-two builds within a block take it: kernels A and D alike
+    (n = 1020 = 2^2 3 5 17 of n_fft 2040 took this case before the large
+    radices moved it to the FFT route)."""
     geo = gate_geometry(StftConfig(**kw), N_SRC)
     assert geo.route == "chirp" and geo.fft_layout()[0] == length
     x = np.random.default_rng(36).standard_normal((1, N_SRC))
@@ -743,7 +889,7 @@ def test_spectra_cplx_emulation_of_a_short_noise_row(name):
 
 
 @pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "nfft1100-r4", "nfft441-r3",
-                                  "nfft4851-r3", "nfft1102-r2", "nfft1101-r3",
+                                  "nfft5005-r5", "nfft1102-r2", "nfft1101-r3",
                                   "nfft4106-r2"])
 def test_silent_row_gives_exact_zeros(name):
     """A silent row gives exact zeros on every route: its spectra, and the
@@ -826,15 +972,21 @@ int main() {
 
 def test_route_predicate(tmp_path):
     """Every n_fft of at least 64 takes the FFT route when its transform's
-    n (n_fft/2, or n_fft when odd) has no prime factor above 13 and fits a
-    big block (n_fft to 16384), the cluster route when such an n is past
-    it and has a cluster shape, else the chirp route when 2n - 1 fits a
+    n (n_fft/2, or n_fft when odd) has no prime factor above 13 and fits
+    a block's 4096 points, the cluster route when such an n past a block
+    has a cluster shape (12000 on 2 blocks, 16380 and odd 4851 on 3, 16384
+    on 2), the FFT route's big block when it has none and is below 8192
+    points (8580, 10010, odd 5005), else the chirp route when 2n - 1 fits a
     big block, else the cluster chirp route when n is at most CHIRP_MAX_N
     (32,768) points; the product route takes the rest: n_fft below 64 and
     the 16,357 odd n_fft from 32,769 to 65,535 with no cluster shape, so
-    no n of at most 32,768 points of an n_fft from 64 on: 1100 (M = 2 5^2
-    11) takes the FFT route, 1102 (M = 19 x 29) the chirp route, 40000 (n
-    = 20000) the cluster route, 4801 (prime), 8194 (n = 17 x 241), 16386
+    no n of at most 32,768 points of an n_fft from 64 on. An n of at most
+    4096 points with no prime factor above 31 takes the FFT route too
+    (radices 17 to 31: 776 n_fft from 68 to 8192 that took the chirp
+    route before them). 1100 (M = 2 5^2 11), 1102 (M = 19 x 29), 493 (17 x
+    29), 1088 (M = 2^5 17) and 2040 (M = 2^2 3 5 17) take the FFT route,
+    1101 (3 x 367), 4106 (M = 2053) and 2035 (5 11 37) the chirp route,
+    40000 (n = 20000) the cluster route, 4801 (prime), 8194 (n = 17 x 241), 16386
     (n = 3 x 2731), 16940 (n = 2 5 7 11^2, no cluster shape) and 65534 (n
     = 7 31 151) the cluster chirp route (2,005 odd n_fft from 4097 to 8191,
     7,967 n_fft from 8193 to 16384 and 32,253 from 16385 to 65536 that took
@@ -879,13 +1031,19 @@ def test_route_predicate(tmp_path):
     assert all(n % 2 and n > CHIRP_MAX_N for n in product) and len(product) == 16357
     assert was_product == {(4097, 8191): 2005, (8193, 16384): 7967, (16385, 65536): 32253}
     assert all(routes[n] == "product" for n in (32, 63, 32769, 65535))
-    for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 4851,
-              12000, 16384):
+    for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 5005,
+              8580, 10010, 1102, 493, 1088, 2040, 1235, 1426, 1218, 8192 - 8192 % 31):
         assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
-    for n in (40000, 32768, 19683, 62500):
+    # the FFT route past 13: every n to 4096 points with no prime factor above 31
+    large = [n for n in range(FFT_MIN_NFFT, 2 * FFT_ELEMS + 1)
+             if _strip(n if n % 2 else n // 2, (2, 3, 5, 7, 11, 13)) != 1
+             and _strip(n if n % 2 else n // 2, (2, 3, 5, 7, 11, 13) + LARGE_RADICES) == 1
+             and (n % 2 == 0 or n <= FFT_ELEMS)]
+    assert all(routes[n] == "fft" for n in large) and len(large) == 776
+    for n in (40000, 32768, 19683, 62500, 16384, 12000, 16380, 4851, 9600, 8820):
         assert routes[n] == "cluster"
     assert not real_kernel(16384) and real_kernel(8192)
-    for n in (1102, 1101, 4106, 2 * 17 * 32, 8182):
+    for n in (1101, 4106, 2035, 2 * 37 * 32, 8182, 2 * 4093):
         assert routes[n] == "chirp"
     for n in (4801, 4803, 8194, 16386, 16940, 65534, 32767, 9218):
         assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "cluster_chirp"
@@ -893,7 +1051,8 @@ def test_route_predicate(tmp_path):
     assert [chirp_length(n) for n in (4801, 8193, 8470, 32767)] == [9720, 16875, 17280, 65536]
     geo = gate_geometry(StftConfig(n_fft=1100, hop_length=275), 8000)
     assert geo.r == 4 and geo.route == "fft" and not geo.fft_real
-    assert gate_geometry(StftConfig(n_fft=1102, hop_length=551), 8000).route == "chirp"
+    assert gate_geometry(StftConfig(n_fft=1102, hop_length=551), 8000).route == "fft"
+    assert gate_geometry(StftConfig(n_fft=1101, hop_length=367), 8000).route == "chirp"
     assert gate_geometry(StftConfig(n_fft=4099, hop_length=4099), 8000).route == "cluster_chirp"
     assert gate_geometry(StftConfig(n_fft=1536, hop_length=384), 8000).route == "fft"
     assert gate_geometry(StftConfig(n_fft=512), 8000).route == "fft"
@@ -1395,7 +1554,7 @@ def test_cluster_shapes(kw):
     c, n1, n2 = geo.cluster
     n = geo.fft_n
     assert geo.route == "cluster" and n1 * n2 == n and n1 % c == 0 and n2 % c == 0
-    assert n // c <= FFT_BIG_ELEMS and n > FFT_BIG_ELEMS and 2 <= c <= CLUSTER_MAX
+    assert n // c <= FFT_BIG_ELEMS and n > FFT_ELEMS and 2 <= c <= CLUSTER_MAX
     assert all(n % (d * d) or n // d > FFT_BIG_ELEMS for d in range(2, c))
     assert n1 <= n2 and geo.fft_layout()[2] == (2 if geo.fft_paired else 1)
     T, r = geo.n_frames, geo.r
@@ -1414,7 +1573,7 @@ def test_cluster_buffers_fit_shared_memory():
     block's shared memory; and the builds: n's odd primes within {3, 5},
     105 within 3, 5 and 7, 15015 with 11 or 13, each compiling every radix
     of n1 and n2."""
-    for n in range(FFT_BIG_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1):
+    for n in range(FFT_ELEMS + 1, CLUSTER_MAX * FFT_BIG_ELEMS + 1):
         shape = cluster_shape(n)
         if not shape or fft_route(StftConfig(n_fft=2 * n)) != "cluster":
             continue
@@ -1477,6 +1636,116 @@ def test_persistent_walk_covers_every_slot_once(c, clusters, total):
         l = (blk - b * per_row) * OLA_THREADS + np.arange(OLA_THREADS)
         np.add.at(got[b], l[l < n_out * hop], 1)
     assert (got == 1).all()
+
+
+# ---------------------------------------------------------------------------
+# kernel A's complex-frame builds (csrc/spectra_cplx.cu): persistent
+# blocks walk the tiles, each copying the next tile's span behind this
+# tile's stages (issue_span)
+# ---------------------------------------------------------------------------
+BIG_THREADS = FFT_BIG_WARPS * 32
+
+
+def _cplx_walk(total, fit):
+    """The persistent grid of nr_spectra_cplx's walking builds: min(total,
+    fit) blocks, block x taking tiles x, x + grid, ..."""
+    grid = min(total, fit)
+    return [list(range(x, total, grid)) for x in range(grid)]
+
+
+def _tile_of(tile, geo, n_tiles, n_chunks, chunk_stride, view_start):
+    """spectra_cplx.cu::tile_of: (view b, first frame t0, frames fe, span
+    length, view position p0, source sample s0) of a tile."""
+    tf = geo.fft_tile_frames
+    b, rest = divmod(tile, n_tiles)
+    t0 = rest * tf
+    fe = min(tf, geo.n_frames - t0)
+    p0 = t0 * geo.hop - geo.bpad
+    return b, t0, fe, (fe - 1) * geo.hop + geo.win, p0, (b % n_chunks) * chunk_stride + view_start + p0
+
+
+def _issue_span(row, s0, p0, length, view_len, addr0, elem):
+    """spectra_cplx.cu::issue_span for a row of plane elements of ``elem``
+    bytes whose element 0 lies at byte address addr0: (buf, ph, how), buf
+    the shared buffer (16 bytes of slack), the sample at view position p0
+    + i at buf[ph + i]; how[i] "zero" (outside the view or the row), "edge"
+    (a plain copy before or after the 16-byte pieces) or "piece" (in a
+    16-byte cp.async copy, whose shared and global addresses are both on
+    16 bytes)."""
+    n_src, V = len(row), 16 // elem
+    lo = min(length, max(0, -p0, -s0))
+    hi = max(lo, min(length, view_len - p0, n_src - s0))
+    ph = (addr0 + s0 * elem) % 16 // elem
+    h0 = min(hi, lo + (V - (ph + lo) % V) % V)
+    pieces = (hi - h0) // V
+    tail = h0 + pieces * V
+    buf = np.full(length + V, np.nan)
+    how = np.array([None] * length)
+    for q in range(pieces):  # a thread's 16-byte copy
+        i = h0 + q * V
+        assert (ph + i) * elem % 16 == 0 and (addr0 + (s0 + i) * elem) % 16 == 0
+        buf[ph + i : ph + i + V] = row[s0 + i : s0 + i + V]
+        how[i : i + V] = "piece"
+    buf[ph : ph + lo] = 0.0
+    buf[ph + hi : ph + length] = 0.0
+    how[:lo], how[hi:] = "zero", "zero"
+    edge = (h0 - lo) + (hi - tail)
+    assert edge < BIG_THREADS
+    for t in range(edge):  # thread t's plain copy
+        i = lo + t if t < h0 - lo else tail + (t - (h0 - lo))
+        buf[ph + i] = row[s0 + i]
+        how[i] = "edge"
+    return buf, ph, how
+
+
+@pytest.mark.parametrize("fit", [1, 5, 132])
+@pytest.mark.parametrize("total", [1, 7, 132, 704, 705, 3000])
+def test_cplx_walk_covers_every_tile_once(total, fit):
+    """The persistent blocks of the walking builds (grid: min(tiles, the
+    blocks the card holds, ``K.cplx_capacity``)): every tile is taken by
+    exactly one block, each block walks its tiles in ascending order, and
+    no block idles while another holds two more tiles than it."""
+    walk = _cplx_walk(total, fit)
+    seen = sorted(t for tiles in walk for t in tiles)
+    assert seen == list(range(total))
+    assert all(tiles == sorted(tiles) and tiles for tiles in walk)
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", ["nfft8580-r4", "nfft10010-r5", "nfft5005-r5", "nfft4106-r2",
+                                  "nfft1102-r2", "nfft493-r17", "nfft1100-r4", "nfft1323-r3",
+                                  "nfft1101-r3"])
+def test_cplx_walk_span_copy_is_the_guarded_load(name, elem):
+    """issue_span's copy of every tile of a complex-frame geometry (a big
+    block; a block with a large radix, 1102, odd 493 in frame pairs, or
+    with radix 11, 1100; odd 1323; the chirp, 1101), chunked and whole,
+    from rows at every 2-byte phase of 16 bytes: the 16-byte pieces, the
+    plain edge copies and the zeros together give the one-tile kernel's
+    guarded load (zero outside the view and the row), each sample once,
+    the pieces on 16 bytes at both ends."""
+    kw = CPLX_GEOMS[name]
+    rng = np.random.default_rng(40)
+    n_src = 5 * kw["n_fft"] + 3
+    row = rng.standard_normal(n_src)
+    for chunked in (True, False):
+        cs, pad = (2 * kw["n_fft"], kw["n_fft"] // 4) if chunked else (0, 0)
+        geo = gate_geometry(StftConfig(**kw), cs + 2 * pad if chunked else n_src)
+        assert geo.route in ("fft", "chirp") and not geo.fft_real
+        n_chunks = n_chunks_for(n_src, cs) if cs else 1
+        stride, start = (cs, -pad) if cs else (0, 0)
+        n_tiles = -(-geo.n_frames // geo.fft_tile_frames)
+        for tile in range(n_chunks * n_tiles):
+            b, t0, fe, length, p0, s0 = _tile_of(tile, geo, n_tiles, n_chunks, stride, start)
+            p = p0 + np.arange(length)
+            sidx = s0 + np.arange(length)
+            ok = (p >= 0) & (p < geo.view_len) & (sidx >= 0) & (sidx < n_src)
+            want = np.where(ok, row[np.clip(sidx, 0, n_src - 1)], 0.0)
+            for addr0 in range(0, 16, elem):
+                buf, ph, how = _issue_span(row, s0, p0, length, geo.view_len, addr0, elem)
+                assert np.array_equal(buf[ph : ph + length], want)
+                assert (how != None).all()  # noqa: E711
+                assert ((how == "zero") == ~ok).all()
 
 
 @pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])

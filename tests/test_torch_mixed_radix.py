@@ -4,8 +4,9 @@ scipy-convention non-stationary and stationary engines and the TorchGate
 engine (``use_torch=True``), on a 2 s signal, whole and chunked. Kernels A
 and D take the FFT route at 1536 (2 x 768, 768 = 2^8 x 3), 400 (2 x 200,
 200 = 2^3 x 5^2), 1100 (2 x 550, 550 = 2 x 5^2 x 11: radix 11) and the odd
-441 (3^2 x 7^2, two frames a transform); the chirp-z route at 1102 (2 x
-551, 551 = 19 x 29). The JAX package takes DFT products at every n_fft.
+441 (3^2 x 7^2, two frames a transform) and at 1102 (2 x 551, 551 = 19 x
+29: the radix-19 and -29 stages); the chirp-z route at the odd 1101 (3 x
+367). The JAX package takes DFT products at every n_fft.
 
 On the CPU the port runs the kernels' plain versions; the route's own
 arithmetic is emulated by tests/test_torch_fft.py and held on a card by
@@ -31,7 +32,8 @@ F64_TOL, RANK1_TOL = 1e-9, 1e-8
 GEOMS = {"nfft1536-48k": (48000, dict(n_fft=1536, hop_length=384), "fft"),
          "nfft400-16k": (16000, dict(n_fft=400, hop_length=100), "fft"),
          "nfft441-44k": (44100, dict(n_fft=441, hop_length=147), "fft"),
-         "nfft1102-44k": (44100, dict(n_fft=1102, hop_length=551), "chirp"),
+         "nfft1102-44k": (44100, dict(n_fft=1102, hop_length=551), "fft"),
+         "nfft1101-44k": (44100, dict(n_fft=1101, hop_length=367), "chirp"),
          "nfft1100-48k": (48000, dict(n_fft=1100, hop_length=275), "fft")}
 ENGINES = {"nonstationary": {}, "stationary": dict(stationary=True),
            "use_torch": dict(use_torch=True)}

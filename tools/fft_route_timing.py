@@ -4,10 +4,15 @@ headline shapes (960 s of 48 kHz audio, n_fft 1024 / hop 256), at
 n_fft 1536 / hop 384 (the first 60 s, and all 960 s), n_fft 400 / hop 100
 (960 s), n_fft 1100 / hop 275 (60 s and 960 s: radix 11), and at 44.1 kHz
 n_fft 1323 / hop 441 and 441 / hop 147 (60 s: odd, two frames a
-transform) and n_fft 1102 / hop 551 (60 s: the chirp-z route), chunked as
-``reduce_noise`` chunks (600000 / 30000); the long frames, only when
-``--cells`` names them, each one unchunked view: n_fft 16384 / hop 4096 on
-60 s (704 frames) and n_fft 40000 / hop 10000 on 400,000 samples, with
+transform), n_fft 1102 / hop 551 (60 s: the large radices 19 and 29;
+the chirp-z route before them) and 1101 / hop 367 (60 s: the chirp-z
+route, 3 x 367), chunked as ``reduce_noise`` chunks
+(600000 / 30000); the long frames, only when ``--cells`` names them, each
+one unchunked view: n_fft 16384 / hop 4096 on 60 s (704 frames; the
+cluster route on 2 blocks, the big block before it), 16380 / hop 4095
+(the cluster route on 3 blocks, the big block's largest slot before it)
+and n_fft 40000 / hop 10000 on 400,000
+samples, with
 kernel C's plan for the line (and its time where it has one), the device
 time also by ``queued_ms``, and on a product route the first call's host
 table build timed on its own line (at n_fft 40000 the product route is
@@ -22,6 +27,16 @@ product route before it): n_fft 4803 / hop 1601 (3 x 1601, odd) on 60 s
 and on all 960 s chunked (``4803``, ``4803@960``) and 16386 / hop 2731
 (n = 3 x 2731) on 60 s, each also with the 2^a 3^b family's chirp
 length (``*_23_ms``, ``slot_23``) beside the route's own 2^a 3^b 5^c.
+The big block's builds: n_fft 8580 / hop 2145 (n = 4290, every odd
+radix, no cluster shape) and 4106 / hop 2053 (chirp length 8192), each
+one view of 60 s; 12000 / hop 3000 (n = 6000: the cluster route on 2
+blocks, the big block before it). A cell of the complex-frame kernels
+prints kernel A's persistent grid (``grid``: the blocks the card holds,
+in a tree whose blocks walk the tiles), and every unchunked
+long cell A's and D's largest deviation from their plain versions
+(``*_max_dev``, x max|plain|), so that a copy of the package with
+another route (``tools/fft_route_variants.py``) is held where it is
+timed.
 Every long cell prints A's and D's bytes bound: the signal read once and
 the planes written once (A), the planes and the mask read once and the
 output written once (D), over the card's 3.35 TB/s, the host wall of
@@ -77,12 +92,21 @@ CELLS = (  # name, n_fft, hop, seconds (or samples), sample rate
     ("n_fft 1323, 44.1 kHz, 60 s", 1323, 441, 60, 44100),
     ("n_fft 441, 44.1 kHz, 60 s", 441, 147, 60, 44100),
     ("n_fft 1102, 44.1 kHz, 60 s", 1102, 551, 60, 44100),
+    ("n_fft 1101, 44.1 kHz, 60 s", 1101, 367, 60, 44100),
 )
 # timed only when --cells names them by key: key, name, n_fft, hop,
 # samples, sample rate, chunked (as reduce_noise chunks: CHUNK / PADDING)
 # or one unchunked view
 LONG_CELLS = (
     ("16384", "n_fft 16384, 60 s, one view", 16384, 4096, 60 * 48000, 48000, False),
+    ("16380", "n_fft 16380, 60 s, one view", 16380, 4095, 60 * 48000, 48000, False),
+    # n = 6000 = 2^4 3 5^3: the cluster route on 2 blocks (the big block
+    # before it); the big block's builds: n = 4290 = 2 3 5 11 13 (all odd
+    # radices, no cluster shape) and the chirp length 8192 (4106: n = 2053,
+    # prime)
+    ("12000", "n_fft 12000, 60 s, one view", 12000, 3000, 60 * 48000, 48000, False),
+    ("8580", "n_fft 8580, 60 s, one view", 8580, 2145, 60 * 48000, 48000, False),
+    ("4106", "n_fft 4106, 60 s, one view", 4106, 2053, 60 * 48000, 48000, False),
     ("40000", "n_fft 40000, 400,000 samples, one view", 40000, 10000, 400000, 48000, False),
     ("40000@960", "n_fft 40000, 960 s, 77 views", 40000, 10000, 960 * 48000, 48000, True),
     ("32768", "n_fft 32768, 400,000 samples, one view", 32768, 8192, 400000, 48000, False),
@@ -137,6 +161,15 @@ def chirp_lengths(length):
     finally:
         G.chirp_length = own
         G._layout.cache_clear()
+
+
+def walk_grid(K, g):
+    """The persistent grid of kernel A's complex-frame builds at this
+    geometry (``kernels.cplx_capacity``), in a tree whose blocks walk the
+    tiles; else None."""
+    if not hasattr(K, "cplx_capacity") or g.route not in ("fft", "chirp") or g.fft_real:
+        return None
+    return K.cplx_capacity(g)
 
 
 def table_build_s(K, scfg) -> dict:
@@ -221,6 +254,16 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     cell["peak_over_inputs_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     cell["views"] = re.shape[0]
     cell["routes"] = {k: max(v, key=v.get) for k, v in K.route_counts().items()}
+    if walk_grid(K, g):
+        cell["grid"] = walk_grid(K, g)
+    if not chunked:  # A's and D's deviation from their plain versions
+        rre, rim = K.spectra_ref(*a)
+        scale = max(float(rre.abs().max()), float(rim.abs().max()))
+        cell["spectra_max_dev"] = max(float((re - rre).abs().max()),
+                                      float((im - rim).abs().max())) / scale
+        y, ry = K.istft_ola(*d), K.istft_ola_ref(*d)
+        cell["istft_ola_max_dev"] = float((y - ry).abs().max()) / float(ry.abs().max())
+        del rre, rim, y, ry
     planes = re.numel() * re.element_size()
     cell["spectra_bound_ms"] = (n * xs.element_size() + 2 * planes) / cs.HBM_BYTES_PER_S * 1e3
     cell["istft_ola_bound_ms"] = (2 * planes + mask.numel() * 4
@@ -338,6 +381,7 @@ def main() -> None:
                 cell = out["cells"][name + tag] = dict(
                     frames=re.shape[0] * re.shape[1],
                     slot=g.fft_layout()[0] if hasattr(g, "fft_layout") else None,
+                    grid=walk_grid(K, g),
                     **times("spectra", lambda: K.spectra(*a)),
                     **times("istft_ola", lambda: K.istft_ola(*d)),
                     routes={k: max(v, key=v.get) for k, v in routes.items()},

@@ -8,19 +8,31 @@ once a run, so ``base cplx_all cplx_all base`` times each tree twice, in
 turns.
 
     python3 tools/fft_route_variants.py base cplx_all cplx_all base --cells 1024,1536
-    python3 tools/fft_route_variants.py base big_all_radices big_all_radices base --cells 16384 --library
+    python3 tools/fft_route_variants.py base big_block big_block base --cells 12000,16380 --library
+    python3 tools/fft_route_variants.py base in_place in_place base --cells 1100,1323,441,1101 --library
 
 - ``base``: the sources as they are;
 - ``cplx_all``: the complex-frame kernels (``spectra_cplx.cu``,
   ``istft_cplx.cu``) serve every n_fft of the FFT route, the even
   2^k 3^a 5^b 7^c ones too, in place of the real-FFT kernels
   (``spectra_fft.cu``, ``istft_fft.cu``);
-- ``big_all_radices``: a big block's even n_fft whose n is a power of
-  two (16384) takes the complex-frame kernels' build with every odd radix
-  (multiply-high divisions; it spills at 1024 threads) in place of the
-  build with the power-of-two stages alone;
 - ``cluster_1024``: the cluster route's blocks of 1024 threads, one an SM,
   in place of 512, two an SM;
+- ``big_block``: every n from 4097 to 8191 points with no prime factor
+  above 13 and a cluster shape (12000, 16380, odd 4851, ...) back on the
+  FFT route's big block, in place of the cluster route;
+- ``in_place``: kernel A's blocks of 512 threads without a large radix
+  run their stages in place (``fft_smem.cuh::fft_frames``, ``stage``; the
+  chirp's two transforms too), as the big block does, in place of out of
+  place through their second buffer;
+- ``diag_no_large_sums``, ``diag_no_large_stages``: the large radices'
+  stages (``fft_smem.cuh::stage_large``) without their sums, or without
+  either pass (wrong outputs by design, not held), to see what they cost
+  at n_fft 1102;
+  (the route variants' card checks leave out the n_fft whose route tests
+  expect another route; ``tools/fft_route_timing.py`` holds the outputs
+  of every unchunked long cell to the plain versions where it times
+  them, ``*_max_dev``);
 - ``diag_*``: the cluster route with a piece of its work taken out, to
   see what that piece costs (``diag_no_gather``: A's gather of the signal;
   ``diag_no_window``: the window's loads in that gather;
@@ -44,6 +56,31 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = "noisereduce_tpu_torch/ops/cuda"
+# kernel A's blocks without a large radix back in place (fft_frames, as
+# the big block), their second buffer unused
+IN_PLACE = [
+    ("csrc/spectra_cplx.cu",
+     "template <int ODD, bool PAIRED, bool CHIRP, bool BIG, class P>  // P: the plane type\n",
+     "template <int ODD, bool PAIRED, bool CHIRP, bool BIG, class P, bool LARGE>\n"),
+    ("csrc/spectra_cplx.cu", "const nrf::Plan<MIXED<ODD, BIG>> plan",
+     "const nrf::Plan<MIXED<ODD, BIG || !LARGE>> plan"),
+    ("csrc/spectra_cplx.cu",
+     "    if constexpr (BIG) {\n      nrf::fft_frames<false, ODD>",
+     "    if constexpr (BIG || !LARGE) {\n      nrf::fft_frames<false, ODD>"),
+    ("csrc/spectra_cplx.cu",
+     "      if constexpr (BIG) {\n        nrf::fft_frames<true, ODD>",
+     "      if constexpr (BIG || !LARGE) {\n        nrf::fft_frames<true, ODD>"),
+    ("csrc/spectra_cplx.cu",
+     "[&](auto odd, auto pr, auto ch, auto bg, auto) {",
+     "[&](auto odd, auto pr, auto ch, auto bg, auto lg) {\n"
+     "      constexpr bool LARGE = decltype(lg)::value;"),
+    ("csrc/spectra_cplx.cu",
+     "decltype(ch)::value, BIG, T>,",
+     "decltype(ch)::value, BIG, T, LARGE>,"),
+    ("csrc/spectra_cplx.cu",
+     "std::integral_constant<bool, MIXED<ODD, BIG>>());",
+     "std::integral_constant<bool, MIXED<ODD, BIG || !LARGE>>());"),
+]
 VARIANTS = {  # name: [(file under PKG, code, its replacement)]
     "base": [],
     "cplx_all": [
@@ -51,18 +88,13 @@ VARIANTS = {  # name: [(file under PKG, code, its replacement)]
          "if (r == ROUTE_FFT) return slot == n && !real_kernel(n_fft);",
          "if (r == ROUTE_FFT) return slot == n;"),
         ("csrc/fft_smem.cuh",
-         "return with_set<1155, 1365, 15015>(odd, build(N(), N()));",
+         "return with_set<1155, 1365, 15015>(odd, build(N(), N(), N()));",
          "return with_set<1, 3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>("
-         "odd, build(N(), N()));"),
+         "odd, build(N(), N(), N()));"),
         ("geometry.py",
          "    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= REAL_MAX_NFFT\n"
          "            and _strip(n_fft // 2, REAL_RADICES) == 1)",
          "    return False"),
-    ],
-    "big_all_radices": [
-        ("csrc/fft_smem.cuh",
-         "             : odd == 1 ? f(integral_constant<int, 1>(), N(), N(), Y())\n",
-         ""),
     ],
     # the cluster route in blocks of 1024 threads, one an SM
     "cluster_1024": [
@@ -72,6 +104,27 @@ VARIANTS = {  # name: [(file under PKG, code, its replacement)]
         ("csrc/fft_cluster.cuh",
          "constexpr int cluster_min_blocks(int odd) { return odd % 11 ? 2 : 1; }",
          "constexpr int cluster_min_blocks(int odd) { return 1; }"),
+    ],
+    # every n below 8192 points with a cluster shape back on the big block
+    "big_block": [
+        ("csrc/fft_route.cuh",
+         "  if (n <= BLOCK_SLOTS) return false;\n  for (c = 2;",
+         "  if (n < BIG_SLOTS) return false;\n  for (c = 2;"),
+        ("geometry.py",
+         "    if n <= FFT_ELEMS:\n        return None",
+         "    if n < FFT_BIG_ELEMS:\n        return None"),
+    ],
+    "in_place": IN_PLACE,
+    # the large radices' stages without their sums, or without either pass
+    "diag_no_large_sums": [
+        ("csrc/fft_smem.cuh",
+         "  const int rstep = tstep * ns;  // tw index of e^{-2 pi i / R}: 2M / R",
+         "  if (m > 0) return;\n  const int rstep = tstep * ns;"),
+    ],
+    "diag_no_large_stages": [
+        ("csrc/fft_smem.cuh",
+         "  const int items = (H + 1) * nb;\n  const int base0 = sg.f0 * m;",
+         "  if (m > 0) return;\n  const int items = (H + 1) * nb;\n  const int base0 = sg.f0 * m;"),
     ],
     # diagnostics of the cluster route, each with a piece of its work taken
     # out (their outputs are wrong, so no card test holds them): A's gather
@@ -110,6 +163,13 @@ VARIANTS = {  # name: [(file under PKG, code, its replacement)]
 # the card tests that hold a copy's A and D to their plain versions
 CHECK = ("routes_match_plain_versions and (nfft512 or nfft1024 or nfft1536 or nfft400 or "
          "nfft882 or nfft16384 or nfft12000 or nfft40000 or nfft32768 or nfft19683)")
+# a variant whose route tests expect another route than the copy takes
+# kernel A's complex-frame builds: every route and radix set, and the walk
+CPLX_CHECK = ("(routes_match_plain_versions and (nfft1100 or nfft1040 or nfft441 or nfft1323 "
+              "or nfft5005 or nfft1102 or nfft1101 or nfft2035 or nfft2036 or nfft4106 or "
+              "nfft493 or nfft1235 or nfft8580)) or cplx_walk")
+CHECKS = {"big_block": "routes_match_plain_versions and (nfft40000 or nfft32768 or nfft8580)",
+          "in_place": CPLX_CHECK}
 
 
 def build_copy(name: str) -> pathlib.Path:
@@ -143,7 +203,7 @@ def main() -> None:
             # from the copy's directory, so that pytest imports the copy
             check = subprocess.run(
                 [sys.executable, "-m", "pytest", str(ROOT / "tests/test_torch_cuda.py"),
-                 "--noconftest", "-q", "-p", "no:cacheprovider", "-k", CHECK],
+                 "--noconftest", "-q", "-p", "no:cacheprovider", "-k", CHECKS.get(name, CHECK)],
                 cwd=d, env=dict(os.environ, PYTHONPATH=str(d)), capture_output=True, text=True)
             print(f"== variant {name}: card tests of A and D: "
                   f"{check.stdout.strip().splitlines()[-1:]}", flush=True)

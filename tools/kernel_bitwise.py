@@ -9,7 +9,10 @@ D, E and F, to another tree's, bit for bit, on one CUDA card.
 writes every output (torch.save): A and D on each of their routes (n_fft
 1024, the power-of-two real-FFT kernel; 1536, the mixed-radix one; 1100,
 the complex-frame kernels; 1323, odd, two frames a transform; 1102, the
-chirp-z route; 40, the DFT products; 40000, 32768 and 19683, the cluster
+large radices 19 and 29 (the chirp-z route before them); 1101, the
+chirp-z route; 8580, 5005 and 4106, the big block; 16384, 16380, 12000
+and 4851, the cluster route on 2 and 3 blocks (the big block before
+it); 40, the DFT products; 40000, 32768 and 19683, the cluster
 route; 4803, the cluster chirp route), in both STFT conventions, over 3
 halo'd chunk views of 2 signal rows; B with the headline's 19 time taps,
 one unit tap and 801 (its separate smoothing launch); E with a clip's
@@ -48,6 +51,18 @@ GEOMETRIES = (
     ("n_fft 1100", dict(n_fft=1100, hop_length=275), SR),
     ("n_fft 1323", dict(n_fft=1323, hop_length=441), 44100),
     ("n_fft 1102", dict(n_fft=1102, hop_length=551), 44100),
+    ("n_fft 1101", dict(n_fft=1101, hop_length=367), 44100),
+    # the big block: n = 4290, odd 5005 (two frames a slot), and the chirp
+    # length 8192 (4106); n = 8192, 8190, 6000 and odd 4851 on the cluster
+    # route's 2 and 3 blocks (the big block before it, so a parent's
+    # outputs differ there)
+    ("n_fft 8580", dict(n_fft=8580, hop_length=2145), SR),
+    ("n_fft 5005", dict(n_fft=5005, hop_length=1001), 44100),
+    ("n_fft 4106", dict(n_fft=4106, hop_length=2053), SR),
+    ("n_fft 16380", dict(n_fft=16380, hop_length=4095), SR),
+    ("n_fft 16384", dict(n_fft=16384, hop_length=4096), SR),
+    ("n_fft 12000", dict(n_fft=12000, hop_length=3000), SR),
+    ("n_fft 4851", dict(n_fft=4851, hop_length=1617), 44100),
     ("n_fft 40", dict(n_fft=40, hop_length=10), 8000),
     # the cluster route: 4, 2 and 3 blocks (19683 odd, two frames a slot)
     ("n_fft 40000", dict(n_fft=40000, hop_length=10000), SR),
