@@ -98,7 +98,14 @@ last line is printed only when every phase passed):
     400,000 samples, each of the last two also through the stationary and
     torch engines against the CPU path, with the cluster builds' registers
     and spills (``ptxas -v``, the chirp builds' sources on lines of their
-    own);
+    own); and the global chirp route (``csrc/spectra_global.cu``,
+    ``csrc/istft_global.cu``: a chirp-z transform over a four-step FFT
+    through device memory): n_fft 40005 / hop 8001 (odd, 0.83 s) on
+    400,000 samples, 65538 / hop 21846 and 192000 / hop 48000 (4 s frames,
+    whose product-route table alone would take 147 GB) on 60 s, then 40005
+    on all 960 s, A and D alone in reduce_noise's 77 views (a counted path
+    of their own, ``GLOBAL_960``), with the global builds' registers and
+    spills;
 14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
     every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102, 1101 and
     the product route's n_fft 40), held and timed as above; the H2D of the bf16
@@ -159,7 +166,7 @@ Each path's launches are counted from 0 just before it runs and read just
 after, A's and D's also by route: every path must launch them on its
 geometry's route only (the FFT route at 1024, 2048 in the golden set,
 1536, 1100, 1323 and 1102; the chirp-z route at 1101; the product route
-at 40).
+at 40; the global chirp route at 40005, 65538 and 192000).
 The kernels JSON line lists A and D by route (``fft_route``). Stationary
 outputs are binary-threshold gates: a cell whose dB value
 lies within float32 resolution of the threshold may decide either way in
@@ -252,7 +259,29 @@ LONG_CELLS = (
     # 90 x 108, two frames a slot
     ("long frames n_fft 4803", SR, 400_000, dict(n_fft=4803, hop_length=1601),
      "cluster_chirp", "cluster_chirp"),
+    # 40005 = 3^2 5 7 127 (0.83 s frames, odd, a prime factor above 13,
+    # past 32,768 points): the global chirp route, a chirp length of 81,000
+    # = 270 x 300 through device memory, two frames a slot; then the same
+    # geometry on all 960 s (GLOBAL_960: A and D alone, once)
+    ("long frames n_fft 40005", SR, 400_000,
+     dict(n_fft=40005, hop_length=8001, time_mask_smooth_ms=500), "global_chirp",
+     "global_chirp"),
+    # 65538 (1.37 s frames): n = 32,769 = 3^2 11 331, just past 32,768
+    # points, even; L = 65,610 = 243 x 270
+    ("long frames n_fft 65538", SR, 60 * SR,
+     dict(n_fft=65538, hop_length=21846, time_mask_smooth_ms=500), "global_chirp",
+     "global_chirp_65538"),
+    # 192000 (4 s frames): n = 96,000 = 2^8 3 5^3, 5-smooth but past a
+    # cluster's 65,536 points; L = 192,000 = 400 x 480 (the product route's
+    # table alone would take 147 GB); 2 s of time smoothing (at least a hop)
+    ("long frames n_fft 192000", SR, 60 * SR,
+     dict(n_fft=192000, hop_length=48000, time_mask_smooth_ms=2000), "global_chirp",
+     "global_chirp_192000"),
 )
+# the global chirp route's throughput cell: the first LONG_CELLS geometry
+# of that route on all HEADLINE_SECONDS, A and D alone in reduce_noise's 77
+# views (its JSON entry)
+GLOBAL_960 = "global_chirp_960"
 # kernel F at temperatures that are not normal floats (the exact division):
 # 0 (a step) and 1e-40 (subnormal: read as a zero, as the JAX package
 # divides by it)
@@ -332,6 +361,10 @@ SOURCES = {
     # the cluster chirp route (4803): the chirp builds of the cluster kernels
     "spectra_cluster_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cluster_chirp.cu",
     "istft_ola_cluster_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cluster_chirp.cu",
+    # the global chirp route (40005, 65538, 192000, and 40005 on 960 s)
+    **{f"{k}_{e}": f"noisereduce_tpu_torch/ops/cuda/csrc/{src}_global.cu"
+       for e in ("global_chirp", "global_chirp_65538", "global_chirp_192000", GLOBAL_960)
+       for k, src in (("spectra", "spectra"), ("istft_ola", "istft"))},
 }
 # JSON entries of A and D: (the wrapper that launches them, the route)
 ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
@@ -341,6 +374,8 @@ for _label, _sr, _secs, _kw, _route, _entry in FFT_CELLS + LONG_CELLS:
     if _entry:
         ROUTED[f"spectra_{_entry}"] = ("spectra", _route)
         ROUTED[f"istft_ola_{_entry}"] = ("istft_ola", _route)
+ROUTED[f"spectra_{GLOBAL_960}"] = ("spectra", "global_chirp")
+ROUTED[f"istft_ola_{GLOBAL_960}"] = ("istft_ola", "global_chirp")
 # the TPU kernel each replaces (file:line), and the rows of PERF.md's
 # kernel table it serves
 REPLACES = {
@@ -2183,6 +2218,30 @@ def cluster_ptxas(stem: str) -> dict:
     return out
 
 
+def global_ptxas(stem: str) -> dict:
+    """Registers and spill bytes of every build of the global chirp route's
+    kernels in ``csrc/<stem>.cu`` (the column passes, the row pass, A's
+    unpack, D's overlap-add), keyed by the kernel and its template
+    arguments as mangled, from the ``ptxas -v`` report the build keeps
+    beside the kernel library."""
+    from noisereduce_tpu_torch.ops.cuda import build
+
+    path = build.library_path().parent / f"{stem}.ptxas.txt"
+    if not path.exists():
+        return {"error": f"no ptxas report at {path}"}
+    out = {}
+    for e in path.read_text().split("Compiling entry function")[1:]:
+        m = regex.search(r"\d+((?:spectra|istft)_global_\w+?|global_rows_kernel|"
+                         r"istft_cluster_ola_kernel)(I\w*?E)Ev", e)
+        spill = regex.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+        regs = regex.search(r"Used (\d+) registers", e)
+        if m and spill and regs:
+            out[m.group(1) + m.group(2)] = dict(
+                registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
+                spill_loads=int(spill.group(2)))
+    return out
+
+
 def cplx_ptxas(stem: str) -> dict:
     """Registers and spill bytes of every build of the complex-frame kernels
     in ``csrc/<stem>.cu`` (``spectra_cplx_kernel``, ``istft_cplx_kernel``),
@@ -2940,6 +2999,37 @@ def main() -> None:
                   f"{geo.fft_tile_frames} frame(s), {tiles / min(grid, tiles):.2f} a block",
                   flush=True)
             results["spectra_big"]["persistent_grid"] = dict(blocks=grid, tiles=tiles)
+    # the global chirp route's throughput: its first cell's geometry on all
+    # 960 s in reduce_noise's 77 views, A and D alone (counted as a path)
+    cell = next(c for c in LONG_CELLS if c[4] == "global_chirp")
+    label960 = f"{cell[0]}, {HEADLINE_SECONDS} s, A and D"
+    c960 = nr.GateConfig(sr=SR, **cell[3])
+    x960 = torch.as_tensor(x).cuda()
+    geo960 = gate_geometry(c960.stft, CHUNK + 2 * PADDING)
+
+    def a_and_d():
+        re, im = K.spectra(x960[None], geo960, CHUNK, PADDING)
+        return K.istft_ola(re, im, torch.ones_like(re), geo960, PADDING, CHUNK)
+
+    _, launches[label960] = run_path(K, label960, a_and_d, dict(spectra=1, istft_ola=1),
+                                     route="global_chirp")
+    got = route_kernel_phase(x960, c960, None,
+                             f"{label960}, n_fft {cell[3]['n_fft']}", product=False)
+    for name in ("spectra", "istft_ola"):
+        results[f"{name}_{GLOBAL_960}"] = dict(got[name], fft_route="global_chirp")
+    del x960
+    torch.cuda.empty_cache()
+    # the global chirp route's builds: registers and spills (ptxas -v)
+    for name, stem in (("spectra_global_chirp", "spectra_global"),
+                       ("istft_ola_global_chirp", "istft_global")):
+        usage = global_ptxas(stem)
+        worst = max((u["spill_stores"] + u["spill_loads"] for u in usage.values()
+                     if isinstance(u, dict)), default=None)
+        print(f"global chirp builds of {stem}.cu (ptxas -v): " + "; ".join(
+            f"{k} {u['registers']} registers, {u['spill_stores']} / {u['spill_loads']} B "
+            f"spill stores / loads" if isinstance(u, dict) else f"{k}: {u}"
+            for k, u in usage.items()) + f"; most spill bytes of a build {worst}", flush=True)
+        results[name]["ptxas"] = usage
     # the cluster routes' builds: registers and spills (ptxas -v)
     for name, stem in (("spectra_cluster", "spectra_cluster"),
                        ("istft_ola_cluster", "istft_cluster"),
@@ -2954,7 +3044,8 @@ def main() -> None:
             for k, u in usage.items()) + f"; most spill bytes of a build {worst}", flush=True)
         results[name]["ptxas"] = usage
     for cell in LONG_CELLS[1:]:
-        long_frame_engines(nr, K, launches, x[: cell[2]], cell)
+        if cell[4] in ("cluster", "cluster_chirp"):
+            long_frame_engines(nr, K, launches, x[: cell[2]], cell)
 
     bf16_route_phase(x, lambda sr, kw: nr.GateConfig(sr=sr, **kw), results)
     bf16_phase(nr, K, card, launches, x, noise, results)
@@ -2972,6 +3063,7 @@ def main() -> None:
     for label, _, secs, _, _, entry in FFT_CELLS + LONG_CELLS:
         if entry:
             main_path[f"spectra_{entry}"] = main_path[f"istft_ola_{entry}"] = label
+    main_path[f"spectra_{GLOBAL_960}"] = main_path[f"istft_ola_{GLOBAL_960}"] = label960
     for name in ("spectra", "istft_ola"):
         results[name]["fft_route"] = "fft"
     for name, (kernel, path) in BF16_ENTRIES.items():

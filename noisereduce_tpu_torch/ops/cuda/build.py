@@ -101,6 +101,17 @@ _SIGNATURES = {
         _vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
     ],
     "nr_spectra_cluster_chirp_capacity": [_i, _i, _i],
+    # the global chirp route: the cluster chirp's arguments, the group of
+    # slots after the chirp length, the (L1, L2) twiddle after the stages'
+    # tables, the (group, L) complex scratch after the filter
+    "nr_spectra_global": [
+        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+    ],
+    "nr_istft_global": [
+        _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _f,
+        _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
+    ],
     "nr_istft_cluster_chirp_capacity": [_i, _i, _i],
     "nr_istft_cplx": [
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,

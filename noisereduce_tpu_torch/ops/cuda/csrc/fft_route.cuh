@@ -3,7 +3,7 @@
 // geometry.py's fft_route, chirp_length and cluster_shape state the same
 // rules; tests/test_torch_fft.py compiles this header with the host
 // compiler and holds the two to each other over every n_fft from 1 to
-// 65536.
+// 262144.
 //
 // A frame's transform has n complex points: n_fft / 2 for an even n_fft
 // (the even samples real, the odd imaginary), n_fft for an odd one (two
@@ -27,9 +27,14 @@
 //   a big block with no cluster shape): the chirp-z convolution over a
 //   cluster chirp length L (cluster_chirp_length_ok), whose four-step FFT
 //   runs across a cluster (fft_cluster.cuh::cluster_convolve).
+// - global chirp route: any other n whose 2n - 1 fits GLOBAL_MAX_L (an n
+//   past CHIRP_MAX_N points with no cluster shape, to 8,388,608 points):
+//   the chirp-z convolution over a global chirp length L = L1 L2
+//   (global_chirp_length_ok), a four-step FFT whose two factors each fit a
+//   block, the exchange between its passes through device memory
+//   (fft_global.cuh).
 // - product route (the DFT products of spectra.cu / istft_ola.cu): the
-//   rest: n_fft below MIN_NFFT, and an n past CHIRP_MAX_N points with no
-//   cluster shape.
+//   rest: n_fft below MIN_NFFT, and an n past GLOBAL_MAX_L / 2 points.
 #pragma once
 
 namespace nrf {
@@ -39,7 +44,8 @@ enum Route {
   ROUTE_FFT = 1,
   ROUTE_CHIRP = 2,
   ROUTE_CLUSTER = 3,
-  ROUTE_CLUSTER_CHIRP = 4
+  ROUTE_CLUSTER_CHIRP = 4,
+  ROUTE_GLOBAL_CHIRP = 5
 };
 
 constexpr int MIN_NFFT = 64;
@@ -49,6 +55,8 @@ constexpr int REAL_MAX_NFFT = 2 * BLOCK_SLOTS;  // the real-FFT kernels' largest
 constexpr int MAX_CLUSTER = 8;     // blocks of a cluster (the portable most)
 // the most points a cluster chirp takes: L >= 2n - 1 within MAX_CLUSTER big blocks
 constexpr int CHIRP_MAX_N = MAX_CLUSTER * BIG_SLOTS / 2;
+// the longest global chirp length: L1 = L2 = BLOCK_SLOTS
+constexpr long long GLOBAL_MAX_L = (long long)BLOCK_SLOTS * BLOCK_SLOTS;
 
 // n with every factor in primes[0 .. count) divided out
 inline int strip(int n, const int* primes, int count) {
@@ -109,7 +117,8 @@ inline Route route_of(int n_fft) {
   } else if (2 * n - 1 <= BIG_SLOTS) {
     return ROUTE_CHIRP;
   }
-  return n <= CHIRP_MAX_N ? ROUTE_CLUSTER_CHIRP : ROUTE_PRODUCT;
+  if (n <= CHIRP_MAX_N) return ROUTE_CLUSTER_CHIRP;
+  return 2LL * n - 1 <= GLOBAL_MAX_L ? ROUTE_GLOBAL_CHIRP : ROUTE_PRODUCT;
 }
 
 // Whether the real-FFT kernels (spectra_fft.cu, istft_fft.cu) serve n_fft:
@@ -131,13 +140,34 @@ inline bool cluster_chirp_length_ok(int L) {
          cluster_shape(L, c, n1, n2);
 }
 
+// The global chirp route's split of L = L1 L2: L1 the largest divisor of
+// L at most sqrt(L), so L2 >= L1 is the least cofactor. False where L2 does
+// not fit a block (then no split of L does). Must match
+// geometry.py::global_split.
+inline bool global_split(int L, int& L1, int& L2) {
+  L1 = 1;
+  for (int d = 2; (long long)d * d <= L; ++d)
+    if (L % d == 0) L1 = d;
+  L2 = L / L1;
+  return L2 <= BLOCK_SLOTS;
+}
+
+// Whether L is a length of the global chirp route: 2^a 3^b 5^c (the builds
+// 1, 3, 5 and 15 of fft_cluster.cuh's stages) whose split fits two blocks.
+inline bool global_chirp_length_ok(int L) {
+  const int p[] = {2, 3, 5};
+  int L1, L2;
+  return L > 0 && strip(L, p, 3) == 1 && global_split(L, L1, L2);
+}
+
 // Whether a kernel takes L as n's chirp-z length: L >= 2n - 1; for an n
 // whose 2n - 1 fits a big block, 2^a 3^b within a block, BIG_SLOTS past
-// it; for a longer n, a cluster chirp length (geometry.py::chirp_length
-// picks the smallest such L).
+// it; for a longer n to CHIRP_MAX_N, a cluster chirp length; past it a
+// global chirp length (geometry.py::chirp_length picks the smallest such L).
 inline bool chirp_length_ok(int n, int L) {
   const int p[] = {2, 3};
   if (L < 2 * n - 1) return false;
+  if (n > CHIRP_MAX_N) return global_chirp_length_ok(L);
   if (2 * n - 1 > BIG_SLOTS) return cluster_chirp_length_ok(L);
   return L <= BLOCK_SLOTS ? strip(L, p, 2) == 1 : L == BIG_SLOTS;
 }

@@ -31,11 +31,13 @@ launch shapes below:
   for one below 8192 points without), from 8192 points the cluster chirp
   route for any other n to ``CHIRP_MAX_N`` points (a
   chirp length from ``cluster_chirp_lengths`` over the same four-step
-  FFT). The rest
-  (n_fft below 64, an n past 32,768 points with no cluster shape) takes
-  implicit matrix products tiled 128 x ``GEMM_BN`` x ``GEMM_BK`` (frames
-  x DFT columns x window samples for A; output hop blocks x hop x shifted
-  bins for D).
+  FFT); past it the global chirp route for any n to 8,388,608 points (a
+  chirp length from ``global_chirp_lengths``, L = L1 L2 each within a
+  block, ``global_split``: a four-step FFT in passes of ordinary blocks
+  through a scratch in device memory, ``csrc/fft_global.cuh``). The rest
+  (n_fft below 64) takes implicit matrix products tiled 128 x ``GEMM_BN``
+  x ``GEMM_BK`` (frames x DFT columns x window samples for A; output hop
+  blocks x hop x shifted bins for D).
 - B ``nonstationary_mask``, E ``stationary_mask`` and F
   ``torch_nonstationary_mask`` cut each (row, bin) column's time axis into
   segments of ``SEG_B`` / ``SEG_E`` / ``SEG_F`` frames (``TimeTilePlan``,
@@ -78,6 +80,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import functools
+import math
 
 from noisereduce_tpu_torch.config import Convention, StftConfig
 
@@ -106,6 +109,15 @@ CLUSTER_MAX = 8
 # the most points the cluster chirp route takes: a chirp length L >= 2n - 1
 # within a cluster (csrc/fft_route.cuh::CHIRP_MAX_N)
 CHIRP_MAX_N = CLUSTER_MAX * FFT_BIG_ELEMS // 2
+# the global chirp route (csrc/fft_global.cuh): a chirp length L = L1 L2
+# with each factor within a block, so L to FFT_ELEMS^2 and n to half that
+# (csrc/fft_route.cuh::GLOBAL_MAX_L); a launch of each pass takes every
+# slot while their scratch stays within GLOBAL_SCRATCH_BYTES (one launch
+# over every slot of n_fft 40005 on 960 s, 2.1 GB, ran A and D 13-18%
+# faster than groups whose scratch stayed in the card's 50 MB L2: PERF.md),
+# else groups of slots that fill it
+GLOBAL_MAX_L = FFT_ELEMS * FFT_ELEMS
+GLOBAL_SCRATCH_BYTES = 4 << 30
 FFT_RADICES = (2, 3, 5, 7, 11, 13)  # the prime radices of fft_smem.cuh's stages
 # ... and its large radices (stage_large), for an n within a block
 LARGE_RADICES = (17, 19, 23, 29, 31)
@@ -180,8 +192,10 @@ def fft_route(scfg: StftConfig) -> str:
     a prime factor above 31: 1101, 4106, ...); "cluster_chirp" for any
     other n of at most CHIRP_MAX_N points, a chirp-z transform whose
     length takes a cluster shape (4803, 16386, 16940, 65534, ...);
-    "product" for the rest: n_fft below 64, an n past CHIRP_MAX_N points
-    with no cluster shape."""
+    "global_chirp" for any other n whose 2n - 1 fits GLOBAL_MAX_L, a
+    chirp-z transform over a four-step FFT through device memory (40005,
+    65538, 192000, ...); "product" for the rest: n_fft below 64, an n past
+    GLOBAL_MAX_L / 2 points."""
     return _route_of(scfg.n_fft)
 
 
@@ -201,7 +215,9 @@ def _route_of(n_fft: int) -> str:
         return "fft"
     elif 2 * n - 1 <= FFT_BIG_ELEMS:
         return "chirp"
-    return "cluster_chirp" if n <= CHIRP_MAX_N else "product"
+    if n <= CHIRP_MAX_N:
+        return "cluster_chirp"
+    return "global_chirp" if 2 * n - 1 <= GLOBAL_MAX_L else "product"
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,21 +285,67 @@ def cluster_chirp_lengths() -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def global_split(L: int):
+    """(L1, L2) of a global chirp length L (``csrc/fft_route.cuh::
+    global_split``): L1 the largest divisor of L at most sqrt(L), L2 = L /
+    L1, so L2 is the least cofactor; None where L2 does not fit a block of
+    FFT_ELEMS points (then no split of L does). 81,000 = 270 x 300, 192,000
+    = 400 x 480."""
+    a = max(d for d in range(1, math.isqrt(L) + 1) if L % d == 0)
+    return (a, L // a) if L // a <= FFT_ELEMS else None
+
+
+@functools.lru_cache(maxsize=None)
+def global_chirp_lengths() -> tuple:
+    """The global chirp route's lengths, ascending: every 2^a 3^b 5^c past
+    CLUSTER_MAX big blocks and within GLOBAL_MAX_L whose split fits two
+    blocks (``csrc/fft_route.cuh::global_chirp_length_ok``)."""
+    smooth = sorted(v for v in (2**a * 3**b * 5**c for a in range(25) for b in range(16)
+                                for c in range(11))
+                    if CLUSTER_MAX * FFT_BIG_ELEMS < v <= GLOBAL_MAX_L)
+    return tuple(L for L in smooth if global_split(L))
+
+
+@functools.lru_cache(maxsize=None)
 def chirp_length(n: int) -> int:
     """The chirp-z routes' circular convolution length for n points: the
     smallest 2^a 3^b >= 2n - 1 while that fits a block of FFT_ELEMS
     points, else FFT_BIG_ELEMS while 2n - 1 fits a big block (2^a 3^b
     against a power of two or the smallest length with factors up to 13,
     PERF.md), else the smallest cluster chirp length >= 2n - 1
-    (``cluster_chirp_lengths``: 2^a 3^b 5^c against 2^a 3^b, PERF.md)
+    (``cluster_chirp_lengths``: 2^a 3^b 5^c against 2^a 3^b, PERF.md),
+    and past CHIRP_MAX_N points the smallest global chirp length >= 2n - 1
+    (``global_chirp_lengths``: n 40005 takes 81,000, 32,769 65,610)
     (``csrc/fft_route.cuh::chirp_length_ok``)."""
     need = 2 * n - 1
+    if n > CHIRP_MAX_N:
+        lengths = global_chirp_lengths()
+        return lengths[bisect.bisect_left(lengths, need)]
     if need > FFT_BIG_ELEMS:
         lengths = cluster_chirp_lengths()
         return lengths[bisect.bisect_left(lengths, need)]
     if need > FFT_ELEMS:
         return FFT_BIG_ELEMS
     return next(L for L in range(need, FFT_ELEMS + 1) if _strip(L, CHIRP_RADICES) == 1)
+
+
+@functools.lru_cache(maxsize=None)
+def global_shape(L: int) -> tuple:
+    """(L1, L2, tc, rb) of the global chirp route's passes for a chirp
+    length L (``csrc/fft_global.cuh::make_glob``): its split, a column
+    block's tile of tc adjacent columns of L1 points (FFT_ELEMS // L1, at
+    most L2) and a row block's rb rows of L2 points (FFT_ELEMS // L2, at
+    most L1). 81,000: 270 x 300, tiles of 15 columns, 13 rows a block."""
+    L1, L2 = global_split(L)
+    return L1, L2, min(L2, FFT_ELEMS // L1), min(L1, FFT_ELEMS // L2)
+
+
+def global_group(L: int, total: int) -> int:
+    """Slots of length L that a launch of each of the global chirp route's
+    passes takes at once, of ``total``: all of them while their scratch of
+    8 L bytes a slot stays within GLOBAL_SCRATCH_BYTES, else as many as
+    fit it (81,000: 6,628 slots; 16,777,216: 32)."""
+    return max(1, min(total, GLOBAL_SCRATCH_BYTES // (8 * L)))
 
 
 def _block_frames(warps: int, m: int, block_warps: int = FFT_WARPS) -> int:
@@ -311,8 +373,11 @@ def _layout(n_fft: int, route: str) -> tuple:
     """GateGeometry.fft_layout of n_fft on ``route``; on the cluster routes,
     a slot of n points (the chirp length on the cluster chirp route) across
     a cluster, each block's warps one segment, and one slot (two frames for
-    an odd n_fft) a group."""
+    an odd n_fft) a group; on the global chirp route a slot of the chirp
+    length and one slot a group (its passes' blocks: ``global_shape``)."""
     n = fft_n(n_fft)
+    if route == "global_chirp":
+        return chirp_length(n), FFT_WARPS, 2 if n_fft % 2 else 1
     if route in ("cluster", "cluster_chirp"):
         slot = chirp_length(n) if route == "cluster_chirp" else n
         return slot, FFT_BIG_WARPS, 2 if n_fft % 2 else 1
@@ -691,11 +756,12 @@ class GateGeometry:
 
     def cluster_frames(self, j0: int, n_out: int) -> tuple:
         """(t_lo, n_fr): the frames t_lo to t_lo + n_fr - 1 of each row
-        that kernel D's cluster route transforms, once each, for output
-        hop blocks [j0, j0 + n_out) (``out_blocks``): every frame that
-        overlaps them, from an even frame for an odd n_fft (two frames a
-        transform), held in a scratch of (rows, n_fr, win) float32 for its
-        overlap-add pass (``csrc/istft_cluster.cu``)."""
+        that kernel D's cluster and global chirp routes transform, once
+        each, for output hop blocks [j0, j0 + n_out) (``out_blocks``):
+        every frame that overlaps them, from an even frame for an odd n_fft
+        (two frames a transform), held in a scratch of (rows, n_fr, win)
+        float32 for its overlap-add pass (``csrc/istft_cluster.cu``,
+        ``csrc/istft_global.cu``)."""
         t_lo = max(0, j0 - self.r + 1)
         if self.fft_paired:
             t_lo -= t_lo % 2

@@ -30,7 +30,7 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
-Each has five routes, picked by the geometry alone
+Each has six routes, picked by the geometry alone
 (``geometry.fft_route``, the rules of ``csrc/fft_route.cuh``; a frame's
 transform has n = n_fft/2 complex points, or n_fft for an odd n_fft, two
 frames a transform):
@@ -64,10 +64,19 @@ frames a transform):
   ``csrc/spectra_cluster.cuh`` and ``csrc/istft_cluster.cuh``), the
   filter spectrum laid out in that FFT's order
   (``_cluster_chirp_filter_np``);
-- "product": the rest (n_fft below 64, an n past 32,768 points with no
-  cluster shape), the DFT products ``csrc/spectra.cu`` and
-  ``csrc/istft_ola.cu``, whose n_fft x n_fft tables are built on the card
-  (``_analysis_table``, ``_synthesis_table``).
+- "global_chirp": any other n past 32,768 points, to 8,388,608 (40005,
+  65538, 144000, 192000, ...), a chirp-z transform whose length
+  (``geometry.chirp_length``: the smallest 2^a 3^b 5^c >= 2n - 1 that
+  splits as L1 L2, each within a block, ``geometry.global_split``) runs a
+  four-step FFT in passes of ordinary blocks through a scratch in device
+  memory, in ``csrc/spectra_global.cu`` and ``csrc/istft_global.cu`` (over
+  ``csrc/fft_global.cuh``), a group of slots a launch of each pass
+  (``geometry.global_group``), the filter spectrum and the four-step
+  twiddles laid out in the passes' order (``_global_chirp_filter_np``,
+  ``_global_twiddle_np``);
+- "product": the rest (n_fft below 64), the DFT products
+  ``csrc/spectra.cu`` and ``csrc/istft_ola.cu``, whose n_fft x n_fft
+  tables are built on the card (``_analysis_table``, ``_synthesis_table``).
 
 No route is tried after another fails.
 
@@ -77,7 +86,8 @@ launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches``, ``chirp_launches``, ``cluster_launches``,
-``cluster_chirp_launches`` and ``product_launches`` (``route_counts``),
+``cluster_chirp_launches``, ``global_chirp_launches`` and
+``product_launches`` (``route_counts``),
 and G in ``resident_launches``
 and ``tiled_launches``, every kernel by its planes' dtype in
 ``dtype_launches``
@@ -123,7 +133,7 @@ from noisereduce_tpu_torch.ops import dsp
 from noisereduce_tpu_torch.ops.cuda import build
 from noisereduce_tpu_torch.ops.cuda.geometry import (
     SEG_B, SEG_E, SEG_F, GateGeometry, TimeTilePlan, cluster_shape, fft_n, fm_mask_plan,
-    freq_smooth_plan,
+    freq_smooth_plan, global_group, global_shape,
 )
 from noisereduce_tpu_torch.ops.stft import _analysis_window_np, istft, stft
 from noisereduce_tpu_torch.parallel.chunking import chunk_views, extract_chunks, n_chunks_for
@@ -324,6 +334,31 @@ def _cluster_chirp_filter_np(key: tuple) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _global_chirp_filter_np(key: tuple) -> np.ndarray:
+    """(row_blocks * L2 * rb, 2) float64 for key (n, L): ``_chirp_filter_np``
+    in the order the global chirp route's row pass reads it
+    (``csrc/fft_global.cuh::global_rows_kernel``): row block q's point k2
+    of row r at (q L2 + k2) rb + r holds H[k1 + L1 k2], k1 = q rb + r, zero
+    for k1 past L1, for the shape (L1, L2, tc, rb) of L."""
+    L1, L2, _, rb = global_shape(key[1])
+    q, k2, r = np.meshgrid(np.arange(-(-L1 // rb)), np.arange(L2), np.arange(rb), indexing="ij")
+    k1 = (q * rb + r).ravel()
+    out = _chirp_filter_np(key)[np.minimum(k1, L1 - 1) + L1 * k2.ravel()]
+    out[k1 >= L1] = 0.0
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _global_twiddle_np(L: int) -> np.ndarray:
+    """(L, 2) float64: the global chirp route's four-step twiddle w_L^{j2
+    k1} at k1 L2 + j2 (``csrc/fft_global.cuh``: pass 1 multiplies row k1's
+    point j2 by it, pass 3 by its conjugate), from ``_twiddle_np(L)`` at
+    the exact product j2 k1 < L."""
+    L1, L2, _, _ = global_shape(L)
+    return _twiddle_np(L)[(np.arange(L1)[:, None] * np.arange(L2)[None, :]).ravel()]
+
+
+@functools.lru_cache(maxsize=None)
 def _scaled_window_np(scfg) -> np.ndarray:
     """(frame_length,) float64: the FFT route's analysis window w * s, s =
     1 / sum w for scipy and 1 for torch."""
@@ -366,6 +401,8 @@ _TABLES = {
     "chirp": _chirp_np,  # key: n
     "chirp_filter": _chirp_filter_np,  # key: (n, L)
     "cluster_chirp_filter": _cluster_chirp_filter_np,  # key: (n, L)
+    "global_chirp_filter": _global_chirp_filter_np,  # key: (n, L)
+    "global_twiddle": _global_twiddle_np,  # key: L
     "scaled_window": _scaled_window_np,
     "post_window": _post_window_np,
     "window_squares": _window_squares_np,
@@ -484,6 +521,31 @@ def _cluster_entry(name: str, geo: GateGeometry, route: str) -> tuple:
     return name, ()
 
 
+def _global_tables(geo: GateGeometry, device) -> tuple:
+    """The global chirp route's tables on ``device``: the stages' twiddles
+    of the L1- and L2-point FFTs, the four-step twiddle in the columns'
+    layout (``_global_twiddle_np``), the split's of n_fft points, cbar_j
+    and the filter spectrum in the row pass's order
+    (``_global_chirp_filter_np``). The caller holds them until its launch
+    is queued: past the device-table cache's bound (L of a few million) a
+    table is not kept there."""
+    L = geo.fft_layout("global_chirp")[0]
+    L1, L2, _, _ = global_shape(L)
+    return (_device_f32("twiddle", 2 * L1, device), _device_f32("twiddle", 2 * L2, device),
+            _device_f32("global_twiddle", L, device), _device_f32("twiddle", geo.n_fft, device),
+            _device_f32("chirp", geo.fft_n, device),
+            _device_f32("global_chirp_filter", (geo.fft_n, L), device))
+
+
+def _global_scratch(geo: GateGeometry, total: int, group, device) -> tuple:
+    """(group, scratch) of the global chirp route over ``total`` slots:
+    ``group`` slots a launch (``geometry.global_group`` by default) and
+    their (group, L, 2) float32 scratch."""
+    L = geo.fft_layout("global_chirp")[0]
+    group = max(1, min(total, group or global_group(L, total)))
+    return group, torch.empty((group, L, 2), dtype=torch.float32, device=device)
+
+
 def cluster_capacity(geo: GateGeometry, kernel: str = "spectra", dtype=torch.float32,
                      device=None) -> int:
     """Clusters of ``kernel``'s build on the geometry's cluster route
@@ -517,8 +579,10 @@ def cplx_capacity(geo: GateGeometry, dtype=torch.float32, device=None) -> int:
 
 
 def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=None,
-                src_start=0):
-    """Launch kernel A's ``route`` on a CUDA tensor, and count it."""
+                src_start=0, group=None):
+    """Launch kernel A's ``route`` on a CUDA tensor, and count it; on the
+    global chirp route ``group`` slots a launch of each pass (None: the
+    geometry's ``global_group``)."""
     plane = _check_cuda("spectra", x, planes=1)
     rows, n_src = x.shape
     first, n_chunks = chunks or (0, n_chunks_for(n_src, chunk_size) if chunk_size else 1)
@@ -534,6 +598,16 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
         _launch(
             "spectra", dev, plane, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
             geo.k_a, _ptr(re), _ptr(im),
+        )
+    elif route == "global_chirp":
+        slots = -(-T // 2) if geo.fft_paired else T
+        _check_size("spectra", B * T, B * slots)
+        group, scratch = _global_scratch(geo, B * slots, group, dev)
+        tabs = _global_tables(geo, dev)
+        _launch(
+            "spectra_global", dev, plane, _ptr(x), *views, geo.n_fft, nb,
+            geo.fft_layout(route)[0], group, _ptr(_device_f32("scaled_window", geo.scfg, dev)),
+            *map(_ptr, tabs), _ptr(scratch), _ptr(re), _ptr(im),
         )
     elif route in ("cluster", "cluster_chirp"):
         slots = -(-T // 2) if geo.fft_paired else T
@@ -711,8 +785,10 @@ def istft_ola(re, im, mask, geo: GateGeometry, out_off, out_len):
     return _istft_ola_on(geo.route, re, im, mask, geo, out_off, out_len)
 
 
-def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
-    """Launch kernel D's ``route`` on CUDA tensors, and count it."""
+def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len, group=None):
+    """Launch kernel D's ``route`` on CUDA tensors, and count it; on the
+    global chirp route ``group`` slots a launch of each pass (None: the
+    geometry's ``global_group``)."""
     plane = _check_cuda("istft_ola", re, im, mask, planes=2)
     rows, T, nb = re.shape
     j0, n_out = geo.out_blocks(out_off, out_len)
@@ -728,6 +804,21 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len):
             "istft_ola", dev, plane, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
             _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
             j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
+        )
+    elif route == "global_chirp":
+        t_lo, n_fr = geo.cluster_frames(j0, n_out)
+        slots = rows * -(-n_fr // (2 if geo.fft_paired else 1))
+        _check_size("istft_ola", rows * T * nb, slots, rows * n_out * geo.hop)
+        frames = torch.empty((rows, n_fr, geo.win), dtype=torch.float32, device=dev)
+        group, scratch = _global_scratch(geo, slots, group, dev)
+        tabs = _global_tables(geo, dev)
+        _launch(
+            "istft_global", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
+            geo.n_fft, geo.hop, geo.r, geo.bpad, j0, n_out, out_off, out_len,
+            geo.istft_len, geo.env_floor, _ptr(_device_f32("post_window", geo.scfg, dev)),
+            _ptr(_device_f32("window_squares", geo.scfg, dev)),
+            _ptr(_device_f32("envelope", geo.scfg, dev)), geo.fft_layout(route)[0], group,
+            *map(_ptr, tabs), _ptr(scratch), _ptr(frames), t_lo, n_fr, _ptr(out),
         )
     elif route in ("cluster", "cluster_chirp"):
         t_lo, n_fr = geo.cluster_frames(j0, n_out)
@@ -1044,7 +1135,7 @@ def _fm_constants(b: float, lane_len: int, short: int, tile_len: int, last_tile:
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
 ROUTED = (spectra, istft_ola)  # the kernels with routes
-ROUTES = ("fft", "chirp", "cluster", "cluster_chirp", "product")
+ROUTES = ("fft", "chirp", "cluster", "cluster_chirp", "global_chirp", "product")
 FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 
 
@@ -1080,8 +1171,8 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches of kernels A and D by route, e.g. {"spectra": {"fft": 1,
-    "chirp": 0, "cluster": 0, "cluster_chirp": 0, "product": 0},
-    "istft_ola": {...}}."""
+    "chirp": 0, "cluster": 0, "cluster_chirp": 0, "global_chirp": 0,
+    "product": 0}, "istft_ola": {...}}."""
     return {fn.__name__: {route: getattr(fn, f"{route}_launches") for route in ROUTES}
             for fn in ROUTED}
 

@@ -1096,6 +1096,12 @@ LONG_GEOMS = {  # n_fft, hop, the route
     "nfft16386": (dict(n_fft=16386, hop_length=2731), "cluster_chirp"),
     "nfft16940": (dict(n_fft=16940, hop_length=4235), "cluster_chirp"),
     "nfft65534": (dict(n_fft=65534, hop_length=32767), "cluster_chirp"),
+    # the global chirp route: odd 40005 = 3^2 5 7 127 (L = 81,000 = 270 x
+    # 300), even 65538 (n = 32,769, L = 65,610 = 243 x 270) and 192000 (n =
+    # 96,000, L = 192,000 = 400 x 480)
+    "nfft40005": (dict(n_fft=40005, hop_length=8001), "global_chirp"),
+    "nfft65538": (dict(n_fft=65538, hop_length=21846), "global_chirp"),
+    "nfft192000": (dict(n_fft=192000, hop_length=48000), "global_chirp"),
 }
 
 
@@ -1123,6 +1129,7 @@ def test_long_frame_routes_match_plain_versions(cuda, name, convention):
     128), 40000, 32768, 19683 (odd, two frames a transform) and 62500 on
     the cluster route (2, 4, 2, 3 and 5 blocks); 4801, 4803, 16386,
     16940 and 65534 on the cluster chirp route (2, 2, 3, 3 and 8 blocks);
+    40005, 65538 and 192000 on the global chirp route;
     A and D within the FFT cells' bounds of their plain versions (2e-5 x
     max|ref|, 1e-5 under torch conventions), every launch on that route
     (none on the product route), bitwise from call to call."""
@@ -1148,7 +1155,8 @@ def test_long_frame_routes_match_plain_versions(cuda, name, convention):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["nfft16384", "nfft40000", "nfft19683", "nfft4801",
-                                  "nfft16386", "nfft65534"])
+                                  "nfft16386", "nfft65534", "nfft40005", "nfft65538",
+                                  "nfft192000"])
 def test_bf16_long_frame_routes_match_plain_versions(cuda, name):
     """The bfloat16 builds of the long-frame routes, held as the other
     routes' bf16 builds are: within one bf16 ulp plus the float32 bound."""
@@ -1317,6 +1325,73 @@ def test_cluster_chirp_reduce_noise_on_card(cuda, kw):
     counts = K.launch_counts()
     assert counts["istft_ola"] == 1
     assert K.route_counts() == {k: _routes("cluster_chirp", counts[k])[k]
+                                for k in ("spectra", "istft_ola")}
+    ref = nrt.reduce_noise(y, 48000, device="cpu", **args)
+    assert got.shape == y.shape and np.isfinite(got).all()
+    if not kw.get("stationary"):
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", ["nfft40005", "nfft65538", "nfft192000"])
+def test_global_chirp_groups_and_peak_memory(cuda, name, dtype):
+    """The global chirp route's output does not depend on the group of
+    slots a launch of its passes takes: A's planes and D's output (its
+    frame scratch, then one overlap-add pass) bitwise the same with one
+    slot a group, three, and the geometry's group (all of them here).
+    Each call's peak device memory over its inputs stays under a ceiling
+    of its outputs, D's frame scratch, twice the group's scratch and the
+    host tables, plus 64 MiB: far under the product route's n_fft x n_fft
+    table (6.4 GB at 40005, 147 GB at 192000)."""
+    geo, x, cs, pad = _long_case(name, "scipy", cuda, dtype)
+    L = geo.fft_layout()[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, cs, pad)
+    mask = torch.as_tensor(np.random.default_rng(36).random(re.shape), dtype=torch.float32,
+                           device=cuda)
+    out = K.istft_ola(re, im, mask, geo, pad, cs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert K.route_counts() == _routes("global_chirp")
+    slots = re.shape[0] * -(-geo.n_frames // (2 if geo.fft_paired else 1))
+    t_lo, n_fr = geo.cluster_frames(*geo.out_blocks(pad, cs))
+    ceiling = (2 * re.numel() * re.element_size() + mask.numel() * 4
+               + out.numel() * out.element_size() + re.shape[0] * n_fr * geo.win * 4
+               + 2 * slots * L * 8 + 64 * L * 8 + (64 << 20))
+    assert peak <= ceiling, (peak, ceiling)
+    assert peak < geo.k_a * geo.cols_a * 4 // 8
+    for group in (1, 3, slots):
+        a = K._spectra_on("global_chirp", x, geo, cs, pad, group=group)
+        assert torch.equal(a[0], re) and torch.equal(a[1], im), group
+        assert torch.equal(K._istft_ola_on("global_chirp", re, im, mask, geo, pad, cs,
+                                           group=group), out), group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (40005, 8001, 500, 400_000, {}), (40005, 8001, 500, 400_000, dict(stationary=True)),
+    (40005, 8001, 500, 400_000, dict(use_torch=True)), (192000, 48000, 2000, 60 * 48000, {})],
+    ids=["nfft40005-nonstationary", "nfft40005-stationary", "nfft40005-use_torch",
+         "nfft192000-nonstationary"])
+def test_global_chirp_reduce_noise_on_card(cuda, case):
+    """reduce_noise(y, 48000, n_fft=40005, hop_length=8001,
+    time_mask_smooth_ms=500) on 400,000 samples on all three engines, and
+    n_fft 192000 / hop 48000 (4 s frames, 2 s of time smoothing) on 60 s,
+    run on the card with A and D on the global chirp route only, within
+    5e-5 x max|ref| of the CPU path (stationary: held at finite values of
+    the shape, as above)."""
+    n_fft, hop, smooth_ms, samples, kw = case
+    y = np.random.default_rng(37).standard_normal(samples).astype(np.float32)
+    args = dict(n_fft=n_fft, hop_length=hop, time_mask_smooth_ms=smooth_ms, **kw)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, 48000, **args)
+    counts = K.launch_counts()
+    assert counts["istft_ola"] >= 1
+    assert K.route_counts() == {k: _routes("global_chirp", counts[k])[k]
                                 for k in ("spectra", "istft_ola")}
     ref = nrt.reduce_noise(y, 48000, device="cpu", **args)
     assert got.shape == y.shape and np.isfinite(got).all()

@@ -48,8 +48,11 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     cluster_chirp_lengths,
     cluster_layout,
     cluster_shape,
+    fft_n,
     fft_route,
     gate_geometry,
+    global_shape,
+    global_split,
     real_kernel,
 )
 from noisereduce_tpu_torch.parallel.chunking import n_chunks_for
@@ -946,28 +949,40 @@ def test_istft_fft_output_does_not_depend_on_the_run(name):
     assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0], outs[2])
 
 
-ROUTE_MAX_NFFT = 65536  # the route predicate's sweep: n_fft 1 to this
+ROUTE_MAX_NFFT = 262144  # the route predicate's sweep: n_fft 1 to this
 
 _ROUTE_MAIN = r"""
+#include <algorithm>
 #include <cstdio>
+#include <vector>
 #include "fft_route.cuh"
-// per n_fft from 1 to 65536: its route, real_kernel and cluster shape (c
-// n1 n2, or 0 0 0); then, for each line "n L" on the standard input,
-// whether chirp_length_ok(n, L), and the smallest L' >= 2n - 1 it takes
+// per n_fft from 1 to ROUTE_MAX_NFFT: its route, real_kernel and cluster
+// shape (c n1 n2, or 0 0 0); then, for each line "n L" on the standard
+// input, whether chirp_length_ok(n, L), the smallest L' >= 2n - 1 it
+// takes, and L's global split (L1 L2, or 0 0). Past CHIRP_MAX_N points the
+// smallest is looked up among the lengths global_chirp_length_ok takes.
 int main() {
-  for (int n_fft = 1; n_fft <= 65536; ++n_fft) {
+  for (int n_fft = 1; n_fft <= ROUTE_MAX_NFFT; ++n_fft) {
     int c = 0, n1 = 0, n2 = 0;
     if (!nrf::cluster_shape(nrf::fft_n(n_fft), c, n1, n2)) c = n1 = n2 = 0;
     std::printf("%d %d %d %d %d\n", nrf::route_of(n_fft), nrf::real_kernel(n_fft), c, n1, n2);
   }
+  std::vector<int> global;
+  for (int L = 2 * nrf::CHIRP_MAX_N + 1; L <= 2 * ROUTE_MAX_NFFT + (1 << 16); ++L)
+    if (nrf::global_chirp_length_ok(L)) global.push_back(L);
   int n, L;
   while (std::scanf("%d %d", &n, &L) == 2) {
     int least = 2 * n - 1;
-    while (!nrf::chirp_length_ok(n, least)) ++least;
-    std::printf("%d %d\n", nrf::chirp_length_ok(n, L), least);
+    if (n > nrf::CHIRP_MAX_N)
+      least = *std::lower_bound(global.begin(), global.end(), least);
+    else
+      while (!nrf::chirp_length_ok(n, least)) ++least;
+    int L1 = 0, L2 = 0;
+    if (!nrf::global_split(L, L1, L2)) L1 = L2 = 0;
+    std::printf("%d %d %d %d\n", nrf::chirp_length_ok(n, L), least, L1, L2);
   }
 }
-"""
+""".replace("ROUTE_MAX_NFFT", str(ROUTE_MAX_NFFT))
 
 
 def test_route_predicate(tmp_path):
@@ -978,9 +993,12 @@ def test_route_predicate(tmp_path):
     on 2), the FFT route's big block when it has none and is below 8192
     points (8580, 10010, odd 5005), else the chirp route when 2n - 1 fits a
     big block, else the cluster chirp route when n is at most CHIRP_MAX_N
-    (32,768) points; the product route takes the rest: n_fft below 64 and
-    the 16,357 odd n_fft from 32,769 to 65,535 with no cluster shape, so
-    no n of at most 32,768 points of an n_fft from 64 on. An n of at most
+    (32,768) points, else the global chirp route (every n past CHIRP_MAX_N
+    points with no cluster route, to 8,388,608 points); the product route
+    takes the rest: n_fft below 64 and none from 64 to 262,144, where
+    212,771 n_fft (81,699 of them to 131,072: 49,125 odd from 32,769, 32,574
+    even from 65,538) took the product route before the global chirp
+    route. An n of at most
     4096 points with no prime factor above 31 takes the FFT route too
     (radices 17 to 31: 776 n_fft from 68 to 8192 that took the chirp
     route before them). 1100 (M = 2 5^2 11), 1102 (M = 19 x 29), 493 (17 x
@@ -990,12 +1008,14 @@ def test_route_predicate(tmp_path):
     (n = 3 x 2731), 16940 (n = 2 5 7 11^2, no cluster shape) and 65534 (n
     = 7 31 151) the cluster chirp route (2,005 odd n_fft from 4097 to 8191,
     7,967 n_fft from 8193 to 16384 and 32,253 from 16385 to 65536 that took
-    the product route before it). geometry.fft_route, real_kernel and
+    the product route before it); 40001, 40005, 65535, 65538, 144000 and
+    192000 the global chirp route. geometry.fft_route, real_kernel and
     cluster_shape agree with csrc/fft_route.cuh (compiled with the host
-    compiler) on every n_fft from 1 to 65536; the kernels take every chirp
-    length the geometry picks (2^a 3^b and power of two within a big
-    block, 2^a 3^b 5^c and 2^a 3^b past it), and the default is the
-    smallest they take; the geometry alone decides."""
+    compiler) on every n_fft from 1 to 262,144; the kernels take every
+    chirp length the geometry picks (2^a 3^b and power of two within a big
+    block, 2^a 3^b 5^c and 2^a 3^b past it, 2^a 3^b 5^c with a global split
+    past CHIRP_MAX_N points), the default is the smallest they take, and
+    the two sides split it alike; the geometry alone decides."""
     cxx = shutil.which("c++") or shutil.which("g++")
     assert cxx, "a host C++ compiler compiles csrc/fft_route.cuh"
     (tmp_path / "route.cpp").write_text(_ROUTE_MAIN)
@@ -1004,14 +1024,19 @@ def test_route_predicate(tmp_path):
     routes = {n_fft: fft_route(StftConfig(n_fft=n_fft)) for n_fft in range(1, ROUTE_MAX_NFFT + 1)}
     chirps = [n_fft if n_fft % 2 else n_fft // 2 for n_fft, r in routes.items()
               if r in ("chirp", "cluster_chirp")]
+    globals_ = sorted({n_fft if n_fft % 2 else n_fft // 2 for n_fft, r in routes.items()
+                       if r == "global_chirp"})
     # the geometry's length, and the one tools/fft_route_timing.py times in
-    # its place: a power of two within a big block, 2^a 3^b past it
+    # its place: a power of two within a big block, 2^a 3^b past it; the
+    # global chirp route's own length alone
     asked = [(n, L) for n in chirps for L in (chirp_length(n), _other_length(n))]
+    asked += [(n, chirp_length(n)) for n in globals_]
     lines = subprocess.run([str(tmp_path / "route")], check=True, capture_output=True,
                            text=True, input="".join(f"{n} {L}\n" for n, L in asked)
                            ).stdout.splitlines()
-    names = {0: "product", 1: "fft", 2: "chirp", 3: "cluster", 4: "cluster_chirp"}
-    product, was_product = [], {}
+    names = {0: "product", 1: "fft", 2: "chirp", 3: "cluster", 4: "cluster_chirp",
+             5: "global_chirp"}
+    product, was_product, left = [], {}, []
     for n_fft, line in zip(range(1, ROUTE_MAX_NFFT + 1), lines):
         route, real, *shape = map(int, line.split())
         assert routes[n_fft] == names[route], n_fft
@@ -1023,14 +1048,27 @@ def test_route_predicate(tmp_path):
             band = next(b for b in ((4097, 8191), (8193, 16384), (16385, 65536))
                         if b[0] <= n_fft <= b[1])
             was_product[band] = was_product.get(band, 0) + 1
+        if route == 5:  # the product route's before the global chirp route
+            left.append(n_fft)
     for (n, L), line in zip(asked, lines[ROUTE_MAX_NFFT:]):
-        ok, least = map(int, line.split())
+        ok, least, L1, L2 = map(int, line.split())
         assert ok and L >= 2 * n - 1, (n, L)
         assert chirp_length(n) == least, n
+        if n > CHIRP_MAX_N:
+            assert global_split(L) == (L1, L2) and L1 * L2 == L and L1 <= L2 <= FFT_ELEMS, n
     assert len(lines) == ROUTE_MAX_NFFT + len(asked)
-    assert all(n % 2 and n > CHIRP_MAX_N for n in product) and len(product) == 16357
+    assert product == [] and all(routes[n] == "product" for n in range(1, FFT_MIN_NFFT))
     assert was_product == {(4097, 8191): 2005, (8193, 16384): 7967, (16385, 65536): 32253}
-    assert all(routes[n] == "product" for n in (32, 63, 32769, 65535))
+    assert len(left) == 212771 and sum(n <= 131072 for n in left) == 81699
+    assert sum(n % 2 for n in left if n <= 131072) == 49125
+    assert all(fft_n(n) > CHIRP_MAX_N for n in left)
+    for n in (32769, 40001, 40005, 65535, 65538, 131074, 144000, 192000, 262144):
+        assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "global_chirp"
+    assert [chirp_length(fft_n(n)) for n in (40005, 65538, 144000, 192000)] == [
+        81000, 65610, 144000, 192000]
+    assert [global_split(L) for L in (81000, 65610, 144000, 192000)] == [
+        (270, 300), (243, 270), (375, 384), (400, 480)]
+    assert routes[32] == routes[63] == "product"
     for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 5005,
               8580, 10010, 1102, 493, 1088, 2040, 1235, 1426, 1218, 8192 - 8192 % 31):
         assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
@@ -1132,7 +1170,8 @@ def test_route_counts_stay_zero_on_cpu():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 8000)
         re, im = K.spectra(x, geo)
         K.istft_ola(re, im, torch.ones_like(re), geo, 0, 8000)
-    zero = {"fft": 0, "chirp": 0, "cluster": 0, "cluster_chirp": 0, "product": 0}
+    zero = {"fft": 0, "chirp": 0, "cluster": 0, "cluster_chirp": 0, "global_chirp": 0,
+            "product": 0}
     assert K.route_counts() == {"spectra": zero, "istft_ola": zero}
 
 
@@ -1509,7 +1548,17 @@ def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, clusters=3):
                     y[b, i, u[keep]] = v[keep]
                     written[b, i, u[keep]] += 1
     assert (written == 1).all()
+    return _cluster_ola(y, geo, B, T, j0, n_out, t_lo, n_fr, out_off, out_len)
 
+
+def _cluster_ola(y, geo, B, T, j0, n_out, t_lo, n_fr, out_off, out_len):
+    """istft_cluster.cuh::istft_cluster_ola_kernel over the frame scratch
+    y (rows, n_fr, win): a thread a sample l of a row's n_out hop blocks
+    (blocks of OLA_THREADS, per_row a row), its frames' post[u] y_t[u] in
+    ascending t, the envelope (the host table where all r frames exist,
+    else summed) and the trim. Asserts that it writes every output sample
+    once."""
+    hop, r = geo.hop, geo.r
     post = K._post_window_np(geo.scfg)
     wsq, env_int = K._window_squares_np(geo.scfg), K._interior_envelope_np(geo.scfg)
     out = np.full((B, out_len), np.nan)
@@ -1541,6 +1590,231 @@ def _emulate_istft_cluster(re, im, mask, geo, out_off, out_len, clusters=3):
         out[b, o] = yy
     assert not np.isnan(out).any()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the global chirp route (csrc/fft_global.cuh, spectra_global.cu,
+# istft_global.cu) as its blocks compute it, in float64 numpy
+# ---------------------------------------------------------------------------
+def _global_convolve(gather, geo, conj, emit):
+    """fft_global.cuh's three passes on one slot of L = L1 L2 points
+    (``global_shape``: tiles of tc columns, blocks of rb rows, each block's
+    two buffers NaN at the start). Pass 1, a tile [c0, c0 + tc) a block:
+    ``gather(c0, col, j1)`` gives point j1 of column c0 + col (the block
+    computes the tile's columns past L2 from zeros and writes none), the
+    L1-point FFTs at stride ldt = tc | 1, each point k1 of column j2 times
+    the host's ``_global_twiddle_np`` at k1 L2 + j2 into the slot's
+    scratch at k1 L2 + j2. Pass 2, a block of rb rows: the rows copied in
+    (point j2 of row r at j2 ldr + r, zero past L1), the L2-point FFTs,
+    point k2 of row r times the host's filter (``_global_chirp_filter_np``
+    at (q L2 + k2) rb + r; ``conj``: its conjugate) in the first stage of
+    the unscaled inverses, the rows copied back. Pass 3, the tiles again:
+    column j2's points k1 times the conjugate twiddle, the unscaled
+    L1-point inverses, and ``emit(j, v)`` for each point j = j2 + L2 j1,
+    tile by tile in place (the emit may write the scratch the tiles read).
+    Asserts the host tables' layouts and that the passes write every
+    scratch value once."""
+    L = geo.fft_layout()[0]
+    L1, L2, tc, rb = global_shape(L)
+    ldt, ldr = tc | 1, rb | 1
+    size = max(L1 * ldt, L2 * ldr)
+    size += size % 2
+    tw1, tw2 = _twiddles(2 * L1), _twiddles(2 * L2)
+    twl = _complex(K._global_twiddle_np(L))
+    k1_, j2_ = np.meshgrid(np.arange(L1), np.arange(L2), indexing="ij")
+    assert np.abs(twl - np.exp(-2j * np.pi * (k1_ * j2_).ravel() / L)).max() < 1e-15
+    filt = _complex(K._global_chirp_filter_np((geo.fft_n, L)))
+    full = _complex(K._chirp_filter_np((geo.fft_n, L)))
+    q_, k2_, r_ = np.meshgrid(np.arange(-(-L1 // rb)), np.arange(L2), np.arange(rb),
+                              indexing="ij")
+    k1f = (q_ * rb + r_).ravel()
+    assert np.array_equal(filt, np.where(k1f < L1, full[np.minimum(k1f, L1 - 1)
+                                                        + L1 * k2_.ravel()], 0.0))
+    filt = np.conj(filt) if conj else filt
+    rows = np.full(L, np.nan, complex)  # the slot's scratch
+    tiles, row_blocks = -(-L2 // tc), -(-L1 // rb)
+    e = np.arange(L1 * tc)
+    k1, col = _div(e, tc), e - _div(e, tc) * tc
+    for t in range(tiles):  # pass 1
+        c0 = t * tc
+        y = _cluster_stages(lambda cc, j1, c0=c0: gather(c0, cc, j1), _radices(L1), L1, tc,
+                            ldt, tw1, False, size)
+        keep = col < min(tc, L2 - c0)
+        at = k1[keep] * L2 + c0 + col[keep]
+        assert np.isnan(rows[at]).all()
+        rows[at] = y[k1[keep] * ldt + col[keep]] * twl[at]
+    assert not np.isnan(rows).any()
+    er = np.arange(rb * L2)
+    r, j2 = _div(er, L2), er - _div(er, L2) * L2
+    for q in range(row_blocks):  # pass 2
+        nr = min(rb, L1 - q * rb)
+        staged = np.full(size, np.nan, complex)
+        staged[j2 * ldr + r] = np.where(r < nr, rows[np.minimum(q * rb * L2 + er, L - 1)], 0.0)
+        x = _cluster_stages(lambda rr, jj: staged[jj * ldr + rr], _radices(L2), L2, rb, ldr, tw2,
+                            False, size)
+        h = filt[q * L2 * rb : (q + 1) * L2 * rb]
+        v = _cluster_stages(lambda rr, k2: x[k2 * ldr + rr] * h[k2 * rb + rr], _radices(L2), L2,
+                            rb, ldr, tw2, True, size)
+        keep = r < nr
+        rows[q * rb * L2 + er[keep]] = v[j2[keep] * ldr + r[keep]]
+    for t in range(tiles):  # pass 3
+        c0 = t * tc
+        cols = min(tc, L2 - c0)
+
+        def load(cc, kk, c0=c0, cols=cols):
+            at = np.minimum(kk * L2 + c0 + cc, L - 1)
+            return np.where(cc < cols, rows[at] * np.conj(twl[at]), 0.0)
+
+        y = _cluster_stages(load, _radices(L1), L1, tc, ldt, tw1, True, size)
+        keep = col < cols
+        emit(c0 + col[keep] + L2 * k1[keep], y[k1[keep] * ldt + col[keep]])
+
+
+def _emulate_spectra_global(x, geo, cs=0, pad=0, group=5):
+    """csrc/spectra_global.cu: the slots (a frame; a frame pair 2s, 2s + 1
+    for an odd n_fft) in groups of ``group``, each slot's pass 1 gathering
+    the windowed points of its tiles' columns j < n times cbar_j from the
+    zero-filled signal (zero up to L), ``_global_convolve``, pass 3's
+    points j < n times cbar_j back to the slot's scratch, then the unpack:
+    a thread a bin k < n (k < n_bins, odd), Z[k] and Z[n - k] from the
+    scratch, the split and the Nyquist bin from k = 0 (even n_fft) or the
+    pair's two frames (odd). Asserts that every plane value is written
+    once."""
+    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    L = geo.fft_layout()[0]
+    L2 = global_shape(L)[1]
+    cb = _complex(K._chirp_np(n))
+    tws = _twiddles(N)
+    rows, src = x.shape
+    k_chunks = n_chunks_for(src, cs) if cs else 1
+    stride, start = (cs, -pad) if cs else (0, 0)
+    T, hop, win = geo.n_frames, geo.hop, geo.win
+    ws = K._scaled_window_np(geo.scfg)
+    n_slots = -(-T // 2) if paired else T
+    total = rows * k_chunks * n_slots
+    re = np.full((rows * k_chunks, T, nb), np.nan)
+    im = np.full_like(re, np.nan)
+    for g0 in range(0, total, group):
+        scratch = {}
+        for s in range(min(group, total - g0)):
+            b, sl = divmod(g0 + s, n_slots)
+            h, ch = divmod(b, k_chunks)
+            fa = 2 * sl if paired else sl
+            u = np.zeros((2, N))
+            for i in range(2 if paired else 1):
+                t = fa + i
+                if t >= T:
+                    continue
+                p = t * hop - geo.bpad + np.arange(win)
+                s_ = ch * stride + start + p
+                ok = (p >= 0) & (p < geo.view_len) & (s_ >= 0) & (s_ < src)
+                u[i, :win] = ws * np.where(ok, x[h, np.clip(s_, 0, src - 1)], 0.0)
+            pts = u[0] + 1j * u[1] if paired else u[0, 0::2] + 1j * u[0, 1::2]
+
+            def gather(c0, cc, j1):
+                j = c0 + cc + L2 * j1
+                jn = np.minimum(j, n - 1)
+                return np.where((c0 + cc < L2) & (j < n), pts[jn] * cb[jn], 0.0)
+
+            z = np.full(L, np.nan, complex)
+
+            def emit(j, v):
+                keep = j < n
+                z[j[keep]] = v[keep] * cb[j[keep]]
+
+            _global_convolve(gather, geo, False, emit)
+            scratch[s] = z
+        for s, z in scratch.items():  # the unpack launch of the group
+            b, sl = divmod(g0 + s, n_slots)
+            fa = 2 * sl if paired else sl
+            k = np.arange(nb if paired else n)
+            zk, zm = z[k], z[np.where(k > 0, n - k, 0)]
+            if paired:
+                xa, xb = 0.5 * (zk + np.conj(zm)), -0.5j * (zk - np.conj(zm))
+                assert np.isnan(re[b, fa]).all()
+                re[b, fa], im[b, fa] = xa.real, xa.imag
+                if fa + 1 < T:
+                    re[b, fa + 1], im[b, fa + 1] = xb.real, xb.imag
+            else:
+                lo, hi = _split(zk, zm, tws[k])
+                assert np.isnan(re[b, fa]).all()
+                re[b, fa, :n], im[b, fa, :n] = lo.real, lo.imag
+                re[b, fa, n], im[b, fa, n] = hi[0].real, hi[0].imag
+    assert not np.isnan(re).any() and not np.isnan(im).any()
+    return re, im
+
+
+def _emulate_istft_global(re, im, mask, geo, out_off, out_len, group=5):
+    """csrc/istft_global.cu: the slots of frames t_lo to t_lo + n_fr - 1
+    of each row (``cluster_frames``) in groups of ``group``, each slot's
+    pass 1 gathering point k < n of its tiles' columns from the masked
+    planes (even n_fft: unsplit(Y[k], Y[n - k], Y[n] for k = 0); odd: W[k]
+    = Y_a[k] + i Y_b[k] below n_bins, conj Y_a[n-k] + i conj Y_b[n-k]
+    above) times c_k (zero up to L), ``_global_convolve`` with the
+    conjugate filter, pass 3's points with a sample in the frame times c_j
+    into the (rows, n_fr, win) frame scratch; then the cluster routes'
+    overlap-add pass (``_cluster_ola``). Asserts that pass 3 writes every
+    scratch value once."""
+    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    L = geo.fft_layout()[0]
+    L2 = global_shape(L)[1]
+    cb = _complex(K._chirp_np(n))
+    tws = _twiddles(N)
+    B, T, _ = re.shape
+    win = geo.win
+    fps = 2 if paired else 1
+    j0, n_out = geo.out_blocks(out_off, out_len)
+    t_lo, n_fr = geo.cluster_frames(j0, n_out)
+    row_slots = -(-n_fr // fps)
+    total = B * row_slots
+    kk = np.arange(nb)
+    y = np.full((B, n_fr, win), np.nan)
+    written = np.zeros(y.shape, int)
+
+    def spectrum(b, t):  # Y = Z * mask, no imaginary DC or Nyquist part
+        if t >= T:
+            return np.zeros(nb, complex)
+        return (re[b, t] + 1j * im[b, t] * ((kk > 0) & (kk < N / 2))) * mask[b, t]
+
+    for g0 in range(0, total, group):
+        for s in range(min(group, total - g0)):
+            b, si = divmod(g0 + s, row_slots)
+            ta = t_lo + si * fps
+            ya, yb = spectrum(b, ta), spectrum(b, ta + 1)
+
+            def point(j):
+                if paired:
+                    jm = np.where(j < nb, j, n - j)
+                    return np.where(j < nb, ya[jm] + 1j * yb[jm],
+                                    np.conj(ya[jm]) + 1j * np.conj(yb[jm]))
+                return _unsplit(ya[j], np.where(j == 0, ya[n], ya[(n - j) % n]), tws[j])[0]
+
+            def gather(c0, cc, j1):
+                j = c0 + cc + L2 * j1
+                jn = np.minimum(j, n - 1)
+                return np.where((c0 + cc < L2) & (j < n), point(jn) * np.conj(cb[jn]), 0.0)
+
+            i = ta - t_lo
+            k_end = win if paired else -(-win // 2)
+
+            def emit(j, v, b=b, i=i, ta=ta):
+                keep = j < k_end
+                j, p = j[keep], v[keep] * np.conj(cb[j[keep]])
+                if paired:
+                    y[b, i, j] = p.real
+                    written[b, i, j] += 1
+                    if ta + 1 < T and i + 1 < n_fr:
+                        y[b, i + 1, j] = p.imag
+                        written[b, i + 1, j] += 1
+                else:
+                    for u, val in ((2 * j, p.real), (2 * j + 1, p.imag)):
+                        ok = u < win
+                        y[b, i, u[ok]] = val[ok]
+                        written[b, i, u[ok]] += 1
+
+            _global_convolve(gather, geo, True, emit)
+    assert (written == 1).all()
+    return _cluster_ola(y, geo, B, T, j0, n_out, t_lo, n_fr, out_off, out_len)
 
 
 @pytest.mark.parametrize("kw", CLUSTER_GEOMS.values(), ids=CLUSTER_GEOMS.keys())
@@ -1810,3 +2084,89 @@ def test_istft_cluster_emulation_matches_plain_version(kw, window):
                         "past-end": (view - 500, 2000)}[window]
     ref = K.istft_ola_ref(*(torch.as_tensor(a) for a in (re, im, mask)), geo, out_off, out_len)
     _close(_emulate_istft_cluster(re, im, mask, geo, out_off, out_len), ref.numpy())
+
+
+# the global chirp route: odd 40005 (r = 5, L = 81,000 = 270 x 300), even
+# 65538 (n = 32,769 = 3^2 11 331, L = 65,610 = 243 x 270) and 192000 (n =
+# 96,000, 5-smooth past a cluster, L = 192,000 = 400 x 480), odd 40001 =
+# 13 x 17 x 181 (L = 80,000 = 250 x 320)
+GLOBAL_GEOMS = {
+    "nfft40005-r5": dict(n_fft=40005, hop_length=8001),
+    "torch-nfft40005-r5": dict(n_fft=40005, hop_length=8001, **TORCH),
+    "nfft65538-r3": dict(n_fft=65538, hop_length=21846),
+    "torch-nfft65538-r3": dict(n_fft=65538, hop_length=21846, **TORCH),
+    "nfft192000-r4": dict(n_fft=192000, hop_length=48000),
+    "torch-nfft192000-r4": dict(n_fft=192000, hop_length=48000, **TORCH),
+    "nfft40001-r1": dict(n_fft=40001, hop_length=40001),
+}
+
+
+@pytest.mark.parametrize("kw", GLOBAL_GEOMS.values(), ids=GLOBAL_GEOMS.keys())
+def test_spectra_global_emulation_matches_plain_version(kw):
+    """Kernel A on the global chirp route (the chirp-z convolution of
+    length L over the three passes through each slot's scratch, a group
+    of slots at a time, the unpack from the scratch) against its plain
+    version, on a chunked view of a short signal."""
+    n_fft = kw["n_fft"]
+    x = np.random.default_rng(43).standard_normal((1, 2 * n_fft + 17))
+    cs, pad = n_fft, n_fft // 8
+    geo = gate_geometry(StftConfig(**kw), cs + 2 * pad)
+    assert geo.route == "global_chirp" and geo.fft_layout()[0] == chirp_length(geo.fft_n)
+    re, im = K.spectra_ref(torch.as_tensor(x), geo, cs, pad)
+    ere, eim = _emulate_spectra_global(x, geo, cs, pad, group=3)
+    _close(ere, re.numpy())
+    _close(eim, im.numpy())
+
+
+@pytest.mark.parametrize("window", ["whole", "middle", "past-end"])
+@pytest.mark.parametrize("kw", GLOBAL_GEOMS.values(), ids=GLOBAL_GEOMS.keys())
+def test_istft_global_emulation_matches_plain_version(kw, window):
+    """Kernel D on the global chirp route (W_k c_k, the convolution with
+    the conjugate filter, the frame's samples times c_j into the frame
+    scratch, the overlap-add pass) against its plain version, and the
+    same output whatever the group of slots a launch takes."""
+    n_fft = kw["n_fft"]
+    view = 2 * n_fft + n_fft // 4
+    geo = gate_geometry(StftConfig(**kw), view)
+    assert geo.route == "global_chirp"
+    rng = np.random.default_rng(44)
+    re, im = rng.standard_normal((2, 1, geo.n_frames, geo.n_bins))
+    mask = rng.random(re.shape)
+    out_off, out_len = {"whole": (0, view), "middle": (view // 3, view // 4),
+                        "past-end": (view - 500, 2000)}[window]
+    ref = K.istft_ola_ref(*(torch.as_tensor(a) for a in (re, im, mask)), geo, out_off, out_len)
+    got = _emulate_istft_global(re, im, mask, geo, out_off, out_len, group=2)
+    _close(got, ref.numpy())
+    if window == "middle":
+        assert np.array_equal(
+            got, _emulate_istft_global(re, im, mask, geo, out_off, out_len, group=1))
+
+
+def test_global_shapes_and_groups():
+    """Every global chirp length to 2^20 splits as L1 L2 <= FFT_ELEMS with
+    L1 <= L2 the balanced split, a build of the chirp's (1, 3, 5 or 15),
+    and a block's two buffers (tiles of tc = FFT_ELEMS // L1 columns, rb =
+    FFT_ELEMS // L2 rows, odd leading dimensions) fit shared memory; a
+    launch's group takes every slot while their scratch stays within
+    GLOBAL_SCRATCH_BYTES, else as many as fit it, at least one."""
+    from noisereduce_tpu_torch.ops.cuda.geometry import (
+        GLOBAL_SCRATCH_BYTES, global_chirp_lengths, global_group)
+
+    lengths = [L for L in global_chirp_lengths() if L <= 1 << 20]
+    assert lengths[0] == 65610 and len(lengths) > 100
+    for L in lengths:
+        L1, L2, tc, rb = global_shape(L)
+        assert L1 * L2 == L and L1 <= L2 <= FFT_ELEMS
+        assert not any(L % d == 0 and L // d <= FFT_ELEMS for d in range(L1 + 1, L2))
+        assert cluster_build(L) in (1, 3, 5, 15)
+        assert 1 <= tc <= L2 and 1 <= rb <= L1 and tc * L1 <= FFT_ELEMS and rb * L2 <= FFT_ELEMS
+        size = max(L1 * (tc | 1), L2 * (rb | 1))
+        assert 2 * (size + size % 2) * 8 <= SMEM_MAX, L
+    assert global_shape(81000) == (270, 300, 15, 13)
+    assert global_group(81000, 3234) == 3234  # n_fft 40005 on 960 s: one launch
+    assert global_group(81000, 10**6) == GLOBAL_SCRATCH_BYTES // (8 * 81000) == 6628
+    assert global_group(81000, 7) == 7
+    L = 16777216  # 4096 x 4096: one column a tile, one row a row block
+    assert global_shape(L)[2:] == (1, 1)
+    assert global_group(L, 100) == GLOBAL_SCRATCH_BYTES // (8 * L) == 32
+    assert global_group(1 << 34, 100) == 1

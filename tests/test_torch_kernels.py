@@ -204,13 +204,13 @@ def test_kernel_tables_and_indexing_match_plain_versions(kw):
 
 
 @pytest.mark.parametrize("kw,route", [(dict(n_fft=16386, hop_length=8193), "cluster_chirp"),
-                                      (dict(n_fft=40001, hop_length=40001), "product")],
+                                      (dict(n_fft=40001, hop_length=40001), "global_chirp")],
                          ids=["nfft16386", "nfft40001"])
 def test_product_tables_past_8192_build_no_host_table(kw, route):
-    """Past n_fft 8192 the product route (its own n_fft: 40001 = 13 x 17 x
-    181 is past 32,768 points; or forced, as chip_smoke.py and the card
-    tests force it beside another route: 16386, n = 3 x 2731, takes the
-    cluster chirp route) builds its n_fft x n_fft tables on the device
+    """Past n_fft 8192 the product route (forced, as chip_smoke.py and the
+    card tests force it beside another route: 16386, n = 3 x 2731, takes
+    the cluster chirp route, 40001 = 13 x 17 x 181 past 32,768 points the
+    global chirp route) builds its n_fft x n_fft tables on the device
     they serve, in row blocks: here the meta device, shapes only, while
     the host allocates a small part of the float64 table it would take on
     the host; the device-table cache does not keep a table past its byte

@@ -6,7 +6,9 @@ and D take the FFT route at 1536 (2 x 768, 768 = 2^8 x 3), 400 (2 x 200,
 200 = 2^3 x 5^2), 1100 (2 x 550, 550 = 2 x 5^2 x 11: radix 11) and the odd
 441 (3^2 x 7^2, two frames a transform) and at 1102 (2 x 551, 551 = 19 x
 29: the radix-19 and -29 stages); the chirp-z route at the odd 1101 (3 x
-367). The JAX package takes DFT products at every n_fft.
+367); the global chirp route at the odd 40005 (3^2 x 5 x 7 x 127, past
+32,768 points). The JAX package takes DFT products at every n_fft on its
+TPU and ``jnp.fft`` on the CPU.
 
 On the CPU the port runs the kernels' plain versions; the route's own
 arithmetic is emulated by tests/test_torch_fft.py and held on a card by
@@ -34,7 +36,12 @@ GEOMS = {"nfft1536-48k": (48000, dict(n_fft=1536, hop_length=384), "fft"),
          "nfft441-44k": (44100, dict(n_fft=441, hop_length=147), "fft"),
          "nfft1102-44k": (44100, dict(n_fft=1102, hop_length=551), "fft"),
          "nfft1101-44k": (44100, dict(n_fft=1101, hop_length=367), "chirp"),
-         "nfft1100-48k": (48000, dict(n_fft=1100, hop_length=275), "fft")}
+         "nfft1100-48k": (48000, dict(n_fft=1100, hop_length=275), "fft"),
+         # 0.83 s frames: n = 40005 = 3^2 5 7 127 past 32,768 points, L =
+         # 81,000 on the global chirp route; a hop of 167 ms takes 500 ms of
+         # time smoothing (at least one hop)
+         "nfft40005-48k": (48000, dict(n_fft=40005, hop_length=8001, time_mask_smooth_ms=500),
+                           "global_chirp")}
 ENGINES = {"nonstationary": {}, "stationary": dict(stationary=True),
            "use_torch": dict(use_torch=True)}
 
@@ -44,13 +51,13 @@ ENGINES = {"nonstationary": {}, "stationary": dict(stationary=True),
 @pytest.mark.parametrize("geom", GEOMS, ids=GEOMS.keys())
 def test_reduce_noise_matches_jax(geom, engine, chunked):
     sr, kw, route = GEOMS[geom]
-    assert fft_route(StftConfig(**kw)) == route
+    assert fft_route(StftConfig(n_fft=kw["n_fft"], hop_length=kw["hop_length"])) == route
     rng = np.random.default_rng(60)
     t = np.arange(2 * sr) / sr
     y = np.sin(2 * np.pi * 440 * t) * (t % 1 < 0.5) + 0.3 * rng.standard_normal(t.size)
     kw = dict(kw, **ENGINES[engine])
-    if chunked:
-        kw.update(chunk_size=sr // 2, padding=sr // 8)
+    if chunked:  # chunks of at least two frames (TorchGate's least input)
+        kw.update(chunk_size=max(sr // 2, 2 * kw["n_fft"]), padding=max(sr // 8, kw["n_fft"] // 4))
     got = nrt.reduce_noise(y, sr, device="cpu", compute_dtype=torch.float64, **kw)
     ref = np.asarray(jnr.reduce_noise(y, sr, **kw))
     assert got.shape == ref.shape == y.shape and got.dtype == ref.dtype

@@ -27,6 +27,15 @@ product route before it): n_fft 4803 / hop 1601 (3 x 1601, odd) on 60 s
 and on all 960 s chunked (``4803``, ``4803@960``) and 16386 / hop 2731
 (n = 3 x 2731) on 60 s, each also with the 2^a 3^b family's chirp
 length (``*_23_ms``, ``slot_23``) beside the route's own 2^a 3^b 5^c.
+The global chirp route (the product route before it): n_fft 40005 / hop
+8001 (odd, L = 81,000) on one view of 400,000 samples and on all 960 s
+chunked (``40005``, ``40005@960``), 65538 / hop 21846 and 192000 / hop
+48000 on 60 s chunked, each also with one launch of each pass over every
+slot (the geometry's ``group`` at these cells) beside groups whose
+scratch stays in the card's L2 (``l2_group``, ``*_l2_group_*``, and that
+run's peak memory); with ``--product-long`` a tree whose route at these n_fft is the
+product route is timed there too (its tables' sizes in ``table_bytes``, an
+out-of-memory error in ``*_error``).
 The big block's builds: n_fft 8580 / hop 2145 (n = 4290, every odd
 radix, no cluster shape) and 4106 / hop 2053 (chirp length 8192), each
 one view of 60 s; 12000 / hop 3000 (n = 6000: the cluster route on 2
@@ -37,11 +46,11 @@ long cell A's and D's largest deviation from their plain versions
 (``*_max_dev``, x max|plain|), so that a copy of the package with
 another route (``tools/fft_route_variants.py``) is held where it is
 timed.
-Every long cell prints A's and D's bytes bound: the signal read once and
+Every cell prints A's and D's bytes bound: the signal read once and
 the planes written once (A), the planes and the mask read once and the
-output written once (D), over the card's 3.35 TB/s, the host wall of
-each one's first call (tables included) and the peak device memory over
-both (also over the inputs). Two times per kernel: CUDA
+output written once (D), over the card's 3.35 TB/s; every long cell also
+the host wall of each one's first call (tables included) and the peak
+device memory over both (also over the inputs). Two times per kernel: CUDA
 events around one call, the minimum of ``--reps`` runs after a warm-up (the
 host's launch work included, as ``chip_smoke.py`` times), and the device
 time of the kernel alone, the mean over ``--reps`` calls in a
@@ -60,6 +69,8 @@ took.
     python3 tools/fft_route_timing.py --cells 16384,40000 --library   # the long frames
     python3 tools/fft_route_timing.py --cells 40000,40000@960,32768,19683 --library  # cluster route
     python3 tools/fft_route_timing.py --cells 4803,4803@960,16386 --library  # cluster chirp route
+    python3 tools/fft_route_timing.py --cells 40005,40005@960,65538,192000 --library  # global chirp
+    PYTHONPATH=<parent checkout> python3 tools/fft_route_timing.py --cells 40005 --product-long
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -118,7 +129,18 @@ LONG_CELLS = (
     ("4803", "n_fft 4803, 60 s, one view", 4803, 1601, 60 * 48000, 48000, False),
     ("4803@960", "n_fft 4803, 960 s, 77 views", 4803, 1601, 960 * 48000, 48000, True),
     ("16386", "n_fft 16386, 60 s, one view", 16386, 2731, 60 * 48000, 48000, False),
+    # the global chirp route (the product route before it): odd 40005 = 3^2
+    # 5 7 127 (L = 81,000 = 270 x 300) on one view and on all 960 s; even
+    # 65538 (n = 32,769, L = 65,610) and 192000 (n = 96,000, L = 192,000 =
+    # 400 x 480) on 60 s in reduce_noise's 5 views
+    ("40005", "n_fft 40005, 400,000 samples, one view", 40005, 8001, 400000, 48000, False),
+    ("40005@960", "n_fft 40005, 960 s, 77 views", 40005, 8001, 960 * 48000, 48000, True),
+    ("65538", "n_fft 65538, 60 s, 5 views", 65538, 21846, 60 * 48000, 48000, True),
+    ("192000", "n_fft 192000, 60 s, 5 views", 192000, 48000, 60 * 48000, 48000, True),
 )
+# the global chirp route's groups within the card's 50 MB L2: slots whose
+# scratch (8 L bytes each) fits this, timed beside the geometry's group
+L2_SCRATCH_BYTES = 32 << 20
 # n_fft past which the product route's first call waits for tables too long
 # to time here (40000: 6.4 GB a table)
 UNTIMED_PRODUCT_NFFT = 20000
@@ -216,8 +238,10 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     g = G.gate_geometry(scfg, cut[0] + 2 * cut[1] if chunked else n)
     win = (cut[1], cut[0]) if chunked else (0, n)  # D's trimmed output window
     cell = dict(route=g.route, frames=g.n_frames, bins=g.n_bins)
+    # 500 ms of time smoothing, or 2 s past a hop of 500 ms (at least a hop)
     taps = tri_norm(GateConfig(sr=sr, n_fft=n_fft, hop_length=hop,
-                               time_mask_smooth_ms=500).smoothing[0])
+                               time_mask_smooth_ms=500 if 2 * hop <= sr else 2000
+                               ).smoothing[0])
     try:
         plan = G.freq_smooth_plan(g.n_frames, g.n_bins, len(taps))
         cell["c_plan"] = {k: v for k, v in vars(plan).items()}
@@ -228,28 +252,47 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     if g.route == "product":
         cell["table_build"] = table_build_s(K, scfg) if n_fft <= UNTIMED_PRODUCT_NFFT else (
             "not timed")
-        print(f"{n_fft}: product route table build {cell['table_build']}", flush=True)
-        if n_fft > UNTIMED_PRODUCT_NFFT:
+        cell["table_bytes"] = dict(analysis=g.k_a * g.cols_a * 4,
+                                   synthesis=g.r * g.f2 * g.cols_d * 4)
+        print(f"{n_fft}: product route table build {cell['table_build']}, tables "
+              f"{cell['table_bytes']} bytes", flush=True)
+        if n_fft > UNTIMED_PRODUCT_NFFT and not args.product_long:
             return cell
     K.reset_launch_counts()
     a = (xs, g, *cut)
     # the first call of each (host wall, tables and builds of the call
-    # included) and the peak device memory over both
+    # included) and the peak device memory over both; a call that runs out
+    # of device memory (the product route's tables past about n_fft
+    # 146,000) is recorded, D then tried on zero planes of the same shape
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    re, im = K.spectra(*a)
-    torch.cuda.synchronize()
+    try:
+        re, im = K.spectra(*a)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        cell["spectra_error"] = str(e).splitlines()[0]
+        re = torch.zeros((xs.shape[0] * (-(-n // cut[0]) if chunked else 1), g.n_frames,
+                          g.n_bins), device=xs.device)
+        im = torch.zeros_like(re)
     cell["spectra_first_call_s"] = time.perf_counter() - t0
     mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
                       device=re.device)
     d = (re, im, mask, g, *win)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    K.istft_ola(*d)
-    torch.cuda.synchronize()
+    try:
+        K.istft_ola(*d)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        cell["istft_ola_error"] = str(e).splitlines()[0]
     cell["istft_ola_first_call_s"] = time.perf_counter() - t0
+    if "spectra_error" in cell or "istft_ola_error" in cell:
+        cell["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        print(f"{n_fft}{' chunked' if chunked else ''}: {json.dumps(cell)}", flush=True)
+        del re, im, mask, d
+        return cell
     cell["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     cell["peak_over_inputs_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
     cell["views"] = re.shape[0]
@@ -272,6 +315,21 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     cell.update(times("istft_ola", lambda: K.istft_ola(*d)))
     cell["spectra_queued_ms"] = cs.queued_ms(lambda: K.spectra(*a))
     cell["istft_ola_queued_ms"] = cs.queued_ms(lambda: K.istft_ola(*d))
+    if g.route == "global_chirp":  # the geometry's group against groups within L2
+        slots = re.shape[0] * -(-g.n_frames // (2 if g.fft_paired else 1))
+        L = g.fft_layout()[0]
+        cell["slots"], cell["group"] = slots, G.global_group(L, slots)
+        cell["l2_group"] = l2 = max(1, min(slots, L2_SCRATCH_BYTES // (8 * L)))
+        cell.update(times("spectra_l2_group",
+                          lambda: K._spectra_on("global_chirp", *a, group=l2)))
+        cell.update(times("istft_ola_l2_group",
+                          lambda: K._istft_ola_on("global_chirp", *d, group=l2)))
+        torch.cuda.reset_peak_memory_stats()
+        K._spectra_on("global_chirp", *a, group=l2)
+        K._istft_ola_on("global_chirp", *d, group=l2)
+        torch.cuda.synchronize()
+        cell["l2_group_peak_over_inputs_mib"] = (torch.cuda.max_memory_allocated()
+                                                 - base) / 2**20
     if g.route == "cluster_chirp":  # the 2^a 3^b family's length at the same shapes
         with chirp_lengths(family_length(CHIRP_FAMILY_23)):
             cell["slot_23"] = g.fft_layout()[0]
@@ -312,6 +370,10 @@ def main() -> None:
                     help="also time torch.stft / torch.istft at each cell's shapes")
     ap.add_argument("--product", action="store_true",
                     help="also time A's and D's product route at each cell's shapes")
+    ap.add_argument("--product-long", action="store_true",
+                    help="time a long cell on the product route past n_fft "
+                         f"{UNTIMED_PRODUCT_NFFT} too (a tree whose route it is), "
+                         "recording an out-of-memory error")
     args = ap.parse_args()
     wanted = {v for v in args.cells.split(",") if v}
     if not torch.cuda.is_available():
@@ -378,10 +440,18 @@ def main() -> None:
                 d = (re, im, mask, g, PADDING, CHUNK)
                 K.istft_ola(*d)
                 routes = K.route_counts()
+                planes = re.numel() * re.element_size()
                 cell = out["cells"][name + tag] = dict(
                     frames=re.shape[0] * re.shape[1],
                     slot=g.fft_layout()[0] if hasattr(g, "fft_layout") else None,
                     grid=walk_grid(K, g),
+                    # bytes bounds: the signal read once and the planes
+                    # written once (A); the planes and the mask read once
+                    # and the views' cores written once (D)
+                    spectra_bound_ms=(xs.numel() * xs.element_size() + 2 * planes)
+                    / cs.HBM_BYTES_PER_S * 1e3,
+                    istft_ola_bound_ms=(3 * planes + re.shape[0] * CHUNK * 4)
+                    / cs.HBM_BYTES_PER_S * 1e3,
                     **times("spectra", lambda: K.spectra(*a)),
                     **times("istft_ola", lambda: K.istft_ola(*d)),
                     routes={k: max(v, key=v.get) for k, v in routes.items()},
