@@ -91,7 +91,9 @@ last line is printed only when every phase passed):
     stages, ``stage_large``), 60 s; n_fft 1101 / hop 367 at 44.1 kHz (3 x
     367: the chirp-z route), 60 s; and n_fft 40 / hop 10 at 8 kHz (below
     64: the DFT-product route), 60 s, with the complex-frame builds'
-    registers and spills (``ptxas -v``); then the long frames
+    registers and spills (``ptxas -v``), and on one line the real-FFT
+    builds' (``spectra_fft.cu``, ``istft_fft.cu``) with A's and D's
+    persistent grids at the headline (``K.real_capacity``); then the long frames
     (``LONG_CELLS``) the same way without the product route: n_fft 8580
     / hop 2145 on 60 s (the big block, its persistent grid printed), 40000
     / hop 10000 and 4803 / hop 1601 (3 x 1601: the cluster chirp route) on
@@ -2271,6 +2273,31 @@ def cplx_ptxas(stem: str) -> dict:
     return out
 
 
+def real_ptxas(stem: str) -> dict:
+    """Registers and spill bytes of every build of the real-FFT kernels in
+    ``csrc/<stem>.cu`` (``spectra_pow2_kernel``, ``spectra_fft_kernel``,
+    ``istft_fft_kernel``), by odd radices (``fft_smem.cuh::odd_primes``)
+    and plane type, from the ``ptxas -v`` report the build keeps beside
+    the kernel library."""
+    from noisereduce_tpu_torch.ops.cuda import build
+
+    path = build.library_path().parent / f"{stem}.ptxas.txt"
+    if not path.exists():
+        return {"error": f"no ptxas report at {path}"}
+    out = {}
+    for e in path.read_text().split("Compiling entry function")[1:]:
+        m = regex.search(r"\d+((?:spectra_pow2|spectra_fft|istft_fft)_kernel)I(?:Li(\d+)E)?", e)
+        spill = regex.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+        regs = regex.search(r"Used (\d+) registers", e)
+        if not (m and spill and regs):
+            continue
+        key = " ".join([m.group(1), f"odd {m.group(2) or 1}",
+                        "bf16" if "bfloat16" in e.split("\n")[0] else "float32"])
+        out[key] = dict(registers=int(regs.group(1)), spill_stores=int(spill.group(1)),
+                        spill_loads=int(spill.group(2)))
+    return out
+
+
 def bf16_measure(label, fn, ref_fn, twin_fn, moved, ops, check, ptxas=None):
     """One bf16 kernel: ``check()`` holds it to its plain version and
     returns its max |dev|; then its time, its float32 twin's (``twin_fn``,
@@ -2973,6 +3000,21 @@ def main() -> None:
               + f"; most spill bytes of a block's build {worst['block']}, of a big block's "
               f"{worst['big']}", flush=True)
         results[name]["ptxas"] = usage
+
+    # the real-FFT kernels' builds: registers and spills (ptxas -v), and
+    # their persistent grids at the headline
+    geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
+    usage = {stem: real_ptxas(stem) for stem in ("spectra_fft", "istft_fft")}
+    grids = {f"{name} {str(dtype)[6:]}": K.real_capacity(geo, name, dtype)
+             for name in ("spectra", "istft_ola") for dtype in (torch.float32, torch.bfloat16)}
+    print("real-FFT builds (ptxas -v): " + "; ".join(
+        f"{k} {u['registers']} registers, {u['spill_stores']} / {u['spill_loads']} B spill "
+        f"stores / loads" if isinstance(u, dict) else f"{k}: {u}"
+        for builds in usage.values() for k, u in builds.items())
+        + f"; persistent grids at the headline (blocks): {grids}", flush=True)
+    for name, stem in (("spectra", "spectra_fft"), ("istft_ola", "istft_fft")):
+        results[name]["ptxas"] = usage[stem]
+        results[name]["persistent_grid"] = {k: v for k, v in grids.items() if k.startswith(name)}
 
     # the product route: an n_fft below 64
     xp = headline_signal(PRODUCT_SECONDS, PRODUCT_SR)

@@ -88,6 +88,10 @@ _SIGNATURES = {
     ],
     # kernel A's complex-frame persistent grid: plane, n_fft, slot, tile_frames, hop, win
     "nr_spectra_cplx_capacity": [_i, _i, _i, _i, _i, _i],
+    # the real-FFT kernels' persistent grids: plane, n_fft, tile_frames, hop,
+    # win (A); plane, n_fft, seg_warps, n_bins, hop, r (D)
+    "nr_spectra_fft_capacity": [_i, _i, _i, _i, _i],
+    "nr_istft_fft_capacity": [_i, _i, _i, _i, _i, _i],
     "nr_spectra_cluster_capacity": [_i, _i],
     "nr_istft_cluster_capacity": [_i, _i],
     # the cluster chirp route: the chirp length after n_bins (A) or env_int

@@ -22,8 +22,10 @@
 // pair m) sums them into outputs m and R - m. Kernel A's blocks of 512
 // threads and kernel D's builds with the large radices run every stage out
 // of place between the two buffers (fft_frames_large; the small radices by
-// stage_oop, which holds no value across a barrier); the in-place stage
-// serves the real-FFT kernels, D's other builds and the big blocks, whose
+// stage_oop, which holds no value across a barrier; A's power-of-two real
+// build by its own shifted twin, spectra_fft.cu's nrf::p2); the in-place
+// stage serves D's other builds (the real-FFT D's group slab leaves no room
+// for a second buffer at two blocks an SM) and the big blocks, whose
 // shared memory holds one buffer. For sub-transform size ns (the product of the
 // radices before this stage) and butterfly j < m/R:
 //   load   v[r] = z[j + r*m/R]
@@ -62,7 +64,8 @@ namespace nrf {
 // must match noisereduce_tpu_torch/ops/cuda/geometry.py
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-// blocks an SM holds (at most 40 registers a thread; a few spill): more
+// blocks an SM holds of kernel D's complex-frame builds without radix 11,
+// 13 or a large radix (at most 40 registers a thread; a few spill): more
 // blocks in flight hide the global loads between a block's barriers
 constexpr int MIN_BLOCKS = 3;
 constexpr int ELEMS = 4096;  // complex values a block holds
@@ -85,9 +88,9 @@ struct Blk {
 static_assert(Blk<true>::ELEMS == BIG_SLOTS, "fft_route.cuh's big block");
 
 // blocks an SM holds for a complex-frame build of kernel D: MIN_BLOCKS (40
-// registers a thread) as the real-FFT kernels, 2 (64) for a build with
-// radix 11 or 13 or the large radices (whose second buffer doubles a
-// block's shared memory), 1 (64 at 1024 threads) for a big block. Kernel
+// registers a thread), 2 (64) for a build with radix 11 or 13 or the large
+// radices (whose second buffer doubles a block's shared memory), 1 (64 at
+// 1024 threads) for a big block. Kernel
 // A's take 2 for every block of 512 threads (PERF.md: at 64 registers A's
 // chirp build ran 11% faster than at 40, D's 12% slower).
 constexpr int min_blocks(int odd, bool big, bool large = false) {
@@ -407,11 +410,54 @@ __device__ __forceinline__ void seg_sync(const Seg& s, const Plan<MIXED>& p) {
   }
 }
 
+// The stages' twiddles laid out in the order their threads read them:
+// stage s (sub-transform size ns, radix R) reads the twiddle of point r of
+// butterfly j, tw[(j mod ns) r tstep], at r ns + (j mod ns) - 1, so the
+// lanes of a warp (consecutive j) read consecutive entries; stage s's
+// entries fill [ns - 1, ns R - 1), and the m - 1 entries of all stages
+// follow each other. Every thread of a block of `threads` calls it, once;
+// the copies of the table's values keep the stages' arithmetic bitwise.
+// stage_of(v, ns, tstep) gives the stage whose entries hold v.
+template <class StageOf>
+__device__ __forceinline__ void lay_twiddles_by(float2* stw, const float2* __restrict__ tw, int m,
+                                                int threads, StageOf stage_of) {
+  for (int v = threadIdx.x + 1; v < m; v += threads) {
+    int ns, tstep;
+    stage_of(v, ns, tstep);
+    const int r = v / ns;
+    stw[v - 1] = __ldg(tw + (v - r * ns) * r * tstep);
+  }
+}
+
+// lay_twiddles_by for the stages of a plan
+template <bool MIXED>
+__device__ __forceinline__ void lay_twiddles(float2* stw, const float2* __restrict__ tw, int m,
+                                             const Plan<MIXED>& pl, int threads) {
+  lay_twiddles_by(stw, tw, m, threads, [&](int v, int& ns, int& tstep) {
+    int s = 0;
+    while (s + 1 < pl.n_stages && pl.ns[s + 1] <= v) ++s;
+    ns = pl.ns[s];
+    tstep = pl.tstep[s];
+  });
+}
+
+// Point r's twiddle of a butterfly with jm = j mod ns (>= 1) of a stage:
+// tw[jm r tstep] of the plan's table, or (LAID) the same value from the
+// stages' laid table (lay_twiddles)
+template <bool LAID>
+__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int jm, int r, int ns,
+                                          int tstep) {
+  if constexpr (LAID)
+    return tw[r * ns + jm - 1];
+  else
+    return __ldg(tw + jm * r * tstep);
+}
+
 // One radix-R Stockham stage over the segment's nf frames, in place: every
 // thread loads its butterflies (at most P: nf * M/R <= threads * PP / R),
 // then (after the segment's barrier) stores them. Called by every thread of
-// the segment.
-template <int R, bool INV, bool MIXED>
+// the segment. LAID: tw is the stages' laid table (lay_twiddles).
+template <int R, bool INV, bool MIXED, bool LAID = false>
 __device__ __forceinline__ void stage(float2* z, int m, int s, int nf,
                                       const float2* __restrict__ tw, const Seg& sg,
                                       const Plan<MIXED>& pl) {
@@ -435,7 +481,7 @@ __device__ __forceinline__ void stage(float2* z, int m, int s, int nf,
       if (jm) {
 #pragma unroll
         for (int r = 1; r < R; ++r) {
-          float2 w = __ldg(tw + jm * r * tstep);
+          float2 w = twiddle<LAID>(tw, jm, r, ns, tstep);
           if (INV) w.y = -w.y;
           v[p][r] = cmul(v[p][r], w);
         }
@@ -553,9 +599,10 @@ __device__ __forceinline__ void stage_large(float2* z, float2* __restrict__ sc, 
 
 // The M-point complex DFT (INV: the unscaled inverse) of the segment's
 // frames among the first n_frames of the block, in place, natural order in
-// and out. The caller has synchronised the segment after filling its
-// frames; they are synchronised on return.
-template <bool INV, int ODD>
+// and out (LAID: tw is the stages' laid table). The caller has
+// synchronised the segment after filling its frames; they are synchronised
+// on return.
+template <bool INV, int ODD, bool LAID = false>
 __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
                                            const float2* __restrict__ tw,
                                            const Seg& sg, const Plan<ODD != 1>& pl) {
@@ -563,14 +610,14 @@ __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
   const int nf = seg_frames(sg, pl, n_frames);
   for (int s = 0; s < pl.n_stages; ++s) {
     switch (pl.radix[s]) {
-      case 8: stage<8, INV, MIXED>(z, m, s, nf, tw, sg, pl); break;
-      case 4: stage<4, INV, MIXED>(z, m, s, nf, tw, sg, pl); break;
-      case 2: stage<2, INV, MIXED>(z, m, s, nf, tw, sg, pl); break;
-      case 3: if constexpr (ODD % 3 == 0) stage<3, INV, true>(z, m, s, nf, tw, sg, pl); break;
-      case 5: if constexpr (ODD % 5 == 0) stage<5, INV, true>(z, m, s, nf, tw, sg, pl); break;
-      case 7: if constexpr (ODD % 7 == 0) stage<7, INV, true>(z, m, s, nf, tw, sg, pl); break;
-      case 11: if constexpr (ODD % 11 == 0) stage<11, INV, true>(z, m, s, nf, tw, sg, pl); break;
-      case 13: if constexpr (ODD % 13 == 0) stage<13, INV, true>(z, m, s, nf, tw, sg, pl); break;
+      case 8: stage<8, INV, MIXED, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 4: stage<4, INV, MIXED, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 2: stage<2, INV, MIXED, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 3: if constexpr (ODD % 3 == 0) stage<3, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 5: if constexpr (ODD % 5 == 0) stage<5, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 7: if constexpr (ODD % 7 == 0) stage<7, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 11: if constexpr (ODD % 11 == 0) stage<11, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 13: if constexpr (ODD % 13 == 0) stage<13, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
     }
   }
 }
@@ -578,7 +625,7 @@ __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
 // One radix-R Stockham stage as stage computes it, out of place, src to
 // dst: each thread stores a butterfly's outputs as soon as it has them, so
 // no values are held across a barrier (stage's, at 64 registers, spill).
-template <int R, bool INV>
+template <int R, bool INV, bool LAID = false>
 __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
                                           float2* __restrict__ dst, int m, int s, int nf,
                                           const float2* __restrict__ tw, const Seg& sg,
@@ -599,7 +646,7 @@ __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
     if (jm) {
 #pragma unroll
       for (int r = 1; r < R; ++r) {
-        float2 w = __ldg(tw + jm * r * tstep);
+        float2 w = twiddle<LAID>(tw, jm, r, ns, tstep);
         if (INV) w.y = -w.y;
         v[r] = cmul(v[r], w);
       }
@@ -616,8 +663,11 @@ __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
 // large radices): the same stages in the same order, the small radices'
 // from one of z and the scratch sc (a block's PADDED values) to the other,
 // a large radix's stage_large folding into the other buffer and summing
-// back. Returns the buffer that holds the result (z or sc).
-template <bool INV, int ODD>
+// back (LARGE: a build whose m may have one; the real-FFT kernel A's,
+// whose m is 7-smooth, leaves them out; LAID: its small radices read the
+// stages' laid table tw). Returns the buffer that holds the result (z or
+// sc).
+template <bool INV, int ODD, bool LARGE = true, bool LAID = false>
 __device__ __forceinline__ float2* fft_frames_large(float2* z, float2* sc, int m, int n_frames,
                                                     const float2* __restrict__ tw,
                                                     const Seg& sg, const Plan<true>& pl) {
@@ -627,19 +677,19 @@ __device__ __forceinline__ float2* fft_frames_large(float2* z, float2* sc, int m
   for (int s = 0; s < pl.n_stages; ++s) {
     const int r = pl.radix[s];
     switch (r) {
-      case 17: stage_large<17, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 19: stage_large<19, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 23: stage_large<23, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 29: stage_large<29, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 31: stage_large<31, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 8: stage_oop<8, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 4: stage_oop<4, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 2: stage_oop<2, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 3: if constexpr (ODD % 3 == 0) stage_oop<3, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 5: if constexpr (ODD % 5 == 0) stage_oop<5, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 7: if constexpr (ODD % 7 == 0) stage_oop<7, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 11: if constexpr (ODD % 11 == 0) stage_oop<11, INV>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 13: if constexpr (ODD % 13 == 0) stage_oop<13, INV>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 17: if constexpr (LARGE) stage_large<17, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 19: if constexpr (LARGE) stage_large<19, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 23: if constexpr (LARGE) stage_large<23, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 29: if constexpr (LARGE) stage_large<29, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 31: if constexpr (LARGE) stage_large<31, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 8: stage_oop<8, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 4: stage_oop<4, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 2: stage_oop<2, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 3: if constexpr (ODD % 3 == 0) stage_oop<3, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 5: if constexpr (ODD % 5 == 0) stage_oop<5, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 7: if constexpr (ODD % 7 == 0) stage_oop<7, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 11: if constexpr (ODD % 11 == 0) stage_oop<11, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 13: if constexpr (ODD % 13 == 0) stage_oop<13, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
     }
     float2* t = cur;  // a small radix's stage: the result in the other buffer
     cur = other;

@@ -37,8 +37,9 @@
 // threads in segments that each own whole slots. Persistent blocks, as
 // many as the card holds at once (nr_spectra_cplx_capacity), walk the
 // tiles b, b + grid, ..., stage the window once, and copy the next tile's
-// span with 16-byte cp.async (raw plane values, widened where they are
-// packed) while this tile's stages and unpack run (PERF.md: with the
+// span with 16-byte cp.async (tile_span.cuh::issue_span, shared with
+// spectra_fft.cu: raw plane values, widened where they are packed) while
+// this tile's stages and unpack run (PERF.md: with the
 // stages out of place, 4-7% faster than one tile a block loading its span
 // behind guards at 4 of 5 cells, 6% slower at the fifth). A block of 512
 // threads holds two buffers of its 4096 points and runs every stage out
@@ -50,86 +51,20 @@
 // a big block of 1024 threads and 8192 points (fft_smem.cuh::Blk), one
 // slot a block, one block an SM: its window and span fill the SM's shared
 // memory, so its stages stay in place (fft_frames).
-#include <map>
-#include <mutex>
-#include <tuple>
 #include <type_traits>
 
 #include "fft_smem.cuh"
 #include "planes.cuh"
+#include "tile_span.cuh"
 
 namespace {
 
-// the raw bits of a plane element: a block's span holds them as
-// cp.async copies them, widened to float32 where the pack reads them
-template <class P>
-using Raw = std::conditional_t<sizeof(P) == 4, unsigned, unsigned short>;
-
-__device__ __forceinline__ float widen_raw(unsigned b) { return __uint_as_float(b); }
-__device__ __forceinline__ float widen_raw(unsigned short b) { return planes::widen(b); }
-
-__device__ __forceinline__ void cp16(void* s, const void* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(s)), "l"(g));
-}
-
-// A tile's place: view b, first frame t0, fe frames, its span of len
-// samples from view position p0 (source sample s0 of row xr)
-struct Tile {
-  int b, t0, fe, len;
-  long long p0, s0;
-};
-
-__device__ __forceinline__ Tile tile_of(int tile, int n_tiles, int n_chunks, int tile_frames,
-                                        int n_frames, int hop, int bpad, int win,
-                                        long long chunk_stride, long long view_start) {
-  Tile t;
-  t.b = tile / n_tiles;
-  t.t0 = (tile - t.b * n_tiles) * tile_frames;
-  t.fe = min(tile_frames, n_frames - t.t0);
-  t.len = (t.fe - 1) * hop + win;
-  const int c = t.b - (t.b / n_chunks) * n_chunks;
-  t.p0 = (long long)t.t0 * hop - bpad;
-  t.s0 = c * chunk_stride + view_start + t.p0;
-  return t;
-}
-
-// A block's copy of tile t's span into buf (16-byte aligned, 16 bytes
-// of slack): element i, the sample at view position p0 + i, lands at
-// buf[ph + i], ph (returned) the source's phase in 16 bytes, so that the
-// run of samples inside the view and the signal goes as 16-byte cp.async
-// copies; the few samples before and after its 16-byte pieces are copied
-// by plain loads, and the positions outside it are zero. Every thread of
-// the block calls it; the copies are one commit group, waited for before
-// the pack reads them.
-template <class P, int THREADS>
-__device__ __forceinline__ int issue_span(const P* __restrict__ xr, const Tile& t, int view_len,
-                                          long long n_src, Raw<P>* buf) {
-  using R = Raw<P>;
-  constexpr int V = 16 / sizeof(R);  // elements in 16 bytes
-  const R* src = reinterpret_cast<const R*>(xr);
-  const int lo = (int)min((long long)t.len, max(max(0LL, -t.p0), -t.s0));
-  const int hi = (int)max((long long)lo, min(min((long long)t.len, view_len - t.p0),
-                                             n_src - t.s0));
-  const int ph = (int)(((unsigned long long)(size_t)src +
-                        (unsigned long long)(t.s0 * (long long)sizeof(R))) %
-                       16 / sizeof(R));
-  R* sp = buf + ph;
-  const int h0 = min(hi, lo + (V - (ph + lo) % V) % V);  // first 16-byte boundary
-  const int pieces = (hi - h0) / V;
-  const int tail = h0 + pieces * V;  // the tail's first
-  const R* g = src + t.s0;
-  for (int i = threadIdx.x; i < pieces; i += THREADS) cp16(sp + h0 + i * V, g + h0 + i * V);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  for (int i = threadIdx.x; i < lo; i += THREADS) sp[i] = 0;
-  for (int i = hi + threadIdx.x; i < t.len; i += THREADS) sp[i] = 0;
-  const int edge = (h0 - lo) + (hi - tail);
-  if ((int)threadIdx.x < edge) {
-    const int i = (int)threadIdx.x < h0 - lo ? lo + threadIdx.x : tail + (threadIdx.x - (h0 - lo));
-    sp[i] = __ldg(g + i);
-  }
-  return ph;
-}
+using nrs::Raw;
+using nrs::Tile;
+using nrs::active_blocks;
+using nrs::issue_span;
+using nrs::tile_of;
+using nrs::widen_raw;
 
 // the plan's divisions: multiply-high for a block's stages out of place,
 // whose plan may hold any radix (fft_frames_large)
@@ -295,31 +230,6 @@ size_t cplx_smem(int tile_frames, int hop, int win) {
   const size_t len = (size_t)(tile_frames - 1) * hop + win;
   return slots + sizeof(Raw<P>) * ((len + 16 / sizeof(Raw<P>) + 3) / 4 * 4) +
          sizeof(float) * win + sizeof(int);
-}
-
-// Blocks of `kernel` with smem bytes of dynamic shared memory and
-// `threads` threads the current device holds at once (SMs x blocks an SM),
-// cached by kernel, size and device; a negative CUDA error code if the
-// query fails.
-template <class K>
-int active_blocks(K kernel, size_t smem, int threads) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, size_t, int>, int> known;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), smem, dev);
-  std::lock_guard<std::mutex> hold(mu);
-  const auto it = known.find(key);
-  if (it != known.end()) return it->second;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  known[key] = sms * per_sm;
-  return sms * per_sm;
 }
 
 // f(kernel, smem, threads, Of<T>, MIXED) for the build of n_fft with slots

@@ -19,32 +19,43 @@
 // once (0.2 + 0.815 GB for 960 s of 48 kHz audio at n_fft 1024: 0.30 ms at
 // 3.35 TB/s); the real FFT's ~2.5 N log2 N operations a frame are ~1% of the
 // DFT product's. The bf16 build (planes.cuh) reads a bf16 signal and stores
-// bf16 planes, the FFT in float32: 0.1 + 0.41 GB, 0.15 ms. Design: one
-// block per tile of tile_frames consecutive frames
-// of one view (geometry.py's fft_tile_frames: the frame slots of the block's
-// thread segments, 8 at n_fft 1024, 5 at 1536, 20 at 400).
-// The block loads the window and the tile's signal span, (tile_frames - 1)
-// * hop + frame_length samples zero filled by the view and signal bounds,
-// once into shared memory with coalesced loads (scalar: a span starts
-// anywhere in the signal); packs each windowed frame as M = N/2
-// complex points (even samples real, odd imaginary; zero past
-// frame_length); runs the M-point FFT of fft_smem.cuh; and unpacks
+// bf16 planes, the FFT in float32: 0.1 + 0.41 GB, 0.15 ms.
+//
+// Design: tiles of tile_frames consecutive frames of one view
+// (geometry.py's fft_tile_frames: the frame slots of the block's thread
+// segments, 8 at n_fft 1024, 5 at 1536, 20 at 400). Persistent blocks, as
+// many as the card holds at once (nr_spectra_fft_capacity; 2 an SM, 64
+// registers a thread), walk the tiles b, b + grid, ..., stage the window
+// once, and copy the next tile's signal span ((tile_frames - 1) * hop +
+// frame_length samples, zero filled by the view and signal bounds) with
+// 16-byte cp.async (tile_span.cuh::issue_span: raw plane values, widened
+// where they are packed, so a bf16 sample waits in no guard's branch)
+// while this tile's stages and unpack run. Each segment packs its windowed
+// frames as M = N/2 complex points (even samples real, odd imaginary; zero
+// past frame_length) and runs the M-point FFT with every stage out of place
+// between the block's two buffers (a thread stores a butterfly as soon as
+// it has it, so no value is held across a barrier), the stages' twiddles
+// from a table laid out once a block in shared memory in the order the
+// stages read them (fft_smem.cuh::lay_twiddles: a warp reads consecutive
+// entries, where its reads of the host table spread over up to 28 lines of
+// the L1 cache); the unpack takes
 //   X[k] = (Z[k] + conj Z[M-k]) / 2 - i e^{-2 pi i k/N} (Z[k] - conj Z[M-k]) / 2
-// (indices mod M; fft_smem.cuh::split) straight into the planes, one
-// thread for the pair k, M - k: (M + 1) / 2 slots a frame, slot 0 giving
-// bins 0 and M and, for an even M, M/2 as well (an odd M has no middle
-// bin). The tile's rows are
-// contiguous in the planes, so neighbouring threads store neighbouring bins
-// (scalar stores: rows are not 16-byte aligned).
+// (indices mod M; fft_smem.cuh::split), one thread for the pair k, M - k:
+// (M + 1) / 2 slots a frame, slot 0 giving bins 0 and M and, for an even M,
+// M/2 as well (an odd M has no middle bin). A tile's rows are one
+// contiguous run of tile_frames x n_bins values in each plane, which the
+// unpack stores straight into the planes, neighbouring threads on
+// neighbouring bins.
 //
 // Two kernels: spectra_fft_kernel<ODD> for an M with an odd prime factor
-// (fft_smem.cuh's plan, divisions by multiply-high), and spectra_pow2_kernel
-// for a power of two M, whose indices are shifts and masks of log2 M and
-// whose segments keep four indices. The general kernel's indices hold more
-// registers under the 40-register budget of 3 blocks an SM; at n_fft 1024
-// they cost it ~4% (PERF.md), which the power-of-two kernel does not pay.
+// (fft_smem.cuh's plan, divisions by multiply-high, its stages by
+// fft_frames_large), and spectra_pow2_kernel for a power of two M, whose
+// indices are shifts and masks of log2 M, whose segments keep four indices
+// and whose first stage packs its points from the span as it loads them,
+// no pass of its own through shared memory (nrf::p2).
 #include "fft_smem.cuh"
 #include "planes.cuh"
+#include "tile_span.cuh"
 
 // the power-of-two kernel's segments and FFT stages
 namespace nrf {
@@ -81,12 +92,16 @@ __device__ __forceinline__ void seg_sync(const Seg& s) {
   }
 }
 
-// One radix-R Stockham stage over the segment's frames among the first
-// n_frames, in place: every thread loads its butterflies, then (after the
-// segment's barrier) stores them. Called by every thread of the segment.
-template <int R, bool INV>
-__device__ __forceinline__ void stage(float2* z, int log2m, int ns, int n_frames,
-                                      const float2* __restrict__ tw, const Seg& sg) {
+// One radix-R Stockham stage of the forward transform over the segment's
+// frames among the first n_frames, out of place, from the points load(e)
+// (e = f M + q: point q of frame f) to dst: each thread loads, twiddles
+// and transforms a butterfly and stores it at once, so no value is held
+// across the segment's barrier; its twiddles from the stages' laid table
+// stw (lay_twiddles). Called by every thread of the segment.
+template <int R, class Load>
+__device__ __forceinline__ void stage_oop(Load load, float2* __restrict__ dst, int log2m, int ns,
+                                          int n_frames, const float2* __restrict__ stw,
+                                          const Seg& sg) {
   constexpr int P = PP / R;  // butterflies per thread
   constexpr int LOG2R = R == 8 ? 3 : R == 4 ? 2 : 1;
   const int M = 1 << log2m;
@@ -94,8 +109,6 @@ __device__ __forceinline__ void stage(float2* z, int log2m, int ns, int n_frames
   const int mr = 1 << log2mr;
   const int n_bfly = n_frames << log2mr;
   const int bfly0 = sg.first >> LOG2R;  // the segment's first butterfly
-  const int tstep = 2 * (M / (ns * R));  // tw index step per (j mod ns) * r
-  float2 v[P][R];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int idx = bfly0 + sg.lane + (p << sg.log2t);
@@ -103,58 +116,67 @@ __device__ __forceinline__ void stage(float2* z, int log2m, int ns, int n_frames
       const int f = idx >> log2mr;
       const int j = idx & (mr - 1);
       const int base = f * M + j;
+      float2 v[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) v[p][r] = z[pad(base + r * mr)];
+      for (int r = 0; r < R; ++r) v[r] = load(base + r * mr);
       const int jm = j & (ns - 1);
       if (jm) {
 #pragma unroll
-        for (int r = 1; r < R; ++r) {
-          float2 w = __ldg(tw + jm * r * tstep);
-          if (INV) w.y = -w.y;
-          v[p][r] = cmul(v[p][r], w);
-        }
+        for (int r = 1; r < R; ++r) v[r] = cmul(v[r], stw[r * ns + jm - 1]);
       }
-      dft<R, INV>(v[p]);
-    }
-  }
-  seg_sync(sg);
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int idx = bfly0 + sg.lane + (p << sg.log2t);
-    if (idx < n_bfly) {
-      const int f = idx >> log2mr;
-      const int j = idx & (mr - 1);
-      const int jm = j & (ns - 1);
+      dft<R, false>(v);
       const int d = f * M + (j - jm) * R + jm;
 #pragma unroll
-      for (int r = 0; r < R; ++r) z[pad(d + r * ns)] = v[p][r];
+      for (int r = 0; r < R; ++r) dst[pad(d + r * ns)] = v[r];
     }
   }
   seg_sync(sg);
 }
 
-// The M-point complex DFT (INV: the unscaled inverse) of the segment's
-// frames among the first n_frames, in place, natural order in and out. The
-// caller has synchronised the segment after filling its frames; they are
-// synchronised on return.
-template <bool INV>
-__device__ __forceinline__ void fft_frames(float2* z, int log2m, int n_frames,
-                                           const float2* __restrict__ tw,
-                                           const Seg& sg) {
+// the radix of the stage of sub-transform size ns: 8 while at least 8 of M
+// remain, then 4 or 2
+__device__ __forceinline__ int radix(int M, int ns) { return min(8, M / ns); }
+
+// The stages' twiddles laid out in the order their threads read them
+// (fft_smem.cuh::lay_twiddles_by): stage (ns, R)'s entries, ns <= v < ns R,
+// from the n_fft = 2M point table, step 2M / (ns R). Every thread of the
+// block calls it, once.
+__device__ __forceinline__ void lay_twiddles(float2* stw, const float2* __restrict__ tw,
+                                             int log2m) {
   const int M = 1 << log2m;
-  for (int ns = 1; ns < M;) {
-    const int left = M / ns;
-    if (left >= 8) {
-      stage<8, INV>(z, log2m, ns, n_frames, tw, sg);
-      ns *= 8;
-    } else if (left == 4) {
-      stage<4, INV>(z, log2m, ns, n_frames, tw, sg);
-      ns *= 4;
-    } else {
-      stage<2, INV>(z, log2m, ns, n_frames, tw, sg);
-      ns *= 2;
-    }
+  lay_twiddles_by(stw, tw, M, THREADS, [&](int v, int& ns, int& tstep) {
+    ns = 1;
+    while (ns * radix(M, ns) <= v) ns *= radix(M, ns);
+    tstep = 2 * (M / (ns * radix(M, ns)));
+  });
+}
+
+// The stage of sub-transform size ns, from load's points to dst
+template <class Load>
+__device__ __forceinline__ void stage(Load load, float2* dst, int log2m, int ns, int n_frames,
+                                      const float2* __restrict__ stw, const Seg& sg) {
+  switch (radix(1 << log2m, ns)) {
+    case 8: stage_oop<8>(load, dst, log2m, ns, n_frames, stw, sg); break;
+    case 4: stage_oop<4>(load, dst, log2m, ns, n_frames, stw, sg); break;
+    default: stage_oop<2>(load, dst, log2m, ns, n_frames, stw, sg);
   }
+}
+
+// The M-point complex DFT's stages from sub-transform size ns on, over the
+// segment's frames among the first n_frames, natural order out, from z
+// through sc and z in turns. The caller has synchronised the segment after
+// filling its frames; they are synchronised on return. Returns the buffer
+// that holds the result.
+__device__ __forceinline__ float2* fft_frames(float2* z, float2* sc, int log2m, int ns,
+                                              int n_frames, const float2* __restrict__ stw,
+                                              const Seg& sg) {
+  for (const int M = 1 << log2m; ns < M; ns *= radix(M, ns)) {
+    stage([z](int e) { return z[pad(e)]; }, sc, log2m, ns, n_frames, stw, sg);
+    float2* t = z;
+    z = sc;
+    sc = t;
+  }
+  return z;
 }
 
 }  // namespace p2
@@ -162,162 +184,219 @@ __device__ __forceinline__ void fft_frames(float2* z, int log2m, int n_frames,
 
 namespace {
 
-template <int ODD, class T>  // fft_smem.cuh::odd_primes of M; the plane type
-__global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
-    spectra_fft_kernel(const T* __restrict__ x, long long n_src,
-                       int n_chunks, long long chunk_stride,
-                       long long view_start, int view_len, int n_frames,
-                       int hop, int bpad, int win, int n_bins,
-                       int tile_frames, int n_tiles,
-                       const float* __restrict__ ws,
-                       const float2* __restrict__ tw, T* __restrict__ re,
-                       T* __restrict__ im, const nrf::Plan<ODD != 1> plan) {
+constexpr int BLOCKS_PER_SM = 2;  // two buffers of 4096 points a block
+
+// The views and tiles of a launch (a kernel parameter)
+struct Views {
+  long long n_src, chunk_stride, view_start;
+  int n_chunks, view_len, n_frames, hop, bpad, win, n_bins, tile_frames, n_tiles, total;
+};
+
+// A block's shared memory: two buffers of its points (z, sc), the stages'
+// laid twiddles (stw: M - 1 entries, made even), the span's raw plane
+// values with their slack, the window, the span's phase
+template <class T>
+struct Smem {
+  float2* z;
+  float2* sc;
+  float2* stw;
+  nrs::Raw<T>* raw;
+  float* wsm;
+  int* span_ph;
+};
+
+template <class T>
+__device__ __forceinline__ Smem<T> smem_of(const Views& v) {
   extern __shared__ __align__(16) float2 smem2[];
-  const int m = plan.m.d;
-  float2* z = smem2;
-  float* wsm = reinterpret_cast<float*>(smem2 + nrf::PADDED);  // ws, win values
-  float* span = wsm + win;
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / n_tiles;
-  const int t0 = (blockIdx.x - b * n_tiles) * tile_frames;
-  const int fe = min(tile_frames, n_frames - t0);
-  const int h = b / n_chunks;
-  const int c = b - h * n_chunks;
+  Smem<T> s;
+  s.z = smem2;
+  s.sc = smem2 + nrf::PADDED;
+  s.stw = s.sc + nrf::PADDED;
+  s.raw = reinterpret_cast<nrs::Raw<T>*>(s.stw + (v.n_bins & ~1));
+  s.wsm = reinterpret_cast<float*>(s.raw +
+                                   nrs::run_elems<T>((v.tile_frames - 1) * v.hop + v.win));
+  s.span_ph = reinterpret_cast<int*>(s.wsm + v.win);
+  return s;
+}
 
-  // the window and the tile's signal span, once
-  const int span_len = (fe - 1) * hop + win;
-  const long long p0 = (long long)t0 * hop - bpad;  // view position of span[0]
-  const long long s0 = c * chunk_stride + view_start + p0;
-  const T* xr = x + (long long)h * n_src;
-  for (int i = tid; i < win; i += nrf::THREADS) wsm[i] = __ldg(ws + i);
-  for (int i = tid; i < span_len; i += nrf::THREADS) {
-    const long long p = p0 + i;
-    const long long s = s0 + i;
-    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? planes::ld(xr + s) : 0.f;
+template <class T>
+size_t smem_bytes(int m, int tile_frames, int hop, int win) {
+  return sizeof(float2) * (2 * nrf::PADDED + ((m + 1) & ~1)) +
+         sizeof(nrs::Raw<T>) * nrs::run_elems<T>((tile_frames - 1) * hop + win) +
+         sizeof(float) * win + sizeof(int);
+}
+
+// A block's persistent walk over the tiles blockIdx.x, + gridDim.x, ...:
+// the window staged once and the first tile's span copied; then for each
+// tile, once its span has landed, pack(t, span) fills the segments' slots,
+// and behind a barrier (every read of the span done) the next tile's span
+// is copied while transform(t) runs the stages and the unpack.
+template <class T, class Pack, class Transform>
+__device__ __forceinline__ void walk(const T* __restrict__ x, const Views& v, const Smem<T>& s,
+                                     const float* __restrict__ ws, Pack pack,
+                                     Transform transform) {
+  const auto tile = [&](int i) {
+    return nrs::tile_of(i, v.n_tiles, v.n_chunks, v.tile_frames, v.n_frames, v.hop, v.bpad,
+                        v.win, v.chunk_stride, v.view_start);
+  };
+  const auto issue = [&](const nrs::Tile& t) {
+    const int ph = nrs::issue_span<T, nrf::THREADS>(x + (long long)(t.b / v.n_chunks) * v.n_src,
+                                                    t, v.view_len, v.n_src, s.raw);
+    if (threadIdx.x == 0) *s.span_ph = ph;
+  };
+  for (int i = threadIdx.x; i < v.win; i += nrf::THREADS) s.wsm[i] = __ldg(ws + i);
+  if ((int)blockIdx.x < v.total) issue(tile(blockIdx.x));
+  for (int i = blockIdx.x; i < v.total; i += gridDim.x) {
+    const nrs::Tile t = tile(i);
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // the span and its phase landed; the last unpack done
+    pack(t, s.raw + *s.span_ph);
+    __syncthreads();  // every read of the span done
+    if (i + (int)gridDim.x < v.total) issue(tile(i + gridDim.x));
+    transform(t);
   }
-  __syncthreads();
+}
 
+// a raw span sample as a float
+template <class R>
+__device__ __forceinline__ float smp(const R* sp, int i) {
+  return nrs::widen_raw(sp[i]);
+}
+
+template <int ODD, class T>  // fft_smem.cuh::odd_primes of M; the plane type
+__global__ void __launch_bounds__(nrf::THREADS, BLOCKS_PER_SM)
+    spectra_fft_kernel(const T* __restrict__ x, const Views v, const float* __restrict__ ws,
+                       const float2* __restrict__ tw, T* __restrict__ re, T* __restrict__ im,
+                       const nrf::Plan<true> plan) {
+  const Smem<T> s = smem_of<T>(v);
+  const int m = plan.m.d;
   // each segment of threads packs, transforms and unpacks its own frames
   const nrf::Seg sg = nrf::segment(plan);
-  const int nf = nrf::seg_frames(sg, plan, fe);
   const int first = sg.f0 * m;  // the segment's first point
-
-  // windowed frames, packed: z[f][q] = u[2q] + i u[2q+1]
-  for (int e = sg.lane; e < nf * m; e += plan.threads) {
-    const int fl = plan.m.div(e);
-    const int n = 2 * (e - fl * m);
-    const float* sp = span + (sg.f0 + fl) * hop + n;
-    z[nrf::pad(first + e)] = make_float2(n < win ? wsm[n] * sp[0] : 0.f,
-                                         n + 1 < win ? wsm[n + 1] * sp[1] : 0.f);
-  }
-  nrf::seg_sync(sg, plan);
-
-  nrf::fft_frames<false, ODD>(z, m, fe, tw, sg, plan);
-
-  // unpack the real spectrum into the tile's contiguous rows: slot k of
-  // frame f writes bins k and M - k (slot 0: 0 and M, and M/2 for an even M)
-  const int half = (m + 1) >> 1;  // slots a frame
-  const long long o0 = ((long long)b * n_frames + t0 + sg.f0) * n_bins;
-  for (int e = sg.lane; e < nf * half; e += plan.threads) {
-    const int fl = plan.half.div(e);
-    const int k = e - fl * half;
-    const int base = first + fl * m;
-    const long long row = o0 + (long long)fl * n_bins;
-    const float2 zk = z[nrf::pad(base + k)];
-    const float2 zm = z[nrf::pad(base + (k ? m - k : 0))];
-    float2 lo, hi;
-    nrf::split(zk, zm, __ldg(tw + k), lo, hi);
-    planes::st(re + row + k, lo.x);
-    planes::st(im + row + k, lo.y);
-    planes::st(re + row + m - k, hi.x);
-    planes::st(im + row + m - k, hi.y);
-    if (k == 0 && !(m & 1)) {
-      const float2 zh = z[nrf::pad(base + m / 2)];
-      nrf::split(zh, zh, __ldg(tw + m / 2), lo, hi);
-      planes::st(re + row + m / 2, lo.x);
-      planes::st(im + row + m / 2, lo.y);
-    }
-  }
+  nrf::lay_twiddles(s.stw, tw, m, plan, nrf::THREADS);
+  walk(x, v, s, ws,
+       [&](const nrs::Tile& t, const nrs::Raw<T>* sp) {
+         // windowed frames, packed: z[f][q] = u[2q] + i u[2q+1]
+         const int nf = nrf::seg_frames(sg, plan, t.fe);
+         for (int e = sg.lane; e < nf * m; e += plan.threads) {
+           const int fl = plan.m.div(e);
+           const int n = 2 * (e - fl * m);
+           const int o = (sg.f0 + fl) * v.hop + n;
+           s.z[nrf::pad(first + e)] =
+               make_float2(n < v.win ? s.wsm[n] * smp(sp, o) : 0.f,
+                           n + 1 < v.win ? s.wsm[n + 1] * smp(sp, o + 1) : 0.f);
+         }
+       },
+       [&](const nrs::Tile& t) {
+         const float2* zo = nrf::fft_frames_large<false, ODD, false, true>(
+             s.z, s.sc, m, t.fe, s.stw, sg, plan);
+         // unpack the real spectrum into the tile's contiguous rows: slot
+         // k of frame f writes bins k and M - k (slot 0: 0 and M, and M/2
+         // for an even M)
+         const int nf = nrf::seg_frames(sg, plan, t.fe);
+         const int half = (m + 1) >> 1;  // slots a frame
+         const long long o0 = ((long long)t.b * v.n_frames + t.t0) * v.n_bins;
+         T* const rre = re + o0;  // the tile's rows
+         T* const rim = im + o0;
+         for (int e = sg.lane; e < nf * half; e += plan.threads) {
+           const int fl = plan.half.div(e);
+           const int k = e - fl * half;
+           const int base = first + fl * m;
+           const int row = (sg.f0 + fl) * v.n_bins;
+           const float2 zk = zo[nrf::pad(base + k)];
+           const float2 zm = zo[nrf::pad(base + (k ? m - k : 0))];
+           float2 lo, hi;
+           nrf::split(zk, zm, __ldg(tw + k), lo, hi);
+           planes::st(rre + row + k, lo.x);
+           planes::st(rim + row + k, lo.y);
+           planes::st(rre + row + m - k, hi.x);
+           planes::st(rim + row + m - k, hi.y);
+           if (k == 0 && !(m & 1)) {
+             const float2 zh = zo[nrf::pad(base + m / 2)];
+             nrf::split(zh, zh, __ldg(tw + m / 2), lo, hi);
+             planes::st(rre + row + m / 2, lo.x);
+             planes::st(rim + row + m / 2, lo.y);
+           }
+         }
+       });
 }
 
 // The same computation for a power of two M, indexed by shifts of log2 M
 // (nrf::p2's segments and stages).
 template <class T>
-__global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
-    spectra_pow2_kernel(const T* __restrict__ x, long long n_src,
-                        int n_chunks, long long chunk_stride,
-                        long long view_start, int view_len, int n_frames,
-                        int hop, int bpad, int win, int log2m, int n_bins,
-                        int tile_frames, int n_tiles,
-                        const float* __restrict__ ws,
-                        const float2* __restrict__ tw, T* __restrict__ re,
-                        T* __restrict__ im) {
-  extern __shared__ __align__(16) float2 smem2[];
-  float2* z = smem2;
-  float* wsm = reinterpret_cast<float*>(smem2 + nrf::PADDED);  // ws, win values
-  float* span = wsm + win;
-  const int tid = threadIdx.x;
+__global__ void __launch_bounds__(nrf::THREADS, BLOCKS_PER_SM)
+    spectra_pow2_kernel(const T* __restrict__ x, const Views v, const float* __restrict__ ws,
+                        const float2* __restrict__ tw, T* __restrict__ re, T* __restrict__ im,
+                        int log2m) {
+  const Smem<T> s = smem_of<T>(v);
   const int M = 1 << log2m;
-  const int b = blockIdx.x / n_tiles;
-  const int t0 = (blockIdx.x - b * n_tiles) * tile_frames;
-  const int fe = min(tile_frames, n_frames - t0);
-  const int h = b / n_chunks;
-  const int c = b - h * n_chunks;
-
-  // the window and the tile's signal span, once
-  const int span_len = (fe - 1) * hop + win;
-  const long long p0 = (long long)t0 * hop - bpad;  // view position of span[0]
-  const long long s0 = c * chunk_stride + view_start + p0;
-  const T* xr = x + (long long)h * n_src;
-  for (int i = tid; i < win; i += nrf::THREADS) wsm[i] = __ldg(ws + i);
-  for (int i = tid; i < span_len; i += nrf::THREADS) {
-    const long long p = p0 + i;
-    const long long s = s0 + i;
-    span[i] = (p >= 0 && p < view_len && s >= 0 && s < n_src) ? planes::ld(xr + s) : 0.f;
-  }
-  __syncthreads();
-
   // each segment of threads packs, transforms and unpacks its own frames
   const nrf::p2::Seg sg = nrf::p2::segment(log2m);
   const int step = 1 << sg.log2t;
   const int seg_end = sg.first + (step << nrf::p2::LOG2PP);
+  nrf::p2::lay_twiddles(s.stw, tw, log2m);
+  walk(x, v, s, ws,
+       [&](const nrs::Tile& t, const nrs::Raw<T>* sp) {
+         // the first stage, its points packed from the span as it loads
+         // them: point q of frame f is u[2q] + i u[2q+1], each windowed
+         // sample a rounded product, as stored
+         nrf::p2::stage(
+             [&](int e) {
+               const int f = e >> log2m;
+               const int n = 2 * (e - (f << log2m));
+               const int o = f * v.hop + n;
+               return make_float2(n < v.win ? __fmul_rn(s.wsm[n], smp(sp, o)) : 0.f,
+                                  n + 1 < v.win ? __fmul_rn(s.wsm[n + 1], smp(sp, o + 1)) : 0.f);
+             },
+             s.z, log2m, 1, t.fe, s.stw, sg);
+       },
+       [&](const nrs::Tile& t) {
+         const float2* zo =
+             nrf::p2::fft_frames(s.z, s.sc, log2m, nrf::p2::radix(M, 1), t.fe, s.stw, sg);
+         // unpack the real spectrum into the tile's contiguous rows: slot
+         // k < M/2 of frame f writes bins k and M - k (slot 0: 0, M and M/2)
+         const long long o0 = ((long long)t.b * v.n_frames + t.t0) * v.n_bins;
+         T* const rre = re + o0;  // the tile's rows
+         T* const rim = im + o0;
+         for (int e = (sg.first >> 1) + sg.lane;
+              e < min(t.fe << (log2m - 1), seg_end >> 1); e += step) {
+           const int f = e >> (log2m - 1);
+           const int k = e & (M / 2 - 1);
+           const int base = f << log2m;
+           const int row = f * v.n_bins;
+           const float2 zk = zo[nrf::pad(base + k)];
+           const float2 zm = zo[nrf::pad(base + ((M - k) & (M - 1)))];
+           float2 lo, hi;
+           nrf::split(zk, zm, __ldg(tw + k), lo, hi);
+           planes::st(rre + row + k, lo.x);
+           planes::st(rim + row + k, lo.y);
+           planes::st(rre + row + M - k, hi.x);
+           planes::st(rim + row + M - k, hi.y);
+           if (k == 0) {
+             const float2 zh = zo[nrf::pad(base + M / 2)];
+             nrf::split(zh, zh, __ldg(tw + M / 2), lo, hi);
+             planes::st(rre + row + M / 2, lo.x);
+             planes::st(rim + row + M / 2, lo.y);
+           }
+         }
+       });
+}
 
-  // windowed frames, packed: z[f][m] = u[2m] + i u[2m+1]
-  for (int e = sg.first + sg.lane; e < min(fe << log2m, seg_end); e += step) {
-    const int f = e >> log2m;
-    const int n = 2 * (e - (f << log2m));
-    const float* sp = span + f * hop + n;
-    z[nrf::pad(e)] = make_float2(n < win ? wsm[n] * sp[0] : 0.f,
-                                 n + 1 < win ? wsm[n + 1] * sp[1] : 0.f);
-  }
-  nrf::p2::seg_sync(sg);
-
-  nrf::p2::fft_frames<false>(z, log2m, fe, tw, sg);
-
-  // unpack the real spectrum into the tile's contiguous rows: slot k < M/2
-  // of frame f writes bins k and M - k (slot 0: 0, M and M/2)
-  const long long o0 = ((long long)b * n_frames + t0) * n_bins;
-  for (int e = (sg.first >> 1) + sg.lane; e < min(fe << (log2m - 1), seg_end >> 1);
-       e += step) {
-    const int f = e >> (log2m - 1);
-    const int k = e & (M / 2 - 1);
-    const int base = f << log2m;
-    const long long row = o0 + (long long)f * n_bins;
-    const float2 zk = z[nrf::pad(base + k)];
-    const float2 zm = z[nrf::pad(base + ((M - k) & (M - 1)))];
-    float2 lo, hi;
-    nrf::split(zk, zm, __ldg(tw + k), lo, hi);
-    planes::st(re + row + k, lo.x);
-    planes::st(im + row + k, lo.y);
-    planes::st(re + row + M - k, hi.x);
-    planes::st(im + row + M - k, hi.y);
-    if (k == 0) {
-      const float2 zh = z[nrf::pad(base + M / 2)];
-      nrf::split(zh, zh, __ldg(tw + M / 2), lo, hi);
-      planes::st(re + row + M / 2, lo.x);
-      planes::st(im + row + M / 2, lo.y);
-    }
-  }
+// f(kernel, Of<T>, odd) for the build of M = n_fft / 2 and planes of type
+// `plane`: spectra_pow2_kernel<T> for a power of two M, else
+// spectra_fft_kernel<ODD, T>
+template <class F>
+int with_real_kernel(int plane, int m, F f) {
+  return planes::with_plane(plane, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return nrf::with_odd_primes(m, [&](auto odd) {
+      constexpr int ODD = decltype(odd)::value;
+      if constexpr (ODD == 1)
+        return f(spectra_pow2_kernel<T>, tag, odd);
+      else
+        return f(spectra_fft_kernel<ODD, T>, tag, odd);
+    });
+  });
 }
 
 }  // namespace
@@ -326,7 +405,8 @@ __global__ void __launch_bounds__(nrf::THREADS, nrf::MIN_BLOCKS)
 // (rows, n_src); ws: (win,) f32; tw: (n_fft,) complex f32; re/im:
 // (rows*n_chunks, n_frames, n_bins). n_fft must be one fft_smem.cuh
 // serves, seg_warps a segment of warps that holds a frame, and tile_frames
-// at most the frame slots of the block's segments. Returns
+// at most the frame slots of the block's segments. Launches persistent
+// blocks, at most nr_spectra_fft_capacity of them. Returns
 // cudaGetLastError() after the launch.
 extern "C" int nr_spectra_fft(int plane, const void* x, long long n_src, int rows,
                               int n_chunks, long long chunk_stride,
@@ -342,38 +422,44 @@ extern "C" int nr_spectra_fft(int plane, const void* x, long long n_src, int row
   const int B = rows * n_chunks;
   if (B <= 0 || n_frames <= 0) return (int)cudaGetLastError();
   const int n_tiles = (n_frames + tile_frames - 1) / tile_frames;
-  const size_t smem = sizeof(float2) * nrf::PADDED +
-                      sizeof(float) * ((size_t)(tile_frames - 1) * hop + 2 * win);
-  const unsigned grid = (unsigned)((long long)B * n_tiles);
+  const Views v{n_src, chunk_stride, view_start, n_chunks, view_len, n_frames, hop, bpad,
+                win, n_bins, tile_frames, n_tiles, B * n_tiles};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
-  return planes::with_plane(plane, [&](auto tag) {
+  return with_real_kernel(plane, m, [&](auto kernel, auto tag, auto odd) {
     using T = typename decltype(tag)::type;
+    const size_t smem = smem_bytes<T>(m, tile_frames, hop, win);
+    // persistent: the blocks the card holds at once
+    const int fit = nrs::active_blocks(kernel, smem, nrf::THREADS);
+    if (fit < 0) return -fit;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = (unsigned)(v.total < fit ? v.total : fit);
     const T* xt = static_cast<const T*>(x);
     T* ret = static_cast<T*>(re);
     T* imt = static_cast<T*>(im);
-    return nrf::with_odd_primes(m, [&](auto odd) {
-      constexpr int ODD = decltype(odd)::value;
-      if constexpr (ODD == 1) {
-        int log2m = 0;
-        while ((1 << log2m) < m) ++log2m;
-        const cudaError_t err = cudaFuncSetAttribute(
-            spectra_pow2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        spectra_pow2_kernel<T><<<grid, nrf::THREADS, smem, st>>>(
-            xt, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad,
-            win, log2m, n_bins, tile_frames, n_tiles, ws, tw2, ret, imt);
-      } else {
-        const cudaError_t err = cudaFuncSetAttribute(
-            spectra_fft_kernel<ODD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        spectra_fft_kernel<ODD, T><<<grid, nrf::THREADS, smem, st>>>(
-            xt, n_src, n_chunks, chunk_stride, view_start, view_len, n_frames, hop, bpad,
-            win, n_bins, tile_frames, n_tiles, ws, tw2, ret, imt,
-            nrf::make_plan<true>(m, seg_warps));
-      }
-      return (int)cudaGetLastError();
-    });
+    if constexpr (decltype(odd)::value == 1) {
+      int log2m = 0;
+      while ((1 << log2m) < m) ++log2m;
+      kernel<<<grid, nrf::THREADS, smem, st>>>(xt, v, ws, tw2, ret, imt, log2m);
+    } else {
+      kernel<<<grid, nrf::THREADS, smem, st>>>(xt, v, ws, tw2, ret, imt,
+                                               nrf::make_plan<true>(m, seg_warps));
+    }
+    return (int)cudaGetLastError();
+  });
+}
+
+// The persistent grid of nr_spectra_fft for these arguments: the blocks of
+// its build the current device holds at once; a negative CUDA error code on
+// failure (invalid: an n_fft the real-FFT kernels do not take).
+extern "C" int nr_spectra_fft_capacity(int plane, int n_fft, int tile_frames, int hop,
+                                       int win) {
+  if (!nrf::real_kernel(n_fft) || tile_frames < 1) return -(int)cudaErrorInvalidValue;
+  return with_real_kernel(plane, n_fft / 2, [&](auto kernel, auto tag, auto) {
+    using T = typename decltype(tag)::type;
+    return nrs::active_blocks(kernel, smem_bytes<T>(n_fft / 2, tile_frames, hop, win),
+                              nrf::THREADS);
   });
 }

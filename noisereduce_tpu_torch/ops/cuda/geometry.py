@@ -8,12 +8,12 @@ None of that exists here. The kernels work on exact (rows, n_frames,
 n_bins) planes in device memory, and both time and bins are tiled by the
 launch shapes below:
 
-- A ``spectra`` and D ``istft_ola`` take one of three routes, chosen by
-  the geometry alone (``fft_route``, the same rules as
-  ``csrc/fft_route.cuh``). A frame's transform has n complex points,
-  n_fft/2 for an even n_fft (even samples real, odd imaginary) and n_fft
-  for an odd one (two frames a transform). For an n_fft from
-  ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``: the FFT route when n has no prime
+- A ``spectra`` and D ``istft_ola`` take one of six routes
+  (``kernels.py::ROUTES``), chosen by the geometry alone (``fft_route``,
+  the same rules as ``csrc/fft_route.cuh``). A frame's transform has n
+  complex points, n_fft/2 for an even n_fft (even samples real, odd
+  imaginary) and n_fft for an odd one (two frames a transform). For an
+  n_fft from ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``: the FFT route when n has no prime
   factor above 13, or, within a block of ``FFT_ELEMS`` points, none above
   31 (``LARGE_RADICES``), shared-memory mixed-radix FFTs
   (``csrc/fft_smem.cuh``; an even n_fft whose half is 2^k 3^a 5^b 7^c in
@@ -34,10 +34,11 @@ launch shapes below:
   FFT); past it the global chirp route for any n to 8,388,608 points (a
   chirp length from ``global_chirp_lengths``, L = L1 L2 each within a
   block, ``global_split``: a four-step FFT in passes of ordinary blocks
-  through a scratch in device memory, ``csrc/fft_global.cuh``). The rest
-  (n_fft below 64) takes implicit matrix products tiled 128 x ``GEMM_BN``
-  x ``GEMM_BK`` (frames x DFT columns x window samples for A; output hop
-  blocks x hop x shifted bins for D).
+  through a scratch in device memory, ``csrc/fft_global.cuh``). An n_fft
+  below 64 takes implicit matrix products tiled 128 x ``GEMM_BN`` x
+  ``GEMM_BK`` (frames x DFT columns x window samples for A; output hop
+  blocks x hop x shifted bins for D); an n past 8,388,608 points no
+  kernel (``kernels_supported``: the staged twins take it).
 - B ``nonstationary_mask``, E ``stationary_mask`` and F
   ``torch_nonstationary_mask`` cut each (row, bin) column's time axis into
   segments of ``SEG_B`` / ``SEG_E`` / ``SEG_F`` frames (``TimeTilePlan``,
@@ -158,10 +159,14 @@ def _round_up(a: int, m: int) -> int:
 def kernels_supported(scfg: StftConfig, n_freq_taps: int = 1) -> bool:
     """Whether the kernels serve this STFT geometry, in either convention,
     with ``n_freq_taps`` frequency taps: a hop that divides the analysis
-    frame, and a line of bins that kernel C's plan holds with those taps
+    frame, an n_fft that the product route takes only below FFT_MIN_NFFT
+    (an n past GLOBAL_MAX_L / 2 points, n_fft 8,388,609 odd or 16,777,218
+    even and up, would need its n_fft^2 tables: the staged twins take it),
+    and a line of bins that kernel C's plan holds with those taps
     (``freq_smooth_fits``: every line with up to about 14,000 taps, whole
     or in pieces). n_grad_time and n_movemean are unbounded."""
     return (scfg.frame_length % scfg.hop_length == 0
+            and (scfg.n_fft < FFT_MIN_NFFT or fft_route(scfg) != "product")
             and freq_smooth_fits(scfg.n_bins, n_freq_taps))
 
 
@@ -750,9 +755,18 @@ class GateGeometry:
     @property
     def fft_run(self) -> int:
         """Output hop blocks of one row a block of kernel D writes on the
-        FFT and chirp routes (the cluster route has no runs:
-        ``cluster_frames``)."""
-        return max(1, min(FFT_RUN, FFT_ACC // self.hop))
+        FFT and chirp routes (the cluster routes have no runs:
+        ``cluster_frames``): at most FFT_RUN and FFT_ACC samples. The
+        real-FFT kernel's run is the longest within that whose run + r - 1
+        frames fill whole groups of ``fft_tile_frames``, where one does (29
+        at hop 256, r 4, groups of 8: 4 groups, where 32 took a fifth for 3
+        frames; 17 at 1536 / 384)."""
+        run = max(1, min(FFT_RUN, FFT_ACC // self.hop))
+        if not self.fft_real:
+            return run
+        group, halo = self.fft_tile_frames, self.r - 1
+        whole = (run + halo) // group * group - halo
+        return whole if whole >= 1 else run
 
     def cluster_frames(self, j0: int, n_out: int) -> tuple:
         """(t_lo, n_fr): the frames t_lo to t_lo + n_fr - 1 of each row
@@ -813,8 +827,9 @@ class GateGeometry:
 def gate_geometry(scfg: StftConfig, view_len: int) -> GateGeometry:
     if not kernels_supported(scfg):
         raise NotImplementedError(
-            "the kernels need a hop that divides the analysis frame (got "
-            f"frame_length={scfg.frame_length}, hop={scfg.hop_length}, "
-            f"convention={scfg.convention!r}); see ROADMAP.md, Queue 2"
+            "the kernels need a hop that divides the analysis frame and an "
+            f"n_fft below {FFT_MIN_NFFT} or off the product route (got "
+            f"n_fft={scfg.n_fft}, frame_length={scfg.frame_length}, hop={scfg.hop_length}, "
+            f"convention={scfg.convention!r}); see ROADMAP.md, Queue 6"
         )
     return GateGeometry(scfg=scfg, view_len=view_len)

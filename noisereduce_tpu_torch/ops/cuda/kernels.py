@@ -42,9 +42,9 @@ frames a transform):
   ``csrc/istft_fft.cu`` for an even n_fft to 8192 whose half is 2^k 3^a
   5^b 7^c, ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu`` (the
   complex-frame kernels) for the rest (1100, 441, 1323, 8580; 1102 and
-  493 with radices 17 to 31, ...), A's complex-frame builds as
-  persistent blocks that walk the tiles, as many as ``cplx_capacity``
-  says the card holds;
+  493 with radices 17 to 31, ...), A's builds and D's real-FFT builds as
+  persistent blocks that walk A's tiles or D's runs, as many as
+  ``real_capacity`` or ``cplx_capacity`` says the card holds;
 - "cluster": such an n past a block with a cluster shape, to 65,536
   points (``geometry.cluster_shape``), a four-step FFT across a thread
   block cluster's shared memory: ``csrc/spectra_cluster.cu`` and
@@ -575,6 +575,23 @@ def cplx_capacity(geo: GateGeometry, dtype=torch.float32, device=None) -> int:
             _PLANE_CODE[dtype], geo.n_fft, slot, tile, geo.hop, geo.win)
     if n < 1:
         build.check("spectra_cplx_capacity", -n)
+    return n
+
+
+def real_capacity(geo: GateGeometry, kernel: str = "spectra", dtype=torch.float32,
+                  device=None) -> int:
+    """Blocks of ``kernel``'s real-FFT build ("spectra": ``csrc/spectra_fft.cu``,
+    or "istft_ola": ``csrc/istft_fft.cu``) for the geometry and planes of
+    ``dtype`` that the card holds at once: the persistent grid of a launch,
+    whose blocks walk A's tiles or D's runs past it."""
+    device = torch.device(device or "cuda")
+    _, warps, tile = geo.fft_layout("fft")
+    name, args = (("spectra_fft_capacity", (tile, geo.hop, geo.win)) if kernel == "spectra" else
+                  ("istft_fft_capacity", (warps, geo.n_bins, geo.hop, geo.r)))
+    with torch.cuda.device(device):
+        n = getattr(build.load(), f"nr_{name}")(_PLANE_CODE[dtype], geo.n_fft, *args)
+    if n < 1:
+        build.check(name, -n)
     return n
 
 

@@ -639,12 +639,12 @@ ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256)
                dict(n_fft=8194, hop_length=4097), dict(n_fft=493, hop_length=29),
                dict(n_fft=1235, hop_length=247), dict(n_fft=1426, hop_length=713),
                dict(n_fft=1218, hop_length=406), dict(n_fft=1088, hop_length=272),
-               dict(n_fft=2036, hop_length=509)]
+               dict(n_fft=2036, hop_length=509), dict(n_fft=512, hop_length=512)]
 ROUTE_IDS = ["nfft512", "nfft1024", "nfft2048-win1024", "nfft1536", "nfft400", "nfft882",
              "nfft1100", "nfft1040", "nfft441", "nfft1323", "nfft5005", "nfft1102",
              "nfft1101", "nfft2040", "nfft2035", "nfft4106", "nfft40", "nfft4801", "nfft4803",
              "nfft8194", "nfft493", "nfft1235", "nfft1426", "nfft1218", "nfft1088",
-             "nfft2036"]
+             "nfft2036", "nfft512-r1"]
 
 
 def _routes(route, n=1):
@@ -1267,6 +1267,111 @@ def test_cplx_walk_wraps_past_the_blocks_that_fit(cuda, name, dtype):
         assert torch.equal(K.spectra(x, geo)[1], im)
         one = K.spectra(x[1:2].contiguous(), geo)
         assert torch.equal(one[0][0], re[1]) and torch.equal(one[1][0], im[1])
+
+
+REAL_WALK_GEOMS = {
+    "nfft1024": dict(n_fft=1024, hop_length=256),
+    "nfft1536": dict(n_fft=1536, hop_length=384),
+    "nfft400": dict(n_fft=400, hop_length=100),
+    "nfft512-r2": dict(n_fft=512, hop_length=256),
+    "nfft512-r1": dict(n_fft=512, hop_length=512),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", list(REAL_WALK_GEOMS))
+def test_real_walk_wraps_past_the_blocks_that_fit(cuda, name, dtype):
+    """More tiles and runs than the real-FFT kernels' persistent blocks
+    (``K.real_capacity``), so every block of A walks several tiles and
+    every block of D several runs, copying each next span or slab by
+    cp.async, from signals and planes at every 2-byte offset of 16 bytes
+    (bf16 planes at odd element offsets): A and D within the bound of
+    their plain versions (bf16: one bf16 ulp more), bitwise from call to
+    call, and bitwise one row at a time."""
+    kw = REAL_WALK_GEOMS[name]
+    view = 40 * kw["n_fft"] + 5
+    geo = gate_geometry(StftConfig(**kw), view)
+    assert geo.route == "fft" and geo.fft_real
+    fit_a = K.real_capacity(geo, "spectra", dtype)
+    fit_d = K.real_capacity(geo, "istft_ola", dtype)
+    tiles = -(-geo.n_frames // geo.fft_tile_frames)
+    runs = -(-geo.out_blocks(0, view)[1] // geo.fft_run)
+    rows = max(2 * fit_a // tiles, 2 * fit_d // runs) + 2
+    assert rows * tiles > 2 * fit_a and rows * runs > 2 * fit_d
+    rng = np.random.default_rng(35)
+    for off in (0, 1, 3, 6):  # element offsets: the rows' and planes' 16-byte phase
+        flat = torch.as_tensor(rng.standard_normal(rows * view + off), dtype=dtype, device=cuda)
+        x = flat[off:].view(rows, view)
+        K.reset_launch_counts()
+        re, im = K.spectra(x, geo)
+        rre, rim = K.spectra_ref(x, geo)
+        if dtype == BF16:
+            _hold_bf16(re, rre, 2e-5)
+            _hold_bf16(im, rim, 2e-5)
+        else:
+            assert _max(re - rre) <= 2e-5 * _max(rre) and _max(im - rim) <= 2e-5 * _max(rre)
+        assert torch.equal(K.spectra(x, geo)[1], im)
+        one = K.spectra(x[1:2].contiguous(), geo)
+        assert torch.equal(one[0][0], re[1]) and torch.equal(one[1][0], im[1])
+        planes = torch.empty((3, re.numel() + off), dtype=dtype, device=cuda)
+        pre, pim = (planes[i, off:].view(re.shape) for i in (0, 1))
+        pre.copy_(re)
+        pim.copy_(im)
+        mflat = torch.rand(re.numel() + off, device=cuda)
+        mask = mflat[off:].view(re.shape)
+        y = K.istft_ola(pre, pim, mask, geo, 0, view)
+        ry = K.istft_ola_ref(pre, pim, mask, geo, 0, view)
+        if dtype == BF16:
+            _hold_bf16(y, ry, 2e-5)
+        else:
+            assert _max(y - ry) <= 2e-5 * _max(ry)
+        assert torch.equal(K.istft_ola(pre, pim, mask, geo, 0, view), y)
+        y1 = K.istft_ola(re[1:2].contiguous(), im[1:2].contiguous(), mask[1:2].contiguous(),
+                         geo, 0, view)
+        assert torch.equal(y1[0], y[1])
+        assert K.route_counts() == {"spectra": _routes("fft", 3)["spectra"],
+                                    "istft_ola": _routes("fft", 3)["istft_ola"]}
+
+
+def _istft_into_nan(re, im, mask, geo, out_off, out_len):
+    """K.istft_ola with its output allocated over NaN: the caching
+    allocator emptied, then a NaN block of the output's shape freed, which
+    the wrapper's torch.empty takes next; a sample the kernel leaves
+    unwritten stays NaN."""
+    torch.cuda.empty_cache()
+    torch.full((re.shape[0], out_len), float("nan"), dtype=re.dtype, device=re.device)
+    return K.istft_ola(re, im, mask, geo, out_off, out_len)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", list(REAL_WALK_GEOMS) + ["nfft2048-win1024", "nfft882"])
+def test_real_istft_writes_every_sample_past_the_end(cuda, name, dtype):
+    """D's real-FFT kernel on windows past the signal's end, whose runs'
+    last hop blocks lie past the last frame's reach (past the ring of the
+    run's last group), and past the end by whole runs: every sample of the
+    window is written (the output allocated over NaN), zero past the
+    istft length, and the window holds the plain version."""
+    kw = {**REAL_WALK_GEOMS, "nfft2048-win1024": dict(n_fft=2048, win_length=1024,
+                                                       hop_length=256),
+          "nfft882": dict(n_fft=882, hop_length=441)}[name]
+    view = 11000
+    geo = gate_geometry(StftConfig(**kw), view)
+    assert geo.route == "fft" and geo.fft_real
+    rng = np.random.default_rng(36)
+    x = torch.as_tensor(rng.standard_normal((3, view)), dtype=dtype, device=cuda)
+    re, im = K.spectra(x, geo)
+    mask = torch.as_tensor(rng.random(re.shape), dtype=torch.float32, device=cuda)
+    for out_off, out_len in ((9000, 6000), (5400, 8000), (view - 7, 3 * view)):
+        y = _istft_into_nan(re, im, mask, geo, out_off, out_len)
+        ry = K.istft_ola_ref(re, im, mask, geo, out_off, out_len)
+        assert not torch.isnan(y).any()
+        assert not y[:, max(0, geo.istft_len - out_off):].any()
+        if dtype == BF16:
+            _hold_bf16(y, ry, 2e-5)
+        else:
+            assert _max(y - ry) <= 2e-5 * _max(ry)
 
 
 @pytest.mark.gpu

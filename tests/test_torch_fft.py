@@ -10,7 +10,8 @@ out of place, ``stage_oop``, with ``stage``'s index math), the real-FFT
 split and unsplit, odd n_fft as two frames a complex transform, the
 chirp-z convolution with its exact chirp index and host filter spectrum,
 and D's overlap-add of runs with halo frames, the envelope table and the
-trim; the big blocks' persistent walk and their cp.async span copy. Held
+trim; the persistent walks and their span and slab copies, the real-FFT
+kernels' laid twiddles and D's overlap-add ring. Held
 against the plain versions, which tests/test_torch_kernels.py holds
 against the JAX package's STFT. The route predicate is held to
 ``csrc/fft_route.cuh``, compiled with the host compiler.
@@ -52,6 +53,7 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     fft_route,
     gate_geometry,
     global_shape,
+    kernels_supported,
     global_split,
     real_kernel,
 )
@@ -65,9 +67,11 @@ GEOMS = {
     "nfft512-r4": dict(n_fft=512, hop_length=128),
     "nfft1024-r4": dict(n_fft=1024, hop_length=256),
     "nfft1024-r2": dict(n_fft=1024, hop_length=512),
+    "nfft512-r1": dict(n_fft=512, hop_length=512),
     "nfft2048-win1024": dict(n_fft=2048, win_length=1024, hop_length=256),
     "torch-nfft1024-r4": dict(n_fft=1024, hop_length=256, **TORCH),
     "torch-nfft512-r2": dict(n_fft=512, hop_length=256, **TORCH),
+    "torch-nfft512-r1": dict(n_fft=512, hop_length=512, **TORCH),
     "torch-nfft2048-win1024": dict(n_fft=2048, win_length=1024, hop_length=512, **TORCH),
     # mixed radix: M = 200 = 2^3 5^2, 240 = 2^4 3 5, 768 = 2^8 3, 441 = 3^2 7^2
     "nfft400-r4": dict(n_fft=400, hop_length=100),
@@ -349,34 +353,48 @@ def _tiles(x, geo, cs, pad):
             yield b, t0, u
 
 
-def _emulate_spectra_fft(x, geo, cs=0, pad=0):
-    """csrc/spectra_fft.cu: per tile of fft_tile_frames frames of one view,
-    the zero-filled signal span; per thread segment, its windowed frames
-    packed as M = N/2 complex points, the FFT, and the split into the real
-    spectrum, (M + 1) / 2 slots a frame."""
+def _emulate_spectra_fft(x, geo, cs=0, pad=0, fit=7):
+    """csrc/spectra_fft.cu: ``fit`` persistent blocks walk the tiles of
+    fft_tile_frames frames of each view (``_block_walk``), each tile's
+    zero-filled signal span copied as issue_span copies it (``_issue_span``,
+    rows at byte address 0); per thread segment, its windowed frames packed
+    from the span as M = N/2 complex points, the FFT (its stages out of
+    place: the same stages), and the split into the real spectrum, (M + 1)
+    / 2 slots a frame."""
     N, M, nb = geo.n_fft, geo.n_fft // 2, geo.n_bins
+    hop, win = geo.hop, geo.win
     tw = _twiddles(N)
+    ws = K._scaled_window_np(geo.scfg)
     half = (M + 1) // 2
-    B = x.shape[0] * (n_chunks_for(x.shape[1], cs) if cs else 1)
-    re = np.zeros((B, geo.n_frames, nb))
+    n_chunks = n_chunks_for(x.shape[1], cs) if cs else 1
+    stride, start = (cs, -pad) if cs else (0, 0)
+    n_tiles = -(-geo.n_frames // geo.fft_tile_frames)
+    re = np.zeros((x.shape[0] * n_chunks, geo.n_frames, nb))
     im = np.zeros_like(re)
-    for b, t0, u in _tiles(x, geo, cs, pad):
-        for f0, nf in _segments(geo, len(u)):
-            e = np.arange(nf * M)  # the segment's points, packed
-            fl = _div(e, M)
-            f, q = f0 + fl, 2 * (e - fl * M)
-            Z = _stockham((u[f, q] + 1j * u[f, q + 1]).reshape(nf, M), tw, False).reshape(-1)
-            e = np.arange(nf * half)
-            fl = _div(e, half)
-            k = e - fl * half
-            base = fl * M
-            lo, hi = _split(Z[base + k], Z[base + np.where(k > 0, M - k, 0)], tw[k])
-            X = np.zeros((nf, nb), complex)
-            X[fl, k], X[fl, M - k] = lo, hi
-            if M % 2 == 0:  # slot 0 also gives the middle bin
-                mid = base[k == 0] + M // 2
-                X[fl[k == 0], M // 2] = _split(Z[mid], Z[mid], tw[M // 2])[0]
-            re[b, t0 + f0 : t0 + f0 + nf], im[b, t0 + f0 : t0 + f0 + nf] = X.real, X.imag
+    for tiles in _block_walk(re.shape[0] * n_tiles, fit):
+        for tile in tiles:
+            b, t0, fe, length, p0, s0 = _tile_of(tile, geo, n_tiles, n_chunks, stride, start)
+            buf, ph, _ = _issue_span(x[b // n_chunks], s0, p0, length, geo.view_len, 0, 4)
+            span = buf[ph : ph + length]
+            u = np.zeros((fe, N))  # the tile's windowed frames, zero past win
+            u[:, :win] = ws * span[np.arange(fe)[:, None] * hop + np.arange(win)]
+            for f0, nf in _segments(geo, fe):
+                e = np.arange(nf * M)  # the segment's points, packed
+                fl = _div(e, M)
+                f, q = f0 + fl, 2 * (e - fl * M)
+                Z = _stockham((u[f, q] + 1j * u[f, q + 1]).reshape(nf, M), tw, False).reshape(-1)
+                e = np.arange(nf * half)
+                fl = _div(e, half)
+                k = e - fl * half
+                base = fl * M
+                lo, hi = _split(Z[base + k], Z[base + np.where(k > 0, M - k, 0)], tw[k])
+                X = np.zeros((nf, nb), complex)
+                X[fl, k], X[fl, M - k] = lo, hi
+                if M % 2 == 0:  # slot 0 also gives the middle bin
+                    mid = base[k == 0] + M // 2
+                    X[fl[k == 0], M // 2] = _split(Z[mid], Z[mid], tw[M // 2])[0]
+                rows = slice(t0 + f0, t0 + f0 + nf)
+                re[b, rows], im[b, rows] = X.real, X.imag
     return re, im
 
 
@@ -458,30 +476,6 @@ def _emulate_spectra(x, geo, cs=0, pad=0):
     return emulate(x, geo, cs, pad)
 
 
-def _invert_group_real(Y, nyq, geo):
-    """csrc/istft_fft.cu's pre-step and inverse on one segment's frames:
-    Y (nf, M) = Z * mask below M, nyq (nf,) = Y[M]; the unsplit ((M + 1) /
-    2 slots a frame), the unscaled M-point inverse; (nf, N) frames."""
-    nf, M = Y.shape
-    tw = _twiddles(geo.n_fft)
-    half = (M + 1) // 2
-    z = Y.reshape(-1).copy()
-    e = np.arange(nf * half)
-    fl = _div(e, half)
-    k = e - fl * half
-    lk, lm = fl * M + k, fl * M + M - k
-    ym = np.where(k == 0, nyq[fl], z[np.where(k > 0, lm, lk)])
-    lo, hi = _unsplit(z[lk], ym, tw[k])
-    z[lk], z[lm[k > 0]] = lo, hi[k > 0]
-    if M % 2 == 0:  # slot 0 also turns the middle point
-        mid = lk[k == 0] + M // 2
-        z[mid] = _unsplit(z[mid], z[mid], tw[M // 2])[0]
-    zz = _stockham(z.reshape(nf, M), tw, True)
-    y = np.zeros((nf, geo.n_fft))
-    y[:, 0::2], y[:, 1::2] = zz.real, zz.imag
-    return y
-
-
 def _ola(re, im, mask, geo, out_off, out_len, run, invert):
     """Kernel D's runs (both kernels): per run of output hop blocks, the
     covering frames (the run plus r - 1 halo frames; from an even frame
@@ -494,7 +488,6 @@ def _ola(re, im, mask, geo, out_off, out_len, run, invert):
     hop, r, win = geo.hop, geo.r, geo.win
     G, run = geo.fft_tile_frames, run or geo.fft_run
     post = K._post_window_np(geo.scfg)
-    wsq, env_int = K._window_squares_np(geo.scfg), K._interior_envelope_np(geo.scfg)
     j0, n_out = geo.out_blocks(out_off, out_len)
     out = np.zeros((B, out_len))
     for b in range(B):
@@ -511,40 +504,147 @@ def _ola(re, im, mask, geo, out_off, out_len, run, invert):
                     keep = (l >= 0) & (l < je * hop)
                     acc[l[keep]] += post[keep] * y[i, :win][keep]
             l = np.arange(je * hop)
-            jj, q = ja + l // hop, l % hop
-            s = jj * hop + q - geo.bpad
-            env = np.zeros(len(l), wsq.dtype)  # ascending t, in the table's dtype
-            for i in reversed(range(r)):
-                env += ((jj - i >= 0) & (jj - i < T)) * wsq[i * hop + q]
-            env = np.where((jj - r + 1 >= 0) & (jj < T), env_int[q], env)
-            yy = np.where(s < geo.istft_len, acc / np.where(env > geo.env_floor, env, 1.0), 0.0)
-            o = s - out_off
-            keep = (o >= 0) & (o < out_len)
-            out[b, o[keep]] = yy[keep]
+            _finish(out, b, ja + l // hop, l % hop, acc, geo, T, out_off)
     return out
 
 
-def _emulate_istft_fft(re, im, mask, geo, out_off, out_len, run=None):
-    """csrc/istft_fft.cu: per group and thread segment, Y = Z * mask
-    without the imaginary DC and Nyquist parts, the unsplit and the
-    unscaled inverse FFT (_invert_group_real); the runs of _ola."""
+def _finish(out, b, jj, q, a, geo, T, out_off, written=None):
+    """Kernel D's last step for samples q of hop blocks jj of row b with
+    overlap-add sums a: divided by the envelope (the host table where all
+    r frames exist, else the window's squares of the frames that exist,
+    in ascending t and the table's dtype), zero past the istft length,
+    written to out where they fall in the trimmed window (and counted in
+    ``written``, where given)."""
+    hop, r = geo.hop, geo.r
+    wsq, env_int = K._window_squares_np(geo.scfg), K._interior_envelope_np(geo.scfg)
+    s = jj * hop + q - geo.bpad
+    env = np.zeros(len(jj), wsq.dtype)
+    for i in reversed(range(r)):
+        env += ((jj - i >= 0) & (jj - i < T)) * wsq[i * hop + q]
+    env = np.where((jj - r + 1 >= 0) & (jj < T), env_int[q], env)
+    y = np.where(s < geo.istft_len, a / np.where(env > geo.env_floor, env, 1.0), 0.0)
+    o = s - out_off
+    keep = (o >= 0) & (o < out.shape[1])
+    out[b, o[keep]] = y[keep]
+    if written is not None:
+        np.add.at(written[b], o[keep], 1)
+
+
+def _ola_ring(re, im, mask, geo, out_off, out_len, run, invert):
+    """csrc/istft_fft.cu's runs: per run of output hop blocks, the
+    covering frames (the run plus r - 1 halo frames) in groups of
+    fft_tile_frames (``invert(b, tg, ge)``: the group's time frames); a
+    ring of NB = G + r - 1 hop blocks of sums, block jj in slot jj mod NB
+    (the slot by the Div of the hop; for an even hop a thread takes a pair
+    of samples in one block), each sample adding its frames' post[u]
+    y_t[u] in ascending t; after each group the blocks below tg +
+    G (all of them after the run's last group) leave the ring: a sample of
+    the run finished (``_finish``), the slot zeroed. A run that no frame
+    reaches finishes sums of 0, and so do a run's blocks past the ring of
+    its last group tl, from tl + NB on, where the run reaches past its
+    last frame's reach. The output starts as NaN: every sample of the
+    window is written exactly once."""
+    B, T, _ = re.shape
+    hop, r, win = geo.hop, geo.r, geo.win
+    G, run = geo.fft_tile_frames, run or geo.fft_run
+    NB = G + r - 1
+    post = K._post_window_np(geo.scfg)
+    j0, n_out = geo.out_blocks(out_off, out_len)
+    out = np.full((B, out_len), np.nan)
+    written = np.zeros(out.shape, int)
+    i = np.arange(NB * hop)
+    slot = _div(i, hop)
+    q = i - slot * hop
+    if hop % 2 == 0:  # the kernel's pairs (2l, 2l + 1) share a block, q even first
+        assert np.array_equal(slot[0::2], slot[1::2]) and (q[0::2] % 2 == 0).all()
+    for b in range(B):
+        for ja in range(j0, j0 + n_out, run):
+            je = min(run, j0 + n_out - ja)
+            t_lo, t_hi = max(0, ja - r + 1), min(T - 1, ja + je - 1)
+            if t_lo > t_hi:
+                l = np.arange(je * hop)
+                _finish(out, b, ja + l // hop, l % hop, np.zeros(len(l)), geo, T, out_off,
+                        written)
+                continue
+            acc = np.zeros(NB * hop)
+            for tg in range(t_lo, t_hi + 1, G):
+                ge = min(G, t_hi - tg + 1)
+                y = invert(b, tg, ge)
+                jj = tg + slot - tg % NB + np.where(slot < tg % NB, NB, 0)
+                assert (np.sort(jj) == np.repeat(tg + np.arange(NB), hop)).all()
+                for t in range(tg, tg + ge):  # ascending t
+                    u = (jj - t) * hop + q
+                    ok = (u >= 0) & (u < win)
+                    acc[ok] += post[u[ok]] * y[t - tg, u[ok]]
+                leave = np.full(len(i), tg + G > t_hi) | (jj < tg + G)
+                fin = leave & (jj >= ja) & (jj < ja + je)
+                _finish(out, b, jj[fin], q[fin], acc[fin], geo, T, out_off, written)
+                acc[leave] = 0.0
+            if t_hi + r < ja + je:  # past the last frame's reach
+                tl = t_lo + (t_hi - t_lo) // G * G
+                l = np.arange((tl + NB - ja) * hop, je * hop)
+                _finish(out, b, ja + l // hop, l % hop, np.zeros(len(l)), geo, T, out_off,
+                        written)
+    assert (written == 1).all()
+    return out
+
+
+def _slab(plane, b, tg, ge, addr0=0):
+    """istft_fft.cu's slab of one plane: frames [tg, tg + ge) of row b, a
+    contiguous run of ge x n_bins values copied as issue_copy copies it
+    (``_issue_copy``; float32 elements, the plane at byte address addr0):
+    value f n_bins + q is bin q of frame tg + f."""
+    T, nb = plane.shape[-2:]
+    length = ge * nb
+    buf, ph, _ = _issue_copy(plane.reshape(-1), (b * T + tg) * nb, 0, length, length, addr0, 4)
+    return buf[ph : ph + length]
+
+
+def _pre_step_from_slab(sre, sim, smk, geo, f0, nf):
+    """istft_fft.cu's pre-step of a segment's frames [f0, f0 + nf) of a
+    group, straight from its slab: slot e (< nf (M + 1) / 2) is frame f =
+    f0 + e / ((M + 1) / 2) (the plan's Div) and pair k; it reads Y at bins
+    k and M - k (slot 0: 0 and M, and M/2 for an even M) of the slab's row
+    f n_bins, no imaginary DC or Nyquist part: Z' (nf, M)."""
     nb, M = geo.n_bins, geo.n_fft // 2
+    tw = _twiddles(geo.n_fft)
+    half = (M + 1) // 2
+    e = np.arange(nf * half)
+    fl = _div(e, half)
+    k = e - fl * half
+    row = (f0 + fl) * nb
+
+    def Y(q, row=row):
+        return (sre[row + q] + 1j * sim[row + q] * ((q > 0) & (q < M))) * smk[row + q]
+
+    z = np.full(nf * M, np.nan, complex)
+    lo, hi = _unsplit(Y(k), Y(np.where(k > 0, M - k, M)), tw[k])
+    z[fl * M + k] = lo
+    z[(fl * M + M - k)[k > 0]] = hi[k > 0]
+    if M % 2 == 0:  # slot 0 also turns the middle point
+        yh = Y(np.full((k == 0).sum(), M // 2), row[k == 0])
+        z[fl[k == 0] * M + M // 2] = _unsplit(yh, yh, tw[M // 2])[0]
+    assert not np.isnan(z).any()
+    return z.reshape(nf, M)
+
+
+def _emulate_istft_fft(re, im, mask, geo, out_off, out_len, run=None):
+    """csrc/istft_fft.cu: per group, its slab of re, im and the mask
+    (``_slab``); per thread segment, the pre-step from the slab
+    (``_pre_step_from_slab``) and the unscaled inverse FFT; the runs and
+    ring of ``_ola_ring`` (``geo.fft_run``: whole groups)."""
+    tw = _twiddles(geo.n_fft)
 
     def invert(b, tg, ge):
+        sre, sim, smk = (_slab(a, b, tg, ge) for a in (re, im, mask))
         y = np.zeros((ge, geo.n_fft))
         for f0, nf in _segments(geo, ge):
-            if not nf:
-                continue
-            e = np.arange(nf * nb)
-            fl, k = e // nb, e % nb
-            t = tg + f0 + fl
-            # no imaginary DC or Nyquist part
-            Y = (re[b, t, k] + 1j * im[b, t, k] * ((k > 0) & (k < M))) * mask[b, t, k]
-            Y = Y.reshape(nf, nb)
-            y[f0 : f0 + nf] = _invert_group_real(Y[:, :M], Y[:, M], geo)
+            if nf:
+                zz = _stockham(_pre_step_from_slab(sre, sim, smk, geo, f0, nf), tw, True)
+                y[f0 : f0 + nf, 0::2], y[f0 : f0 + nf, 1::2] = zz.real, zz.imag
         return y
 
-    return _ola(re, im, mask, geo, out_off, out_len, run, invert)
+    return _ola_ring(re, im, mask, geo, out_off, out_len, run, invert)
 
 
 def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None):
@@ -934,19 +1034,27 @@ def test_istft_cplx_emulation_matches_plain_version(kw, window):
 
 
 @pytest.mark.parametrize("name", ["nfft1024-r4", "torch-nfft512-r2", "nfft1536-r4",
-                                  "nfft441-r3", "nfft1323-r3", "nfft1102-r2",
+                                  "nfft512-r1", "nfft441-r3", "nfft1323-r3", "nfft1102-r2",
                                   "nfft1101-r3"])
 def test_istft_fft_output_does_not_depend_on_the_run(name):
     """Each sample sums the same products in ascending frame order whatever
-    run or group its frames land in: runs of 1, 3 and fft_run give the
+    run or group its frames land in: runs of 1, 3, fft_run (on the
+    real-FFT kernel whole groups: 29 at hop 256) and the complex-frame
+    kernels' min(32, 8192 / hop) (the real-FFT kernel's before it) give the
     same bits; an odd n_fft's groups of an odd frame count pad their last
-    slot with a zero frame."""
+    slot with a zero frame. Past the end (runs of 1 there reach no frame)
+    the runs of 1 also hold the plain version."""
     geo = gate_geometry(StftConfig(**{**GEOMS, **CPLX_GEOMS}[name]), CS + 2 * PAD)
     rng = np.random.default_rng(34)
     re, im = rng.standard_normal((2, 1, geo.n_frames, geo.n_bins))
     mask = rng.random(re.shape)
-    outs = [_emulate_istft(re, im, mask, geo, PAD, CS, run) for run in (1, 3, None)]
-    assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0], outs[2])
+    runs = (1, 3, None, min(32, FFT_ACC // geo.hop))
+    for window in ("core", "past-end"):
+        outs = [_emulate_istft(re, im, mask, geo, *_istft_window(window), run) for run in runs]
+        assert all(np.array_equal(outs[0], out) for out in outs[1:])
+    ref = K.istft_ola_ref(*(torch.as_tensor(a) for a in (re, im, mask)), geo,
+                          *_istft_window("past-end"))
+    _close(outs[0], ref.numpy())
 
 
 ROUTE_MAX_NFFT = 262144  # the route predicate's sweep: n_fft 1 to this
@@ -1096,6 +1204,21 @@ def test_route_predicate(tmp_path):
     assert gate_geometry(StftConfig(n_fft=512), 8000).route == "fft"
 
 
+@pytest.mark.parametrize("n_fft,served", [(8388609, False), (16777218, False),
+                                           (8388607, True), (16777216, True), (40, True)])
+def test_kernels_refuse_the_product_route_past_64(n_fft, served):
+    """No n_fft of 64 or more takes the product route's n_fft^2 tables: an
+    n past GLOBAL_MAX_L / 2 = 8,388,608 points (odd 8,388,609, even
+    16,777,218) is refused by ``kernels_supported``, so it goes to the
+    staged twins; the largest odd and even n_fft of the global chirp route
+    and n_fft 40 (the product route below 64) are served. The predicate
+    only: no geometry, table or plane is made."""
+    scfg = StftConfig(n_fft=n_fft, hop_length=n_fft)
+    route = fft_route(scfg)
+    assert route == ("global_chirp" if served and n_fft >= FFT_MIN_NFFT else "product")
+    assert kernels_supported(scfg) == served
+
+
 def _other_length(n):
     """The chirp length tools/fft_route_timing.py times beside the
     route's own: a power of two within a big block (``_pow2_length``), the
@@ -1126,8 +1249,21 @@ def test_fft_tiles_fit_a_block(n_fft, hop):
     tile and run holds at least one frame. The thread segments hold whole
     slots within their threads' points, and together every slot of a tile
     exactly once; a power of two M keeps the layout of one frame or 256/M
-    frames a warp."""
+    frames a warp. On the real-FFT kernels, A's and D's shared memory
+    (``_real_smem``) fits a block's 227 KB in float32 and bf16, two blocks
+    an SM at n_fft 1024 and 1536, and D's run fills whole groups where
+    one of the complex-frame kernels' length would (its halo frames
+    included)."""
     geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 20000)
+    if geo.fft_real:
+        for elem in (4, 2):
+            a, d = _real_smem(geo, elem)
+            assert a <= SMEM_MAX and d <= SMEM_MAX
+            if n_fft in (1024, 1536):
+                assert 2 * a <= SMEM_MAX and 2 * d <= SMEM_MAX
+        old = max(1, min(32, FFT_ACC // hop))
+        whole = (geo.fft_run + geo.r - 1) % geo.fft_tile_frames == 0
+        assert geo.fft_run <= old and (whole or old + geo.r - 1 < geo.fft_tile_frames)
     slot, warps, tile = geo.fft_layout()
     elems, block_warps = ((FFT_BIG_ELEMS, FFT_BIG_WARPS) if slot > FFT_ELEMS
                           else (FFT_ELEMS, FFT_WARPS))
@@ -1142,6 +1278,62 @@ def test_fft_tiles_fit_a_block(n_fft, hop):
     m = n_fft // 2
     if n_fft % 2 == 0 and m & (m - 1) == 0:
         assert warps == max(1, m // FFT_WARP_POINTS) and geo.fft_tile_frames * m == FFT_ELEMS
+
+
+def _real_smem(geo, elem):
+    """Dynamic shared memory of a block of the real-FFT kernels for planes
+    of ``elem`` bytes (spectra_fft.cu / istft_fft.cu::smem_bytes): A two
+    buffers of FFT_ELEMS padded points, the stages' laid twiddles, the
+    span's raw values with their
+    slack (tile_span.cuh::run_elems), the window and the span's phase; D
+    one buffer, the laid twiddles, the slab (re and im raw, the mask's float32 bits, each with
+    its slack), post (r hop floats), the ring of G + r - 1 hop blocks and
+    the three phases."""
+    padded = FFT_ELEMS + FFT_ELEMS // 16
+
+    def run_elems(length, e):
+        V = 16 // e
+        return (length + 2 * V - 1) // V * V
+
+    G, laid = geo.fft_tile_frames, geo.n_bins & ~1  # M - 1 laid twiddles, made even
+    span = (G - 1) * geo.hop + geo.win
+    a = 8 * (2 * padded + laid) + elem * run_elems(span, elem) + 4 * geo.win + 4
+    d = (8 * (padded + laid) + 2 * elem * run_elems(G * geo.n_bins, elem)
+         + 4 * (run_elems(G * geo.n_bins, 4) + geo.r * geo.hop + (G + geo.r - 1) * geo.hop) + 12)
+    return a, d
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 512, 1024, 1536, 400, 480, 882, 2048, 8192, 6000])
+def test_laid_twiddles_are_the_stages_reads(n_fft):
+    """fft_smem.cuh::lay_twiddles (and spectra_fft.cu's power-of-two
+    twin): entry v - 1, v in [1, M), of the real kernels' laid table is
+    tw[(v mod ns) (v / ns) tstep] of the stage with ns <= v < ns R; so each
+    stage's read of point r of butterfly j at r ns + (j mod ns) - 1 (j mod
+    ns >= 1) is the table entry tw[(j mod ns) r tstep] it read before, a
+    warp's lanes (consecutive j) read consecutive entries, the stages'
+    entries fill [ns - 1, ns R - 1) one after another, and the M - 1
+    entries fit the region of M + 1 rounded down to even."""
+    M = n_fft // 2
+    tw = _twiddles(n_fft)
+    stages, ns = [], 1
+    for R in _radices(M):
+        stages.append((ns, R, 2 * (M // (ns * R))))
+        ns *= R
+    laid = np.full(M - 1, np.nan, complex)
+    for v in range(1, M):
+        s = max(i for i, (ns, _, _) in enumerate(stages) if ns <= v)
+        ns, R, tstep = stages[s]
+        assert v < ns * R
+        laid[v - 1] = tw[(v % ns) * (v // ns) * tstep]
+    assert not np.isnan(laid).any() and M - 1 <= (M + 1) & ~1
+    for ns, R, tstep in stages:
+        j = np.arange(M // R)
+        jm = j % ns
+        for r in range(1, R):
+            at = r * ns + jm - 1
+            keep = jm > 0
+            assert ((ns - 1 <= at[keep]) & (at[keep] < ns * R - 1)).all()
+            assert np.array_equal(laid[at[keep]], tw[jm[keep] * r * tstep])
 
 
 def test_segment_layout_keeps_most_lanes_busy():
@@ -1920,7 +2112,7 @@ def test_persistent_walk_covers_every_slot_once(c, clusters, total):
 BIG_THREADS = FFT_BIG_WARPS * 32
 
 
-def _cplx_walk(total, fit):
+def _block_walk(total, fit):
     """The persistent grid of nr_spectra_cplx's walking builds: min(total,
     fit) blocks, block x taking tiles x, x + grid, ..."""
     grid = min(total, fit)
@@ -1938,38 +2130,46 @@ def _tile_of(tile, geo, n_tiles, n_chunks, chunk_stride, view_start):
     return b, t0, fe, (fe - 1) * geo.hop + geo.win, p0, (b % n_chunks) * chunk_stride + view_start + p0
 
 
-def _issue_span(row, s0, p0, length, view_len, addr0, elem):
-    """spectra_cplx.cu::issue_span for a row of plane elements of ``elem``
-    bytes whose element 0 lies at byte address addr0: (buf, ph, how), buf
-    the shared buffer (16 bytes of slack), the sample at view position p0
-    + i at buf[ph + i]; how[i] "zero" (outside the view or the row), "edge"
-    (a plain copy before or after the 16-byte pieces) or "piece" (in a
-    16-byte cp.async copy, whose shared and global addresses are both on
-    16 bytes)."""
-    n_src, V = len(row), 16 // elem
-    lo = min(length, max(0, -p0, -s0))
-    hi = max(lo, min(length, view_len - p0, n_src - s0))
+def _issue_copy(row, s0, lo, hi, length, addr0, elem):
+    """tile_span.cuh::issue_copy of row[s0 : s0 + length], a row of plane
+    elements of ``elem`` bytes whose element 0 lies at byte address addr0,
+    elements [lo, hi) from the row: (buf, ph, how), buf the shared buffer
+    (16 bytes of slack), element i at buf[ph + i]; how[i] "zero" (outside
+    [lo, hi)), "edge" (a plain copy before or after the 16-byte pieces) or
+    "piece" (in a 16-byte cp.async copy, whose shared and global addresses
+    are both on 16 bytes)."""
+    V = 16 // elem
     ph = (addr0 + s0 * elem) % 16 // elem
     h0 = min(hi, lo + (V - (ph + lo) % V) % V)
     pieces = (hi - h0) // V
     tail = h0 + pieces * V
     buf = np.full(length + V, np.nan)
     how = np.array([None] * length)
-    for q in range(pieces):  # a thread's 16-byte copy
-        i = h0 + q * V
-        assert (ph + i) * elem % 16 == 0 and (addr0 + (s0 + i) * elem) % 16 == 0
-        buf[ph + i : ph + i + V] = row[s0 + i : s0 + i + V]
-        how[i : i + V] = "piece"
+    first = h0 + V * np.arange(pieces)  # thread q's 16-byte copy from first[q]
+    assert ((ph + first) * elem % 16 == 0).all()
+    assert ((addr0 + (s0 + first) * elem) % 16 == 0).all()
+    i = (first[:, None] + np.arange(V)).reshape(-1)
+    buf[ph + i] = row[s0 + i]
+    how[i] = "piece"
     buf[ph : ph + lo] = 0.0
     buf[ph + hi : ph + length] = 0.0
     how[:lo], how[hi:] = "zero", "zero"
     edge = (h0 - lo) + (hi - tail)
-    assert edge < BIG_THREADS
+    assert edge < 2 * V <= 32
     for t in range(edge):  # thread t's plain copy
         i = lo + t if t < h0 - lo else tail + (t - (h0 - lo))
         buf[ph + i] = row[s0 + i]
         how[i] = "edge"
     return buf, ph, how
+
+
+def _issue_span(row, s0, p0, length, view_len, addr0, elem):
+    """tile_span.cuh::issue_span: ``_issue_copy`` of a tile's span, the
+    samples at view positions p0 + i inside the view and the row copied,
+    the rest zero."""
+    lo = min(length, max(0, -p0, -s0))
+    hi = max(lo, min(length, view_len - p0, len(row) - s0))
+    return _issue_copy(row, s0, lo, hi, length, addr0, elem)
 
 
 @pytest.mark.parametrize("fit", [1, 5, 132])
@@ -1979,7 +2179,7 @@ def test_cplx_walk_covers_every_tile_once(total, fit):
     blocks the card holds, ``K.cplx_capacity``)): every tile is taken by
     exactly one block, each block walks its tiles in ascending order, and
     no block idles while another holds two more tiles than it."""
-    walk = _cplx_walk(total, fit)
+    walk = _block_walk(total, fit)
     seen = sorted(t for tiles in walk for t in tiles)
     assert seen == list(range(total))
     assert all(tiles == sorted(tiles) and tiles for tiles in walk)
@@ -1998,14 +2198,21 @@ def test_cplx_walk_span_copy_is_the_guarded_load(name, elem):
     plain edge copies and the zeros together give the one-tile kernel's
     guarded load (zero outside the view and the row), each sample once,
     the pieces on 16 bytes at both ends."""
-    kw = CPLX_GEOMS[name]
+    _check_span_copies(CPLX_GEOMS[name], elem, real=False)
+
+
+def _check_span_copies(kw, elem, real):
+    """issue_span's copy of every tile of the geometry kw (on the real-FFT
+    kernels or not), chunked and whole, from rows at every phase of 16
+    bytes for elements of ``elem`` bytes, against the one-tile kernels'
+    guarded load: zero outside the view and the row, each sample once."""
     rng = np.random.default_rng(40)
     n_src = 5 * kw["n_fft"] + 3
     row = rng.standard_normal(n_src)
     for chunked in (True, False):
         cs, pad = (2 * kw["n_fft"], kw["n_fft"] // 4) if chunked else (0, 0)
         geo = gate_geometry(StftConfig(**kw), cs + 2 * pad if chunked else n_src)
-        assert geo.route in ("fft", "chirp") and not geo.fft_real
+        assert geo.route in ("fft", "chirp") and geo.fft_real == real
         n_chunks = n_chunks_for(n_src, cs) if cs else 1
         stride, start = (cs, -pad) if cs else (0, 0)
         n_tiles = -(-geo.n_frames // geo.fft_tile_frames)
@@ -2020,6 +2227,162 @@ def test_cplx_walk_span_copy_is_the_guarded_load(name, elem):
                 assert np.array_equal(buf[ph : ph + length], want)
                 assert (how != None).all()  # noqa: E711
                 assert ((how == "zero") == ~ok).all()
+
+
+# ---------------------------------------------------------------------------
+# the real-FFT kernels' persistent walks (csrc/spectra_fft.cu over A's
+# tiles, csrc/istft_fft.cu over D's runs), their cp.async copies
+# (tile_span.cuh), laid twiddles, D's ring and shared memory
+# ---------------------------------------------------------------------------
+REAL_WALK_GEOMS = ["nfft1024-r4", "nfft1536-r4", "nfft512-r4", "nfft400-r4", "nfft882-r2",
+                   "torch-nfft512-r2", "nfft2048-win1024"]
+
+
+@pytest.mark.parametrize("fit", [1, 5, 264])
+@pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "nfft400-r4",
+                                  "torch-nfft512-r2"])
+def test_real_walk_covers_every_tile_once(name, fit):
+    """Kernel A's real-FFT blocks (grid: min(tiles, the blocks the card
+    holds, ``K.real_capacity``)): every tile of the chunked views is taken
+    by exactly one block, each block walks its tiles in ascending order,
+    and no block idles while another holds two more tiles than it; the
+    planes are bitwise those of one block a tile (a walk of 1) whatever
+    the grid."""
+    geo = gate_geometry(StftConfig(**GEOMS[name]), CS + 2 * PAD)
+    assert geo.fft_real
+    total = 2 * n_chunks_for(N_SRC, CS) * -(-geo.n_frames // geo.fft_tile_frames)
+    walk = _block_walk(total, fit)
+    assert sorted(t for tiles in walk for t in tiles) == list(range(total))
+    assert all(tiles == sorted(tiles) and tiles for tiles in walk)
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1
+    x = np.random.default_rng(41).standard_normal((2, N_SRC))
+    one = _emulate_spectra_fft(x, geo, CS, PAD, fit=total)
+    for got, want in zip(_emulate_spectra_fft(x, geo, CS, PAD, fit=fit), one):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", REAL_WALK_GEOMS)
+def test_real_walk_span_copy_is_the_guarded_load(name, elem):
+    """issue_span's copy of every tile of a real-FFT geometry (a power of
+    two M, 1024 and 512; mixed radix, 1536, 400, 882; win below n_fft),
+    from rows at every 2-byte phase of 16 bytes: the one-tile kernel's
+    guarded load, each sample once, the pieces on 16 bytes at both ends."""
+    _check_span_copies(GEOMS[name], elem, real=True)
+
+
+def _istft_walk(geo, rows, out_off, out_len, fit):
+    """istft_fft.cu's persistent walk: min(runs, fit) blocks, block x taking
+    runs x, x + grid, ... (run i of row b is item b n_runs + i); per block
+    (its runs, the groups (run, b, tg, ge) it inverts in order, the slabs
+    (b, tg, ge) it copies in order): issue_from(x) first, then after each group's
+    pre-step the group after it in its run, or issue_from the next run of
+    the block (the first with frames; None past the last)."""
+    T, r, G, run = geo.n_frames, geo.r, geo.fft_tile_frames, geo.fft_run
+    j0, n_out = geo.out_blocks(out_off, out_len)
+    n_runs = -(-n_out // run)
+    total = rows * n_runs
+    grid = min(total, fit)
+
+    def run_of(item):
+        b, i = divmod(item, n_runs)
+        ja = j0 + i * run
+        je = min(run, j0 + n_out - ja)
+        return b, ja, je, max(0, ja - r + 1), min(T - 1, ja + je - 1)
+
+    def issue_from(item):
+        for it in range(item, total, grid):
+            b, _, _, t_lo, t_hi = run_of(it)
+            if t_lo <= t_hi:
+                return b, t_lo, min(G, t_hi - t_lo + 1)
+        return None
+
+    out = []
+    for x in range(grid):
+        items, done, issued = list(range(x, total, grid)), [], [issue_from(x)]
+        for item in items:
+            b, ja, je, t_lo, t_hi = run_of(item)
+            for tg in range(t_lo, t_hi + 1, G):
+                done.append((item, b, tg, min(G, t_hi - tg + 1)))
+                issued.append((b, tg + G, min(G, t_hi - tg - G + 1)) if tg + G <= t_hi
+                              else issue_from(item + grid))
+        out.append((items, done, issued))
+    return out, n_runs, run_of
+
+
+WALK_VIEW = 20000
+WALK_WINDOWS = {"core": (2000, 16000), "whole": (0, WALK_VIEW), "middle": (3000, 9000),
+                "past-end": (15000, 15000)}
+
+
+@pytest.mark.parametrize("fit", [1, 7, 264])
+@pytest.mark.parametrize("window", WALK_WINDOWS)
+@pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "torch-nfft512-r2",
+                                  "nfft882-r2", "nfft512-r1"])
+def test_istft_fft_walk_covers_every_run_once(name, window, fit):
+    """Kernel D's real-FFT blocks (grid: min(runs, ``K.real_capacity``)):
+    every run of every row is taken by exactly one block; each block's
+    slab in flight is always the next group it inverts (the copy issued
+    after a group's pre-step is the group it takes next, across its runs,
+    past runs with no frames) and none is left in flight at its end; the
+    groups cover each run's frames, from its first halo frame, each frame
+    once a run; the run fills whole groups where it can. Rows of several
+    runs; past the end, runs that no frame reaches."""
+    geo = gate_geometry(StftConfig(**GEOMS[name]), WALK_VIEW)
+    G, r = geo.fft_tile_frames, geo.r
+    assert geo.fft_real and geo.fft_run * geo.hop <= FFT_ACC
+    if (min(32, FFT_ACC // geo.hop) + r - 1) >= G:
+        assert (geo.fft_run + r - 1) % G == 0
+    walk, n_runs, run_of = _istft_walk(geo, 3, *WALK_WINDOWS[window], fit)
+    assert n_runs > 1
+    empty = [i for i in range(3 * n_runs) if run_of(i)[3] > run_of(i)[4]]
+    assert bool(empty) == (window == "past-end")
+    assert sorted(i for items, _, _ in walk for i in items) == list(range(3 * n_runs))
+    for items, done, issued in walk:
+        assert issued[:-1] == [d[1:] for d in done] and issued[-1] is None
+        for item in items:
+            b, ja, je, t_lo, t_hi = run_of(item)
+            frames = [t for it, _, tg, ge in done if it == item for t in range(tg, tg + ge)]
+            assert frames == list(range(t_lo, t_hi + 1))
+
+
+@pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bf16"])
+@pytest.mark.parametrize("n_bins", [513, 769, 201, 4097])
+def test_istft_fft_slab_copy_and_division(n_bins, elem):
+    """D's slab: a group's ge x n_bins values of a plane copied by
+    issue_copy from rows at every phase of 16 bytes hold bin q of frame tg
+    + f at f n_bins + q; the pre-step's slot e takes frame f = e / ((M +
+    1) / 2) by the plan's multiply-high Div and pair k = e - f (M + 1) / 2,
+    and reads bins k, M - k (slot 0: 0, M and M/2) of frame f: the (frame,
+    bin) of e' / n_bins, e' % n_bins for the element e' = f n_bins + q it
+    reads, which the load by e / n_bins read before. The overlap-add's
+    Div of the hop is exact for every sample of a run."""
+    M = n_bins - 1
+    geo = gate_geometry(StftConfig(n_fft=2 * M, hop_length=M // 2), 20 * M)
+    assert geo.fft_real and geo.n_bins == n_bins
+    G, T = geo.fft_tile_frames, geo.n_frames
+    half = (M + 1) // 2
+    plane = np.random.default_rng(n_bins).standard_normal((2, T, n_bins))
+    flat = plane.reshape(-1)
+    for b, tg in ((0, 0), (1, T - G), (1, 3)):
+        ge = min(G, T - tg)
+        length = ge * n_bins
+        for addr0 in range(0, 16, elem):
+            buf, ph, how = _issue_copy(flat, (b * T + tg) * n_bins, 0, length, length, addr0,
+                                       elem)
+            slab = buf[ph : ph + length]
+            assert np.array_equal(slab, plane[b, tg : tg + ge].reshape(-1))
+            assert (how != "zero").all() and (how == "piece").sum() >= length - 2 * 16 // elem
+        e = np.arange(ge * half)
+        f = _div(e, half)
+        k = e - f * half
+        assert np.array_equal(f, e // half)
+        for q in (k, np.where(k > 0, M - k, M), np.full_like(k, M // 2)):
+            read = f * n_bins + q
+            assert np.array_equal(read // n_bins, f) and np.array_equal(read % n_bins, q)
+            assert np.array_equal(slab[read], plane[b, tg + f, q])
+    l = np.arange(FFT_ACC)
+    assert np.array_equal(_div(l, geo.hop), l // geo.hop)
 
 
 @pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])

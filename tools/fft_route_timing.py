@@ -71,6 +71,27 @@ took.
     python3 tools/fft_route_timing.py --cells 4803,4803@960,16386 --library  # cluster chirp route
     python3 tools/fft_route_timing.py --cells 40005,40005@960,65538,192000 --library  # global chirp
     PYTHONPATH=<parent checkout> python3 tools/fft_route_timing.py --cells 40005 --product-long
+    python3 tools/fft_route_timing.py --ab [NAME=]<checkout>[,...] --rounds 4 --cells 1024,1536
+    python3 tools/fft_route_timing.py --ab <checkout> --cells 1024 --dtype bfloat16
+    python3 tools/fft_route_timing.py --ab <checkout> --cells 1024 --variants run32,diag_a_no_fft
+
+``--ab`` times the real-FFT kernels A and D (``csrc/spectra_fft.cu``,
+``csrc/istft_fft.cu``) of this tree, of other checkouts (a parent commit
+unpacked with ``git archive``; their two sources built with this tree's
+flags into ``$TMPDIR``, their ``ptxas -v`` reports printed; D with the run
+length of the checkout's own ``geometry.py``) and of the ``--variants``
+(``AB_VARIANTS``: this tree's library with the parent's run length, or its
+sources with a piece of the work taken out) in
+one process: every call goes through this tree's wrapper, whose library
+is swapped for each build's two entries in turn, in ``--rounds`` rounds of
+alternating order (this tree first, then the others, then the reverse),
+on the ``CELLS`` that ``--cells`` names, with the signal in ``--dtype``.
+Per cell, build and kernel: the device time of each round (``queued_ms``:
+events around one call with the host's launch work hidden, min of
+``--reps``), their min, median and max, and whether each build's outputs
+are bitwise this tree's (else their largest difference); with
+``--library`` also ``torch.stft`` / ``torch.istft`` and one elementwise
+pass over two planes (the card's rate on these bytes).
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -81,12 +102,19 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import ctypes
 import importlib.util
 import json
+import os
 import pathlib
+import re as regex
+import statistics
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import torch
 
@@ -361,6 +389,236 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     return cell
 
 
+# --ab: the real-FFT kernels' sources and entries, and the variants of this
+# tree: the patches of its sources ((file, old, new) replacements; None to
+# time this tree's library) and whether D runs with the run length before
+# whole groups (min(32, 8192 / hop) hop blocks). The diag_* variants take a
+# piece of a kernel's work out (wrong outputs by design, not held) to see
+# what it costs: A's pack (the general build's: the power-of-two build
+# packs as its first stage loads), stages or unpack; D's pre-step, stages
+# or overlap-add
+AB_SOURCES = ("spectra_fft.cu", "istft_fft.cu")
+AB_ENTRIES = ("nr_spectra_fft", "nr_istft_fft")
+_A, _D = "spectra_fft.cu", "istft_fft.cu"
+AB_VARIANTS = {
+    "run32": (None, True),
+    # D's overlap-add a sample at a time, not RING_UNROLL at once
+    "ring_loop": ([(_D, "constexpr int RING_UNROLL = 6;", "constexpr int RING_UNROLL = 1;")],
+                  False),
+    # D at one block an SM (128 registers, no spills), in place
+    "d_one_block": ([(_D, "constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 1;")],
+                    False),
+    # D's overlap-add a sample at a time for an even hop too, not in pairs
+    "ola_scalar": ([(_D, "      if (p.hop % 2)\n", "      if (true)\n")], False),
+    "diag_a_no_pack": ([
+        (_A, "for (int e = sg.lane; e < nf * m; e += plan.threads) {",
+         "for (int e = sg.lane; e < 0; e += plan.threads) {"),
+        ], False),
+    "diag_a_no_fft": ([
+        (_A, "const float2* zo = nrf::fft_frames_large<false, ODD, false, true>(\n"
+             "             s.z, s.sc, m, t.fe, s.stw, sg, plan);", "const float2* zo = s.z;"),
+        (_A, "const float2* zo =\n"
+             "             nrf::p2::fft_frames(s.z, s.sc, log2m, nrf::p2::radix(M, 1), t.fe, s.stw, sg);",
+         "const float2* zo = s.z;")], False),
+    "diag_a_no_unpack": ([
+        (_A, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
+         "for (int e = sg.lane; e < 0; e += plan.threads) {"),
+        (_A, "e < min(t.fe << (log2m - 1), seg_end >> 1); e += step) {",
+         "e < 0; e += step) {")], False),
+    "diag_d_no_pre": ([
+        (_D, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
+         "for (int e = sg.lane; e < 0; e += plan.threads) {")], False),
+    "diag_d_no_fft": ([(_D, "      nrf::fft_frames<true, ODD, true>(z, m, ge, stw, sg, plan);\n",
+                        "")], False),
+    "diag_d_no_ola": ([(_D, "for (int i0 = W * tid; i0 < ring;", "for (int i0 = W * tid; i0 < 0;")],
+                      False),
+}
+
+
+def checkout_run(root: pathlib.Path):
+    """D's run length by the rule of the checkout at root (its own
+    ``geometry.py``, loaded beside this tree's), for this tree's geometry."""
+    spec = importlib.util.spec_from_file_location(
+        f"ab_geometry_{abs(hash(str(root)))}", root / "noisereduce_tpu_torch/ops/cuda/geometry.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return lambda g: mod.GateGeometry(g.scfg, g.view_len).fft_run
+
+
+def old_run(g) -> int:
+    """D's run length before whole groups: min(32, 8192 / hop) hop blocks."""
+    from noisereduce_tpu_torch.ops.cuda import geometry as G
+    return max(1, min(G.FFT_RUN, G.FFT_ACC // g.hop))
+
+
+def ab_library(csrc: pathlib.Path, patches, out: pathlib.Path):
+    """The real-FFT kernels of the sources in csrc (with ``patches``
+    applied to a copy) built with this tree's flags into out, loaded, and
+    their ptxas -v reports' registers and spills by kernel."""
+    from noisereduce_tpu_torch.ops.cuda import build
+    src = out / "csrc"
+    src.mkdir(parents=True)
+    for f in csrc.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (src / f.name).write_text(f.read_text())
+    for name, old, new in patches or ():
+        text = (src / name).read_text()
+        if old not in text:
+            raise SystemExit(f"--ab: a patch of {name} does not apply")
+        (src / name).write_text(text.replace(old, new))
+    nvcc = build._nvcc()
+    objs = [out / f"{pathlib.Path(n).stem}.o" for n in AB_SOURCES]
+    reports = build._run([[nvcc, *build.COMPILE_FLAGS, "-I", str(src), "-c", "-o", str(o),
+                           str(src / n)] for o, n in zip(objs, AB_SOURCES)])
+    build._run([[nvcc, *build.LINK_FLAGS, "-o", str(out / "libab.so"), *map(str, objs)]])
+    lib = ctypes.CDLL(str(out / "libab.so"))
+    for name in AB_ENTRIES:
+        getattr(lib, name).argtypes = build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, ptxas_usage(reports)
+
+
+def ptxas_usage(reports) -> dict:
+    """Registers and spill bytes of each kernel in ptxas -v reports, by
+    kernel and template arguments as mangled."""
+    usage = {}
+    for report in reports:
+        for e in report.split("Compiling entry function")[1:]:
+            m = regex.search(r"\d+(\w+?_kernel)I(\w*?)EE?v", e)
+            regs = regex.search(r"Used (\d+) registers", e)
+            spill = regex.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+            if m and regs and spill:
+                usage[f"{m.group(1)}<{m.group(2)}>"] = (
+                    f"{regs.group(1)} registers, {spill.group(1)} / {spill.group(2)} B spill")
+    return usage
+
+
+class Swapped:
+    """This tree's kernel library with the real-FFT entries of another build."""
+
+    def __init__(self, base, other):
+        self.base, self.other = base, other
+
+    def __getattr__(self, name):
+        return getattr(self.other if name in AB_ENTRIES else self.base, name)
+
+
+def ab_main(args, cs) -> None:
+    """--ab: the real-FFT kernels of this tree, another checkout and the
+    variants, in one process, interleaved over --rounds rounds."""
+    from noisereduce_tpu_torch.config import StftConfig
+    from noisereduce_tpu_torch.ops.cuda import build
+    from noisereduce_tpu_torch.ops.cuda import geometry as G
+    from noisereduce_tpu_torch.ops.cuda import kernels as K
+
+    print(cs.card_line(), flush=True)
+    base = build.load()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="fft_ab_", dir=os.environ.get("TMPDIR")))
+    here = pathlib.Path(build.CSRC)
+    # name: (csrc to build, its patches, D's run rule); None: this tree's library
+    plans = {"change": (None, None, None)}
+    for entry in [e for e in args.ab.split(",") if e]:
+        name, _, path = entry.rpartition("=")
+        root = pathlib.Path(path)
+        plans[name or "parent"] = (root / "noisereduce_tpu_torch/ops/cuda/csrc", None,
+                                   checkout_run(root))
+    for v in [v for v in args.variants.split(",") if v]:
+        patches, run32 = AB_VARIANTS[v]
+        plans[v] = (here if patches else None, patches, old_run if run32 else None)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        built = {name: pool.submit(ab_library, csrc, patches, tmp / name)
+                 for name, (csrc, patches, _) in plans.items() if csrc is not None}
+        built = {name: f.result() for name, f in built.items()}
+    print(f"{len(built)} builds in {time.perf_counter() - t0:.1f} s", flush=True)
+    usage = ptxas_usage(
+        (build.library_path().parent / f"{pathlib.Path(n).stem}.ptxas.txt").read_text()
+        for n in AB_SOURCES)
+    print(f"change: {json.dumps(usage)}", flush=True)
+    trees = {}
+    for name, (_, _, rule) in plans.items():
+        lib = base
+        if name in built:
+            lib = Swapped(base, built[name][0])
+            print(f"{name}: {json.dumps(built[name][1])}", flush=True)
+        trees[name] = (lib, rule)
+    dtype = getattr(torch, args.dtype)
+    wanted = {v for v in args.cells.split(",") if v}
+    cells = [c for c in CELLS if str(c[1]) in wanted]
+    signals, out = {}, {"dtype": args.dtype, "cells": {}}
+    for name, n_fft, hop, secs, sr in cells:
+        if sr not in signals:
+            signals[sr] = torch.as_tensor(cs.headline_signal(secs, sr)).cuda()
+        xs = signals[sr][None, : secs * sr].to(dtype).contiguous()
+        g = G.gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), cs.CHUNK + 2 * cs.PADDING)
+        assert g.fft_real, f"{name}: --ab times the real-FFT kernels"
+        a = (xs, g, cs.CHUNK, cs.PADDING)
+        mask = None
+        cell = out["cells"][name] = {t: {"spectra": [], "istft_ola": []} for t in trees}
+        ref = {}
+        for rnd in range(args.rounds):
+            order = list(trees) if rnd % 2 == 0 else list(trees)[::-1]
+            for t in order:
+                lib, rule = trees[t]
+                with mock.patch.object(build, "_lib", lib), contextlib.ExitStack() as stack:
+                    if rule:
+                        stack.enter_context(mock.patch.object(
+                            G.GateGeometry, "fft_run", property(rule)))
+                    re, im = K.spectra(*a)
+                    if mask is None:
+                        mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
+                                          device=re.device)
+                        cell["views"], cell["frames"] = re.shape[0], re.shape[1]
+                        planes = re.numel() * re.element_size()
+                        cell["spectra_bound_ms"] = (xs.numel() * xs.element_size() + 2 * planes
+                                                    ) / cs.HBM_BYTES_PER_S * 1e3
+                        cell["istft_ola_bound_ms"] = (2 * planes + mask.numel() * 4 + re.shape[0]
+                                                      * cs.CHUNK * xs.element_size()
+                                                      ) / cs.HBM_BYTES_PER_S * 1e3
+                    d = (re, im, mask, g, cs.PADDING, cs.CHUNK)
+                    y = K.istft_ola(*d)
+                    if rnd == 0 and not t.startswith("diag_"):  # bitwise against this tree's
+                        if t == "change":
+                            ref = dict(re=re, im=im, y=y)
+                        else:
+                            got = dict(re=re, im=im, y=y)
+                            cell[t]["max_abs_diff"] = {
+                                k: float((got[k].float() - ref[k].float()).abs().max())
+                                for k in ref}
+                    cell[t]["run"] = g.fft_run
+                    cell[t]["spectra"].append(cs.queued_ms(lambda: K.spectra(*a), args.reps))
+                    cell[t]["istft_ola"].append(cs.queued_ms(lambda: K.istft_ola(*d), args.reps))
+                    del re, im, y, d
+        for t in trees:
+            for k in ("spectra", "istft_ola"):
+                v = [x for x in cell[t][k] if x is not None]
+                cell[t][f"{k}_min_med_max"] = [min(v), statistics.median(v), max(v)] if v else None
+        if args.library:  # torch.stft / torch.istft on the same views (float32)
+            # and the card's rate on one elementwise pass over two planes
+            re, im = K.spectra(xs, g, cs.CHUNK, cs.PADDING)
+            both = torch.empty_like(re)
+            cell["add_planes_ms"] = cs.queued_ms(lambda: torch.add(re, im, out=both), args.reps)
+            cell["add_planes_bound_ms"] = (3 * re.numel() * re.element_size()
+                                           / cs.HBM_BYTES_PER_S * 1e3)
+            del re, im, both
+            from noisereduce_tpu_torch.parallel.chunking import extract_chunks
+            views = extract_chunks(xs.float(), cs.CHUNK, cs.PADDING).reshape(-1, g.view_len)
+            window = torch.hann_window(g.win, periodic=True, device=xs.device)
+            re, im = K.spectra(xs.float(), g, cs.CHUNK, cs.PADDING)
+            zm = torch.complex(re * mask, im * mask).transpose(1, 2).contiguous()
+            cell["torch_stft_ms"] = cs.queued_ms(lambda: torch.stft(
+                views.contiguous(), g.n_fft, g.hop, g.win, window, center=True,
+                pad_mode="constant", return_complex=True), args.reps)
+            cell["torch_istft_ms"] = cs.time_ms(lambda: torch.istft(
+                zm, g.n_fft, g.hop, g.win, window, center=True, length=g.view_len), args.reps)
+            del views, zm, re, im
+        del mask
+        torch.cuda.empty_cache()
+        print(f"{name}: {json.dumps(cell)}", flush=True)
+    print(json.dumps(out), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
@@ -374,6 +632,14 @@ def main() -> None:
                     help="time a long cell on the product route past n_fft "
                          f"{UNTIMED_PRODUCT_NFFT} too (a tree whose route it is), "
                          "recording an out-of-memory error")
+    ap.add_argument("--ab", default="",
+                    help="[NAME=]checkout[,...]: checkouts whose real-FFT kernels to time "
+                         "beside this tree's, in one process")
+    ap.add_argument("--rounds", type=int, default=4, help="--ab: rounds of alternating order")
+    ap.add_argument("--variants", default="",
+                    help=f"--ab: comma-separated variants of this tree ({', '.join(AB_VARIANTS)})")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="--ab: the signal's and planes' dtype")
     args = ap.parse_args()
     wanted = {v for v in args.cells.split(",") if v}
     if not torch.cuda.is_available():
@@ -384,6 +650,9 @@ def main() -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    if args.ab:
+        ab_main(args, cs)
+        return
     CHUNK, NOISE_SECONDS, PADDING, SR = cs.CHUNK, cs.NOISE_SECONDS, cs.PADDING, cs.SR
     card_line, headline_signal, noise_clip, time_ms = (
         cs.card_line, cs.headline_signal, cs.noise_clip, cs.time_ms)
