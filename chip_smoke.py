@@ -16,8 +16,7 @@ last line is printed only when every phase passed):
    version's and one library call's time, and the bound the card's memory
    rate and FP32 rate set (for A and D from the function's own bytes, no
    table); A and D run their FFT route (n_fft 1024, radix 8, 8, 8; the
-   real-FFT kernels), and their product route is held and timed at the
-   same shapes beside it;
+   real-FFT kernels);
    kernel C also at the 32 x 10 s batch's plane, the split geometry's 129
    taps and 641 taps on 257 bins (wider than the line), each with its
    device time (``queued_ms``) and held bitwise from call to call;
@@ -80,8 +79,8 @@ last line is printed only when every phase passed):
     then the cells of A's and D's other routes (``FFT_CELLS``), each
     through ``reduce_noise`` against the staged plain path, its launches
     counted by route, then A and D against their plain versions at its
-    shapes beside ``torch.stft`` / ``torch.istft`` and their product route
-    at the same shapes, in both conventions: n_fft 1536 / hop 384 (M = 768
+    shapes beside ``torch.stft`` / ``torch.istft``, in both conventions:
+    n_fft 1536 / hop 384 (M = 768
     = 2^8 x 3, the real-FFT kernels' radix 8, 8, 4, 3) on the first 60 s
     of the headline signal and on all 960 s (timed end to end); n_fft
     1100 / hop 275 (M = 550 = 2 x 5^2 x 11, the complex-frame kernels with
@@ -89,12 +88,16 @@ last line is printed only when every phase passed):
     3^3 x 7^2: two frames a complex transform), 60 s; n_fft 1102 / hop 551
     at 44.1 kHz (M = 551 = 19 x 29: the FFT route's radix-19 and -29
     stages, ``stage_large``), 60 s; n_fft 1101 / hop 367 at 44.1 kHz (3 x
-    367: the chirp-z route), 60 s; and n_fft 40 / hop 10 at 8 kHz (below
-    64: the DFT-product route), 60 s, with the complex-frame builds'
+    367: the chirp-z route), 60 s; and n_fft 40 / hop 10 at 8 kHz (5 ms
+    frames: the real-FFT kernels, 204 frames a tile and a group, runs of
+    201 hop blocks; the DFT products before them), 60 s, then A and D
+    alone on the same 60 s at the other frames below 64 samples
+    (``SMALL_ROUTE_CELLS``: n_fft 2, 16, odd 3 and 63, 34 and 62 with
+    radix 17 and 31, the chirp at 37), with the complex-frame builds'
     registers and spills (``ptxas -v``), and on one line the real-FFT
     builds' (``spectra_fft.cu``, ``istft_fft.cu``) with A's and D's
     persistent grids at the headline (``K.real_capacity``); then the long frames
-    (``LONG_CELLS``) the same way without the product route: n_fft 8580
+    (``LONG_CELLS``) the same way: n_fft 8580
     / hop 2145 on 60 s (the big block, its persistent grid printed), 40000
     / hop 10000 and 4803 / hop 1601 (3 x 1601: the cluster chirp route) on
     400,000 samples, each of the last two also through the stationary and
@@ -104,13 +107,13 @@ last line is printed only when every phase passed):
     ``csrc/istft_global.cu``: a chirp-z transform over a four-step FFT
     through device memory): n_fft 40005 / hop 8001 (odd, 0.83 s) on
     400,000 samples, 65538 / hop 21846 and 192000 / hop 48000 (4 s frames,
-    whose product-route table alone would take 147 GB) on 60 s, then 40005
+    whose DFT-product table alone would take 147 GB) on 60 s, then 40005
     on all 960 s, A and D alone in reduce_noise's 77 views (a counted path
     of their own, ``GLOBAL_960``), with the global builds' registers and
     spills;
 14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
     every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102, 1101 and
-    the product route's n_fft 40), held and timed as above; the H2D of the bf16
+    the 5 ms frames' n_fft 40), held and timed as above; the H2D of the bf16
     signal cast on the host against cast on the card; the headline, the
     stationary headline and the torch headline with
     ``compute_dtype=torch.bfloat16``, each launching the bf16 builds of A,
@@ -167,8 +170,8 @@ last line is printed only when every phase passed):
 Each path's launches are counted from 0 just before it runs and read just
 after, A's and D's also by route: every path must launch them on its
 geometry's route only (the FFT route at 1024, 2048 in the golden set,
-1536, 1100, 1323 and 1102; the chirp-z route at 1101; the product route
-at 40; the global chirp route at 40005, 65538 and 192000).
+1536, 1100, 1323, 1102 and 40; the chirp-z route at 1101; the global
+chirp route at 40005, 65538 and 192000).
 The kernels JSON line lists A and D by route (``fft_route``). Stationary
 outputs are binary-threshold gates: a cell whose dB value
 lies within float32 resolution of the threshold may decide either way in
@@ -216,8 +219,8 @@ SPLIT_SR, SPLIT_SECONDS, SPLIT_KW = 16000, 30, dict(freq_mask_smooth_hz=2000)
 # The cells of A's and D's other routes, each a path through reduce_noise
 # (non-stationary) on the first `seconds` of the headline signal at `sr`
 # (48 kHz: the headline's own samples), then A and D against their plain
-# versions at its shapes beside torch.stft / torch.istft and their product
-# route, in both conventions: (label, sr, seconds, STFT arguments, route,
+# versions at its shapes beside torch.stft / torch.istft, in both
+# conventions: (label, sr, seconds, STFT arguments, route,
 # the JSON entry of A and D it times, or None). A 960 s cell's entry also
 # carries the 60 s cell of the same geometry before it.
 FFT_CELLS = (
@@ -236,12 +239,29 @@ FFT_CELLS = (
     # 1101 = 3 x 367 (a prime factor above 31): the chirp-z route
     ("chirp geometry", 44100, 60, dict(n_fft=1101, hop_length=367), "chirp", "chirp"),
 )
-# an n_fft below 64 (5 ms frames at 8 kHz): A and D take their product route
-PRODUCT_SR, PRODUCT_SECONDS, PRODUCT_KW = 8000, 60, dict(n_fft=40, hop_length=10)
+# an n_fft below 64 (5 ms frames at 8 kHz): A and D take the FFT route's
+# real-FFT kernels, a block's 204 frame slots a tile and a group (the DFT
+# products before them)
+SMALL_SR, SMALL_SECONDS, SMALL_KW = 8000, 60, dict(n_fft=40, hop_length=10)
+# frames below 64 samples on the other kernels and routes they take, A and
+# D alone on the same 60 s (its JSON entries' "routes"): (label, STFT and
+# smoothing arguments, route). The real-FFT kernels with no stage (n_fft 2,
+# 4,096 frames a tile) and at a power of two (16); the complex-frame
+# kernels at odd 3 and 63 and with radix 17 and 31 (34, 62); the chirp-z
+# route at odd prime 37 (L = 81). Bins 2-4 kHz apart (n_fft 2, 3) or 500
+# Hz (16) need a frequency smoothing of at least two of them.
+SMALL_ROUTE_CELLS = (
+    ("n_fft 2", dict(n_fft=2, hop_length=1, freq_mask_smooth_hz=8000), "fft"),
+    ("n_fft 16", dict(n_fft=16, hop_length=4, freq_mask_smooth_hz=1000), "fft"),
+    ("n_fft 3", dict(n_fft=3, hop_length=1, freq_mask_smooth_hz=8000), "fft"),
+    ("n_fft 63", dict(n_fft=63, hop_length=21), "fft"),
+    ("n_fft 34", dict(n_fft=34, hop_length=17), "fft"),
+    ("n_fft 62", dict(n_fft=62, hop_length=31), "fft"),
+    ("n_fft 37", dict(n_fft=37, hop_length=1), "chirp"),
+)
 # The long frames, each a path through reduce_noise on the first `samples`
 # of the headline signal, then A and D against their plain versions at its
-# shapes beside torch.stft / torch.istft (no product route at these sizes:
-# its n_fft x n_fft tables take a gigabyte and more): (label, sr, samples,
+# shapes beside torch.stft / torch.istft: (label, sr, samples,
 # STFT and smoothing arguments, route, JSON entry of A and D). A hop past
 # 50 ms needs a time smoothing of at least one hop: 500 ms.
 LONG_CELLS = (
@@ -274,7 +294,7 @@ LONG_CELLS = (
      dict(n_fft=65538, hop_length=21846, time_mask_smooth_ms=500), "global_chirp",
      "global_chirp_65538"),
     # 192000 (4 s frames): n = 96,000 = 2^8 3 5^3, 5-smooth but past a
-    # cluster's 65,536 points; L = 192,000 = 400 x 480 (the product route's
+    # cluster's 65,536 points; L = 192,000 = 400 x 480 (a DFT product's
     # table alone would take 147 GB); 2 s of time smoothing (at least a hop)
     ("long frames n_fft 192000", SR, 60 * SR,
      dict(n_fft=192000, hop_length=48000, time_mask_smooth_ms=2000), "global_chirp",
@@ -293,8 +313,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float32 agreement bounds, each with its reason
 BOUNDS = {
-    # an FP32 FFT (the product route: n_fft-term FP32 sums) in another order
-    # than cuFFT's: x max|ref|
+    # an FP32 FFT in another order than cuFFT's (the bound the n_fft-term
+    # FP32 sums of the earlier DFT products held): x max|ref|
     "spectra": 2e-5,
     # mask units (the mask is in [0, 1]); float64 IIR carry in both, float
     # vs double rounding of the stored floor, amplified by the sigmoid
@@ -302,8 +322,9 @@ BOUNDS = {
     "nonstationary_mask": 1e-4,
     # 2n+1 = 11 FMAs of values <= 1: absolute
     "freq_smooth_blend": 1e-6,
-    # an FP32 inverse FFT and 4-term overlap-add (the product route: 4 * 2 *
-    # 513-term FP32 sums) vs cuFFT's irfft + fold: x max|ref|
+    # an FP32 inverse FFT and 4-term overlap-add vs cuFFT's irfft + fold (the
+    # bound the earlier DFT products' 4 * 2 * 513-term FP32 sums held): x
+    # max|ref|
     "istft_ola": 2e-5,
     # mask units, over the cells whose binary decision agrees: a few FMAs of
     # the time taps in another order: absolute
@@ -352,9 +373,10 @@ SOURCES = {
     # the chirp-z route (1101), in the complex-frame kernels
     "spectra_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
     "istft_ola_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
-    # the product route of A and D, for an n_fft neither other route serves
-    "spectra_product": "noisereduce_tpu_torch/ops/cuda/csrc/spectra.cu",
-    "istft_ola_product": "noisereduce_tpu_torch/ops/cuda/csrc/istft_ola.cu",
+    # frames below 64 samples (n_fft 40 at 8 kHz): the real-FFT kernels, a
+    # block's 204 slots a tile and a group (the DFT products before them)
+    "spectra_small": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
+    "istft_ola_small": "noisereduce_tpu_torch/ops/cuda/csrc/istft_fft.cu",
     # past n_fft 8192: the FFT route's big block (8580) and the cluster route (40000)
     "spectra_big": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
     "istft_ola_big": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
@@ -370,8 +392,8 @@ SOURCES = {
 }
 # JSON entries of A and D: (the wrapper that launches them, the route)
 ROUTED = {"spectra": ("spectra", "fft"), "istft_ola": ("istft_ola", "fft"),
-          "spectra_product": ("spectra", "product"),
-          "istft_ola_product": ("istft_ola", "product")}
+          "spectra_small": ("spectra", "fft"),
+          "istft_ola_small": ("istft_ola", "fft")}
 for _label, _sr, _secs, _kw, _route, _entry in FFT_CELLS + LONG_CELLS:
     if _entry:
         ROUTED[f"spectra_{_entry}"] = ("spectra", _route)
@@ -689,19 +711,6 @@ def fm_route(K, record, label, route, fn, z, ref, mk):
     return out
 
 
-def product_route(label, fn, ref, lim):
-    """The product route of kernel A or D (the earlier kernel, which now
-    serves only an n_fft that neither other route takes) at the same
-    shapes: within ``lim`` x max|ref| of the plain version, and its time."""
-    dev, scale = max_dev(fn(), ref)
-    ms = time_ms(fn)
-    print(f"kernel {label}, product route at the same shapes: max|dev| {dev:.3e} "
-          f"bound {lim * scale:.3e}, {ms:.3f} ms", flush=True)
-    if not dev <= lim * scale:
-        fail(f"kernel {label}: the product route disagrees with its plain version")
-    return dict(max_abs_err=dev, ms=ms)
-
-
 def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
     """Each kernel against its plain version at the main path's shapes.
     ``cfg`` is the non-stationary configuration, ``scfg`` the stationary
@@ -745,9 +754,6 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
             pad_mode="constant", return_complex=True,
         ),
     )
-    results["spectra"]["product_route"] = product_route(
-        "spectra", lambda: torch.stack(K._spectra_on("product", *a)),
-        torch.stack([rre, rim]), BOUNDS["spectra"])
     del rre, rim, views
 
     # A on the noise clip (TPU kernel row 3: the threshold's spectra)
@@ -882,8 +888,6 @@ def kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, cfg, scfg):
            library_fn=lambda: torch.istft(
                zm, geo.n_fft, geo.hop, geo.win, window, center=True,
                length=geo.view_len))
-    results["istft_ola"]["product_route"] = product_route(
-        "istft_ola", lambda: K._istft_ola_on("product", *d), ry, BOUNDS["istft_ola"])
     del zm, y, ry, m, mb
 
     # E against its plain version, the threshold from a 10 s noise clip
@@ -997,9 +1001,6 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
         ),
         scale_bound=True,
     )
-    results["spectra"]["torch_table"]["product_route"] = product_route(
-        "spectra (torch table)", lambda: torch.stack(K._spectra_on("product", *a)),
-        torch.stack([rre, rim]), TORCH_TABLE_BOUND)
     del rre, rim, views
 
     ngeo = gate_geometry(gate.stft_config, noise_cuda.shape[-1])
@@ -1074,9 +1075,6 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
             length=geo.view_len),
         scale_bound=True,
     )
-    results["istft_ola"]["torch_tail"]["product_route"] = product_route(
-        "istft_ola (torch tail)", lambda: K._istft_ola_on("product", *d), ry,
-        TORCH_TABLE_BOUND)
     del zm, y, ry, m, mb
 
     # E with each view's own statistics: the decisions against the plain
@@ -1126,13 +1124,11 @@ def torch_kernel_phase(x_cuda: torch.Tensor, noise_cuda: torch.Tensor, gate, res
     )
 
 
-def route_kernel_phase(xc: torch.Tensor, cfg, gate, label, product=True) -> dict:
+def route_kernel_phase(xc: torch.Tensor, cfg, gate, label) -> dict:
     """Kernels A and D on the route of ``cfg``'s geometry against their
     plain versions at the shapes ``reduce_noise`` gives them on the signal
     ``xc`` (chunked as the API chunks it, or one padded view), each beside
-    ``torch.stft`` / ``torch.istft`` and, off the product route, their
-    product route at the same shapes (with ``product``), each timed also in
-    device time; then,
+    ``torch.stft`` / ``torch.istft``, each timed also in device time; then,
     with ``gate`` (the TorchGate of ``reduce_noise(use_torch=True)`` at
     this geometry), the same under torch conventions, held at 1e-5 x.
     Returns {"spectra": ..., "istft_ola": ...} of the kernels JSON line."""
@@ -1173,14 +1169,8 @@ def route_kernel_phase(xc: torch.Tensor, cfg, gate, label, product=True) -> dict
             f"spectra ({tag})", lim, lambda: K.spectra(*a), lambda: K.spectra_ref(*a),
             torch.stack([re, im]), torch.stack([rre, rim]), nbytes(src[0], re, im), ops_a,
             library_fn=lib_a, scale_bound=True)
-        prod_a = {}
-        if product and geo.route != "product":
-            ra["product_route"] = product_route(
-                f"spectra ({tag})", lambda: torch.stack(K._spectra_on("product", *a)),
-                torch.stack([rre, rim]), lim)
-            prod_a = dict(product=lambda: K._spectra_on("product", *a))
         ra.update(device_times(f"spectra ({tag})", kernel=lambda: K.spectra(*a),
-                               library=lib_a, **prod_a))
+                               library=lib_a))
         del rre, rim
         if conv == "scipy":
             ngf, ngt = cfg.smoothing
@@ -1203,13 +1193,8 @@ def route_kernel_phase(xc: torch.Tensor, cfg, gate, label, product=True) -> dict
             y, ry, nbytes(re, im, m, y),
             re.shape[0] * re.shape[1] * (fft_ops(geo.n_fft) + 3 * geo.n_bins + 2 * geo.win),
             library_fn=lib_d, scale_bound=True)
-        prod_d = {}
-        if product and geo.route != "product":
-            rd["product_route"] = product_route(
-                f"istft_ola ({tag})", lambda: K._istft_ola_on("product", *d), ry, lim)
-            prod_d = dict(product=lambda: K._istft_ola_on("product", *d))
         rd.update(device_times(f"istft_ola ({tag})", kernel=lambda: K.istft_ola(*d),
-                               library=lib_d, **prod_d))
+                               library=lib_d))
         del re, im, m, y, ry, zm
         torch.cuda.empty_cache()
         if conv == "scipy":
@@ -2452,8 +2437,8 @@ def bf16_route_phase(x, cfg_for, out) -> None:
     """A and D's bfloat16 builds on every route, at the FFT_CELLS geometries
     (60 s each: n_fft 1536 and 1100 at 48 kHz, 1323, 1102 and 1101 at 44.1
     kHz),
-    the cluster chirp route's (n_fft 4803 / hop 1601, 60 s) and the
-    product route's (n_fft 40 at 8 kHz): one padded view, as
+    the cluster chirp route's (n_fft 4803 / hop 1601, 60 s) and the 5 ms
+    frames' (n_fft 40 at 8 kHz, the FFT route): one padded view, as
     ``reduce_noise`` takes a signal no longer than a chunk; against their
     plain versions on the same bf16 inputs and beside their float32
     twins. Adds ``routes`` to A's and D's bf16 entries."""
@@ -2464,7 +2449,7 @@ def bf16_route_phase(x, cfg_for, out) -> None:
              if secs == STREAM_SECONDS]
     chirp_cell = next(c for c in LONG_CELLS if c[4] == "cluster_chirp")
     cells.append((chirp_cell[0], chirp_cell[1], chirp_cell[3], chirp_cell[4]))
-    cells.append(("product route geometry", PRODUCT_SR, PRODUCT_KW, "product"))
+    cells.append(("small frames geometry", SMALL_SR, SMALL_KW, "fft"))
     out["spectra_bf16"]["routes"], out["istft_ola_bf16"]["routes"] = {}, {}
     for label, sr, kw, route in cells:
         xq = x[: STREAM_SECONDS * SR] if sr == SR else headline_signal(STREAM_SECONDS, sr)
@@ -2937,7 +2922,7 @@ def main() -> None:
 
     # A's and D's other routes: each cell's path as a user calls it, against
     # the staged plain path, then A and D at its shapes
-    def route_cell(label, xq, sr, kw, route, conv_gate=True, product=True):
+    def route_cell(label, xq, sr, kw, route, conv_gate=True):
         c = nr.GateConfig(sr=sr, **kw)
         out, launches[label] = run_path(
             K, label, lambda: nr.reduce_noise(xq, sr, **kw, **ck),
@@ -2955,7 +2940,7 @@ def main() -> None:
         del out, ref
         gate = nr.api.torch_gate_for(sr, **kw) if conv_gate else None
         got = route_kernel_phase(torch.as_tensor(xq).cuda(), c, gate,
-                                 f"{label}, n_fft {kw['n_fft']}, {secs:g} s", product)
+                                 f"{label}, n_fft {kw['n_fft']}, {secs:g} s")
         if secs == HEADLINE_SECONDS:
             ms = time_ms(lambda: nr.reduce_noise(xq, sr, **kw, **ck))
             plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(xq)[0], c).cpu())
@@ -3016,19 +3001,33 @@ def main() -> None:
         results[name]["ptxas"] = usage[stem]
         results[name]["persistent_grid"] = {k: v for k, v in grids.items() if k.startswith(name)}
 
-    # the product route: an n_fft below 64
-    xp = headline_signal(PRODUCT_SECONDS, PRODUCT_SR)
-    got = route_cell("product route geometry", xp, PRODUCT_SR, PRODUCT_KW, "product",
-                     conv_gate=False)
+    # frames below 64 samples: n_fft 40 on the real-FFT kernels
+    xp = headline_signal(SMALL_SECONDS, SMALL_SR)
+    got = route_cell("small frames geometry", xp, SMALL_SR, SMALL_KW, "fft")
+    if not real_kernel(SMALL_KW["n_fft"]):
+        fail(f"n_fft {SMALL_KW['n_fft']} does not launch the real-FFT kernels")
     for name in ("spectra", "istft_ola"):
-        results[f"{name}_product"] = dict(got[name], fft_route="product")
-    del xp
+        results[f"{name}_small"] = dict(got[name], fft_route="fft", routes={})
+    xpc = torch.as_tensor(xp).cuda()
+    for label, kw, route in SMALL_ROUTE_CELLS:
+        K.reset_launch_counts()
+        got = route_kernel_phase(xpc, nr.GateConfig(sr=SMALL_SR, **kw),
+                                 nr.api.torch_gate_for(SMALL_SR, **kw),
+                                 f"small frames, {label}, {SMALL_SECONDS} s")
+        took = K.route_counts()
+        if any(not v[route] or sum(v.values()) != v[route] for v in took.values()):
+            fail(f"small frames, {label}: A and D took {took}, not the {route} route only")
+        for name in ("spectra", "istft_ola"):
+            results[f"{name}_small"]["routes"][label] = dict(
+                got[name], n_fft=kw["n_fft"], fft_route=route,
+                real_fft_kernels=real_kernel(kw["n_fft"]))
+    del xp, xpc
 
     # the long frames: the big block, the cluster route and the cluster
     # chirp route; then F8's geometry and the chirp's on every engine
     # against the CPU path
     for label, sr, samples, kw, route, entry in LONG_CELLS:
-        got = route_cell(label, x[:samples], sr, kw, route, product=False)
+        got = route_cell(label, x[:samples], sr, kw, route)
         for name in ("spectra", "istft_ola"):
             results[f"{name}_{entry}"] = dict(got[name], fft_route=route)
         if entry == "big":  # A's persistent big blocks: the grid that walks the tiles
@@ -3056,7 +3055,7 @@ def main() -> None:
     _, launches[label960] = run_path(K, label960, a_and_d, dict(spectra=1, istft_ola=1),
                                      route="global_chirp")
     got = route_kernel_phase(x960, c960, None,
-                             f"{label960}, n_fft {cell[3]['n_fft']}", product=False)
+                             f"{label960}, n_fft {cell[3]['n_fft']}")
     for name in ("spectra", "istft_ola"):
         results[f"{name}_{GLOBAL_960}"] = dict(got[name], fft_route="global_chirp")
     del x960
@@ -3100,8 +3099,8 @@ def main() -> None:
     main_path.update(stationary_mask="stationary headline",
                      torch_nonstationary_mask="torch headline",
                      fm_nonstationary_mask="row 6 mask under grad",
-                     spectra_product="product route geometry",
-                     istft_ola_product="product route geometry")
+                     spectra_small="small frames geometry",
+                     istft_ola_small="small frames geometry")
     for label, _, secs, _, _, entry in FFT_CELLS + LONG_CELLS:
         if entry:
             main_path[f"spectra_{entry}"] = main_path[f"istft_ola_{entry}"] = label

@@ -42,10 +42,6 @@ _dp = ctypes.POINTER(ctypes.c_double)
 # C signatures of the entries (csrc/*.cu); pointers and the stream as void*;
 # the entries of A, B, D, E and F take the planes' type first (csrc/planes.cuh)
 _SIGNATURES = {
-    "nr_spectra": [
-        _i, _vp, _ll, _i, _i, _ll, _ll, _i, _i, _i, _i, _i, _i, _vp, _i, _i, _vp,
-        _vp, _vp,
-    ],
     "nr_nonstationary_mask": [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _dp, _f, _f,
         _i, _vp,
@@ -54,10 +50,6 @@ _SIGNATURES = {
     "nr_stationary_mask": [
         _i, _vp, _vp, _vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
         _i, _i, _f, _f, _f, _f, _f, _d, _i, _vp,
-    ],
-    "nr_istft_ola": [
-        _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
-        _ll, _ll, _f, _vp, _vp,
     ],
     "nr_torch_nonstationary_mask": [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,

@@ -33,14 +33,17 @@
 //   (global_chirp_length_ok), a four-step FFT whose two factors each fit a
 //   block, the exchange between its passes through device memory
 //   (fft_global.cuh).
-// - product route (the DFT products of spectra.cu / istft_ola.cu): the
-//   rest: n_fft below MIN_NFFT, and an n past GLOBAL_MAX_L / 2 points.
+// An n past GLOBAL_MAX_L / 2 points has no route (ROUTE_NONE): no kernel
+// takes it, and geometry.py's kernels_supported sends it to the staged
+// twins. Every n_fft from 1 up to there has one: n of 1 to 31 points (an
+// n_fft below 64) takes the FFT route, or the chirp route for an odd
+// prime n_fft from 37 to 61.
 #pragma once
 
 namespace nrf {
 
 enum Route {
-  ROUTE_PRODUCT = 0,
+  ROUTE_NONE = 0,
   ROUTE_FFT = 1,
   ROUTE_CHIRP = 2,
   ROUTE_CLUSTER = 3,
@@ -48,7 +51,6 @@ enum Route {
   ROUTE_GLOBAL_CHIRP = 5
 };
 
-constexpr int MIN_NFFT = 64;
 constexpr int BLOCK_SLOTS = 4096;  // complex points a block holds
 constexpr int BIG_SLOTS = 8192;    // ... a big block (one slot of 4097 to 8192 points)
 constexpr int REAL_MAX_NFFT = 2 * BLOCK_SLOTS;  // the real-FFT kernels' largest n_fft
@@ -106,7 +108,6 @@ inline bool cluster_shape(int n, int& c, int& n1, int& n2) {
 }
 
 inline Route route_of(int n_fft) {
-  if (n_fft < MIN_NFFT) return ROUTE_PRODUCT;
   const int n = fft_n(n_fft);
   int c, n1, n2;
   if (smooth13(n)) {
@@ -118,11 +119,11 @@ inline Route route_of(int n_fft) {
     return ROUTE_CHIRP;
   }
   if (n <= CHIRP_MAX_N) return ROUTE_CLUSTER_CHIRP;
-  return 2LL * n - 1 <= GLOBAL_MAX_L ? ROUTE_GLOBAL_CHIRP : ROUTE_PRODUCT;
+  return 2LL * n - 1 <= GLOBAL_MAX_L ? ROUTE_GLOBAL_CHIRP : ROUTE_NONE;
 }
 
 // Whether the real-FFT kernels (spectra_fft.cu, istft_fft.cu) serve n_fft:
-// even, at most REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c. The complex-frame
+// even, from 2 to REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c. The complex-frame
 // kernels (spectra_cplx.cu, istft_cplx.cu) serve the rest of the FFT and
 // chirp routes.
 inline bool real_kernel(int n_fft) {

@@ -38,6 +38,11 @@
 // float64. FP32 throughout, no tensor cores: the FFT errs by about eps
 // log2 m.
 //
+// A slot of m = 1 point (n_fft 1 and 2) has no stage: its transform is
+// itself, and the plan's stage loops run none (a laid twiddle table of m -
+// 1 = 0 entries); m of 2 to 31 points (n_fft 3 to 63) runs the same stages
+// as any other m, up to 4,096 slots a block.
+//
 // No index assumes a power of two: the slot, butterfly and point indices
 // divide by m, m/R, ns and a frame's bin pairs through Div, a shift for a
 // power of two m and a multiply-high otherwise, whose constants the host
@@ -767,8 +772,9 @@ int with_set(int odd, G g) {
 // BIG: a slot past ELEMS; LARGE: a slot with a prime factor from 17 to 31
 // (within ELEMS), its small odd primes' build by large_build. The builds:
 // one for each set of build_primes a slot takes (a chirp length 2^a or
-// 2^a 3^b, an odd n_fft one with an odd prime, an even n_fft one with 11
-// or 13), one for each large_build beside the large radices, and in a big
+// 2^a 3^b, an odd n_fft one with an odd prime or none, n_fft 1's single
+// point, an even n_fft one with 11 or 13), one for each large_build beside
+// the large radices, and in a big
 // block a chirp length of 8192, or a slot on the FFT route (4097 to 8191
 // points with no cluster shape, so none a multiple of 4: the rest take the
 // cluster route), odd or even, with all five odd radices.
@@ -795,7 +801,7 @@ int with_cplx_build(int n_fft, int slot, F f) {
     return paired ? with_set<1, 15, 105, 15015>(lo, build(Y(), N(), Y()))
                   : with_set<1, 15, 105, 15015>(lo, build(N(), N(), Y()));
   }
-  if (paired) return with_set<3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>(odd, build(Y(), N(), N()));
+  if (paired) return with_set<1, 3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>(odd, build(Y(), N(), N()));
   return with_set<1155, 1365, 15015>(odd, build(N(), N(), N()));
 }
 

@@ -12,7 +12,7 @@
 // noisereduce_tpu/ops/pallas/dispatch.py::_scipy_istft_tail (:331), as
 // istft_fft.cu does; the TPU kernel takes any n_fft as a DFT product
 // (noisereduce_tpu/ops/pallas/geometry.py:146). Before this route such an
-// n_fft took the product route here, whose n_fft x hop tables per frame
+// n_fft took a DFT-product route here (since retired), whose n_fft x hop tables per frame
 // shift and O(n_fft) work a sample do not scale.
 //
 // Computes what istft_cplx.cu computes on the FFT route, with the same

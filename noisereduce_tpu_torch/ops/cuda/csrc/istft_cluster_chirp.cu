@@ -8,7 +8,7 @@
 // (:736) and the envelope and trim of
 // noisereduce_tpu/ops/pallas/dispatch.py::_scipy_istft_tail (:331), as
 // istft_fft.cu does; before this route such an n_fft took the product
-// route (istft_ola.cu), whose tables and O(n_fft) work a sample do not
+// route (since retired), whose tables and O(n_fft) work a sample do not
 // scale (istft_cluster.cuh has the design and the bound).
 #include "istft_cluster.cuh"
 

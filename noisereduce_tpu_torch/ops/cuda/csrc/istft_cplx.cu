@@ -33,7 +33,9 @@
 // (conjugated here). post carries 1/n either way.
 //
 // Bound on this card: bytes, as istft_fft.cu, and its bf16 build as
-// istft_fft.cu's. Design: as istft_fft.cu; a
+// istft_fft.cu's. Design: as istft_fft.cu, one block a run (below n_fft
+// 64, where a group holds 64 to 8,192 frames, the run grows with it, as
+// istft_fft.cu's: geometry.py's fft_run); a
 // slot past 4096 points takes a big block of 1024 threads and 8192 points
 // (fft_smem.cuh::Blk), one slot a group. A slot with a prime factor from
 // 17 to 31 (LARGE, as kernel A's) runs fft_smem.cuh::fft_frames_large

@@ -1,14 +1,15 @@
 // Kernel D, FFT route, real-FFT kernels: mask apply, inverse real FFT,
 // overlap-add, envelope division and the output window, for an even n_fft
-// from 64 to 8192 whose half is 2^k 3^a 5^b 7^c
+// from 2 to 8192 whose half is 2^k 3^a 5^b 7^c
 // (fft_route.cuh::real_kernel). istft_cplx.cu serves the rest of the FFT
-// route and the chirp-z route; istft_ola.cu (the DFT product) the other n_fft.
+// route and the chirp-z route; the cluster and global kernels the longer
+// frames.
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_apply_istft_kernel
 // (:736) and the envelope and trim of
 // noisereduce_tpu/ops/pallas/dispatch.py::_scipy_istft_tail (:331).
 //
-// Computes what istft_ola.cu computes: with Y = Z * mask and y_t =
+// Computes, with Y = Z * mask and y_t =
 // irfft_N(Y_t) (imaginary DC and Nyquist parts ignored, scale 1/N), the
 // overlap-add signal at p = j*hop + q is
 //   x[p] = sum_{i < r, 0 <= j-i < T} post[u] y_{j-i}[u],  u = i*hop + q,
@@ -26,7 +27,10 @@
 // Design: runs of `run` consecutive output hop blocks of one row
 // (geometry.py's fft_run: run + r - 1 frames fill whole groups where a run
 // of at most FFT_ACC samples can, 29 at hop 256 for 4 groups of 8, where
-// 32 took a fifth group for 3 frames). Persistent blocks, as many as the
+// 32 took a fifth group for 3 frames; below n_fft 64, where a group holds
+// 136 to 4,096 frames, the run grows with it: the run plus its halo fill
+// the fewest whole groups in which the halo takes at most half, 201 at
+// n_fft 40 / hop 10, 4,095 at 2 / 1). Persistent blocks, as many as the
 // card holds at once (nr_istft_fft_capacity; 2 an SM, 64 registers a
 // thread), walk the runs b, b + grid, ...; each inverts the frames that
 // cover its run, the run plus r - 1 halo frames, in groups of the frame

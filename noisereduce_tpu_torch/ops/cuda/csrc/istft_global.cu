@@ -10,7 +10,7 @@
 // noisereduce_tpu/ops/pallas/dispatch.py::_scipy_istft_tail (:331), as
 // istft_fft.cu does; the TPU kernel takes any n_fft as a DFT product
 // (noisereduce_tpu/ops/pallas/geometry.py:146). Before this route such an
-// n_fft took the product route here (istft_ola.cu), whose tables (6.4 GB
+// n_fft took a DFT-product route here (since retired), whose tables (6.4 GB
 // at 40005) and O(n_fft) work a sample do not scale.
 //
 // Computes what istft_cluster.cu computes on the cluster chirp route, in

@@ -9,7 +9,7 @@
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // as spectra_fft.cu does; the TPU kernel takes any n_fft as a DFT product
 // on its matrix unit (noisereduce_tpu/ops/pallas/geometry.py:75). Before
-// this route such an n_fft took the product route here, whose n_fft x
+// this route such an n_fft took a DFT-product route here (since retired), whose n_fft x
 // n_fft tables and O(n_fft) work a bin do not scale.
 //
 // Computes what spectra_cplx.cu computes on the FFT route, into the same

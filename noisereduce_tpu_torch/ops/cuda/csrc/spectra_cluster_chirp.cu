@@ -7,7 +7,7 @@
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // as spectra_fft.cu does; before this route such an n_fft took the
-// product route (spectra.cu), whose n_fft x n_fft table and O(n_fft) work
+// DFT-product route (since retired), whose n_fft x n_fft table and O(n_fft) work
 // a bin do not scale (spectra_cluster.cuh has the design and the bound).
 #include "spectra_cluster.cuh"
 

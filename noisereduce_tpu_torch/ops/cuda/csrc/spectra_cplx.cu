@@ -14,7 +14,8 @@
 // T points holds one transform of n complex points:
 // - even N: n = M = N/2, the frame packed as z[q] = u[2q] + i u[2q+1] and
 //   unpacked by fft_smem.cuh::split, as spectra_fft.cu does;
-// - odd N (PAIRED): n = N, two frames a slot, z[j] = u_a[j] + i u_b[j]
+// - odd N (PAIRED; n_fft 1, a slot of one point, among them): n = N, two
+//   frames a slot, z[j] = u_a[j] + i u_b[j]
 //   (a zero frame b past the tile's last), separated as
 //   X_a[k] = (Z[k] + conj Z[N-k]) / 2,  X_b[k] = -i (Z[k] - conj Z[N-k]) / 2,
 //   (N + 1) / 2 bins each, no Nyquist bin.

@@ -1,14 +1,15 @@
 // Kernel A, FFT route, real-FFT kernels: spectra of every chunk view for an
-// even n_fft from 64 to 8192 whose half is 2^k 3^a 5^b 7^c
+// even n_fft from 2 to 8192 whose half is 2^k 3^a 5^b 7^c
 // (fft_route.cuh::real_kernel). spectra_cplx.cu serves the rest of the FFT
-// route and the chirp-z route; spectra.cu (the DFT product) the other n_fft.
+// route and the chirp-z route; the cluster and global kernels the longer
+// frames.
 //
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // the analysis phase of the merged TPU gate kernel
 // (noisereduce_tpu/ops/pallas/dispatch.py::_merged_gate_from_blocks), and the
 // noise-clip spectra of dispatch.py::_fused_stft_planes (:556).
 //
-// Computes what spectra.cu computes: for view c of signal row h and frame t,
+// Computes, for view c of signal row h and frame t,
 //   Z[b, t, k] = s * sum_{n < frame_length} w[n] x_c[t*hop + n - bpad] e^{-2 pi i k n / N}
 // with b = h * n_chunks + c, s = 1/sum w (scipy) or 1 (torch), time-major
 // (rows, n_frames, n_bins) re/im planes; view c covers source samples
@@ -17,13 +18,15 @@
 //
 // Bound on this card: bytes. The signal read once and the two planes written
 // once (0.2 + 0.815 GB for 960 s of 48 kHz audio at n_fft 1024: 0.30 ms at
-// 3.35 TB/s); the real FFT's ~2.5 N log2 N operations a frame are ~1% of the
+// 3.35 TB/s); the real FFT's ~2.5 N log2 N operations a frame are ~1% of a
 // DFT product's. The bf16 build (planes.cuh) reads a bf16 signal and stores
 // bf16 planes, the FFT in float32: 0.1 + 0.41 GB, 0.15 ms.
 //
 // Design: tiles of tile_frames consecutive frames of one view
 // (geometry.py's fft_tile_frames: the frame slots of the block's thread
-// segments, 8 at n_fft 1024, 5 at 1536, 20 at 400). Persistent blocks, as
+// segments, 8 at n_fft 1024, 5 at 1536, 20 at 400; 204 at 40, 4,096 at 2,
+// a span of (tile_frames - 1) * hop + frame_length samples at hops of 1 to
+// 16). Persistent blocks, as
 // many as the card holds at once (nr_spectra_fft_capacity; 2 an SM, 64
 // registers a thread), walk the tiles b, b + grid, ..., stage the window
 // once, and copy the next tile's signal span ((tile_frames - 1) * hop +
@@ -52,7 +55,9 @@
 // fft_frames_large), and spectra_pow2_kernel for a power of two M, whose
 // indices are shifts and masks of log2 M, whose segments keep four indices
 // and whose first stage packs its points from the span as it loads them,
-// no pass of its own through shared memory (nrf::p2).
+// no pass of its own through shared memory (nrf::p2); M = 1 (n_fft 2) has
+// no stage, so its frames are packed by a pass of their own, each one
+// point u[0] + i u[1] whose split gives bins 0 and 1.
 #include "fft_smem.cuh"
 #include "planes.cuh"
 #include "tile_span.cuh"
@@ -337,31 +342,37 @@ __global__ void __launch_bounds__(nrf::THREADS, BLOCKS_PER_SM)
   nrf::p2::lay_twiddles(s.stw, tw, log2m);
   walk(x, v, s, ws,
        [&](const nrs::Tile& t, const nrs::Raw<T>* sp) {
-         // the first stage, its points packed from the span as it loads
-         // them: point q of frame f is u[2q] + i u[2q+1], each windowed
-         // sample a rounded product, as stored
-         nrf::p2::stage(
-             [&](int e) {
-               const int f = e >> log2m;
-               const int n = 2 * (e - (f << log2m));
-               const int o = f * v.hop + n;
-               return make_float2(n < v.win ? __fmul_rn(s.wsm[n], smp(sp, o)) : 0.f,
-                                  n + 1 < v.win ? __fmul_rn(s.wsm[n + 1], smp(sp, o + 1)) : 0.f);
-             },
-             s.z, log2m, 1, t.fe, s.stw, sg);
+         // point q of frame f is u[2q] + i u[2q+1], each windowed sample a
+         // rounded product, as stored
+         const auto point = [&](int e) {
+           const int f = e >> log2m;
+           const int n = 2 * (e - (f << log2m));
+           const int o = f * v.hop + n;
+           return make_float2(n < v.win ? __fmul_rn(s.wsm[n], smp(sp, o)) : 0.f,
+                              n + 1 < v.win ? __fmul_rn(s.wsm[n + 1], smp(sp, o + 1)) : 0.f);
+         };
+         if (log2m == 0) {  // M = 1: no stage; each frame one point
+           for (int e = sg.first + sg.lane; e < min(t.fe, seg_end); e += step)
+             s.z[nrf::pad(e)] = point(e);
+         } else {  // the first stage, its points packed as it loads them
+           nrf::p2::stage(point, s.z, log2m, 1, t.fe, s.stw, sg);
+         }
        },
        [&](const nrs::Tile& t) {
          const float2* zo =
              nrf::p2::fft_frames(s.z, s.sc, log2m, nrf::p2::radix(M, 1), t.fe, s.stw, sg);
          // unpack the real spectrum into the tile's contiguous rows: slot
-         // k < M/2 of frame f writes bins k and M - k (slot 0: 0, M and M/2)
+         // k < max(M/2, 1) of frame f writes bins k and M - k (slot 0: 0, M
+         // and, for M >= 2, M/2)
+         const int log2s = log2m ? log2m - 1 : 0;  // log2 of the slots a frame
+         const int shift = log2m - log2s;          // points a slot, log2
          const long long o0 = ((long long)t.b * v.n_frames + t.t0) * v.n_bins;
          T* const rre = re + o0;  // the tile's rows
          T* const rim = im + o0;
-         for (int e = (sg.first >> 1) + sg.lane;
-              e < min(t.fe << (log2m - 1), seg_end >> 1); e += step) {
-           const int f = e >> (log2m - 1);
-           const int k = e & (M / 2 - 1);
+         for (int e = (sg.first >> shift) + sg.lane;
+              e < min(t.fe << log2s, seg_end >> shift); e += step) {
+           const int f = e >> log2s;
+           const int k = e & ((1 << log2s) - 1);
            const int base = f << log2m;
            const int row = f * v.n_bins;
            const float2 zk = zo[nrf::pad(base + k)];
@@ -372,7 +383,7 @@ __global__ void __launch_bounds__(nrf::THREADS, BLOCKS_PER_SM)
            planes::st(rim + row + k, lo.y);
            planes::st(rre + row + M - k, hi.x);
            planes::st(rim + row + M - k, hi.y);
-           if (k == 0) {
+           if (k == 0 && M > 1) {
              const float2 zh = zo[nrf::pad(base + M / 2)];
              nrf::split(zh, zh, __ldg(tw + M / 2), lo, hi);
              planes::st(rre + row + M / 2, lo.x);

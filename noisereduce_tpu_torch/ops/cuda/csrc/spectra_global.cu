@@ -7,7 +7,7 @@
 // Replaces: noisereduce_tpu/ops/pallas/kernels.py::_spectra_phases (:152),
 // as spectra_fft.cu does; the TPU kernel takes any n_fft as a DFT product
 // on its matrix unit (noisereduce_tpu/ops/pallas/geometry.py:75). Before
-// this route such an n_fft took the product route here (spectra.cu), whose
+// this route such an n_fft took a DFT-product route here (since retired), whose
 // n_fft x n_fft table (6.4 GB at 40005, 147 GB at 192000) and O(n_fft) work
 // a bin do not scale; past about n_fft 146,000 the table alone does not fit
 // the card.

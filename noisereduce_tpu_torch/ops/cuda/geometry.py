@@ -8,24 +8,27 @@ None of that exists here. The kernels work on exact (rows, n_frames,
 n_bins) planes in device memory, and both time and bins are tiled by the
 launch shapes below:
 
-- A ``spectra`` and D ``istft_ola`` take one of six routes
+- A ``spectra`` and D ``istft_ola`` take one of five routes
   (``kernels.py::ROUTES``), chosen by the geometry alone (``fft_route``,
   the same rules as ``csrc/fft_route.cuh``). A frame's transform has n
   complex points, n_fft/2 for an even n_fft (even samples real, odd
-  imaginary) and n_fft for an odd one (two frames a transform). For an
-  n_fft from ``FFT_MIN_NFFT`` to ``FFT_MAX_NFFT``: the FFT route when n has no prime
-  factor above 13, or, within a block of ``FFT_ELEMS`` points, none above
-  31 (``LARGE_RADICES``), shared-memory mixed-radix FFTs
-  (``csrc/fft_smem.cuh``; an even n_fft whose half is 2^k 3^a 5^b 7^c in
-  the real-FFT kernels ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu``,
-  the rest in the complex-frame kernels ``csrc/spectra_cplx.cu`` /
+  imaginary) and n_fft for an odd one (two frames a transform). For any
+  n_fft: the FFT route when n has no prime factor above 13, or, within a
+  block of ``FFT_ELEMS`` points, none above 31 (``LARGE_RADICES``),
+  shared-memory mixed-radix FFTs (``csrc/fft_smem.cuh``; an even n_fft
+  whose half is 2^k 3^a 5^b 7^c in the real-FFT kernels
+  ``csrc/spectra_fft.cu`` / ``csrc/istft_fft.cu``, the rest in the
+  complex-frame kernels ``csrc/spectra_cplx.cu`` /
   ``csrc/istft_cplx.cu``);
   the chirp-z route for any other n whose chirp length ``chirp_length``
   (the smallest 2^a 3^b >= 2n - 1, or 8192) fits a big block, in the
   complex-frame kernels. Each kernel takes frame slots of n points (the
   chirp's L), A in tiles of ``fft_tile_frames`` frames, D in runs of
   ``fft_run`` output hop blocks, each block's threads in segments of
-  ``fft_seg_warps`` warps. Past a block (4096 points): the cluster route
+  ``fft_seg_warps`` warps; a frame of fewer than ``SMALL_NFFT`` samples
+  (n of 1 to 63 points, up to 4,096 slots a block) takes D runs that grow
+  with the group, so that a block inverts about as many frames as it
+  holds slots. Past a block (4096 points): the cluster route
   for a 13-smooth n with a cluster shape (``cluster_shape``: a four-step
   FFT over a thread block cluster, ``csrc/fft_cluster.cuh``; a big block
   for one below 8192 points without), from 8192 points the cluster chirp
@@ -34,11 +37,9 @@ launch shapes below:
   FFT); past it the global chirp route for any n to 8,388,608 points (a
   chirp length from ``global_chirp_lengths``, L = L1 L2 each within a
   block, ``global_split``: a four-step FFT in passes of ordinary blocks
-  through a scratch in device memory, ``csrc/fft_global.cuh``). An n_fft
-  below 64 takes implicit matrix products tiled 128 x ``GEMM_BN`` x
-  ``GEMM_BK`` (frames x DFT columns x window samples for A; output hop
-  blocks x hop x shifted bins for D); an n past 8,388,608 points no
-  kernel (``kernels_supported``: the staged twins take it).
+  through a scratch in device memory, ``csrc/fft_global.cuh``). An n past
+  8,388,608 points has no route (``kernels_supported``: the staged twins
+  take it).
 - B ``nonstationary_mask``, E ``stationary_mask`` and F
   ``torch_nonstationary_mask`` cut each (row, bin) column's time axis into
   segments of ``SEG_B`` / ``SEG_E`` / ``SEG_F`` frames (``TimeTilePlan``,
@@ -85,10 +86,6 @@ import math
 
 from noisereduce_tpu_torch.config import Convention, StftConfig
 
-# tile shape of csrc/gemm_tile.cuh (must match its constants): the constant
-# tables are zero padded to it
-GEMM_BN = 128
-GEMM_BK = 8
 # the FFT route (csrc/fft_smem.cuh, must match its constants): complex
 # values a block holds, its threads, and the output samples one run of
 # kernel D sums
@@ -97,12 +94,14 @@ FFT_THREADS = 512
 FFT_WARPS = FFT_THREADS // 32
 FFT_WARP_POINTS = FFT_ELEMS // FFT_WARPS  # points a warp's threads hold
 FFT_ACC = 8192
-FFT_RUN = 32  # output hop blocks a run of kernel D covers at most
+FFT_RUN = 32  # output hop blocks a run of kernel D covers at most, from SMALL_NFFT up
+# an n_fft below this (a frame of 1 to 63 samples, up to 4,096 frames a
+# block) takes runs of kernel D that grow with its group (``fft_run``)
+SMALL_NFFT = 64
 # a big block of the complex-frame kernels (fft_smem.cuh::Blk<true>): one
 # slot of 4097 to 8192 points, 1024 threads
 FFT_BIG_ELEMS = 8192
 FFT_BIG_WARPS = FFT_BIG_ELEMS // FFT_WARP_POINTS
-FFT_MIN_NFFT = 64
 REAL_MAX_NFFT = 2 * FFT_ELEMS  # the real-FFT kernels' largest n_fft
 # the cluster route (csrc/fft_cluster.cuh): at most this many big blocks a
 # cluster, so n to CLUSTER_MAX * FFT_BIG_ELEMS points (n_fft 131072)
@@ -159,14 +158,14 @@ def _round_up(a: int, m: int) -> int:
 def kernels_supported(scfg: StftConfig, n_freq_taps: int = 1) -> bool:
     """Whether the kernels serve this STFT geometry, in either convention,
     with ``n_freq_taps`` frequency taps: a hop that divides the analysis
-    frame, an n_fft that the product route takes only below FFT_MIN_NFFT
-    (an n past GLOBAL_MAX_L / 2 points, n_fft 8,388,609 odd or 16,777,218
-    even and up, would need its n_fft^2 tables: the staged twins take it),
-    and a line of bins that kernel C's plan holds with those taps
-    (``freq_smooth_fits``: every line with up to about 14,000 taps, whole
-    or in pieces). n_grad_time and n_movemean are unbounded."""
+    frame, an n_fft that has a route (``fft_route``: every n of at most
+    GLOBAL_MAX_L / 2 points; an n past it, n_fft 8,388,609 odd or
+    16,777,218 even and up, goes to the staged twins), and a line of bins
+    that kernel C's plan holds with those taps (``freq_smooth_fits``:
+    every line with up to about 14,000 taps, whole or in pieces).
+    n_grad_time and n_movemean are unbounded."""
     return (scfg.frame_length % scfg.hop_length == 0
-            and (scfg.n_fft < FFT_MIN_NFFT or fft_route(scfg) != "product")
+            and fft_route(scfg) is not None
             and freq_smooth_fits(scfg.n_bins, n_freq_taps))
 
 
@@ -184,32 +183,30 @@ def fft_n(n_fft: int) -> int:
     return n_fft if n_fft % 2 else n_fft // 2
 
 
-def fft_route(scfg: StftConfig) -> str:
+def fft_route(scfg: StftConfig):
     """Kernels A and D's route for this geometry (``csrc/fft_route.cuh``),
-    from n = ``fft_n``: "fft" for an n_fft of at least FFT_MIN_NFFT whose n
-    has no prime factor above 13 and fits a block of FFT_ELEMS points
-    (1024, 1536, 400, 1100, 441, 1323, ...) or is below a big block's
-    FFT_BIG_ELEMS with no cluster shape (8580, 5005, ...), or none above
-    31 and fits a block (1102: n = 551 = 19 x 29, 493 = 17 x 29, ...);
-    "cluster" for such a 13-smooth n past a block that takes a cluster
-    shape (``cluster_shape``: 12000, 16380, 16384, 40000, 32768, ...); "chirp"
-    for any other n whose chirp length fits a big block (an n to 4096 with
-    a prime factor above 31: 1101, 4106, ...); "cluster_chirp" for any
-    other n of at most CHIRP_MAX_N points, a chirp-z transform whose
-    length takes a cluster shape (4803, 16386, 16940, 65534, ...);
-    "global_chirp" for any other n whose 2n - 1 fits GLOBAL_MAX_L, a
-    chirp-z transform over a four-step FFT through device memory (40005,
-    65538, 192000, ...); "product" for the rest: n_fft below 64, an n past
-    GLOBAL_MAX_L / 2 points."""
+    from n = ``fft_n``: "fft" for an n with no prime factor above 13 that
+    fits a block of FFT_ELEMS points (2, 40, 1024, 1536, 400, 1100, 441,
+    1323, odd 3, 63, ...) or is below a big block's FFT_BIG_ELEMS with no
+    cluster shape (8580, 5005, ...), or none above 31 that fits a block
+    (1102: n = 551 = 19 x 29, 493 = 17 x 29, 34 = 2 x 17, 62 = 2 x 31,
+    ...); "cluster" for such a 13-smooth n past a block that takes a
+    cluster shape (``cluster_shape``: 12000, 16380, 16384, 40000, 32768,
+    ...); "chirp" for any other n whose chirp length fits a big block (an
+    n to 4096 with a prime factor above 31: 1101, 4106, odd 37 to 61 of
+    the primes, ...); "cluster_chirp" for any other n of at most
+    CHIRP_MAX_N points, a chirp-z transform whose length takes a cluster
+    shape (4803, 16386, 16940, 65534, ...); "global_chirp" for any other n
+    whose 2n - 1 fits GLOBAL_MAX_L, a chirp-z transform over a four-step
+    FFT through device memory (40005, 65538, 192000, ...); None for an n
+    past GLOBAL_MAX_L / 2 points, which no kernel takes."""
     return _route_of(scfg.n_fft)
 
 
 # Cached, as _fft_layout: every launch of A and D reads them, and a short
 # launch waits for the host.
 @functools.lru_cache(maxsize=None)
-def _route_of(n_fft: int) -> str:
-    if n_fft < FFT_MIN_NFFT:
-        return "product"
+def _route_of(n_fft: int):
     n = fft_n(n_fft)
     if _strip(n, FFT_RADICES) == 1:
         if cluster_shape(n):
@@ -222,7 +219,7 @@ def _route_of(n_fft: int) -> str:
         return "chirp"
     if n <= CHIRP_MAX_N:
         return "cluster_chirp"
-    return "global_chirp" if 2 * n - 1 <= GLOBAL_MAX_L else "product"
+    return "global_chirp" if 2 * n - 1 <= GLOBAL_MAX_L else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -275,8 +272,8 @@ def cluster_build(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def real_kernel(n_fft: int) -> bool:
     """Whether the real-FFT kernels serve n_fft on the FFT route: even,
-    from FFT_MIN_NFFT to REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c."""
-    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= REAL_MAX_NFFT
+    from 2 to REAL_MAX_NFFT, its half 2^k 3^a 5^b 7^c."""
+    return (n_fft % 2 == 0 and 2 <= n_fft <= REAL_MAX_NFFT
             and _strip(n_fft // 2, REAL_RADICES) == 1)
 
 
@@ -756,15 +753,26 @@ class GateGeometry:
     def fft_run(self) -> int:
         """Output hop blocks of one row a block of kernel D writes on the
         FFT and chirp routes (the cluster routes have no runs:
-        ``cluster_frames``): at most FFT_RUN and FFT_ACC samples. The
-        real-FFT kernel's run is the longest within that whose run + r - 1
-        frames fill whole groups of ``fft_tile_frames``, where one does (29
-        at hop 256, r 4, groups of 8: 4 groups, where 32 took a fifth for 3
-        frames; 17 at 1536 / 384)."""
-        run = max(1, min(FFT_RUN, FFT_ACC // self.hop))
+        ``cluster_frames``): at most FFT_ACC samples, and at most FFT_RUN
+        hop blocks from SMALL_NFFT up. The real-FFT kernel's run is the
+        longest within that whose run + r - 1 frames fill whole groups of
+        ``fft_tile_frames``, where one does (29 at hop 256, r 4, groups of
+        8: 4 groups, where 32 took a fifth for 3 frames; 17 at 1536 / 384).
+        Below SMALL_NFFT a group holds 64 to 8,192 frames, so the run
+        grows with it: the run plus r - 1 halo frames (and, for an odd
+        n_fft, whose groups start at an even frame, one more) fill whole
+        groups, the fewest in which the halo takes at most half: 201 at
+        n_fft 40 / hop 10 (one group of 204), 4,095 at 2 / 1 (4,096), 67
+        at odd 61 / 1 (two of 64, the chirp)."""
+        cap = FFT_ACC // self.hop
+        group, halo = self.fft_tile_frames, self.r - 1
+        if self.n_fft < SMALL_NFFT:
+            halo += 1 if self.fft_paired else 0
+            groups = max(1, -(-2 * halo // group))
+            return max(1, min(cap, groups * group - halo))
+        run = max(1, min(FFT_RUN, cap))
         if not self.fft_real:
             return run
-        group, halo = self.fft_tile_frames, self.r - 1
         whole = (run + halo) // group * group - halo
         return whole if whole >= 1 else run
 
@@ -788,33 +796,6 @@ class GateGeometry:
         or of the chirp length on the cluster chirp route)."""
         return cluster_shape(self.fft_layout()[0])
 
-    # ---- kernel A, product route: analysis table (k_a x cols_a), row n =
-    # window sample
-    @property
-    def k_a(self) -> int:
-        return _round_up(self.win, GEMM_BK)
-
-    @property
-    def cols_a(self) -> int:
-        """re columns [0, n_bins), im columns [n_bins, 2*n_bins), padded."""
-        return _round_up(2 * self.n_bins, GEMM_BN)
-
-    # ---- kernel D, product route: synthesis table (r * f2 x cols_d), row
-    # i*f2 + col
-    @property
-    def f2(self) -> int:
-        """Per-shift contraction width: re and im bins, padded to GEMM_BK so
-        a K tile never straddles two shifts."""
-        return _round_up(2 * self.n_bins, GEMM_BK)
-
-    @property
-    def k_d(self) -> int:
-        return self.r * self.f2
-
-    @property
-    def cols_d(self) -> int:
-        return _round_up(self.hop, GEMM_BN)
-
     def out_blocks(self, out_off: int, out_len: int) -> tuple:
         """(first hop block, count) of the OLA blocks that cover trimmed
         output samples [out_off, out_off + out_len)."""
@@ -828,7 +809,7 @@ def gate_geometry(scfg: StftConfig, view_len: int) -> GateGeometry:
     if not kernels_supported(scfg):
         raise NotImplementedError(
             "the kernels need a hop that divides the analysis frame and an "
-            f"n_fft below {FFT_MIN_NFFT} or off the product route (got "
+            "n_fft whose transform has at most 8,388,608 points (got "
             f"n_fft={scfg.n_fft}, frame_length={scfg.frame_length}, hop={scfg.hop_length}, "
             f"convention={scfg.convention!r}); see ROADMAP.md, Queue 6"
         )

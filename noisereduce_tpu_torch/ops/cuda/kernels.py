@@ -30,29 +30,31 @@ G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
-Each has six routes, picked by the geometry alone
+Each has five routes, picked by the geometry alone
 (``geometry.fft_route``, the rules of ``csrc/fft_route.cuh``; a frame's
 transform has n = n_fft/2 complex points, or n_fft for an odd n_fft, two
 frames a transform):
 
-- "fft": an n_fft of at least 64 whose n has no prime factor above 13 and
-  fits a block (4096 points) or is below a big block's 8192 points with
-  no cluster shape (8580, odd 5005), or none above 31 and fits a block,
+- "fft": an n_fft whose n has no prime factor above 13 and fits a block
+  (4096 points) or is below a big block's 8192 points with no cluster
+  shape (8580, odd 5005), or none above 31 and fits a block,
   shared-memory mixed-radix FFTs: ``csrc/spectra_fft.cu`` and
   ``csrc/istft_fft.cu`` for an even n_fft to 8192 whose half is 2^k 3^a
-  5^b 7^c, ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu`` (the
-  complex-frame kernels) for the rest (1100, 441, 1323, 8580; 1102 and
-  493 with radices 17 to 31, ...), A's builds and D's real-FFT builds as
-  persistent blocks that walk A's tiles or D's runs, as many as
-  ``real_capacity`` or ``cplx_capacity`` says the card holds;
+  5^b 7^c (2, 40, 1024, 1536, ...), ``csrc/spectra_cplx.cu`` and
+  ``csrc/istft_cplx.cu`` (the complex-frame kernels) for the rest (1100,
+  441, 1323, 8580, odd 3 and 63; 1102, 493, 34 and 62 with radices 17 to
+  31, ...), A's builds and D's real-FFT builds as persistent blocks that
+  walk A's tiles or D's runs, as many as ``real_capacity`` or
+  ``cplx_capacity`` says the card holds; an n_fft below 64 (n of 1 to 31
+  points, or 63 odd) in tiles and runs of up to a few thousand frames;
 - "cluster": such an n past a block with a cluster shape, to 65,536
   points (``geometry.cluster_shape``), a four-step FFT across a thread
   block cluster's shared memory: ``csrc/spectra_cluster.cu`` and
   ``csrc/istft_cluster.cu`` (12000, 16380, 16384, 40000, 32768, ...);
 - "chirp": any other n whose chirp length fits a big block (n to 4096
-  with a prime factor above 31: 1101, 4106, ...), a chirp-z transform in
-  the complex-frame kernels, its chirp and filter
-  spectrum host tables built in float64 (``_chirp_np``,
+  with a prime factor above 31: 1101, 4106, odd 37 to 61 of the primes,
+  ...), a chirp-z transform in the complex-frame kernels, its chirp and
+  filter spectrum host tables built in float64 (``_chirp_np``,
   ``_chirp_filter_np``);
 - "cluster_chirp": any other n to 32,768 points (an n with a prime factor
   above 13 past 4096 points, a 13-smooth n past a big block with no
@@ -73,21 +75,20 @@ frames a transform):
   ``csrc/fft_global.cuh``), a group of slots a launch of each pass
   (``geometry.global_group``), the filter spectrum and the four-step
   twiddles laid out in the passes' order (``_global_chirp_filter_np``,
-  ``_global_twiddle_np``);
-- "product": the rest (n_fft below 64), the DFT products
-  ``csrc/spectra.cu`` and ``csrc/istft_ola.cu``, whose n_fft x n_fft
-  tables are built on the card (``_analysis_table``, ``_synthesis_table``).
+  ``_global_twiddle_np``).
 
+An n past 8,388,608 points has no route: ``geometry.kernels_supported``
+refuses it, and the staged twins take it.
 No route is tried after another fails.
 
 Each wrapper takes its plain version (``*_ref``, the plain version of
-both routes) for a tensor on the CPU and only then. For a CUDA tensor it
+every route) for a tensor on the CPU and only then. For a CUDA tensor it
 launches its kernel (sources in ``csrc/``, built by ``build.py``) or
 raises; it never falls back. Each wrapper counts its launches in an
 integer attribute ``launches``, and A and D also by route in
 ``fft_launches``, ``chirp_launches``, ``cluster_launches``,
-``cluster_chirp_launches``, ``global_chirp_launches`` and
-``product_launches`` (``route_counts``),
+``cluster_chirp_launches`` and ``global_chirp_launches``
+(``route_counts``),
 and G in ``resident_launches``
 and ``tiled_launches``, every kernel by its planes' dtype in
 ``dtype_launches``
@@ -223,65 +224,6 @@ def _wsum(scfg) -> float:
     return float(w.sum()) if scfg.convention == Convention.SCIPY else 1.0
 
 
-# rows of an n_fft x n_fft table built at once: bounds the float64 angles
-# on the card to about this many rows times the table's columns
-_TABLE_ROWS = 1024
-
-
-def _angles(a: torch.Tensor, b: torch.Tensor, n_fft: int) -> torch.Tensor:
-    """2 pi (a b mod n_fft) / n_fft in float64 for integer tensors a, b
-    (broadcast): the product reduced exactly in integers, so the angle is
-    that of the table's exact phase, rounded once."""
-    return (a * b % n_fft).to(torch.float64) * (2.0 * math.pi / n_fft)
-
-
-def _analysis_table(scfg, device, dtype=torch.float32) -> torch.Tensor:
-    """(k_a, cols_a) on ``device``: row n = frame sample, columns
-    [0, n_bins) = w[n] cos(2 pi k n / N) s, [n_bins, 2 n_bins) =
-    -w[n] sin(...) s, with s = 1 / sum w for scipy and 1 for torch; zero
-    padded. Built on the device in row blocks of float64 angles and
-    values, then rounded to ``dtype``: no host array of the table's size.
-    The tables depend on the STFT geometry only, hence a view length of 0."""
-    geo = GateGeometry(scfg, 0)
-    F_, N = geo.n_bins, geo.n_fft
-    ws = torch.as_tensor(_analysis_window_np(scfg) / _wsum(scfg), device=device)
-    k = torch.arange(F_, device=device)[None, :]
-    tab = torch.zeros((geo.k_a, geo.cols_a), dtype=dtype, device=device)
-    for n0 in range(0, geo.win, _TABLE_ROWS):
-        n = torch.arange(n0, min(geo.win, n0 + _TABLE_ROWS), device=device)
-        ang, w = _angles(n[:, None], k, N), ws[n][:, None]
-        tab[n, :F_] = (w * torch.cos(ang)).to(dtype)
-        tab[n, F_ : 2 * F_] = (-w * torch.sin(ang)).to(dtype)
-    return tab
-
-
-def _synthesis_table(scfg, device, dtype=torch.float32) -> torch.Tensor:
-    """(r * f2, cols_d) on ``device``: row i*f2 + c, column q, with u =
-    i*hop + q: c < n_bins: c_k cos(2 pi k u / N) / N * post[u] (k = c);
-    n_bins <= c < 2 n_bins: -c_k sin(...) / N * post[u] (k = c - n_bins);
-    c_k = 1 at DC and Nyquist, else 2 (irfft's Hermitian weights);
-    post = w * sum w for scipy (its istft rescales by sum w) and w for
-    torch. Built on the device, one frame shift i and a block of bins at a
-    time, in float64, then rounded to ``dtype``."""
-    geo = GateGeometry(scfg, 0)
-    N, F_, hop, f2 = geo.n_fft, geo.n_bins, geo.hop, geo.f2
-    w = torch.as_tensor(_analysis_window_np(scfg) * (_wsum(scfg) / N), device=device)
-    tab = torch.zeros((geo.r * f2, geo.cols_d), dtype=dtype, device=device)
-    for i in range(geo.r):
-        u = torch.arange(i * hop, (i + 1) * hop, device=device)[None, :]
-        post = w[u]
-        for k0 in range(0, F_, _TABLE_ROWS):
-            k = torch.arange(k0, min(F_, k0 + _TABLE_ROWS), device=device)[:, None]
-            ck = torch.where((k == 0) | ((k == F_ - 1) & (N % 2 == 0)), 1.0, 2.0)
-            ang = _angles(k, u, N)
-            rows = i * f2 + k[:, 0]
-            tab[rows, :hop] = (ck * torch.cos(ang) * post).to(dtype)
-            # irfft ignores the imaginary DC part, and the imaginary Nyquist part
-            sin = torch.where(ck == 1.0, 0.0, -ck * torch.sin(ang) * post)
-            tab[rows + F_, :hop] = sin.to(dtype)
-    return tab
-
-
 @functools.lru_cache(maxsize=None)
 def _twiddle_np(n_fft: int) -> np.ndarray:
     """(n_fft, 2) float64: tw[k] = e^{-2 pi i k / n_fft} as (re, im), with
@@ -396,7 +338,6 @@ def _interior_envelope_np(scfg) -> np.ndarray:
 
 
 _TABLES = {
-    "window": _analysis_window_np,
     "twiddle": _twiddle_np,  # key: the table's length
     "chirp": _chirp_np,  # key: n
     "chirp_filter": _chirp_filter_np,  # key: (n, L)
@@ -411,28 +352,22 @@ _TABLES = {
 }
 
 
-# the card's constant tables, built on the card: the product route's
-_CARD_TABLES = {"analysis": _analysis_table, "synthesis": _synthesis_table}
 # the bytes the device-table cache keeps at most: a table past it is built
-# for its call and dropped (the product route's n_fft x n_fft tables past
-# about n_fft 5000), so a long-frame call pins no gigabytes
+# for its call and dropped (the global chirp route's tables of a chirp
+# length of a few million points), so a long-frame call pins no gigabytes
 _CACHE_BYTES = 1 << 28
 _cache: "collections.OrderedDict" = collections.OrderedDict()
 
 
 def _device_f32(kind: str, key, device: torch.device) -> torch.Tensor:
-    """A constant table as a float32 tensor on ``device``: a linear one
-    built from its float64 host values (``_TABLES``), an n_fft x n_fft
-    one on the card (``_CARD_TABLES``). Kept while the cached tables stay
+    """A constant table as a float32 tensor on ``device``, built from its
+    float64 host values (``_TABLES``). Kept while the cached tables stay
     within ``_CACHE_BYTES``, the least recently used dropped first."""
     at = (kind, key, device)
     if at in _cache:
         _cache.move_to_end(at)
         return _cache[at]
-    if kind in _CARD_TABLES:
-        t = _CARD_TABLES[kind](key, device)
-    else:
-        t = torch.as_tensor(_TABLES[kind](key), dtype=torch.float32).to(device).contiguous()
+    t = torch.as_tensor(_TABLES[kind](key), dtype=torch.float32).to(device).contiguous()
     size = t.numel() * t.element_size()
     if size <= _CACHE_BYTES:
         _cache[at] = t
@@ -609,14 +544,7 @@ def _spectra_on(route, x, geo: GateGeometry, chunk_size=0, padding=0, chunks=Non
     views = (n_src, rows, n_chunks, chunk_size, first * chunk_size - padding - src_start,
              geo.view_len, T, geo.hop, geo.bpad, geo.win)
     dev = x.device
-    if route == "product":
-        _check_size("spectra", B * T, -(-B * T // 128) * (geo.cols_a // 128))
-        tab = _device_f32("analysis", geo.scfg, dev)
-        _launch(
-            "spectra", dev, plane, _ptr(x), *views, nb, _ptr(tab), geo.cols_a,
-            geo.k_a, _ptr(re), _ptr(im),
-        )
-    elif route == "global_chirp":
+    if route == "global_chirp":
         slots = -(-T // 2) if geo.fft_paired else T
         _check_size("spectra", B * T, B * slots)
         group, scratch = _global_scratch(geo, B * slots, group, dev)
@@ -811,18 +739,7 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len, grou
     j0, n_out = geo.out_blocks(out_off, out_len)
     out = torch.empty((rows, out_len), dtype=re.dtype, device=re.device)
     dev = re.device
-    if route == "product":
-        _check_size(
-            "istft_ola", rows * n_out, -(-rows * n_out // 128) * (geo.cols_d // 128)
-        )
-        tab = _device_f32("synthesis", geo.scfg, dev)
-        win = _device_f32("window", geo.scfg, dev)
-        _launch(
-            "istft_ola", dev, plane, _ptr(re), _ptr(im), _ptr(mask), _ptr(win),
-            _ptr(tab), geo.cols_d, geo.f2, rows, T, nb, geo.hop, geo.r, geo.bpad,
-            j0, n_out, out_off, out_len, geo.istft_len, geo.env_floor, _ptr(out),
-        )
-    elif route == "global_chirp":
+    if route == "global_chirp":
         t_lo, n_fr = geo.cluster_frames(j0, n_out)
         slots = rows * -(-n_fr // (2 if geo.fft_paired else 1))
         _check_size("istft_ola", rows * T * nb, slots, rows * n_out * geo.hop)
@@ -1152,7 +1069,7 @@ def _fm_constants(b: float, lane_len: int, short: int, tile_len: int, last_tile:
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
            stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
 ROUTED = (spectra, istft_ola)  # the kernels with routes
-ROUTES = ("fft", "chirp", "cluster", "cluster_chirp", "global_chirp", "product")
+ROUTES = ("fft", "chirp", "cluster", "cluster_chirp", "global_chirp")
 FM_ROUTES = ("resident", "tiled")  # kernel G's routes
 
 
@@ -1188,8 +1105,8 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches of kernels A and D by route, e.g. {"spectra": {"fft": 1,
-    "chirp": 0, "cluster": 0, "cluster_chirp": 0, "global_chirp": 0,
-    "product": 0}, "istft_ola": {...}}."""
+    "chirp": 0, "cluster": 0, "cluster_chirp": 0, "global_chirp": 0},
+    "istft_ola": {...}}."""
     return {fn.__name__: {route: getattr(fn, f"{route}_launches") for route in ROUTES}
             for fn in ROUTED}
 

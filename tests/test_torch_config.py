@@ -176,9 +176,11 @@ def test_build_lists_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     from noisereduce_tpu_torch.ops.cuda import build
 
     names = {p.name for p in build.sources()}
-    assert {"spectra.cu", "nonstationary_mask.cu", "freq_smooth_blend.cu",
-            "istft_ola.cu", "stationary_mask.cu", "torch_nonstationary_mask.cu",
-            "fm_nonstationary_mask.cu", "gemm_tile.cuh"} <= names
+    assert {"spectra_fft.cu", "nonstationary_mask.cu", "freq_smooth_blend.cu",
+            "istft_fft.cu", "stationary_mask.cu", "torch_nonstationary_mask.cu",
+            "fm_nonstationary_mask.cu", "fft_smem.cuh"} <= names
+    # the retired DFT-product route's sources are gone
+    assert not {"spectra.cu", "istft_ola.cu", "gemm_tile.cuh"} & names
     assert build.library_path().parent.parent == build.BUILD_ROOT
     if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("a CUDA toolkit is installed")

@@ -32,7 +32,11 @@ twin's at 5e-5 x scale. Kernels A and D are held on each of their routes
 real-FFT kernels and of 1100, 1040, 441, 1323 and 5005 in the
 complex-frame kernels, and of 1102, 493, 1235, 1426, 1218, 1088 and 2040
 with the large radices 17 to 31; the chirp-z route of 1101, 2036, 2035
-and 4106; the product route of 40; the big blocks' persistent walk at
+and 4106; the frames below 64 samples, 1 to 63 (2, 4, 16 and 40 in the
+real-FFT kernels, tiles of 204 to 4,096 frames and runs that grow with
+them, D's output allocated over NaN; odd 1, 3 and 63, 34 and 62 with
+radix 17 and 31; the chirp-z route of 37 and 61), in float32 and bf16;
+the big blocks' persistent walk at
 8580, 10010, 5005 and 4106; 16384, 16380, 12000 and 4851 on the cluster
 route), and every path is checked to launch them on its
 geometry's route only. A float64 card tensor runs the staged twins, within
@@ -624,7 +628,7 @@ def test_masks_under_grad_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# kernels A and D: the FFT, chirp-z and product routes
+# kernels A and D: the FFT and chirp-z routes
 # ---------------------------------------------------------------------------
 ROUTE_GEOMS = [dict(n_fft=512, hop_length=128), dict(n_fft=1024, hop_length=256),
                dict(n_fft=2048, win_length=1024, hop_length=256),
@@ -663,7 +667,8 @@ def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
     17), 105 (1218 = 2 3 7 29) and 15015 (odd 1235 = 5 13 19); 1101 = 3 x
     367, 2036 = 2^2 509, 2035 = 5 11 37 and 4106 = 2 x 2053 the chirp-z,
     4801 (prime), 4803 = 3 x 1601 and 8194 = 2 x 17 x 241 the cluster
-    chirp, 40 the product); each launch is counted on its route; every
+    chirp, 40 = 2^3 5 the FFT in the real-FFT kernels); each launch is
+    counted on its route; every
     route holds its plain versions at 2e-5 x max|ref| (1e-5 under torch
     conventions). The chirp lengths: 2304 (2^a 3^b), 2048 and 4096 (powers
     of two within a block), 8192 (a big block), 9720 (2^3 3^5 5 over 2
@@ -685,9 +690,6 @@ def test_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention):
         assert _max(y - ry) <= tol * _max(ry)
     assert K.route_counts() == {"spectra": _routes(route)["spectra"],
                                 "istft_ola": _routes(route, 3)["istft_ola"]}
-    if route != "product":  # the product route serves every geometry the kernels take
-        y = K._istft_ola_on("product", re, im, mask, geo, 1500, 8000)
-        assert _max(y - K.istft_ola_ref(re, im, mask, geo, 1500, 8000)) <= tol * _max(y)
 
 
 @pytest.mark.gpu
@@ -727,7 +729,7 @@ def test_odd_istft_output_does_not_depend_on_the_run(cuda, kw):
     (dict(n_fft=1235, hop_length=247, use_torch=True), "fft"),
     (dict(n_fft=1101, hop_length=367), "chirp"),
     # n_fft 40 at 16 kHz: bins 400 Hz apart, so a wider frequency smoothing
-    (dict(n_fft=40, hop_length=10, freq_mask_smooth_hz=1000), "product"),
+    (dict(n_fft=40, hop_length=10, freq_mask_smooth_hz=1000), "fft"),
     # n_fft 4803 at 16 kHz: a hop of 100 ms, so a wider time smoothing
     (dict(n_fft=4803, hop_length=1601, time_mask_smooth_ms=200), "cluster_chirp"),
     (dict(n_fft=4803, hop_length=1601, time_mask_smooth_ms=200, stationary=True),
@@ -744,7 +746,7 @@ def test_paths_take_the_route_of_their_geometry(cuda, kw, route):
     """A path launches A and D on its geometry's route only (1024, 1536,
     400, 1100 and 441 the FFT route, 1102 and 1235 too with the large
     radices on all three engines, 1101 the chirp-z route, 4803 the cluster
-    chirp route, 40 the product route); the output matches the CPU parity
+    chirp route, 40 the FFT route); the output matches the CPU parity
     mode within 5e-5 x max|ref| (a stationary one: finite, of its shape)."""
     y = np.random.default_rng(25).standard_normal((2, 30000))
     K.reset_launch_counts()
@@ -1064,12 +1066,6 @@ def test_bf16_spectra_and_istft_routes_match_plain_versions(cuda, kw, convention
                                 "istft_ola": _routes(route, 3)["istft_ola"]}
     assert K.dtype_counts()["spectra"] == {"float32": 0, "bfloat16": 1}
     assert K.dtype_counts()["istft_ola"] == {"float32": 0, "bfloat16": 3}
-    if route != "product":  # the product route's bf16 build at the same shapes
-        y = K._istft_ola_on("product", re, im, mask, geo, 1500, 8000)
-        _hold_bf16(y, K.istft_ola_ref(re, im, mask, geo, 1500, 8000), tol)
-        pre, pim = K._spectra_on("product", x, geo, 8000, 1500)
-        _hold_bf16(pre, rre, tol)
-        _hold_bf16(pim, rim, tol)
 
 
 # ---------------------------------------------------------------------------
@@ -1131,8 +1127,8 @@ def test_long_frame_routes_match_plain_versions(cuda, name, convention):
     16940 and 65534 on the cluster chirp route (2, 2, 3, 3 and 8 blocks);
     40005, 65538 and 192000 on the global chirp route;
     A and D within the FFT cells' bounds of their plain versions (2e-5 x
-    max|ref|, 1e-5 under torch conventions), every launch on that route
-    (none on the product route), bitwise from call to call."""
+    max|ref|, 1e-5 under torch conventions), every launch on that route,
+    bitwise from call to call."""
     geo, x, cs, pad = _long_case(name, convention, cuda)
     tol = 2e-5 if convention == "scipy" else 1e-5
     K.reset_launch_counts()
@@ -1374,6 +1370,78 @@ def test_real_istft_writes_every_sample_past_the_end(cuda, name, dtype):
             assert _max(y - ry) <= 2e-5 * _max(ry)
 
 
+# frames below 64 samples: (STFT keywords, the route). 2, 4, 16 and 40 on
+# the real-FFT kernels (M = 1: no stage, 4,096 frames a tile; 2; 8; 20 =
+# 2^2 5, 204 frames); odd 1 (one point, two frames a slot), 3 (2,730 frames
+# a tile) and 63 = 3^2 7, 34 and 62 (radix 17 and 31, stage_large) on the
+# complex-frame kernels; the chirp at odd primes 37 (L = 81) and 61 (L =
+# 128, D's runs over two groups); hops of 1 to 31
+SMALL_GEOMS = {
+    "nfft1-r1": (dict(n_fft=1, hop_length=1), "fft"),
+    "nfft2-r2": (dict(n_fft=2, hop_length=1), "fft"),
+    "nfft2-r1": (dict(n_fft=2, hop_length=2), "fft"),
+    "nfft3-r3": (dict(n_fft=3, hop_length=1), "fft"),
+    "nfft4-r4": (dict(n_fft=4, hop_length=1), "fft"),
+    "nfft16-r4": (dict(n_fft=16, hop_length=4), "fft"),
+    "nfft34-r2": (dict(n_fft=34, hop_length=17), "fft"),
+    "nfft37-r37": (dict(n_fft=37, hop_length=1), "chirp"),
+    "nfft40-r4": (dict(n_fft=40, hop_length=10), "fft"),
+    "nfft61-r61": (dict(n_fft=61, hop_length=1), "chirp"),
+    "nfft62-r2": (dict(n_fft=62, hop_length=31), "fft"),
+    "nfft63-r3": (dict(n_fft=63, hop_length=21), "fft"),
+}
+# scipy's periodic Hann window of one sample is 0 (its spectra divide by
+# the window's sum): n_fft 1 under torch conventions only
+SMALL_CASES = [(name, conv) for name in SMALL_GEOMS for conv in ("scipy", "torch")
+               if (name, conv) != ("nfft1-r1", "scipy")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name,convention", SMALL_CASES,
+                         ids=[f"{n}-{c}" for n, c in SMALL_CASES])
+def test_small_frames_match_plain_versions(cuda, name, convention, dtype):
+    """A and D at n_fft 1 to 63 (``SMALL_GEOMS``: tiles and groups of 64 to
+    8,192 frames, D's runs grown with them, ``geometry.fft_run``) on 2 rows
+    in chunks of 8000 with 1500 of padding, in float32 and bf16, against
+    their plain versions: 2e-5 x max|ref| (1e-5 under torch conventions),
+    a bf16 element within one bf16 ulp more. D on windows inside the
+    views, over them whole and past their end (by whole runs), its output
+    allocated over NaN: every sample written, zero past the istft length.
+    Each launch counted on the geometry's route, in the planes' dtype."""
+    kw, route = SMALL_GEOMS[name]
+    extra = {} if convention == "scipy" else dict(convention="torch", quantize_window_f32=True)
+    geo = gate_geometry(StftConfig(**kw, **extra), 8000 + 2 * 1500)
+    assert geo.route == fft_route(geo.scfg) == route
+    tol = 2e-5 if convention == "scipy" else 1e-5
+    rng = np.random.default_rng(37)
+    x = torch.as_tensor(rng.standard_normal((2, 30000)), dtype=dtype, device=cuda)
+    K.reset_launch_counts()
+    re, im = K.spectra(x, geo, 8000, 1500)
+    rre, rim = K.spectra_ref(x, geo, 8000, 1500)
+    if dtype == BF16:
+        _hold_bf16(re, rre, tol)
+        _hold_bf16(im, rim, tol)
+    else:
+        assert _max(re - rre) <= tol * _max(rre) and _max(im - rim) <= tol * _max(rre)
+    mask = torch.as_tensor(rng.random(re.shape), dtype=torch.float32, device=cuda)
+    windows = ((1500, 8000), (0, 11000), (9000, 3000), (10990, 30000))
+    for out_off, out_len in windows:
+        y = _istft_into_nan(re, im, mask, geo, out_off, out_len)
+        ry = K.istft_ola_ref(re, im, mask, geo, out_off, out_len)
+        assert not torch.isnan(y).any()
+        assert not y[:, max(0, geo.istft_len - out_off):].any()
+        if dtype == BF16:
+            _hold_bf16(y, ry, tol)
+        else:
+            assert _max(y - ry) <= tol * _max(ry)
+    assert K.route_counts() == {"spectra": _routes(route)["spectra"],
+                                "istft_ola": _routes(route, len(windows))["istft_ola"]}
+    kind = "bfloat16" if dtype == BF16 else "float32"
+    assert K.dtype_counts()["spectra"][kind] == 1
+    assert K.dtype_counts()["istft_ola"][kind] == len(windows)
+
+
 @pytest.mark.gpu
 def test_cluster_build_takes_each_n_fft_shared_memory(cuda):
     """62500 and 40000 share a build of the cluster route (radices 2 and
@@ -1447,8 +1515,9 @@ def test_global_chirp_groups_and_peak_memory(cuda, name, dtype):
     slot a group, three, and the geometry's group (all of them here).
     Each call's peak device memory over its inputs stays under a ceiling
     of its outputs, D's frame scratch, twice the group's scratch and the
-    host tables, plus 64 MiB: far under the product route's n_fft x n_fft
-    table (6.4 GB at 40005, 147 GB at 192000)."""
+    host tables, plus 64 MiB: far under an eighth of a DFT product's
+    n_fft x n_fft float32 table (win rows of 2 n_bins values: 6.4 GB at
+    40005, 147 GB at 192000)."""
     geo, x, cs, pad = _long_case(name, "scipy", cuda, dtype)
     L = geo.fft_layout()[0]
     torch.cuda.synchronize()
@@ -1468,7 +1537,7 @@ def test_global_chirp_groups_and_peak_memory(cuda, name, dtype):
                + out.numel() * out.element_size() + re.shape[0] * n_fr * geo.win * 4
                + 2 * slots * L * 8 + 64 * L * 8 + (64 << 20))
     assert peak <= ceiling, (peak, ceiling)
-    assert peak < geo.k_a * geo.cols_a * 4 // 8
+    assert peak < geo.win * 2 * geo.n_bins * 4 // 8
     for group in (1, 3, slots):
         a = K._spectra_on("global_chirp", x, geo, cs, pad, group=group)
         assert torch.equal(a[0], re) and torch.equal(a[1], im), group

@@ -11,7 +11,9 @@ split and unsplit, odd n_fft as two frames a complex transform, the
 chirp-z convolution with its exact chirp index and host filter spectrum,
 and D's overlap-add of runs with halo frames, the envelope table and the
 trim; the persistent walks and their span and slab copies, the real-FFT
-kernels' laid twiddles and D's overlap-add ring. Held
+kernels' laid twiddles and D's overlap-add ring; and frames of 1 to 63
+samples (n_fft 2 to 63: slots of 1 to 31 points, or 63 odd, and the chirp
+at 37), in tiles and runs of up to a few thousand frames. Held
 against the plain versions, which tests/test_torch_kernels.py holds
 against the JAX package's STFT. The route predicate is held to
 ``csrc/fft_route.cuh``, compiled with the host compiler.
@@ -36,12 +38,12 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_BIG_ELEMS,
     FFT_BIG_WARPS,
     FFT_ELEMS,
-    FFT_MIN_NFFT,
     FFT_WARP_POINTS,
     FFT_WARPS,
     CHIRP_MAX_N,
     LARGE_RADICES,
     CLUSTER_MAX,
+    SMALL_NFFT,
     SMEM_MAX,
     _strip,
     chirp_length,
@@ -82,6 +84,16 @@ GEOMS = {
     "torch-nfft480-r4": dict(n_fft=480, hop_length=120, **TORCH),
     "torch-nfft1536-r4": dict(n_fft=1536, hop_length=384, **TORCH),
     "torch-nfft882-r2": dict(n_fft=882, hop_length=441, **TORCH),
+    # frames below 64 samples: M = 1 (no stage; 4,096 frames a tile), 2, 8
+    # and 20 = 2^2 5 (204 frames a tile)
+    "nfft2-r2": dict(n_fft=2, hop_length=1),
+    "nfft4-r4": dict(n_fft=4, hop_length=1),
+    "nfft16-r4": dict(n_fft=16, hop_length=4),
+    "nfft40-r4": dict(n_fft=40, hop_length=10),
+    "torch-nfft2-r2": dict(n_fft=2, hop_length=1, **TORCH),
+    "torch-nfft4-r4": dict(n_fft=4, hop_length=1, **TORCH),
+    "torch-nfft16-r4": dict(n_fft=16, hop_length=4, **TORCH),
+    "torch-nfft40-r4": dict(n_fft=40, hop_length=10, **TORCH),
 }
 # the complex-frame kernels: radix 11 (M = 550 = 2 5^2 11) and 13 (M = 520
 # = 2^3 5 13); odd n_fft, two frames a transform (441 = 3^2 7^2, 1323 =
@@ -113,6 +125,22 @@ CPLX_GEOMS = {
     "nfft8580-r4": dict(n_fft=8580, hop_length=2145),
     "nfft10010-r5": dict(n_fft=10010, hop_length=2002),
     "torch-nfft8580-r4": dict(n_fft=8580, hop_length=2145, **TORCH),
+    # frames below 64 samples: odd 3 (2,730 frames a tile) and 63 = 3^2 7,
+    # M = 17 and 31 (radix 17 and 31, stage_large), the chirp at odd prime
+    # 37 (L = 81)
+    "nfft3-r3": dict(n_fft=3, hop_length=1),
+    "nfft34-r2": dict(n_fft=34, hop_length=17),
+    "nfft37-r37": dict(n_fft=37, hop_length=1),
+    "nfft62-r2": dict(n_fft=62, hop_length=31),
+    "nfft63-r3": dict(n_fft=63, hop_length=21),
+    "torch-nfft3-r3": dict(n_fft=3, hop_length=1, **TORCH),
+    "torch-nfft34-r2": dict(n_fft=34, hop_length=17, **TORCH),
+    "torch-nfft37-r37": dict(n_fft=37, hop_length=1, **TORCH),
+    "torch-nfft62-r2": dict(n_fft=62, hop_length=31, **TORCH),
+    "torch-nfft63-r3": dict(n_fft=63, hop_length=21, **TORCH),
+    # n_fft 1: a slot of one point, two frames (the torch window; scipy's
+    # periodic Hann window of one sample is 0)
+    "torch-nfft1-r1": dict(n_fft=1, hop_length=1, **TORCH),
 }
 # the cluster route: n = 20000 = 100 x 200 on 4 blocks (n_fft 40000), 16384
 # = 128 x 128 on 2, odd 19683 = 81 x 243 on 3 (two frames a transform),
@@ -726,8 +754,8 @@ def _emulate_istft(re, im, mask, geo, out_off, out_len, run=None):
 
 def _route_sizes():
     """Every n_fft the FFT and chirp routes serve (to 16383: n within a big
-    block)."""
-    sizes = range(FFT_MIN_NFFT, 2 * FFT_BIG_ELEMS + 1)
+    block; from 1)."""
+    sizes = range(1, 2 * FFT_BIG_ELEMS + 1)
     return [n for n in sizes if fft_route(StftConfig(n_fft=n)) in ("fft", "chirp")]
 
 
@@ -993,7 +1021,8 @@ def test_spectra_cplx_emulation_of_a_short_noise_row(name):
 
 @pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "nfft1100-r4", "nfft441-r3",
                                   "nfft5005-r5", "nfft1102-r2", "nfft1101-r3",
-                                  "nfft4106-r2"])
+                                  "nfft4106-r2", "nfft40-r4", "nfft2-r2", "nfft3-r3",
+                                  "nfft37-r37"])
 def test_silent_row_gives_exact_zeros(name):
     """A silent row gives exact zeros on every route: its spectra, and the
     inverse of zero spectra under any mask."""
@@ -1035,11 +1064,12 @@ def test_istft_cplx_emulation_matches_plain_version(kw, window):
 
 @pytest.mark.parametrize("name", ["nfft1024-r4", "torch-nfft512-r2", "nfft1536-r4",
                                   "nfft512-r1", "nfft441-r3", "nfft1323-r3", "nfft1102-r2",
-                                  "nfft1101-r3"])
+                                  "nfft1101-r3", "nfft40-r4", "nfft63-r3"])
 def test_istft_fft_output_does_not_depend_on_the_run(name):
     """Each sample sums the same products in ascending frame order whatever
     run or group its frames land in: runs of 1, 3, fft_run (on the
-    real-FFT kernel whole groups: 29 at hop 256) and the complex-frame
+    real-FFT kernel whole groups: 29 at hop 256; below 64 samples the
+    groups' own length, 201 at n_fft 40, 127 at odd 63) and the complex-frame
     kernels' min(32, 8192 / hop) (the real-FFT kernel's before it) give the
     same bits; an odd n_fft's groups of an odd frame count pad their last
     slot with a zero frame. Past the end (runs of 1 there reach no frame)
@@ -1094,19 +1124,22 @@ int main() {
 
 
 def test_route_predicate(tmp_path):
-    """Every n_fft of at least 64 takes the FFT route when its transform's
-    n (n_fft/2, or n_fft when odd) has no prime factor above 13 and fits
-    a block's 4096 points, the cluster route when such an n past a block
+    """Every n_fft takes the FFT route when its transform's n (n_fft/2, or
+    n_fft when odd) has no prime factor above 13 and fits a block's 4096
+    points, the cluster route when such an n past a block
     has a cluster shape (12000 on 2 blocks, 16380 and odd 4851 on 3, 16384
     on 2), the FFT route's big block when it has none and is below 8192
     points (8580, 10010, odd 5005), else the chirp route when 2n - 1 fits a
     big block, else the cluster chirp route when n is at most CHIRP_MAX_N
     (32,768) points, else the global chirp route (every n past CHIRP_MAX_N
-    points with no cluster route, to 8,388,608 points); the product route
-    takes the rest: n_fft below 64 and none from 64 to 262,144, where
+    points with no cluster route, to 8,388,608 points); no n_fft from 1
+    to 262,144 is left without a route (ROUTE_NONE), and none takes the
+    retired DFT-product route, which once took the n_fft below 64 and
     212,771 n_fft (81,699 of them to 131,072: 49,125 odd from 32,769, 32,574
-    even from 65,538) took the product route before the global chirp
-    route. An n of at most
+    even from 65,538) before the global chirp route. Below 64 every n_fft
+    takes the FFT route (22 of them the real-FFT kernels, 2 to 60; n of 1
+    to 31 points, or odd 63) but the odd primes 37 to 61, which take the
+    chirp route. An n of at most
     4096 points with no prime factor above 31 takes the FFT route too
     (radices 17 to 31: 776 n_fft from 68 to 8192 that took the chirp
     route before them). 1100 (M = 2 5^2 11), 1102 (M = 19 x 29), 493 (17 x
@@ -1142,16 +1175,16 @@ def test_route_predicate(tmp_path):
     lines = subprocess.run([str(tmp_path / "route")], check=True, capture_output=True,
                            text=True, input="".join(f"{n} {L}\n" for n, L in asked)
                            ).stdout.splitlines()
-    names = {0: "product", 1: "fft", 2: "chirp", 3: "cluster", 4: "cluster_chirp",
+    names = {0: None, 1: "fft", 2: "chirp", 3: "cluster", 4: "cluster_chirp",
              5: "global_chirp"}
-    product, was_product, left = [], {}, []
+    unrouted, was_product, left = [], {}, []
     for n_fft, line in zip(range(1, ROUTE_MAX_NFFT + 1), lines):
         route, real, *shape = map(int, line.split())
         assert routes[n_fft] == names[route], n_fft
         assert real_kernel(n_fft) == bool(real), n_fft
         assert (cluster_shape(n_fft if n_fft % 2 else n_fft // 2) or (0, 0, 0)) == tuple(shape)
-        if n_fft >= FFT_MIN_NFFT and route == 0:
-            product.append(n_fft)
+        if route == 0:
+            unrouted.append(n_fft)
         if route == 4:  # the product route's before the cluster chirp route
             band = next(b for b in ((4097, 8191), (8193, 16384), (16385, 65536))
                         if b[0] <= n_fft <= b[1])
@@ -1165,7 +1198,13 @@ def test_route_predicate(tmp_path):
         if n > CHIRP_MAX_N:
             assert global_split(L) == (L1, L2) and L1 * L2 == L and L1 <= L2 <= FFT_ELEMS, n
     assert len(lines) == ROUTE_MAX_NFFT + len(asked)
-    assert product == [] and all(routes[n] == "product" for n in range(1, FFT_MIN_NFFT))
+    assert unrouted == [] and None not in routes.values() and "product" not in routes.values()
+    small = range(1, SMALL_NFFT)
+    assert [n for n in small if routes[n] != "fft"] == [37, 41, 43, 47, 53, 59, 61]
+    assert all(routes[n] == "chirp" for n in (37, 41, 43, 47, 53, 59, 61))
+    assert [n for n in small if real_kernel(n)] == [
+        n for n in range(2, SMALL_NFFT, 2) if _strip(n // 2, (2, 3, 5, 7)) == 1]
+    assert sum(real_kernel(n) for n in small) == 22
     assert was_product == {(4097, 8191): 2005, (8193, 16384): 7967, (16385, 65536): 32253}
     assert len(left) == 212771 and sum(n <= 131072 for n in left) == 81699
     assert sum(n % 2 for n in left if n <= 131072) == 49125
@@ -1176,12 +1215,12 @@ def test_route_predicate(tmp_path):
         81000, 65610, 144000, 192000]
     assert [global_split(L) for L in (81000, 65610, 144000, 192000)] == [
         (270, 300), (243, 270), (375, 384), (400, 480)]
-    assert routes[32] == routes[63] == "product"
+    assert routes[2] == routes[32] == routes[40] == routes[63] == routes[1] == "fft"
     for n in (64, 512, 1024, 2048, 8192, 1536, 1000, 400, 882, 1100, 441, 1323, 5005,
               8580, 10010, 1102, 493, 1088, 2040, 1235, 1426, 1218, 8192 - 8192 % 31):
         assert routes[n] == fft_route(StftConfig(n_fft=n, **TORCH)) == "fft"
     # the FFT route past 13: every n to 4096 points with no prime factor above 31
-    large = [n for n in range(FFT_MIN_NFFT, 2 * FFT_ELEMS + 1)
+    large = [n for n in range(64, 2 * FFT_ELEMS + 1)
              if _strip(n if n % 2 else n // 2, (2, 3, 5, 7, 11, 13)) != 1
              and _strip(n if n % 2 else n // 2, (2, 3, 5, 7, 11, 13) + LARGE_RADICES) == 1
              and (n % 2 == 0 or n <= FFT_ELEMS)]
@@ -1206,17 +1245,31 @@ def test_route_predicate(tmp_path):
 
 @pytest.mark.parametrize("n_fft,served", [(8388609, False), (16777218, False),
                                            (8388607, True), (16777216, True), (40, True)])
-def test_kernels_refuse_the_product_route_past_64(n_fft, served):
-    """No n_fft of 64 or more takes the product route's n_fft^2 tables: an
-    n past GLOBAL_MAX_L / 2 = 8,388,608 points (odd 8,388,609, even
-    16,777,218) is refused by ``kernels_supported``, so it goes to the
-    staged twins; the largest odd and even n_fft of the global chirp route
-    and n_fft 40 (the product route below 64) are served. The predicate
-    only: no geometry, table or plane is made."""
+def test_kernels_refuse_an_n_past_the_global_chirp_route(n_fft, served):
+    """An n past GLOBAL_MAX_L / 2 = 8,388,608 points (odd 8,388,609, even
+    16,777,218) has no route and is refused by ``kernels_supported``, so
+    it goes to the staged twins; the largest odd and even n_fft of the
+    global chirp route and n_fft 40 (the FFT route, the DFT products
+    before it) are served. The predicate only: no geometry, table or
+    plane is made."""
     scfg = StftConfig(n_fft=n_fft, hop_length=n_fft)
     route = fft_route(scfg)
-    assert route == ("global_chirp" if served and n_fft >= FFT_MIN_NFFT else "product")
+    assert route == (None if not served else "fft" if n_fft < SMALL_NFFT else "global_chirp")
     assert kernels_supported(scfg) == served
+
+
+def test_kernels_serve_every_n_fft_they_served():
+    """With the DFT-product route retired, ``kernels_supported`` gives the
+    answer it gave with it: every n_fft from 1 to 65,536 served, at a hop
+    of the frame and of one sample, in both conventions (the DFT products
+    took those below 64; each now has an FFT or chirp route); past
+    8,388,608 points refused (the F11 sizes, the test above)."""
+    for n_fft in range(1, 65537):
+        for hop in {1, n_fft}:
+            assert kernels_supported(StftConfig(n_fft=n_fft, hop_length=hop)), (n_fft, hop)
+    for n_fft in (1, 2, 3, 37, 40, 63, 64, 65536):
+        assert kernels_supported(StftConfig(n_fft=n_fft, hop_length=1, **TORCH))
+    assert all(fft_route(StftConfig(n_fft=n)) in ("fft", "chirp") for n in range(1, SMALL_NFFT))
 
 
 def _other_length(n):
@@ -1242,7 +1295,9 @@ def _pow2_length(n):
                                        (8192, 2048), (8192, 8192), (1536, 384),
                                        (400, 100), (882, 441), (1100, 275), (441, 147),
                                        (1323, 441), (4851, 1617), (1102, 551),
-                                       (4106, 2053)])
+                                       (4106, 2053), (2, 1), (3, 1), (4, 1), (16, 4),
+                                       (34, 17), (37, 1), (40, 10), (62, 31), (63, 21),
+                                       (2, 2), (60, 60), (61, 1)])
 def test_fft_tiles_fit_a_block(n_fft, hop):
     """A's tile and D's group hold at most a block's points (a big block's
     for a slot past FFT_ELEMS), D's run at most FFT_ACC samples, and every
@@ -1253,17 +1308,30 @@ def test_fft_tiles_fit_a_block(n_fft, hop):
     (``_real_smem``) fits a block's 227 KB in float32 and bf16, two blocks
     an SM at n_fft 1024 and 1536, and D's run fills whole groups where
     one of the complex-frame kernels' length would (its halo frames
-    included)."""
+    included). Below SMALL_NFFT (frames of 1 to 63 samples: up to 4,096
+    slots a block, tiles of (G - 1) hop + win samples) D's run grows with
+    its group G on both kernels: the run, its r - 1 halo frames and, for
+    an odd n_fft, one more fill the fewest whole groups in which the halo
+    takes at most half (one group but at 61 / 1, the chirp's 64 frames
+    with a halo of 37)."""
     geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 20000)
+    G, halo = geo.fft_tile_frames, geo.r - 1
     if geo.fft_real:
         for elem in (4, 2):
             a, d = _real_smem(geo, elem)
             assert a <= SMEM_MAX and d <= SMEM_MAX
             if n_fft in (1024, 1536):
                 assert 2 * a <= SMEM_MAX and 2 * d <= SMEM_MAX
+    if n_fft < SMALL_NFFT:
+        halo += 1 if n_fft % 2 else 0
+        groups = (geo.fft_run + halo) // G
+        assert (geo.fft_run + halo) % G == 0 and 2 * halo <= groups * G
+        assert groups == 1 or 2 * halo > (groups - 1) * G
+        assert (groups > 1) == (n_fft == 61)
+    elif geo.fft_real:
         old = max(1, min(32, FFT_ACC // hop))
-        whole = (geo.fft_run + geo.r - 1) % geo.fft_tile_frames == 0
-        assert geo.fft_run <= old and (whole or old + geo.r - 1 < geo.fft_tile_frames)
+        whole = (geo.fft_run + halo) % G == 0
+        assert geo.fft_run <= old and (whole or old + halo < G)
     slot, warps, tile = geo.fft_layout()
     elems, block_warps = ((FFT_BIG_ELEMS, FFT_BIG_WARPS) if slot > FFT_ELEMS
                           else (FFT_ELEMS, FFT_WARPS))
@@ -1362,8 +1430,8 @@ def test_route_counts_stay_zero_on_cpu():
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 8000)
         re, im = K.spectra(x, geo)
         K.istft_ola(re, im, torch.ones_like(re), geo, 0, 8000)
-    zero = {"fft": 0, "chirp": 0, "cluster": 0, "cluster_chirp": 0, "global_chirp": 0,
-            "product": 0}
+    zero = {"fft": 0, "chirp": 0, "cluster": 0, "cluster_chirp": 0, "global_chirp": 0}
+    assert K.ROUTES == tuple(zero) and not hasattr(K.spectra, "product_launches")
     assert K.route_counts() == {"spectra": zero, "istft_ola": zero}
 
 
@@ -2055,7 +2123,7 @@ def test_cluster_buffers_fit_shared_memory():
 
 
 def test_cluster_chirp_lengths():
-    """Every n of the cluster chirp route (an n_fft from 64 whose n takes
+    """Every n of the cluster chirp route (an n_fft whose n takes
     neither the FFT, the cluster nor the chirp route, to CHIRP_MAX_N
     points): its chirp length L >= 2n - 1 is the smallest 2^a 3^b 5^c with
     a cluster shape, whose build is one of the chirp's (1, 3, 5 or 15:
@@ -2070,7 +2138,7 @@ def test_cluster_chirp_lengths():
     for L in lengths:
         assert cluster_build(L) in (1, 3, 5, 15), L
         assert 2 * cluster_layout(L)[2] * 8 <= SMEM_MAX, L
-    ns = sorted({n_fft if n_fft % 2 else n_fft // 2 for n_fft in range(FFT_MIN_NFFT, 2 * CHIRP_MAX_N + 1)
+    ns = sorted({n_fft if n_fft % 2 else n_fft // 2 for n_fft in range(1, 2 * CHIRP_MAX_N + 1)
                  if fft_route(StftConfig(n_fft=n_fft)) == "cluster_chirp"})
     assert ns[0] == 4097 and ns[-1] == CHIRP_MAX_N - 1  # 32768 takes the cluster route
     for n in ns:
@@ -2189,11 +2257,13 @@ def test_cplx_walk_covers_every_tile_once(total, fit):
 @pytest.mark.parametrize("elem", [4, 2], ids=["float32", "bf16"])
 @pytest.mark.parametrize("name", ["nfft8580-r4", "nfft10010-r5", "nfft5005-r5", "nfft4106-r2",
                                   "nfft1102-r2", "nfft493-r17", "nfft1100-r4", "nfft1323-r3",
-                                  "nfft1101-r3"])
+                                  "nfft1101-r3", "nfft3-r3", "nfft37-r37", "nfft63-r3"])
 def test_cplx_walk_span_copy_is_the_guarded_load(name, elem):
     """issue_span's copy of every tile of a complex-frame geometry (a big
     block; a block with a large radix, 1102, odd 493 in frame pairs, or
-    with radix 11, 1100; odd 1323; the chirp, 1101), chunked and whole,
+    with radix 11, 1100; odd 1323; the chirp, 1101; below 64 samples, odd
+    3 and 63 and the chirp at 37, tiles of 2,730, 130 and 100 frames at
+    hops of 1 and 21), chunked and whole,
     from rows at every 2-byte phase of 16 bytes: the 16-byte pieces, the
     plain edge copies and the zeros together give the one-tile kernel's
     guarded load (zero outside the view and the row), each sample once,
@@ -2235,12 +2305,12 @@ def _check_span_copies(kw, elem, real):
 # (tile_span.cuh), laid twiddles, D's ring and shared memory
 # ---------------------------------------------------------------------------
 REAL_WALK_GEOMS = ["nfft1024-r4", "nfft1536-r4", "nfft512-r4", "nfft400-r4", "nfft882-r2",
-                   "torch-nfft512-r2", "nfft2048-win1024"]
+                   "torch-nfft512-r2", "nfft2048-win1024", "nfft40-r4", "nfft2-r2"]
 
 
 @pytest.mark.parametrize("fit", [1, 5, 264])
 @pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "nfft400-r4",
-                                  "torch-nfft512-r2"])
+                                  "torch-nfft512-r2", "nfft40-r4", "nfft2-r2"])
 def test_real_walk_covers_every_tile_once(name, fit):
     """Kernel A's real-FFT blocks (grid: min(tiles, the blocks the card
     holds, ``K.real_capacity``)): every tile of the chunked views is taken
@@ -2265,7 +2335,8 @@ def test_real_walk_covers_every_tile_once(name, fit):
 @pytest.mark.parametrize("name", REAL_WALK_GEOMS)
 def test_real_walk_span_copy_is_the_guarded_load(name, elem):
     """issue_span's copy of every tile of a real-FFT geometry (a power of
-    two M, 1024 and 512; mixed radix, 1536, 400, 882; win below n_fft),
+    two M, 1024 and 512; mixed radix, 1536, 400, 882; win below n_fft;
+    tiles of 204 frames at hop 10, n_fft 40, and of 4,096 at hop 1, 2),
     from rows at every 2-byte phase of 16 bytes: the one-tile kernel's
     guarded load, each sample once, the pieces on 16 bytes at both ends."""
     _check_span_copies(GEOMS[name], elem, real=True)
@@ -2318,7 +2389,7 @@ WALK_WINDOWS = {"core": (2000, 16000), "whole": (0, WALK_VIEW), "middle": (3000,
 @pytest.mark.parametrize("fit", [1, 7, 264])
 @pytest.mark.parametrize("window", WALK_WINDOWS)
 @pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "torch-nfft512-r2",
-                                  "nfft882-r2", "nfft512-r1"])
+                                  "nfft882-r2", "nfft512-r1", "nfft40-r4", "nfft2-r2"])
 def test_istft_fft_walk_covers_every_run_once(name, window, fit):
     """Kernel D's real-FFT blocks (grid: min(runs, ``K.real_capacity``)):
     every run of every row is taken by exactly one block; each block's
@@ -2326,12 +2397,13 @@ def test_istft_fft_walk_covers_every_run_once(name, window, fit):
     after a group's pre-step is the group it takes next, across its runs,
     past runs with no frames) and none is left in flight at its end; the
     groups cover each run's frames, from its first halo frame, each frame
-    once a run; the run fills whole groups where it can. Rows of several
-    runs; past the end, runs that no frame reaches."""
+    once a run; the run fills whole groups where it can (below SMALL_NFFT
+    always: one group of 204 frames at n_fft 40, of 4,096 at 2). Rows of
+    several runs; past the end, runs that no frame reaches."""
     geo = gate_geometry(StftConfig(**GEOMS[name]), WALK_VIEW)
     G, r = geo.fft_tile_frames, geo.r
     assert geo.fft_real and geo.fft_run * geo.hop <= FFT_ACC
-    if (min(32, FFT_ACC // geo.hop) + r - 1) >= G:
+    if geo.n_fft < SMALL_NFFT or (min(32, FFT_ACC // geo.hop) + r - 1) >= G:
         assert (geo.fft_run + r - 1) % G == 0
     walk, n_runs, run_of = _istft_walk(geo, 3, *WALK_WINDOWS[window], fit)
     assert n_runs > 1

@@ -132,105 +132,45 @@ def test_istft_ola_ref_matches_jax_istft(kw, window):
 
 
 # ---------------------------------------------------------------------------
-# kernels A and D on their product route as the CUDA sources compute them
-# (constant tables, loader index math, epilogue), emulated in numpy float64
-# against the plain versions; tests/test_torch_fft.py does the same for
-# their FFT route
+# frames below 64 samples end to end (kernels A and D on the FFT route, the
+# DFT products before it): the port's reduce_noise, the kernels' plain
+# versions on the CPU, against the JAX package's
 # ---------------------------------------------------------------------------
-def _emulate_spectra(x, geo, cs, pad):
-    """csrc/spectra.cu: A[m, k] = x[h, c*cs - pad + t*hop - bpad + k] (zero
-    outside the view and the signal), C = A @ analysis table."""
-    rows, n = x.shape
-    k_chunks = (n - 1) // cs + 1
-    T, nb = geo.n_frames, geo.n_bins
-    b, t = np.divmod(np.arange(rows * k_chunks * T), T)
-    h, c = np.divmod(b, k_chunks)
-    k = np.arange(geo.k_a)
-    pos = (t * geo.hop - geo.bpad)[:, None] + k[None, :]
-    src = (c * cs - pad)[:, None] + pos
-    ok = (k < geo.win) & (pos >= 0) & (pos < geo.view_len) & (src >= 0) & (src < n)
-    A = np.where(ok, x[h[:, None], np.clip(src, 0, n - 1)], 0.0)
-    C = A @ K._analysis_table(geo.scfg, torch.device("cpu"), torch.float64).numpy()
-    shape = (rows * k_chunks, T, nb)
-    return C[:, :nb].reshape(shape), C[:, nb : 2 * nb].reshape(shape)
+SMALL_SR = 8000
+# 5 ms frames at 8 kHz, and frames of 4, 3 and 2 samples, whose bins lie
+# 2-4 kHz apart: a frequency smoothing of 8 kHz, as wide as the JAX package
+# takes there
+SMALL_GEOMS = {
+    "nfft40": dict(n_fft=40, hop_length=10),
+    "nfft4": dict(n_fft=4, hop_length=1, freq_mask_smooth_hz=8000),
+    "nfft3": dict(n_fft=3, hop_length=1, freq_mask_smooth_hz=8000),
+    "nfft2": dict(n_fft=2, hop_length=1, freq_mask_smooth_hz=8000),
+}
+SMALL_ENGINES = {"nonstationary": {}, "stationary": dict(stationary=True),
+                 "torch": dict(use_torch=True)}
 
 
-def _emulate_istft_ola(re, im, mask, geo, out_off, out_len):
-    """csrc/istft_ola.cu: row (b, j) holds [Y_j, Y_{j-1}, ...] (each 2 n_bins
-    wide, padded to f2), times the synthesis table; the epilogue divides by
-    the window-square envelope and keeps the trimmed output window."""
-    B, T, nb = re.shape
-    j0, n_out = geo.out_blocks(out_off, out_len)
-    j = j0 + np.arange(n_out)
-    A = np.zeros((B, n_out, geo.k_d))
-    for i in range(geo.r):
-        t = j - i
-        ok = (t >= 0) & (t < T)
-        tt = np.clip(t, 0, T - 1)
-        ym = np.concatenate([re * mask, im * mask], axis=-1)[:, tt]
-        A[:, :, i * geo.f2 : i * geo.f2 + 2 * nb] = ym * ok[None, :, None]
-    blocks = (A @ K._synthesis_table(geo.scfg, torch.device("cpu"), torch.float64).numpy())[
-        ..., : geo.hop]
-    w = K._analysis_window_np(geo.scfg)
-    q = np.arange(geo.hop)
-    env = np.zeros((n_out, geo.hop))
-    for i in range(geo.r):
-        ok = ((j - i >= 0) & (j - i < T))[:, None]
-        env += ok * w[i * geo.hop + q][None, :] ** 2
-    s = (j[:, None] * geo.hop + q[None, :] - geo.bpad)
-    y = np.where(s < geo.istft_len, blocks / np.where(env > 1e-10, env, 1.0), 0.0)
-    o = (s - out_off).reshape(-1)
-    keep = (o >= 0) & (o < out_len)
-    out = np.zeros((B, out_len))
-    out[:, o[keep]] = y.reshape(B, -1)[:, keep]
-    return out
+@pytest.mark.parametrize("engine", list(SMALL_ENGINES))
+@pytest.mark.parametrize("name", list(SMALL_GEOMS))
+def test_reduce_noise_of_small_frames_matches_jax(name, engine):
+    """``reduce_noise`` at n_fft 40 / hop 10, 4 / 1, 3 / 1 (odd) and 2 / 1
+    on 2 s at 8 kHz in chunks of 4000 with 1000 of padding, on the scipy
+    engines (non-stationary and stationary) and the torch engine, in
+    float64 on the CPU: the geometry takes the kernels (``kernels_supported``,
+    the FFT route), and the output is the JAX package's within 1e-9 x
+    max|ref| (the scipy engines) and 1e-8 x max|ref| (the torch engine:
+    rank-1 taps against every SVD rank), the bounds of
+    tests/test_torch_api_groups.py."""
+    import noisereduce_tpu as jnr
 
+    import noisereduce_tpu_torch as nrt
+    from noisereduce_tpu_torch.ops.cuda.geometry import fft_route, kernels_supported
 
-@pytest.mark.parametrize("kw", GEOMS + [dict(n_fft=1024, hop_length=512)],
-                         ids=GEOM_IDS + ["r2"])
-def test_kernel_tables_and_indexing_match_plain_versions(kw):
-    cs, pad, n = 4000, 700, 9500
-    geo = gate_geometry(StftConfig(**kw), cs + 2 * pad)
-    x = np.random.default_rng(11).standard_normal((2, n))
-    re, im = K.spectra_ref(_t(x), geo, cs, pad)
-    ere, eim = _emulate_spectra(x, geo, cs, pad)
-    _close(ere, re.numpy())
-    _close(eim, im.numpy())
-    mask = np.random.default_rng(12).random(ere.shape)
-    for out_off, out_len in [(pad, cs), (0, geo.view_len), (3000, 3000)]:
-        ref = K.istft_ola_ref(re, im, _t(mask), geo, out_off, out_len)
-        got = _emulate_istft_ola(re.numpy(), im.numpy(), mask, geo, out_off, out_len)
-        _close(got, ref.numpy())
-
-
-@pytest.mark.parametrize("kw,route", [(dict(n_fft=16386, hop_length=8193), "cluster_chirp"),
-                                      (dict(n_fft=40001, hop_length=40001), "global_chirp")],
-                         ids=["nfft16386", "nfft40001"])
-def test_product_tables_past_8192_build_no_host_table(kw, route):
-    """Past n_fft 8192 the product route (forced, as chip_smoke.py and the
-    card tests force it beside another route: 16386, n = 3 x 2731, takes
-    the cluster chirp route, 40001 = 13 x 17 x 181 past 32,768 points the
-    global chirp route) builds its n_fft x n_fft tables on the device
-    they serve, in row blocks: here the meta device, shapes only, while
-    the host allocates a small part of the float64 table it would take on
-    the host; the device-table cache does not keep a table past its byte
-    bound."""
-    import tracemalloc
-
-    from noisereduce_tpu_torch.ops.cuda.geometry import GateGeometry, fft_route
-
-    scfg = StftConfig(**kw)
-    assert fft_route(scfg) == route
-    geo, meta = GateGeometry(scfg, 0), torch.device("meta")
-    K._analysis_table(StftConfig(n_fft=40, hop_length=10), meta)  # first-use allocations
-    tracemalloc.start()
-    a, s = K._analysis_table(scfg, meta), K._synthesis_table(scfg, meta)
-    peak = tracemalloc.get_traced_memory()[1]
-    tracemalloc.stop()
-    assert a.shape == (geo.k_a, geo.cols_a) and s.shape == (geo.r * geo.f2, geo.cols_d)
-    assert a.dtype == s.dtype == torch.float32 and a.device.type == s.device.type == "meta"
-    assert not hasattr(K, "_analysis_table_np") and not hasattr(K, "_synthesis_table_np")
-    assert peak < 8 * a.numel() // 64  # under 1/64 of the float64 table
-    K._device_f32("analysis", scfg, meta)
-    assert ("analysis", scfg, meta) not in K._cache
-    assert sum(t.numel() * t.element_size() for t in K._cache.values()) <= K._CACHE_BYTES
+    scfg = GateConfig(sr=SMALL_SR, **SMALL_GEOMS[name]).stft
+    assert kernels_supported(scfg) and fft_route(scfg) == "fft"
+    y = np.random.default_rng(13).standard_normal(2 * SMALL_SR)
+    kw = dict(SMALL_GEOMS[name], chunk_size=4000, padding=1000, **SMALL_ENGINES[engine])
+    got = nrt.reduce_noise(y, SMALL_SR, device="cpu", compute_dtype=torch.float64, **kw)
+    ref = np.asarray(jnr.reduce_noise(y, SMALL_SR, **kw))
+    assert got.shape == ref.shape == y.shape and np.isfinite(got).all()
+    _close(got, ref, 1e-8 if engine == "torch" else F64_TOL)

@@ -7,35 +7,36 @@ n_fft 1323 / hop 441 and 441 / hop 147 (60 s: odd, two frames a
 transform), n_fft 1102 / hop 551 (60 s: the large radices 19 and 29;
 the chirp-z route before them) and 1101 / hop 367 (60 s: the chirp-z
 route, 3 x 367), chunked as ``reduce_noise`` chunks
-(600000 / 30000); the long frames, only when ``--cells`` names them, each
+(600000 / 30000); frames below 64 samples at 8 kHz, 60 s (the DFT
+products before them): n_fft 40 / hop 10 and 2 / 1, 16 / 4 (the
+real-FFT kernels, 204, 4,096 and 512 frames a tile), odd 3 / 1 and 63 /
+21, 34 / 17 and 62 / 31 (radix 17 and 31: the complex-frame kernels) and
+odd 37 / 1 (the chirp-z route, L = 81); the long frames, only when ``--cells`` names them, each
 one unchunked view: n_fft 16384 / hop 4096 on 60 s (704 frames; the
 cluster route on 2 blocks, the big block before it), 16380 / hop 4095
 (the cluster route on 3 blocks, the big block's largest slot before it)
 and n_fft 40000 / hop 10000 on 400,000
 samples, with
 kernel C's plan for the line (and its time where it has one), the device
-time also by ``queued_ms``, and on a product route the first call's host
-table build timed on its own line (at n_fft 40000 the product route is
-not timed: its tables take minutes); and A alone on the 10 s noise
+time also by ``queued_ms``; and A alone on the 10 s noise
 row of ``chip_smoke.py`` (n_fft 1024, unchunked: the stationary paths'
 threshold spectra, TPU row 3). The cluster route also at n_fft 32768 /
 hop 8192 (two blocks) and 19683 / hop 6561 at 44.1 kHz (odd, three
 blocks), each one view of 400,000 samples, and n_fft 40000 / hop 10000
 over all 960 s chunked as ``reduce_noise`` chunks (77 views; the
-throughput case, named ``40000@960``). The cluster chirp route (the
-product route before it): n_fft 4803 / hop 1601 (3 x 1601, odd) on 60 s
+throughput case, named ``40000@960``). The cluster chirp route (the DFT
+products before it): n_fft 4803 / hop 1601 (3 x 1601, odd) on 60 s
 and on all 960 s chunked (``4803``, ``4803@960``) and 16386 / hop 2731
 (n = 3 x 2731) on 60 s, each also with the 2^a 3^b family's chirp
 length (``*_23_ms``, ``slot_23``) beside the route's own 2^a 3^b 5^c.
-The global chirp route (the product route before it): n_fft 40005 / hop
+The global chirp route (the DFT products before it): n_fft 40005 / hop
 8001 (odd, L = 81,000) on one view of 400,000 samples and on all 960 s
 chunked (``40005``, ``40005@960``), 65538 / hop 21846 and 192000 / hop
 48000 on 60 s chunked, each also with one launch of each pass over every
 slot (the geometry's ``group`` at these cells) beside groups whose
 scratch stays in the card's L2 (``l2_group``, ``*_l2_group_*``, and that
-run's peak memory); with ``--product-long`` a tree whose route at these n_fft is the
-product route is timed there too (its tables' sizes in ``table_bytes``, an
-out-of-memory error in ``*_error``).
+run's peak memory); a call that runs out of device memory (a tree whose
+route there builds n_fft x n_fft tables) is recorded in ``*_error``.
 The big block's builds: n_fft 8580 / hop 2145 (n = 4290, every odd
 radix, no cluster shape) and 4106 / hop 2053 (chirp length 8192), each
 one view of 60 s; 12000 / hop 3000 (n = 6000: the cluster route on 2
@@ -59,18 +60,17 @@ mean over ``--reps`` calls issued back to back without a synchronise),
 which the events time includes where it exceeds the card's. A chirp-route
 cell is timed twice, with the chirp length 2^a 3^b (the route's own) and a
 power of two (``geometry.chirp_length`` replaced for the run). With ``--library``, ``torch.stft`` /
-``torch.istft`` at the same shapes are timed the same three ways, and with
-``--product`` A's and D's product route (``_spectra_on`` /
-``_istft_ola_on`` by name). Prints the card's name and power limit, then
+``torch.istft`` at the same shapes are timed the same three ways. Prints the card's name and power limit, then
 one JSON line: per cell, A's and D's times and the route each launch
 took.
 
-    python3 tools/fft_route_timing.py [--reps 10] [--cells 1024,1536] [--library] [--product]
+    python3 tools/fft_route_timing.py [--reps 10] [--cells 1024,1536] [--library]
+    python3 tools/fft_route_timing.py --cells 40,2,16,3,63,34,62,37 --library  # small frames
     python3 tools/fft_route_timing.py --cells 16384,40000 --library   # the long frames
     python3 tools/fft_route_timing.py --cells 40000,40000@960,32768,19683 --library  # cluster route
     python3 tools/fft_route_timing.py --cells 4803,4803@960,16386 --library  # cluster chirp route
     python3 tools/fft_route_timing.py --cells 40005,40005@960,65538,192000 --library  # global chirp
-    PYTHONPATH=<parent checkout> python3 tools/fft_route_timing.py --cells 40005 --product-long
+    PYTHONPATH=<parent checkout> python3 tools/fft_route_timing.py --cells 40 --library
     python3 tools/fft_route_timing.py --ab [NAME=]<checkout>[,...] --rounds 4 --cells 1024,1536
     python3 tools/fft_route_timing.py --ab <checkout> --cells 1024 --dtype bfloat16
     python3 tools/fft_route_timing.py --ab <checkout> --cells 1024 --variants run32,diag_a_no_fft
@@ -132,6 +132,17 @@ CELLS = (  # name, n_fft, hop, seconds (or samples), sample rate
     ("n_fft 441, 44.1 kHz, 60 s", 441, 147, 60, 44100),
     ("n_fft 1102, 44.1 kHz, 60 s", 1102, 551, 60, 44100),
     ("n_fft 1101, 44.1 kHz, 60 s", 1101, 367, 60, 44100),
+    # frames below 64 samples at 8 kHz (the DFT products before them): the
+    # real-FFT kernels at M = 20, 1 and 8; odd 3 and 63 = 3^2 7, M = 17 and
+    # 31 (stage_large) on the complex-frame kernels; the chirp at odd 37
+    ("n_fft 40, 8 kHz, 60 s", 40, 10, 60, 8000),
+    ("n_fft 2, 8 kHz, 60 s", 2, 1, 60, 8000),
+    ("n_fft 16, 8 kHz, 60 s", 16, 4, 60, 8000),
+    ("n_fft 3, 8 kHz, 60 s", 3, 1, 60, 8000),
+    ("n_fft 63, 8 kHz, 60 s", 63, 21, 60, 8000),
+    ("n_fft 34, 8 kHz, 60 s", 34, 17, 60, 8000),
+    ("n_fft 62, 8 kHz, 60 s", 62, 31, 60, 8000),
+    ("n_fft 37, 8 kHz, 60 s", 37, 1, 60, 8000),
 )
 # timed only when --cells names them by key: key, name, n_fft, hop,
 # samples, sample rate, chunked (as reduce_noise chunks: CHUNK / PADDING)
@@ -157,7 +168,7 @@ LONG_CELLS = (
     ("4803", "n_fft 4803, 60 s, one view", 4803, 1601, 60 * 48000, 48000, False),
     ("4803@960", "n_fft 4803, 960 s, 77 views", 4803, 1601, 960 * 48000, 48000, True),
     ("16386", "n_fft 16386, 60 s, one view", 16386, 2731, 60 * 48000, 48000, False),
-    # the global chirp route (the product route before it): odd 40005 = 3^2
+    # the global chirp route (the DFT products before it): odd 40005 = 3^2
     # 5 7 127 (L = 81,000 = 270 x 300) on one view and on all 960 s; even
     # 65538 (n = 32,769, L = 65,610) and 192000 (n = 96,000, L = 192,000 =
     # 400 x 480) on 60 s in reduce_noise's 5 views
@@ -169,9 +180,6 @@ LONG_CELLS = (
 # the global chirp route's groups within the card's 50 MB L2: slots whose
 # scratch (8 L bytes each) fits this, timed beside the geometry's group
 L2_SCRATCH_BYTES = 32 << 20
-# n_fft past which the product route's first call waits for tables too long
-# to time here (40000: 6.4 GB a table)
-UNTIMED_PRODUCT_NFFT = 20000
 # the chirp length families of the cluster route: the route's own
 # (geometry.chirp_length) and the smallest 2^a 3^b with a cluster shape
 CHIRP_FAMILY_23 = (2, 3)
@@ -222,37 +230,13 @@ def walk_grid(K, g):
     return K.cplx_capacity(g)
 
 
-def table_build_s(K, scfg) -> dict:
-    """Seconds of the product route's first-call table build at ``scfg``
-    in a tree that builds its tables on the host in float64 ({} for one
-    that builds them on the card): each table's host build and its copy
-    to the card."""
-    out = {}
-    for kind in ("analysis", "synthesis"):
-        host = getattr(K, f"_{kind}_table_np", None)
-        if host is None:
-            continue
-        host.cache_clear()
-        t0 = time.perf_counter()
-        tab = host(scfg)
-        out[f"{kind}_host_s"] = time.perf_counter() - t0
-        out[f"{kind}_shape"] = list(tab.shape)
-        t0 = time.perf_counter()
-        torch.as_tensor(tab, dtype=torch.float32).cuda()
-        torch.cuda.synchronize()
-        out[f"{kind}_copy_s"] = time.perf_counter() - t0
-        del tab  # the cache keeps it for the route's first call
-    return out
-
-
 def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     """A and D on ``n`` samples of the headline signal at ``sr``, one
     unchunked view or (``chunked``) the views of ``reduce_noise``'s chunks
     (its own route, the device time also by ``queued_ms``; ``torch.stft`` /
     ``torch.istft`` with ``--library``, on the same views), their bytes
     bounds, and kernel C's plan for its line at the default 500 Hz of
-    frequency smoothing (timed where there is one). A product route past
-    ``UNTIMED_PRODUCT_NFFT`` is recorded, not timed."""
+    frequency smoothing (timed where there is one)."""
     from noisereduce_tpu_torch.config import GateConfig, StftConfig
     from noisereduce_tpu_torch.ops.cuda import geometry as G
     from noisereduce_tpu_torch.ops.dsp import tri_norm
@@ -277,21 +261,13 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
         cell["c_plan"] = f"raises ValueError: {e}"
     print(f"{n_fft}: route {g.route}, {g.n_frames} frames, kernel C plan {cell['c_plan']}",
           flush=True)
-    if g.route == "product":
-        cell["table_build"] = table_build_s(K, scfg) if n_fft <= UNTIMED_PRODUCT_NFFT else (
-            "not timed")
-        cell["table_bytes"] = dict(analysis=g.k_a * g.cols_a * 4,
-                                   synthesis=g.r * g.f2 * g.cols_d * 4)
-        print(f"{n_fft}: product route table build {cell['table_build']}, tables "
-              f"{cell['table_bytes']} bytes", flush=True)
-        if n_fft > UNTIMED_PRODUCT_NFFT and not args.product_long:
-            return cell
     K.reset_launch_counts()
     a = (xs, g, *cut)
     # the first call of each (host wall, tables and builds of the call
     # included) and the peak device memory over both; a call that runs out
-    # of device memory (the product route's tables past about n_fft
-    # 146,000) is recorded, D then tried on zero planes of the same shape
+    # of device memory (a tree whose route builds n_fft x n_fft tables, past
+    # about n_fft 146,000) is recorded, D then tried on zero planes of the
+    # same shape
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -423,7 +399,7 @@ AB_VARIANTS = {
     "diag_a_no_unpack": ([
         (_A, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
          "for (int e = sg.lane; e < 0; e += plan.threads) {"),
-        (_A, "e < min(t.fe << (log2m - 1), seg_end >> 1); e += step) {",
+        (_A, "e < min(t.fe << log2s, seg_end >> shift); e += step) {",
          "e < 0; e += step) {")], False),
     "diag_d_no_pre": ([
         (_D, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
@@ -626,12 +602,6 @@ def main() -> None:
                     help="comma-separated n_fft values to time (default: every cell)")
     ap.add_argument("--library", action="store_true",
                     help="also time torch.stft / torch.istft at each cell's shapes")
-    ap.add_argument("--product", action="store_true",
-                    help="also time A's and D's product route at each cell's shapes")
-    ap.add_argument("--product-long", action="store_true",
-                    help="time a long cell on the product route past n_fft "
-                         f"{UNTIMED_PRODUCT_NFFT} too (a tree whose route it is), "
-                         "recording an out-of-memory error")
     ap.add_argument("--ab", default="",
                     help="[NAME=]checkout[,...]: checkouts whose real-FFT kernels to time "
                          "beside this tree's, in one process")
@@ -735,9 +705,6 @@ def main() -> None:
                     cell.update(times("torch_istft", lambda: torch.istft(
                         zm, g.n_fft, g.hop, g.win, window, center=True, length=g.view_len)))
                     del views, zm
-                if args.product and not tag and routes["spectra"]["product"] == 0:
-                    cell.update(times("spectra_product", lambda: K._spectra_on("product", *a)))
-                    cell.update(times("istft_ola_product", lambda: K._istft_ola_on("product", *d)))
                 del re, im, mask
                 torch.cuda.empty_cache()
     for key, name, n_fft, hop, n, sr, chunked in LONG_CELLS:

@@ -92,7 +92,7 @@ VARIANTS = {  # name: [(file under PKG, code, its replacement)]
          "return with_set<1, 3, 5, 7, 15, 21, 35, 105, 1155, 1365, 15015>("
          "odd, build(N(), N(), N()));"),
         ("geometry.py",
-         "    return (n_fft % 2 == 0 and FFT_MIN_NFFT <= n_fft <= REAL_MAX_NFFT\n"
+         "    return (n_fft % 2 == 0 and 2 <= n_fft <= REAL_MAX_NFFT\n"
          "            and _strip(n_fft // 2, REAL_RADICES) == 1)",
          "    return False"),
     ],

@@ -12,7 +12,8 @@ the complex-frame kernels; 1323, odd, two frames a transform; 1102, the
 large radices 19 and 29 (the chirp-z route before them); 1101, the
 chirp-z route; 8580, 5005 and 4106, the big block; 16384, 16380, 12000
 and 4851, the cluster route on 2 and 3 blocks (the big block before
-it); 40, the DFT products; 40000, 32768 and 19683, the cluster
+it); 40, the real-FFT kernels' 204-frame tiles (the DFT products before
+them, so a parent's outputs differ there); 40000, 32768 and 19683, the cluster
 route; 4803, the cluster chirp route), in both STFT conventions, over 3
 halo'd chunk views of 2 signal rows; B with the headline's 19 time taps,
 one unit tap and 801 (its separate smoothing launch); E with a clip's
@@ -63,6 +64,8 @@ GEOMETRIES = (
     ("n_fft 16384", dict(n_fft=16384, hop_length=4096), SR),
     ("n_fft 12000", dict(n_fft=12000, hop_length=3000), SR),
     ("n_fft 4851", dict(n_fft=4851, hop_length=1617), 44100),
+    # frames of 5 ms at 8 kHz: the real-FFT kernels, 204 frames a tile and a
+    # group (the DFT products before them, so a parent's outputs differ there)
     ("n_fft 40", dict(n_fft=40, hop_length=10), 8000),
     # the cluster route: 4, 2 and 3 blocks (19683 odd, two frames a slot)
     ("n_fft 40000", dict(n_fft=40000, hop_length=10000), SR),
