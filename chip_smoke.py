@@ -52,12 +52,19 @@ last line is printed only when every phase passed):
    reference outputs;
 5. headline: 960 s of 48 kHz mono (tones plus non-stationary noise, from a
    seed) through ``reduce_noise`` with its defaults, against the port's
-   staged plain path on the card; every kernel of the path must have
-   launched; wall time as the minimum of 3 runs after a warm-up (CUDA
-   events); then the same call with ``max_parallel_chunks=8`` (10
-   host-driven groups of chunks, each kernel launched once a group),
-   bitwise the one-launch output, with the peak device memory each call
-   adds (``torch.cuda.max_memory_allocated``) and its time;
+   staged plain path on the card; the signal reaches the card through
+   pinned slabs (``parallel/transfer.py``) and its 77 chunks run in
+   ``HEADLINE_PIECES`` pieces, each launching each kernel once as soon as
+   its slabs have arrived, its cores sent back behind it; the output
+   bitwise the one-copy path's (the signal on the card whole, then the
+   same gate), and the call's split on a line of its own (host wall, the
+   host's copy into pinned memory, H2D, kernels, D2H, pieces, the overlaps;
+   ``torch.profiler``); wall time as the minimum of 3 runs after a warm-up
+   (CUDA events); then the same call with ``max_parallel_chunks=8`` (10
+   host-driven groups of chunks, the pieces, each kernel launched once a
+   group), bitwise the default call's output, with the peak device memory
+   each call adds (``torch.cuda.max_memory_allocated``; a group holds
+   fewer chunks than a default piece) and its time;
 6. stationary headline: the same signal with a separate 10 s noise clip,
    ``stationary=True``, the same way;
 7. batch: ``reduce_noise_batch`` on 32 clips of 10 s, stationary with
@@ -114,7 +121,8 @@ last line is printed only when every phase passed):
 14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
     every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102, 1101 and
     the 5 ms frames' n_fft 40), held and timed as above; the H2D of the bf16
-    signal cast on the host against cast on the card; the headline, the
+    signal through pinned slabs, cast on the host against cast on the card;
+    the headline, the
     stationary headline and the torch headline with
     ``compute_dtype=torch.bfloat16``, each launching the bf16 builds of A,
     B or E or F and D only (C float32), within the envelope of the float32
@@ -145,9 +153,10 @@ last line is printed only when every phase passed):
     torch headline with ``mesh=chunk_mesh()`` and with ``(cuda:0,) * 4``,
     the headline on the latter also with ``max_parallel_chunks=8``, and
     the 960 s file through ``reduce_noise_file(mesh=(cuda:0,) * 4)``, each
-    bitwise its ``mesh=None`` call with each kernel launched once a shard
-    (per-device counts), timed and its peak device memory beside the
-    ``mesh=None`` call's;
+    bitwise its ``mesh=None`` call with each kernel launched once a piece
+    of a shard (each device's slice staged through pinned slabs, its
+    chunks in pieces; per-device counts), timed and its peak device memory
+    beside the ``mesh=None`` call's;
 17. gradient: the fused masks of TPU rows 6 (kernel G, frequency-major)
     and 7 (kernel B, one unit tap) under grad on an 8-view plane; the
     training step of ``TPUGate(sr=16000, nonstationary=True)``, loss
@@ -205,6 +214,9 @@ NOISE_SECONDS = 10
 CHUNK, PADDING = 600000, 30000
 # the grouping phase: the headline's 77 chunks in groups of this many
 GROUP_CHUNKS = 8
+# the pieces the headline's 77 chunks run in, each launching each kernel
+# once (parallel/transfer.py: piece_chunks)
+HEADLINE_PIECES = 4
 # streaming: the other file engines and StreamingGate on the first 60 s;
 # the gate in blocks of 100 ms with 1,024 samples of lookahead, fed in
 # pieces of these lengths in turn
@@ -1451,6 +1463,104 @@ def under_grad(K, label, fn, args, cot, expected, launches):
     return grads
 
 
+def one_copy_headline(x: np.ndarray, cfg) -> np.ndarray:
+    """The headline's output by the one-copy path: the whole signal copied
+    to the card first, then the same chunked gate in one launch of each
+    kernel (``api._run_nonstationary`` on a card tensor)."""
+    from noisereduce_tpu_torch.api import _run_nonstationary
+
+    with torch.no_grad():
+        y = torch.as_tensor(x[None]).cuda()
+        return _run_nonstationary(y, cfg, CHUNK, PADDING)[0].cpu().numpy()
+
+
+def call_split(label: str, call, K, transfer, card: str, reps: int = 3) -> dict:
+    """Where a call's time goes: the host wall (min of ``reps`` after a
+    warm-up, each ending in a synchronize), the host's copy into pinned
+    memory (the time spent in ``transfer.HostSignal.copy_into``; 0 for None,
+    a tree without the staged path), the pieces (kernel D's launches), and
+    from one ``torch.profiler`` trace the H2D, the kernels and the D2H
+    (device time by kind, and the copies' count), how long kernels ran
+    during an H2D and a D2H during a kernel, the device busy share of the
+    profiled wall, and the device ms by operation name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = wall_s(call, reps) * 1e3
+    spent = [0.0]
+    if transfer is not None:
+        copy_into = transfer.HostSignal.copy_into
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            copy_into(*a, **k)
+            spent[0] += time.perf_counter() - t0
+
+        transfer.HostSignal.copy_into = timed
+    try:
+        K.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+    finally:
+        if transfer is not None:
+            transfer.HostSignal.copy_into = copy_into
+    pieces = K.launch_counts()["istft_ola"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    spans = collections.defaultdict(list)
+    by_name = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = ("h2d" if e.name.startswith("Memcpy HtoD") else "d2h"
+                    if e.name.startswith("Memcpy DtoH") else "other"
+                    if e.name.startswith(("Memcpy", "Memset")) else "kernels")
+            spans[kind].append((e.time_range.start / 1e3, e.time_range.end / 1e3))
+            by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+
+    def merged(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def overlap(xs, ys):
+        return sum(max(0.0, min(b, d) - max(a, c)) for a, b in merged(xs) for c, d in merged(ys))
+
+    busy = sum(b - a for a, b in merged([iv for v in spans.values() for iv in v]))
+    split = dict(
+        wall_ms=wall, host_copy_ms=spent[0] * 1e3, pieces=pieces,
+        h2d_ms=sum(b - a for a, b in spans["h2d"]), h2d_copies=len(spans["h2d"]),
+        kernels_ms=sum(b - a for a, b in spans["kernels"]),
+        d2h_ms=sum(b - a for a, b in spans["d2h"]), d2h_copies=len(spans["d2h"]),
+        kernels_during_h2d_ms=overlap(spans["kernels"], spans["h2d"]),
+        d2h_during_kernels_ms=overlap(spans["d2h"], spans["kernels"]),
+        profiled_ms=traced, busy_ms=busy, busy_share=busy / traced, by_name=dict(by_name))
+    print(f"{label}: host wall {wall:.2f} ms (min of {reps}), host copy into pinned memory "
+          f"{split['host_copy_ms']:.2f} ms, H2D {split['h2d_ms']:.3f} ms in "
+          f"{split['h2d_copies']} copies, kernels {split['kernels_ms']:.3f} ms, D2H "
+          f"{split['d2h_ms']:.3f} ms in {split['d2h_copies']} copies, {pieces} pieces; kernels "
+          f"during an H2D {split['kernels_during_h2d_ms']:.3f} ms, a D2H during kernels "
+          f"{split['d2h_during_kernels_ms']:.3f} ms; device busy {busy:.2f} of {traced:.2f} ms "
+          f"profiled ({100 * busy / traced:.0f}%); on {card}", flush=True)
+    return split
+
+
+def pieces_of(n_samples: int, rows: int = 1) -> int:
+    """The pieces a staged chunked call of ``n_samples`` samples a row
+    runs in, each launching each kernel once (``transfer.piece_chunks``);
+    one for a signal of at most one chunk."""
+    from noisereduce_tpu_torch.parallel.transfer import piece_chunks
+
+    n_chunks = (n_samples - 1) // CHUNK + 1
+    return -(-n_chunks // piece_chunks(n_chunks, CHUNK, rows))
+
+
 ROUTES = {}  # path label -> kernels A and D's launches by route
 DTYPES = {}  # path label -> every kernel's launches by the dtype of its planes
 
@@ -2027,7 +2137,8 @@ def mesh_phase(nr, K, card, launches, x, noise) -> None:
     headline on the second mesh also with ``max_parallel_chunks=8``; the
     960 s file through ``reduce_noise_file(mesh=(cuda:0,) * 4)``. Each
     output bitwise its ``mesh=None`` call, each kernel of the path launched
-    once a shard (once a group; per-device counts), and its time (CUDA
+    once a piece of a shard (once a group; per-device counts; the file once
+    a chunk), and its time (CUDA
     events, min of 3; the file: host wall, min of 2) and peak device memory
     beside the ``mesh=None`` call's."""
     import tempfile
@@ -2042,11 +2153,14 @@ def mesh_phase(nr, K, card, launches, x, noise) -> None:
     meshes = {"chunk_mesh()": chunk_mesh(), f"(cuda:0,) * {MESH_SHARDS}": repeated}
 
     def by_device(mesh, kernels, group=0, before=0):
-        """Each kernel of the path once a shard (a group of ``group``
+        """Each kernel of the path once a piece of a shard (a group of
+        ``group`` chunks; else ``transfer.piece_chunks`` of the shard's k
         chunks), by device; A ``before`` more on the first device."""
+        from noisereduce_tpu_torch.parallel.transfer import piece_chunks
+
         shard = {}
         for dev, _, k in mesh_ranges(n_chunks, mesh):
-            shard[str(dev)] = shard.get(str(dev), 0) + (-(-k // group) if group else 1)
+            shard[str(dev)] = shard.get(str(dev), 0) + -(-k // (group or piece_chunks(k, CHUNK, 1)))
         want = {name: dict(shard) for name in kernels}
         first = str(mesh.devices[0])
         want["spectra"][first] = want["spectra"].get(first, 0) + before
@@ -2546,15 +2660,27 @@ def bf16_path(K, card, launches, label, fn32, fn16, expected, envelope, like, de
 
 
 def bf16_h2d_ms(x: np.ndarray, rounds: int = 7) -> dict:
-    """Host wall ms to bring the float32 array ``x`` to the card as bf16,
-    cast on the host before the copy or on the card after it, and of the
-    host cast alone, in interleaved rounds after a warm-up (the pageable
-    H2D's time spreads between runs): (min, median) of each."""
+    """Host wall ms to bring the float32 array ``x`` to the card as bf16
+    through the staged copy (``parallel.transfer``: pinned slabs, the copy
+    stream), cast on the host before the copy (its bf16 bits staged as
+    int16, then viewed as bf16 on the card) or on the card after it (what
+    ``reduce_noise`` does), and of the host cast alone, in interleaved
+    rounds after a warm-up: (min, median) of each."""
+    from noisereduce_tpu_torch.parallel.transfer import HostSignal
+
+    dev = torch.device("cuda")
+
+    def host_cast():
+        bits = torch.as_tensor(x).to(BF16).view(torch.int16).numpy()
+        return HostSignal(bits[None], torch.int16).stage(dev).tensor().view(BF16)
+
     ways = {
-        "host_cast": lambda: torch.as_tensor(x).to(BF16).to("cuda"),
-        "card_cast": lambda: torch.as_tensor(x).to("cuda").to(BF16),
+        "host_cast": host_cast,
+        "card_cast": lambda: HostSignal(x[None], BF16).stage(dev).tensor(),
         "cast_alone": lambda: torch.as_tensor(x).to(BF16),
     }
+    if not torch.equal(ways["host_cast"](), ways["card_cast"]()):
+        fail("bf16 H2D: the host's cast and the card's differ")
     times = {k: [] for k in ways}
     for r in range(rounds + 1):
         for k, fn in ways.items():
@@ -2579,10 +2705,12 @@ def bf16_phase(nr, K, card, launches, x, noise, results) -> None:
 
     ck = dict(chunk_size=CHUNK, padding=PADDING)
     b16 = dict(ck, compute_dtype=BF16)
+    P = HEADLINE_PIECES
     h2d = bf16_h2d_ms(x)
-    print(f"bf16 H2D of the {HEADLINE_SECONDS} s signal ({x.nbytes / 1e6:.1f} MB float32), "
-          f"host wall ms, min / median of 7 interleaved rounds: cast on the host then copied "
-          f"{h2d['host_cast'][0]:.2f} / {h2d['host_cast'][1]:.2f}, copied then cast on the "
+    print(f"bf16 H2D of the {HEADLINE_SECONDS} s signal ({x.nbytes / 1e6:.1f} MB float32) "
+          f"through pinned slabs, host wall ms, min / median of 7 interleaved rounds: cast on "
+          f"the host (bits equal to the card's cast) then staged "
+          f"{h2d['host_cast'][0]:.2f} / {h2d['host_cast'][1]:.2f}, staged then cast on the "
           f"card {h2d['card_cast'][0]:.2f} / {h2d['card_cast'][1]:.2f}, the host cast alone "
           f"{h2d['cast_alone'][0]:.2f} / {h2d['cast_alone'][1]:.2f}; reduce_noise casts on "
           f"the card; on {card}", flush=True)
@@ -2598,7 +2726,7 @@ def bf16_phase(nr, K, card, launches, x, noise, results) -> None:
     head16, paths["bf16 headline"] = bf16_path(
         K, card, launches, "bf16 headline", lambda: nr.reduce_noise(x, SR, **ck),
         lambda: nr.reduce_noise(x, SR, **b16),
-        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+        dict(spectra=P, nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P),
         "non-stationary", x, lambda: fused_gate_chunked(y32, cfg, CHUNK, PADDING),
         lambda: fused_gate_chunked(y16, cfg, CHUNK, PADDING))
     paths["bf16 headline"]["h2d_ms"] = h2d
@@ -2606,13 +2734,13 @@ def bf16_phase(nr, K, card, launches, x, noise, results) -> None:
         K, card, launches, "bf16 stationary headline",
         lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **ck),
         lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **b16),
-        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1), "stationary", x,
+        dict(spectra=1 + P, stationary_mask=P, freq_smooth_blend=P, istft_ola=P), "stationary", x,
         lambda: stationary_on_card(y32, n32), lambda: stationary_on_card(y16, n16))
     _, paths["bf16 torch headline"] = bf16_path(
         K, card, launches, "bf16 torch headline",
         lambda: nr.reduce_noise(x, SR, use_torch=True, **ck),
         lambda: nr.reduce_noise(x, SR, use_torch=True, **b16),
-        dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+        dict(spectra=P, torch_nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P),
         "use_torch", x, lambda: tgate.chunked(y32, CHUNK, PADDING),
         lambda: tgate.chunked(y16, CHUNK, PADDING))
     del y32, n32, y16, n16
@@ -2712,11 +2840,14 @@ def main() -> None:
 
     launches = {}
     ck = dict(chunk_size=CHUNK, padding=PADDING)  # the API's defaults
+    P = HEADLINE_PIECES
+    if pieces_of(len(x)) != P:
+        fail(f"the headline runs in {pieces_of(len(x))} pieces, not {P}")
 
     # headline: the main path as a user calls it, numpy in and out
     out, launches["headline"] = run_path(
         K, "headline", lambda: nr.reduce_noise(x, SR, **ck),
-        dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+        dict(spectra=P, nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P))
     check_output("headline", out, x)
     ref = nonstationary_plain(_as_2d(x)[0], cfg)[0].cpu().numpy()
     dev = float(np.abs(out.astype(np.float64) - ref).max())
@@ -2725,6 +2856,16 @@ def main() -> None:
           flush=True)
     if not dev <= lim:
         fail("headline disagrees with the staged plain path")
+    one_copy = one_copy_headline(x, cfg)
+    bitwise = np.array_equal(out, one_copy)
+    print(f"headline ({P} pieces, the signal through pinned slabs) bitwise the one-copy "
+          f"path (the signal on the card whole, then the same gate): {bitwise}", flush=True)
+    if not bitwise:
+        fail("headline differs from the one-copy path")
+    del one_copy
+    from noisereduce_tpu_torch.parallel import transfer
+
+    call_split("headline split", lambda: nr.reduce_noise(x, SR, **ck), K, transfer, card)
     ms = time_ms(lambda: nr.reduce_noise(x, SR, **ck))
     plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(x)[0], cfg).cpu())
     print(
@@ -2735,9 +2876,13 @@ def main() -> None:
     )
 
     # grouping: the headline in host-driven groups of GROUP_CHUNKS chunks
-    # (max_parallel_chunks), bitwise the one-launch output, and the peak
-    # device memory that each call adds to what was allocated before it
+    # (max_parallel_chunks), bitwise the default call's output, and the peak
+    # device memory that each call adds to what was allocated before it: a
+    # group holds fewer chunks than the default call's pieces
     n_groups = -(-((len(x) - 1) // CHUNK + 1) // GROUP_CHUNKS)
+    per_piece = -(-((len(x) - 1) // CHUNK + 1) // P)
+    if not GROUP_CHUNKS < per_piece:
+        fail(f"a group of {GROUP_CHUNKS} chunks is no smaller than a piece of {per_piece}")
     grouped, launches["headline, grouped"] = run_path(
         K, "headline, grouped",
         lambda: nr.reduce_noise(x, SR, max_parallel_chunks=GROUP_CHUNKS, **ck),
@@ -2748,20 +2893,21 @@ def main() -> None:
     ms_grouped = time_ms(lambda: nr.reduce_noise(x, SR, max_parallel_chunks=GROUP_CHUNKS, **ck))
     bitwise = np.array_equal(grouped, out)
     print(f"headline grouped, max_parallel_chunks {GROUP_CHUNKS} ({n_groups} groups): "
-          f"bitwise the one-launch output: {bitwise}; peak device memory {grouped_mib:.1f} "
-          f"MiB against {one_mib:.1f} MiB in one launch; reduce_noise {ms_grouped:.1f} ms "
-          f"against {ms:.1f} ms, on {card}", flush=True)
+          f"bitwise the default call's output: {bitwise}; peak device memory "
+          f"{grouped_mib:.1f} MiB against {one_mib:.1f} MiB in the default call's {P} pieces "
+          f"of up to {per_piece} chunks; reduce_noise {ms_grouped:.1f} ms against {ms:.1f} "
+          f"ms, on {card}", flush=True)
     if not bitwise:
-        fail("headline grouped differs from the one-launch output")
+        fail("headline grouped differs from the default call's output")
     if not grouped_mib < one_mib:
-        fail("headline grouped does not hold less device memory than one launch")
+        fail("headline grouped does not hold less device memory than the default pieces")
     del grouped
 
     # stationary headline: a separate noise clip
     out, launches["stationary headline"] = run_path(
         K, "stationary headline",
         lambda: nr.reduce_noise(x, SR, stationary=True, y_noise=noise, **ck),
-        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+        dict(spectra=1 + P, stationary_mask=P, freq_smooth_blend=P, istft_ola=P))
     check_output("stationary headline", out, x)
     y2d = torch.as_tensor(x[None]).cuda()
     yn = torch.as_tensor(noise).cuda()
@@ -2843,7 +2989,7 @@ def main() -> None:
     xt = torch.as_tensor(x[None]).cuda()
     out, launches["torch headline"] = run_path(
         K, "torch headline", lambda: nr.reduce_noise(x, SR, use_torch=True, **ck),
-        dict(spectra=1, torch_nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+        dict(spectra=P, torch_nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P))
     check_output("torch headline", out, x)
     ref = torch_staged(xt, tgate, CHUNK, PADDING)[0].cpu().numpy()
     dev = float(np.abs(out.astype(np.float64) - ref).max())
@@ -2868,7 +3014,7 @@ def main() -> None:
     out, launches["torch stationary headline"] = run_path(
         K, "torch stationary headline",
         lambda: nr.reduce_noise(x, SR, stationary=True, use_torch=True, y_noise=noise, **ck),
-        dict(spectra=2, stationary_mask=1, freq_smooth_blend=1, istft_ola=1))
+        dict(spectra=1 + P, stationary_mask=P, freq_smooth_blend=P, istft_ola=P))
     check_output("torch stationary headline", out, x)
     torch_stationary_vs_plain("torch stationary headline", out, xt,
                               torch.as_tensor(noise[None]).cuda(), tsgate, CHUNK, PADDING)
@@ -2924,9 +3070,10 @@ def main() -> None:
     # the staged plain path, then A and D at its shapes
     def route_cell(label, xq, sr, kw, route, conv_gate=True):
         c = nr.GateConfig(sr=sr, **kw)
+        p = pieces_of(len(xq))
         out, launches[label] = run_path(
             K, label, lambda: nr.reduce_noise(xq, sr, **kw, **ck),
-            dict(spectra=1, nonstationary_mask=1, freq_smooth_blend=1, istft_ola=1),
+            dict(spectra=p, nonstationary_mask=p, freq_smooth_blend=p, istft_ola=p),
             route=route)
         check_output(label, out, xq)
         ref = nonstationary_plain(_as_2d(xq)[0], c)[0].cpu().numpy()

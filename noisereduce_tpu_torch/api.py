@@ -7,7 +7,9 @@ torch-convention gate of ``use_torch=True``), and ``reduce_noise_batch``
 - ``device`` defaults to ``"cuda"``, as the reference's torch path does.
   Where CUDA is absent, ``device="cuda"`` raises; it does not fall back to
   the CPU. ``device="cpu"`` runs the kernels' plain versions (the parity
-  mode).
+  mode). On a card the signal arrives through pinned slabs and the chunked
+  body runs in pieces, each piece's H2D, kernels and D2H overlapping the
+  others' (``parallel.transfer``); the output is the same.
 - ``compute_dtype`` defaults to ``torch.float32``. ``torch.bfloat16`` is
   the opt-in fast mode of the JAX package: the signal, the spectrogram
   planes and the output are bfloat16, the mask decisions and the
@@ -62,6 +64,7 @@ from noisereduce_tpu_torch.ops.cuda.dispatch import (
 )
 from noisereduce_tpu_torch.parallel.chunking import n_chunks_for, process_chunked
 from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
+from noisereduce_tpu_torch.parallel.transfer import HostSignal, PinnedCores, StagedSignal
 
 __all__ = ["reduce_noise", "reduce_noise_batch"]
 
@@ -218,14 +221,18 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _finalize_reduce_output(out: torch.Tensor, out_dtype, flat: bool) -> np.ndarray:
+def _finalize_reduce_output(out, out_dtype, flat: bool) -> np.ndarray:
     """Host array with the input's dtype and shape restored (``api.py:623``).
 
     A card's output lands in pinned host memory, which the returned array
     keeps: a pageable D2H, or a second host copy, each cost more than the
-    kernels together at the headline size (PERF.md, section 6). A bfloat16
-    output (numpy has no such type) is widened to float32 first, where it
-    is."""
+    kernels together at the headline size (PERF.md, section 6). The chunked
+    body's pieces have sent their cores there already
+    (``parallel.transfer.PinnedCores``): only their copies are waited for.
+    A bfloat16 output (numpy has no such type) is widened to float32 first,
+    where it is."""
+    if isinstance(out, PinnedCores):
+        out = out.result()
     if out.dtype == torch.bfloat16:
         out = out.float()
     if out.device.type != "cpu":
@@ -387,7 +394,7 @@ def _reduce_noise_deferred(
         y, flat = _as_2d(y)
         n_samples = y.shape[-1]
     group = _chunk_group(padding, max_parallel_chunks, n_samples, chunk_size)
-    y2d = _to_tensor(y, dev if mesh is None else torch.device("cpu"), cdtype)
+    y2d = _signal(y, dev, cdtype, mesh)
     # the host-driven group loop under a bar, for a signal longer than a
     # chunk (api.py:517), one chunk a group unless max_parallel_chunks says;
     # a mesh shows none
@@ -433,10 +440,18 @@ def _reduce_noise_deferred(
         else:
             # noise clip handling (stationary.py:47-64; api.py:560-578):
             # default to y, mono collapse, clip to chunk_size samples
-            def own_rows():  # the signal's rows where the statistics run
+            def own_rows():
+                """The signal's rows where the statistics run, the first
+                chunk_size samples where the clip takes no more: a staged
+                signal's, once only their slabs have arrived."""
+                m = chunk_size if clip_noise_stationary else None
+                if isinstance(y2d, StagedSignal):
+                    return y2d.head(m)
+                if isinstance(y2d, HostSignal):
+                    return y2d.stage(dev, 0, m and min(m, n_samples)).tensor()
                 if mesh is None:
                     return y2d  # "self": no second transfer
-                return (y2d[..., :chunk_size] if clip_noise_stationary else y2d).to(dev)
+                return y2d[..., :m].to(dev)
 
             if isinstance(_noise_rows, str):
                 yn_mono = own_rows()
@@ -456,12 +471,20 @@ def _reduce_noise_deferred(
 
 def _to_tensor(a, dev: torch.device, dtype) -> torch.Tensor:
     """An array, or a list of equal-length 1-D rows, on ``dev`` in ``dtype``.
-    Rows go to the device one by one into one (rows, n) tensor: stacking
-    them on the host first would cost a host copy of the whole block. A
-    bfloat16 array crosses in its own dtype and is cast on the device, as
-    the rows are: the host's cast of a long signal costs about what the
-    halved copy saves (``chip_smoke.py`` times both; PERF.md, section
-    6)."""
+    On a card the rows arrive through pinned slabs in their own dtype and
+    are cast there (``parallel.transfer``; a bfloat16 signal too: the
+    host's cast of a long signal costs about what the halved copy saves,
+    ``chip_smoke.py`` times both, PERF.md, section 6). On the host, rows
+    are copied one by one into one (rows, n) tensor: stacking them first
+    would cost a host copy of the whole block."""
+    if dev.type == "cuda":
+        if isinstance(a, list):
+            return HostSignal(a, dtype).stage(dev).tensor()
+        a = np.asarray(a)
+        if not a.size:
+            return torch.empty(a.shape, dtype=dtype, device=dev)
+        rows = a.reshape(-1, a.shape[-1]) if a.ndim else a.reshape(1, 1)
+        return HostSignal(rows, dtype).stage(dev).tensor().reshape(a.shape)
     if not isinstance(a, list):
         t = torch.as_tensor(np.ascontiguousarray(a))
         if dtype == torch.bfloat16:
@@ -472,6 +495,21 @@ def _to_tensor(a, dev: torch.device, dtype) -> torch.Tensor:
     for i, r in enumerate(rows):
         out[i].copy_(r)
     return out.to(dtype)
+
+
+def _signal(y, dev: torch.device, dtype, mesh):
+    """The signal a call gates: on a card, a ``StagedSignal`` whose slabs
+    the chunked body's pieces ask for as they run (a noise clip, taken
+    whole, arrives first); with a mesh of cards, a ``HostSignal`` whose
+    slices each device stages; on the CPU (and with a mesh of CPU devices,
+    on the host) a tensor in ``dtype``."""
+    if mesh is not None:
+        if all(d.type == "cuda" for d in mesh.devices):
+            return HostSignal(y, dtype)
+        return _to_tensor(y, torch.device("cpu"), dtype)
+    if dev.type == "cuda":
+        return HostSignal(y, dtype).stage(dev)
+    return _to_tensor(y, dev, dtype)
 
 
 def reduce_noise_batch(ys, sr, y_noise=None, **kwargs):

@@ -214,7 +214,9 @@ class TPUGate(torch.nn.Module):
         ``parallel.mesh.ChunkMesh``): the chunks sharded over its devices,
         the noise clip's statistics copied to each, the output on
         ``y2d``'s device (``parallel.chunking.shard_cores``). (ch, n) ->
-        (ch, n)."""
+        (ch, n). ``reduce_noise`` also passes its host signal on its way to
+        the card (``parallel.transfer``), which the fused path gates in
+        pieces and the other paths take whole."""
         ch, n = y2d.shape
         if fused_tpugate_supported(self, y2d, None if mesh is None else mesh.devices[0]):
             self._check(y2d, xn, ch, min(chunk_size, n) + 2 * padding)

@@ -170,10 +170,10 @@ def fused_gate_stationary(
 
 
 def fused_gate_chunked(
-    y2d: torch.Tensor, cfg: GateConfig, chunk_size: int, padding: int,
+    y2d, cfg: GateConfig, chunk_size: int, padding: int,
     noise_thresh=None, group: int = 0, progress: bool = False, mesh=None,
     axis_name: str = "chunks",
-) -> torch.Tensor:
+):
     """The whole chunked body (reference base.py:144-226): chunk i of each
     row is the view of source samples [i*cs - padding, (i+1)*cs + padding),
     zero outside the signal, gated, and its core [padding, padding + cs)
@@ -187,13 +187,20 @@ def fused_gate_chunked(
     branch of ``_fused_chunked_impl``, ``:1071-1094``): each device reads
     its range's views from its own slice of the signal and runs A, B or E,
     C and D over them (in groups of ``group`` chunks, no bar), the
-    threshold copied to each; the output lands on ``y2d``'s device."""
+    threshold copied to each; the output lands on ``y2d``'s device.
+
+    ``y2d`` may also be a host signal on its way to the card
+    (``parallel.transfer.StagedSignal``, or with a mesh a ``HostSignal``):
+    the chunks then run in pieces, each as soon as its slabs have arrived,
+    and the result is the ``PinnedCores`` they return to (no gradient: the
+    signal is a host array)."""
     from noisereduce_tpu_torch.models.spectral_gate import (
         _gate_nonstationary_staged, _gate_stationary_staged,
     )
     from noisereduce_tpu_torch.parallel.chunking import (
         grouped_cores, process_chunked, shard_cores,
     )
+    from noisereduce_tpu_torch.parallel.transfer import StagedSignal
 
     def forward(y, thr):
         if mesh is not None:
@@ -201,10 +208,10 @@ def fused_gate_chunked(
                 lambda yd, start, chunks, t: _gate_from_signal(
                     yd, cfg, chunk_size, padding, t, chunks, start),
                 y, chunk_size, padding, mesh, axis_name, group, (thr,))
-        y = y.contiguous()
+        x = y.buffer if isinstance(y, StagedSignal) else y.contiguous()
         return grouped_cores(
-            lambda chunks: _gate_from_signal(y, cfg, chunk_size, padding, thr, chunks),
-            y, chunk_size, group, progress)
+            lambda chunks: _gate_from_signal(x, cfg, chunk_size, padding, thr, chunks),
+            y if isinstance(y, StagedSignal) else x, chunk_size, group, progress, padding)
 
     def twin(y, thr):
         sharding = dict(mesh=mesh, axis_name=axis_name)
@@ -216,6 +223,8 @@ def fused_gate_chunked(
             lambda c, t: _gate_stationary_staged(c, t, cfg), y, chunk_size, padding,
             extra=(thr,), **sharding)
 
+    if not isinstance(y2d, torch.Tensor):
+        return forward(y2d, noise_thresh)
     return fused_with_twin(forward, twin, y2d, noise_thresh)
 
 

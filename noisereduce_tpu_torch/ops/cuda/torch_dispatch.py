@@ -65,6 +65,7 @@ from noisereduce_tpu_torch.parallel.chunking import (
     process_chunked,
     shard_cores,
 )
+from noisereduce_tpu_torch.parallel.transfer import HostSignal, StagedSignal
 
 __all__ = [
     "fused_tpugate_supported",
@@ -189,9 +190,9 @@ def fused_tpugate(x: torch.Tensor, xn, gate, out_len=None) -> torch.Tensor:
     )
 
 
-def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int,
+def fused_tpugate_chunked(y2d, gate, chunk_size: int, padding: int,
                           xn=None, group: int = 0, progress: bool = False, mesh=None,
-                          axis_name: str = "chunks") -> torch.Tensor:
+                          axis_name: str = "chunks"):
     """The whole chunked body of the torch-convention engine (reference
     base.py:144-226 with streamed_torch_gate.py): chunk i of each row is
     the view of source samples [i*cs - padding, (i+1)*cs + padding), zero
@@ -208,7 +209,10 @@ def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int
     devices (``parallel.chunking.shard_cores``; ``api.py::_run_torch_gate``,
     ``:163-190``), the threshold taken once, on ``xn``'s device, and copied
     to each; a shorter one gated on the mesh's first device; the output on
-    ``y2d``'s device."""
+    ``y2d``'s device. ``y2d`` may also be a host signal on its way to the
+    card (``parallel.transfer.StagedSignal``, or with a mesh a
+    ``HostSignal``): the chunks then run in pieces, each as soon as its
+    slabs have arrived, into a ``PinnedCores`` (no gradient)."""
     def forward(y, b):
         thr = _threshold_of(gate, b)
         if mesh is not None and y.shape[-1] > chunk_size:
@@ -219,12 +223,15 @@ def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int
         home = y.device
         if mesh is not None:
             dev = mesh.devices[0]
-            y, thr = y.to(dev), (None if thr is None else thr.to(dev))
-        y = y.contiguous()
+            y = y.stage(dev) if isinstance(y, HostSignal) else y.to(dev)
+            thr = None if thr is None else thr.to(dev)
+        staged = isinstance(y, StagedSignal)
+        x = y.buffer if staged else y.contiguous()
         cs = min(chunk_size, y.shape[-1])
-        return grouped_cores(
-            lambda chunks: _tpugate_from_signal(y, gate, thr, cs, padding, chunks=chunks),
-            y, cs, group, progress).to(home)
+        out = grouped_cores(
+            lambda chunks: _tpugate_from_signal(x, gate, thr, cs, padding, chunks=chunks),
+            y if staged else x, cs, group, progress, padding)
+        return out if staged else out.to(home)
 
     def twin(y, b):
         def call(c, bb):
@@ -234,6 +241,8 @@ def fused_tpugate_chunked(y2d: torch.Tensor, gate, chunk_size: int, padding: int
         return process_chunked(call, y, chunk_size, padding, mesh=mesh, axis_name=axis_name,
                                extra=(b,))
 
+    if not isinstance(y2d, torch.Tensor):
+        return forward(y2d, xn)
     return fused_with_twin(forward, twin, y2d, xn)
 
 

@@ -14,7 +14,10 @@ own slice of the signal with its halos, in groups where asked; the JAX
 package's ``shard_map`` over the chunk axis). The fused path
 (``ops.cuda.dispatch.fused_gate_chunked``) reads the views straight from
 the signal instead; this module serves the unchunked path and the
-geometries the kernels do not.
+geometries the kernels do not. A host signal that a card gates arrives in
+slabs (``parallel.transfer``): ``grouped_cores`` and ``shard_cores`` then
+run its chunks in pieces, each waiting only for its own slabs, each
+piece's cores copied back into one pinned output behind it.
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from noisereduce_tpu_torch.parallel.transfer import (
+    HostSignal,
+    PinnedCores,
+    StagedSignal,
+    materialize,
+    piece_chunks,
+    transfer_plan,
+)
 
 __all__ = [
     "n_chunks_for",
@@ -32,6 +44,7 @@ __all__ = [
     "process_chunked",
     "chunk_groups",
     "grouped_cores",
+    "staged_pieces",
     "mesh_ranges",
     "shard_cores",
     "shard_filter",
@@ -99,16 +112,27 @@ def chunk_groups(n_chunks: int, group: int = 0, progress: bool = False):
         yield s, min(g, n_chunks - s)
 
 
-def grouped_cores(core_fn, y: torch.Tensor, chunk_size: int, group: int = 0,
-                  progress: bool = False) -> torch.Tensor:
+def grouped_cores(core_fn, y, chunk_size: int, group: int = 0, progress: bool = False,
+                  padding: int = 0):
     """(..., n) -> (..., n) from ``core_fn(chunks)``, the cores of the k
     chunks of ``chunks`` = (first, k) of every row, each row's k cores in
     order ((rows * k, chunk_size) or (..., k, chunk_size)), or of all of
     them for None, in one call. ``group`` > 0 or ``progress``: one call a
     group (``chunk_groups``), its cores written into one output, so only
-    one group's views and planes exist at a time."""
+    one group's views and planes exist at a time.
+
+    ``y`` may be a ``StagedSignal`` (a host signal on its way to a card;
+    ``core_fn`` reads its ``buffer``): then the chunks run in pieces (the
+    groups, or ``transfer.piece_chunks`` of them), each piece waiting for
+    the slab that holds the last sample its views read (``padding``: the
+    halo), and the result is a ``PinnedCores`` that each piece's cores
+    reach on the D2H stream."""
     n = y.shape[-1]
     n_chunks = n_chunks_for(n, chunk_size)
+    if isinstance(y, StagedSignal):
+        out = PinnedCores(*y.shape)
+        staged_pieces(core_fn, y, chunk_size, padding, 0, n_chunks, group, progress, out)
+        return out
     if not progress and (not group or group >= n_chunks):
         return core_fn(None).reshape(y.shape[:-1] + (-1,))[..., :n]
     out = y.new_empty(y.shape[:-1] + (n_chunks * chunk_size,))
@@ -116,6 +140,23 @@ def grouped_cores(core_fn, y: torch.Tensor, chunk_size: int, group: int = 0,
         out[..., s * chunk_size : (s + k) * chunk_size] = core_fn((s, k)).reshape(
             y.shape[:-1] + (-1,))
     return out[..., :n]
+
+
+def staged_pieces(core_fn, sig: StagedSignal, chunk_size: int, padding: int, first: int,
+                  count: int, group: int, progress: bool, out: PinnedCores) -> None:
+    """Chunks [first, first + count) of the staged ``sig`` in pieces of
+    ``group`` chunks (one for ``progress`` and no group; else
+    ``piece_chunks``), as ``transfer_plan`` schedules them: piece (c, k)
+    waits for the slab that holds the last sample its views read, runs
+    ``core_fn((c, k))`` and sends its cores into ``out``'s columns from
+    c * chunk_size."""
+    rows = sig.shape[0]
+    size = group or (1 if progress else piece_chunks(count, chunk_size, rows))
+    _, plan = transfer_plan(sig.shape[1], chunk_size, padding, first, count, size, sig.width,
+                            sig.start)
+    for (c, k, slab), _ in zip(plan, chunk_groups(count, size, progress)):  # the bar's steps
+        sig.wait_slab(slab)
+        out.put(c * chunk_size, core_fn((c, k)).reshape(rows, -1))
 
 
 def mesh_ranges(n_chunks: int, mesh, axis_name: str = "chunks"):
@@ -133,8 +174,8 @@ def mesh_ranges(n_chunks: int, mesh, axis_name: str = "chunks"):
             yield dev, first, k
 
 
-def shard_cores(core_fn, y: torch.Tensor, chunk_size: int, padding: int, mesh,
-                axis_name: str = "chunks", group: int = 0, extra: tuple = ()) -> torch.Tensor:
+def shard_cores(core_fn, y, chunk_size: int, padding: int, mesh,
+                axis_name: str = "chunks", group: int = 0, extra: tuple = ()):
     """(..., n) -> (..., n) on ``y``'s device, its chunks sharded over
     ``mesh`` (``mesh_ranges``): device d receives only the samples its
     views read, [first*cs - padding, (first + k)*cs + padding) cut to the
@@ -146,11 +187,26 @@ def shard_cores(core_fn, y: torch.Tensor, chunk_size: int, padding: int, mesh,
     ``group`` chunks (the bound on device memory is per device). Every
     device's work is issued before any result is waited for; then each
     device's cores go into their own columns of the one output (one copy a
-    device; pinned host memory where ``y`` is on the host)."""
+    device; pinned host memory where ``y`` is on the host).
+
+    A ``HostSignal`` ``y`` is staged to each device, its slice in slabs
+    (``parallel.transfer``), and each device's chunks run in pieces as
+    ``grouped_cores`` runs them; the result is a ``PinnedCores``."""
     n = y.shape[-1]
     lead = y.shape[:-1]
+    ranges = list(mesh_ranges(n_chunks_for(n, chunk_size), mesh, axis_name))
+    if isinstance(y, HostSignal):
+        out = PinnedCores(*y.shape)
+        for dev, first, k in ranges:
+            lo = max(0, first * chunk_size - padding)
+            sig = y.stage(dev, lo, min(n, (first + k) * chunk_size + padding))
+            ex = tuple(None if e is None else e.to(dev) for e in extra)
+            with torch.cuda.device(dev):
+                staged_pieces(lambda c, sig=sig, ex=ex: core_fn(sig.buffer, sig.start, c, *ex),
+                              sig, chunk_size, padding, first, k, group, False, out)
+        return out
     pieces = []
-    for dev, first, k in mesh_ranges(n_chunks_for(n, chunk_size), mesh, axis_name):
+    for dev, first, k in ranges:
         lo = max(0, first * chunk_size - padding)
         y_d = y[..., lo : min(n, (first + k) * chunk_size + padding)].to(dev).contiguous()
         ex = tuple(None if e is None else e.to(dev) for e in extra)
@@ -218,7 +274,9 @@ def process_chunked(
     ``progress``: ``filter_fn`` takes the chunks in groups of ``group`` (1
     for 0; ``grouped_cores``). ``mesh``: the chunks sharded over its
     devices (``shard_cores``; no bar), ``extra`` (e.g. a stationary
-    threshold) copied to each; the output on ``y``'s device."""
+    threshold) copied to each; the output on ``y``'s device. A staged or
+    host signal is first made whole (``transfer.materialize``)."""
+    y = materialize(y)
     n = y.shape[-1]
     if n <= chunk_size:
         ypad = F.pad(y, (padding, padding))

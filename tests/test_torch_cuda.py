@@ -2080,3 +2080,212 @@ def test_default_cotangent_mode_casts_on_card(cuda, family, monkeypatch):
     assert not torch.equal(cast, uncast)
     assert _max(cast - uncast) <= lim * _max(uncast)
     assert torch.equal(highest, uncast)
+
+
+# ---------------------------------------------------------------------------
+# the staged H2D and the pieces (parallel/transfer.py) against the one-copy
+# path: the same call on a signal already on the card
+# ---------------------------------------------------------------------------
+STAGE_SR, STAGE_CK = 16000, dict(chunk_size=4000, padding=1000)
+STAGE_N = 41000  # 11 chunks, the last of 1000 samples
+
+
+def _force_pieces(monkeypatch, slab_bytes=6000):
+    """Pieces of ceil(chunks / 4) chunks (the rule's floor taken away) over
+    slabs of ``slab_bytes``: several slabs a chunk, several chunks a piece."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    monkeypatch.setattr(transfer, "MIN_PIECE_SAMPLES", 1)
+    monkeypatch.setattr(transfer, "SLAB_BYTES", slab_bytes)
+
+
+def _one_copy(y, sr, kw):
+    """``reduce_noise(y, sr, **kw)`` with the signal (and a clip) copied to
+    the card whole first: the path the staged call must give bitwise."""
+    from noisereduce_tpu_torch.api import _as_2d, _run_nonstationary, _run_stationary
+    from noisereduce_tpu_torch.api import torch_gate_for
+
+    kw = dict(kw)
+    cs, pad = kw.pop("chunk_size"), kw.pop("padding")
+    group = kw.pop("max_parallel_chunks", 0)
+    cdtype = kw.pop("compute_dtype", torch.float32)
+    clip = kw.pop("y_noise", None)
+    stationary, use_torch = kw.pop("stationary", False), kw.pop("use_torch", False)
+    y = np.asarray(y)
+    y2d, flat = _as_2d(y)
+    card = torch.as_tensor(np.ascontiguousarray(y2d)).cuda().to(cdtype)
+    with torch.no_grad():
+        if use_torch:
+            gate = torch_gate_for(sr, stationary=stationary, **kw)
+            yn = None if clip is None else torch.as_tensor(clip).cuda().to(cdtype)
+            out = gate.chunked(card, cs, pad, yn, group)
+        else:
+            cfg = GateConfig(sr=sr, stationary=stationary, **kw)
+            if not stationary:
+                out = _run_nonstationary(card, cfg, cs, pad, group)
+            else:
+                yn = card if clip is None else torch.as_tensor(
+                    _as_2d(np.asarray(clip))[0]).cuda().to(cdtype)
+                out = _run_stationary(card, yn.mean(dim=0)[..., :cs], cfg, cs, pad, group)
+    arr = out.float().cpu().numpy().astype(y.dtype, copy=False)
+    return arr.reshape(-1) if flat else arr
+
+
+def _stage_case(name):
+    rng = np.random.default_rng(170)
+    mono = rng.standard_normal(STAGE_N)
+    stereo = rng.standard_normal((STAGE_N, 2)).T  # a transposed (strided) array
+    clip = 0.5 * rng.standard_normal(9000)
+    return {
+        "float32": (mono.astype(np.float32), {}),
+        "float64": (mono, {}),
+        "int16": ((mono * 3000).astype(np.int16), {}),
+        "bf16": (mono.astype(np.float32), dict(compute_dtype=torch.bfloat16)),
+        "stereo": (np.ascontiguousarray(stereo).astype(np.float32), {}),
+        "stereo-transposed": (stereo, {}),
+        "stationary-clip": (mono.astype(np.float32), dict(stationary=True, y_noise=clip)),
+        "stationary-self": (stereo.astype(np.float32), dict(stationary=True)),
+        "torch": (mono.astype(np.float32), dict(use_torch=True)),
+        "torch-stationary-clip": (mono.astype(np.float32),
+                                  dict(use_torch=True, stationary=True,
+                                       y_noise=clip.astype(np.float32))),
+        "grouped": (mono.astype(np.float32), dict(max_parallel_chunks=8)),
+        "one-chunk": (mono[:4000].astype(np.float32), {}),
+        "one-chunk-plus-one": (mono[:4001].astype(np.float32), {}),
+        "torch-one-chunk": (mono[:4000].astype(np.float32), dict(use_torch=True)),
+    }[name]
+
+
+STAGE_CASES = ["float32", "float64", "int16", "bf16", "stereo", "stereo-transposed",
+               "stationary-clip", "stationary-self", "torch", "torch-stationary-clip",
+               "grouped", "one-chunk", "one-chunk-plus-one", "torch-one-chunk"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", STAGE_CASES)
+def test_staged_reduce_noise_is_bitwise_the_one_copy_path(cuda, name, monkeypatch):
+    """Each case through ``reduce_noise`` (slabs of 6,000 bytes, pieces of
+    ceil(chunks / 4) chunks: 4 pieces of 11 chunks, 2 of 2;
+    max_parallel_chunks 8: 2) is the one-copy path's output bitwise, each
+    kernel launched once a piece (A once more for the threshold)."""
+    _force_pieces(monkeypatch)
+    y, kw = _stage_case(name)
+    kw = dict(kw, **STAGE_CK)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
+        K.reset_launch_counts()
+        got = nrt.reduce_noise(y, STAGE_SR, **kw)
+        counts = K.launch_counts()
+        want = _one_copy(y, STAGE_SR, kw)
+    assert got.dtype == y.dtype and got.shape == y.shape
+    assert np.array_equal(got, want), name
+    chunks = (y.shape[-1] - 1) // 4000 + 1
+    pieces = {11: 4, 2: 2, 1: 1}[chunks]
+    if name == "grouped":
+        pieces = 2
+    clip = 1 if ("y_noise" in kw or name == "stationary-self") else 0
+    assert counts["istft_ola"] == pieces, counts
+    assert counts["spectra"] == pieces + clip, counts
+
+
+@pytest.mark.gpu
+def test_staged_pieces_wait_for_their_slabs(cuda, monkeypatch):
+    """The copy stream held back by ``torch.cuda._sleep`` (and the D2H
+    stream too), with the signal's buffer over NaN bytes and a ring of more
+    slots than slabs (so the host never waits for a slab's copy and every
+    launch is queued before the first slab lands): the kernels of each
+    piece still read only samples that have arrived, and the output is the
+    one-copy path's bitwise; with the compute stream held back, each
+    piece's D2H still waits for its kernels."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    _force_pieces(monkeypatch)
+    monkeypatch.setattr(transfer, "RING_SLABS", 256)
+    monkeypatch.setattr(transfer._LOCAL, "ring", None, raising=False)
+    y, kw = _stage_case("stereo")
+    kw = dict(kw, **STAGE_CK)
+    want = _one_copy(y, STAGE_SR, kw)
+    for engine in ({}, dict(use_torch=True), dict(stationary=True)):
+        h2d, d2h = transfer._copy_stream(cuda, "h2d"), transfer._copy_stream(cuda, "d2h")
+        with torch.cuda.stream(h2d):
+            nan = torch.full((4, STAGE_N), float("nan"), device=cuda)
+            del nan
+            torch.cuda._sleep(200_000_000)
+        with torch.cuda.stream(d2h):
+            torch.cuda._sleep(50_000_000)
+        got = nrt.reduce_noise(y, STAGE_SR, **kw, **engine)
+        assert np.array_equal(got, _one_copy(y, STAGE_SR, dict(kw, **engine))), engine
+        if not engine:
+            assert np.array_equal(got, want)
+        # the compute stream held back instead: each D2H waits for its piece
+        torch.cuda._sleep(200_000_000)
+        again = nrt.reduce_noise(y, STAGE_SR, **kw, **engine)
+        assert np.array_equal(again, got), engine
+
+
+@pytest.mark.gpu
+def test_staged_results_stay_independent(cuda, monkeypatch):
+    """A result outlives the next call (its pinned output is its own), the
+    same array twice gives the same output, an array written between calls
+    gives the new one, and no call writes its input."""
+    _force_pieces(monkeypatch)
+    y, kw = _stage_case("float32")
+    kw = dict(kw, **STAGE_CK)
+    keep = y.copy()
+    first = nrt.reduce_noise(y, STAGE_SR, **kw)
+    first_copy = first.copy()
+    second = nrt.reduce_noise(y, STAGE_SR, **kw)
+    assert np.array_equal(y, keep)
+    assert np.array_equal(first, first_copy) and np.array_equal(second, first)
+    y[:] = np.random.default_rng(171).standard_normal(y.shape).astype(np.float32)
+    third = nrt.reduce_noise(y, STAGE_SR, **kw)
+    assert np.array_equal(first, first_copy)
+    assert np.array_equal(third, _one_copy(y, STAGE_SR, kw))
+    assert not np.array_equal(third, first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_torch", [False, True])
+def test_staged_batch_is_the_one_copy_path(cuda, use_torch):
+    """``reduce_noise_batch`` on 6 rows of one length (a group staged as one
+    block) and 2 of another, stationary with self-noise: each row bitwise
+    the one-copy path's batch of its group."""
+    from noisereduce_tpu_torch.api import _run_stationary
+
+    rng = np.random.default_rng(172)
+    ys = [rng.standard_normal(20000).astype(np.float32) for _ in range(6)]
+    ys += [rng.standard_normal(12000).astype(np.float32) for _ in range(2)]
+    got = nrt.reduce_noise_batch(ys, STAGE_SR, stationary=True, use_torch=use_torch)
+    for idx in (range(6), range(6, 8)):
+        card = torch.as_tensor(np.stack([ys[i] for i in idx])).cuda()
+        with torch.no_grad():
+            if use_torch:
+                gate = nrt.api.torch_gate_for(STAGE_SR, stationary=True)
+                want = gate.chunked(card, 600000, 30000)
+            else:
+                cfg = GateConfig(sr=STAGE_SR, stationary=True)
+                want = _run_stationary(card, card[..., :600000], cfg, 600000, 30000)
+        for row, i in enumerate(idx):
+            assert np.array_equal(got[i], want[row].cpu().numpy()), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["nonstationary", "stationary-clip", "torch"])
+def test_staged_mesh_is_the_one_copy_path(cuda, engine, monkeypatch):
+    """A mesh of ``(cuda:0,) * 2``: each device's slice staged in slabs and
+    its chunks in pieces (6 and 5 chunks: 3 pieces each), bitwise the
+    one-copy path without a mesh, each kernel once a piece by device."""
+    from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
+
+    _force_pieces(monkeypatch)
+    name = {"nonstationary": "float32", "stationary-clip": "stationary-clip",
+            "torch": "torch"}[engine]
+    y, kw = _stage_case(name)
+    kw = dict(kw, **STAGE_CK)
+    mesh = ChunkMesh((torch.device("cuda", 0),) * 2)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise(y, STAGE_SR, mesh=mesh, **kw)
+    by_device = K.device_counts()
+    assert np.array_equal(got, _one_copy(y, STAGE_SR, kw))
+    assert by_device["istft_ola"] == {"cuda:0": 6}, by_device
+    assert by_device["spectra"] == {"cuda:0": 6 + ("y_noise" in kw)}, by_device
