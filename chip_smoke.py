@@ -57,9 +57,14 @@ last line is printed only when every phase passed):
    ``HEADLINE_PIECES`` pieces, each launching each kernel once as soon as
    its slabs have arrived, its cores sent back behind it; the output
    bitwise the one-copy path's (the signal on the card whole, then the
-   same gate), and the call's split on a line of its own (host wall, the
-   host's copy into pinned memory, H2D, kernels, D2H, pieces, the overlaps;
-   ``torch.profiler``); wall time as the minimum of 3 runs after a warm-up
+   same gate); the same from float64 (cast to float32 by the host's native
+   copy), int16 and bfloat16 callers, each bitwise its one-copy path; a
+   ``host:`` line (the NUMA nodes and their CPUs, the card's node, the
+   process's affinity, the huge page mode, the nodes that hold the ring's
+   and the signal's pages; ``parallel/host_copy.py``), and the call's split
+   on a line of its own (host wall, the host's copy into pinned memory and
+   its GB/s, H2D, kernels, D2H, pieces, the overlaps; ``torch.profiler``);
+   wall time as the minimum of 3 runs after a warm-up
    (CUDA events); then the same call with ``max_parallel_chunks=8`` (10
    host-driven groups of chunks, the pieces, each kernel launched once a
    group), bitwise the default call's output, with the peak device memory
@@ -68,7 +73,8 @@ last line is printed only when every phase passed):
 6. stationary headline: the same signal with a separate 10 s noise clip,
    ``stationary=True``, the same way;
 7. batch: ``reduce_noise_batch`` on 32 clips of 10 s, stationary with
-   self-noise, against the per-signal calls;
+   self-noise, against the per-signal calls and bitwise the one-copy path
+   (the clips stacked on the card first);
 8. staged geometry: hop 300 with a 1024 window, which kernels A-D do not
    serve, through the staged path with kernel B's mask;
 9. split geometry: a frequency smoothing wide enough that the JAX package
@@ -201,6 +207,7 @@ import re as regex
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1463,15 +1470,53 @@ def under_grad(K, label, fn, args, cot, expected, launches):
     return grads
 
 
-def one_copy_headline(x: np.ndarray, cfg) -> np.ndarray:
+def one_copy_headline(x: np.ndarray, cfg, dtype=torch.float32) -> np.ndarray:
     """The headline's output by the one-copy path: the whole signal copied
-    to the card first, then the same chunked gate in one launch of each
-    kernel (``api._run_nonstationary`` on a card tensor)."""
+    to the card first in its own dtype and cast there to ``dtype``, then
+    the same chunked gate in one launch of each kernel
+    (``api._run_nonstationary`` on a card tensor), returned in the
+    signal's dtype as ``reduce_noise`` returns it."""
     from noisereduce_tpu_torch.api import _run_nonstationary
 
     with torch.no_grad():
-        y = torch.as_tensor(x[None]).cuda()
-        return _run_nonstationary(y, cfg, CHUNK, PADDING)[0].cpu().numpy()
+        y = torch.as_tensor(x[None]).cuda().to(dtype)
+        out = _run_nonstationary(y, cfg, CHUNK, PADDING)[0].float().cpu().numpy()
+    return out.astype(x.dtype, copy=False)
+
+
+def float64_signal(x: np.ndarray) -> np.ndarray:
+    """The headline as a float64 caller sends it: ``x`` plus noise of its
+    own (1e-3 x N(0, 1), from a seed), so that its cast to float32 rounds."""
+    return x + 1e-3 * np.random.default_rng(SEED + 5).standard_normal(len(x))
+
+
+def staged_callers_phase(nr, K, x, cfg, launches) -> None:
+    """The headline from float64, int16 and bfloat16 callers through the
+    staged path (float64 cast to float32 by the host's native copy, bitwise
+    the card's cast; int16 sent as int16; bfloat16 cast on the card), each
+    bitwise the one-copy path of the same caller, each kernel once a piece
+    in its dtype's build."""
+    P = HEADLINE_PIECES
+    ck = dict(chunk_size=CHUNK, padding=PADDING)
+    want = dict(spectra=P, nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P)
+    callers = {
+        "float64 headline": (float64_signal(x), {}, torch.float32, "float32"),
+        "int16 headline": (np.round(x * (8000 / np.abs(x).max())).astype(np.int16), {},
+                           torch.float32, "float32"),
+        "bf16 headline, staged": (x, dict(compute_dtype=BF16), BF16, "bfloat16"),
+    }
+    for label, (y, kw, dtype, build) in callers.items():
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
+            out, launches[label] = run_path(K, label, lambda: nr.reduce_noise(y, SR, **kw, **ck),
+                                            want, dtype=build)
+        one = one_copy_headline(y, cfg, dtype)
+        bitwise = out.dtype == y.dtype and np.array_equal(out, one)
+        print(f"{label} ({y.dtype}, {y.nbytes / 1e6:.1f} MB, crossing as "
+              f"{'float32' if y.dtype == np.float64 else y.dtype}) bitwise the one-copy path "
+              f"(the signal on the card whole, cast there): {bitwise}", flush=True)
+        if not bitwise:
+            fail(f"{label} differs from the one-copy path")
 
 
 def call_split(label: str, call, K, transfer, card: str, reps: int = 3) -> dict:
@@ -1487,14 +1532,15 @@ def call_split(label: str, call, K, transfer, card: str, reps: int = 3) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     wall = wall_s(call, reps) * 1e3
-    spent = [0.0]
+    spent, copied = [0.0], [0]
     if transfer is not None:
         copy_into = transfer.HostSignal.copy_into
 
-        def timed(*a, **k):
+        def timed(self, dst, *a, **k):
             t0 = time.perf_counter()
-            copy_into(*a, **k)
+            copy_into(self, dst, *a, **k)
             spent[0] += time.perf_counter() - t0
+            copied[0] += dst.numel() * dst.element_size()
 
         transfer.HostSignal.copy_into = timed
     try:
@@ -1534,15 +1580,17 @@ def call_split(label: str, call, K, transfer, card: str, reps: int = 3) -> dict:
 
     busy = sum(b - a for a, b in merged([iv for v in spans.values() for iv in v]))
     split = dict(
-        wall_ms=wall, host_copy_ms=spent[0] * 1e3, pieces=pieces,
+        wall_ms=wall, host_copy_ms=spent[0] * 1e3, host_copy_bytes=copied[0], pieces=pieces,
         h2d_ms=sum(b - a for a, b in spans["h2d"]), h2d_copies=len(spans["h2d"]),
         kernels_ms=sum(b - a for a, b in spans["kernels"]),
         d2h_ms=sum(b - a for a, b in spans["d2h"]), d2h_copies=len(spans["d2h"]),
         kernels_during_h2d_ms=overlap(spans["kernels"], spans["h2d"]),
         d2h_during_kernels_ms=overlap(spans["d2h"], spans["kernels"]),
         profiled_ms=traced, busy_ms=busy, busy_share=busy / traced, by_name=dict(by_name))
+    rate = copied[0] / spent[0] / 1e9 if spent[0] else 0.0
     print(f"{label}: host wall {wall:.2f} ms (min of {reps}), host copy into pinned memory "
-          f"{split['host_copy_ms']:.2f} ms, H2D {split['h2d_ms']:.3f} ms in "
+          f"{split['host_copy_ms']:.2f} ms ({copied[0] / 1e6:.1f} MB written, {rate:.2f} GB/s), "
+          f"H2D {split['h2d_ms']:.3f} ms in "
           f"{split['h2d_copies']} copies, kernels {split['kernels_ms']:.3f} ms, D2H "
           f"{split['d2h_ms']:.3f} ms in {split['d2h_copies']} copies, {pieces} pieces; kernels "
           f"during an H2D {split['kernels_during_h2d_ms']:.3f} ms, a D2H during kernels "
@@ -2815,6 +2863,11 @@ def main() -> None:
     t0 = time.perf_counter()
     print(f"build: {nrio.build_library().relative_to(HERE)} (g++) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    from noisereduce_tpu_torch.parallel import host_copy
+
+    t0 = time.perf_counter()
+    print(f"build: {os.path.relpath(host_copy.library()._name, HERE)} (g++, the host's "
+          f"slab copy) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     x = headline_signal(HEADLINE_SECONDS)
     noise = noise_clip(NOISE_SECONDS)
@@ -2865,6 +2918,12 @@ def main() -> None:
     del one_copy
     from noisereduce_tpu_torch.parallel import transfer
 
+    staged_callers_phase(nr, K, x, cfg, launches)
+    ring = transfer._ring(torch.device("cuda"))
+    facts = host_copy.host_facts(torch.device("cuda"), {
+        "ring": [(s.ptr, s.nbytes) for s in ring], "signal": [(x.ctypes.data, x.nbytes)]})
+    print(f"host: {json.dumps(facts)}; copy threads {transfer.COPY_THREADS}, bound to CPUs "
+          f"{facts['copy_cpus'] or 'none (the card has no node)'}", flush=True)
     call_split("headline split", lambda: nr.reduce_noise(x, SR, **ck), K, transfer, card)
     ms = time_ms(lambda: nr.reduce_noise(x, SR, **ck))
     plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(x)[0], cfg).cpu())
@@ -2935,16 +2994,27 @@ def main() -> None:
         n_bitwise += int(np.array_equal(o, want))
         dev = max(dev, float(np.abs(o.astype(np.float64) - want).max()))
         scale = max(scale, float(np.abs(want).max()))
+    from noisereduce_tpu_torch.api import _run_stationary
+
+    with torch.no_grad():
+        card_clips = torch.as_tensor(np.stack(clips)).cuda()
+        one = _run_stationary(card_clips, card_clips[..., :CHUNK], scfg, CHUNK, PADDING)
+        one = one.cpu().numpy()
+    one_copy = all(np.array_equal(o, w) for o, w in zip(outs, one))
+    del card_clips, one
     ms = time_ms(lambda: nr.reduce_noise_batch(clips, SR, stationary=True, **ck))
     print(
         f"batch {BATCH_CLIPS} x {BATCH_SECONDS} s @ {SR} Hz stationary, "
         f"self-noise: {n_bitwise} of {BATCH_CLIPS} outputs bitwise the "
         f"per-signal calls', max|dev| {dev:.3e} bound {E2E_BOUND * scale:.3e}; "
+        f"bitwise the one-copy path (the clips stacked on the card first): {one_copy}; "
         f"reduce_noise_batch {ms:.1f} ms on {card}",
         flush=True,
     )
     if not dev <= E2E_BOUND * scale:
         fail("batch disagrees with the per-signal calls")
+    if not one_copy:
+        fail("batch differs from the one-copy path")
 
     # staged geometry: a hop that does not divide the window (row 7)
     xs = headline_signal(STAGED_SECONDS, STAGED_SR, SEED + 2)

@@ -2,11 +2,12 @@
 
 A host array reaches the card in slabs along the sample axis: the host
 copies slab i (every row's samples [a, b), read straight from the array,
-strided or not, in the array's own dtype, by a pool of threads) into a
-pinned slot of a small ring, a copy stream sends it with
-``non_blocking=True`` and casts it on the card into the signal's device
-tensor, and an event is recorded after it. The calling thread sends the
-slabs in order as the chunked body asks for them
+strided or not, in the array's own dtype or, for float64 headed for
+float32, cast in the same pass; by the native threads of
+``host_copy.CopyPool``) into a pinned slot of a small ring, a copy stream
+sends it with ``non_blocking=True`` and casts it on the card into the
+signal's device tensor, and an event is recorded after it. The calling
+thread sends the slabs in order as the chunked body asks for them
 (``StagedSignal.wait_slab``), between the launches of its kernels: the
 chunks run in pieces, and a piece's kernels wait, on the compute stream,
 only for the slab that holds the last sample its halo'd views read. Each
@@ -19,8 +20,10 @@ the slab each piece waits for), which ``chunking.staged_pieces`` follows;
 ``piece_chunks`` is the rule that sizes a piece from the geometry.
 
 Only card devices stage: ``device="cpu"`` makes no stream, no event and no
-pinned tensor. Pinning raises where it fails; nothing falls back to a
-pageable copy.
+pinned tensor. Where the card has a NUMA node, the copy threads are bound
+to its CPUs and a ring's slots are pinned by a thread bound there.
+Pinning and the native copy raise where they fail (a ``g++`` error with
+it); nothing falls back to a pageable copy or to numpy.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import threading
 
 import numpy as np
 import torch
+
+from noisereduce_tpu_torch.parallel import host_copy
 
 __all__ = [
     "SLAB_BYTES",
@@ -60,9 +65,11 @@ MIN_PIECE_SAMPLES = 1 << 22
 # slabs sent beyond the one a piece waits for before its kernels are
 # launched, so that the next slab's H2D runs beside them
 LOOKAHEAD_SLABS = 1
-# the host's copy of a slab into its slot: numpy copies (which release the
-# GIL) of parts of at least COPY_PART_BYTES, one row's run or a piece of it,
-# spread over a pool of COPY_THREADS threads
+# the host's copy of a slab into its slot (host_copy.CopyPool, native code
+# off the GIL, non-temporal stores where the slot is aligned): parts of at
+# least COPY_PART_BYTES, one row's run or a piece of it, spread over
+# COPY_THREADS threads; where the card has a NUMA node, the threads bound to
+# its CPUs and the ring's slots pinned by a thread bound there
 COPY_THREADS = 8
 COPY_PART_BYTES = 2 << 20
 
@@ -113,97 +120,127 @@ def _copy_stream(device: torch.device, way: str) -> torch.cuda.Stream:
     return _STREAMS[key]
 
 
-class _Slot:
-    """One pinned slot of the ring and the event recorded after the last
-    copy that read it: it is refilled only once that event has completed."""
+_NODE_CPUS: dict = {}
 
-    def __init__(self, nbytes: int):
-        self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        self.event = None
+
+def _copy_pool(device=None) -> host_copy.CopyPool:
+    """The copy threads that fill ``device``'s slots: bound to the CPUs of
+    the card's NUMA node where it has one, else unbound (and unbound for a
+    host tensor, ``device`` None)."""
+    cpus = None
+    if device is not None:
+        key = device.index if device.index is not None else torch.cuda.current_device()
+        if key not in _NODE_CPUS:
+            _NODE_CPUS[key] = host_copy.node_cpus(torch.device("cuda", key))
+        cpus = _NODE_CPUS[key]
+    return host_copy.pool(COPY_THREADS, cpus)
+
+
+class _Slot:
+    """One pinned slot of the ring, the copy ``pool``'s to fill: pinned by
+    torch with the calling thread bound to the pool's CPUs (their node's
+    pages, where the card has a node), and the event recorded after the
+    last copy that read it: it is refilled only once that event has
+    completed."""
+
+    def __init__(self, nbytes: int, pool: host_copy.CopyPool):
+        self.pool, self.event = pool, None
+        self._alloc(nbytes)
+
+    def _alloc(self, nbytes: int) -> None:
+        self.buf = host_copy.on_cpus(self.pool.cpus, lambda: torch.empty(
+            nbytes, dtype=torch.uint8, pin_memory=True))
+        self.ptr, self.nbytes = self.buf.data_ptr(), nbytes
 
     def take(self, nbytes: int) -> torch.Tensor:
         if self.event is not None:
             self.event.synchronize()
-        if self.buf.numel() < nbytes:
-            self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        if self.nbytes < nbytes:
+            self._alloc(nbytes)
         return self.buf
 
 
 _LOCAL = threading.local()
 
 
-def _ring() -> list:
-    """This thread's ring of ``RING_SLABS`` pinned slots, made at its first
-    staged call and reused by every later one: slab i of a signal takes
-    slot i % RING_SLABS."""
-    ring = getattr(_LOCAL, "ring", None)
-    if ring is None:
-        ring = _LOCAL.ring = [_Slot(SLAB_BYTES) for _ in range(RING_SLABS)]
-    return ring
+def _ring(device: torch.device) -> list:
+    """This thread's ring of ``RING_SLABS`` pinned slots for the copy pool
+    of ``device`` (``_copy_pool``), made at its first staged call and
+    reused by every later one: slab i of a signal takes slot
+    i % RING_SLABS."""
+    pool = _copy_pool(device)
+    rings = getattr(_LOCAL, "rings", None)
+    if rings is None:
+        rings = _LOCAL.rings = {}
+    if pool not in rings:
+        rings[pool] = [_Slot(SLAB_BYTES, pool) for _ in range(RING_SLABS)]
+    return rings[pool]
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dt)).dtype
 
 
-_POOL = None
-_POOL_LOCK = threading.Lock()
-
-
-def _copy_pool():
-    global _POOL
-    with _POOL_LOCK:
-        if _POOL is None:
-            from concurrent.futures import ThreadPoolExecutor
-
-            _POOL = ThreadPoolExecutor(COPY_THREADS, thread_name_prefix="noisereduce-copy")
-        return _POOL
-
-
 class HostSignal:
     """A host signal of equal-length rows (a 2-D array, any strides, or a
-    list of 1-D arrays), read in ``dtype``: the signal a call gates, before
-    any of it is on a card. ``shape``, ``dtype`` and ``device`` (the host)
-    are those of the tensor it stands for."""
+    list of 1-D arrays of one dtype), read in ``dtype``: the signal a call
+    gates, before any of it is on a card. ``shape``, ``dtype`` and
+    ``device`` (the host) are those of the tensor it stands for.
+    ``wire_dtype`` is the dtype its slabs cross in: the rows' own, or
+    float32 for float64 rows headed for float32 (the host's cast, round to
+    nearest even, is bitwise the card's; float64 headed for bfloat16 would
+    round twice on the host, so it crosses as float64)."""
 
     def __init__(self, rows, dtype: torch.dtype):
         if isinstance(rows, list):
             self.rows = [np.asarray(r) for r in rows]
         else:
             self.rows = list(np.asarray(rows))
-        self.shape = (len(self.rows), self.rows[0].shape[-1])
+        first = self.rows[0]
+        if any(r.shape != first.shape or r.dtype != first.dtype or r.ndim != 1
+               for r in self.rows):
+            raise ValueError("a host signal's rows are 1-D arrays of one length and dtype")
+        self.shape = (len(self.rows), first.shape[-1])
         self.dtype = dtype
         self.device = torch.device("cpu")
-        self.host_dtype = _torch_dtype(self.rows[0].dtype)
+        self.host_dtype = _torch_dtype(first.dtype)
+        self.wire_dtype = (torch.float32 if self.host_dtype == torch.float64
+                           and dtype == torch.float32 else self.host_dtype)
+        self._addr = np.array([r.ctypes.data for r in self.rows], dtype=np.int64)
+        self._stride = np.array([r.strides[0] for r in self.rows], dtype=np.int64)
 
     def tensor(self) -> torch.Tensor:
         """The whole signal as a host tensor in ``dtype`` (cast on the
         host), for the paths that take a host tensor."""
-        out = torch.empty(self.shape, dtype=self.host_dtype)
+        out = torch.empty(self.shape, dtype=self.wire_dtype)
         self.copy_into(out, 0, self.shape[1])
         return out.to(self.dtype)
 
-    def copy_into(self, dst: torch.Tensor, a: int, b: int) -> None:
+    def copy_into(self, dst: torch.Tensor, a: int, b: int, pool=None) -> None:
         """Every row's samples [a, b) into the (rows, b - a) host tensor
-        ``dst``, read straight from the rows whatever their strides, in
-        parts of at least ``COPY_PART_BYTES`` spread over the copy pool (the
-        calling thread copies a single part itself)."""
-        out = dst.numpy()
-        w = b - a
-        step = max(1, COPY_PART_BYTES // dst.element_size(),
-                   -(-w * len(self.rows) // COPY_THREADS))
-        parts = [(r, s, min(w, s + step)) for r in range(len(self.rows))
-                 for s in range(0, w, step)]
-
-        def copy(part):
-            r, s, e = part
-            np.copyto(out[r, s:e], self.rows[r][a + s : a + e], casting="no")
-
-        if len(parts) == 1:
-            copy(parts[0])
-        else:
-            for _ in _copy_pool().map(copy, parts):
-                pass
+        ``dst`` (rows of unit stride), in the rows' dtype or, for float64
+        rows, float32, read straight from the rows whatever their strides:
+        native code (``host_copy``) in parts of at least ``COPY_PART_BYTES``
+        spread over the threads of ``pool`` (a slot's own; None: the
+        unbound pool of ``COPY_THREADS``), a single part on the calling
+        thread, with non-temporal stores where ``dst`` is aligned."""
+        rows, w = self.shape[0], b - a
+        if not 0 <= a <= b <= self.shape[1]:
+            raise IndexError(f"samples [{a}, {b}) of rows of {self.shape[1]}")
+        if dst.device.type != "cpu" or tuple(dst.shape) != (rows, w) or (
+                w > 1 and dst.stride(1) != 1):
+            raise ValueError(f"copy_into needs a host tensor of {(rows, w)} with rows of "
+                             f"unit stride, got {tuple(dst.shape)} on {dst.device}")
+        cast = dst.dtype == torch.float32 and self.host_dtype == torch.float64
+        if dst.dtype != self.host_dtype and not cast:
+            raise TypeError(f"no host copy of {self.host_dtype} rows into {dst.dtype}")
+        if not w:
+            return
+        size = dst.element_size()
+        step = max(1, COPY_PART_BYTES // size, -(-w * rows // COPY_THREADS))
+        pool = _copy_pool() if pool is None else pool
+        pool.copy(self._addr + a * self._stride, self._stride, self.rows[0].itemsize,
+                  dst.data_ptr(), dst.stride(0) * size, size, w, step)
 
     def stage(self, device: torch.device, lo: int = 0, hi=None) -> "StagedSignal":
         """Samples [lo, hi) of every row on ``device``, staged lazily."""
@@ -226,7 +263,7 @@ class StagedSignal:
         rows = host.shape[0]
         self.shape = (rows, hi - lo)
         self.dtype, self.device = host.dtype, device
-        self._itemsize = torch.empty(0, dtype=host.host_dtype).element_size()
+        self._itemsize = torch.empty(0, dtype=host.wire_dtype).element_size()
         self.width = slab_width(rows, self._itemsize)
         self._n_slabs = -(-(hi - lo) // self.width)
         self._h2d = _copy_stream(device, "h2d")
@@ -237,23 +274,25 @@ class StagedSignal:
         self._events = []
 
     def _stage_next(self) -> None:
-        """The next slab: the host's copy into this thread's ring, the H2D
-        and the cast on the copy stream, and an event after them."""
+        """The next slab: the host's copy into this thread's ring (float64
+        cast to float32 in it where the signal is float32), the H2D and the
+        cast on the copy stream, and an event after them."""
         i = len(self._events)
         a = i * self.width
         b = min(self.shape[1], a + self.width)
         rows, w = self.shape[0], b - a
-        ring = _ring()
+        ring = _ring(self.device)
         slot = ring[i % len(ring)]
         nbytes = rows * w * self._itemsize
-        pinned = slot.take(nbytes)[:nbytes].view(self.host.host_dtype).view(rows, w)
-        self.host.copy_into(pinned, self.start + a, self.start + b)
+        wire = self.host.wire_dtype
+        pinned = slot.take(nbytes)[:nbytes].view(wire).view(rows, w)
+        self.host.copy_into(pinned, self.start + a, self.start + b, pool=slot.pool)
         dst = self.buffer[:, a:b]
         with torch.cuda.stream(self._h2d):
-            if dst.is_contiguous() and self.host.host_dtype == self.dtype:
+            if dst.is_contiguous() and wire == self.dtype:
                 dst.copy_(pinned, non_blocking=True)
-            else:  # sent in the host's dtype, cast on the card
-                raw = torch.empty((rows, w), dtype=self.host.host_dtype, device=self.device)
+            else:  # sent in the wire's dtype, cast on the card
+                raw = torch.empty((rows, w), dtype=wire, device=self.device)
                 raw.copy_(pinned, non_blocking=True)
                 dst.copy_(raw)
             event = torch.cuda.Event()

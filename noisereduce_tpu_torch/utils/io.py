@@ -49,27 +49,28 @@ _lib = None
 _build_failed = False  # a failed build is not retried in this process
 
 
-def library_path() -> pathlib.Path:
-    """Where the library of this source and these flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libnrio.so"
+def library_path(source: pathlib.Path = SOURCE, flags=CXX_FLAGS) -> pathlib.Path:
+    """Where the library of this source and these flags lives
+    (``lib<stem>.so``)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{source.stem}.so"
 
 
-def build_library() -> pathlib.Path:
-    """Build ``libnrio.so`` from ``native/nrio.cpp`` unless it is built
-    already; return its path. Raises ``RuntimeError`` when ``g++`` is
-    missing or fails."""
-    path = library_path()
+def build_library(source: pathlib.Path = SOURCE, flags=CXX_FLAGS) -> pathlib.Path:
+    """Build ``lib<stem>.so`` from a C++ source of ``native/`` (``nrio.cpp``
+    by default) unless it is built already; return its path. Raises
+    ``RuntimeError`` when ``g++`` is missing or fails."""
+    path = library_path(source, flags)
     if path.exists():
         return path
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError(f"g++ not found: libnrio.so is built from {SOURCE} at first use")
+        raise RuntimeError(f"g++ not found: {path.name} is built from {source} at first use")
     path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
         tmp_so = pathlib.Path(tmp) / path.name
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp_so), str(SOURCE)],
+        proc = subprocess.run([cxx, *flags, "-o", str(tmp_so), str(source)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr}")

@@ -53,6 +53,7 @@ launch only the bfloat16 builds and stay within the envelopes of
 tests/test_bfloat16_mode.py against the float32 kernels.
 """
 
+import os
 import warnings
 
 import numpy as np
@@ -2201,7 +2202,7 @@ def test_staged_pieces_wait_for_their_slabs(cuda, monkeypatch):
 
     _force_pieces(monkeypatch)
     monkeypatch.setattr(transfer, "RING_SLABS", 256)
-    monkeypatch.setattr(transfer._LOCAL, "ring", None, raising=False)
+    monkeypatch.setattr(transfer._LOCAL, "rings", None, raising=False)
     y, kw = _stage_case("stereo")
     kw = dict(kw, **STAGE_CK)
     want = _one_copy(y, STAGE_SR, kw)
@@ -2221,6 +2222,120 @@ def test_staged_pieces_wait_for_their_slabs(cuda, monkeypatch):
         torch.cuda._sleep(200_000_000)
         again = nrt.reduce_noise(y, STAGE_SR, **kw, **engine)
         assert np.array_equal(again, got), engine
+
+
+COPY_SETTINGS = {
+    "default": {},
+    "many parts": dict(COPY_PART_BYTES=64),
+    "3 threads, many parts": dict(COPY_THREADS=3, COPY_PART_BYTES=64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", list(COPY_SETTINGS))
+@pytest.mark.parametrize("name", ["float32", "float64", "int16", "bf16", "stereo-transposed",
+                                  "stationary-clip"])
+def test_staged_native_copy_is_the_one_copy_path(cuda, name, setting, monkeypatch):
+    """The host's native copy at each setting (parts of 64 bytes over the
+    pool, 3 threads):
+    the staged call bitwise the one-copy path (float64 cast by the host,
+    bitwise the card's cast; int16 sent as int16; bf16 cast on the card)."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    _force_pieces(monkeypatch)
+    for k, v in COPY_SETTINGS[setting].items():
+        monkeypatch.setattr(transfer, k, v)
+    y, kw = _stage_case(name)
+    kw = dict(kw, **STAGE_CK)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
+        got = nrt.reduce_noise(y, STAGE_SR, **kw)
+        want = _one_copy(y, STAGE_SR, kw)
+    assert got.dtype == y.dtype and np.array_equal(got, want), (name, setting)
+
+
+@pytest.mark.gpu
+def test_host_cast_is_the_cards_cast(cuda, monkeypatch):
+    """float64 rows cast to float32 by the host's copy (slabs of 6,000
+    bytes, parts of 64) land on the card bitwise the card's own cast of the
+    float64 rows: ties, subnormal and overflowing results, +-0, +-inf;
+    NaN where NaN (the card may write another NaN)."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    _force_pieces(monkeypatch)
+    monkeypatch.setattr(transfer, "COPY_PART_BYTES", 64)
+    rng = np.random.default_rng(173)
+    x = rng.standard_normal((3, 20011)) * 10.0 ** rng.integers(-46, 40, size=(3, 20011))
+    f32 = np.finfo(np.float32)
+    special = [np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324, 1e-40, -1e-40,
+               float(f32.smallest_subnormal) / 2, float(f32.smallest_subnormal) * 0.75,
+               1 + 2.0 ** -24, 1 + 3 * 2.0 ** -24, 1e39, float(f32.tiny) * (1 - 2.0 ** -30)]
+    x[1, 5:5 + len(special)] = special
+    for src in (x, np.ascontiguousarray(x.T).T, x[:, ::-1]):
+        hs = transfer.HostSignal(src, torch.float32)
+        assert hs.wire_dtype == torch.float32
+        got = hs.stage(cuda).tensor()
+        want = torch.as_tensor(np.ascontiguousarray(src)).to(cuda).float()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("node", ["the host's", "faked"])
+def test_ring_slots_are_pinned_where_the_copy_threads_run(cuda, node, monkeypatch):
+    """The ring's slots are pinned (the H2D is a DMA that overlaps the
+    host's work), and where the card has a NUMA node (the host's, or faked:
+    node 0 of half this process's CPUs) the copy threads are bound to its
+    CPUs and, on the host's node, the slots' pages lie on it."""
+    from noisereduce_tpu_torch.parallel import host_copy, transfer
+
+    if node == "faked":
+        allowed = sorted(os.sched_getaffinity(0))
+        half = allowed[: max(1, len(allowed) // 2)]
+        monkeypatch.setattr(host_copy, "card_node", lambda device: 0)
+        monkeypatch.setattr(host_copy, "numa_nodes", lambda: {0: half})
+        monkeypatch.setattr(transfer, "_NODE_CPUS", {})
+        monkeypatch.setattr(transfer._LOCAL, "rings", None, raising=False)
+    y = _stage_case("stereo")[0]
+    want = _one_copy(y, STAGE_SR, STAGE_CK)
+    assert np.array_equal(nrt.reduce_noise(y, STAGE_SR, **STAGE_CK), want)
+    ring = transfer._ring(cuda)
+    assert len(ring) == transfer.RING_SLABS
+    for slot in ring:
+        assert slot.buf.is_pinned() and slot.nbytes >= transfer.SLAB_BYTES
+    card = host_copy.card_node(cuda)
+    pool = transfer._copy_pool(cuda)
+    assert all(slot.pool is pool for slot in ring)
+    if card is None:
+        assert pool.cpus is None
+    else:
+        assert pool.cpus and set(pool.cpus) <= set(host_copy.numa_nodes()[card])
+    if node == "the host's" and card is not None:
+        held = host_copy.pages_by_node([(slot.ptr, slot.nbytes) for slot in ring])
+        assert card in held, held  # numa_maps counts whole mappings: others may merge in
+
+
+@pytest.mark.gpu
+def test_staged_slots_wait_for_their_copies(cuda, monkeypatch):
+    """The copy stream held back by ``torch.cuda._sleep`` with the ring's 4
+    slots over 55 slabs: the host refills a slot (the native copy) only
+    once the H2D that read it has run, so the output is the one-copy
+    path's bitwise; without that wait the host overwrites slabs still
+    queued."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    _force_pieces(monkeypatch)
+    monkeypatch.setattr(transfer._LOCAL, "rings", None, raising=False)
+    y, kw = _stage_case("stereo")
+    kw = dict(kw, **STAGE_CK)
+    want = _one_copy(y, STAGE_SR, kw)
+    for case in ("float32", "float64"):
+        x = y if case == "float32" else y.astype(np.float64) * (1 + 2.0 ** -30)
+        expect = want if case == "float32" else _one_copy(x, STAGE_SR, kw)
+        with torch.cuda.stream(transfer._copy_stream(cuda, "h2d")):
+            torch.cuda._sleep(200_000_000)
+        assert np.array_equal(nrt.reduce_noise(x, STAGE_SR, **kw), expect), case
 
 
 @pytest.mark.gpu

@@ -21,10 +21,25 @@ staged_pieces``), without a card.
   the CPU path makes.
 - ``reduce_noise(..., device="cpu")`` (every engine, a CPU mesh, a batch)
   makes no pinned tensor, no stream and no event, and stages nothing.
+- The native copy (``parallel/host_copy.py`` over ``native/nrcopy.cpp``)
+  against ``np.copyto`` and numpy's ``astype``, bitwise: contiguous,
+  strided, reversed, transposed and list-of-rows sources; int16, float32
+  and float64, with NaN, +-inf, subnormals, -0.0, ties and overflow
+  (float64 into float32 bitwise numpy's cast); slab edges and destination
+  rows off 16-byte boundaries and on them; one part and many parts; a
+  pool bound to this process's CPUs and a slot allocated on them; the
+  card's copy pool bound to its node's CPUs (the node faked); several
+  threads sharing the pool. Which dtype a slab crosses in
+  (``wire_dtype``): a float64 signal headed for bfloat16 is not cast on
+  the host. The host facts (``/sys`` and ``/proc/self/numa_maps``, read
+  only).
 
 The card side (the copy streams, the events, the pinned ring and output)
 is held by ``tests/test_torch_cuda.py`` (marker ``gpu``).
 """
+import os
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +53,7 @@ from noisereduce_tpu_torch.api import _to_tensor
 from noisereduce_tpu_torch.config import GateConfig
 from noisereduce_tpu_torch.ops.cuda.dispatch import _gate_from_signal
 from noisereduce_tpu_torch.ops.cuda.torch_dispatch import _tpugate_from_signal
-from noisereduce_tpu_torch.parallel import transfer
+from noisereduce_tpu_torch.parallel import host_copy, transfer
 from noisereduce_tpu_torch.parallel.chunking import n_chunks_for, staged_pieces
 from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
 
@@ -262,3 +277,279 @@ def test_cpu_path_makes_no_pinned_tensor_and_no_stream(engine, monkeypatch):
     nrt.reduce_noise(y, SR, max_parallel_chunks=2, **kw)
     nrt.reduce_noise(y, SR, mesh=ChunkMesh((torch.device("cpu"),) * 2), **kw)
     nrt.reduce_noise_batch([y[0], y[1]], SR, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the native copy (host_copy over native/nrcopy.cpp) against numpy
+# ---------------------------------------------------------------------------
+def _special(dtype):
+    """Every row's samples with the values a cast gets wrong first."""
+    rng = np.random.default_rng(43)
+    if dtype == np.int16:
+        rows = rng.integers(-32768, 32768, size=(3, 5003), dtype=np.int16)
+        rows[:, :4] = [-32768, 32767, 0, -1]
+        return rows
+    rows = rng.standard_normal((3, 5003)) * 10.0 ** rng.integers(-45, 40, size=(3, 5003))
+    f32 = np.finfo(np.float32)
+    special = [np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324, -5e-324, 1e-40, -1e-40,
+               float(f32.smallest_subnormal) / 2, float(f32.smallest_subnormal) * 0.75,
+               1 + 2.0 ** -24, 1 + 3 * 2.0 ** -24, float(f32.max) * 1.0000001, 1e39, -1e39,
+               float(f32.tiny), float(f32.tiny) * (1 - 2.0 ** -30)]
+    for r in range(3):
+        rows[r, 7 * r : 7 * r + len(special)] = special
+    rows[1, 2000:2100] = np.frombuffer(  # NaNs with payloads
+        (np.arange(100, dtype=np.uint64) * 0x1234567 + 0x7FF0000000000001).tobytes(),
+        dtype=np.float64)
+    with np.errstate(over="ignore", invalid="ignore"):
+        return rows.astype(dtype)
+
+
+def _sources(a):
+    """The same rows as a contiguous array, every third sample, reversed,
+    transposed (interleaved) and a list of rows."""
+    wide = np.repeat(a, 3, axis=1)
+    return {
+        "contiguous": a,
+        "strided": wide[:, ::3],
+        "reversed": np.ascontiguousarray(a[:, ::-1])[:, ::-1],
+        "transposed": np.ascontiguousarray(a.T).T,
+        "rows": [r.copy() for r in a],
+    }
+
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    return x.view({1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[x.itemsize])
+
+
+COPY_CASES = {"int16": (np.int16, np.int16), "float32": (np.float32, np.float32),
+              "float64": (np.float64, np.float64), "float64 into float32": (np.float64, np.float32)}
+
+
+@pytest.mark.parametrize("layout", ["rows-off-16", "packed"])
+@pytest.mark.parametrize("part_bytes", [64, 1 << 30], ids=["many-parts", "one-part"])
+@pytest.mark.parametrize("kind", ["contiguous", "strided", "reversed", "transposed", "rows"])
+@pytest.mark.parametrize("case", list(COPY_CASES))
+def test_native_copy_is_numpys_copy(case, kind, part_bytes, layout, monkeypatch):
+    """Every row's samples [a, b) of each source into a host tensor, at
+    edges off 16 bytes, into rows that start off 16 bytes (``rows-off-16``:
+    each row's head stored, the rest streamed) or packed from an aligned
+    start, bitwise ``np.copyto`` (the same dtype) or numpy's ``astype``
+    (float64 into float32)."""
+    monkeypatch.setattr(transfer, "COPY_PART_BYTES", part_bytes)
+    src_dt, dst_dt = COPY_CASES[case]
+    a = _special(src_dt)
+    src = _sources(a)[kind]
+    hs = transfer.HostSignal(src, torch.float32)
+    tdt = torch.from_numpy(np.empty(0, dst_dt)).dtype
+    for lo, hi in [(0, 5003), (1, 4998), (3, 3), (5, 6), (13, 2000), (4990, 5003)]:
+        w = hi - lo
+        # rows-off-16: rows of w + 3 samples from one element in, so no row
+        # starts at 16 bytes; packed: rows of w from element 0 (64-byte aligned)
+        pad, at = (3, 1) if layout == "rows-off-16" else (0, 0)
+        store = torch.full((3 * (w + pad) + at,), -7, dtype=tdt)
+        dst = store[at:].view(3, w + pad)[:, :w]
+        assert layout == "rows-off-16" or dst.data_ptr() % 64 == 0
+        hs.copy_into(dst, lo, hi)
+        want = np.empty((3, w), dtype=dst_dt)
+        if src_dt == dst_dt:
+            np.copyto(want, a[:, lo:hi], casting="no")
+        else:
+            with np.errstate(over="ignore", invalid="ignore"):
+                want = a[:, lo:hi].astype(dst_dt)
+        assert np.array_equal(_bits(dst.numpy()), _bits(want)), (lo, hi)
+        assert (store[:at] == -7).all() and (store[at:].view(3, w + pad)[:, w:] == -7).all()
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32, np.float64])
+def test_native_copy_into_a_slot_of_every_size(dtype):
+    """A slot made as the ring makes one (``host_copy.on_cpus`` of its
+    pool's CPUs around the allocation; not pinned here, where no card pins)
+    as the destination of slabs of odd widths, the pool bound to half this
+    process's CPUs: the allocating thread ran on those CPUs only and got
+    its own back after (after an error too), the copy is numpy's, and the
+    slot's pages lie on nodes the host names."""
+    allowed = sorted(os.sched_getaffinity(0))
+    cpus = allowed[: max(1, len(allowed) // 2)]
+    pool = host_copy.CopyPool(3, cpus)
+    a = _special(dtype)
+    for nbytes in (6000, 3 << 20):
+        ran = []
+
+        def alloc():
+            ran.append(sorted(os.sched_getaffinity(0)))
+            return torch.zeros(nbytes, dtype=torch.uint8)  # every page written
+
+        slot = host_copy.on_cpus(pool.cpus, alloc)
+        assert ran == [cpus] and sorted(os.sched_getaffinity(0)) == allowed
+        w = min(a.shape[1], nbytes // (3 * a.itemsize)) - 1
+        src = np.ascontiguousarray(a[:, :w])
+        pool.copy(np.array([r.ctypes.data for r in src]), np.full(3, a.itemsize), a.itemsize,
+                  slot.data_ptr(), w * a.itemsize, a.itemsize, w, 1000)
+        got = slot[: 3 * w * a.itemsize].numpy().view(dtype).reshape(3, w)
+        assert np.array_equal(_bits(got), _bits(src))
+        assert not slot[3 * w * a.itemsize :].any()
+        nodes = host_copy.numa_nodes()
+        held = host_copy.pages_by_node([(slot.data_ptr(), nbytes)])
+        assert not nodes or (held and set(held) <= set(nodes))
+    with pytest.raises(ZeroDivisionError):
+        host_copy.on_cpus(pool.cpus, lambda: 1 / 0)
+    assert sorted(os.sched_getaffinity(0)) == allowed
+    assert host_copy.on_cpus(None, lambda: sorted(os.sched_getaffinity(0))) == allowed
+
+
+def test_native_copy_shared_by_threads(monkeypatch):
+    """Eight Python threads (more than the pool's three native threads)
+    copy their own signals through one pool at once, the interpreter
+    switching threads every 10 us: each copy is its own."""
+    import sys
+    import threading
+
+    monkeypatch.setattr(transfer, "COPY_PART_BYTES", 256)
+    monkeypatch.setattr(transfer, "COPY_THREADS", 3)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    errors = []
+
+    def work(seed):
+        rng = np.random.default_rng(seed)
+        a = rng.standard_normal((2, 3001))
+        hs = transfer.HostSignal(a, torch.float32)
+        try:
+            for _ in range(60):
+                lo = int(rng.integers(0, 3000))
+                dst = torch.empty((2, 3001 - lo), dtype=torch.float32)
+                hs.copy_into(dst, lo, 3001)
+                if not np.array_equal(dst.numpy(), a[:, lo:].astype(np.float32)):
+                    errors.append(seed)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=work, args=(s,)) for s in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors, errors
+
+
+def _allowed(tid: int):
+    """The CPUs thread ``tid`` may run on, or None once it has ended."""
+    try:
+        return sorted(os.sched_getaffinity(tid))
+    except OSError:
+        return None
+
+
+def test_card_copy_pool_is_bound_to_the_cards_node(monkeypatch):
+    """Where the card has a NUMA node (faked: node 1, half of this
+    process's CPUs and one it may not use), the card's copy pool is bound
+    to the node's CPUs it may use: ``COPY_THREADS`` native threads of this
+    process may run there only, the pool is made once, a host tensor's copy
+    takes the unbound pool, and a slab copied through the bound pool (as
+    ``_stage_next`` passes a slot's pool) is numpy's."""
+    allowed = sorted(os.sched_getaffinity(0))
+    node = allowed[: max(1, len(allowed) // 2)]
+    monkeypatch.setattr(host_copy, "card_node", lambda device: 1)
+    monkeypatch.setattr(host_copy, "numa_nodes",
+                        lambda: {0: allowed[len(node):], 1: node + [max(allowed) + 1]})
+    monkeypatch.setattr(transfer, "_NODE_CPUS", {})
+    card = torch.device("cuda", 0)
+    assert host_copy.node_cpus(card) == node
+    pool = transfer._copy_pool(card)
+    assert pool.cpus == tuple(node) and transfer._copy_pool(card) is pool
+    assert transfer._copy_pool().cpus is None and transfer._copy_pool() is not pool
+    before = {int(t) for t in os.listdir("/proc/self/task")}
+    host_copy.CopyPool(2, node)  # two more threads, bound the same way
+    after = {int(t) for t in os.listdir("/proc/self/task")}
+    assert len(after - before) == 2 and all(_allowed(t) == node for t in after - before)
+    bound = [t for t in after if _allowed(t) == node]
+    assert len(bound) >= transfer.COPY_THREADS + 2
+    a = _special(np.float64)
+    dst = torch.empty((3, 4000), dtype=torch.float32)
+    transfer.HostSignal(a, torch.float32).copy_into(dst, 1000, 5000, pool=pool)
+    with np.errstate(over="ignore", invalid="ignore"):
+        want = a[:, 1000:5000].astype(np.float32)
+    assert np.array_equal(_bits(dst.numpy()), _bits(want))
+
+
+def test_card_without_a_node_takes_the_unbound_pool(monkeypatch):
+    """A card the host names no node for (``card_node`` None), or a node
+    none of whose CPUs this process may use: the card's copy pool is the
+    unbound one."""
+    allowed = set(os.sched_getaffinity(0))
+    monkeypatch.setattr(transfer, "_NODE_CPUS", {})
+    monkeypatch.setattr(host_copy, "card_node", lambda device: None)
+    card = torch.device("cuda", 0)
+    assert host_copy.node_cpus(card) is None
+    assert transfer._copy_pool(card) is transfer._copy_pool()
+    monkeypatch.setattr(transfer, "_NODE_CPUS", {})
+    monkeypatch.setattr(host_copy, "card_node", lambda device: 3)
+    monkeypatch.setattr(host_copy, "numa_nodes", lambda: {3: [max(allowed) + 1]})
+    assert host_copy.node_cpus(card) is None
+    assert transfer._copy_pool(card) is transfer._copy_pool()
+
+
+def test_wire_dtype_casts_only_float64_into_float32():
+    """float64 rows cross as float32 only where the signal is float32 (the
+    host's cast in the copy); a float64 signal headed for bfloat16 crosses
+    as float64 and is cast on the card (float32 then bfloat16 would round
+    twice on the host); int16 crosses as int16; float32 as float32."""
+    x64 = _special(np.float64)
+    assert transfer.HostSignal(x64, torch.float32).wire_dtype == torch.float32
+    for dtype in (torch.bfloat16, torch.float64):
+        hs = transfer.HostSignal(x64, dtype)
+        assert hs.wire_dtype == torch.float64
+        slab = torch.empty((3, 100), dtype=hs.wire_dtype)
+        hs.copy_into(slab, 10, 110)
+        assert np.array_equal(_bits(slab.numpy()), _bits(x64[:, 10:110]))
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        assert transfer.HostSignal(_special(np.int16), dtype).wire_dtype == torch.int16
+    assert transfer.HostSignal(_special(np.float32), torch.bfloat16).wire_dtype == torch.float32
+    finite = np.where(np.isfinite(x64), x64, 0.0)
+    got = transfer.HostSignal(finite, torch.bfloat16).tensor()
+    assert torch.equal(got.view(torch.int16), torch.as_tensor(finite).to(torch.bfloat16)
+                       .view(torch.int16))
+
+
+def test_host_copy_refuses_what_it_cannot_copy():
+    a = np.zeros((2, 100), dtype=np.float32)
+    hs = transfer.HostSignal(a, torch.float32)
+    with pytest.raises(IndexError):
+        hs.copy_into(torch.empty((2, 10)), 95, 105)
+    with pytest.raises(ValueError):
+        hs.copy_into(torch.empty((3, 10)), 0, 10)
+    with pytest.raises(ValueError):
+        hs.copy_into(torch.empty((10, 2)).T, 0, 10)  # rows of stride 2
+    with pytest.raises(TypeError):
+        hs.copy_into(torch.empty((2, 10), dtype=torch.float64), 0, 10)
+    with pytest.raises(TypeError):  # only float64 rows are cast
+        transfer.HostSignal(a.astype(np.int16), torch.float32).copy_into(
+            torch.empty((2, 10)), 0, 10)
+    with pytest.raises(ValueError):
+        transfer.HostSignal([a[0], a[1, :99]], torch.float32)
+    with pytest.raises(ValueError):
+        transfer.HostSignal([a[0], a[1].astype(np.float64)], torch.float32)
+
+
+def test_native_copy_builds_into_the_ports_build_directory():
+    path = host_copy.library()._name
+    assert pathlib.Path(path).parent.parent == pathlib.Path(transfer.__file__).resolve(
+    ).parent.parent / "_build"
+    assert pathlib.Path(path).name == "libnrcopy.so"
+
+
+def test_host_facts_read_the_host():
+    """CPU lists, the nodes of a mapping and the facts' fields (the card's
+    node left out: no card here)."""
+    assert host_copy._cpu_list("0-3,8,10-11\n") == [0, 1, 2, 3, 8, 10, 11]
+    assert host_copy._span_text([11, 0, 1, 2, 3, 8, 10]) == "0-3,8,10-11"
+    assert host_copy._span_text([]) == ""
+    nodes = host_copy.numa_nodes()
+    assert all(isinstance(n, int) and cpus for n, cpus in nodes.items())
+    a = np.ones(1 << 20, dtype=np.float32)
+    got = host_copy.pages_by_node([(a.ctypes.data, a.nbytes)])
+    assert not nodes or (set(got) <= set(nodes) and sum(got.values()) >= a.nbytes // 4096)

@@ -3,23 +3,25 @@
 
     python3 tools/torch_breakdown.py [--reps 3]
     python3 tools/torch_breakdown.py --ab parent=<checkout> --rounds 4 --no-training
+    python3 tools/torch_breakdown.py --ab parent=<checkout> --variants RING=mapped
     python3 tools/torch_breakdown.py --pieces 1,2,4,8,16 --cells headline --no-training
-    python3 tools/torch_breakdown.py --h2d --cells none --no-training
+    python3 tools/torch_breakdown.py --h2d --keep --cells none --no-training
 
 For each cell (``--cells``, comma-separated, default all: the 960 s / 48
 kHz headline, non-stationary, stationary with a 10 s noise clip and under
 ``use_torch=True``; a batch of 32 stationary 10 s clips; the bf16
-headline; the headline with ``max_parallel_chunks=8``; the headline on a
+headline; the headline with ``max_parallel_chunks=8``; the headline as a
+float64 caller sends it, ``chip_smoke.float64_signal``; the headline on a
 mesh of ``(cuda:0,) * 2``), prints the host wall time of the call (numpy
 in and out; minimum, median and maximum of ``--reps`` after a warm-up), then
 one call split by ``chip_smoke.call_split``: the host's copy into pinned
 memory (the time spent in ``HostSignal.copy_into``, the staged path's only
-host copy; 0 where a tree has no staged path), the pieces (the launches of
-kernel D), and from a ``torch.profiler`` trace the device's busy time and
-share of the profiled wall (the union of its kernel and copy intervals),
-the H2D, the kernels and the D2H (device time by operation kind), how long
-kernels ran during an H2D and a D2H during a kernel, and the device time
-of each kernel and copy by name. Then one
+host copy, and its GB/s; 0 where a tree has no staged path), the pieces
+(the launches of kernel D), and from a ``torch.profiler`` trace the
+device's busy time and share of the profiled wall (the union of its kernel
+and copy intervals), the H2D, the kernels and the D2H (device time by
+operation kind), how long kernels ran during an H2D and a D2H during a
+kernel, and the device time of each kernel and copy by name. Then one
 training step, forward and backward of mean(gate(x)**2), of ``TPUGate``,
 ``gate_nonstationary`` and ``gate_stationary`` at batch 16 and 256 of 4 s
 at 16 kHz (``--no-training`` leaves them out).
@@ -31,19 +33,28 @@ must be the same): the trees alternate over ``--rounds`` rounds (NAME,
 this, this, NAME, ...), each cell's wall over all rounds, then one profiled
 call of each. ``--variants NAME=VALUE,...`` adds this tree again with a
 setting of ``parallel/transfer.py`` changed, as one more tree of the same
-rounds (``COPY_PART_BYTES=1e15``: each row's run of a slab one part, so
-one thread copies a mono signal).
+rounds (``COPY_THREADS=4``; ``RING=mapped``: the ring's slots mapped with
+huge pages asked for, touched and ``cudaHostRegister``ed, ``MappedSlot``,
+in place of torch's pinned ones).
 ``--pieces`` times the headline with at most that many pieces
 (``transfer.MAX_PIECES``, the floor ``MIN_PIECE_SAMPLES`` taken away) over
 slabs of each of ``--slabs`` MiB (``transfer.SLAB_BYTES``), staged by the
 calling thread as each piece needs its slabs or by a second thread
-(``--staging inline,thread``), the variants alternating over the rounds. ``--h2d`` measures the ways to bring
-the headline's 184 MB to the card: the host's copy into a pinned ring
-(torch's intra-op threads, one thread, numpy, numpy over the copy pool as
-``HostSignal.copy_into`` runs it, and the intra-op threads from a second,
-long-lived thread), the signal staged whole, the
-caller's buffer registered in place (``cudaHostRegister``: registering,
-the H2D, unregistering), one pageable copy and one pinned copy.
+(``--staging inline,thread``), the variants alternating over the rounds.
+``--h2d`` prints the host facts (``host_copy.host_facts``: NUMA nodes and
+CPUs, the card's node, the affinity, the huge page mode, the nodes holding
+each ring's and the signal's pages) and measures the ways to bring the
+headline's 184 MB to the card: the host's copy into a pinned ring (torch's
+intra-op threads, one thread, numpy, numpy over 8 threads as
+``HostSignal.copy_into`` ran it before the native copy, the intra-op
+threads from a second, long-lived thread, and the native copy of
+``host_copy``: unbound, bound to the card's node into a ring pinned there,
+and into a mapped ring), every slab sent from a ring without the copy
+(torch's pinned and the mapped), the signal staged whole (through either
+ring), the caller's buffer registered whole (``cudaHostRegister``:
+registering, the H2D, unregistering), one pageable copy and one pinned
+copy. ``--keep`` times 8 headline calls that keep every result against 8
+that drop each, and prints the pinned host memory held.
 
 The inputs are ``chip_smoke.py``'s, made from its seed. Needs one card;
 imports nothing of JAX.
@@ -52,7 +63,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import ctypes
+import functools
 import importlib
+import json
+import mmap
 import pathlib
 import queue
 import shutil
@@ -70,21 +86,51 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import noisereduce_tpu_torch as nr  # noqa: E402
 from noisereduce_tpu_torch.ops.cuda import kernels as K  # noqa: E402
-from noisereduce_tpu_torch.parallel import transfer  # noqa: E402
+from noisereduce_tpu_torch.parallel import host_copy, transfer  # noqa: E402
 
 CELLS = ("headline", "stationary headline", "torch headline", "batch", "bf16 headline",
-         "grouped headline", "mesh headline")
+         "grouped headline", "float64 headline", "mesh headline")
 
 
-def walls(fn, reps: int) -> list:
+def walls(fn, reps: int, copies=None) -> list:
+    """Host wall ms of ``reps`` calls; with ``copies`` (a list) and a
+    transfer module's ``copy_into`` being timed (``copy_timer``), each
+    call's host copy (ms, bytes) appended to it."""
     out = []
     for _ in range(reps):
         torch.cuda.synchronize()
+        COPY[:] = [0.0, 0]
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
+        if copies is not None:
+            copies.append((COPY[0] * 1e3, COPY[1]))
     return out
+
+
+COPY = [0.0, 0]  # seconds and bytes of the host copy in the current call
+
+
+@contextlib.contextmanager
+def copy_timer(tm):
+    """``tm.HostSignal.copy_into`` timed into ``COPY`` (nothing for None)."""
+    if tm is None:
+        yield
+        return
+    copy_into = tm.HostSignal.copy_into
+
+    def timed(self, dst, *a, **k):
+        t0 = time.perf_counter()
+        copy_into(self, dst, *a, **k)
+        COPY[0] += time.perf_counter() - t0
+        COPY[1] += dst.numel() * dst.element_size()
+
+    tm.HostSignal.copy_into = timed
+    try:
+        yield
+    finally:
+        tm.HostSignal.copy_into = copy_into
 
 
 def profiled(label: str, fn, kmod, tmod, card: str) -> dict:
@@ -109,7 +155,7 @@ def _patched(fn, mod, settings: dict):
     return run
 
 
-def cell_calls(pkg, x, noise, clips):
+def cell_calls(pkg, x, noise, clips, x64):
     """Each cell's call through the package ``pkg``."""
     from_mesh = importlib.import_module(f"{pkg.__name__}.parallel.mesh")
     ck = dict(chunk_size=cs.CHUNK, padding=cs.PADDING)
@@ -123,6 +169,7 @@ def cell_calls(pkg, x, noise, clips):
         "bf16 headline": lambda: pkg.reduce_noise(x, cs.SR, compute_dtype=torch.bfloat16, **ck),
         "grouped headline": lambda: pkg.reduce_noise(x, cs.SR,
                                                      max_parallel_chunks=cs.GROUP_CHUNKS, **ck),
+        "float64 headline": lambda: pkg.reduce_noise(x64, cs.SR, **ck),
         "mesh headline": lambda: pkg.reduce_noise(x, cs.SR, mesh=mesh, **ck),
     }
 
@@ -148,31 +195,113 @@ def load_checkout(name: str, root: pathlib.Path):
     return mod
 
 
+def numpy_pool_copy(hs, dst: torch.Tensor, a: int, b: int, pool) -> None:
+    """``HostSignal.copy_into`` before the native copy: numpy copies of
+    parts of at least 2 MiB spread over a ``ThreadPoolExecutor``."""
+    out, w = dst.numpy(), b - a
+    step = max(1, (2 << 20) // dst.element_size(), -(-w * len(hs.rows) // 8))
+    parts = [(r, s, min(w, s + step)) for r in range(len(hs.rows)) for s in range(0, w, step)]
+
+    def copy(part):
+        r, s, e = part
+        np.copyto(out[r, s:e], hs.rows[r][a + s : a + e], casting="no")
+
+    for _ in pool.map(copy, parts):
+        pass
+
+
+class MappedSlot:
+    """A slot of the ring as the native copy's library once made it, set
+    against torch's pinned slot (``transfer._Slot``) that replaced it:
+    anonymous memory at a 2 MiB boundary with huge pages asked for
+    (``madvise``, a hint), first touched by the calling thread, then
+    registered with CUDA (``cudaHostRegister``); ``transfer._Slot``'s
+    interface, for ``--h2d`` and the ``RING=mapped`` variant. Lives as long
+    as the process."""
+
+    HUGE = 2 << 20
+
+    def __init__(self, nbytes: int, pool):
+        self.pool, self.event = pool, None
+        size = -(-nbytes // self.HUGE) * self.HUGE
+        self._map = mmap.mmap(-1, size + self.HUGE)
+        self._export = ctypes.c_char.from_buffer(self._map)  # the map stays open
+        base = ctypes.addressof(self._export)
+        at = -base % self.HUGE
+        if hasattr(mmap, "MADV_HUGEPAGE"):
+            self._map.madvise(mmap.MADV_HUGEPAGE, at, size)
+        arr = np.frombuffer(self._map, np.uint8, size, at)
+        arr[:: mmap.PAGESIZE] = 0  # first touch
+        err = int(torch.cuda.cudart().cudaHostRegister(base + at, size, 0))
+        if err:
+            raise RuntimeError(f"cudaHostRegister of a {size}-byte slot: error {err}")
+        self.buf = torch.from_numpy(arr)
+        self.ptr, self.nbytes = base + at, size
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        if self.nbytes < nbytes:
+            raise ValueError(f"a mapped slot of {self.nbytes} bytes, {nbytes} asked for")
+        return self.buf
+
+
+@functools.cache
+def mapped_rings() -> threading.local:
+    """A ``transfer._LOCAL`` whose ring (this thread's, for the card's copy
+    pool) is of ``MappedSlot``s: set in its place, a staged call copies into
+    and sends from mapped and registered memory. Made once: its slots stay
+    registered for the life of the process."""
+    local = threading.local()
+    pool = transfer._copy_pool(torch.device("cuda"))
+    local.rings = {pool: [MappedSlot(transfer.SLAB_BYTES, pool)
+                          for _ in range(transfer.RING_SLABS)]}
+    return local
+
+
 def h2d_ways(x: np.ndarray, card: str, rounds: int) -> None:
     """The ways to bring ``x`` (float32, mono) to the card, interleaved
-    over ``rounds`` rounds after a warm-up: ms min / median / max."""
+    over ``rounds`` rounds after a warm-up: ms min / median / max, and the
+    host facts the copy depends on."""
+    from concurrent.futures import ThreadPoolExecutor
+
     dev = torch.device("cuda")
     nbytes = x.nbytes
-    ring = [transfer._Slot(transfer.SLAB_BYTES) for _ in range(transfer.RING_SLABS)]
+    bound_pool = transfer._copy_pool(dev)
+    free_pool = host_copy.pool(transfer.COPY_THREADS)
+    mapped_local = mapped_rings()
+    rings = {"bound": transfer._ring(dev),
+             "unbound": [transfer._Slot(transfer.SLAB_BYTES, free_pool)
+                         for _ in range(transfer.RING_SLABS)],
+             "mapped": next(iter(mapped_local.rings.values()))}
+    ring = rings["unbound"]
     width = transfer.slab_width(1, 4)
     src = torch.from_numpy(x)
     threads = torch.get_num_threads()
+    facts = host_copy.host_facts(dev, {
+        "bound ring": [(s.ptr, s.nbytes) for s in rings["bound"]],
+        "unbound ring": [(s.ptr, s.nbytes) for s in rings["unbound"]],
+        "mapped ring": [(s.ptr, s.nbytes) for s in rings["mapped"]],
+        "signal": [(x.ctypes.data, nbytes)]})
+    print(f"host: {json.dumps(facts)}; bound copy threads on CPUs "
+          f"{host_copy._span_text(bound_pool.cpus) if bound_pool.cpus else 'none (unbound)'}",
+          flush=True)
+
+    def slabs():
+        return enumerate((a, min(len(x), a + width)) for a in range(0, len(x), width))
 
     def into_ring(n_threads):
         def run():
             torch.set_num_threads(n_threads)
             try:
-                for i, a in enumerate(range(0, len(x), width)):
-                    slot = ring[i % len(ring)]
-                    b = min(len(x), a + width)
-                    slot.buf[: (b - a) * 4].view(torch.float32).copy_(src[a:b])
+                for i, (a, b) in slabs():
+                    ring[i % len(ring)].buf[: (b - a) * 4].view(torch.float32).copy_(src[a:b])
             finally:
                 torch.set_num_threads(threads)
         return run
 
     def numpy_into_ring():
-        for i, a in enumerate(range(0, len(x), width)):
-            b = min(len(x), a + width)
+        for i, (a, b) in slabs():
             np.copyto(ring[i % len(ring)].buf[: (b - a) * 4].view(torch.float32).numpy(), x[a:b])
 
     jobs, done = queue.SimpleQueue(), queue.SimpleQueue()
@@ -187,15 +316,48 @@ def h2d_ways(x: np.ndarray, card: str, rounds: int) -> None:
         jobs.put(into_ring(threads))
         done.get()
 
+    hs = transfer.HostSignal(x[None], torch.float32)
+    executor = ThreadPoolExecutor(8, thread_name_prefix="numpy-copy")
+
     def numpy_pool():
-        hs = transfer.HostSignal(x[None], torch.float32)
-        for i, a in enumerate(range(0, len(x), width)):
-            b = min(len(x), a + width)
-            hs.copy_into(ring[i % len(ring)].buf[: (b - a) * 4].view(torch.float32)[None], a, b)
+        for i, (a, b) in slabs():
+            dst = ring[i % len(ring)].buf[: (b - a) * 4].view(torch.float32)[None]
+            numpy_pool_copy(hs, dst, a, b, executor)
+
+    def native(which):
+        slots = rings[which]
+        pool = bound_pool if which == "bound" else free_pool
+
+        def run():
+            for i, (a, b) in slabs():
+                hs.copy_into(slots[i % len(slots)].buf[: (b - a) * 4].view(torch.float32)[None],
+                             a, b, pool=pool)
+        return run
+
+    def sent_from(which):
+        """Every slab sent from its slot of the ring, as staged, without the
+        host's copy: the H2D alone, 16 MiB a copy."""
+        slots = rings[which]
+        out = torch.empty(len(x), dtype=torch.float32, device=dev)
+
+        def run():
+            for i, (a, b) in slabs():
+                out[a:b].copy_(slots[i % len(slots)].buf[: (b - a) * 4].view(torch.float32),
+                               non_blocking=True)
+            torch.cuda.synchronize()
+        return run
 
     def staged():
         transfer.HostSignal(x[None], torch.float32).stage(dev).tensor()
         torch.cuda.synchronize()
+
+    def staged_mapped():
+        saved = transfer._LOCAL
+        transfer._LOCAL = mapped_local
+        try:
+            staged()
+        finally:
+            transfer._LOCAL = saved
 
     cudart = torch.cuda.cudart()
     regs = {}
@@ -222,9 +384,16 @@ def h2d_ways(x: np.ndarray, card: str, rounds: int) -> None:
         "host copy into the ring, intra-op threads": into_ring(threads),
         "host copy into the ring, one thread": into_ring(1),
         "host copy into the ring, numpy": numpy_into_ring,
-        "host copy into the ring, numpy over the copy pool (HostSignal.copy_into)": numpy_pool,
+        "host copy into the ring, numpy over 8 threads (the copy before the native one)":
+            numpy_pool,
         "host copy into the ring, intra-op threads, from a second thread": in_worker,
+        "host copy into the ring, native, unbound (HostSignal.copy_into)": native("unbound"),
+        "host copy into the bound ring, native, bound to the card's node": native("bound"),
+        "host copy into the mapped ring, native, unbound": native("mapped"),
+        "H2D of every slab from the ring, no host copy": sent_from("unbound"),
+        "H2D of every slab from the mapped ring, no host copy": sent_from("mapped"),
         "staged whole (the ring, H2D and events)": staged,
+        "staged whole through the mapped ring": staged_mapped,
         "cudaHostRegister, H2D, unregister": registered,
         "pageable .to(cuda)": lambda: src.to(dev),
         "pinned .to(cuda)": lambda: pinned.to(dev, non_blocking=True),
@@ -240,16 +409,62 @@ def h2d_ways(x: np.ndarray, card: str, rounds: int) -> None:
             if r:
                 times[name].append((time.perf_counter() - t0) * 1e3)
             else:
-                for k, n in regs_before.items():
-                    del regs[k][n:]
-                if name.startswith("cudaHostRegister"):
-                    regs.clear()
+                for k in list(regs):
+                    del regs[k][regs_before.get(k, 0):]
     times.update(regs)
+    executor.shutdown()
     print(f"H2D ways for {nbytes / 1e6:.1f} MB (float32), {threads} intra-op threads, "
           f"{rounds} rounds, ms min / median / max, on {card}:", flush=True)
     for name, v in times.items():
         print(f"    {name}: {min(v):.2f} / {np.median(v):.2f} / {max(v):.2f} "
               f"({nbytes / min(v) / 1e6:.1f} GB/s at the min)", flush=True)
+
+
+def kept_outputs(x: np.ndarray, card: str, rounds: int, calls: int = 8) -> None:
+    """A loop of ``calls`` headline calls that keeps every result against
+    one that drops each before the next, interleaved over ``rounds`` rounds
+    after a warm-up: ms per loop min / median, and the pinned host bytes
+    held after a kept loop (torch's host allocator, which rounds a block
+    up)."""
+    ck = dict(chunk_size=cs.CHUNK, padding=cs.PADDING)
+    got = collections.defaultdict(list)
+    held = {}
+    for r in range(rounds + 1):
+        for mode in (("drop", "keep") if r % 2 else ("keep", "drop")):
+            kept = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                out = nr.reduce_noise(x, cs.SR, **ck)
+                if mode == "keep":
+                    kept.append(out)
+                del out
+            torch.cuda.synchronize()
+            if r:
+                got[mode].append((time.perf_counter() - t0) * 1e3)
+            if mode == "keep" and hasattr(torch.cuda, "host_memory_stats"):
+                stats = torch.cuda.host_memory_stats()
+                held = {k: v for k, v in stats.items()
+                        if k.startswith(("allocated_bytes", "reserved_bytes"))
+                        and k.endswith(("current", "peak"))}
+            del kept
+    for mode, v in got.items():
+        print(f"{calls} headline calls, results {'kept' if mode == 'keep' else 'dropped'}: "
+              f"ms min {min(v):.2f} median {np.median(v):.2f} over {len(v)} loops "
+              f"({np.median(v) / calls:.2f} ms a call at the median), on {card}", flush=True)
+    print(f"pinned host memory after a kept loop ({calls} outputs of {x.nbytes / 1e6:.1f} MB): "
+          f"{json.dumps(held) if held else 'not reported by this torch'}", flush=True)
+    out = nr.reduce_noise(x, cs.SR, **ck)
+    cast = []
+    for _ in range(rounds + 1):
+        t0 = time.perf_counter()
+        wide = out.astype(np.float64)
+        cast.append((time.perf_counter() - t0) * 1e3)
+        del wide
+    print(f"a float64 caller's output cast on the host (astype of the {out.nbytes / 1e6:.1f} MB "
+          f"float32 result into a new float64 array, as api._finalize_reduce_output does): ms "
+          f"min {min(cast[1:]):.2f} median {np.median(cast[1:]):.2f} after a first "
+          f"{cast[0]:.2f}", flush=True)
 
 
 def main() -> None:
@@ -261,12 +476,15 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--variants", default="",
                     help="comma-separated NAME=VALUE: this tree again with transfer.NAME "
-                         "set, e.g. COPY_PART_BYTES=1e15")
+                         "set, e.g. COPY_PART_BYTES=1e15; RING=mapped: the ring's slots "
+                         "mapped and registered (MappedSlot)")
     ap.add_argument("--pieces", default="", help="comma-separated MAX_PIECES to time")
     ap.add_argument("--slabs", default="4", help="--pieces: comma-separated slab MiB")
     ap.add_argument("--staging", default="inline",
                     help="--pieces: comma-separated inline (the calling thread) or thread")
     ap.add_argument("--h2d", action="store_true")
+    ap.add_argument("--keep", action="store_true",
+                    help="8 headline calls keeping every result against dropping each")
     ap.add_argument("--no-training", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -277,13 +495,18 @@ def main() -> None:
     noise = cs.noise_clip(cs.NOISE_SECONDS)
     clips = [x[i * cs.BATCH_SECONDS * cs.SR : (i + 1) * cs.BATCH_SECONDS * cs.SR]
              for i in range(cs.BATCH_CLIPS)]
+    x64 = cs.float64_signal(x)
     cells = [c for c in args.cells.split(",") if c and c != "none"]
     if args.h2d:
         h2d_ways(x, card, args.rounds)
+    if args.keep:
+        kept_outputs(x, card, args.rounds)
     trees = {"change": (nr, K, transfer)}
     for v in (v for v in args.variants.split(",") if v):  # this tree, a setting changed
         name, _, value = v.partition("=")
-        trees[f"change, {v}"] = (nr, K, transfer, {name: int(float(value))})
+        setting = ({"_LOCAL": mapped_rings()} if (name, value) == ("RING", "mapped")
+                   else {name: int(float(value))})
+        trees[f"change, {v}"] = (nr, K, transfer, setting)
     if args.ab:
         name, _, root = args.ab.rpartition("=")
         name = name or "parent"
@@ -297,20 +520,26 @@ def main() -> None:
                  **trees}
     calls = {}
     for t, (pkg, km, tm, *patch) in trees.items():
-        base = cell_calls(pkg, x, noise, clips)
+        base = cell_calls(pkg, x, noise, clips, x64)
         calls[t] = {c: _patched(fn, tm, patch[0]) if patch else fn for c, fn in base.items()}
     order = list(trees)
     for cell in cells:
         got = {t: [] for t in trees}
+        copies = {t: [] for t in trees}
         for t in trees:  # warm-up
             calls[t][cell]()
         for r in range(args.rounds if len(trees) > 1 else 1):
             for t in (order if r % 2 == 0 else order[::-1]):
-                got[t] += walls(calls[t][cell], args.reps)
+                with copy_timer(trees[t][2]):
+                    got[t] += walls(calls[t][cell], args.reps, copies[t])
         for t in trees:
             w = got[t]
+            ms = [c for c, _ in copies[t]]
+            rate = copies[t][0][1] / np.median(ms) / 1e6 if np.median(ms) else 0.0
             print(f"{cell} [{t}]: host wall ms min {min(w):.2f} median {np.median(w):.2f} "
-                  f"max {max(w):.2f} over {len(w)} calls", flush=True)
+                  f"max {max(w):.2f} over {len(w)} calls; host copy ms min {min(ms):.2f} "
+                  f"median {np.median(ms):.2f} max {max(ms):.2f} ({copies[t][0][1] / 1e6:.1f} MB, "
+                  f"{rate:.2f} GB/s at the median)", flush=True)
         for t, (pkg, km, tm, *_) in trees.items():
             profiled(f"{cell} [{t}]", calls[t][cell], km, tm, card)
         torch.cuda.empty_cache()
