@@ -1490,19 +1490,26 @@ def float64_signal(x: np.ndarray) -> np.ndarray:
     return x + 1e-3 * np.random.default_rng(SEED + 5).standard_normal(len(x))
 
 
-def staged_callers_phase(nr, K, x, cfg, launches) -> None:
-    """The headline from float64, int16 and bfloat16 callers through the
-    staged path (float64 cast to float32 by the host's native copy, bitwise
-    the card's cast; int16 sent as int16; bfloat16 cast on the card), each
-    bitwise the one-copy path of the same caller, each kernel once a piece
-    in its dtype's build."""
+def int16_signal(x: np.ndarray) -> np.ndarray:
+    """The headline as an int16 caller sends it: ``x`` scaled to a peak of
+    8000 and rounded."""
+    return np.round(x * (8000 / np.abs(x).max())).astype(np.int16)
+
+
+def staged_callers_phase(nr, K, x, x64, cfg, launches) -> None:
+    """The headline from float64 (``x64``), int16 and bfloat16 callers
+    through the staged path (float64 cast to float32 by the host's native
+    copy, bitwise the card's cast; int16 sent as int16; bfloat16 cast on
+    the card), each bitwise the one-copy path of the same caller, each
+    kernel once a piece in its dtype's build. The float64 caller's output
+    is float64, widened on the card: the array is the call's pinned output
+    itself, not a host copy."""
     P = HEADLINE_PIECES
     ck = dict(chunk_size=CHUNK, padding=PADDING)
     want = dict(spectra=P, nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P)
     callers = {
-        "float64 headline": (float64_signal(x), {}, torch.float32, "float32"),
-        "int16 headline": (np.round(x * (8000 / np.abs(x).max())).astype(np.int16), {},
-                           torch.float32, "float32"),
+        "float64 headline": (x64, {}, torch.float32, "float32"),
+        "int16 headline": (int16_signal(x), {}, torch.float32, "float32"),
         "bf16 headline, staged": (x, dict(compute_dtype=BF16), BF16, "bfloat16"),
     }
     for label, (y, kw, dtype, build) in callers.items():
@@ -1517,6 +1524,13 @@ def staged_callers_phase(nr, K, x, cfg, launches) -> None:
               f"(the signal on the card whole, cast there): {bitwise}", flush=True)
         if not bitwise:
             fail(f"{label} differs from the one-copy path")
+        if y.dtype == np.float64:
+            pinned = torch.from_numpy(out).is_pinned()
+            print(f"{label}: output {out.dtype}, {out.nbytes / 1e6:.1f} MB, widened on the card "
+                  f"and sent into the call's pinned output (the array is that pinned memory): "
+                  f"{pinned}", flush=True)
+            if out.dtype != np.float64 or not pinned:
+                fail(f"{label}: the output is not the call's pinned float64 output")
 
 
 def call_split(label: str, call, K, transfer, card: str, reps: int = 3) -> dict:
@@ -2918,13 +2932,17 @@ def main() -> None:
     del one_copy
     from noisereduce_tpu_torch.parallel import transfer
 
-    staged_callers_phase(nr, K, x, cfg, launches)
+    x64 = float64_signal(x)
+    staged_callers_phase(nr, K, x, x64, cfg, launches)
     ring = transfer._ring(torch.device("cuda"))
     facts = host_copy.host_facts(torch.device("cuda"), {
         "ring": [(s.ptr, s.nbytes) for s in ring], "signal": [(x.ctypes.data, x.nbytes)]})
     print(f"host: {json.dumps(facts)}; copy threads {transfer.COPY_THREADS}, bound to CPUs "
           f"{facts['copy_cpus'] or 'none (the card has no node)'}", flush=True)
     call_split("headline split", lambda: nr.reduce_noise(x, SR, **ck), K, transfer, card)
+    call_split("float64 headline split", lambda: nr.reduce_noise(x64, SR, **ck), K, transfer,
+               card)
+    del x64
     ms = time_ms(lambda: nr.reduce_noise(x, SR, **ck))
     plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(x)[0], cfg).cpu())
     print(

@@ -229,16 +229,24 @@ def _finalize_reduce_output(out, out_dtype, flat: bool) -> np.ndarray:
     kernels together at the headline size (PERF.md, section 6). The chunked
     body's pieces have sent their cores there already
     (``parallel.transfer.PinnedCores``): only their copies are waited for.
-    A bfloat16 output (numpy has no such type) is widened to float32 first,
-    where it is."""
+    A float64 caller's output is float64 there already, widened on the card
+    (exact), so the array is that pinned memory and the host casts nothing;
+    a card tensor (the staged twins' geometries) is widened on the card
+    before its copy. Any other dtype is cast by numpy on the host, so an
+    integer caller's out-of-range and NaN results are numpy's. A bfloat16
+    output (numpy has no such type) is widened to float32 first, where it
+    is."""
+    wide = np.dtype(out_dtype) == np.float64
     if isinstance(out, PinnedCores):
         out = out.result()
-    if out.dtype == torch.bfloat16:
-        out = out.float()
-    if out.device.type != "cpu":
+    elif out.device.type != "cpu":
+        if wide or out.dtype == torch.bfloat16:
+            out = out.to(torch.float64 if wide else torch.float32)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out)
         out = host
+    if out.dtype == torch.bfloat16:
+        out = out.float()
     arr = out.numpy().astype(out_dtype, copy=False)
     return arr.reshape(-1) if flat else arr
 

@@ -125,12 +125,12 @@ def grouped_cores(core_fn, y, chunk_size: int, group: int = 0, progress: bool = 
     ``core_fn`` reads its ``buffer``): then the chunks run in pieces (the
     groups, or ``transfer.piece_chunks`` of them), each piece waiting for
     the slab that holds the last sample its views read (``padding``: the
-    halo), and the result is a ``PinnedCores`` that each piece's cores
-    reach on the D2H stream."""
+    halo), and the result is a ``PinnedCores`` in the signal's
+    ``out_dtype`` that each piece's cores reach on the D2H stream."""
     n = y.shape[-1]
     n_chunks = n_chunks_for(n, chunk_size)
     if isinstance(y, StagedSignal):
-        out = PinnedCores(*y.shape)
+        out = PinnedCores(*y.shape, y.host.out_dtype)
         staged_pieces(core_fn, y, chunk_size, padding, 0, n_chunks, group, progress, out)
         return out
     if not progress and (not group or group >= n_chunks):
@@ -175,7 +175,8 @@ def mesh_ranges(n_chunks: int, mesh, axis_name: str = "chunks"):
 
 
 def shard_cores(core_fn, y, chunk_size: int, padding: int, mesh,
-                axis_name: str = "chunks", group: int = 0, extra: tuple = ()):
+                axis_name: str = "chunks", group: int = 0, extra: tuple = (),
+                out_dtype=None):
     """(..., n) -> (..., n) on ``y``'s device, its chunks sharded over
     ``mesh`` (``mesh_ranges``): device d receives only the samples its
     views read, [first*cs - padding, (first + k)*cs + padding) cut to the
@@ -187,16 +188,19 @@ def shard_cores(core_fn, y, chunk_size: int, padding: int, mesh,
     ``group`` chunks (the bound on device memory is per device). Every
     device's work is issued before any result is waited for; then each
     device's cores go into their own columns of the one output (one copy a
-    device; pinned host memory where ``y`` is on the host).
+    device; pinned host memory where ``y`` is on the host), in
+    ``out_dtype`` where given (widened on each device first), else in the
+    cores' own.
 
     A ``HostSignal`` ``y`` is staged to each device, its slice in slabs
     (``parallel.transfer``), and each device's chunks run in pieces as
-    ``grouped_cores`` runs them; the result is a ``PinnedCores``."""
+    ``grouped_cores`` runs them; the result is a ``PinnedCores`` in its
+    ``out_dtype``."""
     n = y.shape[-1]
     lead = y.shape[:-1]
     ranges = list(mesh_ranges(n_chunks_for(n, chunk_size), mesh, axis_name))
     if isinstance(y, HostSignal):
-        out = PinnedCores(*y.shape)
+        out = PinnedCores(*y.shape, y.out_dtype)
         for dev, first, k in ranges:
             lo = max(0, first * chunk_size - padding)
             sig = y.stage(dev, lo, min(n, (first + k) * chunk_size + padding))
@@ -223,10 +227,11 @@ def shard_cores(core_fn, y, chunk_size: int, padding: int, mesh,
     # pinned where the output is on the host and a card gates, so that each
     # device's D2H lands in place
     pin = y.device.type == "cpu" and any(d.type == "cuda" for d in mesh.devices)
-    out = torch.empty(lead + (n,), dtype=pieces[0][1].dtype, device=y.device, pin_memory=pin)
+    dtype = out_dtype or pieces[0][1].dtype
+    out = torch.empty(lead + (n,), dtype=dtype, device=y.device, pin_memory=pin)
     for a, piece in pieces:
         b = min(n, a + piece.shape[-1])
-        out[..., a:b].copy_(piece[..., : b - a])
+        out[..., a:b].copy_(piece[..., : b - a].to(dtype))
     return out
 
 
@@ -275,7 +280,10 @@ def process_chunked(
     for 0; ``grouped_cores``). ``mesh``: the chunks sharded over its
     devices (``shard_cores``; no bar), ``extra`` (e.g. a stationary
     threshold) copied to each; the output on ``y``'s device. A staged or
-    host signal is first made whole (``transfer.materialize``)."""
+    host signal is first made whole (``transfer.materialize``); a host
+    signal's output (a mesh's, on the host) comes back in its
+    ``out_dtype``, widened on the card."""
+    out_dtype = y.out_dtype if isinstance(y, HostSignal) else None
     y = materialize(y)
     n = y.shape[-1]
     if n <= chunk_size:
@@ -283,14 +291,16 @@ def process_chunked(
         if mesh is not None:
             dev = mesh.devices[0]
             ex = tuple(None if e is None else e.to(dev) for e in extra)
-            return filter_fn(ypad.to(dev), *ex)[..., padding : padding + n].to(y.device)
+            out = filter_fn(ypad.to(dev), *ex)[..., padding : padding + n]
+            return out.to(out_dtype or out.dtype).to(y.device)
         return filter_fn(ypad, *extra)[..., padding : padding + n]
     if mesh is not None:
         def local_cores(y_d, src_start, c, *ex):
             views = chunk_views(y_d, chunk_size, padding, c[0], c[1], src_start)
             return filter_fn(views, *ex)[..., padding : padding + chunk_size]
 
-        return shard_cores(local_cores, y, chunk_size, padding, mesh, axis_name, group, extra)
+        return shard_cores(local_cores, y, chunk_size, padding, mesh, axis_name, group, extra,
+                           out_dtype)
     chunks = extract_chunks(y, chunk_size, padding)
 
     def cores(c):

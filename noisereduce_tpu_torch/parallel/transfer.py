@@ -13,7 +13,9 @@ chunks run in pieces, and a piece's kernels wait, on the compute stream,
 only for the slab that holds the last sample its halo'd views read. Each
 piece's cores go back on a second copy stream into their columns of one
 pinned output (``PinnedCores``) while the next piece's slabs are copied,
-sent and gated.
+sent and gated. That output is float64 for float64 rows (the cores widened
+on the card, which is exact), so a float64 caller's array needs no cast on
+the host; float32 for any other rows.
 
 ``transfer_plan`` is the schedule as a pure function (slabs, pieces and
 the slab each piece waits for), which ``chunking.staged_pieces`` follows;
@@ -189,7 +191,11 @@ class HostSignal:
     ``wire_dtype`` is the dtype its slabs cross in: the rows' own, or
     float32 for float64 rows headed for float32 (the host's cast, round to
     nearest even, is bitwise the card's; float64 headed for bfloat16 would
-    round twice on the host, so it crosses as float64)."""
+    round twice on the host, so it crosses as float64). ``out_dtype`` is
+    the dtype its gated output comes back in (``PinnedCores``): float64 for
+    float64 rows, widened on the card (exact: the same values the host's
+    cast would give, with no host pass over the output), else float32 (an
+    integer or float16 caller's cast stays numpy's, on the host)."""
 
     def __init__(self, rows, dtype: torch.dtype):
         if isinstance(rows, list):
@@ -206,6 +212,7 @@ class HostSignal:
         self.host_dtype = _torch_dtype(first.dtype)
         self.wire_dtype = (torch.float32 if self.host_dtype == torch.float64
                            and dtype == torch.float32 else self.host_dtype)
+        self.out_dtype = torch.float64 if self.host_dtype == torch.float64 else torch.float32
         self._addr = np.array([r.ctypes.data for r in self.rows], dtype=np.int64)
         self._stride = np.array([r.strides[0] for r in self.rows], dtype=np.int64)
 
@@ -325,24 +332,25 @@ class StagedSignal:
 
 
 class PinnedCores:
-    """The pinned host output (rows, n) of a chunked call, filled by pieces:
-    ``put`` sends a piece's cores, on the device's D2H stream after the
-    piece's kernels, into their columns; ``result`` waits for every copy.
-    Each call has its own output, never a pooled slot, so a result outlives
-    the next call."""
+    """The pinned host output (rows, n) of a chunked call in ``dtype``
+    (``HostSignal.out_dtype``), filled by pieces: ``put`` sends a piece's
+    cores, on the device's D2H stream after the piece's kernels, into their
+    columns; ``result`` waits for every copy. Each call has its own output,
+    never a pooled slot, so a result outlives the next call."""
 
-    def __init__(self, rows: int, n: int):
-        self.host = torch.empty((rows, n), dtype=torch.float32, pin_memory=True)
+    def __init__(self, rows: int, n: int, dtype: torch.dtype):
+        self.host = torch.empty((rows, n), dtype=dtype, pin_memory=True)
         self._events = []
 
     def put(self, a: int, cores: torch.Tensor) -> None:
         """Cores (rows, w) on a card, queued on its current stream, into
-        columns [a, a + w) cut to the output's length (bfloat16 widened on
-        the card first)."""
+        columns [a, a + w) cut to the output's length, widened on the card
+        to the output's dtype first where theirs differs (bfloat16 cores,
+        or float32 ones of a float64 output)."""
         dev = cores.device
         compute = torch.cuda.current_stream(dev)
-        if cores.dtype != torch.float32:
-            cores = cores.float()
+        if cores.dtype != self.host.dtype:
+            cores = cores.to(self.host.dtype)
         b = min(self.host.shape[1], a + cores.shape[1])
         d2h = _copy_stream(dev, "d2h")
         d2h.wait_stream(compute)

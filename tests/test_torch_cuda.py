@@ -40,7 +40,10 @@ the big blocks' persistent walk at
 8580, 10010, 5005 and 4106; 16384, 16380, 12000 and 4851 on the cluster
 route), and every path is checked to launch them on its
 geometry's route only. A float64 card tensor runs the staged twins, within
-1e-9 x max|ref| of the same call on the CPU, and launches no kernel.
+1e-9 x max|ref| of the same call on the CPU, and launches no kernel. A
+float64 caller's array comes back float64, bitwise the float32 caller's
+output widened, as the call's own pinned output (every engine, grouped,
+the batch, a mesh, the staged twins' geometry).
 ``reduce_noise_file`` (its pinned two-deep pipeline too) and
 ``StreamingGate`` are held to ``reduce_noise`` on the card end to end.
 The bf16 mode's kernels (the bfloat16 builds of A, B, D, E and F) are held
@@ -2404,3 +2407,141 @@ def test_staged_mesh_is_the_one_copy_path(cuda, engine, monkeypatch):
     assert np.array_equal(got, _one_copy(y, STAGE_SR, kw))
     assert by_device["istft_ola"] == {"cuda:0": 6}, by_device
     assert by_device["spectra"] == {"cuda:0": 6 + ("y_noise" in kw)}, by_device
+
+
+# ---------------------------------------------------------------------------
+# a float64 caller's output: widened on the card, sent into the call's
+# pinned output (parallel/transfer.py::PinnedCores, api._finalize_reduce_output)
+# ---------------------------------------------------------------------------
+def _float64_case(name):
+    """A float64 caller's signal (mono, or stereo as a transposed strided
+    array) and its keywords; whether the result is the call's pinned
+    output (a mesh's signal of one chunk comes back through pageable
+    memory, widened on the card all the same)."""
+    from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
+
+    rng = np.random.default_rng(174)
+    mono = rng.standard_normal(STAGE_N)
+    stereo = rng.standard_normal((STAGE_N, 2)).T
+    clip = 0.5 * rng.standard_normal(9000)
+    mesh = ChunkMesh((torch.device("cuda", 0),) * 2)
+    return {
+        "mono": (mono, {}, True),
+        "stereo": (stereo, {}, True),
+        "stationary-clip": (mono, dict(stationary=True, y_noise=clip), True),
+        "stationary-self": (stereo, dict(stationary=True), True),
+        "torch": (mono, dict(use_torch=True), True),
+        "torch-stationary-clip": (mono, dict(use_torch=True, stationary=True, y_noise=clip),
+                                  True),
+        "bf16": (mono, dict(compute_dtype=torch.bfloat16), True),
+        "grouped": (mono, dict(max_parallel_chunks=8), True),
+        "one-chunk": (mono[:4000], {}, True),
+        "mesh": (stereo, dict(mesh=mesh), True),
+        "mesh-torch": (mono, dict(mesh=mesh, use_torch=True), True),
+        "staged-twin": (stereo, dict(hop_length=300), True),
+        "mesh-staged-twin": (mono, dict(mesh=mesh, hop_length=300), True),
+        "mesh-one-chunk": (mono[:4000], dict(mesh=mesh), False),
+    }[name]
+
+
+FLOAT64_CASES = ["mono", "stereo", "stationary-clip", "stationary-self", "torch",
+                 "torch-stationary-clip", "bf16", "grouped", "one-chunk", "mesh", "mesh-torch",
+                 "staged-twin", "mesh-staged-twin", "mesh-one-chunk"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FLOAT64_CASES)
+def test_float64_caller_gets_the_float32_output_widened(cuda, name, monkeypatch):
+    """A float64 caller's output is float64, bitwise the float32 caller's
+    output of the same signal cast to float32 (``reduce_noise(y.astype(
+    np.float32)).astype(np.float64)``: the staged path sends float64 as
+    float32, cast by the host bitwise numpy's cast), and bf16 compute the
+    one-copy path's output widened; on every path the array is the call's
+    pinned output, widened on the card (no host copy of the output), but
+    a mesh's signal of one chunk (pageable)."""
+    _force_pieces(monkeypatch)
+    y, kw, pinned = _float64_case(name)
+    kw = dict(kw, **STAGE_CK)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
+        got = nrt.reduce_noise(y, STAGE_SR, **kw)
+        if kw.get("compute_dtype") == torch.bfloat16:
+            want = _one_copy(y, STAGE_SR, kw)  # float64 rounds to bf16 once, on the card
+        else:
+            want = nrt.reduce_noise(y.astype(np.float32), STAGE_SR, **kw).astype(np.float64)
+    assert got.dtype == np.float64 and got.shape == y.shape
+    assert np.array_equal(got, want), name
+    assert torch.from_numpy(got).is_pinned() == pinned, name
+
+
+@pytest.mark.gpu
+def test_float64_batch_rows_are_views_of_the_pinned_output(cuda, monkeypatch):
+    """``reduce_noise_batch`` over rows of float64 (two lengths), float32
+    and int16: each float64 row float64, bitwise the float32 call's row
+    widened, a view of its group's pinned float64 output; every other row
+    bitwise the float32 call's."""
+    _force_pieces(monkeypatch)
+    rng = np.random.default_rng(175)
+    ys = [rng.standard_normal(20000) for _ in range(3)]
+    ys += [rng.standard_normal(12000) for _ in range(2)]
+    ys += [rng.standard_normal(16000).astype(np.float32) for _ in range(2)]
+    ys += [(rng.standard_normal(16000) * 3000).astype(np.int16)]
+    for kw in (dict(stationary=True), dict(use_torch=True)):
+        got = nrt.reduce_noise_batch(ys, STAGE_SR, **kw)
+        want = nrt.reduce_noise_batch(
+            [y.astype(np.float32) if y.dtype == np.float64 else y for y in ys], STAGE_SR, **kw)
+        for y, g, w in zip(ys, got, want):
+            assert g.dtype == y.dtype and g.shape == y.shape
+            if y.dtype == np.float64:
+                assert np.array_equal(g, w.astype(np.float64)), kw
+                assert g.base is not None and torch.from_numpy(g).is_pinned()
+            else:
+                assert np.array_equal(g, w), kw
+        # one pinned output a group: its rows side by side
+        for i, j in ((0, 1), (1, 2), (3, 4)):
+            assert got[i].base is got[j].base, (i, j)
+            gap = torch.from_numpy(got[j]).data_ptr() - torch.from_numpy(got[i]).data_ptr()
+            assert gap == got[i].nbytes, (i, j)
+
+
+@pytest.mark.gpu
+def test_float64_result_waits_for_its_copies(cuda, monkeypatch):
+    """The D2H stream held back by ``torch.cuda._sleep`` and every free
+    pinned block of the output's size over NaN (the output takes one of
+    them): the float64 result is read only after its copies end, bitwise
+    the float32 output widened; with the compute stream held back instead,
+    each widening and copy still waits for its piece."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    _force_pieces(monkeypatch)
+    y = _float64_case("mono")[0]
+    want = nrt.reduce_noise(y.astype(np.float32), STAGE_SR, **STAGE_CK).astype(np.float64)
+    for held in ("d2h", "compute"):
+        blocks = [torch.full((1, STAGE_N), float("nan"), dtype=torch.float64, pin_memory=True)
+                  for _ in range(16)]
+        ptrs = {b.data_ptr() for b in blocks}
+        del blocks
+        if held == "d2h":
+            with torch.cuda.stream(transfer._copy_stream(cuda, "d2h")):
+                torch.cuda._sleep(200_000_000)
+        else:
+            torch.cuda._sleep(200_000_000)
+        got = nrt.reduce_noise(y, STAGE_SR, **STAGE_CK)
+        assert torch.from_numpy(got).data_ptr() in ptrs, held
+        assert np.array_equal(got, want), held
+
+
+@pytest.mark.gpu
+def test_float64_results_stay_independent(cuda, monkeypatch):
+    """A kept float64 result is its own pinned memory: the next call, on
+    another signal, leaves it as it was."""
+    _force_pieces(monkeypatch)
+    y = _float64_case("mono")[0]
+    first = nrt.reduce_noise(y, STAGE_SR, **STAGE_CK)
+    keep = first.copy()
+    other = np.random.default_rng(176).standard_normal(STAGE_N)
+    second = nrt.reduce_noise(other, STAGE_SR, **STAGE_CK)
+    assert np.array_equal(first, keep)
+    assert not np.shares_memory(first, second)
+    want = nrt.reduce_noise(other.astype(np.float32), STAGE_SR, **STAGE_CK)
+    assert np.array_equal(second, want.astype(np.float64))

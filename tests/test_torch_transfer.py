@@ -19,14 +19,26 @@ staged_pieces``), without a card.
   negative-stride and read-only arrays and from lists of rows, in their
   own dtype, whole or in parts over the copy pool, equal to the host copy
   the CPU path makes.
-- ``reduce_noise(..., device="cpu")`` (every engine, a CPU mesh, a batch)
-  makes no pinned tensor, no stream and no event, and stages nothing.
+- A float64 caller's output: ``HostSignal.out_dtype`` (float64 for
+  float64 rows, whatever the compute dtype; float32 for any other rows);
+  ``staged_pieces`` into a float64 stand-in for ``PinnedCores``, bitwise
+  the float32 output widened and within 5e-5 x max|ref| of the JAX
+  package's ``reduce_noise`` on the float64 input; a CPU mesh's chunked
+  body of a host signal (``process_chunked``, ``shard_cores``) in its
+  ``out_dtype``; ``_finalize_reduce_output`` returning a float64 (or
+  float32) host tensor's own memory, flat and 2-D, and casting other
+  callers' dtypes with numpy.
+- ``reduce_noise(..., device="cpu")`` (every engine, a CPU mesh, a batch,
+  float64 callers) makes no pinned tensor, no stream and no event, and
+  stages nothing.
 - The native copy (``parallel/host_copy.py`` over ``native/nrcopy.cpp``)
   against ``np.copyto`` and numpy's ``astype``, bitwise: contiguous,
   strided, reversed, transposed and list-of-rows sources; int16, float32
   and float64, with NaN, +-inf, subnormals, -0.0, ties and overflow
   (float64 into float32 bitwise numpy's cast); slab edges and destination
-  rows off 16-byte boundaries and on them; one part and many parts; a
+  rows off 16-byte boundaries and on them; one part and many parts;
+  float32 widened into float64 (the host-widening alternative that
+  ``tools/torch_breakdown.py`` times) bitwise numpy's ``astype``; a
   pool bound to this process's CPUs and a slot allocated on them; the
   card's copy pool bound to its node's CPUs (the node faked); several
   threads sharing the pool. Which dtype a slab crosses in
@@ -200,6 +212,107 @@ def test_pieces_read_only_arrived_samples(engine, group, width, monkeypatch):
     assert np.abs(out.host.numpy() - ref).max() <= tol * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("rows", [np.float64, np.float32, np.int16, np.float16])
+def test_output_dtype_rule(rows, compute):
+    """A host signal's output comes back float64 for float64 rows (widened
+    on the card: exact) and float32 for any other rows (an integer or
+    float16 caller's cast stays numpy's)."""
+    hs = transfer.HostSignal(np.zeros((2, 10), dtype=rows), compute)
+    assert hs.out_dtype == (torch.float64 if rows == np.float64 else torch.float32)
+
+
+@pytest.mark.parametrize("group", [0, 2])
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_float64_output_is_the_float32_output_widened(engine, group, monkeypatch):
+    """A float64 caller's staged signal gated in float32 (its rows cross as
+    float32) into a stand-in for ``PinnedCores`` in the signal's
+    ``out_dtype``: float64, bitwise the float32 one-call output widened, and
+    within 5e-5 x max|ref| of the JAX package's ``reduce_noise`` on the same
+    float64 input."""
+    monkeypatch.setattr(transfer, "MIN_PIECE_SAMPLES", 1)
+    kw = ENGINES[engine]
+    y = np.random.default_rng(44).standard_normal((2, N))
+    hs = transfer.HostSignal(y, torch.float32)
+    assert hs.wire_dtype == torch.float32 and hs.out_dtype == torch.float64
+    yt = hs.tensor()
+    if kw.get("use_torch"):
+        gate = nrt.api.torch_gate_for(SR, stationary=kw.get("stationary", False))
+
+        def core(x, chunks):
+            return _tpugate_from_signal(x, gate, None, CHUNK, PADDING, chunks=chunks)
+    else:
+        cfg = GateConfig(sr=SR, **kw)
+        thr = None
+        if kw.get("stationary"):
+            from noisereduce_tpu_torch.models.spectral_gate import stationary_noise_threshold
+
+            thr = stationary_noise_threshold(yt.mean(dim=0)[:CHUNK], cfg)
+
+        def core(x, chunks):
+            return _gate_from_signal(x, cfg, CHUNK, PADDING, thr, chunks)
+
+    whole = core(yt, None).reshape(2, -1)[:, :N]
+    assert whole.dtype == torch.float32
+    sig = _ArrivingSignal(yt, 4001)
+    out = _HostOut(2, N, hs.out_dtype)
+    staged_pieces(lambda c: core(sig.buffer, c), sig, CHUNK, PADDING, 0,
+                  n_chunks_for(N, CHUNK), group, False, out)
+    assert out.host.dtype == torch.float64 and torch.equal(out.host, whole.double())
+    ref = jnr.reduce_noise(y, SR, chunk_size=CHUNK, padding=PADDING, **kw)
+    assert ref.dtype == np.float64
+    assert np.abs(out.host.numpy() - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n", [N, 3000], ids=["chunks", "one-chunk"])
+def test_mesh_of_a_host_signal_returns_its_out_dtype(n):
+    """``process_chunked`` of a float64 host signal over a CPU mesh (the
+    path a card mesh takes for the staged twins' geometry, and for a signal
+    of one chunk): float64, bitwise the float32 signal's output widened."""
+    from noisereduce_tpu_torch.models.spectral_gate import gate_nonstationary
+    from noisereduce_tpu_torch.parallel.chunking import process_chunked
+
+    cfg = GateConfig(sr=SR, hop_length=300)
+    y = np.random.default_rng(45).standard_normal((2, n))
+    mesh = ChunkMesh((torch.device("cpu"),) * 2)
+
+    def run(sig):
+        return process_chunked(lambda c: gate_nonstationary(c, cfg), sig, CHUNK, PADDING,
+                               mesh=mesh)
+
+    got = run(transfer.HostSignal(y, torch.float32))
+    want = run(torch.as_tensor(y.astype(np.float32)))
+    assert got.dtype == torch.float64 and want.dtype == torch.float32
+    assert torch.equal(got, want.double())
+    assert run(transfer.HostSignal(y.astype(np.float32), torch.float32)).dtype == torch.float32
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "2-D"])
+@pytest.mark.parametrize("case", ["float64", "float32", "int16 caller", "float16 caller",
+                                  "bfloat16 output"])
+def test_finalize_keeps_the_host_tensor(case, flat):
+    """``_finalize_reduce_output`` of a host tensor: a float64 caller's
+    float64 output (and a float32 caller's float32 one) is returned as that
+    tensor's own memory, flat and 2-D; an int16 or float16 caller's is
+    numpy's cast; a bfloat16 output is widened to float32 first."""
+    from noisereduce_tpu_torch.api import _finalize_reduce_output
+
+    t = torch.as_tensor(np.random.default_rng(46).standard_normal((1 if flat else 2, 700)) * 9)
+    dtype, caller = {"float64": (torch.float64, np.float64),
+                     "float32": (torch.float32, np.float32),
+                     "int16 caller": (torch.float32, np.int16),
+                     "float16 caller": (torch.float32, np.float16),
+                     "bfloat16 output": (torch.bfloat16, np.float64)}[case]
+    t = t.to(dtype)
+    arr = _finalize_reduce_output(t, np.dtype(caller), flat)
+    assert arr.dtype == caller and arr.shape == ((700,) if flat else (2, 700))
+    host = t.float() if dtype == torch.bfloat16 else t
+    want = host.numpy().astype(caller).reshape(arr.shape)
+    assert np.array_equal(arr, want)
+    own = (t.view(torch.int16) if dtype == torch.bfloat16 else t).numpy()
+    assert np.shares_memory(arr, own) == (case in ("float64", "float32"))
+
+
 def _strided_inputs():
     rng = np.random.default_rng(41)
     base = rng.standard_normal((N, 2))
@@ -277,6 +390,12 @@ def test_cpu_path_makes_no_pinned_tensor_and_no_stream(engine, monkeypatch):
     nrt.reduce_noise(y, SR, max_parallel_chunks=2, **kw)
     nrt.reduce_noise(y, SR, mesh=ChunkMesh((torch.device("cpu"),) * 2), **kw)
     nrt.reduce_noise_batch([y[0], y[1]], SR, **kw)
+    y64 = y.astype(np.float64)
+    assert nrt.reduce_noise(y64, SR, **kw).dtype == np.float64
+    assert nrt.reduce_noise(y64, SR, mesh=ChunkMesh((torch.device("cpu"),) * 2),
+                            **kw).dtype == np.float64
+    assert [o.dtype for o in nrt.reduce_noise_batch([y64[0], y[1]], SR, **kw)] == [
+        np.float64, np.float32]
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +476,31 @@ def test_native_copy_is_numpys_copy(case, kind, part_bytes, layout, monkeypatch)
             with np.errstate(over="ignore", invalid="ignore"):
                 want = a[:, lo:hi].astype(dst_dt)
         assert np.array_equal(_bits(dst.numpy()), _bits(want)), (lo, hi)
+        assert (store[:at] == -7).all() and (store[at:].view(3, w + pad)[:, w:] == -7).all()
+
+
+@pytest.mark.parametrize("layout", ["rows-off-16", "packed"])
+@pytest.mark.parametrize("part_bytes", [64, 1 << 30], ids=["many-parts", "one-part"])
+@pytest.mark.parametrize("kind", ["contiguous", "strided", "reversed", "transposed", "rows"])
+def test_native_widening_is_numpys_cast(kind, part_bytes, layout):
+    """float32 rows widened into float64 by the copy pool (``src_size`` 4,
+    ``dst_size`` 8; the host-widening alternative to the card's), at the
+    same edges and layouts as the copy: bitwise numpy's ``astype``, NaN
+    payloads, infinities, subnormals and -0.0 included."""
+    a = _special(np.float32)
+    a[1, 2000:2100] = np.frombuffer(  # quiet NaNs with payloads
+        (np.arange(100, dtype=np.uint32) * 0x1234 + 0x7FC00001).tobytes(), dtype=np.float32)
+    hs = transfer.HostSignal(_sources(a)[kind], torch.float32)
+    pool = host_copy.pool(3)
+    for lo, hi in [(0, 5003), (1, 4998), (3, 3), (5, 6), (13, 2000), (4990, 5003)]:
+        w = hi - lo
+        pad, at = (3, 1) if layout == "rows-off-16" else (0, 0)
+        store = torch.full((3 * (w + pad) + at,), -7, dtype=torch.float64)
+        dst = store[at:].view(3, w + pad)[:, :w]
+        assert layout == "rows-off-16" or dst.data_ptr() % 64 == 0
+        pool.copy(hs._addr + lo * hs._stride, hs._stride, 4, dst.data_ptr(), dst.stride(0) * 8,
+                  8, w, max(1, part_bytes // 8))
+        assert np.array_equal(_bits(dst.numpy()), _bits(a[:, lo:hi].astype(np.float64))), (lo, hi)
         assert (store[:at] == -7).all() and (store[at:].view(3, w + pad)[:, w:] == -7).all()
 
 
