@@ -8,7 +8,7 @@ last line is printed only when every phase passed):
 
 1. environment: torch version, the card's name and power limit
    (``nvidia-smi``); TF32 off, so the plain versions run in full FP32;
-2. build: kernels A-G from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
+2. build: kernels A-H from ``noisereduce_tpu_torch/ops/cuda/csrc`` with
    ``nvcc`` (seconds printed), A and D on both routes;
 3. per kernel, at the headline shapes (77 halo'd 660,000-sample chunk views
    of 48 kHz audio): the kernel against its plain version on the same
@@ -58,13 +58,21 @@ last line is printed only when every phase passed):
    its slabs have arrived, its cores sent back behind it; the output
    bitwise the one-copy path's (the signal on the card whole, then the
    same gate); the same from float64 (cast to float32 by the host's native
-   copy), int16 and bfloat16 callers, each bitwise its one-copy path; a
-   ``host:`` line (the NUMA nodes and their CPUs, the card's node, the
+   copy), int16, float16, uint8 and bfloat16 callers, each bitwise its
+   one-copy path (numpy's cast of its float32 output), the float64 output
+   widened and the int16, float16 and uint8 outputs narrowed on the card
+   (kernel H, ``output_cast``, once a piece), each the call's pinned
+   output; a ``host:`` line (the NUMA nodes and their CPUs, the card's node, the
    process's affinity, the huge page mode, the nodes that hold the ring's
    and the signal's pages; ``parallel/host_copy.py``), and the call's split
    on a line of its own (host wall, the host's copy into pinned memory and
-   its GB/s, H2D, kernels, D2H, pieces, the overlaps; ``torch.profiler``);
-   wall time as the minimum of 3 runs after a warm-up
+   its GB/s, H2D, kernels, D2H, pieces, the overlaps; ``torch.profiler``)
+   for the float32, float64 and int16 headlines; kernel H on the int16
+   headline's cores (its 4 pieces' launches) against its plain version on
+   the card and numpy's ``astype`` on the same host, bitwise, for each dtype it writes
+   (int16, int8, uint8, uint16, int32, float16), timed beside
+   ``tensor.to(torch.int16)`` (whose values past int32's range and at NaN
+   and infinities are printed beside H's and numpy's) and its bytes bound; wall time as the minimum of 3 runs after a warm-up
    (CUDA events); then the same call with ``max_parallel_chunks=8`` (10
    host-driven groups of chunks, the pieces, each kernel launched once a
    group), bitwise the default call's output, with the peak device memory
@@ -378,6 +386,8 @@ SOURCES = {
     "stationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/stationary_mask.cu",
     "torch_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/torch_nonstationary_mask.cu",
     "fm_nonstationary_mask": "noisereduce_tpu_torch/ops/cuda/csrc/fm_nonstationary_mask.cu",
+    # kernel H: the int16 headline's output narrowed on the card
+    "output_cast": "noisereduce_tpu_torch/ops/cuda/csrc/output_cast.cu",
     # the FFT route at a mixed-radix n_fft (1536, the radix-3 stage)
     "spectra_mixed_radix": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_fft.cu",
     "istft_ola_mixed_radix": "noisereduce_tpu_torch/ops/cuda/csrc/istft_fft.cu",
@@ -437,6 +447,8 @@ REPLACES = {
                                 "torch_dispatch.py:382); "
                                 "noisereduce_tpu/ops/pallas/torch_dispatch.py:485 (row 5)",
     "fm_nonstationary_mask": "noisereduce_tpu/ops/pallas_mask.py:229 (row 6)",
+    "output_cast": "noisereduce_tpu/api.py:630 (no TPU kernel: numpy's astype of the "
+                   "output, on the host)",
 }
 for _name in ROUTED:
     REPLACES[_name] = REPLACES[ROUTED[_name][0]]
@@ -1496,41 +1508,195 @@ def int16_signal(x: np.ndarray) -> np.ndarray:
     return np.round(x * (8000 / np.abs(x).max())).astype(np.int16)
 
 
+def float16_signal(x: np.ndarray) -> np.ndarray:
+    """The headline as a float16 caller sends it: ``x`` rounded to float16."""
+    return x.astype(np.float16)
+
+
+def uint8_signal(x: np.ndarray) -> np.ndarray:
+    """The headline as an 8-bit PCM caller sends it: ``x`` scaled to a peak
+    of 100 around 128 and rounded."""
+    return np.round(128 + x * (100 / np.abs(x).max())).astype(np.uint8)
+
+
 def staged_callers_phase(nr, K, x, x64, cfg, launches) -> None:
-    """The headline from float64 (``x64``), int16 and bfloat16 callers
-    through the staged path (float64 cast to float32 by the host's native
-    copy, bitwise the card's cast; int16 sent as int16; bfloat16 cast on
-    the card), each bitwise the one-copy path of the same caller, each
-    kernel once a piece in its dtype's build. The float64 caller's output
-    is float64, widened on the card: the array is the call's pinned output
+    """The headline from float64 (``x64``), int16, float16, uint8 and
+    bfloat16 callers through the staged path (float64 cast to float32 by
+    the host's native copy, bitwise the card's cast; int16, float16 and
+    uint8 sent in their dtype; bfloat16 cast on the card), each bitwise the
+    one-copy path of the same caller (numpy's cast of its float32 output),
+    each kernel once a piece in its dtype's build. The float64 caller's
+    output is float64, widened on the card, and the int16, float16 and
+    uint8 callers' are in their own dtype, narrowed on the card by kernel H
+    (``output_cast``, once a piece): each array is the call's pinned output
     itself, not a host copy."""
     P = HEADLINE_PIECES
     ck = dict(chunk_size=CHUNK, padding=PADDING)
     want = dict(spectra=P, nonstationary_mask=P, freq_smooth_blend=P, istft_ola=P)
+    narrowed = dict(want, output_cast=P)
     callers = {
-        "float64 headline": (x64, {}, torch.float32, "float32"),
-        "int16 headline": (int16_signal(x), {}, torch.float32, "float32"),
-        "bf16 headline, staged": (x, dict(compute_dtype=BF16), BF16, "bfloat16"),
+        "float64 headline": (x64, {}, torch.float32, "float32", want),
+        "int16 headline": (int16_signal(x), {}, torch.float32, "float32", narrowed),
+        "float16 headline": (float16_signal(x), {}, torch.float32, "float32", narrowed),
+        "uint8 headline": (uint8_signal(x), {}, torch.float32, "float32", narrowed),
+        "bf16 headline, staged": (x, dict(compute_dtype=BF16), BF16, "bfloat16", want),
     }
-    for label, (y, kw, dtype, build) in callers.items():
+    for label, (y, kw, dtype, build, expected) in callers.items():
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
             out, launches[label] = run_path(K, label, lambda: nr.reduce_noise(y, SR, **kw, **ck),
-                                            want, dtype=build)
+                                            expected, dtype=build)
         one = one_copy_headline(y, cfg, dtype)
         bitwise = out.dtype == y.dtype and np.array_equal(out, one)
         print(f"{label} ({y.dtype}, {y.nbytes / 1e6:.1f} MB, crossing as "
               f"{'float32' if y.dtype == np.float64 else y.dtype}) bitwise the one-copy path "
-              f"(the signal on the card whole, cast there): {bitwise}", flush=True)
+              f"(the signal on the card whole, cast there; numpy's cast of its float32 "
+              f"output): {bitwise}", flush=True)
         if not bitwise:
             fail(f"{label} differs from the one-copy path")
-        if y.dtype == np.float64:
+        if y.dtype != np.float32:
             pinned = torch.from_numpy(out).is_pinned()
-            print(f"{label}: output {out.dtype}, {out.nbytes / 1e6:.1f} MB, widened on the card "
-                  f"and sent into the call's pinned output (the array is that pinned memory): "
-                  f"{pinned}", flush=True)
-            if out.dtype != np.float64 or not pinned:
-                fail(f"{label}: the output is not the call's pinned float64 output")
+            how = ("widened on the card" if y.dtype == np.float64 else
+                   f"narrowed on the card by kernel H ({launches[label]['output_cast']} "
+                   f"launches, one a piece)")
+            print(f"{label}: output {out.dtype}, {out.nbytes / 1e6:.1f} MB, {how} and sent "
+                  f"into the call's pinned output (the array is that pinned memory): {pinned}",
+                  flush=True)
+            if out.dtype != y.dtype or not pinned:
+                fail(f"{label}: the output is not the call's pinned {y.dtype} output")
+
+
+# kernel H at the int16 headline, and each dtype it writes: numpy's cast on
+# the host that runs it and the plain version, bitwise (NaN bits included)
+CAST_DTYPES = ("int16", "int8", "uint8", "uint16", "int32", "float16")
+
+
+def cast_edge_values() -> np.ndarray:
+    """float32 values where a cast to an integer or float16 goes wrong
+    first (each type's bounds +-0.5 and +-1, 2^15, 2^16, 2^31, 1e10,
+    float16's overflow and ties, +-inf, NaNs with payloads, subnormals),
+    with their float32 neighbours."""
+    base = [0.0, 0.5, 0.9, 1.5, 2.5, 2.0**15, 2.0**16, 2.0**31, 3e9, 1e10, 2147483520.0,
+            40000.5, 65535.5, 65504.0, 65519.0, 65520.0, 1 + 2.0**-11, 2.0**-24, 2.0**-25]
+    for dt in (np.int8, np.uint8, np.int16, np.uint16, np.int32):
+        for b in (float(np.iinfo(dt).min), float(np.iinfo(dt).max)):
+            base += [b - 1, b - 0.5, b, b + 0.5, b + 1]
+    f = np.array(base, dtype=np.float32)
+    f = np.concatenate([f, -f])
+    f = np.concatenate([f, np.nextafter(f, np.float32(np.inf)),
+                        np.nextafter(f, np.float32(-np.inf))])
+    special = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000,
+                        0x7FC0DD1D, 0x7F800001, 0xFF802000, 0x7F801FFF, 0x00000001,
+                        0x807FFFFF], dtype=np.uint32).view(np.float32)
+    return np.concatenate([f, special])
+
+
+def piece_views(y: torch.Tensor) -> list:
+    """A (1, n) output as the headline's pieces hand it to kernel H
+    (``transfer.PinnedCores.put``): buffers of k chunks
+    (``transfer.piece_chunks``), the last cut to n."""
+    from noisereduce_tpu_torch.parallel.transfer import piece_chunks
+
+    n = y.shape[1]
+    n_chunks = (n - 1) // CHUNK + 1
+    per = piece_chunks(n_chunks, CHUNK, 1)
+    out = []
+    for c in range(0, n_chunks, per):
+        a, k = c * CHUNK, min(per, n_chunks - c)
+        buf = torch.empty((1, k * CHUNK), device=y.device)
+        b = min(n, a + k * CHUNK)
+        buf[:, : b - a] = y[:, a:b]
+        out.append(buf[:, : b - a])
+    return out
+
+
+def output_cast_phase(K, x16: np.ndarray, cfg, card: str, results) -> None:
+    """Kernel H on the int16 headline's cores as the main path gives them
+    (the float32 gated output of the int16 signal in its 4 pieces' buffers
+    of k chunks, the last cut to the signal's length; the edge values
+    written over the first piece's head): against its plain version on the
+    card and numpy's ``astype`` on the same host, bitwise, for every dtype
+    it writes; the 4 launches timed beside their plain versions,
+    ``tensor.to(torch.int16)`` (the library call of the same bytes, which
+    clamps through CUDA's cvt: its values at the edges printed beside H's
+    and numpy's for int16, int32 and uint16), the bytes bound and the 4
+    launches' device time (``queued_ms``; the profiler where that fails)."""
+    from noisereduce_tpu_torch.api import _run_nonstationary
+
+    with torch.no_grad():
+        y = _run_nonstationary(torch.as_tensor(x16[None]).cuda().float(), cfg, CHUNK, PADDING)
+    pieces = piece_views(y)
+    del y
+    edge = torch.as_tensor(cast_edge_values()).cuda()
+    pieces[0][0, 1 : 1 + len(edge)] = edge
+    host = [p.cpu().numpy() for p in pieces]
+    by_dtype = {}
+    for name in CAST_DTYPES:
+        dt = getattr(torch, name)
+        got = [K.output_cast(p, dt) for p in pieces]
+        torch.cuda.synchronize()
+        ref = [K.output_cast_ref(p, dt) for p in pieces]
+        plain = all(torch.equal(g.view(torch.uint8), r.view(torch.uint8))
+                    for g, r in zip(got, ref))
+        with np.errstate(invalid="ignore", over="ignore"):
+            numpy = all(np.array_equal(g.cpu().view(torch.uint8).numpy(),
+                                       h.astype(getattr(np, name)).view(np.uint8))
+                        for g, h in zip(got, host))
+        by_dtype[name] = dict(plain_bitwise=plain, numpy_bitwise=numpy)
+        print(f"kernel output_cast to {name}: {sum(p.numel() for p in pieces)} outputs in "
+              f"{len(pieces)} launches (the int16 headline's pieces, edge values in the first), "
+              f"bitwise its plain version on the card: {plain}; bitwise numpy's astype "
+              f"(numpy {np.__version__}) on this host: {numpy}", flush=True)
+        if not (plain and numpy):
+            fail(f"kernel output_cast to {name} disagrees with numpy's cast")
+        del got, ref
+    dt = torch.int16
+
+    def launches():
+        return [K.output_cast(p, dt) for p in pieces]
+
+    def plain():
+        return [K.output_cast_ref(p, dt) for p in pieces]
+
+    def library():
+        return [p.to(dt) for p in pieces]
+
+    moved = sum(p.numel() for p in pieces) * (4 + 2)
+    out = measure("output_cast (int16 headline, 4 launches)", 0.0, launches,
+                  plain, torch.cat(launches(), 1).float(), torch.cat(plain(), 1).float(),
+                  moved, 4.0 * sum(p.numel() for p in pieces), library_fn=library)
+    # the card's time for the 4 launches, the host's launch work hidden
+    # (late in this script the profiler loses kernels: it is the fallback)
+    dms, src = queued_ms(launches), "queued_ms"
+    if dms is None:
+        dms = sum(v for k, v in device_ms(launches).items() if "output_cast" in k) or None
+        src = "torch.profiler"
+    if dms:
+        print(f"kernel output_cast (int16 headline, 4 launches): device {dms:.4f} ms ({src}), "
+              f"{moved / dms / 1e6:.0f} GB/s of the function's {moved / 1e9:.3f} GB, "
+              f"{dms / out['bound_ms']:.2f}x the bound; on {card}", flush=True)
+    else:
+        print("kernel output_cast (int16 headline, 4 launches): device time not measured (the "
+              "host outran the spin and the profiler lost the kernels)", flush=True)
+    edges = [40000.5, -40000.7, 3e9, float("inf"), float("nan")]
+    probe = torch.tensor([edges], device="cuda")
+    seen = {}
+    for name in ("int16", "int32", "uint16"):
+        t, n_dt = getattr(torch, name), getattr(np, name)
+        with np.errstate(invalid="ignore", over="ignore"):
+            numpy = probe.cpu().numpy().astype(n_dt)[0].tolist()
+        seen[name] = {way: got.cpu().view(torch.uint8).numpy().view(n_dt)[0].tolist()
+                      for way, got in (("kernel", K.output_cast(probe, t)),
+                                       ("tensor.to", probe.to(t)))}
+        seen[name]["numpy"] = numpy
+        print(f"output_cast against tensor.to(torch.{name}) at {edges}: kernel H "
+              f"{seen[name]['kernel']}, tensor.to {seen[name]['tensor.to']}, numpy {numpy}; "
+              f"on {card}", flush=True)
+        if seen[name]["kernel"] != numpy:
+            fail(f"kernel output_cast to {name} is not numpy's cast at the edges")
+    out.update(by_dtype=by_dtype, library_call="tensor.to(torch.int16)", edges=edges,
+               edge_values=seen, device_ms=dms, device_ms_from=src)
+    results["output_cast"] = out
 
 
 def call_split(label: str, call, K, transfer, card: str, reps: int = 3) -> dict:
@@ -2283,7 +2449,7 @@ def mesh_phase(nr, K, card, launches, x, noise) -> None:
 
 
 PLANE_KERNELS = ("spectra", "nonstationary_mask", "istft_ola", "stationary_mask",
-                 "torch_nonstationary_mask")
+                 "torch_nonstationary_mask", "output_cast")
 # the bf16 output against float32: rel max, rel rms (None: not pinned), the
 # envelopes of tests/test_bfloat16_mode.py
 BF16_ENVELOPES = {"non-stationary": (2.5e-2, 1.2e-2), "stationary": (1.5e-1, 1.0e-1),
@@ -2943,6 +3109,10 @@ def main() -> None:
     call_split("float64 headline split", lambda: nr.reduce_noise(x64, SR, **ck), K, transfer,
                card)
     del x64
+    x16 = int16_signal(x)
+    call_split("int16 headline split", lambda: nr.reduce_noise(x16, SR, **ck), K, transfer, card)
+    output_cast_phase(K, x16, cfg, card, results)
+    del x16
     ms = time_ms(lambda: nr.reduce_noise(x, SR, **ck))
     plain_ms = time_ms(lambda: nonstationary_plain(_as_2d(x)[0], cfg).cpu())
     print(
@@ -3334,6 +3504,7 @@ def main() -> None:
     main_path.update(stationary_mask="stationary headline",
                      torch_nonstationary_mask="torch headline",
                      fm_nonstationary_mask="row 6 mask under grad",
+                     output_cast="int16 headline",
                      spectra_small="small frames geometry",
                      istft_ola_small="small frames geometry")
     for label, _, secs, _, _, entry in FFT_CELLS + LONG_CELLS:

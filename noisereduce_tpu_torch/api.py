@@ -64,7 +64,9 @@ from noisereduce_tpu_torch.ops.cuda.dispatch import (
 )
 from noisereduce_tpu_torch.parallel.chunking import n_chunks_for, process_chunked
 from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
-from noisereduce_tpu_torch.parallel.transfer import HostSignal, PinnedCores, StagedSignal
+from noisereduce_tpu_torch.parallel.transfer import (
+    HostSignal, PinnedCores, StagedSignal, output_dtype, to_output,
+)
 
 __all__ = ["reduce_noise", "reduce_noise_batch"]
 
@@ -229,19 +231,19 @@ def _finalize_reduce_output(out, out_dtype, flat: bool) -> np.ndarray:
     kernels together at the headline size (PERF.md, section 6). The chunked
     body's pieces have sent their cores there already
     (``parallel.transfer.PinnedCores``): only their copies are waited for.
-    A float64 caller's output is float64 there already, widened on the card
-    (exact), so the array is that pinned memory and the host casts nothing;
-    a card tensor (the staged twins' geometries) is widened on the card
-    before its copy. Any other dtype is cast by numpy on the host, so an
-    integer caller's out-of-range and NaN results are numpy's. A bfloat16
-    output (numpy has no such type) is widened to float32 first, where it
-    is."""
-    wide = np.dtype(out_dtype) == np.float64
+    It is in the caller's dtype already where ``transfer.output_dtype``
+    says so (float64 widened on the card, exact; int8, uint8, int16,
+    uint16, int32 and float16 narrowed on the card by kernel H, numpy's
+    cast), so the array is that pinned memory and the host casts nothing;
+    a card tensor (the staged twins' geometries, a signal of one chunk) is
+    brought to that dtype on the card (``transfer.to_output``) before its
+    copy. Any other dtype, and every output of the CPU path, is cast by
+    numpy on the host. A bfloat16 host tensor (numpy has no such type) is
+    widened to float32 first."""
     if isinstance(out, PinnedCores):
         out = out.result()
     elif out.device.type != "cpu":
-        if wide or out.dtype == torch.bfloat16:
-            out = out.to(torch.float64 if wide else torch.float32)
+        out = to_output(out, output_dtype(out_dtype, out.dtype))
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out)
         out = host

@@ -4,10 +4,7 @@
 // A slab is every row's samples [a, b) of a strided source: row r's sample
 // i lies at src[r] + i * stride[r] bytes. The copy writes them into rows of
 // a destination (dst + r * dst_row bytes), in the source's own type or, for
-// float64 into float32, rounded to nearest even as the card's cast rounds;
-// float32 into float64 widens (exact: a float64 caller's output widened on
-// the host, the alternative that tools/torch_breakdown.py times against the
-// card's widening).
+// float64 into float32, rounded to nearest even as the card's cast rounds.
 // A persistent pool of threads splits the slab into parts and takes them
 // one by one, so a thread that the host runs late takes fewer. Where the
 // destination is 16-byte aligned the stores are non-temporal (its unaligned
@@ -212,31 +209,6 @@ void cast_run(const char* s, int64_t stride, float* d, int64_t n) {
   for (; i < n; ++i) d[i] = static_cast<float>(load<double>(s + i * stride));
 }
 
-// n float32 samples from s (stride bytes apart) into float64 d: exact
-void widen_run(const char* s, int64_t stride, double* d, int64_t n) {
-  int64_t i = 0;
-#if NRC_X86
-  while (i < n && !aligned16(d + i)) {
-    d[i] = static_cast<double>(load<float>(s + i * stride));
-    ++i;
-  }
-  if (stride == 4) {
-    const float* p = reinterpret_cast<const float*>(s) + i;
-    for (; i + 4 <= n; i += 4, p += 4) {
-      __m128 v = _mm_loadu_ps(p);
-      _mm_stream_pd(d + i, _mm_cvtps_pd(v));
-      _mm_stream_pd(d + i + 2, _mm_cvtps_pd(_mm_movehl_ps(v, v)));
-    }
-  }
-  for (; i + 2 <= n; i += 2) {
-    __m128d v = _mm_set_pd(static_cast<double>(load<float>(s + (i + 1) * stride)),
-                           static_cast<double>(load<float>(s + i * stride)));
-    _mm_stream_pd(d + i, v);
-  }
-#endif
-  for (; i < n; ++i) d[i] = static_cast<double>(load<float>(s + i * stride));
-}
-
 struct Copy {
   const int64_t* src;     // each row's sample a
   const int64_t* stride;  // bytes between a row's samples
@@ -256,8 +228,6 @@ void copy_part(const void* ctx, int64_t part) {
   char* dst = c.dst + r * c.dst_row + s * c.dst_size;
   if (c.src_size == 8 && c.dst_size == 4) {
     cast_run(src, stride, reinterpret_cast<float*>(dst), n);
-  } else if (c.src_size == 4 && c.dst_size == 8) {
-    widen_run(src, stride, reinterpret_cast<double*>(dst), n);
   } else {
     switch (c.src_size) {
       case 1: copy_run(src, stride, reinterpret_cast<Bits<1>*>(dst), n); break;
@@ -289,12 +259,12 @@ NRC_API int nrc_pool_bind(void* pool, const int* cpus, int n) {
 // Every row's w samples from src[r] (stride[r] bytes apart) into row r of
 // dst (dst_row bytes apart), in parts of at most `step` samples of one row.
 // src_size == dst_size copies the samples' bytes; 8 -> 4 casts float64 to
-// float32, 4 -> 8 widens float32 to float64. A single part runs on the
-// calling thread. 0, or -1 for sizes it does not take.
+// float32. A single part runs on the calling thread. 0, or -1 for sizes it
+// does not take.
 NRC_API int nrc_copy(void* pool, int rows, const int64_t* src, const int64_t* stride,
                      int src_size, int dst_size, void* dst, int64_t dst_row, int64_t w,
                      int64_t step) {
-  const bool cast = (src_size == 8 && dst_size == 4) || (src_size == 4 && dst_size == 8);
+  const bool cast = src_size == 8 && dst_size == 4;
   const bool same = src_size == dst_size &&
                     (src_size == 1 || src_size == 2 || src_size == 4 || src_size == 8 ||
                      src_size == 16);

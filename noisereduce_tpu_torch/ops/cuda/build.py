@@ -109,6 +109,9 @@ _SIGNATURES = {
         _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
     ],
     "nr_istft_cluster_chirp_capacity": [_i, _i, _i],
+    # kernel H: the plane type, input, its row stride, the output's type
+    # (kernels._CAST_CODE), output, its row stride, rows, width
+    "nr_output_cast": [_i, _vp, _ll, _i, _vp, _ll, _ll, _ll, _vp],
     "nr_istft_cplx": [
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
         _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

@@ -1,5 +1,5 @@
-"""The seven CUDA kernels of the gates and masks, their wrappers and their
-plain PyTorch versions.
+"""The seven CUDA kernels of the gates and masks and the output's cast
+(H), their wrappers and their plain PyTorch versions.
 
 Together they replace the merged TPU kernel
 ``noisereduce_tpu/ops/pallas/dispatch.py::_merged_gate_from_blocks``
@@ -27,6 +27,12 @@ F      ``torch_nonstationary_  ``kernels.py::_mt_kernel`` passes 1-3
 G      ``fm_nonstationary_     ``pallas_mask.py::_mask_kernel`` (:84-149)
        mask``
 =====  ======================  =============================================
+
+H ``output_cast`` replaces no TPU kernel: it narrows a card's float32 (or
+bfloat16) output to an integer or float16 caller's dtype as numpy's
+``astype`` does on x86, which the JAX package runs on the host
+(``noisereduce_tpu/api.py:630``), so that the D2H moves the narrow bytes
+into the call's pinned output (``parallel/transfer.py::to_output``).
 
 A and D take either STFT convention: their constant tables and D's
 envelope floor and output length come from the geometry's ``StftConfig``.
@@ -147,6 +153,7 @@ __all__ = [
     "stationary_mask", "stationary_mask_ref",
     "torch_nonstationary_mask", "torch_nonstationary_mask_ref",
     "fm_nonstationary_mask", "fm_nonstationary_mask_ref",
+    "output_cast", "output_cast_ref", "CAST_DTYPES",
     "reset_launch_counts", "launch_counts", "route_counts", "dtype_counts", "device_counts",
 ]
 
@@ -1064,10 +1071,83 @@ def _fm_constants(b: float, lane_len: int, short: int, tile_len: int, last_tile:
 
 
 # ---------------------------------------------------------------------------
+# H: output_cast
+# ---------------------------------------------------------------------------
+# the caller dtypes kernel H writes, by their codes in csrc/output_cast.cu
+_CAST_CODE = {torch.int8: 0, torch.uint8: 1, torch.int16: 2, torch.uint16: 3, torch.int32: 4,
+              torch.float16: 5}
+CAST_DTYPES = tuple(_CAST_CODE)
+
+
+def _low_bits(i: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The low 8 or 16 bits of int32 ``i`` as ``dtype`` (a signed or
+    unsigned integer of that width, or float16's bits): the wrap written
+    out, so that no cast in between may saturate."""
+    bits = 8 * dtype.itemsize
+    half = 1 << (bits - 1)
+    signed = {1: torch.int8, 2: torch.int16}[dtype.itemsize]
+    return (((i & ((1 << bits) - 1)) ^ half) - half).to(signed).view(dtype)
+
+
+def output_cast_ref(cores: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of ``output_cast``: numpy's cast of the float32 output
+    on x86 (``noisereduce_tpu/api.py:630``; bfloat16 cores widened first).
+    An integer: NaN and anything outside [-2^31, 2^31) give INT32_MIN, the
+    rest truncates toward zero, and int8, uint8, int16 and uint16 keep that
+    int32's low bits. float16: round to nearest even and overflow to +-inf,
+    a NaN kept as numpy keeps it (its sign, 0x7C00 | its top 10 payload
+    bits, at least one of them set)."""
+    x = cores.float()
+    if dtype == torch.float16:
+        f = x.view(torch.int32)
+        nan = 0x7C00 | ((f & 0x7FFFFF) >> 13)
+        nan = (nan + (nan == 0x7C00).int()) | ((f >> 16) & 0x8000)
+        bits = torch.where(torch.isnan(x), _low_bits(nan, torch.int16),
+                           x.to(torch.float16).view(torch.int16))
+        return bits.view(torch.float16)
+    ok = (x >= -(2.0**31)) & (x < 2.0**31)
+    i = torch.where(ok, x, torch.zeros_like(x)).to(torch.int32)
+    i = torch.where(ok, i, torch.full_like(i, -(2**31)))
+    return i if dtype == torch.int32 else _low_bits(i, dtype)
+
+
+def output_cast(cores: torch.Tensor, dtype: torch.dtype, out=None) -> torch.Tensor:
+    """Kernel H: (..., w) float32 or bfloat16 cores, each row's elements
+    adjacent and the rows at any stride, in an integer or float16 caller's
+    ``dtype`` (``CAST_DTYPES``), numpy's cast (``output_cast_ref``); into
+    ``out`` ((..., w) in ``dtype`` on the cores' device, rows of adjacent
+    elements) where given, else into a new contiguous tensor. On the CPU the
+    plain version."""
+    if dtype not in _CAST_CODE:
+        raise TypeError(f"output_cast: no kernel writes {dtype}; it writes {CAST_DTYPES}")
+    shape = cores.shape
+    if _on_cpu(cores):
+        got = output_cast_ref(cores, dtype)
+        return got if out is None else out.copy_(got)
+    if cores.dtype not in _PLANE_CODE:
+        raise TypeError(f"output_cast: the kernel reads float32 or bfloat16, got {cores.dtype}")
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=cores.device)
+    if out.dtype != dtype or out.shape != shape or out.device != cores.device:
+        raise ValueError(f"output_cast: out must be {tuple(shape)} {dtype} on {cores.device}")
+    w = shape[-1]
+    x = cores.reshape(-1, w) if cores.ndim != 2 else cores
+    o = out.view(-1, w) if out.ndim != 2 else out
+    if w > 1 and (x.stride(1) != 1 or o.stride(1) != 1):
+        raise ValueError("output_cast: each row's elements must be adjacent")
+    if not x.numel():
+        return out
+    _launch("output_cast", cores.device, _PLANE_CODE[cores.dtype], _ptr(x), x.stride(0),
+            _CAST_CODE[dtype], _ptr(o), o.stride(0), x.shape[0], w)
+    _count(output_cast, cores.dtype, cores.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
 KERNELS = (spectra, nonstationary_mask, freq_smooth_blend, istft_ola,
-           stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask)
+           stationary_mask, torch_nonstationary_mask, fm_nonstationary_mask, output_cast)
 ROUTED = (spectra, istft_ola)  # the kernels with routes
 ROUTES = ("fft", "chirp", "cluster", "cluster_chirp", "global_chirp")
 FM_ROUTES = ("resident", "tiled")  # kernel G's routes
@@ -1114,7 +1194,8 @@ def route_counts() -> dict:
 def dtype_counts() -> dict:
     """Launches of every kernel by the dtype of its planes, e.g.
     {"spectra": {"float32": 0, "bfloat16": 1}, ...}: a bf16 call launches
-    the bfloat16 variants of A, B, D, E and F (C and G take float32 only)."""
+    the bfloat16 variants of A, B, D, E and F (C and G take float32 only),
+    and H by the dtype of the cores it reads."""
     return {fn.__name__: dict(fn.dtype_launches) for fn in KERNELS}
 
 

@@ -32,6 +32,7 @@ from noisereduce_tpu_torch.parallel.transfer import (
     StagedSignal,
     materialize,
     piece_chunks,
+    to_output,
     transfer_plan,
 )
 
@@ -189,7 +190,8 @@ def shard_cores(core_fn, y, chunk_size: int, padding: int, mesh,
     device's work is issued before any result is waited for; then each
     device's cores go into their own columns of the one output (one copy a
     device; pinned host memory where ``y`` is on the host), in
-    ``out_dtype`` where given (widened on each device first), else in the
+    ``out_dtype`` where given (brought to it on each device first,
+    ``transfer.to_output``: widened, or narrowed by kernel H), else in the
     cores' own.
 
     A ``HostSignal`` ``y`` is staged to each device, its slice in slabs
@@ -231,7 +233,7 @@ def shard_cores(core_fn, y, chunk_size: int, padding: int, mesh,
     out = torch.empty(lead + (n,), dtype=dtype, device=y.device, pin_memory=pin)
     for a, piece in pieces:
         b = min(n, a + piece.shape[-1])
-        out[..., a:b].copy_(piece[..., : b - a].to(dtype))
+        out[..., a:b].copy_(to_output(piece[..., : b - a], dtype))
     return out
 
 
@@ -282,7 +284,7 @@ def process_chunked(
     threshold) copied to each; the output on ``y``'s device. A staged or
     host signal is first made whole (``transfer.materialize``); a host
     signal's output (a mesh's, on the host) comes back in its
-    ``out_dtype``, widened on the card."""
+    ``out_dtype``, brought to it on the card (``transfer.to_output``)."""
     out_dtype = y.out_dtype if isinstance(y, HostSignal) else None
     y = materialize(y)
     n = y.shape[-1]
@@ -292,7 +294,7 @@ def process_chunked(
             dev = mesh.devices[0]
             ex = tuple(None if e is None else e.to(dev) for e in extra)
             out = filter_fn(ypad.to(dev), *ex)[..., padding : padding + n]
-            return out.to(out_dtype or out.dtype).to(y.device)
+            return to_output(out, out_dtype or out.dtype).to(y.device)
         return filter_fn(ypad, *extra)[..., padding : padding + n]
     if mesh is not None:
         def local_cores(y_d, src_start, c, *ex):

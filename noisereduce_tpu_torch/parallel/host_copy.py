@@ -91,9 +91,9 @@ class CopyPool:
              dst_row: int, dst_size: int, w: int, step: int) -> None:
         """Row r's ``w`` samples from address ``src[r]``, ``stride[r]`` bytes
         apart, into ``dst_ptr + r * dst_row``, in parts of at most ``step``
-        samples: the same bytes, float64 (``src_size`` 8) into float32
-        (``dst_size`` 4), or float32 (4) widened into float64 (8);
-        non-temporal stores where the destination is 16-byte aligned."""
+        samples: the same bytes, or float64 (``src_size`` 8) into float32
+        (``dst_size`` 4); non-temporal stores where the destination is
+        16-byte aligned."""
         src = np.ascontiguousarray(src, dtype=np.int64)
         stride = np.ascontiguousarray(stride, dtype=np.int64)
         rc = self._lib.nrc_copy(self.handle, len(src), src.ctypes.data, stride.ctypes.data,

@@ -13,9 +13,12 @@ chunks run in pieces, and a piece's kernels wait, on the compute stream,
 only for the slab that holds the last sample its halo'd views read. Each
 piece's cores go back on a second copy stream into their columns of one
 pinned output (``PinnedCores``) while the next piece's slabs are copied,
-sent and gated. That output is float64 for float64 rows (the cores widened
-on the card, which is exact), so a float64 caller's array needs no cast on
-the host; float32 for any other rows.
+sent and gated. That output is in the caller's dtype (``output_dtype``), so
+the host casts nothing: float64 rows get the cores widened on the card
+(exact); int8, uint8, int16, uint16, int32 and float16 rows get them
+narrowed on the card by kernel H (``ops/cuda/kernels.py::output_cast``,
+numpy's cast), whose D2H then moves the narrow bytes; any other rows get
+float32, which numpy casts (``to_output``).
 
 ``transfer_plan`` is the schedule as a pure function (slabs, pieces and
 the slab each piece waits for), which ``chunking.staged_pieces`` follows;
@@ -50,6 +53,8 @@ __all__ = [
     "HostSignal",
     "StagedSignal",
     "PinnedCores",
+    "output_dtype",
+    "to_output",
     "materialize",
 ]
 
@@ -183,6 +188,44 @@ def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dt)).dtype
 
 
+def _narrowed() -> tuple:
+    """The caller dtypes that kernel H writes (imported here, not at the
+    top: the kernels' module imports this one)."""
+    from noisereduce_tpu_torch.ops.cuda.kernels import CAST_DTYPES
+
+    return CAST_DTYPES
+
+
+def output_dtype(rows: np.dtype, compute: torch.dtype) -> torch.dtype:
+    """The dtype a card's output of numpy ``rows``-dtype rows computed in
+    ``compute`` comes back to the host in: the rows' own for float64 and
+    for the dtypes kernel H writes (int8, uint8, int16, uint16, int32,
+    float16), so that the host casts nothing; float64 for the latter when
+    the compute is float64 (the parity mode, which launches no kernel:
+    numpy casts its output, as the JAX package casts its own); float32 for
+    any other rows (uint32, int64, ...: numpy's cast, whose x86 rules
+    differ for them)."""
+    rows = _torch_dtype(rows)
+    if rows == torch.float64 or (compute == torch.float64 and rows in _narrowed()):
+        return torch.float64
+    return rows if rows in _narrowed() else torch.float32
+
+
+def to_output(cores: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``cores`` in ``dtype`` on their device: narrowed by kernel H
+    (``output_cast``, numpy's cast; a CPU tensor by its plain version) for
+    the dtypes it writes, else cast by torch (a widening: bfloat16 to
+    float32, float32 to float64, exact); ``cores`` themselves where they
+    are in ``dtype`` already."""
+    if cores.dtype == dtype:
+        return cores
+    if dtype in _narrowed():
+        from noisereduce_tpu_torch.ops.cuda.kernels import output_cast
+
+        return output_cast(cores, dtype)
+    return cores.to(dtype)
+
+
 class HostSignal:
     """A host signal of equal-length rows (a 2-D array, any strides, or a
     list of 1-D arrays of one dtype), read in ``dtype``: the signal a call
@@ -192,10 +235,11 @@ class HostSignal:
     float32 for float64 rows headed for float32 (the host's cast, round to
     nearest even, is bitwise the card's; float64 headed for bfloat16 would
     round twice on the host, so it crosses as float64). ``out_dtype`` is
-    the dtype its gated output comes back in (``PinnedCores``): float64 for
-    float64 rows, widened on the card (exact: the same values the host's
-    cast would give, with no host pass over the output), else float32 (an
-    integer or float16 caller's cast stays numpy's, on the host)."""
+    the dtype its gated output comes back in (``PinnedCores``;
+    ``output_dtype``): the rows' own for float64 (widened on the card,
+    exact) and for int8, uint8, int16, uint16, int32 and float16 (narrowed
+    on the card by kernel H, numpy's cast), with no host pass over the
+    output; else float32."""
 
     def __init__(self, rows, dtype: torch.dtype):
         if isinstance(rows, list):
@@ -212,7 +256,7 @@ class HostSignal:
         self.host_dtype = _torch_dtype(first.dtype)
         self.wire_dtype = (torch.float32 if self.host_dtype == torch.float64
                            and dtype == torch.float32 else self.host_dtype)
-        self.out_dtype = torch.float64 if self.host_dtype == torch.float64 else torch.float32
+        self.out_dtype = output_dtype(first.dtype, dtype)
         self._addr = np.array([r.ctypes.data for r in self.rows], dtype=np.int64)
         self._stride = np.array([r.strides[0] for r in self.rows], dtype=np.int64)
 
@@ -344,22 +388,22 @@ class PinnedCores:
 
     def put(self, a: int, cores: torch.Tensor) -> None:
         """Cores (rows, w) on a card, queued on its current stream, into
-        columns [a, a + w) cut to the output's length, widened on the card
-        to the output's dtype first where theirs differs (bfloat16 cores,
-        or float32 ones of a float64 output)."""
+        columns [a, a + w) cut to the output's length, in the output's dtype
+        first where theirs differs (``to_output`` on the compute stream:
+        bfloat16 cores widened to float32, float32 ones widened to float64
+        or narrowed by kernel H), so the D2H moves the output's bytes."""
         dev = cores.device
         compute = torch.cuda.current_stream(dev)
-        if cores.dtype != self.host.dtype:
-            cores = cores.to(self.host.dtype)
         b = min(self.host.shape[1], a + cores.shape[1])
+        cores = to_output(cores[:, : b - a], self.host.dtype)
         d2h = _copy_stream(dev, "d2h")
         d2h.wait_stream(compute)
         with torch.cuda.stream(d2h):
             if self.host.shape[0] == 1:
-                self.host[:, a:b].copy_(cores[:, : b - a], non_blocking=True)
+                self.host[:, a:b].copy_(cores, non_blocking=True)
             else:  # one row at a time: each a contiguous run on both sides
                 for r in range(self.host.shape[0]):
-                    self.host[r, a:b].copy_(cores[r, : b - a], non_blocking=True)
+                    self.host[r, a:b].copy_(cores[r], non_blocking=True)
             event = torch.cuda.Event()
             event.record(d2h)
         cores.record_stream(d2h)

@@ -168,7 +168,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert K.launch_counts() == {
         "spectra": 0, "nonstationary_mask": 0, "freq_smooth_blend": 0,
         "istft_ola": 0, "stationary_mask": 0, "torch_nonstationary_mask": 0,
-        "fm_nonstationary_mask": 0,
+        "fm_nonstationary_mask": 0, "output_cast": 0,
     }
 
 

@@ -43,7 +43,15 @@ geometry's route only. A float64 card tensor runs the staged twins, within
 1e-9 x max|ref| of the same call on the CPU, and launches no kernel. A
 float64 caller's array comes back float64, bitwise the float32 caller's
 output widened, as the call's own pinned output (every engine, grouped,
-the batch, a mesh, the staged twins' geometry).
+the batch, a mesh, the staged twins' geometry). Kernel H
+(``output_cast``) is bitwise numpy's ``astype`` on the machine that runs
+it and its plain version, for int8, uint8, int16, uint16, int32 and
+float16, over an edge grid in rows of odd widths, at row offsets and
+strides, and from bfloat16 cores; an integer or float16 caller's array
+comes back in its dtype, bitwise numpy's cast of the one-copy path's
+float32 output, as the call's own pinned output, narrowed by H once a
+piece (every engine, grouped, bf16 compute, the batch, a mesh, the staged
+twins' geometry), and is read only after its copies end.
 ``reduce_noise_file`` (its pinned two-deep pipeline too) and
 ``StreamingGate`` are held to ``reduce_noise`` on the card end to end.
 The bf16 mode's kernels (the bfloat16 builds of A, B, D, E and F) are held
@@ -2545,3 +2553,228 @@ def test_float64_results_stay_independent(cuda, monkeypatch):
     assert not np.shares_memory(first, second)
     want = nrt.reduce_noise(other.astype(np.float32), STAGE_SR, **STAGE_CK)
     assert np.array_equal(second, want.astype(np.float64))
+
+
+# ---------------------------------------------------------------------------
+# an integer or float16 caller's output: narrowed on the card by kernel H
+# (ops/cuda/kernels.py::output_cast), sent into the call's pinned output
+# ---------------------------------------------------------------------------
+CAST_NAMES = ["int8", "uint8", "int16", "uint16", "int32", "float16"]
+
+
+def _cast_values(n: int, seed: int) -> np.ndarray:
+    """float32 values where a cast to an integer or float16 goes wrong
+    first (each type's bounds +-0.5 and +-1, 2^15, 2^16, 2^31 and their
+    neighbours, 1e10, float16's overflow and ties, +-inf, NaNs with
+    payloads, subnormals), then ``n`` seeded values and bit patterns."""
+    base = [0.0, 0.5, 0.9, 1.5, 2.5, 2.0**15, 2.0**16, 2.0**31, 2.0**32, 3e9, 1e10,
+            2147483520.0, 40000.5, 65535.5, 65504.0, 65519.0, 65520.0, 1 + 2.0**-11,
+            1 + 3 * 2.0**-11, 2.0**-24, 2.0**-25, 3 * 2.0**-25]
+    for dt in (np.int8, np.uint8, np.int16, np.uint16, np.int32):
+        for b in (float(np.iinfo(dt).min), float(np.iinfo(dt).max)):
+            base += [b - 1, b - 0.5, b, b + 0.5, b + 1]
+    f = np.array(base, dtype=np.float32)
+    f = np.concatenate([f, -f])
+    f = np.concatenate([f, np.nextafter(f, np.float32(np.inf)),
+                        np.nextafter(f, np.float32(-np.inf))])
+    special = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000,
+                        0x7FC0DD1D, 0x7F800001, 0xFF800001, 0x7F802000, 0x7F801FFF,
+                        0x7FFFFFFF, 0x00000001, 0x80000001, 0x007FFFFF], dtype=np.uint32)
+    rng = np.random.default_rng(seed)
+    rand = (rng.standard_normal(n) * 10.0 ** rng.integers(-8, 12, size=n)).astype(np.float32)
+    rand[::3] = rng.integers(0, 2**32, size=len(rand[::3]), dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    return np.concatenate([f, special.view(np.float32), rand])
+
+
+CAST_LAYOUTS = {  # (rows, width, row stride, element offset)
+    "contiguous": (3, 1031, 1031, 0),
+    "row-offset": (5, 257, 260, 1),
+    "strided-rows": (4, 333, 2 * 333 + 5, 3),
+    "width-1": (9, 1, 4, 1),
+    "one-long-row": (1, 1 << 20 | 13, 1 << 20 | 13, 2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(CAST_LAYOUTS) + ["bf16"])
+@pytest.mark.parametrize("name", CAST_NAMES)
+def test_output_cast_is_numpys_astype_on_card(cuda, name, layout):
+    """Kernel H over the edge grid and seeded values, in rows of odd
+    widths, at row offsets and row strides (and from bfloat16 cores):
+    bitwise numpy's ``astype`` of the same float32 values on the machine that runs it,
+    and bitwise its plain version on the card; one launch a call."""
+    dt = getattr(torch, name)
+    rows, w, stride, offset = CAST_LAYOUTS.get(layout, (2, 4099, 4100, 1))
+    values = _cast_values(rows * w, 190 + len(layout))
+    store = torch.full((offset + rows * stride,), float("nan"), device=cuda)
+    store[offset:].view(rows, stride)[:, :w] = torch.from_numpy(
+        np.resize(values, rows * w).reshape(rows, w))
+    if layout == "bf16":
+        store = store.to(torch.bfloat16)
+    x = store[offset:].view(rows, stride)[:, :w]
+    K.reset_launch_counts()
+    got = K.output_cast(x, dt)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["output_cast"] == 1
+    assert K.dtype_counts()["output_cast"][str(x.dtype).removeprefix("torch.")] == 1
+    assert got.dtype == dt and got.shape == x.shape and got.device == x.device
+    ref = K.output_cast_ref(x, dt)
+    assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = x.float().cpu().numpy().astype(getattr(np, name))
+    assert np.array_equal(got.cpu().view(torch.uint8).numpy(), want.view(np.uint8))
+
+
+@pytest.mark.gpu
+def test_output_cast_writes_into_out_and_raises_instead_of_falling_back(cuda):
+    """``out`` is written in place (a row-offset view too); float64 cores, a
+    dtype H does not write, rows whose elements are not adjacent or an
+    ``out`` of another shape raise, with nothing launched."""
+    x = torch.randn(3, 1000, device=cuda) * 4e4
+    store = torch.zeros(3 * 1003 + 1, dtype=torch.int16, device=cuda)
+    out = store[1:].view(3, 1003)[:, :1000]
+    assert K.output_cast(x, torch.int16, out) is out
+    assert torch.equal(out, K.output_cast_ref(x, torch.int16))
+    assert (store[1:].view(3, 1003)[:, 1000:] == 0).all() and store[0] == 0
+    K.reset_launch_counts()
+    with pytest.raises(TypeError):
+        K.output_cast(x.double(), torch.int16)
+    with pytest.raises(TypeError):
+        K.output_cast(x, torch.int64)
+    with pytest.raises(ValueError):
+        K.output_cast(x.T, torch.int16)
+    with pytest.raises(ValueError):
+        K.output_cast(x, torch.int16, torch.empty(3, 999, dtype=torch.int16, device=cuda))
+    assert K.launch_counts()["output_cast"] == 0
+
+
+def _narrow_case(name):
+    """A caller's signal, its keywords, whether the result is the call's
+    pinned output (a mesh's signal of one chunk comes back through
+    pageable memory, narrowed on the card all the same) and kernel H's
+    launches: one a piece (4 pieces of 11 chunks; a mesh of 2: 3 a
+    device), one for a card tensor (a signal of one chunk, the staged
+    twins' geometry)."""
+    from noisereduce_tpu_torch.parallel.mesh import ChunkMesh
+
+    rng = np.random.default_rng(177)
+    mono = rng.standard_normal(STAGE_N) * 3000
+    stereo = (rng.standard_normal((STAGE_N, 2)) * 3000).T
+    clip = 0.5 * rng.standard_normal(9000)
+    mesh = ChunkMesh((torch.device("cuda", 0),) * 2)
+    i16 = mono.astype(np.int16)
+    return {
+        "int16": (i16, {}, True, 4),
+        "int16-stereo-transposed": (stereo.astype(np.int16), {}, True, 4),
+        "int8": ((mono / 40).astype(np.int8), {}, True, 4),
+        "uint8": (np.clip(128 + mono / 40, 0, 255).astype(np.uint8), {}, True, 4),
+        "uint16": ((mono + 30000).astype(np.uint16), {}, True, 4),
+        "int32": ((mono * 1000).astype(np.int32), {}, True, 4),
+        "float16": ((mono / 3000).astype(np.float16), {}, True, 4),
+        "int16-stationary-clip": (i16, dict(stationary=True, y_noise=clip), True, 4),
+        "int16-torch": (i16, dict(use_torch=True), True, 4),
+        "int16-torch-stationary-clip": (i16, dict(use_torch=True, stationary=True,
+                                                  y_noise=clip), True, 4),
+        "int16-bf16": (i16, dict(compute_dtype=torch.bfloat16), True, 4),
+        "int16-grouped": (i16, dict(max_parallel_chunks=8), True, 2),
+        "int16-one-chunk": (i16[:4000], {}, True, 1),
+        "int16-torch-one-chunk": (i16[:4000], dict(use_torch=True), True, 1),
+        "int16-staged-twin": (stereo.astype(np.int16), dict(hop_length=300), True, 1),
+        "int16-mesh": (stereo.astype(np.int16), dict(mesh=mesh), True, 6),
+        "int16-mesh-torch": (i16, dict(mesh=mesh, use_torch=True), True, 6),
+        "int16-mesh-staged-twin": (i16, dict(mesh=mesh, hop_length=300), True, 2),
+        "int16-mesh-one-chunk": (i16[:4000], dict(mesh=mesh), False, 1),
+        "float16-bf16": ((mono / 3000).astype(np.float16), dict(compute_dtype=torch.bfloat16),
+                         True, 4),
+    }[name]
+
+
+NARROW_CASES = ["int16", "int16-stereo-transposed", "int8", "uint8", "uint16", "int32", "float16",
+                "int16-stationary-clip", "int16-torch", "int16-torch-stationary-clip",
+                "int16-bf16", "int16-grouped", "int16-one-chunk", "int16-torch-one-chunk",
+                "int16-staged-twin", "int16-mesh", "int16-mesh-torch", "int16-mesh-staged-twin",
+                "int16-mesh-one-chunk", "float16-bf16"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NARROW_CASES)
+def test_narrow_caller_gets_numpys_cast_in_its_pinned_output(cuda, name, monkeypatch):
+    """An integer or float16 caller's staged call (every engine, grouped,
+    bf16 compute, a signal of one chunk, the staged twins' geometry, a mesh
+    of ``(cuda:0,) * 2``): its own dtype and shape, bitwise numpy's cast of
+    the one-copy path's float32 (or bf16) output, the array the call's
+    pinned output (but a mesh's signal of one chunk), narrowed on the card
+    by kernel H (once a piece, or once for a card tensor; in the build of
+    the cores' dtype) and by no host cast."""
+    _force_pieces(monkeypatch)
+    y, kw, pinned, casts = _narrow_case(name)
+    kw = dict(kw, **STAGE_CK)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="compute_dtype=bfloat16")
+        K.reset_launch_counts()
+        got = nrt.reduce_noise(y, STAGE_SR, **kw)
+        counts, dtypes = K.launch_counts(), K.dtype_counts()
+        want = _one_copy(y, STAGE_SR, {k: v for k, v in kw.items() if k != "mesh"})
+    assert got.dtype == y.dtype and got.shape == y.shape
+    assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), name
+    assert torch.from_numpy(got).is_pinned() == pinned, name
+    assert counts["output_cast"] == casts, counts
+    build = "bfloat16" if kw.get("compute_dtype") == torch.bfloat16 else "float32"
+    assert dtypes["output_cast"][build] == casts, dtypes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_torch", [False, True])
+def test_narrow_batch_rows_are_views_of_the_pinned_output(cuda, use_torch):
+    """``reduce_noise_batch`` over int16 rows of two lengths, float16 and
+    uint8 rows (each group a card tensor of one chunk a row): each row its
+    caller's dtype, bitwise numpy's cast of the float32 call's row, a view
+    of its group's pinned output, kernel H launched once a group."""
+    rng = np.random.default_rng(178)
+    ys = [(rng.standard_normal(20000) * 3000).astype(np.int16) for _ in range(3)]
+    ys += [(rng.standard_normal(12000) * 3000).astype(np.int16) for _ in range(2)]
+    ys += [rng.standard_normal(16000).astype(np.float16) for _ in range(2)]
+    ys += [np.clip(128 + 40 * rng.standard_normal(16000), 0, 255).astype(np.uint8)]
+    kw = dict(stationary=True, use_torch=use_torch)
+    K.reset_launch_counts()
+    got = nrt.reduce_noise_batch(ys, STAGE_SR, **kw)
+    assert K.launch_counts()["output_cast"] == 4  # a group a (length, dtype)
+    want = nrt.reduce_noise_batch([y.astype(np.float32) for y in ys], STAGE_SR, **kw)
+    for y, g, w in zip(ys, got, want):
+        assert g.dtype == y.dtype and g.shape == y.shape
+        with np.errstate(invalid="ignore", over="ignore"):
+            assert np.array_equal(g.view(np.uint8), w.astype(y.dtype).view(np.uint8))
+        assert g.base is not None and torch.from_numpy(g).is_pinned()
+    for i, j in ((0, 1), (1, 2), (3, 4), (5, 6)):
+        assert got[i].base is got[j].base, (i, j)
+        gap = torch.from_numpy(got[j]).data_ptr() - torch.from_numpy(got[i]).data_ptr()
+        assert gap == got[i].nbytes, (i, j)
+
+
+@pytest.mark.gpu
+def test_narrow_result_waits_for_its_copies(cuda, monkeypatch):
+    """The D2H stream held back by ``torch.cuda._sleep`` and every free
+    pinned block of the int16 output's size over a sentinel (the output
+    takes one of them): the result is read only after its copies end,
+    bitwise numpy's cast of the float32 output; with the compute stream
+    held back instead, each narrowing and copy still waits for its piece."""
+    from noisereduce_tpu_torch.parallel import transfer
+
+    _force_pieces(monkeypatch)
+    y = _narrow_case("int16")[0]
+    want = nrt.reduce_noise(y.astype(np.float32), STAGE_SR, **STAGE_CK).astype(np.int16)
+    assert not (want == -12345).any()
+    for held in ("d2h", "compute"):
+        blocks = [torch.full((1, STAGE_N), -12345, dtype=torch.int16, pin_memory=True)
+                  for _ in range(16)]
+        ptrs = {b.data_ptr() for b in blocks}
+        del blocks
+        if held == "d2h":
+            with torch.cuda.stream(transfer._copy_stream(cuda, "d2h")):
+                torch.cuda._sleep(200_000_000)
+        else:
+            torch.cuda._sleep(200_000_000)
+        got = nrt.reduce_noise(y, STAGE_SR, **STAGE_CK)
+        assert torch.from_numpy(got).data_ptr() in ptrs, held
+        assert np.array_equal(got, want), held

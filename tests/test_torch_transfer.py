@@ -20,7 +20,9 @@ staged_pieces``), without a card.
   own dtype, whole or in parts over the copy pool, equal to the host copy
   the CPU path makes.
 - A float64 caller's output: ``HostSignal.out_dtype`` (float64 for
-  float64 rows, whatever the compute dtype; float32 for any other rows);
+  float64 rows, whatever the compute dtype; int16 and float16 rows their
+  own, float32 rows float32; ``tests/test_torch_output_cast.py`` has the
+  rule for every dtype);
   ``staged_pieces`` into a float64 stand-in for ``PinnedCores``, bitwise
   the float32 output widened and within 5e-5 x max|ref| of the JAX
   package's ``reduce_noise`` on the float64 input; a CPU mesh's chunked
@@ -36,9 +38,7 @@ staged_pieces``), without a card.
   strided, reversed, transposed and list-of-rows sources; int16, float32
   and float64, with NaN, +-inf, subnormals, -0.0, ties and overflow
   (float64 into float32 bitwise numpy's cast); slab edges and destination
-  rows off 16-byte boundaries and on them; one part and many parts;
-  float32 widened into float64 (the host-widening alternative that
-  ``tools/torch_breakdown.py`` times) bitwise numpy's ``astype``; a
+  rows off 16-byte boundaries and on them; one part and many parts; a
   pool bound to this process's CPUs and a slot allocated on them; the
   card's copy pool bound to its node's CPUs (the node faked); several
   threads sharing the pool. Which dtype a slab crosses in
@@ -216,10 +216,16 @@ def test_pieces_read_only_arrived_samples(engine, group, width, monkeypatch):
 @pytest.mark.parametrize("rows", [np.float64, np.float32, np.int16, np.float16])
 def test_output_dtype_rule(rows, compute):
     """A host signal's output comes back float64 for float64 rows (widened
-    on the card: exact) and float32 for any other rows (an integer or
-    float16 caller's cast stays numpy's)."""
+    on the card: exact), in the rows' own dtype for int16 and float16 rows
+    (narrowed on the card by kernel H, numpy's cast; float64 under the
+    float64 parity mode, whose output numpy casts) and float32 for float32
+    rows."""
     hs = transfer.HostSignal(np.zeros((2, 10), dtype=rows), compute)
-    assert hs.out_dtype == (torch.float64 if rows == np.float64 else torch.float32)
+    want = {np.float64: torch.float64, np.float32: torch.float32, np.int16: torch.int16,
+            np.float16: torch.float16}[rows]
+    if compute == torch.float64 and rows in (np.int16, np.float16):
+        want = torch.float64
+    assert hs.out_dtype == want
 
 
 @pytest.mark.parametrize("group", [0, 2])
@@ -311,6 +317,51 @@ def test_finalize_keeps_the_host_tensor(case, flat):
     assert np.array_equal(arr, want)
     own = (t.view(torch.int16) if dtype == torch.bfloat16 else t).numpy()
     assert np.shares_memory(arr, own) == (case in ("float64", "float32"))
+
+
+def _caller(name):
+    """2 s at 16 kHz (a tone over noise, from a seed) as a caller of each
+    dtype sends it: float16, int32 (a peak near 2e6), int16 (3000), uint8
+    (8-bit PCM around 128), float64 stereo (2, n), and a list of 5,000
+    float32 samples."""
+    rng = np.random.default_rng(47)
+    t = np.arange(2 * SR) / SR
+    x = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.3 * rng.standard_normal(len(t))
+    return {
+        "float16": x.astype(np.float16),
+        "int32": np.round(x * 1e6).astype(np.int32),
+        "int16": np.round(x * 3000).astype(np.int16),
+        "uint8": np.clip(np.round(128 + 40 * x), 0, 255).astype(np.uint8),
+        "float64 stereo": np.stack([x, x[::-1].copy()]),
+        "float32 list": list(x[:5000].astype(np.float32)),
+    }[name]
+
+
+CALLERS = ["float16", "int32", "int16", "uint8", "float64 stereo", "float32 list"]
+
+
+@pytest.mark.parametrize("engine", ["nonstationary", "stationary", "torch"])
+@pytest.mark.parametrize("name", CALLERS)
+def test_caller_dtypes_match_the_jax_package(name, engine):
+    """Each caller's dtype on each engine on the CPU (the 18 calls of
+    ROADMAP Queue 3): the JAX package's dtype and shape; an integer or
+    float16 output within one step of its type of the JAX package's (the
+    two float32 outputs round to either side of a step), plus 1e-6 x
+    max|ref|; a float output within 1e-6 x max|ref|."""
+    y = _caller(name)
+    kw = ENGINES[engine]
+    got = nrt.reduce_noise(y, SR, device="cpu", **kw)
+    ref = jnr.reduce_noise(y, SR, **kw)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert got.dtype == np.asarray(y).dtype
+    g, r = got.astype(np.float64), ref.astype(np.float64)
+    if np.issubdtype(ref.dtype, np.integer):
+        step = 1.0
+    elif ref.dtype == np.float16:
+        step = np.spacing(np.abs(ref)).astype(np.float64)
+    else:
+        step = 0.0
+    assert (np.abs(g - r) <= step + 1e-6 * np.abs(r).max()).all()
 
 
 def _strided_inputs():
@@ -476,31 +527,6 @@ def test_native_copy_is_numpys_copy(case, kind, part_bytes, layout, monkeypatch)
             with np.errstate(over="ignore", invalid="ignore"):
                 want = a[:, lo:hi].astype(dst_dt)
         assert np.array_equal(_bits(dst.numpy()), _bits(want)), (lo, hi)
-        assert (store[:at] == -7).all() and (store[at:].view(3, w + pad)[:, w:] == -7).all()
-
-
-@pytest.mark.parametrize("layout", ["rows-off-16", "packed"])
-@pytest.mark.parametrize("part_bytes", [64, 1 << 30], ids=["many-parts", "one-part"])
-@pytest.mark.parametrize("kind", ["contiguous", "strided", "reversed", "transposed", "rows"])
-def test_native_widening_is_numpys_cast(kind, part_bytes, layout):
-    """float32 rows widened into float64 by the copy pool (``src_size`` 4,
-    ``dst_size`` 8; the host-widening alternative to the card's), at the
-    same edges and layouts as the copy: bitwise numpy's ``astype``, NaN
-    payloads, infinities, subnormals and -0.0 included."""
-    a = _special(np.float32)
-    a[1, 2000:2100] = np.frombuffer(  # quiet NaNs with payloads
-        (np.arange(100, dtype=np.uint32) * 0x1234 + 0x7FC00001).tobytes(), dtype=np.float32)
-    hs = transfer.HostSignal(_sources(a)[kind], torch.float32)
-    pool = host_copy.pool(3)
-    for lo, hi in [(0, 5003), (1, 4998), (3, 3), (5, 6), (13, 2000), (4990, 5003)]:
-        w = hi - lo
-        pad, at = (3, 1) if layout == "rows-off-16" else (0, 0)
-        store = torch.full((3 * (w + pad) + at,), -7, dtype=torch.float64)
-        dst = store[at:].view(3, w + pad)[:, :w]
-        assert layout == "rows-off-16" or dst.data_ptr() % 64 == 0
-        pool.copy(hs._addr + lo * hs._stride, hs._stride, 4, dst.data_ptr(), dst.stride(0) * 8,
-                  8, w, max(1, part_bytes // 8))
-        assert np.array_equal(_bits(dst.numpy()), _bits(a[:, lo:hi].astype(np.float64))), (lo, hi)
         assert (store[:at] == -7).all() and (store[at:].view(3, w + pad)[:, w:] == -7).all()
 
 
@@ -673,6 +699,9 @@ def test_host_copy_refuses_what_it_cannot_copy():
     with pytest.raises(TypeError):  # only float64 rows are cast
         transfer.HostSignal(a.astype(np.int16), torch.float32).copy_into(
             torch.empty((2, 10)), 0, 10)
+    with pytest.raises(ValueError):  # no widening: the card widens a float64 output
+        host_copy.pool(2).copy(hs._addr, hs._stride, 4, torch.empty((2, 10), dtype=torch.float64)
+                               .data_ptr(), 80, 8, 10, 10)
     with pytest.raises(ValueError):
         transfer.HostSignal([a[0], a[1, :99]], torch.float32)
     with pytest.raises(ValueError):

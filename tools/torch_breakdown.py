@@ -4,7 +4,7 @@
     python3 tools/torch_breakdown.py [--reps 3]
     python3 tools/torch_breakdown.py --ab parent=<checkout> --rounds 4 --no-training
     python3 tools/torch_breakdown.py --ab parent=<checkout> --variants RING=mapped
-    python3 tools/torch_breakdown.py --ab parent=<checkout> --variants OUT=host,WIDEN=d2h --keep
+    python3 tools/torch_breakdown.py --ab parent=<checkout> --keep --no-training
     python3 tools/torch_breakdown.py --pieces 1,2,4,8,16 --cells headline --no-training
     python3 tools/torch_breakdown.py --h2d --keep --cells none --no-training
 
@@ -13,9 +13,10 @@ kHz headline, non-stationary, stationary with a 10 s noise clip and under
 ``use_torch=True``; a batch of 32 stationary 10 s clips; the bf16
 headline; the headline with ``max_parallel_chunks=8``; the headline as a
 float64 caller sends it, ``chip_smoke.float64_signal``, and the batch cut
-from it (32 float64 rows of 10 s); the headline as an int16 caller sends
-it, ``chip_smoke.int16_signal``; the headline on a mesh of ``(cuda:0,) *
-2``), prints the host wall time of the call (numpy
+from it (32 float64 rows of 10 s); the headline as an int16, a float16 and
+a uint8 caller send it, ``chip_smoke.int16_signal``, ``float16_signal`` and
+``uint8_signal``, whose outputs kernel H narrows on the card; the headline
+on a mesh of ``(cuda:0,) * 2``), prints the host wall time of the call (numpy
 in and out; minimum, median and maximum of ``--reps`` after a warm-up), then
 one call split by ``chip_smoke.call_split``: the host's copy into pinned
 memory (the time spent in ``HostSignal.copy_into``, the staged path's only
@@ -38,11 +39,7 @@ call of each. ``--variants NAME=VALUE,...`` adds this tree again with a
 setting of ``parallel/transfer.py`` changed, as one more tree of the same
 rounds (``COPY_THREADS=4``; ``RING=mapped``: the ring's slots mapped with
 huge pages asked for, touched and ``cudaHostRegister``ed, ``MappedSlot``,
-in place of torch's pinned ones; ``OUT=host``: a float64 caller's output
-sent back as float32 and widened on the host by the native copy pool into
-a fresh float64 array, ``host_widened``, in place of the card's widening;
-``WIDEN=d2h``: the card's widening on the D2H stream in place of the
-compute stream, ``put_widened_on_d2h``).
+in place of torch's pinned ones).
 ``--pieces`` times the headline with at most that many pieces
 (``transfer.MAX_PIECES``, the floor ``MIN_PIECE_SAMPLES`` taken away) over
 slabs of each of ``--slabs`` MiB (``transfer.SLAB_BYTES``), staged by the
@@ -61,10 +58,11 @@ and into a mapped ring), every slab sent from a ring without the copy
 ring), the caller's buffer registered whole (``cudaHostRegister``:
 registering, the H2D, unregistering), one pageable copy and one pinned
 copy. ``--keep`` times 8 headline calls that keep every result against 8
-that drop each, for the float32 and the float64 headline, and prints the
-pinned host memory held; then, for each tree, what
+that drop each, for the float32, the float64 and the int16 headline, and
+prints the pinned host memory held; then, for each tree, what
 ``api._finalize_reduce_output`` takes on the host once a call's copies
-have ended (the output cast: float32, float64 and int16 headline callers).
+have ended (the output cast: float32, float64, int16, float16 and uint8
+headline callers).
 
 The inputs are ``chip_smoke.py``'s, made from its seed. Needs one card;
 imports nothing of JAX.
@@ -100,7 +98,7 @@ from noisereduce_tpu_torch.parallel import host_copy, transfer  # noqa: E402
 
 CELLS = ("headline", "stationary headline", "torch headline", "batch", "bf16 headline",
          "grouped headline", "float64 headline", "float64 batch", "int16 headline",
-         "mesh headline")
+         "float16 headline", "uint8 headline", "mesh headline")
 
 
 def walls(fn, reps: int, copies=None) -> list:
@@ -167,74 +165,15 @@ def _patched(fn, patches):
     return run
 
 
-def host_widened(api, tm):
-    """``api._finalize_reduce_output`` for the ``OUT=host`` variant: a
-    float64 caller's ``PinnedCores`` (float32 here, ``float32_cores``) is
-    widened on the host by the native copy pool (``COPY_THREADS`` threads,
-    parts of ``COPY_PART_BYTES``, streamed stores) into a fresh float64
-    array, so its page faults are spread over the threads."""
-    finalize = api._finalize_reduce_output
-
-    def run(out, out_dtype, flat):
-        if not (isinstance(out, tm.PinnedCores) and np.dtype(out_dtype) == np.float64):
-            return finalize(out, out_dtype, flat)
-        f32 = out.result()
-        rows, n = f32.shape
-        arr = np.empty((rows, n), dtype=np.float64)
-        step = max(1, tm.COPY_PART_BYTES // 8, -(-n * rows // tm.COPY_THREADS))
-        tm._copy_pool().copy(np.array([f32[r].data_ptr() for r in range(rows)]),
-                             np.full(rows, 4), 4, arr.ctypes.data, arr.strides[0], 8, n, step)
-        return arr.reshape(-1) if flat else arr
-    return run
-
-
-def float32_cores(tm):
-    """``PinnedCores.__init__`` that makes every output float32, as before
-    the card's widening (the ``OUT=host`` variant)."""
-    init = tm.PinnedCores.__init__
-
-    def run(self, rows, n, dtype=torch.float32):
-        init(self, rows, n, torch.float32)
-    return run
-
-
-def put_widened_on_d2h(tm):
-    """``PinnedCores.put`` with the widening on the D2H stream, after it
-    waits for the compute stream, in place of the compute stream (the
-    ``WIDEN=d2h`` variant): the widened cores are made and read on the D2H
-    stream only, the cores read there are recorded on it."""
-    def put(self, a, cores):
-        dev = cores.device
-        b = min(self.host.shape[1], a + cores.shape[1])
-        d2h = tm._copy_stream(dev, "d2h")
-        d2h.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(d2h):
-            wide = cores[:, : b - a].to(self.host.dtype)
-            for r in range(self.host.shape[0]):
-                self.host[r, a:b].copy_(wide[r], non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(d2h)
-        cores.record_stream(d2h)
-        self._events.append(event)
-    return put
-
-
 def variant(v: str) -> list:
     """The patches of this tree's ``--variants`` entry ``NAME=VALUE``."""
-    from noisereduce_tpu_torch import api
-
     name, _, value = v.partition("=")
     if (name, value) == ("RING", "mapped"):
         return [(transfer, "_LOCAL", mapped_rings())]
-    if (name, value) == ("OUT", "host"):
-        return [(transfer.PinnedCores, "__init__", float32_cores(transfer)),
-                (api, "_finalize_reduce_output", host_widened(api, transfer))]
-    if (name, value) == ("WIDEN", "d2h"):
-        return [(transfer.PinnedCores, "put", put_widened_on_d2h(transfer))]
     return [(transfer, name, int(float(value)))]
 
 
-def cell_calls(pkg, x, noise, clips, x64, clips64, x16):
+def cell_calls(pkg, x, noise, clips, x64, clips64, callers):
     """Each cell's call through the package ``pkg``."""
     from_mesh = importlib.import_module(f"{pkg.__name__}.parallel.mesh")
     ck = dict(chunk_size=cs.CHUNK, padding=cs.PADDING)
@@ -250,7 +189,8 @@ def cell_calls(pkg, x, noise, clips, x64, clips64, x16):
                                                      max_parallel_chunks=cs.GROUP_CHUNKS, **ck),
         "float64 headline": lambda: pkg.reduce_noise(x64, cs.SR, **ck),
         "float64 batch": lambda: pkg.reduce_noise_batch(clips64, cs.SR, stationary=True, **ck),
-        "int16 headline": lambda: pkg.reduce_noise(x16, cs.SR, **ck),
+        **{f"{k} headline": (lambda y=y: pkg.reduce_noise(y, cs.SR, **ck))
+           for k, y in callers.items()},
         "mesh headline": lambda: pkg.reduce_noise(x, cs.SR, mesh=mesh, **ck),
     }
 
@@ -551,9 +491,10 @@ def output_casts(trees: dict, callers: dict, card: str, rounds: int) -> None:
     """For each tree and each caller ({label: signal}), what
     ``api._finalize_reduce_output`` takes on the host once the call's
     copies have ended (``_reduce_noise_deferred``, then a synchronize, then
-    the finalize timed alone): the output cast, if any (a float64 caller's
-    ``astype`` of the float32 result before the card's widening; none now;
-    the native widening of ``OUT=host``; an int16 caller's numpy cast), over
+    the finalize timed alone): the output cast, if any (numpy's ``astype``
+    of the float32 result where a tree does not give the caller's dtype on
+    the card: a float64 caller's before the card's widening, an int16,
+    float16 or uint8 caller's before kernel H; none where it does), over
     ``rounds`` rounds after a warm-up."""
     ck = dict(chunk_size=cs.CHUNK, padding=cs.PADDING)
     for t, (pkg, _km, _tm, *patches) in trees.items():
@@ -588,15 +529,14 @@ def main() -> None:
     ap.add_argument("--variants", default="",
                     help="comma-separated NAME=VALUE: this tree again with transfer.NAME "
                          "set, e.g. COPY_PART_BYTES=1e15; RING=mapped: the ring's slots "
-                         "mapped and registered (MappedSlot); OUT=host: a float64 output "
-                         "widened on the host; WIDEN=d2h: widened on the D2H stream")
+                         "mapped and registered (MappedSlot)")
     ap.add_argument("--pieces", default="", help="comma-separated MAX_PIECES to time")
     ap.add_argument("--slabs", default="4", help="--pieces: comma-separated slab MiB")
     ap.add_argument("--staging", default="inline",
                     help="--pieces: comma-separated inline (the calling thread) or thread")
     ap.add_argument("--h2d", action="store_true")
     ap.add_argument("--keep", action="store_true",
-                    help="8 headline calls (float32, float64) keeping every result "
+                    help="8 headline calls (float32, float64, int16) keeping every result "
                          "against dropping each; the output cast of each tree")
     ap.add_argument("--no-training", action="store_true")
     args = ap.parse_args()
@@ -611,7 +551,8 @@ def main() -> None:
     x64 = cs.float64_signal(x)
     clips64 = [x64[i * cs.BATCH_SECONDS * cs.SR : (i + 1) * cs.BATCH_SECONDS * cs.SR]
                for i in range(cs.BATCH_CLIPS)]
-    x16 = cs.int16_signal(x)
+    narrow = {"int16": cs.int16_signal(x), "float16": cs.float16_signal(x),
+              "uint8": cs.uint8_signal(x)}
     cells = [c for c in args.cells.split(",") if c and c != "none"]
     if args.h2d:
         h2d_ways(x, card, args.rounds)
@@ -631,13 +572,15 @@ def main() -> None:
                  **trees}
     calls = {}
     for t, (pkg, km, tm, *patch) in trees.items():
-        base = cell_calls(pkg, x, noise, clips, x64, clips64, x16)
+        base = cell_calls(pkg, x, noise, clips, x64, clips64, narrow)
         calls[t] = {c: _patched(fn, patch[0]) if patch else fn for c, fn in base.items()}
     if args.keep:
         kept_outputs(x, "headline", card, args.rounds)
         kept_outputs(x64, "float64 headline", card, args.rounds)
+        kept_outputs(narrow["int16"], "int16 headline", card, args.rounds)
         output_casts(trees, {"float32 headline": x, "float64 headline": x64,
-                             "int16 headline": x16}, card, args.rounds)
+                             **{f"{k} headline": y for k, y in narrow.items()}}, card,
+                     args.rounds)
     order = list(trees)
     for cell in cells:
         got = {t: [] for t in trees}
