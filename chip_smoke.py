@@ -131,7 +131,8 @@ last line is printed only when every phase passed):
     whose DFT-product table alone would take 147 GB) on 60 s, then 40005
     on all 960 s, A and D alone in reduce_noise's 77 views (a counted path
     of their own, ``GLOBAL_960``), with the global builds' registers and
-    spills;
+    spills; and n_fft 4106 / hop 2053 on 60 s (n = 2053: the chirp-z route
+    in a big block, L = 8192, one slot a group);
 14. bf16 (``bf16_route_phase``, ``bf16_phase``): A and D's bf16 builds on
     every route (the 60 s cells of n_fft 1536, 1100, 1323, 1102, 1101 and
     the 5 ms frames' n_fft 40), held and timed as above; the H2D of the bf16
@@ -326,6 +327,11 @@ LONG_CELLS = (
     ("long frames n_fft 192000", SR, 60 * SR,
      dict(n_fft=192000, hop_length=48000, time_mask_smooth_ms=2000), "global_chirp",
      "global_chirp_192000"),
+    # 4106 = 2 x 2053 (86 ms frames; n = 2053, a prime past 31): the chirp-z
+    # route in a big block, L = 8192, one slot a group (the complex-frame
+    # kernels; D in two passes, each frame once)
+    ("long frames n_fft 4106", SR, 60 * SR, dict(n_fft=4106, hop_length=2053), "chirp",
+     "big_chirp"),
 )
 # the global chirp route's throughput cell: the first LONG_CELLS geometry
 # of that route on all HEADLINE_SECONDS, A and D alone in reduce_noise's 77
@@ -409,6 +415,9 @@ SOURCES = {
     # past n_fft 8192: the FFT route's big block (8580) and the cluster route (40000)
     "spectra_big": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
     "istft_ola_big": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
+    # the chirp-z route in a big block (4106: L = 8192)
+    "spectra_big_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cplx.cu",
+    "istft_ola_big_chirp": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cplx.cu",
     "spectra_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/spectra_cluster.cu",
     "istft_ola_cluster": "noisereduce_tpu_torch/ops/cuda/csrc/istft_cluster.cu",
     # the cluster chirp route (4803): the chirp builds of the cluster kernels

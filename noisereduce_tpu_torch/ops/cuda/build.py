@@ -114,8 +114,10 @@ _SIGNATURES = {
     "nr_output_cast": [_i, _vp, _ll, _i, _vp, _ll, _ll, _ll, _vp],
     "nr_istft_cplx": [
         _i, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll,
-        _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _ll, _ll, _f, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp,
     ],
+    # the plane type, n_fft, slot, a segment's warps, n_bins, hop, r
+    "nr_istft_cplx_capacity": [_i, _i, _i, _i, _i, _i, _i],
 }
 
 _lock = threading.Lock()

@@ -38,9 +38,16 @@
 // The passes run over a group of slots at a time, one launch of each pass a
 // group (the wrapper's group, geometry.py::global_group): every slot while
 // the scratch stays within a bound of device memory. Groups whose scratch
-// stayed in the card's 50 MB L2 ran 13-18% slower at n_fft 40005 on 960 s
+// stayed in the card's 50 MB L2 ran 13-20% slower at n_fft 40005 on 960 s
 // than one launch over every slot (PERF.md): their round trips hit L2, but
-// 4 launches a group each end on a partial wave.
+// 4 launches a group each end on a partial wave. Persistent blocks walking
+// each launch's items, as many as the card holds, ran kernel A's passes
+// 10-17% slower at 40005 on 960 s and in L2 groups gained 1.5% (PERF.md):
+// one block an item. By launch, kernel A at
+// 40005 on 960 s spends 2.82 ms in pass 1, 3.35 in pass 2, 2.33 in pass 3
+// and 0.73 in its unpack, against 0.63, 1.25, 0.94 and 0.19 ms for their
+// bytes at 3.35 TB/s: the passes' stages and barriers bound them, not the
+// scratch.
 #pragma once
 
 #include "fft_cluster.cuh"

@@ -670,23 +670,25 @@ __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
 // a large radix's stage_large folding into the other buffer and summing
 // back (LARGE: a build whose m may have one; the real-FFT kernel A's,
 // whose m is 7-smooth, leaves them out; LAID: its small radices read the
-// stages' laid table tw). Returns the buffer that holds the result (z or
-// sc).
+// stages' laid table tw, and the large radices the plan's table twh).
+// Returns the buffer that holds the result (z or sc).
 template <bool INV, int ODD, bool LARGE = true, bool LAID = false>
 __device__ __forceinline__ float2* fft_frames_large(float2* z, float2* sc, int m, int n_frames,
                                                     const float2* __restrict__ tw,
-                                                    const Seg& sg, const Plan<true>& pl) {
+                                                    const Seg& sg, const Plan<true>& pl,
+                                                    const float2* __restrict__ twh = nullptr) {
   const int nf = seg_frames(sg, pl, n_frames);
+  const float2* const tl = LAID ? twh : tw;  // stage_large's roots: the plan's table
   float2* cur = z;
   float2* other = sc;
   for (int s = 0; s < pl.n_stages; ++s) {
     const int r = pl.radix[s];
     switch (r) {
-      case 17: if constexpr (LARGE) stage_large<17, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 19: if constexpr (LARGE) stage_large<19, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 23: if constexpr (LARGE) stage_large<23, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 29: if constexpr (LARGE) stage_large<29, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
-      case 31: if constexpr (LARGE) stage_large<31, INV, true>(cur, other, m, s, nf, tw, sg, pl); continue;
+      case 17: if constexpr (LARGE) stage_large<17, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
+      case 19: if constexpr (LARGE) stage_large<19, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
+      case 23: if constexpr (LARGE) stage_large<23, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
+      case 29: if constexpr (LARGE) stage_large<29, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
+      case 31: if constexpr (LARGE) stage_large<31, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
       case 8: stage_oop<8, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
       case 4: stage_oop<4, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
       case 2: stage_oop<2, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;

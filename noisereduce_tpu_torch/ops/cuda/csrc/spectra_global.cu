@@ -32,6 +32,13 @@
 // 4. spectra_global_unpack: a thread a bin k of a slot, Z[k] and its
 //    partner Z[n - k] from the scratch (contiguous and reverse-contiguous
 //    runs), the split or the pair's separation, the planes written once.
+// Folding the unpack into pass 3 (a block taking a tile of columns and
+// their mirrors (n - j2) mod L2, so that it holds points k and n - k, and
+// writing the planes itself: bitwise this output) ran A 1.4-7% slower at
+// 40005 on 960 s and on 400,000 samples and at 192000, 3.5% faster at
+// 65538 (PERF.md): the pass's bins leave a block in runs of half a tile's
+// columns, 4-byte stores 20-32 bytes long, where the unpack's are whole
+// warps' runs; wider tiles (one block an SM) were slower still.
 // The host builds cbar_j from the exact j^2 mod 2n and the filter FFT_L(c
 // wrapped) / L in float64 (kernels.py), and the twiddles w_L^{j2 k1} in the
 // columns' layout from the exact product j2 k1 < L, each rounded once to

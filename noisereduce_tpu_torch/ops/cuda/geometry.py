@@ -95,6 +95,9 @@ FFT_WARPS = FFT_THREADS // 32
 FFT_WARP_POINTS = FFT_ELEMS // FFT_WARPS  # points a warp's threads hold
 FFT_ACC = 8192
 FFT_RUN = 32  # output hop blocks a run of kernel D covers at most, from SMALL_NFFT up
+# whole groups a run of kernel D's complex-frame kernel takes at most below
+# SMALL_NFFT (its ring of sums holds no run)
+CPLX_SMALL_GROUPS = 4
 # an n_fft below this (a frame of 1 to 63 samples, up to 4,096 frames a
 # block) takes runs of kernel D that grow with its group (``fft_run``)
 SMALL_NFFT = 64
@@ -753,28 +756,73 @@ class GateGeometry:
     def fft_run(self) -> int:
         """Output hop blocks of one row a block of kernel D writes on the
         FFT and chirp routes (the cluster routes have no runs:
-        ``cluster_frames``): at most FFT_ACC samples, and at most FFT_RUN
-        hop blocks from SMALL_NFFT up. The real-FFT kernel's run is the
-        longest within that whose run + r - 1 frames fill whole groups of
-        ``fft_tile_frames``, where one does (29 at hop 256, r 4, groups of
-        8: 4 groups, where 32 took a fifth for 3 frames; 17 at 1536 / 384).
+        ``cluster_frames``): at most FFT_RUN hop blocks from SMALL_NFFT up,
+        and on the real-FFT kernel at most FFT_ACC samples. The real-FFT
+        kernel's run is the longest within that whose run + r - 1 frames
+        fill whole groups of ``fft_tile_frames``, where one does (29 at hop
+        256, r 4, groups of 8: 4 groups, where 32 took a fifth for 3
+        frames; 17 at 1536 / 384). The complex-frame kernel's is FFT_RUN,
+        the longest it takes (its ring of sums holds no run): a launch
+        takes ``cplx_run``, which may be shorter.
         Below SMALL_NFFT a group holds 64 to 8,192 frames, so the run
         grows with it: the run plus r - 1 halo frames (and, for an odd
         n_fft, whose groups start at an even frame, one more) fill whole
-        groups, the fewest in which the halo takes at most half: 201 at
-        n_fft 40 / hop 10 (one group of 204), 4,095 at 2 / 1 (4,096), 67
-        at odd 61 / 1 (two of 64, the chirp)."""
+        groups, on the real-FFT kernel the fewest in which the halo takes
+        at most half (201 at n_fft 40 / hop 10: one group of 204; 4,095 at
+        2 / 1: 4,096), on the complex-frame kernel CPLX_SMALL_GROUPS of them
+        (363 at odd 37 / 1: four groups of 100 frames, the halo 37 of
+        them)."""
         cap = FFT_ACC // self.hop
         group, halo = self.fft_tile_frames, self.r - 1
         if self.n_fft < SMALL_NFFT:
             halo += 1 if self.fft_paired else 0
+            if not self.fft_real:
+                return CPLX_SMALL_GROUPS * group - halo
             groups = max(1, -(-2 * halo // group))
             return max(1, min(cap, groups * group - halo))
-        run = max(1, min(FFT_RUN, cap))
         if not self.fft_real:
-            return run
+            return FFT_RUN
+        run = max(1, min(FFT_RUN, cap))
         whole = (run + halo) // group * group - halo
         return whole if whole >= 1 else run
+
+    @property
+    def cplx_two_pass(self) -> bool:
+        """Whether kernel D's complex-frame kernel (``csrc/istft_cplx.cu``)
+        takes the geometry in the cluster routes' two passes: a slot past
+        FFT_ELEMS points (a big block, one slot a group), each frame of the
+        output window (``cluster_frames``) inverted once into a scratch of
+        (rows, frames, win) float32, then the overlap-add pass. Smaller
+        slots take the walk over runs (``cplx_run``), which ran faster there
+        at 1100 on 960 s, 1323 and 37 (PERF.md)."""
+        return self.fft_layout()[0] > FFT_ELEMS
+
+    def cplx_run(self, rows: int, n_out: int, blocks: int) -> int:
+        """Output hop blocks a run of kernel D's complex-frame walk
+        (``csrc/istft_cplx.cu``, a slot within a block: not
+        ``cplx_two_pass``) takes on ``rows`` rows of ``n_out`` hop blocks
+        walked by ``blocks`` persistent blocks (``kernels.cplx_capacity``):
+        of ``fft_run`` and the shorter runs that fill whole groups of
+        ``fft_tile_frames`` (k G - halo: r - 1 halo frames and, for an odd
+        n_fft, one more), the one whose rounds of the grid times its groups
+        and one more (the run's last flush of the ring) are fewest, the
+        longest on a tie. 25 at 1100 / 275 on 5 views of 600,000-sample
+        cores (2,182 hop blocks a view, 7 frames a group, 264 blocks: 2
+        rounds of 4 groups and a flush, where 32 take 2 of 5 and a flush);
+        32 at 960 s in 77 views. Without the flush's group the choice ran D
+        2.5% slower at 1100 on 960 s and 6.9% at 37 than ``fft_run``
+        (PERF.md)."""
+        group = self.fft_tile_frames
+        halo = self.r - 1 + (1 if self.fft_paired else 0)
+        longest = self.fft_run
+
+        def cost(run: int) -> int:
+            rounds = -(-rows * -(-n_out // run) // blocks)
+            return rounds * (-(-(run + halo) // group) + 1)
+
+        runs = [longest] + [k * group - halo for k in range((longest + halo) // group, 0, -1)
+                            if 1 <= k * group - halo < longest]
+        return min(runs, key=cost)  # the first of the fewest: the longest
 
     def cluster_frames(self, j0: int, n_out: int) -> tuple:
         """(t_lo, n_fr): the frames t_lo to t_lo + n_fr - 1 of each row

@@ -49,9 +49,9 @@ frames a transform):
   5^b 7^c (2, 40, 1024, 1536, ...), ``csrc/spectra_cplx.cu`` and
   ``csrc/istft_cplx.cu`` (the complex-frame kernels) for the rest (1100,
   441, 1323, 8580, odd 3 and 63; 1102, 493, 34 and 62 with radices 17 to
-  31, ...), A's builds and D's real-FFT builds as persistent blocks that
-  walk A's tiles or D's runs, as many as ``real_capacity`` or
-  ``cplx_capacity`` says the card holds; an n_fft below 64 (n of 1 to 31
+  31, ...), A's and D's builds as persistent blocks that walk A's tiles
+  or D's runs, as many as ``real_capacity`` or ``cplx_capacity`` says the
+  card holds; an n_fft below 64 (n of 1 to 31
   points, or 63 odd) in tiles and runs of up to a few thousand frames;
 - "cluster": such an n past a block with a cluster shape, to 65,536
   points (``geometry.cluster_shape``), a four-step FFT across a thread
@@ -505,18 +505,22 @@ def cluster_capacity(geo: GateGeometry, kernel: str = "spectra", dtype=torch.flo
     return n
 
 
-def cplx_capacity(geo: GateGeometry, dtype=torch.float32, device=None) -> int:
-    """Blocks of kernel A's complex-frame build for the geometry (the FFT
-    route's n_fft that the real-FFT kernels do not serve, and the chirp
-    route) that the card holds at once: the persistent grid of a launch,
-    whose blocks walk the tiles past it (``csrc/spectra_cplx.cu``)."""
+def cplx_capacity(geo: GateGeometry, dtype=torch.float32, device=None,
+                  kernel: str = "spectra") -> int:
+    """Blocks of ``kernel``'s complex-frame build ("spectra":
+    ``csrc/spectra_cplx.cu``, or "istft_ola": ``csrc/istft_cplx.cu``) for
+    the geometry (the FFT route's n_fft that the real-FFT kernels do not
+    serve, and the chirp route) and planes of ``dtype`` that the card holds
+    at once: the persistent grid of a launch, whose blocks walk A's tiles
+    or D's runs past it."""
     device = torch.device(device or "cuda")
-    slot, _, tile = geo.fft_layout()
+    slot, warps, tile = geo.fft_layout()
+    name, args = (("spectra_cplx_capacity", (slot, tile, geo.hop, geo.win)) if kernel == "spectra"
+                  else ("istft_cplx_capacity", (slot, warps, geo.n_bins, geo.hop, geo.r)))
     with torch.cuda.device(device):
-        n = build.load().nr_spectra_cplx_capacity(
-            _PLANE_CODE[dtype], geo.n_fft, slot, tile, geo.hop, geo.win)
+        n = getattr(build.load(), f"nr_{name}")(_PLANE_CODE[dtype], geo.n_fft, *args)
     if n < 1:
-        build.check("spectra_cplx_capacity", -n)
+        build.check(name, -n)
     return n
 
 
@@ -775,14 +779,18 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len, grou
             *_cluster_tables(geo, route, dev), _ptr(frames), t_lo, n_fr, _ptr(out),
         )
     else:
-        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // geo.fft_run))
         slot, warps, _ = geo.fft_layout(route)
-        tail = (geo.hop, geo.r, geo.bpad, j0, n_out, geo.fft_run, out_off, out_len,
+        real = route == "fft" and geo.fft_real
+        two_pass = not real and geo.cplx_two_pass
+        run = geo.fft_run if real or two_pass else geo.cplx_run(
+            rows, n_out, cplx_capacity(geo, re.dtype, dev, kernel="istft_ola"))
+        _check_size("istft_ola", rows * T * nb, rows * -(-n_out // run))
+        tail = (geo.hop, geo.r, geo.bpad, j0, n_out, run, out_off, out_len,
                 geo.istft_len, geo.env_floor,
                 _ptr(_device_f32("post_window", geo.scfg, dev)),
                 _ptr(_device_f32("window_squares", geo.scfg, dev)),
                 _ptr(_device_f32("envelope", geo.scfg, dev)))
-        if route == "fft" and geo.fft_real:
+        if real:
             _launch(
                 "istft_fft", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
                 geo.n_fft, warps, *tail, _ptr(_device_f32("twiddle", geo.n_fft, dev)),
@@ -790,12 +798,17 @@ def _istft_ola_on(route, re, im, mask, geo: GateGeometry, out_off, out_len, grou
             )
         else:
             chirp, filt = _chirp_tables(geo, route, slot, dev)
+            t_lo, n_fr, frames = 0, 0, None
+            if two_pass:  # a big block: each frame once into a scratch, then the overlap-add
+                t_lo, n_fr = geo.cluster_frames(j0, n_out)
+                _check_size("istft_ola", rows * n_fr, rows * n_out * geo.hop)
+                frames = torch.empty((rows, n_fr, geo.win), dtype=torch.float32, device=dev)
             _launch(
                 "istft_cplx", dev, plane, _ptr(re), _ptr(im), _ptr(mask), rows, T, nb,
                 geo.n_fft, slot, warps, *tail,
                 _ptr(_device_f32("twiddle", 2 * slot, dev)),
                 _ptr(_device_f32("twiddle", geo.n_fft, dev)), _ptr_or_null(chirp),
-                _ptr_or_null(filt), _ptr(out),
+                _ptr_or_null(filt), _ptr_or_null(frames), t_lo, n_fr, _ptr(out),
             )
     _count(istft_ola, re.dtype, re.device, route)
     return out

@@ -1227,12 +1227,18 @@ def test_cluster_walk_wraps_past_the_clusters_that_fit(cuda, name, dtype):
 
 WALK_GEOMS = {  # kernel A's complex-frame builds: the big block's (n = 4290
     # and 5005, every odd radix; odd 5005, paired; the chirp length 8192 of
-    # 4106) and a block's (the large radices, 1102: n = 19 x 29, odd 493 =
-    # 17 x 29; radix 11, 1100; odd 1323; the chirp length 2304 of 1101)
+    # 4106; D's two passes where the walk's ring left no room for the laid
+    # twiddles: the chirp's odd 4001 at a hop of a frame and 6920 / 1730, the
+    # FFT route's n = 6006 at 12012 / 3003) and a block's (the large radices,
+    # 1102: n = 19 x 29, odd 493 = 17 x 29; radix 11, 1100; odd 1323; the
+    # chirp length 2304 of 1101)
     "nfft8580": dict(n_fft=8580, hop_length=2145),
     "nfft10010": dict(n_fft=10010, hop_length=2002),
     "nfft5005": dict(n_fft=5005, hop_length=1001),
     "nfft4106": dict(n_fft=4106, hop_length=2053),
+    "nfft4001": dict(n_fft=4001, hop_length=4001),
+    "nfft6920": dict(n_fft=6920, hop_length=1730),
+    "nfft12012": dict(n_fft=12012, hop_length=3003),
     "nfft1102": dict(n_fft=1102, hop_length=551),
     "nfft493": dict(n_fft=493, hop_length=29),
     "nfft1100": dict(n_fft=1100, hop_length=275),
@@ -1372,6 +1378,59 @@ def test_real_istft_writes_every_sample_past_the_end(cuda, name, dtype):
     re, im = K.spectra(x, geo)
     mask = torch.as_tensor(rng.random(re.shape), dtype=torch.float32, device=cuda)
     for out_off, out_len in ((9000, 6000), (5400, 8000), (view - 7, 3 * view)):
+        y = _istft_into_nan(re, im, mask, geo, out_off, out_len)
+        ry = K.istft_ola_ref(re, im, mask, geo, out_off, out_len)
+        assert not torch.isnan(y).any()
+        assert not y[:, max(0, geo.istft_len - out_off):].any()
+        if dtype == BF16:
+            _hold_bf16(y, ry, 2e-5)
+        else:
+            assert _max(y - ry) <= 2e-5 * _max(ry)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", list(WALK_GEOMS))
+def test_cplx_istft_walk_wraps_past_the_blocks_that_fit(cuda, name, dtype):
+    """More runs (on a big block, groups of frames: its first pass) than
+    D's complex-frame persistent blocks (``K.cplx_capacity(geo, dtype,
+    kernel="istft_ola")``), so every block walks several items, from
+    planes at every 2-byte offset of 16 bytes: within the bound
+    of the plain version (bf16: one bf16 ulp more), bitwise from call to
+    call and one row at a time; then on windows past the signal's end,
+    every sample written (the output allocated over NaN), zero past the
+    istft length."""
+    kw = WALK_GEOMS[name]
+    view = 12 * kw["n_fft"] + 5
+    geo = gate_geometry(StftConfig(**kw), view)
+    assert geo.route in ("fft", "chirp") and not geo.fft_real
+    fit = K.cplx_capacity(geo, dtype, kernel="istft_ola")
+    runs = -(-geo.out_blocks(0, view)[1] // geo.fft_run)
+    rows = 2 * fit // runs + 2
+    assert rows * runs > 2 * fit
+    rng = np.random.default_rng(38)
+    x = torch.as_tensor(rng.standard_normal((rows, view)), dtype=dtype, device=cuda)
+    re, im = K.spectra(x, geo)
+    for off in (0, 1, 3, 6):  # element offsets: the planes' 16-byte phase
+        planes = torch.empty((2, re.numel() + off), dtype=dtype, device=cuda)
+        pre, pim = (planes[i, off:].view(re.shape) for i in (0, 1))
+        pre.copy_(re)
+        pim.copy_(im)
+        mask = torch.rand(re.numel() + off, device=cuda)[off:].view(re.shape)
+        K.reset_launch_counts()
+        y = K.istft_ola(pre, pim, mask, geo, 0, view)
+        ry = K.istft_ola_ref(pre, pim, mask, geo, 0, view)
+        if dtype == BF16:
+            _hold_bf16(y, ry, 2e-5)
+        else:
+            assert _max(y - ry) <= 2e-5 * _max(ry)
+        assert torch.equal(K.istft_ola(pre, pim, mask, geo, 0, view), y)
+        y1 = K.istft_ola(pre[1:2].contiguous(), pim[1:2].contiguous(), mask[1:2].contiguous(),
+                         geo, 0, view)
+        assert torch.equal(y1[0], y[1])
+        assert K.route_counts()["istft_ola"] == _routes(geo.route, 3)["istft_ola"]
+    mask = torch.rand(re.shape, device=cuda)
+    for out_off, out_len in ((view - 3 * geo.hop, 4 * geo.hop), (view - 7, 3 * view)):
         y = _istft_into_nan(re, im, mask, geo, out_off, out_len)
         ry = K.istft_ola_ref(re, im, mask, geo, out_off, out_len)
         assert not torch.isnan(y).any()

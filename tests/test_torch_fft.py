@@ -38,6 +38,8 @@ from noisereduce_tpu_torch.ops.cuda.geometry import (
     FFT_BIG_ELEMS,
     FFT_BIG_WARPS,
     FFT_ELEMS,
+    FFT_RUN,
+    CPLX_SMALL_GROUPS,
     FFT_WARP_POINTS,
     FFT_WARPS,
     CHIRP_MAX_N,
@@ -559,8 +561,9 @@ def _finish(out, b, jj, q, a, geo, T, out_off, written=None):
 
 
 def _ola_ring(re, im, mask, geo, out_off, out_len, run, invert):
-    """csrc/istft_fft.cu's runs: per run of output hop blocks, the
-    covering frames (the run plus r - 1 halo frames) in groups of
+    """csrc/istft_fft.cu's and csrc/istft_cplx.cu's runs: per run of output
+    hop blocks, the covering frames (the run plus r - 1 halo frames, from
+    an even frame for an odd n_fft, two frames a slot) in groups of
     fft_tile_frames (``invert(b, tg, ge)``: the group's time frames); a
     ring of NB = G + r - 1 hop blocks of sums, block jj in slot jj mod NB
     (the slot by the Div of the hop; for an even hop a thread takes a pair
@@ -589,6 +592,7 @@ def _ola_ring(re, im, mask, geo, out_off, out_len, run, invert):
         for ja in range(j0, j0 + n_out, run):
             je = min(run, j0 + n_out - ja)
             t_lo, t_hi = max(0, ja - r + 1), min(T - 1, ja + je - 1)
+            t_lo -= t_lo % (2 if geo.fft_paired else 1)
             if t_lo > t_hi:
                 l = np.arange(je * hop)
                 _finish(out, b, ja + l // hop, l % hop, np.zeros(len(l)), geo, T, out_off,
@@ -675,45 +679,90 @@ def _emulate_istft_fft(re, im, mask, geo, out_off, out_len, run=None):
     return _ola_ring(re, im, mask, geo, out_off, out_len, run, invert)
 
 
-def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None):
-    """csrc/istft_cplx.cu: per group and thread segment, its slots of T
-    points: an even n_fft's frame as istft_fft.cu loads and unsplits it (n
-    = M), an odd one's frame pair as W[k] = Y_a[k] + i Y_b[k], W[n-k] =
-    conj Y_a[k] + i conj Y_b[k] (no imaginary DC parts; frames 2s and 2s +
-    1, a zero frame b past the last); on the chirp route times c_k (conj cbar) and zero
-    past n, the T-point FFT, times the conjugate filter spectrum, the
-    unscaled inverse and c_j on the first n points; else the unscaled
-    n-point inverse; the runs of _ola."""
+def _cplx_group_frames(geo, tg, ge):
+    """The frames istft_cplx.cu's pre-step reads for group [tg, tg + ge):
+    its frames, and for an odd n_fft the partner of an odd group's last
+    frame where it exists (frames [tg, tg + 2 ceil(ge / 2)) within the
+    row)."""
+    fps = 2 if geo.fft_paired else 1
+    return min(fps * -(-ge // fps), geo.n_frames - tg)
+
+
+def _cplx_pre_step(sre, sim, smk, geo, f0, nf, slot, chirp=None):
+    """istft_cplx.cu's pre-step of a segment's slots [f0, f0 + nf) of a
+    group from the planes (bin q of the group's frame f at f n_bins + q of
+    the group's frames, ``_cplx_group_frames``): an even n_fft's slot e <
+    nf (n + 1) / 2 (the Div by (n + 1) / 2)
+    unsplits the pair (k, n - k) (0 with Y[n], and n/2 for an even n); an
+    odd one's slot bin e < nf n_bins (the Div by n_bins) gives W[k] and
+    W[n - k] from bin k of frames 2 sl and 2 sl + 1 (a zero frame past
+    the slab's last); times c_k (conj cbar_k) and zero past n on the
+    chirp route: (nf, slot) points."""
+    N, n, nb = geo.n_fft, geo.fft_n, geo.n_bins
+    tws = _twiddles(N)
+    frames = len(smk) // nb
+
+    def Y(f, q):  # Y = Z * mask, no imaginary DC or Nyquist part
+        o = f * nb + q
+        return (sre[o] + 1j * sim[o] * ((q > 0) & (q < N / 2))) * smk[o]
+
+    z = np.full((nf, slot), np.nan, complex)
+    z[:, n:] = 0.0
+    if geo.fft_paired:
+        e = np.arange(nf * nb)
+        sl = _div(e, nb)
+        k = e - sl * nb
+        fa = 2 * (f0 + sl)
+        ya = Y(fa, k)
+        yb = np.where(fa + 1 < frames, Y(np.minimum(fa + 1, frames - 1), k), 0.0)
+        z[sl, k] = ya + 1j * yb
+        z[sl[k > 0], n - k[k > 0]] = np.conj(ya[k > 0]) + 1j * np.conj(yb[k > 0])
+    else:
+        half = (n + 1) // 2
+        e = np.arange(nf * half)
+        sl = _div(e, half)
+        k = e - sl * half
+        f = f0 + sl
+        lo, hi = _unsplit(Y(f, k), Y(f, np.where(k > 0, n - k, n)), tws[k])
+        z[sl, k] = lo
+        z[sl[k > 0], n - k[k > 0]] = hi[k > 0]
+        if n % 2 == 0:
+            yh = Y(f[k == 0], np.full((k == 0).sum(), n // 2))
+            z[sl[k == 0], n // 2] = _unsplit(yh, yh, tws[n // 2])[0]
+    assert not np.isnan(z).any()
+    if chirp is not None:
+        z[:, :n] *= np.conj(chirp)
+    return z
+
+
+def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None, fit=3):
+    """csrc/istft_cplx.cu: per group (from an even frame for an odd n_fft,
+    two frames a slot) and thread segment, the pre-step from the group's
+    frames of re, im and the mask (``_cplx_group_frames``,
+    ``_cplx_pre_step``); on the chirp route the T-point FFT,
+    times the conjugate filter spectrum, the unscaled inverse and c_j on
+    the first n points; else the unscaled n-point inverse; the runs and
+    ring of ``_ola_ring``, or for a big block (``geo.cplx_two_pass``) the
+    window's frames in groups walked by ``fit`` blocks
+    (``_cplx_two_pass_walk``), each written once to the (rows, frames, win)
+    scratch, then the overlap-add pass (``_cluster_ola``)."""
     slot, warps, _ = geo.fft_layout()
     seg_slots = warps * FFT_WARP_POINTS // slot
     chirp = geo.route == "chirp"
-    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    N, n, paired = geo.n_fft, geo.fft_n, geo.fft_paired
     fps = 2 if paired else 1
-    tw, tws = _twiddles(2 * slot), _twiddles(N)
+    tw = _twiddles(2 * slot)
     cb, filt = _chirp(geo, slot) if chirp else (None, None)
-    k = np.arange(nb)
-
-    def spectrum(b, t):  # Y = Z * mask, no imaginary DC or Nyquist part
-        return (re[b, t] + 1j * im[b, t] * ((k > 0) & (k < N / 2))) * mask[b, t]
 
     def invert(b, tg, ge):
+        fe = _cplx_group_frames(geo, tg, ge)
+        sre, sim, smk = (a[b, tg : tg + fe].reshape(-1) for a in (re, im, mask))
         y = np.zeros((ge, N))
         for f0, nf in _segments(geo, -(-ge // fps)):
             if not nf:
                 continue
-            z = np.zeros((nf, slot), complex)
-            for sl in range(nf):
-                f = fps * (f0 + sl)
-                if paired:
-                    ya = spectrum(b, tg + f)
-                    yb = spectrum(b, tg + f + 1) if tg + f + 1 < re.shape[1] else 0 * ya
-                    z[sl, :nb] = ya + 1j * yb
-                    z[sl, n - k[1:]] = np.conj(ya[1:]) + 1j * np.conj(yb[1:])
-                else:
-                    ya = spectrum(b, tg + f)
-                    z[sl, :n] = _pre_step(ya[:n], ya[n], tws)
+            z = _cplx_pre_step(sre, sim, smk, geo, f0, nf, slot, cb)
             if chirp:
-                z[:, :n] *= np.conj(cb)
                 Z = _stockham(_stockham(z, tw, False) * np.conj(filt), tw, True)
                 Z[:, :n] *= np.conj(cb)
             else:
@@ -728,7 +777,39 @@ def _emulate_istft_cplx(re, im, mask, geo, out_off, out_len, run=None):
                     y[f, 0::2], y[f, 1::2] = Z[sl, :n].real, Z[sl, :n].imag
         return y
 
-    return _ola(re, im, mask, geo, out_off, out_len, run, invert)
+    if not geo.cplx_two_pass:
+        return _ola_ring(re, im, mask, geo, out_off, out_len, run, invert)
+    B, T = re.shape[:2]
+    walk, t_lo, n_fr = _cplx_two_pass_walk(geo, B, out_off, out_len, fit)
+    y = np.full((B, n_fr, geo.win), np.nan)
+    written = np.zeros(y.shape, int)
+    for b, tg, ge in (g for groups in walk for g in groups):
+        y[b, tg - t_lo : tg - t_lo + ge] = invert(b, tg, ge)[:, : geo.win]
+        written[b, tg - t_lo : tg - t_lo + ge] += 1
+    assert (written == 1).all()
+    j0, n_out = geo.out_blocks(out_off, out_len)
+    return _cluster_ola(y, geo, B, T, j0, n_out, t_lo, n_fr, out_off, out_len)
+
+
+def _cplx_two_pass_walk(geo, rows, out_off, out_len, fit):
+    """istft_cplx.cu's first pass on a big block: the frames t_lo to t_lo
+    + n_fr - 1 of each row (``cluster_frames``) in items of G frames (item
+    i of row b: frames from t_lo + i G, ceil(n_fr / G) items a row),
+    min(items, fit) persistent blocks, block x taking items x, x + grid,
+    ...: (per block its groups (b, tg, ge) in order, t_lo, n_fr)."""
+    G = geo.fft_tile_frames
+    t_lo, n_fr = geo.cluster_frames(*geo.out_blocks(out_off, out_len))
+    n_items = -(-n_fr // G)
+    total = rows * n_items
+    walk = []
+    for x in range(min(total, fit)):
+        groups = []
+        for item in range(x, total, min(total, fit)):
+            b, i = divmod(item, n_items)
+            tg = t_lo + i * G
+            groups.append((b, tg, min(t_lo + n_fr, tg + G) - tg))
+        walk.append(groups)
+    return walk, t_lo, n_fr
 
 
 def _pre_step(Y, nyq, tws):
@@ -1300,8 +1381,10 @@ def _pow2_length(n):
                                        (2, 2), (60, 60), (61, 1)])
 def test_fft_tiles_fit_a_block(n_fft, hop):
     """A's tile and D's group hold at most a block's points (a big block's
-    for a slot past FFT_ELEMS), D's run at most FFT_ACC samples, and every
-    tile and run holds at least one frame. The thread segments hold whole
+    for a slot past FFT_ELEMS), D's run at most FFT_ACC samples on the
+    real-FFT kernel (the complex-frame kernel's FFT_RUN hop blocks from
+    SMALL_NFFT up: its ring of sums holds no run), and every tile and run
+    holds at least one frame. The thread segments hold whole
     slots within their threads' points, and together every slot of a tile
     exactly once; a power of two M keeps the layout of one frame or 256/M
     frames a warp. On the real-FFT kernels, A's and D's shared memory
@@ -1311,9 +1394,9 @@ def test_fft_tiles_fit_a_block(n_fft, hop):
     included). Below SMALL_NFFT (frames of 1 to 63 samples: up to 4,096
     slots a block, tiles of (G - 1) hop + win samples) D's run grows with
     its group G on both kernels: the run, its r - 1 halo frames and, for
-    an odd n_fft, one more fill the fewest whole groups in which the halo
-    takes at most half (one group but at 61 / 1, the chirp's 64 frames
-    with a halo of 37)."""
+    an odd n_fft, one more fill whole groups, on the real-FFT kernel the
+    fewest in which the halo takes at most half (one group), on the
+    complex-frame kernel CPLX_SMALL_GROUPS."""
     geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 20000)
     G, halo = geo.fft_tile_frames, geo.r - 1
     if geo.fft_real:
@@ -1322,12 +1405,14 @@ def test_fft_tiles_fit_a_block(n_fft, hop):
             assert a <= SMEM_MAX and d <= SMEM_MAX
             if n_fft in (1024, 1536):
                 assert 2 * a <= SMEM_MAX and 2 * d <= SMEM_MAX
-    if n_fft < SMALL_NFFT:
+    if n_fft < SMALL_NFFT and not geo.fft_real:
         halo += 1 if n_fft % 2 else 0
+        assert geo.fft_run + halo == CPLX_SMALL_GROUPS * G
+    elif n_fft < SMALL_NFFT:
         groups = (geo.fft_run + halo) // G
         assert (geo.fft_run + halo) % G == 0 and 2 * halo <= groups * G
         assert groups == 1 or 2 * halo > (groups - 1) * G
-        assert (groups > 1) == (n_fft == 61)
+        assert groups == 1
     elif geo.fft_real:
         old = max(1, min(32, FFT_ACC // hop))
         whole = (geo.fft_run + halo) % G == 0
@@ -1337,7 +1422,10 @@ def test_fft_tiles_fit_a_block(n_fft, hop):
                           else (FFT_ELEMS, FFT_WARPS))
     fps = 2 if n_fft % 2 else 1
     assert tile >= 1 and tile % fps == 0 and tile // fps * slot <= elems
-    assert geo.fft_run >= 1 and geo.fft_run * hop <= FFT_ACC
+    if geo.fft_real:
+        assert geo.fft_run >= 1 and geo.fft_run * hop <= FFT_ACC
+    elif n_fft >= SMALL_NFFT:
+        assert geo.fft_run == FFT_RUN
     assert 1 <= warps <= block_warps and warps * FFT_WARP_POINTS >= slot
     slots = tile // fps
     for fe in (1, slots - 1, slots):
@@ -2342,14 +2430,17 @@ def test_real_walk_span_copy_is_the_guarded_load(name, elem):
     _check_span_copies(GEOMS[name], elem, real=True)
 
 
-def _istft_walk(geo, rows, out_off, out_len, fit):
-    """istft_fft.cu's persistent walk: min(runs, fit) blocks, block x taking
-    runs x, x + grid, ... (run i of row b is item b n_runs + i); per block
-    (its runs, the groups (run, b, tg, ge) it inverts in order, the slabs
-    (b, tg, ge) it copies in order): issue_from(x) first, then after each group's
-    pre-step the group after it in its run, or issue_from the next run of
-    the block (the first with frames; None past the last)."""
-    T, r, G, run = geo.n_frames, geo.r, geo.fft_tile_frames, geo.fft_run
+def _istft_walk(geo, rows, out_off, out_len, fit, run=None):
+    """istft_fft.cu's and istft_cplx.cu's persistent walk: min(runs, fit)
+    blocks, block x taking runs x, x + grid, ... (run i of row b is item b
+    n_runs + i; runs of ``run`` hop blocks, the geometry's by default; an
+    odd n_fft's frames from an even one); per block (its runs, the groups
+    (run, b, tg, ge) it inverts in order, the slabs (b, tg, ge) it copies
+    in order): issue_from(x) first, then after each group's pre-step the
+    group after it in its run, or issue_from the next run of the block (the
+    first with frames; None past the last)."""
+    T, r, G, run = geo.n_frames, geo.r, geo.fft_tile_frames, run or geo.fft_run
+    fps = 2 if geo.fft_paired else 1
     j0, n_out = geo.out_blocks(out_off, out_len)
     n_runs = -(-n_out // run)
     total = rows * n_runs
@@ -2359,7 +2450,8 @@ def _istft_walk(geo, rows, out_off, out_len, fit):
         b, i = divmod(item, n_runs)
         ja = j0 + i * run
         je = min(run, j0 + n_out - ja)
-        return b, ja, je, max(0, ja - r + 1), min(T - 1, ja + je - 1)
+        t_lo = max(0, ja - r + 1)
+        return b, ja, je, t_lo - t_lo % fps, min(T - 1, ja + je - 1)
 
     def issue_from(item):
         for it in range(item, total, grid):
@@ -2455,6 +2547,180 @@ def test_istft_fft_slab_copy_and_division(n_bins, elem):
             assert np.array_equal(slab[read], plane[b, tg + f, q])
     l = np.arange(FFT_ACC)
     assert np.array_equal(_div(l, geo.hop), l // geo.hop)
+
+
+def _cplx_ring(geo):
+    """Bytes of istft_cplx.cu's ring of G + r - 1 hop blocks."""
+    return 4 * (geo.fft_tile_frames + geo.r - 1) * geo.hop
+
+
+def _cplx_smem(geo):
+    """istft_cplx.cu::cplx_smem: the slots and the second buffer of the
+    stages out of place, the T - 1 laid twiddles (made even) and, on the
+    walk (not ``geo.cplx_two_pass``), the ring."""
+    slot = geo.fft_layout()[0]
+    elems = FFT_BIG_ELEMS if slot > FFT_ELEMS else FFT_ELEMS
+    return (8 * ((elems + elems // 16) * 2 + ((slot + 1) & ~1))
+            + (0 if geo.cplx_two_pass else _cplx_ring(geo)))
+
+
+CPLX_WALK_GEOMS = ["nfft1100-r4", "nfft1323-r3", "nfft441-r3", "nfft1102-r2", "nfft1101-r3",
+                   "nfft37-r37", "nfft3-r3", "torch-nfft1-r1"]
+# the big blocks: even 4106 (the chirp, L = 8192) and 8580, odd 5005 (two
+# frames a slot)
+CPLX_TWO_PASS_GEOMS = ["nfft4106-r2", "nfft8580-r4", "nfft5005-r5"]
+
+
+@pytest.mark.parametrize("fit", [1, 7, 132, 264])
+@pytest.mark.parametrize("window", WALK_WINDOWS)
+@pytest.mark.parametrize("name", CPLX_WALK_GEOMS)
+def test_istft_cplx_walk_covers_every_run_once(name, window, fit):
+    """Kernel D's complex-frame blocks (grid: min(runs, ``K.cplx_capacity(geo,
+    kernel="istft_ola")``)), at the run the kernel takes for the grid
+    (``geo.cplx_run``: shorter than the geometry's FFT_RUN only where that
+    takes fewer groups of frames a block, the longest such, filling whole
+    groups): every run of every
+    row is taken by exactly one block; the groups cover each run's frames
+    from its first halo frame (an even one for an odd n_fft) once a run;
+    an odd n_fft's pre-step reads the partner of an odd group's last frame
+    where it exists, never more than a group's frames. Rows of several
+    runs; past the end, runs that no frame reaches."""
+    geo = gate_geometry(StftConfig(**CPLX_GEOMS[name]), WALK_VIEW)
+    G, fps = geo.fft_tile_frames, 2 if geo.fft_paired else 1
+    assert not geo.fft_real and not geo.cplx_two_pass
+    assert geo.fft_run == FFT_RUN or geo.n_fft < SMALL_NFFT
+    n_out = geo.out_blocks(*WALK_WINDOWS[window])[1]
+    run = geo.cplx_run(3, n_out, fit)
+    assert 1 <= run <= geo.fft_run
+    halo = geo.r - 1 + fps - 1
+    assert run == geo.fft_run or (run + halo) % G == 0
+    cost = lambda rr: -(-3 * -(-n_out // rr) // fit) * (-(-(rr + halo) // G) + 1)  # noqa: E731
+    assert cost(run) <= cost(geo.fft_run) and all(cost(rr) > cost(run)
+                                                   for rr in range(run + 1, geo.fft_run + 1))
+    walk, n_runs, run_of = _istft_walk(geo, 3, *WALK_WINDOWS[window], fit, run)
+    empty = [i for i in range(3 * n_runs) if run_of(i)[3] > run_of(i)[4]]
+    assert not empty or window == "past-end"
+    assert sorted(i for items, _, _ in walk for i in items) == list(range(3 * n_runs))
+    for items, done, _ in walk:
+        for item in items:
+            b, ja, je, t_lo, t_hi = run_of(item)
+            assert t_lo % fps == 0 and t_lo <= max(0, ja - geo.r + 1)
+            frames = [t for it, _, tg, ge in done if it == item for t in range(tg, tg + ge)]
+            assert frames == list(range(t_lo, t_hi + 1))
+        for _, _, tg, ge in done:
+            fe = _cplx_group_frames(geo, tg, ge)
+            assert ge <= fe <= G and tg + fe <= geo.n_frames
+            assert fe == min(ge + (ge % fps), geo.n_frames - tg)
+
+
+@pytest.mark.parametrize("fit", [1, 7, 132, 264])
+@pytest.mark.parametrize("window", WALK_WINDOWS)
+@pytest.mark.parametrize("name", CPLX_TWO_PASS_GEOMS)
+def test_istft_cplx_two_pass_covers_every_frame_once(name, window, fit):
+    """Kernel D's complex-frame big blocks (``geo.cplx_two_pass``) in their
+    first pass (grid: min(items, ``K.cplx_capacity(geo,
+    kernel="istft_ola")``)): every frame of every row that the output
+    window needs (``cluster_frames``) is inverted by exactly one block, in
+    groups of G frames from the window's first, an even frame for an odd
+    n_fft; a group's pre-step reads the partner of an odd group's last
+    frame where it exists, never more than a group's frames nor past the
+    row's last; the overlap-add pass finds every frame of each of the
+    window's hop blocks in the scratch."""
+    geo = gate_geometry(StftConfig(**CPLX_GEOMS[name]), WALK_VIEW)
+    G, fps, T, r = geo.fft_tile_frames, 2 if geo.fft_paired else 1, geo.n_frames, geo.r
+    assert geo.cplx_two_pass and not geo.fft_real and G == fps
+    j0, n_out = geo.out_blocks(*WALK_WINDOWS[window])
+    walk, t_lo, n_fr = _cplx_two_pass_walk(geo, 3, *WALK_WINDOWS[window], fit)
+    assert len(walk) == min(fit, 3 * -(-n_fr // G)) and t_lo % fps == 0
+    done = sorted((b, t) for groups in walk for b, tg, ge in groups for t in range(tg, tg + ge))
+    assert done == [(b, t) for b in range(3) for t in range(t_lo, t_lo + n_fr)]
+    for groups in walk:
+        for _, tg, ge in groups:
+            assert (tg - t_lo) % G == 0 and 1 <= ge <= G
+            fe = _cplx_group_frames(geo, tg, ge)
+            assert ge <= fe <= G and tg + fe <= T
+    for jj in range(j0, j0 + n_out):
+        assert all(t_lo <= t < t_lo + n_fr for t in range(max(0, jj - r + 1), min(jj, T - 1) + 1))
+
+
+def test_istft_cplx_run_fills_the_grid():
+    """The run kernel D's complex-frame walk takes (``geo.cplx_run``): at
+    n_fft 1100 / 275 in 5 views of 600,000-sample cores (2,182 hop blocks,
+    7 frames a group, 264 blocks), 25 hop blocks a run (2 rounds of the
+    grid of 4 groups and the flush, where 32 take 5 and the flush); in 77
+    views 32 (21 rounds of 6, where 25 take 26 of 5). A big block (4106 /
+    2053) takes two passes, and no run."""
+    geo = gate_geometry(StftConfig(n_fft=1100, hop_length=275), 660000)
+    n_out = geo.out_blocks(30000, 600000)[1]
+    assert (n_out, geo.fft_tile_frames, geo.fft_run, geo.cplx_two_pass) == (2182, 7, 32, False)
+    assert geo.cplx_run(5, n_out, 264) == 25
+    assert geo.cplx_run(77, n_out, 264) == 32
+    assert gate_geometry(StftConfig(n_fft=4106, hop_length=2053), 60 * 48000).cplx_two_pass
+
+
+@pytest.mark.parametrize("name", ["nfft1100-r4", "nfft1323-r3", "nfft1101-r3", "nfft4106-r2",
+                                  "nfft8580-r4", "nfft37-r37", "torch-nfft1-r1"])
+def test_istft_cplx_pre_step_reads_and_division(name):
+    """D's complex-frame pre-step: slot e takes (even n_fft) frame f = e /
+    ((n + 1) / 2) and pair k by the multiply-high Div, reading bins k, n -
+    k (slot 0: 0, n and n/2), or (odd) slot bin e / n_bins and bin k of
+    frames 2 sl and 2 sl + 1: the (frame, bin) of e' / n_bins, e' % n_bins
+    for the element e' = f n_bins + q of the group's frames it reads, none
+    past the row's last frame. The ring's Div of the hop is exact for every
+    sample of the ring, and a block's shared memory fits."""
+    geo = gate_geometry(StftConfig(**CPLX_GEOMS[name]), 4 * CPLX_GEOMS[name]["n_fft"] + 5)
+    G, T, nb, n = geo.fft_tile_frames, geo.n_frames, geo.n_bins, geo.fft_n
+    plane = np.random.default_rng(nb).standard_normal((2, T, nb))
+    for b, tg in ((0, 0), (1, max(0, T - G)), (1, min(3, T - 1))):
+        ge = min(G, T - tg)
+        fe = _cplx_group_frames(geo, tg, ge)
+        frames = plane[b, tg : tg + fe].reshape(-1)
+        if geo.fft_paired:
+            e = np.arange(-(-ge // 2) * nb)
+            sl = _div(e, nb)
+            k = e - sl * nb
+            assert np.array_equal(sl, e // nb)
+            reads = [(2 * sl, k), (2 * sl + 1, k)]
+        else:
+            half = (n + 1) // 2
+            e = np.arange(ge * half)
+            f = _div(e, half)
+            k = e - f * half
+            assert np.array_equal(f, e // half)
+            reads = [(f, q) for q in (k, np.where(k > 0, n - k, n), np.full_like(k, n // 2))]
+        for f, q in reads:
+            ok = tg + f < T  # the kernel's guard: a zero frame past the row's last
+            assert (f[ok] < fe).all()
+            read = f[ok] * nb + q[ok]
+            assert np.array_equal(read // nb, f[ok]) and np.array_equal(read % nb, q[ok])
+            assert np.array_equal(frames[read], plane[b, tg + f[ok], q[ok]])
+    l = np.arange((G + geo.r - 1) * geo.hop)
+    assert np.array_equal(_div(l, geo.hop), l // geo.hop)
+    assert _cplx_smem(geo) <= SMEM_MAX
+    assert (geo.fft_layout()[0] <= FFT_ELEMS) == (_cplx_smem(geo) < 113 << 10)  # 2 blocks an SM
+
+
+def test_istft_cplx_fits_shared_memory():
+    """Every n_fft of the complex-frame kernels (the FFT route's past the
+    real-FFT kernels' and the chirp route's, to a big block), at a hop of
+    1, the longest that divides a quarter frame, and a frame: a block's
+    two buffers, laid twiddles and ring fit shared memory, and a big
+    block's two buffers and laid twiddles (its two passes hold no ring),
+    also where the walk's ring would not have fit beside them (n_fft 15972
+    at a hop of a frame, and 4001 / 4001, 6920 / 1730 and 12012 / 3003 of
+    the card tests' ``WALK_GEOMS``)."""
+    for n_fft in range(1, 2 * FFT_BIG_ELEMS + 1, 3):
+        scfg = StftConfig(n_fft=n_fft)
+        if fft_route(scfg) not in ("fft", "chirp") or real_kernel(n_fft):
+            continue
+        quarter = max([d for d in range(1, n_fft // 4 + 1) if n_fft % d == 0], default=1)
+        for hop in {1, quarter, n_fft}:
+            geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 4 * n_fft + 5)
+            assert _cplx_smem(geo) <= SMEM_MAX, (n_fft, hop)
+            assert geo.cplx_two_pass == (geo.fft_layout()[0] > FFT_ELEMS)
+    for n_fft, hop in ((15972, 15972), (4001, 4001), (6920, 1730), (12012, 3003)):
+        geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 12 * n_fft + 5)
+        assert geo.cplx_two_pass and _cplx_smem(geo) <= SMEM_MAX < _cplx_smem(geo) + _cplx_ring(geo)
 
 
 @pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])

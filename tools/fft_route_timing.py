@@ -75,23 +75,34 @@ took.
     python3 tools/fft_route_timing.py --ab <checkout> --cells 1024 --dtype bfloat16
     python3 tools/fft_route_timing.py --ab <checkout> --cells 1024 --variants run32,diag_a_no_fft
 
-``--ab`` times the real-FFT kernels A and D (``csrc/spectra_fft.cu``,
-``csrc/istft_fft.cu``) of this tree, of other checkouts (a parent commit
-unpacked with ``git archive``; their two sources built with this tree's
-flags into ``$TMPDIR``, their ``ptxas -v`` reports printed; D with the run
+``--ab`` times kernels A and D of this tree, of other checkouts (a
+parent commit unpacked with ``git archive``; the sources of
+``--ab-kernels`` built with this tree's flags into ``$TMPDIR``, beside
+this tree's own build, their ``ptxas -v`` reports printed; D with the run
 length of the checkout's own ``geometry.py``) and of the ``--variants``
 (``AB_VARIANTS``: this tree's library with the parent's run length, or its
-sources with a piece of the work taken out) in
+sources with a piece of the work taken out or another design choice) in
 one process: every call goes through this tree's wrapper, whose library
-is swapped for each build's two entries in turn, in ``--rounds`` rounds of
+is swapped for each build's entries in turn (``AB_KERNELS``: ``real``,
+the real-FFT kernels ``csrc/spectra_fft.cu`` and ``csrc/istft_fft.cu``;
+``global``, the global chirp route's ``csrc/spectra_global.cu`` and
+``csrc/istft_global.cu`` over ``csrc/fft_global.cuh``; ``cplx``, D's
+complex-frame kernel ``csrc/istft_cplx.cu``), in ``--rounds`` rounds of
 alternating order (this tree first, then the others, then the reverse),
-on the ``CELLS`` that ``--cells`` names, with the signal in ``--dtype``.
-Per cell, build and kernel: the device time of each round (``queued_ms``:
-events around one call with the host's launch work hidden, min of
-``--reps``), their min, median and max, and whether each build's outputs
-are bitwise this tree's (else their largest difference); with
-``--library`` also ``torch.stft`` / ``torch.istft`` and one elementwise
-pass over two planes (the card's rate on these bytes).
+on the ``CELLS`` and ``LONG_CELLS`` that ``--cells`` names, with the
+signal in ``--dtype``. Per cell, build and kernel: the device time of
+each round (``queued_ms``: events around one call with the host's launch
+work hidden, min of ``--reps``), their min, median and max, and whether
+each build's outputs are bitwise this tree's (else their largest
+difference); on the global chirp route also each launch's device ms
+(``*_split``: a ``torch.profiler`` trace) and the same times with groups
+whose scratch stays in L2 (``*_l2``); with ``--library`` also
+``torch.stft`` / ``torch.istft`` and one elementwise pass over two planes
+(the card's rate on these bytes).
+
+    python3 tools/fft_route_timing.py --ab parent=<checkout> --ab-kernels global,cplx \
+        --cells 40005,40005@960,65538,192000,1100,1323,1102,1101,8580,4106,37 --library \
+        --variants cplx_fixed_run,run32
 
 It times the ``noisereduce_tpu_torch`` that Python imports first. To time
 another checkout of the package beside this one (a parent commit unpacked
@@ -365,55 +376,65 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
     return cell
 
 
-# --ab: the real-FFT kernels' sources and entries, and the variants of this
-# tree: the patches of its sources ((file, old, new) replacements; None to
-# time this tree's library) and whether D runs with the run length before
-# whole groups (min(32, 8192 / hop) hop blocks). The diag_* variants take a
-# piece of a kernel's work out (wrong outputs by design, not held) to see
-# what it costs: A's pack (the general build's: the power-of-two build
-# packs as its first stage loads), stages or unpack; D's pre-step, stages
-# or overlap-add
-AB_SOURCES = ("spectra_fft.cu", "istft_fft.cu")
-AB_ENTRIES = ("nr_spectra_fft", "nr_istft_fft")
+# --ab: the kernels' sources and entries by set (--ab-kernels: the real-FFT
+# kernels, the global chirp route's, D's complex-frame kernel), and the
+# variants of this tree: the patches of its sources ((file, old, new)
+# replacements; None to time this tree's library) and D's run rule (None:
+# the geometry's; "run32": the run length before whole groups, min(32, 8192
+# / hop) hop blocks, the complex-frame kernel's before its ring; "longest":
+# the complex-frame kernel's fft_run, not shortened to fill the grid). The
+# diag_* variants take a piece of a kernel's work out (wrong outputs by
+# design, not held) to see what it costs: A's pack (the general build's:
+# the power-of-two build packs as its first stage loads), stages or
+# unpack; D's pre-step, stages or overlap-add
+AB_KERNELS = {
+    "real": (("spectra_fft.cu", "istft_fft.cu"), ("nr_spectra_fft", "nr_istft_fft")),
+    "global": (("spectra_global.cu", "istft_global.cu"), ("nr_spectra_global", "nr_istft_global")),
+    "cplx": (("istft_cplx.cu",), ("nr_istft_cplx",)),
+}
 _A, _D = "spectra_fft.cu", "istft_fft.cu"
 AB_VARIANTS = {
-    "run32": (None, True),
+    "run32": (None, "run32"),
     # D's overlap-add a sample at a time, not RING_UNROLL at once
     "ring_loop": ([(_D, "constexpr int RING_UNROLL = 6;", "constexpr int RING_UNROLL = 1;")],
-                  False),
+                  None),
     # D at one block an SM (128 registers, no spills), in place
     "d_one_block": ([(_D, "constexpr int BLOCKS_PER_SM = 2;", "constexpr int BLOCKS_PER_SM = 1;")],
-                    False),
+                    None),
     # D's overlap-add a sample at a time for an even hop too, not in pairs
-    "ola_scalar": ([(_D, "      if (p.hop % 2)\n", "      if (true)\n")], False),
+    "ola_scalar": ([(_D, "      if (p.hop % 2)\n", "      if (true)\n")], None),
     "diag_a_no_pack": ([
         (_A, "for (int e = sg.lane; e < nf * m; e += plan.threads) {",
          "for (int e = sg.lane; e < 0; e += plan.threads) {"),
-        ], False),
+        ], None),
     "diag_a_no_fft": ([
         (_A, "const float2* zo = nrf::fft_frames_large<false, ODD, false, true>(\n"
              "             s.z, s.sc, m, t.fe, s.stw, sg, plan);", "const float2* zo = s.z;"),
         (_A, "const float2* zo =\n"
              "             nrf::p2::fft_frames(s.z, s.sc, log2m, nrf::p2::radix(M, 1), t.fe, s.stw, sg);",
-         "const float2* zo = s.z;")], False),
+         "const float2* zo = s.z;")], None),
     "diag_a_no_unpack": ([
         (_A, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
          "for (int e = sg.lane; e < 0; e += plan.threads) {"),
         (_A, "e < min(t.fe << log2s, seg_end >> shift); e += step) {",
-         "e < 0; e += step) {")], False),
+         "e < 0; e += step) {")], None),
     "diag_d_no_pre": ([
         (_D, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
-         "for (int e = sg.lane; e < 0; e += plan.threads) {")], False),
+         "for (int e = sg.lane; e < 0; e += plan.threads) {")], None),
     "diag_d_no_fft": ([(_D, "      nrf::fft_frames<true, ODD, true>(z, m, ge, stw, sg, plan);\n",
-                        "")], False),
+                        "")], None),
     "diag_d_no_ola": ([(_D, "for (int i0 = W * tid; i0 < ring;", "for (int i0 = W * tid; i0 < 0;")],
-                      False),
+                      None),
+    # D's complex-frame walk: runs of the geometry's length, not shortened
+    # to fill the grid
+    "cplx_fixed_run": (None, "longest"),
 }
 
 
 def checkout_run(root: pathlib.Path):
     """D's run length by the rule of the checkout at root (its own
-    ``geometry.py``, loaded beside this tree's), for this tree's geometry."""
+    ``geometry.py``, loaded beside this tree's), for this tree's geometry:
+    the run its kernels take as given."""
     spec = importlib.util.spec_from_file_location(
         f"ab_geometry_{abs(hash(str(root)))}", root / "noisereduce_tpu_torch/ops/cuda/geometry.py")
     mod = importlib.util.module_from_spec(spec)
@@ -428,9 +449,41 @@ def old_run(g) -> int:
     return max(1, min(G.FFT_RUN, G.FFT_ACC // g.hop))
 
 
-def ab_library(csrc: pathlib.Path, patches, out: pathlib.Path):
-    """The real-FFT kernels of the sources in csrc (with ``patches``
-    applied to a copy) built with this tree's flags into out, loaded, and
+def checkout_signatures(root: pathlib.Path) -> dict:
+    """The C signatures of the checkout at root (its own ``build.py``,
+    loaded beside this tree's)."""
+    spec = importlib.util.spec_from_file_location(
+        f"ab_build_{abs(hash(str(root)))}", root / "noisereduce_tpu_torch/ops/cuda/build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._SIGNATURES
+
+
+def adapters(signatures) -> dict:
+    """Wrappers that call a checkout's entries with this tree's arguments:
+    nr_istft_cplx before a big block's two passes took no scratch (y,
+    t_lo, n_fr after filt)."""
+    from noisereduce_tpu_torch.ops.cuda import build
+    ours = build._SIGNATURES["nr_istft_cplx"]
+    if len(signatures.get("nr_istft_cplx", ours)) == len(ours) - 3:
+        return {"nr_istft_cplx": lambda fn: lambda *a: fn(*a[:27], *a[30:])}
+    return {}
+
+
+def run_patches(rule) -> dict:
+    """The GateGeometry attributes that give D's runs under ``rule`` (a
+    function of the geometry: every run that rule's; "longest": the
+    complex-frame kernel's fft_run, not shortened to fill the grid)."""
+    if rule == "longest":
+        return {"cplx_run": lambda g, rows, n_out, blocks: g.fft_run}
+    return {"fft_run": property(rule), "cplx_run": lambda g, rows, n_out, blocks: rule(g)}
+
+
+def ab_library(csrc: pathlib.Path, patches, out: pathlib.Path, sources, entries,
+               signatures=None):
+    """The kernels of ``sources`` in csrc (with ``patches`` applied to a
+    copy) built with this tree's flags into out, loaded with ``entries``
+    (their C signatures from ``signatures``, by default this tree's), and
     their ptxas -v reports' registers and spills by kernel."""
     from noisereduce_tpu_torch.ops.cuda import build
     src = out / "csrc"
@@ -444,13 +497,13 @@ def ab_library(csrc: pathlib.Path, patches, out: pathlib.Path):
             raise SystemExit(f"--ab: a patch of {name} does not apply")
         (src / name).write_text(text.replace(old, new))
     nvcc = build._nvcc()
-    objs = [out / f"{pathlib.Path(n).stem}.o" for n in AB_SOURCES]
+    objs = [out / f"{pathlib.Path(n).stem}.o" for n in sources]
     reports = build._run([[nvcc, *build.COMPILE_FLAGS, "-I", str(src), "-c", "-o", str(o),
-                           str(src / n)] for o, n in zip(objs, AB_SOURCES)])
+                           str(src / n)] for o, n in zip(objs, sources)])
     build._run([[nvcc, *build.LINK_FLAGS, "-o", str(out / "libab.so"), *map(str, objs)]])
     lib = ctypes.CDLL(str(out / "libab.so"))
-    for name in AB_ENTRIES:
-        getattr(lib, name).argtypes = build._SIGNATURES[name]
+    for name in entries:
+        getattr(lib, name).argtypes = (signatures or build._SIGNATURES)[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib, ptxas_usage(reports)
 
@@ -471,76 +524,117 @@ def ptxas_usage(reports) -> dict:
 
 
 class Swapped:
-    """This tree's kernel library with the real-FFT entries of another build."""
+    """This tree's kernel library with ``entries`` of another build (each
+    called through its ``adapt`` wrapper, if any)."""
 
-    def __init__(self, base, other):
-        self.base, self.other = base, other
+    def __init__(self, base, other, entries, adapt=None):
+        self.base, self.other, self.entries, self.adapt = base, other, entries, adapt or {}
 
     def __getattr__(self, name):
-        return getattr(self.other if name in AB_ENTRIES else self.base, name)
+        if name not in self.entries:
+            return getattr(self.base, name)
+        fn = getattr(self.other, name)
+        return self.adapt[name](fn) if name in self.adapt else fn
+
+
+def ab_cells(wanted) -> list:
+    """(name, n_fft, hop, samples, sample rate, chunked) of the CELLS (as
+    reduce_noise chunks) and LONG_CELLS that ``wanted`` names."""
+    return ([(name, n_fft, hop, secs * sr, sr, True) for name, n_fft, hop, secs, sr in CELLS
+             if str(n_fft) in wanted]
+            + [(name, n_fft, hop, n, sr, chunked)
+               for key, name, n_fft, hop, n, sr, chunked in LONG_CELLS if key in wanted])
 
 
 def ab_main(args, cs) -> None:
-    """--ab: the real-FFT kernels of this tree, another checkout and the
-    variants, in one process, interleaved over --rounds rounds."""
+    """--ab: the kernels of --ab-kernels of this tree, other checkouts and
+    the variants, in one process, interleaved over --rounds rounds."""
     from noisereduce_tpu_torch.config import StftConfig
     from noisereduce_tpu_torch.ops.cuda import build
     from noisereduce_tpu_torch.ops.cuda import geometry as G
     from noisereduce_tpu_torch.ops.cuda import kernels as K
+    from noisereduce_tpu_torch.parallel.chunking import extract_chunks
 
     print(cs.card_line(), flush=True)
-    base = build.load()
+    sets = [k for k in args.ab_kernels.split(",") if k]
+    sources = tuple(f for k in sets for f in AB_KERNELS[k][0])
+    entries = tuple(e for k in sets for e in AB_KERNELS[k][1])
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="fft_ab_", dir=os.environ.get("TMPDIR")))
     here = pathlib.Path(build.CSRC)
-    # name: (csrc to build, its patches, D's run rule); None: this tree's library
-    plans = {"change": (None, None, None)}
+    # name: (csrc to build, its patches, D's run patches); None: this tree's
+    # library; a checkout's C signatures by name
+    plans, sigs = {"change": (None, None, {})}, {}
     for entry in [e for e in args.ab.split(",") if e]:
         name, _, path = entry.rpartition("=")
         root = pathlib.Path(path)
-        plans[name or "parent"] = (root / "noisereduce_tpu_torch/ops/cuda/csrc", None,
-                                   checkout_run(root))
+        name = name or "parent"
+        plans[name] = (root / "noisereduce_tpu_torch/ops/cuda/csrc", None,
+                       run_patches(checkout_run(root)))
+        sigs[name] = checkout_signatures(root)
+    # the sources and entries each build swaps: a checkout's, every set's; a
+    # variant's, the sets whose sources it patches
+    swaps = {name: (sources, entries) for name in plans}
     for v in [v for v in args.variants.split(",") if v]:
-        patches, run32 = AB_VARIANTS[v]
-        plans[v] = (here if patches else None, patches, old_run if run32 else None)
+        patches, rule = AB_VARIANTS[v]
+        plans[v] = (here if patches else None, patches,
+                    run_patches(old_run if rule == "run32" else rule) if rule else {})
+        # (a header's patch: every set)
+        mine = [k for k in sets if any(f in AB_KERNELS[k][0] or f.endswith(".cuh")
+                                       for f, _, _ in patches or ())]
+        swaps[v] = (tuple(f for k in mine for f in AB_KERNELS[k][0]),
+                    tuple(e for k in mine for e in AB_KERNELS[k][1]))
     t0 = time.perf_counter()
+    # the other builds beside this tree's own
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        built = {name: pool.submit(ab_library, csrc, patches, tmp / name)
+        built = {name: pool.submit(ab_library, csrc, patches, tmp / name, *swaps[name],
+                                   sigs.get(name))
                  for name, (csrc, patches, _) in plans.items() if csrc is not None}
+        base = build.load()
         built = {name: f.result() for name, f in built.items()}
-    print(f"{len(built)} builds in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{len(built) + 1} builds in {time.perf_counter() - t0:.1f} s", flush=True)
     usage = ptxas_usage(
         (build.library_path().parent / f"{pathlib.Path(n).stem}.ptxas.txt").read_text()
-        for n in AB_SOURCES)
+        for n in sources)
     print(f"change: {json.dumps(usage)}", flush=True)
     trees = {}
-    for name, (_, _, rule) in plans.items():
+    for name, (_, _, runs) in plans.items():
         lib = base
         if name in built:
-            lib = Swapped(base, built[name][0])
+            lib = Swapped(base, built[name][0], swaps[name][1], adapters(sigs.get(name, {})))
             print(f"{name}: {json.dumps(built[name][1])}", flush=True)
-        trees[name] = (lib, rule)
+        trees[name] = (lib, runs)
     dtype = getattr(torch, args.dtype)
     wanted = {v for v in args.cells.split(",") if v}
-    cells = [c for c in CELLS if str(c[1]) in wanted]
-    signals, out = {}, {"dtype": args.dtype, "cells": {}}
-    for name, n_fft, hop, secs, sr in cells:
-        if sr not in signals:
-            signals[sr] = torch.as_tensor(cs.headline_signal(secs, sr)).cuda()
-        xs = signals[sr][None, : secs * sr].to(dtype).contiguous()
-        g = G.gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), cs.CHUNK + 2 * cs.PADDING)
-        assert g.fft_real, f"{name}: --ab times the real-FFT kernels"
-        a = (xs, g, cs.CHUNK, cs.PADDING)
+    signals, out = {}, {"dtype": args.dtype, "kernels": sets, "cells": {}}
+    for name, n_fft, hop, n, sr, chunked in ab_cells(wanted):
+        if sr not in signals or signals[sr].shape[-1] < n:
+            signals[sr] = torch.as_tensor(cs.headline_signal(-(-n // sr), sr)).cuda()
+        xs = signals[sr][None, :n].to(dtype).contiguous()
+        scfg = StftConfig(n_fft=n_fft, hop_length=hop)
+        cut = (cs.CHUNK, cs.PADDING) if chunked else (0, 0)
+        g = G.gate_geometry(scfg, cs.CHUNK + 2 * cs.PADDING if chunked else n)
+        win = (cs.PADDING, cs.CHUNK) if chunked else (0, n)  # D's trimmed output window
+        a = (xs, g, *cut)
         mask = None
         cell = out["cells"][name] = {t: {"spectra": [], "istft_ola": []} for t in trees}
+        cell["route"] = g.route
+        glob = g.route == "global_chirp"
+        if glob:  # groups whose scratch stays in the card's L2, beside the geometry's
+            slots = (xs.shape[0] * (-(-n // cs.CHUNK) if chunked else 1)
+                     * -(-g.n_frames // (2 if g.fft_paired else 1)))
+            L = g.fft_layout()[0]
+            cell["slots"], cell["group"] = slots, G.global_group(L, slots)
+            cell["l2_group"] = l2 = max(1, min(slots, L2_SCRATCH_BYTES // (8 * L)))
+            for t in trees:
+                cell[t].update(spectra_l2=[], istft_ola_l2=[])
         ref = {}
         for rnd in range(args.rounds):
             order = list(trees) if rnd % 2 == 0 else list(trees)[::-1]
             for t in order:
-                lib, rule = trees[t]
+                lib, runs = trees[t]
                 with mock.patch.object(build, "_lib", lib), contextlib.ExitStack() as stack:
-                    if rule:
-                        stack.enter_context(mock.patch.object(
-                            G.GateGeometry, "fft_run", property(rule)))
+                    for attr, value in runs.items():
+                        stack.enter_context(mock.patch.object(G.GateGeometry, attr, value))
                     re, im = K.spectra(*a)
                     if mask is None:
                         mask = torch.rand(re.shape, generator=torch.Generator("cuda").manual_seed(0),
@@ -550,9 +644,9 @@ def ab_main(args, cs) -> None:
                         cell["spectra_bound_ms"] = (xs.numel() * xs.element_size() + 2 * planes
                                                     ) / cs.HBM_BYTES_PER_S * 1e3
                         cell["istft_ola_bound_ms"] = (2 * planes + mask.numel() * 4 + re.shape[0]
-                                                      * cs.CHUNK * xs.element_size()
+                                                      * win[1] * xs.element_size()
                                                       ) / cs.HBM_BYTES_PER_S * 1e3
-                    d = (re, im, mask, g, cs.PADDING, cs.CHUNK)
+                    d = (re, im, mask, g, *win)
                     y = K.istft_ola(*d)
                     if rnd == 0 and not t.startswith("diag_"):  # bitwise against this tree's
                         if t == "change":
@@ -562,26 +656,41 @@ def ab_main(args, cs) -> None:
                             cell[t]["max_abs_diff"] = {
                                 k: float((got[k].float() - ref[k].float()).abs().max())
                                 for k in ref}
-                    cell[t]["run"] = g.fft_run
+                    if rnd == 0 and glob:  # device ms by launch (profiler)
+                        cell[t]["spectra_split"] = cs.device_ms(lambda: K.spectra(*a), args.reps)
+                        cell[t]["istft_ola_split"] = cs.device_ms(lambda: K.istft_ola(*d),
+                                                                  args.reps)
+                    cplx = g.route == "chirp" or g.route == "fft" and not g.fft_real
+                    cell[t]["run"] = ("two passes" if cplx and g.cplx_two_pass else
+                                      g.cplx_run(re.shape[0], g.out_blocks(*win)[1],
+                                                 K.cplx_capacity(g, dtype, kernel="istft_ola"))
+                                      if cplx else g.fft_run)
                     cell[t]["spectra"].append(cs.queued_ms(lambda: K.spectra(*a), args.reps))
                     cell[t]["istft_ola"].append(cs.queued_ms(lambda: K.istft_ola(*d), args.reps))
+                    if glob:
+                        cell[t]["spectra_l2"].append(cs.queued_ms(
+                            lambda: K._spectra_on("global_chirp", *a, group=l2), args.reps))
+                        cell[t]["istft_ola_l2"].append(cs.queued_ms(
+                            lambda: K._istft_ola_on("global_chirp", *d, group=l2), args.reps))
                     del re, im, y, d
         for t in trees:
-            for k in ("spectra", "istft_ola"):
+            for k in ("spectra", "istft_ola", "spectra_l2", "istft_ola_l2"):
+                if k not in cell[t]:
+                    continue
                 v = [x for x in cell[t][k] if x is not None]
                 cell[t][f"{k}_min_med_max"] = [min(v), statistics.median(v), max(v)] if v else None
         if args.library:  # torch.stft / torch.istft on the same views (float32)
             # and the card's rate on one elementwise pass over two planes
-            re, im = K.spectra(xs, g, cs.CHUNK, cs.PADDING)
+            re, im = K.spectra(*a)
             both = torch.empty_like(re)
             cell["add_planes_ms"] = cs.queued_ms(lambda: torch.add(re, im, out=both), args.reps)
             cell["add_planes_bound_ms"] = (3 * re.numel() * re.element_size()
                                            / cs.HBM_BYTES_PER_S * 1e3)
             del re, im, both
-            from noisereduce_tpu_torch.parallel.chunking import extract_chunks
-            views = extract_chunks(xs.float(), cs.CHUNK, cs.PADDING).reshape(-1, g.view_len)
+            xf = xs.float()
+            views = (extract_chunks(xf, *cut).reshape(-1, g.view_len) if chunked else xf)
             window = torch.hann_window(g.win, periodic=True, device=xs.device)
-            re, im = K.spectra(xs.float(), g, cs.CHUNK, cs.PADDING)
+            re, im = K.spectra(xf, g, *cut)
             zm = torch.complex(re * mask, im * mask).transpose(1, 2).contiguous()
             cell["torch_stft_ms"] = cs.queued_ms(lambda: torch.stft(
                 views.contiguous(), g.n_fft, g.hop, g.win, window, center=True,
@@ -603,8 +712,10 @@ def main() -> None:
     ap.add_argument("--library", action="store_true",
                     help="also time torch.stft / torch.istft at each cell's shapes")
     ap.add_argument("--ab", default="",
-                    help="[NAME=]checkout[,...]: checkouts whose real-FFT kernels to time "
-                         "beside this tree's, in one process")
+                    help="[NAME=]checkout[,...]: checkouts whose kernels (--ab-kernels) to "
+                         "time beside this tree's, in one process")
+    ap.add_argument("--ab-kernels", default="real",
+                    help=f"--ab: comma-separated sets of kernels to swap ({', '.join(AB_KERNELS)})")
     ap.add_argument("--rounds", type=int, default=4, help="--ab: rounds of alternating order")
     ap.add_argument("--variants", default="",
                     help=f"--ab: comma-separated variants of this tree ({', '.join(AB_VARIANTS)})")

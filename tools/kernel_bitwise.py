@@ -14,7 +14,9 @@ chirp-z route; 8580, 5005 and 4106, the big block; 16384, 16380, 12000
 and 4851, the cluster route on 2 and 3 blocks (the big block before
 it); 40, the real-FFT kernels' 204-frame tiles (the DFT products before
 them, so a parent's outputs differ there); 40000, 32768 and 19683, the cluster
-route; 4803, the cluster chirp route), in both STFT conventions, over 3
+route; 4803, the cluster chirp route; 441, odd, and 37, the chirp at L =
+81; 40005, 65538 and 192000, the global chirp route, one view a row of
+reduce_noise's 600,000-sample chunk), in both STFT conventions, over 3
 halo'd chunk views of 2 signal rows; B with the headline's 19 time taps,
 one unit tap and 801 (its separate smoothing launch); E with a clip's
 threshold and with each view's own statistics, each with the 19 taps, one
@@ -74,7 +76,19 @@ GEOMETRIES = (
     # the cluster chirp route: 4803 = 3 x 1601, chirp length 9720 on 2 blocks
     # (the product route before it, so a parent's outputs differ there)
     ("n_fft 4803", dict(n_fft=4803, hop_length=1601), SR),
+    # the complex-frame kernels' odd 441 = 3^2 7^2 and the chirp at odd
+    # prime 37 (L = 81, hop 1, at 8 kHz)
+    ("n_fft 441", dict(n_fft=441, hop_length=147), 44100),
+    ("n_fft 37", dict(n_fft=37, hop_length=1), 8000),
+    # the global chirp route, each row one view of LONG_CHUNK samples:
+    # odd 40005 (L = 81,000), even 65538 (n = 32,769) and 192000 (n =
+    # 96,000, L = 192,000)
+    ("n_fft 40005", dict(n_fft=40005, hop_length=8001), SR, "long"),
+    ("n_fft 65538", dict(n_fft=65538, hop_length=21846), SR, "long"),
+    ("n_fft 192000", dict(n_fft=192000, hop_length=48000), SR, "long"),
 )
+# the global chirp route's views: reduce_noise's chunk and padding
+LONG_CHUNK, LONG_PADDING = 600000, 30000
 
 
 def run() -> dict:
@@ -89,17 +103,17 @@ def run() -> dict:
     x = torch.randn((2, N), generator=gen, device="cuda")
     bf = torch.bfloat16
     out = {}
-    for label, kw, sr in GEOMETRIES:
+    for label, kw, sr, *long in GEOMETRIES:
+        cs, pad = (LONG_CHUNK, LONG_PADDING) if long else (CHUNK, PADDING)
         for conv, extra in (("scipy", {}), ("torch", dict(convention="torch",
                                                           quantize_window_f32=True))):
-            geo = gate_geometry(StftConfig(**kw, **extra), CHUNK + 2 * PADDING)
-            re, im = K.spectra(x, geo, CHUNK, PADDING)
+            geo = gate_geometry(StftConfig(**kw, **extra), cs + 2 * pad)
+            re, im = K.spectra(x, geo, cs, pad)
             mask = torch.rand(re.shape, generator=gen, device="cuda")
             out[f"A {label} {conv}"] = torch.stack([re, im])
-            out[f"D {label} {conv}"] = K.istft_ola(re, im, mask, geo, PADDING, CHUNK)
-            out[f"A bf16 {label} {conv}"] = torch.stack(K.spectra(x.to(bf), geo, CHUNK, PADDING))
-            out[f"D bf16 {label} {conv}"] = K.istft_ola(re.to(bf), im.to(bf), mask, geo,
-                                                        PADDING, CHUNK)
+            out[f"D {label} {conv}"] = K.istft_ola(re, im, mask, geo, pad, cs)
+            out[f"A bf16 {label} {conv}"] = torch.stack(K.spectra(x.to(bf), geo, cs, pad))
+            out[f"D bf16 {label} {conv}"] = K.istft_ola(re.to(bf), im.to(bf), mask, geo, pad, cs)
 
     cfg = GateConfig(sr=SR)
     geo = gate_geometry(cfg.stft, CHUNK + 2 * PADDING)
