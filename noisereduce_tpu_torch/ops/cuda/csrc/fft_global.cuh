@@ -181,9 +181,14 @@ namespace {
 // the product with filt (the host's filter spectrum FFT_L(h) / L laid out
 // in this pass's order: row block q's point k2 of row r at (q L2 + k2) rb
 // + r holds H[q rb + r + L1 k2], zero past L1; CONJ: its conjugate, kernel
-// D's), the unscaled L2-point inverses, back in place.
+// D's), the unscaled L2-point inverses, back in place. Three blocks an SM
+// where shared memory allows (40 registers a thread, where two blocks took
+// 56-59): the stages of two blocks left the SM short of warps to switch
+// to, and a third ran kernels A and D 2.3-5.3% faster at n_fft 40005 on
+// 960 s, 65538 and 192000, though the builds with radix 3 spill 44 B
+// (PERF.md); the column passes at three ran D 8% slower at 192000.
 template <bool CONJ, int ODD>
-__global__ void __launch_bounds__(nrf::GLOBAL_THREADS, 2)
+__global__ void __launch_bounds__(nrf::GLOBAL_THREADS, 3)
     global_rows_kernel(float2* __restrict__ scratch, const float2* __restrict__ filt,
                        const float2* __restrict__ tw2, const nrf::Glob g) {
   extern __shared__ __align__(16) float2 smem2[];

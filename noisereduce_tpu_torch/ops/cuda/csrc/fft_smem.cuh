@@ -19,24 +19,24 @@
 // A large radix (stage_large) goes through a second buffer of the block's
 // size instead: one thread a (butterfly, pair k) folds two twiddled points
 // into t+_k and t-_k, and after a barrier one thread a (butterfly, output
-// pair m) sums them into outputs m and R - m. Kernel A's blocks of 512
-// threads and kernel D's builds with the large radices run every stage out
+// pair m) sums them into outputs m and R - m. The complex-frame kernels
+// (big blocks included) and kernel A's real-FFT kernel run every stage out
 // of place between the two buffers (fft_frames_large; the small radices by
 // stage_oop, which holds no value across a barrier; A's power-of-two real
 // build by its own shifted twin, spectra_fft.cu's nrf::p2); the in-place
-// stage serves D's other builds (the real-FFT D's group slab leaves no room
-// for a second buffer at two blocks an SM) and the big blocks, whose
-// shared memory holds one buffer. For sub-transform size ns (the product of the
-// radices before this stage) and butterfly j < m/R:
+// stage serves the real-FFT D, whose group slab leaves no room for a
+// second buffer at two blocks an SM. For sub-transform size ns (the product
+// of the radices before this stage) and butterfly j < m/R:
 //   load   v[r] = z[j + r*m/R]
 //   twiddle v[r] *= e^{-+2 pi i (j mod ns) r / (ns R)}
 //   store  z'[(j - j mod ns) R + (j mod ns) + r ns] = DFT_R(v)[r]
 // The twiddles come from a float32 table tw[k] = e^{-2 pi i k / (2m)}, k <
-// 2m, built in float64 on the host (no fast sincos intrinsics): a stage
-// reads tw[2 q] with q = (j mod ns) r m / (ns R) < m (ns R divides m); the
-// inverse conjugates. The R-point DFTs use float32 constants rounded from
-// float64. FP32 throughout, no tensor cores: the FFT errs by about eps
-// log2 m.
+// 2m, built in float64 on the host (no fast sincos intrinsics): stage s's
+// point r of butterfly j takes tw[2 q], q = (j mod ns) r m / (ns R) < m (ns
+// R divides m), which every kernel lays out in shared memory once a block
+// in the order the stages read it (lay_twiddles); the inverse conjugates.
+// The R-point DFTs use float32 constants rounded from float64. FP32
+// throughout, no tensor cores: the FFT errs by about eps log2 m.
 //
 // A slot of m = 1 point (n_fft 1 and 2) has no stage: its transform is
 // itself, and the plan's stage loops run none (a laid twiddle table of m -
@@ -446,28 +446,24 @@ __device__ __forceinline__ void lay_twiddles(float2* stw, const float2* __restri
   });
 }
 
-// Point r's twiddle of a butterfly with jm = j mod ns (>= 1) of a stage:
-// tw[jm r tstep] of the plan's table, or (LAID) the same value from the
-// stages' laid table (lay_twiddles)
-template <bool LAID>
-__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int jm, int r, int ns,
-                                          int tstep) {
-  if constexpr (LAID)
-    return tw[r * ns + jm - 1];
-  else
-    return __ldg(tw + jm * r * tstep);
+// Point r's twiddle of a butterfly with jm = j mod ns (>= 1) of a stage
+// (sub-transform size ns), from the stages' laid table stw (lay_twiddles):
+// the plan's tw[jm r tstep]
+__device__ __forceinline__ float2 twiddle(const float2* __restrict__ stw, int jm, int r,
+                                          int ns) {
+  return stw[r * ns + jm - 1];
 }
 
 // One radix-R Stockham stage over the segment's nf frames, in place: every
 // thread loads its butterflies (at most P: nf * M/R <= threads * PP / R),
 // then (after the segment's barrier) stores them. Called by every thread of
-// the segment. LAID: tw is the stages' laid table (lay_twiddles).
-template <int R, bool INV, bool MIXED, bool LAID = false>
+// the segment; stw is the stages' laid table (lay_twiddles).
+template <int R, bool INV, bool MIXED>
 __device__ __forceinline__ void stage(float2* z, int m, int s, int nf,
-                                      const float2* __restrict__ tw, const Seg& sg,
+                                      const float2* __restrict__ stw, const Seg& sg,
                                       const Plan<MIXED>& pl) {
   constexpr int P = (PP + R - 1) / R;  // butterflies a thread holds at most
-  const int ns = pl.ns[s], tstep = pl.tstep[s];
+  const int ns = pl.ns[s];
   const Div<MIXED> dmr = pl.mr[s], dns = pl.nsd[s];
   const int mr = dmr.d;
   const int n_bfly = nf * mr;
@@ -486,7 +482,7 @@ __device__ __forceinline__ void stage(float2* z, int m, int s, int nf,
       if (jm) {
 #pragma unroll
         for (int r = 1; r < R; ++r) {
-          float2 w = twiddle<LAID>(tw, jm, r, ns, tstep);
+          float2 w = twiddle(stw, jm, r, ns);
           if (INV) w.y = -w.y;
           v[p][r] = cmul(v[p][r], w);
         }
@@ -604,25 +600,24 @@ __device__ __forceinline__ void stage_large(float2* z, float2* __restrict__ sc, 
 
 // The M-point complex DFT (INV: the unscaled inverse) of the segment's
 // frames among the first n_frames of the block, in place, natural order in
-// and out (LAID: tw is the stages' laid table). The caller has
-// synchronised the segment after filling its frames; they are synchronised
-// on return.
-template <bool INV, int ODD, bool LAID = false>
+// and out, from the stages' laid table stw. The caller has synchronised the
+// segment after filling its frames; they are synchronised on return.
+template <bool INV, int ODD>
 __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
-                                           const float2* __restrict__ tw,
-                                           const Seg& sg, const Plan<ODD != 1>& pl) {
+                                           const float2* __restrict__ stw, const Seg& sg,
+                                           const Plan<ODD != 1>& pl) {
   constexpr bool MIXED = ODD != 1;
   const int nf = seg_frames(sg, pl, n_frames);
   for (int s = 0; s < pl.n_stages; ++s) {
     switch (pl.radix[s]) {
-      case 8: stage<8, INV, MIXED, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 4: stage<4, INV, MIXED, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 2: stage<2, INV, MIXED, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 3: if constexpr (ODD % 3 == 0) stage<3, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 5: if constexpr (ODD % 5 == 0) stage<5, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 7: if constexpr (ODD % 7 == 0) stage<7, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 11: if constexpr (ODD % 11 == 0) stage<11, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
-      case 13: if constexpr (ODD % 13 == 0) stage<13, INV, true, LAID>(z, m, s, nf, tw, sg, pl); break;
+      case 8: stage<8, INV, MIXED>(z, m, s, nf, stw, sg, pl); break;
+      case 4: stage<4, INV, MIXED>(z, m, s, nf, stw, sg, pl); break;
+      case 2: stage<2, INV, MIXED>(z, m, s, nf, stw, sg, pl); break;
+      case 3: if constexpr (ODD % 3 == 0) stage<3, INV, true>(z, m, s, nf, stw, sg, pl); break;
+      case 5: if constexpr (ODD % 5 == 0) stage<5, INV, true>(z, m, s, nf, stw, sg, pl); break;
+      case 7: if constexpr (ODD % 7 == 0) stage<7, INV, true>(z, m, s, nf, stw, sg, pl); break;
+      case 11: if constexpr (ODD % 11 == 0) stage<11, INV, true>(z, m, s, nf, stw, sg, pl); break;
+      case 13: if constexpr (ODD % 13 == 0) stage<13, INV, true>(z, m, s, nf, stw, sg, pl); break;
     }
   }
 }
@@ -630,12 +625,12 @@ __device__ __forceinline__ void fft_frames(float2* z, int m, int n_frames,
 // One radix-R Stockham stage as stage computes it, out of place, src to
 // dst: each thread stores a butterfly's outputs as soon as it has them, so
 // no values are held across a barrier (stage's, at 64 registers, spill).
-template <int R, bool INV, bool LAID = false>
+template <int R, bool INV>
 __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
                                           float2* __restrict__ dst, int m, int s, int nf,
-                                          const float2* __restrict__ tw, const Seg& sg,
+                                          const float2* __restrict__ stw, const Seg& sg,
                                           const Plan<true>& pl) {
-  const int ns = pl.ns[s], tstep = pl.tstep[s];
+  const int ns = pl.ns[s];
   const Div<true> dmr = pl.mr[s], dns = pl.nsd[s];
   const int mr = dmr.d;
   const int n_bfly = nf * mr;
@@ -651,7 +646,7 @@ __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
     if (jm) {
 #pragma unroll
       for (int r = 1; r < R; ++r) {
-        float2 w = twiddle<LAID>(tw, jm, r, ns, tstep);
+        float2 w = twiddle(stw, jm, r, ns);
         if (INV) w.y = -w.y;
         v[r] = cmul(v[r], w);
       }
@@ -664,39 +659,37 @@ __device__ __forceinline__ void stage_oop(const float2* __restrict__ src,
   seg_sync(sg, pl);
 }
 
-// fft_frames out of place (kernel A's blocks, kernel D's builds with the
-// large radices): the same stages in the same order, the small radices'
-// from one of z and the scratch sc (a block's PADDED values) to the other,
-// a large radix's stage_large folding into the other buffer and summing
-// back (LARGE: a build whose m may have one; the real-FFT kernel A's,
-// whose m is 7-smooth, leaves them out; LAID: its small radices read the
-// stages' laid table tw, and the large radices the plan's table twh).
+// fft_frames out of place (the complex-frame kernels, A's real-FFT
+// kernel): the same stages in the same order, the small radices' from one
+// of z and the scratch sc (a block's PADDED values) to the other, reading
+// the stages' laid table stw, a large radix's stage_large folding into the
+// other buffer and summing back, its roots from the plan's table twh
+// (LARGE: a build whose m may have one; the others leave them out).
 // Returns the buffer that holds the result (z or sc).
-template <bool INV, int ODD, bool LARGE = true, bool LAID = false>
+template <bool INV, int ODD, bool LARGE = true>
 __device__ __forceinline__ float2* fft_frames_large(float2* z, float2* sc, int m, int n_frames,
-                                                    const float2* __restrict__ tw,
+                                                    const float2* __restrict__ stw,
                                                     const Seg& sg, const Plan<true>& pl,
                                                     const float2* __restrict__ twh = nullptr) {
   const int nf = seg_frames(sg, pl, n_frames);
-  const float2* const tl = LAID ? twh : tw;  // stage_large's roots: the plan's table
   float2* cur = z;
   float2* other = sc;
   for (int s = 0; s < pl.n_stages; ++s) {
     const int r = pl.radix[s];
     switch (r) {
-      case 17: if constexpr (LARGE) stage_large<17, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
-      case 19: if constexpr (LARGE) stage_large<19, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
-      case 23: if constexpr (LARGE) stage_large<23, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
-      case 29: if constexpr (LARGE) stage_large<29, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
-      case 31: if constexpr (LARGE) stage_large<31, INV, true>(cur, other, m, s, nf, tl, sg, pl); continue;
-      case 8: stage_oop<8, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 4: stage_oop<4, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 2: stage_oop<2, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 3: if constexpr (ODD % 3 == 0) stage_oop<3, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 5: if constexpr (ODD % 5 == 0) stage_oop<5, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 7: if constexpr (ODD % 7 == 0) stage_oop<7, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 11: if constexpr (ODD % 11 == 0) stage_oop<11, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
-      case 13: if constexpr (ODD % 13 == 0) stage_oop<13, INV, LAID>(cur, other, m, s, nf, tw, sg, pl); break;
+      case 17: if constexpr (LARGE) stage_large<17, INV, true>(cur, other, m, s, nf, twh, sg, pl); continue;
+      case 19: if constexpr (LARGE) stage_large<19, INV, true>(cur, other, m, s, nf, twh, sg, pl); continue;
+      case 23: if constexpr (LARGE) stage_large<23, INV, true>(cur, other, m, s, nf, twh, sg, pl); continue;
+      case 29: if constexpr (LARGE) stage_large<29, INV, true>(cur, other, m, s, nf, twh, sg, pl); continue;
+      case 31: if constexpr (LARGE) stage_large<31, INV, true>(cur, other, m, s, nf, twh, sg, pl); continue;
+      case 8: stage_oop<8, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 4: stage_oop<4, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 2: stage_oop<2, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 3: if constexpr (ODD % 3 == 0) stage_oop<3, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 5: if constexpr (ODD % 5 == 0) stage_oop<5, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 7: if constexpr (ODD % 7 == 0) stage_oop<7, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 11: if constexpr (ODD % 11 == 0) stage_oop<11, INV>(cur, other, m, s, nf, stw, sg, pl); break;
+      case 13: if constexpr (ODD % 13 == 0) stage_oop<13, INV>(cur, other, m, s, nf, stw, sg, pl); break;
     }
     float2* t = cur;  // a small radix's stage: the result in the other buffer
     cur = other;

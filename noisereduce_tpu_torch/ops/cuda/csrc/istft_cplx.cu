@@ -272,14 +272,14 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
 
       float2* zo = z;  // the transform's result
       if constexpr (CHIRP) {
-        zo = nrf::fft_frames_large<false, ODD, false, true>(z, sc, T, n_slots, stw, sg, plan);
+        zo = nrf::fft_frames_large<false, ODD, false>(z, sc, T, n_slots, stw, sg, plan);
         for (int e = sg.lane; e < nf * T; e += plan.threads) {
           const int l = nrf::pad(first + e);
           zo[l] = nrf::cmul(zo[l], nrf::conj(__ldg(filt + (e - plan.m.div(e) * T))));
         }
         nrf::seg_sync(sg, plan);
-        zo = nrf::fft_frames_large<true, ODD, false, true>(zo, zo == z ? sc : z, T, n_slots, stw,
-                                                           sg, plan);
+        zo = nrf::fft_frames_large<true, ODD, false>(zo, zo == z ? sc : z, T, n_slots, stw, sg,
+                                                    plan);
         for (int e = sg.lane; e < nf * T; e += plan.threads) {
           const int q = e - plan.m.div(e) * T;
           if (q < n) {
@@ -288,7 +288,7 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
           }
         }
       } else {
-        zo = nrf::fft_frames_large<true, ODD, LARGE, true>(z, sc, T, n_slots, stw, sg, plan, tw);
+        zo = nrf::fft_frames_large<true, ODD, LARGE>(z, sc, T, n_slots, stw, sg, plan, tw);
       }
       __syncthreads();  // the overlap-add reads every slot of the group
 

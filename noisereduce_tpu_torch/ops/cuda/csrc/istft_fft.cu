@@ -252,7 +252,7 @@ __global__ void __launch_bounds__(nrf::THREADS, BLOCKS_PER_SM)
       else
         issue_from(item + gridDim.x);
 
-      nrf::fft_frames<true, ODD, true>(z, m, ge, stw, sg, plan);
+      nrf::fft_frames<true, ODD>(z, m, ge, stw, sg, plan);
       __syncthreads();  // the overlap-add reads every frame of the group
 
       // overlap-add into the ring: slot block jj in [tg, tg + NB), jj mod

@@ -37,21 +37,40 @@
 // Design: as spectra_fft.cu, tiles of frames of one view, a block's
 // threads in segments that each own whole slots. Persistent blocks, as
 // many as the card holds at once (nr_spectra_cplx_capacity), walk the
-// tiles b, b + grid, ..., stage the window once, and copy the next tile's
-// span with 16-byte cp.async (tile_span.cuh::issue_span, shared with
-// spectra_fft.cu: raw plane values, widened where they are packed) while
-// this tile's stages and unpack run (PERF.md: with the
-// stages out of place, 4-7% faster than one tile a block loading its span
-// behind guards at 4 of 5 cells, 6% slower at the fifth). A block of 512
-// threads holds two buffers of its 4096 points and runs every stage out
-// of place (fft_smem.cuh::fft_frames_large: stage_oop, and stage_large
-// for a prime factor from 17 to 31, n = 551 = 19 x 29 at n_fft 1102, in
-// place of a chirp of twice its length); in place, stage's values held
-// across its barrier spilled 144-690 B a thread at the 64-register budget
-// (2 blocks an SM) and ran A 17-33% slower. A slot past 4096 points takes
-// a big block of 1024 threads and 8192 points (fft_smem.cuh::Blk), one
-// slot a block, one block an SM: its window and span fill the SM's shared
-// memory, so its stages stay in place (fft_frames).
+// tiles b, b + grid, ...; every build runs every stage out of place
+// between two buffers of the block's points (fft_smem.cuh::
+// fft_frames_large: stage_oop, which holds no value across a barrier, and
+// stage_large for a prime factor from 17 to 31, n = 551 = 19 x 29 at n_fft
+// 1102, in place of a chirp of twice its length), from the slot's
+// twiddles laid out in shared memory once a block in the order the stages
+// read them (fft_smem.cuh::lay_twiddles: a warp reads consecutive
+// entries, where the host table's reads scatter; stage_large's roots from
+// the host table), as kernel D's complex-frame kernel does. In place,
+// stage's values held across its barrier spilled 144-690 B a thread at
+// the 64-register budget and ran A 17-33% slower (PERF.md).
+// - A block of 512 threads (a slot within 4096 points) stages the window
+//   once and copies the next tile's span with 16-byte cp.async
+//   (tile_span.cuh::issue_span, shared with spectra_fft.cu: raw plane
+//   values, widened where they are packed) while this tile's stages and
+//   unpack run (PERF.md: 4-7% faster than one tile a block loading its
+//   span behind guards at 4 of 5 cells, 6% slower at the fifth); 1 or 2
+//   blocks an SM, as its shared memory allows.
+// - A slot past 4096 points takes a big block of 1024 threads and 8192
+//   points (fft_smem.cuh::Blk), one slot a tile, one block an SM: its two
+//   buffers and laid table fill most of the SM's shared memory, so it
+//   stages neither window nor span. Its pack reads the frame's samples
+//   straight from the plane (consecutive threads on consecutive samples,
+//   behind the span's guards, tile_span.cuh::span_bounds) and the window
+//   through __ldg (4 points a thread at once ran 1.5% slower and spilled:
+//   PERF.md).
+// In a big block and a build with radix 13 (and no large radix) the
+// tile's index goes through shared memory across the stages, so that no
+// register holds the tile (held in registers, it spilled 4-12 B a thread
+// in the radix-13 builds at the 64-register budget and ran the big block
+// 3-11% slower); the other builds keep the tile's view, first frame and
+// frames in registers, which ran them up to 4% faster (PERF.md). The
+// builds with the large radices beside radix 11 or 13 spill either way
+// (4-16 B a thread so, 4-40 B with the index in shared memory).
 #include <type_traits>
 
 #include "fft_smem.cuh"
@@ -67,12 +86,11 @@ using nrs::issue_span;
 using nrs::tile_of;
 using nrs::widen_raw;
 
-// the plan's divisions: multiply-high for a block's stages out of place,
-// whose plan may hold any radix (fft_frames_large)
-template <int ODD, bool BIG>
-constexpr bool MIXED = ODD != 1 || !BIG;
+// whether a build's tile index crosses the stages in shared memory
+template <int ODD, bool BIG, bool LARGE>
+constexpr bool TILE_SM = BIG || (ODD % 13 == 0 && !LARGE);
 
-template <int ODD, bool PAIRED, bool CHIRP, bool BIG, class P>  // P: the plane type
+template <int ODD, bool PAIRED, bool CHIRP, bool BIG, bool LARGE, class P>  // P: the plane type
 __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
     spectra_cplx_kernel(const P* __restrict__ x, long long n_src, int n_chunks,
                         long long chunk_stride, long long view_start, int view_len,
@@ -80,50 +98,83 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
                         int tile_frames, int n_tiles, int total, const float* __restrict__ ws,
                         const float2* __restrict__ tw, const float2* __restrict__ tws,
                         const float2* __restrict__ chirp, const float2* __restrict__ filt,
-                        P* __restrict__ re, P* __restrict__ im,
-                        const nrf::Plan<MIXED<ODD, BIG>> plan, const nrf::Div<true> dh) {
+                        P* __restrict__ re, P* __restrict__ im, const nrf::Plan<true> plan,
+                        const nrf::Div<true> dh) {
   using B = nrf::Blk<BIG>;
   using R = Raw<P>;
   constexpr int FPS = PAIRED ? 2 : 1;  // frames a slot holds
   extern __shared__ __align__(16) float2 smem2[];
   const int T = plan.m.d;  // points a slot: n, or the chirp length
+  // the slots, the second buffer and the laid twiddles (T - 1 entries,
+  // made even); a block of 512 threads: the raw span (16-byte aligned),
+  // the window, and the phase of the span in flight (in shared memory,
+  // not a register live across the stages)
   float2* z = smem2;
-  float2* sc = z + B::PADDED;  // a block's second buffer (none in a big block)
-  // the raw span (16-byte aligned), the window, and the phase of the span
-  // in flight: in shared memory, not a register live across the stages
-  R* raw = reinterpret_cast<R*>(sc + (BIG ? 0 : B::PADDED));
+  float2* sc = z + B::PADDED;
+  float2* stw = sc + B::PADDED;
+  R* raw = reinterpret_cast<R*>(stw + ((T + 1) & ~1));
   float* wsm =
       reinterpret_cast<float*>(raw + ((tile_frames - 1) * hop + win + 16 / sizeof(R) + 3) / 4 * 4);
   int* span_ph = reinterpret_cast<int*>(wsm + win);
+  // the tile's index across the stages (TILE_SM)
+  int* tile_sm = BIG ? reinterpret_cast<int*>(stw + ((T + 1) & ~1)) : span_ph + 1;
   const int tid = threadIdx.x;
-  for (int i = tid; i < win; i += B::THREADS) wsm[i] = __ldg(ws + i);
 
   int tile = blockIdx.x;
-  if (tile < total) {
-    const Tile t = tile_of(tile, n_tiles, n_chunks, tile_frames, n_frames, hop, bpad, win,
-                           chunk_stride, view_start);
-    const int ph = issue_span<P, B::THREADS>(x + (long long)(t.b / n_chunks) * n_src, t,
-                                             view_len, n_src, raw);
-    if (tid == 0) *span_ph = ph;
+  if constexpr (!BIG) {
+    for (int i = tid; i < win; i += B::THREADS) wsm[i] = __ldg(ws + i);
+    if (tile < total) {
+      const Tile t = tile_of(tile, n_tiles, n_chunks, tile_frames, n_frames, hop, bpad, win,
+                             chunk_stride, view_start);
+      const int ph = issue_span<P, B::THREADS>(x + (long long)(t.b / n_chunks) * n_src, t,
+                                               view_len, n_src, raw);
+      if (tid == 0) *span_ph = ph;
+    }
   }
+  // the laid twiddles, after the first span's copies are in flight, where
+  // a stage reads them: one of radix 13 or less past the first (n = 551 =
+  // 19 x 29 of n_fft 1102 has none)
+  bool laid = false;
+  for (int s = 1; s < plan.n_stages; ++s) laid |= plan.radix[s] <= 13;
+  if (laid) nrf::lay_twiddles(stw, tw, T, plan, B::THREADS);
   while (tile < total) {
     const Tile t = tile_of(tile, n_tiles, n_chunks, tile_frames, n_frames, hop, bpad, win,
                            chunk_stride, view_start);
-    const int b = t.b, t0 = t.t0, fe = t.fe;
-    asm volatile("cp.async.wait_all;" ::: "memory");
+    if constexpr (!BIG) asm volatile("cp.async.wait_all;" ::: "memory");
+    // the span in place (and the laid twiddles); the last tile's unpack
+    // done with the buffers (and the tile's index)
     __syncthreads();
-    const R* sp = raw + *span_ph;
-    // a span sample as a float
-    const auto smp = [&](int i) -> float { return widen_raw(sp[i]); };
+    if (TILE_SM<ODD, BIG, LARGE> && tid == 0) *tile_sm = tile;
+    // a span sample (view position p0 + i) as a float: from the span in
+    // shared memory, or (BIG) from the plane, zero outside the view and
+    // the signal
+    const R* sp = raw;
+    if constexpr (!BIG) sp += *span_ph;
+    const P* xr = x + (long long)(t.b / n_chunks) * n_src + t.s0;
+    int lo = 0, hi = 0;
+    if constexpr (BIG) nrs::span_bounds(t, view_len, n_src, lo, hi);
+    const auto smp = [&](int i) -> float {
+      if constexpr (BIG)
+        return i >= lo && i < hi ? planes::ld(xr + i) : 0.f;
+      else
+        return widen_raw(sp[i]);
+    };
+    const auto wnd = [&](int q) -> float {
+      if constexpr (BIG)
+        return __ldg(ws + q);
+      else
+        return wsm[q];
+    };
 
     // each segment of threads packs, transforms and unpacks its own slots
     const nrf::Seg sg = nrf::segment(plan);
+    const int fe = t.fe;
     const int n_slots = (fe + FPS - 1) / FPS;
     const int nf = nrf::seg_frames(sg, plan, n_slots);
     const int first = sg.f0 * T;  // the segment's first point
 
     // the slots: the frames' n points (times cbar_j), zero past n
-    for (int e = sg.lane; e < nf * T; e += plan.threads) {
+    const auto point = [&](int e) {
       const int sl = plan.m.div(e);
       const int q = e - sl * T;
       float2 v = make_float2(0.f, 0.f);
@@ -131,49 +182,58 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
         if constexpr (PAIRED) {  // z[j] = u_a[j] + i u_b[j]
           const int fa = FPS * (sg.f0 + sl);
           if (q < win) {
-            const float w = wsm[q];
+            const float w = wnd(q);
             v.x = w * smp(fa * hop + q);
             if (fa + 1 < fe) v.y = w * smp((fa + 1) * hop + q);
           }
         } else {  // z[q] = u[2q] + i u[2q+1]
           const int u = 2 * q;
           const int o = (sg.f0 + sl) * hop + u;
-          v = make_float2(u < win ? wsm[u] * smp(o) : 0.f, u + 1 < win ? wsm[u + 1] * smp(o + 1) : 0.f);
+          v = make_float2(u < win ? wnd(u) * smp(o) : 0.f,
+                          u + 1 < win ? wnd(u + 1) * smp(o + 1) : 0.f);
         }
         if constexpr (CHIRP) v = nrf::cmul(v, __ldg(chirp + q));
       }
-      z[nrf::pad(first + e)] = v;
-    }
+      return v;
+    };
+    for (int e = sg.lane; e < nf * T; e += plan.threads) z[nrf::pad(first + e)] = point(e);
     // every read of the span done: the next tile's copies land there while
     // this tile's stages and unpack run
     __syncthreads();
-    const int next = tile + gridDim.x;
-    if (next < total) {
-      const Tile u = tile_of(next, n_tiles, n_chunks, tile_frames, n_frames, hop, bpad, win,
-                             chunk_stride, view_start);
-      const int ph = issue_span<P, B::THREADS>(x + (long long)(u.b / n_chunks) * n_src, u,
-                                               view_len, n_src, raw);
-      if (tid == 0) *span_ph = ph;
+    if constexpr (!BIG) {
+      const int next = tile + gridDim.x;
+      if (next < total) {
+        const Tile u = tile_of(next, n_tiles, n_chunks, tile_frames, n_frames, hop, bpad, win,
+                               chunk_stride, view_start);
+        const int ph = issue_span<P, B::THREADS>(x + (long long)(u.b / n_chunks) * n_src, u,
+                                                 view_len, n_src, raw);
+        if (tid == 0) *span_ph = ph;
+      }
     }
 
     // the transform (the chirp's: the convolution with c), its result in zo
-    float2* zo = z;
-    if constexpr (BIG) {
-      nrf::fft_frames<false, ODD>(z, T, n_slots, tw, sg, plan);
-    } else {
-      zo = nrf::fft_frames_large<false, ODD>(z, sc, T, n_slots, tw, sg, plan);
-    }
+    float2* zo = nrf::fft_frames_large<false, ODD, LARGE>(z, sc, T, n_slots, stw, sg, plan, tw);
     if constexpr (CHIRP) {
       for (int e = sg.lane; e < nf * T; e += plan.threads) {
         const int l = nrf::pad(first + e);
         zo[l] = nrf::cmul(zo[l], __ldg(filt + (e - plan.m.div(e) * T)));
       }
       nrf::seg_sync(sg, plan);
-      if constexpr (BIG) {
-        nrf::fft_frames<true, ODD>(z, T, n_slots, tw, sg, plan);
-      } else {
-        zo = nrf::fft_frames_large<true, ODD>(zo, zo == z ? sc : z, T, n_slots, tw, sg, plan);
-      }
+      zo = nrf::fft_frames_large<true, ODD, LARGE>(zo, zo == z ? sc : z, T, n_slots, stw, sg,
+                                                   plan, tw);
+    }
+
+    // the tile's view, first frame and frames: kept, or (TILE_SM) again
+    // from its index in shared memory, so that no register holds them (or
+    // the unpack's addresses) across the stages
+    int b = t.b, t0 = t.t0, fu = fe, nu = nf, fu0 = first;
+    if constexpr (TILE_SM<ODD, BIG, LARGE>) {
+      tile = *tile_sm;
+      b = tile / n_tiles;
+      t0 = (tile - b * n_tiles) * tile_frames;
+      fu = min(tile_frames, n_frames - t0);
+      nu = nrf::seg_frames(sg, plan, (fu + FPS - 1) / FPS);
+      fu0 = sg.f0 * T;  // the segment's first point
     }
 
     // unpack into the tile's contiguous rows: slot point pair (k, n - k)
@@ -181,11 +241,11 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
     // n - k, and for an even n n/2 with k = 0 (split)
     const int half = dh.d;  // pairs a slot: (n + 1) / 2
     const long long o0 = ((long long)b * n_frames + t0 + FPS * sg.f0) * n_bins;
-    for (int e = sg.lane; e < nf * half; e += plan.threads) {
+    for (int e = sg.lane; e < nu * half; e += plan.threads) {
       const int sl = dh.div(e);
       const int k = e - sl * half;
       const int km = k ? n - k : 0;
-      const int base = first + sl * T;
+      const int base = fu0 + sl * T;
       const long long row = o0 + (long long)FPS * sl * n_bins;
       float2 zk = zo[nrf::pad(base + k)], zm = zo[nrf::pad(base + km)];
       if constexpr (CHIRP) {
@@ -195,7 +255,7 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
       if constexpr (PAIRED) {
         planes::st(re + row + k, 0.5f * (zk.x + zm.x));
         planes::st(im + row + k, 0.5f * (zk.y - zm.y));
-        if (FPS * (sg.f0 + sl) + 1 < fe) {
+        if (FPS * (sg.f0 + sl) + 1 < fu) {
           planes::st(re + row + n_bins + k, 0.5f * (zk.y + zm.y));
           planes::st(im + row + n_bins + k, 0.5f * (zm.x - zk.x));
         }
@@ -215,41 +275,37 @@ __global__ void __launch_bounds__(nrf::Blk<BIG>::THREADS, BIG ? 1 : 2)
         }
       }
     }
-    // the next tile, from the view and frame the unpack kept (no register
-    // holds the tile index across the stages)
-    tile = b * n_tiles + t0 / tile_frames + gridDim.x;
+    tile += gridDim.x;
   }
 }
 
-// Dynamic shared memory of a build: the slots (a block's two buffers, a big
-// block's one), the span's raw plane values with 16 bytes of slack for
-// their phase, the window, and the phase
+// Dynamic shared memory of a build: the slots and the second buffer, the
+// laid twiddles (slot - 1 entries, made even), for a block of 512 threads
+// the span's raw plane values with 16 bytes of slack for their phase, the
+// window and the phase, and the tile's index
 template <bool BIG, class P>
-size_t cplx_smem(int tile_frames, int hop, int win) {
+size_t cplx_smem(int slot, int tile_frames, int hop, int win) {
   using Bk = nrf::Blk<BIG>;
-  const size_t slots = sizeof(float2) * Bk::PADDED * (BIG ? 1 : 2);
+  const size_t core = sizeof(float2) * (Bk::PADDED * 2 + ((slot + 1) & ~1));
+  if (BIG) return core + sizeof(int);
   const size_t len = (size_t)(tile_frames - 1) * hop + win;
-  return slots + sizeof(Raw<P>) * ((len + 16 / sizeof(Raw<P>) + 3) / 4 * 4) +
-         sizeof(float) * win + sizeof(int);
+  return core + sizeof(Raw<P>) * ((len + 16 / sizeof(Raw<P>) + 3) / 4 * 4) +
+         sizeof(float) * win + 2 * sizeof(int);
 }
 
-// f(kernel, smem, threads, Of<T>, MIXED) for the build of n_fft with slots
-// of `slot` points and planes of type `plane` (kernel: its instance,
-// threads its block, smem its dynamic shared memory at tile_frames, hop
-// and win; T the plane type; MIXED its plan's); cudaErrorInvalidValue for
-// a pair no build takes. A large radix's build (with_cplx_build's LARGE)
-// is the same kernel as a build without: every block's stages run out of
-// place, stage_large among them.
+// f(kernel, smem, threads, Of<T>) for the build of n_fft with slots of
+// `slot` points and planes of type `plane` (kernel: its instance, threads
+// its block, smem its dynamic shared memory at tile_frames, hop and win;
+// T the plane type); cudaErrorInvalidValue for a pair no build takes.
 template <class F>
 int with_cplx_kernel(int plane, int n_fft, int slot, int tile_frames, int hop, int win, F f) {
   return planes::with_plane(plane, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg, auto) {
-      constexpr int ODD = decltype(odd)::value;
+    return nrf::with_cplx_build(n_fft, slot, [&](auto odd, auto pr, auto ch, auto bg, auto lg) {
       constexpr bool BIG = decltype(bg)::value;
-      return f(spectra_cplx_kernel<ODD, decltype(pr)::value, decltype(ch)::value, BIG, T>,
-               cplx_smem<BIG, T>(tile_frames, hop, win), nrf::Blk<BIG>::THREADS, tag,
-               std::integral_constant<bool, MIXED<ODD, BIG>>());
+      return f(spectra_cplx_kernel<decltype(odd)::value, decltype(pr)::value,
+                                   decltype(ch)::value, BIG, decltype(lg)::value, T>,
+               cplx_smem<BIG, T>(slot, tile_frames, hop, win), nrf::Blk<BIG>::THREADS, tag);
     });
   });
 }
@@ -287,7 +343,7 @@ extern "C" int nr_spectra_cplx(int plane, const void* x, long long n_src, int ro
   const int total = B * n_tiles;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_cplx_kernel(plane, n_fft, slot, tile_frames, hop, win,
-                          [&](auto kernel, size_t smem, int threads, auto tag, auto mixed) {
+                          [&](auto kernel, size_t smem, int threads, auto tag) {
     using T = typename decltype(tag)::type;
     // persistent: the blocks the card holds at once
     const int fit = active_blocks(kernel, smem, threads);
@@ -302,7 +358,7 @@ extern "C" int nr_spectra_cplx(int plane, const void* x, long long n_src, int ro
         reinterpret_cast<const float2*>(tw), reinterpret_cast<const float2*>(tws),
         reinterpret_cast<const float2*>(chirp), reinterpret_cast<const float2*>(filt),
         static_cast<T*>(re), static_cast<T*>(im),
-        nrf::make_plan<decltype(mixed)::value>(slot, seg_warps, threads / 32),
+        nrf::make_plan<true>(slot, seg_warps, threads / 32),
         nrf::Div<true>(paired ? n_bins : (n + 1) / 2));
     return (int)cudaGetLastError();
   });
@@ -315,7 +371,7 @@ extern "C" int nr_spectra_cplx_capacity(int plane, int n_fft, int slot, int tile
                                         int hop, int win) {
   if (!nrf::cplx_slot_ok(n_fft, slot) || tile_frames < 1) return -(int)cudaErrorInvalidValue;
   return with_cplx_kernel(plane, n_fft, slot, tile_frames, hop, win,
-                          [&](auto kernel, size_t smem, int threads, auto, auto) {
+                          [&](auto kernel, size_t smem, int threads, auto) {
     return active_blocks(kernel, smem, threads);
   });
 }

@@ -293,7 +293,7 @@ __global__ void __launch_bounds__(nrf::THREADS, BLOCKS_PER_SM)
          }
        },
        [&](const nrs::Tile& t) {
-         const float2* zo = nrf::fft_frames_large<false, ODD, false, true>(
+         const float2* zo = nrf::fft_frames_large<false, ODD, false>(
              s.z, s.sc, m, t.fe, s.stw, sg, plan);
          // unpack the real spectrum into the tile's contiguous rows: slot
          // k of frame f writes bins k and M - k (slot 0: 0 and M, and M/2

@@ -90,6 +90,14 @@ __device__ __forceinline__ Tile tile_of(int tile, int n_tiles, int n_chunks, int
   return t;
 }
 
+// The samples [lo, hi) of tile t's span that lie inside the view and the
+// signal (row sample s0 + i for span sample i); the rest read as zero
+__device__ __forceinline__ void span_bounds(const Tile& t, int view_len, long long n_src, int& lo,
+                                            int& hi) {
+  lo = (int)min((long long)t.len, max(max(0LL, -t.p0), -t.s0));
+  hi = (int)max((long long)lo, min(min((long long)t.len, view_len - t.p0), n_src - t.s0));
+}
+
 // A block's copy of tile t's span of row xr into buf: the samples inside
 // the view and the signal from device memory, zero outside (the one-tile
 // kernels' guarded load); the sample at view position p0 + i lands at
@@ -97,9 +105,8 @@ __device__ __forceinline__ Tile tile_of(int tile, int n_tiles, int n_chunks, int
 template <class P, int THREADS>
 __device__ __forceinline__ int issue_span(const P* __restrict__ xr, const Tile& t, int view_len,
                                           long long n_src, Raw<P>* buf) {
-  const int lo = (int)min((long long)t.len, max(max(0LL, -t.p0), -t.s0));
-  const int hi = (int)max((long long)lo, min(min((long long)t.len, view_len - t.p0),
-                                             n_src - t.s0));
+  int lo, hi;
+  span_bounds(t, view_len, n_src, lo, hi);
   return issue_copy<P, THREADS>(xr + t.s0, lo, hi, t.len, buf);
 }
 

@@ -1091,6 +1091,10 @@ LONG_GEOMS = {  # n_fft, hop, the route
     "nfft12000": (dict(n_fft=12000, hop_length=3000), "cluster"),
     "nfft8580": (dict(n_fft=8580, hop_length=2145), "fft"),
     "nfft10010": (dict(n_fft=10010, hop_length=2002), "fft"),
+    # the big block's other builds: odd 5005 (two frames a slot) and the
+    # chirp length 8192 of 4106 (n = 2053)
+    "nfft5005": (dict(n_fft=5005, hop_length=1001), "fft"),
+    "nfft4106": (dict(n_fft=4106, hop_length=2053), "chirp"),
     "nfft40000": (dict(n_fft=40000, hop_length=10000), "cluster"),
     "nfft32768": (dict(n_fft=32768, hop_length=16384), "cluster"),
     "nfft19683": (dict(n_fft=19683, hop_length=6561), "cluster"),
@@ -1132,7 +1136,8 @@ def _long_case(name, convention, cuda, dtype=torch.float32):
 @pytest.mark.parametrize("name", list(LONG_GEOMS))
 def test_long_frame_routes_match_plain_versions(cuda, name, convention):
     """Past n_fft 8192: 8580 and 10010 on the FFT route's big block (n =
-    4290 and 5005, no cluster shape), 16380 and 12000 (n = 8190 and 6000:
+    4290 and 5005, no cluster shape; with odd 5005 and the chirp's 4106,
+    the big block's other builds), 16380 and 12000 (n = 8190 and 6000:
     3 and 2 blocks), 16384 (n = 8192, a big block's size: 2 blocks of 64 x
     128), 40000, 32768, 19683 (odd, two frames a transform) and 62500 on
     the cluster route (2, 4, 2, 3 and 5 blocks); 4801, 4803, 16386,
@@ -1231,7 +1236,8 @@ WALK_GEOMS = {  # kernel A's complex-frame builds: the big block's (n = 4290
     # twiddles: the chirp's odd 4001 at a hop of a frame and 6920 / 1730, the
     # FFT route's n = 6006 at 12012 / 3003) and a block's (the large radices,
     # 1102: n = 19 x 29, odd 493 = 17 x 29; radix 11, 1100; odd 1323; the
-    # chirp length 2304 of 1101)
+    # chirp length 2304 of 1101; odd 37, the chirp length 81, 50 slots a
+    # block; 8190, n = 4095: the largest block-sized slot, one block an SM)
     "nfft8580": dict(n_fft=8580, hop_length=2145),
     "nfft10010": dict(n_fft=10010, hop_length=2002),
     "nfft5005": dict(n_fft=5005, hop_length=1001),
@@ -1244,6 +1250,8 @@ WALK_GEOMS = {  # kernel A's complex-frame builds: the big block's (n = 4290
     "nfft1100": dict(n_fft=1100, hop_length=275),
     "nfft1323": dict(n_fft=1323, hop_length=441),
     "nfft1101": dict(n_fft=1101, hop_length=367),
+    "nfft37": dict(n_fft=37, hop_length=1),
+    "nfft8190": dict(n_fft=8190, hop_length=2730),
 }
 
 

@@ -435,25 +435,68 @@ def _chirp(geo, slot):
     return _complex(K._chirp_np(n)), _complex(K._chirp_filter_np((n, slot)))
 
 
+def _cplx_tables(geo):
+    """The tables of the complex-frame kernel A for the geometry: the core's
+    twiddles of 2 slot points, the split's of n_fft, and on the chirp route
+    cbar_j and the filter spectrum (else None)."""
+    slot = geo.fft_layout()[0]
+    cb, filt = _chirp(geo, slot) if geo.route == "chirp" else (None, None)
+    return _twiddles(2 * slot), _twiddles(geo.n_fft), cb, filt
+
+
+def _cplx_transform_unpack(z, geo, tabs, b, t0, fe, re, im):
+    """spectra_cplx.cu's transform and unpack of a segment's nf slots z
+    (nf, T), the tile's frames t0 + fps f from view b (fe frames in the
+    tile, counted from the segment's first), into re / im: the T-point FFT;
+    on the chirp route times the filter spectrum and the unscaled inverse;
+    then per point pair (k, n - k) (Div by (n + 1) / 2), times cbar on the
+    chirp route, the pair's two frames (X_a = (Z[k] + conj Z[n-k]) / 2,
+    X_b = -i (Z[k] - conj Z[n-k]) / 2) or the split. A segment's large
+    stages take its fps slots' scratch rows (``_stage_large``)."""
+    slot, warps, _ = geo.fft_layout()
+    seg_slots = warps * FFT_WARP_POINTS // slot
+    tw, tws, cb, filt = tabs
+    chirp = cb is not None
+    n, paired = geo.fft_n, geo.fft_paired
+    fps = 2 if paired else 1
+    half = (n + 1) // 2
+    Z = _stockham(z, tw, False, seg_slots)
+    if chirp:
+        Z = _stockham(Z * filt, tw, True)
+    e = np.arange(len(z) * half)
+    sl = _div(e, half)
+    k = e - sl * half
+    km = np.where(k > 0, n - k, 0)
+    zk, zm = Z[sl, k], Z[sl, km]
+    if chirp:
+        zk, zm = zk * cb[k], zm * cb[km]
+    t = t0 + fps * sl
+    if paired:
+        re[b, t, k], im[b, t, k] = (0.5 * (zk + np.conj(zm))).real, (0.5 * (zk + np.conj(zm))).imag
+        xb = -0.5j * (zk - np.conj(zm))
+        ok = fps * sl + 1 < fe
+        re[b, t[ok] + 1, k[ok]], im[b, t[ok] + 1, k[ok]] = xb.real[ok], xb.imag[ok]
+    else:
+        lo, hi = _split(zk, zm, tws[k])
+        re[b, t, k], im[b, t, k] = lo.real, lo.imag
+        re[b, t, n - k], im[b, t, n - k] = hi.real, hi.imag
+        if n % 2 == 0:  # k = 0 also gives the middle bin
+            zh = Z[sl[k == 0], n // 2] * (cb[n // 2] if chirp else 1.0)
+            mid = _split(zh, zh, tws[n // 2])[0]
+            re[b, t[k == 0], n // 2], im[b, t[k == 0], n // 2] = mid.real, mid.imag
+
+
 def _emulate_spectra_cplx(x, geo, cs=0, pad=0):
     """csrc/spectra_cplx.cu: the tiles of kernel A; per thread segment, its
     slots of T points: an even n_fft's frame packed as z[q] = u[2q] + i
     u[2q+1] (n = M), an odd one's frame pair as z[j] = u_a[j] + i u_b[j]
     (n = N, a zero frame b past the tile's last); on the chirp route times
-    cbar_j and zero past n; the T-point FFT; on the chirp route times the
-    filter spectrum and the unscaled inverse; then per point pair (k, n -
-    k) (Div by (n + 1) / 2), times cbar on the chirp route, the pair's two
-    frames (X_a = (Z[k] + conj Z[n-k]) / 2, X_b = -i (Z[k] - conj Z[n-k]) /
-    2) or the split. A segment's large stages take its fps slots' scratch
-    rows (``_stage_large``)."""
-    slot, warps, _ = geo.fft_layout()
-    seg_slots = warps * FFT_WARP_POINTS // slot
-    chirp = geo.route == "chirp"
-    N, n, nb, paired = geo.n_fft, geo.fft_n, geo.n_bins, geo.fft_paired
+    cbar_j and zero past n; then ``_cplx_transform_unpack``."""
+    slot = geo.fft_layout()[0]
+    n, nb, paired = geo.fft_n, geo.n_bins, geo.fft_paired
     fps = 2 if paired else 1
-    tw, tws = _twiddles(2 * slot), _twiddles(N)
-    cb, filt = _chirp(geo, slot) if chirp else (None, None)
-    half = (n + 1) // 2
+    tabs = _cplx_tables(geo)
+    cb = tabs[2]
     B = x.shape[0] * (n_chunks_for(x.shape[1], cs) if cs else 1)
     re = np.zeros((B, geo.n_frames, nb))
     im = np.zeros_like(re)
@@ -469,33 +512,49 @@ def _emulate_spectra_cplx(x, geo, cs=0, pad=0):
                     z[sl, :n] = u[f] + 1j * (u[f + 1] if f + 1 < fe else 0.0)
                 else:
                     z[sl, :n] = u[f, 0::2] + 1j * u[f, 1::2]
-            if chirp:
+            if cb is not None:
                 z[:, :n] *= cb
-            Z = _stockham(z, tw, False, seg_slots)
-            if chirp:
-                Z = _stockham(Z * filt, tw, True)
-            e = np.arange(nf * half)
-            sl = _div(e, half)
-            k = e - sl * half
-            km = np.where(k > 0, n - k, 0)
-            zk, zm = Z[sl, k], Z[sl, km]
-            if chirp:
-                zk, zm = zk * cb[k], zm * cb[km]
-            t = t0 + fps * (f0 + sl)
-            if paired:
-                re[b, t, k], im[b, t, k] = (0.5 * (zk + np.conj(zm))).real, (0.5 * (zk + np.conj(zm))).imag
-                xb = -0.5j * (zk - np.conj(zm))
-                ok = fps * (f0 + sl) + 1 < fe
-                re[b, t[ok] + 1, k[ok]], im[b, t[ok] + 1, k[ok]] = xb.real[ok], xb.imag[ok]
-            else:
-                lo, hi = _split(zk, zm, tws[k])
-                re[b, t, k], im[b, t, k] = lo.real, lo.imag
-                re[b, t, n - k], im[b, t, n - k] = hi.real, hi.imag
-                if n % 2 == 0:  # k = 0 also gives the middle bin
-                    zh = Z[sl[k == 0], n // 2] * (cb[n // 2] if chirp else 1.0)
-                    mid = _split(zh, zh, tws[n // 2])[0]
-                    re[b, t[k == 0], n // 2], im[b, t[k == 0], n // 2] = mid.real, mid.imag
+            _cplx_transform_unpack(z, geo, tabs, b, t0 + fps * f0, fe - fps * f0, re, im)
     return re, im
+
+
+def _big_block_pack(x, geo, tile, n_tiles, n_chunks, stride, start):
+    """spectra_cplx.cu's pack in a big block (one slot a tile): each point
+    q of the slot from the frame's samples read straight from the plane
+    behind the span's guards (tile_span.cuh::span_bounds: span sample i is
+    row sample s0 + i for lo <= i < hi, else zero) and the window by index:
+    z[q] = w[2q] x(2q) + i w[2q+1] x(2q+1) (an even n_fft), or w[q] (x_a(q)
+    + i x_b(q)) for the slot's frames a and b = a + 1 (zero past the
+    tile's last); zero past n and the window; times cbar_q on the chirp
+    route. Returns (view, first frame, frames, z)."""
+    slot = geo.fft_layout()[0]
+    n, win, hop = geo.fft_n, geo.win, geo.hop
+    b, t0, fe, length, p0, s0 = _tile_of(tile, geo, n_tiles, n_chunks, stride, start)
+    row = x[b // n_chunks]
+    lo = min(length, max(0, -p0, -s0))
+    hi = max(lo, min(length, geo.view_len - p0, len(row) - s0))
+    ws = K._scaled_window_np(geo.scfg)
+
+    def smp(i):
+        ok = (i >= lo) & (i < hi)
+        return np.where(ok, row[np.clip(s0 + i, 0, len(row) - 1)], 0.0)
+
+    def wnd(i):
+        return np.where(i < win, ws[np.minimum(i, win - 1)], 0.0)
+
+    q = np.arange(slot)
+    if geo.fft_paired:
+        ua = np.where(q < win, wnd(q) * smp(q), 0.0)
+        ub = np.where(q < win, wnd(q) * smp(hop + q), 0.0) if fe > 1 else 0.0
+        z = ua + 1j * ub
+    else:
+        u = 2 * q
+        z = (np.where(u < win, wnd(u) * smp(u), 0.0)
+             + 1j * np.where(u + 1 < win, wnd(u + 1) * smp(u + 1), 0.0))
+    z = np.where(q < n, z, 0.0)
+    if geo.route == "chirp":
+        z[:n] *= _cplx_tables(geo)[2]
+    return b, t0, fe, z
 
 
 def _emulate_spectra(x, geo, cs=0, pad=0):
@@ -1098,6 +1157,51 @@ def test_spectra_cplx_emulation_of_a_short_noise_row(name):
     assert ere.shape == (1, geo.n_frames, geo.n_bins) and geo.n_frames <= 2
     _close(ere, re.numpy())
     _close(eim, im.numpy())
+
+
+# kernel A's big blocks: even 4106 (the chirp, L = 8192), 8580 and 10010,
+# odd 5005 (two frames a slot)
+SPECTRA_BIG_GEOMS = ["nfft4106-r2", "nfft8580-r4", "nfft5005-r5", "nfft10010-r5",
+                     "torch-nfft8580-r4"]
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+@pytest.mark.parametrize("name", SPECTRA_BIG_GEOMS)
+def test_spectra_cplx_big_block_pack_reads_the_plane(name, chunked):
+    """Kernel A's big block packs its slot straight from the plane and the
+    window by index, with no span or window in shared memory
+    (``_big_block_pack``): each tile's slot is, exactly, the one the
+    span's pack gives, and the spectra from those slots match
+    ``_emulate_spectra_cplx`` and the plain version."""
+    x = np.random.default_rng(43).standard_normal((2, N_SRC))
+    cs, pad = (CS, PAD) if chunked else (0, 0)
+    geo = gate_geometry(StftConfig(**CPLX_GEOMS[name]), CS + 2 * PAD if chunked else N_SRC)
+    n, paired = geo.fft_n, geo.fft_paired
+    assert geo.fft_layout()[0] > FFT_ELEMS and geo.fft_tile_frames == (2 if paired else 1)
+    n_chunks = n_chunks_for(x.shape[1], cs) if cs else 1
+    stride, start = (cs, -pad) if cs else (0, 0)
+    n_tiles = -(-geo.n_frames // geo.fft_tile_frames)
+    tabs = _cplx_tables(geo)
+    re = np.zeros((x.shape[0] * n_chunks, geo.n_frames, geo.n_bins))
+    im = np.zeros_like(re)
+    spans = _tiles(x, geo, cs, pad)  # the same tiles, in the same order
+    for tile in range(re.shape[0] * n_tiles):
+        b, t0, fe, z = _big_block_pack(x, geo, tile, n_tiles, n_chunks, stride, start)
+        tb, tt, u = next(spans)
+        assert (tb, tt, len(u)) == (b, t0, fe)
+        ref = np.zeros_like(z)
+        ref[:n] = (u[0] + 1j * (u[1] if fe > 1 else 0.0) if paired
+                   else u[0, 0::2] + 1j * u[0, 1::2])
+        if tabs[2] is not None:
+            ref[:n] *= tabs[2]
+        assert np.array_equal(z, ref), tile
+        _cplx_transform_unpack(z[None], geo, tabs, b, t0, fe, re, im)
+    pre, pim = K.spectra_ref(torch.as_tensor(x), geo, cs, pad)
+    ere, eim = _emulate_spectra_cplx(x, geo, cs, pad)
+    _close(re, ere)
+    _close(im, eim)
+    _close(re, pre.numpy())
+    _close(im, pim.numpy())
 
 
 @pytest.mark.parametrize("name", ["nfft1024-r4", "nfft1536-r4", "nfft1100-r4", "nfft441-r3",
@@ -2721,6 +2825,47 @@ def test_istft_cplx_fits_shared_memory():
     for n_fft, hop in ((15972, 15972), (4001, 4001), (6920, 1730), (12012, 3003)):
         geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 12 * n_fft + 5)
         assert geo.cplx_two_pass and _cplx_smem(geo) <= SMEM_MAX < _cplx_smem(geo) + _cplx_ring(geo)
+
+
+def _spectra_cplx_smem(geo, elem=4):
+    """spectra_cplx.cu::cplx_smem: the slots and the second buffer of the
+    stages out of place, the T - 1 laid twiddles (made even) and the tile's
+    index; a block of 512 threads also its span's raw plane values of
+    ``elem`` bytes (with 16 bytes of slack for their phase), the window and
+    the span's phase."""
+    slot, _, tile = geo.fft_layout()
+    elems = FFT_BIG_ELEMS if slot > FFT_ELEMS else FFT_ELEMS
+    core = 8 * ((elems + elems // 16) * 2 + ((slot + 1) & ~1)) + 4
+    if slot > FFT_ELEMS:
+        return core
+    length = (tile - 1) * geo.hop + geo.win
+    return core + elem * ((length + 16 // elem + 3) // 4 * 4) + 4 * geo.win + 4
+
+
+def test_spectra_cplx_fits_shared_memory():
+    """Every n_fft of kernel A's complex-frame kernel (the FFT route's past
+    the real-FFT kernels' and the chirp route's, to a big block, n_fft 8190
+    and 8191 among them: the largest block-sized slots), float32 and bf16
+    planes, at a hop of 1, the longest that divides a quarter frame, and a
+    frame: a block's two buffers, laid twiddles, span and window fit shared
+    memory, and a big block's two buffers and laid twiddles. The timed
+    cells on block-sized slots keep two blocks an SM, and n_fft 8190 (a
+    slot of 4095 points) takes one."""
+    for n_fft in sorted(set(range(1, 2 * FFT_BIG_ELEMS + 1, 3)) | {8190, 8191, 4106, 16382}):
+        scfg = StftConfig(n_fft=n_fft)
+        if fft_route(scfg) not in ("fft", "chirp") or real_kernel(n_fft):
+            continue
+        quarter = max([d for d in range(1, n_fft // 4 + 1) if n_fft % d == 0], default=1)
+        for hop in {1, quarter, n_fft}:
+            geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 4 * n_fft + 5)
+            for elem in (4, 2):
+                assert _spectra_cplx_smem(geo, elem) <= SMEM_MAX, (n_fft, hop, elem)
+    two = 113 << 10  # two blocks' shared memory on an SM, each
+    for n_fft, hop in ((1100, 275), (1323, 441), (1102, 551), (1101, 367), (37, 1), (441, 147)):
+        geo = gate_geometry(StftConfig(n_fft=n_fft, hop_length=hop), 60 * 44100)
+        assert _spectra_cplx_smem(geo) <= two, n_fft
+    geo = gate_geometry(StftConfig(n_fft=8190, hop_length=2730), 4 * 8190)
+    assert geo.fft_layout()[0] == 4095 and two < _spectra_cplx_smem(geo) <= SMEM_MAX
 
 
 @pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])

@@ -86,9 +86,10 @@ one process: every call goes through this tree's wrapper, whose library
 is swapped for each build's entries in turn (``AB_KERNELS``: ``real``,
 the real-FFT kernels ``csrc/spectra_fft.cu`` and ``csrc/istft_fft.cu``;
 ``global``, the global chirp route's ``csrc/spectra_global.cu`` and
-``csrc/istft_global.cu`` over ``csrc/fft_global.cuh``; ``cplx``, D's
-complex-frame kernel ``csrc/istft_cplx.cu``), in ``--rounds`` rounds of
-alternating order (this tree first, then the others, then the reverse),
+``csrc/istft_global.cu`` over ``csrc/fft_global.cuh``; ``cplx``, the
+complex-frame kernels ``csrc/spectra_cplx.cu`` and ``csrc/istft_cplx.cu``),
+in ``--rounds`` rounds of alternating order (this tree first, then the
+others, then the reverse),
 on the ``CELLS`` and ``LONG_CELLS`` that ``--cells`` names, with the
 signal in ``--dtype``. Per cell, build and kernel: the device time of
 each round (``queued_ms``: events around one call with the host's launch
@@ -143,6 +144,8 @@ CELLS = (  # name, n_fft, hop, seconds (or samples), sample rate
     ("n_fft 441, 44.1 kHz, 60 s", 441, 147, 60, 44100),
     ("n_fft 1102, 44.1 kHz, 60 s", 1102, 551, 60, 44100),
     ("n_fft 1101, 44.1 kHz, 60 s", 1101, 367, 60, 44100),
+    # the large radices beside radix 13: n = 221 = 13 x 17
+    ("n_fft 442, 44.1 kHz, 60 s", 442, 221, 60, 44100),
     # frames below 64 samples at 8 kHz (the DFT products before them): the
     # real-FFT kernels at M = 20, 1 and 8; odd 3 and 63 = 3^2 7, M = 17 and
     # 31 (stage_large) on the complex-frame kernels; the chirp at odd 37
@@ -390,9 +393,10 @@ def long_cell(cs, K, times, signals, n_fft, hop, n, sr, chunked, args) -> dict:
 AB_KERNELS = {
     "real": (("spectra_fft.cu", "istft_fft.cu"), ("nr_spectra_fft", "nr_istft_fft")),
     "global": (("spectra_global.cu", "istft_global.cu"), ("nr_spectra_global", "nr_istft_global")),
-    "cplx": (("istft_cplx.cu",), ("nr_istft_cplx",)),
+    "cplx": (("spectra_cplx.cu", "istft_cplx.cu"), ("nr_spectra_cplx", "nr_istft_cplx")),
 }
-_A, _D = "spectra_fft.cu", "istft_fft.cu"
+_A, _D, _G, _AC = "spectra_fft.cu", "istft_fft.cu", "fft_global.cuh", "spectra_cplx.cu"
+_AG, _DG = "spectra_global.cu", "istft_global.cu"
 AB_VARIANTS = {
     "run32": (None, "run32"),
     # D's overlap-add a sample at a time, not RING_UNROLL at once
@@ -408,7 +412,7 @@ AB_VARIANTS = {
          "for (int e = sg.lane; e < 0; e += plan.threads) {"),
         ], None),
     "diag_a_no_fft": ([
-        (_A, "const float2* zo = nrf::fft_frames_large<false, ODD, false, true>(\n"
+        (_A, "const float2* zo = nrf::fft_frames_large<false, ODD, false>(\n"
              "             s.z, s.sc, m, t.fe, s.stw, sg, plan);", "const float2* zo = s.z;"),
         (_A, "const float2* zo =\n"
              "             nrf::p2::fft_frames(s.z, s.sc, log2m, nrf::p2::radix(M, 1), t.fe, s.stw, sg);",
@@ -421,26 +425,52 @@ AB_VARIANTS = {
     "diag_d_no_pre": ([
         (_D, "for (int e = sg.lane; e < nf * half; e += plan.threads) {",
          "for (int e = sg.lane; e < 0; e += plan.threads) {")], None),
-    "diag_d_no_fft": ([(_D, "      nrf::fft_frames<true, ODD, true>(z, m, ge, stw, sg, plan);\n",
+    "diag_d_no_fft": ([(_D, "      nrf::fft_frames<true, ODD>(z, m, ge, stw, sg, plan);\n",
                         "")], None),
     "diag_d_no_ola": ([(_D, "for (int i0 = W * tid; i0 < ring;", "for (int i0 = W * tid; i0 < 0;")],
                       None),
     # D's complex-frame walk: runs of the geometry's length, not shortened
     # to fill the grid
     "cplx_fixed_run": (None, "longest"),
+    # the global chirp route's rows pass at two blocks an SM (64 registers,
+    # no spill), and its column passes at three too
+    "g_rows2": ([(_G, "__launch_bounds__(nrf::GLOBAL_THREADS, 3)",
+                  "__launch_bounds__(nrf::GLOBAL_THREADS, 2)")], None),
+    "g_lb3": ([(f, "__launch_bounds__(nrf::GLOBAL_THREADS, 2)",
+                "__launch_bounds__(nrf::GLOBAL_THREADS, 3)") for f in (_AG, _DG)], None),
+    # kernel A's complex-frame kernel without room for the laid twiddles
+    # (wrong outputs wherever a stage reads them: to time a build that
+    # reads none, 1102 or 442)
+    "diag_a_no_laid_room": ([
+        (_AC, "R* raw = reinterpret_cast<R*>(stw + ((T + 1) & ~1));",
+         "R* raw = reinterpret_cast<R*>(stw);"),
+        (_AC, "sizeof(float2) * (Bk::PADDED * 2 + ((slot + 1) & ~1));",
+         "sizeof(float2) * Bk::PADDED * 2;")], None),
+    # kernel A's complex-frame kernel with every build's tile index in
+    # shared memory across the stages, or none (the tile's view, first
+    # frame and frames in registers)
+    "a_tile_sm_all": ([(_AC, "constexpr bool TILE_SM = BIG || (ODD % 13 == 0 && !LARGE);",
+                        "constexpr bool TILE_SM = true;")], None),
+    "a_tile_sm_none": ([(_AC, "constexpr bool TILE_SM = BIG || (ODD % 13 == 0 && !LARGE);",
+                         "constexpr bool TILE_SM = false;")], None),
 }
 
 
-def checkout_run(root: pathlib.Path):
-    """D's run length by the rule of the checkout at root (its own
-    ``geometry.py``, loaded beside this tree's), for this tree's geometry:
-    the run its kernels take as given."""
+def checkout_runs(root: pathlib.Path) -> dict:
+    """The GateGeometry attributes that give D's runs by the rule of the
+    checkout at root (its own ``geometry.py``, loaded beside this tree's),
+    for this tree's geometry: the runs its kernels take as given (its
+    ``cplx_run`` where it has one, else its ``fft_run``)."""
     spec = importlib.util.spec_from_file_location(
         f"ab_geometry_{abs(hash(str(root)))}", root / "noisereduce_tpu_torch/ops/cuda/geometry.py")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod  # its dataclasses look their module up
     spec.loader.exec_module(mod)
-    return lambda g: mod.GateGeometry(g.scfg, g.view_len).fft_run
+    theirs = lambda g: mod.GateGeometry(g.scfg, g.view_len)  # noqa: E731
+    patches = run_patches(lambda g: theirs(g).fft_run)
+    if hasattr(mod.GateGeometry, "cplx_run"):
+        patches["cplx_run"] = lambda g, rows, n_out, blocks: theirs(g).cplx_run(rows, n_out, blocks)
+    return patches
 
 
 def old_run(g) -> int:
@@ -568,8 +598,7 @@ def ab_main(args, cs) -> None:
         name, _, path = entry.rpartition("=")
         root = pathlib.Path(path)
         name = name or "parent"
-        plans[name] = (root / "noisereduce_tpu_torch/ops/cuda/csrc", None,
-                       run_patches(checkout_run(root)))
+        plans[name] = (root / "noisereduce_tpu_torch/ops/cuda/csrc", None, checkout_runs(root))
         sigs[name] = checkout_signatures(root)
     # the sources and entries each build swaps: a checkout's, every set's; a
     # variant's, the sets whose sources it patches
@@ -695,12 +724,22 @@ def ab_main(args, cs) -> None:
             cell["torch_stft_ms"] = cs.queued_ms(lambda: torch.stft(
                 views.contiguous(), g.n_fft, g.hop, g.win, window, center=True,
                 pad_mode="constant", return_complex=True), args.reps)
-            cell["torch_istft_ms"] = cs.time_ms(lambda: torch.istft(
-                zm, g.n_fft, g.hop, g.win, window, center=True, length=g.view_len), args.reps)
+            istft = lambda: torch.istft(  # noqa: E731
+                zm, g.n_fft, g.hop, g.win, window, center=True, length=g.view_len)
+            cell["torch_istft_ms"] = cs.time_ms(istft, args.reps)
+            # its device time: the profiler's kernels (it waits for the card,
+            # so queued_ms cannot hide its host work), summed and by launch
+            split = cs.device_ms(istft, args.reps)
+            cell["torch_istft_device_ms"] = sum(split.values()) or None
+            cell["torch_istft_split"] = split
             del views, zm, re, im
         del mask
         torch.cuda.empty_cache()
         print(f"{name}: {json.dumps(cell)}", flush=True)
+        if glob:  # each tree's device ms by launch, A's and D's side by side
+            print(f"{name} split: " + json.dumps(
+                {t: {k: cell[t].get(f"{k}_split") for k in ("spectra", "istft_ola")}
+                 for t in trees} | {"torch.istft": cell.get("torch_istft_split")}), flush=True)
     print(json.dumps(out), flush=True)
 
 
